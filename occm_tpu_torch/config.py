@@ -1,0 +1,161 @@
+"""Model configuration for the PyTorch port.
+
+A copy of `occm_tpu.config.XLSRConfig` and `AASISTConfig`: the same fields,
+defaults, `tiny()` presets and validation, so a configuration means the same
+model in both packages. Fields that select a code path the port does not
+implement yet raise `NotImplementedError` when set to a non-default value,
+rather than being silently ignored. Fields that only matter while training
+(dropout rates, layerdrop, remat, feature_grad_mult) are kept: the serving
+path runs in eval mode, where they have no effect.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSRConfig:
+    """wav2vec2 / XLSR architecture; defaults are XLS-R 300M: 7-layer conv
+    feature encoder with overall stride 320, 24 pre-norm transformer layers,
+    d_model 1024, 16 heads, FFN 4096, conv positional embedding."""
+
+    conv_layers: Tuple[Tuple[int, int, int], ...] = (
+        (512, 10, 5),
+        (512, 3, 2),
+        (512, 3, 2),
+        (512, 3, 2),
+        (512, 3, 2),
+        (512, 2, 2),
+        (512, 2, 2),
+    )
+    extractor_mode: str = "layer_norm"
+    encoder_layers: int = 24
+    encoder_embed_dim: int = 1024
+    encoder_ffn_dim: int = 4096
+    encoder_heads: int = 16
+    conv_pos: int = 128
+    conv_pos_groups: int = 16
+    pos_conv_impl: str = "grouped"
+    layer_norm_first: bool = True
+    dropout: float = 0.0
+    attention_dropout: float = 0.0
+    activation_dropout: float = 0.0
+    dropout_input: float = 0.0
+    out_dim: int = 1024
+    remat: bool = True
+    dtype: str = "bfloat16"          # compute dtype of the matmuls and convs
+    # "xla": plain torch attention (fp32 logits and softmax); "flash": the
+    # hand-written CUDA flash-attention forward (ops/attention.py)
+    attention_impl: str = "xla"
+    feature_grad_mult: float = 1.0
+    norm_dtype: str = "float32"      # LayerNorm / softmax dtype
+    scan_unroll: int = 1
+    remat_policy: str = "nothing"
+    gelu_approximate: bool = False
+    conv_gelu_approximate: bool = False
+    layerdrop: float = 0.0
+    # the port keeps fp32 parameters and casts each weight to `dtype` where
+    # it is used, which gives the same numbers as a one-off bf16 mirror
+    bf16_param_mirror: bool = False
+    fused_qkv: bool = False
+    ffn_impl: str = "xla"
+    ln_impl: str = "xla"
+    quant_int8: bool = False
+    pp_stages: int = 1
+    pp_microbatches: int = 0
+    seq_parallel: bool = False
+    conv_remat: bool = False
+    allow_debug_impls: bool = False
+
+    def __post_init__(self):
+        if self.seq_parallel and self.pp_stages > 1:
+            raise ValueError(
+                "seq_parallel is not composable with pp_stages > 1")
+        impl = self.attention_impl
+        packed_ok = impl.startswith("packed") and (
+            impl == "packed" or impl[len("packed"):].isdigit())
+        if impl not in ("xla", "xla_merged", "pad128", "flash",
+                        "skip") and not packed_ok:
+            raise ValueError(
+                f"unknown attention_impl {impl!r} (xla | xla_merged | "
+                "packed[N] | pad128 | flash | skip)")
+        if impl == "skip" and not self.allow_debug_impls:
+            raise ValueError(
+                'attention_impl="skip" passes V through untouched (perf '
+                "attribution only, NOT attention); set "
+                "allow_debug_impls=True to use it in an A/B harness")
+        for field, value, valid in (
+            ("pos_conv_impl", self.pos_conv_impl,
+             ("grouped", "batched", "s2d")),
+            ("ffn_impl", self.ffn_impl, ("xla", "pallas")),
+            ("ln_impl", self.ln_impl, ("xla", "pallas")),
+            ("extractor_mode", self.extractor_mode,
+             ("layer_norm", "default")),
+            ("dtype", self.dtype, ("bfloat16", "float32")),
+            ("norm_dtype", self.norm_dtype, ("bfloat16", "float32")),
+            ("remat_policy", self.remat_policy,
+             ("nothing", "dots", "attn_out", "attn_out_inner",
+              "attn_probs", "attn_all")),
+        ):
+            if value not in valid:
+                raise ValueError(
+                    f"unknown {field} {value!r} ({' | '.join(valid)})")
+        unported = [
+            ("pp_stages", self.pp_stages != 1),
+            ("seq_parallel", self.seq_parallel),
+            ("quant_int8", self.quant_int8),
+            ("ffn_impl", self.ffn_impl != "xla"),
+            ("ln_impl", self.ln_impl != "xla"),
+            ("fused_qkv", self.fused_qkv),
+            ("attention_impl", impl not in ("xla", "flash")),
+            ("pos_conv_impl", self.pos_conv_impl != "grouped"),
+            ("extractor_mode", self.extractor_mode != "layer_norm"),
+        ]
+        for field, set_ in unported:
+            if set_:
+                raise NotImplementedError(
+                    f"XLSRConfig.{field}={getattr(self, field)!r} is not "
+                    "ported to occm_tpu_torch yet")
+
+    @staticmethod
+    def tiny() -> "XLSRConfig":
+        """Small config for CPU tests."""
+        return XLSRConfig(
+            conv_layers=((32, 10, 5), (32, 3, 2), (32, 2, 2)),
+            encoder_layers=2,
+            encoder_embed_dim=64,
+            encoder_ffn_dim=128,
+            encoder_heads=4,
+            conv_pos=16,
+            conv_pos_groups=4,
+            out_dim=64,
+            remat=False,
+            dtype="float32",
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class AASISTConfig:
+    """AASIST graph-attention backend hyper-parameters."""
+
+    filts: Tuple = (128, (1, 32), (32, 32), (32, 64), (64, 64))
+    gat_dims: Tuple[int, int] = (64, 32)
+    pool_ratios: Tuple[float, float, float, float] = (0.5, 0.5, 0.5, 0.5)
+    temperatures: Tuple[float, float, float, float] = (2.0, 2.0, 100.0, 100.0)
+    pos_s_nodes: int = 42
+    ll_dim: int = 128
+    dropout: float = 0.2
+    pool_dropout: float = 0.3
+    head_dropout: float = 0.5
+
+    @staticmethod
+    def tiny() -> "AASISTConfig":
+        """Small config for CPU tests; pos_s_nodes must stay ll_dim // 3."""
+        return AASISTConfig(
+            filts=(24, (1, 8), (8, 8), (8, 16), (16, 16)),
+            gat_dims=(16, 8),
+            pos_s_nodes=8,
+            ll_dim=24,
+        )

@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels and load them through ctypes.
+
+Every `occm_tpu_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a` into one
+shared library with a plain C interface, at first use, into
+`occm_tpu_torch/build/`. The library's name carries a hash of the sources and
+flags, so an edited source is rebuilt and a stale library is never loaded.
+Nothing here runs at import time: the CPU-only test host has no `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+#: seconds the last build took (0.0 when the library was already built)
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the port's CUDA kernels are built "
+        "from occm_tpu_torch/csrc at first use")
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in _sources():
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libocct_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if the current sources are not built yet;
+    returns the library path."""
+    global build_seconds
+    path = library_path()
+    if os.path.exists(path):
+        build_seconds = 0.0
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    build_seconds = time.perf_counter() - t0
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call, with every entry point's
+    argument and return types declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.occm_flash_attn_fwd.argtypes = [
+                p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+            lib.occm_flash_attn_fwd.restype = i
+            _lib = lib
+        return _lib

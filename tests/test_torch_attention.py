@@ -1,0 +1,136 @@
+"""The port's flash-attention op against the JAX Pallas kernels.
+
+On the CPU the port's wrapper runs the kernel's plain version
+(`flash_attention_reference`); the JAX side runs its Pallas kernels in
+interpret mode, as tests/test_attention.py does. T=201 takes the whole-T
+kernel (`_fwd_kernel`), T=600 and T=1500 the blocked online-softmax kernel
+(`_blocked_fwd_kernel`); the tolerances are tests/test_attention.py's. The
+CUDA kernel itself is held against the same plain version on the card by
+chip_smoke.py.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from occm_tpu.ops import attention as jax_attention
+from occm_tpu_torch.ops import attention
+from occm_tpu_torch.utils.device import resolve_device
+
+
+def _qkv(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) * 0.5
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("T, B, H, atol", [
+    (201, 2, 4, 2e-5),    # whole-T route
+    (600, 2, 2, 3e-5),    # blocked route, blk 1024
+    (1500, 1, 2, 3e-5),   # blocked route, blk 512, three kv tiles
+])
+def test_flash_attention_matches_pallas_kernel(T, B, H, atol):
+    q, k, v = _qkv((B, T, H, 64))
+    want = np.asarray(jax_attention.flash_attention(
+        *map(jnp.asarray, (q, k, v)), interpret=True))
+    got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)))
+    assert got.shape == (B, T, H, 64)
+    np.testing.assert_allclose(got.numpy(), want, atol=atol)
+
+
+def test_lse_matches_blocked_kernel():
+    """The second output, [BH, T] fp32, is the blocked kernel's lse
+    without its 128-lane replication."""
+    B, H, T, D = 1, 2, 600, 64
+    q, k, v = _qkv((B, H, T, D), seed=1)
+    Tp = 1024  # _pick_blk(600) pads to one 1024 tile
+    pad = ((0, 0), (0, 0), (0, Tp - T), (0, 0))
+    _, lse = jax_attention._run_blocked_fwd(
+        *(jnp.pad(jnp.asarray(x), pad) for x in (q, k, v)), T,
+        1.0 / math.sqrt(D), True)
+    want = np.asarray(lse)[:, :T, 0]
+    _, got = attention.flash_attention_fwd(
+        *(torch.from_numpy(x.reshape(B * H, T, D)) for x in (q, k, v)), T)
+    assert got.dtype == torch.float32 and got.shape == (B * H, T)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5)
+
+
+def test_reference_attention_matches_jax():
+    q, k, v = _qkv((2, 97, 4, 64), seed=2)
+    want = np.asarray(jax_attention.reference_attention(
+        *map(jnp.asarray, (q, k, v))))
+    got = attention.reference_attention(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+def test_keys_past_t_valid_are_masked():
+    """Whatever sits in the keys and values past t_valid leaves the output
+    unchanged, and lse equals the unpadded one."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv((3, 80, 64), seed=3))
+    out, lse = attention.flash_attention_fwd(q, k, v, 50)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 50:] = 1e3
+    v2[:, 50:] = -7.0
+    out2, lse2 = attention.flash_attention_fwd(q, k2, v2, 50)
+    torch.testing.assert_close(out2, out, rtol=0, atol=0)
+    torch.testing.assert_close(lse2, lse, rtol=0, atol=0)
+    logits = (q @ k[:, :50].transpose(1, 2)) * 0.125
+    want = torch.softmax(logits, dim=-1) @ v[:, :50]
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_plain_version_keeps_the_kernels_bf16_casts():
+    """bf16 inputs: q is scaled in fp32 then cast to bf16 and P is cast to
+    bf16 before P·V, exactly as the Pallas kernels do."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv((2, 40, 64), seed=4))
+    out, lse = attention.flash_attention_reference(q, k, v, 40)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    qs = (q.float() * 0.125).to(torch.bfloat16).float()
+    logits = qs @ k.float().transpose(1, 2)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    want = ((p.to(torch.bfloat16).float() @ v.float())
+            / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    q, k, v = (torch.from_numpy(x) for x in _qkv((1, 33, 2, 64), seed=5))
+    before = attention.LAUNCHES
+    out = attention.flash_attention(q, k, v)
+    assert attention.LAUNCHES == before
+    want = attention.reference_attention(q, k, v)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_is_the_default_and_raises_without_a_card(monkeypatch):
+    """The port's entry points resolve their device through resolve_device:
+    CUDA unless the caller names the CPU, and an error (never a silent CPU
+    run) when no card is present."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("bad", ["shape", "t_valid", "device"])
+def test_wrapper_rejects_bad_arguments(bad):
+    q, k, v = (torch.zeros(2, 16, 64) for _ in range(3))
+    t_valid = 16
+    if bad == "shape":
+        k = torch.zeros(2, 17, 64)
+    elif bad == "t_valid":
+        t_valid = 0
+    else:
+        q, k, v = (x.to("meta") for x in (q, k, v))
+    with pytest.raises(ValueError):
+        attention.flash_attention_fwd(q, k, v, t_valid)

@@ -1,26 +1,47 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/H100 port (`occm_tpu_torch`).
 
-    python3 chip_smoke.py                # every phase, one CUDA card
-    python3 chip_smoke.py --profile      # every phase + device time by kernel
+    python3 chip_smoke.py                 # every phase, one CUDA card
+    python3 chip_smoke.py --profile       # every phase + device time by kernel
+    python3 chip_smoke.py --kernels-only  # phases 1-3 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit and turns TF32 off for the comparisons.
-2. build: compiles occm_tpu_torch/csrc/*.cu with nvcc (sm_90a).
-3. kernels: the flash-attention forward kernel against its plain PyTorch
-   version on the card, at B=8, H=16, D=64, bf16, T in {201, 299, 599,
-   1500}; prints the error and the kernel, plain and library (SDPA) times.
-4. main path: the full-width XLSR-300M + AASIST scorer (random weights
-   from a seed) served over HTTP by `occm_tpu_torch.cli.oc_server`: a 4 s
-   WAV, a 6 s raw-PCM and a 12 s WAV request plus 8 concurrent 6 s
-   requests. Checks every response, that the kernel launched 24 times
-   (one per layer) for every batch of a flash bucket, and that the flash
-   scores agree with the plain-attention scores.
-5. with --profile only: device time by kernel (torch.profiler) for full
-   batches of 8 in the two flash buckets.
-6. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
+2. build: compiles occm_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
+   per source in parallel, and prints ptxas's registers and spills.
+3. kernels, each against its plain PyTorch version on the card on the same
+   inputs, with the kernel, plain, library and bound times:
+   - flash_attn_fwd at B=8, H=16, D=64, bf16, T in {201, 299, 599, 1500}
+     (library: SDPA);
+   - flash_attn_bwd (its dq and dk/dv launches) at B=12, H=16, D=64, T in
+     {201, 299, 599, 1500} (library: SDPA forward+backward minus forward);
+   - layernorm_bwd at [3588, 1024] bf16 (library:
+     aten.native_layer_norm_backward);
+   - fused_adam over every leaf of the full AModel (library:
+     torch.optim.Adam(fused=True).step()).
+4. serving: the full-width XLSR-300M + AASIST scorer (random weights from a
+   seed) served over HTTP by `occm_tpu_torch.cli.oc_server`: a 4 s WAV, a
+   6 s raw-PCM and a 12 s WAV request plus 8 concurrent 6 s requests.
+   Checks every response, that the forward kernel launched 24 times (one
+   per layer) for every batch of a flash bucket, and that the flash scores
+   agree with the plain-attention scores.
+5. training through the CLI: `occm_tpu_torch.cli.oc_training.main` at full
+   width on a synthetic ASVspoof-shaped tree of 6-7 s waves, --cut 96000
+   (flash attention through auto), one epoch. Checks every step's loss is
+   finite, the attention kernels' launches per step, and that
+   aasist_vocoded_0.pt loads strictly into the port's AModel.
+6. training through `train()`: 3 steps with every kernel (flash attention,
+   ln_impl="pallas", optimizer="fused_adam", AASIST dropouts zeroed), then
+   the same 3 steps from the same weights and batches in the plain
+   configuration (xla attention and LayerNorm, torch Adam). Checks each
+   kernel's launches per step and the per-step losses within a stated
+   bound; prints step times and peak memory.
+7. with --profile only: device time by kernel (torch.profiler) for full
+   serving batches of 8 in the two flash buckets and for one full training
+   step (12 x 6 s).
+8. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -49,6 +70,8 @@ MAIN_PATH_TS = (299, 599)
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+TRAIN_B = 12  # utterances in one training step: one meta-batch
 
 # Kernel vs plain version: the plain version runs in fp32 on the same bf16
 # inputs, so the kernel's own roundings show as error: P cast to bf16
@@ -66,6 +89,10 @@ LSE_ATOL = 1e-3
 # fails on any structural fault (a wrong mask, layout or scale moves the
 # distance by far more).
 SCORE_RTOL = 5e-2
+# Training, step 1: the same forward as the serving check's, through the
+# same 24 layers, plus the LayerNorm kernel's bf16 output: relative 5e-2 of
+# the loss (later steps add an Adam term, see phase_train).
+LOSS_RTOL = 5e-2
 
 SR = 16000
 
@@ -130,6 +157,9 @@ def phase_build():
     print(f"[build] {_build.library_path()} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f}"
           " s)", flush=True)
+    for line in _build.build_log.splitlines():
+        if "Used" in line or "spill" in line or "Compiling" in line:
+            print(f"[build]   {line.strip()}", flush=True)
 
 
 # ----------------------------------------------------------------- phase 3
@@ -177,6 +207,242 @@ def phase_kernels():
               f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {flops:.4g} flop, {nbytes:.4g} B)", flush=True)
     return rows
+
+
+# Backward kernel vs its plain version on the same bf16 inputs: the plain
+# version repeats the kernel's casts (P and dS to bf16 before their
+# products), so the two differ only by fp32 summation order, which can move
+# one bf16 rounding of P, dS or an output by one ulp (2^-8 relative). A
+# bound of 2^-6 of the largest |value| of each gradient holds that and
+# fails on a wrong fragment, mask or scale (those move whole rows).
+BWD_RTOL_OF_MAX = 2.0 ** -6
+# LayerNorm backward: dx is written in bf16 (one rounding, 2^-8 relative, a
+# flip of it 2^-7 of the largest |dx|); dgamma and dbeta are fp32 sums over
+# 3588 rows in another order (each term equal to ~1e-6 relative), so 1e-4
+# of the largest |value|.
+LN_DX_RTOL_OF_MAX = 2.0 ** -7
+LN_DPARAM_RTOL_OF_MAX = 1e-4
+# Fused Adam: the same fp32 formula, IEEE sqrt and division on both sides;
+# they differ by fused multiply-adds at most, a few ulp of p (|p| < 8:
+# ulp 5e-7), of m and of v.
+ADAM_ATOL = 2e-6
+LN_SHAPE = (12 * 299, 1024)  # [meta-batch x frames at 6 s, d_model]
+
+
+def attention_bwd_bound(bh: int, t: int, d: int):
+    """Least time for one backward on an H100: five products of 2*T*T*D
+    flops per (b, h); q, k, v, o, dO read and dq, dk, dv written once in
+    bf16, lse and delta read once in fp32."""
+    flops = 10.0 * bh * t * t * d
+    nbytes = 8.0 * bh * t * d * 2 + 2.0 * bh * t * 4
+    t_ops = flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def bytes_bound(nbytes: float, flops: float = 0.0,
+                peak_flops: float = PEAK_FP32_FLOPS):
+    t_ops = flops / peak_flops
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def check_attention_autograd(q, k, v, do, want, bt, ht, t):
+    """`flash_attention` on CUDA tensors, [B, T, H, D]: q, k and v get
+    gradients, through one launch of each backward kernel, equal to the
+    backward wrapper's."""
+    import torch
+
+    from occm_tpu_torch.ops import attention
+
+    def bthd(x):
+        return x.view(bt, ht, t, D).permute(0, 2, 1, 3)
+
+    q4, k4, v4 = (bthd(x).detach().requires_grad_() for x in (q, k, v))
+    before = (attention.BWD_DQ_LAUNCHES, attention.BWD_DKV_LAUNCHES)
+    attention.flash_attention(q4, k4, v4).backward(bthd(do))
+    torch.cuda.synchronize()
+    if (attention.BWD_DQ_LAUNCHES - before[0],
+            attention.BWD_DKV_LAUNCHES - before[1]) != (1, 1):
+        fail("flash_attention backward did not launch each backward kernel "
+             "once")
+    for name, x, w in zip(("q", "k", "v"), (q4, k4, v4), want):
+        if x.grad is None or not torch.equal(x.grad, bthd(w)):
+            fail(f"flash_attention: {name}.grad is not the kernel's")
+    print(f"[kernel] flash_attention autograd on cuda at T={t}: q, k, v "
+          "gradients are the backward kernels'", flush=True)
+
+
+def phase_attention_bwd():
+    import torch
+    import torch.nn.functional as F
+
+    from occm_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bt, ht = TRAIN_B, H
+    rows = []
+    for t in KERNEL_TS:
+        q, k, v, do = (torch.randn((bt * ht, t, D), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = flash_attention_fwd(q, k, v, t)
+        got = flash_attention_bwd(q, k, v, out, lse, do, t)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_reference(q, k, v, out, lse, do, t)
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err = (a.float() - b.float()).abs().max().item()
+            scale = b.float().abs().max().item()
+            if not (math.isfinite(err) and err <= BWD_RTOL_OF_MAX * scale):
+                fail(f"flash_attn_bwd T={t}: max |{name} - plain| = {err} > "
+                     f"{BWD_RTOL_OF_MAX} * {scale}")
+            errs.append((name, err, scale))
+        if t == MAIN_PATH_TS[0]:
+            check_attention_autograd(q, k, v, do, got, bt, ht, t)
+        ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, t))
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, out, lse, do, t), iters=3, warmup=1)
+        q4, k4, v4 = (x.view(bt, ht, t, D).detach().requires_grad_()
+                      for x in (q, k, v))
+        do4 = do.view(bt, ht, t, D)
+
+        def sdpa_fwd_bwd():
+            o4 = F.scaled_dot_product_attention(q4, k4, v4)
+            torch.autograd.grad(o4, (q4, k4, v4), do4)
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        library_ms = cuda_ms(sdpa_fwd_bwd) - fwd_ms
+        bound_ms, bound_by, flops, nbytes = attention_bwd_bound(bt * ht, t, D)
+        row = dict(T=t, max_abs_err=max(e[1] for e in errs),
+                   errors={n: e for n, e, _ in errs}, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=nbytes)
+        rows.append(row)
+        print(f"[kernel] flash_attn_bwd B={bt} H={ht} T={t} D={D}: "
+              + ", ".join(f"{n} err {e:.3e} (max |plain| {m:.3e})"
+                          for n, e, m in errs)
+              + f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{flops:.4g} flop, {nbytes:.4g} B)", flush=True)
+    return rows
+
+
+def phase_layernorm_bwd():
+    import torch
+
+    from occm_tpu_torch.ops.layernorm import (
+        layer_norm_bwd, layer_norm_bwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    m, d = LN_SHAPE
+    x = torch.randn((m, d), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((m, d), generator=gen, device="cuda").to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    eps = 1e-5
+    got = layer_norm_bwd(x, gamma, g, eps)
+    torch.cuda.synchronize()
+    want = layer_norm_bwd_reference(x, gamma, g, eps)
+    errs = {}
+    for name, a, b, rtol in zip(
+            ("dx", "dgamma", "dbeta"), got, want,
+            (LN_DX_RTOL_OF_MAX, LN_DPARAM_RTOL_OF_MAX,
+             LN_DPARAM_RTOL_OF_MAX)):
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        if not (math.isfinite(err) and err <= rtol * scale):
+            fail(f"layernorm_bwd: max |{name} - plain| = {err} > {rtol} * "
+                 f"{scale}")
+        errs[name] = err
+    ms = cuda_ms(lambda: layer_norm_bwd(x, gamma, g, eps))
+    plain_ms = cuda_ms(lambda: layer_norm_bwd_reference(x, gamma, g, eps))
+    gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], gb, bb, eps)
+    library_ms = cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+        g, x, [d], mean, rstd, gb, bb, [True, True, True]))
+    nbytes = 3.0 * m * d * 2 + 3.0 * d * 4
+    flops = 12.0 * m * d
+    bound_ms, bound_by = bytes_bound(nbytes, flops)
+    print(f"[kernel] layernorm_bwd [{m}, {d}] bf16: "
+          + ", ".join(f"{n} err {e:.3e}" for n, e in errs.items())
+          + f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, aten "
+          f"native_layer_norm_backward {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, {nbytes:.4g} B)",
+          flush=True)
+    return dict(shape=[m, d], max_abs_err=max(errs.values()), errors=errs,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                bytes=nbytes)
+
+
+def phase_fused_adam():
+    import torch
+
+    from occm_tpu_torch.config import AASISTConfig, XLSRConfig
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.ops.fused_adam import (
+        FusedAdam, adam_reference, bias_corrections)
+    from occm_tpu_torch.utils import random_init_
+
+    model = random_init_(AModel(AASISTConfig(), XLSRConfig()), seed=0)
+    params = [p.detach().to("cuda") for p in model.parameters()]
+    del model
+    n = sum(p.numel() for p in params)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    grads = [torch.randn(p.shape, generator=gen, device="cuda")
+             for p in params]
+    opt = FusedAdam(1e-5).init(params)
+    # moments from two earlier steps, so step 3's bias corrections and
+    # moment decay are exercised
+    for m_, v_, g_ in zip(opt.mu, opt.nu, grads):
+        m_.copy_(0.1 * g_)
+        v_.copy_(0.001 * g_ * g_)
+    opt.count = 2
+    ref = [(p.clone(), m_.clone(), v_.clone())
+           for p, m_, v_ in zip(params, opt.mu, opt.nu)]
+    opt.step(params, grads)
+    torch.cuda.synchronize()
+    inv_bc1, inv_bc2 = bias_corrections(3, opt.b1, opt.b2)
+    err = 0.0
+    for (p0, m0, v0), p, m_, v_, g_ in zip(ref, params, opt.mu, opt.nu,
+                                           grads):
+        adam_reference(p0, m0, v0, g_, inv_bc1, inv_bc2, opt.lr, opt.b1,
+                       opt.b2, opt.eps)
+        for a, b in ((p, p0), (m_, m0), (v_, v0)):
+            err = max(err, (a - b).abs().max().item())
+    del ref
+    if not (math.isfinite(err) and err <= ADAM_ATOL):
+        fail(f"fused_adam: max |p, m, v - plain| = {err} > {ADAM_ATOL}")
+    ms = cuda_ms(lambda: opt.step(params, grads), iters=5, warmup=1)
+    m_list, v_list = opt.mu, opt.nu
+    plain_ms = cuda_ms(lambda: [adam_reference(
+        p, m_, v_, g_, inv_bc1, inv_bc2, opt.lr, opt.b1, opt.b2, opt.eps)
+        for p, m_, v_, g_ in zip(params, m_list, v_list, grads)],
+        iters=3, warmup=1)
+    lib_params = [torch.nn.Parameter(p.clone()) for p in params]
+    for lp, g_ in zip(lib_params, grads):
+        lp.grad = g_
+    lib_opt = torch.optim.Adam(lib_params, lr=1e-5, fused=True)
+    library_ms = cuda_ms(lib_opt.step, iters=5, warmup=1)
+    del lib_opt, lib_params
+    nbytes = 28.0 * n
+    bound_ms, bound_by = bytes_bound(nbytes, 10.0 * n)
+    print(f"[kernel] fused_adam over {len(params)} leaves, {n} fp32 params: "
+          f"max err {err:.3e} (bound {ADAM_ATOL}), kernel {ms:.4f} ms/step, "
+          f"plain {plain_ms:.4f} ms, torch Adam(fused=True) "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{nbytes:.4g} B)", flush=True)
+    return dict(leaves=len(params), params=n, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes)
 
 
 # ----------------------------------------------------------------- phase 4
@@ -397,15 +663,300 @@ def phase_main_path(workdir: str):
     return main_launches, model, reference.cpu().numpy()
 
 
+# ----------------------------------------------------------------- phase 5
+
+VOCODERS = ("hifigan", "hn-sinc-nsf-hifi", "hn-sinc-nsf", "melgan",
+            "waveglow")
+DEVICE = "cuda"
+TRAIN_CUT = 96000  # 6 s: impl_select's auto policy picks the flash kernels
+TRAIN_STEPS = 3
+
+
+def write_fixture(root: str, n_bona: int = 6, n_spoof: int = 2,
+                  seed: int = 0):
+    """An ASVspoof-shaped tree (the recipe of tests/test_cli_training.py)
+    of 6-7 s waves: bonafide and spoof utterances, a train protocol, and
+    the 5 vocoded copies of every bonafide one."""
+    from occm_tpu_torch.io.wav import write_wav
+
+    train_dir = os.path.join(root, "train")
+    voc_dir = os.path.join(root, "vocoded")
+    os.makedirs(train_dir)
+    os.makedirs(voc_dir)
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(n_bona):
+        utt = f"LA_T_b{i:04d}"
+        wave = synthetic_wave(rng, rng.uniform(6.0, 7.0))
+        write_wav(os.path.join(train_dir, utt + ".wav"), wave, SR)
+        lines.append(f"LA_{i:04d} {utt} - - bonafide")
+        for voc in VOCODERS:
+            noisy = wave + 0.01 * rng.standard_normal(wave.shape[0])
+            write_wav(os.path.join(voc_dir, f"{voc}_{utt}.wav"), noisy, SR)
+    for i in range(n_spoof):
+        utt = f"LA_T_s{i:04d}"
+        write_wav(os.path.join(train_dir, utt + ".wav"),
+                  synthetic_wave(rng, rng.uniform(6.0, 7.0)), SR)
+        lines.append(f"LA_{100 + i:04d} {utt} - A01 spoof")
+    protocol = os.path.join(root, "train.txt")
+    with open(protocol, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return protocol, train_dir, voc_dir
+
+
+def reset_counts():
+    from occm_tpu_torch.ops import attention, fused_adam, layernorm
+
+    attention.LAUNCHES = 0
+    attention.BWD_DQ_LAUNCHES = 0
+    attention.BWD_DKV_LAUNCHES = 0
+    layernorm.LAUNCHES = 0
+    fused_adam.LAUNCHES = 0
+
+
+def read_counts():
+    from occm_tpu_torch.ops import attention, fused_adam, layernorm
+
+    return {"flash_attn_fwd": attention.LAUNCHES,
+            "flash_attn_bwd_dq": attention.BWD_DQ_LAUNCHES,
+            "flash_attn_bwd_dkv": attention.BWD_DKV_LAUNCHES,
+            "layernorm_bwd": layernorm.LAUNCHES,
+            "fused_adam": fused_adam.LAUNCHES}
+
+
+class StepRecorder:
+    """on_step hook: each step's loss, wall time (after a synchronize) and
+    kernel launches."""
+
+    def __init__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        self.last = read_counts()
+        self.steps = []
+
+    def __call__(self, step, metrics):
+        import torch
+
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = read_counts()
+        self.steps.append(dict(
+            step=step, loss=float(metrics["loss"]),
+            closs=float(metrics["closs"]), dloss=float(metrics["dloss"]),
+            ms=(now - self.t0) * 1e3,
+            launches={k: counts[k] - self.last[k] for k in counts}))
+        self.t0, self.last = now, counts
+
+
+def check_steps(name, rec, want):
+    """Every step's loss finite and its launches as `want` says."""
+    if not rec.steps:
+        fail(f"{name}: no training step ran")
+    for st in rec.steps:
+        if not all(math.isfinite(st[k]) for k in ("loss", "closs", "dloss")):
+            fail(f"{name}: step {st['step']} loss not finite: {st}")
+        for k, n in want.items():
+            if st["launches"][k] != n:
+                fail(f"{name}: step {st['step']} launched {k} "
+                     f"{st['launches'][k]} times, want {n}")
+        print(f"[train] {name} step {st['step']}: loss {st['loss']:.6f} "
+              f"(closs {st['closs']:.6f}, dloss {st['dloss']:.6f}), "
+              f"{st['ms']:.1f} ms, launches {st['launches']}", flush=True)
+
+
+class ListPipeline:
+    """The same batches every epoch (the kernel-vs-plain training runs)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def epoch(self, epoch=0):
+        return iter(self.batches)
+
+
+def phase_train(workdir: str, profile: bool):
+    """Phase 5 (CLI) and phase 6 (train() with every kernel against the
+    plain configuration). Returns the launches of both runs."""
+    import dataclasses
+
+    import torch
+
+    from occm_tpu_torch.classify.impl_select import select_attention_impl
+    from occm_tpu_torch.cli import oc_training
+    from occm_tpu_torch.config import (
+        AASISTConfig, RawBoostConfig, TrainConfig, XLSRConfig)
+    from occm_tpu_torch.data import MetaBatchPipeline, PFDataset
+    from occm_tpu_torch.losses import group_one_class_loss
+    from occm_tpu_torch.models import AModel, load_reference_state_dict
+    from occm_tpu_torch.train import train
+    from occm_tpu_torch.utils.logging import MetricsLogger
+
+    fixture = os.path.join(workdir, "fixture")
+    os.makedirs(fixture)
+    protocol, train_dir, voc_dir = write_fixture(fixture)
+    layers = XLSRConfig().encoder_layers
+    launches = {}
+
+    # ---- phase 5: the CLI, as a user runs it
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    cwd = os.getcwd()
+    os.chdir(workdir)  # loss.txt and metrics.jsonl land here
+    try:
+        reset_counts()
+        rec = StepRecorder()
+        t0 = time.perf_counter()
+        oc_training.main([
+            "--train_protocol_file", protocol,
+            "--train_dataset_dir", train_dir, "--vocoded_dir", voc_dir,
+            "--model", "aasist", "--cut", str(TRAIN_CUT), "--num_epochs", "1",
+            "--compactness_weight", "0.1", "--descriptiveness_weight", "0.9",
+            "--checkpoint_dir", ckpt_dir], on_step=rec)
+        wall = time.perf_counter() - t0
+        cli_counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    # remat (the default) runs every layer's forward twice: once in the
+    # forward, once in the backward's recompute
+    check_steps("cli", rec, {
+        "flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
+        "flash_attn_bwd_dkv": layers, "layernorm_bwd": 0, "fused_adam": 0})
+    path = os.path.join(ckpt_dir, "aasist_vocoded_0.pt")
+    model = AModel(AASISTConfig(), XLSRConfig())
+    model.load_state_dict(load_reference_state_dict(path), strict=True)
+    print(f"[train] cli: {len(rec.steps)} steps of 12 x {TRAIN_CUT} "
+          f"samples in {wall:.1f} s (model build, data, checkpoint "
+          f"included); {path} ({os.path.getsize(path) / 2**30:.2f} GiB) "
+          f"loads strictly into AModel", flush=True)
+    del model
+
+    # ---- phase 6: train() with every kernel, then the plain configuration
+    dataset = PFDataset(protocol, dataset_dir=train_dir, vocoded_dir=voc_dir,
+                        cut=TRAIN_CUT, seed=0)
+    batches = []
+    for x, labels in MetaBatchPipeline(dataset, seed=0).epoch(0):
+        batches.append((x, labels))
+        if len(batches) == TRAIN_STEPS:
+            break
+    acfg = AASISTConfig(dropout=0.0, pool_dropout=0.0, head_dropout=0.0)
+    impl = select_attention_impl(TRAIN_CUT)
+    if impl != "flash":
+        fail(f"auto attention at {TRAIN_CUT} samples is {impl!r}, not flash")
+    kcfg = XLSRConfig(ln_impl="pallas", attention_impl=impl)
+    pcfg = XLSRConfig(ln_impl="xla", attention_impl="xla")
+    base = TrainConfig(cut=TRAIN_CUT, compactness_weight=0.1,
+                       descriptiveness_weight=0.9, log_every=1,
+                       rawboost=RawBoostConfig(algo=0))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        init = AModel(acfg, kcfg).state_dict()
+
+    # Adam's first update moves every weight by lr * sign(g) (mhat / sqrt(
+    # vhat) = g / |g|), so after step 1 the two runs' weights differ only
+    # where the two configurations' gradients at the initial weights differ
+    # in sign, by 2 * lr there. To first order that moves the loss by at
+    # most 2 * lr * sum over those weights of |g|: measured here from both
+    # gradients on the first batch (before the counted runs)
+    grads = {}
+    for name, xcfg in (("plain", pcfg), ("kernels", kcfg)):
+        model = AModel(acfg, xcfg)
+        model.load_state_dict(init)
+        model.to(DEVICE).train()
+        emb, logits = model(torch.from_numpy(batches[0][0]).to(DEVICE),
+                            generator=torch.Generator().manual_seed(0))
+        loss0, _ = group_one_class_loss(
+            emb, logits, torch.from_numpy(batches[0][1]).to(DEVICE), 0.1,
+            0.9)
+        loss0.backward()
+        grads[name] = [p.grad for p in model.parameters()]
+        del model, emb, logits, loss0
+    flip_l1 = 0.0
+    for gp, gk in zip(grads["plain"], grads["kernels"]):
+        if gp is not None:
+            flip = torch.sign(gp) != torch.sign(gk)
+            flip_l1 += float(((gp.abs() + gk.abs()) * flip).sum())
+    del grads
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for name, xcfg, opt in (("kernels", kcfg, "fused_adam"),
+                            ("plain", pcfg, "adam")):
+        cfg = dataclasses.replace(base, optimizer=opt,
+                                  loss_txt=os.path.join(
+                                      workdir, f"loss_{name}.txt"))
+        logger = MetricsLogger(cfg.loss_txt,
+                               os.path.join(workdir, f"metrics_{name}.jsonl"))
+        model = AModel(acfg, xcfg)
+        model.load_state_dict(init)
+        leaves = sum(1 for n, _ in model.named_parameters()
+                     if ".bn1." not in n)  # bn1 never runs: no gradient
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rec = StepRecorder()
+        if profile and name == "kernels":
+            train(model, ListPipeline(batches[:1]), cfg, logger=logger,
+                  num_epochs=1, device=DEVICE)  # warm-up before the profile
+            phase_profile_train(model, batches[0], cfg)
+            model.load_state_dict(init)
+            reset_counts()
+            rec = StepRecorder()
+        train(model, ListPipeline(batches), cfg, logger=logger,
+              num_epochs=1, device=DEVICE, on_step=rec)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if name == "kernels":
+            want = {"flash_attn_fwd": 2 * layers,
+                    "flash_attn_bwd_dq": layers,
+                    "flash_attn_bwd_dkv": layers,
+                    "layernorm_bwd": 2 * layers, "fused_adam": leaves}
+            kernel_counts = counts
+        else:
+            want = dict.fromkeys(counts, 0)
+        check_steps(f"train() {name}", rec, want)
+        runs[name] = rec.steps
+        step_ms = [st["ms"] for st in rec.steps]
+        print(f"[train] train() {name} ({opt}, attention "
+              f"{xcfg.attention_impl}, ln {xcfg.ln_impl}): step ms "
+              f"{[round(x, 1) for x in step_ms]}, peak device memory "
+              f"{peak:.2f} GiB", flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+    # kernel vs plain losses: step 1 is a forward from identical weights,
+    # where bf16 attention and LayerNorm round differently (the serving
+    # check's relative 5e-2 through 24 layers); each later step adds the
+    # sign-flip term above once more, doubled for the change of the
+    # gradient over three steps
+    for k, (a, b) in enumerate(zip(runs["kernels"], runs["plain"])):
+        bound = LOSS_RTOL * abs(b["loss"]) + 2.0 * k * base.lr * flip_l1
+        diff = abs(a["loss"] - b["loss"])
+        print(f"[train] step {k + 1}: loss kernels {a['loss']:.6f}, plain "
+              f"{b['loss']:.6f}, |diff| {diff:.3e} (bound {bound:.3e}; "
+              f"sign-flip L1 {flip_l1:.4g})", flush=True)
+        if not diff <= bound:
+            fail(f"train(): step {k + 1} losses disagree: {diff} > {bound}")
+
+    launches["flash_attn_fwd"] = (cli_counts["flash_attn_fwd"]
+                                  + kernel_counts["flash_attn_fwd"])
+    launches["flash_attn_bwd"] = (cli_counts["flash_attn_bwd_dq"]
+                                  + kernel_counts["flash_attn_bwd_dq"])
+    launches["layernorm_bwd"] = kernel_counts["layernorm_bwd"]
+    launches["fused_adam"] = kernel_counts["fused_adam"]
+    return launches
+
+
 # ------------------------------------------------------- optional profile
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    if "flash_attn_fwd" in n:
-        return "flash_attn_fwd (this port)"
+    for k in ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd",
+              "fused_adam"):
+        if k in n:
+            return f"{k} (this port)"
     if "memcpy" in n or "memset" in n:
         return "copies"
-    if "conv" in n or "cudnn" in n or "implicit" in n:
+    if any(s in n for s in ("conv", "cudnn", "implicit", "dgrad", "wgrad")):
         return "conv (cuDNN)"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
         return "matmul (cuBLAS)"
@@ -416,10 +967,39 @@ def _kernel_class(name: str) -> str:
     return "other elementwise and reductions"
 
 
+def report_profile(prof, window_us: float, n: int, label: str):
+    """Device time by kernel class and the top kernels, per run of `n`,
+    from torch.profiler's CUDA events, with the busy share of the host's
+    window."""
+    import torch
+
+    by_name, by_class = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        cls = _kernel_class(e.name)
+        by_class[cls] = by_class.get(cls, 0.0) + us
+    busy = sum(by_name.values())
+    if busy <= 0:
+        fail("profile: torch.profiler recorded no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(f"[profile] {label}, {n} runs: host window "
+          f"{window_us / n / 1e3:.3f} ms/run, device busy "
+          f"{busy / n / 1e3:.3f} ms/run ({busy / window_us:.3f} of the "
+          f"window)", flush=True)
+    for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {cls}: {us / n / 1e3:.3f} ms/run "
+              f"({us / busy:.3f} of device time)", flush=True)
+    for name, us in top:
+        print(f"[profile]     {us / n / 1e3:9.3f} ms  {name[:110]}",
+              flush=True)
+
+
 def phase_profile(model, reference: np.ndarray, batches: int = 3):
     """Device time by kernel for full batches of 8 in the two flash
-    buckets, through ScoringService as the server runs them:
-    torch.profiler's CUDA events, the busy share of the host's window."""
+    buckets, through ScoringService as the server runs them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -440,35 +1020,86 @@ def phase_profile(model, reference: np.ndarray, batches: int = 3):
                 svc.score(waves)
             torch.cuda.synchronize()
             window_us = (time.perf_counter() - t0) * 1e6
-        by_name, by_class = {}, {}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = e.time_range.elapsed_us()
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
-            cls = _kernel_class(e.name)
-            by_class[cls] = by_class.get(cls, 0.0) + us
-        busy = sum(by_name.values())
-        if busy <= 0:
-            fail("profile: torch.profiler recorded no device time")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        print(f"[profile] bucket {bucket} ({seconds:.0f} s), batch 8, "
-              f"{batches} batches: host window {window_us / batches / 1e3:.3f}"
-              f" ms/batch, device busy {busy / batches / 1e3:.3f} ms/batch "
-              f"({busy / window_us:.3f} of the window)", flush=True)
-        for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-            print(f"[profile]   {cls}: {us / batches / 1e3:.3f} ms/batch "
-                  f"({us / busy:.3f} of device time)", flush=True)
-        for name, us in top:
-            print(f"[profile]     {us / batches / 1e3:9.3f} ms  {name[:110]}",
-                  flush=True)
+        report_profile(prof, window_us, batches,
+                       f"serving bucket {bucket} ({seconds:.0f} s), batch 8")
+
+
+def kernel_line(fwd_rows, bwd_rows, ln, adam, launches):
+    """The {"kernels": [...]} entries. Times, errors and bounds are this
+    run's, at the shape named in each entry; `launches` come from the main
+    path (serving and training), 0 with --kernels-only."""
+    head = next(r for r in fwd_rows if r["T"] == MAIN_PATH_TS[0])
+    bhead = next(r for r in bwd_rows if r["T"] == MAIN_PATH_TS[0])
+    return [
+        {"name": "flash_attn_fwd", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/flash_attn_fwd.cu",
+         "replaces": "occm_tpu/ops/attention.py:45 (_fwd_kernel), "
+                     "occm_tpu/ops/attention.py:234 (_blocked_fwd_kernel)",
+         "launches": launches["flash_attn_fwd"],
+         "shape": f"[B*H={B * H}, T={head['T']}, D={D}] bf16",
+         "max_abs_err": max(r["max_abs_err"] for r in fwd_rows),
+         "ms": head["ms"], "plain_ms": head["plain_ms"],
+         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+         "library_ms": head["library_ms"], "per_T": fwd_rows},
+        {"name": "flash_attn_bwd", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": "occm_tpu/ops/attention.py:79 (_bwd_kernel), "
+                     "occm_tpu/ops/attention.py:350 (_blocked_dq_kernel), "
+                     "occm_tpu/ops/attention.py:373 (_blocked_dkv_kernel)",
+         "launches": launches["flash_attn_bwd"],
+         "shape": f"[B*H={TRAIN_B * H}, T={bhead['T']}, D={D}] bf16",
+         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+         "ms": bhead["ms"], "plain_ms": bhead["plain_ms"],
+         "bound_ms": bhead["bound_ms"], "bound_by": bhead["bound_by"],
+         "library_ms": bhead["library_ms"], "per_T": bwd_rows},
+        {"name": "layernorm_bwd", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/layernorm_bwd.cu",
+         "replaces": "occm_tpu/ops/layernorm.py:46 (_bwd_kernel)",
+         "launches": launches["layernorm_bwd"],
+         "shape": f"[{ln['shape'][0]}, {ln['shape'][1]}] bf16",
+         **{k: ln[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}},
+        {"name": "fused_adam", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/fused_adam.cu",
+         "replaces": "occm_tpu/ops/fused_adam.py:58 (_kernel)",
+         "launches": launches["fused_adam"],
+         "shape": f"{adam['leaves']} fp32 leaves, {adam['params']} params",
+         **{k: adam[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}},
+    ]
+
+
+def phase_profile_train(model, batch, cfg):
+    """Device time by kernel class for one full training step (12 x 6 s,
+    every kernel), through train_step as train() runs it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from occm_tpu_torch.train.state import create_train_state
+    from occm_tpu_torch.train.loop import train_step
+
+    state = create_train_state(model, cfg)
+    x = torch.from_numpy(batch[0]).to(DEVICE)
+    labels = torch.from_numpy(batch[1]).long().to(DEVICE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, x, labels, cfg)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, window_us, 1, "training step 12 x 6 s")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="after the main path, print device time by kernel "
-                         "for full batches of the two flash buckets")
+                         "for full batches of the two flash buckets and "
+                         "for one full training step")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 1-3 only (device, build, kernel "
+                         "checks); launches are then 0")
     args = ap.parse_args(argv)
 
     smi = phase_device()
@@ -476,39 +1107,32 @@ def main(argv=None) -> int:
     import torch
 
     phase_build()
-    rows = phase_kernels()
-    from occm_tpu_torch.ops import _build
+    fwd_rows = phase_kernels()
+    bwd_rows = phase_attention_bwd()
+    ln = phase_layernorm_bwd()
+    adam = phase_fused_adam()
+    launches = dict.fromkeys(
+        ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd", "fused_adam"),
+        0)
+    if not args.kernels_only:
+        from occm_tpu_torch.ops import _build
 
-    workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
-    try:
-        launches, model, reference = phase_main_path(workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    if args.profile:
-        phase_profile(model, reference)
+        workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
+        try:
+            serve_launches, model, reference = phase_main_path(workdir)
+            launches["flash_attn_fwd"] += serve_launches
+            if args.profile:
+                phase_profile(model, reference)
+            del model
+            train_launches = phase_train(workdir, args.profile)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        for name, n in train_launches.items():
+            launches[name] += n
 
-    main_rows = [r for r in rows if r["T"] in MAIN_PATH_TS]
-    head = main_rows[0]
-    kernel = {
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": "occm_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "occm_tpu/ops/attention.py:45 (_fwd_kernel), "
-                    "occm_tpu/ops/attention.py:234 (_blocked_fwd_kernel)",
-        "launches": launches,
-        "shape": f"[B*H={B * H}, T={head['T']}, D={D}] bf16",
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "max_err": max(r["max_abs_err"] for r in rows),
-        "kernel_ms": head["ms"],
-        "per_T": rows,
-    }
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernel_line(fwd_rows, bwd_rows, ln, adam,
+                                             launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

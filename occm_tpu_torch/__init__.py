@@ -2,9 +2,11 @@
 
 The JAX package `occm_tpu` stays the reference; this package imports none
 of it. It serves the XLSR-300M + AASIST one-class scorer over HTTP
-(`python -m occm_tpu_torch.cli.oc_server`), with the attention of the
-transformer running as a hand-written CUDA kernel (csrc/, built by nvcc
-at first use). Training comes in a later slice.
+(`python -m occm_tpu_torch.cli.oc_server`) and trains it
+(`python -m occm_tpu_torch.cli.oc_training`, or
+`occm_tpu_torch.train.train`). Its hand-written CUDA kernels (csrc/, built
+by nvcc at first use) are the attention forward and backward, the
+LayerNorm backward and fused Adam.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,18 +1,47 @@
-"""Model configuration for the PyTorch port.
+"""Configuration for the PyTorch port.
 
-A copy of `occm_tpu.config.XLSRConfig` and `AASISTConfig`: the same fields,
-defaults, `tiny()` presets and validation, so a configuration means the same
-model in both packages. Fields that select a code path the port does not
-implement yet raise `NotImplementedError` when set to a non-default value,
-rather than being silently ignored. Fields that only matter while training
-(dropout rates, layerdrop, remat, feature_grad_mult) are kept: the serving
-path runs in eval mode, where they have no effect.
+A copy of `occm_tpu.config`'s `RawBoostConfig`, `XLSRConfig`,
+`AASISTConfig`, `MeshConfig` and `TrainConfig`: the same fields, defaults,
+`tiny()` presets and validation, so a configuration means the same model
+and the same training run in both packages. Fields that select a code path
+the port does not implement yet raise `NotImplementedError` when set to a
+non-default value, rather than being silently ignored. The training fields
+of the models (dropout rates, layerdrop, remat, conv_remat,
+feature_grad_mult) act in train mode (`model.train()`); eval mode, which
+serving runs, applies no dropout.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class RawBoostConfig:
+    """RawBoost augmentation hyper-parameters (reference defaults).
+    algo: 0 none, 1 LnL, 2 ISD, 3 SSI, 4 (1+2+3), 5 (1+2), 6 (1+3),
+    7 (2+3), 8 (1||2). Only algo 0 is ported: the trainer raises on any
+    other (ROADMAP queue A)."""
+
+    algo: int = 3
+    nBands: int = 5
+    minF: int = 20
+    maxF: int = 8000
+    minBW: int = 100
+    maxBW: int = 1000
+    minCoeff: int = 10
+    maxCoeff: int = 100
+    minG: int = 0
+    maxG: int = 0
+    minBiasLinNonLin: int = 5
+    maxBiasLinNonLin: int = 20
+    N_f: int = 5
+    P: int = 10
+    g_sd: int = 2
+    SNRmin: int = 10
+    SNRmax: int = 40
+    fs: int = 16000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +76,7 @@ class XLSRConfig:
     remat: bool = True
     dtype: str = "bfloat16"          # compute dtype of the matmuls and convs
     # "xla": plain torch attention (fp32 logits and softmax); "flash": the
-    # hand-written CUDA flash-attention forward (ops/attention.py)
+    # hand-written CUDA flash-attention kernels (ops/attention.py)
     attention_impl: str = "xla"
     feature_grad_mult: float = 1.0
     norm_dtype: str = "float32"      # LayerNorm / softmax dtype
@@ -61,6 +90,8 @@ class XLSRConfig:
     bf16_param_mirror: bool = False
     fused_qkv: bool = False
     ffn_impl: str = "xla"
+    # "pallas": the transformer LayerNorms run ops/layernorm.fast_layer_norm
+    # (output in the input dtype, the CUDA LayerNorm backward kernel)
     ln_impl: str = "xla"
     quant_int8: bool = False
     pp_stages: int = 1
@@ -107,7 +138,7 @@ class XLSRConfig:
             ("seq_parallel", self.seq_parallel),
             ("quant_int8", self.quant_int8),
             ("ffn_impl", self.ffn_impl != "xla"),
-            ("ln_impl", self.ln_impl != "xla"),
+            ("remat_policy", self.remat_policy != "nothing"),
             ("fused_qkv", self.fused_qkv),
             ("attention_impl", impl not in ("xla", "flash")),
             ("pos_conv_impl", self.pos_conv_impl != "grouped"),
@@ -159,3 +190,96 @@ class AASISTConfig:
             pos_s_nodes=8,
             ll_dim=24,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout. The port trains on one GPU: dp must be -1 (all
+    devices, here one) or 1, and the other axes 1; anything else raises
+    (multi-GPU is ROADMAP queue A)."""
+
+    dp: int = -1
+    fsdp: int = 1
+    tp: int = 1
+    pp: int = 1
+
+    def __post_init__(self):
+        if self.dp not in (-1, 1) or (self.fsdp, self.tp, self.pp) != (
+                1, 1, 1):
+            raise NotImplementedError(
+                f"MeshConfig{dataclasses.astuple(self)}: the port trains on "
+                "one GPU (dp -1 or 1, fsdp = tp = pp = 1); multi-GPU is not "
+                "ported yet (ROADMAP queue A: multi-GPU)")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters, the JAX package's fields and defaults.
+    Not ported yet, and raising: grad_accum > 1, steps_per_dispatch > 1,
+    checkpoint_every_steps > 0, lr_schedule other than "constant",
+    wandb_project; the trainer raises on rawboost.algo != 0."""
+
+    model: str = "aasist"
+    optimizer: str = "adam"        # "adam" (torch.optim.Adam) | "fused_adam"
+    lr: float = 1e-5
+    num_epochs: int = 100
+    compactness_weight: float = 0.0
+    descriptiveness_weight: float = 1.0
+    seed: int = 0
+    cut: int = 64600
+    meta_batch: int = 12
+    groups_per_step: int = 1
+    steps_per_dispatch: int = 1
+    rawboost: RawBoostConfig = dataclasses.field(
+        default_factory=RawBoostConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    checkpoint_dir: str = "."
+    checkpoint_prefix: str = "aasist_vocoded"
+    log_every: int = 100
+    loss_txt: str = "loss.txt"
+    wandb_project: Optional[str] = None
+    checkpoint_every_steps: int = 0
+    grad_accum: int = 1
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    decay_steps: int = 0
+    lr_end_ratio: float = 0.0
+
+    def __post_init__(self):
+        if self.grad_accum < 1:
+            raise ValueError("grad_accum must be >= 1")
+        if self.groups_per_step % self.grad_accum:
+            raise ValueError(
+                f"groups_per_step ({self.groups_per_step}) must be divisible "
+                f"by grad_accum ({self.grad_accum}): every micro-batch holds "
+                "whole meta-batches so the per-group compactness term is "
+                "computable")
+        if self.lr_schedule not in ("constant", "cosine", "linear"):
+            raise ValueError(f"unknown lr_schedule {self.lr_schedule!r} "
+                             "(constant | cosine | linear)")
+        if self.lr_schedule != "constant":
+            if self.decay_steps <= 0:
+                raise ValueError(
+                    f"lr_schedule={self.lr_schedule!r} needs decay_steps > 0")
+            if self.optimizer != "adam":
+                raise ValueError(
+                    "lr schedules require optimizer='adam' (fused_adam "
+                    "takes a fixed scalar lr)")
+        if self.optimizer not in ("adam", "fused_adam"):
+            raise ValueError(f"unknown optimizer {self.optimizer!r} "
+                             "(adam | fused_adam)")
+        unported = [
+            ("grad_accum", self.grad_accum != 1, "gradient accumulation"),
+            ("steps_per_dispatch", self.steps_per_dispatch != 1,
+             "steps_per_dispatch"),
+            ("checkpoint_every_steps", self.checkpoint_every_steps != 0,
+             "resume and step checkpoints"),
+            ("lr_schedule", self.lr_schedule != "constant", "lr schedules"),
+            ("wandb_project", self.wandb_project is not None,
+             "remaining features"),
+        ]
+        for field, set_, item in unported:
+            if set_:
+                raise NotImplementedError(
+                    f"TrainConfig.{field}={getattr(self, field)!r} is not "
+                    f"ported to occm_tpu_torch yet (ROADMAP queue A: {item})")

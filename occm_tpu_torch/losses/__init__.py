@@ -1,3 +1,15 @@
-from occm_tpu_torch.losses.oneclass import pairwise_distance
+from occm_tpu_torch.losses.oneclass import (
+    compactness_loss,
+    descriptiveness_loss,
+    group_one_class_loss,
+    one_class_loss,
+    pairwise_distance,
+)
 
-__all__ = ["pairwise_distance"]
+__all__ = [
+    "compactness_loss",
+    "descriptiveness_loss",
+    "group_one_class_loss",
+    "one_class_loss",
+    "pairwise_distance",
+]

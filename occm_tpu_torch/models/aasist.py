@@ -1,11 +1,20 @@
-"""AASIST spectro-temporal graph-attention backend in PyTorch, eval path
-(port of `occm_tpu.models.aasist`).
+"""AASIST spectro-temporal graph-attention backend in PyTorch (port of
+`occm_tpu.models.aasist`).
 
 Layout is torch's NCHW: the RawNet2 encoder sees [B, C, spectral=42,
 temporal]. Graph tensors are [B, nodes, dim]. Parameter names are the
 reference's (models/sslassist.py), the naming
-`occm_tpu.models.convert_backend.export_amodel_state_dict` emits; BatchNorm
-layers use their running statistics. Reference quirks kept, as in the JAX
+`occm_tpu.models.convert_backend.export_amodel_state_dict` emits. In eval
+mode BatchNorm layers use their running statistics and no dropout runs. In
+train mode (`model.train()`) BatchNorm normalises with batch statistics and
+updates its running statistics with torch's momentum 0.1 (Flax's 0.9;
+torch keeps the unbiased batch variance where Flax keeps the biased one),
+and the JAX package's dropout sites apply: the GAT and HtrgGAT inputs
+(`cfg.dropout`), the graph pools' score input only (`pool_dropout`), the
+six way-fusion tensors (`cfg.dropout`) and the head input
+(`head_dropout`; `emb` is returned before it). Masks come from the CPU
+generator passed to the forward (see `models.xlsr.dropout`).
+Reference quirks kept, as in the JAX
 package: the residual block convolves the raw input (its bn1 pre-activation
 is computed and discarded by the reference, so bn1 is declared for the
 checkpoint and never run), and the HtrgGAT layers take the raw [1, 1, D]
@@ -21,7 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from occm_tpu_torch.config import AASISTConfig, XLSRConfig
-from occm_tpu_torch.models.xlsr import SSLModel
+from occm_tpu_torch.models.xlsr import SSLModel, dropout, train_generator
 from occm_tpu_torch.ops.pool import max_pool2d
 
 
@@ -33,8 +42,10 @@ def _bn_feat(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
 class GraphAttentionLayer(nn.Module):
     """reference: models/sslassist.py:58-151."""
 
-    def __init__(self, in_dim: int, out_dim: int, temperature: float = 1.0):
+    def __init__(self, in_dim: int, out_dim: int, temperature: float = 1.0,
+                 dropout: float = 0.2):
         super().__init__()
+        self.dropout = dropout
         self.att_proj = nn.Linear(in_dim, out_dim)
         self.att_weight = nn.Parameter(torch.empty(out_dim, 1))
         self.proj_with_att = nn.Linear(in_dim, out_dim)
@@ -43,7 +54,9 @@ class GraphAttentionLayer(nn.Module):
         self.temperature = temperature
         nn.init.xavier_normal_(self.att_weight)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(x, self.dropout, gen)
         pair = x[:, :, None, :] * x[:, None, :, :]          # [B,N,N,D]
         att = torch.tanh(self.att_proj(pair)) @ self.att_weight
         att = torch.softmax(att / self.temperature, dim=-2)
@@ -56,8 +69,10 @@ class HtrgGraphAttentionLayer(nn.Module):
     """Heterogeneous GAT with a master node
     (reference: models/sslassist.py:154-329)."""
 
-    def __init__(self, in_dim: int, out_dim: int, temperature: float = 1.0):
+    def __init__(self, in_dim: int, out_dim: int, temperature: float = 1.0,
+                 dropout: float = 0.2):
         super().__init__()
+        self.dropout = dropout
         self.proj_type1 = nn.Linear(in_dim, in_dim)
         self.proj_type2 = nn.Linear(in_dim, in_dim)
         self.att_proj = nn.Linear(in_dim, out_dim)
@@ -77,11 +92,13 @@ class HtrgGraphAttentionLayer(nn.Module):
             nn.init.xavier_normal_(w)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor,
-                master: Optional[torch.Tensor] = None):
+                master: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None):
         n1 = x1.shape[1]
         x = torch.cat([self.proj_type1(x1), self.proj_type2(x2)], dim=1)
         if master is None:
             master = x.mean(dim=1, keepdim=True)
+        x = dropout(x, self.dropout, gen)
 
         pair = x[:, :, None, :] * x[:, None, :, :]          # [B,N,N,D]
         att = torch.tanh(self.att_proj(pair))
@@ -108,13 +125,16 @@ class GraphPool(nn.Module):
     """Top-k node pooling (reference: models/sslassist.py:332-368): nodes
     kept in descending score order."""
 
-    def __init__(self, k: float, in_dim: int):
+    def __init__(self, k: float, in_dim: int, p: float = 0.0):
         super().__init__()
         self.k = k
+        self.p = p
         self.proj = nn.Linear(in_dim, 1)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        scores = torch.sigmoid(self.proj(h))                # [B,N,1]
+    def forward(self, h: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        # dropout on the score input only; the kept nodes are h * scores
+        scores = torch.sigmoid(self.proj(dropout(h, self.p, gen)))  # [B,N,1]
         n_keep = max(int(h.shape[1] * self.k), 1)
         # a stable descending sort breaks ties (sigmoid saturates to exactly
         # 1.0 on large inputs) towards the lower node index, as
@@ -180,23 +200,27 @@ class AASISTBackend(nn.Module):
         self.pos_S = nn.Parameter(torch.randn(1, cfg.pos_s_nodes, outs[-1]))
         self.master1 = nn.Parameter(torch.randn(1, 1, gat0))
         self.master2 = nn.Parameter(torch.randn(1, 1, gat0))
-        self.GAT_layer_S = GraphAttentionLayer(outs[-1], gat0, t0)
-        self.GAT_layer_T = GraphAttentionLayer(outs[-1], gat0, t1)
-        self.HtrgGAT_layer_ST11 = HtrgGraphAttentionLayer(gat0, gat1, t2)
-        self.HtrgGAT_layer_ST12 = HtrgGraphAttentionLayer(gat1, gat1, t2)
-        self.HtrgGAT_layer_ST21 = HtrgGraphAttentionLayer(gat0, gat1, t2)
-        self.HtrgGAT_layer_ST22 = HtrgGraphAttentionLayer(gat1, gat1, t2)
-        r = cfg.pool_ratios
-        self.pool_S = GraphPool(r[0], gat0)
-        self.pool_T = GraphPool(r[1], gat0)
-        self.pool_hS1 = GraphPool(r[2], gat1)
-        self.pool_hT1 = GraphPool(r[3], gat1)
-        self.pool_hS2 = GraphPool(r[2], gat1)
-        self.pool_hT2 = GraphPool(r[3], gat1)
+        dp = cfg.dropout
+        self.GAT_layer_S = GraphAttentionLayer(outs[-1], gat0, t0, dp)
+        self.GAT_layer_T = GraphAttentionLayer(outs[-1], gat0, t1, dp)
+        self.HtrgGAT_layer_ST11 = HtrgGraphAttentionLayer(gat0, gat1, t2, dp)
+        self.HtrgGAT_layer_ST12 = HtrgGraphAttentionLayer(gat1, gat1, t2, dp)
+        self.HtrgGAT_layer_ST21 = HtrgGraphAttentionLayer(gat0, gat1, t2, dp)
+        self.HtrgGAT_layer_ST22 = HtrgGraphAttentionLayer(gat1, gat1, t2, dp)
+        r, pp = cfg.pool_ratios, cfg.pool_dropout
+        self.pool_S = GraphPool(r[0], gat0, pp)
+        self.pool_T = GraphPool(r[1], gat0, pp)
+        self.pool_hS1 = GraphPool(r[2], gat1, pp)
+        self.pool_hT1 = GraphPool(r[3], gat1, pp)
+        self.pool_hS2 = GraphPool(r[2], gat1, pp)
+        self.pool_hT2 = GraphPool(r[3], gat1, pp)
         self.out_layer = nn.Linear(5 * gat1, 2)
 
-    def backend(self, x_ssl: torch.Tensor
+    def backend(self, x_ssl: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.aasist_cfg
+        gen = train_generator(self, generator)
         x = self.LL(x_ssl)                                  # [B,F,ll]
         x = max_pool2d(x.transpose(1, 2)[:, None], (3, 3))  # [B,1,42,F//3]
         x = F.selu(self.first_bn(x))
@@ -206,16 +230,16 @@ class AASISTBackend(nn.Module):
 
         # spectral branch: softmax over the temporal axis
         e_S = torch.sum(x * torch.softmax(w, dim=3), dim=3).transpose(1, 2)
-        out_S = self.pool_S(self.GAT_layer_S(e_S + self.pos_S))
+        out_S = self.pool_S(self.GAT_layer_S(e_S + self.pos_S, gen), gen)
         # temporal branch: softmax over the spectral axis
         e_T = torch.sum(x * torch.softmax(w, dim=2), dim=2).transpose(1, 2)
-        out_T = self.pool_T(self.GAT_layer_T(e_T))
+        out_T = self.pool_T(self.GAT_layer_T(e_T, gen), gen)
 
         def inference(ht1, ht2, pool_s, pool_t, master):
-            o_T, o_S, m = ht1(out_T, out_S, master=master)
-            o_S = pool_s(o_S)
-            o_T = pool_t(o_T)
-            o_T_aug, o_S_aug, m_aug = ht2(o_T, o_S, master=m)
+            o_T, o_S, m = ht1(out_T, out_S, master=master, gen=gen)
+            o_S = pool_s(o_S, gen)
+            o_T = pool_t(o_T, gen)
+            o_T_aug, o_S_aug, m_aug = ht2(o_T, o_S, master=m, gen=gen)
             return o_T + o_T_aug, o_S + o_S_aug, m + m_aug
 
         out_T1, out_S1, m1 = inference(
@@ -225,13 +249,17 @@ class AASISTBackend(nn.Module):
             self.HtrgGAT_layer_ST21, self.HtrgGAT_layer_ST22,
             self.pool_hS2, self.pool_hT2, self.master2)
 
+        # way-fusion dropout: six independent masks
+        out_T1, out_T2, out_S1, out_S2, m1, m2 = (
+            dropout(t, cfg.dropout, gen)
+            for t in (out_T1, out_T2, out_S1, out_S2, m1, m2))
         out_T = torch.maximum(out_T1, out_T2)
         out_S = torch.maximum(out_S1, out_S2)
         master = torch.maximum(m1, m2)
         emb = torch.cat([out_T.abs().amax(dim=1), out_T.mean(dim=1),
                          out_S.abs().amax(dim=1), out_S.mean(dim=1),
                          master[:, 0, :]], dim=1)
-        return emb, self.out_layer(emb)
+        return emb, self.out_layer(dropout(emb, cfg.head_dropout, gen))
 
     forward = backend
 
@@ -250,6 +278,10 @@ class AModel(AASISTBackend):
     def xlsr_cfg(self) -> XLSRConfig:
         return self.ssl_model.model.cfg
 
-    def forward(self, x: torch.Tensor, attention_impl: Optional[str] = None
+    def forward(self, x: torch.Tensor, attention_impl: Optional[str] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.backend(self.ssl_model(x, attention_impl))
+        """generator: the CPU generator of the dropout masks in train mode
+        (one from torch's global generator when None)."""
+        gen = train_generator(self, generator)
+        return self.backend(self.ssl_model(x, attention_impl, gen), gen)

@@ -44,9 +44,11 @@ def _conv2d(out: Dict, key: str, p: Mapping) -> None:
         out[f"{key}.bias"] = _a(p["bias"])
 
 
-def _bn(out: Dict, key: str, p: Mapping, s: Mapping) -> None:
+def _bn(out: Dict, key: str, p: Mapping, s: Optional[Mapping]) -> None:
     out[f"{key}.weight"] = _a(p["scale"])
     out[f"{key}.bias"] = _a(p["bias"])
+    if s is None:  # parameters only
+        return
     out[f"{key}.running_mean"] = _a(s["mean"])
     out[f"{key}.running_var"] = _a(s["var"])
     out[f"{key}.num_batches_tracked"] = np.asarray(0, np.int64)
@@ -107,12 +109,28 @@ def xlsr_arrays_from_flax(params: Mapping, cfg: XLSRConfig) -> Dict:
     return out
 
 
+class _NoStats(dict):
+    """batch_stats stand-in of a parameter-only mapping: every BatchNorm's
+    statistics are None."""
+
+    def __getitem__(self, key):
+        return self
+
+    def get(self, key, default=None):
+        return None
+
+
 def amodel_arrays_from_flax(variables: Mapping,
-                            xlsr_cfg: Optional[XLSRConfig] = None) -> Dict:
-    """AModel variables -> {reference torch name: numpy array}."""
+                            xlsr_cfg: Optional[XLSRConfig] = None,
+                            params_only: bool = False) -> Dict:
+    """AModel variables -> {reference torch name: numpy array}. With
+    params_only, only the trainable parameters that the Flax tree has (no
+    BatchNorm statistics, no never-run bn1): the mapping of any tree shaped
+    like the parameters, such as Adam's moments."""
     xlsr_cfg = xlsr_cfg or XLSRConfig()
     p = variables["params"]["backend"]
-    s = variables.get("batch_stats", {}).get("backend", {})
+    s = _NoStats() if params_only else \
+        variables.get("batch_stats", {}).get("backend", {})
     out: Dict = {
         f"ssl_model.model.{k}": v
         for k, v in xlsr_arrays_from_flax(
@@ -120,21 +138,21 @@ def amodel_arrays_from_flax(variables: Mapping,
     }
 
     _linear(out, "LL", p["LL"])
-    _bn(out, "first_bn", p["first_bn"], s["first_bn"])
-    _bn(out, "first_bn1", p["first_bn1"], s["first_bn1"])
+    _bn(out, "first_bn", p["first_bn"], s.get("first_bn"))
+    _bn(out, "first_bn1", p["first_bn1"], s.get("first_bn1"))
     for i in range(6):
         base = f"encoder.{i}.0"
         blk, bst = p[f"encoder_{i}"], s[f"encoder_{i}"]
-        if i > 0:
+        if i > 0 and not params_only:
             _bn_default(out, f"{base}.bn1", _a(blk["conv1"]["kernel"]).shape[2])
         _conv2d(out, f"{base}.conv1", blk["conv1"])
-        _bn(out, f"{base}.bn2", blk["bn2"], bst["bn2"])
+        _bn(out, f"{base}.bn2", blk["bn2"], bst.get("bn2"))
         _conv2d(out, f"{base}.conv2", blk["conv2"])
         if "conv_downsample" in blk:
             _conv2d(out, f"{base}.conv_downsample", blk["conv_downsample"])
 
     _conv2d(out, "attention.0", p["att_conv1"])
-    _bn(out, "attention.2", p["att_bn"], s["att_bn"])
+    _bn(out, "attention.2", p["att_bn"], s.get("att_bn"))
     _conv2d(out, "attention.3", p["att_conv2"])
     for name in ("pos_S", "master1", "master2"):
         out[name] = _a(p[name])
@@ -143,7 +161,7 @@ def amodel_arrays_from_flax(variables: Mapping,
         for sub in ("att_proj", "proj_with_att", "proj_without_att"):
             _linear(out, f"{name}.{sub}", p[name][sub])
         out[f"{name}.att_weight"] = _a(p[name]["att_weight"])
-        _bn(out, f"{name}.bn", p[name]["bn"], s[name]["bn"])
+        _bn(out, f"{name}.bn", p[name]["bn"], s[name].get("bn"))
     for name in ("HtrgGAT_layer_ST11", "HtrgGAT_layer_ST12",
                  "HtrgGAT_layer_ST21", "HtrgGAT_layer_ST22"):
         for sub in ("proj_type1", "proj_type2", "att_proj", "att_projM",
@@ -153,7 +171,7 @@ def amodel_arrays_from_flax(variables: Mapping,
         for sub in ("att_weight11", "att_weight22", "att_weight12",
                     "att_weightM"):
             out[f"{name}.{sub}"] = _a(p[name][sub])
-        _bn(out, f"{name}.bn", p[name]["bn"], s[name]["bn"])
+        _bn(out, f"{name}.bn", p[name]["bn"], s[name].get("bn"))
     for name in ("pool_S", "pool_T", "pool_hS1", "pool_hT1", "pool_hS2",
                  "pool_hT2"):
         _linear(out, f"{name}.proj", p[name]["proj"])
@@ -198,3 +216,27 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
             state.setdefault(k[: -len("weight")] + "bias",
                              torch.zeros(w.shape[0], dtype=w.dtype))
     return state
+
+
+def optimizer_state_from_flax(opt_state, xlsr_cfg: Optional[XLSRConfig] = None
+                              ) -> Dict:
+    """A JAX optimizer state of an AModel -> {"count": int, "mu": {name:
+    tensor}, "nu": {name: tensor}} in the port's parameter names, with the
+    parameters' transposes.
+
+    opt_state: the JAX package's `FusedAdamState` (count, mu, nu), or
+    optax adam's state, whose first element is a `ScaleByAdamState`; its
+    mu and nu are parameter-shaped trees of numpy arrays. The positional
+    conv is the one place the two parametrisations differ: JAX trains its
+    folded kernel w, the port (as fairseq) trains the weight-norm pair
+    (g, v). The moments of w go to weight_v (v = w at the bridge) and
+    weight_g gets none (zero moments), so the positional conv's first
+    update after a bridge is not JAX's."""
+    adam = opt_state if hasattr(opt_state, "mu") else opt_state[0]
+    out: Dict = {"count": int(np.asarray(adam.count))}
+    for key, tree in (("mu", adam.mu), ("nu", adam.nu)):
+        arrays = amodel_arrays_from_flax({"params": tree}, xlsr_cfg,
+                                         params_only=True)
+        arrays.pop("ssl_model.model.encoder.pos_conv.0.weight_g")
+        out[key] = _tensors(arrays)
+    return out

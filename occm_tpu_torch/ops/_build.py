@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels and load them through ctypes.
 
-Every `occm_tpu_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a` into one
-shared library with a plain C interface, at first use, into
-`occm_tpu_torch/build/`. The library's name carries a hash of the sources and
+Every `occm_tpu_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a`, one
+`nvcc` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, at first use,
+into `occm_tpu_torch/build/`. The library's name carries a hash of the sources and
 flags, so an edited source is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU-only test host has no `nvcc`.
 """
@@ -22,12 +23,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
+#: ptxas's report (registers, shared memory, spills per kernel) of the last
+#: build, "" when the library was already built
+build_log = ""
 
 
 def _nvcc() -> str:
@@ -60,22 +64,45 @@ def library_path() -> str:
 def build() -> str:
     """Compile the kernels if the current sources are not built yet;
     returns the library path."""
-    global build_seconds
+    global build_seconds, build_log
     path = library_path()
     if os.path.exists(path):
         build_seconds = 0.0
+        build_log = ""
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    objs, procs = [], []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed, logs = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}\n{err}")
+    if not failed:
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
+    build_log = "".join(logs)
     return path
 
 
@@ -90,5 +117,20 @@ def load() -> ctypes.CDLL:
             lib.occm_flash_attn_fwd.argtypes = [
                 p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
             lib.occm_flash_attn_fwd.restype = i
+            lib.occm_flash_attn_bwd_dq.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+            lib.occm_flash_attn_bwd_dq.restype = i
+            lib.occm_flash_attn_bwd_dkv.argtypes = [
+                p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+            lib.occm_flash_attn_bwd_dkv.restype = i
+            lib.occm_layernorm_bwd_blocks.argtypes = [i]
+            lib.occm_layernorm_bwd_blocks.restype = i
+            lib.occm_layernorm_bwd.argtypes = [
+                p, p, p, p, p, p, i, i, ctypes.c_float, i, p]
+            lib.occm_layernorm_bwd.restype = i
+            f = ctypes.c_float
+            lib.occm_fused_adam.argtypes = [
+                p, p, p, p, ctypes.c_int64, f, f, f, f, f, f, f, f, p]
+            lib.occm_fused_adam.restype = i
             _lib = lib
         return _lib

@@ -1,13 +1,19 @@
-"""Fused multi-head attention forward for the XLSR transformer.
+"""Fused multi-head attention for the XLSR transformer, forward and
+backward.
 
 `flash_attention(q, k, v)` on [B, T, H, D] is the port of
-`occm_tpu.ops.attention.flash_attention`. On a CUDA tensor it launches the
-hand-written Hopper kernel `csrc/flash_attn_fwd.cu`, which replaces both TPU
-forward kernels (the whole-T `_fwd_kernel` and the blocked online-softmax
-`_blocked_fwd_kernel`; their split at T = 512 only existed for TPU VMEM). On
-a CPU tensor it runs `flash_attention_reference`, the kernel's plain PyTorch
-version: same masking, scale folding and dtype casts. A tensor on any other
-device raises; nothing falls back from the kernel to the plain version.
+`occm_tpu.ops.attention.flash_attention`, a `torch.autograd.Function`. On a
+CUDA tensor its forward launches the hand-written Hopper kernel
+`csrc/flash_attn_fwd.cu`, which replaces both TPU forward kernels (the
+whole-T `_fwd_kernel` and the blocked online-softmax `_blocked_fwd_kernel`;
+their split at T = 512 only existed for TPU VMEM), and its backward
+launches the two kernels of `csrc/flash_attn_bwd.cu` (dq, then dk and dv),
+fed by the forward's lse, which replace the three TPU backward kernels
+(`_bwd_kernel`, `_blocked_dq_kernel`, `_blocked_dkv_kernel`). On a CPU
+tensor the same Function runs `flash_attention_reference` and
+`flash_attention_bwd_reference`, the kernels' plain PyTorch versions: same
+masking, scale folding and dtype casts. A tensor on any other device
+raises; nothing falls back from a kernel to its plain version.
 
 For every T the port casts the unnormalised probabilities to bf16 before
 P·V and divides by the row sum afterwards, as the blocked TPU kernel does;
@@ -23,8 +29,11 @@ import math
 
 import torch
 
-#: kernel launches since the last reset (chip_smoke.py reads and resets it)
+#: launches of each kernel since the last reset (chip_smoke.py reads and
+#: resets them): the forward, and the backward's dq and dk/dv kernels
 LAUNCHES = 0
+BWD_DQ_LAUNCHES = 0
+BWD_DKV_LAUNCHES = 0
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -96,15 +105,127 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor,
+                                  t_valid: int):
+    """Plain version of the backward kernels: q, k, v, o, do [BH, T, D],
+    lse [BH, T] fp32 -> (dq, dk, dv) in q's dtype. Mirrors the blocked TPU
+    backward (`_blocked_p_ds`, `_blocked_dq_kernel`, `_blocked_dkv_kernel`):
+    P = exp(S - lse) in fp32 from the scaled bf16 q, δ = rowsum(dO ⊙ O) in
+    fp32, dS = P ⊙ (dO·Vᵀ − δ), P and dS cast to the input dtype before
+    their products, fp32 accumulation, dq and dk times the scale (dk from
+    the unscaled q); keys at index >= t_valid get no probability."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dt = q.dtype
+    qs = (q.float() * scale).to(dt).float()
+    kf, vf, dof = k.float(), v.float(), do.float()
+    logits = torch.matmul(qs, kf.transpose(-1, -2))
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    logits = logits.masked_fill(col >= t_valid, -1e30)
+    p = torch.exp(logits - lse[..., None])
+    delta = torch.sum(dof * o.float(), dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    p_lo, ds_lo = p.to(dt).float(), ds.to(dt).float()
+    dv = torch.matmul(p_lo.transpose(-1, -2), dof)
+    dq = torch.matmul(ds_lo, kf) * scale
+    dk = torch.matmul(ds_lo.transpose(-1, -2), q.float()) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, t_valid: int):
+    """The backward kernels' wrapper: (dq, dk, dv), each [BH, T, D].
+
+    CUDA tensors launch `occm_flash_attn_bwd_dq` and then
+    `occm_flash_attn_bwd_dkv` on the current stream (bf16, D = 64,
+    contiguous), after δ = rowsum(dO ⊙ O) in fp32, as the TPU wrapper
+    computes it outside its kernels; CPU tensors take the plain version."""
+    global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    tensors = (q, k, v, o, do)
+    if len({x.device for x in tensors + (lse,)}) != 1:
+        raise ValueError("flash attention backward: inputs on different "
+                         "devices")
+    if q.dim() != 3 or any(x.shape != q.shape for x in tensors):
+        raise ValueError(
+            f"expected q, k, v, o, do of one shape [BH, T, D], got "
+            f"{[tuple(x.shape) for x in tensors]}")
+    bh, T, d = q.shape
+    if lse.shape != (bh, T) or lse.dtype != torch.float32:
+        raise ValueError(f"expected lse [BH, T] fp32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if not 1 <= t_valid <= T:
+        raise ValueError(f"t_valid={t_valid} outside [1, {T}]")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, t_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if any(x.dtype != torch.bfloat16 for x in tensors):
+        raise ValueError(f"the CUDA kernels take bf16, got "
+                         f"{[x.dtype for x in tensors]}")
+    if d != 64:
+        raise ValueError(f"the CUDA kernels take head dim 64, got {d}")
+    if not all(x.is_contiguous() for x in tensors + (lse,)):
+        raise ValueError("the CUDA kernels take contiguous inputs")
+
+    from occm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale = 1.0 / math.sqrt(d)
+    with torch.cuda.device(q.device):
+        err = lib.occm_flash_attn_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, T, t_valid,
+            d, scale, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"occm_flash_attn_bwd_dq failed: cudaError_t {err}")
+        BWD_DQ_LAUNCHES += 1
+        err = lib.occm_flash_attn_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, T, t_valid, d, scale, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"occm_flash_attn_bwd_dkv failed: cudaError_t {err}")
+        BWD_DKV_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """[BH, T, D] attention with the kernels on both passes; the forward
+    saves q, k, v, out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, t_valid: int):
+        out, lse = flash_attention_fwd(q, k, v, t_valid)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.t_valid = t_valid
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), ctx.t_valid)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
-    """Fused MHA: q, k, v [B, T, H, D] (unscaled q) -> [B, T, H, D]."""
+    """Fused MHA: q, k, v [B, T, H, D] (unscaled q) -> [B, T, H, D],
+    differentiable in q, k and v."""
     B, T, H, D = q.shape
 
     def flat(x):
         return x.permute(0, 2, 1, 3).reshape(B * H, T, D).contiguous()
 
-    out, _ = flash_attention_fwd(flat(q), flat(k), flat(v), T)
+    out = _FlashAttention.apply(flat(q), flat(k), flat(v), T)
     return out.reshape(B, H, T, D).permute(0, 2, 1, 3)
 
 

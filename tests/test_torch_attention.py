@@ -134,3 +134,75 @@ def test_wrapper_rejects_bad_arguments(bad):
         q, k, v = (x.to("meta") for x in (q, k, v))
     with pytest.raises(ValueError):
         attention.flash_attention_fwd(q, k, v, t_valid)
+
+
+@pytest.mark.parametrize("T, B, H", [
+    (201, 2, 2),   # whole-T route: _bwd_kernel
+    (600, 1, 2),   # blocked route: _blocked_dq_kernel, _blocked_dkv_kernel
+    (700, 1, 2),   # blocked route, ragged T in one 1024 tile
+])
+def test_flash_attention_gradients_match_pallas_kernels(T, B, H):
+    """The port's autograd Function (on the CPU: the plain backward fed by
+    the forward's lse) against jax.vjp of the Pallas kernels in interpret
+    mode, fp32; tolerances of tests/test_attention.py."""
+    import jax
+
+    q, k, v = _qkv((B, T, H, 64), seed=10 + T)
+    g = np.random.default_rng(T).normal(size=(B, T, H, 64)).astype(
+        np.float32)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jax_attention.flash_attention(a, b, c,
+                                                      interpret=True),
+        *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = attention.flash_attention(tq, tk, tv)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4,
+                                   rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("t_valid", [53, 64])
+def test_plain_backward_matches_autograd_of_plain_forward(t_valid):
+    """flash_attention_bwd_reference (P from the saved lse, δ = rowsum(dO ⊙
+    O)) equals torch autograd through flash_attention_reference, keys past
+    t_valid included (they get zero gradient)."""
+    q, k, v = (torch.from_numpy(x).double().float().requires_grad_()
+               for x in _qkv((3, 64, 64), seed=11))
+    out, lse = attention.flash_attention_reference(q, k, v, t_valid)
+    do = torch.from_numpy(np.random.default_rng(12).normal(
+        size=out.shape).astype(np.float32))
+    want = torch.autograd.grad(out, (q, k, v), do)
+    got = attention.flash_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), out.detach(), lse.detach(), do,
+        t_valid)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert torch.count_nonzero(got[1][:, t_valid:]) == 0
+    assert torch.count_nonzero(got[2][:, t_valid:]) == 0
+
+
+def test_backward_on_cpu_takes_the_plain_version_and_counts_no_launch():
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv((1, 40, 2, 64), seed=13))
+    before = (attention.LAUNCHES, attention.BWD_DQ_LAUNCHES,
+              attention.BWD_DKV_LAUNCHES)
+    attention.flash_attention(q, k, v).sum().backward()
+    assert all(x.grad is not None for x in (q, k, v))
+    assert (attention.LAUNCHES, attention.BWD_DQ_LAUNCHES,
+            attention.BWD_DKV_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("bad", ["lse_shape", "shape", "device"])
+def test_backward_wrapper_rejects_bad_arguments(bad):
+    q, k, v, o, do = (torch.zeros(2, 16, 64) for _ in range(5))
+    lse = torch.zeros(2, 16)
+    if bad == "lse_shape":
+        lse = torch.zeros(2, 15)
+    elif bad == "shape":
+        do = torch.zeros(2, 16, 32)
+    else:
+        q, k, v, o, do, lse = (x.to("meta") for x in (q, k, v, o, do, lse))
+    with pytest.raises(ValueError):
+        attention.flash_attention_bwd(q, k, v, o, lse, do, 16)

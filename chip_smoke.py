@@ -20,28 +20,44 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    - layernorm_bwd at [3588, 1024] bf16 (library:
      aten.native_layer_norm_backward);
    - fused_adam over every leaf of the full AModel (library:
-     torch.optim.Adam(fused=True).step()).
-4. serving: the full-width XLSR-300M + AASIST scorer (random weights from a
-   seed) served over HTTP by `occm_tpu_torch.cli.oc_server`: a 4 s WAV, a
-   6 s raw-PCM and a 12 s WAV request plus 8 concurrent 6 s requests.
-   Checks every response, that the forward kernel launched 24 times (one
-   per layer) for every batch of a flash bucket, and that the flash scores
-   agree with the plain-attention scores.
-5. training through the CLI: `occm_tpu_torch.cli.oc_training.main` at full
-   width on a synthetic ASVspoof-shaped tree of 6-7 s waves, --cut 96000
-   (flash attention through auto), one epoch. Checks every step's loss is
-   finite, the attention kernels' launches per step, and that
-   aasist_vocoded_0.pt loads strictly into the port's AModel.
-6. training through `train()`: 3 steps with every kernel (flash attention,
-   ln_impl="pallas", optimizer="fused_adam", AASIST dropouts zeroed), then
-   the same 3 steps from the same weights and batches in the plain
-   configuration (xla attention and LayerNorm, torch Adam). Checks each
-   kernel's launches per step and the per-step losses within a stated
-   bound; prints step times and peak memory.
-7. with --profile only: device time by kernel (torch.profiler) for full
-   serving batches of 8 in the two flash buckets and for one full training
-   step (12 x 6 s).
-8. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
+     torch.optim.Adam(fused=True).step());
+   - ffn_fwd at M in {1608, 2392, 3588, 4792}, D 1024, F 4096, bf16, erf
+     and tanh GELU (library: the port's ffn_impl="xla" sequence, F.linear,
+     F.gelu, F.linear).
+4. scoring and evaluation at full width (XLSR-300M + AASIST, random
+   weights from seed 0, saved as a reference-named .pt):
+   `occm_tpu_torch.cli.oc_classifier` in 1c2 and 2c2 mode on a synthetic
+   ASVspoof-shaped tree (6 bonafide + 2 spoof train rows, 16 eval
+   utterances of 3-13 s in 11 length buckets); checks the artefacts, the
+   score lines and the attention kernel's launches per batch. Then the
+   same eval set through OneClassScorer with ffn_impl="pallas": 24 ffn_fwd
+   launches per batch, distances within a stated bound of the CLI's. EER
+   and confusion matrix of the score files; utterances/s per bucket of
+   1-13 s at a full batch of 8, attention xla vs flash (the measurement
+   behind impl_select's AUTO_FLASH_MIN_SAMPLES), and ffn xla vs pallas at
+   6 and 12 s.
+5. serving: the same checkpoint served over HTTP by
+   `occm_tpu_torch.cli.oc_server` from the reference embedding and
+   threshold that phase 4 wrote: a 4 s WAV, a 6 s raw-PCM and a 12 s WAV
+   request plus 8 concurrent 6 s requests. Checks every response, that the
+   forward kernel launched 24 times (one per layer) for every batch of a
+   flash bucket, and that the flash scores agree with the plain-attention
+   scores.
+6. training through the CLI: `occm_tpu_torch.cli.oc_training.main` at full
+   width on the fixture's 6-7 s waves, --cut 96000 (flash attention
+   through auto), one epoch. Checks every step's loss is finite, the
+   attention kernels' launches per step, and that aasist_vocoded_0.pt
+   loads strictly into the port's AModel.
+7. training through `train()`: 3 steps with every kernel (flash attention,
+   ln_impl="pallas", ffn_impl="pallas", optimizer="fused_adam", AASIST
+   dropouts zeroed), then the same 3 steps from the same weights and
+   batches in the plain configuration (xla attention, LayerNorm and FFN,
+   torch Adam). Checks each kernel's launches per step and the per-step
+   losses within a stated bound; prints step times and peak memory.
+8. with --profile only: device time by kernel (torch.profiler) for full
+   batches of 8 in the two flash buckets, for a 6 s batch with
+   ffn_impl="pallas", and for one full training step (12 x 6 s).
+9. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -89,6 +105,18 @@ LSE_ATOL = 1e-3
 # fails on any structural fault (a wrong mask, layout or scale moves the
 # distance by far more).
 SCORE_RTOL = 5e-2
+# Fused FFN kernel vs its plain version on the same bf16 inputs: the plain
+# version repeats the kernel's two bf16 roundings (the hidden activation and
+# the output), so the two differ only by the order of the fp32 sums, which
+# can flip one rounding of an output by one bf16 ulp (at most 2^-7 of its
+# magnitude) or one rounding of a hidden element (an effect on y some 2^-8
+# times smaller). A bound of 2^-7 of the largest |y| holds that and fails on
+# a wrong fragment, tile or bias (those move whole rows or columns).
+FFN_RTOL_OF_MAX = 2.0 ** -7
+# M of the FFN check: 8 x T at 4, 6 and 12 s (serving and scoring batches),
+# 12 x 299 (a training step at 6 s); M = 2392 is the kernels line's shape
+FFN_MS = (8 * 201, 8 * 299, 12 * 299, 8 * 599)
+FFN_MAIN_M = 8 * 299
 # Training, step 1: the same forward as the serving check's, through the
 # same 24 layers, plus the LayerNorm kernel's bf16 output: relative 5e-2 of
 # the loss (later steps add an Adam term, see phase_train).
@@ -445,7 +473,350 @@ def phase_fused_adam():
                 bound_by=bound_by, bytes=nbytes)
 
 
-# ----------------------------------------------------------------- phase 4
+def ffn_bound(m: int, d: int, f: int):
+    """Least time for y = GELU(x W1 + b1) W2 + b2 on an H100: two products
+    of 2 M D F flops; x, W1, W2, b1, b2 read once and y written once in
+    bf16. Returns (bound_ms, bound_by, flops, bytes)."""
+    flops = 4.0 * m * d * f
+    nbytes = 2.0 * (2 * m * d + 2 * d * f + f + d)
+    t_ops = flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def phase_ffn():
+    """ffn_fwd against ffn_reference at the FFN_MS shapes, full width,
+    erf and tanh GELU, with the kernel, plain, library and bound times.
+    Library: the port's ffn_impl="xla" sequence, F.linear -> F.gelu ->
+    F.linear in bf16 (three calls; no single PyTorch call computes the
+    fused function)."""
+    import torch
+    import torch.nn.functional as F
+
+    from occm_tpu_torch.config import XLSRConfig
+    from occm_tpu_torch.ops.ffn import ffn_fwd, ffn_reference
+
+    cfg = XLSRConfig()
+    d, f = cfg.encoder_embed_dim, cfg.encoder_ffn_dim
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).to(
+            torch.bfloat16)
+
+    # weights as the model holds them: fc1.weight [F, D], fc2.weight [D, F]
+    fc1_w, fc1_b = randn(f, d, std=0.02), randn(f, std=0.02)
+    fc2_w, fc2_b = randn(d, f, std=0.02), randn(d, std=0.02)
+    w1, w2 = fc1_w.t(), fc2_w.t()  # JAX layout views, as the model passes
+    rows = []
+    for m in FFN_MS:
+        x = randn(m, d)
+        for approximate in (False, True):
+            y = ffn_fwd(x, w1, fc1_b, w2, fc2_b, approximate)
+            torch.cuda.synchronize()
+            ref = ffn_reference(x, w1, fc1_b, w2, fc2_b, approximate)
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            gelu = "tanh" if approximate else "erf"
+            if not (y.shape == (m, d) and math.isfinite(err)
+                    and err <= FFN_RTOL_OF_MAX * scale):
+                fail(f"ffn_fwd M={m} {gelu}: max |y - plain| = {err} > "
+                     f"{FFN_RTOL_OF_MAX} * {scale}")
+            ms = cuda_ms(lambda: ffn_fwd(x, w1, fc1_b, w2, fc2_b,
+                                         approximate))
+            plain_ms = cuda_ms(lambda: ffn_reference(
+                x, w1, fc1_b, w2, fc2_b, approximate), iters=5, warmup=1)
+            mode = "tanh" if approximate else "none"
+            library_ms = cuda_ms(lambda: F.linear(F.gelu(
+                F.linear(x, fc1_w, fc1_b), approximate=mode), fc2_w, fc2_b))
+            bound_ms, bound_by, flops, nbytes = ffn_bound(m, d, f)
+            rows.append(dict(M=m, gelu=gelu, max_abs_err=err, max_abs_y=scale,
+                             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                             bytes=nbytes))
+            print(f"[kernel] ffn_fwd [{m}, {d}] x [{d}, {f}] bf16, {gelu}: "
+                  f"max_err {err:.3e} (bound {FFN_RTOL_OF_MAX} * {scale:.3e})"
+                  f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"ffn_impl=xla sequence (F.linear, F.gelu, F.linear) "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{flops:.4g} flop, {nbytes:.4g} B)", flush=True)
+    return rows
+
+
+# ------------------------------------------------------ scoring (phase 4)
+
+def build_seed_model(workdir: str):
+    """The full-width AModel with random weights from seed 0, on the card
+    in eval mode, and its state dict saved as a reference-named .pt."""
+    import torch
+
+    from occm_tpu_torch.config import AASISTConfig, XLSRConfig
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.utils import random_init_
+
+    xcfg = XLSRConfig()
+    t0 = time.perf_counter()
+    model = random_init_(AModel(AASISTConfig(), xcfg), seed=0).to(
+        "cuda").eval()
+    ckpt = os.path.join(workdir, "amodel_seed0.pt")
+    torch.save(model.state_dict(), ckpt)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[main] AModel(AASISTConfig(), XLSRConfig()): {n_params} params, "
+          f"{xcfg.encoder_layers} layers d={xcfg.encoder_embed_dim} "
+          f"ffn={xcfg.encoder_ffn_dim} heads={xcfg.encoder_heads} "
+          f"dtype={xcfg.dtype}; init + save {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return model, ckpt
+
+
+# Eval utterances of the scoring phase, seconds: with oc_classifier's
+# default --bucket_step 16000 they fill the 3 s and 4 s buckets (plain
+# attention under auto) and nine buckets of 5-13 s (the flash kernel; 11 s
+# and up have T > 512 frames, the JAX package's blocked route).
+EVAL_SECONDS = (3.0, 3.0, 3.6, 3.9, 4.5, 5.4, 5.9, 6.3, 7.2, 8.5, 9.6, 10.5,
+                11.2, 11.9, 12.6, 13.0)
+# pallas vs xla FFN distances through the whole 24-layer model: the xla path
+# rounds fc1's output to bf16 before the GELU, the fused kernel applies the
+# GELU in fp32 and rounds after it: a relative 2^-9 per hidden element per
+# layer, carried through 24 layers as the flash-vs-xla attention rounding
+# is (SCORE_RTOL's argument), so the same relative bound.
+FFN_SCORE_RTOL = SCORE_RTOL
+THROUGHPUT_REPS = 4
+
+
+def write_eval_set(root: str, seed: int = 1):
+    """A bare eval list over EVAL_SECONDS waves, trial metadata with
+    labels (column 2 utt, column 6 label) and a 5-column protocol of the
+    same utterances and labels."""
+    from occm_tpu_torch.io.wav import write_wav
+
+    eval_dir = os.path.join(root, "eval")
+    os.makedirs(eval_dir)
+    rng = np.random.default_rng(seed)
+    utts, meta, proto = [], [], []
+    for i, sec in enumerate(EVAL_SECONDS):
+        utt = f"LA_E_{i:05d}"
+        write_wav(os.path.join(eval_dir, utt + ".wav"),
+                  synthetic_wave(rng, sec), SR)
+        label = "spoof" if i % 2 else "bonafide"
+        utts.append(utt)
+        meta.append(f"LA_{i:04d} {utt} - asvspoof A09 {label} notrim eval "
+                    "- - - -")
+        proto.append(f"LA_{i:04d} {utt} - - {label}")
+    paths = {}
+    for name, lines in (("eval.txt", utts), ("metadata.txt", meta),
+                        ("eval5.txt", proto)):
+        paths[name] = os.path.join(root, name)
+        with open(paths[name], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return eval_dir, paths
+
+
+def flash_batches(lengths, batch: int = 8, step: int = 16000) -> int:
+    """Batches the scorer runs through the flash kernel under auto for
+    utterances of these sample counts: per bucket, ceil(count / batch)."""
+    from occm_tpu_torch.classify.impl_select import select_attention_impl
+
+    counts = {}
+    for n in lengths:
+        b = max(step, -(-n // step) * step)
+        counts[b] = counts.get(b, 0) + 1
+    return sum(-(-c // batch) for b, c in counts.items()
+               if select_attention_impl(b) == "flash")
+
+
+def utt_per_s(fns, x) -> dict:
+    """Utterances per second of each fn on batch x, timed in turns
+    (A B ... B A) on the host clock around synchronised runs of
+    THROUGHPUT_REPS calls each."""
+    import torch
+
+    times = dict.fromkeys(fns, 0.0)
+    for fn in fns.values():
+        fn(x)  # warm-up: kernels, allocator pools, cuDNN plans
+    for k in list(fns) + list(fns)[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(THROUGHPUT_REPS):
+            fns[k](x)
+        torch.cuda.synchronize()
+        times[k] += time.perf_counter() - t0
+    return {k: 2 * THROUGHPUT_REPS * x.shape[0] / t for k, t in times.items()}
+
+
+def phase_scoring(workdir: str, model, ckpt: str, fixture):
+    """Offline scoring and evaluation at full width: `oc_classifier` in
+    1c2 and 2c2 mode on the fixture's train protocol and a bare eval list
+    (attention auto per bucket, ffn "xla" as the CLI runs it), the same eval
+    set through OneClassScorer with ffn_impl="pallas" (the fused FFN kernel)
+    gated against the CLI's distances, EER and confusion matrix from the
+    score files, and utterances/s per bucket. Returns the artefacts'
+    directory and the kernels' launches."""
+    import torch
+
+    from occm_tpu_torch.audio import pad_numpy
+    from occm_tpu_torch.classify import (
+        BucketedEmbedder, OneClassScorer, make_embed_fn_factory)
+    from occm_tpu_torch.classify.impl_select import (
+        AUTO_FLASH_MIN_SAMPLES, select_attention_impl)
+    from occm_tpu_torch.cli import oc_classifier
+    from occm_tpu_torch.cli.oc_server import build_model
+    from occm_tpu_torch.config import XLSRConfig
+    from occm_tpu_torch.data import ASVDataset
+    from occm_tpu_torch.evaluate import calculate_eer_merged, evaluate_scores
+    from occm_tpu_torch.io.scorefiles import read_comma_scores
+    from occm_tpu_torch.io.wav import load_audio
+    from occm_tpu_torch.serve import make_score_fn
+
+    protocol, train_dir, _ = fixture
+    root = os.path.join(workdir, "scoring")
+    os.makedirs(root)
+    eval_dir, paths = write_eval_set(root)
+    layers = XLSRConfig().encoder_layers
+    eval_ds = ASVDataset(paths["eval.txt"], eval_dir, eval=True)
+    train_ds = ASVDataset(protocol, train_dir)
+    eval_lens = [len(load_audio(p)[0]) for p in eval_ds.file_paths()]
+    train_lens = [len(load_audio(p)[0]) for p in train_ds.file_paths()]
+    n_eval, n_train = len(eval_lens), len(train_lens)
+    eval_buckets = sorted({max(16000, -(-n // 16000) * 16000)
+                           for n in eval_lens})
+    flash_eval = flash_batches(eval_lens)
+    flash_train = flash_batches(train_lens)
+    print(f"[score] eval set: {n_eval} utterances of {EVAL_SECONDS[0]}-"
+          f"{EVAL_SECONDS[-1]} s in buckets {eval_buckets} "
+          f"({flash_eval} flash batches under auto); train protocol: "
+          f"{n_train} bonafide rows (the 2 spoof rows are filtered out)",
+          flush=True)
+
+    # ---- the CLI, as a user runs it: 1c2, then 2c2
+    argv = ["--pretrained-sslaasist", ckpt, "--protocol_file", protocol,
+            "--dataset_dir", train_dir, "--eval_protocol_file",
+            paths["eval.txt"], "--eval_dataset_dir", eval_dir]
+    scores = {m: os.path.join(root, f"scores_{m}.txt") for m in ("1c2", "2c2")}
+    cwd = os.getcwd()
+    os.chdir(root)  # reference_embedding.npy, threshold.npy land here
+    launches = {"flash_attn_fwd": 0}
+    try:
+        for mode, want_batches in (("1c2", flash_train + flash_eval),
+                                   ("2c2", flash_eval)):
+            reset_counts()
+            t0 = time.perf_counter()
+            oc_classifier.main(argv + ["--mode", mode, "--score_file",
+                                       scores[mode]])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            if counts["flash_attn_fwd"] != layers * want_batches or \
+                    counts["ffn_fwd"] != 0:
+                fail(f"oc_classifier {mode}: launches {counts}, want "
+                     f"flash_attn_fwd {layers * want_batches}, ffn_fwd 0")
+            launches["flash_attn_fwd"] += counts["flash_attn_fwd"]
+            print(f"[score] oc_classifier --mode {mode}: {wall:.1f} s "
+                  "(model load included), launches "
+                  f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    finally:
+        os.chdir(cwd)
+    for name in ("reference_embedding.npy", "threshold.npy", "distances.txt"):
+        if not os.path.exists(os.path.join(root, name)):
+            fail(f"oc_classifier 1c2 wrote no {name}")
+    reference = np.load(os.path.join(root, "reference_embedding.npy"))
+    threshold = float(np.load(os.path.join(root, "threshold.npy")))
+    train_d = np.loadtxt(os.path.join(root, "distances.txt"))
+    if not (reference.shape == (160,) and np.isfinite(reference).all()
+            and train_d.shape == (n_train,)
+            and math.isfinite(threshold) and threshold == np.float32(
+                train_d.max())):
+        fail(f"bad artefacts: reference {reference.shape}, threshold "
+             f"{threshold}, distances {train_d}")
+    lines_1c = open(scores["1c2"]).read().splitlines(keepends=True)
+    d_cli = np.asarray(read_comma_scores(scores["1c2"]))
+    logits = np.loadtxt(scores["2c2"])
+    if len(lines_1c) != n_eval or logits.shape != (n_eval,):
+        fail(f"score files: {len(lines_1c)} and {logits.shape} lines, want "
+             f"{n_eval}")
+    for line, d in zip(lines_1c, d_cli):
+        if line != f"{d}, {int(d > threshold)} \n" or not math.isfinite(d):
+            fail(f"bad 1c score line {line!r}")
+    if not np.isfinite(logits).all():
+        fail(f"2c logits not finite: {logits}")
+    print(f"[score] artefacts: reference {reference.shape}, threshold "
+          f"{threshold:.6f} (max of {n_train} train distances); 1c "
+          f"distances {np.round(d_cli, 4).tolist()}; 2c logits "
+          f"{np.round(logits, 4).tolist()}", flush=True)
+
+    # ---- the fused FFN kernel's path: same checkpoint, ffn_impl="pallas"
+    pallas = build_model(XLSRConfig(ffn_impl="pallas"), ckpt, False, "cuda")
+    scorer = OneClassScorer(BucketedEmbedder(
+        embed_fn_factory=make_embed_fn_factory(pallas), device="cuda"),
+        cache_dir=root)
+    pallas_file = os.path.join(root, "scores_1c2_pallas.txt")
+    reset_counts()
+    scorer.score_eval_set_1c(eval_ds, reference, threshold,
+                             score_file=pallas_file)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_batches = len(eval_buckets)
+    if counts["ffn_fwd"] != layers * n_batches:
+        fail(f"ffn_impl=pallas scoring: ffn_fwd launched {counts['ffn_fwd']}"
+             f" times over {n_batches} batches, want {layers * n_batches}")
+    launches["ffn_fwd"] = counts["ffn_fwd"]
+    launches["flash_attn_fwd"] += counts["flash_attn_fwd"]
+    d_pallas = np.asarray(read_comma_scores(pallas_file))
+    rel = np.abs(d_pallas - d_cli) / np.abs(d_cli)
+    print(f"[score] ffn_impl=pallas: ffn_fwd launches {counts['ffn_fwd']} "
+          f"({layers} x {n_batches} batches); distances vs the CLI's "
+          f"(ffn xla): max rel diff {rel.max():.3e} (bound {FFN_SCORE_RTOL})",
+          flush=True)
+    if not rel.max() <= FFN_SCORE_RTOL:
+        fail(f"pallas and xla FFN distances disagree: rel {rel}")
+
+    # ---- evaluation of the score files
+    res = evaluate_scores(scores["1c2"], paths["eval.txt"],
+                          paths["metadata.txt"], threshold=threshold)
+    utt_file = os.path.join(root, "utt_scores_2c.txt")
+    with open(utt_file, "w") as f:
+        for utt, lg in zip(open(paths["eval.txt"]).read().split(), logits):
+            f.write(f"{utt} {float(lg)}\n")
+    eer_2c, _ = calculate_eer_merged(paths["eval5.txt"], utt_file)
+    for name, eer in (("1c (evaluate_scores)", res["eer"]),
+                      ("2c (calculate_eer_merged)", eer_2c)):
+        if not (math.isfinite(eer) and 0.0 <= eer <= 1.0):
+            fail(f"EER {name} = {eer}")
+    print(f"[score] EER 1c {res['eer'] * 100.0:.2f} % (threshold "
+          f"{res['eer_threshold']:.6f}), 2c {eer_2c * 100.0:.2f} %; "
+          f"confusion matrix {res['confusion_matrix'].tolist()} "
+          "(random weights: the values only show the pipeline runs)",
+          flush=True)
+
+    # ---- utterances/s at a full batch of 8 per bucket
+    rng = np.random.default_rng(7)
+    rows = []
+    for bucket in sorted(set(eval_buckets) | {16000, 32000}):
+        x = torch.from_numpy(np.stack([pad_numpy(
+            synthetic_wave(rng, bucket / SR), bucket) for _ in range(8)])
+        ).to("cuda")
+        fns = {"xla": make_score_fn(model, "xla"),
+               "flash": make_score_fn(model, "flash")}
+        if bucket in (96000, 192000):
+            fns["flash+ffn_pallas"] = make_score_fn(pallas, "flash")
+        row = dict(bucket=bucket, auto=select_attention_impl(bucket),
+                   **utt_per_s(fns, x))
+        rows.append(row)
+        print(f"[score] bucket {bucket} ({bucket / SR:.0f} s), batch 8, "
+              "utt/s: " + ", ".join(f"{k} {v:.2f}" for k, v in row.items()
+                                    if isinstance(v, float))
+              + f" (auto picks {row['auto']})", flush=True)
+    wins = [r["bucket"] for r in rows if r["flash"] > r["xla"]]
+    print(f"[score] flash beats xla attention in buckets {wins}; first "
+          f"{wins[0] if wins else None} (AUTO_FLASH_MIN_SAMPLES "
+          f"{AUTO_FLASH_MIN_SAMPLES})", flush=True)
+    del pallas, scorer
+    torch.cuda.empty_cache()
+    return root, launches, rows
+
+
+# ----------------------------------------------------------------- phase 5
 
 def wav_bytes(x: np.ndarray, sr: int = SR) -> bytes:
     pcm = (np.clip(x, -1.0, 1.0) * 32767.0).astype("<i2").tobytes()
@@ -486,50 +857,25 @@ def check_response(name, status, payload):
         fail(f"{name}: prediction not in {{0, 1}}: {payload}")
 
 
-def phase_main_path(workdir: str):
+def phase_main_path(model, ckpt: str, artifacts_dir: str):
+    """Serving: `oc_server` on the checkpoint, from the reference embedding
+    and threshold that the scoring phase's `oc_classifier` wrote."""
     import torch
 
-    from occm_tpu_torch.audio import pad_numpy
+    from occm_tpu_torch.classify.impl_select import select_attention_impl
     from occm_tpu_torch.cli import oc_server
-    from occm_tpu_torch.config import AASISTConfig, XLSRConfig
-    from occm_tpu_torch.losses import pairwise_distance
-    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.config import XLSRConfig
     from occm_tpu_torch.ops import attention
     from occm_tpu_torch.serve import ScoringService, make_score_fn
-    from occm_tpu_torch.utils import random_init_
 
     dev = torch.device("cuda")
-    xcfg = XLSRConfig()
-    per_batch = xcfg.encoder_layers  # one kernel launch per layer
-    t0 = time.perf_counter()
-    model = random_init_(AModel(AASISTConfig(), xcfg), seed=0).to(dev).eval()
-    ckpt = os.path.join(workdir, "amodel_seed0.pt")
-    torch.save(model.state_dict(), ckpt)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"[main] AModel(AASISTConfig(), XLSRConfig()): {n_params} params, "
-          f"{xcfg.encoder_layers} layers d={xcfg.encoder_embed_dim} "
-          f"heads={xcfg.encoder_heads} dtype={xcfg.dtype}; init + save "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-
-    # reference embedding and threshold from the model's own embeddings of
-    # seeded synthetic waves: mean embedding, median distance
+    per_batch = XLSRConfig().encoder_layers  # one kernel launch per layer
+    reference = np.load(os.path.join(artifacts_dir, "reference_embedding.npy"))
+    threshold = float(np.load(os.path.join(artifacts_dir, "threshold.npy")))
+    print(f"[main] serving from oc_classifier's artefacts: reference "
+          f"embedding {reference.shape}, threshold {threshold:.6f}",
+          flush=True)
     rng = np.random.default_rng(0)
-    enroll = np.stack([pad_numpy(synthetic_wave(rng, 4.0), 64600)
-                       for _ in range(8)])
-    with torch.inference_mode():
-        emb, _ = model(torch.from_numpy(enroll).to(dev),
-                       attention_impl="xla")
-    emb = emb.float()
-    if not (emb.shape == (8, 160) and torch.isfinite(emb).all()):
-        fail(f"bad enrolment embeddings: shape {tuple(emb.shape)}")
-    reference = emb.mean(dim=0)
-    threshold = float(pairwise_distance(emb, reference).median())
-    np.save(os.path.join(workdir, "reference_embedding.npy"),
-            reference.cpu().numpy())
-    np.save(os.path.join(workdir, "threshold.npy"),
-            np.asarray(threshold, np.float32))
-    print(f"[main] reference embedding from 8 enrolment waves, threshold "
-          f"(median distance) {threshold:.6f}", flush=True)
 
     # --- the server, as a user starts it
     attention.LAUNCHES = 0
@@ -540,8 +886,8 @@ def phase_main_path(workdir: str):
     def serve():
         try:
             oc_server.main([
-                "--pretrained-sslaasist", ckpt, "--allow_random_init",
-                "--artifacts_dir", workdir, "--host", "127.0.0.1",
+                "--pretrained-sslaasist", ckpt,
+                "--artifacts_dir", artifacts_dir, "--host", "127.0.0.1",
                 "--port", "0", "--max_wait_ms", "100"], started_event=started)
         except BaseException as e:  # surfaced below, never swallowed
             errors.append(e)
@@ -558,9 +904,12 @@ def phase_main_path(workdir: str):
     print(f"[main] server up on port {port} in "
           f"{time.perf_counter() - t0:.1f} s (load + warmup of "
           f"{service.buckets}); warmup launches {warm_launches}", flush=True)
-    if warm_launches != per_batch:  # one warmup batch in bucket 96 000
+    # one warmup batch per bucket; the flash buckets launch the kernel
+    warm_want = per_batch * sum(select_attention_impl(b) == "flash"
+                                for b in service.buckets)
+    if warm_launches != warm_want:
         fail(f"warmup launched the kernel {warm_launches} times, want "
-             f"{per_batch}")
+             f"{warm_want}")
 
     # count the device batches per bucket the batcher forms
     batches = []
@@ -585,7 +934,7 @@ def phase_main_path(workdir: str):
         status, payload, ms = post(port, body, hdrs)
         check_response(name, status, payload)
         launched = attention.LAUNCHES - before
-        want = per_batch if bucket >= 80000 else 0
+        want = per_batch if select_attention_impl(bucket) == "flash" else 0
         if launched != want:
             fail(f"{name} (bucket {bucket}): kernel launched {launched} "
                  f"times, want {want}")
@@ -643,7 +992,7 @@ def phase_main_path(workdir: str):
 
     # flash (server) vs plain attention on the same waves and buckets
     plain = ScoringService(score_fn=make_score_fn(model, "xla"),
-                           reference_embedding=reference.cpu().numpy(),
+                           reference_embedding=reference,
                            threshold=threshold, buckets=service.buckets,
                            batch=8, device=dev)
     d_plain, _ = plain.score([w6, w12] + waves8)
@@ -660,10 +1009,10 @@ def phase_main_path(workdir: str):
           f"launches on the main path {main_launches} (warmup "
           f"{warm_launches} + requests {main_launches - warm_launches})",
           flush=True)
-    return main_launches, model, reference.cpu().numpy()
+    return main_launches, reference
 
 
-# ----------------------------------------------------------------- phase 5
+# ------------------------------------------------------------- phases 6, 7
 
 VOCODERS = ("hifigan", "hn-sinc-nsf-hifi", "hn-sinc-nsf", "melgan",
             "waveglow")
@@ -705,23 +1054,25 @@ def write_fixture(root: str, n_bona: int = 6, n_spoof: int = 2,
 
 
 def reset_counts():
-    from occm_tpu_torch.ops import attention, fused_adam, layernorm
+    from occm_tpu_torch.ops import attention, ffn, fused_adam, layernorm
 
     attention.LAUNCHES = 0
     attention.BWD_DQ_LAUNCHES = 0
     attention.BWD_DKV_LAUNCHES = 0
     layernorm.LAUNCHES = 0
     fused_adam.LAUNCHES = 0
+    ffn.LAUNCHES = 0
 
 
 def read_counts():
-    from occm_tpu_torch.ops import attention, fused_adam, layernorm
+    from occm_tpu_torch.ops import attention, ffn, fused_adam, layernorm
 
     return {"flash_attn_fwd": attention.LAUNCHES,
             "flash_attn_bwd_dq": attention.BWD_DQ_LAUNCHES,
             "flash_attn_bwd_dkv": attention.BWD_DKV_LAUNCHES,
             "layernorm_bwd": layernorm.LAUNCHES,
-            "fused_adam": fused_adam.LAUNCHES}
+            "fused_adam": fused_adam.LAUNCHES,
+            "ffn_fwd": ffn.LAUNCHES}
 
 
 class StepRecorder:
@@ -776,9 +1127,10 @@ class ListPipeline:
         return iter(self.batches)
 
 
-def phase_train(workdir: str, profile: bool):
-    """Phase 5 (CLI) and phase 6 (train() with every kernel against the
-    plain configuration). Returns the launches of both runs."""
+def phase_train(workdir: str, fixture, profile: bool):
+    """Phase 6 (CLI) and phase 7 (train() with every kernel against the
+    plain configuration) on the fixture tree (protocol, train_dir,
+    voc_dir). Returns the launches of both runs."""
     import dataclasses
 
     import torch
@@ -793,13 +1145,11 @@ def phase_train(workdir: str, profile: bool):
     from occm_tpu_torch.train import train
     from occm_tpu_torch.utils.logging import MetricsLogger
 
-    fixture = os.path.join(workdir, "fixture")
-    os.makedirs(fixture)
-    protocol, train_dir, voc_dir = write_fixture(fixture)
+    protocol, train_dir, voc_dir = fixture
     layers = XLSRConfig().encoder_layers
     launches = {}
 
-    # ---- phase 5: the CLI, as a user runs it
+    # ---- phase 6: the CLI, as a user runs it
     ckpt_dir = os.path.join(workdir, "ckpt")
     cwd = os.getcwd()
     os.chdir(workdir)  # loss.txt and metrics.jsonl land here
@@ -821,7 +1171,8 @@ def phase_train(workdir: str, profile: bool):
     # forward, once in the backward's recompute
     check_steps("cli", rec, {
         "flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
-        "flash_attn_bwd_dkv": layers, "layernorm_bwd": 0, "fused_adam": 0})
+        "flash_attn_bwd_dkv": layers, "layernorm_bwd": 0, "fused_adam": 0,
+        "ffn_fwd": 0})
     path = os.path.join(ckpt_dir, "aasist_vocoded_0.pt")
     model = AModel(AASISTConfig(), XLSRConfig())
     model.load_state_dict(load_reference_state_dict(path), strict=True)
@@ -831,7 +1182,7 @@ def phase_train(workdir: str, profile: bool):
           f"loads strictly into AModel", flush=True)
     del model
 
-    # ---- phase 6: train() with every kernel, then the plain configuration
+    # ---- phase 7: train() with every kernel, then the plain configuration
     dataset = PFDataset(protocol, dataset_dir=train_dir, vocoded_dir=voc_dir,
                         cut=TRAIN_CUT, seed=0)
     batches = []
@@ -843,7 +1194,8 @@ def phase_train(workdir: str, profile: bool):
     impl = select_attention_impl(TRAIN_CUT)
     if impl != "flash":
         fail(f"auto attention at {TRAIN_CUT} samples is {impl!r}, not flash")
-    kcfg = XLSRConfig(ln_impl="pallas", attention_impl=impl)
+    kcfg = XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
+                      attention_impl=impl)
     pcfg = XLSRConfig(ln_impl="xla", attention_impl="xla")
     base = TrainConfig(cut=TRAIN_CUT, compactness_weight=0.1,
                        descriptiveness_weight=0.9, log_every=1,
@@ -909,7 +1261,8 @@ def phase_train(workdir: str, profile: bool):
             want = {"flash_attn_fwd": 2 * layers,
                     "flash_attn_bwd_dq": layers,
                     "flash_attn_bwd_dkv": layers,
-                    "layernorm_bwd": 2 * layers, "fused_adam": leaves}
+                    "layernorm_bwd": 2 * layers, "fused_adam": leaves,
+                    "ffn_fwd": 2 * layers}
             kernel_counts = counts
         else:
             want = dict.fromkeys(counts, 0)
@@ -917,7 +1270,8 @@ def phase_train(workdir: str, profile: bool):
         runs[name] = rec.steps
         step_ms = [st["ms"] for st in rec.steps]
         print(f"[train] train() {name} ({opt}, attention "
-              f"{xcfg.attention_impl}, ln {xcfg.ln_impl}): step ms "
+              f"{xcfg.attention_impl}, ln {xcfg.ln_impl}, ffn "
+              f"{xcfg.ffn_impl}): step ms "
               f"{[round(x, 1) for x in step_ms]}, peak device memory "
               f"{peak:.2f} GiB", flush=True)
         del model
@@ -943,6 +1297,7 @@ def phase_train(workdir: str, profile: bool):
                                   + kernel_counts["flash_attn_bwd_dq"])
     launches["layernorm_bwd"] = kernel_counts["layernorm_bwd"]
     launches["fused_adam"] = kernel_counts["fused_adam"]
+    launches["ffn_fwd"] = kernel_counts["ffn_fwd"]
     return launches
 
 
@@ -951,7 +1306,7 @@ def phase_train(workdir: str, profile: bool):
 def _kernel_class(name: str) -> str:
     n = name.lower()
     for k in ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd",
-              "fused_adam"):
+              "fused_adam", "ffn_fwd"):
         if k in n:
             return f"{k} (this port)"
     if "memcpy" in n or "memset" in n:
@@ -997,17 +1352,24 @@ def report_profile(prof, window_us: float, n: int, label: str):
               flush=True)
 
 
-def phase_profile(model, reference: np.ndarray, batches: int = 3):
+def phase_profile(model, reference: np.ndarray, ckpt: str,
+                  batches: int = 3):
     """Device time by kernel for full batches of 8 in the two flash
-    buckets, through ScoringService as the server runs them."""
+    buckets, through ScoringService as the server runs them, and for a
+    6 s batch with ffn_impl="pallas" (the scoring phase's kernel path)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from occm_tpu_torch.cli.oc_server import build_model
+    from occm_tpu_torch.config import XLSRConfig
     from occm_tpu_torch.serve import ScoringService, make_score_fn
 
+    pallas = build_model(XLSRConfig(ffn_impl="pallas"), ckpt, False, "cuda")
     rng = np.random.default_rng(1)
-    for seconds, bucket in ((6.0, 96000), (12.0, 192000)):
-        svc = ScoringService(score_fn=make_score_fn(model, "flash"),
+    for seconds, bucket, m, label in (
+            (6.0, 96000, model, ""), (12.0, 192000, model, ""),
+            (6.0, 96000, pallas, ', ffn_impl="pallas"')):
+        svc = ScoringService(score_fn=make_score_fn(m, "flash"),
                              reference_embedding=reference, threshold=0.0,
                              buckets=(bucket,), batch=8, device="cuda")
         waves = [synthetic_wave(rng, seconds) for _ in range(8)]
@@ -1021,15 +1383,20 @@ def phase_profile(model, reference: np.ndarray, batches: int = 3):
             torch.cuda.synchronize()
             window_us = (time.perf_counter() - t0) * 1e6
         report_profile(prof, window_us, batches,
-                       f"serving bucket {bucket} ({seconds:.0f} s), batch 8")
+                       f"scoring bucket {bucket} ({seconds:.0f} s), batch 8"
+                       + label)
+    del pallas
+    torch.cuda.empty_cache()
 
 
-def kernel_line(fwd_rows, bwd_rows, ln, adam, launches):
+def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, launches):
     """The {"kernels": [...]} entries. Times, errors and bounds are this
     run's, at the shape named in each entry; `launches` come from the main
-    path (serving and training), 0 with --kernels-only."""
+    path (scoring, serving and training), 0 with --kernels-only."""
     head = next(r for r in fwd_rows if r["T"] == MAIN_PATH_TS[0])
     bhead = next(r for r in bwd_rows if r["T"] == MAIN_PATH_TS[0])
+    fhead = next(r for r in ffn_rows
+                 if r["M"] == FFN_MAIN_M and r["gelu"] == "erf")
     return [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "occm_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -1066,6 +1433,16 @@ def kernel_line(fwd_rows, bwd_rows, ln, adam, launches):
          "shape": f"{adam['leaves']} fp32 leaves, {adam['params']} params",
          **{k: adam[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")}},
+        {"name": "ffn_fwd", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/ffn_fwd.cu",
+         "replaces": "occm_tpu/ops/ffn.py:50 (_kernel)",
+         "launches": launches["ffn_fwd"],
+         "shape": f"x [{FFN_MAIN_M}, 1024] x W1 [1024, 4096] bf16, erf GELU",
+         "max_abs_err": max(r["max_abs_err"] for r in ffn_rows),
+         **{k: fhead[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+         "library": "F.linear, F.gelu, F.linear (ffn_impl=\"xla\")",
+         "per_M": ffn_rows},
     ]
 
 
@@ -1111,28 +1488,37 @@ def main(argv=None) -> int:
     bwd_rows = phase_attention_bwd()
     ln = phase_layernorm_bwd()
     adam = phase_fused_adam()
+    ffn_rows = phase_ffn()
     launches = dict.fromkeys(
-        ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd", "fused_adam"),
-        0)
+        ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd", "fused_adam",
+         "ffn_fwd"), 0)
     if not args.kernels_only:
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
         try:
-            serve_launches, model, reference = phase_main_path(workdir)
-            launches["flash_attn_fwd"] += serve_launches
+            fixture_dir = os.path.join(workdir, "fixture")
+            os.makedirs(fixture_dir)
+            fixture = write_fixture(fixture_dir)
+            model, ckpt = build_seed_model(workdir)
+            artifacts, score_launches, _ = phase_scoring(
+                workdir, model, ckpt, fixture)
+            serve_launches, reference = phase_main_path(model, ckpt,
+                                                        artifacts)
             if args.profile:
-                phase_profile(model, reference)
+                phase_profile(model, reference, ckpt)
             del model
-            train_launches = phase_train(workdir, args.profile)
+            train_launches = phase_train(workdir, fixture, args.profile)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-        for name, n in train_launches.items():
-            launches[name] += n
+        launches["flash_attn_fwd"] += serve_launches
+        for counts in (score_launches, train_launches):
+            for name, n in counts.items():
+                launches[name] += n
 
     print(smi)
     print(json.dumps({"kernels": kernel_line(fwd_rows, bwd_rows, ln, adam,
-                                             launches)}))
+                                             ffn_rows, launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

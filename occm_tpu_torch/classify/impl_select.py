@@ -12,10 +12,12 @@ from __future__ import annotations
 SR = 16000
 
 #: Bucket sample-count at and above which "flash" replaces "xla" under exact
-#: numerics. The 5 s crossover is a TPU v5e figure (the JAX package's
-#: tools/bench_longT.py sweep); it is still to be re-measured on the H100
-#: with the port's own kernel.
-AUTO_FLASH_MIN_SAMPLES = 5 * SR
+#: numerics: the first bucket boundary at which the flash kernel wins, from
+#: chip_smoke.py's per-bucket scoring throughput (full-width model, batch 8,
+#: buckets of 1-13 s, the two impls timed in turns) on an NVIDIA H100 80GB
+#: HBM3 at a 700 W power limit. Flash won from the 1 s bucket up; PERF.md
+#: has the table. The JAX package's 5 s is a figure of another chip.
+AUTO_FLASH_MIN_SAMPLES = 1 * SR
 
 
 def select_attention_impl(bucket_samples: int,

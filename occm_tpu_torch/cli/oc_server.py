@@ -116,9 +116,8 @@ def main(argv=None, started_event=None):
 
     import numpy as np
 
-    from occm_tpu_torch.classify.impl_select import select_attention_impl
-    from occm_tpu_torch.serve import (
-        BatchingQueue, ScoringService, make_score_fn)
+    from occm_tpu_torch.classify import make_embed_fn_factory
+    from occm_tpu_torch.serve import BatchingQueue, ScoringService
     from occm_tpu_torch.serve_http import ScoringHTTPServer
     from occm_tpu_torch.utils.device import resolve_device
 
@@ -146,13 +145,9 @@ def main(argv=None, started_event=None):
 
     # per-bucket attention impl (classify.impl_select): one set of weights,
     # each bucket's score fn runs the impl that its length selects
-    def score_fn_factory(bucket_samples):
-        impl = select_attention_impl(bucket_samples, args.attention_impl,
-                                     norm_dtype=cfg.norm_dtype)
-        return make_score_fn(model, attention_impl=impl)
-
     service = ScoringService(
-        score_fn_factory=score_fn_factory,
+        score_fn_factory=make_embed_fn_factory(model, args.attention_impl,
+                                               cfg.norm_dtype),
         reference_embedding=reference, threshold=threshold,
         buckets=tuple(args.buckets), batch=args.batch_size, device=device,
     )

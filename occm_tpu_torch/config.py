@@ -89,6 +89,9 @@ class XLSRConfig:
     # it is used, which gives the same numbers as a one-off bf16 mirror
     bf16_param_mirror: bool = False
     fused_qkv: bool = False
+    # "xla": fc1, GELU and fc2 as three calls; "pallas": ops/ffn.fused_ffn,
+    # the hand-written CUDA fused FFN forward (the hidden activation stays on
+    # chip), with JAX's recompute backward. Same parameters either way.
     ffn_impl: str = "xla"
     # "pallas": the transformer LayerNorms run ops/layernorm.fast_layer_norm
     # (output in the input dtype, the CUDA LayerNorm backward kernel)
@@ -137,7 +140,6 @@ class XLSRConfig:
             ("pp_stages", self.pp_stages != 1),
             ("seq_parallel", self.seq_parallel),
             ("quant_int8", self.quant_int8),
-            ("ffn_impl", self.ffn_impl != "xla"),
             ("remat_policy", self.remat_policy != "nothing"),
             ("fused_qkv", self.fused_qkv),
             ("attention_impl", impl not in ("xla", "flash")),

@@ -1,12 +1,16 @@
-"""The one-class meta-batch dataset (port of
-`occm_tpu.data.datasets.PFDataset`).
+"""Map-style datasets over ASVspoof protocol trees (port of
+`occm_tpu.data.datasets.PFDataset` and `ASVDataset`).
 
-Each item is a 12-utterance meta-batch ([12, cut] float32, labels [12]).
-The default pads every utterance to a fixed `cut` by repeating it
-(`pad_mode="repeat"`); `pad_mode="group_max"` zero-pads to the group's
-longest utterance, the reference's layout. The random picks inside a
-meta-batch come from a per-index `np.random.default_rng((seed, idx))`, so
-they depend only on (seed, idx) and match the JAX package's.
+- PFDataset: each item is a 12-utterance meta-batch ([12, cut] float32,
+  labels [12]). The default pads every utterance to a fixed `cut` by
+  repeating it (`pad_mode="repeat"`); `pad_mode="group_max"` zero-pads to
+  the group's longest utterance, the reference's layout. The random picks
+  inside a meta-batch come from a per-index
+  `np.random.default_rng((seed, idx))`, so they depend only on (seed, idx)
+  and match the JAX package's.
+- ASVDataset (reference: oc_classifier.py:27-110), the scoring dataset:
+  bonafide-only rows of a train protocol, or a bare eval list; items are
+  full-length waves (the scorer buckets them).
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import numpy as np
 
 from occm_tpu_torch.audio.frontend import pad, zero_pad_to_max
 from occm_tpu_torch.data.sampler import PFSampler
-from occm_tpu_torch.io.protocols import parse_train_protocol
+from occm_tpu_torch.io.protocols import (
+    parse_eval_protocol, parse_train_protocol)
 from occm_tpu_torch.io.wav import load_audio
 
 AudioLoader = Callable[[str], Tuple[np.ndarray, int]]
@@ -97,3 +102,52 @@ class PFDataset:
         else:
             feats = np.stack([pad(w, self.cut) for w in waves])
         return feats.astype(np.float32), labels
+
+
+class ASVDataset:
+    """Scoring dataset (reference: oc_classifier.py:27-110).
+
+    eval=False: bonafide protocol rows only (reference: oc_classifier.py:69-78)
+    eval=True:  bare-utterance list (reference: oc_classifier.py:58-67)
+    """
+
+    def __init__(
+        self,
+        protocol_file: str,
+        dataset_dir: str,
+        eval: bool = False,  # noqa: A002 - mirrors the reference kwarg
+        loader: AudioLoader = _default_loader,
+    ):
+        self.dataset_dir = dataset_dir
+        self.eval = eval
+        self.loader = loader
+        if eval:
+            self.file_list = parse_eval_protocol(protocol_file)
+            self.label_list = ["unknown"] * len(self.file_list)
+        else:
+            files, labels = parse_train_protocol(protocol_file)
+            self.file_list = [
+                f for f, l in zip(files, labels) if l == "bonafide"
+            ]
+            self.label_list = ["bonafide"] * len(self.file_list)
+
+    def __len__(self) -> int:
+        return len(self.file_list)
+
+    def file_paths(self) -> Optional[List[str]]:
+        """Resolved audio paths in dataset order, for
+        `BucketedEmbedder.embed_paths`; None when a custom loader is
+        installed (its decode would be bypassed)."""
+        if self.loader is not _default_loader:
+            return None
+        return [
+            _resolve(self.dataset_dir, name, exts=(".flac", ".wav"))
+            for name in self.file_list
+        ]
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, int]:
+        path = _resolve(self.dataset_dir, self.file_list[idx],
+                        exts=(".flac", ".wav"))
+        wave, _ = self.loader(path)
+        label = 1 if self.label_list[idx] == "spoof" else 0
+        return wave.astype(np.float32), label

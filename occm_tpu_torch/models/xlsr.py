@@ -24,10 +24,12 @@ only: the flash kernels never materialise them, so a non-zero rate raises
 there, as in JAX), the two residual branches and the encoder input
 (`dropout`), the FFN activation (`activation_dropout`), the projected
 features (`dropout_input`), and `layerdrop` (a dropped layer is skipped).
-`remat` recomputes each transformer layer in the backward
-(`torch.utils.checkpoint`, non-reentrant), `conv_remat` the conv feature
-extractor, and `feature_grad_mult` scales the gradient into the extractor
-(0 detaches it). Dropout masks come from an explicit CPU
+With `ffn_impl="pallas"` the FFN runs `fused_ffn` (the CUDA fused
+forward), which cannot apply `activation_dropout`: train mode with a
+non-zero rate raises, as in JAX. `remat` recomputes each transformer layer
+in the backward (`torch.utils.checkpoint`, non-reentrant), `conv_remat` the
+conv feature extractor, and `feature_grad_mult` scales the gradient into
+the extractor (0 detaches it). Dropout masks come from an explicit CPU
 `torch.Generator` passed to the forward: each site draws a seed from it
 and its mask from a device generator seeded with that; each transformer
 layer re-seeds its sites from a per-layer seed, so a remat recompute
@@ -47,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from occm_tpu_torch.config import XLSRConfig
 from occm_tpu_torch.ops.attention import flash_attention
+from occm_tpu_torch.ops.ffn import fused_ffn
 from occm_tpu_torch.ops.layernorm import fast_layer_norm
 from occm_tpu_torch.ops.pos_conv import pos_conv_grouped
 
@@ -244,6 +247,11 @@ class TransformerLayer(nn.Module):
         cfg = self.cfg
         dt = _DTYPES[cfg.dtype]
         pre = cfg.layer_norm_first
+        if (self.training and cfg.activation_dropout > 0.0
+                and cfg.ffn_impl == "pallas"):
+            raise ValueError(
+                "activation_dropout needs the hidden FFN activation "
+                'materialised: train with ffn_impl="xla", or zero the rate')
 
         residual = x
         h = self._norm(self.self_attn_layer_norm, x) if pre else x
@@ -254,9 +262,18 @@ class TransformerLayer(nn.Module):
 
         residual = x
         h = self._norm(self.final_layer_norm, x) if pre else x
-        h = _gelu(_linear(h, self.fc1, dt), cfg.gelu_approximate)
-        h = dropout(h, cfg.activation_dropout, gen)
-        h = dropout(_linear(h, self.fc2, dt), cfg.dropout, gen)
+        if cfg.ffn_impl == "pallas":
+            # fused fc1 + GELU + fc2 (ops/ffn.py): the weights in the compute
+            # dtype, fc1/fc2 in nn.Linear's layout, passed as W1 = fc1.weight^T
+            # and W2 = fc2.weight^T (views; the kernel reads them untransposed)
+            h = fused_ffn(h.to(dt), self.fc1.weight.to(dt).t(),
+                          self.fc1.bias.to(dt), self.fc2.weight.to(dt).t(),
+                          self.fc2.bias.to(dt), cfg.gelu_approximate)
+        else:
+            h = _gelu(_linear(h, self.fc1, dt), cfg.gelu_approximate)
+            h = dropout(h, cfg.activation_dropout, gen)
+            h = _linear(h, self.fc2, dt)
+        h = dropout(h, cfg.dropout, gen)
         x = residual + h
         if not pre:
             x = self._norm(self.final_layer_norm, x).to(dt)

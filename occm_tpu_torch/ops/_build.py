@@ -132,5 +132,7 @@ def load() -> ctypes.CDLL:
             lib.occm_fused_adam.argtypes = [
                 p, p, p, p, ctypes.c_int64, f, f, f, f, f, f, f, f, p]
             lib.occm_fused_adam.restype = i
+            lib.occm_ffn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+            lib.occm_ffn_fwd.restype = i
             _lib = lib
         return _lib

@@ -23,6 +23,7 @@ from occm_tpu.models.xlsr import XLSREncoder as JXLSREncoder
 from occm_tpu.ops.pos_conv import pos_conv_grouped as jax_pos_conv_grouped
 from occm_tpu_torch.config import XLSRConfig
 from occm_tpu_torch.models import XLSREncoder, xlsr_state_dict_from_flax
+from occm_tpu_torch.ops import ffn
 from occm_tpu_torch.ops.pos_conv import pos_conv_grouped
 
 CUT = 3200  # tiny conv stack: 3200 samples -> 159 frames
@@ -98,7 +99,7 @@ def test_pos_conv_grouped_matches_jax():
 
 @pytest.mark.parametrize("field, value", [
     ("pp_stages", 2), ("seq_parallel", True), ("quant_int8", True),
-    ("ffn_impl", "pallas"), ("remat_policy", "dots"), ("fused_qkv", True),
+    ("remat_policy", "dots"), ("fused_qkv", True),
     ("attention_impl", "packed"), ("attention_impl", "pad128"),
     ("attention_impl", "xla_merged"), ("pos_conv_impl", "s2d"),
     ("extractor_mode", "default"),
@@ -113,3 +114,95 @@ def test_config_matches_jax_defaults():
     for port, ref in ((XLSRConfig(), JXLSRConfig()),
                       (XLSRConfig.tiny(), JXLSRConfig.tiny())):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+# ------------------------------------------------------ ffn_impl="pallas"
+
+def _ffn_configs(**kw):
+    """D 128, F 1024, 2 layers, 2 heads: widths at which the JAX package's
+    fused FFN runs its Pallas kernel (interpret mode) rather than its XLA
+    route."""
+    dims = dict(encoder_embed_dim=128, encoder_ffn_dim=1024,
+                encoder_layers=2, encoder_heads=2, ffn_impl="pallas", **kw)
+    return (dataclasses.replace(JXLSRConfig.tiny(), **dims),
+            dataclasses.replace(XLSRConfig.tiny(), **dims))
+
+
+def _ffn_wave(seed=10):
+    return (np.random.default_rng(seed).normal(size=(2, CUT)) * 0.1).astype(
+        np.float32)
+
+
+def test_encoder_with_fused_ffn_matches_flax():
+    jcfg, cfg = _ffn_configs()
+    variables = _perturbed_params(jcfg, seed=3)
+    x = _ffn_wave()
+    want = np.asarray(JXLSREncoder(jcfg).apply(variables, jnp.asarray(x)))
+    model = XLSREncoder(cfg)
+    model.load_state_dict(
+        xlsr_state_dict_from_flax(variables["params"], cfg), strict=True)
+    ffn.LAUNCHES = 0
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(x))
+    assert ffn.LAUNCHES == 0  # the CPU runs the plain version
+    assert want.shape == (2, 159, 128)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_fused_ffn_matches_the_xla_ffn_in_the_port():
+    """Same weights, ffn_impl "pallas" against "xla" (tolerance of
+    tests/test_xlsr_extras.py::test_ffn_impl_pallas_same_tree_and_output)."""
+    _, cfg = _ffn_configs()
+    torch.manual_seed(0)
+    fused = XLSREncoder(cfg).eval()
+    plain = XLSREncoder(dataclasses.replace(cfg, ffn_impl="xla")).eval()
+    plain.load_state_dict(fused.state_dict(), strict=True)
+    x = torch.from_numpy(_ffn_wave(11))
+    with torch.no_grad():
+        np.testing.assert_allclose(fused(x).numpy(), plain(x).numpy(),
+                                   rtol=2e-3, atol=2e-5)
+
+
+def test_fused_ffn_encoder_gradients_match_flax():
+    """Gradients of one loss, sum of the squared features, with respect to
+    every parameter, through JAX's fused-FFN custom VJP and the port's
+    backward (tolerance of the gradient checks of tests/test_attention.py,
+    atol 5e-4 / rtol 1e-3). The positional conv is left out: JAX trains its
+    folded kernel, the port fairseq's (g, v) pair (ROADMAP queue C)."""
+    jcfg, cfg = _ffn_configs()
+    variables = _perturbed_params(jcfg, seed=4)
+    x = _ffn_wave(12)
+    jmodel = JXLSREncoder(jcfg)
+
+    def loss(params):
+        return jnp.sum(jmodel.apply({"params": params}, jnp.asarray(x)) ** 2)
+
+    jgrads = jax.grad(loss)(variables["params"])
+    want = xlsr_state_dict_from_flax(jgrads, cfg)
+    model = XLSREncoder(cfg)
+    model.load_state_dict(
+        xlsr_state_dict_from_flax(variables["params"], cfg), strict=True)
+    (model.train()(torch.from_numpy(x)) ** 2).sum().backward()
+    grads = dict(model.named_parameters())
+    checked = 0
+    for name, w in want.items():
+        if "pos_conv" in name:
+            continue
+        np.testing.assert_allclose(grads[name].grad.numpy(), w.numpy(),
+                                   atol=5e-4, rtol=1e-3, err_msg=name)
+        checked += 1
+    assert checked == len(grads) - 3  # all but weight_g, weight_v, bias
+
+
+def test_fused_ffn_refuses_activation_dropout_in_train_mode():
+    """As in JAX (models/xlsr.py:465-470): the fused FFN never materialises
+    its hidden activation, so train mode with activation_dropout raises;
+    eval mode runs."""
+    _, cfg = _ffn_configs(activation_dropout=0.1)
+    torch.manual_seed(0)
+    model = XLSREncoder(cfg)
+    x = torch.from_numpy(_ffn_wave(13))
+    with pytest.raises(ValueError, match="activation_dropout"):
+        model.train()(x)
+    with torch.no_grad():
+        assert torch.isfinite(model.eval()(x)).all()

@@ -10,7 +10,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit and turns TF32 off for the comparisons.
 2. build: compiles occm_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
-   per source in parallel, and prints ptxas's registers and spills.
+   per source in parallel, prints ptxas's registers and spills, and counts
+   the HGMMA (wgmma) instructions of the FFN kernels in the library's SASS
+   (cuobjdump -sass); fails if there are none.
 3. kernels, each against its plain PyTorch version on the card on the same
    inputs, with the kernel, plain, library and bound times:
    - flash_attn_fwd at B=8, H=16, D=64, bf16, T in {201, 299, 599, 1500}
@@ -19,11 +21,15 @@ Phases (any failure ends the run with a non-zero exit and no last line):
      {201, 299, 599, 1500} (library: SDPA forward+backward minus forward);
    - layernorm_bwd at [3588, 1024] bf16 (library:
      aten.native_layer_norm_backward);
-   - fused_adam over every leaf of the full AModel (library:
+   - fused_adam over leaves of odd sizes (1, 3, 1027, two chunks + 3, a
+     None gradient, a leaf 4 bytes past a 16-byte boundary), then over
+     every leaf of the full AModel in one launch (library:
      torch.optim.Adam(fused=True).step());
    - ffn_fwd at M in {1608, 2392, 3588, 4792}, D 1024, F 4096, bf16, erf
-     and tanh GELU (library: the port's ffn_impl="xla" sequence, F.linear,
-     F.gelu, F.linear).
+     and tanh GELU, and at M = 1000 (a ragged tile), D = 1280, F = 5120
+     (past the earlier kernel's width limit) and M = 1000, D = 1000,
+     F = 4000 (partial K and N tiles) (library: the port's ffn_impl="xla"
+     sequence, F.linear, F.gelu, F.linear).
 4. scoring and evaluation at full width (XLSR-300M + AASIST, random
    weights from seed 0, saved as a reference-named .pt):
    `occm_tpu_torch.cli.oc_classifier` in 1c2 and 2c2 mode on a synthetic
@@ -117,6 +123,11 @@ FFN_RTOL_OF_MAX = 2.0 ** -7
 # 12 x 299 (a training step at 6 s); M = 2392 is the kernels line's shape
 FFN_MS = (8 * 201, 8 * 299, 12 * 299, 8 * 599)
 FFN_MAIN_M = 8 * 299
+# edge shapes (M, D, F): a ragged last row tile, a width past the earlier
+# kernel's D <= 1024 limit, and D, F that are not multiples of the 64-deep
+# k-steps or the 256-wide output tiles (TMA zero-fills the partial K and N
+# tiles on load and clips N on store)
+FFN_EDGES = ((1000, 1024, 4096), (FFN_MAIN_M, 1280, 5120), (1000, 1000, 4000))
 # Training, step 1: the same forward as the serving check's, through the
 # same 24 layers, plus the LayerNorm kernel's bf16 output: relative 5e-2 of
 # the loss (later steps add an Adam term, see phase_train).
@@ -188,6 +199,21 @@ def phase_build():
     for line in _build.build_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling" in line:
             print(f"[build]   {line.strip()}", flush=True)
+    # the FFN kernel must run on wgmma: count HGMMA in its SASS
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.library_path()],
+                          capture_output=True, text=True, check=True).stdout
+    hgmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "ffn_gemm_kernel" in fn and "HGMMA" in line:
+            hgmma[fn] = hgmma.get(fn, 0) + 1
+    print(f"[build] HGMMA instructions in the FFN kernel's SASS: {hgmma}",
+          flush=True)
+    if not hgmma:
+        fail(f"the FFN kernel's SASS holds no HGMMA: {hgmma}")
+    return hgmma
 
 
 # ----------------------------------------------------------------- phase 3
@@ -416,10 +442,12 @@ def phase_fused_adam():
 
     from occm_tpu_torch.config import AASISTConfig, XLSRConfig
     from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.ops import fused_adam
     from occm_tpu_torch.ops.fused_adam import (
         FusedAdam, adam_reference, bias_corrections)
     from occm_tpu_torch.utils import random_init_
 
+    odd_err = phase_fused_adam_odd_leaves()
     model = random_init_(AModel(AASISTConfig(), XLSRConfig()), seed=0)
     params = [p.detach().to("cuda") for p in model.parameters()]
     del model
@@ -436,8 +464,12 @@ def phase_fused_adam():
     opt.count = 2
     ref = [(p.clone(), m_.clone(), v_.clone())
            for p, m_, v_ in zip(params, opt.mu, opt.nu)]
+    before = fused_adam.LAUNCHES
     opt.step(params, grads)
     torch.cuda.synchronize()
+    if fused_adam.LAUNCHES - before != 1:
+        fail(f"fused_adam: a step over {len(params)} leaves made "
+             f"{fused_adam.LAUNCHES - before} launches, want 1")
     inv_bc1, inv_bc2 = bias_corrections(3, opt.b1, opt.b2)
     err = 0.0
     for (p0, m0, v0), p, m_, v_, g_ in zip(ref, params, opt.mu, opt.nu,
@@ -463,14 +495,75 @@ def phase_fused_adam():
     del lib_opt, lib_params
     nbytes = 28.0 * n
     bound_ms, bound_by = bytes_bound(nbytes, 10.0 * n)
-    print(f"[kernel] fused_adam over {len(params)} leaves, {n} fp32 params: "
-          f"max err {err:.3e} (bound {ADAM_ATOL}), kernel {ms:.4f} ms/step, "
+    print(f"[kernel] fused_adam over {len(params)} leaves, {n} fp32 params "
+          f"(1 launch): max err {err:.3e} (bound {ADAM_ATOL}; odd leaves "
+          f"{odd_err:.3e}), kernel {ms:.4f} ms/step, "
           f"plain {plain_ms:.4f} ms, torch Adam(fused=True) "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
           f"{nbytes:.4g} B)", flush=True)
-    return dict(leaves=len(params), params=n, max_abs_err=err, ms=ms,
+    return dict(leaves=len(params), params=n, max_abs_err=max(err, odd_err),
+                ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bytes=nbytes)
+
+
+def phase_fused_adam_odd_leaves() -> float:
+    """FusedAdam over leaves that test the kernel's edges: 1, 3 and 1027
+    elements (scalar tails), a leaf of two chunks plus 3, an aligned
+    [64, 128], a leaf with a None gradient (left as it is), and a leaf that
+    is a view 4 bytes past a 16-byte boundary (a clone of its values into a
+    buffer at storage offset 1, so the kernel takes its scalar path). One
+    launch, held against adam_reference at ADAM_ATOL; returns the largest
+    error."""
+    import torch
+
+    from occm_tpu_torch.ops import fused_adam
+    from occm_tpu_torch.ops.fused_adam import (
+        FusedAdam, adam_reference, bias_corrections)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shapes = [(1,), (3,), (1027,), (2 * fused_adam.CHUNK + 3,), (64, 128),
+              (5,), (777,)]
+    none_leaf, view_leaf = 5, 6
+    params = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    buf = torch.empty(params[view_leaf].numel() + 1, device="cuda")
+    params[view_leaf] = buf[1:].copy_(params[view_leaf])
+    if params[view_leaf].data_ptr() % 16 == 0:
+        fail("the odd-leaf case's view leaf is 16-byte aligned")
+    grads = [None if i == none_leaf else
+             torch.randn(s, generator=gen, device="cuda")
+             for i, s in enumerate(shapes)]
+    opt = FusedAdam(1e-3).init(params)
+    for m_, v_, g_ in zip(opt.mu, opt.nu, grads):
+        if g_ is not None:
+            m_.copy_(0.1 * g_)
+            v_.copy_(0.001 * g_ * g_)
+    opt.count = 2
+    ref = [(p.clone(), m_.clone(), v_.clone())
+           for p, m_, v_ in zip(params, opt.mu, opt.nu)]
+    before = fused_adam.LAUNCHES
+    opt.step(params, grads)
+    torch.cuda.synchronize()
+    if fused_adam.LAUNCHES - before != 1:
+        fail("fused_adam odd leaves: not one launch")
+    inv_bc1, inv_bc2 = bias_corrections(3, opt.b1, opt.b2)
+    err = 0.0
+    for (p0, m0, v0), p, m_, v_, g_ in zip(ref, params, opt.mu, opt.nu,
+                                           grads):
+        if g_ is not None:
+            adam_reference(p0, m0, v0, g_, inv_bc1, inv_bc2, opt.lr, opt.b1,
+                           opt.b2, opt.eps)
+        for a, b in ((p, p0), (m_, m0), (v_, v0)):
+            err = max(err, (a - b).abs().max().item())
+    if not (math.isfinite(err) and err <= ADAM_ATOL):
+        fail(f"fused_adam odd leaves: max |p, m, v - plain| = {err} > "
+             f"{ADAM_ATOL}")
+    if not torch.equal(params[none_leaf], ref[none_leaf][0]):
+        fail("fused_adam odd leaves: the leaf without a gradient moved")
+    print(f"[kernel] fused_adam odd leaves {shapes} (leaf {none_leaf} "
+          f"without a gradient, leaf {view_leaf} at a 4-byte offset): max "
+          f"err {err:.3e} (bound {ADAM_ATOL}), 1 launch", flush=True)
+    return err
 
 
 def ffn_bound(m: int, d: int, f: int):
@@ -487,10 +580,10 @@ def ffn_bound(m: int, d: int, f: int):
 
 def phase_ffn():
     """ffn_fwd against ffn_reference at the FFN_MS shapes, full width,
-    erf and tanh GELU, with the kernel, plain, library and bound times.
-    Library: the port's ffn_impl="xla" sequence, F.linear -> F.gelu ->
-    F.linear in bf16 (three calls; no single PyTorch call computes the
-    fused function)."""
+    erf and tanh GELU, and at the edge shapes FFN_EDGES (erf), with the
+    kernel, plain, library and bound times. Library: the port's
+    ffn_impl="xla" sequence, F.linear -> F.gelu -> F.linear in bf16 (three
+    calls; no single PyTorch call computes the fused function)."""
     import torch
     import torch.nn.functional as F
 
@@ -498,49 +591,58 @@ def phase_ffn():
     from occm_tpu_torch.ops.ffn import ffn_fwd, ffn_reference
 
     cfg = XLSRConfig()
-    d, f = cfg.encoder_embed_dim, cfg.encoder_ffn_dim
     gen = torch.Generator(device="cuda").manual_seed(4)
 
     def randn(*shape, std=1.0):
         return (std * torch.randn(shape, generator=gen, device="cuda")).to(
             torch.bfloat16)
 
-    # weights as the model holds them: fc1.weight [F, D], fc2.weight [D, F]
-    fc1_w, fc1_b = randn(f, d, std=0.02), randn(f, std=0.02)
-    fc2_w, fc2_b = randn(d, f, std=0.02), randn(d, std=0.02)
-    w1, w2 = fc1_w.t(), fc2_w.t()  # JAX layout views, as the model passes
+    weights = {}
+
+    def layer(d, f):
+        """fc1.weight [F, D], fc1.bias, fc2.weight [D, F], fc2.bias, as
+        the model holds them, and the JAX-layout views it passes."""
+        if (d, f) not in weights:
+            fc1_w, fc1_b = randn(f, d, std=0.02), randn(f, std=0.02)
+            fc2_w, fc2_b = randn(d, f, std=0.02), randn(d, std=0.02)
+            weights[d, f] = (fc1_w, fc1_b, fc2_w, fc2_b, fc1_w.t(),
+                             fc2_w.t())
+        return weights[d, f]
+
+    cases = [(m, cfg.encoder_embed_dim, cfg.encoder_ffn_dim, approximate)
+             for m in FFN_MS for approximate in (False, True)]
+    cases += [(m, d, f, False) for m, d, f in FFN_EDGES]
     rows = []
-    for m in FFN_MS:
+    for m, d, f, approximate in cases:
+        fc1_w, fc1_b, fc2_w, fc2_b, w1, w2 = layer(d, f)
         x = randn(m, d)
-        for approximate in (False, True):
-            y = ffn_fwd(x, w1, fc1_b, w2, fc2_b, approximate)
-            torch.cuda.synchronize()
-            ref = ffn_reference(x, w1, fc1_b, w2, fc2_b, approximate)
-            err = (y.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            gelu = "tanh" if approximate else "erf"
-            if not (y.shape == (m, d) and math.isfinite(err)
-                    and err <= FFN_RTOL_OF_MAX * scale):
-                fail(f"ffn_fwd M={m} {gelu}: max |y - plain| = {err} > "
-                     f"{FFN_RTOL_OF_MAX} * {scale}")
-            ms = cuda_ms(lambda: ffn_fwd(x, w1, fc1_b, w2, fc2_b,
-                                         approximate))
-            plain_ms = cuda_ms(lambda: ffn_reference(
-                x, w1, fc1_b, w2, fc2_b, approximate), iters=5, warmup=1)
-            mode = "tanh" if approximate else "none"
-            library_ms = cuda_ms(lambda: F.linear(F.gelu(
-                F.linear(x, fc1_w, fc1_b), approximate=mode), fc2_w, fc2_b))
-            bound_ms, bound_by, flops, nbytes = ffn_bound(m, d, f)
-            rows.append(dict(M=m, gelu=gelu, max_abs_err=err, max_abs_y=scale,
-                             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                             bytes=nbytes))
-            print(f"[kernel] ffn_fwd [{m}, {d}] x [{d}, {f}] bf16, {gelu}: "
-                  f"max_err {err:.3e} (bound {FFN_RTOL_OF_MAX} * {scale:.3e})"
-                  f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"ffn_impl=xla sequence (F.linear, F.gelu, F.linear) "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-                  f"{flops:.4g} flop, {nbytes:.4g} B)", flush=True)
+        y = ffn_fwd(x, w1, fc1_b, w2, fc2_b, approximate)
+        torch.cuda.synchronize()
+        ref = ffn_reference(x, w1, fc1_b, w2, fc2_b, approximate)
+        err = (y.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        if not (y.shape == (m, d) and math.isfinite(err)
+                and err <= FFN_RTOL_OF_MAX * scale):
+            fail(f"ffn_fwd M={m} D={d} F={f} approximate={approximate}: "
+                 f"max |y - plain| = {err} > {FFN_RTOL_OF_MAX} * {scale}")
+        gelu = "tanh" if approximate else "erf"
+        ms = cuda_ms(lambda: ffn_fwd(x, w1, fc1_b, w2, fc2_b, approximate))
+        plain_ms = cuda_ms(lambda: ffn_reference(
+            x, w1, fc1_b, w2, fc2_b, approximate), iters=5, warmup=1)
+        mode = "tanh" if approximate else "none"
+        library_ms = cuda_ms(lambda: F.linear(F.gelu(
+            F.linear(x, fc1_w, fc1_b), approximate=mode), fc2_w, fc2_b))
+        bound_ms, bound_by, flops, nbytes = ffn_bound(m, d, f)
+        rows.append(dict(M=m, D=d, F=f, gelu=gelu, max_abs_err=err,
+                         max_abs_y=scale, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, flops=flops, bytes=nbytes))
+        print(f"[kernel] ffn_fwd [{m}, {d}] x [{d}, {f}] bf16, {gelu}: "
+              f"max_err {err:.3e} (bound {FFN_RTOL_OF_MAX} * {scale:.3e})"
+              f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"ffn_impl=xla sequence (F.linear, F.gelu, F.linear) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{flops:.4g} flop, {nbytes:.4g} B)", flush=True)
     return rows
 
 
@@ -1142,6 +1244,7 @@ def phase_train(workdir: str, fixture, profile: bool):
     from occm_tpu_torch.data import MetaBatchPipeline, PFDataset
     from occm_tpu_torch.losses import group_one_class_loss
     from occm_tpu_torch.models import AModel, load_reference_state_dict
+    from occm_tpu_torch.ops.fused_adam import MAX_LEAVES as MAX_ADAM_LEAVES
     from occm_tpu_torch.train import train
     from occm_tpu_torch.utils.logging import MetricsLogger
 
@@ -1243,6 +1346,8 @@ def phase_train(workdir: str, fixture, profile: bool):
         model.load_state_dict(init)
         leaves = sum(1 for n, _ in model.named_parameters()
                      if ".bn1." not in n)  # bn1 never runs: no gradient
+        # one multi-tensor launch per MAX_LEAVES leaves: 1 for the AModel
+        adam_launches = -(-leaves // MAX_ADAM_LEAVES)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         rec = StepRecorder()
@@ -1261,7 +1366,8 @@ def phase_train(workdir: str, fixture, profile: bool):
             want = {"flash_attn_fwd": 2 * layers,
                     "flash_attn_bwd_dq": layers,
                     "flash_attn_bwd_dkv": layers,
-                    "layernorm_bwd": 2 * layers, "fused_adam": leaves,
+                    "layernorm_bwd": 2 * layers,
+                    "fused_adam": adam_launches,
                     "ffn_fwd": 2 * layers}
             kernel_counts = counts
         else:
@@ -1306,9 +1412,11 @@ def phase_train(workdir: str, fixture, profile: bool):
 def _kernel_class(name: str) -> str:
     n = name.lower()
     for k in ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd",
-              "fused_adam", "ffn_fwd"):
+              "fused_adam"):
         if k in n:
             return f"{k} (this port)"
+    if "ffn_gemm_kernel" in n:  # the FFN's two launches
+        return "ffn_fwd (this port)"
     if "memcpy" in n or "memset" in n:
         return "copies"
     if any(s in n for s in ("conv", "cudnn", "implicit", "dgrad", "wgrad")):
@@ -1389,14 +1497,15 @@ def phase_profile(model, reference: np.ndarray, ckpt: str,
     torch.cuda.empty_cache()
 
 
-def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, launches):
+def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
     """The {"kernels": [...]} entries. Times, errors and bounds are this
     run's, at the shape named in each entry; `launches` come from the main
     path (scoring, serving and training), 0 with --kernels-only."""
     head = next(r for r in fwd_rows if r["T"] == MAIN_PATH_TS[0])
     bhead = next(r for r in bwd_rows if r["T"] == MAIN_PATH_TS[0])
-    fhead = next(r for r in ffn_rows
-                 if r["M"] == FFN_MAIN_M and r["gelu"] == "erf")
+    fhead = next(r for r in ffn_rows if r["M"] == FFN_MAIN_M
+                 and r["D"] == 1024 and r["gelu"] == "erf")
+
     return [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "occm_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -1442,7 +1551,7 @@ def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, launches):
          **{k: fhead[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
          "library": "F.linear, F.gelu, F.linear (ffn_impl=\"xla\")",
-         "per_M": ffn_rows},
+         "sass_hgmma": hgmma, "per_M": ffn_rows},
     ]
 
 
@@ -1483,7 +1592,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
-    phase_build()
+    hgmma = phase_build()
     fwd_rows = phase_kernels()
     bwd_rows = phase_attention_bwd()
     ln = phase_layernorm_bwd()
@@ -1518,7 +1627,7 @@ def main(argv=None) -> int:
 
     print(smi)
     print(json.dumps({"kernels": kernel_line(fwd_rows, bwd_rows, ln, adam,
-                                             ffn_rows, launches)}))
+                                             ffn_rows, hgmma, launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

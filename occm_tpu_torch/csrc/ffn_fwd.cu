@@ -7,69 +7,206 @@
 //   2. + b1 in fp32,
 //   3. GELU in fp32, exact erf or the tanh form (jax.nn.gelu's formula, also
 //      F.gelu(approximate="tanh")), chosen per call,
-//   4. h rounded to bf16,
+//   4. h rounded to bf16 once,
 //   5. h W2 accumulated in fp32,
 //   6. + b2 in fp32,
 //   7. one rounding to bf16 for the output.
-// The [M, F] hidden activation never goes to device memory.
-//
-// Layout: x [M, D] row-major; the weights as nn.Linear stores them, row-major
-// fc1.weight [F, D] (= W1^T) and fc2.weight [D, F] (= W2^T), which is exactly
-// the "col" B operand of mma.sync ... row.col; b1 [F], b2 [D]; y [M, D]. D and
-// F are multiples of 64, D <= 1024. Rows >= M are loaded as zeros and never
-// stored (the TPU wrapper pads M to 512 and crops instead).
-//
-// Where the TPU design does not carry over: the TPU kernel keeps one
-// [512, 1024] fp32 accumulator (2 MB of VMEM) across a sequential sweep over
-// F. A Hopper block has at most 227 KB of shared memory, and a [64, 1024]
-// fp32 accumulator alone is 256 KB, so one block cannot own whole output
-// rows. Here a block of 8 warps owns a 64-row tile of x and a 256-column
-// slice of the output; grid (ceil(M/64), ceil(D/256)), 152 blocks at
-// M = 2392. The x tile stays in shared memory for the whole block
-// (64 x 1024 bf16, 132 KB with padding). The block loops over F in tiles of
-// 64: s = x W1[:, tile] over K = D with W1 streamed in cp.async
-// double-buffered 64 x 64 chunks; + b1, GELU, bf16 into a 64 x 64 shared
-// tile h; then acc[64 x 256] += h W2[tile, slice], the fp32 accumulator in
-// registers (64 a thread). Each block starts its F sweep at its own tile,
-// so the blocks do not all stream the same weight lines at once. The
-// epilogue adds b2, rounds and stores. Each block owns its outputs: no
-// atomics, deterministic. 197 KB of shared memory at D = 1024: one block
-// per SM.
 //
 // What bounds it on an H100: operations. At M = 2392, D = 1024, F = 4096 the
 // function is 4 M D F = 4.013e10 flops against 2.66e7 bytes of x, the two
 // weights, the biases and y: 0.0406 ms at 989 TFLOP/s against 0.0079 ms at
-// 3.35 TB/s. This first version recomputes fc1 once per 256-column slice of
-// the output (4 times at D = 1024), so it does 2.5x the function's flops, and
-// it uses mma.sync rather than wgmma fed by TMA, which is what the tensor
-// cores' peak needs; both are a later PR's work (the split-F design, each
-// block owning an F chunk and writing fp32 partials that a second pass
-// sums, does no recompute). A 4-deep cp.async ring with ldmatrix fragment
-// loads measured slower than this double buffer. Its measured times are in
-// PERF.md.
+// 3.35 TB/s. Only wgmma fed by TMA reaches the tensor cores' peak, and only
+// a design that does each product once stays near the bound.
+//
+// Design: two launches of one warp-specialised GEMM with a fused epilogue,
+// ordered by the stream, doing exactly the function's 4 M D F flops:
+//   fc1: H[M, F] = bf16(GELU(x fc1.weight^T + b1))   (tiles 128 x 256)
+//   fc2: y[M, D] = bf16(H fc2.weight^T + b2)          (tiles 128 x 256)
+// The TPU kernel keeps the [512, F] hidden tile and a [512, D] fp32
+// accumulator in VMEM (megabytes per core). A Hopper SM has 227 KB of shared
+// memory, and one [64, 1024] fp32 accumulator alone is 256 KB, so H goes
+// through a device-memory scratch that the wrapper allocates: 19.6 MB at
+// M = 2392 and 39.3 MB at M = 4792, against 50 MB of L2, so fc2 reads H
+// back from L2. The first version of this kernel kept h on chip by
+// recomputing fc1 once per 256-column slice of the output: 2.5x the flops.
+// "Split-F" (each block owns an F chunk, a second pass sums fp32 partials)
+// was not taken: a block's [64, D] fp32 partial is 256 KB at D = 1024, so it
+// would still split D and recompute, and S partials of M x D fp32 cost
+// S * 9.8 MB each way at M = 2392 (78 MB at S = 8, ~47 us at 3.35 TB/s),
+// more than the whole function's 40.6 us compute bound.
+//
+// One block computes one 128 x 256 output tile over the whole K (tiles of
+// 128 x 128 were measured slower for both products, PERF.md):
+//   - warpgroup 2 (setmaxnreg 40): one thread issues TMA loads of 128 x 64 A
+//     and 256 x 64 B tiles, 128-byte swizzle, into a ring of 4 stages of
+//     48 KB with full/empty mbarriers;
+//   - warpgroups 0 and 1 (setmaxnreg 232): 64 rows each, two wgmma
+//     m64n128k16 per k-step, fp32 accumulators in registers; a stage
+//     is released as soon as the next stage's products are issued
+//     (wgmma.wait_group 1);
+//   - epilogue: + bias, GELU in fp32 for fc1, one bf16 rounding, staged into
+//     the (now idle) ring in TMA's 128-byte-swizzled layout and written by
+//     TMA stores of 64 x 64 boxes.
+// Operands need no copy: x [M, D] and H [M, F] are K-major A operands, and
+// fc1.weight [F, D] and fc2.weight [D, F], as nn.Linear stores them, are
+// K-major B operands. TMA zero-fills the ragged last M tile (and any K or N
+// past the tensor) on load and clips it on store, so no row masks remain.
+// The only shape rules are TMA's: 16-byte row strides (D and F multiples of
+// 8) and 16-byte aligned base addresses. The descriptors of x, H and y
+// change with every call and are encoded on the host per call through
+// cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint (no link
+// against libcuda). Tried and not kept (PERF.md): two-CTA clusters sharing
+// the B tile by TMA multicast (slower in both products), and one
+// persistent launch for both products with per-row-block counters (about
+// twice as slow at 128 x 256 tiles). Measured times are in PERF.md.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace {
 
-constexpr int kBM = 64;        // rows of x per block
-constexpr int kBN = 256;       // output columns per block
-constexpr int kBF = 64;        // hidden columns per step of the F loop
-constexpr int kBK = 64;        // depth of one streamed W1 chunk
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kMaxD = 1024;    // the x tile must fit in shared memory
-constexpr int kPad = 8;        // +16 bytes a row: conflict-free fragment loads
-constexpr int kLdt = kBK + kPad;  // row stride of the W1, W2 and h tiles
+constexpr int kBM = 128;       // rows of a tile: two consumer warpgroups
+constexpr int kBK = 64;         // depth of a stage: one 128-byte swizzle row
+constexpr int kThreads = 384;   // warpgroups 0, 1 consume, 2 produces
+constexpr int kStageBytesA = kBM * kBK * 2;
+constexpr int kBN = 256;        // columns of a tile: two wgmma n128 products
+constexpr int kBoxC = 64;       // the epilogue's TMA store box, 64 x 64
+constexpr int kStages = 4;
+constexpr int kStageBytes = kStageBytesA + kBN * kBK * 2;
+// + 1 KB to align the ring to the 128-byte swizzle's 1024-byte period
+constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
+static_assert(2 * 64 * kBN * 2 <= kStages * kStageBytes,
+              "the epilogue's staging must fit in the ring");
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
+enum { kActNone = 0, kActGeluErf = 1, kActGeluTanh = 2 };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Waits for the phase of `bar` with this parity to complete. A wait of more
+// than ~10 s (2^34 cycles) is a fault of the pipeline: it traps, so that the
+// launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t b = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0)
+      start = clock64();
+    else if (clock64() - start > (1LL << 34))
+      __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile in TMA's 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), layout B128.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) | (static_cast<uint64_t>(64) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous wgmma's issue and wait.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] (fp32, this warpgroup's fragment) += A[64 x 16] B[128 x 16]^T
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));  // scale-d = 1: d += a b
+}
+
+__device__ __forceinline__ float activate(float v, int act) {
+  if (act == kActGeluTanh)
+    return 0.5f * v *
+           (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+  if (act == kActGeluErf) return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+  return v;
 }
 
 // two floats -> two bf16 in one register, `lo` in the low half (lower column)
@@ -78,199 +215,195 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float gelu(float v, int approximate) {
-  if (approximate)
-    return 0.5f * v *
-           (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
-  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
-}
-
-// A fragment (rows r, r + 8; columns k .. k + 15) of a row-major bf16 tile
-__device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* s,
-                                       int ld, int r, int k, int g, int t) {
-  a[0] = ld32(s + (r + g) * ld + k + t * 2);
-  a[1] = ld32(s + (r + g + 8) * ld + k + t * 2);
-  a[2] = ld32(s + (r + g) * ld + k + 8 + t * 2);
-  a[3] = ld32(s + (r + g + 8) * ld + k + 8 + t * 2);
-}
-
-size_t smem_bytes(int d) {
-  return sizeof(__nv_bfloat16) *
-         ((size_t)kBM * (d + kPad) + 2 * kBF * kLdt + kBN * kLdt + kBM * kLdt);
-}
-
+// C[M, N] = act(A[M, K] B[N, K]^T + bias[N]) in bf16, one 128 x 256 tile
+// per block; grid (ceil(N / 256), ceil(M / 128)).
 __global__ void __launch_bounds__(kThreads, 1)
-ffn_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-               const __nv_bfloat16* __restrict__ w1,   // fc1.weight [F, D]
-               const __nv_bfloat16* __restrict__ b1,   // [F]
-               const __nv_bfloat16* __restrict__ w2,   // fc2.weight [D, F]
-               const __nv_bfloat16* __restrict__ b2,   // [D]
-               __nv_bfloat16* __restrict__ y, int M, int D, int F,
-               int approximate) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldx = D + kPad;
-  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBM][ldx]
-  __nv_bfloat16* sW1 = sX + kBM * ldx;     // [2][kBF][kLdt]: W1 chunk, f rows
-  __nv_bfloat16* sW2 = sW1 + 2 * kBF * kLdt;  // [kBN][kLdt]: W2 tile, d rows
-  __nv_bfloat16* sH = sW2 + kBN * kLdt;       // [kBM][kLdt]: GELU(h), bf16
+ffn_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,  // box 64 x 128
+                const __grid_constant__ CUtensorMap tma_b,  // box 64 x 256
+                const __grid_constant__ CUtensorMap tma_c,  // box 64 x 64
+                const __nv_bfloat16* __restrict__ bias, int M, int N, int K,
+                int act) {
+  constexpr int kSub = kBN / 128;  // wgmma n128 products per k-step
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int m0 = blockIdx.x * kBM;
-  const int d0 = blockIdx.y * kBN;
-  const int n_out = min(kBN, D - d0);  // this block's output columns
-  const int r0 = (warp & 3) * 16;      // the warp's 16 rows, both products
-  const int c1 = (warp >> 2) * 32;     // its 32 hidden columns in fc1
-  const int c2 = (warp >> 2) * 128;    // its 128 output columns in fc2
-  const int nK = D / kBK;
-  const int nF = F / kBF;
+  const int wg = threadIdx.x / 128;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM;
+  const int nk = (K + kBK - 1) / kBK;
 
-  // ---- the x tile, once; rows past M are zeros
-  for (int i = tid; i < kBM * (D / 8); i += kThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    __nv_bfloat16* dst = sX + r * ldx + c;
-    if (m0 + r < M)
-      cp_async16(dst, x + (size_t)(m0 + r) * D + c);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float acc[kBN / 2 / 8][4];  // the warp's 16 x 128 outputs, fp32
-#pragma unroll
-  for (int nt = 0; nt < kBN / 2 / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  // blocks start their F sweep at different tiles, so that they do not all
-  // read the same W1 and W2 lines of L2 at the same time
-  const int ft_start = (blockIdx.x + blockIdx.y * gridDim.x) % nF;
-  for (int ft = 0; ft < nF; ++ft) {
-    const int f0 = ((ft + ft_start) % nF) * kBF;
-    __syncthreads();  // the previous step's products are done with every tile
-    // W2 tile [d0 .. d0 + n_out) x [f0 .. f0 + 64) and W1 chunk 0, one group
-    for (int i = tid; i < kBN * (kBF / 8); i += kThreads) {
-      const int r = i / (kBF / 8), c = (i % (kBF / 8)) * 8;
-      if (r < n_out)
-        cp_async16(sW2 + r * kLdt + c, w2 + (size_t)(d0 + r) * F + f0 + c);
-    }
-    for (int i = tid; i < kBF * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      cp_async16(sW1 + r * kLdt + c, w1 + (size_t)(f0 + r) * D + c);
-    }
-    cp_async_commit();
-
-    // ---- s = x W1[:, f0 .. f0 + 64): the warp's 16 rows x 32 columns
-    float s[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    for (int kc = 0; kc < nK; ++kc) {
-      cp_async_wait_all();  // chunk kc (and at kc = 0 the W2 tile and x)
-      __syncthreads();      // visible to all; chunk kc - 1's buffer is free
-      if (kc + 1 < nK) {
-        __nv_bfloat16* dst = sW1 + ((kc + 1) & 1) * kBF * kLdt;
-        const int k0 = (kc + 1) * kBK;
-        for (int i = tid; i < kBF * (kBK / 8); i += kThreads) {
-          const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-          cp_async16(dst + r * kLdt + c, w1 + (size_t)(f0 + r) * D + k0 + c);
-        }
-        cp_async_commit();
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % kStages;
+        mbar_wait(&empty[s], ((kb / kStages) & 1) ^ 1);
+        unsigned char* st = smem + s * kStageBytes;
+        mbar_expect_tx(&full[s], kStageBytes);
+        tma_load(st, &tma_a, &full[s], kb * kBK, m0);
+        tma_load(st + kStageBytesA, &tma_b, &full[s], kb * kBK, n0);
       }
-      const __nv_bfloat16* w1s = sW1 + (kc & 1) * kBF * kLdt;
+    }
+  } else {
+    // ---- consumers: 64 rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float acc[kSub][64];
+#pragma unroll
+    for (int j = 0; j < kSub; ++j)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+
+    const int lane = threadIdx.x % 32;
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % kStages;
+      mbar_wait(&full[s], (kb / kStages) & 1);
+      const uint32_t a = smem_u32(smem + s * kStageBytes) + wg * 64 * 128;
+      const uint32_t b = smem_u32(smem + s * kStageBytes + kStageBytesA);
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) fence_acc(acc[j]);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, sX, ldx, r0, kc * kBK + kk * 16, g, t);
+        // +32 bytes along K inside the swizzled 128-byte row: +2 in the
+        // descriptor's 16-byte address units
+        const uint64_t da = smem_desc(a) + 2 * kk;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const __nv_bfloat16* b = w1s + (c1 + nt * 8 + g) * kLdt + kk * 16 + t * 2;
-          mma_16816(s[nt], a, ld32(b), ld32(b + 8));
-        }
+        for (int j = 0; j < kSub; ++j)
+          wgmma_m64n128k16(acc[j], da, smem_desc(b + j * 128 * 128) + 2 * kk);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) fence_acc(acc[j]);
+      if (kb > 0) {  // the previous stage's products are done: release it
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&empty[(kb - 1) % kStages]);
       }
     }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) fence_acc(acc[j]);
+    // both warpgroups are done reading the ring before either overwrites it
+    named_bar_sync(1, 256);
 
-    // ---- + b1, GELU in fp32, bf16 into the shared h tile
+    // ---- epilogue: + bias, activation, bf16, staged as 64 x 64 boxes in
+    // the 128-byte swizzle the output's TMA descriptor uses
+    const int warp = (threadIdx.x % 128) / 32;
+    unsigned char* cbase = smem + wg * (kBN / kBoxC) * (kBoxC * 128);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = c1 + nt * 8 + t * 2;
-      const float bias0 = __bfloat162float(b1[f0 + col]);
-      const float bias1 = __bfloat162float(b1[f0 + col + 1]);
+    for (int j = 0; j < kSub; ++j) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(sH + (r0 + g + h * 8) * kLdt + col) =
-            pack_bf16(gelu(s[nt][2 * h] + bias0, approximate),
-                      gelu(s[nt][2 * h + 1] + bias1, approximate));
-    }
-    __syncthreads();
-
-    // ---- acc += h W2[f0 .. f0 + 64, slice]: the warp's 16 rows x 128 columns
-#pragma unroll
-    for (int kk = 0; kk < kBF / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, sH, kLdt, r0, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kBN / 2 / 8; ++nt) {
-        if (c2 + nt * 8 < n_out) {  // warp-uniform
-          const __nv_bfloat16* b = sW2 + (c2 + nt * 8 + g) * kLdt + kk * 16 + t * 2;
-          mma_16816(acc[nt], a, ld32(b), ld32(b + 8));
+      for (int i = 0; i < 64; i += 2) {
+        // wgmma's accumulator fragment: 8-column groups of 4 registers,
+        // (row, col), (row, col + 1), (row + 8, col), (row + 8, col + 1)
+        const int col = j * 128 + (i / 4) * 8 + (lane % 4) * 2;
+        const int row = warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
+        const int n = n0 + col;  // N % 8 == 0: n < N covers n + 1
+        float b0 = 0.f, b1 = 0.f;
+        if (n < N) {
+          b0 = __bfloat162float(bias[n]);
+          b1 = __bfloat162float(bias[n + 1]);
         }
+        const uint32_t v = pack_bf16(activate(acc[j][i] + b0, act),
+                                     activate(acc[j][i + 1] + b1, act));
+        const int box = col / kBoxC, cc = col % kBoxC;
+        *reinterpret_cast<uint32_t*>(
+            cbase + box * (kBoxC * 128) + row * 128 +
+            ((((cc >> 3) ^ (row & 7))) << 4) + (cc & 7) * 2) = v;
       }
     }
-  }
-
-  // ---- epilogue: + b2 in fp32, one bf16 rounding, rows below M
-#pragma unroll
-  for (int nt = 0; nt < kBN / 2 / 8; ++nt) {
-    if (c2 + nt * 8 >= n_out) continue;
-    const int d = d0 + c2 + nt * 8 + t * 2;
-    const float bias0 = __bfloat162float(b2[d]);
-    const float bias1 = __bfloat162float(b2[d + 1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + r0 + g + h * 8;
-      if (row < M)
-        *reinterpret_cast<uint32_t*>(y + (size_t)row * D + d) =
-            pack_bf16(acc[nt][2 * h] + bias0, acc[nt][2 * h + 1] + bias1);
+    // generic-proxy writes, then TMA (async proxy) reads them
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_bar_sync(2 + wg, 128);
+    if (threadIdx.x % 128 == 0 && m0 + wg * 64 < M) {
+      for (int box = 0; box < kBN / kBoxC; ++box)
+        if (n0 + box * kBoxC < N)
+          tma_store(&tma_c, cbase + box * (kBoxC * 128), n0 + box * kBoxC,
+                    m0 + wg * 64);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
     }
   }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A row-major bf16 [rows, cols] tensor read or written in boxes of
+// box_rows x 64 columns (128 bytes), 128-byte swizzle; 0 on success.
+int encode(CUtensorMap* map, const void* ptr, int rows, int cols,
+           int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - (int)r;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 on success).
-extern "C" int occm_ffn_fwd(const void* x, const void* w1, const void* b1,
-                            const void* w2, const void* b2, void* y, int m,
-                            int d, int f, int approximate, void* stream) {
-  if (m <= 0 || d <= 0 || f <= 0 || d % 64 || f % 64 || d > kMaxD)
+// One product of the FFN: c[m, n] = act(a[m, k] b[n, k]^T + bias[n]) in
+// bf16, act 0 (none), 1 (erf GELU) or 2 (tanh GELU); a, b, c row-major,
+// bias [n], all bf16, contiguous and 16-byte aligned; n and k multiples of
+// 8. One launch on `stream`. Returns 0, a cudaError_t, or
+// -1 / -1000 - CUresult when a TMA descriptor cannot be made.
+extern "C" int occm_ffn_gemm(const void* a, const void* b, const void* bias,
+                             void* c, int m, int n, int k, int act,
+                             void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || n % 8 || k % 8 || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((m + kBM - 1) / kBM, (d + kBN - 1) / kBN);
-  ffn_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w1,
-      (const __nv_bfloat16*)b1, (const __nv_bfloat16*)w2,
-      (const __nv_bfloat16*)b2, (__nv_bfloat16*)y, m, d, f, approximate);
+  for (const void* p : {a, b, bias, (const void*)c})
+    if (reinterpret_cast<uintptr_t>(p) & 15) return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb, mc;
+  int err = encode(&ma, a, m, k, kBM);
+  if (!err) err = encode(&mb, b, n, k, kBN);
+  if (!err) err = encode(&mc, c, m, n, kBoxC);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      ffn_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  ffn_gemm_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+      ma, mb, mc, (const __nv_bfloat16*)bias, m, n, k, act);
   return (int)cudaGetLastError();
 }

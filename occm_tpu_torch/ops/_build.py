@@ -5,6 +5,10 @@ Every `occm_tpu_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a`, one
 linked into one shared library with a plain C interface, at first use,
 into `occm_tpu_torch/build/`. The library's name carries a hash of the sources and
 flags, so an edited source is rebuilt and a stale library is never loaded.
+The library links nothing but the objects and the CUDA runtime: the FFN
+kernel's TMA descriptors are encoded through `cuTensorMapEncodeTiled`,
+which it fetches from the driver with `cudaGetDriverEntryPoint` rather
+than linking `-lcuda`.
 Nothing here runs at import time: the CPU-only test host has no `nvcc`.
 """
 
@@ -130,9 +134,9 @@ def load() -> ctypes.CDLL:
             lib.occm_layernorm_bwd.restype = i
             f = ctypes.c_float
             lib.occm_fused_adam.argtypes = [
-                p, p, p, p, ctypes.c_int64, f, f, f, f, f, f, f, f, p]
+                i, p, p, p, p, p, p, i, f, f, f, f, f, f, f, f, p]
             lib.occm_fused_adam.restype = i
-            lib.occm_ffn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-            lib.occm_ffn_fwd.restype = i
+            lib.occm_ffn_gemm.argtypes = [p, p, p, p, i, i, i, i, p]
+            lib.occm_ffn_gemm.restype = i
             _lib = lib
         return _lib

@@ -4,10 +4,11 @@
 `fused_ffn(x [..., D], w1 [D, F], b1 [F], w2 [F, D], b2 [D], approximate)`
 keeps the JAX package's layout. It is a `torch.autograd.Function`: on a CUDA
 tensor its forward launches the hand-written Hopper kernel
-`csrc/ffn_fwd.cu`, which replaces the TPU kernel `_kernel`; on a CPU tensor
-it runs `ffn_reference`, the kernel's plain PyTorch version. A tensor on any
-other device raises; nothing falls back from the kernel to the plain
-version. The kernel reads the weights as `nn.Linear` stores them
+`csrc/ffn_fwd.cu` twice (fc1 + GELU into a bf16 [M, F] scratch that stays
+in L2, then fc2; `wgmma` fed by TMA), which replaces the TPU kernel
+`_kernel`; on a CPU tensor it runs
+`ffn_reference`, the kernel's plain PyTorch version. A tensor on any other
+device raises; nothing falls back from the kernel to the plain version. The kernel reads the weights as `nn.Linear` stores them
 (`fc1.weight` [F, D] = W1ᵀ, `fc2.weight` [D, F] = W2ᵀ), so the model passes
 `fc1.weight.t()` and the wrapper's `.t()` gets the contiguous tensor back.
 
@@ -25,10 +26,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-#: kernel launches since the last reset (chip_smoke.py reads and resets it)
+#: calls of `ffn_fwd` that launched the kernel (two device launches each,
+#: fc1 and fc2) since the last reset; chip_smoke.py reads and resets it
 LAUNCHES = 0
 
-_MAX_D = 1024  # the kernel keeps a [64, D] tile of x in shared memory
+#: the epilogue's activation, as `occm_ffn_gemm` takes it
+ACT_NONE, ACT_GELU_ERF, ACT_GELU_TANH = 0, 1, 2
 
 
 def _gelu_mode(approximate: bool) -> str:
@@ -66,10 +69,33 @@ def _check(x, w1, b1, w2, b2):
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with its first element on a 16-byte boundary (the
-    kernel's copies move 16 bytes at a time)."""
+    """Contiguous, with its first element on a 16-byte boundary (TMA's
+    rule for a tensor's base address)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def gemm_bias_act(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+                  act: int) -> torch.Tensor:
+    """One launch of the kernel of csrc/ffn_fwd.cu on the current stream:
+    act(a [M, K] b [N, K]^T + bias [N]) in bf16, in output tiles of
+    128 x 256. The caller checks the arguments: CUDA bf16, contiguous,
+    16-byte aligned, N and K multiples of 8."""
+    from occm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    m, k = a.shape
+    n = b.shape[0]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.occm_ffn_gemm(
+            a.data_ptr(), b.data_ptr(), bias.data_ptr(), out.data_ptr(), m,
+            n, k, act, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"occm_ffn_gemm failed: error {err} (a "
+                           "cudaError_t, or -1000 - CUresult of a TMA "
+                           "descriptor)")
+    return out
 
 
 def ffn_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -78,9 +104,11 @@ def ffn_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """The kernel's wrapper: x [M, D], w1 [D, F], b1 [F], w2 [F, D], b2 [D]
     -> y [M, D].
 
-    CUDA tensors launch `occm_ffn_fwd` on the current stream (bf16, M >= 1,
-    D and F multiples of 64, D <= 1024); CPU tensors take the plain
-    version."""
+    CUDA tensors make two device launches on the current stream: fc1 (+ b1,
+    GELU, into a bf16 [M, F] scratch that stays in L2) and fc2 (+ b2), in
+    output tiles of 128 x 256. It takes bf16, M >= 1 and D, F
+    multiples of 8 (TMA needs 16-byte row strides). CPU tensors take the
+    plain version."""
     global LAUNCHES
     _check(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
@@ -93,24 +121,14 @@ def ffn_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             f"{[str(t.dtype) for t in (x, w1, b1, w2, b2)]}")
     m, d = x.shape
     f = w1.shape[1]
-    if m < 1 or d % 64 or f % 64 or d > _MAX_D:
-        raise ValueError(f"the CUDA kernel takes M >= 1, D and F multiples of "
-                         f"64 and D <= {_MAX_D}; got M={m}, D={d}, F={f}")
-
-    from occm_tpu_torch.ops import _build
-
-    lib = _build.load()
+    if m < 1 or d % 8 or f % 8:
+        raise ValueError(f"the CUDA kernel takes M >= 1 and D, F multiples of "
+                         f"8 (16-byte row strides); got M={m}, D={d}, F={f}")
     x = _aligned(x)
     w1t, w2t = _aligned(w1.t()), _aligned(w2.t())  # fc1.weight, fc2.weight
-    b1, b2 = _aligned(b1), _aligned(b2)
-    y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = lib.occm_ffn_fwd(
-            x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
-            b2.data_ptr(), y.data_ptr(), m, d, f, int(approximate), stream)
-    if err != 0:
-        raise RuntimeError(f"occm_ffn_fwd failed: cudaError_t {err}")
+    h = gemm_bias_act(x, w1t, _aligned(b1),
+                      ACT_GELU_TANH if approximate else ACT_GELU_ERF)
+    y = gemm_bias_act(h, w2t, _aligned(b2), ACT_NONE)
     LAUNCHES += 1
     return y
 
@@ -155,8 +173,8 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor,
               approximate: bool = True) -> torch.Tensor:
     """y = GELU(x @ w1 + b1) @ w2 + b2 over the last axis of x [..., D];
-    w1 [D, F], w2 [F, D]. The hidden activation stays on chip in the CUDA
-    kernel; the gradient is JAX's `_ffn_bwd`."""
+    w1 [D, F], w2 [F, D]. On the card the hidden activation goes through
+    an L2-resident bf16 scratch; the gradient is JAX's `_ffn_bwd`."""
     d = x.shape[-1]
     lead = x.shape[:-1]
     y = _FusedFFN.apply(x.reshape(-1, d), w1, b1, w2, b2, approximate)

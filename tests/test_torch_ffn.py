@@ -21,15 +21,24 @@ from occm_tpu_torch.ops.ffn import ffn_fwd, ffn_reference, fused_ffn
 D, F_ = 128, 1024
 
 
-def _inputs(m=300, seed=0):
+def _inputs(m=300, seed=0, d=D, f=F_):
     """x ~ N(0, 1), weights with std 0.02 (the model's init scale), biases
     std 0.01, as numpy float32."""
     rng = np.random.default_rng(seed)
-    return (rng.normal(size=(2, m // 2, D)).astype(np.float32),
-            (rng.normal(size=(D, F_)) * 0.02).astype(np.float32),
-            (rng.normal(size=(F_,)) * 0.01).astype(np.float32),
-            (rng.normal(size=(F_, D)) * 0.02).astype(np.float32),
-            (rng.normal(size=(D,)) * 0.01).astype(np.float32))
+    return (rng.normal(size=(2, m // 2, d)).astype(np.float32),
+            (rng.normal(size=(d, f)) * 0.02).astype(np.float32),
+            (rng.normal(size=(f,)) * 0.01).astype(np.float32),
+            (rng.normal(size=(f, d)) * 0.02).astype(np.float32),
+            (rng.normal(size=(d,)) * 0.01).astype(np.float32))
+
+
+def _assert_bf16_close(got, want):
+    """The bound of test_forward_matches_pallas_bf16 (its docstring gives
+    the reason)."""
+    scale = np.abs(want).max()
+    err = np.abs(got - want)
+    assert np.all(err <= 2.0 ** -7 * (np.abs(want) + scale / 16)), err.max()
+    assert np.mean(err == 0) > 0.9
 
 
 def _jax(args, approximate, dtype):
@@ -65,12 +74,33 @@ def test_forward_matches_pallas_bf16(approximate):
     want = _jax(args, approximate, jnp.bfloat16)
     got = _torch(args, approximate, torch.bfloat16)
     assert got.dtype == torch.bfloat16
-    got = got.float().numpy()
-    scale = np.abs(want).max()
-    err = np.abs(got - want)
-    assert np.all(err <= 2.0 ** -7 * (np.abs(want) + scale / 16)), err.max()
     # not a trivially loose bound: most elements agree exactly
-    assert np.mean(err == 0) > 0.9
+    _assert_bf16_close(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("approximate", [True, False], ids=["tanh", "erf"])
+def test_forward_past_the_old_width_limit_matches_pallas(approximate, dtype):
+    """D = 1280, which the earlier kernel refused (it took D <= 1024), with
+    F = 1024 and M = 64 (the JAX kernel needs D % 128 = 0 and F % 512 = 0
+    and pads M to 512): `ffn_reference` and `fused_ffn` against the JAX
+    kernel at this file's tolerances, fp32 as
+    test_forward_matches_pallas_fp32 and bf16 as
+    test_forward_matches_pallas_bf16."""
+    d = 1280
+    args = _inputs(m=64, seed=3, d=d, f=1024)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "fp32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = _jax(args, approximate, jdt)
+    got = _torch(args, approximate, tdt)
+    ts = [torch.from_numpy(a).to(tdt) for a in args]
+    ref = ffn_reference(ts[0].reshape(-1, d), *ts[1:], approximate)
+    assert got.shape == (2, 32, d) and got.dtype == tdt
+    assert torch.equal(ref, got.reshape(-1, d))
+    if dtype == "fp32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    else:
+        _assert_bf16_close(got.float().numpy(), want)
 
 
 @pytest.mark.parametrize("approximate", [True, False], ids=["tanh", "erf"])
@@ -122,26 +152,38 @@ def test_bad_shapes_and_devices_raise():
 
 
 def test_cuda_path_rejects_what_the_kernel_does_not_take(monkeypatch):
-    """On a CUDA tensor the wrapper raises for fp32 and for widths the
-    kernel does not take, before it builds or launches anything; it never
-    routes to the plain version. Checked with the device test patched, as
-    this host has no card."""
+    """On a CUDA tensor the wrapper raises for fp32 and for row strides TMA
+    cannot take (D or F not a multiple of 8: 16-byte strides), before it
+    builds or launches anything; it never routes to the plain version.
+    Widths past the earlier kernel's D <= 1024 limit go on to the build.
+    Checked with the device test patched, as this host has no card."""
+    from occm_tpu_torch.ops import _build
+
     x, w1, b1, w2, b2 = (torch.from_numpy(a) for a in _inputs(m=64))
     x2d = x.reshape(-1, D)
     bf = [t.to(torch.bfloat16) for t in (x2d, w1, b1, w2, b2)]
-    narrow = [bf[0][:, :96], bf[1][:96], bf[2], bf[3][:, :96], bf[4][:96]]
+    odd_d = [bf[0][:, :100], bf[1][:100], bf[2], bf[3][:, :100], bf[4][:100]]
+    odd_f = [bf[0], bf[1][:, :1020], bf[2][:1020], bf[3][:1020], bf[4]]
     wide = [torch.zeros(s, dtype=torch.bfloat16)
-            for s in ((4, 1088), (1088, 64), (64,), (64, 1088), (1088,))]
+            for s in ((4, 1280), (1280, 64), (64,), (64, 1280), (1280,))]
 
     def plain(*args):
         raise AssertionError("a CUDA tensor reached the plain version")
 
+    class Built(Exception):
+        pass
+
+    def load():
+        raise Built
+
     monkeypatch.setattr(ffn, "ffn_reference", plain)
+    monkeypatch.setattr(_build, "load", load)
     monkeypatch.setattr(torch.Tensor, "device",
                         property(lambda self: torch.device("cuda", 0)))
     with pytest.raises(ValueError, match="bf16"):
         ffn_fwd(x2d, w1, b1, w2, b2, True)
-    with pytest.raises(ValueError, match="multiples of 64"):
-        ffn_fwd(*narrow, True)
-    with pytest.raises(ValueError, match="D <= 1024"):
+    for args in (odd_d, odd_f):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ffn_fwd(*args, True)
+    with pytest.raises(Built):
         ffn_fwd(*wide, True)

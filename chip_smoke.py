@@ -11,16 +11,19 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    limit and turns TF32 off for the comparisons.
 2. build: compiles occm_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
    per source in parallel, prints ptxas's registers and spills, and counts
-   the HGMMA (wgmma) instructions of the FFN kernels in the library's SASS
-   (cuobjdump -sass); fails if there are none.
+   the HGMMA (wgmma) instructions of the FFN and attention-forward kernels
+   in the library's SASS (cuobjdump -sass); fails if either has none.
 3. kernels, each against its plain PyTorch version on the card on the same
-   inputs, with the kernel, plain, library and bound times:
-   - flash_attn_fwd at B=8, H=16, D=64, bf16, T in {201, 299, 599, 1500}
-     (library: SDPA);
+   inputs, with the wrapper's time (CUDA events), the kernel's own device
+   time (torch.profiler), and the plain, library and bound times:
+   - flash_attn_fwd at B=8, H=16, D=64, bf16, T in {201, 299, 599, 1500},
+     on [B*H, T, D] and on [B, T, H, D] views of one projection output,
+     which must agree bit for bit (library: SDPA);
    - flash_attn_bwd (its dq and dk/dv launches) at B=12, H=16, D=64, T in
      {201, 299, 599, 1500} (library: SDPA forward+backward minus forward);
    - layernorm_bwd at [3588, 1024] bf16 (library:
-     aten.native_layer_norm_backward);
+     aten.native_layer_norm_backward) and at [1000, 1000] and [3588, 1280]:
+     one device launch a call, a repeat identical bit for bit;
    - fused_adam over leaves of odd sizes (1, 3, 1027, two chunks + 3, a
      None gradient, a leaf 4 bytes past a 16-byte boundary), then over
      every leaf of the full AModel in one launch (library:
@@ -156,6 +159,56 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, names, iters: int = 20, warmup: int = 3,
+              tries: int = 5):
+    """Device time of fn's own kernels per call: torch.profiler's CUDA
+    events over `iters` calls, those whose name holds one of `names` summed
+    and divided by `iters`. Returns (ms, their launches per call, all
+    device launches per call).
+
+    fn launches the same kernels on every call, so a session whose event
+    counts are not multiples of `iters` has lost records: on the H100 a
+    rare session records no device event, or drops a few, with or without
+    CUPTI's teardown between sessions. Such a session is repeated, up to
+    `tries` sessions in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, own, every = 0.0, 0, 0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            every += 1
+            if any(n in e.name for n in names):
+                us += e.time_range.elapsed_us()
+                own += 1
+        if every and every % iters == 0 and own % iters == 0:
+            break
+        print(f"[profile] session {attempt} of {tries} for {names} lost "
+              f"records: {every} device events, {own} of them named, over "
+              f"{iters} calls", file=sys.stderr, flush=True)
+    else:
+        fail(f"profile: {tries} sessions for {names} all lost records")
+    if own == 0:
+        fail(f"profile: no device event named {names} "
+             f"({every / iters} device events a call)")
+    return us / iters / 1e3, own / iters, every / iters
+
+
+def library_device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call of every kernel one library call launches."""
+    return device_ms(fn, ("",), iters, warmup)[0]
+
+
 def attention_bound(bh: int, t: int, d: int):
     """Least time for one forward on an H100: (bound_ms, bound_by, flops,
     bytes). Two products of 2*T*T*D flops per (b, h); q, k, v read once
@@ -199,7 +252,8 @@ def phase_build():
     for line in _build.build_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling" in line:
             print(f"[build]   {line.strip()}", flush=True)
-    # the FFN kernel must run on wgmma: count HGMMA in its SASS
+    # the FFN and attention-forward kernels must run on wgmma: count HGMMA
+    # in their SASS
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", _build.library_path()],
                           capture_output=True, text=True, check=True).stdout
@@ -207,18 +261,23 @@ def phase_build():
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif fn and "ffn_gemm_kernel" in fn and "HGMMA" in line:
+        elif fn and "HGMMA" in line:
             hgmma[fn] = hgmma.get(fn, 0) + 1
-    print(f"[build] HGMMA instructions in the FFN kernel's SASS: {hgmma}",
+    print(f"[build] HGMMA instructions in the library's SASS: {hgmma}",
           flush=True)
-    if not hgmma:
-        fail(f"the FFN kernel's SASS holds no HGMMA: {hgmma}")
+    for kernel in ("ffn_gemm_kernel", "flash_attn_fwd_kernel"):
+        if not any(kernel in f for f in hgmma):
+            fail(f"the SASS of {kernel} holds no HGMMA: {hgmma}")
     return hgmma
 
 
 # ----------------------------------------------------------------- phase 3
 
 def phase_kernels():
+    """flash_attn_fwd at every KERNEL_TS on both layouts: [B*H, T, D]
+    contiguous, and [B, T, H, D] views of one [B, T, 3, H, D] projection
+    output (the layout the model hands it), each against the plain version;
+    the two layouts must give the same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -228,10 +287,21 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for t in KERNEL_TS:
-        q, k, v = (torch.randn((B * H, t, D), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
+        qkv = torch.randn((B, t, 3, H, D), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        q4, k4, v4 = qkv.unbind(2)  # strided [B, T, H, D] views
+
+        def flat(x):
+            return x.permute(0, 2, 1, 3).reshape(B * H, t, D).contiguous()
+
+        q, k, v = flat(q4), flat(k4), flat(v4)
         out, lse = flash_attention_fwd(q, k, v, t)
+        out4, lse4 = flash_attention_fwd(q4, k4, v4, t)
         torch.cuda.synchronize()
+        if not (out4.shape == (B, t, H, D) and out4.is_contiguous()
+                and torch.equal(flat(out4), out) and torch.equal(lse4, lse)):
+            fail(f"flash_attn_fwd T={t}: [B, T, H, D] views and [B*H, T, D] "
+                 "give different results")
         ref_out, ref_lse = flash_attention_reference(
             q.float(), k.float(), v.float(), t)
         err = (out.float() - ref_out).abs().max().item()
@@ -242,24 +312,33 @@ def phase_kernels():
         if not (math.isfinite(lse_err) and lse_err <= LSE_ATOL):
             fail(f"flash_attn_fwd T={t}: max |lse - plain| = {lse_err} > "
                  f"{LSE_ATOL}")
-        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, t))
+        ms = cuda_ms(lambda: flash_attention_fwd(q4, k4, v4, t))
+        ms_flat = cuda_ms(lambda: flash_attention_fwd(q, k, v, t))
+        dev_ms, _, _ = device_ms(lambda: flash_attention_fwd(q4, k4, v4, t),
+                                 ("flash_attn_fwd",))
         qf, kf, vf = q.float(), k.float(), v.float()
         plain_ms = cuda_ms(lambda: flash_attention_reference(qf, kf, vf, t),
                            iters=5)
-        q4, k4, v4 = (x.view(B, H, t, D) for x in (q, k, v))
+        q3, k3, v3 = (x.view(B, H, t, D) for x in (q, k, v))
         library_ms = cuda_ms(
-            lambda: F.scaled_dot_product_attention(q4, k4, v4))
+            lambda: F.scaled_dot_product_attention(q3, k3, v3))
+        lib_dev_ms = library_device_ms(
+            lambda: F.scaled_dot_product_attention(q3, k3, v3))
         bound_ms, bound_by, flops, nbytes = attention_bound(B * H, t, D)
         row = dict(T=t, max_abs_err=err, lse_max_abs_err=lse_err, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                   bytes=nbytes)
+                   ms_bh_t_d=ms_flat, device_ms=dev_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_device_ms=lib_dev_ms,
+                   bound_ms=bound_ms,
+                   bound_by=bound_by, flops=flops, bytes=nbytes)
         rows.append(row)
         print(f"[kernel] flash_attn_fwd B={B} H={H} T={t} D={D}: "
               f"max_err {err:.3e} (bound {OUT_ATOL}), lse_err "
-              f"{lse_err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}; {flops:.4g} flop, {nbytes:.4g} B)", flush=True)
+              f"{lse_err:.3e}, [B, T, H, D] views = [B*H, T, D] bit for bit; "
+              f"wrapper {ms:.4f} ms on the views ({ms_flat:.4f} on "
+              f"[B*H, T, D]), device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms (device {lib_dev_ms:.4f}), bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, "
+              f"{nbytes:.4g} B)", flush=True)
     return rows
 
 
@@ -281,6 +360,9 @@ LN_DPARAM_RTOL_OF_MAX = 1e-4
 # ulp 5e-7), of m and of v.
 ADAM_ATOL = 2e-6
 LN_SHAPE = (12 * 299, 1024)  # [meta-batch x frames at 6 s, d_model]
+# edge shapes: D not a multiple of the kernel's 256-column lane sweep, and
+# D past 1024 (the kernel's wider instance)
+LN_EDGES = ((1000, 1000), (12 * 299, 1280))
 
 
 def attention_bwd_bound(bh: int, t: int, d: int):
@@ -359,6 +441,9 @@ def phase_attention_bwd():
         if t == MAIN_PATH_TS[0]:
             check_attention_autograd(q, k, v, do, got, bt, ht, t)
         ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, t))
+        dev_ms, _, _ = device_ms(
+            lambda: flash_attention_bwd(q, k, v, out, lse, do, t),
+            ("flash_attn_bwd",))
         plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
             q, k, v, out, lse, do, t), iters=3, warmup=1)
         q4, k4, v4 = (x.view(bt, ht, t, D).detach().requires_grad_()
@@ -373,68 +458,101 @@ def phase_attention_bwd():
             fwd_ms = cuda_ms(
                 lambda: F.scaled_dot_product_attention(q4, k4, v4))
         library_ms = cuda_ms(sdpa_fwd_bwd) - fwd_ms
+        with torch.no_grad():
+            fwd_dev_ms = library_device_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        lib_dev_ms = library_device_ms(sdpa_fwd_bwd) - fwd_dev_ms
         bound_ms, bound_by, flops, nbytes = attention_bwd_bound(bt * ht, t, D)
         row = dict(T=t, max_abs_err=max(e[1] for e in errs),
                    errors={n: e for n, e, _ in errs}, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
+                   device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library_device_ms=lib_dev_ms,
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                    bytes=nbytes)
         rows.append(row)
         print(f"[kernel] flash_attn_bwd B={bt} H={ht} T={t} D={D}: "
               + ", ".join(f"{n} err {e:.3e} (max |plain| {m:.3e})"
                           for n, e, m in errs)
-              + f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              + f", wrapper {ms:.4f} ms, device {dev_ms:.4f} ms (dq + dk/dv)"
+              f", plain {plain_ms:.4f} ms, sdpa bwd "
+              f"{library_ms:.4f} ms (device {lib_dev_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}; "
               f"{flops:.4g} flop, {nbytes:.4g} B)", flush=True)
     return rows
 
 
 def phase_layernorm_bwd():
+    """layernorm_bwd against its plain version at LN_SHAPE (timed) and the
+    LN_EDGES shapes, bf16: every call one device launch, and dx, dgamma,
+    dbeta of a second call identical bit for bit."""
     import torch
 
     from occm_tpu_torch.ops.layernorm import (
         layer_norm_bwd, layer_norm_bwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    m, d = LN_SHAPE
-    x = torch.randn((m, d), generator=gen, device="cuda").to(torch.bfloat16)
-    g = torch.randn((m, d), generator=gen, device="cuda").to(torch.bfloat16)
-    gamma = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
-    beta = 0.1 * torch.randn(d, generator=gen, device="cuda")
     eps = 1e-5
-    got = layer_norm_bwd(x, gamma, g, eps)
-    torch.cuda.synchronize()
-    want = layer_norm_bwd_reference(x, gamma, g, eps)
-    errs = {}
-    for name, a, b, rtol in zip(
-            ("dx", "dgamma", "dbeta"), got, want,
-            (LN_DX_RTOL_OF_MAX, LN_DPARAM_RTOL_OF_MAX,
-             LN_DPARAM_RTOL_OF_MAX)):
-        err = (a.float() - b.float()).abs().max().item()
-        scale = b.float().abs().max().item()
-        if not (math.isfinite(err) and err <= rtol * scale):
-            fail(f"layernorm_bwd: max |{name} - plain| = {err} > {rtol} * "
-                 f"{scale}")
-        errs[name] = err
-    ms = cuda_ms(lambda: layer_norm_bwd(x, gamma, g, eps))
-    plain_ms = cuda_ms(lambda: layer_norm_bwd_reference(x, gamma, g, eps))
-    gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
-    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], gb, bb, eps)
-    library_ms = cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-        g, x, [d], mean, rstd, gb, bb, [True, True, True]))
-    nbytes = 3.0 * m * d * 2 + 3.0 * d * 4
-    flops = 12.0 * m * d
-    bound_ms, bound_by = bytes_bound(nbytes, flops)
-    print(f"[kernel] layernorm_bwd [{m}, {d}] bf16: "
-          + ", ".join(f"{n} err {e:.3e}" for n, e in errs.items())
-          + f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, aten "
-          f"native_layer_norm_backward {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, {nbytes:.4g} B)",
-          flush=True)
-    return dict(shape=[m, d], max_abs_err=max(errs.values()), errors=errs,
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                bytes=nbytes)
+    head = None
+    for m, d in (LN_SHAPE,) + LN_EDGES:
+        x = torch.randn((m, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        g = torch.randn((m, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        gamma = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        got = layer_norm_bwd(x, gamma, g, eps)
+        again = layer_norm_bwd(x, gamma, g, eps)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"layernorm_bwd [{m}, {d}]: two calls differ")
+        want = layer_norm_bwd_reference(x, gamma, g, eps)
+        errs = {}
+        for name, a, b, rtol in zip(
+                ("dx", "dgamma", "dbeta"), got, want,
+                (LN_DX_RTOL_OF_MAX, LN_DPARAM_RTOL_OF_MAX,
+                 LN_DPARAM_RTOL_OF_MAX)):
+            err = (a.float() - b.float()).abs().max().item()
+            scale = b.float().abs().max().item()
+            if not (math.isfinite(err) and err <= rtol * scale):
+                fail(f"layernorm_bwd [{m}, {d}]: max |{name} - plain| = "
+                     f"{err} > {rtol} * {scale}")
+            errs[name] = err
+        dev_ms, own, every = device_ms(
+            lambda: layer_norm_bwd(x, gamma, g, eps), ("layernorm_bwd",))
+        if (own, every) != (1, 1):
+            fail(f"layernorm_bwd [{m}, {d}]: {every} device launches a call "
+                 f"({own} of the kernel), want 1")
+        line = (f"[kernel] layernorm_bwd [{m}, {d}] bf16: "
+                + ", ".join(f"{n} err {e:.3e}" for n, e in errs.items())
+                + f", repeat bit-identical, 1 device launch a call, device "
+                f"{dev_ms:.4f} ms")
+        if head is not None:
+            print(line, flush=True)
+            continue
+        ms = cuda_ms(lambda: layer_norm_bwd(x, gamma, g, eps))
+        plain_ms = cuda_ms(lambda: layer_norm_bwd_reference(x, gamma, g,
+                                                            eps))
+        gb = gamma.to(torch.bfloat16)
+        bb = torch.zeros_like(gb)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], gb, bb, eps)
+        library_ms = cuda_ms(
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                g, x, [d], mean, rstd, gb, bb, [True, True, True]))
+        lib_dev_ms = library_device_ms(
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                g, x, [d], mean, rstd, gb, bb, [True, True, True]))
+        nbytes = 3.0 * m * d * 2 + 3.0 * d * 4
+        flops = 12.0 * m * d
+        bound_ms, bound_by = bytes_bound(nbytes, flops)
+        print(line + f", wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, aten "
+              f"native_layer_norm_backward {library_ms:.4f} ms (device "
+              f"{lib_dev_ms:.4f}), bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, "
+              f"{nbytes:.4g} B)", flush=True)
+        head = dict(shape=[m, d], max_abs_err=max(errs.values()),
+                    errors=errs, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, library_device_ms=lib_dev_ms,
+                    bound_ms=bound_ms,
+                    bound_by=bound_by, flops=flops, bytes=nbytes)
+    return head
 
 
 def phase_fused_adam():
@@ -482,6 +600,8 @@ def phase_fused_adam():
     if not (math.isfinite(err) and err <= ADAM_ATOL):
         fail(f"fused_adam: max |p, m, v - plain| = {err} > {ADAM_ATOL}")
     ms = cuda_ms(lambda: opt.step(params, grads), iters=5, warmup=1)
+    dev_ms, _, _ = device_ms(lambda: opt.step(params, grads), ("fused_adam",),
+                             iters=5, warmup=1)
     m_list, v_list = opt.mu, opt.nu
     plain_ms = cuda_ms(lambda: [adam_reference(
         p, m_, v_, g_, inv_bc1, inv_bc2, opt.lr, opt.b1, opt.b2, opt.eps)
@@ -492,18 +612,21 @@ def phase_fused_adam():
         lp.grad = g_
     lib_opt = torch.optim.Adam(lib_params, lr=1e-5, fused=True)
     library_ms = cuda_ms(lib_opt.step, iters=5, warmup=1)
+    lib_dev_ms = library_device_ms(lib_opt.step, iters=5, warmup=1)
     del lib_opt, lib_params
     nbytes = 28.0 * n
     bound_ms, bound_by = bytes_bound(nbytes, 10.0 * n)
     print(f"[kernel] fused_adam over {len(params)} leaves, {n} fp32 params "
           f"(1 launch): max err {err:.3e} (bound {ADAM_ATOL}; odd leaves "
-          f"{odd_err:.3e}), kernel {ms:.4f} ms/step, "
+          f"{odd_err:.3e}), wrapper {ms:.4f} ms/step, device {dev_ms:.4f} "
+          f"ms, "
           f"plain {plain_ms:.4f} ms, torch Adam(fused=True) "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-          f"{nbytes:.4g} B)", flush=True)
+          f"{library_ms:.4f} ms (device {lib_dev_ms:.4f}), bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {nbytes:.4g} B)", flush=True)
     return dict(leaves=len(params), params=n, max_abs_err=max(err, odd_err),
-                ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=lib_dev_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bytes=nbytes)
 
 
@@ -627,22 +750,29 @@ def phase_ffn():
                  f"max |y - plain| = {err} > {FFN_RTOL_OF_MAX} * {scale}")
         gelu = "tanh" if approximate else "erf"
         ms = cuda_ms(lambda: ffn_fwd(x, w1, fc1_b, w2, fc2_b, approximate))
+        dev_ms, _, _ = device_ms(
+            lambda: ffn_fwd(x, w1, fc1_b, w2, fc2_b, approximate),
+            ("ffn_gemm_kernel",))
         plain_ms = cuda_ms(lambda: ffn_reference(
             x, w1, fc1_b, w2, fc2_b, approximate), iters=5, warmup=1)
         mode = "tanh" if approximate else "none"
         library_ms = cuda_ms(lambda: F.linear(F.gelu(
             F.linear(x, fc1_w, fc1_b), approximate=mode), fc2_w, fc2_b))
+        lib_dev_ms = library_device_ms(lambda: F.linear(F.gelu(
+            F.linear(x, fc1_w, fc1_b), approximate=mode), fc2_w, fc2_b))
         bound_ms, bound_by, flops, nbytes = ffn_bound(m, d, f)
         rows.append(dict(M=m, D=d, F=f, gelu=gelu, max_abs_err=err,
-                         max_abs_y=scale, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms,
+                         max_abs_y=scale, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         library_device_ms=lib_dev_ms, bound_ms=bound_ms,
                          bound_by=bound_by, flops=flops, bytes=nbytes))
         print(f"[kernel] ffn_fwd [{m}, {d}] x [{d}, {f}] bf16, {gelu}: "
               f"max_err {err:.3e} (bound {FFN_RTOL_OF_MAX} * {scale:.3e})"
-              f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"ffn_impl=xla sequence (F.linear, F.gelu, F.linear) "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{flops:.4g} flop, {nbytes:.4g} B)", flush=True)
+              f", wrapper {ms:.4f} ms, device {dev_ms:.4f} ms (fc1 + fc2), "
+              f"plain {plain_ms:.4f} ms, ffn_impl=xla sequence (F.linear, F.gelu, F.linear) "
+              f"{library_ms:.4f} ms (device {lib_dev_ms:.4f}), bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, "
+              f"{nbytes:.4g} B)", flush=True)
     return rows
 
 
@@ -1499,8 +1629,10 @@ def phase_profile(model, reference: np.ndarray, ckpt: str,
 
 def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
     """The {"kernels": [...]} entries. Times, errors and bounds are this
-    run's, at the shape named in each entry; `launches` come from the main
-    path (scoring, serving and training), 0 with --kernels-only."""
+    run's, at the shape named in each entry: `ms` the wrapper's time per
+    call (CUDA events), `device_ms` the kernel's own device time per call
+    (torch.profiler); `launches` come from the main path (scoring, serving
+    and training), 0 with --kernels-only."""
     head = next(r for r in fwd_rows if r["T"] == MAIN_PATH_TS[0])
     bhead = next(r for r in bwd_rows if r["T"] == MAIN_PATH_TS[0])
     fhead = next(r for r in ffn_rows if r["M"] == FFN_MAIN_M
@@ -1512,11 +1644,13 @@ def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
          "replaces": "occm_tpu/ops/attention.py:45 (_fwd_kernel), "
                      "occm_tpu/ops/attention.py:234 (_blocked_fwd_kernel)",
          "launches": launches["flash_attn_fwd"],
-         "shape": f"[B*H={B * H}, T={head['T']}, D={D}] bf16",
+         "shape": f"[B={B}, T={head['T']}, H={H}, D={D}] bf16 views",
          "max_abs_err": max(r["max_abs_err"] for r in fwd_rows),
-         "ms": head["ms"], "plain_ms": head["plain_ms"],
-         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-         "library_ms": head["library_ms"], "per_T": fwd_rows},
+         **{k: head[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms",
+                                 "library_device_ms")},
+         "sass_hgmma": {k: n for k, n in hgmma.items()
+                        if "flash_attn_fwd" in k}, "per_T": fwd_rows},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "occm_tpu_torch/csrc/flash_attn_bwd.cu",
          "replaces": "occm_tpu/ops/attention.py:79 (_bwd_kernel), "
@@ -1525,33 +1659,38 @@ def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
          "launches": launches["flash_attn_bwd"],
          "shape": f"[B*H={TRAIN_B * H}, T={bhead['T']}, D={D}] bf16",
          "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
-         "ms": bhead["ms"], "plain_ms": bhead["plain_ms"],
-         "bound_ms": bhead["bound_ms"], "bound_by": bhead["bound_by"],
-         "library_ms": bhead["library_ms"], "per_T": bwd_rows},
+         **{k: bhead[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms",
+                                  "library_device_ms")},
+         "per_T": bwd_rows},
         {"name": "layernorm_bwd", "route": "cuda",
          "source": "occm_tpu_torch/csrc/layernorm_bwd.cu",
          "replaces": "occm_tpu/ops/layernorm.py:46 (_bwd_kernel)",
          "launches": launches["layernorm_bwd"],
          "shape": f"[{ln['shape'][0]}, {ln['shape'][1]}] bf16",
-         **{k: ln[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms")}},
+         **{k: ln[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms",
+                               "library_device_ms")}},
         {"name": "fused_adam", "route": "cuda",
          "source": "occm_tpu_torch/csrc/fused_adam.cu",
          "replaces": "occm_tpu/ops/fused_adam.py:58 (_kernel)",
          "launches": launches["fused_adam"],
          "shape": f"{adam['leaves']} fp32 leaves, {adam['params']} params",
-         **{k: adam[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms")}},
+         **{k: adam[k] for k in ("max_abs_err", "ms", "device_ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "library_device_ms")}},
         {"name": "ffn_fwd", "route": "cuda",
          "source": "occm_tpu_torch/csrc/ffn_fwd.cu",
          "replaces": "occm_tpu/ops/ffn.py:50 (_kernel)",
          "launches": launches["ffn_fwd"],
          "shape": f"x [{FFN_MAIN_M}, 1024] x W1 [1024, 4096] bf16, erf GELU",
          "max_abs_err": max(r["max_abs_err"] for r in ffn_rows),
-         **{k: fhead[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")},
+         **{k: fhead[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms",
+                                  "library_device_ms")},
          "library": "F.linear, F.gelu, F.linear (ffn_impl=\"xla\")",
-         "sass_hgmma": hgmma, "per_M": ffn_rows},
+         "sass_hgmma": {k: n for k, n in hgmma.items()
+                        if "ffn_gemm_kernel" in k}, "per_M": ffn_rows},
     ]
 
 

@@ -60,12 +60,11 @@
 // persistent launch for both products with per-row-block counters (about
 // twice as slow at 128 x 256 tiles). Measured times are in PERF.md.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -83,96 +82,6 @@ static_assert(2 * 64 * kBN * 2 <= kStages * kStageBytes,
               "the epilogue's staging must fit in the ring");
 
 enum { kActNone = 0, kActGeluErf = 1, kActGeluTanh = 2 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Waits for the phase of `bar` with this parity to complete. A wait of more
-// than ~10 s (2^34 cycles) is a fault of the pipeline: it traps, so that the
-// launch fails instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t b = smem_u32(bar);
-  uint32_t done = 0;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(b), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0)
-      start = clock64();
-    else if (clock64() - start > (1LL << 34))
-      __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
-      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile in TMA's 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), layout B128.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) | (static_cast<uint64_t>(64) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma's issue and wait.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d[64 x 128] (fp32, this warpgroup's fragment) += A[64 x 16] B[128 x 16]^T
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
@@ -209,16 +118,6 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
-// two floats -> two bf16 in one register, `lo` in the low half (lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // C[M, N] = act(A[M, K] B[N, K]^T + bias[N]) in bf16, one 128 x 256 tile
 // per block; grid (ceil(N / 256), ceil(M / 128)).
 __global__ void __launch_bounds__(kThreads, 1)
@@ -244,7 +143,7 @@ ffn_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,  // box 64 x 128
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -257,8 +156,8 @@ ffn_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,  // box 64 x 128
         mbar_wait(&empty[s], ((kb / kStages) & 1) ^ 1);
         unsigned char* st = smem + s * kStageBytes;
         mbar_expect_tx(&full[s], kStageBytes);
-        tma_load(st, &tma_a, &full[s], kb * kBK, m0);
-        tma_load(st + kStageBytesA, &tma_b, &full[s], kb * kBK, n0);
+        tma_load_2d(st, &tma_a, &full[s], kb * kBK, m0);
+        tma_load_2d(st + kStageBytesA, &tma_b, &full[s], kb * kBK, n0);
       }
     }
   } else {
@@ -329,55 +228,26 @@ ffn_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,  // box 64 x 128
       }
     }
     // generic-proxy writes, then TMA (async proxy) reads them
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     named_bar_sync(2 + wg, 128);
     if (threadIdx.x % 128 == 0 && m0 + wg * 64 < M) {
       for (int box = 0; box < kBN / kBoxC; ++box)
         if (n0 + box * kBoxC < N)
-          tma_store(&tma_c, cbase + box * (kBoxC * 128), n0 + box * kBoxC,
+          tma_store_2d(&tma_c, cbase + box * (kBoxC * 128), n0 + box * kBoxC,
                     m0 + wg * 64);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+      tma_store_flush();
     }
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
 }
 
 // A row-major bf16 [rows, cols] tensor read or written in boxes of
 // box_rows x 64 columns (128 bytes), 128-byte swizzle; 0 on success.
 int encode(CUtensorMap* map, const void* ptr, int rows, int cols,
            int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return -1;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -1000 - (int)r;
+  return encode_bf16(map, ptr, 2, dims, strides, box);
 }
 
 }  // namespace

@@ -1,234 +1,349 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 softmax.
+// Flash-attention forward for Hopper (sm_90a): bf16 in, fp32 softmax,
+// wgmma fed by TMA.
 //
 // Replaces two TPU Pallas kernels of occm_tpu/ops/attention.py, which compute
 // the same function and differ only in how they fit the TPU's VMEM:
 //   _fwd_kernel          (attention.py:45)  whole-T forward, T padded <= 512
 //   _blocked_fwd_kernel  (attention.py:234) online-softmax forward + lse
-// One kernel covers both: out = softmax(scale * q k^T, keys >= t_valid masked
-// to -1e30) v, with
-//   - the scale folded into q in fp32 before the bf16 cast,
-//   - q k^T accumulated in fp32 on the tensor cores,
-//   - an online softmax in fp32 over kv tiles of 64 keys,
+// One kernel covers every T: out = softmax(scale * q k^T, keys >= t_valid
+// masked to -1e30) v, with
+//   - q k^T accumulated in fp32 on the tensor cores from the unscaled bf16 q,
+//     and the scale applied to the fp32 logits. For D = 64 the scale is
+//     2^-3, so bf16(q * 2^-3) = bf16(q) * 2^-3 exactly and the logits equal
+//     those of the TPU kernels (and of the plain version), which fold the
+//     scale into q before the bf16 cast;
+//   - an online softmax in fp32 over kv tiles of 64 keys, in base 2: the
+//     scale and log2(e) are one multiplier and the exponent is exp2f;
 //   - the unnormalised probabilities cast to bf16 for the P v product,
 //   - P v accumulated in fp32 and divided by the row sum at the end,
-//   - out written in bf16 and lse = m + log(max(l, 1e-30)) per row in fp32.
+//   - out written in bf16 and lse = m + log(max(l, 1e-30)) per row, natural
+//     log, in fp32 (flash_attn_bwd.cu reads it).
 //
-// Layout: q, k, v, out are [BH, T, D] row-major bf16 with D = 64; lse is
-// [BH, T] fp32. Grid: one block of 4 warps per (64-row q tile, b*h); the kv
-// sweep is a loop inside the block, in place of the TPU's sequential grid
-// axis. Each warp owns 16 q rows; S and O live in registers as mma.sync
-// m16n8k16 fragments, and the S accumulator fragment is re-packed in
-// registers as the A operand of P v (no shared-memory round trip for P).
-// Rows past T are loaded as zeros and never stored.
+// Layout: q, k, v are [B, T, H, D] with any strides for B, T and H (16-byte
+// multiples) and D = 64 contiguous: the projections' output, read where
+// they leave it through 4-d TMA maps of (D, H, T, B) with (64, 1, 64, 1)
+// boxes. out is written contiguous as [B, T, H, D], so [B, T, H * D] is a
+// view of it; lse is [B * H, T] fp32. The [BH, T, D] layout is the case
+// B = BH, H = 1.
+//
+// Block: 64 q rows of one (b, h), 160 threads. Warp 4 is the producer: one
+// thread loads the q tile once and the k and v tiles (64 keys x 64 dims,
+// 8 KB each) into a ring of kStages stages by TMA, 128-byte swizzle, with
+// full/empty mbarriers; TMA zero-fills rows past T. Warps 0-3 are one
+// consumer warpgroup:
+//   S = q k^T  is 4 wgmma m64n64k16 with q and k as K-major operands, as
+//              they are stored;
+//   P v        is 4 wgmma m64n64k16 with P from registers (the S accumulator
+//              fragment rounded to bf16 is the A fragment, as in
+//              FlashAttention-3) and v as an MN-major B operand (the
+//              transpose bit), so v is never transposed through shared
+//              memory.
+// The key mask runs only on a tile that reaches t_valid. Several blocks
+// share an SM (about 42 KB of shared memory each, registers capped for
+// three), so one block's softmax overlaps another's wgmma. The epilogue
+// stages bf16 out through the q tile's shared memory in TMA's swizzle and
+// writes it with one TMA store, which clips rows past T.
 //
 // What bounds it on an H100: at the serving shapes (B*H = 128, T = 299 or
 // 599, D = 64) the work is 4*BH*T*T*D flops (2.9 and 11.8 GFLOP) against
-// 8*BH*T*D bytes of q, k, v and out (9.8 and 19.6 MB): about 3 us for either
-// bound at T = 299 and 12 us of tensor-core time at T = 599. This first
-// version uses synchronous loads and mma.sync, which cannot reach the
-// tensor-core peak (that needs wgmma fed by TMA, with loads overlapping the
-// math); it is written to be right and simple, and its measured times are
-// in PERF.md.
+// 8*BH*T*D bytes of q, k, v and out (9.8 and 19.6 MB): 3 and 6 us for the
+// bytes, 3 and 12 us for the tensor cores. The earlier version of this
+// kernel (synchronous loads, mma.sync, v transposed one bf16 at a time
+// through shared memory) ran at 6.5 % of the bf16 peak. Tried and not kept:
+// issuing the next tile's q k^T before this tile's softmax (two S register
+// sets, a 3-stage ring, 122 registers), FlashAttention-3's
+// intra-warpgroup overlap, which measured slower at every T on the same
+// card. The measured times are in PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int kD = 64;        // head dim
-constexpr int kBM = 64;       // q rows per block
+constexpr int kBM = 64;       // q rows per block: one consumer warpgroup
 constexpr int kBN = 64;       // keys per kv tile
-constexpr int kWarps = 4;     // 16 q rows per warp
-constexpr int kLds = kD + 8;  // padded smem row: 144 bytes, conflict-free fragment loads
+constexpr int kStages = 2;    // k/v ring depth
+constexpr int kThreads = 160; // warpgroup 0 computes, warp 4 loads
+constexpr int kTileBytes = kBM * kD * 2;  // one 64 x 64 bf16 tile: 8 KB
+// q tile, then per stage a k and a v tile, + 1 KB to align the tiles to the
+// 128-byte swizzle's 1024-byte period, + the mbarriers
+constexpr int kSmem =
+    (1 + 2 * kStages) * kTileBytes + 1024 + (2 * kStages + 1) * 8;
+constexpr float kMasked = -1e30f;
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
+// d[64 x 64] (fp32, this warpgroup's fragment) += A[64 x 16] B[16 x 64],
+// A and B both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));  // scale-d = 1: d += a b
 }
 
-// two floats -> two bf16 in one register, `lo` in the low half (lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (this thread's four
+// bf16x2 of the m16n8k16-shaped fragment of its warp's 16 rows), B MN-major
+// in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// The accumulator fragment of wgmma m64nNk16 (fp32): register i of a thread
+// holds row warp * 16 + lane / 4 + 8 * row_half(i), column col(i).
+__device__ __forceinline__ int row_half(int i) { return (i >> 1) & 1; }
+__device__ __forceinline__ int col(int i, int lane) {
+  return (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ out,
-                      float* __restrict__ lse,
-                      int T, int t_valid, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBM][kLds];
-  __shared__ __align__(16) __nv_bfloat16 sK[kBN][kLds];
-  __shared__ __align__(16) __nv_bfloat16 sVt[kD][kLds];  // V transposed: [d][key]
+// grid (ceil(T / 64), H, B)
+__global__ void __launch_bounds__(kThreads, 3)
+flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
+                      const __grid_constant__ CUtensorMap tma_k,
+                      const __grid_constant__ CUtensorMap tma_v,
+                      const __grid_constant__ CUtensorMap tma_o,
+                      float* __restrict__ lse, int T, int t_valid,
+                      float scale, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sq = smem;  // the q tile, then the epilogue's out tile
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + (1 + 2 * kStages) * kTileBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
   const int q0 = blockIdx.x * kBM;
-  const size_t base = (size_t)blockIdx.y * T * kD;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (t_valid + kBN - 1) / kBN;
 
-  // ---- q tile -> smem, scale folded in fp32 before the bf16 cast
-  for (int i = tid; i < kBM * (kD / 8); i += kWarps * 32) {
-    const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (q0 + r < T) {
-      raw = *reinterpret_cast<const uint4*>(q + base + (size_t)(q0 + r) * kD + c);
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
     }
-    *reinterpret_cast<uint4*>(&sQ[r][c]) = raw;
+    mbar_init(q_full, 1);
+    mbar_init_fence();
   }
   __syncthreads();
 
-  const int r0 = warp * 16;
-  uint32_t qa[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    qa[kk][0] = ld32(&sQ[r0 + g][kk * 16 + t * 2]);
-    qa[kk][1] = ld32(&sQ[r0 + g + 8][kk * 16 + t * 2]);
-    qa[kk][2] = ld32(&sQ[r0 + g][kk * 16 + 8 + t * 2]);
-    qa[kk][3] = ld32(&sQ[r0 + g + 8][kk * 16 + 8 + t * 2]);
+  if (threadIdx.x >= 128) {
+    // ---- producer: one thread keeps the ring full
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(q_full, kTileBytes);
+      tma_load_4d(sq, &tma_q, q_full, 0, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        unsigned char* st = smem + (1 + 2 * s) * kTileBytes;
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        tma_load_4d(st, &tma_k, &full[s], 0, h, j * kBN, b);
+        tma_load_4d(st + kTileBytes, &tma_v, &full[s], 0, h, j * kBN, b);
+      }
+    }
+    return;
   }
 
-  float acc[kD / 8][4];
+  // ---- consumer warpgroup: 16 q rows per warp
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float o[32];
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn)
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  // running max and (per-thread partial) sum for rows g and g + 8
-  float m_run[2] = {-1e30f, -1e30f};
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  // running max of the unscaled logits and per-thread partial row sums, for
+  // rows lane / 4 and lane / 4 + 8 of this warp
+  float m_run[2] = {kMasked, kMasked};
   float l_run[2] = {0.f, 0.f};
+  const uint64_t dq = smem_desc(smem_u32(sq));
+  mbar_wait(q_full, 0);
 
-  const int n_tiles = (t_valid + kBN - 1) / kBN;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int kv0 = tile * kBN;
-    __syncthreads();  // previous tile's fragments are consumed
-    for (int i = tid; i < kBN * (kD / 8); i += kWarps * 32) {
-      const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-      if (kv0 + r < T) {
-        const size_t off = base + (size_t)(kv0 + r) * kD + c;
-        kr = *reinterpret_cast<const uint4*>(k + off);
-        vr = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(&sK[r][c]) = kr;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vr);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sVt[c + j][r] = ve[j];
-    }
-    __syncthreads();
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int kv0 = j * kBN;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    const uint32_t k_addr = smem_u32(smem + (1 + 2 * s) * kTileBytes);
+    const uint64_t dk = smem_desc(k_addr);
+    const uint64_t dv = smem_desc(k_addr + kTileBytes);
 
-    // ---- S = q k^T for this warp's 16 rows x 64 keys, fp32
-    float s[kBN / 8][4];
+    // ---- S = q k^T, fp32, unscaled
+    float sc[32];
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    fence_acc(sc);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        mma_16816(s[nt], qa[kk], ld32(&sK[nt * 8 + g][kk * 16 + t * 2]),
-                  ld32(&sK[nt * 8 + g][kk * 16 + 8 + t * 2]));
-    }
+    for (int kk = 0; kk < kD / 16; ++kk)  // +32 bytes along D per k-step
+      wgmma_ss(sc, dq + 2 * kk, dk + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
 
-    // ---- key mask, row max over the tile
-    float mx[2] = {-1e30f, -1e30f};
+    // ---- key mask (last tile only), row max over the tile
+    if (kv0 + kBN > t_valid) {
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = kv0 + nt * 8 + t * 2 + (j & 1);
-        if (key >= t_valid) s[nt][j] = -1e30f;
-        mx[j >> 1] = fmaxf(mx[j >> 1], s[nt][j]);
-      }
+      for (int i = 0; i < 32; ++i)
+        if (kv0 + col(i, lane) >= t_valid) sc[i] = kMasked;
     }
-    float alpha[2];
+    float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_run[h], mx[h]);
-      alpha[h] = expf(m_run[h] - m_new);
-      m_run[h] = m_new;
-      l_run[h] *= alpha[h];
+    for (int i = 0; i < 32; ++i) mx[row_half(i)] = fmaxf(mx[row_half(i)], sc[i]);
+    float alpha[2], m_scaled[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f((m_run[r] - mx[r]) * scale_log2);
+      m_run[r] = mx[r];
+      m_scaled[r] = mx[r] * scale_log2;
+      l_run[r] *= alpha[r];
     }
+    // ---- p = exp(scale * (s - m)), unnormalised, fp32 row sums
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[nt][j] = expf(s[nt][j] - m_run[j >> 1]);
-        l_run[j >> 1] += s[nt][j];
-      }
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = exp2f(fmaf(sc[i], scale_log2, -m_scaled[row_half(i)]));
+      l_run[row_half(i)] += sc[i];
     }
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
-    }
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[row_half(i)];
 
-    // ---- acc += bf16(P) v; the S fragments of key tiles 2c, 2c+1 are the
-    // A fragment of key chunk c
+    // ---- o += bf16(P) v: the S fragments of key columns 16c .. 16c + 15
+    // are the A fragment of k-step c
+    uint32_t pa[kBN / 16][4];
 #pragma unroll
-    for (int kc = 0; kc < kBN / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < kD / 8; ++dn)
-        mma_16816(acc[dn], pa, ld32(&sVt[dn * 8 + g][kc * 16 + t * 2]),
-                  ld32(&sVt[dn * 8 + g][kc * 16 + 8 + t * 2]));
+    for (int c = 0; c < kBN / 16; ++c) {
+      pa[c][0] = pack_bf16(sc[8 * c + 0], sc[8 * c + 1]);
+      pa[c][1] = pack_bf16(sc[8 * c + 2], sc[8 * c + 3]);
+      pa[c][2] = pack_bf16(sc[8 * c + 4], sc[8 * c + 5]);
+      pa[c][3] = pack_bf16(sc[8 * c + 6], sc[8 * c + 7]);
     }
+    fence_acc(o);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kBN / 16; ++c)  // +16 keys = +2048 bytes per k-step
+      wgmma_rs(o, pa[c], dv + 128 * c);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // ---- epilogue: full row sums, normalise, store out and lse
+  // ---- epilogue: full row sums, normalise, stage bf16 out in the q tile's
+  // shared memory (128-byte swizzle), one TMA store; lse per row
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
+  named_bar_sync(1, 128);  // every warp's products are done reading q
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + h * 8;
-    if (row >= T) continue;
-    const float inv = 1.f / l_run[h];
-    __nv_bfloat16* orow = out + base + (size_t)row * kD;
-#pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + t * 2) =
-          pack_bf16(acc[dn][2 * h] * inv, acc[dn][2 * h + 1] * inv);
-    if (t == 0)
-      lse[(size_t)blockIdx.y * T + row] = m_run[h] + logf(fmaxf(l_run[h], 1e-30f));
+  for (int i = 0; i < 32; i += 2) {
+    const int row = warp * 16 + (lane >> 2) + 8 * row_half(i);
+    const int c = col(i, lane);
+    const float l = l_run[row_half(i)];
+    *reinterpret_cast<uint32_t*>(sq + row * 128 + (((c >> 3) ^ (row & 7)) << 4) +
+                                 (c & 7) * 2) = pack_bf16(o[i] / l, o[i + 1] / l);
   }
+  fence_proxy_async();
+  named_bar_sync(1, 128);
+  if (threadIdx.x == 0) {
+    tma_store_4d(&tma_o, sq, 0, h, q0, b);
+    tma_store_flush();
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+      if (row < T)
+        lse[((size_t)b * gridDim.y + h) * T + row] =
+            m_run[r] * scale + logf(fmaxf(l_run[r], 1e-30f));
+    }
+  }
+}
+
+// A [B, T, H, 64] bf16 tensor with element strides sb, st, sh (D contiguous)
+// in boxes of 64 t x 64 d of one (b, h).
+int encode_bthd(CUtensorMap* map, const void* ptr, int b, int t, int h,
+                long long sb, long long st, long long sh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)h, (cuuint64_t)t,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kD, 1, (cuuint32_t)kBM, 1};
+  return encode_bf16(map, ptr, 4, dims, strides, box);
+}
+
+bool bad_strides(const void* p, long long sb, long long st, long long sh) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) || sb <= 0 || st <= 0 ||
+         sh <= 0 || (sb | st | sh) & 7;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 on success).
+// q, k, v: [b, T, h, d] bf16, d = 64 contiguous, element strides (sb, st,
+// sh) each, multiples of 8, 16-byte aligned; out: [b, T, h, d] bf16
+// contiguous; lse: [b * h, T] fp32. Keys at index >= t_valid are masked.
+// One launch on `stream`. Returns 0, a cudaError_t, or -1 / -1000 - CUresult
+// when a TMA descriptor cannot be made.
 extern "C" int occm_flash_attn_fwd(const void* q, const void* k, const void* v,
-                                   void* out, void* lse, int bh, int T,
-                                   int t_valid, int d, float scale,
+                                   void* out, void* lse, int b, int h, int T,
+                                   int t_valid, int d, long long q_sb,
+                                   long long q_st, long long q_sh,
+                                   long long k_sb, long long k_st,
+                                   long long k_sh, long long v_sb,
+                                   long long v_st, long long v_sh, float scale,
                                    void* stream) {
-  if (d != kD || bh <= 0 || bh > 65535 || T <= 0 || t_valid <= 0 || t_valid > T)
+  if (d != kD || b <= 0 || b > 65535 || h <= 0 || h > 65535 || T <= 0 ||
+      t_valid <= 0 || t_valid > T || bad_strides(q, q_sb, q_st, q_sh) ||
+      bad_strides(k, k_sb, k_st, k_sh) || bad_strides(v, v_sb, v_st, v_sh) ||
+      (reinterpret_cast<uintptr_t>(out) & 15))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + kBM - 1) / kBM, bh);
-  flash_attn_fwd_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (float*)lse, T, t_valid,
-      scale);
+  CUtensorMap mq, mk, mv, mo;
+  int err = encode_bthd(&mq, q, b, T, h, q_sb, q_st, q_sh);
+  if (!err) err = encode_bthd(&mk, k, b, T, h, k_sb, k_st, k_sh);
+  if (!err) err = encode_bthd(&mv, v, b, T, h, v_sb, v_st, v_sh);
+  if (!err)
+    err = encode_bthd(&mo, out, b, T, h, (long long)T * h * kD,
+                      (long long)h * kD, kD);
+  if (err) return err;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const float scale_log2 = (float)((double)scale * 1.4426950408889634);
+  const dim3 grid((T + kBM - 1) / kBM, h, b);
+  flash_attn_fwd_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+      mq, mk, mv, mo, (float*)lse, T, t_valid, scale, scale_log2);
   return (int)cudaGetLastError();
 }

@@ -3,10 +3,11 @@
 Every `occm_tpu_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a`, one
 `nvcc` process per source, all started together, and the objects are
 linked into one shared library with a plain C interface, at first use,
-into `occm_tpu_torch/build/`. The library's name carries a hash of the sources and
-flags, so an edited source is rebuilt and a stale library is never loaded.
-The library links nothing but the objects and the CUDA runtime: the FFN
-kernel's TMA descriptors are encoded through `cuTensorMapEncodeTiled`,
+into `occm_tpu_torch/build/`. The library's name carries a hash of the
+sources, the headers they share (`csrc/*.cuh`) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
+The library links nothing but the objects and the CUDA runtime: the TMA
+kernels' descriptors are encoded through `cuTensorMapEncodeTiled`,
 which it fetches from the driver with `cudaGetDriverEntryPoint` rather
 than linking `-lcuda`.
 Nothing here runs at import time: the CPU-only test host has no `nvcc`.
@@ -14,6 +15,7 @@ Nothing here runs at import time: the CPU-only test host has no `nvcc`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -22,6 +24,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -59,7 +63,8 @@ def _sources():
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for s in _sources() + headers:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libocct_kernels_{h.hexdigest()[:16]}.so")
@@ -114,12 +119,16 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first call, with every entry point's
     argument and return types declared."""
     global _lib
+    if _lib is not None:  # the fast path of every launch: no lock
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
+            ll = ctypes.c_longlong
             lib.occm_flash_attn_fwd.argtypes = [
-                p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+                p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll,
+                ll, ctypes.c_float, p]
             lib.occm_flash_attn_fwd.restype = i
             lib.occm_flash_attn_bwd_dq.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
@@ -127,10 +136,10 @@ def load() -> ctypes.CDLL:
             lib.occm_flash_attn_bwd_dkv.argtypes = [
                 p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
             lib.occm_flash_attn_bwd_dkv.restype = i
-            lib.occm_layernorm_bwd_blocks.argtypes = [i]
-            lib.occm_layernorm_bwd_blocks.restype = i
+            lib.occm_layernorm_bwd_scratch_bytes.argtypes = [i, i, i]
+            lib.occm_layernorm_bwd_scratch_bytes.restype = ll
             lib.occm_layernorm_bwd.argtypes = [
-                p, p, p, p, p, p, i, i, ctypes.c_float, i, p]
+                p, p, p, p, p, p, p, ll, i, i, ctypes.c_float, i, p]
             lib.occm_layernorm_bwd.restype = i
             f = ctypes.c_float
             lib.occm_fused_adam.argtypes = [
@@ -140,3 +149,24 @@ def load() -> ctypes.CDLL:
             lib.occm_ffn_gemm.restype = i
             _lib = lib
         return _lib
+
+
+def on_device(device: torch.device):
+    """`torch.cuda.device(device)` around a launch, or nothing when the
+    device is already current (the common case, which then costs no
+    switch)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+# PyTorch's raw current-stream query (absent from CPU-only builds)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def raw_stream(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on `device`, as the integer a launch
+    takes: the raw query builds no Stream object per launch."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return _RAW_STREAM(device.index)

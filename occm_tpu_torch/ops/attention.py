@@ -4,12 +4,15 @@ backward.
 `flash_attention(q, k, v)` on [B, T, H, D] is the port of
 `occm_tpu.ops.attention.flash_attention`, a `torch.autograd.Function`. On a
 CUDA tensor its forward launches the hand-written Hopper kernel
-`csrc/flash_attn_fwd.cu`, which replaces both TPU forward kernels (the
-whole-T `_fwd_kernel` and the blocked online-softmax `_blocked_fwd_kernel`;
-their split at T = 512 only existed for TPU VMEM), and its backward
-launches the two kernels of `csrc/flash_attn_bwd.cu` (dq, then dk and dv),
-fed by the forward's lse, which replace the three TPU backward kernels
-(`_bwd_kernel`, `_blocked_dq_kernel`, `_blocked_dkv_kernel`). On a CPU
+`csrc/flash_attn_fwd.cu` (`wgmma` fed by TMA), which replaces both TPU
+forward kernels (the whole-T `_fwd_kernel` and the blocked online-softmax
+`_blocked_fwd_kernel`; their split at T = 512 only existed for TPU VMEM).
+It reads q, k, v where the projections leave them and writes out
+contiguous as [B, T, H, D], so neither side needs a layout copy. Its
+backward launches the two kernels of `csrc/flash_attn_bwd.cu` (dq, then dk
+and dv) on [BH, T, D] copies, fed by the forward's lse; they replace the
+three TPU backward kernels (`_bwd_kernel`, `_blocked_dq_kernel`,
+`_blocked_dkv_kernel`). On a CPU
 tensor the same Function runs `flash_attention_reference` and
 `flash_attention_bwd_reference`, the kernels' plain PyTorch versions: same
 masking, scale folding and dtype casts. A tensor on any other device
@@ -58,49 +61,76 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
+def _launch_args(x: torch.Tensor, four_d: bool):
+    """(data_ptr, sb, st, sh) of a CUDA [B, T, H, D] tensor, or of [BH, T, D]
+    read as B = BH, H = 1 (its H stride given as D), as the kernel takes
+    them; raises ValueError for what its TMA maps cannot read."""
+    if four_d:
+        sb, st, sh, sd = x.stride()
+    else:
+        (sb, st, sd), sh = x.stride(), x.shape[-1]
+    ptr = x.data_ptr()
+    if sd != 1 or ptr % 16 or sb % 8 or st % 8 or sh % 8 or min(
+            sb, st, sh) <= 0:
+        raise ValueError(
+            "the CUDA kernel takes q, k, v with the head dim contiguous, "
+            "16-byte aligned, and the other strides positive multiples of "
+            f"8 elements; got strides {tuple(x.stride())}")
+    return ptr, sb, st, sh
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         t_valid: int):
-    """The kernel's wrapper: q, k, v [BH, T, D] -> (out, lse).
+    """The kernel's wrapper: q, k, v [BH, T, D] or [B, T, H, D] -> (out of
+    the same shape, contiguous, in q's dtype, lse [BH, T] fp32).
 
     CUDA tensors launch `occm_flash_attn_fwd` on the current stream (bf16,
-    D = 64, contiguous); CPU tensors take the plain version."""
+    D = 64; [B, T, H, D] is read through its strides, so the projections'
+    output needs no copy); CPU tensors take the plain version."""
     global LAUNCHES
     if not (q.device == k.device == v.device):
         raise ValueError(
             f"q, k, v on different devices: {q.device}, {k.device}, "
             f"{v.device}")
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+    if q.dim() not in (3, 4) or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
-            f"expected q, k, v of one shape [BH, T, D], got "
+            f"expected q, k, v of one shape [BH, T, D] or [B, T, H, D], got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    bh, T, d = q.shape
+    four_d = q.dim() == 4
+    B, T, H, D = q.shape if four_d else (q.shape[0], q.shape[1], 1,
+                                         q.shape[2])
     if not 1 <= t_valid <= T:
         raise ValueError(f"t_valid={t_valid} outside [1, {T}]")
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, t_valid)
+        if not four_d:
+            return flash_attention_reference(q, k, v, t_valid)
+        out, lse = flash_attention_reference(
+            *(x.permute(0, 2, 1, 3).reshape(B * H, T, D) for x in (q, k, v)),
+            t_valid)
+        return out.view(B, H, T, D).permute(0, 2, 1, 3).contiguous(), lse
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError(f"the CUDA kernel takes bf16, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
-    if d != 64:
-        raise ValueError(f"the CUDA kernel takes head dim 64, got {d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous q, k, v")
+    if D != 64:
+        raise ValueError(f"the CUDA kernel takes head dim 64, got {D}")
+    qp, *qs = _launch_args(q, four_d)
+    kp, *ks = _launch_args(k, four_d)
+    vp, *vs = _launch_args(v, four_d)
 
     from occm_tpu_torch.ops import _build
 
     lib = _build.load()
-    out = torch.empty_like(q)
-    lse = torch.empty((bh, T), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    with _build.on_device(q.device):
         err = lib.occm_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), bh, T, t_valid, d, 1.0 / math.sqrt(d), stream)
+            qp, kp, vp, out.data_ptr(), lse.data_ptr(), B, H, T, t_valid, D,
+            *qs, *ks, *vs, 1.0 / math.sqrt(D), _build.raw_stream(q.device))
     if err != 0:
-        raise RuntimeError(f"occm_flash_attn_fwd failed: cudaError_t {err}")
+        raise RuntimeError(f"occm_flash_attn_fwd failed: error {err}")
     LAUNCHES += 1
     return out, lse
 
@@ -175,9 +205,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load()
     delta = torch.sum(do.float() * o.float(), dim=-1)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.raw_stream(q.device)
     scale = 1.0 / math.sqrt(d)
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         err = lib.occm_flash_attn_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, T, t_valid,
@@ -198,35 +228,37 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """[BH, T, D] attention with the kernels on both passes; the forward
-    saves q, k, v, out and lse."""
+    """[B, T, H, D] attention with the kernels on both passes. The forward
+    reads q, k, v where they lie and saves them with out and lse; the
+    backward makes the [BH, T, D] copies the backward kernels take and
+    returns the gradients as [B, T, H, D] views of them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, t_valid: int):
-        out, lse = flash_attention_fwd(q, k, v, t_valid)
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_fwd(q, k, v, q.shape[1])
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.t_valid = t_valid
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), ctx.t_valid)
-        return dq, dk, dv, None
+        B, T, H, D = q.shape
+
+        def flat(x):
+            return x.permute(0, 2, 1, 3).reshape(B * H, T, D).contiguous()
+
+        grads = flash_attention_bwd(flat(q), flat(k), flat(v), flat(out),
+                                    lse, flat(dout), T)
+        return tuple(g.view(B, H, T, D).permute(0, 2, 1, 3) for g in grads)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
-    """Fused MHA: q, k, v [B, T, H, D] (unscaled q) -> [B, T, H, D],
-    differentiable in q, k and v."""
-    B, T, H, D = q.shape
-
-    def flat(x):
-        return x.permute(0, 2, 1, 3).reshape(B * H, T, D).contiguous()
-
-    out = _FlashAttention.apply(flat(q), flat(k), flat(v), T)
-    return out.reshape(B, H, T, D).permute(0, 2, 1, 3)
+    """Fused MHA: q, k, v [B, T, H, D] (unscaled q; any strides the kernel
+    can read, such as views of the projections' output) -> out [B, T, H, D]
+    contiguous, so out.reshape(B, T, H * D) is a view; differentiable in q,
+    k and v."""
+    return _FlashAttention.apply(q, k, v)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor,

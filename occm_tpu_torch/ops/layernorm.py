@@ -10,8 +10,11 @@ CUDA tensor, launches the hand-written Hopper kernel
 
     x_hat = (x - mu) * rstd,  gg = g * gamma
     dx     = rstd * (gg - mean_D(gg) - x_hat * mean_D(gg * x_hat))
-    dgamma = sum_M g * x_hat,  dbeta = sum_M g  (per-block partials, summed
-                                                 here with torch.sum)
+    dgamma = sum_M g * x_hat,  dbeta = sum_M g
+
+in one launch per call: one warp per row, and dgamma and dbeta summed to
+their final values inside the same launch, in a fixed order (two calls give
+identical bits), through a scratch this module keeps per device and stream.
 
 On a CPU tensor it runs `layer_norm_bwd_reference`, the same math in plain
 PyTorch (the JAX package's fallback, `layernorm.py:139-155`). A tensor on
@@ -24,6 +27,14 @@ import torch
 
 #: kernel launches since the last reset (chip_smoke.py reads and resets it)
 LAUNCHES = 0
+
+#: (device, stream) -> the kernel's scratch: the block and group partials
+#: of dgamma and dbeta and the tickets that elect the blocks summing them,
+#: which every launch leaves at zero. Launches on one stream run in order,
+#: so they can share it.
+_SCRATCH: dict = {}
+#: (device index, M, D, is_bf16) -> bytes of scratch the kernel needs
+_SCRATCH_BYTES: dict = {}
 
 
 def _fwd_math(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -68,7 +79,8 @@ def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, g: torch.Tensor,
     if not (x.device == g.device == gamma.device):
         raise ValueError(f"x, g, gamma on different devices: {x.device}, "
                          f"{g.device}, {gamma.device}")
-    g = g.to(x.dtype)
+    if g.dtype != x.dtype:
+        g = g.to(x.dtype)
     if x.device.type == "cpu":
         return layer_norm_bwd_reference(x, gamma, g, eps)
     if x.device.type != "cuda":
@@ -85,22 +97,42 @@ def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, g: torch.Tensor,
 
     lib = _build.load()
     x, g = x.contiguous(), g.contiguous()
-    gamma = gamma.float().contiguous()
+    if gamma.dtype != torch.float32:
+        gamma = gamma.float()
+    gamma = gamma.contiguous()
+    is_bf16 = int(x.dtype == torch.bfloat16)
     dx = torch.empty_like(x)
-    blocks = lib.occm_layernorm_bwd_blocks(m)
-    dgamma_part = torch.empty((blocks, d), dtype=torch.float32,
-                              device=x.device)
-    dbeta_part = torch.empty_like(dgamma_part)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    dparams = torch.empty((2, d), dtype=torch.float32, device=x.device)
+    with _build.on_device(x.device):
+        stream = _build.raw_stream(x.device)
+        nbytes = _scratch_bytes(lib, m, d, is_bf16)
+        scratch = _SCRATCH.get((x.device, stream))
+        if scratch is None or scratch.numel() < nbytes:
+            # zeros: the tickets start at zero, and every launch resets them
+            scratch = torch.zeros(nbytes, dtype=torch.uint8, device=x.device)
+            _SCRATCH[x.device, stream] = scratch
         err = lib.occm_layernorm_bwd(
             x.data_ptr(), gamma.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            dgamma_part.data_ptr(), dbeta_part.data_ptr(), m, d, float(eps),
-            int(x.dtype == torch.bfloat16), stream)
+            dparams.data_ptr(), dparams.data_ptr() + 4 * d,
+            scratch.data_ptr(), nbytes, m, d, float(eps), is_bf16, stream)
     if err != 0:
         raise RuntimeError(f"occm_layernorm_bwd failed: cudaError_t {err}")
     LAUNCHES += 1
-    return dx, dgamma_part.sum(dim=0), dbeta_part.sum(dim=0)
+    dgamma, dbeta = dparams.unbind(0)
+    return dx, dgamma, dbeta
+
+
+def _scratch_bytes(lib, m: int, d: int, is_bf16: int) -> int:
+    """The kernel's scratch for [m, d] on the current device, asked once
+    per shape."""
+    key = (torch.cuda.current_device(), m, d, is_bf16)
+    nbytes = _SCRATCH_BYTES.get(key)
+    if nbytes is None:
+        nbytes = lib.occm_layernorm_bwd_scratch_bytes(m, d, is_bf16)
+        if nbytes < 0:
+            raise RuntimeError(f"occm_layernorm_bwd takes no [{m}, {d}]")
+        _SCRATCH_BYTES[key] = nbytes
+    return nbytes
 
 
 class _FastLayerNorm(torch.autograd.Function):

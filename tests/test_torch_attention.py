@@ -21,6 +21,8 @@ from occm_tpu.ops import attention as jax_attention
 from occm_tpu_torch.ops import attention
 from occm_tpu_torch.utils.device import resolve_device
 
+D = 64
+
 
 def _qkv(shape, seed=0):
     rng = np.random.default_rng(seed)
@@ -206,3 +208,110 @@ def test_backward_wrapper_rejects_bad_arguments(bad):
         q, k, v, o, do, lse = (x.to("meta") for x in (q, k, v, o, do, lse))
     with pytest.raises(ValueError):
         attention.flash_attention_bwd(q, k, v, o, lse, do, 16)
+
+
+def _fused_projection(B, T, H, seed):
+    """One [B, T, 3, H, D] projection output, as a fused qkv linear leaves
+    it; q, k and v are [B, T, H, D] views of it (not contiguous)."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(B, T, 3, H, D)).astype(np.float32) * 0.5
+
+
+@pytest.mark.parametrize("T, B, H", [
+    (201, 2, 2),   # whole-T route: _fwd_kernel, _bwd_kernel
+    (600, 1, 2),   # blocked route: _blocked_fwd_kernel, dq and dk/dv
+])
+def test_flash_attention_on_strided_views_matches_pallas_kernels(T, B, H):
+    """flash_attention on [B, T, H, D] views of one projection output (the
+    layout the CUDA kernel reads in place) against the Pallas kernels in
+    interpret mode: forward at atol 2e-5, gradients of the projection
+    output at atol 5e-4 / rtol 1e-3 (tests/test_attention.py's)."""
+    import jax
+
+    qkv = _fused_projection(B, T, H, seed=20 + T)
+    g = np.random.default_rng(T + 1).normal(size=(B, T, H, D)).astype(
+        np.float32)
+    want, vjp = jax.vjp(
+        lambda a, b, c: jax_attention.flash_attention(a, b, c,
+                                                      interpret=True),
+        *(jnp.asarray(qkv[:, :, i]) for i in range(3)))
+    want_grads = vjp(jnp.asarray(g))
+
+    base = torch.from_numpy(qkv).requires_grad_()
+    q, k, v = base.unbind(2)
+    assert not q.is_contiguous() and q.stride() == (T * 3 * H * D,
+                                                    3 * H * D, D, 1)
+    out = attention.flash_attention(q, k, v)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               atol=2e-5)
+    (grad,) = torch.autograd.grad(out, base, torch.from_numpy(g))
+    for i, name in enumerate(("dq", "dk", "dv")):
+        np.testing.assert_allclose(grad[:, :, i].numpy(),
+                                   np.asarray(want_grads[i]), atol=5e-4,
+                                   rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "views"])
+def test_output_reshapes_to_the_model_width_without_a_copy(layout):
+    """out is [B, T, H, D] contiguous whatever q, k and v's strides, so the
+    model's out.reshape(B, T, H * D) is a view."""
+    B, T, H = 2, 37, 3
+    qkv = torch.from_numpy(_fused_projection(B, T, H, seed=21))
+    q, k, v = ((x.contiguous() for x in qkv.unbind(2))
+               if layout == "contiguous" else qkv.unbind(2))
+    out = attention.flash_attention(q, k, v)
+    assert out.shape == (B, T, H, D) and out.is_contiguous()
+    flat = out.reshape(B, T, H * D)
+    assert flat.data_ptr() == out.data_ptr() and flat._base is out
+    torch.testing.assert_close(
+        out, attention.reference_attention(q, k, v), rtol=1e-5, atol=1e-5)
+
+
+def _plain_with_scale_on_logits(q, k, v, t_valid):
+    """flash_attention_reference with the scale applied to the fp32 logits
+    of the unscaled q, as the CUDA kernel applies it."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    col = torch.arange(logits.shape[-1])
+    logits = logits.masked_fill(col >= t_valid, -1e30)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    out = (acc / l).to(q.dtype)
+    return out, (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0]
+
+
+@pytest.mark.parametrize("dtype, T, t_valid", [
+    (torch.bfloat16, 201, 201), (torch.bfloat16, 299, 250),
+    (torch.bfloat16, 600, 600), (torch.float32, 130, 97)])
+def test_scale_on_logits_is_bit_identical_for_head_dim_64(dtype, T, t_valid):
+    """For D = 64 the scale is 2^-3: bf16(q * 2^-3) = bf16(q) * 2^-3 and
+    every fp32 partial sum of q k^T scales exactly, so moving the scale
+    from q (the TPU kernels and the plain version) onto the fp32 logits
+    (the CUDA kernel) changes no bit of out or lse."""
+    q, k, v = (torch.from_numpy(x).to(dtype)
+               for x in _qkv((4, T, D), seed=30 + T))
+    got = _plain_with_scale_on_logits(q, k, v, t_valid)
+    want = attention.flash_attention_reference(q, k, v, t_valid)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_launch_args_read_strided_views_and_reject_what_tma_cannot():
+    """The strides the kernel's 4-d TMA maps get: a fused projection's
+    views keep theirs, [BH, T, D] is B = BH, H = 1 (the H stride given as
+    D), and a stride or offset off the 16-byte grid raises."""
+    B, T, H = 2, 5, 3
+    qkv = torch.zeros((B, T, 3, H, D), dtype=torch.bfloat16)
+    q = qkv[:, :, 0]
+    assert attention._launch_args(q, True)[1:] == (T * 3 * H * D, 3 * H * D,
+                                                   D)
+    flat = torch.zeros((B * H, T, D), dtype=torch.bfloat16)
+    assert attention._launch_args(flat, False)[1:] == (T * D, D, D)
+    wide = torch.zeros((B, T, H, D + 4), dtype=torch.bfloat16)[..., :D]
+    buf = torch.zeros(B * T * H * D + 4, dtype=torch.bfloat16)
+    shifted = buf[4:].view(B, T, H, D)
+    for bad in (wide, shifted, qkv.transpose(-1, -2)[:, :, 0]):
+        with pytest.raises(ValueError, match="16-byte"):
+            attention._launch_args(bad, True)

@@ -1,9 +1,9 @@
 """The port's LayerNorm (`occm_tpu_torch.ops.layernorm.fast_layer_norm`)
 against the JAX package's `occm_tpu.ops.layernorm.fast_layer_norm`.
 
-d = 1024 and d = 128 take the JAX side's Pallas backward (`_bwd_kernel`, in
-interpret mode); M is not a multiple of its 512-row tile, so the JAX
-wrapper pads and the port does not need to. On the CPU the port's backward
+d = 1024, 1280 and 128 take the JAX side's Pallas backward (`_bwd_kernel`,
+in interpret mode; d = 1000 its XLA fallback); M is not a multiple of its
+512-row tile, so the JAX wrapper pads and the port does not need to. On the CPU the port's backward
 runs `layer_norm_bwd_reference`, the CUDA kernel's plain version (the
 kernel itself is held against it on the card by chip_smoke.py).
 Tolerances: forward 1e-5, gradients rtol/atol 2e-4, those of
@@ -31,7 +31,12 @@ def _inputs(shape, seed):
     return x, gamma, beta, g
 
 
-@pytest.mark.parametrize("shape", [(3, 201, 128), (700, 1024)])
+@pytest.mark.parametrize("shape", [
+    (3, 201, 128), (700, 1024),
+    (3, 201, 1024),  # ragged M = 603, the model's width
+    (5, 1280),       # past 1024: the kernel's wider instance
+    (6, 1000),       # D not a multiple of the kernel's 256-wide lanes
+])
 def test_forward_and_gradients_match_jax(shape):
     x, gamma, beta, g = _inputs(shape, seed=shape[-1])
     eps = 1e-5
@@ -102,3 +107,37 @@ def test_wrapper_rejects_bad_arguments(bad):
         x, g, gamma = (a.to("meta") for a in (x, g, gamma))
     with pytest.raises(ValueError):
         layernorm.layer_norm_bwd(x, gamma, g, 1e-5)
+
+
+def test_cuda_path_rejects_what_the_kernel_does_not_take(monkeypatch):
+    """On a CUDA tensor the wrapper raises for a dtype or width the kernel
+    does not take, before it builds or launches anything, and never routes
+    to the plain version; D = 1000 and 2048 go on to the build. Checked with
+    the device patched, as this host has no card."""
+    from occm_tpu_torch.ops import _build
+
+    def plain(*args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    class Built(Exception):
+        pass
+
+    def load():
+        raise Built
+
+    monkeypatch.setattr(layernorm, "layer_norm_bwd_reference", plain)
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    gamma = torch.ones(2049)
+    with pytest.raises(ValueError, match="D <= 2048"):
+        layernorm.layer_norm_bwd(torch.zeros(4, 2049), gamma,
+                                 torch.zeros(4, 2049), 1e-5)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        layernorm.layer_norm_bwd(torch.zeros(4, 8, dtype=torch.float16),
+                                 gamma[:8], torch.zeros(4, 8), 1e-5)
+    for d in (1000, 2048):
+        with pytest.raises(Built):
+            layernorm.layer_norm_bwd(
+                torch.zeros(3, d, dtype=torch.bfloat16), gamma[:d],
+                torch.zeros(3, d, dtype=torch.bfloat16), 1e-5)

@@ -11,8 +11,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    limit and turns TF32 off for the comparisons.
 2. build: compiles occm_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
    per source in parallel, prints ptxas's registers and spills, and counts
-   the HGMMA (wgmma) instructions of the FFN and attention-forward kernels
-   in the library's SASS (cuobjdump -sass); fails if either has none.
+   the HGMMA (wgmma) instructions of the FFN kernel and of the attention
+   forward, backward dq and backward dk/dv kernels in the library's SASS
+   (cuobjdump -sass); fails if any of the four has none.
 3. kernels, each against its plain PyTorch version on the card on the same
    inputs, with the wrapper's time (CUDA events), the kernel's own device
    time (torch.profiler), and the plain, library and bound times:
@@ -20,7 +21,11 @@ Phases (any failure ends the run with a non-zero exit and no last line):
      on [B*H, T, D] and on [B, T, H, D] views of one projection output,
      which must agree bit for bit (library: SDPA);
    - flash_attn_bwd (its dq and dk/dv launches) at B=12, H=16, D=64, T in
-     {201, 299, 599, 1500} (library: SDPA forward+backward minus forward);
+     {201, 299, 599, 1500}, on [B, T, H, D] views of one projection output
+     and on [B*H, T, D]: the two and a repeat agree bit for bit, a call is
+     two device launches and nothing else, and through autograd the
+     gradients come back contiguous with no copy (library: SDPA
+     forward+backward minus forward);
    - layernorm_bwd at [3588, 1024] bf16 (library:
      aten.native_layer_norm_backward) and at [1000, 1000] and [3588, 1280]:
      one device launch a call, a repeat identical bit for bit;
@@ -33,7 +38,11 @@ Phases (any failure ends the run with a non-zero exit and no last line):
      (past the earlier kernel's width limit) and M = 1000, D = 1000,
      F = 4000 (partial K and N tiles) (library: the port's ffn_impl="xla"
      sequence, F.linear, F.gelu, F.linear).
-4. scoring and evaluation at full width (XLSR-300M + AASIST, random
+4. the tiny model (XLSRConfig.tiny(): fp32, head dim 16, which the CUDA
+   attention kernels do not take) scored on the card under auto
+   attention: plain attention, no flash launch, agreement with the CPU,
+   and a pinned flash impl raises. Then scoring and evaluation at full
+   width (XLSR-300M + AASIST, random
    weights from seed 0, saved as a reference-named .pt):
    `occm_tpu_torch.cli.oc_classifier` in 1c2 and 2c2 mode on a synthetic
    ASVspoof-shaped tree (6 bonafide + 2 spoof train rows, 16 eval
@@ -55,7 +64,8 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 6. training through the CLI: `occm_tpu_torch.cli.oc_training.main` at full
    width on the fixture's 6-7 s waves, --cut 96000 (flash attention
    through auto), one epoch. Checks every step's loss is finite, the
-   attention kernels' launches per step, and that aasist_vocoded_0.pt
+   attention kernels' launches per step (and that the backward copied no
+   dO), and that aasist_vocoded_0.pt
    loads strictly into the port's AModel.
 7. training through `train()`: 3 steps with every kernel (flash attention,
    ln_impl="pallas", ffn_impl="pallas", optimizer="fused_adam", AASIST
@@ -252,8 +262,8 @@ def phase_build():
     for line in _build.build_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling" in line:
             print(f"[build]   {line.strip()}", flush=True)
-    # the FFN and attention-forward kernels must run on wgmma: count HGMMA
-    # in their SASS
+    # the FFN and the three attention kernels must run on wgmma: count
+    # HGMMA in their SASS
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", _build.library_path()],
                           capture_output=True, text=True, check=True).stdout
@@ -265,7 +275,8 @@ def phase_build():
             hgmma[fn] = hgmma.get(fn, 0) + 1
     print(f"[build] HGMMA instructions in the library's SASS: {hgmma}",
           flush=True)
-    for kernel in ("ffn_gemm_kernel", "flash_attn_fwd_kernel"):
+    for kernel in ("ffn_gemm_kernel", "flash_attn_fwd_kernel",
+                   "flash_attn_bwd_dq_kernel", "flash_attn_bwd_dkv_kernel"):
         if not any(kernel in f for f in hgmma):
             fail(f"the SASS of {kernel} holds no HGMMA: {hgmma}")
     return hgmma
@@ -368,9 +379,9 @@ LN_EDGES = ((1000, 1000), (12 * 299, 1280))
 def attention_bwd_bound(bh: int, t: int, d: int):
     """Least time for one backward on an H100: five products of 2*T*T*D
     flops per (b, h); q, k, v, o, dO read and dq, dk, dv written once in
-    bf16, lse and delta read once in fp32."""
+    bf16, lse read once in fp32 (delta is the kernels' own intermediate)."""
     flops = 10.0 * bh * t * t * d
-    nbytes = 8.0 * bh * t * d * 2 + 2.0 * bh * t * 4
+    nbytes = 8.0 * bh * t * d * 2 + bh * t * 4
     t_ops = flops / PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -385,33 +396,55 @@ def bytes_bound(nbytes: float, flops: float = 0.0,
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def check_attention_autograd(q, k, v, do, want, bt, ht, t):
-    """`flash_attention` on CUDA tensors, [B, T, H, D]: q, k and v get
-    gradients, through one launch of each backward kernel, equal to the
-    backward wrapper's."""
+def check_attention_autograd(q4, k4, v4, do4, want, t):
+    """`flash_attention` on CUDA [B, T, H, D] views: q, k and v get
+    contiguous gradients, through one launch of each backward kernel and no
+    copy, equal bit for bit to the backward wrapper's `want`; a dO that
+    the TMA maps cannot read (the expanded ones of `out.sum()`) costs one
+    counted copy and gives the gradients of the same dO made contiguous."""
     import torch
 
     from occm_tpu_torch.ops import attention
 
-    def bthd(x):
-        return x.view(bt, ht, t, D).permute(0, 2, 1, 3)
-
-    q4, k4, v4 = (bthd(x).detach().requires_grad_() for x in (q, k, v))
-    before = (attention.BWD_DQ_LAUNCHES, attention.BWD_DKV_LAUNCHES)
-    attention.flash_attention(q4, k4, v4).backward(bthd(do))
+    q, k, v = (x.detach().requires_grad_() for x in (q4, k4, v4))
+    before = (attention.BWD_DQ_LAUNCHES, attention.BWD_DKV_LAUNCHES,
+              attention.BWD_DOUT_COPIES)
+    grads = torch.autograd.grad(attention.flash_attention(q, k, v),
+                                (q, k, v), do4)
     torch.cuda.synchronize()
     if (attention.BWD_DQ_LAUNCHES - before[0],
-            attention.BWD_DKV_LAUNCHES - before[1]) != (1, 1):
+            attention.BWD_DKV_LAUNCHES - before[1],
+            attention.BWD_DOUT_COPIES - before[2]) != (1, 1, 0):
         fail("flash_attention backward did not launch each backward kernel "
-             "once")
-    for name, x, w in zip(("q", "k", "v"), (q4, k4, v4), want):
-        if x.grad is None or not torch.equal(x.grad, bthd(w)):
-            fail(f"flash_attention: {name}.grad is not the kernel's")
+             "once without a copy")
+    for name, g, w in zip(("q", "k", "v"), grads, want):
+        if not (g.shape == q4.shape and g.is_contiguous()):
+            fail(f"flash_attention: {name}'s gradient is not contiguous "
+                 f"{tuple(q4.shape)}: {tuple(g.shape)} {g.stride()}")
+        if not torch.equal(g, w):
+            fail(f"flash_attention: {name}'s gradient is not the kernel's")
+    out = attention.flash_attention(q, k, v)
+    before = attention.BWD_DOUT_COPIES
+    summed = torch.autograd.grad(out.sum(), (q, k, v), retain_graph=True)
+    ones = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    torch.cuda.synchronize()
+    if attention.BWD_DOUT_COPIES - before != 1:
+        fail("flash_attention: an expanded dO was not copied once")
+    if not all(torch.equal(a, b) for a, b in zip(summed, ones)):
+        fail("flash_attention: the gradients of out.sum() are not those of "
+             "a contiguous dO of ones")
     print(f"[kernel] flash_attention autograd on cuda at T={t}: q, k, v "
-          "gradients are the backward kernels'", flush=True)
+          "gradients are the backward kernels', contiguous [B, T, H, D], no "
+          "copy; an expanded dO costs one counted copy", flush=True)
 
 
 def phase_attention_bwd():
+    """flash_attn_bwd at every KERNEL_TS, B = TRAIN_B, on [B, T, H, D]
+    views of one [B, T, 3 * H * D] projection output (the layout the model
+    hands it, read in place) and on [B*H, T, D] copies: the two give the
+    same bits, a repeat gives the same bits, one call is two device
+    launches (dq, dk/dv) and nothing else, and the gradients are within
+    BWD_RTOL_OF_MAX of the plain version's."""
     import torch
     import torch.nn.functional as F
 
@@ -423,12 +456,30 @@ def phase_attention_bwd():
     bt, ht = TRAIN_B, H
     rows = []
     for t in KERNEL_TS:
-        q, k, v, do = (torch.randn((bt * ht, t, D), generator=gen,
-                                   device="cuda").to(torch.bfloat16)
-                       for _ in range(4))
-        out, lse = flash_attention_fwd(q, k, v, t)
+        qkv = torch.randn((bt, t, 3 * ht * D), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        q4, k4, v4 = qkv.view(bt, t, 3, ht, D).unbind(2)
+        do4 = torch.randn((bt, t, ht, D), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        out4, lse = flash_attention_fwd(q4, k4, v4, t)
+
+        def flat(x):
+            return x.permute(0, 2, 1, 3).reshape(bt * ht, t, D).contiguous()
+
+        q, k, v, out, do = (flat(x) for x in (q4, k4, v4, out4, do4))
+        got4 = flash_attention_bwd(q4, k4, v4, out4, lse, do4, t)
+        again = flash_attention_bwd(q4, k4, v4, out4, lse, do4, t)
         got = flash_attention_bwd(q, k, v, out, lse, do, t)
         torch.cuda.synchronize()
+        for name, a, b, c in zip(("dq", "dk", "dv"), got4, again, got):
+            if not (a.shape == q4.shape and a.is_contiguous()):
+                fail(f"flash_attn_bwd T={t}: {name} is not contiguous "
+                     f"[B, T, H, D]: {tuple(a.shape)} {a.stride()}")
+            if not torch.equal(a, b):
+                fail(f"flash_attn_bwd T={t}: two calls give different {name}")
+            if not torch.equal(flat(a), c):
+                fail(f"flash_attn_bwd T={t}: [B, T, H, D] views and "
+                     f"[B*H, T, D] give different {name}")
         want = flash_attention_bwd_reference(q, k, v, out, lse, do, t)
         errs = []
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -439,51 +490,67 @@ def phase_attention_bwd():
                      f"{BWD_RTOL_OF_MAX} * {scale}")
             errs.append((name, err, scale))
         if t == MAIN_PATH_TS[0]:
-            check_attention_autograd(q, k, v, do, got, bt, ht, t)
-        ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, t))
-        dev_ms, _, _ = device_ms(
-            lambda: flash_attention_bwd(q, k, v, out, lse, do, t),
+            check_attention_autograd(q4, k4, v4, do4, got4, t)
+        ms = cuda_ms(lambda: flash_attention_bwd(q4, k4, v4, out4, lse, do4,
+                                                 t))
+        ms_flat = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                                      t))
+        dev_ms, own, every = device_ms(
+            lambda: flash_attention_bwd(q4, k4, v4, out4, lse, do4, t),
             ("flash_attn_bwd",))
+        if (own, every) != (2, 2):
+            fail(f"flash_attn_bwd T={t}: {every} device launches a call "
+                 f"({own} of the kernels), want 2 (dq, dk/dv) and no other")
+        dq_ms, dkv_ms = (device_ms(
+            lambda: flash_attention_bwd(q4, k4, v4, out4, lse, do4, t),
+            (name,))[0] for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
         plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
             q, k, v, out, lse, do, t), iters=3, warmup=1)
-        q4, k4, v4 = (x.view(bt, ht, t, D).detach().requires_grad_()
+        q3, k3, v3 = (x.view(bt, ht, t, D).detach().requires_grad_()
                       for x in (q, k, v))
-        do4 = do.view(bt, ht, t, D)
+        do3 = do.view(bt, ht, t, D)
 
         def sdpa_fwd_bwd():
-            o4 = F.scaled_dot_product_attention(q4, k4, v4)
-            torch.autograd.grad(o4, (q4, k4, v4), do4)
+            o3 = F.scaled_dot_product_attention(q3, k3, v3)
+            torch.autograd.grad(o3, (q3, k3, v3), do3)
 
         with torch.no_grad():
             fwd_ms = cuda_ms(
-                lambda: F.scaled_dot_product_attention(q4, k4, v4))
+                lambda: F.scaled_dot_product_attention(q3, k3, v3))
         library_ms = cuda_ms(sdpa_fwd_bwd) - fwd_ms
         with torch.no_grad():
             fwd_dev_ms = library_device_ms(
-                lambda: F.scaled_dot_product_attention(q4, k4, v4))
+                lambda: F.scaled_dot_product_attention(q3, k3, v3))
         lib_dev_ms = library_device_ms(sdpa_fwd_bwd) - fwd_dev_ms
         bound_ms, bound_by, flops, nbytes = attention_bwd_bound(bt * ht, t, D)
         row = dict(T=t, max_abs_err=max(e[1] for e in errs),
                    errors={n: e for n, e, _ in errs}, ms=ms,
-                   device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   library_device_ms=lib_dev_ms,
+                   ms_bh_t_d=ms_flat, device_ms=dev_ms,
+                   device_ms_dq=dq_ms, device_ms_dkv=dkv_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_device_ms=lib_dev_ms,
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                    bytes=nbytes)
         rows.append(row)
         print(f"[kernel] flash_attn_bwd B={bt} H={ht} T={t} D={D}: "
               + ", ".join(f"{n} err {e:.3e} (max |plain| {m:.3e})"
                           for n, e, m in errs)
-              + f", wrapper {ms:.4f} ms, device {dev_ms:.4f} ms (dq + dk/dv)"
-              f", plain {plain_ms:.4f} ms, sdpa bwd "
-              f"{library_ms:.4f} ms (device {lib_dev_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{flops:.4g} flop, {nbytes:.4g} B)", flush=True)
+              + f"; [B, T, H, D] views = [B*H, T, D] and repeat bit for "
+              f"bit, 2 device launches a call; wrapper {ms:.4f} ms on the "
+              f"views ({ms_flat:.4f} on [B*H, T, D]), device {dev_ms:.4f} ms "
+              f"(dq {dq_ms:.4f} + dk/dv {dkv_ms:.4f}), plain {plain_ms:.4f} "
+              f"ms, sdpa bwd "
+              f"{library_ms:.4f} ms (device {lib_dev_ms:.4f}), bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, "
+              f"{nbytes:.4g} B)", flush=True)
     return rows
 
 
 def phase_layernorm_bwd():
-    """layernorm_bwd against its plain version at LN_SHAPE (timed) and the
-    LN_EDGES shapes, bf16: every call one device launch, and dx, dgamma,
-    dbeta of a second call identical bit for bit."""
+    """layernorm_bwd against its plain version at LN_SHAPE and the
+    LN_EDGES shapes, bf16, each timed beside its bound, plain and library
+    times: every call one device launch, and dx, dgamma, dbeta of a second
+    call identical bit for bit. Returns LN_SHAPE's row with every shape's
+    under "per_shape"."""
     import torch
 
     from occm_tpu_torch.ops.layernorm import (
@@ -491,7 +558,7 @@ def phase_layernorm_bwd():
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     eps = 1e-5
-    head = None
+    rows = []
     for m, d in (LN_SHAPE,) + LN_EDGES:
         x = torch.randn((m, d), generator=gen, device="cuda").to(
             torch.bfloat16)
@@ -520,13 +587,6 @@ def phase_layernorm_bwd():
         if (own, every) != (1, 1):
             fail(f"layernorm_bwd [{m}, {d}]: {every} device launches a call "
                  f"({own} of the kernel), want 1")
-        line = (f"[kernel] layernorm_bwd [{m}, {d}] bf16: "
-                + ", ".join(f"{n} err {e:.3e}" for n, e in errs.items())
-                + f", repeat bit-identical, 1 device launch a call, device "
-                f"{dev_ms:.4f} ms")
-        if head is not None:
-            print(line, flush=True)
-            continue
         ms = cuda_ms(lambda: layer_norm_bwd(x, gamma, g, eps))
         plain_ms = cuda_ms(lambda: layer_norm_bwd_reference(x, gamma, g,
                                                             eps))
@@ -542,17 +602,19 @@ def phase_layernorm_bwd():
         nbytes = 3.0 * m * d * 2 + 3.0 * d * 4
         flops = 12.0 * m * d
         bound_ms, bound_by = bytes_bound(nbytes, flops)
-        print(line + f", wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, aten "
-              f"native_layer_norm_backward {library_ms:.4f} ms (device "
-              f"{lib_dev_ms:.4f}), bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, "
-              f"{nbytes:.4g} B)", flush=True)
-        head = dict(shape=[m, d], max_abs_err=max(errs.values()),
-                    errors=errs, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                    library_ms=library_ms, library_device_ms=lib_dev_ms,
-                    bound_ms=bound_ms,
-                    bound_by=bound_by, flops=flops, bytes=nbytes)
-    return head
+        print(f"[kernel] layernorm_bwd [{m}, {d}] bf16: "
+              + ", ".join(f"{n} err {e:.3e}" for n, e in errs.items())
+              + f", repeat bit-identical, 1 device launch a call, device "
+              f"{dev_ms:.4f} ms, wrapper {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, aten native_layer_norm_backward {library_ms:.4f} ms "
+              f"(device {lib_dev_ms:.4f}), bound {bound_ms:.4f} ms "
+              f"({bound_by}; {flops:.4g} flop, {nbytes:.4g} B)", flush=True)
+        rows.append(dict(shape=[m, d], max_abs_err=max(errs.values()),
+                         errors=errs, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, flops=flops, bytes=nbytes))
+    return dict(rows[0], per_shape=rows)
 
 
 def phase_fused_adam():
@@ -800,6 +862,72 @@ def build_seed_model(workdir: str):
           f"dtype={xcfg.dtype}; init + save {time.perf_counter() - t0:.1f} s",
           flush=True)
     return model, ckpt
+
+
+# The tiny model on the card against itself on the CPU: both fp32 with TF32
+# off (phase 1), plain attention on both, so they differ only by the order
+# of fp32 sums through two layers and the backend (relative ~1e-6); 1e-3
+# of the largest |value| holds that and fails on a wrong route or layout.
+TINY_RTOL_OF_MAX = 1e-3
+
+
+def phase_tiny_auto():
+    """The repaired fault: XLSRConfig.tiny() is fp32 with head dim 16,
+    which the CUDA flash kernels do not take. On the card, auto must pick
+    "xla" for it in every bucket: 4 waves of 1-2 s through
+    BucketedEmbedder and make_embed_fn_factory (what oc_classifier, embed
+    and oc_server run), in two buckets, score with no flash launch and
+    agree with the same model on the CPU; a pinned "flash" still raises."""
+    import torch
+
+    from occm_tpu_torch.classify import (
+        BucketedEmbedder, make_embed_fn_factory)
+    from occm_tpu_torch.config import AASISTConfig, XLSRConfig
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.ops import attention
+    from occm_tpu_torch.serve import make_score_fn
+    from occm_tpu_torch.utils import random_init_
+
+    xcfg = XLSRConfig.tiny()
+    model = random_init_(AModel(AASISTConfig.tiny(), xcfg), seed=0)
+    rng = np.random.default_rng(3)
+    waves = [synthetic_wave(rng, sec) for sec in (1.0, 1.5, 1.7, 2.0)]
+
+    def embed(device):
+        emb, logits = BucketedEmbedder(
+            embed_fn_factory=make_embed_fn_factory(model, "auto",
+                                                   xcfg.norm_dtype),
+            bucket_step=SR, batch_size=4, device=device).embed_all(waves)
+        return emb, logits
+
+    want = embed("cpu")
+    model.to("cuda")
+    before = attention.LAUNCHES
+    got = embed("cuda")
+    if attention.LAUNCHES != before:
+        fail("tiny model under auto on the card launched the flash kernel")
+    for name, a, b in zip(("embeddings", "logits"), got, want):
+        err = float(np.abs(a - b).max())
+        scale = float(np.abs(b).max())
+        if not (a.shape == b.shape and np.isfinite(a).all()
+                and err <= TINY_RTOL_OF_MAX * scale):
+            fail(f"tiny model under auto on the card: {name} "
+                 f"{a.shape} max |cuda - cpu| = {err} > "
+                 f"{TINY_RTOL_OF_MAX} * {scale}")
+    try:
+        make_score_fn(model, "flash")(
+            torch.from_numpy(np.stack([w[:SR] for w in waves])).to("cuda"))
+    except ValueError as e:
+        pinned = str(e)
+    else:
+        fail("tiny model with a pinned flash impl did not raise on the card")
+    print(f"[tiny] XLSRConfig.tiny() (fp32, head dim 16) on the card under "
+          f"auto: {len(waves)} waves of 1-2 s scored through xla attention "
+          f"(0 flash launches), embeddings {got[0].shape} within "
+          f"{TINY_RTOL_OF_MAX} of the largest |value| of the CPU's; pinned "
+          f"flash raises: {pinned}", flush=True)
+    del model
+    torch.cuda.empty_cache()
 
 
 # Eval utterances of the scoring phase, seconds: with oc_classifier's
@@ -1291,6 +1419,7 @@ def reset_counts():
     attention.LAUNCHES = 0
     attention.BWD_DQ_LAUNCHES = 0
     attention.BWD_DKV_LAUNCHES = 0
+    attention.BWD_DOUT_COPIES = 0
     layernorm.LAUNCHES = 0
     fused_adam.LAUNCHES = 0
     ffn.LAUNCHES = 0
@@ -1302,6 +1431,7 @@ def read_counts():
     return {"flash_attn_fwd": attention.LAUNCHES,
             "flash_attn_bwd_dq": attention.BWD_DQ_LAUNCHES,
             "flash_attn_bwd_dkv": attention.BWD_DKV_LAUNCHES,
+            "flash_attn_bwd_dout_copies": attention.BWD_DOUT_COPIES,
             "layernorm_bwd": layernorm.LAUNCHES,
             "fused_adam": fused_adam.LAUNCHES,
             "ffn_fwd": ffn.LAUNCHES}
@@ -1404,8 +1534,8 @@ def phase_train(workdir: str, fixture, profile: bool):
     # forward, once in the backward's recompute
     check_steps("cli", rec, {
         "flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
-        "flash_attn_bwd_dkv": layers, "layernorm_bwd": 0, "fused_adam": 0,
-        "ffn_fwd": 0})
+        "flash_attn_bwd_dkv": layers, "flash_attn_bwd_dout_copies": 0,
+        "layernorm_bwd": 0, "fused_adam": 0, "ffn_fwd": 0})
     path = os.path.join(ckpt_dir, "aasist_vocoded_0.pt")
     model = AModel(AASISTConfig(), XLSRConfig())
     model.load_state_dict(load_reference_state_dict(path), strict=True)
@@ -1496,6 +1626,7 @@ def phase_train(workdir: str, fixture, profile: bool):
             want = {"flash_attn_fwd": 2 * layers,
                     "flash_attn_bwd_dq": layers,
                     "flash_attn_bwd_dkv": layers,
+                    "flash_attn_bwd_dout_copies": 0,
                     "layernorm_bwd": 2 * layers,
                     "fused_adam": adam_launches,
                     "ffn_fwd": 2 * layers}
@@ -1566,10 +1697,11 @@ def report_profile(prof, window_us: float, n: int, label: str):
     window."""
     import torch
 
-    by_name, by_class = {}, {}
+    by_name, by_class, events = {}, {}, 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        events += 1
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         cls = _kernel_class(e.name)
@@ -1581,7 +1713,7 @@ def report_profile(prof, window_us: float, n: int, label: str):
     print(f"[profile] {label}, {n} runs: host window "
           f"{window_us / n / 1e3:.3f} ms/run, device busy "
           f"{busy / n / 1e3:.3f} ms/run ({busy / window_us:.3f} of the "
-          f"window)", flush=True)
+          f"window), {events / n:.1f} device launches/run", flush=True)
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {cls}: {us / n / 1e3:.3f} ms/run "
               f"({us / busy:.3f} of device time)", flush=True)
@@ -1657,12 +1789,13 @@ def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
                      "occm_tpu/ops/attention.py:350 (_blocked_dq_kernel), "
                      "occm_tpu/ops/attention.py:373 (_blocked_dkv_kernel)",
          "launches": launches["flash_attn_bwd"],
-         "shape": f"[B*H={TRAIN_B * H}, T={bhead['T']}, D={D}] bf16",
+         "shape": f"[B={TRAIN_B}, T={bhead['T']}, H={H}, D={D}] bf16 views",
          "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
          **{k: bhead[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms",
                                   "library_device_ms")},
-         "per_T": bwd_rows},
+         "sass_hgmma": {k: n for k, n in hgmma.items()
+                        if "flash_attn_bwd" in k}, "per_T": bwd_rows},
         {"name": "layernorm_bwd", "route": "cuda",
          "source": "occm_tpu_torch/csrc/layernorm_bwd.cu",
          "replaces": "occm_tpu/ops/layernorm.py:46 (_bwd_kernel)",
@@ -1670,7 +1803,7 @@ def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
          "shape": f"[{ln['shape'][0]}, {ln['shape'][1]}] bf16",
          **{k: ln[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
                                "bound_ms", "bound_by", "library_ms",
-                               "library_device_ms")}},
+                               "library_device_ms", "per_shape")}},
         {"name": "fused_adam", "route": "cuda",
          "source": "occm_tpu_torch/csrc/fused_adam.cu",
          "replaces": "occm_tpu/ops/fused_adam.py:58 (_kernel)",
@@ -1748,6 +1881,7 @@ def main(argv=None) -> int:
             fixture_dir = os.path.join(workdir, "fixture")
             os.makedirs(fixture_dir)
             fixture = write_fixture(fixture_dir)
+            phase_tiny_auto()
             model, ckpt = build_seed_model(workdir)
             artifacts, score_launches, _ = phase_scoring(
                 workdir, model, ckpt, fixture)

@@ -3,11 +3,20 @@
 
 ``attention_impl="auto"`` resolves per serving bucket: the plain "xla"
 attention for short buckets, the flash kernel from AUTO_FLASH_MIN_SAMPLES
-up. The policy is a pure function of the bucket's sample length, so the
-scores for an utterance depend only on its bucket.
+up. The policy is a pure function of the bucket's sample length and of
+the model, so the scores for an utterance depend only on its bucket. On a
+CUDA device auto never picks a kernel that cannot take the model: the
+CUDA flash kernels take bf16 with head dim 64, so a model in another
+compute dtype or head dim (`XLSRConfig.tiny()`: fp32, D = 16) runs "xla"
+there (`flash_kernel_takes`). A pinned "flash" passes through and raises
+on such a model.
 """
 
 from __future__ import annotations
+
+import torch
+
+from occm_tpu_torch.ops.attention import cuda_kernel_takes
 
 SR = 16000
 
@@ -22,14 +31,29 @@ AUTO_FLASH_MIN_SAMPLES = 1 * SR
 
 def select_attention_impl(bucket_samples: int,
                           base_impl: str = "auto",
-                          norm_dtype: str = "float32") -> str:
+                          norm_dtype: str = "float32",
+                          flash_takes_model: bool = True) -> str:
     """Resolve the attention impl for a bucket of `bucket_samples`.
 
     Any impl other than "auto" passes through unchanged. Under fast numerics
     (norm_dtype="bfloat16") auto resolves to "xla" everywhere, as in the JAX
-    package; the flash crossover applies to exact (fp32-softmax) scoring."""
+    package; so it does where the flash kernel cannot take the model
+    (flash_takes_model False, see `flash_kernel_takes`). The flash
+    crossover applies to exact (fp32-softmax) scoring."""
     if base_impl != "auto":
         return base_impl
-    if norm_dtype == "bfloat16":
+    if norm_dtype == "bfloat16" or not flash_takes_model:
         return "xla"
     return "flash" if bucket_samples >= AUTO_FLASH_MIN_SAMPLES else "xla"
+
+
+def flash_kernel_takes(xlsr_cfg, device) -> bool:
+    """Whether attention_impl="flash" runs a model of `xlsr_cfg` on
+    `device`: on a CUDA device only if the CUDA kernels take its compute
+    dtype and head dim (`ops.attention.cuda_kernel_takes`); on the CPU the
+    plain version takes any."""
+    if torch.device(device).type != "cuda":
+        return True
+    return cuda_kernel_takes(getattr(torch, xlsr_cfg.dtype),
+                             xlsr_cfg.encoder_embed_dim
+                             // xlsr_cfg.encoder_heads)

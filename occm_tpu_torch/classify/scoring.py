@@ -30,22 +30,31 @@ import numpy as np
 import torch
 
 from occm_tpu_torch.audio import pad_numpy
-from occm_tpu_torch.classify.impl_select import select_attention_impl
+from occm_tpu_torch.classify.impl_select import (
+    flash_kernel_takes, select_attention_impl)
 from occm_tpu_torch.io.scorefiles import write_score_line_1c, write_score_line_2c
 from occm_tpu_torch.losses import pairwise_distance
 from occm_tpu_torch.serve import make_score_fn
 from occm_tpu_torch.utils.device import resolve_device
 
 
+def model_device(model: torch.nn.Module) -> torch.device:
+    """The device of the model's parameters."""
+    return next(model.parameters()).device
+
+
 def make_embed_fn_factory(model: torch.nn.Module, attention_impl: str = "auto",
                           norm_dtype: str = "float32"
                           ) -> Callable[[int], Callable]:
     """bucket_samples -> embed fn over one model: each bucket runs the
-    attention impl that `select_attention_impl` picks for its length (a
-    pinned impl passes through for every bucket)."""
+    attention impl that `select_attention_impl` picks for its length and
+    for the model where it lies (auto never picks a flash kernel that
+    cannot take it; a pinned impl passes through for every bucket)."""
     def factory(bucket_samples: int) -> Callable:
         return make_score_fn(model, select_attention_impl(
-            bucket_samples, attention_impl, norm_dtype=norm_dtype))
+            bucket_samples, attention_impl, norm_dtype=norm_dtype,
+            flash_takes_model=flash_kernel_takes(model.xlsr_cfg,
+                                                 model_device(model))))
 
     return factory
 

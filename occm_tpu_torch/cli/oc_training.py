@@ -137,6 +137,29 @@ def _unported(args) -> None:
                 f"A: {item})")
 
 
+def xlsr_config(args, cut: int, device):
+    """The model's XLSRConfig from the flags (--xlsr_tiny, --pos_conv_impl,
+    --feature_grad_mult), with the attention impl that --attention_impl
+    resolves to for crops of `cut` samples of that model on `device`."""
+    from occm_tpu_torch.classify.impl_select import (
+        flash_kernel_takes, select_attention_impl)
+    from occm_tpu_torch.config import XLSRConfig
+
+    xlsr_cfg = XLSRConfig.tiny() if args.xlsr_tiny else XLSRConfig()
+    if args.pos_conv_impl != "grouped":
+        xlsr_cfg = dataclasses.replace(xlsr_cfg,
+                                       pos_conv_impl=args.pos_conv_impl)
+    if args.feature_grad_mult != 1.0:
+        xlsr_cfg = dataclasses.replace(
+            xlsr_cfg, feature_grad_mult=args.feature_grad_mult)
+    impl = select_attention_impl(
+        cut, args.attention_impl, norm_dtype=xlsr_cfg.norm_dtype,
+        flash_takes_model=flash_kernel_takes(xlsr_cfg, device))
+    if impl != xlsr_cfg.attention_impl:
+        xlsr_cfg = dataclasses.replace(xlsr_cfg, attention_impl=impl)
+    return xlsr_cfg
+
+
 def build_model(xlsr_cfg, seed: int, init_from=None):
     """AModel with PyTorch's default initialisation drawn from a generator
     seeded with `seed` (the global one, forked so the caller's stream is
@@ -167,8 +190,7 @@ def main(argv=None, on_step=None):
     args = build_parser().parse_args(argv)
     _unported(args)
 
-    from occm_tpu_torch.config import (
-        MeshConfig, RawBoostConfig, TrainConfig, XLSRConfig)
+    from occm_tpu_torch.config import MeshConfig, RawBoostConfig, TrainConfig
 
     cfg = TrainConfig(
         model=args.model,
@@ -192,21 +214,10 @@ def main(argv=None, on_step=None):
         decay_steps=args.decay_steps,
         lr_end_ratio=args.lr_end_ratio,
     )
-    from occm_tpu_torch.classify.impl_select import select_attention_impl
     from occm_tpu_torch.utils.device import resolve_device
 
-    xlsr_cfg = XLSRConfig.tiny() if args.xlsr_tiny else XLSRConfig()
-    if args.pos_conv_impl != "grouped":
-        xlsr_cfg = dataclasses.replace(xlsr_cfg,
-                                       pos_conv_impl=args.pos_conv_impl)
-    if args.feature_grad_mult != 1.0:
-        xlsr_cfg = dataclasses.replace(
-            xlsr_cfg, feature_grad_mult=args.feature_grad_mult)
-    impl = select_attention_impl(cfg.cut, args.attention_impl,
-                                 norm_dtype=xlsr_cfg.norm_dtype)
-    if impl != xlsr_cfg.attention_impl:
-        xlsr_cfg = dataclasses.replace(xlsr_cfg, attention_impl=impl)
     device = resolve_device(args.device)
+    xlsr_cfg = xlsr_config(args, cfg.cut, device)
 
     print("*************************************************")
     print(f"Train dataset dir = {args.train_dataset_dir}")

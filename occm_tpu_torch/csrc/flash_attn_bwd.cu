@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, no atomics.
+// Flash-attention backward for Hopper (sm_90a): two kernels, wgmma fed by
+// TMA, no atomics.
 //
 // Replaces three TPU Pallas kernels of occm_tpu/ops/attention.py:
 //   _bwd_kernel          (attention.py:79)   whole-T backward, T padded <= 512
@@ -6,340 +7,521 @@
 //   _blocked_dkv_kernel  (attention.py:373)  dk, dv over a q sweep
 // One pair covers every T, fed by the lse the forward kernel
 // (flash_attn_fwd.cu) writes. The arithmetic is the blocked TPU route's:
-//   - the scale is folded into q in fp32, then q is cast to bf16,
-//   - S = q_s k^T accumulated in fp32, keys >= t_valid get P = 0,
-//   - P = exp(S - lse) in fp32,
-//   - dS = P * (dO v^T - delta), delta = rowsum(dO * O) in fp32 (computed by
-//     the caller, as the TPU wrapper computes it in XLA),
-//   - P and dS cast to bf16 before their products, fp32 accumulation,
+//   - S = q k^T accumulated in fp32 from the unscaled bf16 q, the scale
+//     applied to the fp32 logits: for D = 64 it is 2^-3, so this gives the
+//     bits of the TPU route's folding of the scale into q before the bf16
+//     cast (flash_attn_fwd.cu's header has the argument);
+//   - P = exp(scale S - lse) in fp32 (base 2: one multiplier and exp2f),
+//     keys >= t_valid get P = 0;
+//   - dS = P * (dO v^T - delta), delta = rowsum(dO * O) in fp32;
+//   - P and dS cast to bf16 before their products, fp32 accumulation;
 //   - dq = scale * dS k and dk = scale * dS^T q (the unscaled q), dv = P^T dO.
 //
-// Layout: q, k, v, dO, dq, dk, dv are [BH, T, D] row-major bf16 with D = 64;
-// lse and delta are [BH, T] fp32.
+// Layout: q, k, v, out and dO are [B, T, H, 64] bf16 with any strides for
+// B, T and H (16-byte multiples), read where they lie through 4-d TMA maps
+// (64 x 64 boxes of one (b, h)), as the forward reads q, k, v. dq, dk, dv
+// are written contiguous as [B, T, H, 64] by TMA stores, which clip rows
+// past T, so [B, T, H * 64] is a view of each. lse and delta are
+// [B * H, T] fp32. [BH, T, D] is the case B = BH, H = 1.
 //
-// dq kernel: grid (64-row q tile, b*h), 4 warps of 16 q rows, a loop over kv
-// tiles of 64 keys. q and dO fragments stay in registers; per tile S and dP
-// are mma.sync m16n8k16 accumulator fragments, dS overwrites S in place and
-// is re-packed in registers as the A operand of dS k (as the forward does
-// with P), so K is also stored transposed in shared memory ("col" B layout).
+// Both kernels: 160 threads, warp 4 the producer (TMA into a ring of
+// kStages stages, 128-byte swizzle, full/empty mbarriers; TMA zero-fills
+// rows past T), warps 0-3 one consumer warpgroup on wgmma m64n64k16, each
+// product straight from the TMA tiles, none transposed through shared
+// memory.
 //
-// dkv kernel: grid (64-key tile, b*h), 4 warps of 16 keys, a loop over q
-// tiles of 64 rows. It computes the transposed tiles S^T = K q_s^T and
-// dP^T = V dO^T directly, so that P^T and dS^T are accumulator fragments
-// that feed P^T dO and dS^T q as A operands; dO and the unscaled q are
-// stored transposed in shared memory for those products. K and V fragments
-// stay in registers. Each block owns its dk, dv rows, so no atomics: the
-// result is deterministic.
+// dq kernel, grid (ceil(T / 64), H, B): 64 q rows, a loop over 64-key
+// tiles. The producer loads the q, dO and out tiles once and k, v per tile.
+// Before the loop the warpgroup computes delta of its 64 rows from the dO
+// and out tiles and writes it to the delta buffer (the dk/dv kernel, next
+// on the stream, reads it there). Per tile:
+//   S = q k^T, dP = dO v^T   both operands K-major, as stored; issued as two
+//                            groups, so exp(S) runs while dP is computed;
+//   dq += dS k               dS the register A operand (the S fragment,
+//                            rounded), k an MN-major B operand (the
+//                            transpose bit), as the forward feeds P and v.
+// dk/dv kernel, grid (ceil(T / 64), H, B): 64 keys, a loop over 64-row q
+// tiles. The producer loads the k and v tiles once, and per tile the q and
+// dO tiles by TMA while its 32 lanes copy the tile's lse (times log2 e;
+// +inf past T, so those rows get P = 0) and delta into the stage with
+// ordinary loads (TMA needs 16-byte aligned rows, and a [B * H, T] fp32
+// row of T = 299 is not). Per tile:
+//   S^T = k q^T, dP^T = v dO^T   all K-major;
+//   P^T = exp(scale S^T - lse[col]), dS^T = P^T * (dP^T - delta[col]);
+//   dv += P^T dO, dk += dS^T q   P^T and dS^T register A operands, dO and q
+//                                MN-major B operands.
+// Each block owns its rows of dq, or of dk and dv: no atomics, and a
+// repeat gives the same bits. S and dP are computed in both kernels (7
+// products where one kernel with atomic dq would do 5): that keeps them
+// deterministic, and at the training shape the work is bound by bytes.
 //
-// Ragged T: rows and keys past T are loaded as zeros, get P = 0 and are
-// never stored.
-//
-// What bounds it on an H100: five products of 2*T*T*D flops per (b, h)
-// against q, k, v, o, dO read and dq, dk, dv written once in bf16 (lse and
-// delta in fp32): at the training shape B*H = 192, T = 299 that is 1.1e10
-// flop and 5.9e7 bytes, bytes-bound at about 18 us; at T >= 599 it is
-// operations-bound. Like the forward, this first version uses synchronous
-// loads, scalar transposed stores and mma.sync, and recomputes S and dP in
-// both kernels; it is written to be right and simple, and its measured
-// times are in PERF.md.
+// What bounds it on an H100: at the training shape (B*H = 192, T = 299,
+// D = 64) the five products are 1.1e10 flop (11 us at the bf16 peak; the
+// two recomputed ones make 1.5e10) against 5.9e7 bytes of q, k, v, out, dO
+// read and dq, dk, dv written once (18 us); at T >= 599 the products bound
+// it. The measured times are in PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "attention_sm90.cuh"
 
 namespace {
 
-constexpr int kD = 64;        // head dim
-constexpr int kTile = 64;     // q rows or keys per tile
-constexpr int kWarps = 4;     // 16 rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kD + 8;  // padded smem row: 144 bytes
+constexpr int kStages = 2;      // ring depth of the streamed tiles
+constexpr int kThreads = 160;   // warpgroup 0 computes, warp 4 loads
+constexpr float kLog2e = 1.4426950408889634f;
+// dq kernel: q, dO, out tiles, then per stage a k and a v tile, + 1 KB to
+// align the tiles to the 128-byte swizzle's 1024-byte period, + mbarriers
+constexpr int kDqTiles = 3 + 2 * kStages;
+constexpr int kDqSmem = kDqTiles * kTileBytes + 1024 + (2 * kStages + 1) * 8;
+// dk/dv kernel: k, v tiles, per stage a q and a dO tile, per stage the
+// tile's lse * log2 e and delta (64 + 64 fp32), + mbarriers
+constexpr int kDkvTiles = 2 + 2 * kStages;
+constexpr int kStatFloats = 2 * kTileRows;
+constexpr int kDkvSmem = kDkvTiles * kTileBytes + 1024 +
+                         kStages * kStatFloats * 4 + (2 * kStages + 1) * 8;
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tma_q,
+                         const __grid_constant__ CUtensorMap tma_k,
+                         const __grid_constant__ CUtensorMap tma_v,
+                         const __grid_constant__ CUtensorMap tma_o,
+                         const __grid_constant__ CUtensorMap tma_do,
+                         const __grid_constant__ CUtensorMap tma_dq,
+                         const float* __restrict__ lse,
+                         float* __restrict__ delta, int T, int t_valid,
+                         float scale, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sq = smem;
+  unsigned char* sdo = smem + kTileBytes;
+  unsigned char* so = smem + 2 * kTileBytes;  // out, then the dq tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kDqTiles * kTileBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* head_full = empty + kStages;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+  const int q0 = blockIdx.x * kTileRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t row_base = ((size_t)b * gridDim.y + h) * T;
+  const int n_tiles = (t_valid + kTileRows - 1) / kTileRows;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragments (16 rows from r0, all of D) of a [rows][kLds] smem tile
-__device__ __forceinline__ void load_a(uint32_t a[kD / 16][4],
-                                       __nv_bfloat16 (*s)[kLds], int r0,
-                                       int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    a[kk][0] = ld32(&s[r0 + g][kk * 16 + t * 2]);
-    a[kk][1] = ld32(&s[r0 + g + 8][kk * 16 + t * 2]);
-    a[kk][2] = ld32(&s[r0 + g][kk * 16 + 8 + t * 2]);
-    a[kk][3] = ld32(&s[r0 + g + 8][kk * 16 + 8 + t * 2]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    mbar_init(head_full, 1);
+    mbar_init_fence();
   }
-}
+  __syncthreads();
 
-// c[nt] (16 x 8 per nt) = A (16 x D, registers) . B^T with B [64][kLds] in
-// smem (row n of B is column n of the product)
-__device__ __forceinline__ void mma_rows(float c[kTile / 8][4],
-                                         uint32_t a[kD / 16][4],
-                                         __nv_bfloat16 (*b)[kLds], int g,
-                                         int t) {
+  if (threadIdx.x >= 128) {
+    // ---- producer: one thread loads the block's tiles, then keeps the
+    // k/v ring full
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(head_full, 3 * kTileBytes);
+      tma_load_4d(sq, &tma_q, head_full, 0, h, q0, b);
+      tma_load_4d(sdo, &tma_do, head_full, 0, h, q0, b);
+      tma_load_4d(so, &tma_o, head_full, 0, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        unsigned char* st = smem + (3 + 2 * s) * kTileBytes;
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        tma_load_4d(st, &tma_k, &full[s], 0, h, j * kTileRows, b);
+        tma_load_4d(st + kTileBytes, &tma_v, &full[s], 0, h, j * kTileRows,
+                    b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: 16 q rows per warp
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // lse * log2 e of this thread's fragment rows lane / 4 (+ 8); rows past T
+  // are never stored
+  float lse2[2];
 #pragma unroll
-  for (int nt = 0; nt < kTile / 8; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    lse2[r] = row < T ? lse[row_base + row] * kLog2e : INFINITY;
+  }
+  mbar_wait(head_full, 0);
+
+  // ---- delta = rowsum(dO * out) in fp32: lanes 2i and 2i + 1 of a warp
+  // sum the two halves of its row 16 * warp + i; each thread then takes the
+  // deltas of its fragment rows from the lanes that hold them
+  float dl[2];
+  {
+    const int row = warp * 16 + (lane >> 1);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int off = swizzled(row, ((lane & 1) * 4 + j) * 8);
+      const uint4 a = *reinterpret_cast<const uint4*>(sdo + off);
+      const uint4 c = *reinterpret_cast<const uint4*>(so + off);
+      const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* pc = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(pa[e]);
+        const float2 y = __bfloat1622float2(pc[e]);
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((lane & 1) == 0 && q0 + row < T) delta[row_base + q0 + row] = sum;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      dl[r] = __shfl_sync(0xffffffffu, sum, 2 * (lane >> 2) + 16 * r);
+  }
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const uint64_t d_q = smem_desc(smem_u32(sq));
+  const uint64_t d_do = smem_desc(smem_u32(sdo));
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int kv0 = j * kTileRows;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    const uint32_t k_addr = smem_u32(smem + (3 + 2 * s) * kTileBytes);
+    const uint64_t d_k = smem_desc(k_addr);
+    const uint64_t d_v = smem_desc(k_addr + kTileBytes);
+
+    // ---- S = q k^T and dP = dO v^T, fp32, two groups
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    fence_acc(sc);
+    fence_acc(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)  // +32 bytes along D per k-step
+      wgmma_ss(sc, d_q + 2 * kk, d_k + 2 * kk);
+    wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      mma_16816(c[nt], a[kk], ld32(&b[nt * 8 + g][kk * 16 + t * 2]),
-                ld32(&b[nt * 8 + g][kk * 16 + 8 + t * 2]));
-  }
-}
+      wgmma_ss(dp, d_do + 2 * kk, d_v + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(sc);
 
-// acc[dn] (16 x 8 per dn, D columns) += bf16(x) (16 x 64, accumulator
-// fragments re-packed as A) . bt^T with bt [D][kLds] in smem (bt[d][j])
-__device__ __forceinline__ void mma_acc(float acc[kD / 8][4],
-                                        float x[kTile / 8][4],
-                                        __nv_bfloat16 (*bt)[kLds], int g,
-                                        int t) {
+    // ---- P = exp(scale S - lse), keys >= t_valid masked (last tile only)
 #pragma unroll
-  for (int kc = 0; kc < kTile / 16; ++kc) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
-    a[1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
-    a[2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
-    a[3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
+    for (int i = 0; i < 32; ++i)
+      sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse2[row_half(i)]));
+    if (kv0 + kTileRows > t_valid) {
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn)
-      mma_16816(acc[dn], a, ld32(&bt[dn * 8 + g][kc * 16 + t * 2]),
-                ld32(&bt[dn * 8 + g][kc * 16 + 8 + t * 2]));
-  }
-}
-
-// rows [r0, r0 + 64) of one (b, h) slice -> row-major smem tile (times
-// `scale` in fp32 then bf16 when scale != 1) and/or transposed tile;
-// rows >= T are zeros
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
-                                          int r0, int T, float scale,
-                                          __nv_bfloat16 (*rows)[kLds],
-                                          __nv_bfloat16 (*cols)[kLds]) {
-  for (int i = threadIdx.x; i < kTile * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (r0 + r < T)
-      raw = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * kD + c);
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-    if (cols != nullptr) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) cols[c + j][r] = e[j];
+      for (int i = 0; i < 32; ++i)
+        if (kv0 + col(i, lane) >= t_valid) sc[i] = 0.f;
     }
-    if (rows != nullptr) {
-      if (scale != 1.f) {
+    wgmma_wait<0>();
+    fence_acc(dp);
+
+    // ---- dS = P (dP - delta); dq += bf16(dS) k
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
-      }
-      *reinterpret_cast<uint4*>(&rows[r][c]) = raw;
-    }
+    for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dl[row_half(i)];
+    uint32_t da[kTileRows / 16][4];
+    pack_a(da, sc);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kTileRows / 16; ++c)  // +16 keys = +2048 bytes
+      wgmma_rs(acc, da[c], d_k + 128 * c);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue: dq * scale in bf16, staged in the out tile's shared
+  // memory (128-byte swizzle), one TMA store that clips rows past T
+  named_bar_sync(1, 128);  // every warp is done reading the out tile
+  stage_tile(so, acc, scale, warp, lane);
+  fence_proxy_async();
+  named_bar_sync(1, 128);
+  if (threadIdx.x == 0) {
+    tma_store_4d(&tma_dq, so, 0, h, q0, b);
+    tma_store_flush();
   }
 }
 
-// 16 rows x D of fp32 accumulators (times `mult`) -> bf16 rows r0.. of dst
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst,
-                                           float acc[kD / 8][4], int row0,
-                                           int T, float mult, int g, int t) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + h * 8;
-    if (row >= T) continue;
-    __nv_bfloat16* out = dst + (size_t)row * kD;
-#pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(out + dn * 8 + t * 2) =
-          pack_bf16(acc[dn][2 * h] * mult, acc[dn][2 * h + 1] * mult);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int T, int t_valid,
-                         float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kTile][kLds];   // scaled q
-  __shared__ __align__(16) __nv_bfloat16 sDO[kTile][kLds];
-  __shared__ __align__(16) __nv_bfloat16 sK[kTile][kLds];   // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 sKt[kD][kLds];     // [d][key]
-  __shared__ __align__(16) __nv_bfloat16 sV[kTile][kLds];   // [key][d]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kTile, r0 = warp * 16;
-  const size_t base = (size_t)blockIdx.y * T * kD;
-  const size_t rbase = (size_t)blockIdx.y * T;
-
-  load_tile(q + base, q0, T, scale, sQ, nullptr);
-  load_tile(dout + base, q0, T, 1.f, sDO, nullptr);
-  __syncthreads();
-  uint32_t qa[kD / 16][4], da[kD / 16][4];
-  load_a(qa, sQ, r0, g, t);
-  load_a(da, sDO, r0, g, t);
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + h * 8;
-    row_lse[h] = row < T ? lse[rbase + row] : 0.f;
-    row_delta[h] = row < T ? delta[rbase + row] : 0.f;
-  }
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn)
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  const int n_tiles = (t_valid + kTile - 1) / kTile;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int kv0 = tile * kTile;
-    __syncthreads();  // previous tile consumed
-    load_tile(k + base, kv0, T, 1.f, sK, sKt);
-    load_tile(v + base, kv0, T, 1.f, sV, nullptr);
-    __syncthreads();
-
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    mma_rows(s, qa, sK, g, t);   // S = q_s k^T
-    mma_rows(dp, da, sV, g, t);  // dP = dO v^T
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = kv0 + nt * 8 + t * 2 + (j & 1);
-        const float p = key < t_valid ? expf(s[nt][j] - row_lse[j >> 1]) : 0.f;
-        s[nt][j] = p * (dp[nt][j] - row_delta[j >> 1]);  // dS
-      }
-    }
-    mma_acc(acc, s, sKt, g, t);  // dq += bf16(dS) k
-  }
-  store_rows(dq + base, acc, q0 + r0, T, scale, g, t);
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tma_q,
+                          const __grid_constant__ CUtensorMap tma_k,
+                          const __grid_constant__ CUtensorMap tma_v,
+                          const __grid_constant__ CUtensorMap tma_do,
+                          const __grid_constant__ CUtensorMap tma_dk,
+                          const __grid_constant__ CUtensorMap tma_dv,
                           const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int T, int t_valid,
-                          float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kTile][kLds];   // scaled q [row][d]
-  __shared__ __align__(16) __nv_bfloat16 sQt[kD][kLds];     // unscaled q [d][row]
-  __shared__ __align__(16) __nv_bfloat16 sDO[kTile][kLds];  // [row][d]
-  __shared__ __align__(16) __nv_bfloat16 sDOt[kD][kLds];    // [d][row]
-  __shared__ float sLse[kTile], sDelta[kTile];
+                          const float* __restrict__ delta, int T, int t_valid,
+                          float scale, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sk = smem;  // k, then the dk tile
+  unsigned char* sv = smem + kTileBytes;  // v, then the dv tile
+  // per stage: lse * log2 e of the tile's 64 q rows, then their delta
+  float* stat = reinterpret_cast<float*>(smem + kDkvTiles * kTileBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stat + kStages * kStatFloats);
+  uint64_t* empty = full + kStages;
+  uint64_t* head_full = empty + kStages;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kTile, r0 = warp * 16;
-  const size_t base = (size_t)blockIdx.y * T * kD;
-  const size_t rbase = (size_t)blockIdx.y * T;
+  const int k0 = blockIdx.x * kTileRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t row_base = ((size_t)b * gridDim.y + h) * T;
+  const int n_tiles = (T + kTileRows - 1) / kTileRows;
 
-  // this block's K and V rows, staged through sQ / sDO into registers
-  load_tile(k + base, k0, T, 1.f, sQ, nullptr);
-  load_tile(v + base, k0, T, 1.f, sDO, nullptr);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // the 32 producer lanes' arrivals after their lse/delta stores, and
+      // lane 0's arrival with the TMA byte count
+      mbar_init(&full[s], 33);
+      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    mbar_init(head_full, 1);
+    mbar_init_fence();
+  }
   __syncthreads();
-  uint32_t ka[kD / 16][4], va[kD / 16][4];
-  load_a(ka, sQ, r0, g, t);
-  load_a(va, sDO, r0, g, t);
+
+  if (threadIdx.x >= 128) {
+    // ---- producer warp: lane 0 issues the TMA loads, every lane copies
+    // two rows of lse and delta
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      mbar_expect_tx(head_full, 2 * kTileBytes);
+      tma_load_4d(sk, &tma_k, head_full, 0, h, k0, b);
+      tma_load_4d(sv, &tma_v, head_full, 0, h, k0, b);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const int r0 = j * kTileRows;
+      mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+      if (lane == 0) {
+        unsigned char* st = smem + (2 + 2 * s) * kTileBytes;
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        tma_load_4d(st, &tma_q, &full[s], 0, h, r0, b);
+        tma_load_4d(st + kTileBytes, &tma_do, &full[s], 0, h, r0, b);
+      }
+      float* st_stat = stat + s * kStatFloats;
+#pragma unroll
+      for (int i = 0; i < kTileRows / 32; ++i) {
+        const int r = lane + 32 * i;
+        const bool in = r0 + r < T;
+        st_stat[r] = in ? lse[row_base + r0 + r] * kLog2e : INFINITY;
+        st_stat[kTileRows + r] = in ? delta[row_base + r0 + r] : 0.f;
+      }
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: 16 keys per warp
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   bool key_ok[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) key_ok[h] = k0 + r0 + g + h * 8 < t_valid;
-
-  float acc_k[kD / 8][4], acc_v[kD / 8][4];
+  for (int r = 0; r < 2; ++r)
+    key_ok[r] = k0 + warp * 16 + (lane >> 2) + 8 * r < t_valid;
+  const bool all_keys_ok = key_ok[0] && key_ok[1];
+  float acc_k[32], acc_v[32];
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) {
-    acc_k[dn][0] = acc_k[dn][1] = acc_k[dn][2] = acc_k[dn][3] = 0.f;
-    acc_v[dn][0] = acc_v[dn][1] = acc_v[dn][2] = acc_v[dn][3] = 0.f;
+  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
+  mbar_wait(head_full, 0);
+  const uint64_t d_k = smem_desc(smem_u32(sk));
+  const uint64_t d_v = smem_desc(smem_u32(sv));
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    const uint32_t q_addr = smem_u32(smem + (2 + 2 * s) * kTileBytes);
+    const uint64_t d_q = smem_desc(q_addr);
+    const uint64_t d_do = smem_desc(q_addr + kTileBytes);
+    const float* st_stat = stat + s * kStatFloats;
+
+    // ---- S^T = k q^T and dP^T = v dO^T, fp32, two groups
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    fence_acc(sc);
+    fence_acc(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss(sc, d_k + 2 * kk, d_q + 2 * kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss(dp, d_v + 2 * kk, d_do + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(sc);
+
+    // ---- P^T = exp(scale S^T - lse[col]); keys >= t_valid masked
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const float2 l =
+          *reinterpret_cast<const float2*>(st_stat + col(i, lane));
+      sc[i] = exp2f(fmaf(sc[i], scale_log2, -l.x));
+      sc[i + 1] = exp2f(fmaf(sc[i + 1], scale_log2, -l.y));
+    }
+    if (!all_keys_ok) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (!key_ok[row_half(i)]) sc[i] = 0.f;
+    }
+    uint32_t pa[kTileRows / 16][4];
+    pack_a(pa, sc);
+    wgmma_wait<0>();
+    fence_acc(dp);
+
+    // ---- dS^T = P^T (dP^T - delta[col])
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const float2 d = *reinterpret_cast<const float2*>(
+          st_stat + kTileRows + col(i, lane));
+      dp[i] = sc[i] * (dp[i] - d.x);
+      dp[i + 1] = sc[i + 1] * (dp[i + 1] - d.y);
+    }
+    uint32_t da[kTileRows / 16][4];
+    pack_a(da, dp);
+
+    // ---- dv += bf16(P^T) dO, dk += bf16(dS^T) q
+    fence_acc(acc_v);
+    fence_acc(acc_k);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kTileRows / 16; ++c)  // +16 q rows = +2048 bytes
+      wgmma_rs(acc_v, pa[c], d_do + 128 * c);
+#pragma unroll
+    for (int c = 0; c < kTileRows / 16; ++c)
+      wgmma_rs(acc_k, da[c], d_q + 128 * c);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc_v);
+    fence_acc(acc_k);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  const int n_tiles = (T + kTile - 1) / kTile;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int q0 = tile * kTile;
-    __syncthreads();  // previous tile (or the K/V staging) consumed
-    load_tile(q + base, q0, T, scale, sQ, sQt);
-    load_tile(dout + base, q0, T, 1.f, sDO, sDOt);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      sLse[threadIdx.x] = row < T ? lse[rbase + row] : 0.f;
-      sDelta[threadIdx.x] = row < T ? delta[rbase + row] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    mma_rows(s, ka, sQ, g, t);    // S^T = k q_s^T   [key][row]
-    mma_rows(dp, va, sDO, g, t);  // dP^T = v dO^T   [key][row]
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = nt * 8 + t * 2 + (j & 1);  // q row within the tile
-        const float p = (key_ok[j >> 1] && q0 + c < T)
-                            ? expf(s[nt][j] - sLse[c]) : 0.f;
-        s[nt][j] = p;                           // P^T
-        dp[nt][j] = p * (dp[nt][j] - sDelta[c]);  // dS^T
-      }
-    }
-    mma_acc(acc_v, s, sDOt, g, t);  // dv += bf16(P^T) dO
-    mma_acc(acc_k, dp, sQt, g, t);  // dk += bf16(dS^T) q
+  // ---- epilogue: dk * scale and dv in bf16, staged in the k and v tiles'
+  // shared memory, two TMA stores that clip rows past T
+  named_bar_sync(1, 128);  // every warp's products are done reading k, v
+  stage_tile(sk, acc_k, scale, warp, lane);
+  stage_tile(sv, acc_v, 1.f, warp, lane);
+  fence_proxy_async();
+  named_bar_sync(1, 128);
+  if (threadIdx.x == 0) {
+    tma_store_4d(&tma_dk, sk, 0, h, k0, b);
+    tma_store_4d(&tma_dv, sv, 0, h, k0, b);
+    tma_store_flush();
   }
-  store_rows(dk + base, acc_k, k0 + r0, T, scale, g, t);
-  store_rows(dv + base, acc_v, k0 + r0, T, 1.f, g, t);
 }
 
-bool bad_args(int bh, int T, int t_valid, int d) {
-  return d != kD || bh <= 0 || bh > 65535 || T <= 0 || t_valid <= 0 ||
-         t_valid > T;
+bool bad_args(int b, int h, int T, int t_valid, int d) {
+  return d != kD || b <= 0 || b > 65535 || h <= 0 || h > 65535 || T <= 0 ||
+         t_valid <= 0 || t_valid > T;
+}
+
+// Maps of contiguous [b, T, h, 64] outputs.
+int encode_out(CUtensorMap* map, void* p, int b, int T, int h) {
+  return encode_bthd(map, p, b, T, h, (long long)T * h * kD, (long long)h * kD,
+                     kD);
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  done = true;
+  return 0;
+}
+
+float log2_scale(float scale) {
+  return (float)((double)scale * 1.4426950408889634);
 }
 
 }  // namespace
 
-// Each launches on `stream` and returns the cudaError_t of the launch
-// (0 on success).
-extern "C" int occm_flash_attn_bwd_dq(const void* q, const void* k,
-                                      const void* v, const void* dout,
-                                      const void* lse, const void* delta,
-                                      void* dq, int bh, int T, int t_valid,
-                                      int d, float scale, void* stream) {
-  if (bad_args(bh, T, t_valid, d)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + kTile - 1) / kTile, bh);
-  flash_attn_bwd_dq_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, (const float*)lse,
-      (const float*)delta, (__nv_bfloat16*)dq, T, t_valid, scale);
+// q, k, v, out, dout: [b, T, h, d] bf16, d = 64 contiguous, element strides
+// (sb, st, sh) each, multiples of 8, 16-byte aligned; lse: [b * h, T] fp32
+// from the forward; delta: [b * h, T] fp32, written; dq: [b, T, h, d] bf16
+// contiguous, written. Keys at index >= t_valid are masked. One launch on
+// `stream`. Returns 0, a cudaError_t, or -1 / -1000 - CUresult when a TMA
+// descriptor cannot be made.
+extern "C" int occm_flash_attn_bwd_dq(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* delta, void* dq, int b, int h,
+    int T, int t_valid, int d, long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_st, long long k_sh, long long v_sb,
+    long long v_st, long long v_sh, long long o_sb, long long o_st,
+    long long o_sh, long long do_sb, long long do_st, long long do_sh,
+    float scale, void* stream) {
+  if (bad_args(b, h, T, t_valid, d) || bad_strides(q, q_sb, q_st, q_sh) ||
+      bad_strides(k, k_sb, k_st, k_sh) || bad_strides(v, v_sb, v_st, v_sh) ||
+      bad_strides(out, o_sb, o_st, o_sh) ||
+      bad_strides(dout, do_sb, do_st, do_sh) ||
+      (reinterpret_cast<uintptr_t>(dq) & 15))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mo, mdo, mdq;
+  int err = encode_bthd(&mq, q, b, T, h, q_sb, q_st, q_sh);
+  if (!err) err = encode_bthd(&mk, k, b, T, h, k_sb, k_st, k_sh);
+  if (!err) err = encode_bthd(&mv, v, b, T, h, v_sb, v_st, v_sh);
+  if (!err) err = encode_bthd(&mo, out, b, T, h, o_sb, o_st, o_sh);
+  if (!err) err = encode_bthd(&mdo, dout, b, T, h, do_sb, do_st, do_sh);
+  if (!err) err = encode_out(&mdq, dq, b, T, h);
+  if (err) return err;
+  static bool smem_set = false;
+  err = set_smem(flash_attn_bwd_dq_kernel, kDqSmem, smem_set);
+  if (err) return err;
+  const dim3 grid((T + kTileRows - 1) / kTileRows, h, b);
+  flash_attn_bwd_dq_kernel<<<grid, kThreads, kDqSmem, (cudaStream_t)stream>>>(
+      mq, mk, mv, mo, mdo, mdq, (const float*)lse, (float*)delta, T, t_valid,
+      scale, log2_scale(scale));
   return (int)cudaGetLastError();
 }
 
-extern "C" int occm_flash_attn_bwd_dkv(const void* q, const void* k,
-                                       const void* v, const void* dout,
-                                       const void* lse, const void* delta,
-                                       void* dk, void* dv, int bh, int T,
-                                       int t_valid, int d, float scale,
-                                       void* stream) {
-  if (bad_args(bh, T, t_valid, d)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + kTile - 1) / kTile, bh);
-  flash_attn_bwd_dkv_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, (const float*)lse,
-      (const float*)delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, T, t_valid,
-      scale);
+// q, k, v, dout as for occm_flash_attn_bwd_dq; lse and delta: [b * h, T]
+// fp32 (delta as occm_flash_attn_bwd_dq wrote it, earlier on `stream`);
+// dk, dv: [b, T, h, d] bf16 contiguous, written. One launch on `stream`;
+// returns as occm_flash_attn_bwd_dq does.
+extern "C" int occm_flash_attn_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int b, int h,
+    int T, int t_valid, int d, long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_st, long long k_sh, long long v_sb,
+    long long v_st, long long v_sh, long long do_sb, long long do_st,
+    long long do_sh, float scale, void* stream) {
+  if (bad_args(b, h, T, t_valid, d) || bad_strides(q, q_sb, q_st, q_sh) ||
+      bad_strides(k, k_sb, k_st, k_sh) || bad_strides(v, v_sb, v_st, v_sh) ||
+      bad_strides(dout, do_sb, do_st, do_sh) ||
+      (reinterpret_cast<uintptr_t>(dk) & 15) ||
+      (reinterpret_cast<uintptr_t>(dv) & 15))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+  int err = encode_bthd(&mq, q, b, T, h, q_sb, q_st, q_sh);
+  if (!err) err = encode_bthd(&mk, k, b, T, h, k_sb, k_st, k_sh);
+  if (!err) err = encode_bthd(&mv, v, b, T, h, v_sb, v_st, v_sh);
+  if (!err) err = encode_bthd(&mdo, dout, b, T, h, do_sb, do_st, do_sh);
+  if (!err) err = encode_out(&mdk, dk, b, T, h);
+  if (!err) err = encode_out(&mdv, dv, b, T, h);
+  if (err) return err;
+  static bool smem_set = false;
+  err = set_smem(flash_attn_bwd_dkv_kernel, kDkvSmem, smem_set);
+  if (err) return err;
+  const dim3 grid((T + kTileRows - 1) / kTileRows, h, b);
+  flash_attn_bwd_dkv_kernel<<<grid, kThreads, kDkvSmem,
+                              (cudaStream_t)stream>>>(
+      mq, mk, mv, mdo, mdk, mdv, (const float*)lse, (const float*)delta, T,
+      t_valid, scale, log2_scale(scale));
   return (int)cudaGetLastError();
 }

@@ -58,69 +58,19 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "sm90.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
-constexpr int kD = 64;        // head dim
-constexpr int kBM = 64;       // q rows per block: one consumer warpgroup
-constexpr int kBN = 64;       // keys per kv tile
-constexpr int kStages = 2;    // k/v ring depth
-constexpr int kThreads = 160; // warpgroup 0 computes, warp 4 loads
-constexpr int kTileBytes = kBM * kD * 2;  // one 64 x 64 bf16 tile: 8 KB
+constexpr int kBM = kTileRows;  // q rows per block: one consumer warpgroup
+constexpr int kBN = kTileRows;  // keys per kv tile
+constexpr int kStages = 2;      // k/v ring depth
+constexpr int kThreads = 160;   // warpgroup 0 computes, warp 4 loads
 // q tile, then per stage a k and a v tile, + 1 KB to align the tiles to the
 // 128-byte swizzle's 1024-byte period, + the mbarriers
 constexpr int kSmem =
     (1 + 2 * kStages) * kTileBytes + 1024 + (2 * kStages + 1) * 8;
 constexpr float kMasked = -1e30f;
-
-// d[64 x 64] (fp32, this warpgroup's fragment) += A[64 x 16] B[16 x 64],
-// A and B both K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));  // scale-d = 1: d += a b
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (this thread's four
-// bf16x2 of the m16n8k16-shaped fragment of its warp's 16 rows), B MN-major
-// in shared memory (transpose bit set)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// The accumulator fragment of wgmma m64nNk16 (fp32): register i of a thread
-// holds row warp * 16 + lane / 4 + 8 * row_half(i), column col(i).
-__device__ __forceinline__ int row_half(int i) { return (i >> 1) & 1; }
-__device__ __forceinline__ int col(int i, int lane) {
-  return (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
-}
 
 // grid (ceil(T / 64), H, B)
 __global__ void __launch_bounds__(kThreads, 3)
@@ -131,8 +81,7 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
                       float* __restrict__ lse, int T, int t_valid,
                       float scale, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* smem = align_1024(smem_raw);
   unsigned char* sq = smem;  // the q tile, then the epilogue's out tile
   uint64_t* full =
       reinterpret_cast<uint64_t*>(smem + (1 + 2 * kStages) * kTileBytes);
@@ -236,13 +185,7 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
     // ---- o += bf16(P) v: the S fragments of key columns 16c .. 16c + 15
     // are the A fragment of k-step c
     uint32_t pa[kBN / 16][4];
-#pragma unroll
-    for (int c = 0; c < kBN / 16; ++c) {
-      pa[c][0] = pack_bf16(sc[8 * c + 0], sc[8 * c + 1]);
-      pa[c][1] = pack_bf16(sc[8 * c + 2], sc[8 * c + 3]);
-      pa[c][2] = pack_bf16(sc[8 * c + 4], sc[8 * c + 5]);
-      pa[c][3] = pack_bf16(sc[8 * c + 6], sc[8 * c + 7]);
-    }
+    pack_a(pa, sc);
     fence_acc(o);
     wgmma_fence();
 #pragma unroll
@@ -268,8 +211,8 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
     const int row = warp * 16 + (lane >> 2) + 8 * row_half(i);
     const int c = col(i, lane);
     const float l = l_run[row_half(i)];
-    *reinterpret_cast<uint32_t*>(sq + row * 128 + (((c >> 3) ^ (row & 7)) << 4) +
-                                 (c & 7) * 2) = pack_bf16(o[i] / l, o[i + 1] / l);
+    *reinterpret_cast<uint32_t*>(sq + swizzled(row, c)) =
+        pack_bf16(o[i] / l, o[i + 1] / l);
   }
   fence_proxy_async();
   named_bar_sync(1, 128);
@@ -286,23 +229,6 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
             m_run[r] * scale + logf(fmaxf(l_run[r], 1e-30f));
     }
   }
-}
-
-// A [B, T, H, 64] bf16 tensor with element strides sb, st, sh (D contiguous)
-// in boxes of 64 t x 64 d of one (b, h).
-int encode_bthd(CUtensorMap* map, const void* ptr, int b, int t, int h,
-                long long sb, long long st, long long sh) {
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)h, (cuuint64_t)t,
-                              (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kD, 1, (cuuint32_t)kBM, 1};
-  return encode_bf16(map, ptr, 4, dims, strides, box);
-}
-
-bool bad_strides(const void* p, long long sb, long long st, long long sh) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) || sb <= 0 || st <= 0 ||
-         sh <= 0 || (sb | st | sh) & 7;
 }
 
 }  // namespace

@@ -130,11 +130,13 @@ def load() -> ctypes.CDLL:
                 p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll,
                 ll, ctypes.c_float, p]
             lib.occm_flash_attn_fwd.restype = i
+            # pointers, (b, h, T, t_valid, d), strides (sb, st, sh) of
+            # each [b, T, h, d] input, scale, stream
             lib.occm_flash_attn_bwd_dq.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+                *[p] * 8, *[i] * 5, *[ll] * 15, ctypes.c_float, p]
             lib.occm_flash_attn_bwd_dq.restype = i
             lib.occm_flash_attn_bwd_dkv.argtypes = [
-                p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+                *[p] * 8, *[i] * 5, *[ll] * 12, ctypes.c_float, p]
             lib.occm_flash_attn_bwd_dkv.restype = i
             lib.occm_layernorm_bwd_scratch_bytes.argtypes = [i, i, i]
             lib.occm_layernorm_bwd_scratch_bytes.restype = ll

@@ -9,14 +9,18 @@ forward kernels (the whole-T `_fwd_kernel` and the blocked online-softmax
 `_blocked_fwd_kernel`; their split at T = 512 only existed for TPU VMEM).
 It reads q, k, v where the projections leave them and writes out
 contiguous as [B, T, H, D], so neither side needs a layout copy. Its
-backward launches the two kernels of `csrc/flash_attn_bwd.cu` (dq, then dk
-and dv) on [BH, T, D] copies, fed by the forward's lse; they replace the
-three TPU backward kernels (`_bwd_kernel`, `_blocked_dq_kernel`,
-`_blocked_dkv_kernel`). On a CPU
+backward launches the two kernels of `csrc/flash_attn_bwd.cu` (dq, which
+also computes δ = rowsum(dO ⊙ O), then dk and dv), fed by the forward's
+lse; they read q, k, v, out and dO in place the same way and write the
+gradients contiguous as [B, T, H, D]: two device launches a call and no
+copies. They replace the three TPU backward kernels (`_bwd_kernel`,
+`_blocked_dq_kernel`, `_blocked_dkv_kernel`). On a CPU
 tensor the same Function runs `flash_attention_reference` and
 `flash_attention_bwd_reference`, the kernels' plain PyTorch versions: same
 masking, scale folding and dtype casts. A tensor on any other device
-raises; nothing falls back from a kernel to its plain version.
+raises; nothing falls back from a kernel to its plain version. The CUDA
+kernels take bf16 with head dim 64 (`cuda_kernel_takes`) and raise on
+anything else.
 
 For every T the port casts the unnormalised probabilities to bf16 before
 P·V and divides by the row sum afterwards, as the blocked TPU kernel does;
@@ -37,6 +41,15 @@ import torch
 LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
+#: copies of a CUDA dO whose strides the backward's TMA maps cannot read
+#: (an expanded stride 0, say), made before the backward kernels
+BWD_DOUT_COPIES = 0
+
+
+def cuda_kernel_takes(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the CUDA kernels take q, k, v of this dtype and head dim
+    (bf16 with D = 64 only; on a CPU tensor the plain version takes any)."""
+    return dtype == torch.bfloat16 and head_dim == 64
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -61,22 +74,40 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, H, D] -> [B * H, T, D] (a copy)."""
+    B, T, H, D = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B * H, T, D)
+
+
+def _strides(x: torch.Tensor, four_d: bool):
+    """(sb, st, sh, sd) of [B, T, H, D], or of [BH, T, D] read as B = BH,
+    H = 1 (its H stride given as D)."""
+    if four_d:
+        return x.stride()
+    (sb, st, sd), sh = x.stride(), x.shape[-1]
+    return sb, st, sh, sd
+
+
+def _tma_readable(x: torch.Tensor, four_d: bool) -> bool:
+    """Whether the kernels' TMA maps read x where it lies: the head dim
+    contiguous, 16-byte aligned, the other strides positive multiples of 8
+    elements."""
+    sb, st, sh, sd = _strides(x, four_d)
+    return (sd == 1 and x.data_ptr() % 16 == 0 and min(sb, st, sh) > 0
+            and sb % 8 == st % 8 == sh % 8 == 0)
+
+
 def _launch_args(x: torch.Tensor, four_d: bool):
     """(data_ptr, sb, st, sh) of a CUDA [B, T, H, D] tensor, or of [BH, T, D]
-    read as B = BH, H = 1 (its H stride given as D), as the kernel takes
-    them; raises ValueError for what its TMA maps cannot read."""
-    if four_d:
-        sb, st, sh, sd = x.stride()
-    else:
-        (sb, st, sd), sh = x.stride(), x.shape[-1]
-    ptr = x.data_ptr()
-    if sd != 1 or ptr % 16 or sb % 8 or st % 8 or sh % 8 or min(
-            sb, st, sh) <= 0:
+    read as B = BH, H = 1, as the kernels take them; raises ValueError for
+    what their TMA maps cannot read."""
+    if not _tma_readable(x, four_d):
         raise ValueError(
-            "the CUDA kernel takes q, k, v with the head dim contiguous, "
+            "the CUDA kernels take tensors with the head dim contiguous, "
             "16-byte aligned, and the other strides positive multiples of "
             f"8 elements; got strides {tuple(x.stride())}")
-    return ptr, sb, st, sh
+    return (x.data_ptr(), *_strides(x, four_d)[:3])
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -105,17 +136,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not four_d:
             return flash_attention_reference(q, k, v, t_valid)
         out, lse = flash_attention_reference(
-            *(x.permute(0, 2, 1, 3).reshape(B * H, T, D) for x in (q, k, v)),
-            t_valid)
+            *(_flat(x) for x in (q, k, v)), t_valid)
         return out.view(B, H, T, D).permute(0, 2, 1, 3).contiguous(), lse
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(f"the CUDA kernel takes bf16, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
-    if D != 64:
-        raise ValueError(f"the CUDA kernel takes head dim 64, got {D}")
+    if not (q.dtype == k.dtype == v.dtype
+            and cuda_kernel_takes(q.dtype, D)):
+        raise ValueError(
+            f"the CUDA kernel takes bf16 with head dim 64, got {q.dtype}, "
+            f"{k.dtype}, {v.dtype} with head dim {D}")
     qp, *qs = _launch_args(q, four_d)
     kp, *ks = _launch_args(k, four_d)
     vp, *vs = _launch_args(v, four_d)
@@ -135,17 +165,34 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def flash_attention_bwd_delta(o: torch.Tensor,
+                              do: torch.Tensor) -> torch.Tensor:
+    """δ = rowsum(dO ⊙ O) in fp32, as the TPU wrapper computes it for its
+    backward kernels: o, do [BH, T, D] or [B, T, H, D] -> [BH, T], the
+    layout of lse (the dq kernel computes the same and writes it there)."""
+    if o.dim() == 4:
+        o, do = _flat(o), _flat(do)
+    return torch.sum(do.float() * o.float(), dim=-1)
+
+
 def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, o: torch.Tensor,
                                   lse: torch.Tensor, do: torch.Tensor,
                                   t_valid: int):
-    """Plain version of the backward kernels: q, k, v, o, do [BH, T, D],
-    lse [BH, T] fp32 -> (dq, dk, dv) in q's dtype. Mirrors the blocked TPU
-    backward (`_blocked_p_ds`, `_blocked_dq_kernel`, `_blocked_dkv_kernel`):
+    """Plain version of the backward kernels: q, k, v, o, do of one shape,
+    [BH, T, D] or [B, T, H, D], lse [BH, T] fp32 -> (dq, dk, dv) of that
+    shape, contiguous, in q's dtype. Mirrors the blocked TPU backward
+    (`_blocked_p_ds`, `_blocked_dq_kernel`, `_blocked_dkv_kernel`):
     P = exp(S - lse) in fp32 from the scaled bf16 q, δ = rowsum(dO ⊙ O) in
     fp32, dS = P ⊙ (dO·Vᵀ − δ), P and dS cast to the input dtype before
     their products, fp32 accumulation, dq and dk times the scale (dk from
     the unscaled q); keys at index >= t_valid get no probability."""
+    if q.dim() == 4:
+        B, T, H, D = q.shape
+        grads = flash_attention_bwd_reference(
+            *(_flat(x) for x in (q, k, v, o)), lse, _flat(do), t_valid)
+        return tuple(g.view(B, H, T, D).permute(0, 2, 1, 3).contiguous()
+                     for g in grads)
     scale = 1.0 / math.sqrt(q.shape[-1])
     dt = q.dtype
     qs = (q.float() * scale).to(dt).float()
@@ -154,7 +201,7 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     col = torch.arange(logits.shape[-1], device=logits.device)
     logits = logits.masked_fill(col >= t_valid, -1e30)
     p = torch.exp(logits - lse[..., None])
-    delta = torch.sum(dof * o.float(), dim=-1, keepdim=True)
+    delta = flash_attention_bwd_delta(o, do)[..., None]
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
     p_lo, ds_lo = p.to(dt).float(), ds.to(dt).float()
     dv = torch.matmul(p_lo.transpose(-1, -2), dof)
@@ -166,24 +213,31 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, t_valid: int):
-    """The backward kernels' wrapper: (dq, dk, dv), each [BH, T, D].
+    """The backward kernels' wrapper: q, k, v, o, do of one shape, [BH, T, D]
+    or [B, T, H, D], lse [BH, T] fp32 -> (dq, dk, dv) of that shape,
+    contiguous, in q's dtype.
 
-    CUDA tensors launch `occm_flash_attn_bwd_dq` and then
-    `occm_flash_attn_bwd_dkv` on the current stream (bf16, D = 64,
-    contiguous), after δ = rowsum(dO ⊙ O) in fp32, as the TPU wrapper
-    computes it outside its kernels; CPU tensors take the plain version."""
+    CUDA tensors launch `occm_flash_attn_bwd_dq` (which computes
+    δ = rowsum(dO ⊙ O) in fp32, as the TPU wrapper does outside its
+    kernels, and writes it to a [BH, T] buffer) and then
+    `occm_flash_attn_bwd_dkv` (which reads it) on the current stream: bf16,
+    D = 64, every input read through its strides ([B, T, H, D] views of the
+    projections' output need no copy), two device launches and nothing
+    else. CPU tensors take the plain version."""
     global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
     tensors = (q, k, v, o, do)
     if len({x.device for x in tensors + (lse,)}) != 1:
         raise ValueError("flash attention backward: inputs on different "
                          "devices")
-    if q.dim() != 3 or any(x.shape != q.shape for x in tensors):
+    if q.dim() not in (3, 4) or any(x.shape != q.shape for x in tensors):
         raise ValueError(
-            f"expected q, k, v, o, do of one shape [BH, T, D], got "
-            f"{[tuple(x.shape) for x in tensors]}")
-    bh, T, d = q.shape
-    if lse.shape != (bh, T) or lse.dtype != torch.float32:
-        raise ValueError(f"expected lse [BH, T] fp32, got "
+            f"expected q, k, v, o, do of one shape [BH, T, D] or "
+            f"[B, T, H, D], got {[tuple(x.shape) for x in tensors]}")
+    four_d = q.dim() == 4
+    B, T, H, D = q.shape if four_d else (q.shape[0], q.shape[1], 1,
+                                         q.shape[2])
+    if lse.shape != (B * H, T) or lse.dtype != torch.float32:
+        raise ValueError(f"expected lse [BH, T] = [{B * H}, {T}] fp32, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     if not 1 <= t_valid <= T:
         raise ValueError(f"t_valid={t_valid} outside [1, {T}]")
@@ -192,37 +246,37 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
-    if any(x.dtype != torch.bfloat16 for x in tensors):
-        raise ValueError(f"the CUDA kernels take bf16, got "
-                         f"{[x.dtype for x in tensors]}")
-    if d != 64:
-        raise ValueError(f"the CUDA kernels take head dim 64, got {d}")
-    if not all(x.is_contiguous() for x in tensors + (lse,)):
-        raise ValueError("the CUDA kernels take contiguous inputs")
+    if not all(x.dtype == q.dtype for x in tensors) or not cuda_kernel_takes(
+            q.dtype, D):
+        raise ValueError(f"the CUDA kernels take bf16 with head dim 64, got "
+                         f"{[x.dtype for x in tensors]} with head dim {D}")
+    if not lse.is_contiguous():
+        raise ValueError("the CUDA kernels take a contiguous lse")
+    (qp, *qs), (kp, *ks), (vp, *vs), (op, *os_), (dop, *dos) = (
+        _launch_args(x, four_d) for x in tensors)
 
     from occm_tpu_torch.ops import _build
 
     lib = _build.load()
-    delta = torch.sum(do.float() * o.float(), dim=-1)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     stream = _build.raw_stream(q.device)
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(D)
     with _build.on_device(q.device):
         err = lib.occm_flash_attn_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, T, t_valid,
-            d, scale, stream)
+            qp, kp, vp, op, dop, lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), B, H, T, t_valid, D, *qs, *ks, *vs, *os_, *dos,
+            scale, stream)
         if err != 0:
-            raise RuntimeError(
-                f"occm_flash_attn_bwd_dq failed: cudaError_t {err}")
+            raise RuntimeError(f"occm_flash_attn_bwd_dq failed: error {err}")
         BWD_DQ_LAUNCHES += 1
         err = lib.occm_flash_attn_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, T, t_valid, d, scale, stream)
+            qp, kp, vp, dop, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, T, t_valid, D, *qs, *ks, *vs, *dos, scale,
+            stream)
         if err != 0:
-            raise RuntimeError(
-                f"occm_flash_attn_bwd_dkv failed: cudaError_t {err}")
+            raise RuntimeError(f"occm_flash_attn_bwd_dkv failed: error {err}")
         BWD_DKV_LAUNCHES += 1
     return dq, dk, dv
 
@@ -230,8 +284,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _FlashAttention(torch.autograd.Function):
     """[B, T, H, D] attention with the kernels on both passes. The forward
     reads q, k, v where they lie and saves them with out and lse; the
-    backward makes the [BH, T, D] copies the backward kernels take and
-    returns the gradients as [B, T, H, D] views of them."""
+    backward reads them, and dO, where they lie too, and returns the
+    kernels' contiguous [B, T, H, D] gradients."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -241,15 +295,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        global BWD_DOUT_COPIES
         q, k, v, out, lse = ctx.saved_tensors
-        B, T, H, D = q.shape
-
-        def flat(x):
-            return x.permute(0, 2, 1, 3).reshape(B * H, T, D).contiguous()
-
-        grads = flash_attention_bwd(flat(q), flat(k), flat(v), flat(out),
-                                    lse, flat(dout), T)
-        return tuple(g.view(B, H, T, D).permute(0, 2, 1, 3) for g in grads)
+        if dout.device.type == "cuda" and not _tma_readable(dout, True):
+            dout = dout.clone(memory_format=torch.contiguous_format)
+            BWD_DOUT_COPIES += 1
+        return flash_attention_bwd(q, k, v, out, lse, dout, q.shape[1])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

@@ -161,6 +161,8 @@ def test_flash_attention_gradients_match_pallas_kernels(T, B, H):
     out = attention.flash_attention(tq, tk, tv)
     got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == (B, T, H, 64) and a.is_contiguous(), name
+        assert a.reshape(B, T, H * 64).data_ptr() == a.data_ptr(), name
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4,
                                    rtol=1e-3, err_msg=name)
 
@@ -315,3 +317,87 @@ def test_launch_args_read_strided_views_and_reject_what_tma_cannot():
     for bad in (wide, shifted, qkv.transpose(-1, -2)[:, :, 0]):
         with pytest.raises(ValueError, match="16-byte"):
             attention._launch_args(bad, True)
+
+
+def _bwd_inputs(B, T, H, dtype, seed):
+    """q, k, v as [B, T, H, D] views of one [B, T, 3 * H * D] projection
+    buffer, out and lse from the forward, and dO, all in `dtype`."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(
+        rng.normal(size=(B, T, 3 * H * D)).astype(np.float32)).to(dtype)
+    q, k, v = qkv.view(B, T, 3, H, D).unbind(2)
+    out, lse = attention.flash_attention_fwd(q, k, v, T)
+    do = torch.from_numpy(
+        rng.normal(size=(B, T, H, D)).astype(np.float32)).to(dtype)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["contiguous", "views"])
+def test_backward_on_b_t_h_d_gives_the_bits_of_bh_t_d(layout, dtype):
+    """The backward wrapper on [B, T, H, D] (contiguous, or strided views of
+    a [B, T, 3 * H * D] buffer, as the kernels read them in place) returns
+    contiguous [B, T, H, D] gradients with the same bits as on [BH, T, D],
+    the case B = BH, H = 1."""
+    B, T, H = 2, 70, 3
+    q, k, v, out, lse, do = _bwd_inputs(B, T, H, dtype, seed=40)
+    if layout == "contiguous":
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    else:
+        assert not q.is_contiguous()
+    got = attention.flash_attention_bwd(q, k, v, out, lse, do, T)
+
+    def flat(x):
+        return x.permute(0, 2, 1, 3).reshape(B * H, T, D).contiguous()
+
+    want = attention.flash_attention_bwd(
+        *(flat(x) for x in (q, k, v, out)), lse, flat(do), T)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == (B, T, H, D) and a.is_contiguous(), name
+        assert a.dtype == dtype, name
+        assert torch.equal(flat(a), b), name
+
+
+def test_backward_delta_is_the_fp32_rowsum_in_the_layout_of_lse():
+    """δ = rowsum(dO ⊙ O) in fp32, [BH, T] rows ordered as lse's (b, h), on
+    [B, T, H, D] and on [BH, T, D]."""
+    B, T, H = 2, 33, 3
+    _, _, _, out, lse, do = _bwd_inputs(B, T, H, torch.bfloat16, seed=41)
+    delta = attention.flash_attention_bwd_delta(out, do)
+    assert delta.dtype == torch.float32 and delta.shape == lse.shape
+    want = (do.double() * out.double()).sum(-1).permute(0, 2, 1).reshape(
+        B * H, T)
+    torch.testing.assert_close(delta, want.float(), rtol=1e-6, atol=1e-6)
+    flat = attention.flash_attention_bwd_delta(
+        *(x.permute(0, 2, 1, 3).reshape(B * H, T, D) for x in (out, do)))
+    assert torch.equal(flat, delta)
+
+
+@pytest.mark.parametrize("dtype, head_dim, takes", [
+    (torch.bfloat16, 64, True), (torch.float32, 64, False),
+    (torch.bfloat16, 16, False), (torch.float32, 16, False),
+    (torch.float16, 64, False)])
+def test_cuda_kernel_takes_only_bf16_with_head_dim_64(dtype, head_dim,
+                                                      takes):
+    assert attention.cuda_kernel_takes(dtype, head_dim) is takes
+
+
+def test_backward_copies_only_a_dout_its_maps_cannot_read():
+    """dO of `out.sum()` is an expanded stride-0 tensor: the TMA maps cannot
+    read it (on a card the backward makes one counted contiguous copy); a
+    CPU backward takes it as it is and counts no copy."""
+    B, T, H = 1, 24, 2
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv((B, T, H, D), seed=42))
+    out = attention.flash_attention(q, k, v)
+    expanded = torch.ones(()).expand(out.shape)
+    assert not attention._tma_readable(expanded, True)
+    assert attention._tma_readable(expanded.contiguous(), True)
+    before = attention.BWD_DOUT_COPIES
+    out.sum().backward()
+    assert attention.BWD_DOUT_COPIES == before
+    want = torch.autograd.grad(
+        attention.reference_attention(q, k, v).sum(), (q, k, v))
+    for x, w in zip((q, k, v), want):
+        assert x.grad.is_contiguous()
+        torch.testing.assert_close(x.grad, w, rtol=1e-4, atol=1e-5)

@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, one CUDA card
     python3 chip_smoke.py --profile       # every phase + device time by kernel
     python3 chip_smoke.py --kernels-only  # phases 1-3 only
+    python3 chip_smoke.py --controls-only # phases 1, 2 and 8 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -73,10 +74,38 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    batches in the plain configuration (xla attention, LayerNorm and FFN,
    torch Adam). Checks each kernel's launches per step and the per-step
    losses within a stated bound; prints step times and peak memory.
-8. with --profile only: device time by kernel (torch.profiler) for full
+8. the training controls at full width (12 x 6 s, flash attention,
+   ln_impl and ffn_impl "pallas", remat, AASIST dropouts zeroed unless
+   said), each against the eager loop from the same weights and batches
+   under deterministic algorithms, with loss bounds derived in
+   `loss_bound` from two backward passes:
+   - steps_per_dispatch = 3 over 6 batches (2 chunks) with fused_adam:
+     one CUDA graph launch per chunk, the capture recording 3 x each
+     kernel's launches of an eager step, the profiler's device launches
+     per step equal for eager, a graph of 1 step and a graph of 3 steps;
+     step wall ms, device-busy share (the union of the device events'
+     intervals over the host window), capture time and peak memory;
+   - the same with adam under a cosine schedule (warmup 1, decay 5): the
+     lr each captured step read, back from the device, is the schedule's;
+   - the same with adam and AASIST's default dropouts: every loss and the
+     final weights bit for bit (fresh masks on every replay);
+   - grad_accum = 2 at groups_per_step = 2: on two meta-batches equal to
+     its definition (the mean of the two meta-batches' own gradients), on
+     one meta-batch twice equal to the 24-utterance step (the gradient the
+     update read within LOSS_RTOL of its norm, each updated weight within
+     the bound that Adam's first update gives from the two gradients);
+     each kernel twice its per-micro-batch count;
+   - resume through `oc_training.main` (--checkpoint_every_steps 2, the
+     CLI's default model with dropout on): SIGTERM from the on_step hook
+     after step 2 saves and returns, --resume finishes the epoch bit for
+     bit as an uninterrupted run, and the step-2 checkpoint is replaced
+     and deleted; then the same with --steps_per_dispatch 3 (SIGTERM
+     after the first chunk), again bit for bit as the eager run;
+   - the bytes of dropout masks that remat holds with every XLSR rate on.
+9. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-9. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
+10. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -84,6 +113,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -624,7 +654,7 @@ def phase_fused_adam():
     from occm_tpu_torch.models import AModel
     from occm_tpu_torch.ops import fused_adam
     from occm_tpu_torch.ops.fused_adam import (
-        FusedAdam, adam_reference, bias_corrections)
+        FusedAdam, adam_reference, bias_corrections_of)
     from occm_tpu_torch.utils import random_init_
 
     odd_err = phase_fused_adam_odd_leaves()
@@ -650,7 +680,11 @@ def phase_fused_adam():
     if fused_adam.LAUNCHES - before != 1:
         fail(f"fused_adam: a step over {len(params)} leaves made "
              f"{fused_adam.LAUNCHES - before} launches, want 1")
-    inv_bc1, inv_bc2 = bias_corrections(3, opt.b1, opt.b2)
+    # the kernel read its step count (3) from the device; the plain version
+    # computes the corrections from the same tensor
+    if opt.count != 3:
+        fail(f"fused_adam: step count {opt.count} after a step from 2")
+    inv_bc1, inv_bc2 = bias_corrections_of(opt.count_t, opt.b1, opt.b2)
     err = 0.0
     for (p0, m0, v0), p, m_, v_, g_ in zip(ref, params, opt.mu, opt.nu,
                                            grads):
@@ -704,7 +738,7 @@ def phase_fused_adam_odd_leaves() -> float:
 
     from occm_tpu_torch.ops import fused_adam
     from occm_tpu_torch.ops.fused_adam import (
-        FusedAdam, adam_reference, bias_corrections)
+        FusedAdam, adam_reference, bias_corrections_of)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     shapes = [(1,), (3,), (1027,), (2 * fused_adam.CHUNK + 3,), (64, 128),
@@ -731,7 +765,7 @@ def phase_fused_adam_odd_leaves() -> float:
     torch.cuda.synchronize()
     if fused_adam.LAUNCHES - before != 1:
         fail("fused_adam odd leaves: not one launch")
-    inv_bc1, inv_bc2 = bias_corrections(3, opt.b1, opt.b2)
+    inv_bc1, inv_bc2 = bias_corrections_of(opt.count_t, opt.b1, opt.b2)
     err = 0.0
     for (p0, m0, v0), p, m_, v_, g_ in zip(ref, params, opt.mu, opt.nu,
                                            grads):
@@ -1426,15 +1460,10 @@ def reset_counts():
 
 
 def read_counts():
-    from occm_tpu_torch.ops import attention, ffn, fused_adam, layernorm
+    from occm_tpu_torch.ops import attention, launch_counts
 
-    return {"flash_attn_fwd": attention.LAUNCHES,
-            "flash_attn_bwd_dq": attention.BWD_DQ_LAUNCHES,
-            "flash_attn_bwd_dkv": attention.BWD_DKV_LAUNCHES,
-            "flash_attn_bwd_dout_copies": attention.BWD_DOUT_COPIES,
-            "layernorm_bwd": layernorm.LAUNCHES,
-            "fused_adam": fused_adam.LAUNCHES,
-            "ffn_fwd": ffn.LAUNCHES}
+    return {**launch_counts(),
+            "flash_attn_bwd_dout_copies": attention.BWD_DOUT_COPIES}
 
 
 class StepRecorder:
@@ -1668,6 +1697,767 @@ def phase_train(workdir: str, fixture, profile: bool):
     return launches
 
 
+# ------------------------------------------------------------------ phase 8
+
+CONTROL_K = 3   # steps per dispatch (one CUDA graph launch per chunk)
+RESUME_EVERY = 2
+# device kernels of each wrapper count: ffn_fwd makes two launches a call
+KERNEL_NAMES = {"flash_attn_fwd": ("flash_attn_fwd_kernel", 1),
+                "flash_attn_bwd_dq": ("flash_attn_bwd_dq_kernel", 1),
+                "flash_attn_bwd_dkv": ("flash_attn_bwd_dkv_kernel", 1),
+                "layernorm_bwd": ("layernorm_bwd_kernel", 1),
+                "fused_adam": ("fused_adam_kernel", 1),
+                "ffn_fwd": ("ffn_gemm_kernel", 2)}
+
+
+def union_us(intervals) -> float:
+    """Length of the union of [start, end] intervals (us): the time at
+    least one of them covers, so that overlapping events count once."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (0.0 if cur_e is None else cur_e - cur_s)
+
+
+def profile_steps(fn, steps: int, label: str, want, tries: int = 3):
+    """torch.profiler around fn() (which runs `steps` optimizer steps,
+    ending in a synchronize): per step the host window, the device busy
+    time (the union of the device events' intervals: the time at least
+    one kernel, copy or set ran) and its share of the window, the device
+    events' summed durations (larger than busy where they overlap), all
+    device launches, and each wrapper's kernels by name, which must equal
+    `want` (per step). A session that lost records (see device_ms) is
+    repeated, up to `tries` sessions in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        summed_us, spans = 0.0, []
+        by_kernel = dict.fromkeys(KERNEL_NAMES, 0)
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+            summed_us += e.time_range.elapsed_us()
+            for key, (name, _) in KERNEL_NAMES.items():
+                if name in e.name:
+                    by_kernel[key] += 1
+        busy_ms = union_us(spans) / 1e3
+        row = dict(window_ms=window_ms / steps, busy_ms=busy_ms / steps,
+                   busy_share=busy_ms / window_ms,
+                   summed_ms=summed_us / 1e3 / steps,
+                   launches=len(spans) / steps,
+                   kernels={k: n / steps for k, n in by_kernel.items()})
+        print(f"[controls] profile {label}: {row['window_ms']:.3f} ms/step "
+              f"host window, device busy {row['busy_ms']:.3f} ms/step "
+              f"({row['busy_share']:.3f} of the window; device events' "
+              f"summed durations {row['summed_ms']:.3f} ms/step), "
+              f"{row['launches']:.1f} device launches/step, port kernels/"
+              f"step {row['kernels']}", flush=True)
+        if row["kernels"] == want:
+            return row
+        print(f"[profile] session {attempt} of {tries} for {label}: port "
+              f"kernels/step {row['kernels']}, want {want}",
+              file=sys.stderr, flush=True)
+    fail(f"controls: profile {label} never showed the port's kernels "
+         f"{want} a step")
+
+
+class ChunkRecorder:
+    """on_step hook of a graph run: per dispatch its wall ms (after a
+    synchronize), its steps' losses and lrs (host reads), and the kernel
+    wrappers' launch deltas."""
+
+    def __init__(self):
+        import torch
+
+        from occm_tpu_torch.ops import launch_counts
+
+        self.counts = launch_counts
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        self.last = launch_counts()
+        self.dispatches = []
+
+    def __call__(self, step, metrics):
+        import torch
+
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = self.counts()
+        self.dispatches.append(dict(
+            step=step, ms=(now - self.t0) * 1e3,
+            losses=[float(v) for v in metrics["step_loss"]],
+            lrs=[float(v) for v in metrics["step_lr"]],
+            launches={k: counts[k] - self.last[k] for k in counts}))
+        self.t0, self.last = now, counts
+
+
+def loss_bound(loss: float, k: int, lr: float, flip_l1: float,
+               g_l1: float) -> float:
+    """Bound on |loss difference| at step k (1-based) of two runs of the
+    same kernels from the same weights on the same batches, both under
+    deterministic algorithms: the step-1 forward is the same computation
+    (1e-6 relative for the order of its fp32 sums); each update before
+    step k may differ where two backward passes give a gradient of
+    opposite sign (Adam's first update is lr * sign(g): those weights
+    differ by 2 lr, first-order loss effect 2 lr * flip_l1, flip_l1 the L1
+    of such gradients, measured from two backward passes; 0 when the
+    backward is deterministic) and by the fp32 rounding of the update (at
+    most 2^-20 of lr per weight: 2 lr 2^-20 g_l1, with g_l1 the
+    gradient's L1)."""
+    return 1e-6 * abs(loss) + 2.0 * (k - 1) * lr * (flip_l1
+                                                    + 2.0 ** -20 * g_l1)
+
+
+def mask_memory() -> dict:
+    """Bytes of dropout masks that remat holds until the backward (the
+    masks are the rematerialised layers' inputs), drawn on the card by the
+    port's own `draw_masks` for one meta-batch of 12 at the full width with
+    every XLSR rate non-zero and plain attention (its probabilities are
+    masked too), at the CLI's default cut and at phase 8's."""
+    import dataclasses
+
+    import torch
+
+    from occm_tpu_torch.config import TrainConfig, XLSRConfig
+    from occm_tpu_torch.models.xlsr import TransformerLayer
+
+    cfg = dataclasses.replace(XLSRConfig(), attention_impl="xla",
+                              dropout=0.1, attention_dropout=0.1,
+                              activation_dropout=0.1)
+    layer = TransformerLayer(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    out = {}
+    for cut in (TrainConfig().cut, TRAIN_CUT):
+        t = cut
+        for _, kernel, stride in cfg.conv_layers:
+            t = (t - kernel) // stride + 1
+        x = torch.empty(TRAIN_B, t, cfg.encoder_embed_dim, device=DEVICE)
+        masks = layer.draw_masks(x, "xla", gen)
+        per_layer = sum(m.numel() * m.element_size() for m in masks)
+        attn = masks[0].numel() * masks[0].element_size()
+        out[cut] = dict(T=t, layer_mib=per_layer / 2**20,
+                        attention_mib=attn / 2**20,
+                        total_mib=cfg.encoder_layers * per_layer / 2**20)
+        del x, masks
+    print(f"[controls] dropout masks held under remat, 12 utterances, every "
+          f"XLSR rate on, plain attention: {out} (none at the default rates "
+          "of 0)", flush=True)
+    return out
+
+
+def wall_ms(fn, steps: int) -> float:
+    """Host wall ms per optimizer step of fn() (which runs `steps` steps),
+    between two synchronizes."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def phase_train_controls(workdir: str, fixture):
+    """Phase 8: the training controls at full width (12 x 6 s meta-batches,
+    flash attention, ln_impl and ffn_impl "pallas", remat, AASIST dropouts
+    zeroed unless said), each against the eager loop from the same weights
+    and batches: steps_per_dispatch = 3 as one CUDA graph per chunk with
+    fused_adam, with adam under a cosine schedule, and with adam and
+    AASIST's default dropouts (bit for bit), all under deterministic
+    algorithms, so that the two runs may be held to each other; the
+    step's wall time, device-busy share and device launches eager and as
+    graphs of 1 and 3 steps (default algorithms); grad_accum = 2; resume
+    through the CLI after a SIGTERM, eager and as graphs; the dropout
+    masks' memory under remat. Returns the kernel wrappers' launches of
+    the phase, the graphs' replayed launches, and the measurements."""
+    import dataclasses
+
+    import torch
+
+    from occm_tpu_torch.config import (
+        AASISTConfig, RawBoostConfig, TrainConfig, XLSRConfig)
+    from occm_tpu_torch.data import MetaBatchPipeline, PFDataset
+    from occm_tpu_torch.losses import group_one_class_loss
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.ops import launch_counts
+    from occm_tpu_torch.train import create_train_state, train
+    from occm_tpu_torch.train.graph import GraphedSteps
+    from occm_tpu_torch.train.loop import train_step
+    from occm_tpu_torch.utils.logging import MetricsLogger
+
+    protocol, train_dir, voc_dir = fixture
+    t_phase = time.perf_counter()
+    dataset = PFDataset(protocol, dataset_dir=train_dir, vocoded_dir=voc_dir,
+                        cut=TRAIN_CUT, seed=0)
+    batches = list(MetaBatchPipeline(dataset, seed=0).epoch(0))
+    if len(batches) != 2 * CONTROL_K:
+        fail(f"controls: {len(batches)} batches, want {2 * CONTROL_K}")
+    acfg = AASISTConfig(dropout=0.0, pool_dropout=0.0, head_dropout=0.0)
+    xcfg = XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
+                      attention_impl="flash")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        init = AModel(acfg, xcfg).state_dict()
+    base = TrainConfig(cut=TRAIN_CUT, compactness_weight=0.1,
+                       descriptiveness_weight=0.9, log_every=1,
+                       rawboost=RawBoostConfig(algo=0))
+    layers = XLSRConfig().encoder_layers
+    per_step = {"flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
+                "flash_attn_bwd_dkv": layers, "layernorm_bwd": 2 * layers,
+                "fused_adam": 1, "ffn_fwd": 2 * layers}
+
+    def model_from_init(aasist=acfg):
+        model = AModel(aasist, xcfg)
+        model.load_state_dict(init)
+        return model
+
+    def logger():
+        return MetricsLogger(None, None)
+
+    launches = dict.fromkeys(per_step, 0)
+    graph_launches = dict.fromkeys(per_step, 0)
+    timing = {}
+
+    # ---- graph against eager, under deterministic algorithms
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        # two backward passes at the initial weights on batch 0: where
+        # their gradients disagree in sign (flip_l1), and the gradient's L1
+        # (the loss bounds' inputs)
+        grads = []
+        for _ in range(2):
+            model = model_from_init().to(DEVICE).train()
+            x0 = torch.from_numpy(batches[0][0]).to(DEVICE)
+            emb, logits = model(x0, generator=torch.Generator(device=DEVICE))
+            loss0, _ = group_one_class_loss(
+                emb, logits, torch.from_numpy(batches[0][1]).to(DEVICE), 0.1,
+                0.9)
+            loss0.backward()
+            grads.append([p.grad for p in model.parameters()])
+            del model, emb, logits, loss0
+        flip_l1 = g_l1 = 0.0
+        for ga, gb in zip(*grads):
+            if ga is not None:
+                flip = torch.sign(ga) != torch.sign(gb)
+                flip_l1 += float(((ga.abs() + gb.abs()) * flip).sum())
+                g_l1 += float(ga.abs().sum())
+        del grads
+        torch.cuda.empty_cache()
+        print(f"[controls] two backward passes at the initial weights "
+              f"(deterministic algorithms): sign-flip L1 {flip_l1:.6g}, "
+              f"gradient L1 {g_l1:.6g}", flush=True)
+
+        def graph_vs_eager(name, cfg, aasist=acfg, exact=False):
+            """6 eager steps, then the same 6 steps as 2 chunks of 3
+            through one CUDA graph, from the same weights and dropout
+            generator seed; each step's loss within loss_bound, or equal
+            bit for bit when `exact`. Returns the graph run's
+            dispatches."""
+            eager_cfg = dataclasses.replace(cfg, steps_per_dispatch=1)
+            graph_cfg = dataclasses.replace(cfg,
+                                            steps_per_dispatch=CONTROL_K)
+            each = {**per_step,
+                    "fused_adam": int(cfg.optimizer == "fused_adam")}
+            reset_counts()
+            eager_state = create_train_state(
+                model_from_init(aasist).to(DEVICE), eager_cfg)
+            rec = StepRecorder()
+            for x, labels in batches:
+                rec(eager_state.step + 1, train_step(
+                    eager_state, torch.from_numpy(x).to(DEVICE),
+                    torch.from_numpy(labels).to(DEVICE), eager_cfg))
+            eager_weights = {n: t.detach().clone() for n, t
+                             in eager_state.model.state_dict().items()
+                             } if exact else {}
+            del eager_state
+            eager_counts = launch_counts()
+            check_steps(f"controls {name} eager", rec, {
+                **each, "flash_attn_bwd_dout_copies": 0})
+            torch.cuda.empty_cache()
+            before = launch_counts()
+            chunks = ChunkRecorder()
+            state = train(model_from_init(aasist), ListPipeline(batches),
+                          graph_cfg, logger=logger(), num_epochs=1,
+                          device=DEVICE, on_step=chunks)
+            after = launch_counts()
+            runner = state.graph
+            shapes = list(runner.capture_launches) if runner else []
+            if len(shapes) != 1:
+                fail(f"controls {name}: captured {shapes}, want one chunk "
+                     "shape")
+            captured = runner.capture_launches[shapes[0]]
+            if runner.replays != len(chunks.dispatches) or (
+                    runner.replays != 2):
+                fail(f"controls {name}: {runner.replays} graph launches "
+                     f"for {len(chunks.dispatches)} chunks, want one per "
+                     "chunk (2)")
+            for key, n in each.items():
+                # the capture recorded k steps' launches; the eager
+                # warm-up step before it launched one step's
+                if captured[key] != CONTROL_K * n:
+                    fail(f"controls {name}: the capture recorded "
+                         f"{captured[key]} {key} launches, want "
+                         f"{CONTROL_K} x {n}")
+                if after[key] - before[key] != (CONTROL_K + 1) * n:
+                    fail(f"controls {name}: {after[key] - before[key]} "
+                         f"{key} wrapper calls in the graph run, want "
+                         f"warm-up + capture = {(CONTROL_K + 1) * n}")
+                launches[key] += (after[key] - before[key]
+                                  + eager_counts[key])
+                graph_launches[key] += captured[key] * runner.replays
+            got = [v for d in chunks.dispatches for v in d["losses"]]
+            want = [st["loss"] for st in rec.steps]
+            if len(got) != len(want):
+                fail(f"controls {name}: {len(got)} graph steps, {len(want)} "
+                     "eager")
+            worst = 0.0
+            for i, (a, b) in enumerate(zip(got, want)):
+                bound = 0.0 if exact else loss_bound(b, i + 1, cfg.lr,
+                                                     flip_l1, g_l1)
+                diff = abs(a - b)
+                worst = max(worst, diff)
+                print(f"[controls] {name} step {i + 1}: loss graph "
+                      f"{a:.9f}, eager {b:.9f}, |diff| {diff:.3e} (bound "
+                      f"{bound:.3e})", flush=True)
+                if not (math.isfinite(a) and diff <= bound):
+                    fail(f"controls {name}: step {i + 1} graph loss {a} vs "
+                         f"eager {b}: |diff| {diff} > {bound}")
+            differ = [n for n, t in state.model.state_dict().items()
+                      if n in eager_weights
+                      and not torch.equal(t, eager_weights[n])]
+            if differ:
+                fail(f"controls {name}: the graph run's final weights differ "
+                     f"from the eager run's in {len(differ)} tensors, e.g. "
+                     f"{differ[:3]}")
+            del eager_weights
+            timing[name] = dict(
+                capture_s=runner.capture_seconds[shapes[0]],
+                max_loss_diff=worst, bit_identical=got == want)
+            print(f"[controls] {name}: largest |loss diff| {worst:.3e} "
+                  f"(bit-identical: {got == want}); graph launches "
+                  f"{runner.replays}, launches per replay {captured}, "
+                  f"capture {runner.capture_seconds[shapes[0]]:.2f} s",
+                  flush=True)
+            del state, runner
+            gc.collect()  # a state and its graph runner refer to each other
+            torch.cuda.empty_cache()
+            return chunks
+
+        graph_vs_eager("fused_adam k=3", dataclasses.replace(
+            base, optimizer="fused_adam"))
+        # adam under a cosine schedule: each step's lr read back
+        cos_cfg = dataclasses.replace(base, optimizer="adam",
+                                      lr_schedule="cosine", warmup_steps=1,
+                                      decay_steps=5)
+        achunks = graph_vs_eager("adam cosine k=3", cos_cfg)
+        # the CLI's model: AASIST's default dropouts, drawn in every step
+        # from the state's CUDA generator. A graph that replayed its
+        # capture's masks, or whose generator missed the replays' draws,
+        # would part from the eager run at the second chunk
+        graph_vs_eager("adam dropout k=3", dataclasses.replace(
+            base, optimizer="adam"), aasist=AASISTConfig(), exact=True)
+        from occm_tpu_torch.train.schedules import make_schedule
+
+        sched = make_schedule(cos_cfg)
+        lrs = [v for d in achunks.dispatches for v in d["lrs"]]
+        want_lrs = [sched(i) for i in range(2 * CONTROL_K)]
+        print(f"[controls] adam cosine: lr per step read from the device "
+              f"{lrs}, schedule {want_lrs}", flush=True)
+        if lrs != want_lrs:
+            fail(f"controls: the graph's lrs {lrs} are not the schedule's "
+                 f"{want_lrs}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # ---- the step eager, as a graph of 1 step and of 3 (fused_adam,
+    # default algorithms): wall ms (no profiler), then device busy share
+    # and device launches (torch.profiler)
+    cfg_f = dataclasses.replace(base, optimizer="fused_adam")
+    xs = np.stack([b[0] for b in batches[:CONTROL_K]])
+    ls = np.stack([b[1] for b in batches[:CONTROL_K]])
+    x1 = torch.from_numpy(xs[0]).to(DEVICE)
+    l1 = torch.from_numpy(ls[0]).to(DEVICE)
+    state = create_train_state(model_from_init().to(DEVICE), cfg_f)
+    torch.cuda.reset_peak_memory_stats()
+
+    def eager():
+        for _ in range(CONTROL_K):
+            train_step(state, x1, l1, cfg_f)
+
+    eager()  # warm
+    eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    one = GraphedSteps(state, cfg_f, 1)
+    one.run(xs[:1], ls[:1])  # capture
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    three = GraphedSteps(state, cfg_f, CONTROL_K)
+    three.run(xs, ls)  # capture
+    three_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def graph1():
+        for _ in range(CONTROL_K):
+            one.run(xs[:1], ls[:1])
+
+    runs = {"eager": eager, "graph k=1": graph1,
+            "graph k=3": lambda: three.run(xs, ls)}
+    walls = {label: [] for label in runs}
+    for _ in range(3):  # in turns
+        for label, fn in runs.items():
+            walls[label].append(wall_ms(fn, CONTROL_K))
+    want = {key: per_step[key] * per_call
+            for key, (_, per_call) in KERNEL_NAMES.items()}
+    rows = {label: profile_steps(fn, CONTROL_K, label, want)
+            for label, fn in runs.items()}
+    for label, row in rows.items():
+        row["wall_ms"] = walls[label]
+    timing["profile"] = rows
+    timing["capture_s"] = {"graph k=1": list(one.capture_seconds.values()),
+                           "graph k=3": list(three.capture_seconds.values())}
+    timing["peak_gib"] = {"eager": eager_peak, "graph k=1 capture": one_peak,
+                          "graph k=3 capture": three_peak}
+    print(f"[controls] step wall ms (3 rounds, in turns) {walls}; peak "
+          f"memory {timing['peak_gib']} GiB; capture s "
+          f"{timing['capture_s']}", flush=True)
+    del state, one, three
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- grad_accum = 2
+    timing["grad_accum"] = phase_grad_accum(batches, base, model_from_init,
+                                            per_step, launches)
+
+    # ---- resume through the CLI after a SIGTERM
+    timing["resume"] = phase_resume(workdir, fixture, launches)
+    timing["mask_mib"] = mask_memory()
+    timing["seconds"] = time.perf_counter() - t_phase
+    print(f"[controls] phase 8 took {timing['seconds']:.1f} s", flush=True)
+    return launches, graph_launches, timing
+
+
+def phase_grad_accum(batches, base, model_from_init, per_step, launches):
+    """grad_accum = 2 at groups_per_step = 2 (two micro-batches of 12), one
+    fused_adam step from the initial weights:
+    - on two different meta-batches, against its definition: each
+      meta-batch's gradient from its own grad_accum = 1 pass, averaged
+      (BatchNorm normalises each micro-batch with its own statistics, in
+      the JAX package too, so this, not the 24-utterance pass, is the
+      update accumulation must equal); the same kernels on the same
+      shapes, so the gradients agree to the spread of two backward passes
+      of one batch (measured here) plus one fp32 rounding of the sum;
+    - on one meta-batch twice, against grad_accum = 1 on those 24
+      utterances, where the batch statistics coincide and accumulation
+      equals the big batch: the two differ in the shapes of their cuBLAS
+      and cuDNN calls, and so in the order of fp32 sums and where bf16
+      rounds, which 24 layers carry into the loss as phase 7's LOSS_RTOL
+      bound says, and back through the same 24 layers into the gradient:
+      the gradient the update reads is held to LOSS_RTOL of its norm (a
+      missing micro-batch or a wrong share moves it by half its norm or
+      more). Adam's first update is lr * g / (|g| + eps) whatever the
+      gradient's scale, so each updated weight is held to the other run's
+      within lr times the difference of that direction (computed from the
+      two gradients) plus the roundings of the update (2^-19 lr) and of
+      the weight (2^-22 |w|): the update read the gradient held above.
+    Each kernel runs twice its per-micro-batch count."""
+    import dataclasses
+
+    import torch
+
+    from occm_tpu_torch.losses import group_one_class_loss
+    from occm_tpu_torch.ops import launch_counts
+    from occm_tpu_torch.train import create_train_state
+    from occm_tpu_torch.train.loop import train_step
+
+    def step(x, labels, accum):
+        cfg = dataclasses.replace(base, optimizer="fused_adam",
+                                  groups_per_step=x.shape[0] // 12,
+                                  grad_accum=accum)
+        state = create_train_state(model_from_init().to(DEVICE), cfg)
+        grads = {}
+        apply = state.apply_gradients
+
+        def keep_grads(lr=None):  # the gradient the update reads
+            grads.update({n: p.grad.clone() for n, p
+                          in state.model.named_parameters()
+                          if p.grad is not None})
+            apply(lr)
+
+        state.apply_gradients = keep_grads
+        before = launch_counts()
+        m = train_step(state, torch.from_numpy(x).to(DEVICE),
+                       torch.from_numpy(labels).to(DEVICE), cfg)
+        torch.cuda.synchronize()
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
+        weights = {n: p.detach().clone()
+                   for n, p in state.model.named_parameters()}
+        return float(m["loss"]), grads, weights, counts
+
+    def single_grads(x, labels):
+        model = model_from_init().to(DEVICE).train()
+        emb, logits = model(torch.from_numpy(x).to(DEVICE),
+                            generator=torch.Generator(device=DEVICE))
+        loss, _ = group_one_class_loss(
+            emb, logits, torch.from_numpy(labels).to(DEVICE), 0.1, 0.9)
+        loss.backward()
+        return float(loss.detach()), {
+            n: p.grad for n, p in model.named_parameters()
+            if p.grad is not None}
+
+    (xa, la), (xb, lb) = batches[0], batches[1]
+    result = {}
+    # distinct meta-batches against the definition
+    x2, l2 = np.concatenate([xa, xb]), np.concatenate([la, lb])
+    loss, grads, _, counts = step(x2, l2, 2)
+    for key, n in per_step.items():
+        want = n if key == "fused_adam" else 2 * n
+        if counts[key] != want:
+            fail(f"grad_accum: {counts[key]} {key} launches in a step of "
+                 f"two micro-batches, want {want}")
+        launches[key] += counts[key]
+    loss_a, ga = single_grads(xa, la)
+    loss_b, gb = single_grads(xb, lb)
+    _, ga2 = single_grads(xa, la)
+    spread = max(float((ga[n] - ga2[n]).abs().max()) for n in ga)
+    spread_rel = math.sqrt(
+        sum(float(((ga[n] - ga2[n]) ** 2).sum()) for n in ga)
+        / sum(float((ga[n] ** 2).sum()) for n in ga))
+    worst = worst_excess = 0.0
+    for n, g in grads.items():
+        ref = 0.5 * ga[n] + 0.5 * gb[n]
+        diff = (g - ref).abs()
+        bound = spread + 2.0 ** -23 * (0.5 * ga[n].abs() + 0.5 * gb[n].abs())
+        worst = max(worst, float(diff.max()))
+        worst_excess = max(worst_excess, float((diff - bound).max()))
+    want_loss = 0.5 * loss_a + 0.5 * loss_b
+    loss_diff = abs(loss - want_loss)
+    print(f"[controls] grad_accum 2 on two meta-batches: loss {loss:.9f} vs "
+          f"the two passes' mean {want_loss:.9f} (|diff| {loss_diff:.3e}); "
+          f"gradient max |diff| {worst:.3e} (spread of two passes "
+          f"{spread:.3e}); launches {counts}", flush=True)
+    if worst_excess > 0 or loss_diff > 1e-6 * abs(want_loss) + 1e-7:
+        fail(f"grad_accum: accumulated gradient or loss off its definition "
+             f"(gradient excess over bound {worst_excess}, loss |diff| "
+             f"{loss_diff})")
+    result.update(loss_diff_distinct=loss_diff, grad_diff_distinct=worst,
+                  grad_spread=spread, grad_spread_rel=spread_rel)
+    del grads, ga, gb, ga2
+    # one meta-batch twice against the 24-utterance pass
+    x2, l2 = np.concatenate([xa, xa]), np.concatenate([la, la])
+    loss_acc, g_acc, w_acc, _ = step(x2, l2, 2)
+    loss_big, g_big, w_big, _ = step(x2, l2, 1)
+    bound = LOSS_RTOL * abs(loss_big)
+    loss_diff = abs(loss_acc - loss_big)
+    if sorted(g_acc) != sorted(g_big):
+        fail("grad_accum vs big batch: different parameters got gradients")
+    sq_diff = sum(float(((g_acc[n] - g_big[n]) ** 2).sum()) for n in g_big)
+    sq_big = sum(float((g ** 2).sum()) for g in g_big.values())
+    g_rel = math.sqrt(sq_diff / sq_big)
+    eps, lr = 1e-8, base.lr
+    w_diff = w_excess = 0.0
+    for n, w in w_big.items():
+        diff = (w_acc[n] - w).abs()
+        if n in g_big:
+            s_acc = g_acc[n] / (g_acc[n].abs() + eps)
+            s_big = g_big[n] / (g_big[n].abs() + eps)
+            w_bound = (lr * (s_acc - s_big).abs() + 2.0 ** -19 * lr
+                       + 2.0 ** -22 * w.abs())
+        else:  # no gradient in either run: the weight did not move
+            w_bound = torch.zeros_like(w)
+        w_diff = max(w_diff, float(diff.max()))
+        w_excess = max(w_excess, float((diff - w_bound).max()))
+    moved = sum(int(((w_acc[n] - w_big[n]).abs() > 1e-9).sum())
+                for n in w_acc)
+    total = sum(w.numel() for w in w_acc.values())
+    print(f"[controls] grad_accum 2 vs 1 on one meta-batch twice: loss "
+          f"{loss_acc:.9f} vs {loss_big:.9f} (|diff| {loss_diff:.3e}, bound "
+          f"{bound:.3e}); gradient |diff| / |g| {g_rel:.3e} (bound "
+          f"{LOSS_RTOL}; two passes of one batch {spread_rel:.3e}); updated "
+          f"weights max |diff| {w_diff:.3e}, largest excess over the "
+          f"update's bound {w_excess:.3e}; {moved} of {total} differ",
+          flush=True)
+    if not (loss_diff <= bound and g_rel <= LOSS_RTOL and w_excess <= 0.0):
+        fail(f"grad_accum vs big batch: loss |diff| {loss_diff} > {bound}, "
+             f"gradient |diff| / |g| {g_rel} > {LOSS_RTOL} or weights over "
+             f"their bound by {w_excess}")
+    result.update(loss_diff_big=loss_diff, grad_rel_diff_big=g_rel,
+                  weight_diff_big=w_diff, weight_excess_big=w_excess,
+                  weights_differing=moved, weights=total)
+    del g_acc, g_big, w_acc, w_big
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_resume(workdir: str, fixture, launches):
+    """Resume through `oc_training.main` (the CLI's defaults: AASIST
+    dropouts on, drawn from the CUDA generator, torch Adam) with
+    --checkpoint_every_steps 2, under torch.use_deterministic_algorithms,
+    against one uninterrupted run of 6 eager steps:
+    - eager steps: a run sent SIGTERM from its on_step hook after step 2
+      saves and returns; --resume finishes the epoch; steps 3-6 and the
+      final weights equal the uninterrupted run's bit for bit; the step-2
+      checkpoint is replaced at step 4 and deleted;
+    - --steps_per_dispatch 3 (two chunks, each one CUDA graph launch): the
+      SIGTERM after the first chunk saves at step 3 (the generator's state
+      after a replay), --resume replays the second chunk, and all 6 steps
+      and the final weights again equal the eager run's bit for bit."""
+    import signal
+
+    import torch
+
+    from occm_tpu_torch.cli import oc_training
+    from occm_tpu_torch.ops import launch_counts
+
+    protocol, train_dir, voc_dir = fixture
+
+    def args(ckpt_dir, *extra):
+        return ["--train_protocol_file", protocol,
+                "--train_dataset_dir", train_dir, "--vocoded_dir", voc_dir,
+                "--model", "aasist", "--cut", str(TRAIN_CUT),
+                "--num_epochs", "1", "--compactness_weight", "0.1",
+                "--descriptiveness_weight", "0.9", "--checkpoint_dir",
+                ckpt_dir, *extra]
+
+    def losses_of(metrics):
+        if "step_loss" in metrics:  # a chunk: each of its steps
+            return [float(v) for v in metrics["step_loss"]]
+        return [float(metrics["loss"])]
+
+    def interrupted(name, stop, *extra):
+        """A run sent SIGTERM after step `stop`, then --resume: the step
+        it stopped at, the files it left, the resumed dispatches (step,
+        losses, files seen), the files at the end, the losses before the
+        stop and the final weights."""
+        run_dir = os.path.join(workdir, name)
+        every = ["--checkpoint_every_steps", str(RESUME_EVERY), *extra]
+        first = []
+
+        def preempt(step, metrics):
+            first.extend(losses_of(metrics))
+            if step == stop:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        state = oc_training.main(args(run_dir, *every), on_step=preempt)
+        stopped = state.step
+        del state
+        gc.collect()  # a state and its graph runner refer to each other
+        files_after_stop = sorted(os.listdir(run_dir))
+        torch.cuda.empty_cache()
+        seen = []
+
+        def listing(step, metrics):
+            seen.append((step, losses_of(metrics),
+                         sorted(os.listdir(run_dir))))
+
+        resumed = oc_training.main(args(run_dir, *every, "--resume"),
+                                   on_step=listing)
+        final_files = sorted(os.listdir(run_dir))
+        weights = {k: v.detach().cpu() for k, v
+                   in resumed.model.state_dict().items()}
+        del resumed
+        gc.collect()
+        shutil.rmtree(run_dir)
+        torch.cuda.empty_cache()
+        print(f"[controls] resume {name}: stopped at step {stopped} with "
+              f"{files_after_stop}; resumed steps {[s for s, _, _ in seen]}, "
+              f"files seen at each {[f for _, _, f in seen]}, at the end "
+              f"{final_files}; losses first {first}, resumed "
+              f"{[v for _, l, _ in seen for v in l]}", flush=True)
+        return stopped, files_after_stop, seen, final_files, first, weights
+
+    def check(name, ref_losses, ref_weights, got):
+        stopped, files_after_stop, seen, final_files, first, weights = got
+        resumed_losses = [v for _, l, _ in seen for v in l]
+        if first + resumed_losses != ref_losses:
+            fail(f"resume {name}: losses {first} + {resumed_losses} differ "
+                 f"from the uninterrupted run's {ref_losses}")
+        differ = [k for k in weights if not torch.equal(weights[k],
+                                                        ref_weights[k])]
+        if differ:
+            fail(f"resume {name}: final weights differ from the "
+                 f"uninterrupted run's in {len(differ)} tensors, e.g. "
+                 f"{differ[:3]}")
+        print(f"[controls] resume {name}: the losses and the final weights "
+              f"equal the uninterrupted run's bit for bit ({len(weights)} "
+              f"tensors)", flush=True)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    before = launch_counts()
+    try:
+        ref_losses = []
+        ref_dir = os.path.join(workdir, "resume_ref")
+        ref = oc_training.main(args(ref_dir), on_step=lambda s, m:
+                               ref_losses.extend(losses_of(m)))
+        ref_weights = {k: v.detach().cpu() for k, v
+                       in ref.model.state_dict().items()}
+        del ref
+        shutil.rmtree(ref_dir)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eager = interrupted("eager", RESUME_EVERY)
+        resume_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph = interrupted("graph", CONTROL_K, "--steps_per_dispatch",
+                            str(CONTROL_K))
+        graph_resume_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        torch.use_deterministic_algorithms(False)
+    after = launch_counts()
+    for key in launches:
+        launches[key] += after[key] - before[key]
+    print(f"[controls] resume: uninterrupted losses {ref_losses}", flush=True)
+
+    stopped, files_after_stop, seen, final_files, _, _ = eager
+    if stopped != 2 or files_after_stop != ["aasist_vocoded_step_2.pt"]:
+        fail(f"resume eager: the SIGTERM run stopped at {stopped} with "
+             f"{files_after_stop}, want step 2 and its step checkpoint")
+    if [s for s, _, _ in seen] != [3, 4, 5, 6]:
+        fail(f"resume eager: resumed steps {[s for s, _, _ in seen]}, want "
+             "3-6")
+    if (seen[1][2] != ["aasist_vocoded_step_2.pt"]
+            or seen[2][2] != ["aasist_vocoded_step_4.pt"]
+            or final_files != ["aasist_vocoded_0.pt",
+                               "aasist_vocoded_step_6.pt"]):
+        fail("resume eager: the step-2 checkpoint was not replaced at step 4 "
+             "and deleted")
+    check("eager", ref_losses, ref_weights, eager)
+
+    stopped, files_after_stop, seen, final_files, _, _ = graph
+    if stopped != CONTROL_K or files_after_stop != [
+            f"aasist_vocoded_step_{CONTROL_K}.pt"]:
+        fail(f"resume graph: the SIGTERM run stopped at {stopped} with "
+             f"{files_after_stop}, want step {CONTROL_K} and its step "
+             "checkpoint")
+    if ([s for s, _, _ in seen] != [2 * CONTROL_K]
+            or seen[0][2] != [f"aasist_vocoded_step_{CONTROL_K}.pt"]
+            or final_files != ["aasist_vocoded_0.pt",
+                               f"aasist_vocoded_step_{2 * CONTROL_K}.pt"]):
+        fail(f"resume graph: resumed dispatches {[s for s, _, _ in seen]} "
+             f"and files {final_files}, want the second chunk and its step "
+             "checkpoint in place of the first's")
+    check("graph", ref_losses, ref_weights, graph)
+    print(f"[controls] resume: interrupted + resumed wall, eager "
+          f"{resume_s:.1f} s, graph {graph_resume_s:.1f} s", flush=True)
+    return dict(stopped=eager[0], resume_s=resume_s,
+                graph_stopped=graph[0], graph_resume_s=graph_resume_s)
+
+
 # ------------------------------------------------------- optional profile
 
 def _kernel_class(name: str) -> str:
@@ -1858,6 +2648,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="run phases 1-3 only (device, build, kernel "
                          "checks); launches are then 0")
+    ap.add_argument("--controls-only", action="store_true",
+                    help="run phases 1, 2 and 8 only (device, build, the "
+                         "training controls); prints no kernels line")
     args = ap.parse_args(argv)
 
     smi = phase_device()
@@ -1865,6 +2658,20 @@ def main(argv=None) -> int:
     import torch
 
     hgmma = phase_build()
+    if args.controls_only:
+        from occm_tpu_torch.ops import _build
+
+        workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
+        try:
+            fixture_dir = os.path.join(workdir, "fixture")
+            os.makedirs(fixture_dir)
+            controls = phase_train_controls(
+                workdir, write_fixture(fixture_dir))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(smi)
+        print(json.dumps({"controls": controls}, default=str))
+        return 0
     fwd_rows = phase_kernels()
     bwd_rows = phase_attention_bwd()
     ln = phase_layernorm_bwd()
@@ -1873,6 +2680,7 @@ def main(argv=None) -> int:
     launches = dict.fromkeys(
         ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd", "fused_adam",
          "ffn_fwd"), 0)
+    graph_launches = dict.fromkeys(launches, 0)
     if not args.kernels_only:
         from occm_tpu_torch.ops import _build
 
@@ -1891,16 +2699,30 @@ def main(argv=None) -> int:
                 phase_profile(model, reference, ckpt)
             del model
             train_launches = phase_train(workdir, fixture, args.profile)
+            control_counts, replayed, controls = phase_train_controls(
+                workdir, fixture)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         launches["flash_attn_fwd"] += serve_launches
         for counts in (score_launches, train_launches):
             for name, n in counts.items():
                 launches[name] += n
+        # the wrappers' counts of phase 8 (eager steps, warm-ups and
+        # captures); a graph's replays launch what its capture recorded
+        for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
+                     "ffn_fwd"):
+            launches[name] += control_counts[name]
+            graph_launches[name] = replayed[name]
+        launches["flash_attn_bwd"] += control_counts["flash_attn_bwd_dq"]
+        graph_launches["flash_attn_bwd"] = replayed["flash_attn_bwd_dq"]
+        print(f"[controls] {json.dumps(controls, default=str)}", flush=True)
 
     print(smi)
-    print(json.dumps({"kernels": kernel_line(fwd_rows, bwd_rows, ln, adam,
-                                             ffn_rows, hgmma, launches)}))
+    kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,
+                          launches)
+    for entry in kernels:
+        entry["graph_replay_launches"] = graph_launches[entry["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,9 +5,13 @@ Trains XLSR + AASIST (`--model aasist`) on one GPU and writes the
 reference's per-epoch checkpoints `<checkpoint_dir>/aasist_vocoded_<e>.pt`
 (a torch state dict in the reference naming, which
 `occm_tpu_torch.cli.oc_server --pretrained-sslaasist` loads, next to the
-optimizer state). `--init_from` takes such a .pt file. Every flag whose
-code path is not ported yet raises NotImplementedError at a non-default
-value, naming the ROADMAP item that ports it.
+optimizer state). `--init_from` takes such a .pt file. `--grad_accum`,
+`--lr_schedule` (with `--warmup_steps`, `--decay_steps`, `--lr_end_ratio`),
+`--steps_per_dispatch` (one CUDA graph per chunk on a card),
+`--checkpoint_every_steps` (and the SIGTERM save) and `--resume` act as in
+the JAX package. Every flag whose code path is not ported yet raises
+NotImplementedError at a non-default value, naming the ROADMAP item that
+ports it.
 
 Usage:
     python -m occm_tpu_torch.cli.oc_training \
@@ -87,23 +91,38 @@ def build_parser() -> argparse.ArgumentParser:
         help='"auto" (default) resolves from --cut through '
              "occm_tpu_torch.classify.impl_select (the flash kernels from "
              '5 s up); or pin xla | flash')
-    parser.add_argument("--steps_per_dispatch", type=int, default=1,
-                        help="not ported yet")
+    parser.add_argument(
+        "--steps_per_dispatch", type=int, default=1,
+        help="k optimizer steps per dispatch: on a card one CUDA graph "
+             "launch per chunk of k full batches (ragged batches are "
+             "flushed as single steps, in data order)")
     parser.add_argument(
         "--feature_grad_mult", type=float, default=1.0,
         help="scale (0 stops) the gradient into the conv feature "
              "extractor (fairseq's GradMultiply)")
-    parser.add_argument("--resume", action="store_true",
-                        help="not ported yet")
-    parser.add_argument("--checkpoint_every_steps", type=int, default=0,
-                        help="not ported yet")
+    parser.add_argument(
+        "--resume", action="store_true",
+        help="resume from the latest checkpoint of --checkpoint_dir (an "
+             "epoch, or a newer step checkpoint, whose epoch is replayed "
+             "up to it)")
+    parser.add_argument(
+        "--checkpoint_every_steps", type=int, default=0,
+        help="save a step checkpoint every N optimizer steps (and on "
+             "SIGTERM); --resume continues bit-identically from it. 0 = "
+             "per-epoch only")
     parser.add_argument("--debug_nans", action="store_true",
                         help="not ported yet")
-    parser.add_argument("--grad_accum", type=int, default=1,
-                        help="not ported yet")
-    parser.add_argument("--lr_schedule", type=str, default="constant",
-                        choices=["constant", "cosine", "linear"],
-                        help="only constant is ported")
+    parser.add_argument(
+        "--grad_accum", type=int, default=1,
+        help="accumulate gradients over N micro-batches (whole "
+             "meta-batches each) before one optimizer update, equal to the "
+             "big-batch update; groups_per_step must be divisible by N")
+    parser.add_argument(
+        "--lr_schedule", type=str, default="constant",
+        choices=["constant", "cosine", "linear"],
+        help="lr schedule over optimizer steps (constant = the reference's "
+             "fixed lr; cosine / linear: warmup over --warmup_steps, then "
+             "decay over --decay_steps to lr * --lr_end_ratio; adam only)")
     parser.add_argument("--warmup_steps", type=int, default=0)
     parser.add_argument("--decay_steps", type=int, default=0)
     parser.add_argument("--lr_end_ratio", type=float, default=0.0)
@@ -120,14 +139,10 @@ def _unported(args) -> None:
         ("--model", args.model != "aasist", "the other models"),
         ("--pretrained_xlsr", args.pretrained_xlsr is not None,
          "--pretrained_xlsr"),
-        ("--resume", args.resume, "resume and step checkpoints"),
         ("--fast_numerics", args.fast_numerics, "remat_policy variants"),
         ("--seq_parallel", args.seq_parallel, "multi-GPU"),
         ("--pp_microbatches", args.pp_microbatches != 0, "multi-GPU"),
         ("--debug_nans", args.debug_nans, "remaining features"),
-        ("--warmup_steps", args.warmup_steps != 0, "lr schedules"),
-        ("--decay_steps", args.decay_steps != 0, "lr schedules"),
-        ("--lr_end_ratio", args.lr_end_ratio != 0.0, "lr schedules"),
         ("--rawboost_algo", args.rawboost_algo != 0, "RawBoost in the step"),
     ]
     for flag, set_, item in checks:
@@ -185,8 +200,8 @@ def build_model(xlsr_cfg, seed: int, init_from=None):
 
 
 def main(argv=None, on_step=None):
-    """on_step(step, metrics): optional hook after every optimizer step
-    (used by chip_smoke.py to count kernel launches per step)."""
+    """on_step(step, metrics): optional hook after every dispatch (used by
+    chip_smoke.py to count kernel launches per step)."""
     args = build_parser().parse_args(argv)
     _unported(args)
 
@@ -249,7 +264,7 @@ def main(argv=None, on_step=None):
 
     print("Training starts...")
     return train(model, pipeline, cfg, checkpoint_fn=checkpoint_fn,
-                 device=device, on_step=on_step)
+                 device=device, on_step=on_step, resume=args.resume)
 
 
 if __name__ == "__main__":

@@ -217,9 +217,8 @@ class MeshConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters, the JAX package's fields and defaults.
-    Not ported yet, and raising: grad_accum > 1, steps_per_dispatch > 1,
-    checkpoint_every_steps > 0, lr_schedule other than "constant",
-    wandb_project; the trainer raises on rawboost.algo != 0."""
+    Not ported yet, and raising: wandb_project; the trainer raises on
+    rawboost.algo != 0."""
 
     model: str = "aasist"
     optimizer: str = "adam"        # "adam" (torch.optim.Adam) | "fused_adam"
@@ -270,18 +269,8 @@ class TrainConfig:
         if self.optimizer not in ("adam", "fused_adam"):
             raise ValueError(f"unknown optimizer {self.optimizer!r} "
                              "(adam | fused_adam)")
-        unported = [
-            ("grad_accum", self.grad_accum != 1, "gradient accumulation"),
-            ("steps_per_dispatch", self.steps_per_dispatch != 1,
-             "steps_per_dispatch"),
-            ("checkpoint_every_steps", self.checkpoint_every_steps != 0,
-             "resume and step checkpoints"),
-            ("lr_schedule", self.lr_schedule != "constant", "lr schedules"),
-            ("wandb_project", self.wandb_project is not None,
-             "remaining features"),
-        ]
-        for field, set_, item in unported:
-            if set_:
-                raise NotImplementedError(
-                    f"TrainConfig.{field}={getattr(self, field)!r} is not "
-                    f"ported to occm_tpu_torch yet (ROADMAP queue A: {item})")
+        if self.wandb_project is not None:
+            raise NotImplementedError(
+                f"TrainConfig.wandb_project={self.wandb_project!r} is not "
+                "ported to occm_tpu_torch yet (ROADMAP queue A: remaining "
+                "features)")

@@ -269,9 +269,11 @@ extern "C" int occm_ffn_gemm(const void* a, const void* b, const void* bias,
   if (!err) err = encode(&mb, b, n, k, kBN);
   if (!err) err = encode(&mc, c, m, n, kBoxC);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(
+  // once per process (a thread-safe static), so that a launch captured
+  // into a CUDA graph makes no attribute call
+  static const cudaError_t attr = cudaFuncSetAttribute(
       ffn_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (e != cudaSuccess) return (int)e;
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   ffn_gemm_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
       ma, mb, mc, (const __nv_bfloat16*)bias, m, n, k, act);

@@ -7,11 +7,14 @@
 //   v <- b2 * v + (1 - b2) * g * g
 //   p <- p - (lr * m * inv_bc1) / (sqrt(v * inv_bc2) + eps)
 // with the bias corrections inv_bc1 = 1 / (1 - b1^t), inv_bc2 = 1 / (1 - b2^t)
-// computed on the host, as the JAX wrapper computes them outside its
-// kernel. Unlike the functional JAX kernel, this one updates p, m and v in
-// place: each element is read once and written once. IEEE division and
-// square root (no fast math), so the update rounds as the plain version
-// does.
+// in fp32 (as the JAX wrapper computes them outside its kernel), from the
+// step count t that the kernel reads from device memory: the host passes a
+// pointer, never a value, so a CUDA graph that captured the launch applies
+// each replay's own corrections. The wrapper increments t with a launch of
+// its own before this one, so no block reads it while it changes. Unlike
+// the functional JAX kernel, this one updates p, m and v in place: each
+// element is read once and written once. IEEE division and square root (no
+// fast math), so the update rounds as the plain version does.
 //
 // What bounds it on an H100: bytes. It reads p, m, v, g and writes p, m, v:
 // 28 bytes per parameter, 8.84 GB over the 315,884,938 parameters of the
@@ -48,18 +51,24 @@ struct AdamTable {
   const float* g[kMaxLeaves];
   int64_t n[kMaxLeaves];
   int32_t chunk_start[kMaxLeaves + 1];  // leaf i owns [start[i], start[i+1])
+  const int64_t* count;  // the step count t of this update, on the device
   int32_t n_leaves;
   int32_t chunk;  // elements per chunk, a multiple of 4
-  float lr, b1, one_minus_b1, b2, one_minus_b2, eps, inv_bc1, inv_bc2;
+  float lr, b1, one_minus_b1, b2, one_minus_b2, eps;
 };
 static_assert(sizeof(AdamTable) <= 32764, "kernel parameters are limited");
 
+struct Corrections {
+  float inv_bc1, inv_bc2;
+};
+
 __device__ __forceinline__ void adam(float& p, float& m, float& v, float g,
-                                     const AdamTable& t) {
+                                     const AdamTable& t,
+                                     const Corrections& bc) {
   const float mi = t.b1 * m + t.one_minus_b1 * g;
   const float vi = t.b2 * v + t.one_minus_b2 * g * g;
-  const float mhat = mi * t.inv_bc1;
-  const float vhat = vi * t.inv_bc2;
+  const float mhat = mi * bc.inv_bc1;
+  const float vhat = vi * bc.inv_bc2;
   p = p - (t.lr * mhat) / (sqrtf(vhat) + t.eps);
   m = mi;
   v = vi;
@@ -68,6 +77,9 @@ __device__ __forceinline__ void adam(float& p, float& m, float& v, float g,
 __global__ void __launch_bounds__(kThreads)
 fused_adam_kernel(const __grid_constant__ AdamTable t) {
   const int total = t.chunk_start[t.n_leaves];
+  const float step = (float)*t.count;
+  const Corrections bc = {1.0f / (1.0f - powf(t.b1, step)),
+                          1.0f / (1.0f - powf(t.b2, step))};
   for (int c = blockIdx.x; c < total; c += gridDim.x) {
     int lo = 0, hi = t.n_leaves - 1;  // the last leaf whose start <= c
     while (lo < hi) {
@@ -93,10 +105,10 @@ fused_adam_kernel(const __grid_constant__ AdamTable t) {
         float4 m4 = reinterpret_cast<float4*>(m)[i];
         float4 v4 = reinterpret_cast<float4*>(v)[i];
         const float4 g4 = reinterpret_cast<const float4*>(g)[i];
-        adam(p4.x, m4.x, v4.x, g4.x, t);
-        adam(p4.y, m4.y, v4.y, g4.y, t);
-        adam(p4.z, m4.z, v4.z, g4.z, t);
-        adam(p4.w, m4.w, v4.w, g4.w, t);
+        adam(p4.x, m4.x, v4.x, g4.x, t, bc);
+        adam(p4.y, m4.y, v4.y, g4.y, t, bc);
+        adam(p4.z, m4.z, v4.z, g4.z, t, bc);
+        adam(p4.w, m4.w, v4.w, g4.w, t, bc);
         reinterpret_cast<float4*>(p)[i] = p4;
         reinterpret_cast<float4*>(m)[i] = m4;
         reinterpret_cast<float4*>(v)[i] = v4;
@@ -105,7 +117,7 @@ fused_adam_kernel(const __grid_constant__ AdamTable t) {
     }
     for (int i = done + threadIdx.x; i < len; i += kThreads) {
       float pi = p[i], mi = m[i], vi = v[i];
-      adam(pi, mi, vi, g[i], t);
+      adam(pi, mi, vi, g[i], t, bc);
       p[i] = pi;
       m[i] = mi;
       v[i] = vi;
@@ -118,16 +130,19 @@ fused_adam_kernel(const __grid_constant__ AdamTable t) {
 // One launch over `n_leaves` leaves: leaf i is p[i], m[i], v[i] (updated in
 // place) and g[i], n[i] fp32 elements each, split into chunks of `chunk`
 // elements, chunks chunk_start[i] .. chunk_start[i + 1] - 1 (host arrays of
-// n_leaves, resp. n_leaves + 1, entries). Launches on `stream`; returns the
-// cudaError_t of the launch (0 on success).
+// n_leaves, resp. n_leaves + 1, entries); `count` points at the int64 step
+// count t on the device (t >= 1, already incremented for this update).
+// Launches on `stream`; returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int occm_fused_adam(int n_leaves, const uint64_t* p,
                                const uint64_t* m, const uint64_t* v,
                                const uint64_t* g, const int64_t* n,
                                const int32_t* chunk_start, int chunk,
                                float lr, float b1, float one_minus_b1,
                                float b2, float one_minus_b2, float eps,
-                               float inv_bc1, float inv_bc2, void* stream) {
-  if (n_leaves <= 0 || n_leaves > kMaxLeaves || chunk <= 0 || chunk % 4)
+                               const int64_t* count, void* stream) {
+  if (n_leaves <= 0 || n_leaves > kMaxLeaves || chunk <= 0 || chunk % 4 ||
+      count == nullptr || (reinterpret_cast<uintptr_t>(count) & 7))
     return (int)cudaErrorInvalidValue;
   AdamTable t;
   for (int i = 0; i < n_leaves; ++i) {
@@ -150,8 +165,7 @@ extern "C" int occm_fused_adam(int n_leaves, const uint64_t* p,
   t.b2 = b2;
   t.one_minus_b2 = one_minus_b2;
   t.eps = eps;
-  t.inv_bc1 = inv_bc1;
-  t.inv_bc2 = inv_bc2;
+  t.count = count;
   const int total = chunk_start[n_leaves];
   const int blocks = total < 132 * 8 ? total : 132 * 8;  // 8 per SM, stride
   fused_adam_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(t);

@@ -4,6 +4,8 @@ prefetch thread (port of `occm_tpu.data.pipeline`, one process).
 A background thread decodes and stacks the next G meta-batches
 ([G*12, cut]) while the card runs the step. A worker's error is re-raised
 in the consumer: a failed decode fails the epoch, never truncates it.
+`chunk_batches` groups an epoch's batches into chunks of k for
+`steps_per_dispatch` (port of `occm_tpu.train.loop.chunk_batches`).
 """
 
 from __future__ import annotations
@@ -98,3 +100,33 @@ class MetaBatchPipeline:
     def epoch(self, epoch: int = 0
               ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         return Prefetcher(self._epoch_iter(epoch), depth=self.prefetch_depth)
+
+
+def chunk_batches(batch_iter, full_batch: int, k_dispatch: int):
+    """Group an epoch's (x, labels) stream into ("chunk", xs [k, B, T],
+    labels [k, B]) stacks of k_dispatch full batches (B = full_batch), and
+    pass every batch that cannot fill a chunk through as ("single", x,
+    labels), so no batch is dropped and the updates stay in data order: a
+    ragged batch flushes the buffered full batches before itself, and the
+    epoch's leftover full batches come out one by one at its end. Labels
+    come out int64."""
+    if k_dispatch == 1:
+        for x, labels in batch_iter:
+            yield "single", x, np.asarray(labels, np.int64)
+        return
+    xs, ls = [], []
+    for x, labels in batch_iter:
+        labels = np.asarray(labels, np.int64)
+        if x.shape[0] != full_batch:
+            for xb, lb in zip(xs, ls):
+                yield "single", xb, lb
+            xs, ls = [], []
+            yield "single", np.asarray(x), labels
+            continue
+        xs.append(np.asarray(x))
+        ls.append(labels)
+        if len(xs) == k_dispatch:
+            yield "chunk", np.stack(xs), np.stack(ls)
+            xs, ls = [], []
+    for x, labels in zip(xs, ls):
+        yield "single", x, labels

@@ -7,9 +7,9 @@ reference's (models/sslassist.py), the naming
 `occm_tpu.models.convert_backend.export_amodel_state_dict` emits. In eval
 mode BatchNorm layers use their running statistics and no dropout runs. In
 train mode (`model.train()`) BatchNorm normalises with batch statistics and
-updates its running statistics with torch's momentum 0.1 (Flax's 0.9;
-torch keeps the unbiased batch variance where Flax keeps the biased one),
-and the JAX package's dropout sites apply: the GAT and HtrgGAT inputs
+updates its running statistics as Flax does: momentum 0.1 (Flax's 0.9) and
+the biased batch variance (`BatchNorm1d`, `BatchNorm2d` below; torch's own
+layers keep the unbiased one). The JAX package's dropout sites apply: the GAT and HtrgGAT inputs
 (`cfg.dropout`), the graph pools' score input only (`pool_dropout`), the
 six way-fusion tensors (`cfg.dropout`) and the head input
 (`head_dropout`; `emb` is returned before it). Masks come from the CPU
@@ -34,6 +34,37 @@ from occm_tpu_torch.models.xlsr import SSLModel, dropout, train_generator
 from occm_tpu_torch.ops.pool import max_pool2d
 
 
+class _FlaxStats:
+    """Train mode: torch's batch-statistics normalisation, with the running
+    statistics updated from the biased batch variance, as
+    `flax.linen.BatchNorm` updates them; eval mode as torch. The state dict
+    is torch's (weight, bias, running_mean, running_var,
+    num_batches_tracked)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            dims = [0] + list(range(2, x.dim()))
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):
+    pass
+
+
 def _bn_feat(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """BatchNorm1d over every leading axis, per trailing feature."""
     return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
@@ -50,7 +81,7 @@ class GraphAttentionLayer(nn.Module):
         self.att_weight = nn.Parameter(torch.empty(out_dim, 1))
         self.proj_with_att = nn.Linear(in_dim, out_dim)
         self.proj_without_att = nn.Linear(in_dim, out_dim)
-        self.bn = nn.BatchNorm1d(out_dim)
+        self.bn = BatchNorm1d(out_dim)
         self.temperature = temperature
         nn.init.xavier_normal_(self.att_weight)
 
@@ -85,7 +116,7 @@ class HtrgGraphAttentionLayer(nn.Module):
         self.proj_without_att = nn.Linear(in_dim, out_dim)
         self.proj_with_attM = nn.Linear(in_dim, out_dim)
         self.proj_without_attM = nn.Linear(in_dim, out_dim)
-        self.bn = nn.BatchNorm1d(out_dim)
+        self.bn = BatchNorm1d(out_dim)
         self.temperature = temperature
         for w in (self.att_weight11, self.att_weight22, self.att_weight12,
                   self.att_weightM):
@@ -153,10 +184,10 @@ class ResidualBlock(nn.Module):
                  first: bool = False):
         super().__init__()
         if not first:  # declared by the reference, output discarded
-            self.bn1 = nn.BatchNorm2d(in_channels)
+            self.bn1 = BatchNorm2d(in_channels)
         self.conv1 = nn.Conv2d(in_channels, out_channels, (2, 3),
                                padding=(1, 1))
-        self.bn2 = nn.BatchNorm2d(out_channels)
+        self.bn2 = BatchNorm2d(out_channels)
         self.conv2 = nn.Conv2d(out_channels, out_channels, (2, 3),
                                padding=(0, 1))
         if in_channels != out_channels:
@@ -189,14 +220,14 @@ class AASISTBackend(nn.Module):
         outs = [chans[0], chans[1], chans[2], chans[3], chans[3], chans[3]]
 
         self.LL = nn.Linear(ssl_dim, cfg.ll_dim)
-        self.first_bn = nn.BatchNorm2d(1)
-        self.first_bn1 = nn.BatchNorm2d(outs[-1])
+        self.first_bn = BatchNorm2d(1)
+        self.first_bn1 = BatchNorm2d(outs[-1])
         self.encoder = nn.Sequential(*[
             nn.Sequential(ResidualBlock(i, o, first=(n == 0)))
             for n, (i, o) in enumerate(zip(ins, outs))])
         self.attention = nn.Sequential(
             nn.Conv2d(outs[-1], cfg.ll_dim, 1), nn.SELU(),
-            nn.BatchNorm2d(cfg.ll_dim), nn.Conv2d(cfg.ll_dim, outs[-1], 1))
+            BatchNorm2d(cfg.ll_dim), nn.Conv2d(cfg.ll_dim, outs[-1], 1))
         self.pos_S = nn.Parameter(torch.randn(1, cfg.pos_s_nodes, outs[-1]))
         self.master1 = nn.Parameter(torch.randn(1, 1, gat0))
         self.master2 = nn.Parameter(torch.randn(1, 1, gat0))

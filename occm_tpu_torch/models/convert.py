@@ -14,7 +14,7 @@ Layouts: Flax Dense kernel [in, out] -> Linear weight [out, in]; Flax
 Conv kernel [K, in, out] -> Conv1d [out, in, K]; Flax Conv HWIO ->
 Conv2d OIHW. The positional conv is split into fairseq's weight norm with
 g = the norm over axes (0, 1) of v = w [C, C/G, K], which PosConv folds
-back exactly.
+back into the kernel w it trains.
 """
 
 from __future__ import annotations
@@ -225,18 +225,18 @@ def optimizer_state_from_flax(opt_state, xlsr_cfg: Optional[XLSRConfig] = None
     parameters' transposes.
 
     opt_state: the JAX package's `FusedAdamState` (count, mu, nu), or
-    optax adam's state, whose first element is a `ScaleByAdamState`; its
-    mu and nu are parameter-shaped trees of numpy arrays. The positional
-    conv is the one place the two parametrisations differ: JAX trains its
-    folded kernel w, the port (as fairseq) trains the weight-norm pair
-    (g, v). The moments of w go to weight_v (v = w at the bridge) and
-    weight_g gets none (zero moments), so the positional conv's first
-    update after a bridge is not JAX's."""
+    optax adam's state, whose first element is a `ScaleByAdamState` (with
+    a constant lr or a schedule: the schedule's own count is the same
+    step count); its mu and nu are parameter-shaped trees of numpy arrays.
+    Both packages train the positional conv's folded kernel w, so w's
+    moments go to `encoder.pos_conv.0.weight`."""
     adam = opt_state if hasattr(opt_state, "mu") else opt_state[0]
     out: Dict = {"count": int(np.asarray(adam.count))}
+    pos = "ssl_model.model.encoder.pos_conv.0."
     for key, tree in (("mu", adam.mu), ("nu", adam.nu)):
         arrays = amodel_arrays_from_flax({"params": tree}, xlsr_cfg,
                                          params_only=True)
-        arrays.pop("ssl_model.model.encoder.pos_conv.0.weight_g")
+        arrays.pop(pos + "weight_g")
+        arrays[pos + "weight"] = arrays.pop(pos + "weight_v")
         out[key] = _tensors(arrays)
     return out

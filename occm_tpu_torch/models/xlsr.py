@@ -8,6 +8,7 @@ reference checkpoint loads with `load_state_dict(strict=True)`:
   feature_extractor.conv_layers.{i}.2.1    LayerNorm over channels
   layer_norm, post_extract_proj
   encoder.pos_conv.0.{weight_g,weight_v,bias}   weight-normed grouped conv
+                                                (trained as one folded kernel)
   encoder.layers.{l}.self_attn.{q,k,v,out}_proj
   encoder.layers.{l}.{self_attn_layer_norm,fc1,fc2,final_layer_norm}
   encoder.layer_norm
@@ -23,17 +24,32 @@ package has: attention probabilities (`attention_dropout`, plain attention
 only: the flash kernels never materialise them, so a non-zero rate raises
 there, as in JAX), the two residual branches and the encoder input
 (`dropout`), the FFN activation (`activation_dropout`), the projected
-features (`dropout_input`), and `layerdrop` (a dropped layer is skipped).
-With `ffn_impl="pallas"` the FFN runs `fused_ffn` (the CUDA fused
-forward), which cannot apply `activation_dropout`: train mode with a
-non-zero rate raises, as in JAX. `remat` recomputes each transformer layer
-in the backward (`torch.utils.checkpoint`, non-reentrant), `conv_remat` the
-conv feature extractor, and `feature_grad_mult` scales the gradient into
-the extractor (0 detaches it). Dropout masks come from an explicit CPU
-`torch.Generator` passed to the forward: each site draws a seed from it
-and its mask from a device generator seeded with that; each transformer
-layer re-seeds its sites from a per-layer seed, so a remat recompute
-reproduces the forward's masks. Eval mode applies no dropout.
+features (`dropout_input`), and `layerdrop`. With `ffn_impl="pallas"` the
+FFN runs `fused_ffn` (the CUDA fused forward), which cannot apply
+`activation_dropout`: train mode with a non-zero rate raises, as in JAX.
+`remat` recomputes each transformer layer in the backward
+(`torch.utils.checkpoint`, non-reentrant), `conv_remat` the conv feature
+extractor, and `feature_grad_mult` scales the gradient into the extractor
+(0 detaches it).
+
+Dropout masks are drawn from an explicit `torch.Generator` passed to the
+forward, on the device it lives on: on a card, a CUDA generator whose
+Philox state advances on the device, so a CUDA graph of the step (see
+`train.graph`) draws fresh masks on every replay. A transformer layer's
+masks are drawn before the layer runs and handed to it, so a remat
+recompute reuses them (the recompute draws nothing, and checkpoint need not
+restore any generator). Under remat the masks of every layer are therefore
+held until the backward: bool tensors of the sites' shapes, none at the
+default rates of 0. Layerdrop draws its keep flag on the device too; a
+dropped layer still runs and is discarded with `where(keep, y, x)`, as the
+JAX package does (its parameters then get a zero gradient). Eval mode
+applies no dropout.
+
+The positional conv trains one folded kernel `weight` [C, C/G, K], as the
+JAX package does. Its state dict is fairseq's weight-norm pair: saving
+writes v = w and g = ||w|| (the JAX exporter's split), and loading folds
+w = v * (g / ||v||) (`fold_weight_norm`), so a reference checkpoint loads
+strictly and a saved one loads into fairseq's layout.
 """
 
 from __future__ import annotations
@@ -71,37 +87,67 @@ def _gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
-def draw_seed(gen: torch.Generator) -> int:
-    """A 62-bit seed from a CPU generator (no device sync)."""
-    return int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+def dropout_keep(shape, p: float, gen: torch.Generator,
+                 device) -> torch.Tensor:
+    """The keep mask of a dropout site: True with probability 1 - p, drawn
+    from `gen` on its own device and placed on `device`."""
+    keep = torch.rand(shape, generator=gen, device=gen.device) >= p
+    return keep.to(device)
+
+
+def apply_keep(x: torch.Tensor, keep: Optional[torch.Tensor],
+               p: float) -> torch.Tensor:
+    """x where `keep`, scaled by 1 / (1 - p), and 0 elsewhere; x itself
+    when there is no mask."""
+    if keep is None:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def dropout(x: torch.Tensor, p: float,
             gen: Optional[torch.Generator]) -> torch.Tensor:
     """Flax `nn.Dropout`: keep each element with probability 1 - p and
     scale it by 1 / (1 - p); the identity when `gen` is None (eval mode)
-    or p is 0. The mask comes from a device generator seeded from `gen`."""
+    or p is 0."""
     if gen is None or p == 0.0:
         return x
-    if p >= 1.0:
-        return torch.zeros_like(x)
-    dev_gen = torch.Generator(device=x.device).manual_seed(draw_seed(gen))
-    keep = torch.rand(x.shape, generator=dev_gen, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    return apply_keep(x, dropout_keep(x.shape, p, gen, x.device), p)
 
 
 def train_generator(module: nn.Module,
                     gen: Optional[torch.Generator]
                     ) -> Optional[torch.Generator]:
     """The dropout generator of a forward: None in eval mode; in train mode
-    `gen`, or one seeded from torch's global generator when none is
-    given."""
+    `gen`, or one on the module's device seeded from torch's global
+    generator when none is given."""
     if not module.training:
         return None
     if gen is not None:
         return gen
-    return torch.Generator().manual_seed(
+    device = next(module.parameters()).device
+    return torch.Generator(device=device).manual_seed(
         int(torch.randint(0, 2 ** 62, (1,))))
+
+
+def fold_weight_norm(weight_g: torch.Tensor,
+                     weight_v: torch.Tensor) -> torch.Tensor:
+    """fairseq's weight norm over the kernel axis (the port's copy of
+    `occm_tpu.models.convert_xlsr.fold_weight_norm`, dim=2): w = g * v /
+    ||v|| with the norm over axes (0, 1) of v [C, C/G, K], computed as
+    v * (g / ||v||), so a pair saved as (||w||, w) folds back to w bit for
+    bit."""
+    v = weight_v.float()
+    return v * (weight_g.float() / torch.clamp(weight_norm_g(v), min=1e-12))
+
+
+def weight_norm_g(w: torch.Tensor) -> torch.Tensor:
+    """g = ||w|| over axes (0, 1), summed in fp64 and rounded to fp32, so
+    that sums of w in another order (on another device) round to the same
+    g."""
+    return torch.sqrt(torch.sum(w.double() ** 2, dim=(0, 1),
+                                keepdim=True)).float()
 
 
 class _GradMultiply(torch.autograd.Function):
@@ -154,29 +200,43 @@ class ConvFeatureExtractor(nn.Module):
 
 
 class PosConv(nn.Module):
-    """Relative positional conv embedding: grouped conv (k=128, groups=16)
-    with fairseq's weight norm over the kernel axis. The weight is folded,
-    w = g * v / ||v|| with the norm over axes (0, 1) of v [C, C/G, K], in
-    fp32 on every call, then cast to the compute dtype."""
+    """Relative positional conv embedding: grouped conv (k=128, groups=16),
+    trained as one folded kernel `weight` [C, C/G, K] (fp32, cast to the
+    compute dtype where it is used). Its state dict holds fairseq's
+    `weight_g` / `weight_v` instead (see the module docstring)."""
 
     def __init__(self, cfg: XLSRConfig):
         super().__init__()
         self.cfg = cfg
         c, k, g = cfg.encoder_embed_dim, cfg.conv_pos, cfg.conv_pos_groups
-        self.weight_g = nn.Parameter(torch.ones(1, 1, k))
-        self.weight_v = nn.Parameter(torch.empty(c, c // g, k))
+        self.weight = nn.Parameter(torch.empty(c, c // g, k))
         self.bias = nn.Parameter(torch.zeros(c))
-        nn.init.normal_(self.weight_v, std=math.sqrt(1.0 / (k * c // g)))
+        # fairseq initialises v this way and g = ||v||, so w = v
+        nn.init.normal_(self.weight, std=math.sqrt(1.0 / (k * c // g)))
+        self.register_state_dict_post_hook(PosConv._to_weight_norm)
+        self.register_load_state_dict_pre_hook(PosConv._fold)
 
-    def weight(self) -> torch.Tensor:
-        v = self.weight_v.float()
-        norm = torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True))
-        return self.weight_g.float() * v / torch.clamp(norm, min=1e-12)
+    @staticmethod
+    def _to_weight_norm(module, state, prefix, local_metadata):
+        w = state.pop(prefix + "weight")
+        state[prefix + "weight_g"] = weight_norm_g(w).to(w.dtype)
+        state[prefix + "weight_v"] = w
+        state.move_to_end(prefix + "bias")
+
+    def _fold(self, state, prefix, local_metadata, strict, missing_keys,
+              unexpected_keys, error_msgs):
+        if prefix + "weight_v" in state:
+            g = state.pop(prefix + "weight_g", None)
+            v = state.pop(prefix + "weight_v")
+            if g is None:
+                missing_keys.append(prefix + "weight_g")
+                return
+            state[prefix + "weight"] = fold_weight_norm(g, v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, T, C] -> [B, T + 1 - K % 2, C] (uncropped)."""
         dt = _DTYPES[self.cfg.dtype]
-        out = pos_conv_grouped(x.transpose(1, 2).to(dt), self.weight().to(dt),
+        out = pos_conv_grouped(x.transpose(1, 2).to(dt), self.weight.to(dt),
                                self.cfg.conv_pos_groups)
         return out.transpose(1, 2) + self.bias.to(dt)
 
@@ -194,7 +254,9 @@ class SelfAttention(nn.Module):
         self.out_proj = nn.Linear(d, d)
 
     def forward(self, x: torch.Tensor, impl: str,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """keep: the attention-probability dropout mask [B, H, T, T] (plain
+        attention only), or None."""
         cfg = self.cfg
         dt = _DTYPES[cfg.dtype]
         ndt = _DTYPES[cfg.norm_dtype]
@@ -205,17 +267,12 @@ class SelfAttention(nn.Module):
         k = _linear(x, self.k_proj, dt).reshape(B, T, h, hd)
         v = _linear(x, self.v_proj, dt).reshape(B, T, h, hd)
         if impl == "flash":
-            if gen is not None and cfg.attention_dropout > 0.0:
-                raise ValueError(
-                    'attention_impl="flash" cannot apply attention_dropout '
-                    "(the probabilities never materialise); train with "
-                    'attention_impl="xla" or zero the rate')
             out = flash_attention(q, k, v).to(dt)
         elif impl == "xla":
             q = q * (hd ** -0.5)
             logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ndt), k.to(ndt))
-            probs = dropout(torch.softmax(logits, dim=-1).to(dt),
-                            cfg.attention_dropout, gen)
+            probs = apply_keep(torch.softmax(logits, dim=-1).to(dt), keep,
+                               cfg.attention_dropout)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         else:
             raise NotImplementedError(
@@ -242,20 +299,44 @@ class TransformerLayer(nn.Module):
             return fast_layer_norm(x, ln.weight, ln.bias, ln.eps)
         return _layer_norm(x, ln, _DTYPES[self.cfg.norm_dtype])
 
-    def forward(self, x: torch.Tensor, impl: str,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    def draw_masks(self, x: torch.Tensor, impl: str,
+                   gen: Optional[torch.Generator]):
+        """The layer's dropout masks for input x [B, T, D], in the order its
+        sites run: attention probabilities, the attention branch, the FFN
+        activation, the FFN branch (None where a site's rate is 0 or there
+        is no generator)."""
         cfg = self.cfg
-        dt = _DTYPES[cfg.dtype]
-        pre = cfg.layer_norm_first
-        if (self.training and cfg.activation_dropout > 0.0
-                and cfg.ffn_impl == "pallas"):
+        if gen is None:
+            return (None,) * 4
+        if impl == "flash" and cfg.attention_dropout > 0.0:
+            raise ValueError(
+                'attention_impl="flash" cannot apply attention_dropout '
+                "(the probabilities never materialise); train with "
+                'attention_impl="xla" or zero the rate')
+        if cfg.activation_dropout > 0.0 and cfg.ffn_impl == "pallas":
             raise ValueError(
                 "activation_dropout needs the hidden FFN activation "
                 'materialised: train with ffn_impl="xla", or zero the rate')
+        B, T, d = x.shape
+        shapes = ((B, cfg.encoder_heads, T, T), (B, T, d),
+                  (B, T, cfg.encoder_ffn_dim), (B, T, d))
+        rates = (cfg.attention_dropout, cfg.dropout, cfg.activation_dropout,
+                 cfg.dropout)
+        return tuple(dropout_keep(shape, p, gen, x.device) if p > 0.0
+                     else None for shape, p in zip(shapes, rates))
+
+    def forward(self, x: torch.Tensor, impl: str,
+                masks=(None, None, None, None)) -> torch.Tensor:
+        """masks: `draw_masks`' tuple (all None: no dropout)."""
+        cfg = self.cfg
+        dt = _DTYPES[cfg.dtype]
+        pre = cfg.layer_norm_first
+        keep_attn, keep_res1, keep_act, keep_res2 = masks
 
         residual = x
         h = self._norm(self.self_attn_layer_norm, x) if pre else x
-        h = dropout(self.self_attn(h, impl, gen), cfg.dropout, gen)
+        h = apply_keep(self.self_attn(h, impl, keep_attn), keep_res1,
+                       cfg.dropout)
         x = residual + h
         if not pre:
             x = self._norm(self.self_attn_layer_norm, x).to(dt)
@@ -271,9 +352,9 @@ class TransformerLayer(nn.Module):
                           self.fc2.bias.to(dt), cfg.gelu_approximate)
         else:
             h = _gelu(_linear(h, self.fc1, dt), cfg.gelu_approximate)
-            h = dropout(h, cfg.activation_dropout, gen)
+            h = apply_keep(h, keep_act, cfg.activation_dropout)
             h = _linear(h, self.fc2, dt)
-        h = dropout(h, cfg.dropout, gen)
+        h = apply_keep(h, keep_res2, cfg.dropout)
         x = residual + h
         if not pre:
             x = self._norm(self.final_layer_norm, x).to(dt)
@@ -313,7 +394,7 @@ class XLSREncoder(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """attention_impl overrides cfg.attention_impl ("xla" | "flash"),
         so one set of weights serves buckets that pick different impls.
-        generator: the CPU generator of the dropout masks in train mode."""
+        generator: the generator of the dropout masks in train mode."""
         cfg = self.cfg
         impl = attention_impl or cfg.attention_impl
         dt = _DTYPES[cfg.dtype]
@@ -322,7 +403,8 @@ class XLSREncoder(nn.Module):
         if x.dim() == 3:  # the reference squeezes a trailing channel dim
             x = x[:, :, 0]
         if cfg.conv_remat and remat:
-            feats = checkpoint(self.feature_extractor, x, use_reentrant=False)
+            feats = checkpoint(self.feature_extractor, x, use_reentrant=False,
+                               preserve_rng_state=False)
         else:
             feats = self.feature_extractor(x)
         # fairseq GradMultiply: scale (or stop) the gradient into the convs
@@ -340,31 +422,26 @@ class XLSREncoder(nn.Module):
         if not cfg.layer_norm_first:
             x = _layer_norm(x, self.encoder.layer_norm, torch.float32).to(dt)
         x = dropout(x, cfg.dropout, gen)
-        layer_dropout = max(cfg.dropout, cfg.attention_dropout,
-                            cfg.activation_dropout) > 0.0
         for layer in self.encoder.layers:
-            if gen is not None and cfg.layerdrop > 0.0 and bool(
-                    torch.rand((), generator=gen) < cfg.layerdrop):
-                continue  # fairseq encoder_layerdrop: the layer is skipped
-            seed = draw_seed(gen) if gen is not None and layer_dropout \
-                else None
+            keep = None
+            if gen is not None and cfg.layerdrop > 0.0:
+                # fairseq encoder_layerdrop: drop the layer with probability
+                # p; the flag is drawn on the generator's device
+                keep = (torch.rand((), generator=gen, device=gen.device)
+                        >= cfg.layerdrop).to(x.device)
+            masks = layer.draw_masks(x, impl, gen)
             if cfg.remat and remat:
-                x = checkpoint(_run_layer, layer, x, impl, seed,
-                               use_reentrant=False)
+                # the masks are inputs, so the recompute draws nothing
+                y = checkpoint(layer, x, impl, masks, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
-                x = _run_layer(layer, x, impl, seed)
+                y = layer(x, impl, masks)
+            # the layer always runs and a dropped one is discarded on the
+            # device, as the JAX package's where(keep, y, carry)
+            x = y if keep is None else torch.where(keep, y, x)
         if cfg.layer_norm_first:
             x = _layer_norm(x, self.encoder.layer_norm, torch.float32)
         return x.float()
-
-
-def _run_layer(layer: TransformerLayer, x: torch.Tensor, impl: str,
-               seed: Optional[int]) -> torch.Tensor:
-    """One transformer layer whose dropout sites draw from a generator
-    seeded with `seed` (None: no dropout), so a remat recompute draws the
-    forward's masks, and remat on or off gives the same masks."""
-    gen = None if seed is None else torch.Generator().manual_seed(seed)
-    return layer(x, impl, gen)
 
 
 class SSLModel(nn.Module):

@@ -145,7 +145,7 @@ def load() -> ctypes.CDLL:
             lib.occm_layernorm_bwd.restype = i
             f = ctypes.c_float
             lib.occm_fused_adam.argtypes = [
-                i, p, p, p, p, p, p, i, f, f, f, f, f, f, f, f, p]
+                i, p, p, p, p, p, p, i, f, f, f, f, f, f, p, p]
             lib.occm_fused_adam.restype = i
             lib.occm_ffn_gemm.argtypes = [p, p, p, p, i, i, i, i, p]
             lib.occm_ffn_gemm.restype = i

@@ -8,9 +8,13 @@ whole parameter list: the leaves are cut into chunks of `CHUNK` elements
 and handed over as one table (`build_tables`), and the kernel reads p, m,
 v, g once and writes p, m, v once. On CPU tensors the same table walk runs
 `adam_reference`, the same formula (`_adam_math`) in plain PyTorch. The
-bias corrections 1/(1 - b^t) are computed on the host in fp32, as the JAX
-wrapper computes them outside its kernel. Unlike the functional JAX
-optimizer, the update is in place: parameters and moments are not copied.
+step count t lives in a device tensor (`FusedAdam.count_t`): each step
+increments it with a launch of its own, and then the kernel (or, on the
+CPU, `bias_corrections_of`) computes the bias corrections 1/(1 - b^t) in
+fp32 from it, as the JAX wrapper computes them outside its kernel. So no
+per-step value is baked into a launch, and a CUDA graph of the step stays
+right on every replay. Unlike the functional JAX optimizer, the update is
+in place: parameters and moments are not copied.
 The table's p, m and v pointers are kept across steps while every p, m and
 v keeps its storage, which each step checks; only the gradient pointers are
 gathered per step.
@@ -42,10 +46,25 @@ def bias_corrections(t: int, b1: float, b2: float):
     return float(inv_bc1), float(inv_bc2)
 
 
+def bias_corrections_of(count: torch.Tensor, b1: float, b2: float):
+    """(1/(1 - b1^t), 1/(1 - b2^t)) as fp32 tensors on the count's device,
+    from the step count t in the 0-d tensor `count`: the plain version of
+    the kernel's own computation (within one fp32 rounding of
+    `bias_corrections`: the two fp32 pows may round apart)."""
+    t = count.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=count.device)
+    inv_bc1 = one / (one - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                                  device=count.device), t))
+    inv_bc2 = one / (one - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                                  device=count.device), t))
+    return inv_bc1, inv_bc2
+
+
 def adam_reference(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                   g: torch.Tensor, inv_bc1: float, inv_bc2: float, lr: float,
+                   g: torch.Tensor, inv_bc1, inv_bc2, lr: float,
                    b1: float, b2: float, eps: float) -> None:
-    """Plain version of the kernel: `_adam_math`, written into p, m, v."""
+    """Plain version of the kernel's update: `_adam_math` with the given
+    bias corrections (floats or 0-d fp32 tensors), written into p, m, v."""
     new_m = b1 * m + (1.0 - b1) * g
     new_v = b2 * v + (1.0 - b2) * g * g
     mhat = new_m * inv_bc1
@@ -124,14 +143,22 @@ class _Plan:
         return (present == self.present and len(tensors) == len(self.held)
                 and np.array_equal(_pointers(tensors), self.pointers))
 
-    def run(self, params, mu, nu, grads, hyper) -> None:
+    def run(self, params, mu, nu, grads, count: torch.Tensor,
+            hyper) -> None:
         """Every launch of the plan: the kernel on the card, the same table
-        walk in plain PyTorch on the CPU. `hyper` is (inv_bc1, inv_bc2, lr,
+        walk in plain PyTorch on the CPU. `count` is the 0-d int64 step
+        count t of this update on the parameters' device; `hyper` is (lr,
         b1, b2, eps)."""
         global LAUNCHES
         gs = [None if g is None else _grad_for(p, g)
               for p, g in zip(params, grads)]
+        if count.device != self.device or count.dtype != torch.int64 or (
+                count.dim() != 0):
+            raise ValueError("the step count is a 0-d int64 tensor on the "
+                             "parameters' device")
+        lr, b1, b2, eps = hyper
         if self.device.type == "cpu":
+            inv_bc1, inv_bc2 = bias_corrections_of(count, b1, b2)
             for idx, starts in self.tables:
                 for k, i in enumerate(idx):
                     flat = [t.view(-1) for t in (params[i], mu[i], nu[i],
@@ -139,7 +166,8 @@ class _Plan:
                     n = flat[0].numel()
                     for c in range(starts[k + 1] - starts[k]):
                         s, e = c * CHUNK, min((c + 1) * CHUNK, n)
-                        adam_reference(*(t[s:e] for t in flat), *hyper)
+                        adam_reference(*(t[s:e] for t in flat), inv_bc1,
+                                       inv_bc2, lr, b1, b2, eps)
             return
         if not all(g is None or g.is_cuda for g in gs):
             raise ValueError("gradients and parameters on different devices")
@@ -147,7 +175,6 @@ class _Plan:
         from occm_tpu_torch.ops import _build
 
         lib = _build.load()
-        inv_bc1, inv_bc2, lr, b1, b2, eps = hyper
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
             for (idx, _), (pp, mp, vp, n, starts) in zip(self.tables,
@@ -157,7 +184,7 @@ class _Plan:
                 err = lib.occm_fused_adam(
                     len(idx), pp.ctypes.data, mp.ctypes.data, vp.ctypes.data,
                     gp.ctypes.data, n.ctypes.data, starts.ctypes.data, CHUNK,
-                    lr, b1, 1.0 - b1, b2, 1.0 - b2, eps, inv_bc1, inv_bc2,
+                    lr, b1, 1.0 - b1, b2, 1.0 - b2, eps, count.data_ptr(),
                     stream)
                 if err != 0:
                     raise RuntimeError(
@@ -176,15 +203,16 @@ def _grad_for(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def fused_adam_leaf(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                    g: torch.Tensor, inv_bc1: float, inv_bc2: float,
-                    lr: float, b1: float, b2: float, eps: float) -> None:
-    """One Adam step on one leaf, in place: a one-leaf launch of the
+                    g: torch.Tensor, count: torch.Tensor, lr: float,
+                    b1: float, b2: float, eps: float) -> None:
+    """One Adam step on one leaf, in place, at the step count t held in
+    the 0-d int64 tensor `count` (on p's device): a one-leaf launch of the
     kernel on CUDA tensors (fp32, contiguous p, m, v of one shape), the
     plain version on CPU tensors."""
     if g.device != p.device:
         raise ValueError("p, m, v, g on different devices")
-    _Plan([p], [m], [v], [True]).run(
-        [p], [m], [v], [g], (inv_bc1, inv_bc2, lr, b1, b2, eps))
+    _Plan([p], [m], [v], [True]).run([p], [m], [v], [g], count,
+                                     (lr, b1, b2, eps))
 
 
 class FusedAdam:
@@ -196,14 +224,26 @@ class FusedAdam:
         self.b1 = float(b1)
         self.b2 = float(b2)
         self.eps = float(eps)
-        self.count = 0
+        #: the step count, a 0-d int64 tensor on the parameters' device
+        self.count_t = torch.zeros((), dtype=torch.int64)
         self.mu: List[torch.Tensor] = []
         self.nu: List[torch.Tensor] = []
         self._plan: Optional[_Plan] = None
 
+    @property
+    def count(self) -> int:
+        """The step count (a host read of `count_t`)."""
+        return int(self.count_t)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self.count_t.fill_(int(value))
+
     def init(self, params: Sequence[torch.Tensor]) -> "FusedAdam":
-        """Zero moments shaped like `params`, step count 0."""
-        self.count = 0
+        """Zero moments shaped like `params`, step count 0 (on their
+        device)."""
+        device = params[0].device if params else torch.device("cpu")
+        self.count_t = torch.zeros((), dtype=torch.int64, device=device)
         self.mu = [torch.zeros_like(p, memory_format=torch.contiguous_format)
                    for p in params]
         self.nu = [torch.zeros_like(p, memory_format=torch.contiguous_format)
@@ -215,8 +255,9 @@ class FusedAdam:
     def step(self, params: Sequence[torch.Tensor],
              grads: Sequence[Optional[torch.Tensor]]) -> None:
         """One update of every leaf in place; the step count goes up by
-        one. A leaf whose gradient is None (a parameter the forward never
-        used) is left as it is, as torch.optim.Adam leaves it."""
+        one, on the device, before the update reads it. A leaf whose
+        gradient is None (a parameter the forward never used) is left as it
+        is, as torch.optim.Adam leaves it."""
         if not (len(params) == len(grads) == len(self.mu)):
             raise ValueError(
                 f"{len(params)} params, {len(grads)} grads, {len(self.mu)} "
@@ -225,8 +266,6 @@ class FusedAdam:
         if self._plan is None or not self._plan.matches(
                 params, self.mu, self.nu, present):
             self._plan = _Plan(params, self.mu, self.nu, present)
-        self.count += 1
-        inv_bc1, inv_bc2 = bias_corrections(self.count, self.b1, self.b2)
-        self._plan.run(params, self.mu, self.nu, grads,
-                       (inv_bc1, inv_bc2, self.lr, self.b1, self.b2,
-                        self.eps))
+        self.count_t.add_(1)
+        self._plan.run(params, self.mu, self.nu, grads, self.count_t,
+                       (self.lr, self.b1, self.b2, self.eps))

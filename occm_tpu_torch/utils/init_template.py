@@ -6,8 +6,8 @@ Counterpart of `occm_tpu.utils.init_template`: values come from a seeded
 device. Weights are scaled to their fan-in (normal with std 1/sqrt(fan_in),
 Flax's lecun_normal), so a signal keeps its size through all 24 layers and
 the AASIST backend and the embedding depends on the input; biases are
-normal(0.02); the positional conv's weight norm g is set to ||v||, as
-fairseq's weight_norm initialises it; the graph position and master node
+normal(0.02); the positional conv's folded kernel is drawn as its weight
+norm's v (fairseq's weight_norm sets g = ||v||, so w = v); the graph position and master node
 parameters are normal(1.0), as Flax initialises them; LayerNorm and
 BatchNorm scales are 1 + normal(0.1); BatchNorm running statistics are
 non-trivial (mean normal(0.1), variance uniform(0.5, 1.5)), so eval-mode
@@ -36,8 +36,7 @@ def random_init_(model: nn.Module, seed: int = 0) -> nn.Module:
         for name, p in module.named_parameters(recurse=False):
             if isinstance(module, _NORMS) and name == "weight":
                 value = 1.0 + normal(p.shape, 0.1)
-            elif name in ("weight", "weight_v") or name.startswith(
-                    "att_weight"):
+            elif name == "weight" or name.startswith("att_weight"):
                 # [out, in, *kernel] or [in, 1]: contracted over all but
                 # the leading axis, except att_weight which contracts dim 0
                 fan_in = (p.shape[0] if name.startswith("att_weight")
@@ -45,15 +44,9 @@ def random_init_(model: nn.Module, seed: int = 0) -> nn.Module:
                 value = normal(p.shape, 1.0 / math.sqrt(fan_in))
             elif name in ("pos_S", "master1", "master2"):
                 value = normal(p.shape, 1.0)
-            elif name == "weight_g":
-                continue  # set from weight_v below
             else:
                 value = normal(p.shape, 0.02)
             p.copy_(value)
-        if hasattr(module, "weight_g"):
-            v = module.weight_v
-            module.weight_g.copy_(
-                torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True)))
         if isinstance(module, (nn.BatchNorm1d, nn.BatchNorm2d)):
             module.running_mean.copy_(normal(module.running_mean.shape, 0.1))
             module.running_var.copy_(

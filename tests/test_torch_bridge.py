@@ -95,24 +95,34 @@ def test_zero_conv_biases_are_emitted_as_zeros(flax_variables):
 
 def test_pos_conv_weight_norm_folds_back(flax_variables):
     """g is the norm of v = w [C, C/G, K] over axes (0, 1); PosConv folds
-    w = g * v / ||v|| back to the Flax kernel."""
+    w = g * v / ||v|| into the kernel it trains, the Flax kernel; a
+    rescaled v folds to the same kernel (only its direction counts); and
+    its state dict is fairseq's pair again, v = w and g = ||w||, which
+    loads back to the same kernel bit for bit."""
     cfg = XLSRConfig.tiny()
     model = AModel(AASISTConfig.tiny(), cfg)
-    model.load_state_dict(state_dict_from_flax(flax_variables, cfg))
+    sd = state_dict_from_flax(flax_variables, cfg)
+    model.load_state_dict(sd, strict=True)
     pos = model.ssl_model.model.encoder.pos_conv[0]
     c, k = cfg.encoder_embed_dim, cfg.conv_pos
-    assert pos.weight_g.shape == (1, 1, k)
-    assert pos.weight_v.shape == (c, c // cfg.conv_pos_groups, k)
+    assert [n for n, _ in pos.named_parameters()] == ["weight", "bias"]
+    assert pos.weight.shape == (c, c // cfg.conv_pos_groups, k)
     kernel = flax_variables["params"]["ssl_model"]["pos_conv"]["kernel"]
     want = np.asarray(kernel).transpose(2, 1, 0)
-    with torch.no_grad():
-        got = pos.weight().numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
-    # a rescaled v folds to the same weight: only its direction counts
-    with torch.no_grad():
-        pos.weight_v.mul_(3.0)
-        np.testing.assert_allclose(pos.weight().numpy(), want, rtol=1e-6,
-                                   atol=1e-7)
+    np.testing.assert_allclose(pos.weight.detach().numpy(), want, rtol=1e-6,
+                               atol=1e-7)
+    key = "ssl_model.model.encoder.pos_conv.0."
+    sd[key + "weight_v"] = 3.0 * sd[key + "weight_v"]
+    model.load_state_dict(sd, strict=True)
+    np.testing.assert_allclose(pos.weight.detach().numpy(), want, rtol=1e-6,
+                               atol=1e-7)
+    saved = model.state_dict()
+    assert saved[key + "weight_g"].shape == (1, 1, k)
+    assert torch.equal(saved[key + "weight_v"], pos.weight.detach())
+    again = AModel(AASISTConfig.tiny(), cfg)
+    again.load_state_dict(saved, strict=True)
+    assert torch.equal(again.ssl_model.model.encoder.pos_conv[0].weight,
+                       pos.weight)
 
 
 @pytest.mark.parametrize("wrap", ["plain", "model_key", "dataparallel"])

@@ -107,9 +107,9 @@ def test_leaf_wrapper_rejects_bad_arguments(bad):
         g = torch.zeros(5)
     else:
         p, m, v, g = (x.to("meta") for x in (p, m, v, g))
+    count = torch.ones((), dtype=torch.int64, device=p.device)
     with pytest.raises(ValueError):
-        fused_adam.fused_adam_leaf(p, m, v, g, 1.0, 1.0, 1e-3, 0.9, 0.999,
-                                   1e-8)
+        fused_adam.fused_adam_leaf(p, m, v, g, count, 1e-3, 0.9, 0.999, 1e-8)
 
 
 # ------------------------------------------------ the multi-tensor launch
@@ -147,7 +147,7 @@ def test_tables_cover_every_element_once(monkeypatch):
 
 
 def test_full_amodel_takes_one_launch():
-    """The full AModel's 606 leaves, 596 with a gradient (the 10 of the
+    """The full AModel's 605 leaves, 595 with a gradient (the 10 of the
     AASIST `bn1` that never runs have none), fit one launch."""
     from occm_tpu_torch.config import AASISTConfig, XLSRConfig
     from occm_tpu_torch.models import AModel
@@ -155,9 +155,9 @@ def test_full_amodel_takes_one_launch():
     with torch.device("meta"):
         named = list(AModel(AASISTConfig(), XLSRConfig()).named_parameters())
     present = [".bn1." not in n for n, _ in named]
-    assert len(named) == 606 and sum(present) == 596
+    assert len(named) == 605 and sum(present) == 595
     tables = fused_adam.build_tables([p.numel() for _, p in named], present)
-    assert len(tables) == 1 and len(tables[0][0]) == 596
+    assert len(tables) == 1 and len(tables[0][0]) == 595
     assert tables[0][1][-1] == sum(-(-p.numel() // fused_adam.CHUNK)
                                    for (_, p), ok in zip(named, present)
                                    if ok)
@@ -264,3 +264,67 @@ def test_plan_is_rebuilt_when_storage_is_replaced():
     for i in range(2):
         assert torch.equal(tp[i].detach(), rp[i]), i
         assert torch.equal(opt.mu[i], rm[i]) and torch.equal(opt.nu[i], rv[i])
+
+
+def test_step_count_and_bias_corrections_come_from_the_device_tensor():
+    """FusedAdam keeps its step count in a 0-d int64 tensor on the
+    parameters' device and increments it there before each update; the
+    update's bias corrections are computed from that tensor
+    (`bias_corrections_of`, the plain version of the kernel's own, within
+    one fp32 rounding of the host's fp32 `bias_corrections`). Across
+    TrainState's optimizer_state / load_optimizer_state, 2 + 3 steps are
+    the 5 uninterrupted steps bit for bit and JAX FusedAdam's 5 at atol
+    1e-6 / rtol 1e-5."""
+    from occm_tpu_torch.train.state import TrainState
+
+    lr = 1e-3
+    params = _params(2)
+
+    def fresh():
+        model = torch.nn.ParameterDict(
+            {k: torch.nn.Parameter(torch.from_numpy(params[k].copy()))
+             for k in SHAPES})
+        return TrainState(model=model, optimizer=make_optimizer(
+            TrainConfig(optimizer="fused_adam", lr=lr),
+            list(model.parameters())), generator=torch.Generator())
+
+    def step(state, i):
+        g = _grads(i)
+        for k, p in state.model.items():
+            p.grad = torch.from_numpy(g[k])
+        count = state.optimizer.count_t
+        state.apply_gradients()
+        assert count is state.optimizer.count_t and count.dtype == torch.int64
+        assert int(count) == i + 1
+        got = fused_adam.bias_corrections_of(count, 0.9, 0.999)
+        np.testing.assert_allclose(  # two fp32 pows: one rounding apart
+            [float(t) for t in got],
+            fused_adam.bias_corrections(i + 1, 0.9, 0.999), rtol=2.4e-7)
+
+    whole = fresh()
+    for i in range(5):
+        step(whole, i)
+    first = fresh()
+    for i in range(2):
+        step(first, i)
+    saved = first.optimizer_state()
+    assert saved["count"] == 2
+    second = fresh()
+    with torch.no_grad():
+        for k, p in second.model.items():
+            p.copy_(first.model[k])
+    second.load_optimizer_state(saved)
+    assert int(second.optimizer.count_t) == 2
+    for i in range(2, 5):
+        step(second, i)
+    jopt = JFusedAdam(lr, interpret=True)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = jopt.init(jp)
+    for i in range(5):
+        jp, jstate = jopt.apply(
+            jp, {k: jnp.asarray(v) for k, v in _grads(i).items()}, jstate)
+    for k in SHAPES:
+        assert torch.equal(second.model[k], whole.model[k]), k
+        np.testing.assert_allclose(whole.model[k].detach().numpy(),
+                                   np.asarray(jp[k]), atol=1e-6, rtol=1e-5,
+                                   err_msg=k)

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile       # every phase + device time by kernel
     python3 chip_smoke.py --kernels-only  # phases 1-3 only
     python3 chip_smoke.py --controls-only # phases 1, 2 and 8 only
+    python3 chip_smoke.py --rawboost-only # phases 1, 2 and 9-11 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -102,10 +103,33 @@ Phases (any failure ends the run with a non-zero exit and no last line):
      and deleted; then the same with --steps_per_dispatch 3 (SIGTERM
      after the first chunk), again bit for bit as the eager run;
    - the bytes of dropout masks that remat holds with every XLSR rate on.
-9. with --profile only: device time by kernel (torch.profiler) for full
+9. RawBoost (`occm_tpu_torch.augment`, plain PyTorch: no kernel of its
+   own) on the card at one training batch, [12, 96000] fp32, algos 1-8:
+   draws from a seeded CUDA generator; the card's apply against the CPU's
+   on the same draws within RB_ATOL (algo 4 also with valid lengths); ISD's
+   subset equal on both and changing exactly its n_sel samples a row;
+   SSI's realised SNR equal to its draw and in [SNRmin, SNRmax]; finite
+   outputs; one call captured in a CUDA graph, its replays equal to eager
+   calls bit for bit; per algo the time of a call with its draws (CUDA
+   events), its device time and device launches (torch.profiler).
+10. training with RawBoost at full width (phase 8's configuration): algo 5
+   with AASIST's dropouts as 2 CUDA graph launches of 3 steps against 6
+   eager steps, bit for bit under deterministic algorithms; step wall ms
+   eager and as a graph of 3 steps, algo 0 against algo 5, in turns, and
+   the device launches and busy time a step that algo 5 adds; through the
+   CLI, --rawboost_algo 5 for 6 eager steps with finite losses, and a
+   --steps_per_dispatch 3 run sent SIGTERM after its first chunk and
+   resumed, equal to them bit for bit.
+11. --pretrained_xlsr at full width: a random XLS-R 300M encoder written
+   as a fairseq .pt (a cfg whose class cannot be imported, the
+   pretraining-only tensors) and as an HF .safetensors; each grafted into
+   XLSREncoder (load time; every tensor equal to the file bit for bit, the
+   positional conv within FOLD_RTOL of the fp64 weight-norm fold), then
+   one CLI training step from each with a finite loss, the two equal.
+12. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-10. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
+13. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -242,6 +266,37 @@ def device_ms(fn, names, iters: int = 20, warmup: int = 3,
         fail(f"profile: no device event named {names} "
              f"({every / iters} device events a call)")
     return us / iters / 1e3, own / iters, every / iters
+
+
+def calls_device_ms(fn, iters: int = 20, warmup: int = 3,
+                    sessions: int = 2):
+    """Device time and device launches per call of everything fn launches
+    (plain PyTorch, not one kernel): torch.profiler's CUDA events over
+    `iters` calls, from the one of `sessions` sessions that recorded the
+    most events (a session may lose records, see device_ms). Unlike a
+    kernel wrapper's, the count need not be a whole multiple of iters: on
+    the H100, after phase 8, every session of RawBoost's 20 calls recorded
+    one device event more than 20 times a call's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    best = (0, 0.0)
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        best = max(best, (len(events), sum(e.time_range.elapsed_us()
+                                           for e in events)))
+    if best[0] == 0:
+        fail(f"profile: {sessions} sessions recorded no device event")
+    return best[1] / iters / 1e3, best[0] / iters
 
 
 def library_device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1871,6 +1926,131 @@ def wall_ms(fn, steps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
+class GraphCheck:
+    """What `graph_vs_eager` runs on and collects: the batches, a factory
+    of models from the initial weights, each kernel wrapper's launches per
+    step, the loss bound's inputs (flip_l1, g_l1), the wrappers' launches
+    (eager, warm-up and capture), the graphs' replayed launches, and the
+    timings by check."""
+
+    def __init__(self, batches, model_from_init, per_step):
+        self.batches = batches
+        self.model_from_init = model_from_init
+        self.per_step = per_step
+        self.flip_l1 = self.g_l1 = 0.0
+        self.launches = dict.fromkeys(per_step, 0)
+        self.graph_launches = dict.fromkeys(per_step, 0)
+        self.timing = {}
+
+
+def graph_vs_eager(ctx, name, cfg, aasist, exact=False):
+    """6 eager steps, then the same 6 steps as 2 chunks of 3
+    through one CUDA graph, from the same weights and dropout
+    generator seed; each step's loss within loss_bound, or equal
+    bit for bit when `exact`. `ctx` (a GraphCheck) holds the batches, the
+    initial weights, each kernel's launches per step and the loss bound's
+    inputs, and collects launches and timings. Returns the graph run's
+    dispatches."""
+    import dataclasses
+
+    import torch
+
+    from occm_tpu_torch.ops import launch_counts
+    from occm_tpu_torch.train import create_train_state, train
+    from occm_tpu_torch.train.loop import train_step
+    from occm_tpu_torch.utils.logging import MetricsLogger
+
+    eager_cfg = dataclasses.replace(cfg, steps_per_dispatch=1)
+    graph_cfg = dataclasses.replace(cfg,
+                                    steps_per_dispatch=CONTROL_K)
+    each = {**ctx.per_step,
+            "fused_adam": int(cfg.optimizer == "fused_adam")}
+    reset_counts()
+    eager_state = create_train_state(
+        ctx.model_from_init(aasist).to(DEVICE), eager_cfg)
+    rec = StepRecorder()
+    for x, labels in ctx.batches:
+        rec(eager_state.step + 1, train_step(
+            eager_state, torch.from_numpy(x).to(DEVICE),
+            torch.from_numpy(labels).to(DEVICE), eager_cfg))
+    eager_weights = {n: t.detach().clone() for n, t
+                     in eager_state.model.state_dict().items()
+                     } if exact else {}
+    del eager_state
+    eager_counts = launch_counts()
+    check_steps(f"controls {name} eager", rec, {
+        **each, "flash_attn_bwd_dout_copies": 0})
+    torch.cuda.empty_cache()
+    before = launch_counts()
+    chunks = ChunkRecorder()
+    state = train(ctx.model_from_init(aasist), ListPipeline(ctx.batches),
+                  graph_cfg, logger=MetricsLogger(None, None), num_epochs=1,
+                  device=DEVICE, on_step=chunks)
+    after = launch_counts()
+    runner = state.graph
+    shapes = list(runner.capture_launches) if runner else []
+    if len(shapes) != 1:
+        fail(f"controls {name}: captured {shapes}, want one chunk "
+             "shape")
+    captured = runner.capture_launches[shapes[0]]
+    if runner.replays != len(chunks.dispatches) or (
+            runner.replays != 2):
+        fail(f"controls {name}: {runner.replays} graph launches "
+             f"for {len(chunks.dispatches)} chunks, want one per "
+             "chunk (2)")
+    for key, n in each.items():
+        # the capture recorded k steps' launches; the eager
+        # warm-up step before it launched one step's
+        if captured[key] != CONTROL_K * n:
+            fail(f"controls {name}: the capture recorded "
+                 f"{captured[key]} {key} launches, want "
+                 f"{CONTROL_K} x {n}")
+        if after[key] - before[key] != (CONTROL_K + 1) * n:
+            fail(f"controls {name}: {after[key] - before[key]} "
+                 f"{key} wrapper calls in the graph run, want "
+                 f"warm-up + capture = {(CONTROL_K + 1) * n}")
+        ctx.launches[key] += (after[key] - before[key]
+                          + eager_counts[key])
+        ctx.graph_launches[key] += captured[key] * runner.replays
+    got = [v for d in chunks.dispatches for v in d["losses"]]
+    want = [st["loss"] for st in rec.steps]
+    if len(got) != len(want):
+        fail(f"controls {name}: {len(got)} graph steps, {len(want)} "
+             "eager")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        bound = 0.0 if exact else loss_bound(b, i + 1, cfg.lr,
+                                             ctx.flip_l1, ctx.g_l1)
+        diff = abs(a - b)
+        worst = max(worst, diff)
+        print(f"[controls] {name} step {i + 1}: loss graph "
+              f"{a:.9f}, eager {b:.9f}, |diff| {diff:.3e} (bound "
+              f"{bound:.3e})", flush=True)
+        if not (math.isfinite(a) and diff <= bound):
+            fail(f"controls {name}: step {i + 1} graph loss {a} vs "
+                 f"eager {b}: |diff| {diff} > {bound}")
+    differ = [n for n, t in state.model.state_dict().items()
+              if n in eager_weights
+              and not torch.equal(t, eager_weights[n])]
+    if differ:
+        fail(f"controls {name}: the graph run's final weights differ "
+             f"from the eager run's in {len(differ)} tensors, e.g. "
+             f"{differ[:3]}")
+    del eager_weights
+    ctx.timing[name] = dict(
+        capture_s=runner.capture_seconds[shapes[0]],
+        max_loss_diff=worst, bit_identical=got == want)
+    print(f"[controls] {name}: largest |loss diff| {worst:.3e} "
+          f"(bit-identical: {got == want}); graph launches "
+          f"{runner.replays}, launches per replay {captured}, "
+          f"capture {runner.capture_seconds[shapes[0]]:.2f} s",
+          flush=True)
+    del state, runner
+    gc.collect()  # a state and its graph runner refer to each other
+    torch.cuda.empty_cache()
+    return chunks
+
+
 def phase_train_controls(workdir: str, fixture):
     """Phase 8: the training controls at full width (12 x 6 s meta-batches,
     flash attention, ln_impl and ffn_impl "pallas", remat, AASIST dropouts
@@ -1893,11 +2073,9 @@ def phase_train_controls(workdir: str, fixture):
     from occm_tpu_torch.data import MetaBatchPipeline, PFDataset
     from occm_tpu_torch.losses import group_one_class_loss
     from occm_tpu_torch.models import AModel
-    from occm_tpu_torch.ops import launch_counts
-    from occm_tpu_torch.train import create_train_state, train
+    from occm_tpu_torch.train import create_train_state
     from occm_tpu_torch.train.graph import GraphedSteps
     from occm_tpu_torch.train.loop import train_step
-    from occm_tpu_torch.utils.logging import MetricsLogger
 
     protocol, train_dir, voc_dir = fixture
     t_phase = time.perf_counter()
@@ -1925,12 +2103,9 @@ def phase_train_controls(workdir: str, fixture):
         model.load_state_dict(init)
         return model
 
-    def logger():
-        return MetricsLogger(None, None)
-
-    launches = dict.fromkeys(per_step, 0)
-    graph_launches = dict.fromkeys(per_step, 0)
-    timing = {}
+    check = GraphCheck(batches, model_from_init, per_step)
+    launches, graph_launches = check.launches, check.graph_launches
+    timing = check.timing
 
     # ---- graph against eager, under deterministic algorithms
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -1949,127 +2124,31 @@ def phase_train_controls(workdir: str, fixture):
             loss0.backward()
             grads.append([p.grad for p in model.parameters()])
             del model, emb, logits, loss0
-        flip_l1 = g_l1 = 0.0
         for ga, gb in zip(*grads):
             if ga is not None:
                 flip = torch.sign(ga) != torch.sign(gb)
-                flip_l1 += float(((ga.abs() + gb.abs()) * flip).sum())
-                g_l1 += float(ga.abs().sum())
+                check.flip_l1 += float(((ga.abs() + gb.abs()) * flip).sum())
+                check.g_l1 += float(ga.abs().sum())
         del grads
         torch.cuda.empty_cache()
         print(f"[controls] two backward passes at the initial weights "
-              f"(deterministic algorithms): sign-flip L1 {flip_l1:.6g}, "
-              f"gradient L1 {g_l1:.6g}", flush=True)
+              f"(deterministic algorithms): sign-flip L1 "
+              f"{check.flip_l1:.6g}, gradient L1 {check.g_l1:.6g}",
+              flush=True)
 
-        def graph_vs_eager(name, cfg, aasist=acfg, exact=False):
-            """6 eager steps, then the same 6 steps as 2 chunks of 3
-            through one CUDA graph, from the same weights and dropout
-            generator seed; each step's loss within loss_bound, or equal
-            bit for bit when `exact`. Returns the graph run's
-            dispatches."""
-            eager_cfg = dataclasses.replace(cfg, steps_per_dispatch=1)
-            graph_cfg = dataclasses.replace(cfg,
-                                            steps_per_dispatch=CONTROL_K)
-            each = {**per_step,
-                    "fused_adam": int(cfg.optimizer == "fused_adam")}
-            reset_counts()
-            eager_state = create_train_state(
-                model_from_init(aasist).to(DEVICE), eager_cfg)
-            rec = StepRecorder()
-            for x, labels in batches:
-                rec(eager_state.step + 1, train_step(
-                    eager_state, torch.from_numpy(x).to(DEVICE),
-                    torch.from_numpy(labels).to(DEVICE), eager_cfg))
-            eager_weights = {n: t.detach().clone() for n, t
-                             in eager_state.model.state_dict().items()
-                             } if exact else {}
-            del eager_state
-            eager_counts = launch_counts()
-            check_steps(f"controls {name} eager", rec, {
-                **each, "flash_attn_bwd_dout_copies": 0})
-            torch.cuda.empty_cache()
-            before = launch_counts()
-            chunks = ChunkRecorder()
-            state = train(model_from_init(aasist), ListPipeline(batches),
-                          graph_cfg, logger=logger(), num_epochs=1,
-                          device=DEVICE, on_step=chunks)
-            after = launch_counts()
-            runner = state.graph
-            shapes = list(runner.capture_launches) if runner else []
-            if len(shapes) != 1:
-                fail(f"controls {name}: captured {shapes}, want one chunk "
-                     "shape")
-            captured = runner.capture_launches[shapes[0]]
-            if runner.replays != len(chunks.dispatches) or (
-                    runner.replays != 2):
-                fail(f"controls {name}: {runner.replays} graph launches "
-                     f"for {len(chunks.dispatches)} chunks, want one per "
-                     "chunk (2)")
-            for key, n in each.items():
-                # the capture recorded k steps' launches; the eager
-                # warm-up step before it launched one step's
-                if captured[key] != CONTROL_K * n:
-                    fail(f"controls {name}: the capture recorded "
-                         f"{captured[key]} {key} launches, want "
-                         f"{CONTROL_K} x {n}")
-                if after[key] - before[key] != (CONTROL_K + 1) * n:
-                    fail(f"controls {name}: {after[key] - before[key]} "
-                         f"{key} wrapper calls in the graph run, want "
-                         f"warm-up + capture = {(CONTROL_K + 1) * n}")
-                launches[key] += (after[key] - before[key]
-                                  + eager_counts[key])
-                graph_launches[key] += captured[key] * runner.replays
-            got = [v for d in chunks.dispatches for v in d["losses"]]
-            want = [st["loss"] for st in rec.steps]
-            if len(got) != len(want):
-                fail(f"controls {name}: {len(got)} graph steps, {len(want)} "
-                     "eager")
-            worst = 0.0
-            for i, (a, b) in enumerate(zip(got, want)):
-                bound = 0.0 if exact else loss_bound(b, i + 1, cfg.lr,
-                                                     flip_l1, g_l1)
-                diff = abs(a - b)
-                worst = max(worst, diff)
-                print(f"[controls] {name} step {i + 1}: loss graph "
-                      f"{a:.9f}, eager {b:.9f}, |diff| {diff:.3e} (bound "
-                      f"{bound:.3e})", flush=True)
-                if not (math.isfinite(a) and diff <= bound):
-                    fail(f"controls {name}: step {i + 1} graph loss {a} vs "
-                         f"eager {b}: |diff| {diff} > {bound}")
-            differ = [n for n, t in state.model.state_dict().items()
-                      if n in eager_weights
-                      and not torch.equal(t, eager_weights[n])]
-            if differ:
-                fail(f"controls {name}: the graph run's final weights differ "
-                     f"from the eager run's in {len(differ)} tensors, e.g. "
-                     f"{differ[:3]}")
-            del eager_weights
-            timing[name] = dict(
-                capture_s=runner.capture_seconds[shapes[0]],
-                max_loss_diff=worst, bit_identical=got == want)
-            print(f"[controls] {name}: largest |loss diff| {worst:.3e} "
-                  f"(bit-identical: {got == want}); graph launches "
-                  f"{runner.replays}, launches per replay {captured}, "
-                  f"capture {runner.capture_seconds[shapes[0]]:.2f} s",
-                  flush=True)
-            del state, runner
-            gc.collect()  # a state and its graph runner refer to each other
-            torch.cuda.empty_cache()
-            return chunks
-
-        graph_vs_eager("fused_adam k=3", dataclasses.replace(
-            base, optimizer="fused_adam"))
+        graph_vs_eager(check, "fused_adam k=3", dataclasses.replace(
+            base, optimizer="fused_adam"), acfg)
         # adam under a cosine schedule: each step's lr read back
         cos_cfg = dataclasses.replace(base, optimizer="adam",
                                       lr_schedule="cosine", warmup_steps=1,
                                       decay_steps=5)
-        achunks = graph_vs_eager("adam cosine k=3", cos_cfg)
+        achunks = graph_vs_eager(check, "adam cosine k=3", cos_cfg, acfg)
         # the CLI's model: AASIST's default dropouts, drawn in every step
         # from the state's CUDA generator. A graph that replayed its
         # capture's masks, or whose generator missed the replays' draws,
         # would part from the eager run at the second chunk
-        graph_vs_eager("adam dropout k=3", dataclasses.replace(
-            base, optimizer="adam"), aasist=AASISTConfig(), exact=True)
+        graph_vs_eager(check, "adam dropout k=3", dataclasses.replace(
+            base, optimizer="adam"), AASISTConfig(), exact=True)
         from occm_tpu_torch.train.schedules import make_schedule
 
         sched = make_schedule(cos_cfg)
@@ -2301,11 +2380,13 @@ def phase_grad_accum(batches, base, model_from_init, per_step, launches):
     return result
 
 
-def phase_resume(workdir: str, fixture, launches):
+def phase_resume(workdir: str, fixture, launches, flags=(), eager=True,
+                 label="resume"):
     """Resume through `oc_training.main` (the CLI's defaults: AASIST
-    dropouts on, drawn from the CUDA generator, torch Adam) with
-    --checkpoint_every_steps 2, under torch.use_deterministic_algorithms,
-    against one uninterrupted run of 6 eager steps:
+    dropouts on, drawn from the CUDA generator, torch Adam; plus `flags`)
+    with --checkpoint_every_steps 2, under
+    torch.use_deterministic_algorithms, against one uninterrupted run of 6
+    eager steps (every loss finite):
     - eager steps: a run sent SIGTERM from its on_step hook after step 2
       saves and returns; --resume finishes the epoch; steps 3-6 and the
       final weights equal the uninterrupted run's bit for bit; the step-2
@@ -2313,7 +2394,8 @@ def phase_resume(workdir: str, fixture, launches):
     - --steps_per_dispatch 3 (two chunks, each one CUDA graph launch): the
       SIGTERM after the first chunk saves at step 3 (the generator's state
       after a replay), --resume replays the second chunk, and all 6 steps
-      and the final weights again equal the eager run's bit for bit."""
+      and the final weights again equal the eager run's bit for bit.
+    eager=False runs the uninterrupted run and the graphs' case only."""
     import signal
 
     import torch
@@ -2329,7 +2411,7 @@ def phase_resume(workdir: str, fixture, launches):
                 "--model", "aasist", "--cut", str(TRAIN_CUT),
                 "--num_epochs", "1", "--compactness_weight", "0.1",
                 "--descriptiveness_weight", "0.9", "--checkpoint_dir",
-                ckpt_dir, *extra]
+                ckpt_dir, *flags, *extra]
 
     def losses_of(metrics):
         if "step_loss" in metrics:  # a chunk: each of its steps
@@ -2371,7 +2453,7 @@ def phase_resume(workdir: str, fixture, launches):
         gc.collect()
         shutil.rmtree(run_dir)
         torch.cuda.empty_cache()
-        print(f"[controls] resume {name}: stopped at step {stopped} with "
+        print(f"[controls] {label} {name}: stopped at step {stopped} with "
               f"{files_after_stop}; resumed steps {[s for s, _, _ in seen]}, "
               f"files seen at each {[f for _, _, f in seen]}, at the end "
               f"{final_files}; losses first {first}, resumed "
@@ -2382,15 +2464,15 @@ def phase_resume(workdir: str, fixture, launches):
         stopped, files_after_stop, seen, final_files, first, weights = got
         resumed_losses = [v for _, l, _ in seen for v in l]
         if first + resumed_losses != ref_losses:
-            fail(f"resume {name}: losses {first} + {resumed_losses} differ "
+            fail(f"{label} {name}: losses {first} + {resumed_losses} differ "
                  f"from the uninterrupted run's {ref_losses}")
         differ = [k for k in weights if not torch.equal(weights[k],
                                                         ref_weights[k])]
         if differ:
-            fail(f"resume {name}: final weights differ from the "
+            fail(f"{label} {name}: final weights differ from the "
                  f"uninterrupted run's in {len(differ)} tensors, e.g. "
                  f"{differ[:3]}")
-        print(f"[controls] resume {name}: the losses and the final weights "
+        print(f"[controls] {label} {name}: the losses and the final weights "
               f"equal the uninterrupted run's bit for bit ({len(weights)} "
               f"tensors)", flush=True)
 
@@ -2401,15 +2483,17 @@ def phase_resume(workdir: str, fixture, launches):
     try:
         ref_losses = []
         ref_dir = os.path.join(workdir, "resume_ref")
+        t0 = time.perf_counter()
         ref = oc_training.main(args(ref_dir), on_step=lambda s, m:
                                ref_losses.extend(losses_of(m)))
+        ref_s = time.perf_counter() - t0
         ref_weights = {k: v.detach().cpu() for k, v
                        in ref.model.state_dict().items()}
         del ref
         shutil.rmtree(ref_dir)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        eager = interrupted("eager", RESUME_EVERY)
+        eager = interrupted("eager", RESUME_EVERY) if eager else None
         resume_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         graph = interrupted("graph", CONTROL_K, "--steps_per_dispatch",
@@ -2421,41 +2505,533 @@ def phase_resume(workdir: str, fixture, launches):
     after = launch_counts()
     for key in launches:
         launches[key] += after[key] - before[key]
-    print(f"[controls] resume: uninterrupted losses {ref_losses}", flush=True)
-
-    stopped, files_after_stop, seen, final_files, _, _ = eager
-    if stopped != 2 or files_after_stop != ["aasist_vocoded_step_2.pt"]:
-        fail(f"resume eager: the SIGTERM run stopped at {stopped} with "
-             f"{files_after_stop}, want step 2 and its step checkpoint")
-    if [s for s, _, _ in seen] != [3, 4, 5, 6]:
-        fail(f"resume eager: resumed steps {[s for s, _, _ in seen]}, want "
-             "3-6")
-    if (seen[1][2] != ["aasist_vocoded_step_2.pt"]
-            or seen[2][2] != ["aasist_vocoded_step_4.pt"]
-            or final_files != ["aasist_vocoded_0.pt",
-                               "aasist_vocoded_step_6.pt"]):
-        fail("resume eager: the step-2 checkpoint was not replaced at step 4 "
-             "and deleted")
-    check("eager", ref_losses, ref_weights, eager)
+    print(f"[controls] {label}: uninterrupted losses {ref_losses} "
+          f"({ref_s:.1f} s, model build and checkpoint included)",
+          flush=True)
+    if len(ref_losses) != 2 * CONTROL_K or not all(
+            math.isfinite(v) for v in ref_losses):
+        fail(f"{label}: the uninterrupted run's losses {ref_losses}")
+    if eager is not None:
+        stopped, files_after_stop, seen, final_files, _, _ = eager
+        if stopped != 2 or files_after_stop != ["aasist_vocoded_step_2.pt"]:
+            fail(f"{label} eager: the SIGTERM run stopped at {stopped} with "
+                 f"{files_after_stop}, want step 2 and its step checkpoint")
+        if [s for s, _, _ in seen] != [3, 4, 5, 6]:
+            fail(f"{label} eager: resumed steps {[s for s, _, _ in seen]}, "
+                 "want 3-6")
+        if (seen[1][2] != ["aasist_vocoded_step_2.pt"]
+                or seen[2][2] != ["aasist_vocoded_step_4.pt"]
+                or final_files != ["aasist_vocoded_0.pt",
+                                   "aasist_vocoded_step_6.pt"]):
+            fail(f"{label} eager: the step-2 checkpoint was not replaced at "
+                 "step 4 and deleted")
+        check("eager", ref_losses, ref_weights, eager)
 
     stopped, files_after_stop, seen, final_files, _, _ = graph
     if stopped != CONTROL_K or files_after_stop != [
             f"aasist_vocoded_step_{CONTROL_K}.pt"]:
-        fail(f"resume graph: the SIGTERM run stopped at {stopped} with "
+        fail(f"{label} graph: the SIGTERM run stopped at {stopped} with "
              f"{files_after_stop}, want step {CONTROL_K} and its step "
              "checkpoint")
     if ([s for s, _, _ in seen] != [2 * CONTROL_K]
             or seen[0][2] != [f"aasist_vocoded_step_{CONTROL_K}.pt"]
             or final_files != ["aasist_vocoded_0.pt",
                                f"aasist_vocoded_step_{2 * CONTROL_K}.pt"]):
-        fail(f"resume graph: resumed dispatches {[s for s, _, _ in seen]} "
+        fail(f"{label} graph: resumed dispatches {[s for s, _, _ in seen]} "
              f"and files {final_files}, want the second chunk and its step "
              "checkpoint in place of the first's")
     check("graph", ref_losses, ref_weights, graph)
-    print(f"[controls] resume: interrupted + resumed wall, eager "
+    print(f"[controls] {label}: interrupted + resumed wall, eager "
           f"{resume_s:.1f} s, graph {graph_resume_s:.1f} s", flush=True)
-    return dict(stopped=eager[0], resume_s=resume_s,
-                graph_stopped=graph[0], graph_resume_s=graph_resume_s)
+    return dict(losses=ref_losses, ref_s=ref_s,
+                stopped=None if eager is None else eager[0],
+                resume_s=resume_s, graph_stopped=graph[0],
+                graph_resume_s=graph_resume_s)
+
+
+# ------------------------------------------------------------------ phase 9
+
+RB_CALLS = 20
+# RawBoost on the card against the CPU on the same draws. Both sides are
+# fp32; they differ by the two FFT libraries' rounding (cuFFT against
+# pocketfft, 131072-point transforms: some 2^-24 * log2(131072), ~1e-6, of
+# the signal's scale of at most 1) and by reductions summed in another
+# order. 1e-4 holds that and fails any wrong tap, crop offset or subset,
+# which moves samples by the signal's own size (~1e-1). ISD's subset is
+# integer logic on the same uniforms and must agree exactly.
+RB_ATOL = 1e-4
+# SSI scales its noise to the drawn SNR exactly, up to fp32 rounding of
+# the two norms and the scale (~1e-6 relative): 1e-3 dB.
+SNR_ATOL_DB = 1e-3
+
+
+def rawboost_graph_check(x) -> None:
+    """One batch_rawboost call of algo 5 captured in a CUDA graph: its
+    replays draw afresh from the registered generator, and equal eager
+    calls from a twin generator of the same seed bit for bit."""
+    import torch
+
+    from occm_tpu_torch.augment import batch_rawboost
+    from occm_tpu_torch.config import RawBoostConfig
+
+    cfg = RawBoostConfig(algo=5)
+    gen = torch.Generator(device=DEVICE).manual_seed(50)
+    twin = torch.Generator(device=DEVICE).manual_seed(50)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up: cuFFT plans, sort scratch
+        batch_rawboost(gen, x, cfg)
+    torch.cuda.current_stream().wait_stream(stream)
+    batch_rawboost(twin, x, cfg)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = batch_rawboost(gen, x, cfg)
+    for i in range(2):
+        graph.replay()
+        want = batch_rawboost(twin, x, cfg)
+        if not torch.equal(out, want):
+            fail(f"rawboost: graph replay {i + 1} differs from the eager "
+                 f"call (max |diff| {float((out - want).abs().max())})")
+    print("[rawboost] algo 5 as a CUDA graph: two replays equal eager calls "
+          "from a twin generator bit for bit", flush=True)
+
+
+def phase_rawboost():
+    """Phase 9: RawBoost (`occm_tpu_torch.augment`) on the card at one
+    training batch, [12, 96000] fp32, algos 1-8: draws from a seeded CUDA
+    generator, the card's apply against the CPU's on the same draws (and
+    algo 4 with valid lengths), ISD's subset equal on both and changing
+    exactly n_sel samples a row, SSI's realised SNR equal to its draw and
+    in [SNRmin, SNRmax], finite outputs; one call of algo 5 captured in a
+    CUDA graph, whose replays equal eager calls bit for bit; and per algo
+    the time of a call with its draws (CUDA events over 20 calls), its
+    device time and device launches (torch.profiler)."""
+    import torch
+
+    from occm_tpu_torch.augment import (
+        batch_rawboost, draw_rawboost, process_rawboost)
+    from occm_tpu_torch.augment.rawboost import isd_selection
+    from occm_tpu_torch.config import RawBoostConfig
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(9)
+    x_np = np.stack([synthetic_wave(rng, TRAIN_CUT / SR)
+                     for _ in range(TRAIN_B)])
+    x = torch.from_numpy(x_np).to(DEVICE)
+    lengths = torch.from_numpy(rng.integers(TRAIN_CUT // 2, TRAIN_CUT + 1,
+                                            TRAIN_B)).to(DEVICE)
+
+    def on_cpu(draws):
+        return {s: {k: v.cpu() for k, v in d.items()}
+                for s, d in draws.items()}
+
+    rows = []
+    for algo in range(1, 9):
+        cfg = RawBoostConfig(algo=algo)
+        gen = torch.Generator(device=DEVICE).manual_seed(algo)
+        errs = []
+        for lens in (None, lengths) if algo == 4 else (None,):
+            draws = draw_rawboost(cfg, TRAIN_B, TRAIN_CUT, gen)
+            y = process_rawboost(x, draws, cfg, lens)
+            lens_cpu = None if lens is None else lens.cpu()
+            y_cpu = process_rawboost(x.cpu(), on_cpu(draws), cfg, lens_cpu)
+            if not bool(torch.isfinite(y).all()):
+                fail(f"rawboost algo {algo}: non-finite output on the card")
+            errs.append(float((y.cpu() - y_cpu).abs().max()))
+            if errs[-1] > RB_ATOL:
+                fail(f"rawboost algo {algo}: card vs CPU max |diff| "
+                     f"{errs[-1]} > {RB_ATOL}")
+            if "isd" in draws:
+                n_sel, sel = isd_selection(draws["isd"], cfg, TRAIN_CUT,
+                                           lens)
+                n_cpu, sel_cpu = isd_selection(on_cpu(draws)["isd"], cfg,
+                                               TRAIN_CUT, lens_cpu)
+                if not (torch.equal(n_sel.cpu(), n_cpu)
+                        and torch.equal(sel.cpu(), sel_cpu)
+                        and torch.equal(sel.sum(-1).int(), n_sel)):
+                    fail(f"rawboost algo {algo}: ISD subsets differ between "
+                         "the card and the CPU, or miss n_sel")
+
+        def call():
+            return batch_rawboost(gen, x, cfg)
+
+        ms = cuda_ms(call, RB_CALLS)
+        dev_ms, launches = calls_device_ms(call, RB_CALLS)
+        rows.append(dict(algo=algo, max_abs_err=max(errs),
+                         max_abs_err_lengths=errs[1] if algo == 4 else None,
+                         ms=ms, device_ms=dev_ms, launches=launches))
+        print(f"[rawboost] algo {algo} at [{TRAIN_B}, {TRAIN_CUT}]: card vs "
+              f"CPU max |diff| {errs} (bound {RB_ATOL}), {ms:.4f} ms a call "
+              f"with its draws (CUDA events, {RB_CALLS} calls), device "
+              f"{dev_ms:.4f} ms, {launches:.1f} device launches a call",
+              flush=True)
+
+    # ISD changes exactly the n_sel selected samples of a row (inputs at a
+    # quarter of their scale, so that no row's peak passes 1 and nothing is
+    # renormalised); a selected sample may stay only if its impulse
+    # x * g_sd * f_r is below its rounding, |f_r| <= 2^-20
+    cfg = RawBoostConfig(algo=2)
+    draws = draw_rawboost(cfg, TRAIN_B, TRAIN_CUT,
+                          torch.Generator(device=DEVICE).manual_seed(20))
+    xq = x / 4.0
+    y = process_rawboost(xq, draws, cfg)
+    n_sel, sel = isd_selection(draws["isd"], cfg, TRAIN_CUT)
+    d = draws["isd"]
+    f_r = (2.0 * d["f1"] - 1.0) * (2.0 * d["f2"] - 1.0)
+    changed = y != xq
+    stayed = sel & ~changed
+    if bool((changed & ~sel).any()) or bool(
+            (f_r[stayed].abs() > 2.0 ** -20).any()):
+        fail("rawboost ISD: the changed samples are not the selected ones")
+    print(f"[rawboost] ISD: samples changed a row "
+          f"{changed.sum(-1).tolist()}, n_sel {n_sel.tolist()} (selected "
+          f"samples left unchanged by an impulse below their rounding: "
+          f"{int(stayed.sum())})", flush=True)
+
+    # SSI's realised SNR
+    cfg = RawBoostConfig(algo=3)
+    draws = draw_rawboost(cfg, TRAIN_B, TRAIN_CUT,
+                          torch.Generator(device=DEVICE).manual_seed(30))
+    y = process_rawboost(x, draws, cfg).double().cpu()
+    xd = x.double().cpu()
+    snr = (20.0 * torch.log10(xd.norm(dim=-1) / (y - xd).norm(dim=-1)))
+    drawn = (cfg.SNRmin + (cfg.SNRmax - cfg.SNRmin)
+             * draws["ssi"]["snr"].double().cpu())
+    if not (bool(((snr - drawn).abs() <= SNR_ATOL_DB).all())
+            and float(snr.min()) >= cfg.SNRmin - SNR_ATOL_DB
+            and float(snr.max()) <= cfg.SNRmax + SNR_ATOL_DB):
+        fail(f"rawboost SSI: realised SNR {snr.tolist()} dB, drawn "
+             f"{drawn.tolist()}")
+    print(f"[rawboost] SSI: realised SNR dB "
+          f"{[round(v, 4) for v in snr.tolist()]}, |realised - drawn| <= "
+          f"{float((snr - drawn).abs().max()):.2e}", flush=True)
+
+    rawboost_graph_check(x)
+    seconds = time.perf_counter() - t_phase
+    print(f"[rawboost] phase 9 took {seconds:.1f} s", flush=True)
+    return dict(algos=rows, seconds=seconds)
+
+
+# ----------------------------------------------------------------- phase 10
+
+def phase_train_rawboost(workdir: str, fixture):
+    """Phase 10: training with RawBoost at full width (12 x 6 s, every
+    kernel, remat), under deterministic algorithms where two runs are held
+    to each other:
+    - algo 5 with AASIST's dropouts, 6 eager steps against the same 6 as
+      2 CUDA graph launches of 3 steps: bit for bit, one replay a chunk;
+    - step wall ms eager and as a graph of 3 steps, algo 0 against algo 5,
+      in turns (fused_adam, default algorithms), and the device launches
+      and device busy time an eager step gains from RawBoost
+      (torch.profiler);
+    - through the CLI (`--rawboost_algo 5`): 6 eager steps with finite
+      losses, and a `--steps_per_dispatch 3` run sent SIGTERM after its
+      first chunk and resumed, equal to them bit for bit.
+    Returns the kernel wrappers' launches, the graphs' replayed launches
+    and the measurements."""
+    import dataclasses
+
+    import torch
+
+    from occm_tpu_torch.config import (
+        AASISTConfig, RawBoostConfig, TrainConfig, XLSRConfig)
+    from occm_tpu_torch.data import MetaBatchPipeline, PFDataset
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.train import create_train_state
+    from occm_tpu_torch.train.graph import GraphedSteps
+    from occm_tpu_torch.train.loop import train_step
+
+    protocol, train_dir, voc_dir = fixture
+    t_phase = time.perf_counter()
+    dataset = PFDataset(protocol, dataset_dir=train_dir, vocoded_dir=voc_dir,
+                        cut=TRAIN_CUT, seed=0)
+    batches = list(MetaBatchPipeline(dataset, seed=0).epoch(0))
+    acfg = AASISTConfig(dropout=0.0, pool_dropout=0.0, head_dropout=0.0)
+    xcfg = XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
+                      attention_impl="flash")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        init = AModel(acfg, xcfg).state_dict()
+    layers = xcfg.encoder_layers
+    per_step = {"flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
+                "flash_attn_bwd_dkv": layers, "layernorm_bwd": 2 * layers,
+                "fused_adam": 1, "ffn_fwd": 2 * layers}
+
+    def model_from_init(aasist=acfg):
+        model = AModel(aasist, xcfg)
+        model.load_state_dict(init)
+        return model
+
+    check = GraphCheck(batches, model_from_init, per_step)
+    base = TrainConfig(cut=TRAIN_CUT, compactness_weight=0.1,
+                       descriptiveness_weight=0.9, log_every=1,
+                       rawboost=RawBoostConfig(algo=5))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        graph_vs_eager(check, "rawboost 5, adam dropout k=3",
+                       dataclasses.replace(base, optimizer="adam"),
+                       AASISTConfig(), exact=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # ---- step wall, algo 0 against algo 5, eager and as a graph of 3
+    xs = np.stack([b[0] for b in batches[:CONTROL_K]])
+    ls = np.stack([b[1] for b in batches[:CONTROL_K]])
+    x1 = torch.from_numpy(xs[0]).to(DEVICE)
+    l1 = torch.from_numpy(ls[0]).to(DEVICE)
+    runs = {}
+    for algo in (0, 5):
+        cfg = dataclasses.replace(base, optimizer="fused_adam",
+                                  rawboost=RawBoostConfig(algo=algo))
+        state = create_train_state(model_from_init().to(DEVICE), cfg)
+
+        def eager(state=state, cfg=cfg):
+            for _ in range(CONTROL_K):
+                train_step(state, x1, l1, cfg)
+
+        eager()  # warm
+        graph = GraphedSteps(state, cfg, CONTROL_K)
+        graph.run(xs, ls)  # capture
+        runs[f"eager algo {algo}"] = eager
+        runs[f"graph k=3 algo {algo}"] = (
+            lambda graph=graph: graph.run(xs, ls))
+    walls = {label: [] for label in runs}
+    for _ in range(3):  # in turns
+        for label, fn in runs.items():
+            walls[label].append(wall_ms(fn, CONTROL_K))
+    want = {key: per_step[key] * per_call
+            for key, (_, per_call) in KERNEL_NAMES.items()}
+    rows = {label: profile_steps(runs[label], CONTROL_K, label, want)
+            for label in ("eager algo 0", "eager algo 5")}
+    rows["walls_ms"] = walls
+    added = {
+        "device_launches": rows["eager algo 5"]["launches"]
+        - rows["eager algo 0"]["launches"],
+        "device_busy_ms": rows["eager algo 5"]["busy_ms"]
+        - rows["eager algo 0"]["busy_ms"]}
+    print(f"[train-rawboost] step wall ms (3 rounds, in turns) {walls}; "
+          f"RawBoost algo 5 adds {added['device_launches']:.1f} device "
+          f"launches and {added['device_busy_ms']:.3f} ms of device busy "
+          f"time a step (eager)", flush=True)
+    del runs, state, graph
+    gc.collect()  # a state and its graph runner refer to each other
+    torch.cuda.empty_cache()
+
+    # ---- the CLI with --rawboost_algo 5: eager, and resumed as graphs
+    resume = phase_resume(workdir, fixture, check.launches,
+                          flags=("--rawboost_algo", "5"), eager=False,
+                          label="rawboost 5 resume")
+    timing = dict(check.timing, profile=rows, added_per_step=added,
+                  resume=resume, seconds=time.perf_counter() - t_phase)
+    print(f"[train-rawboost] phase 10 took {timing['seconds']:.1f} s",
+          flush=True)
+    return check.launches, check.graph_launches, timing
+
+
+# ----------------------------------------------------------------- phase 11
+
+# fairseq's pretraining-only tensors of XLS-R 300M (quantizer, targets)
+PRETRAINING_ONLY = {"mask_emb": (1024,), "quantizer.vars": (1, 640, 384),
+                    "quantizer.weight_proj.weight": (640, 512),
+                    "quantizer.weight_proj.bias": (640,),
+                    "project_q.weight": (768, 384), "project_q.bias": (768,),
+                    "final_proj.weight": (768, 1024),
+                    "final_proj.bias": (768,)}
+# The grafted positional conv is fairseq's weight norm folded, w = v * (g /
+# ||v||) in fp32 with ||v|| from an fp64 sum: three fp32 roundings
+# (||v||, the ratio, the product) of at most 2^-24 each, so w lies within
+# 4 * 2^-24 of the fp64 fold g * v / ||v|| (relative).
+FOLD_RTOL = 4 * 2.0 ** -24
+
+_TO_HF = (  # fairseq naming -> HuggingFace transformers' Wav2Vec2
+    (r"^feature_extractor\.conv_layers\.(\d+)\.0\.",
+     r"feature_extractor.conv_layers.\1.conv."),
+    (r"^feature_extractor\.conv_layers\.(\d+)\.2\.1\.",
+     r"feature_extractor.conv_layers.\1.layer_norm."),
+    (r"^layer_norm\.", "feature_projection.layer_norm."),
+    (r"^post_extract_proj\.", "feature_projection.projection."),
+    (r"^encoder\.pos_conv\.0\.weight_g",
+     "encoder.pos_conv_embed.conv.parametrizations.weight.original0"),
+    (r"^encoder\.pos_conv\.0\.weight_v",
+     "encoder.pos_conv_embed.conv.parametrizations.weight.original1"),
+    (r"^encoder\.pos_conv\.0\.bias", "encoder.pos_conv_embed.conv.bias"),
+    (r"\.self_attn\.", ".attention."),
+    (r"\.self_attn_layer_norm\.", ".layer_norm."),
+    (r"\.fc1\.", ".feed_forward.intermediate_dense."),
+    (r"\.fc2\.", ".feed_forward.output_dense."),
+)
+
+
+class _CfgOfAnotherProgram:
+    """A checkpoint cfg whose class cannot be imported where it is read
+    (fairseq pickles an omegaconf DictConfig there)."""
+
+    def __init__(self, model):
+        self.model = model
+
+
+def write_fairseq_checkpoint(path: str, sd) -> None:
+    """{"model": sd + pretraining-only tensors, "cfg": an object of a class
+    whose module is gone by the time the file is read}, as fairseq saves
+    xlsr2_300m.pt."""
+    import types
+
+    import torch
+
+    gen = torch.Generator().manual_seed(11)
+    model = dict(sd)
+    for k, shape in PRETRAINING_ONLY.items():
+        model[k] = torch.randn(shape, generator=gen)
+    mod = types.ModuleType("omegaconf_not_here")
+    cls = type("DictConfig", (_CfgOfAnotherProgram,), {})
+    cls.__module__ = mod.__name__
+    mod.DictConfig = cls
+    sys.modules[mod.__name__] = mod
+    try:
+        torch.save({"model": model, "cfg": cls({"_name": "wav2vec2",
+                                                 "dropout": 0.1})}, path)
+    finally:
+        del sys.modules[mod.__name__]
+
+
+def write_hf_safetensors(path: str, sd) -> None:
+    """sd renamed to HuggingFace's Wav2Vec2ForPreTraining naming
+    (`wav2vec2.` prefix, the weight norm as parametrizations) and written
+    in the safetensors layout with numpy, as `model.safetensors`."""
+    import re
+
+    arrays = {}
+    for k, v in sd.items():
+        for old, new in _TO_HF:
+            k = re.sub(old, new, k)
+        arrays["wav2vec2." + k] = v.numpy()
+    arrays["quantizer.codevectors"] = np.zeros((1, 640, 384), np.float32)
+    arrays["project_hid.weight"] = np.zeros((768, 1024), np.float32)
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for k, a in arrays.items():
+        header[k] = {"dtype": "F32", "shape": list(a.shape),
+                     "data_offsets": [off, off + a.nbytes]}
+        off += a.nbytes
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for a in arrays.values():
+            f.write(np.ascontiguousarray(a).tobytes())
+
+
+class _OneStep(Exception):
+    """Raised by phase 11's on_step hook to end a CLI run after a step."""
+
+
+def phase_pretrained(workdir: str, fixture):
+    """Phase 11: --pretrained_xlsr at full width. A random XLS-R 300M
+    encoder (seed 1; its positional conv's weight-norm gain g drawn apart
+    from ||v||, as in a trained checkpoint) is written as a fairseq .pt
+    (cfg of an unimportable class, pretraining-only tensors) and as an HF
+    .safetensors; each is grafted into XLSREncoder (timed, equal to the
+    file bit for bit, the positional conv within FOLD_RTOL of the fp64
+    fold), then trains through the CLI on the phase's tree, stopped by its
+    on_step hook after one step with a finite loss."""
+    import torch
+
+    from occm_tpu_torch.cli import oc_training
+    from occm_tpu_torch.config import XLSRConfig
+    from occm_tpu_torch.models.convert_xlsr import graft_pretrained_xlsr
+    from occm_tpu_torch.models.xlsr import XLSREncoder
+
+    t_phase = time.perf_counter()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        sd = XLSREncoder(XLSRConfig()).state_dict()
+    pos = "encoder.pos_conv.0."
+    gen = torch.Generator().manual_seed(12)
+    sd[pos + "weight_g"] = sd[pos + "weight_g"] * (
+        0.5 + torch.rand(sd[pos + "weight_g"].shape, generator=gen))
+    v64 = sd[pos + "weight_v"].double()
+    fold = (sd[pos + "weight_g"].double() * v64
+            / v64.pow(2).sum(dim=(0, 1), keepdim=True).sqrt())
+    paths = {"fairseq .pt": os.path.join(workdir, "xlsr2_300m.pt"),
+             "HF .safetensors": os.path.join(workdir, "model.safetensors")}
+    t0 = time.perf_counter()
+    write_fairseq_checkpoint(paths["fairseq .pt"], sd)
+    write_hf_safetensors(paths["HF .safetensors"], sd)
+    write_s = time.perf_counter() - t0
+    protocol, train_dir, voc_dir = fixture
+    encoder = XLSREncoder(XLSRConfig())
+    out = {"write_s": write_s}
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        graft_pretrained_xlsr(encoder, path)
+        load_s = time.perf_counter() - t0
+        got = encoder.state_dict()
+        differ = [k for k in sd if not k.startswith(pos + "weight_")
+                  and not torch.equal(got[k], sd[k])]
+        if differ:
+            fail(f"pretrained {name}: {len(differ)} grafted tensors differ "
+                 f"from the file, e.g. {differ[:3]}")
+        w = encoder.encoder.pos_conv[0].weight.detach().double()
+        fold_err = float(((w - fold).abs()
+                          / fold.abs().clamp_min(1e-30)).max())
+        if fold_err > FOLD_RTOL:
+            fail(f"pretrained {name}: folded positional conv off by "
+                 f"{fold_err} (relative) > {FOLD_RTOL}")
+        steps = []
+
+        def one_step(step, metrics):
+            steps.append(float(metrics["loss"]))
+            raise _OneStep
+
+        t0 = time.perf_counter()
+        try:
+            oc_training.main([
+                "--train_protocol_file", protocol,
+                "--train_dataset_dir", train_dir, "--vocoded_dir", voc_dir,
+                "--model", "aasist", "--cut", str(TRAIN_CUT),
+                "--num_epochs", "1", "--checkpoint_dir",
+                os.path.join(workdir, "ck_pretrained"),
+                "--pretrained_xlsr", path], on_step=one_step)
+        except _OneStep:
+            pass
+        cli_s = time.perf_counter() - t0
+        if len(steps) != 1 or not math.isfinite(steps[0]):
+            fail(f"pretrained {name}: CLI steps {steps}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = dict(bytes=os.path.getsize(path), load_s=load_s,
+                         fold_rel_err=fold_err, loss=steps[0], cli_s=cli_s)
+        print(f"[pretrained] {name} ({os.path.getsize(path) / 2**30:.2f} "
+              f"GiB): grafted in {load_s:.2f} s, every tensor equal to the "
+              f"file bit for bit, positional conv within {fold_err:.2e} of "
+              f"the fp64 fold (bound {FOLD_RTOL:.2e}); CLI, one step: loss "
+              f"{steps[0]:.6f}, {cli_s:.1f} s with model build and graft",
+              flush=True)
+        os.remove(path)
+    losses = [out[name]["loss"] for name in paths]
+    if losses[0] != losses[1]:
+        fail(f"pretrained: the two files hold one encoder, but their first "
+             f"steps' losses differ: {losses}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[pretrained] phase 11 took {out['seconds']:.1f} s (writing the "
+          f"two files {write_s:.1f} s)", flush=True)
+    return out
+
+
+def phase_rawboost_all(workdir: str, fixture):
+    """Phases 9-11. Returns the kernel wrappers' launches of phases 10 and
+    11, the graphs' replayed launches, and the measurements."""
+    from occm_tpu_torch.ops import launch_counts
+
+    out = {"augment": phase_rawboost()}
+    counts, replayed, out["train"] = phase_train_rawboost(workdir, fixture)
+    before = launch_counts()
+    out["pretrained"] = phase_pretrained(workdir, fixture)
+    after = launch_counts()
+    for name in counts:
+        counts[name] += after[name] - before[name]
+    return counts, replayed, out
 
 
 # ------------------------------------------------------- optional profile
@@ -2651,6 +3227,10 @@ def main(argv=None) -> int:
     ap.add_argument("--controls-only", action="store_true",
                     help="run phases 1, 2 and 8 only (device, build, the "
                          "training controls); prints no kernels line")
+    ap.add_argument("--rawboost-only", action="store_true",
+                    help="run phases 1, 2 and 9-11 only (device, build, "
+                         "RawBoost on the card, training with RawBoost, "
+                         "--pretrained_xlsr); prints no kernels line")
     args = ap.parse_args(argv)
 
     smi = phase_device()
@@ -2658,19 +3238,24 @@ def main(argv=None) -> int:
     import torch
 
     hgmma = phase_build()
-    if args.controls_only:
+    if args.controls_only or args.rawboost_only:
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
         try:
             fixture_dir = os.path.join(workdir, "fixture")
             os.makedirs(fixture_dir)
-            controls = phase_train_controls(
-                workdir, write_fixture(fixture_dir))
+            fixture = write_fixture(fixture_dir)
+            if args.controls_only:
+                result = {"controls": phase_train_controls(workdir,
+                                                           fixture)[2]}
+            else:
+                result = {"rawboost": phase_rawboost_all(workdir,
+                                                         fixture)[2]}
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         print(smi)
-        print(json.dumps({"controls": controls}, default=str))
+        print(json.dumps(result, default=str))
         return 0
     fwd_rows = phase_kernels()
     bwd_rows = phase_attention_bwd()
@@ -2701,21 +3286,28 @@ def main(argv=None) -> int:
             train_launches = phase_train(workdir, fixture, args.profile)
             control_counts, replayed, controls = phase_train_controls(
                 workdir, fixture)
+            rb_counts, rb_replayed, rawboost = phase_rawboost_all(workdir,
+                                                                  fixture)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         launches["flash_attn_fwd"] += serve_launches
         for counts in (score_launches, train_launches):
             for name, n in counts.items():
                 launches[name] += n
-        # the wrappers' counts of phase 8 (eager steps, warm-ups and
-        # captures); a graph's replays launch what its capture recorded
-        for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
-                     "ffn_fwd"):
-            launches[name] += control_counts[name]
-            graph_launches[name] = replayed[name]
-        launches["flash_attn_bwd"] += control_counts["flash_attn_bwd_dq"]
-        graph_launches["flash_attn_bwd"] = replayed["flash_attn_bwd_dq"]
+        # the wrappers' counts of phases 8, 10 and 11 (eager steps,
+        # warm-ups and captures); a graph's replays launch what its capture
+        # recorded
+        for counts, replays in ((control_counts, replayed),
+                                (rb_counts, rb_replayed)):
+            for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
+                         "ffn_fwd"):
+                launches[name] += counts[name]
+                graph_launches[name] += replays.get(name, 0)
+            launches["flash_attn_bwd"] += counts["flash_attn_bwd_dq"]
+            graph_launches["flash_attn_bwd"] += replays.get(
+                "flash_attn_bwd_dq", 0)
         print(f"[controls] {json.dumps(controls, default=str)}", flush=True)
+        print(f"[rawboost] {json.dumps(rawboost, default=str)}", flush=True)
 
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,

@@ -5,8 +5,12 @@ Trains XLSR + AASIST (`--model aasist`) on one GPU and writes the
 reference's per-epoch checkpoints `<checkpoint_dir>/aasist_vocoded_<e>.pt`
 (a torch state dict in the reference naming, which
 `occm_tpu_torch.cli.oc_server --pretrained-sslaasist` loads, next to the
-optimizer state). `--init_from` takes such a .pt file. `--grad_accum`,
-`--lr_schedule` (with `--warmup_steps`, `--decay_steps`, `--lr_end_ratio`),
+optimizer state). `--init_from` takes such a .pt file; `--pretrained_xlsr`
+a fairseq or HF wav2vec2 / XLS-R checkpoint (.pt, .bin, .safetensors),
+grafted into the SSL frontend of the model built from --seed (it wins over
+--init_from, as in the JAX package). `--rawboost_algo` 1-8 augments every
+step's batch on the device. `--grad_accum`, `--lr_schedule` (with
+`--warmup_steps`, `--decay_steps`, `--lr_end_ratio`),
 `--steps_per_dispatch` (one CUDA graph per chunk on a card),
 `--checkpoint_every_steps` (and the SIGTERM save) and `--resume` act as in
 the JAX package. Every flag whose code path is not ported yet raises
@@ -68,14 +72,20 @@ def build_parser() -> argparse.ArgumentParser:
                         help="not ported yet (one GPU)")
     parser.add_argument("--pp_microbatches", type=int, default=0,
                         help="not ported yet (one GPU)")
-    parser.add_argument("--rawboost_algo", type=int, default=0,
-                        help="0 disables; 1-8 are not ported yet")
+    parser.add_argument(
+        "--rawboost_algo", type=int, default=0, choices=range(9),
+        help="RawBoost in every step: 0 disables; 1 LnL, 2 ISD, 3 SSI, "
+             "4 (1+2+3), 5 (1+2), 6 (1+3), 7 (2+3), 8 (1||2)")
     parser.add_argument("--wandb_project", type=str, default=None,
                         help="not ported yet")
     parser.add_argument("--xlsr_tiny", action="store_true",
                         help="tiny XLSR config (CPU smoke runs)")
-    parser.add_argument("--pretrained_xlsr", type=str, default=None,
-                        help="not ported yet")
+    parser.add_argument(
+        "--pretrained_xlsr", type=str, default=None,
+        help="graft a pretrained wav2vec2 / XLS-R encoder into the SSL "
+             "frontend: a fairseq checkpoint (xlsr2_300m.pt) or a "
+             "HuggingFace one (.pt / .bin / .safetensors); wins over "
+             "--init_from")
     parser.add_argument(
         "--init_from", type=str, default=None,
         help="full-model warm start from a torch .pt state dict in the "
@@ -137,13 +147,10 @@ def _unported(args) -> None:
     fields they carry.)"""
     checks = [
         ("--model", args.model != "aasist", "the other models"),
-        ("--pretrained_xlsr", args.pretrained_xlsr is not None,
-         "--pretrained_xlsr"),
         ("--fast_numerics", args.fast_numerics, "remat_policy variants"),
         ("--seq_parallel", args.seq_parallel, "multi-GPU"),
         ("--pp_microbatches", args.pp_microbatches != 0, "multi-GPU"),
         ("--debug_nans", args.debug_nans, "remaining features"),
-        ("--rawboost_algo", args.rawboost_algo != 0, "RawBoost in the step"),
     ]
     for flag, set_, item in checks:
         if set_:
@@ -175,10 +182,12 @@ def xlsr_config(args, cut: int, device):
     return xlsr_cfg
 
 
-def build_model(xlsr_cfg, seed: int, init_from=None):
+def build_model(xlsr_cfg, seed: int, init_from=None, pretrained_xlsr=None):
     """AModel with PyTorch's default initialisation drawn from a generator
     seeded with `seed` (the global one, forked so the caller's stream is
-    untouched), or the weights of a reference-named .pt file."""
+    untouched); then either the SSL frontend from a pretrained wav2vec2 /
+    XLS-R checkpoint (`pretrained_xlsr`, which wins, as in the JAX CLI), or
+    every weight from a reference-named .pt file (`init_from`)."""
     import torch
 
     from occm_tpu_torch.config import AASISTConfig
@@ -187,12 +196,16 @@ def build_model(xlsr_cfg, seed: int, init_from=None):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = AModel(AASISTConfig(), xlsr_cfg=xlsr_cfg)
-    if init_from:
+    if pretrained_xlsr:
+        from occm_tpu_torch.models.convert_xlsr import graft_pretrained_xlsr
+
+        graft_pretrained_xlsr(model.ssl_model.model, pretrained_xlsr)
+        print(f"Grafted pretrained XLSR {pretrained_xlsr} into 'ssl_model'")
+    elif init_from:
         if not init_from.endswith(".pt"):
             raise NotImplementedError(
                 "--init_from takes a torch .pt state dict; orbax "
-                "directories are not ported (ROADMAP queue A: "
-                "--pretrained_xlsr)")
+                "directories are not ported (ROADMAP queue A item 16)")
         model.load_state_dict(load_reference_state_dict(init_from),
                               strict=True)
         print(f"Warm start from {init_from}")
@@ -254,7 +267,8 @@ def main(argv=None, on_step=None):
     pipeline = MetaBatchPipeline(dataset, groups_per_step=cfg.groups_per_step,
                                  seed=cfg.seed)
 
-    model = build_model(xlsr_cfg, cfg.seed, args.init_from)
+    model = build_model(xlsr_cfg, cfg.seed, args.init_from,
+                        args.pretrained_xlsr)
 
     prefix = cfg.checkpoint_prefix  # reference naming: aasist_vocoded_{e}
 

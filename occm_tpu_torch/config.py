@@ -21,8 +21,8 @@ from typing import Optional, Tuple
 class RawBoostConfig:
     """RawBoost augmentation hyper-parameters (reference defaults).
     algo: 0 none, 1 LnL, 2 ISD, 3 SSI, 4 (1+2+3), 5 (1+2), 6 (1+3),
-    7 (2+3), 8 (1||2). Only algo 0 is ported: the trainer raises on any
-    other (ROADMAP queue A)."""
+    7 (2+3), 8 (1||2); the trainer applies it in every step
+    (`occm_tpu_torch.augment`) unless algo is 0."""
 
     algo: int = 3
     nBands: int = 5
@@ -217,8 +217,7 @@ class MeshConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters, the JAX package's fields and defaults.
-    Not ported yet, and raising: wandb_project; the trainer raises on
-    rawboost.algo != 0."""
+    Not ported yet, and raising: wandb_project."""
 
     model: str = "aasist"
     optimizer: str = "adam"        # "adam" (torch.optim.Adam) | "fused_adam"

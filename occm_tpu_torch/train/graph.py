@@ -18,9 +18,11 @@ What the graph holds fixed, and why it stays right:
 - the gradients: tensors of the graph's pool. Each captured step starts
   with none, so its backward writes them; after the capture the
   parameters' .grad are None again for eager steps;
-- the dropout masks: drawn from the state's CUDA generator, registered
-  with the graph, whose Philox offset advances by the graph's draws on
-  every replay (eager steps from the same state draw the same masks);
+- RawBoost's draws and the dropout masks: drawn from the state's CUDA
+  generator, registered with the graph, whose Philox offset advances by
+  the graph's draws on every replay (eager steps from the same state draw
+  the same augmentation and masks); the augmentation reads no device
+  value on the host, so it is captured with the step;
 - the optimizer: FusedAdam's step count and bias corrections are read from
   the device by its kernel; torch.optim.Adam on a card is always
   capturable (step on the device, as in eager steps) and reads its lr

@@ -9,6 +9,9 @@ Semantics of the JAX package's loop (reference: oc_training.py:344-401):
   configured lr schedule, or "fused_adam": the single-pass CUDA kernel),
   one optimizer step per batch, BatchNorm running statistics updated by the
   train-mode forward;
+- RawBoost (`cfg.rawboost.algo` 1-8; `occm_tpu_torch.augment`) on the
+  whole batch, once per optimizer step, before the forward and before the
+  accumulation split (`occm_tpu/train/loop.py:175-177`);
 - gradient accumulation (`grad_accum`): the batch in equal micro-batches of
   whole meta-batches, each gradient scaled by the micro-batch's share of
   the batch, BatchNorm statistics chained from micro-batch to micro-batch;
@@ -22,10 +25,10 @@ Semantics of the JAX package's loop (reference: oc_training.py:344-401):
 
 PyTorch runs eagerly, so there is no jit or donated state; losses stay on
 the device between log points, and the host reads them only there (and
-when an `on_step` hook asks). Dropout masks come from the state's
-generator on the model's device, seeded from cfg.seed; its state is part
-of every checkpoint, so a resumed run draws the masks the uninterrupted
-run would have drawn.
+when an `on_step` hook asks). RawBoost's draws and then the dropout masks
+come from the state's generator on the model's device, seeded from
+cfg.seed; its state is part of every checkpoint, so a resumed run draws
+the augmentation and the masks the uninterrupted run would have drawn.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from occm_tpu_torch.augment import batch_rawboost
 from occm_tpu_torch.config import TrainConfig
 from occm_tpu_torch.data.pipeline import chunk_batches
 from occm_tpu_torch.losses import group_one_class_loss
@@ -61,6 +65,10 @@ def train_step(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
     schedule slot), else the schedule's. Returns the step's {"loss",
     "closs", "dloss"} as device scalars.
 
+    With cfg.rawboost.algo != 0, x is first augmented by `batch_rawboost`,
+    whole, from state.generator (before any dropout mask is drawn), as the
+    JAX package augments the step's batch before its accumulation split.
+
     With cfg.grad_accum = a > 1 and a dividing the batch's group count, the
     batch is cut into a micro-batches of whole meta-batches, run one after
     another (BatchNorm statistics chain from one to the next), and each
@@ -69,6 +77,8 @@ def train_step(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
     and sum_i r_i * loss_i its loss (`occm_tpu/train/loop.py:234-300`). A
     ragged tail whose group count a does not divide takes one pass."""
     state.model.train()
+    if cfg.rawboost.algo != 0:
+        x = batch_rawboost(state.generator, x, cfg.rawboost)
     accum = max(1, cfg.grad_accum)
     if accum > 1 and (x.shape[0] // cfg.meta_batch) % accum:
         accum = 1
@@ -126,11 +136,6 @@ def train(
     checkpoint, whose epoch is replayed: its consumed dispatches are read
     from the pipeline and skipped without being uploaded. Returns the final
     TrainState (after a SIGTERM, the state it saved)."""
-    if cfg.rawboost.algo != 0:
-        raise NotImplementedError(
-            f"RawBoostConfig.algo={cfg.rawboost.algo}: RawBoost in the train "
-            "step is not ported to occm_tpu_torch yet (ROADMAP queue A); "
-            "pass RawBoostConfig(algo=0)")
     dev = resolve_device(device)
     logger = logger or MetricsLogger(loss_txt=cfg.loss_txt)
     k = max(1, cfg.steps_per_dispatch)

@@ -8,7 +8,8 @@
   Pallas kernels in interpret mode, the port's plain versions), against
   JAX make_train_step, then a second step from the JAX state after step 1
   through optimizer_state_from_flax;
-- the dropout sites, and the CLI on the CPU.
+- RawBoost in the step (drawn from the state's generator before the
+  dropout masks), the dropout sites, and the CLI on the CPU.
 
 Step tolerances: the loss to 1e-5 relative (fp32, the same forward in
 another summation order). Adam's first update is lr * g / (|g| + eps), so
@@ -222,7 +223,8 @@ def _port_state(jstate):
         {"params": jstate.params, "batch_stats": jstate.batch_stats}, px),
         strict=True)
     cfg = TrainConfig(optimizer="fused_adam", lr=LR, cut=CUT,
-                      compactness_weight=0.1, descriptiveness_weight=0.9)
+                      compactness_weight=0.1, descriptiveness_weight=0.9,
+                      rawboost=RawBoostConfig(algo=0))
     return create_train_state(model, cfg), cfg
 
 
@@ -301,6 +303,62 @@ def test_step_from_jax_state_through_optimizer_state_from_flax(jax_steps):
                                                    rel=1e-5)
     assert state.optimizer.count == 2
     _assert_state_matches(state.model, jax_steps["s2"], noise)
+
+
+class _DropoutNet(torch.nn.Module):
+    """(emb, logits) from 64 samples spread over the crop, through a
+    dropout whose mask comes from the forward's generator (as the models'
+    masks do)."""
+
+    def __init__(self):
+        super().__init__()
+        torch.manual_seed(0)
+        self.emb = torch.nn.Linear(64, 16)
+        self.head = torch.nn.Linear(16, 2)
+
+    def forward(self, x, generator=None):
+        e = dropout(self.emb(x[:, ::CUT // 64]), 0.5, generator)
+        return e, self.head(e)
+
+
+def test_train_step_applies_rawboost_from_the_state_generator():
+    """With RawBoost on, train_step augments the whole batch from
+    state.generator before any dropout mask is drawn: the same step as one
+    without RawBoost on batch_rawboost(generator, x), bit for bit, and a
+    step repeated from the saved weights and generator state is
+    bit-identical to itself."""
+    from occm_tpu_torch.augment import batch_rawboost
+
+    rb = RawBoostConfig(algo=5)
+    cfgs = {algo: TrainConfig(lr=LR, cut=CUT, compactness_weight=0.1,
+                              descriptiveness_weight=0.9,
+                              rawboost=dataclasses.replace(rb, algo=algo))
+            for algo in (0, 5)}
+    x = _wave(3, n=12)
+    labels = torch.tensor([0] * 6 + [1] * 6)
+
+    def state_for(algo):
+        return create_train_state(_DropoutNet(), cfgs[algo])
+
+    on, off = state_for(5), state_for(0)
+    gen0 = on.generator.get_state()
+    m_on = train_step(on, x, labels, cfgs[5])
+    x_aug = batch_rawboost(off.generator, x, rb)
+    assert not torch.equal(x_aug, x)
+    m_off = train_step(off, x_aug, labels, cfgs[0])
+    assert torch.equal(m_on["loss"], m_off["loss"])
+    assert torch.equal(on.generator.get_state(), off.generator.get_state())
+    for k, v in on.model.state_dict().items():
+        assert torch.equal(v, off.model.state_dict()[k]), k
+    again = state_for(5)
+    again.generator.set_state(gen0)
+    assert torch.equal(train_step(again, x, labels, cfgs[5])["loss"],
+                       m_on["loss"])
+    # the augmentation moved the step: without it the loss differs
+    plain = state_for(0)
+    plain.generator.set_state(gen0)
+    assert not torch.equal(train_step(plain, x, labels, cfgs[0])["loss"],
+                           m_on["loss"])
 
 
 # ------------------------------------------------------------ dropout sites
@@ -468,9 +526,7 @@ def test_cli_trains_on_the_cpu_and_writes_a_servable_checkpoint(
 
 
 @pytest.mark.parametrize("extra", [
-    ["--rawboost_algo", "3"],
     ["--model", "ssl_lcnn"],
-    ["--pretrained_xlsr", "xlsr.pt"],
     ["--fsdp", "2"],
     ["--fast_numerics"],
     ["--wandb_project", "p"],
@@ -490,18 +546,38 @@ def test_cli_unported_flags_raise(tmp_path, extra):
      "10"],
     ["--steps_per_dispatch", "2"],
     ["--checkpoint_every_steps", "5"],
+    ["--rawboost_algo", "5"],
+    ["--pretrained_xlsr", "xlsr2_tiny.pt"],
 ], ids=lambda e: e[0].lstrip("-"))
 def test_cli_ported_training_flags(tmp_path, monkeypatch, extra):
     """The training flags the port took over from the JAX package train on
     the CPU through the CLI, and the run writes a checkpoint that loads
     strictly (--resume continues a first epoch's checkpoint into a second
-    epoch; --checkpoint_every_steps also leaves its step checkpoint)."""
+    epoch; --checkpoint_every_steps also leaves its step checkpoint;
+    --rawboost_algo 5 trains other weights than the same run without it;
+    --pretrained_xlsr grafts a fairseq-style checkpoint into the SSL
+    frontend, over --init_from)."""
     from occm_tpu_torch.cli import oc_training
     from occm_tpu_torch.models import load_reference_state_dict
 
     protocol, train_dir, voc_dir = write_fixture(tmp_path)
     monkeypatch.chdir(tmp_path)
     ck = tmp_path / "ck"
+    if extra[0] == "--pretrained_xlsr":
+        encoder = _tiny_encoder()
+        with torch.no_grad():  # other weights than the CLI's seed-0 model
+            for p in encoder.parameters():
+                p.mul_(1.5)
+        torch.save({"model": {"w2v_model." + k: v for k, v
+                              in encoder.state_dict().items()},
+                    "cfg": {"model": {"dropout": 0.1}}},
+                   tmp_path / extra[1])
+        grafted = oc_training.main(_cli_args(
+            protocol, train_dir, voc_dir, str(tmp_path / "ck0"), *extra,
+            "--init_from", "ignored.pt", "--num_epochs", "0"))
+        got = grafted.model.ssl_model.model.state_dict()
+        for k, v in encoder.state_dict().items():
+            torch.testing.assert_close(got[k], v, rtol=1e-6, atol=1e-6)
     steps = []
     epochs = ["--num_epochs", "1"]
     if extra == ["--resume"]:
@@ -524,6 +600,13 @@ def test_cli_ported_training_flags(tmp_path, monkeypatch, extra):
                           strict=True)
     for k, v in state.model.state_dict().items():
         torch.testing.assert_close(model.state_dict()[k], v, rtol=0, atol=0)
+    if extra[0] == "--rawboost_algo":
+        plain = oc_training.main(
+            _cli_args(protocol, train_dir, voc_dir, str(tmp_path / "ck0"),
+                      *epochs))
+        assert not torch.equal(
+            plain.model.state_dict()["ssl_model.model.layer_norm.weight"],
+            state.model.state_dict()["ssl_model.model.layer_norm.weight"])
 
 
 # ---------------------------------------------------------------- configs
@@ -533,10 +616,3 @@ def test_train_configs_match_jax_defaults():
                       (MeshConfig(), JMeshConfig()),
                       (RawBoostConfig(), JRawBoostConfig())):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-
-
-def test_train_rejects_rawboost():
-    from occm_tpu_torch.train import train
-
-    with pytest.raises(NotImplementedError, match="RawBoost"):
-        train(torch.nn.Linear(1, 1), None, TrainConfig(), device="cpu")

@@ -93,7 +93,8 @@ def _accum_batch(groups, seed=0):
 
 def _accum_cfg(**kw):
     return TrainConfig(lr=1e-3, cut=ACCUM_CUT, compactness_weight=0.3,
-                       descriptiveness_weight=0.7, **kw)
+                       descriptiveness_weight=0.7,
+                       rawboost=RawBoostConfig(algo=0), **kw)
 
 
 def _jax_accum_step(cfg, x, labels, weights=None):
@@ -273,7 +274,7 @@ def test_cosine_schedule_steps_track_jax():
     moved by more than 1e-6 there, at most 6e-5, 6 % of lr)."""
     jx, px, ja, pa = _amodel_configs()
     jcfg = JTrainConfig(rawboost=JRawBoostConfig(algo=0), **SCHED_KW)
-    cfg = TrainConfig(**SCHED_KW)
+    cfg = TrainConfig(rawboost=RawBoostConfig(algo=0), **SCHED_KW)
     tx, sched = j_make_optimizer(jcfg)
     jstate = j_create_state(JAModel(ja, xlsr_cfg=jx), jax.random.PRNGKey(0),
                             jnp.zeros((12, 3200), jnp.float32), tx)
@@ -460,6 +461,29 @@ def test_sigterm_saves_and_resume_is_bit_identical(tmp_path, uninterrupted):
                                            "aasist_vocoded_0.pt"))
     resumed = _run(cfg, FakePipeline(5), resume=True)
     _assert_states_equal(resumed, uninterrupted)
+
+
+def test_sigterm_resume_with_rawboost_is_bit_identical(tmp_path):
+    """With RawBoost on (algo 5, drawn from the state's generator like the
+    dropout masks), a run sent SIGTERM and resumed from its step checkpoint
+    draws the augmentation the uninterrupted run draws: the two end bit
+    for bit alike, and away from the run without RawBoost."""
+    def cfg(tag, every):
+        return dataclasses.replace(_resume_cfg(tmp_path, tag, every=every),
+                                   rawboost=RawBoostConfig(algo=5))
+
+    ref = _run(cfg("ref", 0), FakePipeline(3))
+    sig = cfg("sig", 100)
+    state = _run(sig, FakePipeline(3, disturb_after=1, disturb="sigterm"))
+    assert state.step == 2
+    resumed = _run(sig, FakePipeline(3), resume=True)
+    _assert_states_equal(resumed, ref)
+    plain = _run(dataclasses.replace(cfg("plain", 0),
+                                     rawboost=RawBoostConfig(algo=0)),
+                 FakePipeline(3))
+    w = "ssl_model.model.layer_norm.weight"
+    assert not torch.equal(resumed.model.state_dict()[w],
+                           plain.model.state_dict()[w])
 
 
 def test_step_checkpoint_keeps_only_newest_and_epoch_resume_wins(tmp_path):

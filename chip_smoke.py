@@ -6,6 +6,7 @@
     python3 chip_smoke.py --kernels-only  # phases 1-3 only
     python3 chip_smoke.py --controls-only # phases 1, 2 and 8 only
     python3 chip_smoke.py --rawboost-only # phases 1, 2 and 9-11 only
+    python3 chip_smoke.py --models-only   # phases 1, 2 and 12 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -126,10 +127,25 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    XLSREncoder (load time; every tensor equal to the file bit for bit, the
    positional conv within FOLD_RTOL of the fp64 weight-norm fold), then
    one CLI training step from each with a finite loss, the two equal.
-12. with --profile only: device time by kernel (torch.profiler) for full
+12. the other models at full width (XLSR-300M, random weights from seed
+   0, 12 x 6 s meta-batches, every kernel: flash attention, ln_impl and
+   ffn_impl "pallas", fused_adam; RawBoost off, the backends' dropouts
+   on): for each of ssl_resnet34, ssl_lcnn, ssl_lcnn_asoftmax, occm and
+   cnn, one after another, 3 eager steps against the same 3 as one CUDA
+   graph under deterministic algorithms, bit for bit (losses, weights;
+   the angle loss's lambda moves inside the graph), each kernel's
+   launches a step exact (XLSR's do not depend on the backend), step
+   wall ms eager and as the graph, device busy share, peak memory. Then
+   through the CLIs: `oc_training --model ssl_resnet34` for an epoch,
+   `oc_classifier --mode 1c1` and `2c1` from its checkpoint and from the
+   ssl_vocoded / senet34_vocoded pair split off it (equal score files,
+   distances within SCORE_RTOL of a direct SSLResNet34 forward, EER in
+   [0, 1]), and `oc_training --model ssl_lcnn_asoftmax
+   --steps_per_dispatch 3` for one chunk.
+13. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-13. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
+14. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1034,8 +1050,8 @@ FFN_SCORE_RTOL = SCORE_RTOL
 THROUGHPUT_REPS = 4
 
 
-def write_eval_set(root: str, seed: int = 1):
-    """A bare eval list over EVAL_SECONDS waves, trial metadata with
+def write_eval_set(root: str, seed: int = 1, seconds=EVAL_SECONDS):
+    """A bare eval list over waves of `seconds`, trial metadata with
     labels (column 2 utt, column 6 label) and a 5-column protocol of the
     same utterances and labels."""
     from occm_tpu_torch.io.wav import write_wav
@@ -1044,7 +1060,7 @@ def write_eval_set(root: str, seed: int = 1):
     os.makedirs(eval_dir)
     rng = np.random.default_rng(seed)
     utts, meta, proto = [], [], []
-    for i, sec in enumerate(EVAL_SECONDS):
+    for i, sec in enumerate(seconds):
         utt = f"LA_E_{i:05d}"
         write_wav(os.path.join(eval_dir, utt + ".wav"),
                   synthetic_wave(rng, sec), SR)
@@ -1755,6 +1771,9 @@ def phase_train(workdir: str, fixture, profile: bool):
 # ------------------------------------------------------------------ phase 8
 
 CONTROL_K = 3   # steps per dispatch (one CUDA graph launch per chunk)
+# rounds in turns of the step-wall timings of phases 8, 10 and 12 (two,
+# to keep the whole script near 600 s)
+TIMING_ROUNDS = 2
 RESUME_EVERY = 2
 # device kernels of each wrapper count: ffn_fwd makes two launches a call
 KERNEL_NAMES = {"flash_attn_fwd": ("flash_attn_fwd_kernel", 1),
@@ -2195,7 +2214,7 @@ def phase_train_controls(workdir: str, fixture):
     runs = {"eager": eager, "graph k=1": graph1,
             "graph k=3": lambda: three.run(xs, ls)}
     walls = {label: [] for label in runs}
-    for _ in range(3):  # in turns
+    for _ in range(TIMING_ROUNDS):  # in turns
         for label, fn in runs.items():
             walls[label].append(wall_ms(fn, CONTROL_K))
     want = {key: per_step[key] * per_call
@@ -2209,7 +2228,8 @@ def phase_train_controls(workdir: str, fixture):
                            "graph k=3": list(three.capture_seconds.values())}
     timing["peak_gib"] = {"eager": eager_peak, "graph k=1 capture": one_peak,
                           "graph k=3 capture": three_peak}
-    print(f"[controls] step wall ms (3 rounds, in turns) {walls}; peak "
+    print(f"[controls] step wall ms ({TIMING_ROUNDS} rounds, in turns) "
+          f"{walls}; peak "
           f"memory {timing['peak_gib']} GiB; capture s "
           f"{timing['capture_s']}", flush=True)
     del state, one, three
@@ -2797,7 +2817,7 @@ def phase_train_rawboost(workdir: str, fixture):
         runs[f"graph k=3 algo {algo}"] = (
             lambda graph=graph: graph.run(xs, ls))
     walls = {label: [] for label in runs}
-    for _ in range(3):  # in turns
+    for _ in range(TIMING_ROUNDS):  # in turns
         for label, fn in runs.items():
             walls[label].append(wall_ms(fn, CONTROL_K))
     want = {key: per_step[key] * per_call
@@ -2810,7 +2830,8 @@ def phase_train_rawboost(workdir: str, fixture):
         - rows["eager algo 0"]["launches"],
         "device_busy_ms": rows["eager algo 5"]["busy_ms"]
         - rows["eager algo 0"]["busy_ms"]}
-    print(f"[train-rawboost] step wall ms (3 rounds, in turns) {walls}; "
+    print(f"[train-rawboost] step wall ms ({TIMING_ROUNDS} rounds, in turns) "
+          f"{walls}; "
           f"RawBoost algo 5 adds {added['device_launches']:.1f} device "
           f"launches and {added['device_busy_ms']:.3f} ms of device busy "
           f"time a step (eager)", flush=True)
@@ -3034,6 +3055,405 @@ def phase_rawboost_all(workdir: str, fixture):
     return counts, replayed, out
 
 
+# ----------------------------------------------------------------- phase 12
+
+#: the other models of `oc_training --model`, in the order phase 12 runs them
+OTHER_MODELS = ("ssl_resnet34", "ssl_lcnn", "ssl_lcnn_asoftmax", "occm", "cnn")
+#: eval utterances of phase 12's 1c1 / 2c1 scoring, seconds (buckets of 4,
+#: 5, 6 and 7 s: the flash kernel)
+MODEL_EVAL_SECONDS = (3.6, 4.5, 5.4, 6.3)
+
+
+def model_step_checks(name, kind, model, batches, cfg, per_step):
+    """One of the other models at full width: 3 eager steps, then the
+    same 3 steps as one CUDA graph (k = 3) from the same weights and
+    generator seed, under deterministic algorithms: every loss and the
+    final weights bit for bit, and the device step count at 3 (the angle
+    loss anneals lambda from it inside the graph). The wrappers' launches
+    of each eager step, of the warm-up and of the capture are gated
+    exactly. Then the step's wall ms eager and as the graph (two rounds
+    in turns), the device busy share of each (torch.profiler) and the peak
+    memory, all under the same deterministic algorithms. Returns
+    (launches by wrapper, graph replay launches, row)."""
+    import torch
+
+    from occm_tpu_torch.ops import launch_counts
+    from occm_tpu_torch.ops.fused_adam import MAX_LEAVES
+    from occm_tpu_torch.train import create_train_state
+    from occm_tpu_torch.train.graph import GraphedSteps
+    from occm_tpu_torch.train.loop import train_step
+
+    k = len(batches)
+    xs = np.stack([b[0] for b in batches])
+    ls = np.stack([b[1] for b in batches])
+    # one fused_adam launch a step holds every leaf with a gradient: all
+    # but LCNN's never-run group BatchNorms
+    live = [n for n, _ in model.named_parameters() if ".0.bn." not in n]
+    if -(-len(live) // MAX_LEAVES) != per_step["fused_adam"]:
+        fail(f"models {name}: {len(live)} leaves with a gradient need "
+             f"{-(-len(live) // MAX_LEAVES)} fused_adam launches a step")
+    model.to(DEVICE)
+    init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    # ---- 3 eager steps
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = create_train_state(model, cfg, kind)
+    rec = StepRecorder()
+    for x, labels in batches:
+        rec(state.step + 1, train_step(
+            state, torch.from_numpy(x).to(DEVICE),
+            torch.from_numpy(labels).to(DEVICE), cfg))
+    eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    check_steps(f"models {name} eager", rec,
+                {**per_step, "flash_attn_bwd_dout_copies": 0})
+    eager_counts = launch_counts()
+    eager_losses = [st["loss"] for st in rec.steps]
+    eager_weights = {n: t.detach().clone()
+                     for n, t in model.state_dict().items()}
+    del state
+    gc.collect()
+    # ---- the same 3 steps as one graph, from the same weights and seed
+    model.load_state_dict(init)
+    del init
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(model, cfg, kind)
+    runner = GraphedSteps(state, cfg, k)
+    before = launch_counts()
+    metrics = runner.run(xs, ls)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    graph_peak = torch.cuda.max_memory_allocated() / 2**30
+    captured = runner.capture_launches[tuple(xs.shape)]
+    for key, n in per_step.items():
+        if captured[key] != k * n or after[key] - before[key] != (k + 1) * n:
+            fail(f"models {name}: {key} captured {captured[key]} and "
+                 f"called {after[key] - before[key]} times, want {k} x {n} "
+                 f"and warm-up + capture = {(k + 1) * n}")
+    graph_losses = [float(v) for v in metrics["step_loss"]]
+    if graph_losses != eager_losses:
+        fail(f"models {name}: graph losses {graph_losses} are not the eager "
+             f"steps' {eager_losses}")
+    differ = [n for n, t in model.state_dict().items()
+              if not torch.equal(t, eager_weights[n])]
+    if differ:
+        fail(f"models {name}: the graph's weights differ from the eager "
+             f"steps' in {len(differ)} tensors, e.g. {differ[:3]}")
+    if state.step != k or int(state.step_t) != k:
+        fail(f"models {name}: step count {state.step} / {int(state.step_t)}"
+             f" after the graph, want {k}")
+    del eager_weights
+    counts = {key: eager_counts[key] + after[key] - before[key]
+              for key in per_step}
+    replayed = {key: captured[key] * runner.replays for key in per_step}
+    # ---- wall ms a step, eager and as the graph, in turns; device busy
+    x1 = torch.from_numpy(xs[0]).to(DEVICE)
+    l1 = torch.from_numpy(ls[0]).to(DEVICE)
+
+    def eager():
+        for _ in range(k):
+            train_step(state, x1, l1, cfg)
+
+    runs = {"eager": eager, "graph k=3": lambda: runner.run(xs, ls)}
+    walls = {label: [] for label in runs}
+    for _ in range(TIMING_ROUNDS):
+        for label, fn in runs.items():
+            walls[label].append(wall_ms(fn, k))
+    want = {key: per_step[key] * per_call
+            for key, (_, per_call) in KERNEL_NAMES.items()}
+    busy = {label: profile_steps(fn, k, f"{name} {label}", want)
+            for label, fn in runs.items()}
+    row = dict(model=name, kind=kind, losses=eager_losses,
+               params=sum(p.numel() for p in model.parameters()),
+               leaves=len(list(model.parameters())), adam_leaves=len(live),
+               wall_ms=walls, peak_gib={"eager": eager_peak,
+                                        "graph capture": graph_peak},
+               busy={label: {key: r[key] for key in
+                             ("window_ms", "busy_ms", "busy_share",
+                              "launches")} for label, r in busy.items()},
+               capture_s=runner.capture_seconds[tuple(xs.shape)])
+    print(f"[models] {name} ({kind}): losses {eager_losses} (graph = eager "
+          f"bit for bit, weights too; step count {k}); wall ms a step "
+          f"{walls}; device busy {row['busy']}; peak {row['peak_gib']} GiB;"
+          f" capture {row['capture_s']:.2f} s", flush=True)
+    del state, runner
+    gc.collect()  # a state and its graph runner refer to each other
+    torch.cuda.empty_cache()
+    return counts, replayed, row
+
+
+def phase_models_cli(workdir: str, fixture, layers: int):
+    """The other models through the CLIs at full width: `oc_training
+    --model ssl_resnet34` for its epoch of 6 steps (ssl_resnet34_vocoded_0
+    .pt), `oc_classifier --mode 1c1` and `2c1` from it and from the
+    ssl_vocoded / senet34_vocoded pair split off it (score files equal),
+    its distances against a direct SSLResNet34 forward within SCORE_RTOL,
+    EER of both score files in [0, 1]; then `oc_training --model
+    ssl_lcnn_asoftmax --steps_per_dispatch 3` for one chunk. Returns the
+    wrappers' launches, the graph replay launches and the measurements."""
+    import torch
+
+    from occm_tpu_torch.audio import pad_numpy
+    from occm_tpu_torch.classify.impl_select import select_attention_impl
+    from occm_tpu_torch.cli import oc_classifier, oc_training
+    from occm_tpu_torch.config import XLSRConfig
+    from occm_tpu_torch.data import ASVDataset
+    from occm_tpu_torch.evaluate import calculate_eer_merged, evaluate_scores
+    from occm_tpu_torch.io.scorefiles import read_comma_scores
+    from occm_tpu_torch.io.wav import load_audio
+    from occm_tpu_torch.losses import pairwise_distance
+    from occm_tpu_torch.models import SSLResNet34, load_reference_state_dict
+
+    protocol, train_dir, voc_dir = fixture
+    root = os.path.join(workdir, "models_cli")
+    os.makedirs(root)
+    out, counts, replayed = {}, {}, {}
+
+    def add(delta):
+        for key, n in delta.items():
+            counts[key] = counts.get(key, 0) + n
+
+    # ---- training: --model ssl_resnet34, one epoch
+    ck = os.path.join(root, "ck")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        reset_counts()
+        rec = StepRecorder()
+        t0 = time.perf_counter()
+        oc_training.main([
+            "--train_protocol_file", protocol, "--train_dataset_dir",
+            train_dir, "--vocoded_dir", voc_dir, "--model", "ssl_resnet34",
+            "--cut", str(TRAIN_CUT), "--num_epochs", "1",
+            "--compactness_weight", "0.1", "--descriptiveness_weight",
+            "0.9", "--checkpoint_dir", ck], on_step=rec)
+        out["train_s"] = time.perf_counter() - t0
+        add(read_counts())
+    finally:
+        os.chdir(cwd)
+    check_steps("models cli ssl_resnet34", rec, {
+        "flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
+        "flash_attn_bwd_dkv": layers, "flash_attn_bwd_dout_copies": 0,
+        "layernorm_bwd": 0, "fused_adam": 0, "ffn_fwd": 0})
+    fused = os.path.join(ck, "ssl_resnet34_vocoded_0.pt")
+    state = load_reference_state_dict(fused)
+    pair = {"ssl": os.path.join(root, "ssl_vocoded_0.pt"),
+            "senet": os.path.join(root, "senet34_vocoded_0.pt")}
+    torch.save({k[len("frontend."):]: v for k, v in state.items()
+                if k.startswith("frontend.")}, pair["ssl"])
+    torch.save({k[len("resnet34."):]: v for k, v in state.items()
+                if k.startswith("resnet34.")}, pair["senet"])
+    print(f"[models] cli: oc_training --model ssl_resnet34, "
+          f"{len(rec.steps)} steps in {out['train_s']:.1f} s (build, data, "
+          f"checkpoint included), losses "
+          f"{[round(st['loss'], 6) for st in rec.steps]}; {fused} "
+          f"({os.path.getsize(fused) / 2**30:.2f} GiB) split into "
+          f"{sorted(pair)}", flush=True)
+
+    # ---- scoring: 1c1 and 2c1, from the fused file and from the pair
+    eval_dir, paths = write_eval_set(root, seconds=MODEL_EVAL_SECONDS)
+    weights = {"fused": ["--pretrained-ssl", fused],
+               "pair": ["--pretrained-ssl", pair["ssl"],
+                        "--pretrained-senet", pair["senet"]]}
+    files = {}
+    for how, flags in weights.items():
+        run = os.path.join(root, how)
+        os.makedirs(run)
+        os.chdir(run)  # reference_embedding.npy, threshold.npy land here
+        try:
+            for mode in ("1c1", "2c1"):
+                files[how, mode] = os.path.join(run, f"scores_{mode}.txt")
+                reset_counts()
+                t0 = time.perf_counter()
+                oc_classifier.main([
+                    *flags, "--protocol_file", protocol, "--dataset_dir",
+                    train_dir, "--eval_protocol_file", paths["eval.txt"],
+                    "--eval_dataset_dir", eval_dir, "--mode", mode,
+                    "--score_file", files[how, mode]])
+                torch.cuda.synchronize()
+                out[f"score_{how}_{mode}_s"] = time.perf_counter() - t0
+                add(read_counts())
+        finally:
+            os.chdir(cwd)
+    for mode in ("1c1", "2c1"):
+        a = open(files["fused", mode]).read()
+        b = open(files["pair", mode]).read()
+        if a != b or len(a.splitlines()) != len(MODEL_EVAL_SECONDS):
+            fail(f"oc_classifier {mode}: the fused file and the pair score "
+                 f"differently:\n{a}\n{b}")
+    ref_dir = os.path.join(root, "fused")
+    reference = np.load(os.path.join(ref_dir, "reference_embedding.npy"))
+    threshold = float(np.load(os.path.join(ref_dir, "threshold.npy")))
+    if not np.array_equal(reference, np.load(os.path.join(
+            root, "pair", "reference_embedding.npy"))):
+        fail("1c1: the fused file and the pair give other references")
+    d_cli = np.asarray(read_comma_scores(files["fused", "1c1"]))
+    logits = np.loadtxt(files["fused", "2c1"])
+    if not (reference.shape == (128,) and np.isfinite(d_cli).all()
+            and np.isfinite(logits).all()):
+        fail(f"1c1 / 2c1 outputs: reference {reference.shape}, distances "
+             f"{d_cli}, logits {logits}")
+
+    # ---- the same distances from a direct SSLResNet34 forward
+    model = SSLResNet34(XLSRConfig())
+    model.load_state_dict(state, strict=True)
+    del state
+    model.to(DEVICE).eval()
+
+    def embed(paths_):
+        rows = []
+        for path in paths_:
+            wave = load_audio(path)[0]
+            bucket = max(16000, -(-len(wave) // 16000) * 16000)
+            x = torch.from_numpy(pad_numpy(wave, bucket)[None].astype(
+                np.float32)).to(DEVICE)
+            with torch.inference_mode():
+                com, _ = model(x, attention_impl=select_attention_impl(
+                    bucket))
+            rows.append(com[0].float())
+        return torch.stack(rows)
+
+    train_ds = ASVDataset(protocol, train_dir)
+    eval_ds = ASVDataset(paths["eval.txt"], eval_dir, eval=True)
+    ref_direct = embed(train_ds.file_paths()).mean(dim=0)
+    d_direct = pairwise_distance(embed(eval_ds.file_paths()),
+                                 ref_direct[None]).cpu().numpy()
+    rel = np.abs(d_direct - d_cli) / np.abs(d_direct)
+    ref_rel = float((ref_direct.cpu() - torch.from_numpy(reference)).norm()
+                    / ref_direct.norm().cpu())
+    print(f"[models] 1c1 / 2c1: the fused file and the ssl_vocoded / "
+          f"senet34_vocoded pair give equal score files and references; "
+          f"distances {np.round(d_cli, 4).tolist()}, direct forward "
+          f"{np.round(d_direct, 4).tolist()}: max rel diff {rel.max():.3e}, "
+          f"reference {ref_rel:.3e} (bound {SCORE_RTOL}); threshold "
+          f"{threshold:.6f}", flush=True)
+    if not (rel.max() <= SCORE_RTOL and ref_rel <= SCORE_RTOL):
+        fail(f"1c1 distances off the direct forward: rel {rel}, reference "
+             f"{ref_rel}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = evaluate_scores(files["fused", "1c1"], paths["eval.txt"],
+                          paths["metadata.txt"], threshold=threshold)
+    utt_file = os.path.join(root, "utt_scores_2c1.txt")
+    with open(utt_file, "w") as f:
+        for utt, lg in zip(open(paths["eval.txt"]).read().split(), logits):
+            f.write(f"{utt} {float(lg)}\n")
+    eer_2c, _ = calculate_eer_merged(paths["eval5.txt"], utt_file)
+    for mode, eer in (("1c1", res["eer"]), ("2c1", eer_2c)):
+        if not (math.isfinite(eer) and 0.0 <= eer <= 1.0):
+            fail(f"EER {mode} = {eer}")
+    out.update(eer_1c1=res["eer"], eer_2c1=eer_2c, max_rel=float(rel.max()),
+               ref_rel=ref_rel)
+    score_s = [round(v, 1) for k, v in out.items() if k.startswith("score_")]
+    print(f"[models] EER 1c1 {res['eer'] * 100:.2f} %, 2c1 "
+          f"{eer_2c * 100:.2f} % (random weights: the pipeline runs); "
+          f"scoring s {score_s}", flush=True)
+
+    # ---- --model ssl_lcnn_asoftmax --steps_per_dispatch 3: one chunk
+    chunks = []
+
+    def one_chunk(step, metrics):
+        chunks.append([float(v) for v in metrics["step_loss"]])
+        raise _OneStep
+
+    reset_counts()
+    os.chdir(root)
+    try:
+        t0 = time.perf_counter()
+        oc_training.main([
+            "--train_protocol_file", protocol, "--train_dataset_dir",
+            train_dir, "--vocoded_dir", voc_dir, "--model",
+            "ssl_lcnn_asoftmax", "--cut", str(TRAIN_CUT), "--num_epochs",
+            "1", "--steps_per_dispatch", str(CONTROL_K), "--checkpoint_dir",
+            os.path.join(root, "ck_angle")], on_step=one_chunk)
+    except _OneStep:
+        pass
+    finally:
+        os.chdir(cwd)
+    out["angle_chunk_s"] = time.perf_counter() - t0
+    got = read_counts()
+    add(got)
+    # one graph replay of what the capture recorded: k steps' launches
+    want_calls = (CONTROL_K + 1) * 2 * layers
+    if (len(chunks) != 1 or len(chunks[0]) != CONTROL_K
+            or not all(math.isfinite(v) for v in chunks[0])
+            or got["flash_attn_fwd"] != want_calls):
+        fail(f"oc_training ssl_lcnn_asoftmax --steps_per_dispatch "
+             f"{CONTROL_K}: chunks {chunks}, launches {got}, want "
+             f"flash_attn_fwd {want_calls} (warm-up + capture)")
+    for key in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        replayed[key] = got[key] // (CONTROL_K + 1) * CONTROL_K
+    print(f"[models] cli: oc_training --model ssl_lcnn_asoftmax "
+          f"--steps_per_dispatch {CONTROL_K}, one chunk as one graph: "
+          f"losses {chunks[0]}, {out['angle_chunk_s']:.1f} s with model "
+          "build and capture", flush=True)
+    return counts, replayed, out
+
+
+def phase_models(workdir: str, fixture):
+    """Phase 12: the other models at full width (`model_step_checks` for
+    each of OTHER_MODELS, one after another, each freed before the next;
+    every kernel: flash attention, ln_impl and ffn_impl "pallas",
+    fused_adam, remat; RawBoost off; the backends' default dropouts on),
+    then the CLIs (`phase_models_cli`). Returns the kernel wrappers'
+    launches, the graphs' replayed launches and the measurements."""
+    import torch
+
+    from occm_tpu_torch.cli.oc_training import make_model
+    from occm_tpu_torch.config import RawBoostConfig, TrainConfig, XLSRConfig
+    from occm_tpu_torch.data import MetaBatchPipeline, PFDataset
+
+    protocol, train_dir, voc_dir = fixture
+    t_phase = time.perf_counter()
+    dataset = PFDataset(protocol, dataset_dir=train_dir, vocoded_dir=voc_dir,
+                        cut=TRAIN_CUT, seed=0)
+    batches = list(MetaBatchPipeline(dataset, seed=0).epoch(0))[:CONTROL_K]
+    xcfg = XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
+                      attention_impl="flash")
+    layers = xcfg.encoder_layers
+    per_step = {"flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
+                "flash_attn_bwd_dkv": layers, "layernorm_bwd": 2 * layers,
+                "fused_adam": 1, "ffn_fwd": 2 * layers}
+    cfg = TrainConfig(cut=TRAIN_CUT, compactness_weight=0.1,
+                      descriptiveness_weight=0.9, log_every=1,
+                      optimizer="fused_adam", rawboost=RawBoostConfig(algo=0))
+    counts = dict.fromkeys(per_step, 0)
+    replayed = dict.fromkeys(per_step, 0)
+    rows = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name in OTHER_MODELS:
+            t0 = time.perf_counter()
+            # built on the card: its initialisation draws from the CUDA
+            # generator, seeded (and forked) here
+            with torch.random.fork_rng(devices=[0]), torch.device(DEVICE):
+                torch.manual_seed(0)
+                model, kind = make_model(name, xcfg)
+            build_s = time.perf_counter() - t0
+            c, r, row = model_step_checks(name, kind, model, batches, cfg,
+                                          per_step)
+            row.update(build_s=build_s, seconds=time.perf_counter() - t0)
+            rows.append(row)
+            for key in per_step:
+                counts[key] += c[key]
+                replayed[key] += r[key]
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    c, r, cli = phase_models_cli(workdir, fixture, layers)
+    for key, n in c.items():
+        if key in counts:
+            counts[key] += n
+    for key, n in r.items():
+        replayed[key] += n
+    out = dict(models=rows, cli=cli, seconds=time.perf_counter() - t_phase)
+    print(f"[models] phase 12 took {out['seconds']:.1f} s", flush=True)
+    return counts, replayed, out
+
+
 # ------------------------------------------------------- optional profile
 
 def _kernel_class(name: str) -> str:
@@ -3231,6 +3651,10 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 9-11 only (device, build, "
                          "RawBoost on the card, training with RawBoost, "
                          "--pretrained_xlsr); prints no kernels line")
+    ap.add_argument("--models-only", action="store_true",
+                    help="run phases 1, 2 and 12 only (device, build, the "
+                         "other models and scoring modes 1c1 / 2c1); "
+                         "prints no kernels line")
     args = ap.parse_args(argv)
 
     smi = phase_device()
@@ -3238,7 +3662,7 @@ def main(argv=None) -> int:
     import torch
 
     hgmma = phase_build()
-    if args.controls_only or args.rawboost_only:
+    if args.controls_only or args.rawboost_only or args.models_only:
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -3249,9 +3673,11 @@ def main(argv=None) -> int:
             if args.controls_only:
                 result = {"controls": phase_train_controls(workdir,
                                                            fixture)[2]}
-            else:
+            elif args.rawboost_only:
                 result = {"rawboost": phase_rawboost_all(workdir,
                                                          fixture)[2]}
+            else:
+                result = {"models": phase_models(workdir, fixture)[2]}
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         print(smi)
@@ -3288,6 +3714,7 @@ def main(argv=None) -> int:
                 workdir, fixture)
             rb_counts, rb_replayed, rawboost = phase_rawboost_all(workdir,
                                                                   fixture)
+            m_counts, m_replayed, models = phase_models(workdir, fixture)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         launches["flash_attn_fwd"] += serve_launches
@@ -3298,7 +3725,8 @@ def main(argv=None) -> int:
         # warm-ups and captures); a graph's replays launch what its capture
         # recorded
         for counts, replays in ((control_counts, replayed),
-                                (rb_counts, rb_replayed)):
+                                (rb_counts, rb_replayed),
+                                (m_counts, m_replayed)):
             for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
                          "ffn_fwd"):
                 launches[name] += counts[name]
@@ -3308,6 +3736,7 @@ def main(argv=None) -> int:
                 "flash_attn_bwd_dq", 0)
         print(f"[controls] {json.dumps(controls, default=str)}", flush=True)
         print(f"[rawboost] {json.dumps(rawboost, default=str)}", flush=True)
+        print(f"[models] {json.dumps(models, default=str)}", flush=True)
 
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,

@@ -8,8 +8,15 @@ eval set with the selected mode (1c2 default, reference:
 oc_classifier.py:358). The flags are the JAX CLI's, plus --device;
 --pretrained-sslaasist takes a torch state dict in the reference's naming
 (what `occm_tpu_torch.cli.oc_training` writes) in place of an orbax
-directory. Modes 1c2 and 2c2 run the full AModel; 1c1 and 2c1,
---quant_int8 and --data_parallel raise NotImplementedError.
+directory. Modes 1c2 and 2c2 run the full AModel. Modes 1c1 and 2c1 run
+SSLResNet34 (the separate extractor and SE-ResNet34 encoder), loaded from
+--pretrained-ssl alone (a fused ssl_resnet34 .pt, as `oc_training --model
+ssl_resnet34` writes; --pretrained-sslaasist when --pretrained-ssl is
+unset), or from the reference's separate pair (reference:
+oc_classifier.py:340-342): --pretrained-ssl an ssl_vocoded .pt (the
+SSLModel, model.*) into the frontend and --pretrained-senet a
+senet34_vocoded .pt into the encoder, statistics included. --quant_int8
+and --data_parallel raise NotImplementedError.
 
 Usage:
     python -m occm_tpu_torch.cli.oc_classifier \\
@@ -31,9 +38,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch state dict of the full AModel in the "
                              "reference's naming (oc_training's .pt)")
     parser.add_argument("--pretrained-ssl", type=str, default=None,
-                        help="modes 1c1/2c1 only (not ported yet)")
+                        help="modes 1c1/2c1: a fused ssl_resnet34 .pt, or "
+                             "with --pretrained-senet an ssl_vocoded .pt "
+                             "(SSLModel, model.*) for the frontend")
     parser.add_argument("--pretrained-senet", type=str, default=None,
-                        help="modes 1c1/2c1 only (not ported yet)")
+                        help="modes 1c1/2c1, with --pretrained-ssl: a "
+                             "senet34_vocoded .pt for the SE-ResNet34 "
+                             "encoder")
     parser.add_argument(
         "--protocol_file", type=str,
         default="/datab/Dataset/ASVspoof/LA/ASVspoof_LA_cm_protocols/"
@@ -55,8 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mode", type=str, default="1c2",
                         choices=["1c1", "1c2", "2c1", "2c2"],
                         help="scoring mode (reference: "
-                             "oc_classifier.py:206-312); 1c1/2c1 are not "
-                             "ported yet")
+                             "oc_classifier.py:206-312)")
     parser.add_argument("--score_file", type=str, default="scores.txt")
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--bucket_step", type=int, default=16000)
@@ -86,6 +96,59 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def build_ssl_resnet34(xlsr_cfg, ssl, senet, sslaasist,
+                       allow_random_init: bool, device):
+    """SSLResNet34 on `device` in eval mode for modes 1c1/2c1: from the
+    fused file `ssl or sslaasist`, or, when both `ssl` and `senet` are
+    given, from the separate pair (the SSLModel's state dict into
+    `frontend`, the SE-ResNet's into `resnet34`); every load is strict. A
+    missing file fails before the model is built; with `allow_random_init`
+    a file that cannot be loaded gives seeded random weights (seed 0)."""
+    import os
+
+    from occm_tpu_torch.models import (
+        SSLResNet34, detect_model_kind, load_reference_state_dict)
+    from occm_tpu_torch.utils.init_template import random_init_
+
+    pair = bool(ssl and senet)
+    ckpt = ssl or sslaasist
+    if not allow_random_init:
+        for path in ([ssl, senet] if pair else [ckpt]):
+            if not os.path.isfile(path):
+                raise SystemExit(
+                    f"ERROR: could not restore pretrained weights: "
+                    f"checkpoint {path!r} does not exist.\n"
+                    "Pass --allow_random_init to score with random weights "
+                    "(testing only).")
+
+    def load(path, want):
+        state = load_reference_state_dict(path)
+        kind = detect_model_kind(state)
+        if kind != want:
+            raise ValueError(f"{path!r} holds a {kind} checkpoint, not "
+                             f"{want}")
+        return state
+
+    model = SSLResNet34(xlsr_cfg=xlsr_cfg)
+    try:
+        if pair:
+            model.frontend.load_state_dict(load(ssl, "ssl"), strict=True)
+            model.resnet34.load_state_dict(load(senet, "senet"), strict=True)
+        else:
+            model.load_state_dict(load(ckpt, "ssl_resnet34"), strict=True)
+        print("Pretrained weights loaded")
+    except (OSError, RuntimeError, KeyError, ValueError) as e:
+        if not allow_random_init:
+            raise SystemExit(
+                f"ERROR: could not restore pretrained weights from "
+                f"{ckpt!r}: {e}\nPass --allow_random_init to score with "
+                "random weights (testing only).")
+        print(f"WARNING: could not restore pretrained weights ({e}); "
+              "using random init (--allow_random_init)")
+        random_init_(model, seed=0)
+    return model.to(device).eval()
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
@@ -95,11 +158,6 @@ def main(argv=None):
     from occm_tpu_torch.data import ASVDataset
     from occm_tpu_torch.utils.device import resolve_device
 
-    if args.mode in ("1c1", "2c1"):
-        raise NotImplementedError(
-            f"--mode {args.mode} needs SSLResNet34 (the separate extractor "
-            "and SE-ResNet34 encoder), not ported to occm_tpu_torch yet "
-            "(ROADMAP queue A item 8)")
     if args.quant_int8:
         raise NotImplementedError(
             "--quant_int8 is not ported to occm_tpu_torch yet (ROADMAP "
@@ -111,8 +169,13 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     xlsr_cfg = xlsr_config(args.xlsr_tiny, args.fast_numerics)
-    model = build_model(xlsr_cfg, args.pretrained_sslaasist,
-                        args.allow_random_init, device)
+    if args.mode in ("1c1", "2c1"):
+        model = build_ssl_resnet34(
+            xlsr_cfg, args.pretrained_ssl, args.pretrained_senet,
+            args.pretrained_sslaasist, args.allow_random_init, device)
+    else:
+        model = build_model(xlsr_cfg, args.pretrained_sslaasist,
+                            args.allow_random_init, device)
     embedder = BucketedEmbedder(
         embed_fn_factory=make_embed_fn_factory(
             model, args.attention_impl, xlsr_cfg.norm_dtype),
@@ -124,7 +187,7 @@ def main(argv=None):
     eval_dataset = ASVDataset(args.eval_protocol_file,
                               args.eval_dataset_dir, eval=True)
 
-    if args.mode == "1c2":
+    if args.mode in ("1c1", "1c2"):
         reference, threshold = scorer.create_reference_embedding(
             train_dataset, verbose=True)
         scorer.score_eval_set_1c(eval_dataset, reference, threshold,

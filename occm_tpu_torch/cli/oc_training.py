@@ -1,15 +1,21 @@
 """One-class training CLI (port of `occm_tpu.cli.oc_training`): the same
 flags and defaults, plus --device.
 
-Trains XLSR + AASIST (`--model aasist`) on one GPU and writes the
-reference's per-epoch checkpoints `<checkpoint_dir>/aasist_vocoded_<e>.pt`
-(a torch state dict in the reference naming, which
-`occm_tpu_torch.cli.oc_server --pretrained-sslaasist` loads, next to the
-optimizer state). `--init_from` takes such a .pt file; `--pretrained_xlsr`
+Trains one of the JAX CLI's models on one GPU: XLSR + AASIST (`--model
+aasist`), SSLResNet34 (`ssl_resnet34`), SSLLCNN with the Linear head
+(`ssl_lcnn`) or the A-softmax head and the angle loss
+(`ssl_lcnn_asoftmax`), TotalCNNNet (`cnn`) or the dual-branch OCCM
+(`occm`), each with its output kind's loss (`make_model`). It writes the
+reference's per-epoch checkpoints `<checkpoint_dir>/<model>_vocoded_<e>.pt`
+(a torch state dict in the reference naming, next to the optimizer
+state; `occm_tpu_torch.cli.oc_server --pretrained-sslaasist` loads an
+aasist one, `oc_classifier --pretrained-ssl` an ssl_resnet34 one).
+`--init_from` takes such a .pt file of the chosen model; `--pretrained_xlsr`
 a fairseq or HF wav2vec2 / XLS-R checkpoint (.pt, .bin, .safetensors),
-grafted into the SSL frontend of the model built from --seed (it wins over
---init_from, as in the JAX package). `--rawboost_algo` 1-8 augments every
-step's batch on the device. `--grad_accum`, `--lr_schedule` (with
+grafted into the SSL frontend (`ssl_model.model` of aasist,
+`frontend.model` of the others) of the model built from --seed (it wins
+over --init_from, as in the JAX package). `--rawboost_algo` 1-8 augments
+every step's batch on the device. `--grad_accum`, `--lr_schedule` (with
 `--warmup_steps`, `--decay_steps`, `--lr_end_ratio`),
 `--steps_per_dispatch` (one CUDA graph per chunk on a card),
 `--checkpoint_every_steps` (and the SIGTERM save) and `--resume` act as in
@@ -146,7 +152,6 @@ def _unported(args) -> None:
     ROADMAP queue A. (TrainConfig, MeshConfig and XLSRConfig raise on the
     fields they carry.)"""
     checks = [
-        ("--model", args.model != "aasist", "the other models"),
         ("--fast_numerics", args.fast_numerics, "remat_policy variants"),
         ("--seq_parallel", args.seq_parallel, "multi-GPU"),
         ("--pp_microbatches", args.pp_microbatches != 0, "multi-GPU"),
@@ -182,25 +187,55 @@ def xlsr_config(args, cut: int, device):
     return xlsr_cfg
 
 
-def build_model(xlsr_cfg, seed: int, init_from=None, pretrained_xlsr=None):
-    """AModel with PyTorch's default initialisation drawn from a generator
-    seeded with `seed` (the global one, forked so the caller's stream is
-    untouched); then either the SSL frontend from a pretrained wav2vec2 /
-    XLS-R checkpoint (`pretrained_xlsr`, which wins, as in the JAX CLI), or
-    every weight from a reference-named .pt file (`init_from`)."""
+#: --model -> the output kind its loss takes (the JAX CLI's make_model;
+#: ssl_lcnn_asoftmax trains with the angle loss, reference:
+#: oc_training.py:334-335)
+OUTPUT_KIND_OF = {"aasist": "dual", "ssl_resnet34": "dual",
+                  "ssl_lcnn": "logits", "ssl_lcnn_asoftmax": "angle",
+                  "cnn": "logits", "occm": "occm"}
+
+
+def make_model(name: str, xlsr_cfg):
+    """(model, output kind) of `--model name`, as the JAX CLI's
+    make_model."""
+    from occm_tpu_torch.config import AASISTConfig
+    from occm_tpu_torch.models import (
+        OCCM, SSLLCNN, AModel, SSLResNet34, TotalCNNNet)
+
+    build = {"aasist": lambda: AModel(AASISTConfig(), xlsr_cfg=xlsr_cfg),
+             "ssl_resnet34": lambda: SSLResNet34(xlsr_cfg=xlsr_cfg),
+             "ssl_lcnn": lambda: SSLLCNN(xlsr_cfg=xlsr_cfg),
+             "ssl_lcnn_asoftmax": lambda: SSLLCNN(xlsr_cfg=xlsr_cfg,
+                                                  asoftmax=True),
+             "cnn": lambda: TotalCNNNet(xlsr_cfg=xlsr_cfg),
+             "occm": lambda: OCCM(xlsr_cfg=xlsr_cfg)}
+    if name not in build:
+        raise ValueError(name)
+    return build[name](), OUTPUT_KIND_OF[name]
+
+
+def build_model(xlsr_cfg, seed: int, init_from=None, pretrained_xlsr=None,
+                name: str = "aasist"):
+    """The model of `--model name` with PyTorch's default initialisation
+    drawn from a generator seeded with `seed` (the global one, forked so
+    the caller's stream is untouched); then either the SSL frontend from a
+    pretrained wav2vec2 / XLS-R checkpoint (`pretrained_xlsr`, which wins,
+    as in the JAX CLI), or every weight from a reference-named .pt file of
+    that model (`init_from`, loaded strictly). Returns the model; its
+    output kind is `make_model`'s."""
     import torch
 
-    from occm_tpu_torch.config import AASISTConfig
-    from occm_tpu_torch.models import AModel, load_reference_state_dict
+    from occm_tpu_torch.models import load_reference_state_dict
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = AModel(AASISTConfig(), xlsr_cfg=xlsr_cfg)
+        model, _ = make_model(name, xlsr_cfg)
     if pretrained_xlsr:
         from occm_tpu_torch.models.convert_xlsr import graft_pretrained_xlsr
 
-        graft_pretrained_xlsr(model.ssl_model.model, pretrained_xlsr)
-        print(f"Grafted pretrained XLSR {pretrained_xlsr} into 'ssl_model'")
+        scope = "ssl_model" if name == "aasist" else "frontend"
+        graft_pretrained_xlsr(getattr(model, scope).model, pretrained_xlsr)
+        print(f"Grafted pretrained XLSR {pretrained_xlsr} into '{scope}'")
     elif init_from:
         if not init_from.endswith(".pt"):
             raise NotImplementedError(
@@ -268,9 +303,9 @@ def main(argv=None, on_step=None):
                                  seed=cfg.seed)
 
     model = build_model(xlsr_cfg, cfg.seed, args.init_from,
-                        args.pretrained_xlsr)
+                        args.pretrained_xlsr, name=args.model)
 
-    prefix = cfg.checkpoint_prefix  # reference naming: aasist_vocoded_{e}
+    prefix = cfg.checkpoint_prefix  # reference naming: <model>_vocoded_{e}
 
     def checkpoint_fn(state, epoch):
         print("Saving the models...")
@@ -278,7 +313,8 @@ def main(argv=None, on_step=None):
 
     print("Training starts...")
     return train(model, pipeline, cfg, checkpoint_fn=checkpoint_fn,
-                 device=device, on_step=on_step, resume=args.resume)
+                 device=device, on_step=on_step, resume=args.resume,
+                 output_kind=OUTPUT_KIND_OF[args.model])
 
 
 if __name__ == "__main__":

@@ -1,3 +1,4 @@
+from occm_tpu_torch.losses.angle import AngleLossState, angle_loss
 from occm_tpu_torch.losses.oneclass import (
     compactness_loss,
     descriptiveness_loss,
@@ -7,6 +8,8 @@ from occm_tpu_torch.losses.oneclass import (
 )
 
 __all__ = [
+    "AngleLossState",
+    "angle_loss",
     "compactness_loss",
     "descriptiveness_loss",
     "group_one_class_loss",

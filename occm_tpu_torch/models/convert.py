@@ -1,14 +1,21 @@
-"""The weight bridge: Flax `AModel` variables -> a state dict in the
-reference's torch naming, which the port's modules load with
-`load_state_dict(strict=True)`.
+"""The weight bridge: Flax variables of the JAX package's models -> a
+state dict in the reference's torch naming, which the port's modules load
+with `load_state_dict(strict=True)`.
 
 This is the port's own copy of the mapping of
-`occm_tpu.models.convert_backend.export_xlsr_state_dict` and
-`export_amodel_state_dict`, with one difference: the export drops a conv
-feature-extractor bias that is all zeros (a bias-free reference
-checkpoint), while the port's convs always have a bias, so the bridge
-always emits it. Inputs are plain numpy arrays, so the port needs no JAX
-to read a tree that was saved to disk.
+`occm_tpu.models.convert_backend`'s exporters (`export_xlsr_state_dict`,
+`export_amodel_state_dict`, `export_senet_state_dict`,
+`export_lcnn_state_dict`, and `export_model_file`'s fused ssl_resnet34
+layout), extended to the JAX package's other fused models (SSLLCNN,
+TotalCNNNet, OCCM; the CNN named as its Flax scopes) and dispatched on a
+tree's top-level names as `detect_params_kind` does. One difference: the
+export drops a conv feature-extractor bias that is all zeros (a bias-free
+reference checkpoint), while the port's convs always have a bias, so the
+bridge always emits it. Dead reference BatchNorms (AASIST's `bn1`, LCNN's
+`group.bn`) are emitted at torch's defaults. Inputs are plain numpy
+arrays, so the port needs no JAX to read a tree that was saved to disk.
+`detect_model_kind` is the port's copy of the JAX package's: it tells the
+reference's checkpoint files apart by their key names.
 
 Layouts: Flax Dense kernel [in, out] -> Linear weight [out, in]; Flax
 Conv kernel [K, in, out] -> Conv1d [out, in, K]; Flax Conv HWIO ->
@@ -179,6 +186,129 @@ def amodel_arrays_from_flax(variables: Mapping,
     return out
 
 
+def _se_block(out: Dict, key: str, p: Mapping, s) -> None:
+    _conv2d(out, f"{key}.conv1", p["conv1"])
+    _bn(out, f"{key}.bn1", p["bn1"], s.get("bn1"))
+    _conv2d(out, f"{key}.conv2", p["conv2"])
+    _bn(out, f"{key}.bn2", p["bn2"], s.get("bn2"))
+    _linear(out, f"{key}.se.fc.0", p["se"]["fc1"])
+    _linear(out, f"{key}.se.fc.2", p["se"]["fc2"])
+    if "downsample_conv" in p:
+        _conv2d(out, f"{key}.downsample.0", p["downsample_conv"])
+        _bn(out, f"{key}.downsample.1", p["downsample_bn"],
+            s.get("downsample_bn"))
+
+
+def senet_arrays_from_flax(p: Mapping, s) -> Dict:
+    """SEResNet params and batch_stats -> reference models/senet.py names
+    (`export_senet_state_dict`; stage depths read off the tree)."""
+    out: Dict = {}
+    _conv2d(out, "conv1", p["conv1"])
+    _bn(out, "bn1", p["bn1"], s.get("bn1"))
+    for name in sorted((k for k in p if k.startswith("layer")),
+                       key=lambda k: tuple(map(int, k[5:].split("_")))):
+        stage, b = name[5:].split("_")
+        _se_block(out, f"layer{stage}.{b}", p[name], s[name])
+    _linear(out, "embedding", p["embedding"])
+    _linear(out, "classifier", p["classifier"])
+    return out
+
+
+def lcnn_arrays_from_flax(p: Mapping, s) -> Dict:
+    """LCNN params and batch_stats -> reference models/lcnn.py names
+    (`export_lcnn_state_dict`; the dead `group.bn` at torch's defaults,
+    left out of a parameter-only mapping, whose `s` has no statistics)."""
+    out: Dict = {}
+    _conv2d(out, "layer1.0.filter", p["layer1_mfm"]["filter"])
+    for name in ("layer2", "layer3"):
+        grp = p[f"{name}_group"]
+        _conv2d(out, f"{name}.0.conv_a.filter", grp["conv_a"]["filter"])
+        if s.get(f"{name}_bn") is not None:
+            _bn_default(out, f"{name}.0.bn",
+                        _a(grp["conv_a"]["filter"]["kernel"]).shape[2])
+        _conv2d(out, f"{name}.0.conv.filter", grp["conv"]["filter"])
+        _bn(out, f"{name}.2", p[f"{name}_bn"], s.get(f"{name}_bn"))
+    for name in ("fc0", "fc1", "fc2"):
+        _linear(out, f"{name}.0.filter.0", p[name]["filter"])
+    if "weight" in p["fc3"]:  # AngleLinear: [in, out], no transpose, no bias
+        out["fc3.weight"] = _a(p["fc3"]["weight"])
+    else:
+        _linear(out, "fc3", p["fc3"])
+    return out
+
+
+def cnn_arrays_from_flax(p: Mapping, s) -> Dict:
+    """A CNN of `models.cnn` -> the port's names (the Flax scopes)."""
+    out: Dict = {}
+    for name in sorted(p):
+        if name.startswith(("conv", "fc")):
+            (_conv2d if name.startswith("conv") else _linear)(out, name,
+                                                              p[name])
+        elif name.startswith("bn"):
+            _bn(out, name, p[name], s.get(name))
+        elif name.startswith("attention"):
+            _conv2d(out, f"{name}.conv", p[name]["conv"])
+    return out
+
+
+def detect_params_kind(params: Mapping) -> str:
+    """Which model a Flax params tree belongs to, by its top-level names
+    (the JAX package's `detect_params_kind`, with the fused models it
+    does not export)."""
+    keys = set(params)
+    if {"ssl_model", "backend"} <= keys:
+        return "amodel"
+    if "frontend" in keys:
+        for kind, backends in (("occm", {"senet34_branch", "lcnn_branch"}),
+                               ("ssl_resnet34", {"resnet34"}),
+                               ("ssl_lcnn", {"lcnn"}),
+                               ("cnn", {"cnn_net"})):
+            if backends <= keys:
+                return kind
+    if "layer1_mfm" in keys:
+        return "lcnn"
+    if "embedding" in keys and "classifier" in keys:
+        return "senet"
+    if "conv1" in keys and "fc3" in keys:
+        return "cnn_backend"
+    raise ValueError(
+        f"unrecognised params tree (top-level: {sorted(keys)[:8]})")
+
+
+#: the fused models' backend scopes and their mappings
+_BACKENDS = {"resnet34": senet_arrays_from_flax,
+             "senet34_branch": senet_arrays_from_flax,
+             "lcnn": lcnn_arrays_from_flax,
+             "lcnn_branch": lcnn_arrays_from_flax,
+             "cnn_net": cnn_arrays_from_flax}
+
+
+def arrays_from_flax(variables: Mapping,
+                     xlsr_cfg: Optional[XLSRConfig] = None,
+                     params_only: bool = False) -> Dict:
+    """Variables of any model the bridge knows ({"params", "batch_stats"};
+    see `detect_params_kind`) -> {reference torch name: numpy array}. With
+    params_only, only the trainable parameters that the Flax tree has (see
+    `amodel_arrays_from_flax`)."""
+    p = variables["params"]
+    kind = detect_params_kind(p)
+    if kind == "amodel":
+        return amodel_arrays_from_flax(variables, xlsr_cfg, params_only)
+    s = _NoStats() if params_only else variables.get("batch_stats", {})
+    bare = {"senet": senet_arrays_from_flax, "lcnn": lcnn_arrays_from_flax,
+            "cnn_backend": cnn_arrays_from_flax}
+    if kind in bare:
+        return bare[kind](p, s)
+    out: Dict = {
+        f"frontend.model.{k}": v for k, v in xlsr_arrays_from_flax(
+            p["frontend"], xlsr_cfg or XLSRConfig()).items()}
+    for scope in _BACKENDS:
+        if scope in p:
+            out.update({f"{scope}.{k}": v for k, v in
+                        _BACKENDS[scope](p[scope], s[scope]).items()})
+    return out
+
+
 def _tensors(arrays: Mapping) -> Dict[str, torch.Tensor]:
     # np.array copies: a writable, contiguous array that keeps 0-d shapes
     # (np.ascontiguousarray would turn num_batches_tracked into shape (1,))
@@ -194,9 +324,10 @@ def xlsr_state_dict_from_flax(params: Mapping, cfg: XLSRConfig
 def state_dict_from_flax(variables: Mapping,
                          xlsr_cfg: Optional[XLSRConfig] = None
                          ) -> Dict[str, torch.Tensor]:
-    """AModel variables ({"params", "batch_stats"} of numpy arrays) ->
-    state dict for the port's AModel."""
-    return _tensors(amodel_arrays_from_flax(variables, xlsr_cfg))
+    """Variables ({"params", "batch_stats"} of numpy arrays) of an AModel,
+    SSLResNet34, SSLLCNN, TotalCNNNet, OCCM, or of a bare SEResNet, LCNN
+    or CNN -> state dict for the port's module of that name."""
+    return _tensors(arrays_from_flax(variables, xlsr_cfg))
 
 
 def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -220,9 +351,9 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 def optimizer_state_from_flax(opt_state, xlsr_cfg: Optional[XLSRConfig] = None
                               ) -> Dict:
-    """A JAX optimizer state of an AModel -> {"count": int, "mu": {name:
-    tensor}, "nu": {name: tensor}} in the port's parameter names, with the
-    parameters' transposes.
+    """A JAX optimizer state of any model `state_dict_from_flax` takes ->
+    {"count": int, "mu": {name: tensor}, "nu": {name: tensor}} in the
+    port's parameter names, with the parameters' transposes.
 
     opt_state: the JAX package's `FusedAdamState` (count, mu, nu), or
     optax adam's state, whose first element is a `ScaleByAdamState` (with
@@ -232,11 +363,40 @@ def optimizer_state_from_flax(opt_state, xlsr_cfg: Optional[XLSRConfig] = None
     moments go to `encoder.pos_conv.0.weight`."""
     adam = opt_state if hasattr(opt_state, "mu") else opt_state[0]
     out: Dict = {"count": int(np.asarray(adam.count))}
-    pos = "ssl_model.model.encoder.pos_conv.0."
     for key, tree in (("mu", adam.mu), ("nu", adam.nu)):
-        arrays = amodel_arrays_from_flax({"params": tree}, xlsr_cfg,
-                                         params_only=True)
-        arrays.pop(pos + "weight_g")
-        arrays[pos + "weight"] = arrays.pop(pos + "weight_v")
+        arrays = arrays_from_flax({"params": tree}, xlsr_cfg,
+                                  params_only=True)
+        for name in [n for n in arrays
+                     if n.endswith("encoder.pos_conv.0.weight_g")]:
+            pos = name[: -len("weight_g")]
+            arrays.pop(name)
+            arrays[pos + "weight"] = arrays.pop(pos + "weight_v")
         out[key] = _tensors(arrays)
     return out
+
+
+def detect_model_kind(sd: Mapping) -> str:
+    """Which reference checkpoint family a torch state dict belongs to, by
+    its key names (the port's copy of the JAX package's
+    `detect_model_kind`): "amodel" (aasist_vocoded_*.pt), "ssl_resnet34"
+    (the fused frontend.model.* + resnet34.* file), "senet"
+    (senet34_vocoded_*.pt), "lcnn", or "ssl" (ssl_vocoded_*.pt, an
+    SSLModel's model.*)."""
+    probe = {k.split("module.", 1)[-1] for k in sd}
+    if any(k.startswith("ssl_model.") for k in probe) or "pos_S" in probe:
+        return "amodel"
+    if any(k.startswith("frontend.model.") for k in probe) and any(
+            k.startswith("resnet34.") for k in probe):
+        return "ssl_resnet34"
+    if any(k.startswith("layer4.") for k in probe) and \
+            "embedding.weight" in probe:
+        return "senet"
+    if any(k.startswith("fc3.") for k in probe) and any(
+            k.startswith("layer1.0.filter") for k in probe):
+        return "lcnn"
+    if any(k.startswith(("model.", "feature_extractor.")) for k in probe):
+        return "ssl"
+    raise ValueError(
+        "unrecognised checkpoint: expected reference AModel "
+        "(aasist_vocoded_*.pt), SE-ResNet (senet34_vocoded_*.pt), LCNN, or "
+        "SSLModel (ssl_vocoded_*.pt) key names")

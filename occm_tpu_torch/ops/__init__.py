@@ -13,7 +13,13 @@ from occm_tpu_torch.ops.layernorm import (
     layer_norm_bwd,
     layer_norm_bwd_reference,
 )
-from occm_tpu_torch.ops.pool import max_pool2d
+from occm_tpu_torch.ops.mfm import mfm_max
+from occm_tpu_torch.ops.pool import (
+    adaptive_avg_pool2d,
+    avg_pool2d,
+    global_avg_pool2d,
+    max_pool2d,
+)
 from occm_tpu_torch.ops.pos_conv import pos_conv_grouped
 
 
@@ -33,7 +39,9 @@ def launch_counts() -> dict:
 
 __all__ = [
     "FusedAdam",
+    "adaptive_avg_pool2d",
     "adam_reference",
+    "avg_pool2d",
     "fast_layer_norm",
     "ffn_fwd",
     "ffn_reference",
@@ -43,10 +51,12 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_reference",
     "fused_ffn",
+    "global_avg_pool2d",
     "launch_counts",
     "layer_norm_bwd",
     "layer_norm_bwd_reference",
     "max_pool2d",
+    "mfm_max",
     "pos_conv_grouped",
     "reference_attention",
 ]

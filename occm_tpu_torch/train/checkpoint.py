@@ -3,7 +3,8 @@
 
 `<dir>/<prefix>_<epoch>.pt` holds {"model": the model's state dict in the
 reference's naming, "optimizer": the optimizer state keyed by parameter
-name, "step": the step count, "rng": the dropout generator's state}.
+name, "step": the step count (restored on the host and on the device),
+"rng": the dropout generator's state}.
 `load_reference_state_dict` (and so `oc_server --pretrained-sslaasist`)
 unwraps "model" and loads it as it is. A step checkpoint,
 `<dir>/<prefix>_step_<opt_steps>.pt`, holds the same and the epoch's
@@ -101,7 +102,7 @@ def _apply(state, payload: Dict) -> None:
     BatchNorm statistics, optimizer state, step, generator)."""
     state.model.load_state_dict(payload["model"], strict=True)
     state.load_optimizer_state(payload["optimizer"])
-    state.step = int(payload["step"])
+    state.set_step(int(payload["step"]))
     if "rng" in payload:
         state.generator.set_state(payload["rng"])
 

@@ -23,6 +23,9 @@ What the graph holds fixed, and why it stays right:
   the graph's draws on every replay (eager steps from the same state draw
   the same augmentation and masks); the augmentation reads no device
   value on the host, so it is captured with the step;
+- the step count: `state.step_t` on the device, incremented by every
+  captured step, is what the A-softmax loss anneals lambda from, so
+  lambda moves from step to step and from replay to replay;
 - the optimizer: FusedAdam's step count and bias corrections are read from
   the device by its kernel; torch.optim.Adam on a card is always
   capturable (step on the device, as in eager steps) and reads its lr
@@ -171,6 +174,7 @@ class GraphedSteps:
         opt = state.optimizer
         tensors = list(itertools.chain(state.model.parameters(),
                                        state.model.buffers()))
+        tensors.append(state.step_t)
         if isinstance(opt, FusedAdam):
             tensors += [*opt.mu, *opt.nu, opt.count_t]
         return tensors

@@ -3,8 +3,15 @@
 Semantics of the JAX package's loop (reference: oc_training.py:344-401):
 - meta-batches of 12 (6 bona + 1 spoof + 5 vocoded), G of them stacked
   [G*12, cut] per step;
-- loss = cw * compactness (per meta-batch, averaged over the G groups)
-  + dw * descriptiveness (over all G*12 utterances);
+- the loss of the model's output kind (`occm_tpu/train/loop.py:184-225`):
+  "dual" (AModel, SSLResNet34: (emb, logits)) cw * compactness (per
+  meta-batch, averaged over the G groups) + dw * descriptiveness (over all
+  G*12 utterances); "logits" (SSLLCNN, TotalCNNNet) dw * descriptiveness;
+  "angle" (SSLLCNN with the A-softmax head) dw * the angle loss, lambda
+  annealed from the step count on the device (`state.step_t`, the count
+  before this update); "occm" ((emb, senet logits), lcnn logits) cw *
+  compactness of the SE-ResNet embedding + dw * the mean of the two heads'
+  descriptiveness;
 - Adam ("adam": torch.optim.Adam with optax's constants, under the
   configured lr schedule, or "fused_adam": the single-pass CUDA kernel),
   one optimizer step per batch, BatchNorm running statistics updated by the
@@ -42,17 +49,40 @@ import torch
 from occm_tpu_torch.augment import batch_rawboost
 from occm_tpu_torch.config import TrainConfig
 from occm_tpu_torch.data.pipeline import chunk_batches
-from occm_tpu_torch.losses import group_one_class_loss
+from occm_tpu_torch.losses import (
+    AngleLossState, angle_loss, descriptiveness_loss, group_one_class_loss)
 from occm_tpu_torch.train.state import TrainState, create_train_state
 from occm_tpu_torch.utils.device import resolve_device
 from occm_tpu_torch.utils.logging import MetricsLogger
 
 
 def _loss(state: TrainState, x, labels, cfg: TrainConfig, weights):
-    emb, logits = state.model(x, generator=state.generator)
-    return group_one_class_loss(
-        emb, logits, labels, cfg.compactness_weight,
-        cfg.descriptiveness_weight, cfg.meta_batch, weights)
+    """The train-mode forward and its loss by `state.output_kind`, as the
+    JAX step body composes them -> (loss, (c_loss, d_loss))."""
+    out = state.model(x, generator=state.generator)
+    kind = state.output_kind
+    cw, dw = cfg.compactness_weight, cfg.descriptiveness_weight
+    if kind == "dual":
+        emb, logits = out
+        return group_one_class_loss(emb, logits, labels, cw, dw,
+                                    cfg.meta_batch, weights)
+    if kind == "occm":
+        # dual-branch OCCM (reference: models/occm.py:48-67; the reference
+        # ships no OCCM trainer, so the loss composes its formulas)
+        (emb, senet_logits), lcnn_logits = out
+        _, (c_loss, d_senet) = group_one_class_loss(
+            emb, senet_logits, labels, cw, dw, cfg.meta_batch, weights)
+        d_loss = 0.5 * (d_senet + descriptiveness_loss(lcnn_logits, labels,
+                                                       weights))
+        return cw * c_loss + dw * d_loss, (c_loss, d_loss)
+    if kind == "angle":
+        # the A-softmax head's (cos, psi) + the angle loss, the step count
+        # as the annealing iteration (reference: oc_training.py:334-335)
+        d_loss, _ = angle_loss(out, labels, AngleLossState(it=state.step_t),
+                               weights=weights)
+    else:  # "logits"
+        d_loss = descriptiveness_loss(out, labels, weights)
+    return dw * d_loss, (torch.zeros_like(d_loss), d_loss)
 
 
 def train_step(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
@@ -122,9 +152,11 @@ def train(
     device="cuda",
     on_step: Optional[Callable[[int, Dict[str, torch.Tensor]], None]] = None,
     resume: bool = False,
+    output_kind: str = "dual",
 ) -> TrainState:
-    """Train `model` (an nn.Module returning (emb, logits)) on
-    `pipeline.epoch(e)` batches of numpy (x, labels).
+    """Train `model` (an nn.Module whose output `output_kind` names, see
+    `train.state.OUTPUT_KINDS`) on `pipeline.epoch(e)` batches of numpy
+    (x, labels).
 
     The model moves to `device` (CUDA unless the caller asks for the CPU).
     checkpoint_fn(state, epoch) runs after every epoch; on_step(step,
@@ -140,7 +172,7 @@ def train(
     logger = logger or MetricsLogger(loss_txt=cfg.loss_txt)
     k = max(1, cfg.steps_per_dispatch)
     graphed = dev.type == "cuda" and k > 1
-    state = create_train_state(model.to(dev), cfg)
+    state = create_train_state(model.to(dev), cfg, output_kind)
 
     start_epoch, progress = 0, None
     if resume:

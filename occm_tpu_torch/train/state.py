@@ -1,6 +1,14 @@
 """Train state: the model (parameters and BatchNorm statistics), its
 optimizer and lr schedule, the step count and the dropout generator (port
-of `occm_tpu.train.state`).
+of `occm_tpu.train.state`), and the model's output kind (what the step's
+loss makes of its output: `train.loop._loss`).
+
+The step count is kept twice: `step`, a host int, and `step_t`, a 0-d
+int64 tensor on the model's device that `apply_gradients` increments with
+a launch of its own. What the step computes from the count reads
+`step_t` (the A-softmax loss's lambda, the JAX step's `state.step`), so a
+CUDA graph of k steps (`graph.py`) anneals it on every replay; the host
+count serves the lr schedule, logging and checkpoint names.
 
 The optimizer is `torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)` for
 "adam" (optax's `adam`, never `fused=True`) or the port's single-pass
@@ -47,6 +55,10 @@ def make_optimizer(cfg: TrainConfig, params: List[torch.Tensor]
                             capturable=capturable)
 
 
+#: what the step's loss makes of the model's output (`occm_tpu.train.loop`)
+OUTPUT_KINDS = ("dual", "logits", "angle", "occm")
+
+
 @dataclasses.dataclass
 class TrainState:
     model: nn.Module
@@ -57,6 +69,24 @@ class TrainState:
     #: the CUDA graph runner (`graph.GraphedSteps`) that train() uses on a
     #: card with steps_per_dispatch > 1, else None
     graph: Optional[object] = None
+    #: "dual" (emb, logits), "logits", "angle" ((cos, psi) + the angle
+    #: loss) or "occm" (((emb, logits), lcnn_logits))
+    output_kind: str = "dual"
+    #: the step count on the generator's device (made from `step`)
+    step_t: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.output_kind not in OUTPUT_KINDS:
+            raise ValueError(f"unknown output_kind {self.output_kind!r} "
+                             f"(one of {OUTPUT_KINDS})")
+        if self.step_t is None:
+            self.step_t = torch.full((), self.step, dtype=torch.int64,
+                                     device=self.generator.device)
+
+    def set_step(self, step: int) -> None:
+        """Set the step count, on the host and on the device."""
+        self.step = int(step)
+        self.step_t.fill_(self.step)
 
     def named_params(self) -> List[Tuple[str, nn.Parameter]]:
         return list(self.model.named_parameters())
@@ -88,6 +118,7 @@ class TrainState:
         for p in params:
             p.grad = None
         self.step += 1
+        self.step_t.add_(1)
 
     def optimizer_state(self) -> Dict:
         """{"kind", "count", "mu", "nu"} keyed by parameter name."""
@@ -131,13 +162,14 @@ class TrainState:
             }
 
 
-def create_train_state(model: nn.Module, cfg: TrainConfig) -> TrainState:
+def create_train_state(model: nn.Module, cfg: TrainConfig,
+                       output_kind: str = "dual") -> TrainState:
     """The optimizer over the model's parameters (where they lie), the lr
     schedule, and a dropout generator on the model's device seeded from
-    cfg.seed."""
+    cfg.seed; `output_kind` is one of OUTPUT_KINDS."""
     params = [p for p in model.parameters()]
     device = params[0].device if params else torch.device("cpu")
     return TrainState(
         model=model, optimizer=make_optimizer(cfg, params),
         generator=torch.Generator(device=device).manual_seed(cfg.seed),
-        schedule=make_schedule(cfg))
+        schedule=make_schedule(cfg), output_kind=output_kind)

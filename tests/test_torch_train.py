@@ -526,7 +526,6 @@ def test_cli_trains_on_the_cpu_and_writes_a_servable_checkpoint(
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "ssl_lcnn"],
     ["--fsdp", "2"],
     ["--fast_numerics"],
     ["--wandb_project", "p"],
@@ -548,7 +547,17 @@ def test_cli_unported_flags_raise(tmp_path, extra):
     ["--checkpoint_every_steps", "5"],
     ["--rawboost_algo", "5"],
     ["--pretrained_xlsr", "xlsr2_tiny.pt"],
-], ids=lambda e: e[0].lstrip("-"))
+    ["--pretrained_xlsr", "xlsr2_tiny.pt", "--model", "ssl_resnet34"],
+    ["--model", "ssl_resnet34"],
+    ["--model", "ssl_lcnn"],
+    ["--model", "ssl_lcnn_asoftmax"],
+    ["--model", "cnn"],
+    ["--model", "occm"],
+    ["--grad_accum", "2", "--groups_per_step", "2", "--rawboost_algo", "5",
+     "--model", "ssl_lcnn_asoftmax"],
+    ["--grad_accum", "2", "--groups_per_step", "2", "--model", "occm"],
+], ids=lambda e: e[0].lstrip("-") + "".join(
+    f"-{v}" for k, v in zip(e, e[1:]) if k == "--model"))
 def test_cli_ported_training_flags(tmp_path, monkeypatch, extra):
     """The training flags the port took over from the JAX package train on
     the CPU through the CLI, and the run writes a checkpoint that loads
@@ -556,13 +565,17 @@ def test_cli_ported_training_flags(tmp_path, monkeypatch, extra):
     epoch; --checkpoint_every_steps also leaves its step checkpoint;
     --rawboost_algo 5 trains other weights than the same run without it;
     --pretrained_xlsr grafts a fairseq-style checkpoint into the SSL
-    frontend, over --init_from)."""
+    frontend, over --init_from; --model trains each of the other models
+    with its output kind's loss, into <model>_vocoded_<e>.pt, also under
+    --grad_accum and with RawBoost)."""
     from occm_tpu_torch.cli import oc_training
     from occm_tpu_torch.models import load_reference_state_dict
 
     protocol, train_dir, voc_dir = write_fixture(tmp_path)
     monkeypatch.chdir(tmp_path)
     ck = tmp_path / "ck"
+    name = extra[extra.index("--model") + 1] if "--model" in extra \
+        else "aasist"
     if extra[0] == "--pretrained_xlsr":
         encoder = _tiny_encoder()
         with torch.no_grad():  # other weights than the CLI's seed-0 model
@@ -575,7 +588,8 @@ def test_cli_ported_training_flags(tmp_path, monkeypatch, extra):
         grafted = oc_training.main(_cli_args(
             protocol, train_dir, voc_dir, str(tmp_path / "ck0"), *extra,
             "--init_from", "ignored.pt", "--num_epochs", "0"))
-        got = grafted.model.ssl_model.model.state_dict()
+        scope = "ssl_model" if name == "aasist" else "frontend"
+        got = getattr(grafted.model, scope).model.state_dict()
         for k, v in encoder.state_dict().items():
             torch.testing.assert_close(got[k], v, rtol=1e-6, atol=1e-6)
     steps = []
@@ -590,12 +604,12 @@ def test_cli_ported_training_flags(tmp_path, monkeypatch, extra):
     want_steps = {"grad_accum": 3, "resume": 12}.get(extra[0][2:], 6)
     assert state.step == want_steps == steps[-1][0]
     saved = sorted(p.name for p in ck.iterdir())
-    last = "aasist_vocoded_1.pt" if extra == ["--resume"] \
-        else "aasist_vocoded_0.pt"
+    last = f"{name}_vocoded_{1 if extra == ['--resume'] else 0}.pt"
     assert last in saved
     if extra[0] == "--checkpoint_every_steps":
         assert "aasist_vocoded_step_5.pt" in saved
-    model = AModel(AASISTConfig(), XLSRConfig.tiny())
+    model, kind = oc_training.make_model(name, XLSRConfig.tiny())
+    assert kind == state.output_kind == oc_training.OUTPUT_KIND_OF[name]
     model.load_state_dict(load_reference_state_dict(str(ck / last)),
                           strict=True)
     for k, v in state.model.state_dict().items():

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --controls-only # phases 1, 2 and 8 only
     python3 chip_smoke.py --rawboost-only # phases 1, 2 and 9-11 only
     python3 chip_smoke.py --models-only   # phases 1, 2 and 12 only
+    python3 chip_smoke.py --remat-only    # phases 1, 2 and 13 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -142,10 +143,31 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    distances within SCORE_RTOL of a direct SSLResNet34 forward, EER in
    [0, 1]), and `oc_training --model ssl_lcnn_asoftmax
    --steps_per_dispatch 3` for one chunk.
-13. with --profile only: device time by kernel (torch.profiler) for full
+13. remat and fast numerics at full width (AModel, XLSR-300M, random
+   weights from seed 0, 12 x 6 s, fused_adam, AASIST dropouts on, under
+   deterministic algorithms): each of the six remat policies with every
+   kernel (flash attention, ln_impl and ffn_impl "pallas"), from the same
+   weights: 3 eager steps equal bit for bit (losses, weights) to
+   "nothing"'s, the same 3 as one CUDA graph equal to them, each kernel's
+   launches a step exact, the peak memory of an eager step and what it
+   holds when its forward ends, the step's wall ms as the graph and its
+   device-busy share; attn_out_inner, attn_probs and dots again with plain
+   attention against that path's "nothing". The bf16 parameter mirror
+   against its plain definition (the stack cast by hand outside the
+   model, 3 eager steps bit for bit). Fast numerics (--fast_numerics' five
+   fields) against exact: at the same weights before each of 3 steps, the
+   encoder's features within FAST_FEATURE_RTOL and its gradient's cosine
+   above FAST_GRAD_COSINE (the losses printed beside the loss's own
+   sensitivity); graph wall, peak, busy share; flash against xla attention
+   under fast numerics as graphs in turns and as scoring utt/s at 2, 6 and
+   12 s (the measurement behind impl_select's threshold under fast
+   numerics). Then `oc_training --fast_numerics` for an epoch of 6 steps
+   and `--fast_numerics --attention_impl flash --steps_per_dispatch 3`
+   for one chunk.
+14. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-14. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
+15. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1000,8 +1022,7 @@ def phase_tiny_auto():
 
     def embed(device):
         emb, logits = BucketedEmbedder(
-            embed_fn_factory=make_embed_fn_factory(model, "auto",
-                                                   xcfg.norm_dtype),
+            embed_fn_factory=make_embed_fn_factory(model, "auto"),
             bucket_step=SR, batch_size=4, device=device).embed_all(waves)
         return emb, logits
 
@@ -1771,9 +1792,9 @@ def phase_train(workdir: str, fixture, profile: bool):
 # ------------------------------------------------------------------ phase 8
 
 CONTROL_K = 3   # steps per dispatch (one CUDA graph launch per chunk)
-# rounds in turns of the step-wall timings of phases 8, 10 and 12 (two,
-# to keep the whole script near 600 s)
-TIMING_ROUNDS = 2
+# rounds in turns of the step-wall timings of phases 8, 10 and 12 (one,
+# to keep the whole script near 600 s with phase 13)
+TIMING_ROUNDS = 1
 RESUME_EVERY = 2
 # device kernels of each wrapper count: ffn_fwd makes two launches a call
 KERNEL_NAMES = {"flash_attn_fwd": ("flash_attn_fwd_kernel", 1),
@@ -3454,6 +3475,520 @@ def phase_models(workdir: str, fixture):
     return counts, replayed, out
 
 
+# -------------------------------------- phase 13: remat and fast numerics
+
+REMAT_POLICIES = ("nothing", "dots", "attn_out", "attn_out_inner",
+                  "attn_probs", "attn_all")
+#: the policies that keep other tensors on the plain attention path (its
+#: QK^T, probabilities and P.V exist only there), run again with
+#: attention_impl="xla" against that path's "nothing"
+PLAIN_POLICIES = ("nothing", "attn_out_inner", "attn_probs", "dots")
+#: the fields --fast_numerics sets (the JAX CLI's five,
+#: occm_tpu/cli/oc_training.py:255-260)
+FAST_FIELDS = dict(norm_dtype="bfloat16", gelu_approximate=True,
+                   conv_gelu_approximate=True, bf16_param_mirror=True,
+                   remat_policy="attn_out_inner")
+#: fast against exact numerics at the same weights, where the knobs act:
+#: the XLSR encoder's features within 2 % relative L2 and the gradient of
+#: their mean square at cosine above 0.99 (the JAX suite's encoder gate,
+#: tests/test_fast_numerics.py). AASIST's loss is not gated: its top-k
+#: graph pooling reroutes under any bf16-sized change of its input, so the
+#: loss moves as far when the exact run's input is scaled by 1 + 2^-8
+#: (`same_params_check` prints both)
+FAST_FEATURE_RTOL = 2e-2
+FAST_GRAD_COSINE = 0.99
+#: scoring buckets (seconds) of the flash-vs-xla measurement under fast
+#: numerics, a full batch of 8 each, and the training graphs' rounds in
+#: turns
+FAST_SCORE_SECONDS = (2, 6, 12)
+FAST_ROUNDS = 2
+
+
+def set_xlsr_cfg(model, xcfg) -> None:
+    """Point every module of `model` that holds its XLSR config at xcfg:
+    the same weights under another remat policy or numerics."""
+    from occm_tpu_torch.config import XLSRConfig
+
+    for m in model.modules():
+        if isinstance(getattr(m, "cfg", None), XLSRConfig):
+            m.cfg = xcfg
+
+
+def hand_mirror(model):
+    """The bf16 mirror by its plain definition, outside the model: a
+    wrapper whose forward casts the stack's fp32 parameters to bf16 and
+    runs `model` (mirror off) on those copies through
+    torch.func.functional_call; the gradients come back to the fp32
+    leaves through the casts. Its parameters are model's."""
+    import torch
+
+    class HandMirror(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+
+        def forward(self, x, generator=None):
+            stack = {n: p.to(torch.bfloat16) for n, p
+                     in self.model.named_parameters()
+                     if n.startswith("ssl_model.model.encoder.layers.")
+                     and p.dtype == torch.float32}
+            return torch.func.functional_call(
+                self.model, stack, (x,), {"generator": generator})
+
+    return HandMirror()
+
+
+def remat_steps(label, model, init, cfg, batches, per_step, ref=None,
+                keep=False):
+    """The model from `init` under its current config: 3 eager steps (the
+    second one's peak memory, reset before it: the optimizer's moments
+    exist by then; and what the step holds when its forward ends, which
+    is what the policy keeps), their losses and weights
+    equal bit for bit to `ref`'s where given; then the same 3 steps as one
+    CUDA graph, equal to them bit for bit; each wrapper's launches a step
+    exact; the step's wall ms as the graph and its device-busy share.
+    Returns (row, (losses, weights) when ref is None, launches, replayed
+    launches, the graph runner when keep)."""
+    import torch
+
+    from occm_tpu_torch.ops import launch_counts
+    from occm_tpu_torch.train import create_train_state
+    from occm_tpu_torch.train.graph import GraphedSteps
+    from occm_tpu_torch.train.loop import train_step
+
+    t0 = time.perf_counter()
+    k = len(batches)
+    xs = np.stack([b[0] for b in batches])
+    ls = np.stack([b[1] for b in batches])
+    model.load_state_dict(init)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- 3 eager steps
+    reset_counts()
+    state = create_train_state(model, cfg, "dual")
+    rec = StepRecorder()
+    held = []
+    hook = model.register_forward_hook(
+        lambda *_: held.append(torch.cuda.memory_allocated()))
+    for i, (x, labels) in enumerate(batches):
+        x, labels = (torch.from_numpy(x).to(DEVICE),
+                     torch.from_numpy(labels).to(DEVICE))
+        if i == 1:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        metrics = train_step(state, x, labels, cfg)
+        if i == 1:
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        rec(state.step, metrics)
+    hook.remove()
+    check_steps(f"remat {label} eager", rec,
+                {**per_step, "flash_attn_bwd_dout_copies": 0})
+    eager_counts = launch_counts()
+    losses = [st["loss"] for st in rec.steps]
+    weights = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    if ref is not None:
+        differ = [n for n, t in weights.items() if not torch.equal(
+            t, ref[1][n])]
+        if losses != ref[0] or differ:
+            fail(f"remat {label}: eager losses {losses} against "
+                 f"{ref[0]}; weights differ in {len(differ)} tensors, "
+                 f"e.g. {differ[:3]}")
+    del state
+    gc.collect()
+    # ---- the same 3 steps as one graph, from the same weights
+    model.load_state_dict(init)
+    torch.cuda.empty_cache()
+    state = create_train_state(model, cfg, "dual")
+    runner = GraphedSteps(state, cfg, k)
+    before = launch_counts()
+    graph = runner.run(xs, ls)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    captured = runner.capture_launches[tuple(xs.shape)]
+    for key, n in per_step.items():
+        if captured[key] != k * n or after[key] - before[key] != (k + 1) * n:
+            fail(f"remat {label}: {key} captured {captured[key]} and "
+                 f"called {after[key] - before[key]} times, want {k} x {n} "
+                 f"and warm-up + capture = {(k + 1) * n}")
+    graph_losses = [float(v) for v in graph["step_loss"]]
+    differ = [n for n, t in model.state_dict().items()
+              if not torch.equal(t, weights[n])]
+    if graph_losses != losses or differ:
+        fail(f"remat {label}: graph losses {graph_losses} against eager "
+             f"{losses}; weights differ in {len(differ)} tensors, e.g. "
+             f"{differ[:3]}")
+    if ref is not None:
+        weights = None
+    # ---- wall ms a step as the graph, device busy
+    wall = wall_ms(lambda: runner.run(xs, ls), k)
+    want = {key: per_step[key] * per_call
+            for key, (_, per_call) in KERNEL_NAMES.items()}
+    busy = profile_steps(lambda: runner.run(xs, ls), k, f"remat {label}",
+                         want)
+    counts = {key: eager_counts[key] + after[key] - before[key]
+              for key in per_step}
+    row = dict(losses=losses, peak_gib=peak / 2**30,
+               step_gib=(peak - base) / 2**30,
+               held_gib=(held[1] - base) / 2**30, graph_wall_ms=wall,
+               busy={key: busy[key] for key in ("window_ms", "busy_ms",
+                                                "busy_share", "launches")},
+               capture_s=runner.capture_seconds[tuple(xs.shape)],
+               seconds=time.perf_counter() - t0)
+    print(f"[remat] {label}: losses {losses} (eager = graph bit for bit"
+          f"{'' if ref is None else ', = the reference'}); peak "
+          f"{row['peak_gib']:.3f} GiB in eager step 2 "
+          f"({row['step_gib']:.3f} GiB above the step's start, "
+          f"{row['held_gib']:.3f} GiB held at the forward's end); graph "
+          f"{wall:.2f} ms a step, "
+          f"device busy {busy['busy_ms']:.2f} ms ({busy['busy_share']:.3f});"
+          f" capture {row['capture_s']:.2f} s; {row['seconds']:.1f} s in all",
+          flush=True)
+    if keep:
+        return row, (losses, weights), counts, runner
+    replayed = {key: captured[key] * runner.replays for key in per_step}
+    del state, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, (losses, weights), counts, replayed
+
+
+def same_params_check(model, init, cfg, batches, exact, fast):
+    """The JAX suite's same-params gates (tests/test_fast_numerics.py)
+    along a trajectory: from `init`, before each of the exact config's 3
+    eager steps, both configs at those weights, on that batch: the XLSR
+    encoder's features (relative L2) and the gradient of their mean square
+    (cosine), held to FAST_FEATURE_RTOL and FAST_GRAD_COSINE; AASIST's loss
+    of both with the same dropout masks (a generator seeded alike), and the
+    exact loss again on the batch scaled by 1 + 2^-8 (one bf16 rounding:
+    the loss's own sensitivity), printed. Returns the rows."""
+    import torch
+
+    from occm_tpu_torch.losses import group_one_class_loss
+    from occm_tpu_torch.train import create_train_state
+    from occm_tpu_torch.train.loop import train_step
+
+    def loss_of(x, labels, xcfg):
+        set_xlsr_cfg(model, xcfg)
+        model.train()
+        with torch.no_grad():
+            emb, logits = model(x, generator=torch.Generator(
+                device=DEVICE).manual_seed(7))
+            loss, _ = group_one_class_loss(
+                emb, logits, labels, cfg.compactness_weight,
+                cfg.descriptiveness_weight, cfg.meta_batch)
+        return float(loss)
+
+    def encoder(x, xcfg):
+        set_xlsr_cfg(model, xcfg)
+        enc = model.ssl_model.model
+        enc.zero_grad(set_to_none=True)
+        feats = enc(x)
+        torch.mean(torch.square(feats)).backward()
+        grad = torch.cat([p.grad.float().flatten() for p in enc.parameters()
+                          if p.grad is not None])
+        enc.zero_grad(set_to_none=True)
+        return feats.detach().float(), grad
+
+    model.load_state_dict(init)
+    set_xlsr_cfg(model, exact)
+    state = create_train_state(model, cfg, "dual")
+    rows = []
+    for x, labels in batches:
+        x, labels = (torch.from_numpy(x).to(DEVICE),
+                     torch.from_numpy(labels).to(DEVICE))
+        f_e, g_e = encoder(x, exact)
+        f_f, g_f = encoder(x, fast)
+        row = dict(
+            loss_exact=loss_of(x, labels, exact),
+            loss_fast=loss_of(x, labels, fast),
+            loss_exact_scaled=loss_of(x * (1 + 2.0 ** -8), labels, exact),
+            feature_rel_l2=float((f_f - f_e).norm() / f_e.norm()),
+            grad_cosine=float(torch.dot(g_f, g_e)
+                              / (g_f.norm() * g_e.norm())))
+        for key in ("loss_fast", "loss_exact_scaled"):
+            row[key + "_rel"] = abs(row[key] - row["loss_exact"]) / abs(
+                row["loss_exact"])
+        rows.append(row)
+        del f_e, g_e, f_f, g_f
+        set_xlsr_cfg(model, exact)
+        train_step(state, x, labels, cfg)
+    del state
+    print(f"[remat] fast against exact numerics at the same weights, before "
+          f"each of 3 exact steps: {rows}", flush=True)
+    for row in rows:
+        if not (row["feature_rel_l2"] < FAST_FEATURE_RTOL
+                and row["grad_cosine"] > FAST_GRAD_COSINE
+                and math.isfinite(row["loss_fast"])):
+            fail(f"fast numerics off exact at the same weights: {row} "
+                 f"(features within {FAST_FEATURE_RTOL}, cosine above "
+                 f"{FAST_GRAD_COSINE})")
+    return rows
+
+
+def phase_remat(workdir: str, fixture):
+    """Phase 13: the remat policies and --fast_numerics at full width
+    (AModel, XLSR-300M, random weights from seed 0, 12 x 6 s, fused_adam,
+    AASIST dropouts on, deterministic algorithms): `remat_steps` for each
+    policy with every kernel against "nothing", and for PLAIN_POLICIES
+    with plain attention against that path's "nothing"; the bf16 mirror
+    against `hand_mirror`; fast against exact numerics; flash against xla
+    attention under fast numerics (training and scoring); then the CLI.
+    Returns the wrappers' launches, the graphs' replayed launches and the
+    measurements."""
+    import dataclasses
+
+    import torch
+
+    from occm_tpu_torch.config import (
+        AASISTConfig, RawBoostConfig, TrainConfig, XLSRConfig)
+    from occm_tpu_torch.data import MetaBatchPipeline, PFDataset
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.train import create_train_state
+    from occm_tpu_torch.train.loop import train_step
+
+    protocol, train_dir, voc_dir = fixture
+    t_phase = time.perf_counter()
+    dataset = PFDataset(protocol, dataset_dir=train_dir, vocoded_dir=voc_dir,
+                        cut=TRAIN_CUT, seed=0)
+    batches = list(MetaBatchPipeline(dataset, seed=0).epoch(0))[:CONTROL_K]
+    base = XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
+                      attention_impl="flash")
+    layers = base.encoder_layers
+    # every policy reruns the flash forward in its recompute (the CUDA
+    # backward reads out and lse, which no name keeps) and the fused FFN
+    flash = {"flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
+             "flash_attn_bwd_dkv": layers, "layernorm_bwd": 2 * layers,
+             "fused_adam": 1, "ffn_fwd": 2 * layers}
+    plain = {**flash, "flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
+             "flash_attn_bwd_dkv": 0}
+    cfg = TrainConfig(cut=TRAIN_CUT, compactness_weight=0.1,
+                      descriptiveness_weight=0.9, log_every=1,
+                      optimizer="fused_adam", rawboost=RawBoostConfig(algo=0))
+    counts = dict.fromkeys(flash, 0)
+    replayed = dict.fromkeys(flash, 0)
+
+    def add(c, r=None):
+        for key, n in c.items():
+            if key in counts:
+                counts[key] += n
+        for key, n in (r or {}).items():
+            replayed[key] += n
+
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.random.fork_rng(devices=[0]), torch.device(DEVICE):
+            torch.manual_seed(0)
+            model = AModel(AASISTConfig(), base)
+        init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+        # ---- every policy, flash attention, then the plain path
+        for impl, policies, per_step in (("flash", REMAT_POLICIES, flash),
+                                         ("xla", PLAIN_POLICIES, plain)):
+            ref = None
+            for policy in policies:
+                set_xlsr_cfg(model, dataclasses.replace(
+                    base, attention_impl=impl, remat_policy=policy))
+                row, eager, c, r = remat_steps(
+                    f"{impl} {policy}", model, init, cfg, batches, per_step,
+                    ref)
+                add(c, r)
+                ref = ref or eager
+                out[f"{impl} {policy}"] = row
+            del ref
+        # ---- the mirror against its plain definition (remat off)
+        mirrored = dataclasses.replace(base, remat=False, **FAST_FIELDS)
+        no_remat = {**flash, "flash_attn_fwd": layers, "ffn_fwd": layers}
+        runs = {}
+        for how, xcfg in (("mirror", mirrored), ("by hand", dataclasses
+                          .replace(mirrored, bf16_param_mirror=False))):
+            set_xlsr_cfg(model, xcfg)
+            model.load_state_dict(init)
+            reset_counts()
+            state = create_train_state(
+                model if how == "mirror" else hand_mirror(model), cfg, "dual")
+            rec = StepRecorder()
+            for x, labels in batches:
+                rec(state.step + 1, train_step(
+                    state, torch.from_numpy(x).to(DEVICE),
+                    torch.from_numpy(labels).to(DEVICE), cfg))
+            check_steps(f"remat mirror {how}", rec,
+                        {**no_remat, "flash_attn_bwd_dout_copies": 0})
+            add(read_counts())
+            runs[how] = ([st["loss"] for st in rec.steps],
+                         {n: t.detach().clone()
+                          for n, t in model.state_dict().items()})
+            del state
+        differ = [n for n, t in runs["mirror"][1].items()
+                  if not torch.equal(t, runs["by hand"][1][n])]
+        if runs["mirror"][0] != runs["by hand"][0] or differ:
+            fail(f"bf16 mirror: losses {runs['mirror'][0]} against the "
+                 f"hand cast's {runs['by hand'][0]}; weights differ in "
+                 f"{len(differ)} tensors, e.g. {differ[:3]}")
+        out["mirror"] = dict(losses=runs["mirror"][0])
+        print(f"[remat] bf16 mirror = the stack cast by hand outside the "
+              f"model, 3 eager steps bit for bit (losses "
+              f"{runs['mirror'][0]}, weights)", flush=True)
+        del runs
+        # ---- fast numerics: flash (the kept runner) and xla, in turns
+        fast, graphs = {}, {}
+        for impl, per_step in (("flash", flash), ("xla", plain)):
+            set_xlsr_cfg(model, dataclasses.replace(
+                base, attention_impl=impl, **FAST_FIELDS))
+            row, _, c, graphs[impl] = remat_steps(
+                f"fast {impl}", model, init, cfg, batches, per_step,
+                keep=True)
+            add(c)
+            fast[impl] = row
+        same = same_params_check(model, init, cfg, batches, base,
+                                 dataclasses.replace(base, **FAST_FIELDS))
+        xs = np.stack([b[0] for b in batches])
+        ls = np.stack([b[1] for b in batches])
+        walls = {impl: [] for impl in graphs}
+        for _ in range(FAST_ROUNDS):
+            for impl, runner in graphs.items():
+                walls[impl].append(wall_ms(lambda: runner.run(xs, ls),
+                                           CONTROL_K))
+        for impl, runner in graphs.items():
+            add({}, {key: runner.capture_launches[tuple(xs.shape)][key]
+                     * runner.replays for key in flash})
+            fast[impl]["graph_wall_ms_in_turns"] = walls[impl]
+        out["fast"] = dict(fast, same_params=same)
+        print(f"[remat] fast numerics (attn_out_inner, bf16 norms and "
+              f"mirror, tanh GELU): trajectory losses "
+              f"{fast['flash']['losses']} against exact "
+              f"{out['flash nothing']['losses']}; graph ms a step in turns "
+              f"flash {walls['flash']}, xla {walls['xla']}", flush=True)
+        del graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- scoring under fast numerics: flash against xla per bucket
+        from occm_tpu_torch.serve import make_score_fn
+
+        set_xlsr_cfg(model, dataclasses.replace(base, **FAST_FIELDS))
+        model.load_state_dict(init)
+        model.eval()
+        rng = np.random.default_rng(13)
+        scoring = {}
+        for seconds in FAST_SCORE_SECONDS:
+            x = torch.from_numpy((rng.normal(size=(8, seconds * SR)) * 0.1)
+                                 .astype(np.float32)).to(DEVICE)
+            reset_counts()
+            scoring[seconds] = utt_per_s(
+                {impl: make_score_fn(model, impl)
+                 for impl in ("flash", "xla")}, x)
+            add(read_counts())
+        out["fast_scoring_utt_per_s"] = scoring
+        print(f"[remat] scoring under fast numerics, utt/s at batch 8 (A B "
+              f"B A): {scoring}", flush=True)
+        del model, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # ---- through the CLI
+    c, r, cli = phase_remat_cli(workdir, fixture, layers)
+    add(c, r)
+    out["cli"] = cli
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[remat] phase 13 took {out['seconds']:.1f} s", flush=True)
+    return counts, replayed, out
+
+
+def phase_remat_cli(workdir: str, fixture, layers: int):
+    """`oc_training --fast_numerics` for its epoch of 6 steps (finite
+    losses; its attention from auto), then `--fast_numerics
+    --attention_impl flash --steps_per_dispatch 3` for one chunk (the
+    flash kernels inside the graph under attn_out_inner)."""
+    import torch
+
+    from occm_tpu_torch.classify.impl_select import select_attention_impl
+    from occm_tpu_torch.cli import oc_training
+
+    protocol, train_dir, voc_dir = fixture
+    root = os.path.join(workdir, "remat_cli")
+    os.makedirs(root)
+    args = ["--train_protocol_file", protocol, "--train_dataset_dir",
+            train_dir, "--vocoded_dir", voc_dir, "--cut", str(TRAIN_CUT),
+            "--num_epochs", "1", "--compactness_weight", "0.1",
+            "--descriptiveness_weight", "0.9", "--fast_numerics"]
+    out, counts, replayed = {}, {}, {}
+    impl = select_attention_impl(TRAIN_CUT)
+    per_layer = 2 if impl == "flash" else 0
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        reset_counts()
+        rec = StepRecorder()
+        t0 = time.perf_counter()
+        state = oc_training.main(args + ["--checkpoint_dir",
+                                         os.path.join(root, "ck")],
+                                 on_step=rec)
+        out["train_s"] = time.perf_counter() - t0
+        got = state.model.ssl_model.model.cfg
+        if {k: getattr(got, k) for k in FAST_FIELDS} != FAST_FIELDS \
+                or got.attention_impl != impl:
+            fail(f"oc_training --fast_numerics built {got}")
+        del state
+        counts.update(read_counts())
+        check_steps("remat cli --fast_numerics", rec, {
+            "flash_attn_fwd": per_layer * layers,
+            "flash_attn_bwd_dq": per_layer // 2 * layers,
+            "flash_attn_bwd_dkv": per_layer // 2 * layers,
+            "flash_attn_bwd_dout_copies": 0, "layernorm_bwd": 0,
+            "fused_adam": 0, "ffn_fwd": 0})
+        if len(rec.steps) != 6:
+            fail(f"oc_training --fast_numerics took {len(rec.steps)} steps")
+        out["losses"] = [st["loss"] for st in rec.steps]
+        print(f"[remat] cli: oc_training --fast_numerics ({impl} attention "
+              f"from auto), 6 steps in {out['train_s']:.1f} s (build, data, "
+              f"checkpoint included), losses "
+              f"{[round(v, 6) for v in out['losses']]}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        chunks = []
+
+        def one_chunk(step, metrics):
+            chunks.append([float(v) for v in metrics["step_loss"]])
+            raise _OneStep
+
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            oc_training.main(args + [
+                "--attention_impl", "flash", "--steps_per_dispatch",
+                str(CONTROL_K), "--checkpoint_dir",
+                os.path.join(root, "ck_graph")], on_step=one_chunk)
+        except _OneStep:
+            pass
+        out["chunk_s"] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    got = read_counts()
+    for key, n in got.items():
+        counts[key] = counts.get(key, 0) + n
+    # warm-up + capture; the replay launches what the capture recorded
+    want = (CONTROL_K + 1) * 2 * layers
+    if (len(chunks) != 1 or len(chunks[0]) != CONTROL_K
+            or not all(math.isfinite(v) for v in chunks[0])
+            or got["flash_attn_fwd"] != want
+            or got["flash_attn_bwd_dq"] != want // 2):
+        fail(f"oc_training --fast_numerics --attention_impl flash "
+             f"--steps_per_dispatch {CONTROL_K}: chunks {chunks}, launches "
+             f"{got}, want flash_attn_fwd {want} (warm-up + capture)")
+    for key in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        replayed[key] = got[key] // (CONTROL_K + 1) * CONTROL_K
+    out["chunk_losses"] = chunks[0]
+    print(f"[remat] cli: oc_training --fast_numerics --attention_impl flash "
+          f"--steps_per_dispatch {CONTROL_K}, one chunk as one graph "
+          f"(attn_out_inner): losses {chunks[0]}, {out['chunk_s']:.1f} s "
+          "with model build and capture", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, replayed, out
+
+
 # ------------------------------------------------------- optional profile
 
 def _kernel_class(name: str) -> str:
@@ -3655,6 +4190,10 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 12 only (device, build, the "
                          "other models and scoring modes 1c1 / 2c1); "
                          "prints no kernels line")
+    ap.add_argument("--remat-only", action="store_true",
+                    help="run phases 1, 2 and 13 only (device, build, the "
+                         "remat policies and --fast_numerics); prints no "
+                         "kernels line")
     args = ap.parse_args(argv)
 
     smi = phase_device()
@@ -3662,7 +4201,8 @@ def main(argv=None) -> int:
     import torch
 
     hgmma = phase_build()
-    if args.controls_only or args.rawboost_only or args.models_only:
+    if (args.controls_only or args.rawboost_only or args.models_only
+            or args.remat_only):
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -3676,6 +4216,8 @@ def main(argv=None) -> int:
             elif args.rawboost_only:
                 result = {"rawboost": phase_rawboost_all(workdir,
                                                          fixture)[2]}
+            elif args.remat_only:
+                result = {"remat": phase_remat(workdir, fixture)[2]}
             else:
                 result = {"models": phase_models(workdir, fixture)[2]}
         finally:
@@ -3715,18 +4257,19 @@ def main(argv=None) -> int:
             rb_counts, rb_replayed, rawboost = phase_rawboost_all(workdir,
                                                                   fixture)
             m_counts, m_replayed, models = phase_models(workdir, fixture)
+            r_counts, r_replayed, remat = phase_remat(workdir, fixture)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         launches["flash_attn_fwd"] += serve_launches
         for counts in (score_launches, train_launches):
             for name, n in counts.items():
                 launches[name] += n
-        # the wrappers' counts of phases 8, 10 and 11 (eager steps,
-        # warm-ups and captures); a graph's replays launch what its capture
-        # recorded
+        # the wrappers' counts of phases 8, 10-13 (eager steps, warm-ups
+        # and captures); a graph's replays launch what its capture recorded
         for counts, replays in ((control_counts, replayed),
                                 (rb_counts, rb_replayed),
-                                (m_counts, m_replayed)):
+                                (m_counts, m_replayed),
+                                (r_counts, r_replayed)):
             for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
                          "ffn_fwd"):
                 launches[name] += counts[name]
@@ -3737,6 +4280,7 @@ def main(argv=None) -> int:
         print(f"[controls] {json.dumps(controls, default=str)}", flush=True)
         print(f"[rawboost] {json.dumps(rawboost, default=str)}", flush=True)
         print(f"[models] {json.dumps(models, default=str)}", flush=True)
+        print(f"[remat] {json.dumps(remat, default=str)}", flush=True)
 
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,

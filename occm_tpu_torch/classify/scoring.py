@@ -43,8 +43,7 @@ def model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def make_embed_fn_factory(model: torch.nn.Module, attention_impl: str = "auto",
-                          norm_dtype: str = "float32"
+def make_embed_fn_factory(model: torch.nn.Module, attention_impl: str = "auto"
                           ) -> Callable[[int], Callable]:
     """bucket_samples -> embed fn over one model: each bucket runs the
     attention impl that `select_attention_impl` picks for its length and
@@ -52,7 +51,7 @@ def make_embed_fn_factory(model: torch.nn.Module, attention_impl: str = "auto",
     cannot take it; a pinned impl passes through for every bucket)."""
     def factory(bucket_samples: int) -> Callable:
         return make_score_fn(model, select_attention_impl(
-            bucket_samples, attention_impl, norm_dtype=norm_dtype,
+            bucket_samples, attention_impl,
             flash_takes_model=flash_kernel_takes(model.xlsr_cfg,
                                                  model_device(model))))
 

@@ -75,7 +75,7 @@ def main(argv=None) -> None:
                         args.allow_random_init, device)
     embedder = BucketedEmbedder(
         embed_fn_factory=make_embed_fn_factory(
-            model, args.attention_impl, xlsr_cfg.norm_dtype),
+            model, args.attention_impl),
         bucket_step=args.bucket_step, batch_size=args.batch_size,
         device=device)
 

@@ -146,8 +146,7 @@ def main(argv=None, started_event=None):
     # per-bucket attention impl (classify.impl_select): one set of weights,
     # each bucket's score fn runs the impl that its length selects
     service = ScoringService(
-        score_fn_factory=make_embed_fn_factory(model, args.attention_impl,
-                                               cfg.norm_dtype),
+        score_fn_factory=make_embed_fn_factory(model, args.attention_impl),
         reference_embedding=reference, threshold=threshold,
         buckets=tuple(args.buckets), batch=args.batch_size, device=device,
     )

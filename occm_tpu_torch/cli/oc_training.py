@@ -97,8 +97,14 @@ def build_parser() -> argparse.ArgumentParser:
         help="full-model warm start from a torch .pt state dict in the "
              "reference naming (a trainer checkpoint, aasist_vocoded_*.pt, "
              "or occm-export-model output); the optimizer starts fresh")
-    parser.add_argument("--fast_numerics", action="store_true",
-                        default=False, help="not ported yet")
+    parser.add_argument(
+        "--fast_numerics", action="store_true", default=False,
+        help="the JAX package's fast config: bf16 norms, tanh GELU "
+             "(transformer and conv extractor), the bf16 parameter mirror "
+             "and the 'attn_out_inner' remat policy (on an H100 at 700 W, "
+             "every kernel, a 12 x 6 s step as a CUDA graph: ~132 ms "
+             "against ~137 ms exact with the same policy, chip_smoke.py "
+             "phase 13)")
     parser.add_argument("--pos_conv_impl", type=str, default="grouped",
                         choices=("grouped", "batched", "s2d"),
                         help="only grouped is ported")
@@ -152,7 +158,6 @@ def _unported(args) -> None:
     ROADMAP queue A. (TrainConfig, MeshConfig and XLSRConfig raise on the
     fields they carry.)"""
     checks = [
-        ("--fast_numerics", args.fast_numerics, "remat_policy variants"),
         ("--seq_parallel", args.seq_parallel, "multi-GPU"),
         ("--pp_microbatches", args.pp_microbatches != 0, "multi-GPU"),
         ("--debug_nans", args.debug_nans, "remaining features"),
@@ -165,14 +170,21 @@ def _unported(args) -> None:
 
 
 def xlsr_config(args, cut: int, device):
-    """The model's XLSRConfig from the flags (--xlsr_tiny, --pos_conv_impl,
-    --feature_grad_mult), with the attention impl that --attention_impl
-    resolves to for crops of `cut` samples of that model on `device`."""
+    """The model's XLSRConfig from the flags (--xlsr_tiny, --fast_numerics,
+    --pos_conv_impl, --feature_grad_mult), with the attention impl that
+    --attention_impl resolves to for crops of `cut` samples of that model
+    on `device`."""
     from occm_tpu_torch.classify.impl_select import (
         flash_kernel_takes, select_attention_impl)
     from occm_tpu_torch.config import XLSRConfig
 
     xlsr_cfg = XLSRConfig.tiny() if args.xlsr_tiny else XLSRConfig()
+    if args.fast_numerics:
+        # the JAX CLI's five fields (occm_tpu/cli/oc_training.py:255-260)
+        xlsr_cfg = dataclasses.replace(
+            xlsr_cfg, norm_dtype="bfloat16", gelu_approximate=True,
+            conv_gelu_approximate=True, bf16_param_mirror=True,
+            remat_policy="attn_out_inner")
     if args.pos_conv_impl != "grouped":
         xlsr_cfg = dataclasses.replace(xlsr_cfg,
                                        pos_conv_impl=args.pos_conv_impl)
@@ -180,7 +192,7 @@ def xlsr_config(args, cut: int, device):
         xlsr_cfg = dataclasses.replace(
             xlsr_cfg, feature_grad_mult=args.feature_grad_mult)
     impl = select_attention_impl(
-        cut, args.attention_impl, norm_dtype=xlsr_cfg.norm_dtype,
+        cut, args.attention_impl,
         flash_takes_model=flash_kernel_takes(xlsr_cfg, device))
     if impl != xlsr_cfg.attention_impl:
         xlsr_cfg = dataclasses.replace(xlsr_cfg, attention_impl=impl)

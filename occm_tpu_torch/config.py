@@ -6,7 +6,7 @@ A copy of `occm_tpu.config`'s `RawBoostConfig`, `XLSRConfig`,
 and the same training run in both packages. Fields that select a code path
 the port does not implement yet raise `NotImplementedError` when set to a
 non-default value, rather than being silently ignored. The training fields
-of the models (dropout rates, layerdrop, remat, conv_remat,
+of the models (dropout rates, layerdrop, remat, remat_policy, conv_remat,
 feature_grad_mult) act in train mode (`model.train()`); eval mode, which
 serving runs, applies no dropout.
 """
@@ -81,12 +81,17 @@ class XLSRConfig:
     feature_grad_mult: float = 1.0
     norm_dtype: str = "float32"      # LayerNorm / softmax dtype
     scan_unroll: int = 1
+    # what each remat'd layer keeps for its backward (JAX's names: nothing,
+    # dots, attn_out, attn_out_inner, attn_probs, attn_all; models/remat.py)
     remat_policy: str = "nothing"
     gelu_approximate: bool = False
     conv_gelu_approximate: bool = False
     layerdrop: float = 0.0
-    # the port keeps fp32 parameters and casts each weight to `dtype` where
-    # it is used, which gives the same numbers as a one-off bf16 mirror
+    # every fp32 parameter of the transformer stack (projections, FFN and
+    # both LayerNorms) cast to bf16 once per forward, whatever dtype and
+    # norm_dtype say; the layers read only those copies and the gradients
+    # come back through the one cast (JAX's nn.map_variables mirror). The
+    # extractor, positional conv and encoder LayerNorm are not mirrored.
     bf16_param_mirror: bool = False
     fused_qkv: bool = False
     # "xla": fc1, GELU and fc2 as three calls; "pallas": ops/ffn.fused_ffn,
@@ -140,7 +145,6 @@ class XLSRConfig:
             ("pp_stages", self.pp_stages != 1),
             ("seq_parallel", self.seq_parallel),
             ("quant_int8", self.quant_int8),
-            ("remat_policy", self.remat_policy != "nothing"),
             ("fused_qkv", self.fused_qkv),
             ("attention_impl", impl not in ("xla", "flash")),
             ("pos_conv_impl", self.pos_conv_impl != "grouped"),

@@ -16,8 +16,13 @@ reference checkpoint loads with `load_state_dict(strict=True)`:
 Numerics follow the JAX package: parameters stay fp32 and each matmul or
 conv weight is cast to `cfg.dtype` (bf16) where it is used; LayerNorm
 statistics and the softmax run at `cfg.norm_dtype` (fp32). With
-`ln_impl="pallas"` the transformer LayerNorms run `fast_layer_norm`
-(fp32 statistics, output in the input dtype, CUDA backward kernel).
+`bf16_param_mirror` every fp32 parameter of the transformer stack
+(LayerNorms included) is cast to bf16 once per forward, before the layer
+loop, and the layers read only those copies, as JAX's `nn.map_variables`
+mirror does; the extractor, positional conv and encoder LayerNorm keep
+fp32. With `ln_impl="pallas"` the transformer LayerNorms run
+`fast_layer_norm` (fp32 statistics, output in the input dtype, CUDA
+backward kernel).
 
 Train mode (`model.train()`) applies every fairseq dropout site the JAX
 package has: attention probabilities (`attention_dropout`, plain attention
@@ -28,9 +33,11 @@ features (`dropout_input`), and `layerdrop`. With `ffn_impl="pallas"` the
 FFN runs `fused_ffn` (the CUDA fused forward), which cannot apply
 `activation_dropout`: train mode with a non-zero rate raises, as in JAX.
 `remat` recomputes each transformer layer in the backward
-(`torch.utils.checkpoint`, non-reentrant), `conv_remat` the conv feature
-extractor, and `feature_grad_mult` scales the gradient into the extractor
-(0 detaches it).
+(`torch.utils.checkpoint`, non-reentrant), except the tensors that
+`remat_policy` keeps (`models/remat.py`: the layer names the ops that make
+them, as JAX's `checkpoint_name` does); `conv_remat` recomputes the conv
+feature extractor, and `feature_grad_mult` scales the gradient into the
+extractor (0 detaches it).
 
 Dropout masks are drawn from an explicit `torch.Generator` passed to the
 forward, on the device it lives on: on a card, a CUDA generator whose
@@ -55,6 +62,7 @@ strictly and a saved one loads into fairseq's layout.
 from __future__ import annotations
 
 import math
+from operator import attrgetter
 from typing import Optional
 
 import torch
@@ -64,6 +72,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from occm_tpu_torch.config import XLSRConfig
+from occm_tpu_torch.models import remat
 from occm_tpu_torch.ops.attention import flash_attention
 from occm_tpu_torch.ops.ffn import fused_ffn
 from occm_tpu_torch.ops.layernorm import fast_layer_norm
@@ -72,15 +81,31 @@ from occm_tpu_torch.ops.pos_conv import pos_conv_grouped
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _linear(x: torch.Tensor, layer: nn.Linear, dt) -> torch.Tensor:
-    """nn.Dense(dtype=dt): input, kernel and bias cast to dt."""
-    return F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+def _linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dt,
+            tag: Optional[str] = None) -> torch.Tensor:
+    """nn.Dense(dtype=dt): input, kernel and bias cast to dt (no-ops where
+    they are dt already, as under the bf16 mirror); the product is named
+    `tag` for the remat policies."""
+    x, weight, bias = x.to(dt), weight.to(dt), bias.to(dt)
+    with remat.name(tag):
+        return F.linear(x, weight, bias)
 
 
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, ndt) -> torch.Tensor:
+def _layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                ndt, eps: float = 1e-5) -> torch.Tensor:
     """nn.LayerNorm(dtype=ndt): statistics and output at ndt."""
-    return F.layer_norm(x.to(ndt), ln.normalized_shape, ln.weight.to(ndt),
-                        ln.bias.to(ndt), ln.eps)
+    return F.layer_norm(x.to(ndt), weight.shape, weight.to(ndt),
+                        bias.to(ndt), eps)
+
+
+def _ln(x: torch.Tensor, ln: nn.LayerNorm, ndt) -> torch.Tensor:
+    return _layer_norm(x, ln.weight, ln.bias, ndt, ln.eps)
+
+
+def _params_of(module: nn.Module, names) -> dict:
+    """module's parameters by name, read through attribute access, so what
+    stands in for them (torch.func.functional_call) is what is read."""
+    return {n: attrgetter(n)(module) for n in names}
 
 
 def _gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
@@ -193,7 +218,7 @@ class ConvFeatureExtractor(nn.Module):
             h = F.conv1d(h, conv.weight.to(dt), conv.bias.to(dt),
                          stride=conv.stride)
             # LayerNorm over channels: torch convs are NCW
-            h = _layer_norm(h.transpose(1, 2), layer["2"]["1"], ndt)
+            h = _ln(h.transpose(1, 2), layer["2"]["1"], ndt)
             h = _gelu(h.to(dt), self.cfg.conv_gelu_approximate)
             h = h.transpose(1, 2)
         return h.transpose(1, 2)                            # [B, F, C]
@@ -252,32 +277,48 @@ class SelfAttention(nn.Module):
         self.k_proj = nn.Linear(d, d)
         self.v_proj = nn.Linear(d, d)
         self.out_proj = nn.Linear(d, d)
+        self._names = tuple(n for n, _ in self.named_parameters())
 
     def forward(self, x: torch.Tensor, impl: str,
-                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                keep: Optional[torch.Tensor] = None,
+                params: Optional[dict] = None) -> torch.Tensor:
         """keep: the attention-probability dropout mask [B, H, T, T] (plain
-        attention only), or None."""
+        attention only), or None. params: the layer's bf16 mirror of this
+        module's parameters, by name, or None to read them."""
         cfg = self.cfg
         dt = _DTYPES[cfg.dtype]
         ndt = _DTYPES[cfg.norm_dtype]
         d, h = cfg.encoder_embed_dim, cfg.encoder_heads
         hd = d // h
         B, T, _ = x.shape
-        q = _linear(x, self.q_proj, dt).reshape(B, T, h, hd)
-        k = _linear(x, self.k_proj, dt).reshape(B, T, h, hd)
-        v = _linear(x, self.v_proj, dt).reshape(B, T, h, hd)
+        p = _params_of(self, self._names) if params is None else params
+
+        def proj(y, name):
+            return _linear(y, p[name + ".weight"], p[name + ".bias"], dt,
+                           tag="attn_out" if name == "out_proj" else
+                           f"attn_{name[0]}")
+
+        q = proj(x, "q_proj").reshape(B, T, h, hd)
+        k = proj(x, "k_proj").reshape(B, T, h, hd)
+        v = proj(x, "v_proj").reshape(B, T, h, hd)
         if impl == "flash":
-            out = flash_attention(q, k, v).to(dt)
+            # the kernel's output is named through a copy (models/remat.py)
+            out = remat.kernel_output(flash_attention(q, k, v).to(dt),
+                                      "attn_inner")
         elif impl == "xla":
             q = q * (hd ** -0.5)
-            logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ndt), k.to(ndt))
-            probs = apply_keep(torch.softmax(logits, dim=-1).to(dt), keep,
-                               cfg.attention_dropout)
-            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+            with remat.name("attn_logits"):
+                logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ndt),
+                                      k.to(ndt))
+            with remat.name("attn_probs"):
+                probs = torch.softmax(logits, dim=-1)
+            probs = apply_keep(probs.to(dt), keep, cfg.attention_dropout)
+            with remat.name("attn_inner"):
+                out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         else:
             raise NotImplementedError(
                 f"attention_impl={impl!r} is not ported (xla | flash)")
-        return _linear(out.reshape(B, T, d), self.out_proj, dt)
+        return proj(out.reshape(B, T, d), "out_proj")
 
 
 class TransformerLayer(nn.Module):
@@ -293,11 +334,15 @@ class TransformerLayer(nn.Module):
         self.fc1 = nn.Linear(d, f)
         self.fc2 = nn.Linear(f, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
+        self._names = tuple(n for n, _ in self.named_parameters())
 
-    def _norm(self, ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    def _norm(self, p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = p[name + ".weight"], p[name + ".bias"]
+        eps = getattr(self, name).eps
         if self.cfg.ln_impl == "pallas":
-            return fast_layer_norm(x, ln.weight, ln.bias, ln.eps)
-        return _layer_norm(x, ln, _DTYPES[self.cfg.norm_dtype])
+            return fast_layer_norm(x, weight, bias, eps)
+        return _layer_norm(x, weight, bias, _DTYPES[self.cfg.norm_dtype],
+                           eps)
 
     def draw_masks(self, x: torch.Tensor, impl: str,
                    gen: Optional[torch.Generator]):
@@ -326,38 +371,45 @@ class TransformerLayer(nn.Module):
                      else None for shape, p in zip(shapes, rates))
 
     def forward(self, x: torch.Tensor, impl: str,
-                masks=(None, None, None, None)) -> torch.Tensor:
-        """masks: `draw_masks`' tuple (all None: no dropout)."""
+                masks=(None, None, None, None),
+                params: Optional[dict] = None) -> torch.Tensor:
+        """masks: `draw_masks`' tuple (all None: no dropout). params: the
+        layer's parameters by name (the encoder's bf16 mirror), or None to
+        read them."""
         cfg = self.cfg
         dt = _DTYPES[cfg.dtype]
         pre = cfg.layer_norm_first
         keep_attn, keep_res1, keep_act, keep_res2 = masks
+        p = _params_of(self, self._names) if params is None else params
+        attn_p = {k[len("self_attn."):]: v for k, v in p.items()
+                  if k.startswith("self_attn.")}
 
         residual = x
-        h = self._norm(self.self_attn_layer_norm, x) if pre else x
-        h = apply_keep(self.self_attn(h, impl, keep_attn), keep_res1,
+        h = self._norm(p, "self_attn_layer_norm", x) if pre else x
+        h = apply_keep(self.self_attn(h, impl, keep_attn, attn_p), keep_res1,
                        cfg.dropout)
         x = residual + h
         if not pre:
-            x = self._norm(self.self_attn_layer_norm, x).to(dt)
+            x = self._norm(p, "self_attn_layer_norm", x).to(dt)
 
         residual = x
-        h = self._norm(self.final_layer_norm, x) if pre else x
+        h = self._norm(p, "final_layer_norm", x) if pre else x
         if cfg.ffn_impl == "pallas":
             # fused fc1 + GELU + fc2 (ops/ffn.py): the weights in the compute
             # dtype, fc1/fc2 in nn.Linear's layout, passed as W1 = fc1.weight^T
             # and W2 = fc2.weight^T (views; the kernel reads them untransposed)
-            h = fused_ffn(h.to(dt), self.fc1.weight.to(dt).t(),
-                          self.fc1.bias.to(dt), self.fc2.weight.to(dt).t(),
-                          self.fc2.bias.to(dt), cfg.gelu_approximate)
+            h = fused_ffn(h.to(dt), p["fc1.weight"].to(dt).t(),
+                          p["fc1.bias"].to(dt), p["fc2.weight"].to(dt).t(),
+                          p["fc2.bias"].to(dt), cfg.gelu_approximate)
         else:
-            h = _gelu(_linear(h, self.fc1, dt), cfg.gelu_approximate)
+            h = _gelu(_linear(h, p["fc1.weight"], p["fc1.bias"], dt,
+                              tag="fc1"), cfg.gelu_approximate)
             h = apply_keep(h, keep_act, cfg.activation_dropout)
-            h = _linear(h, self.fc2, dt)
+            h = _linear(h, p["fc2.weight"], p["fc2.bias"], dt)
         h = apply_keep(h, keep_res2, cfg.dropout)
         x = residual + h
         if not pre:
-            x = self._norm(self.final_layer_norm, x).to(dt)
+            x = self._norm(p, "final_layer_norm", x).to(dt)
         return x
 
 
@@ -399,10 +451,10 @@ class XLSREncoder(nn.Module):
         impl = attention_impl or cfg.attention_impl
         dt = _DTYPES[cfg.dtype]
         gen = train_generator(self, generator)
-        remat = self.training and torch.is_grad_enabled()
+        train_remat = self.training and torch.is_grad_enabled()
         if x.dim() == 3:  # the reference squeezes a trailing channel dim
             x = x[:, :, 0]
-        if cfg.conv_remat and remat:
+        if cfg.conv_remat and train_remat:
             feats = checkpoint(self.feature_extractor, x, use_reentrant=False,
                                preserve_rng_state=False)
         else:
@@ -412,17 +464,27 @@ class XLSREncoder(nn.Module):
             feats = feats.detach()
         elif cfg.feature_grad_mult != 1.0:
             feats = grad_multiply(feats, cfg.feature_grad_mult)
-        feats = _layer_norm(feats, self.layer_norm, torch.float32).to(dt)
+        feats = _ln(feats, self.layer_norm, torch.float32).to(dt)
         if self.post_extract_proj is not None:
-            feats = _linear(feats, self.post_extract_proj, dt)
+            feats = _linear(feats, self.post_extract_proj.weight,
+                            self.post_extract_proj.bias, dt)
         feats = dropout(feats, cfg.dropout_input, gen)
 
         pos = self.encoder.pos_conv[0](feats)[:, : feats.shape[1], :]
         x = feats + _gelu(pos, cfg.conv_gelu_approximate)
         if not cfg.layer_norm_first:
-            x = _layer_norm(x, self.encoder.layer_norm, torch.float32).to(dt)
+            x = _ln(x, self.encoder.layer_norm, torch.float32).to(dt)
         x = dropout(x, cfg.dropout, gen)
-        for layer in self.encoder.layers:
+        mirror = [None] * len(self.encoder.layers)
+        if cfg.bf16_param_mirror:
+            # JAX's nn.map_variables mirror: every fp32 parameter of the
+            # stack cast to bf16 once per forward (LayerNorms included),
+            # which every use in the layers reads; gradients flow back to
+            # the fp32 leaves through this one cast
+            mirror = [{n: w.to(torch.bfloat16) if w.dtype == torch.float32
+                       else w for n, w in layer.named_parameters()}
+                      for layer in self.encoder.layers]
+        for layer, params in zip(self.encoder.layers, mirror):
             keep = None
             if gen is not None and cfg.layerdrop > 0.0:
                 # fairseq encoder_layerdrop: drop the layer with probability
@@ -430,17 +492,17 @@ class XLSREncoder(nn.Module):
                 keep = (torch.rand((), generator=gen, device=gen.device)
                         >= cfg.layerdrop).to(x.device)
             masks = layer.draw_masks(x, impl, gen)
-            if cfg.remat and remat:
+            if cfg.remat and train_remat:
                 # the masks are inputs, so the recompute draws nothing
-                y = checkpoint(layer, x, impl, masks, use_reentrant=False,
-                               preserve_rng_state=False)
+                y = remat.checkpoint_layer(layer, cfg.remat_policy, x, impl,
+                                           masks, params)
             else:
-                y = layer(x, impl, masks)
+                y = layer(x, impl, masks, params)
             # the layer always runs and a dropped one is discarded on the
             # device, as the JAX package's where(keep, y, carry)
             x = y if keep is None else torch.where(keep, y, x)
         if cfg.layer_norm_first:
-            x = _layer_norm(x, self.encoder.layer_norm, torch.float32)
+            x = _ln(x, self.encoder.layer_norm, torch.float32)
         return x.float()
 
 

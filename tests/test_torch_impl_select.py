@@ -38,8 +38,7 @@ def _factory_impl(monkeypatch, cfg, device, base_impl="auto",
     monkeypatch.setattr(scoring, "make_score_fn",
                         lambda model, impl: impl)
     model = types.SimpleNamespace(xlsr_cfg=cfg)
-    factory = scoring.make_embed_fn_factory(model, base_impl,
-                                            cfg.norm_dtype)
+    factory = scoring.make_embed_fn_factory(model, base_impl)
     return factory(seconds * SR)
 
 

@@ -527,7 +527,7 @@ def test_cli_trains_on_the_cpu_and_writes_a_servable_checkpoint(
 
 @pytest.mark.parametrize("extra", [
     ["--fsdp", "2"],
-    ["--fast_numerics"],
+    ["--debug_nans"],
     ["--wandb_project", "p"],
     ["--pos_conv_impl", "s2d"],
 ], ids=lambda e: e[0].lstrip("-"))

@@ -8,13 +8,16 @@
     python3 chip_smoke.py --rawboost-only # phases 1, 2 and 9-11 only
     python3 chip_smoke.py --models-only   # phases 1, 2 and 12 only
     python3 chip_smoke.py --remat-only    # phases 1, 2 and 13 only
+    python3 chip_smoke.py --native-only   # phases 1, 2 and 14 only
+    python3 chip_smoke.py --base-only     # phases 1, 2 and 15 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit and turns TF32 off for the comparisons.
 2. build: compiles occm_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
-   per source in parallel, prints ptxas's registers and spills, and counts
+   per source in parallel, and the host IO library (native/*.cpp, g++,
+   `occm_tpu_torch.io.native`), prints ptxas's registers and spills, counts
    the HGMMA (wgmma) instructions of the FFN kernel and of the attention
    forward, backward dq and backward dk/dv kernels in the library's SASS
    (cuobjdump -sass); fails if any of the four has none.
@@ -93,7 +96,8 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    - the same with adam and AASIST's default dropouts: every loss and the
      final weights bit for bit (fresh masks on every replay);
    - grad_accum = 2 at groups_per_step = 2: on two meta-batches equal to
-     its definition (the mean of the two meta-batches' own gradients), on
+     its definition (the mean of the two meta-batches' own gradients, all
+     under deterministic algorithms, to one fp32 rounding), on
      one meta-batch twice equal to the 24-utterance step (the gradient the
      update read within LOSS_RTOL of its norm, each updated weight within
      the bound that Adam's first update gives from the two gradients);
@@ -164,10 +168,36 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    numerics). Then `oc_training --fast_numerics` for an epoch of 6 steps
    and `--fast_numerics --attention_impl flash --steps_per_dispatch 3`
    for one chunk.
-14. with --profile only: device time by kernel (torch.profiler) for full
+14. the native IO lane (`occm_tpu_torch.io.native`: threaded C++ decode,
+   header length probes, streamed FLAC) on the host: on phase 4's eval
+   set (16 WAVs of 3-13 s), FLAC copies of it and a 60 s FLAC request
+   body, the native readers against the Python ones bit for bit (whole,
+   ranged, streamed) and both lanes timed (files/s, MB/s, native at 1
+   and 8 threads); `oc_classifier --mode 2c2` on the FLAC eval set with
+   the lane taken, forced off, taken (score files equal byte for byte,
+   wall s, utt/s per bucket end to end, device-busy share); the 60 s
+   body through `oc_server`'s spooled lane, native against Python decode
+   (latency, equal scores); a training epoch's input, native against
+   per-item (equal batches, steps/s); the lane's call counter above 0
+   wherever it is taken, 0 where it is off.
+15. the wav2vec2-base frontend at full width and depth:
+   AModel(AASISTConfig(), XLSRConfig.base()) (group-norm extractor,
+   post-norm encoder, 12 x 768, 12 heads of 64), random weights from seed
+   0, bf16, every kernel: scoring at 2, 6 and 12 s, flash with the fused
+   FFN against xla with the plain FFN in turns (utt/s, embeddings within
+   BASE_EMB_RTOL_OF_MAX); training 12 x 6 s, 3 eager steps against one
+   CUDA graph of 3 bit for bit (step ms, busy share, peak, launches a
+   step exact); a random base-layout fairseq .pt and HF .safetensors
+   grafted and held to the in-memory encoder; each kernel at base's
+   shapes through phase 3's harness (attention at H = 12, the FFN at
+   D 768 / F 3072, LayerNorm at [3588, 768], Adam over base + AASIST).
+16. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-15. prints {"kernels": [...]}, then {"ok": true, "device": {...}} last.
+17. prints {"kernels": [...]} (each entry with phase 15's row at base's
+   shapes under "base"), then {"ok": true, "device": {...}} last.
+A full run makes phase 15's kernel checks right after phase 3's, and
+phase 15's other parts before phase 14 (see main).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -375,7 +405,18 @@ def phase_device():
 
 
 def phase_build():
+    from occm_tpu_torch.io import native
     from occm_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    HOST_LIB["path"] = native.build()
+    HOST_LIB["seconds"] = time.perf_counter() - t0
+    if not native.available():
+        fail(f"the native IO library did not load: "
+             f"{native.unavailable_reason}")
+    print(f"[build] host IO library {HOST_LIB['path']} (g++ "
+          f"{' '.join(native.CXXFLAGS)}) in {HOST_LIB['seconds']:.2f} s",
+          flush=True)
 
     t0 = time.perf_counter()
     _build.load()
@@ -407,11 +448,11 @@ def phase_build():
 
 # ----------------------------------------------------------------- phase 3
 
-def phase_kernels():
-    """flash_attn_fwd at every KERNEL_TS on both layouts: [B*H, T, D]
-    contiguous, and [B, T, H, D] views of one [B, T, 3, H, D] projection
-    output (the layout the model hands it), each against the plain version;
-    the two layouts must give the same bits."""
+def phase_kernels(b: int = B, h: int = H, ts=KERNEL_TS):
+    """flash_attn_fwd at B = b, H = h and every T of ts on both layouts:
+    [B*H, T, D] contiguous, and [B, T, H, D] views of one [B, T, 3, H, D]
+    projection output (the layout the model hands it), each against the
+    plain version; the two layouts must give the same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -420,19 +461,19 @@ def phase_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for t in KERNEL_TS:
-        qkv = torch.randn((B, t, 3, H, D), generator=gen,
+    for t in ts:
+        qkv = torch.randn((b, t, 3, h, D), generator=gen,
                           device="cuda").to(torch.bfloat16)
         q4, k4, v4 = qkv.unbind(2)  # strided [B, T, H, D] views
 
         def flat(x):
-            return x.permute(0, 2, 1, 3).reshape(B * H, t, D).contiguous()
+            return x.permute(0, 2, 1, 3).reshape(b * h, t, D).contiguous()
 
         q, k, v = flat(q4), flat(k4), flat(v4)
         out, lse = flash_attention_fwd(q, k, v, t)
         out4, lse4 = flash_attention_fwd(q4, k4, v4, t)
         torch.cuda.synchronize()
-        if not (out4.shape == (B, t, H, D) and out4.is_contiguous()
+        if not (out4.shape == (b, t, h, D) and out4.is_contiguous()
                 and torch.equal(flat(out4), out) and torch.equal(lse4, lse)):
             fail(f"flash_attn_fwd T={t}: [B, T, H, D] views and [B*H, T, D] "
                  "give different results")
@@ -453,19 +494,20 @@ def phase_kernels():
         qf, kf, vf = q.float(), k.float(), v.float()
         plain_ms = cuda_ms(lambda: flash_attention_reference(qf, kf, vf, t),
                            iters=5)
-        q3, k3, v3 = (x.view(B, H, t, D) for x in (q, k, v))
+        q3, k3, v3 = (x.view(b, h, t, D) for x in (q, k, v))
         library_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(q3, k3, v3))
         lib_dev_ms = library_device_ms(
             lambda: F.scaled_dot_product_attention(q3, k3, v3))
-        bound_ms, bound_by, flops, nbytes = attention_bound(B * H, t, D)
-        row = dict(T=t, max_abs_err=err, lse_max_abs_err=lse_err, ms=ms,
+        bound_ms, bound_by, flops, nbytes = attention_bound(b * h, t, D)
+        row = dict(B=b, H=h, T=t, max_abs_err=err, lse_max_abs_err=lse_err,
+                   ms=ms,
                    ms_bh_t_d=ms_flat, device_ms=dev_ms, plain_ms=plain_ms,
                    library_ms=library_ms, library_device_ms=lib_dev_ms,
                    bound_ms=bound_ms,
                    bound_by=bound_by, flops=flops, bytes=nbytes)
         rows.append(row)
-        print(f"[kernel] flash_attn_fwd B={B} H={H} T={t} D={D}: "
+        print(f"[kernel] flash_attn_fwd B={b} H={h} T={t} D={D}: "
               f"max_err {err:.3e} (bound {OUT_ATOL}), lse_err "
               f"{lse_err:.3e}, [B, T, H, D] views = [B*H, T, D] bit for bit; "
               f"wrapper {ms:.4f} ms on the views ({ms_flat:.4f} on "
@@ -561,8 +603,8 @@ def check_attention_autograd(q4, k4, v4, do4, want, t):
           "copy; an expanded dO costs one counted copy", flush=True)
 
 
-def phase_attention_bwd():
-    """flash_attn_bwd at every KERNEL_TS, B = TRAIN_B, on [B, T, H, D]
+def phase_attention_bwd(h: int = H, ts=KERNEL_TS):
+    """flash_attn_bwd at every T of ts, B = TRAIN_B, H = h, on [B, T, H, D]
     views of one [B, T, 3 * H * D] projection output (the layout the model
     hands it, read in place) and on [B*H, T, D] copies: the two give the
     same bits, a repeat gives the same bits, one call is two device
@@ -576,9 +618,9 @@ def phase_attention_bwd():
         flash_attention_fwd)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bt, ht = TRAIN_B, H
+    bt, ht = TRAIN_B, h
     rows = []
-    for t in KERNEL_TS:
+    for t in ts:
         qkv = torch.randn((bt, t, 3 * ht * D), generator=gen,
                           device="cuda").to(torch.bfloat16)
         q4, k4, v4 = qkv.view(bt, t, 3, ht, D).unbind(2)
@@ -646,7 +688,8 @@ def phase_attention_bwd():
                 lambda: F.scaled_dot_product_attention(q3, k3, v3))
         lib_dev_ms = library_device_ms(sdpa_fwd_bwd) - fwd_dev_ms
         bound_ms, bound_by, flops, nbytes = attention_bwd_bound(bt * ht, t, D)
-        row = dict(T=t, max_abs_err=max(e[1] for e in errs),
+        row = dict(B=bt, H=ht, T=t,
+                   max_abs_err=max(e[1] for e in errs),
                    errors={n: e for n, e, _ in errs}, ms=ms,
                    ms_bh_t_d=ms_flat, device_ms=dev_ms,
                    device_ms_dq=dq_ms, device_ms_dkv=dkv_ms, plain_ms=plain_ms,
@@ -668,12 +711,12 @@ def phase_attention_bwd():
     return rows
 
 
-def phase_layernorm_bwd():
-    """layernorm_bwd against its plain version at LN_SHAPE and the
-    LN_EDGES shapes, bf16, each timed beside its bound, plain and library
-    times: every call one device launch, and dx, dgamma, dbeta of a second
-    call identical bit for bit. Returns LN_SHAPE's row with every shape's
-    under "per_shape"."""
+def phase_layernorm_bwd(shapes=(LN_SHAPE,) + LN_EDGES):
+    """layernorm_bwd against its plain version at each of `shapes` (LN_SHAPE
+    and the LN_EDGES shapes), bf16, each timed beside its bound, plain and
+    library times: every call one device launch, and dx, dgamma, dbeta of
+    a second call identical bit for bit. Returns the first shape's row
+    with every shape's under "per_shape"."""
     import torch
 
     from occm_tpu_torch.ops.layernorm import (
@@ -682,7 +725,7 @@ def phase_layernorm_bwd():
     gen = torch.Generator(device="cuda").manual_seed(2)
     eps = 1e-5
     rows = []
-    for m, d in (LN_SHAPE,) + LN_EDGES:
+    for m, d in shapes:
         x = torch.randn((m, d), generator=gen, device="cuda").to(
             torch.bfloat16)
         g = torch.randn((m, d), generator=gen, device="cuda").to(
@@ -740,7 +783,11 @@ def phase_layernorm_bwd():
     return dict(rows[0], per_shape=rows)
 
 
-def phase_fused_adam():
+def phase_fused_adam(xcfg=None, odd_leaves: bool = True):
+    """fused_adam over every leaf of AModel(AASISTConfig(), xcfg) (XLS-R
+    300M by default) in one launch against its plain version and
+    torch.optim.Adam(fused=True); with odd_leaves, the edge cases of
+    phase_fused_adam_odd_leaves first."""
     import torch
 
     from occm_tpu_torch.config import AASISTConfig, XLSRConfig
@@ -750,8 +797,9 @@ def phase_fused_adam():
         FusedAdam, adam_reference, bias_corrections_of)
     from occm_tpu_torch.utils import random_init_
 
-    odd_err = phase_fused_adam_odd_leaves()
-    model = random_init_(AModel(AASISTConfig(), XLSRConfig()), seed=0)
+    odd_err = phase_fused_adam_odd_leaves() if odd_leaves else 0.0
+    model = random_init_(AModel(AASISTConfig(), xcfg or XLSRConfig()),
+                         seed=0)
     params = [p.detach().to("cuda") for p in model.parameters()]
     del model
     n = sum(p.numel() for p in params)
@@ -890,9 +938,10 @@ def ffn_bound(m: int, d: int, f: int):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def phase_ffn():
-    """ffn_fwd against ffn_reference at the FFN_MS shapes, full width,
-    erf and tanh GELU, and at the edge shapes FFN_EDGES (erf), with the
+def phase_ffn(cases=None):
+    """ffn_fwd against ffn_reference at `cases` (M, D, F, tanh GELU) or by
+    default at the FFN_MS shapes, full width, erf and tanh GELU, and at
+    the edge shapes FFN_EDGES (erf), with the
     kernel, plain, library and bound times. Library: the port's
     ffn_impl="xla" sequence, F.linear -> F.gelu -> F.linear in bf16 (three
     calls; no single PyTorch call computes the fused function)."""
@@ -921,9 +970,10 @@ def phase_ffn():
                              fc2_w.t())
         return weights[d, f]
 
-    cases = [(m, cfg.encoder_embed_dim, cfg.encoder_ffn_dim, approximate)
-             for m in FFN_MS for approximate in (False, True)]
-    cases += [(m, d, f, False) for m, d, f in FFN_EDGES]
+    if cases is None:
+        cases = [(m, cfg.encoder_embed_dim, cfg.encoder_ffn_dim, approximate)
+                 for m in FFN_MS for approximate in (False, True)]
+        cases += [(m, d, f, False) for m, d, f in FFN_EDGES]
     rows = []
     for m, d, f, approximate in cases:
         fc1_w, fc1_b, fc2_w, fc2_b, w1, w2 = layer(d, f)
@@ -2277,8 +2327,10 @@ def phase_grad_accum(batches, base, model_from_init, per_step, launches):
       (BatchNorm normalises each micro-batch with its own statistics, in
       the JAX package too, so this, not the 24-utterance pass, is the
       update accumulation must equal); the same kernels on the same
-      shapes, so the gradients agree to the spread of two backward passes
-      of one batch (measured here) plus one fp32 rounding of the sum;
+      shapes under deterministic algorithms, where two backward passes of
+      one batch agree bit for bit (their spread, measured here, is 0) and
+      a share of 1/2 scales every rounding exactly, so the gradients
+      agree to the spread plus one fp32 rounding of the sum;
     - on one meta-batch twice, against grad_accum = 1 on those 24
       utterances, where the batch statistics coincide and accumulation
       equals the big batch: the two differ in the shapes of their cuBLAS
@@ -2339,18 +2391,25 @@ def phase_grad_accum(batches, base, model_from_init, per_step, launches):
 
     (xa, la), (xb, lb) = batches[0], batches[1]
     result = {}
-    # distinct meta-batches against the definition
+    # distinct meta-batches against the definition, under deterministic
+    # algorithms: with the default ones the spread of two passes and the
+    # gradient's difference are two samples of one noise, and the gate
+    # failed on one run of an archive that passed it on others
     x2, l2 = np.concatenate([xa, xb]), np.concatenate([la, lb])
-    loss, grads, _, counts = step(x2, l2, 2)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss, grads, _, counts = step(x2, l2, 2)
+        loss_a, ga = single_grads(xa, la)
+        loss_b, gb = single_grads(xb, lb)
+        _, ga2 = single_grads(xa, la)
+    finally:
+        torch.use_deterministic_algorithms(False)
     for key, n in per_step.items():
         want = n if key == "fused_adam" else 2 * n
         if counts[key] != want:
             fail(f"grad_accum: {counts[key]} {key} launches in a step of "
                  f"two micro-batches, want {want}")
         launches[key] += counts[key]
-    loss_a, ga = single_grads(xa, la)
-    loss_b, gb = single_grads(xb, lb)
-    _, ga2 = single_grads(xa, la)
     spread = max(float((ga[n] - ga2[n]).abs().max()) for n in ga)
     spread_rel = math.sqrt(
         sum(float(((ga[n] - ga2[n]) ** 2).sum()) for n in ga)
@@ -2367,7 +2426,8 @@ def phase_grad_accum(batches, base, model_from_init, per_step, launches):
     print(f"[controls] grad_accum 2 on two meta-batches: loss {loss:.9f} vs "
           f"the two passes' mean {want_loss:.9f} (|diff| {loss_diff:.3e}); "
           f"gradient max |diff| {worst:.3e} (spread of two passes "
-          f"{spread:.3e}); launches {counts}", flush=True)
+          f"{spread:.3e}; deterministic algorithms); launches {counts}",
+          flush=True)
     if worst_excess > 0 or loss_diff > 1e-6 * abs(want_loss) + 1e-7:
         fail(f"grad_accum: accumulated gradient or loss off its definition "
              f"(gradient excess over bound {worst_excess}, loss |diff| "
@@ -2890,6 +2950,9 @@ _TO_HF = (  # fairseq naming -> HuggingFace transformers' Wav2Vec2
     (r"^feature_extractor\.conv_layers\.(\d+)\.0\.",
      r"feature_extractor.conv_layers.\1.conv."),
     (r"^feature_extractor\.conv_layers\.(\d+)\.2\.1\.",
+     r"feature_extractor.conv_layers.\1.layer_norm."),
+    # the base layout's GroupNorm after conv 0
+    (r"^feature_extractor\.conv_layers\.(\d+)\.2\.",
      r"feature_extractor.conv_layers.\1.layer_norm."),
     (r"^layer_norm\.", "feature_projection.layer_norm."),
     (r"^post_extract_proj\.", "feature_projection.projection."),
@@ -3989,6 +4052,584 @@ def phase_remat_cli(workdir: str, fixture, layers: int):
     return counts, replayed, out
 
 
+# ------------------------------------ phase 14: the native IO lane (host)
+
+NATIVE_BODY_SECONDS = 60
+NATIVE_THREADS = (1, 8)
+# The spool threshold of phase 14's server: a 60 s body of 16 kHz mono
+# 16-bit FLAC is ~1.7 MB, under the default 8 MiB, which only ~5 min of
+# such audio passes; lowered so that the 60 s body takes the spooled lane
+NATIVE_SPOOL_BYTES = 1 << 20
+# the host library's build in phase 2: its path and seconds
+HOST_LIB = {}
+
+
+def _flac_copy(job):
+    """(wav path, flac path) -> the FLAC copy's samples as the Python
+    decoder reads them: a worker of phase 14's process pool (the
+    pure-Python FLAC codec runs ~130k samples/s)."""
+    from occm_tpu_torch.io.flac import read_flac, write_flac
+    from occm_tpu_torch.io.wav import read_wav
+
+    wav, flac = job
+    x, sr = read_wav(wav)
+    write_flac(flac, x, sr)
+    return read_flac(flac)[0]
+
+
+def timed_s(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def device_busy(fn):
+    """(host window ms, device busy ms) of fn() under torch.profiler:
+    busy is the union of the device events' intervals."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return window, union_us(spans) / 1e3
+
+
+class _LaneOff:
+    """`io.native.available` patched to False: every caller decodes in
+    Python, as where the library cannot be built."""
+
+    def __enter__(self):
+        from occm_tpu_torch.io import native
+
+        self.native, self.available = native, native.available
+        native.available = lambda: False
+        native.reset_counts()
+
+    def __exit__(self, *exc):
+        self.native.available = self.available
+        if not exc[0] and self.native.CALLS:
+            fail(f"native lane forced off, yet called: "
+                 f"{dict(self.native.CALLS)}")
+
+
+def phase_native(workdir: str, fixture, ckpt: str):
+    """Phase 14: the native IO lane on the host (the library built in
+    phase 2 from native/*.cpp). On the phase's eval set (phase 4's 16 WAVs
+    of 3-13 s), FLAC copies of it and a 60 s FLAC request body (written and
+    decoded in Python by a process pool): the native readers against the
+    Python ones bit for bit, whole, ranged and streamed; both decode lanes
+    timed (files/s, decoded MB/s; native at 1 and 8 threads);
+    `oc_classifier --mode 2c2` on the FLAC eval set with the lane taken,
+    forced off, taken (score files equal byte for byte; wall s, utt/s per
+    bucket end to end, device-busy share); the 60 s body through
+    `oc_server`'s spooled lane, native against Python decode (latency,
+    equal scores); a training epoch's input, native against per-item
+    (equal batches bit for bit, steps/s). The lane's call counter must
+    move wherever the lane is taken and stay at 0 where it is off.
+    Returns the kernels' launches (the CLI's and the server's flash
+    attention), no graph replays, and the measurements."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    from occm_tpu_torch import serve_http
+    from occm_tpu_torch.classify import scoring
+    from occm_tpu_torch.cli import oc_classifier, oc_server
+    from occm_tpu_torch.data import MetaBatchPipeline, PFDataset
+    from occm_tpu_torch.io import native
+    from occm_tpu_torch.io.wav import _read_python, write_wav
+
+    t_phase = time.perf_counter()
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    out = {"host_library": dict(HOST_LIB)}
+    print(f"[native] host library {HOST_LIB['path']}, built in "
+          f"{HOST_LIB['seconds']:.2f} s (phase 2)", flush=True)
+    root = os.path.join(workdir, "native")
+    os.makedirs(root)
+    wav_dir, paths = write_eval_set(root)
+    flac_dir = os.path.join(root, "eval_flac")
+    os.makedirs(flac_dir)
+    utts = open(paths["eval.txt"]).read().split()
+    wavs = [os.path.join(wav_dir, u + ".wav") for u in utts]
+    flacs = [os.path.join(flac_dir, u + ".flac") for u in utts]
+    body_wav, body = (os.path.join(root, f"body.{e}") for e in ("wav",
+                                                                 "flac"))
+    write_wav(body_wav, synthetic_wave(np.random.default_rng(21),
+                                       NATIVE_BODY_SECONDS), SR)
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            min(8, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        decoded = list(pool.map(_flac_copy, [(body_wav, body)]
+                                + list(zip(wavs, flacs))))
+    out["flac_copies_s"] = time.perf_counter() - t0
+    whole, python_flac = decoded[0], decoded[1:]
+
+    # ---- bit for bit: whole files, ranges, a stream
+    native.reset_counts()
+    for path, want in zip([body] + flacs + wavs, decoded + [
+            _read_python(p)[0] for p in wavs]):
+        if not np.array_equal(native.native_read_wav(path)[0], want):
+            fail(f"native reader differs from the Python one on {path}")
+    lens, _ = native.native_audio_len_batch(flacs + wavs + [body])
+    if list(lens) != [len(w) for w in python_flac] * 2 + [len(whole)]:
+        fail(f"native length probes {list(lens)} differ from the decodes")
+    for start, count in ((0, 4096), (17 * SR + 5, 3 * SR),
+                         (len(whole) - 100, 1000)):
+        got, _ = native.native_read_flac_range(body, start, count)
+        if not np.array_equal(got, whole[start:start + count]):
+            fail(f"native FLAC range [{start}, +{count}) differs")
+    wav_whole = _read_python(wavs[-1])[0]
+    got, _ = native.native_read_audio_range(wavs[-1], SR + 3, 2 * SR)
+    if not np.array_equal(got, wav_whole[SR + 3:3 * SR + 3]):
+        fail("native WAV range differs")
+    chunks = []
+    with native.FlacStream(body) as stream:
+        if stream.total_samples != len(whole):
+            fail(f"FlacStream total {stream.total_samples} != {len(whole)}")
+        while True:
+            chunk = stream.read(1 << 16)
+            if not len(chunk):
+                break
+            chunks.append(chunk)
+    if not np.array_equal(np.concatenate(chunks), whole):
+        fail("FlacStream chunks differ from the whole decode")
+    out["bit_for_bit_calls"] = dict(native.CALLS)
+    print(f"[native] {len(flacs)} FLAC copies of the eval set and a "
+          f"{NATIVE_BODY_SECONDS} s FLAC body ({os.path.getsize(body)} B) "
+          f"written and Python-decoded by a process pool in "
+          f"{out['flac_copies_s']:.1f} s; native = Python bit for bit on "
+          f"every FLAC and WAV, whole, ranged and streamed; length probes "
+          f"exact; native calls {dict(native.CALLS)}", flush=True)
+
+    # ---- the two decode lanes
+    lanes = {}
+    true_mb = sum(len(w) for w in python_flac) * 4 / 1e6
+    for kind, files in (("flac", flacs), ("wav", wavs)):
+        for n in NATIVE_THREADS:
+            s = timed_s(lambda: native.native_read_batch_padded(
+                files, max(len(w) for w in python_flac), n_threads=n))
+            lanes[f"native {kind}, {n} threads"] = dict(
+                files_per_s=len(files) / s, mb_per_s=true_mb / s)
+    s = timed_s(lambda: [_read_python(p) for p in wavs])
+    lanes["python wav"] = dict(files_per_s=len(wavs) / s,
+                               mb_per_s=true_mb / s)
+    few = flacs[:4]  # the Python FLAC decoder: the 4 shortest files
+    few_mb = sum(len(w) for w in python_flac[:4]) * 4 / 1e6
+    s = timed_s(lambda: [_read_python(p) for p in few])
+    lanes["python flac"] = dict(files_per_s=len(few) / s,
+                                mb_per_s=few_mb / s)
+    out["decode_lanes"] = lanes
+    print("[native] decode lanes (decoded float32 MB/s): " + "; ".join(
+        f"{k} {v['files_per_s']:.1f} files/s, {v['mb_per_s']:.1f} MB/s"
+        for k, v in lanes.items()), flush=True)
+
+    # ---- oc_classifier 2c2 on the FLAC eval set: on, off, on
+    protocol, train_dir, voc_dir = fixture
+    argv = ["--pretrained-sslaasist", ckpt, "--protocol_file", protocol,
+            "--dataset_dir", train_dir, "--eval_protocol_file",
+            paths["eval.txt"], "--eval_dataset_dir", flac_dir,
+            "--mode", "2c2"]
+    stamps = []
+    embed_for = scoring.BucketedEmbedder._embed_for
+
+    def timed_embed_for(self, blen):
+        fn = embed_for(self, blen)
+
+        def run(x):
+            t_in = time.perf_counter()
+            y = fn(x)
+            torch.cuda.synchronize()
+            stamps.append((blen, t_in, time.perf_counter()))
+            return y
+
+        return run
+
+    in_bucket = {}
+    for w in python_flac:
+        b = max(16000, -(-len(w) // 16000) * 16000)
+        in_bucket[b] = in_bucket.get(b, 0) + 1
+    runs, files = [], []
+    cwd = os.getcwd()
+    os.chdir(root)
+    scoring.BucketedEmbedder._embed_for = timed_embed_for
+    try:
+        for i, lane in enumerate(("on", "off", "on")):
+            files.append(os.path.join(root, f"scores_2c2_{i}_{lane}.txt"))
+            stamps.clear()
+            reset_counts()
+            native.reset_counts()
+
+            def cli():
+                oc_classifier.main(argv + ["--score_file", files[-1]])
+
+            if lane == "off":
+                with _LaneOff():
+                    window, busy = device_busy(cli)
+            elif i == 0:
+                window, busy = timed_s(cli) * 1e3, None
+            else:
+                window, busy = device_busy(cli)
+            calls = dict(native.CALLS)
+            if lane == "on" and not (calls.get("read_batch_padded")
+                                     and calls.get("audio_len_batch")):
+                fail(f"oc_classifier: the native lane was not taken: {calls}")
+            c = read_counts()
+            counts["flash_attn_fwd"] += c["flash_attn_fwd"]
+            per_bucket, prev = {}, None
+            for blen, t_in, t_done in stamps:
+                n, s = per_bucket.get(blen, (0, 0.0))
+                per_bucket[blen] = (n + 1, s + t_done - (prev or t_in))
+                prev = t_done
+            rates = {b: in_bucket[b] / s
+                     for b, (_, s) in sorted(per_bucket.items())}
+            runs.append(dict(lane=lane, wall_s=window / 1e3,
+                             busy_share=None if busy is None
+                             else busy / window, native_calls=calls,
+                             flash_attn_fwd=c["flash_attn_fwd"],
+                             utt_per_s_by_bucket=rates,
+                             profiled=busy is not None))
+            print(f"[native] oc_classifier --mode 2c2, lane {lane}: "
+                  f"{window / 1e3:.2f} s wall (model load included"
+                  f"{', profiled' if busy is not None else ''}), device "
+                  f"busy {'-' if busy is None else f'{busy / window:.3f}'}"
+                  f" of it, utt/s by bucket end to end "
+                  f"{ {b: round(r, 2) for b, r in rates.items()} }, native "
+                  f"calls {calls}, flash_attn_fwd {c['flash_attn_fwd']}",
+                  flush=True)
+    finally:
+        scoring.BucketedEmbedder._embed_for = embed_for
+        os.chdir(cwd)
+    contents = [open(f, "rb").read() for f in files]
+    if any(c != contents[0] for c in contents) or not contents[0]:
+        fail("oc_classifier 2c2 score files differ between the lanes")
+    out["scoring"] = runs
+
+    # ---- the 60 s body through oc_server's spooled lane
+    art = os.path.join(root, "artifacts")
+    os.makedirs(art)
+    np.save(os.path.join(art, "reference_embedding.npy"),
+            np.random.default_rng(22).normal(size=160).astype(np.float32))
+    np.save(os.path.join(art, "threshold.npy"), np.float32(1.0))
+    started = threading.Event()
+    started.stop = threading.Event()
+    errors = []
+
+    def serve():
+        try:
+            oc_server.main(["--pretrained-sslaasist", ckpt,
+                            "--artifacts_dir", art, "--host", "127.0.0.1",
+                            "--port", "0", "--buckets", "16000"],
+                           started_event=started)
+        except BaseException as e:  # surfaced below, never swallowed
+            errors.append(e)
+            started.set()
+
+    spool = serve_http.SPOOL_THRESHOLD_BYTES
+    serve_http.SPOOL_THRESHOLD_BYTES = NATIVE_SPOOL_BYTES
+    data = open(body, "rb").read()
+    if len(data) <= NATIVE_SPOOL_BYTES:
+        fail(f"the {NATIVE_BODY_SECONDS} s body ({len(data)} B) would not "
+             "spool")
+    th = threading.Thread(target=serve, daemon=True)
+    reset_counts()
+    th.start()
+    serving = []
+    try:
+        if not started.wait(900) or errors:
+            fail(f"server did not start: {errors}")
+        port = started.server.port
+        for lane in ("warm-up", "on", "off", "on"):
+            native.reset_counts()
+            if lane == "off":
+                with _LaneOff():
+                    status, payload, ms = post(port, data)
+            else:
+                status, payload, ms = post(port, data)
+                if not native.CALLS.get("flac_read"):
+                    fail(f"oc_server: the spooled body did not stream "
+                         f"through FlacStream: {dict(native.CALLS)}")
+            check_response(f"{NATIVE_BODY_SECONDS} s FLAC", status, payload)
+            serving.append(dict(lane=lane, latency_ms=ms,
+                                score=payload["score"]))
+            print(f"[native] oc_server, {NATIVE_BODY_SECONDS} s FLAC body "
+                  f"({len(data)} B, spooled), decode lane {lane}: latency "
+                  f"{ms:.1f} ms, score {payload['score']:.6f}", flush=True)
+    finally:
+        started.stop.set()
+        th.join(120)
+        serve_http.SPOOL_THRESHOLD_BYTES = spool
+    if th.is_alive() or errors:
+        fail(f"server did not stop cleanly: {errors}")
+    counts["flash_attn_fwd"] += read_counts()["flash_attn_fwd"]
+    if len({r["score"] for r in serving}) != 1:
+        fail(f"oc_server scores differ between the decode lanes: {serving}")
+    out["serving"] = serving
+
+    # ---- a training epoch's input: native against per-item
+    epochs = {}
+    for lane in ("on", "off"):
+        native.reset_counts()
+
+        def epoch():
+            pipe = MetaBatchPipeline(PFDataset(
+                protocol, train_dir, voc_dir, cut=TRAIN_CUT, seed=0), seed=0)
+            if pipe._native != (lane == "on"):
+                fail(f"pipeline native lane {pipe._native}, want {lane}")
+            epochs[lane] = list(pipe.epoch(0))
+
+        if lane == "off":
+            with _LaneOff():
+                s = timed_s(epoch)
+        else:
+            s = timed_s(epoch)
+            if not native.CALLS.get("read_batch_padded"):
+                fail(f"pipeline: native lane not taken {dict(native.CALLS)}")
+        out[f"pipeline_{lane}_steps_per_s"] = len(epochs[lane]) / s
+    same = len(epochs["on"]) == len(epochs["off"]) and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        for a, b in zip(epochs["on"], epochs["off"]))
+    if not same:
+        fail("pipeline: the native epoch's batches differ from per-item's")
+    print(f"[native] training input, {len(epochs['on'])} steps of "
+          f"[12, {TRAIN_CUT}]: native = per-item bit for bit; "
+          f"{out['pipeline_on_steps_per_s']:.1f} against "
+          f"{out['pipeline_off_steps_per_s']:.1f} steps/s", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[native] phase 14 took {out['seconds']:.1f} s", flush=True)
+    return counts, {}, out
+
+
+# ------------------------------- phase 15: the wav2vec2-base frontend
+
+BASE_SCORE_SECONDS = (2, 6, 12)
+# Flash attention and the fused FFN against plain attention and the plain
+# FFN through base's 12 layers: both bf16, rounding P and the FFN's hidden
+# activation at different places (a relative 2^-9 per element per layer,
+# SCORE_RTOL's argument over half the layers); the largest |difference| of
+# the 768 embedding values held to SCORE_RTOL of the largest |value|.
+BASE_EMB_RTOL_OF_MAX = SCORE_RTOL
+# The grafted encoder against the in-memory one: every tensor equal bit
+# for bit but the positional conv (within FOLD_RTOL), whose bf16 cast can
+# then round some hundreds of its 4.7M weights the other way; the features
+# stay within 1e-2 of their largest |value|, where a wrong or missing
+# tensor moves them by the order of that value.
+BASE_GRAFT_RTOL_OF_MAX = 1e-2
+
+
+def phase_base_kernels():
+    """Phase 15's kernel checks: each kernel at base's shapes through phase
+    3's harness (attention at H = 12, the FFN at D 768 / F 3072, LayerNorm
+    at [3588, 768], Adam over base + AASIST). Returns the rows by kernel."""
+    from occm_tpu_torch.config import XLSRConfig
+
+    base = XLSRConfig.base()
+    d, f, h = base.encoder_embed_dim, base.encoder_ffn_dim, base.encoder_heads
+    return dict(
+        flash_attn_fwd=phase_kernels(b=8, h=h, ts=(MAIN_PATH_TS[0],))[0],
+        flash_attn_bwd=phase_attention_bwd(h=h, ts=(MAIN_PATH_TS[0],))[0],
+        layernorm_bwd=phase_layernorm_bwd(
+            shapes=((TRAIN_B * MAIN_PATH_TS[0], d),)),
+        fused_adam=phase_fused_adam(base, odd_leaves=False),
+        ffn_fwd=phase_ffn(cases=[(FFN_MAIN_M, d, f, False),
+                                 (TRAIN_B * MAIN_PATH_TS[0], d, f, False)]))
+
+
+def phase_base(workdir: str, fixture, kernels: bool = True):
+    """Phase 15: the wav2vec2-base frontend at full width and depth:
+    AModel(AASISTConfig(), XLSRConfig.base()) with random weights from seed
+    0 (its convs' biases zero, as wav2vec2-base's checkpoints have none),
+    bf16, every kernel (flash attention, ln_impl and ffn_impl "pallas",
+    fused_adam). Scoring at 2, 6 and 12 s, batch 8: flash with the fused
+    FFN against xla with the plain FFN, in turns (utt/s, the embeddings'
+    largest difference within BASE_EMB_RTOL_OF_MAX); training at 12 x 6 s
+    under deterministic algorithms: 3 eager steps against one CUDA graph
+    of 3, bit for bit (`remat_steps`); a random base-layout fairseq .pt and
+    HF .safetensors, written here, grafted and held to the in-memory
+    encoder; then, if `kernels`, each kernel at base's shapes
+    (`phase_base_kernels`; a full run does those right after phase 3).
+    Returns the kernels' launches, the graph's replayed launches and the
+    measurements (the kernel rows under "kernels")."""
+    import dataclasses
+
+    import torch
+
+    from occm_tpu_torch.config import (
+        AASISTConfig, RawBoostConfig, TrainConfig, XLSRConfig)
+    from occm_tpu_torch.data import MetaBatchPipeline, PFDataset
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.models.convert_xlsr import graft_pretrained_xlsr
+    from occm_tpu_torch.models.xlsr import XLSREncoder
+    from occm_tpu_torch.serve import make_score_fn
+
+    t_phase = time.perf_counter()
+    base = dataclasses.replace(XLSRConfig.base(), ln_impl="pallas",
+                               ffn_impl="pallas", attention_impl="flash")
+    plain = dataclasses.replace(base, attention_impl="xla", ffn_impl="xla",
+                                ln_impl="xla")
+    layers = base.encoder_layers
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    replayed = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def add(c, r=None):
+        for key in counts:
+            counts[key] += c.get(key, 0)
+            replayed[key] += (r or {}).get(key, 0)
+
+    with torch.random.fork_rng(devices=[0]), torch.device(DEVICE):
+        torch.manual_seed(0)
+        model = AModel(AASISTConfig(), base)
+    encoder = model.ssl_model.model
+    with torch.no_grad():
+        for layer in encoder.feature_extractor.conv_layers:
+            layer["0"].bias.zero_()
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"params": n_params, "encoder_params": sum(
+        p.numel() for p in encoder.parameters())}
+    print(f"[base] AModel(AASISTConfig(), XLSRConfig.base()): {n_params} "
+          f"params ({out['encoder_params']} in the encoder), {layers} "
+          f"post-norm layers d={base.encoder_embed_dim} "
+          f"ffn={base.encoder_ffn_dim} heads={base.encoder_heads}, "
+          f"group-norm extractor, dtype {base.dtype}", flush=True)
+
+    # ---- scoring: flash + fused FFN against xla + plain FFN, in turns
+    def fn_for(xcfg, impl):
+        score = make_score_fn(model, impl)
+
+        def run(x):
+            set_xlsr_cfg(model, xcfg)
+            return score(x)
+
+        return run
+
+    fns = {"flash+ffn_pallas": fn_for(base, "flash"),
+           "xla": fn_for(plain, "xla")}
+    rng = np.random.default_rng(31)
+    scoring = {}
+    for seconds in BASE_SCORE_SECONDS:
+        x = torch.from_numpy(np.stack([synthetic_wave(rng, seconds)
+                                       for _ in range(8)])).to(DEVICE)
+        reset_counts()
+        emb_k = fns["flash+ffn_pallas"](x)[0].float()
+        emb_p = fns["xla"](x)[0].float()
+        err = float((emb_k - emb_p).abs().max())
+        scale = float(emb_p.abs().max())
+        if not (math.isfinite(err) and err <= BASE_EMB_RTOL_OF_MAX * scale):
+            fail(f"base scoring at {seconds} s: flash + fused FFN against "
+                 f"xla: max |difference| {err} > {BASE_EMB_RTOL_OF_MAX} * "
+                 f"{scale}")
+        rates = utt_per_s(fns, x)
+        c = read_counts()
+        calls = 2 + 2 * THROUGHPUT_REPS  # the check, a warm-up, the timed
+        if (c["flash_attn_fwd"], c["ffn_fwd"]) != (layers * calls,) * 2:
+            fail(f"base scoring at {seconds} s: launches {c}, want "
+                 f"{layers * calls} flash_attn_fwd and ffn_fwd")
+        add(c)
+        scoring[seconds] = dict(utt_per_s=rates, max_abs_emb_diff=err,
+                                max_abs_emb=scale)
+        print(f"[base] scoring {seconds} s, batch 8, utt/s (A B B A): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
+              + f"; embeddings max |difference| {err:.3e} (bound "
+              f"{BASE_EMB_RTOL_OF_MAX} * {scale:.3e}); launches a batch "
+              f"{layers} flash_attn_fwd + {layers} ffn_fwd", flush=True)
+    out["scoring"] = scoring
+
+    # ---- training: 3 eager steps against one graph of 3
+    protocol, train_dir, voc_dir = fixture
+    batches = list(MetaBatchPipeline(PFDataset(
+        protocol, dataset_dir=train_dir, vocoded_dir=voc_dir, cut=TRAIN_CUT,
+        seed=0), seed=0).epoch(0))[:CONTROL_K]
+    cfg = TrainConfig(cut=TRAIN_CUT, compactness_weight=0.1,
+                      descriptiveness_weight=0.9, log_every=1,
+                      optimizer="fused_adam", rawboost=RawBoostConfig(algo=0))
+    # remat "nothing" reruns the flash forward and the fused FFN
+    per_step = {"flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
+                "flash_attn_bwd_dkv": layers, "layernorm_bwd": 2 * layers,
+                "fused_adam": 1, "ffn_fwd": 2 * layers}
+    set_xlsr_cfg(model, base)
+    init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        row, _, c, r = remat_steps("base (phase 15)", model, init, cfg,
+                                   batches, per_step)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    add(c, r)
+    out["train"] = row
+    print(f"[base] training 12 x 6 s: graph of 3 = 3 eager steps bit for "
+          f"bit; {row['graph_wall_ms']:.2f} ms a step as the graph, busy "
+          f"{row['busy']['busy_share']:.3f}, peak {row['peak_gib']:.3f} GiB;"
+          f" launches a step {per_step}", flush=True)
+
+    # ---- a base-layout fairseq .pt and HF .safetensors, grafted
+    model.load_state_dict(init)
+    model.eval()
+    sd = {k: v.detach().cpu() for k, v in encoder.state_dict().items()
+          if not (k.startswith("feature_extractor.")
+                  and k.endswith(".0.bias"))}
+    x = torch.from_numpy(np.stack([synthetic_wave(rng, 6.0)
+                                   for _ in range(2)])).to(DEVICE)
+    with torch.no_grad():
+        want = encoder(x).float()
+    pos = "encoder.pos_conv.0."
+    grafts = {}
+    for name, writer, file in (
+            ("fairseq .pt", write_fairseq_checkpoint, "wav2vec_small.pt"),
+            ("HF .safetensors", write_hf_safetensors, "model.safetensors")):
+        path = os.path.join(workdir, file)
+        writer(path, sd)
+        with torch.device(DEVICE):
+            grafted = XLSREncoder(base).eval()
+        t0 = time.perf_counter()
+        graft_pretrained_xlsr(grafted, path)
+        load_s = time.perf_counter() - t0
+        got_sd = grafted.state_dict()
+        ref_sd = encoder.state_dict()
+        differ = [k for k in ref_sd if not k.startswith(pos + "weight_")
+                  and not torch.equal(got_sd[k], ref_sd[k])]
+        w, w0 = (m.encoder.pos_conv[0].weight.detach().double()
+                 for m in (grafted, encoder))
+        fold = float(((w - w0).abs() / w0.abs().clamp_min(1e-30)).max())
+        with torch.no_grad():
+            got = grafted(x).float()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if differ or fold > FOLD_RTOL or not (
+                err <= BASE_GRAFT_RTOL_OF_MAX * scale):
+            fail(f"base graft {name}: {len(differ)} tensors differ "
+                 f"({differ[:3]}), positional conv {fold} (bound "
+                 f"{FOLD_RTOL}), features {err} (bound "
+                 f"{BASE_GRAFT_RTOL_OF_MAX} * {scale})")
+        grafts[name] = dict(bytes=os.path.getsize(path), load_s=load_s,
+                            fold_rel_err=fold, max_abs_feature_diff=err)
+        print(f"[base] graft {name} ({os.path.getsize(path) / 2**20:.0f} "
+              f"MiB, no conv biases): {load_s:.2f} s, every tensor equal "
+              f"bit for bit but the positional conv ({fold:.2e} of the "
+              f"fold, bound {FOLD_RTOL:.2e}); features max |difference| "
+              f"{err:.3e} (bound {BASE_GRAFT_RTOL_OF_MAX} * {scale:.3e})",
+              flush=True)
+        os.remove(path)
+        del grafted
+    out["graft"] = grafts
+    del model, encoder, init, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if kernels:
+        out["kernels"] = phase_base_kernels()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[base] phase 15 took {out['seconds']:.1f} s", flush=True)
+    return counts, replayed, out
+
+
 # ------------------------------------------------------- optional profile
 
 def _kernel_class(name: str) -> str:
@@ -4194,6 +4835,14 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 13 only (device, build, the "
                          "remat policies and --fast_numerics); prints no "
                          "kernels line")
+    ap.add_argument("--native-only", action="store_true",
+                    help="run phases 1, 2 and 14 only (device, build, the "
+                         "native IO lane in scoring, serving and training "
+                         "input); prints no kernels line")
+    ap.add_argument("--base-only", action="store_true",
+                    help="run phases 1, 2 and 15 only (device, build, the "
+                         "wav2vec2-base frontend through every kernel); "
+                         "prints no kernels line")
     args = ap.parse_args(argv)
 
     smi = phase_device()
@@ -4202,7 +4851,7 @@ def main(argv=None) -> int:
 
     hgmma = phase_build()
     if (args.controls_only or args.rawboost_only or args.models_only
-            or args.remat_only):
+            or args.remat_only or args.native_only or args.base_only):
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -4218,6 +4867,12 @@ def main(argv=None) -> int:
                                                          fixture)[2]}
             elif args.remat_only:
                 result = {"remat": phase_remat(workdir, fixture)[2]}
+            elif args.native_only:
+                model, ckpt = build_seed_model(workdir)
+                del model
+                result = {"native": phase_native(workdir, fixture, ckpt)[2]}
+            elif args.base_only:
+                result = {"base": phase_base(workdir, fixture)[2]}
             else:
                 result = {"models": phase_models(workdir, fixture)[2]}
         finally:
@@ -4230,6 +4885,11 @@ def main(argv=None) -> int:
     ln = phase_layernorm_bwd()
     adam = phase_fused_adam()
     ffn_rows = phase_ffn()
+    # phase 15's kernel checks here, beside phase 3's: late in a full run
+    # (after phases 4-13's graphs and profiled CLI runs) torch.profiler on
+    # the H100 came back with too few device events in every repeat of a
+    # session, while its sessions this early have kept every record
+    base_rows = None if args.kernels_only else phase_base_kernels()
     launches = dict.fromkeys(
         ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd", "fused_adam",
          "ffn_fwd"), 0)
@@ -4258,6 +4918,11 @@ def main(argv=None) -> int:
                                                                   fixture)
             m_counts, m_replayed, models = phase_models(workdir, fixture)
             r_counts, r_replayed, remat = phase_remat(workdir, fixture)
+            b_counts, b_replayed, base = phase_base(workdir, fixture,
+                                                    kernels=False)
+            base["kernels"] = base_rows
+            n_counts, n_replayed, native_io = phase_native(workdir, fixture,
+                                                           ckpt)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         launches["flash_attn_fwd"] += serve_launches
@@ -4269,7 +4934,9 @@ def main(argv=None) -> int:
         for counts, replays in ((control_counts, replayed),
                                 (rb_counts, rb_replayed),
                                 (m_counts, m_replayed),
-                                (r_counts, r_replayed)):
+                                (r_counts, r_replayed),
+                                (n_counts, n_replayed),
+                                (b_counts, b_replayed)):
             for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
                          "ffn_fwd"):
                 launches[name] += counts[name]
@@ -4281,12 +4948,16 @@ def main(argv=None) -> int:
         print(f"[rawboost] {json.dumps(rawboost, default=str)}", flush=True)
         print(f"[models] {json.dumps(models, default=str)}", flush=True)
         print(f"[remat] {json.dumps(remat, default=str)}", flush=True)
+        print(f"[native] {json.dumps(native_io, default=str)}", flush=True)
+        print(f"[base] {json.dumps(base, default=str)}", flush=True)
 
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,
                           launches)
     for entry in kernels:
         entry["graph_replay_launches"] = graph_launches[entry["name"]]
+        if not args.kernels_only:  # phase 15's rows at base's shapes
+            entry["base"] = base["kernels"][entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

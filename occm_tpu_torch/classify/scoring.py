@@ -14,11 +14,14 @@ embedded in full batches of `batch_size` rows (a short batch is padded with
 zero rows, as in JAX), so every batch of a bucket has one shape and the
 same kernel launches. Host batch assembly (pad and stack) runs on a
 `Prefetcher` thread under the device compute of the previous batch.
-Distances use torch `pairwise_distance` eps semantics.
+`embed_paths` is the threaded native lane: header-only length probes for
+bucketing, then one threaded C++ decode per batch, repeat-padded in the
+decoder's output buffer, prefetched under the device work of the batch
+before (Python decode where the native library is unavailable; the same
+scores byte for byte). Distances use torch `pairwise_distance` eps
+semantics.
 
-Not ported yet: the multi-device `mesh=` (ROADMAP queue A item 15) and the
-native threaded decode lane of `embed_paths` (item 12); here `embed_paths`
-decodes with `io.wav.load_audio`, which gives the same waves.
+Not ported yet: the multi-device `mesh=` (ROADMAP queue A item 15).
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ class BucketedEmbedder:
                  bucket_step: int = 16000, max_len: Optional[int] = None,
                  batch_size: int = 8, mesh=None,
                  embed_fn_factory: Optional[Callable[[int], Callable]] = None,
-                 device="cuda"):
+                 device="cuda", decode_threads: int = 8):
         """max_len=None (default) never truncates: every utterance gets a
         bucket at least its own length, like the reference's full-length
         scoring (reference: oc_classifier.py:93-94).
@@ -80,6 +83,8 @@ class BucketedEmbedder:
         attention_impl="auto".
 
         device: where batches go; "cuda" unless the caller asks for "cpu".
+        decode_threads: threads of the native batch decode in
+        `embed_paths` (match them to the host's cores).
         mesh: multi-device scoring is not ported (raises)."""
         if mesh is not None:
             raise NotImplementedError(
@@ -95,6 +100,7 @@ class BucketedEmbedder:
         self.bucket_step = bucket_step
         self.max_len = max_len
         self.batch_size = batch_size
+        self.decode_threads = decode_threads
 
     def _embed_for(self, blen: int) -> Callable:
         if self._factory is None:
@@ -163,15 +169,45 @@ class BucketedEmbedder:
         return self._run_batches(batches(), len(waves), progress)
 
     def embed_paths(self, paths: List[str],
-                    progress: Optional[Callable[[int], None]] = None
+                    progress: Optional[Callable[[int], None]] = None,
+                    decode_threads: Optional[int] = None
                     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Embed audio files by path, decoded with `io.wav.load_audio` (WAV
-        or FLAC at the native rate): the same waves, buckets and results as
-        `embed_all` on the decoded files."""
-        from occm_tpu_torch.io.wav import load_audio
+        """Embed audio files by path through the native lane: every file's
+        length probed from its WAV/FLAC headers in one threaded call (a
+        file whose headers do not give it is decoded to measure), buckets
+        by those lengths, then one threaded C++ decode per batch,
+        repeat-padded or cropped to the bucket in the decoder's buffer,
+        decoded on the prefetch thread under the device work of the batch
+        before. The same waves, buckets and results, byte for byte, as
+        `embed_all` on the files decoded in Python, which is what runs
+        where the native library is unavailable."""
+        from occm_tpu_torch.io import native
 
-        return self.embed_all((load_audio(p, sr=None)[0] for p in paths),
-                              progress)
+        if decode_threads is None:
+            decode_threads = self.decode_threads
+        if not native.available():
+            from occm_tpu_torch.io.wav import load_audio
+
+            return self.embed_all(
+                (load_audio(p, sr=None)[0] for p in paths), progress)
+
+        lens, _ = native.native_audio_len_batch(paths, decode_threads)
+        for i in np.nonzero(lens < 0)[0]:
+            lens[i] = len(native.native_read_wav(paths[i])[0])
+        by_bucket: dict = {}
+        for i, n in enumerate(lens):
+            by_bucket.setdefault(self._bucket_len(int(n)), []).append(i)
+
+        def batches():
+            for blen, idxs in sorted(by_bucket.items()):
+                for start in range(0, len(idxs), self.batch_size):
+                    chunk = idxs[start: start + self.batch_size]
+                    batch, _, _ = native.native_read_batch_padded(
+                        [paths[i] for i in chunk], blen,
+                        n_threads=decode_threads)
+                    yield chunk, self._pad_batch_rows(batch)
+
+        return self._run_batches(batches(), len(paths), progress)
 
 
 class OneClassScorer:
@@ -182,8 +218,9 @@ class OneClassScorer:
         self.cache_dir = cache_dir
 
     def _embed_dataset(self, dataset, progress):
-        """Embed a dataset by path when it exposes plain file paths
-        (ASVDataset with the stock loader), otherwise item by item."""
+        """Embed a dataset by path (the native lane) when it exposes plain
+        file paths (ASVDataset with the stock loader), otherwise item by
+        item; the same results either way."""
         paths = None
         if hasattr(dataset, "file_paths"):
             paths = dataset.file_paths()

@@ -36,8 +36,9 @@ def main(argv=None) -> None:
     parser.add_argument("--bucket_step", type=int, default=16000)
     parser.add_argument(
         "--decode_threads", type=int, default=8,
-        help="threads of the native decode lane (not ported yet: files "
-             "decode in Python, the same waves)")
+        help="threads of the native batch decode (header length probes "
+             "and one threaded C++ decode per batch; files decode in Python "
+             "where the native library is unavailable)")
     parser.add_argument("--data_parallel", type=int, default=0, metavar="N",
                         help="not ported yet: embedding runs on one GPU")
     parser.add_argument("--xlsr_tiny", action="store_true")
@@ -77,7 +78,7 @@ def main(argv=None) -> None:
         embed_fn_factory=make_embed_fn_factory(
             model, args.attention_impl),
         bucket_step=args.bucket_step, batch_size=args.batch_size,
-        device=device)
+        device=device, decode_threads=args.decode_threads)
 
     if args.eval:
         utts = parse_eval_protocol(args.protocol_file)

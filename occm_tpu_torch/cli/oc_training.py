@@ -112,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--attention_impl", type=str, default="auto",
         help='"auto" (default) resolves from --cut through '
              "occm_tpu_torch.classify.impl_select (the flash kernels from "
-             '5 s up); or pin xla | flash')
+             '1 s up, where the model is one they take); or pin xla | '
+             "flash")
     parser.add_argument(
         "--steps_per_dispatch", type=int, default=1,
         help="k optimizer steps per dispatch: on a card one CUDA graph "

@@ -48,7 +48,9 @@ class RawBoostConfig:
 class XLSRConfig:
     """wav2vec2 / XLSR architecture; defaults are XLS-R 300M: 7-layer conv
     feature encoder with overall stride 320, 24 pre-norm transformer layers,
-    d_model 1024, 16 heads, FFN 4096, conv positional embedding."""
+    d_model 1024, 16 heads, FFN 4096, conv positional embedding.
+    extractor_mode: "layer_norm" (a LayerNorm after every conv, XLS-R) or
+    "default" (a GroupNorm after the first conv only, wav2vec2-base)."""
 
     conv_layers: Tuple[Tuple[int, int, int], ...] = (
         (512, 10, 5),
@@ -148,13 +150,29 @@ class XLSRConfig:
             ("fused_qkv", self.fused_qkv),
             ("attention_impl", impl not in ("xla", "flash")),
             ("pos_conv_impl", self.pos_conv_impl != "grouped"),
-            ("extractor_mode", self.extractor_mode != "layer_norm"),
         ]
         for field, set_ in unported:
             if set_:
                 raise NotImplementedError(
                     f"XLSRConfig.{field}={getattr(self, field)!r} is not "
                     "ported to occm_tpu_torch yet")
+
+    @staticmethod
+    def base() -> "XLSRConfig":
+        """wav2vec2-base layout: the group-norm extractor
+        (extractor_mode="default"; its checkpoints' convs have no bias,
+        which loads as zeros), post-norm encoder, 12 layers of d_model 768,
+        FFN 3072, 12 heads (head dim 64), out_dim 768. The JAX package's
+        docstring says 8 heads; its code, which this follows, gives 12."""
+        return XLSRConfig(
+            extractor_mode="default",
+            layer_norm_first=False,
+            encoder_layers=12,
+            encoder_embed_dim=768,
+            encoder_ffn_dim=3072,
+            encoder_heads=12,
+            out_dim=768,
+        )
 
     @staticmethod
     def tiny() -> "XLSRConfig":

@@ -88,9 +88,14 @@ class PFDataset:
         return paths, np.asarray(labels, np.int64)
 
     def supports_native_batch(self) -> bool:
-        """The native threaded reader is not wired into the port yet
-        (ROADMAP queue A): every meta-batch decodes in Python."""
-        return False
+        """Whether meta-batches can be decoded by the native threaded batch
+        reader: fixed-cut repeat padding with the stock WAV/FLAC loader,
+        and the native library available."""
+        from occm_tpu_torch.io import native
+
+        return (self.pad_mode == "repeat"
+                and self.loader is _default_loader
+                and native.available())
 
     def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
         """(features [12, T], labels [12]) with T = cut (repeat mode) or

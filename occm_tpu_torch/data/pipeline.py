@@ -2,8 +2,11 @@
 prefetch thread (port of `occm_tpu.data.pipeline`, one process).
 
 A background thread decodes and stacks the next G meta-batches
-([G*12, cut]) while the card runs the step. A worker's error is re-raised
-in the consumer: a failed decode fails the epoch, never truncates it.
+([G*12, cut]) while the card runs the step: with repeat padding and the
+stock loader, as one threaded native decode of the step's 12*G files
+(`io.native`), else item by item in Python; both give the same batches
+bit for bit. A worker's error is re-raised in the consumer: a failed
+decode fails the epoch, never truncates it.
 `chunk_batches` groups an epoch's batches into chunks of k for
 `steps_per_dispatch` (port of `occm_tpu.train.loop.chunk_batches`).
 """
@@ -55,7 +58,8 @@ class MetaBatchPipeline:
     """Epoch iterator over PFDataset yielding ([G*12, cut], [G*12]) numpy
     arrays, G = groups_per_step. One process: the epoch is not sharded. A
     ragged tail of fewer than G meta-batches is yielded at its own size
-    unless drop_remainder."""
+    unless drop_remainder. `decode_threads`: threads of the native batch
+    decode, taken where `dataset.supports_native_batch()`."""
 
     def __init__(
         self,
@@ -65,6 +69,7 @@ class MetaBatchPipeline:
         seed: int = 0,
         drop_remainder: bool = False,
         prefetch_depth: int = 2,
+        decode_threads: int = 8,
     ):
         self.dataset = dataset
         self.groups = groups_per_step
@@ -72,6 +77,9 @@ class MetaBatchPipeline:
         self.seed = seed
         self.drop_remainder = drop_remainder
         self.prefetch_depth = prefetch_depth
+        self.decode_threads = decode_threads
+        self._native = (hasattr(dataset, "supports_native_batch")
+                        and dataset.supports_native_batch())
 
     def steps_per_epoch(self) -> int:
         n = len(self.dataset) // self.groups
@@ -84,6 +92,9 @@ class MetaBatchPipeline:
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
         self.dataset.reseed(self.seed * 1_000_003 + epoch)
+        if self._native:
+            yield from self._native_epoch_iter(order)
+            return
         group_feats, group_labels = [], []
         for idx in order:
             f, l = self.dataset[int(idx)]
@@ -96,6 +107,27 @@ class MetaBatchPipeline:
         if group_feats and not self.drop_remainder:
             yield (np.concatenate(group_feats, axis=0),
                    np.concatenate(group_labels, axis=0))
+
+    def _native_epoch_iter(self, order: np.ndarray):
+        """The 12*G paths of each step resolved by `sample_paths` (the same
+        per-index draws as `__getitem__`) and decoded by one threaded
+        native call, repeat-padded to `cut` in its output buffer; the
+        ragged tail likewise unless drop_remainder."""
+        from occm_tpu_torch.io.native import native_read_batch_padded
+
+        steps = [order[i: i + self.groups]
+                 for i in range(0, len(order), self.groups)]
+        if steps and len(steps[-1]) < self.groups and self.drop_remainder:
+            steps.pop()
+        for idxs in steps:
+            paths, labels = [], []
+            for idx in idxs:
+                p, l = self.dataset.sample_paths(int(idx))
+                paths += p
+                labels.append(l)
+            feats, _, _ = native_read_batch_padded(
+                paths, self.dataset.cut, n_threads=self.decode_threads)
+            yield feats, np.concatenate(labels)
 
     def epoch(self, epoch: int = 0
               ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:

@@ -1,8 +1,11 @@
 """FLAC decode (pure Python) + test encoder.
 
-The port's own copy of `occm_tpu/io/flac.py`, unchanged in behaviour: the
-serving front-end decodes FLAC request bodies with it. The native C++
-streaming decoder (native/flacdec.cpp) is not wired into the port yet.
+The port's own copy of `occm_tpu/io/flac.py`, unchanged in behaviour. It
+is the decoder of last resort: `io.wav.load_audio` and the serving
+front-end take the native C++ decoder (`io.native`: native/flacdec.cpp,
+whole-file, ranged and streamed through `FlacStream`) where the library
+is available, and this one where it is not; the two agree bit for bit.
+The encoder writes the test fixtures.
 
 Decoder coverage: 8/12/16/20/24-bit, 1-8 channels, all subframe types
 (CONSTANT, VERBATIM, FIXED 0-4, LPC 1-32), rice/rice2 residual partitions

@@ -5,7 +5,9 @@
   (librosa.load(sr=16000) equivalent; sr=None keeps the native rate).
 
 Multi-channel audio is averaged to mono, matching librosa.load(mono=True).
-The native C++ reader (native/wavio.cpp) is not wired into the port yet.
+`load_audio` prefers the native C++ reader (`io.native`, WAV and FLAC)
+and decodes in Python where the library is unavailable or rejects a file;
+the two give the same waves bit for bit.
 """
 
 from __future__ import annotations
@@ -87,21 +89,33 @@ def resample(x: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
     )
 
 
-def load_audio(path: str, sr: Optional[int] = None) -> Tuple[np.ndarray, int]:
-    """librosa.load-style entry: decode (WAV or FLAC, by magic bytes) +
-    optional resample to `sr`.
-
-    sr=None keeps the native rate (reference: oc_training.py:219 uses
-    sr=None; data_utils_SSL.py:76 uses sr=16000).
-    """
+def _read_python(path: str) -> Tuple[np.ndarray, int]:
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"fLaC":
         from occm_tpu_torch.io.flac import read_flac
 
-        wave, native_sr = read_flac(path)
-    else:
-        wave, native_sr = read_wav(path)
+        return read_flac(path)
+    return read_wav(path)
+
+
+def load_audio(path: str, sr: Optional[int] = None) -> Tuple[np.ndarray, int]:
+    """librosa.load-style entry: decode (WAV or FLAC, by magic bytes; the
+    native reader where it is available and takes the file, else Python)
+    + optional resample to `sr`.
+
+    sr=None keeps the native rate (reference: oc_training.py:219 uses
+    sr=None; data_utils_SSL.py:76 uses sr=16000).
+    """
+    from occm_tpu_torch.io import native
+
+    decoded = None
+    if native.available():
+        try:
+            decoded = native.native_read_wav(path)
+        except IOError:  # a layout the native reader does not take
+            pass
+    wave, native_sr = decoded or _read_python(path)
     if sr is not None and native_sr != sr:
         return resample(wave, native_sr, sr), sr
     return wave, native_sr

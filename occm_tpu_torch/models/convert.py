@@ -8,11 +8,14 @@ This is the port's own copy of the mapping of
 `export_lcnn_state_dict`, and `export_model_file`'s fused ssl_resnet34
 layout), extended to the JAX package's other fused models (SSLLCNN,
 TotalCNNNet, OCCM; the CNN named as its Flax scopes) and dispatched on a
-tree's top-level names as `detect_params_kind` does. One difference: the
+tree's top-level names as `detect_params_kind` does. Both extractor modes
+map: "layer_norm" (`ln_{i}` -> `conv_layers.{i}.2.1`) and "default", the
+wav2vec2-base layout (`gn_0` -> `conv_layers.0.2`). One difference: the
 export drops a conv feature-extractor bias that is all zeros (a bias-free
-reference checkpoint), while the port's convs always have a bias, so the
-bridge always emits it. Dead reference BatchNorms (AASIST's `bn1`, LCNN's
-`group.bn`) are emitted at torch's defaults. Inputs are plain numpy
+reference checkpoint), while the bridge always emits it; the port's
+extractor loads either strictly (a missing bias loads as zeros). Dead
+reference BatchNorms (AASIST's `bn1`, LCNN's `group.bn`) are emitted at
+torch's defaults. Inputs are plain numpy
 arrays, so the port needs no JAX to read a tree that was saved to disk.
 `detect_model_kind` is the port's copy of the JAX package's: it tells the
 reference's checkpoint files apart by their key names.
@@ -26,7 +29,6 @@ back into the kernel w it trains.
 
 from __future__ import annotations
 
-import re
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -80,10 +82,14 @@ def xlsr_arrays_from_flax(params: Mapping, cfg: XLSRConfig) -> Dict:
             conv["kernel"]).transpose(2, 1, 0)
         out[f"feature_extractor.conv_layers.{i}.0.bias"] = (
             _a(conv["bias"]) if "bias" in conv else np.zeros(dim, np.float32))
-        out[f"feature_extractor.conv_layers.{i}.2.1.weight"] = _a(
-            fe[f"ln_{i}"]["scale"])
-        out[f"feature_extractor.conv_layers.{i}.2.1.bias"] = _a(
-            fe[f"ln_{i}"]["bias"])
+        if cfg.extractor_mode == "layer_norm":
+            norm, key = fe[f"ln_{i}"], f"{i}.2.1"
+        elif i == 0:
+            norm, key = fe["gn_0"], "0.2"
+        else:
+            continue
+        out[f"feature_extractor.conv_layers.{key}.weight"] = _a(norm["scale"])
+        out[f"feature_extractor.conv_layers.{key}.bias"] = _a(norm["bias"])
 
     out["layer_norm.weight"] = _a(params["layer_norm"]["scale"])
     out["layer_norm.bias"] = _a(params["layer_norm"]["bias"])
@@ -334,19 +340,14 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A torch state dict file in the reference's naming (for example one
     written by `occm-export-model`): unwraps {"model": ...} and
     DataParallel's "module." prefix. A conv feature-extractor layer saved
-    without a bias (a bias-free checkpoint, or an export that dropped an
-    all-zero bias) gets a zero bias, so the port's modules load it
-    strictly."""
+    without a bias (a bias-free checkpoint such as wav2vec2-base's, or an
+    export that dropped an all-zero bias) stays so: the port's extractor
+    loads it strictly, with a zero bias."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and isinstance(state.get("model"), dict):
         state = state["model"]
-    state = {(k[len("module."):] if k.startswith("module.") else k): v
-             for k, v in state.items()}
-    for k, w in list(state.items()):
-        if re.search(r"feature_extractor\.conv_layers\.\d+\.0\.weight$", k):
-            state.setdefault(k[: -len("weight")] + "bias",
-                             torch.zeros(w.shape[0], dtype=w.dtype))
-    return state
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state.items()}
 
 
 def optimizer_state_from_flax(opt_state, xlsr_cfg: Optional[XLSRConfig] = None

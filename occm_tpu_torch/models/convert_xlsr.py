@@ -14,8 +14,13 @@ Reads a fairseq checkpoint (`xlsr2_300m.pt`: {"model": state dict, "cfg":
   final_proj.*, a fine-tuned model's CTC head w2v_encoder.proj.*, and HF's
   `_HF_IGNORED`): the reference runs features_only=True with mask=False
   (reference: models/xlsr.py:46);
-- a conv feature-extractor layer without a bias (conv_bias=False) gets
-  zeros, as the JAX converter fills them;
+- a conv feature-extractor layer without a bias (conv_bias=False, as
+  in wav2vec2-base) loads as zeros (the extractor's load hook), as the
+  JAX converter fills them; both extractor layouts graft, XLS-R's
+  LayerNorm after every conv and base's GroupNorm after the first (HF's
+  `conv_layers.0.layer_norm` becomes fairseq's `conv_layers.0.2`), and
+  both encoder layouts (pre- and post-norm, whose `encoder.layer_norm`
+  runs before the layers);
 - the positional conv's weight-norm pair (weight_g, weight_v) is folded
   into the kernel the port trains by `PosConv`'s load hook.
 
@@ -214,7 +219,7 @@ def encoder_state_dict(sd: Mapping[str, torch.Tensor],
                        cfg: XLSRConfig) -> Dict[str, torch.Tensor]:
     """A fairseq- or HF-named checkpoint state dict -> the state dict of
     the port's XLSREncoder (fairseq naming, pretraining-only tensors
-    dropped, missing conv biases zero)."""
+    dropped; a missing conv bias stays missing and loads as zeros)."""
     if detect_format(sd) == "hf":
         sd = hf_to_fairseq_names(sd, cfg)
     sd = dict(sd)
@@ -222,14 +227,8 @@ def encoder_state_dict(sd: Mapping[str, torch.Tensor],
         if any(k.startswith(prefix) for k in sd):
             sd = {(k[len(prefix):] if k.startswith(prefix) else k): v
                   for k, v in sd.items()}
-    sd = {k: v for k, v in sd.items()
-          if not any(k.startswith(p) for p in PRETRAINING_ONLY)}
-    for i in range(len(cfg.conv_layers)):
-        w = sd.get(f"feature_extractor.conv_layers.{i}.0.weight")
-        if w is not None:
-            sd.setdefault(f"feature_extractor.conv_layers.{i}.0.bias",
-                          torch.zeros(w.shape[0], dtype=w.dtype))
-    return sd
+    return {k: v for k, v in sd.items()
+            if not any(k.startswith(p) for p in PRETRAINING_ONLY)}
 
 
 def graft_pretrained_xlsr(encoder: torch.nn.Module, path: str) -> None:

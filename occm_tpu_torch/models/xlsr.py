@@ -6,6 +6,9 @@ reference checkpoint loads with `load_state_dict(strict=True)`:
 
   feature_extractor.conv_layers.{i}.0      Conv1d
   feature_extractor.conv_layers.{i}.2.1    LayerNorm over channels
+                                           (extractor_mode "layer_norm")
+  feature_extractor.conv_layers.0.2        GroupNorm, block 0 only
+                                           (extractor_mode "default")
   layer_norm, post_extract_proj
   encoder.pos_conv.0.{weight_g,weight_v,bias}   weight-normed grouped conv
                                                 (trained as one folded kernel)
@@ -193,21 +196,39 @@ def grad_multiply(x: torch.Tensor, mult: float) -> torch.Tensor:
 
 
 class ConvFeatureExtractor(nn.Module):
-    """wav2vec2 conv subsampler in layer_norm extractor mode: [B, T] wave ->
-    [B, frames, conv_dim] in the compute dtype."""
+    """wav2vec2 conv subsampler: [B, T] wave -> [B, frames, conv_dim] in the
+    compute dtype. extractor_mode "layer_norm" normalises every block over
+    its channels (`conv_layers.{i}.2.1`); "default" has one GroupNorm with a
+    group per channel after block 0 (`conv_layers.0.2`), computed in fp32
+    and cast back to the compute dtype, and no norm in the other blocks.
+    A state dict without a conv's bias (a checkpoint with conv_bias=False,
+    such as wav2vec2-base's) loads strictly, with zeros for it, as the JAX
+    converter fills them."""
 
     def __init__(self, cfg: XLSRConfig):
         super().__init__()
         self.cfg = cfg
         layers = []
         in_dim = 1
-        for dim, k, s in cfg.conv_layers:
-            layers.append(nn.ModuleDict({
-                "0": nn.Conv1d(in_dim, dim, k, stride=s, bias=True),
-                "2": nn.ModuleDict({"1": nn.LayerNorm(dim, eps=1e-5)}),
-            }))
+        for i, (dim, k, s) in enumerate(cfg.conv_layers):
+            layer = {"0": nn.Conv1d(in_dim, dim, k, stride=s, bias=True)}
+            if cfg.extractor_mode == "layer_norm":
+                layer["2"] = nn.ModuleDict({"1": nn.LayerNorm(dim, eps=1e-5)})
+            elif i == 0:
+                layer["2"] = nn.GroupNorm(dim, dim, eps=1e-5)
+            layers.append(nn.ModuleDict(layer))
             in_dim = dim
         self.conv_layers = nn.ModuleList(layers)
+        self.register_load_state_dict_pre_hook(
+            ConvFeatureExtractor._zero_missing_biases)
+
+    def _zero_missing_biases(self, state, prefix, local_metadata, strict,
+                             missing_keys, unexpected_keys, error_msgs):
+        for i in range(len(self.conv_layers)):
+            key = f"{prefix}conv_layers.{i}.0."
+            if key + "weight" in state and key + "bias" not in state:
+                w = state[key + "weight"]
+                state[key + "bias"] = torch.zeros(w.shape[0], dtype=w.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _DTYPES[self.cfg.dtype]
@@ -217,10 +238,15 @@ class ConvFeatureExtractor(nn.Module):
             conv = layer["0"]
             h = F.conv1d(h, conv.weight.to(dt), conv.bias.to(dt),
                          stride=conv.stride)
-            # LayerNorm over channels: torch convs are NCW
-            h = _ln(h.transpose(1, 2), layer["2"]["1"], ndt)
+            norm = layer["2"] if "2" in layer else None
+            if isinstance(norm, nn.GroupNorm):
+                h = F.group_norm(h.float(), norm.num_groups,
+                                 norm.weight.float(), norm.bias.float(),
+                                 norm.eps).to(dt)
+            elif norm is not None:
+                # LayerNorm over channels: torch convs are NCW
+                h = _ln(h.transpose(1, 2), norm["1"], ndt).transpose(1, 2)
             h = _gelu(h.to(dt), self.cfg.conv_gelu_approximate)
-            h = h.transpose(1, 2)
         return h.transpose(1, 2)                            # [B, F, C]
 
 

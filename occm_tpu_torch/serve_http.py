@@ -9,9 +9,10 @@ Endpoints:
       header, default 16000). Audio at other rates is resampled to 16 kHz.
 
 Bodies above SPOOL_THRESHOLD_BYTES are streamed to a spool file in chunks
-and decoded from it by the Python decoders (occm_tpu_torch.io), which is
-what the JAX server does when its native library is not built; the native
-streaming readers are not wired into the port yet.
+and decoded from it by the native readers (`io.native`): FLAC frame by
+frame through `FlacStream`, WAV by the native file reader, each held to
+MAX_DECODED_SAMPLES. Where the native library is unavailable they are
+decoded in memory by the Python decoders, as the JAX server does then.
 
 Stdlib-only (ThreadingHTTPServer): each connection runs on its own thread
 and blocks in BatchingQueue.score_sync while the batcher groups concurrent
@@ -34,7 +35,8 @@ from occm_tpu_torch.io.wav import _parse_wav, resample
 
 TARGET_SR = 16000
 MAX_BODY_BYTES = 1024 * 1024 * 1024  # sanity cap; large bodies are spooled
-# bodies above this are streamed to a spool file in chunks before decoding
+# bodies above this are streamed to a spool file in chunks and decoded by
+# the native readers: the handler never holds the encoded body in memory
 SPOOL_THRESHOLD_BYTES = 8 * 1024 * 1024
 _CHUNK = 1 << 16
 # the DECODED wave must be bounded too: spooling keeps encoded bytes off
@@ -73,26 +75,62 @@ def decode_request_audio(body: bytes, sample_rate_header: Optional[str]
     return resample(np.ascontiguousarray(wave), sr, TARGET_SR)
 
 
+def _stream_flac(path: str) -> Tuple[np.ndarray, int]:
+    """A FLAC file through the native streaming decoder, in chunks of
+    1 << 20 samples, held to MAX_DECODED_SAMPLES by STREAMINFO and again
+    while reading (for a header that says 0 samples, or lies)."""
+    from occm_tpu_torch.io import native
+
+    with native.FlacStream(path) as stream:
+        if stream.total_samples > MAX_DECODED_SAMPLES:
+            raise ValueError(f"audio too long: {stream.total_samples} "
+                             f"samples (cap {MAX_DECODED_SAMPLES})")
+        parts, total = [], 0
+        while True:
+            chunk = stream.read(1 << 20)
+            if len(chunk) == 0:
+                break
+            total += len(chunk)
+            if total > MAX_DECODED_SAMPLES:
+                raise ValueError(
+                    f"audio too long: >{MAX_DECODED_SAMPLES} samples")
+            parts.append(chunk)
+        wave = np.concatenate(parts) if parts else np.empty(0, np.float32)
+        return wave, stream.sample_rate
+
+
 def decode_spooled_audio(path: str, sample_rate_header: Optional[str]
                          ) -> np.ndarray:
-    """Decode a spooled request body from disk -> float32 mono @16 kHz."""
+    """Decode a spooled request body from disk -> float32 mono @16 kHz.
+
+    FLAC streams through the native decoder (constant decoder memory, so a
+    long recording costs one float32 wave), WAV goes through the native
+    file reader; without the native library both are decoded in memory
+    by `decode_request_audio`. Raw float32 PCM is read from the file."""
+    from occm_tpu_torch.io import native
+
     with open(path, "rb") as f:
         magic = f.read(4)
-    if magic in (b"fLaC", b"RIFF"):
+    if magic in (b"fLaC", b"RIFF") and not native.available():
         with open(path, "rb") as f:
             return decode_request_audio(f.read(), sample_rate_header)
-    # raw float32 PCM
-    if os.path.getsize(path) % 4:
-        raise ValueError(
-            "raw PCM body length not a multiple of 4 (float32)"
-        )
-    if os.path.getsize(path) // 4 > MAX_DECODED_SAMPLES:
-        raise ValueError(
-            f"audio too long: {os.path.getsize(path) // 4} samples "
-            f"(cap {MAX_DECODED_SAMPLES})"
-        )
-    wave = np.fromfile(path, dtype="<f4").astype(np.float32)
-    sr = int(sample_rate_header) if sample_rate_header else TARGET_SR
+    if magic == b"fLaC":
+        wave, sr = _stream_flac(path)
+    elif magic == b"RIFF":
+        wave, sr = native.native_read_wav(path)
+        if len(wave) > MAX_DECODED_SAMPLES:
+            raise ValueError(f"audio too long: {len(wave)} samples "
+                             f"(cap {MAX_DECODED_SAMPLES})")
+    else:  # raw float32 PCM
+        if os.path.getsize(path) % 4:
+            raise ValueError(
+                "raw PCM body length not a multiple of 4 (float32)")
+        if os.path.getsize(path) // 4 > MAX_DECODED_SAMPLES:
+            raise ValueError(
+                f"audio too long: {os.path.getsize(path) // 4} samples "
+                f"(cap {MAX_DECODED_SAMPLES})")
+        wave = np.fromfile(path, dtype="<f4").astype(np.float32)
+        sr = int(sample_rate_header) if sample_rate_header else TARGET_SR
     if len(wave) == 0:
         raise ValueError("empty audio")
     return resample(np.ascontiguousarray(wave), sr, TARGET_SR)

@@ -75,8 +75,10 @@ def test_bridge_loads_strict(flax_variables):
 
 def test_zero_conv_biases_are_emitted_as_zeros(flax_variables):
     """The trap at convert_backend.py:408: Flax inits conv biases to zero
-    and the exporter drops all-zero biases, so a strict load of the
-    exporter's dict fails; the bridge emits them."""
+    and the exporter drops all-zero biases; the bridge emits them, and the
+    port's extractor loads the exporter's dict strictly all the same (a
+    missing conv bias loads as zeros, as in a bias-free wav2vec2-base
+    checkpoint), to the bridge's parameters."""
     sd = state_dict_from_flax(flax_variables, XLSRConfig.tiny())
     exported = export_amodel_state_dict(flax_variables, JXLSRConfig.tiny())
     for i in (0, 2):
@@ -87,10 +89,12 @@ def test_zero_conv_biases_are_emitted_as_zeros(flax_variables):
     key = "ssl_model.model.feature_extractor.conv_layers.1.0.bias"
     np.testing.assert_array_equal(sd[key].numpy(), exported[key])
     model = AModel(AASISTConfig.tiny(), XLSRConfig.tiny())
-    with pytest.raises(RuntimeError, match="Missing key"):
-        model.load_state_dict(
-            {k: torch.from_numpy(np.ascontiguousarray(v))
-             for k, v in exported.items()}, strict=True)
+    model.load_state_dict(
+        {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in exported.items()}, strict=True)
+    for k, v in model.state_dict().items():
+        if k.startswith("ssl_model.model.feature_extractor."):
+            torch.testing.assert_close(v, sd[k], rtol=0, atol=0)
 
 
 def test_pos_conv_weight_norm_folds_back(flax_variables):

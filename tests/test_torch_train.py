@@ -63,6 +63,20 @@ from occm_tpu_torch.train import create_train_state, train_step
 SR = 16000
 CUT = 3200
 LR = 1e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The file's torch ops run on one thread: the models are tiny, and
+    the suite's workers share the host's cores (oversubscribed, torch's
+    worker threads spin: under six workers a 6-step CLI epoch here took
+    ~250 s of wall time, alone 2-7 s)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 VOCODERS = ("hifigan", "hn-sinc-nsf-hifi", "hn-sinc-nsf", "melgan",
             "waveglow")
 

@@ -56,6 +56,18 @@ from occm_tpu_torch.utils.logging import MetricsLogger
 ACCUM_CUT = 400
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The file's torch ops run on one thread: the models are tiny, and
+    the suite's workers share the host's cores (oversubscribed, torch's
+    worker threads spin: under six workers the chunked-steps and resume
+    cases here took 180-250 s of wall time)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ------------------------------------------------------ gradient accumulation
 
 class JTinyDual(fnn.Module):

@@ -102,7 +102,7 @@ def test_pos_conv_grouped_matches_jax():
     ("pos_conv_impl", "batched"), ("fused_qkv", True),
     ("attention_impl", "packed"), ("attention_impl", "pad128"),
     ("attention_impl", "xla_merged"), ("pos_conv_impl", "s2d"),
-    ("extractor_mode", "default"),
+    ("attention_impl", "packed8"),
 ])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --remat-only    # phases 1, 2 and 13 only
     python3 chip_smoke.py --native-only   # phases 1, 2 and 14 only
     python3 chip_smoke.py --base-only     # phases 1, 2 and 15 only
+    python3 chip_smoke.py --int8-only     # phases 1, 2 and 16 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -191,13 +192,30 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    grafted and held to the in-memory encoder; each kernel at base's
    shapes through phase 3's harness (attention at H = 12, the FFN at
    D 768 / F 3072, LayerNorm at [3588, 768], Adam over base + AASIST).
-16. with --profile only: device time by kernel (torch.profiler) for full
+16. W8A8 int8 scoring and serving (`--quant_int8`, `occm_tpu_torch.ops.
+   int8`; the product is torch._int_mm, not a kernel of the port: the JAX
+   package computes it with lax.dot_general outside any Pallas kernel) at
+   full width under --fast_numerics, printed on [int8] lines and not in
+   the kernels line: int8_matmul against its plain version (an exact fp64
+   product) at M = 8 x 99, 8 x 299, 8 x 599 frames, 299 and 8 (padded),
+   (K, N) of XLS-R's and base's projections, x_q, accumulator and output
+   bit for bit, with wrapper, device and int8-GEMM ms, the bound and the
+   bf16 F.linear; `oc_classifier --mode 2c2 --quant_int8` beside the bf16
+   call on phase 4's eval set (24 flash_attn_fwd launches and 144
+   int8_matmul calls a batch, exact), the encoder outputs of one batch
+   int8 against bf16 within the JAX suite's cosine 0.99 / relative L2
+   0.15, utt/s at 2, 6 and 12 s in turns; `oc_server --quant_int8` on 4,
+   6 and 12 s requests against the classifier's int8 path; the refusal
+   of --quant_int8 without --fast_numerics (exit non-zero, ValueError,
+   no weights read); `parity_gate --xlsr_tiny` on a tiny fairseq .pt and
+   an LA-layout tree it writes, every stage PASS and rc 0.
+17. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-17. prints {"kernels": [...]} (each entry with phase 15's row at base's
+18. prints {"kernels": [...]} (each entry with phase 15's row at base's
    shapes under "base"), then {"ok": true, "device": {...}} last.
-A full run makes phase 15's kernel checks right after phase 3's, and
-phase 15's other parts before phase 14 (see main).
+A full run makes phase 15's and 16's product checks right after phase
+3's, and phases 15 and 16's other parts before phase 14 (see main).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -4630,6 +4648,404 @@ def phase_base(workdir: str, fixture, kernels: bool = True):
     return counts, replayed, out
 
 
+# ---------------------------------------------------------------- phase 16
+
+PEAK_INT8_OPS = 1979e12  # H100 SXM, dense int8 TOP/s at 700 W
+# Rows of the int8 products on the main path: 8 utterances of the 2, 6 and
+# 12 s buckets (99, 299 and 599 frames); 8 rows, which the wrapper pads to
+# 32 (torch._int_mm takes more than 16); one 6 s utterance alone (299, not
+# a multiple of 8).
+INT8_MS = (8, 299, 8 * 99, 8 * 299, 8 * 599)
+# (K, N) of XLS-R's q/k/v/out_proj, fc1 and fc2, then wav2vec2-base's
+INT8_KN = ((1024, 1024), (1024, 4096), (4096, 1024), (768, 768),
+           (768, 3072), (3072, 768))
+INT8_SECONDS = (2, 6, 12)
+# The int8 encoder against the bf16 one at the same weights: the JAX
+# suite's own bounds for its W8A8 path (tests/test_int8.py:88-93).
+INT8_COSINE = 0.99
+INT8_REL_L2 = 0.15
+INT8_ITERS = 10
+
+
+def int8_bound(m: int, k: int, n: int):
+    """Least time of one int8_matmul on an H100: (bound_ms, bound_by). 2MKN
+    int8 operations; x [M, K] bf16 read once, w_q [K, N] int8, scale and
+    bias [N] bf16 (the mirror's) read once, y [M, N] bf16 written once."""
+    ops = 2.0 * m * k * n
+    nbytes = 2.0 * m * k + k * n + 2.0 * 2 * n + 2.0 * m * n
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_int8_kernels():
+    """Phase 16's product checks, beside phase 3's (profiler sessions late
+    in a run lose records): `int8_matmul` against `int8_matmul_reference`
+    on the card (its int32 product an fp64 GEMM of the int8 values, exact)
+    at every main-path shape: x_q, the int32 accumulator and y equal bit
+    for bit. Per shape: the wrapper's ms (CUDA events), its device ms and
+    launches and those of the int8 GEMM alone (torch.profiler), the bound,
+    and the bf16 F.linear at the same shape. Not a kernel of the port: the
+    JAX package computes the product with lax.dot_general."""
+    import torch
+    import torch.nn.functional as F
+
+    from occm_tpu_torch.ops import int8
+
+    t0 = time.perf_counter()
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for k, n in INT8_KN:
+        w = torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k)
+        w_q, scale = int8.quantize_weight_int8(w)
+        scale = scale.to(torch.bfloat16)
+        bias = (0.02 * torch.randn(n, device="cuda", generator=gen)).to(
+            torch.bfloat16)
+        w_bf16 = w.to(torch.bfloat16)
+        for m in INT8_MS:
+            x = torch.randn(m, k, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            y, x_q, acc = int8.int8_matmul(x, w_q, scale, bias,
+                                           torch.bfloat16, parts=True)
+            y0, x_q0, acc0 = int8.int8_matmul_reference(
+                x, w_q, scale, bias, torch.bfloat16, parts=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(x_q, x_q0) and torch.equal(acc, acc0)
+                    and torch.equal(y, y0)):
+                fail(f"int8_matmul [{m}, {k}] x [{k}, {n}]: x_q equal "
+                     f"{torch.equal(x_q, x_q0)}, acc equal "
+                     f"{torch.equal(acc, acc0)} (max |diff| "
+                     f"{int((acc - acc0).abs().max())}), y equal "
+                     f"{torch.equal(y, y0)}")
+            wrapper = lambda: int8.int8_matmul(x, w_q, scale, bias,
+                                               torch.bfloat16)
+            gemm = lambda: int8.int8_mm(x_q, w_q)
+            linear = lambda: F.linear(x, w_bf16, bias)
+            ms = cuda_ms(wrapper, INT8_ITERS)
+            dev_ms, dev_launches = calls_device_ms(wrapper, INT8_ITERS)
+            gemm_ms, gemm_launches = calls_device_ms(gemm, INT8_ITERS)
+            bound, bound_by = int8_bound(m, k, n)
+            row = dict(m=m, k=k, n=n, ms=ms, device_ms=dev_ms,
+                       device_launches=dev_launches, gemm_device_ms=gemm_ms,
+                       gemm_launches=gemm_launches, bound_ms=bound,
+                       bound_by=bound_by, bf16_linear_ms=cuda_ms(
+                           linear, INT8_ITERS), bit_equal=True)
+            rows.append(row)
+            print(f"[int8] int8_matmul [{m}, {k}] x [{k}, {n}] bf16 in/out: "
+                  f"x_q, acc, y equal to the plain version bit for bit; "
+                  f"wrapper {ms:.4f} ms, device {dev_ms:.4f} ms "
+                  f"({dev_launches:g} launches), int8 GEMM alone "
+                  f"{gemm_ms:.4f} ms ({gemm_launches:g} launches); bound "
+                  f"{bound:.4f} ms ({bound_by}); bf16 F.linear "
+                  f"{row['bf16_linear_ms']:.4f} ms", flush=True)
+    print(f"[int8] {len(rows)} products checked and timed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def write_la_tree(root: str, seed: int = 3):
+    """A tiny ASVspoof2019-LA layout (train / dev flac dirs of WAVs, cm
+    protocols) with separable audio, as the JAX gate's test writes it:
+    12 bonafide harmonic tones and 6 noise bursts to train on (the tones'
+    5 vocoded copies beside), 8 + 8 dev utterances."""
+    from occm_tpu_torch.io.wav import write_wav
+
+    dirs = {name: os.path.join(root, *parts) for name, parts in (
+        ("train", ("ASVspoof2019_LA_train", "flac")),
+        ("dev", ("ASVspoof2019_LA_dev", "flac")),
+        ("proto", ("ASVspoof2019_LA_cm_protocols",)),
+        ("vocoded", ("vocoded",)))}
+    for d in dirs.values():
+        os.makedirs(d)
+    rng = np.random.default_rng(seed)
+
+    def bona(i, n=3000):
+        t = np.arange(n) / SR
+        f0 = 180 + 15 * i
+        return (0.25 * np.sin(2 * np.pi * f0 * t)
+                + 0.12 * np.sin(4 * np.pi * f0 * t)
+                + 0.06 * np.sin(6 * np.pi * f0 * t)).astype(np.float32)
+
+    def spoof(n=3000):
+        env = np.repeat((rng.uniform(size=n // 100 + 1) > 0.4), 100)[:n]
+        return (0.25 * rng.normal(size=n) * (0.4 + 0.6 * env)).astype(
+            np.float32)
+
+    train, dev = [], []
+    for i in range(12):
+        utt = f"LA_T_b{i:04d}"
+        w = bona(i)
+        write_wav(os.path.join(dirs["train"], utt + ".wav"), w, SR)
+        train.append(f"LA_{i:04d} {utt} - - bonafide")
+        for voc in VOCODERS:
+            write_wav(os.path.join(dirs["vocoded"], f"{voc}_{utt}.wav"),
+                      w + 0.15 * rng.normal(size=w.shape), SR)
+    for i in range(6):
+        utt = f"LA_T_s{i:04d}"
+        write_wav(os.path.join(dirs["train"], utt + ".wav"), spoof(), SR)
+        train.append(f"LA_{100 + i:04d} {utt} - A0{i} spoof")
+    for i in range(8):
+        for kind, wave, label, base in (("b", bona(20 + i, 3100),
+                                         "bonafide", 200),
+                                        ("s", spoof(3100), "spoof", 300)):
+            utt = f"LA_D_{kind}{i:04d}"
+            write_wav(os.path.join(dirs["dev"], utt + ".wav"), wave, SR)
+            dev.append(f"LA_{base + i:04d} {utt} - "
+                       f"{'-' if kind == 'b' else f'A0{i % 6}'} {label}")
+    for name, lines in (("ASVspoof2019.LA.cm.train.trn.txt", train),
+                        ("ASVspoof2019.LA.cm.dev.trl.txt", dev)):
+        with open(os.path.join(dirs["proto"], name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return dirs["vocoded"]
+
+
+def phase_int8(workdir: str, fixture, ckpt: str):
+    """Phase 16: W8A8 int8 scoring and serving at full width (XLS-R 300M +
+    AASIST, random weights from seed 0, under --fast_numerics), through
+    the CLIs. `oc_classifier --mode 2c2 --quant_int8 --fast_numerics` on
+    phase 4's eval set beside the same call without --quant_int8 (24
+    flash_attn_fwd launches and 144 int8_matmul calls a batch, exact); the
+    encoder outputs of one batch, int8 against bf16, within the JAX
+    suite's bounds; utt/s at batch 8 for 2, 6 and 12 s, int8 against bf16
+    in turns; `oc_server --quant_int8 --fast_numerics` answering 4, 6 and
+    12 s requests, held to the classifier's int8 path on the same audio;
+    the refusal of --quant_int8 without --fast_numerics before any weights
+    load; `parity_gate --xlsr_tiny` end to end on a tiny fairseq .pt and
+    an LA-layout tree this writes. Returns (launches, result)."""
+    import torch
+
+    from occm_tpu_torch.audio import pad_numpy
+    from occm_tpu_torch.classify import (
+        BucketedEmbedder, OneClassScorer, make_embed_fn_factory)
+    from occm_tpu_torch.classify.impl_select import select_attention_impl
+    from occm_tpu_torch.cli import oc_classifier, oc_server
+    from occm_tpu_torch.config import XLSRConfig
+    from occm_tpu_torch.data import ASVDataset
+    from occm_tpu_torch.io.wav import load_audio
+    from occm_tpu_torch.ops import attention, int8
+    from occm_tpu_torch.serve import make_score_fn
+    from occm_tpu_torch.utils import random_init_
+
+    t_phase = time.perf_counter()
+    layers = XLSRConfig().encoder_layers
+    per_batch = {"flash_attn_fwd": layers, "int8_matmul": 6 * layers}
+    out = {}
+    launches = 0
+    root = os.path.join(workdir, "int8")
+    os.makedirs(root)
+    eval_dir, paths = write_eval_set(root)
+    eval_lens = [len(load_audio(p)[0]) for p in ASVDataset(
+        paths["eval.txt"], eval_dir, eval=True).file_paths()]
+    n_batches = sum(-(-c // 8) for c in np.unique(
+        [max(16000, -(-n // 16000) * 16000) for n in eval_lens],
+        return_counts=True)[1])
+    flash = flash_batches(eval_lens)
+
+    # ---- oc_classifier 2c2: bf16 (--fast_numerics), then int8
+    protocol, train_dir, _ = fixture
+    argv = ["--pretrained-sslaasist", ckpt, "--protocol_file", protocol,
+            "--dataset_dir", train_dir, "--eval_protocol_file",
+            paths["eval.txt"], "--eval_dataset_dir", eval_dir, "--mode",
+            "2c2", "--fast_numerics"]
+    logits = {}
+    for tag, extra in (("bf16", []), ("int8", ["--quant_int8"])):
+        score_file = os.path.join(root, f"scores_{tag}.txt")
+        reset_counts()
+        int8.CALLS = 0
+        t0 = time.perf_counter()
+        oc_classifier.main(argv + ["--score_file", score_file] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"flash_attn_fwd": attention.LAUNCHES,
+               "int8_matmul": int8.CALLS}
+        want = {"flash_attn_fwd": per_batch["flash_attn_fwd"] * flash,
+                "int8_matmul": per_batch["int8_matmul"] * n_batches
+                if extra else 0}
+        if got != want:
+            fail(f"oc_classifier 2c2 {tag}: counts {got}, want {want} "
+                 f"({n_batches} batches, {flash} through flash)")
+        launches += got["flash_attn_fwd"]
+        logits[tag] = np.loadtxt(score_file)
+        if logits[tag].shape != (len(eval_lens),) or not np.isfinite(
+                logits[tag]).all():
+            fail(f"oc_classifier 2c2 {tag}: logits {logits[tag]}")
+        out[f"classifier_2c2_{tag}"] = dict(wall_s=wall, counts=got)
+        print(f"[int8] oc_classifier --mode 2c2 --fast_numerics "
+              f"{' '.join(extra)}: {wall:.1f} s (model load included), "
+              f"{n_batches} batches ({flash} flash), counts {got}",
+              flush=True)
+    out["logits_max_abs_diff"] = float(np.abs(logits["int8"]
+                                              - logits["bf16"]).max())
+    print(f"[int8] 2c2 logits int8 {np.round(logits['int8'], 4).tolist()}; "
+          f"bf16 {np.round(logits['bf16'], 4).tolist()}", flush=True)
+
+    # ---- the models the CLIs build, for the encoder gate and utt/s
+    models = {tag: oc_server.build_model(
+        oc_server.xlsr_config(False, True, tag == "int8"), ckpt, False,
+        "cuda") for tag in ("bf16", "int8")}
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(np.stack([pad_numpy(synthetic_wave(rng, 6.0),
+                                             96000) for _ in range(8)])).to(
+        "cuda")
+    with torch.inference_mode():
+        feats = {tag: m.ssl_model(x, "flash").float()
+                 for tag, m in models.items()}
+    a, b = feats["int8"].flatten(), feats["bf16"].flatten()
+    cos = float(a @ b / (a.norm() * b.norm()))
+    rel = float((a - b).norm() / b.norm())
+    out["encoder"] = dict(cosine=cos, rel_l2=rel, batch="8 x 6 s")
+    print(f"[int8] encoder outputs, one batch of 8 x 6 s, int8 vs bf16 "
+          f"(fast numerics, flash): cosine {cos:.6f} (bound >= "
+          f"{INT8_COSINE}), relative L2 {rel:.5f} (bound <= {INT8_REL_L2})",
+          flush=True)
+    if not (cos >= INT8_COSINE and rel <= INT8_REL_L2):
+        fail(f"int8 encoder outputs: cosine {cos}, relative L2 {rel}")
+    rows = []
+    for sec in INT8_SECONDS:
+        bucket = sec * SR
+        xb = torch.from_numpy(np.stack([pad_numpy(
+            synthetic_wave(rng, sec), bucket) for _ in range(8)])).to("cuda")
+        impl = select_attention_impl(bucket)
+        row = dict(seconds=sec, impl=impl, **utt_per_s(
+            {tag: make_score_fn(m, impl) for tag, m in models.items()}, xb))
+        rows.append(row)
+        print(f"[int8] scoring utt/s, batch 8, {sec} s ({impl}): int8 "
+              f"{row['int8']:.2f}, bf16 {row['bf16']:.2f}", flush=True)
+    out["utt_per_s"] = rows
+    int8_model = models.pop("int8")
+    del models, feats, a, b
+    torch.cuda.empty_cache()
+
+    # ---- oc_server --quant_int8 --fast_numerics
+    art = os.path.join(root, "artifacts")
+    os.makedirs(art)
+    reference = np.random.default_rng(5).normal(size=160).astype(np.float32)
+    np.save(os.path.join(art, "reference_embedding.npy"), reference)
+    np.save(os.path.join(art, "threshold.npy"), np.float32(10.0))
+    buckets = (16000, 64000, 96000, 192000)  # oc_classifier's bucket_step
+    started = threading.Event()
+    started.stop = threading.Event()
+    errors = []
+
+    def serve():
+        try:
+            oc_server.main([
+                "--pretrained-sslaasist", ckpt, "--artifacts_dir", art,
+                "--host", "127.0.0.1", "--port", "0", "--quant_int8",
+                "--fast_numerics", "--max_wait_ms", "5", "--buckets",
+                *map(str, buckets)], started_event=started)
+        except BaseException as e:  # surfaced below, never swallowed
+            errors.append(e)
+            started.set()
+
+    reset_counts()
+    int8.CALLS = 0
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    if not started.wait(900) or errors:
+        fail(f"int8 server did not start: {errors}")
+    warm = {"flash_attn_fwd": attention.LAUNCHES, "int8_matmul": int8.CALLS}
+    want_warm = {k: v * len(buckets) if k == "int8_matmul" else
+                 v * sum(select_attention_impl(b) == "flash"
+                         for b in buckets) for k, v in per_batch.items()}
+    if warm != want_warm:
+        fail(f"int8 server warmup counts {warm}, want {want_warm}")
+    waves = [synthetic_wave(rng, s) for s in (4.0, 6.0, 12.0)]
+    served = []
+    for w in waves:
+        before = (attention.LAUNCHES, int8.CALLS)
+        status, payload, ms = post(started.server.port,
+                                   w.astype("<f4").tobytes(),
+                                   {"X-Sample-Rate": "16000"})
+        check_response(f"int8 {len(w) / SR:.0f} s", status, payload)
+        got = {"flash_attn_fwd": attention.LAUNCHES - before[0],
+               "int8_matmul": int8.CALLS - before[1]}
+        if got != per_batch:
+            fail(f"int8 server request of {len(w)} samples: counts {got}, "
+                 f"want {per_batch}")
+        served.append(payload["score"])
+        print(f"[int8] oc_server --quant_int8 --fast_numerics: "
+              f"{len(w) / SR:.0f} s raw PCM, score {payload['score']:.6f}, "
+              f"latency {ms:.1f} ms, counts {got}", flush=True)
+    launches += attention.LAUNCHES
+    started.stop.set()
+    th.join(120)
+    if th.is_alive() or errors:
+        fail(f"int8 server did not stop cleanly: {errors}")
+    # the classifier's int8 path on the same audio: BucketedEmbedder's
+    # buckets (bucket_step 16000) are the server's, and each wave is alone
+    # in its bucket, the row of a zero-padded batch of 8 on both sides, so
+    # the same weights see the same inputs: the scores should agree bit
+    # for bit, and a library kernel picked anew could only reorder fp32
+    # sums, whose flipped int8 roundings travel as SCORE_RTOL's argument
+    # says
+    emb, _ = BucketedEmbedder(embed_fn_factory=make_embed_fn_factory(
+        int8_model), bucket_step=16000, batch_size=8,
+        device="cuda").embed_all(waves)
+    direct = OneClassScorer._distances(emb, reference)
+    rel = np.abs(np.asarray(served) - direct) / np.abs(direct)
+    out["server"] = dict(scores=served, classifier=direct.tolist(),
+                         max_rel_diff=float(rel.max()),
+                         bit_equal=bool(np.array_equal(served, direct)))
+    print(f"[int8] server scores vs the classifier's int8 path: max rel "
+          f"diff {rel.max():.3e} (bound {SCORE_RTOL}), bit for bit "
+          f"{out['server']['bit_equal']}", flush=True)
+    if not rel.max() <= SCORE_RTOL:
+        fail(f"int8 server and classifier scores disagree: {rel}")
+    del int8_model
+    torch.cuda.empty_cache()
+
+    # ---- the refusal, before any weights load
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "occm_tpu_torch.cli.oc_classifier",
+         "--quant_int8", "--score_file", os.path.join(root, "refused.txt")]
+        + [a for a in argv if a != "--fast_numerics"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    last = proc.stderr.strip().splitlines()[-1] if proc.stderr else ""
+    if (proc.returncode == 0 or "ValueError" not in last
+            or "--fast_numerics" not in last
+            or "weights loaded" in proc.stdout):
+        fail(f"--quant_int8 without --fast_numerics: rc {proc.returncode}, "
+             f"stdout {proc.stdout[-300:]!r}, stderr {last!r}")
+    out["refusal"] = dict(rc=proc.returncode, message=last,
+                          seconds=time.perf_counter() - t0)
+    print(f"[int8] --quant_int8 without --fast_numerics exits "
+          f"{proc.returncode} before any weights load: {last}", flush=True)
+
+    # ---- parity_gate --xlsr_tiny on a tiny fairseq .pt and an LA tree
+    from occm_tpu_torch.cli import parity_gate
+    from occm_tpu_torch.models import XLSREncoder
+
+    la = os.path.join(root, "LA")
+    vocoded = write_la_tree(la)
+    xlsr_pt = os.path.join(root, "xlsr2_tiny.pt")
+    torch.save({"model": random_init_(XLSREncoder(XLSRConfig.tiny()),
+                                      seed=5).state_dict()}, xlsr_pt)
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(root)  # oc_classifier's 1c artefacts land here
+    try:
+        rc = parity_gate.main([
+            "--xlsr", xlsr_pt, "--la", la, "--vocoded_dir", vocoded,
+            "--workdir", os.path.join(root, "gate"), "--xlsr_tiny",
+            "--epochs", "2", "--lr", "1e-3", "--cut", "3200",
+            "--groups_per_step", "4", "--compactness_weight", "0.1",
+            "--descriptiveness_weight", "0.9", "--batch_size", "4",
+            "--bucket_step", "3200", "--int8_gate", "0.25"])
+    finally:
+        os.chdir(cwd)
+    out["parity_gate"] = dict(rc=rc, seconds=time.perf_counter() - t0)
+    print(f"[int8] parity_gate --xlsr_tiny on the card: rc {rc} in "
+          f"{out['parity_gate']['seconds']:.1f} s", flush=True)
+    if rc != 0:
+        fail(f"parity_gate exited {rc}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[int8] phase 16 took {out['seconds']:.1f} s", flush=True)
+    return launches, out
+
+
 # ------------------------------------------------------- optional profile
 
 def _kernel_class(name: str) -> str:
@@ -4843,6 +5259,10 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 15 only (device, build, the "
                          "wav2vec2-base frontend through every kernel); "
                          "prints no kernels line")
+    ap.add_argument("--int8-only", action="store_true",
+                    help="run phases 1, 2 and 16 only (device, build, W8A8 "
+                         "int8 scoring, serving and the parity gate); "
+                         "prints no kernels line")
     args = ap.parse_args(argv)
 
     smi = phase_device()
@@ -4851,7 +5271,8 @@ def main(argv=None) -> int:
 
     hgmma = phase_build()
     if (args.controls_only or args.rawboost_only or args.models_only
-            or args.remat_only or args.native_only or args.base_only):
+            or args.remat_only or args.native_only or args.base_only
+            or args.int8_only):
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -4873,6 +5294,12 @@ def main(argv=None) -> int:
                 result = {"native": phase_native(workdir, fixture, ckpt)[2]}
             elif args.base_only:
                 result = {"base": phase_base(workdir, fixture)[2]}
+            elif args.int8_only:
+                rows = phase_int8_kernels()
+                model, ckpt = build_seed_model(workdir)
+                del model
+                result = {"int8": dict(phase_int8(workdir, fixture, ckpt)[1],
+                                       products=rows)}
             else:
                 result = {"models": phase_models(workdir, fixture)[2]}
         finally:
@@ -4890,6 +5317,7 @@ def main(argv=None) -> int:
     # the H100 came back with too few device events in every repeat of a
     # session, while its sessions this early have kept every record
     base_rows = None if args.kernels_only else phase_base_kernels()
+    int8_rows = None if args.kernels_only else phase_int8_kernels()
     launches = dict.fromkeys(
         ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd", "fused_adam",
          "ffn_fwd"), 0)
@@ -4921,11 +5349,13 @@ def main(argv=None) -> int:
             b_counts, b_replayed, base = phase_base(workdir, fixture,
                                                     kernels=False)
             base["kernels"] = base_rows
+            int8_launches, int8_out = phase_int8(workdir, fixture, ckpt)
+            int8_out["products"] = int8_rows
             n_counts, n_replayed, native_io = phase_native(workdir, fixture,
                                                            ckpt)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-        launches["flash_attn_fwd"] += serve_launches
+        launches["flash_attn_fwd"] += serve_launches + int8_launches
         for counts in (score_launches, train_launches):
             for name, n in counts.items():
                 launches[name] += n
@@ -4950,6 +5380,7 @@ def main(argv=None) -> int:
         print(f"[remat] {json.dumps(remat, default=str)}", flush=True)
         print(f"[native] {json.dumps(native_io, default=str)}", flush=True)
         print(f"[base] {json.dumps(base, default=str)}", flush=True)
+        print(f"[int8] {json.dumps(int8_out, default=str)}", flush=True)
 
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,

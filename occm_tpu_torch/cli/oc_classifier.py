@@ -16,7 +16,9 @@ unset), or from the reference's separate pair (reference:
 oc_classifier.py:340-342): --pretrained-ssl an ssl_vocoded .pt (the
 SSLModel, model.*) into the frontend and --pretrained-senet a
 senet34_vocoded .pt into the encoder, statistics included. --quant_int8
-and --data_parallel raise NotImplementedError.
+scores with the W8A8 int8 transformer projections in every mode,
+quantised from the fp32 checkpoint at load time (on XLS-R it needs
+--fast_numerics); --data_parallel raises NotImplementedError.
 
 Usage:
     python -m occm_tpu_torch.cli.oc_classifier \\
@@ -86,8 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--fast_numerics", action="store_true", default=False,
         help="bf16 norms + tanh GELU scoring (validate EER impact first)")
-    parser.add_argument("--quant_int8", action="store_true", default=False,
-                        help="not ported yet")
+    parser.add_argument(
+        "--quant_int8", action="store_true", default=False,
+        help="W8A8 int8 transformer projections, quantised from the fp32 "
+             "checkpoint at load time (XLS-R: with --fast_numerics)")
     parser.add_argument(
         "--allow_random_init", action="store_true",
         help="score seeded random weights if the checkpoint cannot be read "
@@ -104,9 +108,12 @@ def build_ssl_resnet34(xlsr_cfg, ssl, senet, sslaasist,
     given, from the separate pair (the SSLModel's state dict into
     `frontend`, the SE-ResNet's into `resnet34`); every load is strict. A
     missing file fails before the model is built; with `allow_random_init`
-    a file that cannot be loaded gives seeded random weights (seed 0)."""
+    a file that cannot be loaded gives seeded random weights (seed 0).
+    With xlsr_cfg.quant_int8 the fp32 weights are then quantised."""
+    import dataclasses
     import os
 
+    from occm_tpu_torch.cli.oc_server import quantize_model_int8
     from occm_tpu_torch.models import (
         SSLResNet34, detect_model_kind, load_reference_state_dict)
     from occm_tpu_torch.utils.init_template import random_init_
@@ -130,7 +137,8 @@ def build_ssl_resnet34(xlsr_cfg, ssl, senet, sslaasist,
                              f"{want}")
         return state
 
-    model = SSLResNet34(xlsr_cfg=xlsr_cfg)
+    model = SSLResNet34(
+        xlsr_cfg=dataclasses.replace(xlsr_cfg, quant_int8=False))
     try:
         if pair:
             model.frontend.load_state_dict(load(ssl, "ssl"), strict=True)
@@ -147,6 +155,9 @@ def build_ssl_resnet34(xlsr_cfg, ssl, senet, sslaasist,
         print(f"WARNING: could not restore pretrained weights ({e}); "
               "using random init (--allow_random_init)")
         random_init_(model, seed=0)
+    if xlsr_cfg.quant_int8:
+        model = quantize_model_int8(
+            model, lambda cfg: SSLResNet34(xlsr_cfg=cfg))
     return model.to(device).eval()
 
 
@@ -159,17 +170,14 @@ def main(argv=None):
     from occm_tpu_torch.data import ASVDataset
     from occm_tpu_torch.utils.device import resolve_device
 
-    if args.quant_int8:
-        raise NotImplementedError(
-            "--quant_int8 is not ported to occm_tpu_torch yet (ROADMAP "
-            "queue A item 14)")
     if args.data_parallel:
         raise NotImplementedError(
             "--data_parallel is not ported to occm_tpu_torch yet (ROADMAP "
             "queue A item 15)")
+    xlsr_cfg = xlsr_config(args.xlsr_tiny, args.fast_numerics,
+                           args.quant_int8)
     device = resolve_device(args.device)
 
-    xlsr_cfg = xlsr_config(args.xlsr_tiny, args.fast_numerics)
     if args.mode in ("1c1", "2c1"):
         model = build_ssl_resnet34(
             xlsr_cfg, args.pretrained_ssl, args.pretrained_senet,

@@ -6,6 +6,9 @@ flags are the JAX server's, plus --device; --pretrained-sslaasist takes a
 torch state dict in the reference's naming (for example the file
 `occm-export-model` writes) in place of an orbax directory. The reference
 embedding and threshold come from reference_embedding.npy / threshold.npy.
+--quant_int8 serves the W8A8 int8 transformer projections
+(`occm_tpu_torch.ops.int8`), quantised from the fp32 checkpoint at load
+time; on XLS-R it needs --fast_numerics (see `XLSRConfig.quant_int8`).
 
 Usage:
     python -m occm_tpu_torch.cli.oc_server \
@@ -44,8 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--fast_numerics", action="store_true", default=False,
         help="bf16 norms + tanh GELU scoring (validate EER impact first)")
-    parser.add_argument("--quant_int8", action="store_true", default=False,
-                        help="not ported yet")
+    parser.add_argument(
+        "--quant_int8", action="store_true", default=False,
+        help="W8A8 int8 transformer projections, quantised from the fp32 "
+             "checkpoint at load time (XLS-R: with --fast_numerics)")
     parser.add_argument(
         "--attention_impl", type=str, default="auto",
         help='attention per bucket: "auto" (default) resolves per bucket '
@@ -61,8 +66,11 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def xlsr_config(tiny: bool = False, fast_numerics: bool = False):
-    """The encoder config the server runs."""
+def xlsr_config(tiny: bool = False, fast_numerics: bool = False,
+                quant_int8: bool = False):
+    """The encoder config the server runs. A configuration that cannot run
+    (quant_int8 on XLS-R under exact numerics) raises ValueError here,
+    before any weights are read."""
     import dataclasses
 
     from occm_tpu_torch.config import XLSRConfig
@@ -73,14 +81,31 @@ def xlsr_config(tiny: bool = False, fast_numerics: bool = False):
             cfg, norm_dtype="bfloat16", gelu_approximate=True,
             conv_gelu_approximate=True, bf16_param_mirror=True,
         )
-    return cfg
+    return dataclasses.replace(cfg, quant_int8=quant_int8)
+
+
+def quantize_model_int8(model, build):
+    """The loaded fp32 `model` in the quant_int8 layout: `build(cfg)` makes
+    the same model class for its config with quant_int8 set, which loads
+    `ops.int8.quantize_state_dict_int8` of model's state dict strictly
+    (checkpoints are always fp32; the JAX CLIs quantise at load too)."""
+    import dataclasses
+
+    from occm_tpu_torch.ops.int8 import quantize_state_dict_int8
+
+    qmodel = build(dataclasses.replace(model.xlsr_cfg, quant_int8=True))
+    qmodel.load_state_dict(quantize_state_dict_int8(model.state_dict()),
+                           strict=True)
+    return qmodel
 
 
 def build_model(xlsr_cfg, checkpoint: str, allow_random_init: bool,
                 device):
     """AModel on `device` in eval mode, from a reference-named state dict,
     or from seeded random weights (seed 0) when allowed and the checkpoint
-    cannot be read."""
+    cannot be read; with xlsr_cfg.quant_int8 the fp32 weights are then
+    quantised (`quantize_model_int8`)."""
+    import dataclasses
     import os
 
     from occm_tpu_torch.config import AASISTConfig
@@ -92,7 +117,11 @@ def build_model(xlsr_cfg, checkpoint: str, allow_random_init: bool,
             f"ERROR: checkpoint {checkpoint!r} does not exist. Pass "
             "--allow_random_init to serve random weights (testing only)."
         )
-    model = AModel(AASISTConfig(), xlsr_cfg=xlsr_cfg)
+
+    def amodel(cfg):
+        return AModel(AASISTConfig(), xlsr_cfg=cfg)
+
+    model = amodel(dataclasses.replace(xlsr_cfg, quant_int8=False))
     try:
         model.load_state_dict(load_reference_state_dict(checkpoint),
                               strict=True)
@@ -105,6 +134,8 @@ def build_model(xlsr_cfg, checkpoint: str, allow_random_init: bool,
             )
         print(f"WARNING: serving random init ({e}; --allow_random_init)")
         random_init_(model, seed=0)
+    if xlsr_cfg.quant_int8:
+        model = quantize_model_int8(model, amodel)
     return model.to(device).eval()
 
 
@@ -121,10 +152,11 @@ def main(argv=None, started_event=None):
     from occm_tpu_torch.serve_http import ScoringHTTPServer
     from occm_tpu_torch.utils.device import resolve_device
 
-    if args.quant_int8 or args.data_parallel:
+    if args.data_parallel:
         raise NotImplementedError(
-            "--quant_int8 and --data_parallel are not yet ported to "
-            "occm_tpu_torch")
+            "--data_parallel is not yet ported to occm_tpu_torch (ROADMAP "
+            "queue A item 15)")
+    cfg = xlsr_config(args.xlsr_tiny, args.fast_numerics, args.quant_int8)
     device = resolve_device(args.device)
 
     ref_path = os.path.join(args.artifacts_dir, "reference_embedding.npy")
@@ -139,7 +171,6 @@ def main(argv=None, started_event=None):
     reference = np.load(ref_path)
     threshold = float(np.load(thr_path))
 
-    cfg = xlsr_config(args.xlsr_tiny, args.fast_numerics)
     model = build_model(cfg, args.pretrained_sslaasist,
                         args.allow_random_init, device)
 

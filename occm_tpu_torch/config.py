@@ -103,6 +103,11 @@ class XLSRConfig:
     # "pallas": the transformer LayerNorms run ops/layernorm.fast_layer_norm
     # (output in the input dtype, the CUDA LayerNorm backward kernel)
     ln_impl: str = "xla"
+    # W8A8 int8 transformer projections (q/k/v/out_proj, fc1, fc2;
+    # ops/int8.py), for scoring and serving a checkpoint quantised by
+    # ops.int8.quantize_state_dict_int8. Refused with pre-norm layers,
+    # dtype bfloat16, norm_dtype float32 and ln_impl "xla" together (XLS-R
+    # under exact numerics), which the JAX package cannot run.
     quant_int8: bool = False
     pp_stages: int = 1
     pp_microbatches: int = 0
@@ -146,7 +151,6 @@ class XLSRConfig:
         unported = [
             ("pp_stages", self.pp_stages != 1),
             ("seq_parallel", self.seq_parallel),
-            ("quant_int8", self.quant_int8),
             ("fused_qkv", self.fused_qkv),
             ("attention_impl", impl not in ("xla", "flash")),
             ("pos_conv_impl", self.pos_conv_impl != "grouped"),
@@ -156,6 +160,19 @@ class XLSRConfig:
                 raise NotImplementedError(
                     f"XLSRConfig.{field}={getattr(self, field)!r} is not "
                     "ported to occm_tpu_torch yet")
+        if (self.quant_int8 and self.layer_norm_first
+                and self.dtype == "bfloat16" and self.norm_dtype == "float32"
+                and self.ln_impl == "xla"):
+            # the pre-norm LayerNorm hands the int8 projections fp32 and
+            # they return their input's dtype, so fc2's output and the
+            # residual stream come out fp32 from a bf16 layer: the JAX
+            # package's layer scan refuses that carry (a TypeError), so
+            # this configuration has no reference to hold the port to
+            raise ValueError(
+                "quant_int8 with pre-norm layers, dtype bfloat16 and fp32 "
+                "LayerNorms is not runnable in the JAX package: its layer "
+                "scan gets fp32 out of the pre-norm FFN for a bf16 carry. "
+                "Score XLS-R in int8 with --fast_numerics (bf16 norms)")
 
     @staticmethod
     def base() -> "XLSRConfig":

@@ -47,6 +47,20 @@ def _linear(out: Dict, key: str, p: Mapping) -> None:
         out[f"{key}.bias"] = _a(p["bias"])
 
 
+def _layer_linear(out: Dict, key: str, p: Mapping, l: int) -> None:
+    """Layer l of a scan-stacked Dense: {kernel [L, in, out], bias}, or the
+    quant_int8 layout {kernel_q int8 [L, in, out], scale, bias} ->
+    weight_q int8 [out, in], scale and bias fp32."""
+    if "kernel_q" in p:
+        out[f"{key}.weight_q"] = np.ascontiguousarray(
+            np.asarray(p["kernel_q"], np.int8)[l].T)
+        out[f"{key}.scale"] = _a(p["scale"])[l]
+        out[f"{key}.bias"] = _a(p["bias"])[l]
+    else:
+        _linear(out, key, {"kernel": _a(p["kernel"])[l],
+                           "bias": _a(p["bias"])[l]})
+
+
 def _conv2d(out: Dict, key: str, p: Mapping) -> None:
     out[f"{key}.weight"] = _a(p["kernel"]).transpose(3, 2, 0, 1)
     if "bias" in p:
@@ -73,7 +87,9 @@ def _bn_default(out: Dict, key: str, n: int) -> None:
 
 
 def xlsr_arrays_from_flax(params: Mapping, cfg: XLSRConfig) -> Dict:
-    """XLSREncoder params -> {fairseq wav2vec2 name: numpy array}."""
+    """XLSREncoder params -> {fairseq wav2vec2 name: numpy array}; a tree
+    in the quant_int8 layout (`quantize_params_int8`'s) maps to the port's
+    Int8Linear names."""
     out: Dict = {}
     fe = params["feature_extractor"]
     for i, (dim, _, _) in enumerate(cfg.conv_layers):
@@ -106,16 +122,13 @@ def xlsr_arrays_from_flax(params: Mapping, cfg: XLSRConfig) -> Dict:
     for l in range(cfg.encoder_layers):
         base = f"encoder.layers.{l}"
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            p = layer["self_attn"][name]
-            _linear(out, f"{base}.self_attn.{name}",
-                    {"kernel": _a(p["kernel"])[l], "bias": _a(p["bias"])[l]})
+            _layer_linear(out, f"{base}.self_attn.{name}",
+                          layer["self_attn"][name], l)
         for name in ("self_attn_layer_norm", "final_layer_norm"):
             out[f"{base}.{name}.weight"] = _a(layer[name]["scale"])[l]
             out[f"{base}.{name}.bias"] = _a(layer[name]["bias"])[l]
         for name in ("fc1", "fc2"):
-            _linear(out, f"{base}.{name}",
-                    {"kernel": _a(layer[name]["kernel"])[l],
-                     "bias": _a(layer[name]["bias"])[l]})
+            _layer_linear(out, f"{base}.{name}", layer[name], l)
 
     out["encoder.layer_norm.weight"] = _a(params["encoder_layer_norm"]["scale"])
     out["encoder.layer_norm.bias"] = _a(params["encoder_layer_norm"]["bias"])

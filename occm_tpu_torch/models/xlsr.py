@@ -25,7 +25,10 @@ loop, and the layers read only those copies, as JAX's `nn.map_variables`
 mirror does; the extractor, positional conv and encoder LayerNorm keep
 fp32. With `ln_impl="pallas"` the transformer LayerNorms run
 `fast_layer_norm` (fp32 statistics, output in the input dtype, CUDA
-backward kernel).
+backward kernel). With `quant_int8` the six projections of every layer
+are `Int8Linear`s ({weight_q int8, scale, bias}, `ops/int8.py`'s W8A8
+product), each returning its input's dtype as JAX's `Int8Dense` does; the
+int8 FFN is taken before `ffn_impl`.
 
 Train mode (`model.train()`) applies every fairseq dropout site the JAX
 package has: attention probabilities (`attention_dropout`, plain attention
@@ -78,6 +81,7 @@ from occm_tpu_torch.config import XLSRConfig
 from occm_tpu_torch.models import remat
 from occm_tpu_torch.ops.attention import flash_attention
 from occm_tpu_torch.ops.ffn import fused_ffn
+from occm_tpu_torch.ops.int8 import int8_matmul
 from occm_tpu_torch.ops.layernorm import fast_layer_norm
 from occm_tpu_torch.ops.pos_conv import pos_conv_grouped
 
@@ -292,17 +296,47 @@ class PosConv(nn.Module):
         return out.transpose(1, 2) + self.bias.to(dt)
 
 
+class Int8Linear(nn.Module):
+    """A projection in the `quant_int8` layout (the JAX package's
+    `Int8Dense`): `weight_q` int8 [out, in] (nn.Linear's layout, frozen),
+    `scale` fp32 [out] and `bias` fp32 [out], all parameters, so the bf16
+    mirror rounds scale and bias and leaves weight_q, as JAX's does.
+    Written by `ops.int8.quantize_state_dict_int8` from a trained fp32
+    state dict. The layers apply it with `_int8_linear` on their (possibly
+    mirrored) parameters, in the input's dtype."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight_q = nn.Parameter(
+            torch.zeros(out_features, in_features, dtype=torch.int8),
+            requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+
+def _projection(cfg: XLSRConfig, d_in: int, d_out: int) -> nn.Module:
+    return Int8Linear(d_in, d_out) if cfg.quant_int8 else nn.Linear(d_in,
+                                                                    d_out)
+
+
+def _int8_linear(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
+    """Int8Linear `name` of the parameters p (read or mirrored) on x."""
+    return int8_matmul(x, p[name + ".weight_q"], p[name + ".scale"],
+                       p[name + ".bias"], x.dtype)
+
+
 class SelfAttention(nn.Module):
-    """Multi-head self-attention: bf16 projections, fp32 softmax."""
+    """Multi-head self-attention: bf16 projections (int8 ones with
+    quant_int8, in the input's dtype), fp32 softmax."""
 
     def __init__(self, cfg: XLSRConfig):
         super().__init__()
         self.cfg = cfg
         d = cfg.encoder_embed_dim
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        self.q_proj = _projection(cfg, d, d)
+        self.k_proj = _projection(cfg, d, d)
+        self.v_proj = _projection(cfg, d, d)
+        self.out_proj = _projection(cfg, d, d)
         self._names = tuple(n for n, _ in self.named_parameters())
 
     def forward(self, x: torch.Tensor, impl: str,
@@ -320,6 +354,8 @@ class SelfAttention(nn.Module):
         p = _params_of(self, self._names) if params is None else params
 
         def proj(y, name):
+            if cfg.quant_int8:
+                return _int8_linear(y, p, name)
             return _linear(y, p[name + ".weight"], p[name + ".bias"], dt,
                            tag="attn_out" if name == "out_proj" else
                            f"attn_{name[0]}")
@@ -339,8 +375,12 @@ class SelfAttention(nn.Module):
             with remat.name("attn_probs"):
                 probs = torch.softmax(logits, dim=-1)
             probs = apply_keep(probs.to(dt), keep, cfg.attention_dropout)
+            # JAX's einsum promotes: int8 projections return their input's
+            # dtype, so under bf16 norms in an fp32 model v is bf16
+            pdt = torch.promote_types(probs.dtype, v.dtype)
             with remat.name("attn_inner"):
-                out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+                out = torch.einsum("bhqk,bkhd->bqhd", probs.to(pdt),
+                                   v.to(pdt))
         else:
             raise NotImplementedError(
                 f"attention_impl={impl!r} is not ported (xla | flash)")
@@ -357,8 +397,8 @@ class TransformerLayer(nn.Module):
         d, f = cfg.encoder_embed_dim, cfg.encoder_ffn_dim
         self.self_attn = SelfAttention(cfg)
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
-        self.fc1 = nn.Linear(d, f)
-        self.fc2 = nn.Linear(f, d)
+        self.fc1 = _projection(cfg, d, f)
+        self.fc2 = _projection(cfg, f, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
         self._names = tuple(n for n, _ in self.named_parameters())
 
@@ -384,10 +424,12 @@ class TransformerLayer(nn.Module):
                 'attention_impl="flash" cannot apply attention_dropout '
                 "(the probabilities never materialise); train with "
                 'attention_impl="xla" or zero the rate')
-        if cfg.activation_dropout > 0.0 and cfg.ffn_impl == "pallas":
+        if cfg.activation_dropout > 0.0 and (cfg.quant_int8
+                                             or cfg.ffn_impl == "pallas"):
             raise ValueError(
                 "activation_dropout needs the hidden FFN activation "
-                'materialised: train with ffn_impl="xla", or zero the rate')
+                'materialised: train with ffn_impl="xla" and without '
+                "quant_int8, or zero the rate")
         B, T, d = x.shape
         shapes = ((B, cfg.encoder_heads, T, T), (B, T, d),
                   (B, T, cfg.encoder_ffn_dim), (B, T, d))
@@ -420,7 +462,11 @@ class TransformerLayer(nn.Module):
 
         residual = x
         h = self._norm(p, "final_layer_norm", x) if pre else x
-        if cfg.ffn_impl == "pallas":
+        if cfg.quant_int8:
+            # taken before ffn_impl, as in JAX: the int8 FFN in h's dtype
+            h = _gelu(_int8_linear(h, p, "fc1"), cfg.gelu_approximate)
+            h = _int8_linear(h, p, "fc2")
+        elif cfg.ffn_impl == "pallas":
             # fused fc1 + GELU + fc2 (ops/ffn.py): the weights in the compute
             # dtype, fc1/fc2 in nn.Linear's layout, passed as W1 = fc1.weight^T
             # and W2 = fc2.weight^T (views; the kernel reads them untransposed)

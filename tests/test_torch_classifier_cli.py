@@ -179,7 +179,7 @@ def test_embed_cli_matches_jax_embed_cli(tree, tmp_path):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (("--quant_int8",), "item 14"), (("--data_parallel", "2"), "item 15")])
+    (("--data_parallel", "2"), "item 15")])
 def test_unported_modes_and_flags_raise(tree, tmp_path, extra, item):
     argv = _args(tree, "1c2", tmp_path / "s.txt") + list(extra)
     with pytest.raises(NotImplementedError, match=item):

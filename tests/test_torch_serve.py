@@ -195,7 +195,7 @@ def test_oc_server_cli_serves_exported_checkpoint(jax_side, tmp_path, impl):
         np.testing.assert_allclose(payload["score"], w, rtol=RTOL)
 
 
-@pytest.mark.parametrize("flag", ["--quant_int8", "--data_parallel"])
+@pytest.mark.parametrize("flag", ["--data_parallel"])
 def test_oc_server_unported_flags_raise(tmp_path, flag):
     argv = ["--artifacts_dir", str(tmp_path), "--xlsr_tiny",
             "--allow_random_init", "--device", "cpu", flag]

@@ -98,7 +98,7 @@ def test_pos_conv_grouped_matches_jax():
 
 
 @pytest.mark.parametrize("field, value", [
-    ("pp_stages", 2), ("seq_parallel", True), ("quant_int8", True),
+    ("pp_stages", 2), ("seq_parallel", True),
     ("pos_conv_impl", "batched"), ("fused_qkv", True),
     ("attention_impl", "packed"), ("attention_impl", "pad128"),
     ("attention_impl", "xla_merged"), ("pos_conv_impl", "s2d"),

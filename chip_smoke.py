@@ -11,6 +11,7 @@
     python3 chip_smoke.py --native-only   # phases 1, 2 and 14 only
     python3 chip_smoke.py --base-only     # phases 1, 2 and 15 only
     python3 chip_smoke.py --int8-only     # phases 1, 2 and 16 only
+    python3 chip_smoke.py --parallel-only # phases 1, 2 and 17 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -209,13 +210,39 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    of --quant_int8 without --fast_numerics (exit non-zero, ValueError,
    no weights read); `parity_gate --xlsr_tiny` on a tiny fairseq .pt and
    an LA-layout tree it writes, every stage PASS and rc 0.
-17. with --profile only: device time by kernel (torch.profiler) for full
+17. the multi-GPU paths (`occm_tpu_torch.parallel`) on the one card, at
+   full width (AModel(AASISTConfig(), XLSRConfig()), random weights from
+   seed 0, every kernel, fused_adam, AASIST dropouts on, deterministic
+   algorithms): dp=2, fsdp=2 and tp=2 over two rank processes sharing
+   cuda:0 over Gloo (NCCL refuses two ranks on one device), step 1 on
+   their rows of a global 12 x 6 s batch and step 2 from the single
+   process's state after step 1 (its one-GPU checkpoint restored into
+   the placed state), each held against the single-process eager step
+   from the same state (dp, fsdp: the loss and the gradient within
+   LOSS_RTOL; tp, whose bf16 partial sums round otherwise and whose loss
+   AASIST's top-k makes discontinuous: its encoder's features and
+   gradient within LOSS_RTOL; every mode: the parameters within Adam's
+   reach), each kernel's launches a step and rank equal to the single
+   process's, on the per-rank shapes (tp: flash on 8 heads, ffn_fwd on F
+   2048), the bytes each rank holds (fsdp: about half of dp's), step ms
+   per rank (of two ranks sharing one card, not a multi-GPU speedup);
+   the kernels at
+   those shapes through phase 3's harness (the kernels line's "tp2",
+   "dp2" and "fsdp2" rows); `oc_training --dp 1` in a torchrun
+   environment of world size 1 (NCCL), --steps_per_dispatch 3 with the
+   collectives captured in the CUDA graph, bit for bit with 1;
+   `oc_classifier --mode 2c2` and `oc_server` with --data_parallel -1
+   against the plain calls, bit for bit, and --data_parallel 2 refused.
+   Runs last, since it makes and destroys a process group.
+18. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-18. prints {"kernels": [...]} (each entry with phase 15's row at base's
-   shapes under "base"), then {"ok": true, "device": {...}} last.
-A full run makes phase 15's and 16's product checks right after phase
-3's, and phases 15 and 16's other parts before phase 14 (see main).
+19. prints {"kernels": [...]} (each entry with phase 15's row at base's
+   shapes under "base" and phase 17's at the per-rank shapes under "tp2",
+   "dp2" or "fsdp2"), then {"ok": true, "device": {...}} last.
+A full run makes phase 15's, 16's and 17's kernel checks right after
+phase 3's, and phases 15 and 16's other parts before phase 14 (see
+main).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -310,7 +337,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(fn, names, iters: int = 20, warmup: int = 3,
-              tries: int = 5):
+              tries: int = 5, whole_others: bool = True):
     """Device time of fn's own kernels per call: torch.profiler's CUDA
     events over `iters` calls, those whose name holds one of `names` summed
     and divided by `iters`. Returns (ms, their launches per call, all
@@ -320,7 +347,9 @@ def device_ms(fn, names, iters: int = 20, warmup: int = 3,
     counts are not multiples of `iters` has lost records: on the H100 a
     rare session records no device event, or drops a few, with or without
     CUPTI's teardown between sessions. Such a session is repeated, up to
-    `tries` sessions in all."""
+    `tries` sessions in all. whole_others=False keeps a session whose
+    named events alone are whole multiples (what is timed), whatever the
+    count of fn's other launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -341,7 +370,8 @@ def device_ms(fn, names, iters: int = 20, warmup: int = 3,
             if any(n in e.name for n in names):
                 us += e.time_range.elapsed_us()
                 own += 1
-        if every and every % iters == 0 and own % iters == 0:
+        if every and own % iters == 0 and (every % iters == 0
+                                           or not whole_others):
             break
         print(f"[profile] session {attempt} of {tries} for {names} lost "
               f"records: {every} device events, {own} of them named, over "
@@ -801,11 +831,13 @@ def phase_layernorm_bwd(shapes=(LN_SHAPE,) + LN_EDGES):
     return dict(rows[0], per_shape=rows)
 
 
-def phase_fused_adam(xcfg=None, odd_leaves: bool = True):
+def phase_fused_adam(xcfg=None, odd_leaves: bool = True, fsdp: int = 1):
     """fused_adam over every leaf of AModel(AASISTConfig(), xcfg) (XLS-R
     300M by default) in one launch against its plain version and
     torch.optim.Adam(fused=True); with odd_leaves, the edge cases of
-    phase_fused_adam_odd_leaves first."""
+    phase_fused_adam_odd_leaves first. fsdp > 1: over rank 0's shards of
+    the leaves on an fsdp mesh of that degree (what each rank's launch
+    updates there)."""
     import torch
 
     from occm_tpu_torch.config import AASISTConfig, XLSRConfig
@@ -819,6 +851,18 @@ def phase_fused_adam(xcfg=None, odd_leaves: bool = True):
     model = random_init_(AModel(AASISTConfig(), xcfg or XLSRConfig()),
                          seed=0)
     params = [p.detach().to("cuda") for p in model.parameters()]
+    label = ""
+    if fsdp > 1:
+        from occm_tpu_torch.config import MeshConfig
+        from occm_tpu_torch.parallel import make_mesh, param_shardings
+        from occm_tpu_torch.parallel.sharding import shard_of
+
+        mesh = make_mesh(MeshConfig(dp=1, fsdp=fsdp), world_size=fsdp)
+        named = list(model.named_parameters())
+        table = param_shardings(named, mesh)
+        params = [shard_of(p, table[n], mesh, 0)
+                  for p, (n, _) in zip(params, named)]
+        label = f" (rank 0's fsdp={fsdp} shards)"
     del model
     n = sum(p.numel() for p in params)
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -855,8 +899,10 @@ def phase_fused_adam(xcfg=None, odd_leaves: bool = True):
     if not (math.isfinite(err) and err <= ADAM_ATOL):
         fail(f"fused_adam: max |p, m, v - plain| = {err} > {ADAM_ATOL}")
     ms = cuda_ms(lambda: opt.step(params, grads), iters=5, warmup=1)
+    # in full runs on the H100 every session of the fsdp=2 shards' row
+    # recorded 9 device events for 5 calls, the kernel's own 5 whole
     dev_ms, _, _ = device_ms(lambda: opt.step(params, grads), ("fused_adam",),
-                             iters=5, warmup=1)
+                             iters=5, warmup=1, whole_others=False)
     m_list, v_list = opt.mu, opt.nu
     plain_ms = cuda_ms(lambda: [adam_reference(
         p, m_, v_, g_, inv_bc1, inv_bc2, opt.lr, opt.b1, opt.b2, opt.eps)
@@ -867,12 +913,19 @@ def phase_fused_adam(xcfg=None, odd_leaves: bool = True):
         lp.grad = g_
     lib_opt = torch.optim.Adam(lib_params, lr=1e-5, fused=True)
     library_ms = cuda_ms(lib_opt.step, iters=5, warmup=1)
-    lib_dev_ms = library_device_ms(lib_opt.step, iters=5, warmup=1)
+    if fsdp > 1:
+        # over the shards, late in a full run, every profiler session of
+        # torch's fused Adam on the H100 recorded a count of device events
+        # that is not a whole multiple of its calls: take the session that
+        # kept the most, as for other plain PyTorch
+        lib_dev_ms = calls_device_ms(lib_opt.step, iters=5, warmup=1)[0]
+    else:
+        lib_dev_ms = library_device_ms(lib_opt.step, iters=5, warmup=1)
     del lib_opt, lib_params
     nbytes = 28.0 * n
     bound_ms, bound_by = bytes_bound(nbytes, 10.0 * n)
-    print(f"[kernel] fused_adam over {len(params)} leaves, {n} fp32 params "
-          f"(1 launch): max err {err:.3e} (bound {ADAM_ATOL}; odd leaves "
+    print(f"[kernel] fused_adam over {len(params)} leaves, {n} fp32 params"
+          f"{label} (1 launch): max err {err:.3e} (bound {ADAM_ATOL}; odd leaves "
           f"{odd_err:.3e}), wrapper {ms:.4f} ms/step, device {dev_ms:.4f} "
           f"ms, "
           f"plain {plain_ms:.4f} ms, torch Adam(fused=True) "
@@ -5137,6 +5190,771 @@ def phase_profile(model, reference: np.ndarray, ckpt: str,
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------- multi-GPU paths (phase 17)
+
+# dp=2, fsdp=2 and tp=2 over two ranks sharing cuda:0 (Gloo: NCCL refuses
+# two ranks of one communicator on one device)
+PAR_MESHES = {"dp2": dict(dp=2), "fsdp2": dict(dp=1, fsdp=2),
+              "tp2": dict(dp=1, tp=2)}
+PAR_STEPS = 2
+PAR_LR = 1e-5
+PAR_TIMEOUT_S = 600
+XLSR_HEADS, XLSR_FFN = 16, 4096  # XLSRConfig()'s; tp=2 halves both
+
+
+def parallel_configs():
+    """Phase 17's model and training configs: full width, every kernel
+    (flash attention, the fused FFN, the LayerNorm backward, fused_adam),
+    AASIST's dropouts on (their masks are drawn for the global batch)."""
+    from occm_tpu_torch.config import (
+        AASISTConfig, RawBoostConfig, TrainConfig, XLSRConfig)
+
+    xcfg = XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
+                      attention_impl="flash")
+    cfg = TrainConfig(optimizer="fused_adam", lr=PAR_LR, cut=TRAIN_CUT,
+                      compactness_weight=0.1, descriptiveness_weight=0.9,
+                      rawboost=RawBoostConfig(algo=0))
+    return AASISTConfig(), xcfg, cfg
+
+
+def _flat(tensors) -> "object":
+    import torch
+
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+def _ckpt_flat(payload, names):
+    """A checkpoint's parameters and Adam first moments, flat in `names`'
+    order (the positional conv's state-dict v is its trained w)."""
+    model = payload["model"]
+    w = _flat(model[n[:-len("weight")] + "weight_v"]
+              if n.endswith("pos_conv.0.weight") else model[n] for n in names)
+    return w, _flat(payload["optimizer"]["mu"][n] for n in names)
+
+
+def parallel_single(init, batches, workdir=None):
+    """The single-process eager steps from `init`: step 1 on batches[0],
+    its state saved as a one-GPU checkpoint (`par_step1_0.pt` in
+    `workdir`, when given), then step 2 on batches[1]. Returns the steps
+    (loss, ms, launches), the parameter names, and the parameters and Adam
+    first moments after step 2, flat in parameter order."""
+    import torch
+
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.train import create_train_state, train_step
+    from occm_tpu_torch.train.checkpoint import save_checkpoint
+
+    acfg, xcfg, cfg = parallel_configs()
+    with torch.device("cuda"):  # built on the card: no CPU init pass
+        model = AModel(acfg, xcfg)
+    model.load_state_dict(init)
+    state = create_train_state(model, cfg)
+    steps = []
+    for i, (x, labels) in enumerate(batches):
+        xs = torch.from_numpy(x).to("cuda")
+        ls = torch.from_numpy(labels).long().to("cuda")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(state, xs, ls, cfg)
+        torch.cuda.synchronize()
+        steps.append(dict(loss=float(m["loss"]),
+                          ms=(time.perf_counter() - t0) * 1e3,
+                          launches=read_counts()))
+        if i == 0 and workdir is not None:
+            save_checkpoint(state, workdir, "par_step1", 0)
+    names = [n for n, _ in state.named_params()]
+    w = _flat(p for _, p in state.named_params())
+    mu = _flat(state.optimizer.mu)
+    del state, model
+    torch.cuda.empty_cache()
+    return steps, names, w, mu
+
+
+def encoder_reference(init, batch, workdir: str) -> dict:
+    """The single process's XLSR encoder at `init` on the first global
+    batch (train mode): its features, the gradient of the step's loss
+    with respect to them, and the encoder's parameter gradient from that
+    upstream gradient (saved as `par_enc.pt` for the tp ranks). Also the
+    loss's sensitivity to its features: the loss on features moved by one
+    bf16 rounding (relative noise 2^-8), four draws."""
+    import torch
+
+    from occm_tpu_torch.losses import group_one_class_loss
+    from occm_tpu_torch.models import AModel
+
+    acfg, xcfg, cfg = parallel_configs()
+    with torch.device("cuda"):
+        model = AModel(acfg, xcfg)
+    model.load_state_dict(init)
+    model.train()
+    x = torch.from_numpy(batch[0]).to("cuda")
+    labels = torch.from_numpy(batch[1]).long().to("cuda")
+
+    def loss_of(feats):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        emb, logits = model.backend(feats, generator=gen)
+        return group_one_class_loss(emb, logits, labels,
+                                    cfg.compactness_weight,
+                                    cfg.descriptiveness_weight)[0]
+
+    feats = model.ssl_model(x)
+    loss = loss_of(feats)
+    (up,) = torch.autograd.grad(loss, feats, retain_graph=True)
+    feats.backward(up)
+    names = [n for n, _ in model.named_parameters()
+             if n.startswith("ssl_model.")]
+    params = dict(model.named_parameters())
+    grad = _flat(params[n].grad for n in names)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        moved = [float(loss_of(feats * (1 + 2.0 ** -8 * torch.randn(
+            feats.shape, generator=gen, device="cuda")))) for _ in range(4)]
+    torch.save({"f": feats.detach().cpu(), "up": up.cpu(),
+                "g": grad.cpu(), "names": names},
+               os.path.join(workdir, "par_enc.pt"))
+    out = dict(loss=float(loss), moved=moved,
+               loss_spread=max(abs(m - float(loss)) for m in moved))
+    del model, feats, up, grad, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def encoder_check(state, mesh, batch, workdir: str, rank: int, dev):
+    """The tp ranks' XLSR encoder at the init weights on the whole first
+    batch: its features, and its parameter gradient (the tp shards
+    gathered) from the single process's upstream gradient, against the
+    single process's (rank 0 returns the relative L2 differences)."""
+    import torch
+
+    from occm_tpu_torch.parallel import compute_mesh
+    from occm_tpu_torch.parallel.sharding import gather_full
+
+    ref = torch.load(os.path.join(workdir, "par_enc.pt"), weights_only=True,
+                     mmap=True)
+    model = state.model.train()
+    x = torch.from_numpy(batch[0]).to(dev)
+    with compute_mesh(mesh):
+        feats = model.ssl_model(x)
+        feats.backward(ref["up"].to(dev))
+    params = dict(state.named_params())
+    grads = []
+    for n in ref["names"]:
+        g = params[n].grad
+        pl = state.placements.get(n)
+        if pl is not None and pl.tp_dim is not None:
+            g = gather_full(g, pl, mesh, axes=("tp",))
+        grads.append(g)
+    for p in params.values():
+        p.grad = None
+    if rank != 0:
+        return None
+    grad, want = _flat(grads), ref["g"].to(dev)
+    f, f_ref = feats.detach().float(), ref["f"].to(dev)
+    return dict(feats_rel_l2=float((f - f_ref).norm() / f_ref.norm()),
+                grad_rel_l2=float((grad - want).norm() / want.norm()))
+
+
+def _shape_recorder():
+    """Wrap the flash forward and ffn_fwd wrappers to record the shapes
+    they launch on (the rank's heads and FFN columns under tp)."""
+    from occm_tpu_torch.ops import attention, ffn
+
+    shapes = {"flash_attn_fwd": set(), "ffn_fwd": set()}
+    fwd, ffn_fwd = attention.flash_attention_fwd, ffn.ffn_fwd
+
+    def flash(q, k, v, t_valid):
+        shapes["flash_attn_fwd"].add(tuple(q.shape))
+        return fwd(q, k, v, t_valid)
+
+    def fused(x, w1, b1, w2, b2, approximate):
+        shapes["ffn_fwd"].add((x.shape[0], w1.shape[0], w1.shape[1]))
+        return ffn_fwd(x, w1, b1, w2, b2, approximate)
+
+    attention.flash_attention_fwd = flash
+    ffn.ffn_fwd = fused
+    return shapes
+
+
+def parallel_rank(rank: int, world: int, port: int, workdir: str) -> int:
+    """One rank of phase 17 (a process of its own, on cuda:0, Gloo): for
+    each mesh of PAR_MESHES, the state placed from the same init, step 1
+    on its rows of the first global batch; then the single process's
+    state after step 1 restored from its one-GPU checkpoint into the
+    placed state, and step 2 on its rows of the second batch. Rank 0
+    gathers the state after each step and compares it with the single
+    process's, and writes every rank's record."""
+    import torch
+    import torch.distributed as dist
+
+    from occm_tpu_torch.config import MeshConfig
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.parallel import make_mesh, multihost
+    from occm_tpu_torch.parallel.sharding import (
+        full_optimizer_state, full_parameters, held_bytes,
+        place_state_on_mesh, placement_table, shard_batch)
+    from occm_tpu_torch.train import create_train_state, train_step
+    from occm_tpu_torch.train.checkpoint import restore_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = multihost.initialize("cuda:0", f"tcp://127.0.0.1:{port}", world,
+                               rank, backend="gloo")
+    init = torch.load(os.path.join(workdir, "par_init.pt"),
+                      weights_only=True)
+    data = np.load(os.path.join(workdir, "par_batches.npz"))
+    batches = [(data[f"x{i}"], data[f"l{i}"]) for i in range(PAR_STEPS)]
+    refs = None
+    shapes = _shape_recorder()
+    acfg, xcfg, cfg = parallel_configs()
+    records = {}
+    for mode, axes in PAR_MESHES.items():
+        mesh = make_mesh(MeshConfig(**axes))
+        with torch.device(dev):  # built on the card: no CPU init pass
+            model = AModel(acfg, xcfg)
+        model.load_state_dict(init)
+        state = create_train_state(model, cfg)
+        place_state_on_mesh(state, mesh)
+        names = [n for n, _ in state.named_params()]
+        if rank == 0 and refs is None:
+            ck = torch.load(os.path.join(workdir, "par_step1_0.pt"),
+                            weights_only=True, mmap=True)
+            fin = torch.load(os.path.join(workdir, "par_ref.pt"),
+                             weights_only=True, mmap=True)
+            refs = [_ckpt_flat(ck, names), (fin["w"], fin["mu"])]
+            del ck
+        rec = dict(bytes_before=held_bytes(state), steps=[])
+        if mode == "tp2":
+            rec["encoder"] = encoder_check(state, mesh, batches[0], workdir,
+                                           rank, dev)
+        for i, (x, labels) in enumerate(batches):
+            if i == 1:
+                # step 2 from the single process's state after step 1,
+                # through the one-GPU checkpoint into the placed state
+                restore_checkpoint(state, workdir, "par_step1", 0)
+            xs, ls = shard_batch((torch.from_numpy(x),
+                                  torch.from_numpy(labels).long()), mesh)
+            xs, ls = xs.to(dev), ls.to(dev)
+            for s in shapes.values():
+                s.clear()
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(state, xs, ls, cfg)
+            torch.cuda.synchronize()
+            st = dict(loss=float(m["loss"]),
+                      ms=(time.perf_counter() - t0) * 1e3,
+                      launches=read_counts(),
+                      shapes={k: sorted(v) for k, v in shapes.items()})
+            with full_parameters(state):
+                w = _flat(p for _, p in state.named_params())
+            opt = full_optimizer_state(state)
+            mu = _flat(opt["mu"][n] for n in names)
+            if rank == 0:
+                prev_mu = None if i == 0 else refs[0][1]
+                st["compare"] = parallel_compare(w, mu, *refs[i], i + 1,
+                                                 prev_mu)
+            del w, mu, opt
+            rec["steps"].append(st)
+        rec["bytes_after"] = held_bytes(state)
+        rec["sharded_leaves"] = len(placement_table(state.placements))
+        rec["backend"] = str(dist.get_backend())
+        del state, model
+        torch.cuda.empty_cache()
+        records[mode] = rec
+    everyone = [None] * world
+    dist.all_gather_object(everyone, records)
+    if rank == 0:
+        with open(os.path.join(workdir, "par_ranks.json"), "w") as f:
+            json.dump(everyone, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_compare(w, mu, w_ref, mu_ref, step: int, prev_mu=None) -> dict:
+    """The ranks' gathered state after `step` against the single
+    process's from the same state before it. The step's gradient g =
+    (mu - 0.9 prev_mu) / 0.1 (prev_mu 0 at step 1) as a relative L2
+    difference (phase 8's gradient gate). The parameters: at step 1,
+    Adam's update is lr * g / (|g| + eps), so each weight may differ by
+    lr * |s_a - s_b| (s = g / (|g| + eps): 2 lr where the two gradients
+    differ in sign) plus the update's and the weight's rounding (phase 8's
+    bound); at step 2, by twice the largest update Adam makes
+    (lr (1 - b1) / sqrt(1 - b2) each) plus the rounding. Reports the
+    largest excess over the bound (<= 0 passes) and how many weights
+    differ by over lr / 100."""
+    import torch
+
+    dev = w.device
+    w_ref, mu_ref = w_ref.to(dev), mu_ref.to(dev)
+    if prev_mu is None:
+        g, g_ref = mu / 0.1, mu_ref / 0.1
+    else:
+        prev = prev_mu.to(dev)
+        g, g_ref = (mu - 0.9 * prev) / 0.1, (mu_ref - 0.9 * prev) / 0.1
+        del prev
+    diff = (w - w_ref).abs()
+    if step == 1:
+        s, s_ref = g / (g.abs() + 1e-8), g_ref / (g_ref.abs() + 1e-8)
+        bound = PAR_LR * (s - s_ref).abs() + 2.0 ** -19 * PAR_LR
+        del s, s_ref
+    else:
+        bound = torch.full_like(w, 2 * PAR_LR * 0.1 / math.sqrt(0.001)
+                                + 2.0 ** -19 * PAR_LR)
+    bound += 2.0 ** -22 * w_ref.abs()
+    out = dict(
+        grad_rel_l2=float((g - g_ref).norm() / g_ref.norm()),
+        w_max_abs_diff=float(diff.max()),
+        w_excess=float((diff - bound).max()),
+        w_differing=int((diff > PAR_LR / 100).sum()), w_total=w.numel())
+    del w_ref, mu_ref, g, g_ref, diff, bound
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel_kernels():
+    """Phase 17's kernel checks at the per-rank shapes, through phase 3's
+    harness: attention at H = 8 (tp=2 of 16 heads), ffn_fwd at F 2048
+    (tp=2 of 4096), LayerNorm's backward on a rank's rows under dp=2
+    ([6 x 299, 1024]) and fused_adam over rank 0's fsdp=2 shards."""
+    h = XLSR_HEADS // 2
+    f = XLSR_FFN // 2
+    return dict(
+        flash_attn_fwd=phase_kernels(b=8, h=h, ts=(MAIN_PATH_TS[0],))[0],
+        flash_attn_bwd=phase_attention_bwd(h=h, ts=(MAIN_PATH_TS[0],))[0],
+        ffn_fwd=phase_ffn(cases=[(FFN_MAIN_M, 1024, f, False),
+                                 (TRAIN_B * MAIN_PATH_TS[0], 1024, f,
+                                  False)]),
+        layernorm_bwd=phase_layernorm_bwd(
+            shapes=((TRAIN_B // 2 * MAIN_PATH_TS[0], 1024),)),
+        fused_adam=phase_fused_adam(odd_leaves=False, fsdp=2))
+
+
+def phase_parallel(workdir: str, fixture, ckpt=None):
+    """Phase 17: the multi-GPU paths on one card.
+
+    1. dp=2, fsdp=2, tp=2 over two ranks sharing cuda:0 (Gloo), each mesh
+       from the same weights: step 1 on their rows of a global 12 x 6 s
+       batch, then step 2 from the single process's state after step 1
+       (its one-GPU checkpoint restored into the placed state) on a
+       second batch, each held against the single-process eager step from
+       the same state: dp=2 and fsdp=2 with the loss within LOSS_RTOL
+       (the ranks' losses equal) and the gradient within LOSS_RTOL
+       (relative L2, phase 8's gate); tp=2, which rounds its bf16 partial
+       sums otherwise (its features move by about one bf16 rounding, and
+       AASIST's top-k pools make the loss of another routing: the single
+       process's own loss moves as far under that noise, printed), with
+       its XLSR encoder at the init weights held instead: features and
+       the parameter gradient from the single process's upstream gradient
+       within LOSS_RTOL (relative L2); every mode's parameters within
+       Adam's reach (`parallel_compare`); each kernel's launches a step
+       and rank equal to the single process's, on the per-rank shapes
+       (tp: flash on 8 heads, ffn_fwd on F 2048), and the bytes each rank
+       holds (fsdp=2: about half of dp=2's);
+    2. NCCL at world size 1: `oc_training --dp 1 --steps_per_dispatch 3`
+       in a torchrun environment, its collectives inside the CUDA graph,
+       bit for bit with `--steps_per_dispatch 1`;
+    3. `oc_classifier --mode 2c2 --data_parallel -1` and `oc_server
+       --data_parallel -1`: the plain calls' scores; `--data_parallel 2`
+       on one card raises.
+    Every number of step 1 and the bytes are printed before any gate
+    fails. Returns (launches by kernel, the record)."""
+    import torch
+
+    from occm_tpu_torch.models import AModel
+
+    out = {}
+    total = dict.fromkeys(("flash_attn_fwd", "flash_attn_bwd_dq",
+                           "flash_attn_bwd_dkv", "layernorm_bwd",
+                           "fused_adam", "ffn_fwd"), 0)
+
+    def add(counts):
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+    acfg, xcfg, _ = parallel_configs()
+    t_phase = time.perf_counter()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        init = AModel(acfg, xcfg).state_dict()
+    torch.save(init, os.path.join(workdir, "par_init.pt"))
+    rng = np.random.default_rng(17)
+    batches = [((rng.normal(size=(TRAIN_B, TRAIN_CUT)) * 0.1).astype(
+        np.float32), np.array([0] * 6 + [1] * 6, np.int64))
+        for _ in range(PAR_STEPS)]
+    np.savez(os.path.join(workdir, "par_batches.npz"),
+             **{f"x{i}": x for i, (x, _) in enumerate(batches)},
+             **{f"l{i}": lb for i, (_, lb) in enumerate(batches)})
+
+    # ---- the single process, twice (its spread under deterministic
+    # algorithms); the first run's step-1 state saved as a checkpoint
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref_steps, names, w, mu = parallel_single(init, batches, workdir)
+        _, _, w2, mu2 = parallel_single(init, batches)
+        enc_ref = encoder_reference(init, batches[0], workdir)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for st in ref_steps:
+        add(st["launches"])
+    spread = dict(w_max_abs_diff=float((w - w2).abs().max()),
+                  mu_rel_l2=float((mu - mu2).norm() / mu.norm()))
+    torch.save({"w": w.cpu(), "mu": mu.cpu()},
+               os.path.join(workdir, "par_ref.pt"))
+    del w, mu, w2, mu2, init
+    torch.cuda.empty_cache()
+    per_step = {k: v for k, v in ref_steps[0]["launches"].items()
+                if k in total}
+    print(f"[parallel] single process, 2 eager steps of 12 x 6 s: losses "
+          f"{[round(s['loss'], 6) for s in ref_steps]}, ms "
+          f"{[round(s['ms'], 1) for s in ref_steps]}, launches per step "
+          f"{per_step}; spread of two runs (deterministic algorithms): "
+          f"{spread}; the step-1 loss on its encoder's features moved by "
+          f"one bf16 rounding (relative noise 2^-8): {enc_ref['moved']} "
+          f"against {enc_ref['loss']:.6f}", flush=True)
+
+    # ---- two ranks on cuda:0 over Gloo
+    with socket_port() as port:
+        pass
+    logs = [open(os.path.join(workdir, f"par_rank{r}.log"), "w")
+            for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), "2", str(port), workdir], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=PAR_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(workdir, f"par_rank{r}.log")) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+            fail(f"parallel rank {r} exited {p.returncode}")
+    with open(os.path.join(workdir, "par_ranks.json")) as f:
+        ranks = json.load(f)
+    tol = LOSS_RTOL
+    failures = []
+    for mode in PAR_MESHES:
+        recs = [r[mode] for r in ranks]
+        want_h = XLSR_HEADS // 2 if mode == "tp2" else XLSR_HEADS
+        want_f = XLSR_FFN // 2 if mode == "tp2" else XLSR_FFN
+        for i, ref in enumerate(ref_steps):
+            cmp = recs[0]["steps"][i]["compare"]
+            losses = {rec["steps"][i]["loss"] for rec in recs}
+            loss = recs[0]["steps"][i]["loss"]
+            if len(losses) != 1:
+                failures.append(f"{mode} step {i + 1}: ranks' losses "
+                                f"{losses}")
+            # tp=2 rounds its bf16 partial sums otherwise, so its features
+            # move by about one bf16 rounding, and AASIST's top-k pools
+            # turn that into a loss and gradient of another routing (the
+            # single process's own loss moves as far under that noise):
+            # its whole-model loss and gradient are printed, and its
+            # encoder is held below
+            if mode != "tp2" and not (abs(loss - ref["loss"])
+                                      <= tol * abs(ref["loss"])
+                                      and cmp["grad_rel_l2"] <= tol):
+                failures.append(f"{mode} step {i + 1}: loss {loss} vs "
+                                f"single {ref['loss']} (rtol {tol}), "
+                                f"gradient rel L2 {cmp['grad_rel_l2']}")
+            if not cmp["w_excess"] <= 0.0:
+                failures.append(f"{mode} step {i + 1}: weights over Adam's "
+                                f"reach by {cmp['w_excess']}")
+            for r, rec in enumerate(recs):
+                st = rec["steps"][i]
+                got = {k: st["launches"][k] for k in per_step}
+                if got != per_step:
+                    failures.append(f"{mode} rank {r} step {i + 1}: "
+                                    f"launches {got}, want {per_step}")
+                add(got)
+                heads = {s[2] for s in st["shapes"]["flash_attn_fwd"]}
+                ffn_f = {s[2] for s in st["shapes"]["ffn_fwd"]}
+                if heads != {want_h} or ffn_f != {want_f}:
+                    failures.append(f"{mode} rank {r}: flash on heads "
+                                    f"{heads}, ffn_fwd on F {ffn_f}; want "
+                                    f"{want_h}, {want_f}")
+            print(f"[parallel] {mode} step {i + 1} (2 ranks sharing "
+                  f"cuda:0, Gloo): loss {loss:.6f} vs single "
+                  f"{ref['loss']:.6f} (rtol {tol}); gradient rel L2 "
+                  f"{cmp['grad_rel_l2']:.3e} (bound {tol}); params max "
+                  f"|diff| {cmp['w_max_abs_diff']:.3e}, excess over "
+                  f"Adam's reach {cmp['w_excess']:.3e}, "
+                  f"{cmp['w_differing']} of {cmp['w_total']} over lr/100; "
+                  f"step ms per rank "
+                  f"{[round(rec['steps'][i]['ms'], 1) for rec in recs]}",
+                  flush=True)
+        if mode == "tp2":
+            enc = recs[0]["encoder"]
+            out["tp2_encoder"] = enc
+            print(f"[parallel] tp2 encoder at the init weights on the whole "
+                  f"batch: features rel L2 {enc['feats_rel_l2']:.3e}, "
+                  f"parameter gradient (from the single process's upstream "
+                  f"gradient) rel L2 {enc['grad_rel_l2']:.3e} (bounds "
+                  f"{tol})", flush=True)
+            if not (enc["feats_rel_l2"] <= tol and enc["grad_rel_l2"] <= tol):
+                failures.append(f"tp2 encoder: {enc}")
+        if any(rec["backend"] != "gloo" for rec in recs):
+            failures.append(f"{mode}: backend {recs[0]['backend']}")
+        by = {k: [rec[k] for rec in recs] for k in ("bytes_before",
+                                                    "bytes_after")}
+        out[mode] = dict(
+            losses=[s["loss"] for s in recs[0]["steps"]],
+            single_losses=[s["loss"] for s in ref_steps],
+            step_ms=[[s["ms"] for s in rec["steps"]] for rec in recs],
+            bytes=by, sharded_leaves=recs[0]["sharded_leaves"],
+            compare=[s["compare"] for s in recs[0]["steps"]],
+            shapes=recs[0]["steps"][0]["shapes"])
+        print(f"[parallel] {mode}: held bytes per rank (parameters, Adam "
+              f"moments) {by['bytes_after']}; {out[mode]['sharded_leaves']}"
+              f" sharded leaves; flash / ffn_fwd shapes "
+              f"{out[mode]['shapes']}", flush=True)
+    dp_b = out["dp2"]["bytes"]["bytes_after"][0]
+    fs_b = out["fsdp2"]["bytes"]["bytes_after"][0]
+    out["fsdp_over_dp"] = {k: fs_b[k] / dp_b[k] for k in dp_b}
+    if not all(v < 0.55 for v in out["fsdp_over_dp"].values()):
+        failures.append(f"fsdp=2 holds {out['fsdp_over_dp']} of dp=2's "
+                        "bytes per rank")
+    out["ranks_wall_s"] = ranks_s
+    out["single_spread"] = spread
+    out["single_ms"] = [s["ms"] for s in ref_steps]
+    out["single_loss_under_feature_rounding"] = enc_ref
+    print(f"[parallel] fsdp=2 / dp=2 held bytes per rank: "
+          f"{out['fsdp_over_dp']}; the two ranks' processes took "
+          f"{ranks_s:.1f} s (start, model build, 3 meshes x 2 steps, "
+          f"gathers, a checkpoint restore each)", flush=True)
+    if failures:
+        fail("parallel: " + "; ".join(failures))
+    for name in ("par_init.pt", "par_ref.pt", "par_step1_0.pt",
+                 "par_enc.pt"):
+        os.remove(os.path.join(workdir, name))
+
+    # ---- NCCL at world size 1: the collectives inside the CUDA graph
+    nccl, counts = phase_nccl_graph(workdir, fixture)
+    add(counts)
+    out["nccl_world_1"] = nccl
+
+    # ---- data-parallel scoring and serving
+    dp, counts = phase_dp_scoring(workdir, fixture, ckpt)
+    add(counts)
+    out["data_parallel"] = dp
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[parallel] phase 17: {out['wall_s']:.1f} s", flush=True)
+    return total, out
+
+
+class socket_port:
+    """A free localhost TCP port (the socket is closed on exit, and the
+    port handed to the process group)."""
+
+    def __enter__(self):
+        import socket
+
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        return self.sock.getsockname()[1]
+
+    def __exit__(self, *exc):
+        self.sock.close()
+
+
+def phase_nccl_graph(workdir: str, fixture):
+    """`oc_training --dp 1` in a torchrun environment of world size 1
+    (NCCL): one epoch of 6 steps with --steps_per_dispatch 3 (two graph
+    launches, the gradient all-reduce, the BatchNorm sums and the loss's
+    all-gather captured) and with 1 (eager); the epoch checkpoints must
+    be equal bit for bit (deterministic algorithms)."""
+    import torch
+    import torch.distributed as dist
+
+    from occm_tpu_torch.cli import oc_training
+
+    protocol, train_dir, voc_dir = fixture
+    with socket_port() as port:
+        pass
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    argv = ["--train_protocol_file", protocol, "--train_dataset_dir",
+            train_dir, "--vocoded_dir", voc_dir, "--cut", str(TRAIN_CUT),
+            "--num_epochs", "1", "--dp", "1", "--attention_impl", "flash",
+            "--compactness_weight", "0.1", "--descriptiveness_weight", "0.9"]
+    runs, counts = {}, dict.fromkeys(("flash_attn_fwd", "flash_attn_bwd_dq",
+                                      "flash_attn_bwd_dkv", "layernorm_bwd",
+                                      "fused_adam", "ffn_fwd"), 0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for k in (3, 1):
+            d = os.path.join(workdir, f"nccl_k{k}")
+            reset_counts()
+            rec = StepRecorder()
+            t0 = time.perf_counter()
+            state = oc_training.main(argv + ["--checkpoint_dir", d,
+                                             "--steps_per_dispatch", str(k)],
+                                     on_step=rec)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counts()
+            for key in counts:
+                counts[key] += got[key]
+            backend = str(dist.get_backend())
+            graph = state.graph
+            runs[k] = dict(
+                wall_s=wall, backend=backend,
+                world=dist.get_world_size(),
+                losses=[s["loss"] for s in rec.steps],
+                replays=0 if graph is None else graph.replays,
+                captured=None if graph is None else {
+                    str(s): c for s, c in graph.capture_launches.items()},
+                ckpt=os.path.join(d, "aasist_vocoded_0.pt"))
+            del state, graph
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    a = torch.load(runs[3]["ckpt"], weights_only=True)
+    b = torch.load(runs[1]["ckpt"], weights_only=True)
+    same = all(torch.equal(v, b["model"][n]) for n, v in a["model"].items())
+    same_opt = all(torch.equal(v, b["optimizer"]["mu"][n])
+                   for n, v in a["optimizer"]["mu"].items())
+    for k in (3, 1):
+        os.remove(runs[k]["ckpt"])
+    if runs[3]["backend"] != "nccl" or runs[3]["world"] != 1:
+        fail(f"NCCL world 1: backend {runs[3]['backend']}, world "
+             f"{runs[3]['world']}")
+    if runs[3]["replays"] != 2 or runs[1]["replays"] != 0:
+        fail(f"NCCL world 1: {runs[3]['replays']} graph launches with k=3 "
+             "for 6 steps, want 2")
+    if not (same and same_opt and runs[3]["losses"] != []):
+        fail("NCCL world 1: the k=3 graph's checkpoint differs from the "
+             "eager steps' (weights or Adam moments)")
+    out = dict(k3=dict(runs[3], ckpt=None), k1=dict(runs[1], ckpt=None),
+               bit_equal=True)
+    print(f"[parallel] NCCL world 1, oc_training --dp 1: --steps_per_"
+          f"dispatch 3 ({runs[3]['replays']} graph launches, collectives "
+          f"captured; {runs[3]['wall_s']:.1f} s) = --steps_per_dispatch 1 "
+          f"({runs[1]['wall_s']:.1f} s) bit for bit (weights, Adam "
+          f"moments); chunk losses {runs[3]['losses']}", flush=True)
+    return out, counts
+
+
+def phase_dp_scoring(workdir: str, fixture, ckpt=None):
+    """`oc_classifier --mode 2c2` and `oc_server` with `--data_parallel -1`
+    (one card: a mesh of one device) against the plain calls on the same
+    eval set and requests: the same scores, bit for bit;
+    `--data_parallel 2` raises as JAX's make_dp_mesh does."""
+    import torch
+
+    from occm_tpu_torch.cli import oc_classifier, oc_server
+
+    root = os.path.join(workdir, "dp_scoring")
+    os.makedirs(root)
+    if ckpt is None:  # a full run passes phase 4's
+        _, ckpt = build_seed_model(root)
+        gc.collect()
+        torch.cuda.empty_cache()
+    eval_dir, paths = write_eval_set(root)
+    protocol, train_dir, _ = fixture
+    argv = ["--pretrained-sslaasist", ckpt, "--protocol_file", protocol,
+            "--dataset_dir", train_dir, "--eval_protocol_file",
+            paths["eval.txt"], "--eval_dataset_dir", eval_dir, "--mode",
+            "2c2"]
+    counts = dict.fromkeys(("flash_attn_fwd",), 0)
+    files = {}
+    reset_counts()
+    for tag, extra in (("plain", []), ("dp", ["--data_parallel", "-1"])):
+        files[tag] = os.path.join(root, f"scores_{tag}.txt")
+        oc_classifier.main(argv + ["--score_file", files[tag]] + extra)
+    from occm_tpu_torch.ops import attention
+
+    counts["flash_attn_fwd"] += attention.LAUNCHES
+    plain, dp = (np.loadtxt(files[t]) for t in ("plain", "dp"))
+    if not (plain.shape == dp.shape and np.isfinite(plain).all()
+            and open(files["plain"]).read() == open(files["dp"]).read()):
+        fail(f"oc_classifier --data_parallel -1: scores {dp} differ from "
+             f"the plain call's {plain}")
+    try:
+        oc_classifier.main(argv + ["--score_file",
+                                   os.path.join(root, "x.txt"),
+                                   "--data_parallel", "2"])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or "only 1 present" not in refused:
+        fail(f"oc_classifier --data_parallel 2 on one card: {refused}")
+
+    art = os.path.join(root, "artifacts")
+    os.makedirs(art)
+    np.save(os.path.join(art, "reference_embedding.npy"),
+            np.random.default_rng(5).normal(size=160).astype(np.float32))
+    np.save(os.path.join(art, "threshold.npy"), np.float32(10.0))
+    rng = np.random.default_rng(18)
+    waves = [synthetic_wave(rng, s) for s in (4.0, 6.0, 12.0)]
+    served = {}
+    reset_counts()
+    for tag, extra in (("plain", []), ("dp", ["--data_parallel", "-1"])):
+        started = threading.Event()
+        started.stop = threading.Event()
+        errors = []
+
+        def serve():
+            try:
+                oc_server.main([
+                    "--pretrained-sslaasist", ckpt, "--artifacts_dir", art,
+                    "--host", "127.0.0.1", "--port", "0", "--max_wait_ms",
+                    "5", "--buckets", "16000", "64000", "96000", "192000",
+                    *extra], started_event=started)
+            except BaseException as e:  # surfaced below, never swallowed
+                errors.append(e)
+                started.set()
+
+        th = threading.Thread(target=serve, daemon=True)
+        th.start()
+        if not started.wait(900) or errors:
+            fail(f"oc_server {extra} did not start: {errors}")
+        scores = []
+        for w in waves:
+            status, payload, _ = post(started.server.port,
+                                      w.astype("<f4").tobytes(),
+                                      {"X-Sample-Rate": "16000"})
+            check_response(f"dp server {tag}", status, payload)
+            scores.append(payload["score"])
+        served[tag] = scores
+        started.stop.set()
+        th.join(120)
+        if th.is_alive() or errors:
+            fail(f"oc_server {extra} did not stop cleanly: {errors}")
+    counts["flash_attn_fwd"] += attention.LAUNCHES
+    if served["dp"] != served["plain"]:
+        fail(f"oc_server --data_parallel -1: scores {served['dp']} vs the "
+             f"plain server's {served['plain']}")
+    out = dict(classifier_2c2=dp.tolist(), server=served["dp"],
+               refused_2=refused)
+    print(f"[parallel] oc_classifier 2c2 and oc_server with "
+          f"--data_parallel -1 = the plain calls bit for bit "
+          f"({len(dp)} utterances, {len(waves)} requests); "
+          f"--data_parallel 2: ValueError({refused!r})", flush=True)
+    return out, counts
+
+
 def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
     """The {"kernels": [...]} entries. Times, errors and bounds are this
     run's, at the shape named in each entry: `ms` the wrapper's time per
@@ -5263,7 +6081,20 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 16 only (device, build, W8A8 "
                          "int8 scoring, serving and the parity gate); "
                          "prints no kernels line")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="run phases 1, 2 and 17 only (device, build, the "
+                         "multi-GPU paths: dp / fsdp / tp training over two "
+                         "ranks on the card, the NCCL world-size-1 graph, "
+                         "data-parallel scoring and serving); prints no "
+                         "kernels line")
+    ap.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD",
+                                                          "PORT", "WORKDIR"),
+                    help=argparse.SUPPRESS)  # phase 17's rank processes
     args = ap.parse_args(argv)
+    if args.parallel_rank:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        rank, world, port, workdir = args.parallel_rank
+        return parallel_rank(int(rank), int(world), int(port), workdir)
 
     smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5272,7 +6103,7 @@ def main(argv=None) -> int:
     hgmma = phase_build()
     if (args.controls_only or args.rawboost_only or args.models_only
             or args.remat_only or args.native_only or args.base_only
-            or args.int8_only):
+            or args.int8_only or args.parallel_only):
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -5300,6 +6131,11 @@ def main(argv=None) -> int:
                 del model
                 result = {"int8": dict(phase_int8(workdir, fixture, ckpt)[1],
                                        products=rows)}
+            elif args.parallel_only:
+                rows = phase_parallel_kernels()
+                counts, par = phase_parallel(workdir, fixture)
+                result = {"parallel": dict(par, kernels=rows,
+                                           launches=counts)}
             else:
                 result = {"models": phase_models(workdir, fixture)[2]}
         finally:
@@ -5318,6 +6154,7 @@ def main(argv=None) -> int:
     # session, while its sessions this early have kept every record
     base_rows = None if args.kernels_only else phase_base_kernels()
     int8_rows = None if args.kernels_only else phase_int8_kernels()
+    par_rows = None if args.kernels_only else phase_parallel_kernels()
     launches = dict.fromkeys(
         ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd", "fused_adam",
          "ffn_fwd"), 0)
@@ -5353,6 +6190,9 @@ def main(argv=None) -> int:
             int8_out["products"] = int8_rows
             n_counts, n_replayed, native_io = phase_native(workdir, fixture,
                                                            ckpt)
+            # the multi-GPU paths last: phase 17's NCCL group is made and
+            # destroyed in this process
+            p_counts, parallel = phase_parallel(workdir, fixture, ckpt)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         launches["flash_attn_fwd"] += serve_launches + int8_launches
@@ -5381,6 +6221,12 @@ def main(argv=None) -> int:
         print(f"[native] {json.dumps(native_io, default=str)}", flush=True)
         print(f"[base] {json.dumps(base, default=str)}", flush=True)
         print(f"[int8] {json.dumps(int8_out, default=str)}", flush=True)
+        print(f"[parallel] {json.dumps(parallel, default=str)}", flush=True)
+        # phase 17's path: the ranks', the NCCL run's and the scoring runs'
+        for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
+                     "ffn_fwd"):
+            launches[name] += p_counts[name]
+        launches["flash_attn_bwd"] += p_counts["flash_attn_bwd_dq"]
 
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,
@@ -5389,6 +6235,12 @@ def main(argv=None) -> int:
         entry["graph_replay_launches"] = graph_launches[entry["name"]]
         if not args.kernels_only:  # phase 15's rows at base's shapes
             entry["base"] = base["kernels"][entry["name"]]
+            # phase 17's rows at the per-rank shapes: tp=2 (attention at
+            # 8 heads, the FFN at F 2048), dp=2 (LayerNorm on a rank's
+            # rows), fsdp=2 (Adam over rank 0's shards)
+            key = {"layernorm_bwd": "dp2", "fused_adam": "fsdp2"}.get(
+                entry["name"], "tp2")
+            entry[key] = par_rows[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

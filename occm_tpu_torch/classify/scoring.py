@@ -21,7 +21,14 @@ before (Python decode where the native library is unavailable; the same
 scores byte for byte). Distances use torch `pairwise_distance` eps
 semantics.
 
-Not ported yet: the multi-device `mesh=` (ROADMAP queue A item 15).
+Data-parallel scoring (`mesh=`): the reference wraps the inference model
+in `DataParallel` (reference: oc_classifier.py:343) and the JAX package
+shards each bucket's batch over a ("dp",) mesh of local chips. Here the
+mesh is a list of local devices (`make_dp_mesh`, or `[cpu, cpu]` in the
+CPU tests): the model is replicated on each (`make_embed_fn_factory(...,
+mesh=)`), each bucket's batch is rounded up to a multiple of the mesh size
+and split into equal row blocks, one per device, and the outputs are
+gathered in order (`parallel/replicas.py`).
 """
 
 from __future__ import annotations
@@ -37,7 +44,12 @@ from occm_tpu_torch.classify.impl_select import (
     flash_kernel_takes, select_attention_impl)
 from occm_tpu_torch.io.scorefiles import write_score_line_1c, write_score_line_2c
 from occm_tpu_torch.losses import pairwise_distance
+from occm_tpu_torch.parallel.replicas import (
+    DPMesh, as_dp_mesh, make_dp_mesh, per_device, replicate, round_up)
 from occm_tpu_torch.serve import make_score_fn
+
+__all__ = ["BucketedEmbedder", "DPMesh", "OneClassScorer",
+           "make_dp_mesh", "make_embed_fn_factory", "model_device"]
 from occm_tpu_torch.utils.device import resolve_device
 
 
@@ -46,17 +58,23 @@ def model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def make_embed_fn_factory(model: torch.nn.Module, attention_impl: str = "auto"
-                          ) -> Callable[[int], Callable]:
+def make_embed_fn_factory(model: torch.nn.Module, attention_impl: str = "auto",
+                          mesh=None) -> Callable[[int], Callable]:
     """bucket_samples -> embed fn over one model: each bucket runs the
     attention impl that `select_attention_impl` picks for its length and
     for the model where it lies (auto never picks a flash kernel that
-    cannot take it; a pinned impl passes through for every bucket)."""
-    def factory(bucket_samples: int) -> Callable:
-        return make_score_fn(model, select_attention_impl(
+    cannot take it; a pinned impl passes through for every bucket).
+    With a data-parallel `mesh` the model is replicated on every mesh
+    device once, and the factory gives one embed fn per device."""
+    models = [model] if mesh is None else replicate(model, as_dp_mesh(mesh))
+
+    def factory(bucket_samples: int):
+        impl = select_attention_impl(
             bucket_samples, attention_impl,
             flash_takes_model=flash_kernel_takes(model.xlsr_cfg,
-                                                 model_device(model))))
+                                                 model_device(model)))
+        fns = [make_score_fn(m, impl) for m in models]
+        return fns[0] if mesh is None else fns
 
     return factory
 
@@ -85,14 +103,23 @@ class BucketedEmbedder:
         device: where batches go; "cuda" unless the caller asks for "cpu".
         decode_threads: threads of the native batch decode in
         `embed_paths` (match them to the host's cores).
-        mesh: multi-device scoring is not ported (raises)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU scoring (mesh=) is not ported to occm_tpu_torch "
-                "yet (ROADMAP queue A item 15)")
+        mesh: an optional data-parallel mesh (`make_dp_mesh()`, or a list
+        of devices); a mesh of more than one axis raises ValueError. Each
+        batch (batch_size rounded up to a multiple of the mesh size) is
+        split over its devices; the embed fn (or each one the factory
+        gives) is then either one callable per mesh device, or one that
+        runs where its input lies. Outputs come back on the first mesh
+        device, which takes the place of `device`."""
         if (embed_fn is None) == (embed_fn_factory is None):
             raise ValueError(
                 "pass exactly one of embed_fn / embed_fn_factory")
+        self.mesh: Optional[DPMesh] = None
+        if mesh is not None:
+            self.mesh = as_dp_mesh(mesh)
+            batch_size = round_up(batch_size, self.mesh)
+            device = self.mesh.devices[0]
+            if embed_fn is not None:
+                embed_fn = per_device(embed_fn, self.mesh)
         self.device = resolve_device(device)
         self._embed = embed_fn
         self._factory = embed_fn_factory
@@ -106,7 +133,10 @@ class BucketedEmbedder:
         if self._factory is None:
             return self._embed
         if blen not in self._per_bucket:
-            self._per_bucket[blen] = self._factory(blen)
+            fn = self._factory(blen)
+            if self.mesh is not None:
+                fn = per_device(fn, self.mesh)
+            self._per_bucket[blen] = fn
         return self._per_bucket[blen]
 
     def _bucket_len(self, n: int) -> int:
@@ -135,8 +165,10 @@ class BucketedEmbedder:
         logits_all: List[Optional[np.ndarray]] = [None] * n
         done = 0
         for chunk, batch in Prefetcher(batch_iter, depth=prefetch_depth):
-            emb, logits = self._embed_for(batch.shape[1])(
-                torch.from_numpy(batch).to(self.device))
+            x = torch.from_numpy(batch)
+            if self.mesh is None:  # a mesh's blocks go to their devices
+                x = x.to(self.device)
+            emb, logits = self._embed_for(batch.shape[1])(x)
             emb = emb.float().cpu().numpy()
             logits = logits.float().cpu().numpy()
             for j, i in enumerate(chunk):

@@ -6,7 +6,8 @@ Checkpoint + protocol in, one `.npz` out with the JAX CLI's keys: `utts`,
 convention bonafide=0 / spoof=1 (reference: oc_training.py:225); eval-mode
 (bare-utterance) protocols have no labels and get -1. The flags are the
 JAX CLI's, plus --device; --pretrained-sslaasist takes a torch state dict
-in the reference's naming; --data_parallel raises NotImplementedError.
+in the reference's naming; --data_parallel N embeds data-parallel over N
+local GPUs.
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ def main(argv=None) -> None:
         help="threads of the native batch decode (header length probes "
              "and one threaded C++ decode per batch; files decode in Python "
              "where the native library is unavailable)")
-    parser.add_argument("--data_parallel", type=int, default=0, metavar="N",
-                        help="not ported yet: embedding runs on one GPU")
+    parser.add_argument(
+        "--data_parallel", type=int, default=0, metavar="N",
+        help="embed data-parallel over N local GPUs (-1: all); see "
+             "oc_classifier --data_parallel")
     parser.add_argument("--xlsr_tiny", action="store_true")
     parser.add_argument(
         "--fast_numerics", action="store_true", default=False,
@@ -66,19 +69,24 @@ def main(argv=None) -> None:
         parse_eval_protocol, parse_train_protocol)
     from occm_tpu_torch.utils.device import resolve_device
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported to occm_tpu_torch yet (ROADMAP "
-            "queue A item 15)")
     device = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel:
+        from occm_tpu_torch.classify import make_dp_mesh
+
+        # -1: every local device (make_dp_mesh raises for more than exist)
+        n = None if args.data_parallel == -1 else args.data_parallel
+        mesh = make_dp_mesh(n, device_type=device.type)
+        device = mesh.devices[0]
+        print(f"embedding data-parallel over {mesh.size} devices")
     xlsr_cfg = xlsr_config(args.xlsr_tiny, args.fast_numerics)
     model = build_model(xlsr_cfg, args.pretrained_sslaasist,
                         args.allow_random_init, device)
     embedder = BucketedEmbedder(
         embed_fn_factory=make_embed_fn_factory(
-            model, args.attention_impl),
+            model, args.attention_impl, mesh=mesh),
         bucket_step=args.bucket_step, batch_size=args.batch_size,
-        device=device, decode_threads=args.decode_threads)
+        mesh=mesh, device=device, decode_threads=args.decode_threads)
 
     if args.eval:
         utts = parse_eval_protocol(args.protocol_file)

@@ -18,7 +18,8 @@ SSLModel, model.*) into the frontend and --pretrained-senet a
 senet34_vocoded .pt into the encoder, statistics included. --quant_int8
 scores with the W8A8 int8 transformer projections in every mode,
 quantised from the fp32 checkpoint at load time (on XLS-R it needs
---fast_numerics); --data_parallel raises NotImplementedError.
+--fast_numerics); --data_parallel N scores data-parallel over N local
+GPUs, with any of the other flags.
 
 Usage:
     python -m occm_tpu_torch.cli.oc_classifier \\
@@ -77,8 +78,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="threads of the native batch decode (header length probes "
              "and one threaded C++ decode per batch; files decode in Python "
              "where the native library is unavailable)")
-    parser.add_argument("--data_parallel", type=int, default=0, metavar="N",
-                        help="not ported yet: scoring runs on one GPU")
+    parser.add_argument(
+        "--data_parallel", type=int, default=0, metavar="N",
+        help="score data-parallel over N local GPUs (-1: all of them): the "
+             "model replicated on each, every batch split over them (the "
+             "reference's DataParallel, oc_classifier.py:343); 0 = one "
+             "device")
     parser.add_argument("--xlsr_tiny", action="store_true")
     parser.add_argument(
         "--attention_impl", type=str, default="auto",
@@ -170,13 +175,18 @@ def main(argv=None):
     from occm_tpu_torch.data import ASVDataset
     from occm_tpu_torch.utils.device import resolve_device
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported to occm_tpu_torch yet (ROADMAP "
-            "queue A item 15)")
     xlsr_cfg = xlsr_config(args.xlsr_tiny, args.fast_numerics,
                            args.quant_int8)
     device = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel:
+        from occm_tpu_torch.classify import make_dp_mesh
+
+        # -1: every local device (make_dp_mesh raises for more than exist)
+        n = None if args.data_parallel == -1 else args.data_parallel
+        mesh = make_dp_mesh(n, device_type=device.type)
+        device = mesh.devices[0]
+        print(f"scoring data-parallel over {mesh.size} devices")
 
     if args.mode in ("1c1", "2c1"):
         model = build_ssl_resnet34(
@@ -187,9 +197,9 @@ def main(argv=None):
                             args.allow_random_init, device)
     embedder = BucketedEmbedder(
         embed_fn_factory=make_embed_fn_factory(
-            model, args.attention_impl),
+            model, args.attention_impl, mesh=mesh),
         bucket_step=args.bucket_step, batch_size=args.batch_size,
-        device=device, decode_threads=args.decode_threads)
+        mesh=mesh, device=device, decode_threads=args.decode_threads)
     scorer = OneClassScorer(embedder)
 
     train_dataset = ASVDataset(args.protocol_file, args.dataset_dir)

@@ -41,8 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "up at startup")
     parser.add_argument("--max_wait_ms", type=float, default=5.0,
                         help="dynamic-batching wait bound")
-    parser.add_argument("--data_parallel", type=int, default=0, metavar="N",
-                        help="not ported yet: serving runs on one GPU")
+    parser.add_argument(
+        "--data_parallel", type=int, default=0, metavar="N",
+        help="score each request batch data-parallel over N local GPUs "
+             "(-1: all); see oc_classifier --data_parallel")
     parser.add_argument("--xlsr_tiny", action="store_true")
     parser.add_argument(
         "--fast_numerics", action="store_true", default=False,
@@ -152,12 +154,17 @@ def main(argv=None, started_event=None):
     from occm_tpu_torch.serve_http import ScoringHTTPServer
     from occm_tpu_torch.utils.device import resolve_device
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not yet ported to occm_tpu_torch (ROADMAP "
-            "queue A item 15)")
     cfg = xlsr_config(args.xlsr_tiny, args.fast_numerics, args.quant_int8)
     device = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel:
+        from occm_tpu_torch.classify import make_dp_mesh
+
+        # -1: every local device (make_dp_mesh raises for more than exist)
+        n = None if args.data_parallel == -1 else args.data_parallel
+        mesh = make_dp_mesh(n, device_type=device.type)
+        device = mesh.devices[0]
+        print(f"serving data-parallel over {mesh.size} devices")
 
     ref_path = os.path.join(args.artifacts_dir, "reference_embedding.npy")
     thr_path = os.path.join(args.artifacts_dir, "threshold.npy")
@@ -177,9 +184,11 @@ def main(argv=None, started_event=None):
     # per-bucket attention impl (classify.impl_select): one set of weights,
     # each bucket's score fn runs the impl that its length selects
     service = ScoringService(
-        score_fn_factory=make_embed_fn_factory(model, args.attention_impl),
+        score_fn_factory=make_embed_fn_factory(model, args.attention_impl,
+                                               mesh=mesh),
         reference_embedding=reference, threshold=threshold,
         buckets=tuple(args.buckets), batch=args.batch_size, device=device,
+        mesh=mesh,
     )
     if not args.no_warmup:
         print(f"warming up {len(args.buckets)} buckets...")

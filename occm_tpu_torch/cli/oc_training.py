@@ -1,7 +1,7 @@
 """One-class training CLI (port of `occm_tpu.cli.oc_training`): the same
 flags and defaults, plus --device.
 
-Trains one of the JAX CLI's models on one GPU: XLSR + AASIST (`--model
+Trains one of the JAX CLI's models on one GPU or a rank mesh: XLSR + AASIST (`--model
 aasist`), SSLResNet34 (`ssl_resnet34`), SSLLCNN with the Linear head
 (`ssl_lcnn`) or the A-softmax head and the angle loss
 (`ssl_lcnn_asoftmax`), TotalCNNNet (`cnn`) or the dual-branch OCCM
@@ -19,7 +19,12 @@ every step's batch on the device. `--grad_accum`, `--lr_schedule` (with
 `--warmup_steps`, `--decay_steps`, `--lr_end_ratio`),
 `--steps_per_dispatch` (one CUDA graph per chunk on a card),
 `--checkpoint_every_steps` (and the SIGTERM save) and `--resume` act as in
-the JAX package. Every flag whose code path is not ported yet raises
+the JAX package. `--dp`, `--fsdp` and `--tp` lay the ranks of a
+`torchrun --nproc_per_node N` launch out as a mesh (NCCL, one GPU per
+rank; `--device cpu`: Gloo): each rank loads its shard of the epoch and
+trains its shards of the model (`occm_tpu_torch.parallel`); `--pp`,
+`--pp_microbatches` and `--seq_parallel` raise (ROADMAP item 15b). Every
+flag whose code path is not ported yet raises
 NotImplementedError at a non-default value, naming the ROADMAP item that
 ports it.
 
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,17 +73,22 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--vocoded_dir", type=str, default=None)
     parser.add_argument("--checkpoint_dir", type=str, default=".")
-    parser.add_argument("--dp", type=int, default=-1)
+    parser.add_argument(
+        "--dp", type=int, default=-1,
+        help="data-parallel ranks (-1: what fsdp x tp leave of the world); "
+             "launch N ranks with torchrun --nproc_per_node N")
     parser.add_argument("--fsdp", type=int, default=1,
-                        help="not ported yet (one GPU)")
+                        help="ZeRO-3 sharding degree of parameters and Adam "
+                             "moments (the batch shards over it too)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="not ported yet (one GPU)")
+                        help="tensor-parallel degree of the XLSR layers "
+                             "(heads and FFN columns)")
     parser.add_argument("--pp", type=int, default=1,
-                        help="not ported yet (one GPU)")
+                        help="not ported yet (ROADMAP item 15b)")
     parser.add_argument("--seq_parallel", action="store_true", default=False,
-                        help="not ported yet (one GPU)")
+                        help="not ported yet (ROADMAP item 15b)")
     parser.add_argument("--pp_microbatches", type=int, default=0,
-                        help="not ported yet (one GPU)")
+                        help="not ported yet (ROADMAP item 15b)")
     parser.add_argument(
         "--rawboost_algo", type=int, default=0, choices=range(9),
         help="RawBoost in every step: 0 disables; 1 LnL, 2 ISD, 3 SSI, "
@@ -159,8 +170,9 @@ def _unported(args) -> None:
     ROADMAP queue A. (TrainConfig, MeshConfig and XLSRConfig raise on the
     fields they carry.)"""
     checks = [
-        ("--seq_parallel", args.seq_parallel, "multi-GPU"),
-        ("--pp_microbatches", args.pp_microbatches != 0, "multi-GPU"),
+        ("--seq_parallel", args.seq_parallel, "item 15b, pp + seq_parallel"),
+        ("--pp_microbatches", args.pp_microbatches != 0,
+         "item 15b, pp + seq_parallel"),
         ("--debug_nans", args.debug_nans, "remaining features"),
     ]
     for flag, set_, item in checks:
@@ -290,9 +302,16 @@ def main(argv=None, on_step=None):
         decay_steps=args.decay_steps,
         lr_end_ratio=args.lr_end_ratio,
     )
+    from occm_tpu_torch.parallel import make_mesh
+    from occm_tpu_torch.parallel import multihost
     from occm_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ:
+        # launched by torchrun: join the process group (NCCL on cards,
+        # Gloo with --device cpu); the rank's device is cuda:LOCAL_RANK
+        device = multihost.initialize(args.device)
+    mesh = make_mesh(cfg.mesh)
     xlsr_cfg = xlsr_config(args, cfg.cut, device)
 
     print("*************************************************")
@@ -312,8 +331,10 @@ def main(argv=None, on_step=None):
                         dataset_dir=args.train_dataset_dir,
                         vocoded_dir=args.vocoded_dir, cut=cfg.cut,
                         seed=cfg.seed)
+    # the epoch shards over the mesh's DATA axes: ranks of one tp group
+    # load identical data (parallel.data_shard_for_process)
     pipeline = MetaBatchPipeline(dataset, groups_per_step=cfg.groups_per_step,
-                                 seed=cfg.seed)
+                                 seed=cfg.seed, mesh=mesh)
 
     model = build_model(xlsr_cfg, cfg.seed, args.init_from,
                         args.pretrained_xlsr, name=args.model)
@@ -327,7 +348,7 @@ def main(argv=None, on_step=None):
     print("Training starts...")
     return train(model, pipeline, cfg, checkpoint_fn=checkpoint_fn,
                  device=device, on_step=on_step, resume=args.resume,
-                 output_kind=OUTPUT_KIND_OF[args.model])
+                 output_kind=OUTPUT_KIND_OF[args.model], mesh=mesh)
 
 
 if __name__ == "__main__":

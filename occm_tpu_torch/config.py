@@ -148,9 +148,14 @@ class XLSRConfig:
             if value not in valid:
                 raise ValueError(
                     f"unknown {field} {value!r} ({' | '.join(valid)})")
+        for field, set_ in (("pp_stages", self.pp_stages != 1),
+                            ("seq_parallel", self.seq_parallel)):
+            if set_:
+                raise NotImplementedError(
+                    f"XLSRConfig.{field}={getattr(self, field)!r} is not "
+                    "ported to occm_tpu_torch yet (ROADMAP queue A item "
+                    "15b: pp + seq_parallel)")
         unported = [
-            ("pp_stages", self.pp_stages != 1),
-            ("seq_parallel", self.seq_parallel),
             ("fused_qkv", self.fused_qkv),
             ("attention_impl", impl not in ("xla", "flash")),
             ("pos_conv_impl", self.pos_conv_impl != "grouped"),
@@ -235,9 +240,9 @@ class AASISTConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout. The port trains on one GPU: dp must be -1 (all
-    devices, here one) or 1, and the other axes 1; anything else raises
-    (multi-GPU is ROADMAP queue A)."""
+    """Rank-mesh layout (`occm_tpu_torch.parallel.make_mesh`): dp (-1: what
+    the other axes leave of the world), fsdp and tp. pp must be 1: the
+    GPipe pipeline is ROADMAP queue A item 15b."""
 
     dp: int = -1
     fsdp: int = 1
@@ -245,12 +250,11 @@ class MeshConfig:
     pp: int = 1
 
     def __post_init__(self):
-        if self.dp not in (-1, 1) or (self.fsdp, self.tp, self.pp) != (
-                1, 1, 1):
+        if self.pp != 1:
             raise NotImplementedError(
-                f"MeshConfig{dataclasses.astuple(self)}: the port trains on "
-                "one GPU (dp -1 or 1, fsdp = tp = pp = 1); multi-GPU is not "
-                "ported yet (ROADMAP queue A: multi-GPU)")
+                f"MeshConfig.pp={self.pp}: the pipeline-parallel axis is not "
+                "ported to occm_tpu_torch yet (ROADMAP queue A item 15b: "
+                "pp + seq_parallel)")
 
 
 @dataclasses.dataclass(frozen=True)

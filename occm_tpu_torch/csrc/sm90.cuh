@@ -186,6 +186,16 @@ int encode_bf16(CUtensorMap* map, const void* ptr, int rank,
                 const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -1;
+  // cuTensorMapEncodeTiled needs a context current on the calling thread.
+  // A thread that has made no runtime call yet has none (PyTorch's autograd
+  // device thread, when a backward starts at a kernel's node, got
+  // CUDA_ERROR_INVALID_CONTEXT for the map): cudaFree(nullptr) makes the
+  // current device's primary context current first, once per thread.
+  static thread_local bool bound = false;
+  if (!bound) {
+    cudaFree(nullptr);
+    bound = true;
+  }
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                         const_cast<void*>(ptr), dims, strides, box, elem,

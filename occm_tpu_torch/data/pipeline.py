@@ -1,5 +1,6 @@
 """Host input pipeline: shuffled meta-batch assembly with a background
-prefetch thread (port of `occm_tpu.data.pipeline`, one process).
+prefetch thread (port of `occm_tpu.data.pipeline`), its epoch sharded over
+the data axes of a rank mesh.
 
 A background thread decodes and stacks the next G meta-batches
 ([G*12, cut]) while the card runs the step: with repeat padding and the
@@ -56,10 +57,19 @@ class Prefetcher:
 
 class MetaBatchPipeline:
     """Epoch iterator over PFDataset yielding ([G*12, cut], [G*12]) numpy
-    arrays, G = groups_per_step. One process: the epoch is not sharded. A
-    ragged tail of fewer than G meta-batches is yielded at its own size
-    unless drop_remainder. `decode_threads`: threads of the native batch
-    decode, taken where `dataset.supports_native_batch()`."""
+    arrays, G = groups_per_step. A ragged tail of fewer than G meta-batches
+    is yielded at its own size unless drop_remainder. `decode_threads`:
+    threads of the native batch decode, taken where
+    `dataset.supports_native_batch()`.
+
+    Sharding (JAX's multi-host slicing): every rank shuffles with the same
+    seed, truncates the epoch order to a multiple of shard_count (so every
+    rank runs the same number of steps, and the collectives meet) and takes
+    the strided slice order[shard_index::shard_count]; the global batch is
+    the concatenation of the ranks' batches. The defaults come from
+    `parallel.data_shard_for_process(mesh)` with a mesh (ranks of one tp
+    group load identical data), else one shard per rank of the process
+    group (one shard without one)."""
 
     def __init__(
         self,
@@ -70,6 +80,9 @@ class MetaBatchPipeline:
         drop_remainder: bool = False,
         prefetch_depth: int = 2,
         decode_threads: int = 8,
+        shard_index: Optional[int] = None,
+        shard_count: Optional[int] = None,
+        mesh=None,
     ):
         self.dataset = dataset
         self.groups = groups_per_step
@@ -78,12 +91,29 @@ class MetaBatchPipeline:
         self.drop_remainder = drop_remainder
         self.prefetch_depth = prefetch_depth
         self.decode_threads = decode_threads
+        if shard_index is None or shard_count is None:
+            from occm_tpu_torch.parallel import multihost
+            from occm_tpu_torch.parallel.mesh import data_shard_for_process
+
+            if mesh is not None:
+                shard_index, shard_count = data_shard_for_process(mesh)
+            else:
+                shard_index = multihost.process_index()
+                shard_count = multihost.process_count()
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(
+                f"shard_index {shard_index} not in [0, {shard_count})")
+        self.shard_index = shard_index
+        self.shard_count = shard_count
         self._native = (hasattr(dataset, "supports_native_batch")
                         and dataset.supports_native_batch())
 
+    def _shard_len(self) -> int:
+        return len(self.dataset) // self.shard_count
+
     def steps_per_epoch(self) -> int:
-        n = len(self.dataset) // self.groups
-        if not self.drop_remainder and len(self.dataset) % self.groups:
+        n = self._shard_len() // self.groups
+        if not self.drop_remainder and self._shard_len() % self.groups:
             n += 1
         return n
 
@@ -91,6 +121,9 @@ class MetaBatchPipeline:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
+        if self.shard_count > 1:
+            usable = (len(order) // self.shard_count) * self.shard_count
+            order = order[:usable][self.shard_index::self.shard_count]
         self.dataset.reseed(self.seed * 1_000_003 + epoch)
         if self._native:
             yield from self._native_epoch_iter(order)

@@ -32,19 +32,26 @@ import torch.nn.functional as F
 from occm_tpu_torch.config import AASISTConfig, XLSRConfig
 from occm_tpu_torch.models.xlsr import SSLModel, dropout, train_generator
 from occm_tpu_torch.ops.pool import max_pool2d
+from occm_tpu_torch.parallel import collectives as C
+from occm_tpu_torch.parallel.mesh import batch_shard
 
 
 class _FlaxStats:
     """Train mode: torch's batch-statistics normalisation, with the running
     statistics updated from the biased batch variance, as
-    `flax.linen.BatchNorm` updates them; eval mode as torch. The state dict
-    is torch's (weight, bias, running_mean, running_var,
+    `flax.linen.BatchNorm` updates them; eval mode as torch. Inside a train
+    step whose batch is split over ranks, the statistics are the global
+    batch's (`_global_batch`). The state dict is torch's (weight, bias,
+    running_mean, running_var,
     num_batches_tracked)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        shard = batch_shard()
+        if shard is not None:
+            return self._global_batch(x, shard)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
@@ -53,6 +60,28 @@ class _FlaxStats:
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+    def _global_batch(self, x: torch.Tensor, shard) -> torch.Tensor:
+        """Train mode on a batch split over ranks: the statistics of the
+        GLOBAL batch, as GSPMD computes them, from sums all-reduced over
+        the data axes (two passes: the mean, then the biased variance
+        about it; gradients flow through both sums), and the running
+        statistics updated identically on every rank."""
+        dims = [0] + list(range(2, x.dim()))
+        view = [1, -1] + [1] * (x.dim() - 2)
+        count = (x.numel() // x.shape[1]) * shard.count
+        mean = C.reduce_sum(x.sum(dims), shard.group) / count
+        d = x - mean.view(view)
+        var = C.reduce_sum((d * d).sum(dims), shard.group) / count
+        y = d * torch.rsqrt(var.view(view) + self.eps)
+        y = y * self.weight.view(view) + self.bias.view(view)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
             self.num_batches_tracked.add_(1)
         return y
 

@@ -58,6 +58,18 @@ dropped layer still runs and is discarded with `where(keep, y, x)`, as the
 JAX package does (its parameters then get a zero gradient). Eval mode
 applies no dropout.
 
+Tensor parallelism (a `parallel.compute_mesh` with tp > 1): each rank holds
+its shards of the layers' projections (`parallel/sharding.py`: q/k/v and
+fc1 rows, out_proj and fc2 columns) and computes Megatron's split on them:
+its H/tp heads (flash or plain attention on [B, T, H/tp, D]) and its F/tp
+FFN columns; the row-parallel out_proj / fc2 partial products are summed
+over the tp group and their biases added once, after the sum (the fused
+FFN kernel gets a zero fc2 bias). The inputs of the column-parallel
+products pass Megatron's f (identity forward, all-reduce backward) and
+the sums are its g. Dropout masks are drawn whole and sliced to the
+rank's heads / columns. The int8 projections have no split: an int8 row
+quantised over a column shard is another function.
+
 The positional conv trains one folded kernel `weight` [C, C/G, K], as the
 JAX package does. Its state dict is fairseq's weight-norm pair: saving
 writes v = w and g = ||w|| (the JAX exporter's split), and loading folds
@@ -84,16 +96,21 @@ from occm_tpu_torch.ops.ffn import fused_ffn
 from occm_tpu_torch.ops.int8 import int8_matmul
 from occm_tpu_torch.ops.layernorm import fast_layer_norm
 from occm_tpu_torch.ops.pos_conv import pos_conv_grouped
+from occm_tpu_torch.parallel.collectives import copy_to, reduce_from
+from occm_tpu_torch.parallel.mesh import batch_shard, tp_group
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dt,
+def _linear(x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor], dt,
             tag: Optional[str] = None) -> torch.Tensor:
     """nn.Dense(dtype=dt): input, kernel and bias cast to dt (no-ops where
     they are dt already, as under the bf16 mirror); the product is named
-    `tag` for the remat policies."""
-    x, weight, bias = x.to(dt), weight.to(dt), bias.to(dt)
+    `tag` for the remat policies. bias None: the product alone (a
+    row-parallel shard's partial sum under tp)."""
+    x, weight = x.to(dt), weight.to(dt)
+    bias = None if bias is None else bias.to(dt)
     with remat.name(tag):
         return F.linear(x, weight, bias)
 
@@ -122,8 +139,19 @@ def _gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
 def dropout_keep(shape, p: float, gen: torch.Generator,
                  device) -> torch.Tensor:
     """The keep mask of a dropout site: True with probability 1 - p, drawn
-    from `gen` on its own device and placed on `device`."""
-    keep = torch.rand(shape, generator=gen, device=gen.device) >= p
+    from `gen` on its own device and placed on `device`. Inside a train
+    step whose batch is split over ranks (`parallel.mesh.sharded_batch`),
+    the mask is drawn for the global batch (dim 0 times the shard count)
+    and this rank's rows are taken, so every rank draws what one process
+    draws for the whole batch and the generators stay in step."""
+    shard = batch_shard()
+    if shard is not None and shard.count > 1 and len(shape) > 0:
+        rows = shape[0]
+        full = (rows * shard.count,) + tuple(shape[1:])
+        keep = torch.rand(full, generator=gen, device=gen.device) >= p
+        keep = keep[shard.index * rows:(shard.index + 1) * rows]
+    else:
+        keep = torch.rand(shape, generator=gen, device=gen.device) >= p
     return keep.to(device)
 
 
@@ -348,10 +376,12 @@ class SelfAttention(nn.Module):
         cfg = self.cfg
         dt = _DTYPES[cfg.dtype]
         ndt = _DTYPES[cfg.norm_dtype]
-        d, h = cfg.encoder_embed_dim, cfg.encoder_heads
-        hd = d // h
+        hd = cfg.encoder_embed_dim // cfg.encoder_heads
         B, T, _ = x.shape
         p = _params_of(self, self._names) if params is None else params
+        tp = tp_group()
+        if tp is not None:
+            x = copy_to(x, tp[0])
 
         def proj(y, name):
             if cfg.quant_int8:
@@ -360,9 +390,10 @@ class SelfAttention(nn.Module):
                            tag="attn_out" if name == "out_proj" else
                            f"attn_{name[0]}")
 
-        q = proj(x, "q_proj").reshape(B, T, h, hd)
-        k = proj(x, "k_proj").reshape(B, T, h, hd)
-        v = proj(x, "v_proj").reshape(B, T, h, hd)
+        # under tp the projections give this rank's H/tp heads
+        q = proj(x, "q_proj").reshape(B, T, -1, hd)
+        k = proj(x, "k_proj").reshape(B, T, -1, hd)
+        v = proj(x, "v_proj").reshape(B, T, -1, hd)
         if impl == "flash":
             # the kernel's output is named through a copy (models/remat.py)
             out = remat.kernel_output(flash_attention(q, k, v).to(dt),
@@ -384,7 +415,13 @@ class SelfAttention(nn.Module):
         else:
             raise NotImplementedError(
                 f"attention_impl={impl!r} is not ported (xla | flash)")
-        return proj(out.reshape(B, T, d), "out_proj")
+        out = out.reshape(B, T, -1)
+        if tp is None:
+            return proj(out, "out_proj")
+        # row-parallel out_proj: the partial product summed over tp, then
+        # the bias once
+        part = _linear(out, p["out_proj.weight"], None, dt, tag="attn_out")
+        return reduce_from(part, tp[0]) + p["out_proj.bias"].to(dt)
 
 
 class TransformerLayer(nn.Module):
@@ -435,8 +472,18 @@ class TransformerLayer(nn.Module):
                   (B, T, cfg.encoder_ffn_dim), (B, T, d))
         rates = (cfg.attention_dropout, cfg.dropout, cfg.activation_dropout,
                  cfg.dropout)
-        return tuple(dropout_keep(shape, p, gen, x.device) if p > 0.0
-                     else None for shape, p in zip(shapes, rates))
+        masks = [dropout_keep(shape, p, gen, x.device) if p > 0.0
+                 else None for shape, p in zip(shapes, rates)]
+        tp = tp_group()
+        if tp is not None:
+            # drawn whole on every rank (the generators stay in step); the
+            # rank keeps its heads and its FFN columns
+            _, n, i = tp
+            for j, dim in ((0, 1), (2, 2)):
+                if masks[j] is not None:
+                    size = masks[j].shape[dim] // n
+                    masks[j] = masks[j].narrow(dim, i * size, size)
+        return tuple(masks)
 
     def forward(self, x: torch.Tensor, impl: str,
                 masks=(None, None, None, None),
@@ -462,6 +509,12 @@ class TransformerLayer(nn.Module):
 
         residual = x
         h = self._norm(p, "final_layer_norm", x) if pre else x
+        tp = tp_group()
+        b2 = p["fc2.bias"]
+        if tp is not None:
+            h = copy_to(h, tp[0])
+            # row-parallel fc2: its bias is added once, after the sum
+            b2 = torch.zeros_like(b2)
         if cfg.quant_int8:
             # taken before ffn_impl, as in JAX: the int8 FFN in h's dtype
             h = _gelu(_int8_linear(h, p, "fc1"), cfg.gelu_approximate)
@@ -472,12 +525,14 @@ class TransformerLayer(nn.Module):
             # and W2 = fc2.weight^T (views; the kernel reads them untransposed)
             h = fused_ffn(h.to(dt), p["fc1.weight"].to(dt).t(),
                           p["fc1.bias"].to(dt), p["fc2.weight"].to(dt).t(),
-                          p["fc2.bias"].to(dt), cfg.gelu_approximate)
+                          b2.to(dt), cfg.gelu_approximate)
         else:
             h = _gelu(_linear(h, p["fc1.weight"], p["fc1.bias"], dt,
                               tag="fc1"), cfg.gelu_approximate)
             h = apply_keep(h, keep_act, cfg.activation_dropout)
-            h = _linear(h, p["fc2.weight"], p["fc2.bias"], dt)
+            h = _linear(h, p["fc2.weight"], None if tp else b2, dt)
+        if tp is not None:
+            h = reduce_from(h, tp[0]) + p["fc2.bias"].to(dt)
         h = apply_keep(h, keep_res2, cfg.dropout)
         x = residual + h
         if not pre:
@@ -523,6 +578,11 @@ class XLSREncoder(nn.Module):
         impl = attention_impl or cfg.attention_impl
         dt = _DTYPES[cfg.dtype]
         gen = train_generator(self, generator)
+        if cfg.quant_int8 and tp_group() is not None:
+            raise ValueError(
+                "quant_int8 has no tensor-parallel split (an int8 row "
+                "quantised over a column shard is another function); score "
+                "int8 on a data-parallel mesh")
         train_remat = self.training and torch.is_grad_enabled()
         if x.dim() == 3:  # the reference squeezes a trailing channel dim
             x = x[:, :, 0]

@@ -10,6 +10,11 @@
 - `BatchingQueue` groups concurrent single-utterance requests into one
   device call.
 
+`ScoringService(mesh=)` scores data-parallel over a list of local devices
+(`parallel/replicas.py`): each batch, rounded up to a multiple of the mesh
+size, is split into one row block per device and the embeddings gathered
+in order, as the JAX service shards its batch over a ("dp",) mesh.
+
 The JAX service's `aot_compile` and `export_stablehlo` are XLA-only and
 have no counterpart: PyTorch runs eagerly, and `warmup()` instead runs one
 zero batch per bucket, which also builds the CUDA kernels.
@@ -28,6 +33,7 @@ import torch
 
 from occm_tpu_torch.audio import pad_numpy
 from occm_tpu_torch.losses import pairwise_distance
+from occm_tpu_torch.parallel.replicas import as_dp_mesh, per_device, round_up
 from occm_tpu_torch.utils.device import resolve_device
 
 
@@ -60,16 +66,28 @@ class ScoringService:
         batch: int = 8,
         score_fn_factory: Optional[Callable[[int], Callable]] = None,
         device="cuda",
+        mesh=None,
     ):
         """score_fn_factory(bucket_samples) -> score_fn: per-bucket score
         functions (mutually exclusive with score_fn), the serving side of
         attention_impl="auto" (classify.impl_select).
 
         device: where batches and the reference live; "cuda" unless the
-        caller asks for "cpu". Raises when CUDA is asked for and absent."""
+        caller asks for "cpu". Raises when CUDA is asked for and absent.
+
+        mesh: an optional data-parallel mesh (`make_dp_mesh()` or a list of
+        devices): `batch` is rounded up to a multiple of its size, each
+        batch split over its devices, and a score fn is one callable per
+        mesh device or one that runs where its input lies; the first mesh
+        device takes the place of `device`."""
         if (score_fn is None) == (score_fn_factory is None):
             raise ValueError(
                 "pass exactly one of score_fn / score_fn_factory")
+        self.mesh = None
+        if mesh is not None:
+            self.mesh = as_dp_mesh(mesh)
+            batch = round_up(batch, self.mesh)
+            device = self.mesh.devices[0]
         self.device = resolve_device(device)
         self._fn = score_fn
         self._factory = score_fn_factory
@@ -91,8 +109,10 @@ class ScoringService:
 
     def _get(self, bucket: int) -> Callable:
         if bucket not in self._fns:
-            self._fns[bucket] = (self._fn if self._factory is None
-                                 else self._factory(bucket))
+            fn = self._fn if self._factory is None else self._factory(bucket)
+            if self.mesh is not None:
+                fn = per_device(fn, self.mesh)
+            self._fns[bucket] = fn
         return self._fns[bucket]
 
     def _bucket_for(self, n: int) -> int:
@@ -123,7 +143,10 @@ class ScoringService:
                 batch_arr = np.zeros((self.batch, bucket), np.float32)
                 for j, i in enumerate(chunk):
                     batch_arr[j] = pad_numpy(waves[i], bucket)
-                emb, _ = fn(torch.from_numpy(batch_arr).to(self.device))
+                x = torch.from_numpy(batch_arr)
+                if self.mesh is None:  # a mesh's blocks go to their devices
+                    x = x.to(self.device)
+                emb, _ = fn(x)
                 d = pairwise_distance(emb.float(), self.reference)
                 d = d.cpu().numpy()
                 for j, i in enumerate(chunk):

@@ -12,6 +12,12 @@ progress (epoch, dispatches consumed, optimizer steps, running loss sums);
 older step checkpoints are deleted only after a newer one is saved. Every
 file is written under a temporary name and renamed, so a run killed
 mid-save leaves the previous file whole.
+
+On a rank mesh the shards are gathered (a collective: every rank calls
+the save) and the primary rank writes the file, in exactly the
+single-GPU format, so a dp / fsdp / tp checkpoint scores and resumes on
+one GPU. Restoring into a placed state gathers it whole, loads, and
+places it again, so a one-GPU checkpoint resumes sharded.
 """
 
 from __future__ import annotations
@@ -21,6 +27,11 @@ import re
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from occm_tpu_torch.parallel import multihost
+from occm_tpu_torch.parallel.sharding import (
+    full_optimizer_state, full_parameters, place_state_on_mesh,
+    unplace_state)
 
 
 def checkpoint_path(directory: str, prefix: str, epoch: int) -> str:
@@ -39,17 +50,23 @@ def _cpu(tree):
 
 
 def _payload(state) -> Dict:
-    return {"model": _cpu(state.model.state_dict()),
-            "optimizer": _cpu(state.optimizer_state()),
+    """The state whole (its shards gathered on a mesh), on the CPU."""
+    with full_parameters(state):
+        model = _cpu(state.model.state_dict())
+    return {"model": model,
+            "optimizer": _cpu(full_optimizer_state(state)),
             "step": state.step,
             "rng": state.generator.get_state()}
 
 
 def _write(payload: Dict, path: str) -> str:
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    """The primary rank writes; every rank waits for the file."""
+    if multihost.is_primary():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    multihost.barrier()
     return path
 
 
@@ -89,22 +106,30 @@ def save_step_checkpoint(state, directory: str, prefix: str,
     n = int(progress["opt_steps"])
     path = _write({**_payload(state), "progress": dict(progress)},
                   step_checkpoint_path(directory, prefix, n))
-    pattern = _step_re(prefix)
-    for name in os.listdir(directory):
-        m = pattern.match(name)
-        if m and int(m.group(1)) != n:
-            os.remove(os.path.join(directory, name))
+    if multihost.is_primary():
+        pattern = _step_re(prefix)
+        for name in os.listdir(directory):
+            m = pattern.match(name)
+            if m and int(m.group(1)) != n:
+                os.remove(os.path.join(directory, name))
+    multihost.barrier()
     return path
 
 
 def _apply(state, payload: Dict) -> None:
     """Load a checkpoint's payload into `state` in place (parameters,
-    BatchNorm statistics, optimizer state, step, generator)."""
+    BatchNorm statistics, optimizer state, step, generator); a state
+    placed on a mesh is gathered whole, loaded and placed again."""
+    placed = bool(state.placements)
+    if placed:
+        unplace_state(state)
     state.model.load_state_dict(payload["model"], strict=True)
     state.load_optimizer_state(payload["optimizer"])
     state.set_step(int(payload["step"]))
     if "rng" in payload:
         state.generator.set_state(payload["rng"])
+    if placed:
+        place_state_on_mesh(state, state.mesh)
 
 
 def _load(path: str) -> Dict:

@@ -31,6 +31,12 @@ What the graph holds fixed, and why it stays right:
   capturable (step on the device, as in eager steps) and reads its lr
   from a device tensor, which each captured step copies from a [k]
   buffer that the host fills from the schedule before the replay;
+- the collectives of a step on a mesh (NCCL; warmed up by the eager step,
+  on the capture stream, before the capture): the gradient all-reduce,
+  the BatchNorm sums and the loss's all-gather run inside the graph, and
+  the fsdp all-gathers and reduce-scatters too, into tensors of the
+  graph's pool (the `.data` swaps between a shard and its gathered whole
+  are host-side and land on the same shard storage after every replay);
 - every pointer the kernels' launches and TMA descriptors baked in:
   parameters, moments and buffers keep their storage (nothing here calls
   `.to()` or replaces a `.data` after the capture).
@@ -50,6 +56,12 @@ import torch
 
 from occm_tpu_torch.ops import launch_counts
 from occm_tpu_torch.ops.fused_adam import FusedAdam
+
+
+def _key(xs: np.ndarray, replicated: bool) -> Tuple:
+    """A capture's key: the chunk's shape (and "replicated" for a chunk
+    every rank holds whole)."""
+    return tuple(xs.shape) + (("replicated",) if replicated else ())
 
 
 class _Captured:
@@ -83,14 +95,17 @@ class GraphedSteps:
         #: graph launches
         self.replays = 0
 
-    def run(self, xs: np.ndarray, labels: np.ndarray) -> Dict:
+    def run(self, xs: np.ndarray, labels: np.ndarray,
+            replicated: bool = False) -> Dict:
         """k steps on a chunk: metrics as device tensors, "loss", "closs",
         "dloss" the chunk's means and "step_loss", "step_closs",
-        "step_dloss", "step_lr" each step's [k]."""
-        shape = tuple(xs.shape)
+        "step_dloss", "step_lr" each step's [k]. On a mesh the chunk is
+        this rank's rows (`replicated`: every rank's whole batch; see
+        `train_step`)."""
+        shape = _key(xs, replicated)
         cap = self._graphs.get(shape)
         if cap is None:
-            cap = self._capture(xs, labels)
+            cap = self._capture(xs, labels, replicated)
         self._load(cap, xs, labels)
         cap.graph.replay()
         self.replays += 1
@@ -115,7 +130,8 @@ class GraphedSteps:
             cap.lrs.copy_(torch.tensor(lrs, dtype=torch.float32)
                           .pin_memory(), non_blocking=True)
 
-    def _capture(self, xs: np.ndarray, labels: np.ndarray) -> _Captured:
+    def _capture(self, xs: np.ndarray, labels: np.ndarray,
+                 replicated: bool) -> _Captured:
         from occm_tpu_torch.train.loop import train_step
 
         state, cfg, dev = self.state, self.cfg, self.device
@@ -132,7 +148,8 @@ class GraphedSteps:
         saved = self._snapshot()
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            train_step(state, cap.xs[0], cap.labels[0], cfg)
+            train_step(state, cap.xs[0], cap.labels[0], cfg,
+                       replicated=replicated)
         torch.cuda.current_stream(dev).wait_stream(stream)
         self._restore(saved)
         del saved
@@ -150,7 +167,8 @@ class GraphedSteps:
         with torch.cuda.graph(cap.graph, stream=stream):
             for i in range(k):
                 lr = cap.lrs[i] if state.schedule is not None else None
-                m = train_step(state, cap.xs[i], cap.labels[i], cfg, lr=lr)
+                m = train_step(state, cap.xs[i], cap.labels[i], cfg, lr=lr,
+                               replicated=replicated)
                 for j, key in enumerate(("loss", "closs", "dloss")):
                     cap.out[i, j].copy_(m[key])
                 cap.out[i, 3].copy_(lr_t)
@@ -158,7 +176,7 @@ class GraphedSteps:
         state.step = step0
         for p in params:
             p.grad = None
-        shape = tuple(xs.shape)
+        shape = _key(xs, replicated)
         self._graphs[shape] = cap
         self.capture_launches[shape] = {n: after[n] - before[n]
                                         for n in after}

@@ -1,4 +1,5 @@
-"""One-class training loop on one GPU (port of `occm_tpu.train.loop`).
+"""One-class training loop on one GPU or over a rank mesh (port of
+`occm_tpu.train.loop`).
 
 Semantics of the JAX package's loop (reference: oc_training.py:344-401):
 - meta-batches of 12 (6 bona + 1 spoof + 5 vocoded), G of them stacked
@@ -40,17 +41,27 @@ the augmentation and the masks the uninterrupted run would have drawn.
 
 from __future__ import annotations
 
+import contextlib
 import signal
 import threading
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from occm_tpu_torch.augment import batch_rawboost
+from occm_tpu_torch.augment.rawboost import draw_rawboost, process_rawboost
 from occm_tpu_torch.config import TrainConfig
 from occm_tpu_torch.data.pipeline import chunk_batches
 from occm_tpu_torch.losses import (
     AngleLossState, angle_loss, descriptiveness_loss, group_one_class_loss)
+from occm_tpu_torch.parallel import collectives as C
+from occm_tpu_torch.parallel import multihost
+from occm_tpu_torch.parallel.mesh import (
+    batch_shard, compute_mesh, data_index, data_parallel_size, make_mesh,
+    sharded_batch)
+from occm_tpu_torch.parallel.sharding import (
+    gather_fsdp_params, local_rows, place_state_on_mesh, reduce_gradients)
 from occm_tpu_torch.train.state import TrainState, create_train_state
 from occm_tpu_torch.utils.device import resolve_device
 from occm_tpu_torch.utils.logging import MetricsLogger
@@ -60,6 +71,14 @@ def _loss(state: TrainState, x, labels, cfg: TrainConfig, weights):
     """The train-mode forward and its loss by `state.output_kind`, as the
     JAX step body composes them -> (loss, (c_loss, d_loss))."""
     out = state.model(x, generator=state.generator)
+    shard = batch_shard()
+    if shard is not None:
+        # the loss of the GLOBAL batch on every rank: the outputs gathered
+        # (differentiably) over the data axes, in data-shard order
+        out = _tree(out, lambda t: C.gather_rows(t, shard.group))
+        labels = C.all_gather_cat(labels, shard.group)
+        if weights is not None:
+            weights = C.all_gather_cat(weights, shard.group)
     kind = state.output_kind
     cw, dw = cfg.compactness_weight, cfg.descriptiveness_weight
     if kind == "dual":
@@ -85,9 +104,48 @@ def _loss(state: TrainState, x, labels, cfg: TrainConfig, weights):
     return dw * d_loss, (torch.zeros_like(d_loss), d_loss)
 
 
+def _tree(out, fn):
+    if isinstance(out, (tuple, list)):
+        return type(out)(_tree(o, fn) for o in out)
+    return fn(out)
+
+
+def _rawboost(gen: torch.Generator, x: torch.Tensor, cfg) -> torch.Tensor:
+    """RawBoost on the step's batch; on a batch split over ranks, the
+    draws are made for the global batch and this rank's rows taken (every
+    rank draws what one process draws, and the generators stay in
+    step)."""
+    shard = batch_shard()
+    if shard is None or shard.count == 1 or cfg.algo == 0:
+        return batch_rawboost(gen, x, cfg)
+    n = x.shape[0]
+    draws = draw_rawboost(cfg, n * shard.count, x.shape[-1], gen)
+    draws = {stage: {k: v[shard.index * n:(shard.index + 1) * n]
+                     for k, v in d.items()} for stage, d in draws.items()}
+    return process_rawboost(x, draws, cfg)
+
+
+@contextlib.contextmanager
+def _on_mesh(state: TrainState, replicated: bool):
+    if state.mesh is None:
+        yield
+        return
+    with compute_mesh(state.mesh), sharded_batch(state.mesh, replicated):
+        yield
+
+
+def _accum(cfg: TrainConfig, global_rows: int) -> int:
+    """The micro-batch count of a batch of `global_rows` rows: cfg's
+    grad_accum when it divides the batch's group count, else 1."""
+    accum = max(1, cfg.grad_accum)
+    if accum > 1 and (global_rows // cfg.meta_batch) % accum:
+        accum = 1
+    return accum
+
+
 def train_step(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
                cfg: TrainConfig, weights: Optional[torch.Tensor] = None,
-               lr=None) -> Dict[str, torch.Tensor]:
+               lr=None, replicated: bool = False) -> Dict[str, torch.Tensor]:
     """Forward in train mode, group one-class loss, backward, optimizer
     step. x [G*12, T] and labels [G*12] on the model's device; weights:
     an optional [G*12] 0/1 utterance mask, constant within each
@@ -105,13 +163,37 @@ def train_step(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
     one's backward is scaled by its share r_i = sum(w_i) / sum(w) (1/a
     without weights), so the gradients summed in .grad are the big batch's
     and sum_i r_i * loss_i its loss (`occm_tpu/train/loop.py:234-300`). A
-    ragged tail whose group count a does not divide takes one pass."""
+    ragged tail whose group count a does not divide takes one pass.
+
+    On a mesh (`state.mesh`, placed by `parallel.place_state_on_mesh`) x,
+    labels and weights are this rank's rows of the global batch (ranks of
+    one tp group hold the same rows), or with `replicated` the whole batch
+    on every rank. The step computes the global batch's step: BatchNorm
+    statistics over the data axes, the loss of the gathered outputs,
+    dropout masks and RawBoost drawn for the global batch and sliced; the
+    fsdp shards are gathered before the forward and the gradients summed
+    (reduce-scattered to the shards) over the data axes before the
+    optimizer, which updates only this rank's shards. Under grad_accum the
+    rank's rows are its parts of each global micro-batch, in order
+    (`parallel.sharding.local_rows`)."""
     state.model.train()
+    with _on_mesh(state, replicated):
+        swaps = gather_fsdp_params(state) if state.mesh is not None else []
+        metrics = _step_body(state, x, labels, cfg, weights)
+        if state.mesh is not None:
+            reduce_gradients(state, swaps, replicated)
+    state.apply_gradients(lr)
+    return metrics
+
+
+def _step_body(state, x, labels, cfg, weights):
+    """RawBoost, the forward(s) and backward(s) of train_step; returns its
+    metrics, the gradients left in .grad."""
     if cfg.rawboost.algo != 0:
-        x = batch_rawboost(state.generator, x, cfg.rawboost)
-    accum = max(1, cfg.grad_accum)
-    if accum > 1 and (x.shape[0] // cfg.meta_batch) % accum:
-        accum = 1
+        x = _rawboost(state.generator, x, cfg.rawboost)
+    shard = batch_shard()
+    count = 1 if shard is None else shard.count
+    accum = _accum(cfg, x.shape[0] * count)
     if accum == 1:
         loss, (c_loss, d_loss) = _loss(state, x, labels, cfg, weights)
         loss.backward()
@@ -120,12 +202,16 @@ def train_step(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
     else:
         mb = x.shape[0] // accum
         if weights is not None:
-            total = torch.clamp(torch.sum(weights), min=1.0)
+            # the global batch's weights: the shares are of its sums
+            w_all = weights if shard is None else C.all_gather_cat(
+                weights, shard.group)
+            w_micro = w_all.reshape(count, accum, mb).sum(dim=(0, 2))
+            total = torch.clamp(torch.sum(w_all), min=1.0)
         metrics = {}
         for i in range(accum):
             part = slice(i * mb, (i + 1) * mb)
             w_i = None if weights is None else weights[part]
-            r_i = 1.0 / accum if w_i is None else torch.sum(w_i) / total
+            r_i = 1.0 / accum if w_i is None else w_micro[i] / total
             loss, (c_loss, d_loss) = _loss(state, x[part], labels[part], cfg,
                                            w_i)
             (r_i * loss).backward()
@@ -133,7 +219,6 @@ def train_step(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
                                ("dloss", d_loss)):
                 term = r_i * value.detach()
                 metrics[key] = term if i == 0 else metrics[key] + term
-    state.apply_gradients(lr)
     return metrics
 
 
@@ -153,6 +238,7 @@ def train(
     on_step: Optional[Callable[[int, Dict[str, torch.Tensor]], None]] = None,
     resume: bool = False,
     output_kind: str = "dual",
+    mesh=None,
 ) -> TrainState:
     """Train `model` (an nn.Module whose output `output_kind` names, see
     `train.state.OUTPUT_KINDS`) on `pipeline.epoch(e)` batches of numpy
@@ -167,11 +253,35 @@ def train(
     `<checkpoint_prefix>_<e>.pt` of cfg.checkpoint_dir, then a newer step
     checkpoint, whose epoch is replayed: its consumed dispatches are read
     from the pipeline and skipped without being uploaded. Returns the final
-    TrainState (after a SIGTERM, the state it saved)."""
+    TrainState (after a SIGTERM, the state it saved).
+
+    Multi-GPU (`mesh`, else `parallel.make_mesh(cfg.mesh)` over the process
+    group's ranks; `device` is this rank's): after the resume the state is
+    placed on the mesh (each rank keeps its tp / fsdp shards), and every
+    step is the global batch's (`train_step`). A pipeline sharded over the
+    data axes (`shard_count` > 1, `parallel.data_shard_for_process`) gives
+    each rank its own batches, and a ragged tail is repeat-padded to the
+    full local shape with a 0/1 weight mask (JAX's multi-process tail);
+    an unsharded pipeline gives every rank the global batch, of which it
+    takes its rows, and a tail the data axes do not divide is replicated
+    on every rank. Only the primary rank writes loss.txt, metrics.jsonl
+    and checkpoints (which gather the shards, so every rank calls
+    checkpoint_fn). A CUDA graph of k steps captures NCCL's collectives;
+    Gloo's cannot be captured, so k > 1 on a card over Gloo raises."""
     dev = resolve_device(device)
+    if mesh is None:
+        mesh = make_mesh(cfg.mesh)
+    distributed = bool(mesh.groups)
+    if not multihost.is_primary():
+        logger = MetricsLogger(loss_txt=None, jsonl=None)
     logger = logger or MetricsLogger(loss_txt=cfg.loss_txt)
     k = max(1, cfg.steps_per_dispatch)
     graphed = dev.type == "cuda" and k > 1
+    if graphed and distributed and mesh.backend() == "gloo":
+        raise ValueError(
+            f"steps_per_dispatch={k} on a card needs its collectives inside "
+            "a CUDA graph, and Gloo's cannot be captured: train over NCCL "
+            "(one rank per GPU) or with steps_per_dispatch 1")
     state = create_train_state(model.to(dev), cfg, output_kind)
 
     start_epoch, progress = 0, None
@@ -199,6 +309,15 @@ def train(
                 logger.log_jsonl(event="resume_step", epoch=start_epoch,
                                  opt_steps=int(progress["opt_steps"]))
 
+    if distributed:
+        place_state_on_mesh(state, mesh)
+    n_data = data_parallel_size(mesh) if distributed else 1
+    sharded_epoch = getattr(pipeline, "shard_count", 1) > 1
+    if n_data > 1 and sharded_epoch and pipeline.shard_count != n_data:
+        raise ValueError(
+            f"the pipeline's epoch is in {pipeline.shard_count} shards, the "
+            f"mesh's data axes in {n_data}")
+
     runner = None
     if graphed:
         from occm_tpu_torch.train.graph import GraphedSteps
@@ -208,15 +327,50 @@ def train(
     def upload(a, dtype):
         return torch.as_tensor(a).to(dtype).to(dev, non_blocking=True)
 
+    full = cfg.groups_per_step * cfg.meta_batch
+
+    def local(x, labels):
+        """This rank's rows of one batch: (x, labels, weights,
+        replicated)."""
+        if n_data == 1:
+            return x, labels, None, False
+        if sharded_epoch:
+            w = None
+            if x.shape[0] != full:
+                # repeat whole meta-batches to the full local shape; the
+                # weights zero the padding, so the update is the mean over
+                # the real groups
+                m = x.shape[0]
+                reps = -(-full // m)
+                x = np.concatenate([x] * reps)[:full]
+                labels = np.concatenate([labels] * reps)[:full]
+                w = np.concatenate([np.ones((m,), np.float32),
+                                    np.zeros((full - m,), np.float32)])
+            return x, labels, w, False
+        accum = _accum(cfg, x.shape[0])
+        if x.shape[0] % (n_data * accum):
+            # a ragged tail the data axes do not divide: every rank takes it
+            # whole (the gradient sums are divided by the data-axis size)
+            return x, labels, None, True
+        i = data_index(mesh)
+        return (local_rows(x, i, n_data, accum),
+                local_rows(labels, i, n_data, accum), None, False)
+
     def dispatch(kind, x, labels):
         if kind == "single":
+            x, labels, w, rep = local(x, labels)
             return train_step(state, upload(x, torch.float32),
-                              upload(labels, torch.long), cfg)
+                              upload(labels, torch.long), cfg,
+                              None if w is None else upload(w, torch.float32),
+                              replicated=rep)
+        parts = [local(x[i], labels[i]) for i in range(k)]
+        rep = parts[0][3]
         if runner is not None:
-            return runner.run(x, labels)
-        steps = [train_step(state, upload(x[i], torch.float32),
-                            upload(labels[i], torch.long), cfg)
-                 for i in range(k)]  # on the CPU: the same k steps eagerly
+            return runner.run(np.stack([p[0] for p in parts]),
+                              np.stack([p[1] for p in parts]), rep)
+        steps = [train_step(state, upload(xi, torch.float32),
+                            upload(li, torch.long), cfg, replicated=rep)
+                 for xi, li, _, _ in parts]  # on the CPU: k eager steps
         metrics = _stack_mean(steps)
         for key in ("loss", "closs", "dloss"):
             metrics["step_" + key] = torch.stack([m[key] for m in steps])
@@ -244,7 +398,6 @@ def train(
              "running_dloss": running["dloss"]})
 
     epochs = num_epochs if num_epochs is not None else cfg.num_epochs
-    full = cfg.groups_per_step * cfg.meta_batch
     try:
         for epoch in range(start_epoch, epochs):
             # opt_steps counts OPTIMIZER steps: a chunk is k of them, and
@@ -282,6 +435,11 @@ def train(
                         epoch=epoch, step=opt_steps - 1,
                         **{key: running[key] / opt_steps for key in running})
                 every = cfg.checkpoint_every_steps
+                if every > 0 and distributed:
+                    # a SIGTERM seen by one rank stops them all here
+                    sigterm[0] = C.all_reduce_max_flag(
+                        sigterm[0], mesh.group("world"), _flag_device(mesh,
+                                                                      dev))
                 if every > 0 and (sigterm[0]
                                   or prev // every != opt_steps // every):
                     _fold(pending, running)
@@ -298,6 +456,12 @@ def train(
             signal.signal(signal.SIGTERM, signal.SIG_DFL if handler is None
                           else handler)
     return state
+
+
+def _flag_device(mesh, dev: torch.device) -> torch.device:
+    """Where a rank's small host-decided collectives run: its card under
+    NCCL, the CPU under Gloo."""
+    return dev if mesh.backend() == "nccl" else torch.device("cpu")
 
 
 def _fold(pending, running) -> None:

@@ -21,6 +21,13 @@ same update; on the CPU it is the plain Adam with a float lr. Optimizer
 state moves in and out in one form for both, keyed by parameter name:
 {"kind", "count", "mu": {name: tensor}, "nu": {name: tensor}}, the form
 `optimizer_state_from_flax` gives.
+
+On a mesh (`parallel.place_state_on_mesh`: `mesh` and `placements` set)
+the parameters and moments this rank holds are its shards (tp and fsdp),
+and `optimizer_state()` gives them as they are held; the checkpoints
+gather them whole (`parallel.sharding.full_optimizer_state`). The
+optimizer steps only the local shards and moments: FusedAdam's one
+multi-tensor launch runs over the shards.
 """
 
 from __future__ import annotations
@@ -74,6 +81,10 @@ class TrainState:
     output_kind: str = "dual"
     #: the step count on the generator's device (made from `step`)
     step_t: Optional[torch.Tensor] = None
+    #: the rank mesh the state is placed on (`parallel.place_state_on_mesh`)
+    #: and its placement table by parameter name ({}: whole on every rank)
+    mesh: Optional[object] = None
+    placements: Dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.output_kind not in OUTPUT_KINDS:

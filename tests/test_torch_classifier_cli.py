@@ -178,10 +178,13 @@ def test_embed_cli_matches_jax_embed_cli(tree, tmp_path):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("extra, item", [
-    (("--data_parallel", "2"), "item 15")])
-def test_unported_modes_and_flags_raise(tree, tmp_path, extra, item):
+@pytest.mark.parametrize("extra, error, match", [
+    (("--data_parallel", "2"), ValueError, "only 1 present")],
+    ids=["extra0-item 15"])
+def test_unported_modes_and_flags_raise(tree, tmp_path, extra, error, match):
+    """--data_parallel is ported (ROADMAP item 15a): 2 devices on the CPU,
+    which is one, raise as JAX's make_dp_mesh does, before any score."""
     argv = _args(tree, "1c2", tmp_path / "s.txt") + list(extra)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         oc_classifier.main(argv)
     assert not (tmp_path / "s.txt").exists()

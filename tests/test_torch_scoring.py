@@ -213,7 +213,8 @@ def test_reference_cache_is_loaded_and_nothing_embedded(sides, tmp_path):
 
 
 def test_mesh_and_argument_errors_raise():
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
+    # data-parallel scoring takes a one-axis mesh of devices only
+    with pytest.raises(ValueError, match="one axis"):
         BucketedEmbedder(lambda x: (x, x), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="exactly one"):
         BucketedEmbedder(device="cpu")

@@ -200,8 +200,10 @@ def test_oc_server_unported_flags_raise(tmp_path, flag):
     argv = ["--artifacts_dir", str(tmp_path), "--xlsr_tiny",
             "--allow_random_init", "--device", "cpu", flag]
     if flag == "--data_parallel":
+        # ported (ROADMAP item 15a): 2 devices on the CPU, which is one,
+        # raise as JAX's make_dp_mesh does
         argv.append("2")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="only 1 present"):
         oc_server.main(argv)
 
 

@@ -82,7 +82,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    batches in the plain configuration (xla attention, LayerNorm and FFN,
    torch Adam). Checks each kernel's launches per step and the per-step
    losses within a stated bound; prints step times and peak memory.
-8. the training controls at full width (12 x 6 s, flash attention,
+8. the training controls at full width and DEPTH (6) layers of XLS-R
+   300M's 24, as in phases 10, 12 and 13 and their CLI runs (12 x 6 s,
+   flash attention,
    ln_impl and ffn_impl "pallas", remat, AASIST dropouts zeroed unless
    said), each against the eager loop from the same weights and batches
    under deterministic algorithms, with loss bounds derived in
@@ -120,7 +122,8 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    outputs; one call captured in a CUDA graph, its replays equal to eager
    calls bit for bit; per algo the time of a call with its draws (CUDA
    events), its device time and device launches (torch.profiler).
-10. training with RawBoost at full width (phase 8's configuration): algo 5
+10. training with RawBoost at full width and DEPTH layers (phase 8's
+   configuration): algo 5
    with AASIST's dropouts as 2 CUDA graph launches of 3 steps against 6
    eager steps, bit for bit under deterministic algorithms; step wall ms
    eager and as a graph of 3 steps, algo 0 against algo 5, in turns, and
@@ -134,42 +137,42 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    XLSREncoder (load time; every tensor equal to the file bit for bit, the
    positional conv within FOLD_RTOL of the fp64 weight-norm fold), then
    one CLI training step from each with a finite loss, the two equal.
-12. the other models at full width (XLSR-300M, random weights from seed
-   0, 12 x 6 s meta-batches, every kernel: flash attention, ln_impl and
-   ffn_impl "pallas", fused_adam; RawBoost off, the backends' dropouts
-   on): for each of ssl_resnet34, ssl_lcnn, ssl_lcnn_asoftmax, occm and
-   cnn, one after another, 3 eager steps against the same 3 as one CUDA
-   graph under deterministic algorithms, bit for bit (losses, weights;
-   the angle loss's lambda moves inside the graph), each kernel's
-   launches a step exact (XLSR's do not depend on the backend), step
-   wall ms eager and as the graph, device busy share, peak memory. Then
-   through the CLIs: `oc_training --model ssl_resnet34` for an epoch,
-   `oc_classifier --mode 1c1` and `2c1` from its checkpoint and from the
-   ssl_vocoded / senet34_vocoded pair split off it (equal score files,
-   distances within SCORE_RTOL of a direct SSLResNet34 forward, EER in
-   [0, 1]), and `oc_training --model ssl_lcnn_asoftmax
+12. the other models at full width and DEPTH layers (XLSR-300M's widths,
+   random weights from seed 0, 12 x 6 s meta-batches, every kernel: flash
+   attention, ln_impl and ffn_impl "pallas", fused_adam; RawBoost off, the
+   backends' dropouts on): for each of ssl_resnet34, ssl_lcnn,
+   ssl_lcnn_asoftmax, occm and cnn, one after another, 3 eager steps
+   against the same 3 as one CUDA graph under deterministic algorithms,
+   bit for bit (losses, weights; the angle loss's lambda moves inside the
+   graph), each kernel's launches a step exact (XLSR's do not depend on
+   the backend), step wall ms eager and as the graph, device busy share,
+   peak memory. Then through the CLIs: `oc_training --model ssl_resnet34`
+   for an epoch, `oc_classifier --mode 1c1` and `2c1` from its checkpoint
+   and from the ssl_vocoded / senet34_vocoded pair split off it (equal
+   score files, distances within SCORE_RTOL of a direct SSLResNet34
+   forward, EER in [0, 1]), and `oc_training --model ssl_lcnn_asoftmax
    --steps_per_dispatch 3` for one chunk.
-13. remat and fast numerics at full width (AModel, XLSR-300M, random
-   weights from seed 0, 12 x 6 s, fused_adam, AASIST dropouts on, under
-   deterministic algorithms): each of the six remat policies with every
-   kernel (flash attention, ln_impl and ffn_impl "pallas"), from the same
-   weights: 3 eager steps equal bit for bit (losses, weights) to
-   "nothing"'s, the same 3 as one CUDA graph equal to them, each kernel's
-   launches a step exact, the peak memory of an eager step and what it
-   holds when its forward ends, the step's wall ms as the graph and its
-   device-busy share; attn_out_inner, attn_probs and dots again with plain
-   attention against that path's "nothing". The bf16 parameter mirror
-   against its plain definition (the stack cast by hand outside the
-   model, 3 eager steps bit for bit). Fast numerics (--fast_numerics' five
-   fields) against exact: at the same weights before each of 3 steps, the
-   encoder's features within FAST_FEATURE_RTOL and its gradient's cosine
-   above FAST_GRAD_COSINE (the losses printed beside the loss's own
-   sensitivity); graph wall, peak, busy share; flash against xla attention
-   under fast numerics as graphs in turns and as scoring utt/s at 2, 6 and
-   12 s (the measurement behind impl_select's threshold under fast
-   numerics). Then `oc_training --fast_numerics` for an epoch of 6 steps
-   and `--fast_numerics --attention_impl flash --steps_per_dispatch 3`
-   for one chunk.
+13. remat and fast numerics at full width and DEPTH layers (AModel,
+   XLSR-300M's widths, random weights from seed 0, 12 x 6 s, fused_adam,
+   AASIST dropouts on, under deterministic algorithms): each of the six
+   remat policies with every kernel (flash attention, ln_impl and ffn_impl
+   "pallas"), from the same weights: 3 eager steps equal bit for bit
+   (losses, weights) to "nothing"'s, the same 3 as one CUDA graph equal to
+   them, each kernel's launches a step exact, the peak memory of an eager
+   step and what it holds when its forward ends, the step's wall ms as the
+   graph and its device-busy share; attn_out_inner, attn_probs and dots
+   again with plain attention against that path's "nothing". The bf16
+   parameter mirror against its plain definition (the stack cast by hand
+   outside the model, 3 eager steps bit for bit). Fast numerics
+   (--fast_numerics' five fields) against exact: at the same weights
+   before each of 3 steps, the encoder's features within FAST_FEATURE_RTOL
+   and its gradient's cosine above FAST_GRAD_COSINE (the losses printed
+   beside the loss's own sensitivity); graph wall, peak, busy share; flash
+   against xla attention under fast numerics as graphs in turns and as
+   scoring utt/s at 2, 6 and 12 s (the measurement behind impl_select's
+   threshold under fast numerics). Then `oc_training --fast_numerics` for
+   an epoch of 6 steps and `--fast_numerics --attention_impl flash
+   --steps_per_dispatch 3` for one chunk.
 14. the native IO lane (`occm_tpu_torch.io.native`: threaded C++ decode,
    header length probes, streamed FLAC) on the host: on phase 4's eval
    set (16 WAVs of 3-13 s), FLAC copies of it and a 60 s FLAC request
@@ -228,7 +231,18 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    per rank (of two ranks sharing one card, not a multi-GPU speedup);
    the kernels at
    those shapes through phase 3's harness (the kernels line's "tp2",
-   "dp2" and "fsdp2" rows); `oc_training --dp 1` in a torchrun
+   "dp2" and "fsdp2" rows). The GPipe pipeline pp=2 with 4 microbatches
+   (step 1 and step 2 from the restored one-GPU checkpoint, held as dp
+   is; per-layer launches the single process's x M / S, fused_adam once,
+   at a microbatch's shapes; each stage's held bytes about 0.52 of the
+   one process's; the bubble) and tp=2 with seq_parallel (one step; its
+   encoder held to the single process's and to tp=2's; launches tp=2's,
+   the LayerNorm backward on a frame block; step-1 peak memory beside
+   tp=2's), and their kernels' "pp2" and "sp2" rows; `oc_training --pp 2
+   --pp_microbatches 4` over two ranks sharing cuda:0 (Gloo), whose
+   one-GPU checkpoint one process loads with strict=True (NCCL's
+   point-to-point path needs two cards and is not run here).
+   `oc_training --dp 1` in a torchrun
    environment of world size 1 (NCCL), --steps_per_dispatch 3 with the
    collectives captured in the CUDA graph, bit for bit with 1;
    `oc_classifier --mode 2c2` and `oc_server` with --data_parallel -1
@@ -239,7 +253,8 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    ffn_impl="pallas", and for one full training step (12 x 6 s).
 19. prints {"kernels": [...]} (each entry with phase 15's row at base's
    shapes under "base" and phase 17's at the per-rank shapes under "tp2",
-   "dp2" or "fsdp2"), then {"ok": true, "device": {...}} last.
+   "dp2" or "fsdp2", "pp2" and "sp2"), then {"ok": true, "device":
+   {...}} last.
 A full run makes phase 15's, 16's and 17's kernel checks right after
 phase 3's, and phases 15 and 16's other parts before phase 14 (see
 main).
@@ -250,6 +265,8 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -336,32 +353,47 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: profiler sessions a device time may take (a session may lose records)
+PROFILE_TRIES = 8
+
+
 def device_ms(fn, names, iters: int = 20, warmup: int = 3,
-              tries: int = 5, whole_others: bool = True):
+              whole_others: bool = True, counters=()):
     """Device time of fn's own kernels per call: torch.profiler's CUDA
     events over `iters` calls, those whose name holds one of `names` summed
     and divided by `iters`. Returns (ms, their launches per call, all
-    device launches per call).
+    device launches per call, None or "kept/expected" named events).
 
     fn launches the same kernels on every call, so a session whose event
     counts are not multiples of `iters` has lost records: on the H100 a
     rare session records no device event, or drops a few, with or without
     CUPTI's teardown between sessions. Such a session is repeated, up to
-    `tries` sessions in all. whole_others=False keeps a session whose
+    PROFILE_TRIES sessions in all. whole_others=False keeps a session whose
     named events alone are whole multiples (what is timed), whatever the
-    count of fn's other launches."""
+    count of fn's other launches. `counters`: the kernel wrappers' launch
+    counters of the named kernels (KERNEL_NAMES' keys). With them, and
+    iters >= 20, a session after the first that lost exactly one named
+    record (the wrappers' count less one; the other events whole, under
+    whole_others) is timed as the mean of the kept events times the
+    wrappers' launches a call: on the H100, in some calls every session
+    lost one record (the LayerNorm backward at [1800, 1024] kept 19 of 20
+    events). The launches a call it returns are then the wrappers'."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from occm_tpu_torch.ops import launch_counts
+
     for _ in range(warmup):
         fn()
-    for attempt in range(1, tries + 1):
+    for attempt in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
+        before = launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        after = launch_counts()
         us, own, every = 0.0, 0, 0
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -372,16 +404,30 @@ def device_ms(fn, names, iters: int = 20, warmup: int = 3,
                 own += 1
         if every and own % iters == 0 and (every % iters == 0
                                            or not whole_others):
-            break
-        print(f"[profile] session {attempt} of {tries} for {names} lost "
-              f"records: {every} device events, {own} of them named, over "
-              f"{iters} calls", file=sys.stderr, flush=True)
-    else:
-        fail(f"profile: {tries} sessions for {names} all lost records")
-    if own == 0:
-        fail(f"profile: no device event named {names} "
-             f"({every / iters} device events a call)")
-    return us / iters / 1e3, own / iters, every / iters
+            if own == 0:
+                fail(f"profile: no device event named {names} "
+                     f"({every / iters} device events a call)")
+            return us / iters / 1e3, own / iters, every / iters, None
+        print(f"[profile] session {attempt} of {PROFILE_TRIES} for {names} "
+              f"lost records: {every} device events, {own} of them named, "
+              f"over {iters} calls", file=sys.stderr, flush=True)
+        want = sum((after[c] - before[c]) * KERNEL_NAMES[c][1]
+                   for c in counters)
+        if (counters and attempt >= 2 and iters >= 20 and want % iters == 0
+                and own == want - 1
+                and ((every + 1) % iters == 0 or not whole_others)):
+            print(f"[profile] timed {names} from session {attempt}, which "
+                  f"kept {own} of the wrappers' {want} launches, at the mean "
+                  "of those kept", file=sys.stderr, flush=True)
+            return (us / own * (want / iters) / 1e3, want / iters,
+                    (every + 1) / iters, f"{own}/{want}")
+    fail(f"profile: {PROFILE_TRIES} sessions for {names} all lost records")
+
+
+def events_kept(kept, suffix: str = "") -> dict:
+    """A kernels-line row's note of a device time taken from a session
+    that lost one record (device_ms' "kept/expected"), else nothing."""
+    return {} if kept is None else {f"device_events_kept{suffix}": kept}
 
 
 def calls_device_ms(fn, iters: int = 20, warmup: int = 3,
@@ -389,7 +435,9 @@ def calls_device_ms(fn, iters: int = 20, warmup: int = 3,
     """Device time and device launches per call of everything fn launches
     (plain PyTorch, not one kernel): torch.profiler's CUDA events over
     `iters` calls, from the one of `sessions` sessions that recorded the
-    most events (a session may lose records, see device_ms). Unlike a
+    most events (a session may lose records, see device_ms; while none
+    has recorded any, up to PROFILE_TRIES sessions run: on the H100 two
+    sessions in a row of an int8 product once recorded nothing). Unlike a
     kernel wrapper's, the count need not be a whole multiple of iters: on
     the H100, after phase 8, every session of RawBoost's 20 calls recorded
     one device event more than 20 times a call's."""
@@ -399,7 +447,9 @@ def calls_device_ms(fn, iters: int = 20, warmup: int = 3,
     for _ in range(warmup):
         fn()
     best = (0, 0.0)
-    for _ in range(sessions):
+    for attempt in range(1, PROFILE_TRIES + 1):
+        if attempt > sessions and best[0] > 0:
+            break
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -411,7 +461,7 @@ def calls_device_ms(fn, iters: int = 20, warmup: int = 3,
         best = max(best, (len(events), sum(e.time_range.elapsed_us()
                                            for e in events)))
     if best[0] == 0:
-        fail(f"profile: {sessions} sessions recorded no device event")
+        fail(f"profile: {PROFILE_TRIES} sessions recorded no device event")
     return best[1] / iters / 1e3, best[0] / iters
 
 
@@ -537,8 +587,9 @@ def phase_kernels(b: int = B, h: int = H, ts=KERNEL_TS):
                  f"{LSE_ATOL}")
         ms = cuda_ms(lambda: flash_attention_fwd(q4, k4, v4, t))
         ms_flat = cuda_ms(lambda: flash_attention_fwd(q, k, v, t))
-        dev_ms, _, _ = device_ms(lambda: flash_attention_fwd(q4, k4, v4, t),
-                                 ("flash_attn_fwd",))
+        dev_ms, _, _, kept = device_ms(
+            lambda: flash_attention_fwd(q4, k4, v4, t), ("flash_attn_fwd",),
+            counters=("flash_attn_fwd",))
         qf, kf, vf = q.float(), k.float(), v.float()
         plain_ms = cuda_ms(lambda: flash_attention_reference(qf, kf, vf, t),
                            iters=5)
@@ -553,7 +604,8 @@ def phase_kernels(b: int = B, h: int = H, ts=KERNEL_TS):
                    ms_bh_t_d=ms_flat, device_ms=dev_ms, plain_ms=plain_ms,
                    library_ms=library_ms, library_device_ms=lib_dev_ms,
                    bound_ms=bound_ms,
-                   bound_by=bound_by, flops=flops, bytes=nbytes)
+                   bound_by=bound_by, flops=flops, bytes=nbytes,
+                   **events_kept(kept))
         rows.append(row)
         print(f"[kernel] flash_attn_fwd B={b} H={h} T={t} D={D}: "
               f"max_err {err:.3e} (bound {OUT_ATOL}), lse_err "
@@ -651,8 +703,8 @@ def check_attention_autograd(q4, k4, v4, do4, want, t):
           "copy; an expanded dO costs one counted copy", flush=True)
 
 
-def phase_attention_bwd(h: int = H, ts=KERNEL_TS):
-    """flash_attn_bwd at every T of ts, B = TRAIN_B, H = h, on [B, T, H, D]
+def phase_attention_bwd(h: int = H, ts=KERNEL_TS, b: int = TRAIN_B):
+    """flash_attn_bwd at every T of ts, B = b, H = h, on [B, T, H, D]
     views of one [B, T, 3 * H * D] projection output (the layout the model
     hands it, read in place) and on [B*H, T, D] copies: the two give the
     same bits, a repeat gives the same bits, one call is two device
@@ -666,7 +718,7 @@ def phase_attention_bwd(h: int = H, ts=KERNEL_TS):
         flash_attention_fwd)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bt, ht = TRAIN_B, h
+    bt, ht = b, h
     rows = []
     for t in ts:
         qkv = torch.randn((bt, t, 3 * ht * D), generator=gen,
@@ -708,15 +760,17 @@ def phase_attention_bwd(h: int = H, ts=KERNEL_TS):
                                                  t))
         ms_flat = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do,
                                                       t))
-        dev_ms, own, every = device_ms(
+        dev_ms, own, every, kept = device_ms(
             lambda: flash_attention_bwd(q4, k4, v4, out4, lse, do4, t),
-            ("flash_attn_bwd",))
+            ("flash_attn_bwd",),
+            counters=("flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
         if (own, every) != (2, 2):
             fail(f"flash_attn_bwd T={t}: {every} device launches a call "
                  f"({own} of the kernels), want 2 (dq, dk/dv) and no other")
-        dq_ms, dkv_ms = (device_ms(
+        (dq_ms, _, _, kept_dq), (dkv_ms, _, _, kept_dkv) = (device_ms(
             lambda: flash_attention_bwd(q4, k4, v4, out4, lse, do4, t),
-            (name,))[0] for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
+            (name,), counters=(name,))
+            for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
         plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
             q, k, v, out, lse, do, t), iters=3, warmup=1)
         q3, k3, v3 = (x.view(bt, ht, t, D).detach().requires_grad_()
@@ -743,7 +797,8 @@ def phase_attention_bwd(h: int = H, ts=KERNEL_TS):
                    device_ms_dq=dq_ms, device_ms_dkv=dkv_ms, plain_ms=plain_ms,
                    library_ms=library_ms, library_device_ms=lib_dev_ms,
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                   bytes=nbytes)
+                   bytes=nbytes, **events_kept(kept), **events_kept(
+                       kept_dq, "_dq"), **events_kept(kept_dkv, "_dkv"))
         rows.append(row)
         print(f"[kernel] flash_attn_bwd B={bt} H={ht} T={t} D={D}: "
               + ", ".join(f"{n} err {e:.3e} (max |plain| {m:.3e})"
@@ -796,8 +851,9 @@ def phase_layernorm_bwd(shapes=(LN_SHAPE,) + LN_EDGES):
                 fail(f"layernorm_bwd [{m}, {d}]: max |{name} - plain| = "
                      f"{err} > {rtol} * {scale}")
             errs[name] = err
-        dev_ms, own, every = device_ms(
-            lambda: layer_norm_bwd(x, gamma, g, eps), ("layernorm_bwd",))
+        dev_ms, own, every, kept = device_ms(
+            lambda: layer_norm_bwd(x, gamma, g, eps), ("layernorm_bwd",),
+            counters=("layernorm_bwd",))
         if (own, every) != (1, 1):
             fail(f"layernorm_bwd [{m}, {d}]: {every} device launches a call "
                  f"({own} of the kernel), want 1")
@@ -827,17 +883,24 @@ def phase_layernorm_bwd(shapes=(LN_SHAPE,) + LN_EDGES):
                          errors=errs, ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms, library_ms=library_ms,
                          library_device_ms=lib_dev_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, flops=flops, bytes=nbytes))
+                         bound_by=bound_by, flops=flops, bytes=nbytes,
+                         **events_kept(kept)))
     return dict(rows[0], per_shape=rows)
 
 
-def phase_fused_adam(xcfg=None, odd_leaves: bool = True, fsdp: int = 1):
+#: phase_fused_adam's models with random weights from seed 0, by XLSR
+#: config: built once on the host (an init of 300M parameters there takes
+#: seconds) for the rows at every mesh's shards
+ADAM_MODELS = {}
+
+
+def phase_fused_adam(xcfg=None, odd_leaves: bool = True, mesh=None):
     """fused_adam over every leaf of AModel(AASISTConfig(), xcfg) (XLS-R
     300M by default) in one launch against its plain version and
     torch.optim.Adam(fused=True); with odd_leaves, the edge cases of
-    phase_fused_adam_odd_leaves first. fsdp > 1: over rank 0's shards of
-    the leaves on an fsdp mesh of that degree (what each rank's launch
-    updates there)."""
+    phase_fused_adam_odd_leaves first. mesh (MeshConfig fields): over
+    rank 0's shards of the leaves on that mesh (what its launch updates
+    there: its fsdp / tp shards, its pipeline stage's layers)."""
     import torch
 
     from occm_tpu_torch.config import AASISTConfig, XLSRConfig
@@ -848,21 +911,26 @@ def phase_fused_adam(xcfg=None, odd_leaves: bool = True, fsdp: int = 1):
     from occm_tpu_torch.utils import random_init_
 
     odd_err = phase_fused_adam_odd_leaves() if odd_leaves else 0.0
-    model = random_init_(AModel(AASISTConfig(), xcfg or XLSRConfig()),
-                         seed=0)
+    xcfg = xcfg or XLSRConfig()
+    key = repr(xcfg)
+    if key not in ADAM_MODELS:
+        ADAM_MODELS[key] = random_init_(AModel(AASISTConfig(), xcfg), seed=0)
+    model = ADAM_MODELS[key]
     params = [p.detach().to("cuda") for p in model.parameters()]
     label = ""
-    if fsdp > 1:
+    if mesh:
         from occm_tpu_torch.config import MeshConfig
         from occm_tpu_torch.parallel import make_mesh, param_shardings
         from occm_tpu_torch.parallel.sharding import shard_of
 
-        mesh = make_mesh(MeshConfig(dp=1, fsdp=fsdp), world_size=fsdp)
+        ranks = make_mesh(MeshConfig(**mesh),
+                          world_size=int(np.prod(list(mesh.values()))))
         named = list(model.named_parameters())
-        table = param_shardings(named, mesh)
-        params = [shard_of(p, table[n], mesh, 0)
+        table = param_shardings(named, ranks)
+        params = [shard_of(p, table[n], ranks, 0)
                   for p, (n, _) in zip(params, named)]
-        label = f" (rank 0's fsdp={fsdp} shards)"
+        params = [p for p in params if p.numel()]  # another stage's: none
+        label = f" (rank 0's shards on {mesh})"
     del model
     n = sum(p.numel() for p in params)
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -901,8 +969,9 @@ def phase_fused_adam(xcfg=None, odd_leaves: bool = True, fsdp: int = 1):
     ms = cuda_ms(lambda: opt.step(params, grads), iters=5, warmup=1)
     # in full runs on the H100 every session of the fsdp=2 shards' row
     # recorded 9 device events for 5 calls, the kernel's own 5 whole
-    dev_ms, _, _ = device_ms(lambda: opt.step(params, grads), ("fused_adam",),
-                             iters=5, warmup=1, whole_others=False)
+    dev_ms, _, _, kept = device_ms(
+        lambda: opt.step(params, grads), ("fused_adam",), warmup=1,
+        whole_others=False, counters=("fused_adam",))
     m_list, v_list = opt.mu, opt.nu
     plain_ms = cuda_ms(lambda: [adam_reference(
         p, m_, v_, g_, inv_bc1, inv_bc2, opt.lr, opt.b1, opt.b2, opt.eps)
@@ -913,7 +982,7 @@ def phase_fused_adam(xcfg=None, odd_leaves: bool = True, fsdp: int = 1):
         lp.grad = g_
     lib_opt = torch.optim.Adam(lib_params, lr=1e-5, fused=True)
     library_ms = cuda_ms(lib_opt.step, iters=5, warmup=1)
-    if fsdp > 1:
+    if mesh:
         # over the shards, late in a full run, every profiler session of
         # torch's fused Adam on the H100 recorded a count of device events
         # that is not a whole multiple of its calls: take the session that
@@ -935,7 +1004,7 @@ def phase_fused_adam(xcfg=None, odd_leaves: bool = True, fsdp: int = 1):
                 ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
                 library_device_ms=lib_dev_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bytes=nbytes)
+                bound_by=bound_by, bytes=nbytes, **events_kept(kept))
 
 
 def phase_fused_adam_odd_leaves() -> float:
@@ -1060,9 +1129,9 @@ def phase_ffn(cases=None):
                  f"max |y - plain| = {err} > {FFN_RTOL_OF_MAX} * {scale}")
         gelu = "tanh" if approximate else "erf"
         ms = cuda_ms(lambda: ffn_fwd(x, w1, fc1_b, w2, fc2_b, approximate))
-        dev_ms, _, _ = device_ms(
+        dev_ms, _, _, kept = device_ms(
             lambda: ffn_fwd(x, w1, fc1_b, w2, fc2_b, approximate),
-            ("ffn_gemm_kernel",))
+            ("ffn_gemm_kernel",), counters=("ffn_fwd",))
         plain_ms = cuda_ms(lambda: ffn_reference(
             x, w1, fc1_b, w2, fc2_b, approximate), iters=5, warmup=1)
         mode = "tanh" if approximate else "none"
@@ -1075,7 +1144,8 @@ def phase_ffn(cases=None):
                          max_abs_y=scale, ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms, library_ms=library_ms,
                          library_device_ms=lib_dev_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, flops=flops, bytes=nbytes))
+                         bound_by=bound_by, flops=flops, bytes=nbytes,
+                         **events_kept(kept)))
         print(f"[kernel] ffn_fwd [{m}, {d}] x [{d}, {f}] bf16, {gelu}: "
               f"max_err {err:.3e} (bound {FFN_RTOL_OF_MAX} * {scale:.3e})"
               f", wrapper {ms:.4f} ms, device {dev_ms:.4f} ms (fc1 + fc2), "
@@ -1924,6 +1994,34 @@ KERNEL_NAMES = {"flash_attn_fwd": ("flash_attn_fwd_kernel", 1),
                 "layernorm_bwd": ("layernorm_bwd_kernel", 1),
                 "fused_adam": ("fused_adam_kernel", 1),
                 "ffn_fwd": ("ffn_gemm_kernel", 2)}
+# the XLSR depth of phases 8, 10, 12 and 13: XLS-R 300M's widths (d 1024,
+# 16 heads, FFN 4096) at 6 of its 24 layers. What they hold (graphs
+# against eager, resume, grad_accum, RawBoost in the step, the other
+# models, the remat policies) is the same at any depth, and at 24 layers
+# these four phases took half of a run that must end within its time
+# limit. Phases 4-7, 11 and 14-17 keep all 24.
+DEPTH = 6
+
+
+def at_depth(xcfg):
+    """xcfg with DEPTH encoder layers."""
+    return dataclasses.replace(xcfg, encoder_layers=DEPTH)
+
+
+@contextlib.contextmanager
+def cli_at_depth():
+    """Inside the block, oc_training, oc_classifier and oc_server build
+    the XLSRConfig their flags give, at DEPTH encoder layers."""
+    from occm_tpu_torch.cli import oc_server, oc_training
+
+    train_cfg, serve_cfg = oc_training.xlsr_config, oc_server.xlsr_config
+    oc_training.xlsr_config = lambda *a, **k: at_depth(train_cfg(*a, **k))
+    oc_server.xlsr_config = lambda *a, **k: at_depth(serve_cfg(*a, **k))
+    try:
+        yield
+    finally:
+        oc_training.xlsr_config = train_cfg
+        oc_server.xlsr_config = serve_cfg
 
 
 def union_us(intervals) -> float:
@@ -2061,14 +2159,14 @@ def mask_memory() -> dict:
         t = cut
         for _, kernel, stride in cfg.conv_layers:
             t = (t - kernel) // stride + 1
-        x = torch.empty(TRAIN_B, t, cfg.encoder_embed_dim, device=DEVICE)
-        masks = layer.draw_masks(x, "xla", gen)
+        masks = layer.draw_masks((TRAIN_B, t, cfg.encoder_embed_dim),
+                                 DEVICE, "xla", gen)
         per_layer = sum(m.numel() * m.element_size() for m in masks)
         attn = masks[0].numel() * masks[0].element_size()
         out[cut] = dict(T=t, layer_mib=per_layer / 2**20,
                         attention_mib=attn / 2**20,
                         total_mib=cfg.encoder_layers * per_layer / 2**20)
-        del x, masks
+        del masks
     print(f"[controls] dropout masks held under remat, 12 utterances, every "
           f"XLSR rate on, plain attention: {out} (none at the default rates "
           "of 0)", flush=True)
@@ -2213,7 +2311,8 @@ def graph_vs_eager(ctx, name, cfg, aasist, exact=False):
 
 
 def phase_train_controls(workdir: str, fixture):
-    """Phase 8: the training controls at full width (12 x 6 s meta-batches,
+    """Phase 8: the training controls at full width and DEPTH layers
+    (12 x 6 s meta-batches,
     flash attention, ln_impl and ffn_impl "pallas", remat, AASIST dropouts
     zeroed unless said), each against the eager loop from the same weights
     and batches: steps_per_dispatch = 3 as one CUDA graph per chunk with
@@ -2246,15 +2345,15 @@ def phase_train_controls(workdir: str, fixture):
     if len(batches) != 2 * CONTROL_K:
         fail(f"controls: {len(batches)} batches, want {2 * CONTROL_K}")
     acfg = AASISTConfig(dropout=0.0, pool_dropout=0.0, head_dropout=0.0)
-    xcfg = XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
-                      attention_impl="flash")
+    xcfg = at_depth(XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
+                               attention_impl="flash"))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         init = AModel(acfg, xcfg).state_dict()
     base = TrainConfig(cut=TRAIN_CUT, compactness_weight=0.1,
                        descriptiveness_weight=0.9, log_every=1,
                        rawboost=RawBoostConfig(algo=0))
-    layers = XLSRConfig().encoder_layers
+    layers = xcfg.encoder_layers
     per_step = {"flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
                 "flash_attn_bwd_dkv": layers, "layernorm_bwd": 2 * layers,
                 "fused_adam": 1, "ffn_fwd": 2 * layers}
@@ -2383,7 +2482,8 @@ def phase_train_controls(workdir: str, fixture):
                                             per_step, launches)
 
     # ---- resume through the CLI after a SIGTERM
-    timing["resume"] = phase_resume(workdir, fixture, launches)
+    with cli_at_depth():
+        timing["resume"] = phase_resume(workdir, fixture, launches)
     timing["mask_mib"] = mask_memory()
     timing["seconds"] = time.perf_counter() - t_phase
     print(f"[controls] phase 8 took {timing['seconds']:.1f} s", flush=True)
@@ -2406,8 +2506,9 @@ def phase_grad_accum(batches, base, model_from_init, per_step, launches):
       utterances, where the batch statistics coincide and accumulation
       equals the big batch: the two differ in the shapes of their cuBLAS
       and cuDNN calls, and so in the order of fp32 sums and where bf16
-      rounds, which 24 layers carry into the loss as phase 7's LOSS_RTOL
-      bound says, and back through the same 24 layers into the gradient:
+      rounds, which the layers carry into the loss as phase 7's LOSS_RTOL
+      bound says (for 24 of them), and back through the same layers into
+      the gradient:
       the gradient the update reads is held to LOSS_RTOL of its norm (a
       missing micro-batch or a wrong share moves it by half its norm or
       more). Adam's first update is lr * g / (|g| + eps) whatever the
@@ -2888,7 +2989,8 @@ def phase_rawboost():
 # ----------------------------------------------------------------- phase 10
 
 def phase_train_rawboost(workdir: str, fixture):
-    """Phase 10: training with RawBoost at full width (12 x 6 s, every
+    """Phase 10: training with RawBoost at full width and DEPTH layers
+    (12 x 6 s, every
     kernel, remat), under deterministic algorithms where two runs are held
     to each other:
     - algo 5 with AASIST's dropouts, 6 eager steps against the same 6 as
@@ -2920,8 +3022,8 @@ def phase_train_rawboost(workdir: str, fixture):
                         cut=TRAIN_CUT, seed=0)
     batches = list(MetaBatchPipeline(dataset, seed=0).epoch(0))
     acfg = AASISTConfig(dropout=0.0, pool_dropout=0.0, head_dropout=0.0)
-    xcfg = XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
-                      attention_impl="flash")
+    xcfg = at_depth(XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
+                               attention_impl="flash"))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         init = AModel(acfg, xcfg).state_dict()
@@ -2992,9 +3094,10 @@ def phase_train_rawboost(workdir: str, fixture):
     torch.cuda.empty_cache()
 
     # ---- the CLI with --rawboost_algo 5: eager, and resumed as graphs
-    resume = phase_resume(workdir, fixture, check.launches,
-                          flags=("--rawboost_algo", "5"), eager=False,
-                          label="rawboost 5 resume")
+    with cli_at_depth():
+        resume = phase_resume(workdir, fixture, check.launches,
+                              flags=("--rawboost_algo", "5"), eager=False,
+                              label="rawboost 5 resume")
     timing = dict(check.timing, profile=rows, added_per_step=added,
                   resume=resume, seconds=time.perf_counter() - t_phase)
     print(f"[train-rawboost] phase 10 took {timing['seconds']:.1f} s",
@@ -3450,7 +3553,7 @@ def phase_models_cli(workdir: str, fixture, layers: int):
              f"{d_cli}, logits {logits}")
 
     # ---- the same distances from a direct SSLResNet34 forward
-    model = SSLResNet34(XLSRConfig())
+    model = SSLResNet34(at_depth(XLSRConfig()))
     model.load_state_dict(state, strict=True)
     del state
     model.to(DEVICE).eval()
@@ -3547,7 +3650,8 @@ def phase_models_cli(workdir: str, fixture, layers: int):
 
 
 def phase_models(workdir: str, fixture):
-    """Phase 12: the other models at full width (`model_step_checks` for
+    """Phase 12: the other models at full width and DEPTH layers
+    (`model_step_checks` for
     each of OTHER_MODELS, one after another, each freed before the next;
     every kernel: flash attention, ln_impl and ffn_impl "pallas",
     fused_adam, remat; RawBoost off; the backends' default dropouts on),
@@ -3564,8 +3668,8 @@ def phase_models(workdir: str, fixture):
     dataset = PFDataset(protocol, dataset_dir=train_dir, vocoded_dir=voc_dir,
                         cut=TRAIN_CUT, seed=0)
     batches = list(MetaBatchPipeline(dataset, seed=0).epoch(0))[:CONTROL_K]
-    xcfg = XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
-                      attention_impl="flash")
+    xcfg = at_depth(XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
+                               attention_impl="flash"))
     layers = xcfg.encoder_layers
     per_step = {"flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
                 "flash_attn_bwd_dkv": layers, "layernorm_bwd": 2 * layers,
@@ -3598,7 +3702,8 @@ def phase_models(workdir: str, fixture):
             torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(False)
-    c, r, cli = phase_models_cli(workdir, fixture, layers)
+    with cli_at_depth():
+        c, r, cli = phase_models_cli(workdir, fixture, layers)
     for key, n in c.items():
         if key in counts:
             counts[key] += n
@@ -3863,14 +3968,14 @@ def same_params_check(model, init, cfg, batches, exact, fast):
 
 def phase_remat(workdir: str, fixture):
     """Phase 13: the remat policies and --fast_numerics at full width
-    (AModel, XLSR-300M, random weights from seed 0, 12 x 6 s, fused_adam,
-    AASIST dropouts on, deterministic algorithms): `remat_steps` for each
-    policy with every kernel against "nothing", and for PLAIN_POLICIES
-    with plain attention against that path's "nothing"; the bf16 mirror
-    against `hand_mirror`; fast against exact numerics; flash against xla
-    attention under fast numerics (training and scoring); then the CLI.
-    Returns the wrappers' launches, the graphs' replayed launches and the
-    measurements."""
+    and DEPTH layers (AModel, XLSR-300M's widths, random weights from
+    seed 0, 12 x 6 s, fused_adam, AASIST dropouts on, deterministic
+    algorithms): `remat_steps` for each policy with every kernel against
+    "nothing", and for PLAIN_POLICIES with plain attention against that
+    path's "nothing"; the bf16 mirror against `hand_mirror`; fast against
+    exact numerics; flash against xla attention under fast numerics
+    (training and scoring); then the CLI. Returns the wrappers' launches,
+    the graphs' replayed launches and the measurements."""
     import dataclasses
 
     import torch
@@ -3887,8 +3992,8 @@ def phase_remat(workdir: str, fixture):
     dataset = PFDataset(protocol, dataset_dir=train_dir, vocoded_dir=voc_dir,
                         cut=TRAIN_CUT, seed=0)
     batches = list(MetaBatchPipeline(dataset, seed=0).epoch(0))[:CONTROL_K]
-    base = XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
-                      attention_impl="flash")
+    base = at_depth(XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
+                               attention_impl="flash"))
     layers = base.encoder_layers
     # every policy reruns the flash forward in its recompute (the CUDA
     # backward reads out and lse, which no name keeps) and the fused FFN
@@ -4022,7 +4127,8 @@ def phase_remat(workdir: str, fixture):
     finally:
         torch.use_deterministic_algorithms(False)
     # ---- through the CLI
-    c, r, cli = phase_remat_cli(workdir, fixture, layers)
+    with cli_at_depth():
+        c, r, cli = phase_remat_cli(workdir, fixture, layers)
     add(c, r)
     out["cli"] = cli
     out["seconds"] = time.perf_counter() - t_phase
@@ -5192,13 +5298,24 @@ def phase_profile(model, reference: np.ndarray, ckpt: str,
 
 # ------------------------------------------- multi-GPU paths (phase 17)
 
-# dp=2, fsdp=2 and tp=2 over two ranks sharing cuda:0 (Gloo: NCCL refuses
-# two ranks of one communicator on one device)
+# dp=2, fsdp=2, tp=2, tp=2 with sequence parallelism and the pp=2 GPipe
+# pipeline over two ranks sharing cuda:0 (Gloo: NCCL refuses two ranks of
+# one communicator on one device)
 PAR_MESHES = {"dp2": dict(dp=2), "fsdp2": dict(dp=1, fsdp=2),
-              "tp2": dict(dp=1, tp=2)}
+              "tp2": dict(dp=1, tp=2), "tp2sp": dict(dp=1, tp=2),
+              "pp2": dict(dp=1, pp=2)}
+PP_STAGES, PP_M = 2, 4  # pp=2 with 4 microbatches of 3 rows
+#: each mode's XLSRConfig fields beside parallel_configs()'
+PAR_XLSR = {"tp2sp": dict(seq_parallel=True),
+            "pp2": dict(pp_stages=PP_STAGES, pp_microbatches=PP_M)}
+#: the steps a mode takes (PAR_STEPS unless named): tp=2 with sequence
+#: parallelism is held to tp=2's encoder, its one step to the launches
+PAR_MODE_STEPS = {"tp2sp": 1}
 PAR_STEPS = 2
 PAR_LR = 1e-5
-PAR_TIMEOUT_S = 600
+# the rank processes' limit: they take about 120 s on an H100, and a
+# deadlocked rank must fail the run, with its log, inside the run's limit
+PAR_TIMEOUT_S = 300
 XLSR_HEADS, XLSR_FFN = 16, 4096  # XLSRConfig()'s; tp=2 halves both
 
 
@@ -5320,14 +5437,19 @@ def encoder_reference(init, batch, workdir: str) -> dict:
     return out
 
 
-def encoder_check(state, mesh, batch, workdir: str, rank: int, dev):
+def encoder_check(state, mesh, batch, workdir: str, rank: int, dev,
+                  against=None):
     """The tp ranks' XLSR encoder at the init weights on the whole first
     batch: its features, and its parameter gradient (the tp shards
     gathered) from the single process's upstream gradient, against the
-    single process's (rank 0 returns the relative L2 differences)."""
+    single process's (rank 0 returns the relative L2 differences, and the
+    features and gradient under "_f" / "_g"); `against`: another mode's
+    (features, gradient), held to as well (relative L2, largest
+    difference)."""
     import torch
 
     from occm_tpu_torch.parallel import compute_mesh
+    from occm_tpu_torch.parallel.collectives import all_reduce_
     from occm_tpu_torch.parallel.sharding import gather_full
 
     ref = torch.load(os.path.join(workdir, "par_enc.pt"), weights_only=True,
@@ -5344,6 +5466,9 @@ def encoder_check(state, mesh, batch, workdir: str, rank: int, dev):
         pl = state.placements.get(n)
         if pl is not None and pl.tp_dim is not None:
             g = gather_full(g, pl, mesh, axes=("tp",))
+        if pl is not None and pl.tp_sum:
+            # under sequence parallelism a rank's share of the frames
+            g = all_reduce_(g.clone(), mesh.group("tp"))
         grads.append(g)
     for p in params.values():
         p.grad = None
@@ -5351,17 +5476,29 @@ def encoder_check(state, mesh, batch, workdir: str, rank: int, dev):
         return None
     grad, want = _flat(grads), ref["g"].to(dev)
     f, f_ref = feats.detach().float(), ref["f"].to(dev)
-    return dict(feats_rel_l2=float((f - f_ref).norm() / f_ref.norm()),
-                grad_rel_l2=float((grad - want).norm() / want.norm()))
+    out = dict(feats_rel_l2=float((f - f_ref).norm() / f_ref.norm()),
+               grad_rel_l2=float((grad - want).norm() / want.norm()))
+    if against is not None:
+        f_o, g_o = against
+        out.update(
+            feats_vs_rel_l2=float((f - f_o).norm() / f_o.norm()),
+            feats_vs_max_abs=float((f - f_o).abs().max()),
+            grad_vs_rel_l2=float((grad - g_o).norm() / g_o.norm()),
+            grad_vs_max_abs=float((grad - g_o).abs().max()))
+    out["_f"], out["_g"] = f, grad
+    return out
 
 
 def _shape_recorder():
-    """Wrap the flash forward and ffn_fwd wrappers to record the shapes
-    they launch on (the rank's heads and FFN columns under tp)."""
-    from occm_tpu_torch.ops import attention, ffn
+    """Wrap the flash forward, ffn_fwd and LayerNorm backward wrappers to
+    record the shapes they launch on (the rank's heads and FFN columns
+    under tp, its microbatch under pp, its frames under sp)."""
+    from occm_tpu_torch.ops import attention, ffn, layernorm
 
-    shapes = {"flash_attn_fwd": set(), "ffn_fwd": set()}
+    shapes = {"flash_attn_fwd": set(), "ffn_fwd": set(),
+              "layernorm_bwd": set()}
     fwd, ffn_fwd = attention.flash_attention_fwd, ffn.ffn_fwd
+    ln_bwd = layernorm.layer_norm_bwd
 
     def flash(q, k, v, t_valid):
         shapes["flash_attn_fwd"].add(tuple(q.shape))
@@ -5371,19 +5508,26 @@ def _shape_recorder():
         shapes["ffn_fwd"].add((x.shape[0], w1.shape[0], w1.shape[1]))
         return ffn_fwd(x, w1, b1, w2, b2, approximate)
 
+    def layer_norm(x, gamma, g, eps):
+        shapes["layernorm_bwd"].add(tuple(x.shape))
+        return ln_bwd(x, gamma, g, eps)
+
     attention.flash_attention_fwd = flash
     ffn.ffn_fwd = fused
+    layernorm.layer_norm_bwd = layer_norm
     return shapes
 
 
 def parallel_rank(rank: int, world: int, port: int, workdir: str) -> int:
     """One rank of phase 17 (a process of its own, on cuda:0, Gloo): for
-    each mesh of PAR_MESHES, the state placed from the same init, step 1
-    on its rows of the first global batch; then the single process's
-    state after step 1 restored from its one-GPU checkpoint into the
-    placed state, and step 2 on its rows of the second batch. Rank 0
-    gathers the state after each step and compares it with the single
-    process's, and writes every rank's record."""
+    each mesh of PAR_MESHES, the state placed from the same init (the
+    mode's XLSRConfig fields, PAR_XLSR), step 1 on its rows of the first
+    global batch; then (PAR_STEPS) the single process's state after step
+    1 restored from its one-GPU checkpoint into the placed state, and
+    step 2 on its rows of the second batch. Rank 0 gathers the state
+    after each step and compares it with the single process's, and
+    writes every rank's record: step ms, launches, the kernels' shapes,
+    the peak memory of step 1 and the bytes held."""
     import torch
     import torch.distributed as dist
 
@@ -5409,10 +5553,12 @@ def parallel_rank(rank: int, world: int, port: int, workdir: str) -> int:
     shapes = _shape_recorder()
     acfg, xcfg, cfg = parallel_configs()
     records = {}
+    tp2_encoder = None
     for mode, axes in PAR_MESHES.items():
         mesh = make_mesh(MeshConfig(**axes))
+        mode_xcfg = dataclasses.replace(xcfg, **PAR_XLSR.get(mode, {}))
         with torch.device(dev):  # built on the card: no CPU init pass
-            model = AModel(acfg, xcfg)
+            model = AModel(acfg, mode_xcfg)
         model.load_state_dict(init)
         state = create_train_state(model, cfg)
         place_state_on_mesh(state, mesh)
@@ -5425,10 +5571,15 @@ def parallel_rank(rank: int, world: int, port: int, workdir: str) -> int:
             refs = [_ckpt_flat(ck, names), (fin["w"], fin["mu"])]
             del ck
         rec = dict(bytes_before=held_bytes(state), steps=[])
-        if mode == "tp2":
-            rec["encoder"] = encoder_check(state, mesh, batches[0], workdir,
-                                           rank, dev)
-        for i, (x, labels) in enumerate(batches):
+        if mode in ("tp2", "tp2sp"):
+            enc = encoder_check(state, mesh, batches[0], workdir, rank, dev,
+                                tp2_encoder if mode == "tp2sp" else None)
+            if enc is not None:
+                f_g = enc.pop("_f"), enc.pop("_g")
+                tp2_encoder = f_g if mode == "tp2" else None
+            rec["encoder"] = enc
+        for i, (x, labels) in enumerate(
+                batches[:PAR_MODE_STEPS.get(mode, PAR_STEPS)]):
             if i == 1:
                 # step 2 from the single process's state after step 1,
                 # through the one-GPU checkpoint into the placed state
@@ -5440,11 +5591,13 @@ def parallel_rank(rank: int, world: int, port: int, workdir: str) -> int:
                 s.clear()
             reset_counts()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             m = train_step(state, xs, ls, cfg)
             torch.cuda.synchronize()
             st = dict(loss=float(m["loss"]),
                       ms=(time.perf_counter() - t0) * 1e3,
+                      peak_bytes=torch.cuda.max_memory_allocated(),
                       launches=read_counts(),
                       shapes={k: sorted(v) for k, v in shapes.items()})
             with full_parameters(state):
@@ -5459,6 +5612,8 @@ def parallel_rank(rank: int, world: int, port: int, workdir: str) -> int:
             rec["steps"].append(st)
         rec["bytes_after"] = held_bytes(state)
         rec["sharded_leaves"] = len(placement_table(state.placements))
+        rec["stage_leaves"] = sum(pl.stage is not None for pl in
+                                  state.placements.values())
         rec["backend"] = str(dist.get_backend())
         del state, model
         torch.cuda.empty_cache()
@@ -5468,6 +5623,8 @@ def parallel_rank(rank: int, world: int, port: int, workdir: str) -> int:
     if rank == 0:
         with open(os.path.join(workdir, "par_ranks.json"), "w") as f:
             json.dump(everyone, f)
+    torch.use_deterministic_algorithms(False)
+    pp_cli_rank(rank, world, port, workdir)
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -5529,7 +5686,37 @@ def phase_parallel_kernels():
                                   False)]),
         layernorm_bwd=phase_layernorm_bwd(
             shapes=((TRAIN_B // 2 * MAIN_PATH_TS[0], 1024),)),
-        fused_adam=phase_fused_adam(odd_leaves=False, fsdp=2))
+        fused_adam=phase_fused_adam(odd_leaves=False,
+                                    mesh=dict(dp=1, fsdp=2)))
+
+
+def phase_pipeline_kernels(tp2_rows):
+    """Phase 17's kernel checks at the pp=2 and tp=2 + sp per-rank shapes
+    (the "pp2" and "sp2" rows): under pp a microbatch of TRAIN_B / PP_M
+    rows (attention at B 3 x H 16, ffn_fwd and the LayerNorm backward on
+    897 rows) and fused_adam over stage 0's leaves; under sp the
+    LayerNorm backward on a frame block ([12 x 150, 1024], T = 299 padded
+    to 300) and fused_adam over a tp=2 rank's shards. Attention and the
+    FFN run on the gathered frames under sp, at tp=2's shapes: their sp2
+    rows are tp2's (`tp2_rows`), not measured again."""
+    t = MAIN_PATH_TS[0]
+    b = TRAIN_B // PP_M
+    pp2 = dict(
+        flash_attn_fwd=phase_kernels(b=b, h=XLSR_HEADS, ts=(t,))[0],
+        flash_attn_bwd=phase_attention_bwd(h=XLSR_HEADS, ts=(t,), b=b)[0],
+        ffn_fwd=phase_ffn(cases=[(b * t, 1024, XLSR_FFN, False)]),
+        layernorm_bwd=phase_layernorm_bwd(shapes=((b * t, 1024),)),
+        fused_adam=phase_fused_adam(odd_leaves=False,
+                                    mesh=dict(dp=1, pp=PP_STAGES)))
+    sp2 = {k: dict(tp2_rows[k], shape_of="tp2")
+           for k in ("flash_attn_fwd", "flash_attn_bwd")}
+    sp2["ffn_fwd"] = [dict(r, shape_of="tp2") for r in tp2_rows["ffn_fwd"]]
+    sp2.update(
+        layernorm_bwd=phase_layernorm_bwd(
+            shapes=((TRAIN_B * (t + 1) // 2, 1024),)),
+        fused_adam=phase_fused_adam(odd_leaves=False,
+                                    mesh=dict(dp=1, tp=2)))
+    return dict(pp2=pp2, sp2=sp2)
 
 
 def phase_parallel(workdir: str, fixture, ckpt=None):
@@ -5615,41 +5802,36 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
           f"one bf16 rounding (relative noise 2^-8): {enc_ref['moved']} "
           f"against {enc_ref['loss']:.6f}", flush=True)
 
-    # ---- two ranks on cuda:0 over Gloo
+    # ---- two ranks on cuda:0 over Gloo (each then runs oc_training --pp)
+    pp_ckpt = pp_cli_argv(workdir, fixture)
     with socket_port() as port:
         pass
-    logs = [open(os.path.join(workdir, f"par_rank{r}.log"), "w")
-            for r in range(2)]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
-         str(r), "2", str(port), workdir], stdout=logs[r],
-        stderr=subprocess.STDOUT) for r in range(2)]
-    try:
-        for p in procs:
-            p.wait(timeout=PAR_TIMEOUT_S)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    ranks_s = time.perf_counter() - t0
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            with open(os.path.join(workdir, f"par_rank{r}.log")) as f:
-                print(f.read()[-6000:], file=sys.stderr)
-            fail(f"parallel rank {r} exited {p.returncode}")
+    ranks_s = _run_ranks(lambda r: ["--parallel-rank", str(r), "2",
+                                    str(port), workdir], workdir,
+                         "par_rank")
     with open(os.path.join(workdir, "par_ranks.json")) as f:
         ranks = json.load(f)
     tol = LOSS_RTOL
     failures = []
+    frames = 299  # TRAIN_CUT's
     for mode in PAR_MESHES:
         recs = [r[mode] for r in ranks]
-        want_h = XLSR_HEADS // 2 if mode == "tp2" else XLSR_HEADS
-        want_f = XLSR_FFN // 2 if mode == "tp2" else XLSR_FFN
-        for i, ref in enumerate(ref_steps):
+        tp = mode.startswith("tp2")
+        want_h = XLSR_HEADS // 2 if tp else XLSR_HEADS
+        want_f = XLSR_FFN // 2 if tp else XLSR_FFN
+        rows = {"dp2": TRAIN_B // 2, "fsdp2": TRAIN_B // 2,
+                "pp2": TRAIN_B // PP_M}.get(mode, TRAIN_B)
+        # the LayerNorms' rows: a microbatch under pp, a frame block (T
+        # padded to a multiple of 2) under sp
+        ln_rows = (TRAIN_B * (frames + 1) // 2 if mode == "tp2sp"
+                   else rows * frames)
+        want_launches = dict(per_step)
+        if mode == "pp2":
+            # each stage runs half the layers on PP_M microbatches
+            want_launches = {k: (n if k == "fused_adam"
+                                 else n * PP_M // PP_STAGES)
+                             for k, n in per_step.items()}
+        for i, ref in enumerate(ref_steps[:len(recs[0]["steps"])]):
             cmp = recs[0]["steps"][i]["compare"]
             losses = {rec["steps"][i]["loss"] for rec in recs}
             loss = recs[0]["steps"][i]["loss"]
@@ -5662,9 +5844,9 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
             # single process's own loss moves as far under that noise):
             # its whole-model loss and gradient are printed, and its
             # encoder is held below
-            if mode != "tp2" and not (abs(loss - ref["loss"])
-                                      <= tol * abs(ref["loss"])
-                                      and cmp["grad_rel_l2"] <= tol):
+            if not tp and not (abs(loss - ref["loss"])
+                               <= tol * abs(ref["loss"])
+                               and cmp["grad_rel_l2"] <= tol):
                 failures.append(f"{mode} step {i + 1}: loss {loss} vs "
                                 f"single {ref['loss']} (rtol {tol}), "
                                 f"gradient rel L2 {cmp['grad_rel_l2']}")
@@ -5674,16 +5856,23 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
             for r, rec in enumerate(recs):
                 st = rec["steps"][i]
                 got = {k: st["launches"][k] for k in per_step}
-                if got != per_step:
+                if got != want_launches:
                     failures.append(f"{mode} rank {r} step {i + 1}: "
-                                    f"launches {got}, want {per_step}")
+                                    f"launches {got}, want {want_launches}")
                 add(got)
-                heads = {s[2] for s in st["shapes"]["flash_attn_fwd"]}
-                ffn_f = {s[2] for s in st["shapes"]["ffn_fwd"]}
-                if heads != {want_h} or ffn_f != {want_f}:
-                    failures.append(f"{mode} rank {r}: flash on heads "
-                                    f"{heads}, ffn_fwd on F {ffn_f}; want "
-                                    f"{want_h}, {want_f}")
+                sh = st["shapes"]
+                seen = ({s[0] for s in sh["flash_attn_fwd"]},
+                        {s[2] for s in sh["flash_attn_fwd"]},
+                        {s[0] for s in sh["ffn_fwd"]},
+                        {s[2] for s in sh["ffn_fwd"]},
+                        {s[0] for s in sh["layernorm_bwd"]})
+                want = ({rows}, {want_h}, {rows * frames}, {want_f},
+                        {ln_rows})
+                if seen != want:
+                    failures.append(
+                        f"{mode} rank {r}: flash on (rows, heads) "
+                        f"{seen[:2]}, ffn_fwd on (M, F) {seen[2:4]}, "
+                        f"layernorm_bwd on rows {seen[4]}; want {want}")
             print(f"[parallel] {mode} step {i + 1} (2 ranks sharing "
                   f"cuda:0, Gloo): loss {loss:.6f} vs single "
                   f"{ref['loss']:.6f} (rtol {tol}); gradient rel L2 "
@@ -5691,19 +5880,32 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
                   f"|diff| {cmp['w_max_abs_diff']:.3e}, excess over "
                   f"Adam's reach {cmp['w_excess']:.3e}, "
                   f"{cmp['w_differing']} of {cmp['w_total']} over lr/100; "
-                  f"step ms per rank "
-                  f"{[round(rec['steps'][i]['ms'], 1) for rec in recs]}",
+                  f"step ms per rank (two ranks sharing one card) "
+                  f"{[round(rec['steps'][i]['ms'], 1) for rec in recs]}, "
+                  f"peak GiB per rank "
+                  f"{[round(rec['steps'][i]['peak_bytes'] / 2**30, 3) for rec in recs]}",
                   flush=True)
-        if mode == "tp2":
+        if tp:
             enc = recs[0]["encoder"]
-            out["tp2_encoder"] = enc
-            print(f"[parallel] tp2 encoder at the init weights on the whole "
-                  f"batch: features rel L2 {enc['feats_rel_l2']:.3e}, "
+            out[f"{mode}_encoder"] = enc
+            print(f"[parallel] {mode} encoder at the init weights on the "
+                  f"whole batch: features rel L2 {enc['feats_rel_l2']:.3e}, "
                   f"parameter gradient (from the single process's upstream "
                   f"gradient) rel L2 {enc['grad_rel_l2']:.3e} (bounds "
                   f"{tol})", flush=True)
             if not (enc["feats_rel_l2"] <= tol and enc["grad_rel_l2"] <= tol):
-                failures.append(f"tp2 encoder: {enc}")
+                failures.append(f"{mode} encoder: {enc}")
+            if mode == "tp2sp":
+                print(f"[parallel] tp2sp encoder against tp2's (same weights "
+                      f"and batch): features rel L2 "
+                      f"{enc['feats_vs_rel_l2']:.3e} (largest |diff| "
+                      f"{enc['feats_vs_max_abs']:.3e}), gradient rel L2 "
+                      f"{enc['grad_vs_rel_l2']:.3e} (largest |diff| "
+                      f"{enc['grad_vs_max_abs']:.3e}); bounds {tol}",
+                      flush=True)
+                if not (enc["feats_vs_rel_l2"] <= tol
+                        and enc["grad_vs_rel_l2"] <= tol):
+                    failures.append(f"tp2sp encoder against tp2's: {enc}")
         if any(rec["backend"] != "gloo" for rec in recs):
             failures.append(f"{mode}: backend {recs[0]['backend']}")
         by = {k: [rec[k] for rec in recs] for k in ("bytes_before",
@@ -5712,8 +5914,12 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
             losses=[s["loss"] for s in recs[0]["steps"]],
             single_losses=[s["loss"] for s in ref_steps],
             step_ms=[[s["ms"] for s in rec["steps"]] for rec in recs],
+            peak_bytes=[[s["peak_bytes"] for s in rec["steps"]]
+                        for rec in recs],
             bytes=by, sharded_leaves=recs[0]["sharded_leaves"],
+            stage_leaves=recs[0]["stage_leaves"],
             compare=[s["compare"] for s in recs[0]["steps"]],
+            launches=recs[0]["steps"][0]["launches"],
             shapes=recs[0]["steps"][0]["shapes"])
         print(f"[parallel] {mode}: held bytes per rank (parameters, Adam "
               f"moments) {by['bytes_after']}; {out[mode]['sharded_leaves']}"
@@ -5725,19 +5931,44 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
     if not all(v < 0.55 for v in out["fsdp_over_dp"].values()):
         failures.append(f"fsdp=2 holds {out['fsdp_over_dp']} of dp=2's "
                         "bytes per rank")
+    # a dp=2 rank holds the one process's state whole
+    out["pp_over_one"] = [{k: b[k] / dp_b[k] for k in dp_b}
+                          for b in out["pp2"]["bytes"]["bytes_after"]]
+    if not all(0.5 < v < 0.55 for b in out["pp_over_one"]
+               for v in b.values()):
+        failures.append(f"a pp=2 stage holds {out['pp_over_one']} of the "
+                        "one process's bytes")
+    out["pp_bubble"] = (PP_STAGES - 1) / (PP_M + PP_STAGES - 1)
+    out["sp_peak_over_tp2"] = [
+        a[0] / b[0] for a, b in zip(out["tp2sp"]["peak_bytes"],
+                                    out["tp2"]["peak_bytes"])]
+    print(f"[parallel] pp=2 (M={PP_M}): each stage holds "
+          f"{out['pp_over_one']} of the one process's bytes (parameters, "
+          f"Adam moments; {out['pp2']['stage_leaves']} stage-placed "
+          f"leaves); bubble (S - 1) / (M + S - 1) = {out['pp_bubble']:.3f}; "
+          f"step-1 peak per rank tp2 "
+          f"{[p[0] for p in out['tp2']['peak_bytes']]} B, tp2 + sp "
+          f"{[p[0] for p in out['tp2sp']['peak_bytes']]} B "
+          f"({out['sp_peak_over_tp2']} of tp2's)", flush=True)
     out["ranks_wall_s"] = ranks_s
     out["single_spread"] = spread
     out["single_ms"] = [s["ms"] for s in ref_steps]
     out["single_loss_under_feature_rounding"] = enc_ref
     print(f"[parallel] fsdp=2 / dp=2 held bytes per rank: "
           f"{out['fsdp_over_dp']}; the two ranks' processes took "
-          f"{ranks_s:.1f} s (start, model build, 3 meshes x 2 steps, "
-          f"gathers, a checkpoint restore each)", flush=True)
+          f"{ranks_s:.1f} s (start, model build, 5 meshes x 1-2 steps, "
+          f"gathers, a checkpoint restore each, then oc_training --pp 2)",
+          flush=True)
     if failures:
         fail("parallel: " + "; ".join(failures))
     for name in ("par_init.pt", "par_ref.pt", "par_step1_0.pt",
                  "par_enc.pt"):
         os.remove(os.path.join(workdir, name))
+
+    # ---- oc_training --pp 2 over the two ranks: a one-GPU checkpoint
+    pp_cli, counts = phase_pp_cli(workdir, pp_ckpt, per_step)
+    add(counts)
+    out["pp_cli"] = pp_cli
 
     # ---- NCCL at world size 1: the collectives inside the CUDA graph
     nccl, counts = phase_nccl_graph(workdir, fixture)
@@ -5751,6 +5982,140 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"[parallel] phase 17: {out['wall_s']:.1f} s", flush=True)
     return total, out
+
+
+def _run_ranks(args, workdir: str, label: str):
+    """Two processes of this script (`args` after the script) on cuda:0,
+    each with a log of its own; fails on a rank's non-zero exit. Returns
+    the wall seconds."""
+    logs = [open(os.path.join(workdir, f"{label}{r}.log"), "w")
+            for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *args(r)],
+        stdout=logs[r], stderr=subprocess.STDOUT, cwd=workdir)
+        for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=PAR_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(workdir, f"{label}{r}.log")) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+            fail(f"{label} rank {r} exited {p.returncode}")
+    return wall
+
+
+def pp_cli_rank(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of `oc_training --pp 2 --pp_microbatches 4` (phase 17), in
+    the rank's process after its meshes: the torchrun environment with
+    LOCAL_RANK 0 for both ranks (they share cuda:0), the process group
+    already joined over Gloo (the CLI's own join finds it), then the
+    CLI's main; writes its steps' losses, times and launches."""
+    import torch.distributed as dist
+
+    from occm_tpu_torch.cli import oc_training
+    from occm_tpu_torch.parallel import pp_stage
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    with open(os.path.join(workdir, "pp_cli_argv.json")) as f:
+        argv = json.load(f)
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = StepRecorder()
+    state = oc_training.main(argv, on_step=rec)
+    with open(os.path.join(workdir, f"pp_cli_rank{rank}.json"), "w") as f:
+        json.dump(dict(steps=rec.steps, step=state.step,
+                       backend=str(dist.get_backend()),
+                       stage=pp_stage(state.mesh),
+                       wall_s=time.perf_counter() - t0), f)
+
+
+def pp_cli_argv(workdir: str, fixture) -> str:
+    """Write phase 17's `oc_training --pp 2` arguments for the ranks (an
+    epoch of the fixture tree at --groups_per_step 3: 2 steps of 36 x 6
+    s, microbatches of 9); returns its checkpoint directory."""
+    protocol, train_dir, voc_dir = fixture
+    ckpt_dir = os.path.join(workdir, "pp_ckpt")
+    argv = ["--train_protocol_file", protocol, "--train_dataset_dir",
+            train_dir, "--vocoded_dir", voc_dir, "--cut", str(TRAIN_CUT),
+            "--num_epochs", "1", "--groups_per_step", "3", "--pp",
+            str(PP_STAGES), "--pp_microbatches", str(PP_M),
+            "--attention_impl", "flash", "--compactness_weight", "0.1",
+            "--descriptiveness_weight", "0.9", "--checkpoint_dir", ckpt_dir]
+    with open(os.path.join(workdir, "pp_cli_argv.json"), "w") as f:
+        json.dump(argv, f)
+    return ckpt_dir
+
+
+def phase_pp_cli(workdir: str, ckpt_dir: str, per_step):
+    """`oc_training --pp 2 --pp_microbatches 4 --attention_impl flash` over
+    phase 17's two ranks sharing cuda:0 (Gloo; `pp_cli_rank`): every
+    step's loss finite and equal on the ranks, the flash kernels' launches
+    a step and rank the one process's x M / S; rank 0 writes a one-GPU
+    checkpoint, which one process loads with strict=True. Returns (the
+    record, launches by kernel)."""
+    import torch
+
+    from occm_tpu_torch.config import AASISTConfig, XLSRConfig
+    from occm_tpu_torch.models import AModel, load_reference_state_dict
+
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"pp_cli_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    scale = PP_M // PP_STAGES
+    want = {k: per_step[k] * scale for k in ("flash_attn_fwd",
+                                             "flash_attn_bwd_dq",
+                                             "flash_attn_bwd_dkv")}
+    counts = {}
+    for r, rec in enumerate(ranks):
+        if rec["backend"] != "gloo" or rec["stage"] != r or not rec["steps"]:
+            fail(f"oc_training --pp 2 rank {r}: {rec}")
+        for st in rec["steps"]:
+            got = {k: st["launches"][k] for k in want}
+            if got != want or not math.isfinite(st["loss"]):
+                fail(f"oc_training --pp 2 rank {r} step {st['step']}: loss "
+                     f"{st['loss']}, launches {got}, want {want}")
+            for k, n in st["launches"].items():
+                counts[k] = counts.get(k, 0) + n
+    losses = [[st["loss"] for st in rec["steps"]] for rec in ranks]
+    if losses[0] != losses[1]:
+        fail(f"oc_training --pp 2: the ranks' losses differ: {losses}")
+    path = os.path.join(ckpt_dir, "aasist_vocoded_0.pt")
+    if sorted(os.listdir(ckpt_dir)) != ["aasist_vocoded_0.pt"]:
+        fail(f"oc_training --pp 2 wrote {sorted(os.listdir(ckpt_dir))}")
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = AModel(AASISTConfig(), XLSRConfig())
+    model.load_state_dict(load_reference_state_dict(path), strict=True)
+    load_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir)
+    wall = [rec["wall_s"] for rec in ranks]
+    out = dict(losses=losses[0], wall_s=wall, ckpt_bytes=size,
+               load_s=load_s, steps=len(losses[0]),
+               step_ms=[[st["ms"] for st in rec["steps"]] for rec in ranks],
+               launches=ranks[0]["steps"][0]["launches"])
+    print(f"[parallel] oc_training --pp 2 --pp_microbatches {PP_M} over two "
+          f"ranks sharing cuda:0 (Gloo): {len(losses[0])} steps, losses "
+          f"{losses[0]} (equal on the ranks), step ms per rank "
+          f"{out['step_ms']}, flash launches a step and rank {want}; rank "
+          f"0's one-GPU checkpoint ({size} B) loads into one process with "
+          f"strict=True ({load_s:.1f} s); the CLI's main took "
+          f"{[round(w, 1) for w in wall]} s on the ranks", flush=True)
+    return out, counts
 
 
 class socket_port:
@@ -6096,6 +6461,7 @@ def main(argv=None) -> int:
         rank, world, port, workdir = args.parallel_rank
         return parallel_rank(int(rank), int(world), int(port), workdir)
 
+    t_run = time.perf_counter()
     smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -6133,6 +6499,7 @@ def main(argv=None) -> int:
                                        products=rows)}
             elif args.parallel_only:
                 rows = phase_parallel_kernels()
+                rows = dict(tp2=rows, **phase_pipeline_kernels(rows))
                 counts, par = phase_parallel(workdir, fixture)
                 result = {"parallel": dict(par, kernels=rows,
                                            launches=counts)}
@@ -6154,7 +6521,12 @@ def main(argv=None) -> int:
     # session, while its sessions this early have kept every record
     base_rows = None if args.kernels_only else phase_base_kernels()
     int8_rows = None if args.kernels_only else phase_int8_kernels()
-    par_rows = None if args.kernels_only else phase_parallel_kernels()
+    par_rows = pipe_rows = None
+    if not args.kernels_only:
+        par_rows = phase_parallel_kernels()
+        pipe_rows = phase_pipeline_kernels(par_rows)
+    print(f"[smoke] the kernel checks ended at "
+          f"{time.perf_counter() - t_run:.1f} s", flush=True)
     launches = dict.fromkeys(
         ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd", "fused_adam",
          "ffn_fwd"), 0)
@@ -6177,6 +6549,8 @@ def main(argv=None) -> int:
                 phase_profile(model, reference, ckpt)
             del model
             train_launches = phase_train(workdir, fixture, args.profile)
+            print(f"[smoke] phases 4-7 ended at "
+                  f"{time.perf_counter() - t_run:.1f} s", flush=True)
             control_counts, replayed, controls = phase_train_controls(
                 workdir, fixture)
             rb_counts, rb_replayed, rawboost = phase_rawboost_all(workdir,
@@ -6228,6 +6602,8 @@ def main(argv=None) -> int:
             launches[name] += p_counts[name]
         launches["flash_attn_bwd"] += p_counts["flash_attn_bwd_dq"]
 
+    print(f"[smoke] phases 1-17 took {time.perf_counter() - t_run:.1f} s",
+          flush=True)
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,
                           launches)
@@ -6241,6 +6617,10 @@ def main(argv=None) -> int:
             key = {"layernorm_bwd": "dp2", "fused_adam": "fsdp2"}.get(
                 entry["name"], "tp2")
             entry[key] = par_rows[entry["name"]]
+            # and pp=2 (a microbatch of 3 rows, stage 0's leaves) and
+            # tp=2 + sp (the LayerNorm on a frame block)
+            for key, rows in pipe_rows.items():
+                entry[key] = rows[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,11 +19,14 @@ every step's batch on the device. `--grad_accum`, `--lr_schedule` (with
 `--warmup_steps`, `--decay_steps`, `--lr_end_ratio`),
 `--steps_per_dispatch` (one CUDA graph per chunk on a card),
 `--checkpoint_every_steps` (and the SIGTERM save) and `--resume` act as in
-the JAX package. `--dp`, `--fsdp` and `--tp` lay the ranks of a
+the JAX package. `--dp`, `--fsdp`, `--tp` and `--pp` lay the ranks of a
 `torchrun --nproc_per_node N` launch out as a mesh (NCCL, one GPU per
 rank; `--device cpu`: Gloo): each rank loads its shard of the epoch and
-trains its shards of the model (`occm_tpu_torch.parallel`); `--pp`,
-`--pp_microbatches` and `--seq_parallel` raise (ROADMAP item 15b). Every
+trains its shards of the model (`occm_tpu_torch.parallel`). `--pp N`
+sets both the mesh's pp and the model's pp_stages (the GPipe schedule
+over N stages of the XLSR layers, `--pp_microbatches` microbatches, 0
+meaning N; ignored without `--pp`, as in JAX); `--seq_parallel` runs the
+layers' residual path on 1/tp of the frames under `--tp`. Every
 flag whose code path is not ported yet raises
 NotImplementedError at a non-default value, naming the ROADMAP item that
 ports it.
@@ -83,12 +86,22 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel degree of the XLSR layers "
                              "(heads and FFN columns)")
-    parser.add_argument("--pp", type=int, default=1,
-                        help="not ported yet (ROADMAP item 15b)")
-    parser.add_argument("--seq_parallel", action="store_true", default=False,
-                        help="not ported yet (ROADMAP item 15b)")
-    parser.add_argument("--pp_microbatches", type=int, default=0,
-                        help="not ported yet (ROADMAP item 15b)")
+    parser.add_argument(
+        "--pp", type=int, default=1,
+        help="pipeline stages: the GPipe schedule over the XLSR layers, "
+             "stage s of each pipeline owning its block of layers (must "
+             "divide encoder_layers)")
+    parser.add_argument(
+        "--seq_parallel", action="store_true", default=False,
+        help="Megatron sequence parallelism under --tp: each layer's "
+             "residual path (LayerNorms, dropouts, residual adds) on 1/tp "
+             "of the frames, the tp all-reduces replaced by frame "
+             "all-gathers and reduce-scatters; not with --pp")
+    parser.add_argument(
+        "--pp_microbatches", type=int, default=0,
+        help="microbatches of the pipeline schedule (0 = pp); more shrink "
+             "the (pp - 1) / (M + pp - 1) bubble; must divide a rank's "
+             "rows")
     parser.add_argument(
         "--rawboost_algo", type=int, default=0, choices=range(9),
         help="RawBoost in every step: 0 disables; 1 LnL, 2 ISD, 3 SSI, "
@@ -170,9 +183,6 @@ def _unported(args) -> None:
     ROADMAP queue A. (TrainConfig, MeshConfig and XLSRConfig raise on the
     fields they carry.)"""
     checks = [
-        ("--seq_parallel", args.seq_parallel, "item 15b, pp + seq_parallel"),
-        ("--pp_microbatches", args.pp_microbatches != 0,
-         "item 15b, pp + seq_parallel"),
         ("--debug_nans", args.debug_nans, "remaining features"),
     ]
     for flag, set_, item in checks:
@@ -184,7 +194,8 @@ def _unported(args) -> None:
 
 def xlsr_config(args, cut: int, device):
     """The model's XLSRConfig from the flags (--xlsr_tiny, --fast_numerics,
-    --pos_conv_impl, --feature_grad_mult), with the attention impl that
+    --pos_conv_impl, --feature_grad_mult, --pp, --pp_microbatches,
+    --seq_parallel), with the attention impl that
     --attention_impl resolves to for crops of `cut` samples of that model
     on `device`."""
     from occm_tpu_torch.classify.impl_select import (
@@ -204,6 +215,13 @@ def xlsr_config(args, cut: int, device):
     if args.feature_grad_mult != 1.0:
         xlsr_cfg = dataclasses.replace(
             xlsr_cfg, feature_grad_mult=args.feature_grad_mult)
+    # the JAX CLI's pairing (occm_tpu/cli/oc_training.py:269-275)
+    if args.pp > 1:
+        xlsr_cfg = dataclasses.replace(
+            xlsr_cfg, pp_stages=args.pp,
+            pp_microbatches=args.pp_microbatches)
+    if args.seq_parallel:
+        xlsr_cfg = dataclasses.replace(xlsr_cfg, seq_parallel=True)
     impl = select_attention_impl(
         cut, args.attention_impl,
         flash_takes_model=flash_kernel_takes(xlsr_cfg, device))

@@ -109,8 +109,17 @@ class XLSRConfig:
     # dtype bfloat16, norm_dtype float32 and ln_impl "xla" together (XLS-R
     # under exact numerics), which the JAX package cannot run.
     quant_int8: bool = False
+    # the GPipe pipeline over the transformer stack: pp_stages contiguous
+    # stages of encoder_layers / pp_stages layers, the batch in
+    # pp_microbatches microbatches (0: pp_stages). In one process the
+    # microbatches run through the whole stack in turn (the same
+    # function); on a mesh with pp = pp_stages each rank runs its stage
+    # (train/loop.py). The parameters are the sequential stack's.
     pp_stages: int = 1
     pp_microbatches: int = 0
+    # Megatron sequence parallelism under tp: each layer's residual path
+    # (LayerNorms, dropouts, residual adds) on 1/tp of the frames; off a
+    # tp mesh it changes nothing. Not with pp_stages > 1, as in JAX.
     seq_parallel: bool = False
     conv_remat: bool = False
     allow_debug_impls: bool = False
@@ -148,13 +157,6 @@ class XLSRConfig:
             if value not in valid:
                 raise ValueError(
                     f"unknown {field} {value!r} ({' | '.join(valid)})")
-        for field, set_ in (("pp_stages", self.pp_stages != 1),
-                            ("seq_parallel", self.seq_parallel)):
-            if set_:
-                raise NotImplementedError(
-                    f"XLSRConfig.{field}={getattr(self, field)!r} is not "
-                    "ported to occm_tpu_torch yet (ROADMAP queue A item "
-                    "15b: pp + seq_parallel)")
         unported = [
             ("fused_qkv", self.fused_qkv),
             ("attention_impl", impl not in ("xla", "flash")),
@@ -241,20 +243,14 @@ class AASISTConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Rank-mesh layout (`occm_tpu_torch.parallel.make_mesh`): dp (-1: what
-    the other axes leave of the world), fsdp and tp. pp must be 1: the
-    GPipe pipeline is ROADMAP queue A item 15b."""
+    the other axes leave of the world), fsdp, tp and pp (the GPipe
+    pipeline's stages, one per rank of a pp group; the model's
+    `XLSRConfig.pp_stages` must equal it)."""
 
     dp: int = -1
     fsdp: int = 1
     tp: int = 1
     pp: int = 1
-
-    def __post_init__(self):
-        if self.pp != 1:
-            raise NotImplementedError(
-                f"MeshConfig.pp={self.pp}: the pipeline-parallel axis is not "
-                "ported to occm_tpu_torch yet (ROADMAP queue A item 15b: "
-                "pp + seq_parallel)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -42,6 +42,15 @@ The port's recompute is the policy's. Its CUDA flash backward reads the
 forward's output and log-sum-exp, which no name keeps, so the recompute
 reruns the flash forward under every policy.
 
+On a mesh the recompute reruns the layer's collectives with its ops:
+Megatron's all-reduce under tp, the frame all-gathers (and, up to the
+last kept tensor, the reduce-scatters) under sequence parallelism. Every
+rank's backward reaches its layers' checkpoints in the same order and
+stops each recompute at the same kept tensor, so the ranks post the same
+collectives in the same order; collectives carry no name, so `_Replay`
+runs them (tests/test_torch_pipeline.py holds every policy under tp=2
+with sequence parallelism bit for bit against no remat).
+
 The CUDA kernels launch through ctypes, so the dispatcher never sees
 them: a kernel's output that a policy keeps by name (the flash output
 under attn_out_inner and up) goes through `kernel_output`, a copy the

@@ -70,6 +70,32 @@ the sums are its g. Dropout masks are drawn whole and sliced to the
 rank's heads / columns. The int8 projections have no split: an int8 row
 quantised over a column shard is another function.
 
+Sequence parallelism (`seq_parallel` under tp > 1, Megatron-SP): the
+stack's input is cut to this rank's block of the frames (T padded to a
+multiple of tp with zero frames), and each layer's residual path (its
+LayerNorms, dropouts and residual adds) runs on that block. Before
+attention and before the FFN the frames are all-gathered (and the pad
+sliced off); the row-parallel out_proj and fc2 reduce-scatter over the
+frames instead of all-reducing (the pad put back first; the bias added
+once, after), and the stack's output is gathered whole again. The pad
+frames get no gradient. The residual-branch masks are drawn whole and
+the rank keeps its frames; Megatron's f is not needed (the gather's
+backward reduces).
+
+The GPipe pipeline (`pp_stages` S > 1, `pp_microbatches` M, 0 meaning
+S): in one process the stack runs the M microbatches of the batch in
+turn and concatenates them, the same function as the sequential stack
+(JAX's unsharded schedule). On a mesh with pp = S (`pp_group`), each
+rank's encoder runs its stage of the schedule's forward: its own block of
+layers on the microbatches, received from the stage before and sent to
+the one after; stage 0 runs the frontend, the last stage the head and
+returns the features. It leaves what the backward needs in `stage_pass`,
+which `train.loop` takes to run the microbatches' backward in reverse.
+Dropout masks and layerdrop flags of every layer are drawn for the whole
+batch, in layer order, before the first layer runs (`draw_layers`), so
+the pipelined and the sequential stacks draw alike; a microbatch takes
+its rows of them.
+
 The positional conv trains one folded kernel `weight` [C, C/G, K], as the
 JAX package does. Its state dict is fairseq's weight-norm pair: saving
 writes v = w and g = ||w|| (the JAX exporter's split), and loading folds
@@ -79,6 +105,7 @@ strictly and a saved one loads into fairseq's layout.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from operator import attrgetter
 from typing import Optional
@@ -96,8 +123,11 @@ from occm_tpu_torch.ops.ffn import fused_ffn
 from occm_tpu_torch.ops.int8 import int8_matmul
 from occm_tpu_torch.ops.layernorm import fast_layer_norm
 from occm_tpu_torch.ops.pos_conv import pos_conv_grouped
-from occm_tpu_torch.parallel.collectives import copy_to, reduce_from
-from occm_tpu_torch.parallel.mesh import batch_shard, tp_group
+from occm_tpu_torch.parallel.collectives import (
+    copy_to, gather_frames, gather_rows, recv, reduce_from, scatter_frames,
+    send, split_frames)
+from occm_tpu_torch.parallel.mesh import (
+    batch_shard, current_mesh, pp_group, pp_peer, tp_group)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -134,6 +164,31 @@ def _params_of(module: nn.Module, names) -> dict:
 
 def _gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def _sp(cfg: XLSRConfig):
+    """The tp group tuple (group, size, index) when the layers run
+    sequence parallelism, else None."""
+    tp = tp_group()
+    return tp if cfg.seq_parallel and tp is not None else None
+
+
+def _padded(frames: int, n: int) -> int:
+    return -(-frames // n) * n
+
+
+def _pad_frames(t: torch.Tensor, frames: int) -> torch.Tensor:
+    """t [B, T, ...] with zero frames appended up to `frames`."""
+    extra = frames - t.shape[1]
+    if extra == 0:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], extra) + t.shape[2:])], 1)
+
+
+def _frame_block(t: torch.Tensor, sp) -> torch.Tensor:
+    """This rank's block of t's frames (dim 1, padded to a multiple of the
+    tp size with zero frames)."""
+    return split_frames(_pad_frames(t, _padded(t.shape[1], sp[1])), sp[0])
 
 
 def dropout_keep(shape, p: float, gen: torch.Generator,
@@ -369,10 +424,14 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, impl: str,
                 keep: Optional[torch.Tensor] = None,
-                params: Optional[dict] = None) -> torch.Tensor:
+                params: Optional[dict] = None,
+                scatter_to: Optional[int] = None) -> torch.Tensor:
         """keep: the attention-probability dropout mask [B, H, T, T] (plain
         attention only), or None. params: the layer's bf16 mirror of this
-        module's parameters, by name, or None to read them."""
+        module's parameters, by name, or None to read them. scatter_to:
+        under sequence parallelism, the padded frame count whose
+        reduce-scatter gives this rank's block of the output (x is then
+        the gathered frames), else None."""
         cfg = self.cfg
         dt = _DTYPES[cfg.dtype]
         ndt = _DTYPES[cfg.norm_dtype]
@@ -380,7 +439,7 @@ class SelfAttention(nn.Module):
         B, T, _ = x.shape
         p = _params_of(self, self._names) if params is None else params
         tp = tp_group()
-        if tp is not None:
+        if tp is not None and scatter_to is None:
             x = copy_to(x, tp[0])
 
         def proj(y, name):
@@ -421,7 +480,11 @@ class SelfAttention(nn.Module):
         # row-parallel out_proj: the partial product summed over tp, then
         # the bias once
         part = _linear(out, p["out_proj.weight"], None, dt, tag="attn_out")
-        return reduce_from(part, tp[0]) + p["out_proj.bias"].to(dt)
+        if scatter_to is not None:
+            part = scatter_frames(_pad_frames(part, scatter_to), tp[0])
+        else:
+            part = reduce_from(part, tp[0])
+        return part + p["out_proj.bias"].to(dt)
 
 
 class TransformerLayer(nn.Module):
@@ -447,12 +510,14 @@ class TransformerLayer(nn.Module):
         return _layer_norm(x, weight, bias, _DTYPES[self.cfg.norm_dtype],
                            eps)
 
-    def draw_masks(self, x: torch.Tensor, impl: str,
+    def draw_masks(self, shape, device, impl: str,
                    gen: Optional[torch.Generator]):
-        """The layer's dropout masks for input x [B, T, D], in the order its
-        sites run: attention probabilities, the attention branch, the FFN
-        activation, the FFN branch (None where a site's rate is 0 or there
-        is no generator)."""
+        """The layer's dropout masks for an input of `shape` [B, T, D] on
+        `device`, in the order its sites run: attention probabilities, the
+        attention branch, the FFN activation, the FFN branch (None where a
+        site's rate is 0 or there is no generator). Under tp the rank keeps
+        its heads and FFN columns, and under sequence parallelism its
+        frames of the two branch masks."""
         cfg = self.cfg
         if gen is None:
             return (None,) * 4
@@ -467,13 +532,13 @@ class TransformerLayer(nn.Module):
                 "activation_dropout needs the hidden FFN activation "
                 'materialised: train with ffn_impl="xla" and without '
                 "quant_int8, or zero the rate")
-        B, T, d = x.shape
+        B, T, d = shape
         shapes = ((B, cfg.encoder_heads, T, T), (B, T, d),
                   (B, T, cfg.encoder_ffn_dim), (B, T, d))
         rates = (cfg.attention_dropout, cfg.dropout, cfg.activation_dropout,
                  cfg.dropout)
-        masks = [dropout_keep(shape, p, gen, x.device) if p > 0.0
-                 else None for shape, p in zip(shapes, rates)]
+        masks = [dropout_keep(s, p, gen, device) if p > 0.0
+                 else None for s, p in zip(shapes, rates)]
         tp = tp_group()
         if tp is not None:
             # drawn whole on every rank (the generators stay in step); the
@@ -483,14 +548,21 @@ class TransformerLayer(nn.Module):
                 if masks[j] is not None:
                     size = masks[j].shape[dim] // n
                     masks[j] = masks[j].narrow(dim, i * size, size)
+        sp = _sp(cfg)
+        if sp is not None:
+            for j in (1, 3):
+                if masks[j] is not None:
+                    masks[j] = _frame_block(masks[j], sp)
         return tuple(masks)
 
     def forward(self, x: torch.Tensor, impl: str,
                 masks=(None, None, None, None),
-                params: Optional[dict] = None) -> torch.Tensor:
+                params: Optional[dict] = None,
+                frames: Optional[int] = None) -> torch.Tensor:
         """masks: `draw_masks`' tuple (all None: no dropout). params: the
         layer's parameters by name (the encoder's bf16 mirror), or None to
-        read them."""
+        read them. frames: under sequence parallelism, the frame count T
+        (x is then this rank's block of the padded frames)."""
         cfg = self.cfg
         dt = _DTYPES[cfg.dtype]
         pre = cfg.layer_norm_first
@@ -498,11 +570,21 @@ class TransformerLayer(nn.Module):
         p = _params_of(self, self._names) if params is None else params
         attn_p = {k[len("self_attn."):]: v for k, v in p.items()
                   if k.startswith("self_attn.")}
+        sp = _sp(cfg)
+        padded = None if sp is None else x.shape[1] * sp[1]
+
+        def gathered(h):
+            # the whole frames, the pad sliced off, contiguous: F.linear
+            # fuses its bias into the product only on a contiguous input,
+            # so the projections then round as tp's do
+            if sp is None:
+                return h
+            return gather_frames(h, sp[0])[:, :frames].contiguous()
 
         residual = x
         h = self._norm(p, "self_attn_layer_norm", x) if pre else x
-        h = apply_keep(self.self_attn(h, impl, keep_attn, attn_p), keep_res1,
-                       cfg.dropout)
+        h = apply_keep(self.self_attn(gathered(h), impl, keep_attn, attn_p,
+                                      padded), keep_res1, cfg.dropout)
         x = residual + h
         if not pre:
             x = self._norm(p, "self_attn_layer_norm", x).to(dt)
@@ -511,7 +593,10 @@ class TransformerLayer(nn.Module):
         h = self._norm(p, "final_layer_norm", x) if pre else x
         tp = tp_group()
         b2 = p["fc2.bias"]
-        if tp is not None:
+        if sp is not None:
+            h = gathered(h)
+            b2 = torch.zeros_like(b2)
+        elif tp is not None:
             h = copy_to(h, tp[0])
             # row-parallel fc2: its bias is added once, after the sum
             b2 = torch.zeros_like(b2)
@@ -531,7 +616,10 @@ class TransformerLayer(nn.Module):
                               tag="fc1"), cfg.gelu_approximate)
             h = apply_keep(h, keep_act, cfg.activation_dropout)
             h = _linear(h, p["fc2.weight"], None if tp else b2, dt)
-        if tp is not None:
+        if sp is not None:
+            h = scatter_frames(_pad_frames(h, padded), tp[0]) \
+                + p["fc2.bias"].to(dt)
+        elif tp is not None:
             h = reduce_from(h, tp[0]) + p["fc2.bias"].to(dt)
         h = apply_keep(h, keep_res2, cfg.dropout)
         x = residual + h
@@ -552,6 +640,22 @@ class TransformerEncoder(nn.Module):
         self.layer_norm = nn.LayerNorm(cfg.encoder_embed_dim, eps=1e-5)
 
 
+@dataclasses.dataclass
+class StagePass:
+    """A pipeline stage's forward, kept for its backward: the pp group,
+    the global ranks of the stages before and after this one (None at the
+    ends), on stage 0 the stack's input as the frontend made it (`x0`) and
+    as the leaf its microbatches' backwards accumulate into (`whole`), and
+    per microbatch (its input, its output, on the last stage that output
+    as a leaf)."""
+    group: object
+    prev: Optional[int]
+    next: Optional[int]
+    x0: Optional[torch.Tensor]
+    whole: Optional[torch.Tensor]
+    parts: list
+
+
 class XLSREncoder(nn.Module):
     """Raw wave [B, T] -> contextual features [B, frames, out_dim] fp32
     (the reference's `SSLModel.extract_feat`)."""
@@ -568,16 +672,112 @@ class XLSREncoder(nn.Module):
             self.post_extract_proj = None
         self.encoder = TransformerEncoder(cfg)
 
+    #: a pipeline stage's last forward, for its backward (`train.loop`
+    #: takes it), or None
+    stage_pass = None
+
     def forward(self, x: torch.Tensor,
                 attention_impl: Optional[str] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None
+                ) -> Optional[torch.Tensor]:
         """attention_impl overrides cfg.attention_impl ("xla" | "flash"),
         so one set of weights serves buckets that pick different impls.
-        generator: the generator of the dropout masks in train mode."""
-        cfg = self.cfg
-        impl = attention_impl or cfg.attention_impl
-        dt = _DTYPES[cfg.dtype]
+        generator: the generator of the dropout masks in train mode. On a
+        mesh with pp > 1 the rank's pipeline stage (`stage_forward`): the
+        features on the last stage, None on the others."""
+        impl = attention_impl or self.cfg.attention_impl
         gen = train_generator(self, generator)
+        pp = pp_group()
+        if pp is not None:
+            return self.stage_forward(x, impl, gen, pp)
+        x = self.embed(x, impl, gen)
+        layers = range(len(self.encoder.layers))
+        draws = self.draw_layers(x.shape, x.device, impl, gen, layers)
+        mirror = self.mirror(layers)
+        micro = self.microbatches(x.shape[0])
+        if len(micro) == 1:
+            x = self.run_layers(x, impl, draws, layers, mirror)
+        else:
+            # JAX's pipelined stack in one process: the microbatches in
+            # turn through every layer, the same function
+            x = torch.cat([self.run_layers(x[rows], impl, draws, layers,
+                                           mirror, rows) for rows in micro])
+        return self.head(x)
+
+    def stage_forward(self, x: torch.Tensor, impl: str,
+                      gen: Optional[torch.Generator], pp
+                      ) -> Optional[torch.Tensor]:
+        """Stage s of the GPipe schedule's forward over S stages (`pp`:
+        pp_group()'s (group, S, s)): layers [s L/S, (s + 1) L/S) on each
+        microbatch, received from stage s - 1 (stage 0 embeds the wave x;
+        later stages read only its shape) and sent on to stage s + 1, every
+        rank posting them in schedule order. The dropout generator comes
+        from stage s - 1 before this stage draws and goes on to stage s + 1
+        after, so each stage draws after the one before, as one process
+        draws. Returns the features on the last stage (its microbatches'
+        outputs gathered, as leaves whose gradients start the backward),
+        else None; leaves the backward's record in `stage_pass`."""
+        group, S, s = pp
+        cfg = self.cfg
+        mesh = current_mesh()
+        micro = self.microbatches(x.shape[0])
+        per = cfg.encoder_layers // S
+        layers = range(s * per, (s + 1) * per)
+        prev = pp_peer(mesh, s - 1) if s > 0 else None
+        nxt = pp_peer(mesh, s + 1) if s < S - 1 else None
+        x0 = whole = None
+        if prev is None:
+            # the stack's input as a leaf: the microbatches' backwards
+            # accumulate into it, and the frontend's runs once
+            x0 = self.embed(x, impl, gen)
+            whole = x0.detach().requires_grad_(x0.requires_grad)
+            shape = whole.shape
+        else:
+            if gen is not None:
+                state = gen.get_state()
+                gen.set_state(recv(tuple(state.shape), state.dtype, prev,
+                                   "cpu", group))
+            shape = (x.shape[0], self.frames(x.shape[-1]),
+                     cfg.encoder_embed_dim)
+        draws = self.draw_layers(shape, x.device, impl, gen, layers)
+        if nxt is not None and gen is not None:
+            send(gen.get_state(), nxt, group)
+        mirror = self.mirror(layers)
+        parts = []
+        for rows in micro:
+            if whole is not None:
+                h = whole[rows]
+            else:
+                h = recv((rows.stop - rows.start,) + tuple(shape[1:]),
+                         _DTYPES[cfg.dtype], prev, x.device,
+                         group).requires_grad_()
+            y = self.run_layers(h, impl, draws, layers, mirror, rows)
+            out = None
+            if nxt is not None:
+                send(y, nxt, group)
+            else:
+                out = y.detach().requires_grad_()
+            parts.append((h, y, out))
+        self.stage_pass = StagePass(group, prev, nxt, x0, whole, parts)
+        if nxt is None:
+            return self.head(torch.cat([out for _, _, out in parts]))
+        return None
+
+    def frames(self, samples: int) -> int:
+        """The frame count of a wave of `samples` samples."""
+        n = samples
+        for _, k, s in self.cfg.conv_layers:
+            n = (n - k) // s + 1
+        return n
+
+    def embed(self, x: torch.Tensor, impl: str,
+              gen: Optional[torch.Generator]) -> torch.Tensor:
+        """Raw wave [B, T] -> the layer stack's input [B, frames, D] in the
+        compute dtype: the conv extractor, its LayerNorm, post_extract_proj,
+        dropout_input, the positional conv (and the post-norm LayerNorm)
+        and the encoder's input dropout."""
+        cfg = self.cfg
+        dt = _DTYPES[cfg.dtype]
         if cfg.quant_int8 and tp_group() is not None:
             raise ValueError(
                 "quant_int8 has no tensor-parallel split (an int8 row "
@@ -606,34 +806,97 @@ class XLSREncoder(nn.Module):
         x = feats + _gelu(pos, cfg.conv_gelu_approximate)
         if not cfg.layer_norm_first:
             x = _ln(x, self.encoder.layer_norm, torch.float32).to(dt)
-        x = dropout(x, cfg.dropout, gen)
-        mirror = [None] * len(self.encoder.layers)
-        if cfg.bf16_param_mirror:
-            # JAX's nn.map_variables mirror: every fp32 parameter of the
-            # stack cast to bf16 once per forward (LayerNorms included),
-            # which every use in the layers reads; gradients flow back to
-            # the fp32 leaves through this one cast
-            mirror = [{n: w.to(torch.bfloat16) if w.dtype == torch.float32
-                       else w for n, w in layer.named_parameters()}
-                      for layer in self.encoder.layers]
-        for layer, params in zip(self.encoder.layers, mirror):
+        return dropout(x, cfg.dropout, gen)
+
+    def draw_layers(self, shape, device, impl: str,
+                    gen: Optional[torch.Generator], layers) -> dict:
+        """layer -> (layerdrop keep flag or None, its dropout masks) for a
+        stack input of `shape` on `device`, drawn in layer order (the
+        sequential stack's order) for the whole batch."""
+        cfg = self.cfg
+        draws = {}
+        for l in layers:
             keep = None
             if gen is not None and cfg.layerdrop > 0.0:
                 # fairseq encoder_layerdrop: drop the layer with probability
                 # p; the flag is drawn on the generator's device
                 keep = (torch.rand((), generator=gen, device=gen.device)
-                        >= cfg.layerdrop).to(x.device)
-            masks = layer.draw_masks(x, impl, gen)
+                        >= cfg.layerdrop).to(device)
+            draws[l] = (keep, self.encoder.layers[l].draw_masks(
+                shape, device, impl, gen))
+        return draws
+
+    def mirror(self, layers) -> dict:
+        """layer -> its parameters by name for the forward: with
+        bf16_param_mirror JAX's nn.map_variables mirror, every fp32
+        parameter of these layers cast to bf16 once per forward
+        (LayerNorms included), which every use in the layers reads (the
+        gradients flow back to the fp32 leaves through this one cast);
+        else None (the layers read their parameters)."""
+        if not self.cfg.bf16_param_mirror:
+            return dict.fromkeys(layers)
+        return {l: {n: w.to(torch.bfloat16) if w.dtype == torch.float32
+                    else w for n, w in
+                    self.encoder.layers[l].named_parameters()}
+                for l in layers}
+
+    def microbatches(self, rows: int) -> list:
+        """The row slices the stack runs in turn: the whole batch, or with
+        pp_stages S > 1 its M = pp_microbatches (0: S) microbatches. Raises
+        JAX's ValueErrors when S does not divide the layers or M the rows
+        this encoder is given (under GSPMD JAX checks the global batch;
+        here they are this rank's rows)."""
+        cfg = self.cfg
+        S = cfg.pp_stages
+        if S == 1:
+            return [slice(None)]
+        L = cfg.encoder_layers
+        if L % S:
+            raise ValueError(
+                f"pp_stages={S} must divide encoder_layers={L}")
+        M = cfg.pp_microbatches or S
+        if rows % M:
+            raise ValueError(
+                f"pp_microbatches={M} must divide batch size {rows} (the "
+                "rows this rank's encoder is given)")
+        mb = rows // M
+        return [slice(m * mb, (m + 1) * mb) for m in range(M)]
+
+    def run_layers(self, x: torch.Tensor, impl: str, draws: dict, layers,
+                   mirror: dict, rows: Optional[slice] = None
+                   ) -> torch.Tensor:
+        """`layers` of the stack on x [b, T, D] (rows `rows` of the batch
+        the draws were made for, or all of it), with remat per layer in
+        training. Under sequence parallelism x is cut to this rank's block
+        of the frames here and gathered whole again at the end."""
+        cfg = self.cfg
+        train_remat = self.training and torch.is_grad_enabled()
+        sp = _sp(cfg)
+        frames = x.shape[1]
+        if sp is not None:
+            x = _frame_block(x, sp)
+        for l in layers:
+            layer = self.encoder.layers[l]
+            keep, masks = draws[l]
+            if rows is not None:
+                masks = tuple(None if m is None else m[rows] for m in masks)
             if cfg.remat and train_remat:
                 # the masks are inputs, so the recompute draws nothing
                 y = remat.checkpoint_layer(layer, cfg.remat_policy, x, impl,
-                                           masks, params)
+                                           masks, mirror[l], frames)
             else:
-                y = layer(x, impl, masks, params)
+                y = layer(x, impl, masks, mirror[l], frames)
             # the layer always runs and a dropped one is discarded on the
             # device, as the JAX package's where(keep, y, carry)
             x = y if keep is None else torch.where(keep, y, x)
-        if cfg.layer_norm_first:
+        if sp is not None:
+            x = gather_rows(x, sp[0], dim=1)[:, :frames]
+        return x
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The stack's output -> the features, fp32 (the encoder LayerNorm
+        of the pre-norm layout)."""
+        if self.cfg.layer_norm_first:
             x = _ln(x, self.encoder.layer_norm, torch.float32)
         return x.float()
 

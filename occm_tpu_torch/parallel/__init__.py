@@ -2,7 +2,8 @@
 `occm_tpu.parallel`): the (dp, pp, fsdp, tp) mesh over ranks
 (`mesh.py`), the placement of parameters, optimizer state and batches
 (`sharding.py`), process-group initialisation (`multihost.py`) and the
-collectives with their autograd forms (`collectives.py`)."""
+collectives with their autograd forms and the pipeline's point-to-point
+messages (`collectives.py`)."""
 
 from occm_tpu_torch.parallel.mesh import (
     batch_sharding,
@@ -13,6 +14,9 @@ from occm_tpu_torch.parallel.mesh import (
     data_shard_for_process,
     data_spec,
     make_mesh,
+    pp_group,
+    pp_peer,
+    pp_stage,
     replicated,
 )
 from occm_tpu_torch.parallel.sharding import (
@@ -33,6 +37,9 @@ __all__ = [
     "data_shard_for_process",
     "data_spec",
     "replicated",
+    "pp_group",
+    "pp_peer",
+    "pp_stage",
     "opt_state_shardings",
     "param_shardings",
     "train_state_shardings",

@@ -12,8 +12,11 @@ one process group per axis for the rank, plus the group of its data axes:
   (`sharding.py`) while the batch ALSO shards over it (an fsdp group is a
   data-parallel group whose weights are gathered before use);
 - tp: Megatron tensor parallelism inside the XLSR layers (heads and FFN
-  columns); the ranks of one tp group hold the same batch;
-- pp: 1 here (the GPipe schedule is ROADMAP queue A item 15b).
+  columns, and with `seq_parallel` the residual path on 1/tp of the
+  frames); the ranks of one tp group hold the same batch;
+- pp: the GPipe pipeline: stage s of a pp group owns the s-th contiguous
+  block of the XLSR layers and passes microbatches to stage s + 1
+  (`pp_peer`); the ranks of one pipeline hold the same batch.
 
 A group is the WORLD group when it spans every rank (so at world size 1
 under NCCL the data-axis collectives still run, and a CUDA graph captures
@@ -169,7 +172,9 @@ def data_parallel_size(mesh: Mesh) -> int:
 
 def data_index(mesh: Mesh, rank: Optional[int] = None) -> int:
     """A rank's coordinate on the data axes: dp outer, fsdp inner (the
-    order of the batch's rows, as JAX's P(("dp", "fsdp")))."""
+    order of the batch's rows, as JAX's P(("dp", "fsdp"))). It does not
+    depend on pp or tp: the stages of one pipeline and the ranks of one
+    tp group get the same rows."""
     c = mesh.coords(rank)
     return c["dp"] * mesh.shape["fsdp"] + c["fsdp"]
 
@@ -178,10 +183,11 @@ def data_shard_for_process(mesh: Mesh, process_index: Optional[int] = None
                            ) -> Tuple[int, int]:
     """(shard_index, shard_count) of the GLOBAL batch this rank's input
     pipeline loads: its coordinate on the data axes and their size. Ranks
-    of one tp group (which hold replicas of one batch shard) load
-    IDENTICAL data, as JAX's 4 hosts on fsdp=2 x tp=2 form 2 data shards
-    of 2 hosts each. A rank owns one device, so JAX's fallback for a
-    process spanning several data shards never arises."""
+    of one tp group and the stages of one pipeline (which hold replicas
+    of one batch shard) load IDENTICAL data, as JAX's 4 hosts on fsdp=2
+    x tp=2 form 2 data shards of 2 hosts each. A rank owns one device,
+    so JAX's fallback for a process spanning several data shards never
+    arises."""
     count = data_parallel_size(mesh)
     if count == 1:
         return 0, 1
@@ -211,6 +217,29 @@ def tp_group():
     if mesh is None or mesh.shape["tp"] == 1:
         return None
     return mesh.group("tp"), mesh.shape["tp"], mesh.coords()["tp"]
+
+
+def pp_group():
+    """(group, size, stage) of the current mesh's pp axis when it is > 1,
+    else None."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape["pp"] == 1:
+        return None
+    return mesh.group("pp"), mesh.shape["pp"], mesh.coords()["pp"]
+
+
+def pp_stage(mesh: Optional[Mesh] = None) -> int:
+    """This rank's pipeline stage on `mesh` (the current one by default);
+    0 without a mesh."""
+    mesh = mesh or current_mesh()
+    return 0 if mesh is None else mesh.coords()["pp"]
+
+
+def pp_peer(mesh: Mesh, stage: int, rank: Optional[int] = None) -> int:
+    """The global rank of `stage` in the pipeline of `rank` (this one by
+    default): the same dp, fsdp and tp coordinates."""
+    c = mesh.coords(rank)
+    return int(mesh.ranks[c["dp"], stage, c["fsdp"], c["tp"]])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,9 +15,13 @@ mid-save leaves the previous file whole.
 
 On a rank mesh the shards are gathered (a collective: every rank calls
 the save) and the primary rank writes the file, in exactly the
-single-GPU format, so a dp / fsdp / tp checkpoint scores and resumes on
-one GPU. Restoring into a placed state gathers it whole, loads, and
-places it again, so a one-GPU checkpoint resumes sharded.
+single-GPU format, so a dp / fsdp / tp / pp checkpoint scores and
+resumes on one GPU: under pp each stage's layers (and their moments) are
+broadcast from the stage that owns them, and the BatchNorm statistics,
+which only the last stage updates, are the last stage's (the train step
+broadcasts them to its pipeline). Restoring into a placed state gathers
+the parameters whole, loads the checkpoint, and places it again, so a
+one-GPU checkpoint resumes sharded.
 """
 
 from __future__ import annotations

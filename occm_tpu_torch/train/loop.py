@@ -31,6 +31,19 @@ Semantics of the JAX package's loop (reference: oc_training.py:344-401):
   `checkpoint_fn(state, epoch)`, step checkpoints every
   `checkpoint_every_steps` optimizer steps and on SIGTERM, and resume.
 
+On a mesh with pp > 1 (the GPipe pipeline over the XLSR layers), each
+rank runs its stage of the schedule: stage 0 RawBoost, then the encoder's
+stage forward (`XLSREncoder.stage_forward`: stage 0 the frontend and its
+layers on the M microbatches, each later stage its layers on the
+microbatches it receives from the one before, the last stage the encoder
+LayerNorm on the microbatches' outputs gathered into the rank's rows),
+the last stage the backend and the loss; then the backward (`_Stage`),
+the microbatches in reverse, each stage handing its inputs' gradients
+back. The dropout generator travels with the schedule (each stage draws
+after the one before, as one process draws), and the last stage's
+generator, BatchNorm statistics and metrics are broadcast to its
+pipeline at the end.
+
 PyTorch runs eagerly, so there is no jit or donated state; losses stay on
 the device between log points, and the host reads them only there (and
 when an `on_step` hook asks). RawBoost's draws and then the dropout masks
@@ -59,7 +72,7 @@ from occm_tpu_torch.parallel import collectives as C
 from occm_tpu_torch.parallel import multihost
 from occm_tpu_torch.parallel.mesh import (
     batch_shard, compute_mesh, data_index, data_parallel_size, make_mesh,
-    sharded_batch)
+    pp_group, pp_peer, sharded_batch)
 from occm_tpu_torch.parallel.sharding import (
     gather_fsdp_params, local_rows, place_state_on_mesh, reduce_gradients)
 from occm_tpu_torch.train.state import TrainState, create_train_state
@@ -186,17 +199,121 @@ def train_step(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
     return metrics
 
 
+def pipeline_encoder(model, pp: int):
+    """The XLSR encoder of `model` that a pipeline of `pp` stages splits:
+    a ValueError unless there is exactly one and its pp_stages is pp."""
+    from occm_tpu_torch.models.xlsr import XLSREncoder
+
+    found = [m for m in model.modules() if isinstance(m, XLSREncoder)]
+    if len(found) != 1:
+        raise ValueError(f"a pipeline splits one XLSR encoder; the model "
+                         f"has {len(found)}")
+    stages = found[0].cfg.pp_stages
+    if stages != pp:
+        raise ValueError(
+            f"a mesh with pp={pp} trains a model of pp_stages={pp}, not "
+            f"{stages} (ROADMAP queue A item 16: pp_stages other than the "
+            "mesh's pp)")
+    return found[0]
+
+
+class _Stage:
+    """This rank's stage of the GPipe schedule over the XLSR layers on a
+    mesh with pp = S > 1. The encoder runs the stage's forward
+    (`XLSREncoder.stage_forward`, on the mesh's pp group); this runs its
+    backward and hands the last stage's generator, metrics and BatchNorm
+    statistics to the pipeline."""
+
+    def __init__(self, state, device):
+        self.group, S, self.s = pp_group()
+        self.enc = pipeline_encoder(state.model, S)
+        self.last = self.s == S - 1
+        self.src = pp_peer(state.mesh, S - 1)
+        self.device = device
+
+    def backward(self) -> None:
+        """The microbatches of the encoder's last stage forward in reverse:
+        each one's backward through this stage's layers from its outputs'
+        gradient (the last stage's from the loss's backward, the others'
+        received), its inputs' gradient sent back; stage 0 then runs the
+        frontend's backward once."""
+        p, self.enc.stage_pass = self.enc.stage_pass, None
+        for h, y, out in reversed(p.parts):
+            if out is not None:
+                g = out.grad
+            else:
+                g = C.recv(tuple(y.shape), y.dtype, p.next, y.device,
+                           p.group)
+            torch.autograd.backward(y, g)
+            if p.prev is not None:
+                C.send(h.grad, p.prev, p.group)
+        if p.x0 is not None and p.x0.requires_grad:
+            p.x0.backward(p.whole.grad)
+
+    def end_of_pass(self, gen) -> None:
+        """Every stage takes the last stage's generator (it drew last)."""
+        state = gen.get_state()
+        gen.set_state(C.broadcast_(state.clone(), self.src, self.group))
+
+    def finish(self, model, metrics):
+        """The last stage's metrics and buffers (BatchNorm statistics,
+        which only it updates) on every stage of the pipeline."""
+        keys = ("loss", "closs", "dloss")
+        if self.last:
+            vec = torch.stack([metrics[k].float() for k in keys])
+        else:
+            vec = torch.zeros(3, device=self.device)
+        C.broadcast_(vec, self.src, self.group)
+        by_dtype: Dict[torch.dtype, list] = {}
+        for b in model.buffers():
+            by_dtype.setdefault(b.dtype, []).append(b)
+        for bufs in by_dtype.values():
+            flat = C.broadcast_(torch.cat([b.reshape(-1) for b in bufs]),
+                                self.src, self.group)
+            offset = 0
+            for b in bufs:
+                b.copy_(flat[offset:offset + b.numel()].view_as(b))
+                offset += b.numel()
+        return dict(zip(keys, vec.unbind()))
+
+
+def _pass(state, x, labels, cfg, weights, scale, stage):
+    """One forward and backward (the backward of scale * loss; of the loss
+    when scale is None) -> (loss, (c_loss, d_loss)), or None on a
+    pipeline stage other than the last."""
+    if stage is None:
+        loss, aux = _loss(state, x, labels, cfg, weights)
+        (loss if scale is None else scale * loss).backward()
+        return loss, aux
+    gen = state.generator
+    out = None
+    if stage.last:
+        out = _loss(state, x, labels, cfg, weights)
+        loss = out[0]
+        (loss if scale is None else scale * loss).backward()
+    else:
+        # the encoder's stage forward alone: no features leave this stage
+        stage.enc(x, generator=gen)
+    stage.backward()
+    stage.end_of_pass(gen)
+    return out
+
+
 def _step_body(state, x, labels, cfg, weights):
     """RawBoost, the forward(s) and backward(s) of train_step; returns its
     metrics, the gradients left in .grad."""
-    if cfg.rawboost.algo != 0:
+    stage = None
+    if state.mesh is not None and state.mesh.shape["pp"] > 1:
+        stage = _Stage(state, x.device)
+    if cfg.rawboost.algo != 0 and (stage is None or stage.s == 0):
         x = _rawboost(state.generator, x, cfg.rawboost)
     shard = batch_shard()
     count = 1 if shard is None else shard.count
     accum = _accum(cfg, x.shape[0] * count)
+    zero = torch.zeros((), device=x.device)
     if accum == 1:
-        loss, (c_loss, d_loss) = _loss(state, x, labels, cfg, weights)
-        loss.backward()
+        out = _pass(state, x, labels, cfg, weights, None, stage)
+        loss, (c_loss, d_loss) = out or (zero, (zero, zero))
         metrics = {"loss": loss.detach(), "closs": c_loss.detach(),
                    "dloss": d_loss.detach()}
     else:
@@ -212,13 +329,14 @@ def _step_body(state, x, labels, cfg, weights):
             part = slice(i * mb, (i + 1) * mb)
             w_i = None if weights is None else weights[part]
             r_i = 1.0 / accum if w_i is None else w_micro[i] / total
-            loss, (c_loss, d_loss) = _loss(state, x[part], labels[part], cfg,
-                                           w_i)
-            (r_i * loss).backward()
+            out = _pass(state, x[part], labels[part], cfg, w_i, r_i, stage)
+            loss, (c_loss, d_loss) = out or (zero, (zero, zero))
             for key, value in (("loss", loss), ("closs", c_loss),
                                ("dloss", d_loss)):
                 term = r_i * value.detach()
                 metrics[key] = term if i == 0 else metrics[key] + term
+    if stage is not None:
+        metrics = stage.finish(state.model, metrics)
     return metrics
 
 
@@ -272,6 +390,15 @@ def train(
     if mesh is None:
         mesh = make_mesh(cfg.mesh)
     distributed = bool(mesh.groups)
+    pp = mesh.shape["pp"]
+    if pp > 1:
+        if max(1, cfg.steps_per_dispatch) > 1:
+            raise ValueError(
+                f"steps_per_dispatch={cfg.steps_per_dispatch} with pp={pp}: "
+                "the pipeline's point-to-point exchanges are not captured "
+                "in a CUDA graph yet (ROADMAP queue A item 16, pp under a "
+                "CUDA graph); train with steps_per_dispatch 1")
+        pipeline_encoder(model, pp)
     if not multihost.is_primary():
         logger = MetricsLogger(loss_txt=None, jsonl=None)
     logger = logger or MetricsLogger(loss_txt=cfg.loss_txt)

@@ -23,9 +23,10 @@ state moves in and out in one form for both, keyed by parameter name:
 `optimizer_state_from_flax` gives.
 
 On a mesh (`parallel.place_state_on_mesh`: `mesh` and `placements` set)
-the parameters and moments this rank holds are its shards (tp and fsdp),
-and `optimizer_state()` gives them as they are held; the checkpoints
-gather them whole (`parallel.sharding.full_optimizer_state`). The
+the parameters and moments this rank holds are its shards (tp and fsdp;
+under pp its stage's layers, an empty tensor standing in for each of the
+other stages'), and `optimizer_state()` gives them as they are held; the
+checkpoints gather them whole (`parallel.sharding.full_optimizer_state`). The
 optimizer steps only the local shards and moments: FusedAdam's one
 multi-tensor launch runs over the shards.
 """

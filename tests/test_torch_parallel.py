@@ -2,8 +2,8 @@
 JAX package's (`occm_tpu.parallel`), without process groups: the mesh
 layout and its errors, the TP and FSDP placement tables on the port's
 parameter names, the data shard of each rank, a rank's rows of a global
-batch, the pipeline's sharded epoch, and the configuration errors that
-name ROADMAP item 15b. The multi-rank arithmetic is
+batch, the pipeline's sharded epoch, and the pp axis and the fields
+ROADMAP item 15b ported. The multi-rank arithmetic is
 tests/test_torch_parallel_train.py's."""
 
 import dataclasses
@@ -33,6 +33,7 @@ from occm_tpu_torch.models.xlsr import XLSREncoder
 from occm_tpu_torch.parallel import (
     compute_mesh, data_axes, data_parallel_size, data_shard_for_process,
     data_spec, make_mesh, param_shardings)
+from occm_tpu_torch.parallel.mesh import pp_peer
 from occm_tpu_torch.parallel.sharding import (
     FSDP_MIN_SIZE, Placement, local_rows, shard_of)
 
@@ -72,11 +73,27 @@ def test_make_mesh_refuses_what_does_not_cover_the_world(cfg):
 
 
 def test_pipeline_axis_and_sequence_parallel_name_item_15b():
-    with pytest.raises(NotImplementedError, match="15b"):
-        MeshConfig(pp=2)
+    """What ROADMAP item 15b ported: MeshConfig pp lays ranks out as
+    JAX's make_mesh lays devices, the stages of one pipeline are each
+    other's peers and load the same data, pp_stages and seq_parallel
+    construct, and seq_parallel with pp raises JAX's ValueError."""
+    cfg = dict(dp=2, pp=2, tp=2)
+    got = make_mesh(MeshConfig(**cfg), world_size=8)
+    want = j_make_mesh(JMeshConfig(**cfg), devices=jax.devices()[:8])
+    assert got.shape == dict(want.shape)
+    ids = np.vectorize(lambda d: d.id)(want.devices)
+    np.testing.assert_array_equal(got.ranks, ids - ids.min())
+    for rank in range(8):
+        c = got.coords(rank)
+        peers = [pp_peer(got, s, rank) for s in range(2)]
+        assert peers[c["pp"]] == rank
+        assert {data_shard_for_process(got, p) for p in peers} == {
+            data_shard_for_process(got, rank)}
     for field, value in (("pp_stages", 2), ("seq_parallel", True)):
-        with pytest.raises(NotImplementedError, match="15b"):
-            dataclasses.replace(XLSRConfig(), **{field: value})
+        assert getattr(dataclasses.replace(XLSRConfig(), **{field: value}),
+                       field) == value
+    with pytest.raises(ValueError, match="seq_parallel"):
+        XLSRConfig(pp_stages=2, seq_parallel=True)
     assert MeshConfig(dp=2, fsdp=2, tp=2).tp == 2
 
 

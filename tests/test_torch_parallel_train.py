@@ -489,13 +489,47 @@ def test_cli_trains_over_two_gloo_ranks(tmp_path):
         str(ckpt / "aasist_vocoded_0.pt")), strict=True)
 
 
-@pytest.mark.parametrize("extra", [["--pp", "2"], ["--seq_parallel"],
+@pytest.mark.parametrize("extra", [["--pp", "2"],
+                                   ["--seq_parallel", "--tp", "2"],
                                    ["--pp_microbatches", "2"]],
                          ids=lambda e: e[0].lstrip("-"))
 def test_cli_pipeline_and_sequence_parallel_flags_name_item_15b(tmp_path,
                                                                  extra):
+    """The flags ROADMAP item 15b ported: `oc_training --pp 2` (the
+    mesh's pp and the model's pp_stages) and `--seq_parallel --tp 2`
+    train over two Gloo ranks, rank 0 writing a one-GPU checkpoint that
+    loads strictly into a one-process model; `--pp_microbatches` without
+    `--pp` is ignored, as in JAX, and trains in one process."""
     from occm_tpu_torch.cli import oc_training
+    from occm_tpu_torch.cli.oc_training import build_model
+    from occm_tpu_torch.config import XLSRConfig
+    from occm_tpu_torch.models import load_reference_state_dict
 
-    with pytest.raises(NotImplementedError, match="15b"):
-        oc_training.main(["--xlsr_tiny", "--device", "cpu",
-                          "--checkpoint_dir", str(tmp_path), *extra])
+    protocol, train_dir, voc_dir = _tree(tmp_path)
+    ckpt = tmp_path / "ckpt"
+    flags = ["--xlsr_tiny", "--device", "cpu", "--cut", "3200",
+             "--num_epochs", "1", "--train_protocol_file", protocol,
+             "--train_dataset_dir", train_dir, "--vocoded_dir", voc_dir,
+             "--checkpoint_dir", str(ckpt), *extra]
+    if extra[0] == "--pp_microbatches":
+        args = oc_training.build_parser().parse_args(flags)
+        assert oc_training.xlsr_config(args, 3200, "cpu").pp_stages == 1
+        state = oc_training.main(flags)
+        assert state.step > 0 and state.mesh is None
+    else:
+        port = str(_free_port())
+        procs = []
+        for r in range(2):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=port, OMP_NUM_THREADS="1",
+                       PYTHONPATH=os.path.dirname(TESTS))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "occm_tpu_torch.cli.oc_training",
+                 *flags], cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        _wait(procs)
+    assert sorted(os.listdir(ckpt)) == ["aasist_vocoded_0.pt"]
+    model = build_model(XLSRConfig.tiny(), 0)
+    model.load_state_dict(load_reference_state_dict(
+        str(ckpt / "aasist_vocoded_0.pt")), strict=True)

@@ -105,6 +105,16 @@ def test_pos_conv_grouped_matches_jax():
     ("attention_impl", "packed8"),
 ])
 def test_unported_config_fields_raise(field, value):
+    """The fields still to port raise NotImplementedError; pp_stages and
+    seq_parallel are ported: they construct, and together they raise the
+    JAX package's ValueError."""
+    if field in ("pp_stages", "seq_parallel"):
+        assert getattr(dataclasses.replace(XLSRConfig(), **{field: value}),
+                       field) == value
+        with pytest.raises(ValueError, match="seq_parallel"):
+            dataclasses.replace(XLSRConfig(), pp_stages=2,
+                                seq_parallel=True)
+        return
     with pytest.raises(NotImplementedError, match=field):
         dataclasses.replace(XLSRConfig(), **{field: value})
 

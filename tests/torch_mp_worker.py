@@ -1,4 +1,5 @@
-"""One rank of the port's multi-rank CPU checks (tests/test_torch_parallel_train.py).
+"""One rank of the port's multi-rank CPU checks (tests/test_torch_parallel_train.py,
+tests/test_torch_pipeline.py).
 
     python tests/torch_mp_worker.py RANK WORLD PORT SPEC.json
 
@@ -6,7 +7,8 @@ joins a Gloo process group of WORLD ranks on 127.0.0.1:PORT (torch pinned
 to one thread), then runs the spec's cases in order, each on its own mesh.
 A case builds the tiny AModel from a state dict file, places its train
 state on the mesh, and takes one train step on its rows of a global batch
-(or runs `train()` over a sharded pipeline), then rank 0 saves the
+(or steps, or runs `train()` over a sharded pipeline, or runs the
+encoder's forward, or compares the remat policies), then rank 0 saves the
 gathered state, the losses, the per-rank bytes and the placement table.
 The configs come from `configs()`, which the tests also build the
 single-process and JAX references from.
@@ -30,13 +32,15 @@ CUT = 3200
 LR = 1e-3
 
 
-def configs(kind: str, **train):
+def configs(kind: str, xlsr=None, **train):
     """(xlsr, aasist, train) configs of a case kind: "jax" (plain
     attention and FFN, no dropout: what the JAX step is held to), "kernels"
     (flash attention, the fused FFN and LayerNorm kernels' routes, residual
     dropout, AASIST's dropouts, RawBoost), "dropout" (plain attention and
     FFN with every XLSR dropout site on), "remat" ("kernels" with each
-    layer recomputed under attn_out_inner)."""
+    layer recomputed under attn_out_inner), "all" ("dropout" with
+    layerdrop, AASIST's dropouts and RawBoost). `xlsr`: XLSRConfig fields
+    to replace (the pipeline's and sequence parallelism's)."""
     x = dataclasses.replace(XLSRConfig.tiny(), encoder_embed_dim=128)
     a = AASISTConfig.tiny()
     rb = RawBoostConfig(algo=0)
@@ -50,22 +54,28 @@ def configs(kind: str, **train):
             x = dataclasses.replace(x, remat=True,
                                     remat_policy="attn_out_inner")
         rb = RawBoostConfig(algo=5)
-    elif kind == "dropout":
+    elif kind in ("dropout", "all"):
         x = dataclasses.replace(x, dropout=0.1, attention_dropout=0.1,
                                 activation_dropout=0.1, dropout_input=0.1)
+        if kind == "all":
+            x = dataclasses.replace(x, layerdrop=0.3)
+            rb = RawBoostConfig(algo=5)
     else:
         raise ValueError(kind)
-    t = TrainConfig(optimizer="fused_adam", lr=LR, cut=CUT,
-                    compactness_weight=0.1, descriptiveness_weight=0.9,
-                    rawboost=rb, **train)
+    if xlsr:
+        x = dataclasses.replace(x, **xlsr)
+    t = TrainConfig(**{**dict(optimizer="fused_adam", lr=LR, cut=CUT,
+                              compactness_weight=0.1,
+                              descriptiveness_weight=0.9, rawboost=rb),
+                       **train})
     return x, a, t
 
 
-def build_state(init_path, kind, **train):
+def build_state(init_path, kind, xlsr=None, **train):
     from occm_tpu_torch.models import AModel
     from occm_tpu_torch.train import create_train_state
 
-    x, a, t = configs(kind, **train)
+    x, a, t = configs(kind, xlsr, **train)
     model = AModel(a, x)
     model.load_state_dict(torch.load(init_path, weights_only=True),
                           strict=True)
@@ -145,12 +155,62 @@ def _refuse_graph(case, mesh):
     return None
 
 
+def _remat_policies(case, mesh):
+    """tp=2 with sequence parallelism: the encoder's features and its
+    gathered parameter gradient (of sum(features^2)) under every remat
+    policy, each against no remat (rank 0 returns how many differ)."""
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.models.remat import NAMED
+    from occm_tpu_torch.parallel import compute_mesh
+    from occm_tpu_torch.parallel.sharding import (
+        place_state_on_mesh, reduce_gradients)
+    from occm_tpu_torch.train import create_train_state
+
+    wave = torch.from_numpy(np.load(case["batch"])["x"])
+    out = {}
+    for policy in (None,) + tuple(NAMED):
+        remat = dict(remat=policy is not None,
+                     remat_policy=policy or "nothing")
+        x, a, t = configs("dropout", dict(case["xlsr"], **remat))
+        model = AModel(a, x)
+        model.load_state_dict(torch.load(case["init"], weights_only=True))
+        state = create_train_state(model, t)
+        place_state_on_mesh(state, mesh)
+        enc = model.ssl_model.model.train()
+        gen = torch.Generator().manual_seed(5)
+        with compute_mesh(mesh):
+            feats = enc(wave, generator=gen)
+            (feats ** 2).sum().backward()
+        reduce_gradients(state, [])  # the tp_sum leaves' sums
+        grads = [p.grad.clone() for _, p in state.named_params()
+                 if p.grad is not None]
+        out[policy] = (feats.detach().clone(), grads)
+    base_f, base_g = out[None]
+    return {str(policy): [bool(torch.equal(f, base_f)),
+                          all(torch.equal(g, h) for g, h in zip(gs, base_g))]
+            for policy, (f, gs) in out.items() if policy is not None}
+
+
+def _forward(case, mesh):
+    """The XLSR encoder's eval-mode features on the mesh (its layers on
+    this rank's shards), as a list."""
+    from occm_tpu_torch.parallel import compute_mesh
+    from occm_tpu_torch.parallel.sharding import place_state_on_mesh
+
+    state, _ = build_state(case["init"], case["kind"], case.get("xlsr"))
+    place_state_on_mesh(state, mesh)
+    wave = torch.from_numpy(np.load(case["batch"])["x"][:case["rows"]])
+    with compute_mesh(mesh), torch.no_grad():
+        return state.model.ssl_model.eval()(wave).tolist()
+
+
 def run_case(case, rank, out_dir):
     import torch.distributed as dist
 
     from occm_tpu_torch.parallel import make_mesh
     from occm_tpu_torch.parallel.sharding import (
-        held_bytes, place_state_on_mesh, placement_table, shard_batch)
+        held_bytes, place_state_on_mesh, placement_table, shard_batch,
+        stage_table)
     from occm_tpu_torch.train import train_step
     from occm_tpu_torch.train.checkpoint import restore_checkpoint
 
@@ -161,32 +221,47 @@ def run_case(case, rank, out_dir):
         state = None
     elif case.get("train_loop"):
         state, result = _train_loop(case, rank, mesh, np.load(case["batch"]))
+    elif case.get("remat_policies"):
+        result["remat"] = _remat_policies(case, mesh)
+        state = None
+    elif case.get("forward"):
+        result["feats"] = _forward(case, mesh)
+        state = None
     else:
         data = np.load(case["batch"])
-        state, t = build_state(case["init"], case["kind"])
+        state, t = build_state(case["init"], case["kind"], case.get("xlsr"),
+                               **case.get("train", {}))
         place_state_on_mesh(state, mesh)
         if case.get("restore_dir"):
             # a one-process checkpoint into the placed state
             restore_checkpoint(state, case["restore_dir"], "aasist_vocoded",
                                0)
         result["bytes_before"] = held_bytes(state)
-        x = torch.from_numpy(data["x"])
-        labels = torch.from_numpy(data["labels"]).long()
         replicated = bool(case.get("replicated"))
-        if not replicated:
-            x, labels = shard_batch((x, labels), mesh)
-        m = train_step(state, x, labels, t, replicated=replicated)
+        result["all_losses"] = []
+        for i in range(case.get("steps", 1)):
+            x = torch.from_numpy(data["x"] if i == 0 else data[f"x{i}"])
+            labels = torch.from_numpy(data["labels"]).long()
+            if not replicated:
+                x, labels = shard_batch((x, labels), mesh, t.grad_accum)
+            m = train_step(state, x, labels, t, replicated=replicated)
+            result["all_losses"].append(float(m["loss"]))
         result["losses"] = [float(m["loss"]), float(m["closs"]),
                             float(m["dloss"])]
         result["bytes_after"] = held_bytes(state)
-        result["moment_shapes"] = {
-            n: list(mu.shape)
-            for (n, _), mu in zip(state.named_params(), state.optimizer.mu)}
+        if case.get("save_dir"):
+            from occm_tpu_torch.train.checkpoint import save_checkpoint
+
+            save_checkpoint(state, case["save_dir"], "aasist_vocoded", 0)
+        opt = state.optimizer_state()
+        result["moment_shapes"] = {n: list(mu.shape)
+                                   for n, mu in opt["mu"].items()}
         result["param_shapes"] = {n: list(p.shape)
                                   for n, p in state.named_params()}
     if state is not None:
         result["placements"] = {n: list(v) for n, v in
                                 placement_table(state.placements).items()}
+        result["stages"] = stage_table(state.placements)
         sd, opt = gathered(state)
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, result)

@@ -12,6 +12,7 @@
     python3 chip_smoke.py --base-only     # phases 1, 2 and 15 only
     python3 chip_smoke.py --int8-only     # phases 1, 2 and 16 only
     python3 chip_smoke.py --parallel-only # phases 1, 2 and 17 only
+    python3 chip_smoke.py --extras-only   # phases 1, 2 and 18 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -241,17 +242,47 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    tp=2's), and their kernels' "pp2" and "sp2" rows; `oc_training --pp 2
    --pp_microbatches 4` over two ranks sharing cuda:0 (Gloo), whose
    one-GPU checkpoint one process loads with strict=True (NCCL's
-   point-to-point path needs two cards and is not run here).
+   point-to-point path needs two cards and is not run here). pp2s4:
+   pp=2 with pp_stages 4 (each rank two consecutive stages of 6 layers,
+   the M + S - 1 tick schedule, hand-offs between a rank's own stages
+   local), M = 4, one step, its loss equal bit for bit to the one
+   process's at pp_stages 4 (both under deterministic algorithms), and
+   the checks of pp2 against the one process without the pipeline
+   (loss and gradient within LOSS_RTOL, launches, shapes, held bytes,
+   Adam's reach).
    `oc_training --dp 1` in a torchrun
    environment of world size 1 (NCCL), --steps_per_dispatch 3 with the
    collectives captured in the CUDA graph, bit for bit with 1;
    `oc_classifier --mode 2c2` and `oc_server` with --data_parallel -1
    against the plain calls, bit for bit, and --data_parallel 2 refused.
    Runs last, since it makes and destroys a process group.
-18. with --profile only: device time by kernel (torch.profiler) for full
+18. the rest of ROADMAP item 16 (`--extras-only`: phases 1, 2 and 18;
+   in a full run right after phase 5, on its seed model):
+   - the layouts: one 8 x 6 s batch through the encoder with fused_qkv,
+     attention packed / packed8 / pad128 / xla_merged and the positional
+     conv batched / s2d, each against its default layout in fp32 (TF32
+     off) at the JAX suite's tolerances (LAYOUT_TOL) and in bf16 within
+     SCORE_RTOL of the largest feature (fused_qkv with the flash
+     kernels), ms a batch in bf16; one eager training step each at DEPTH
+     layers, loss and gradient within LOSS_RTOL of the default layout's;
+   - PGD: PGD_STEPS steps through AModel (flash, ln_impl "pallas") on
+     8 x 4 s: the eps-ball, [-1, 1], the target's log-probability up,
+     ms a step, the flash forward / backward and LayerNorm backward
+     launches a step exact;
+   - the feature bank: every extractor on the card against the CPU in
+     fp64 (FEATURE_TOL), ms per 4 s utterance;
+   - the linear SVM on the seed model's embeddings, fit on the card and
+     on the CPU on the same orders: seconds, agreeing predictions;
+   - profiling: `profile_trace` around one scoring batch, its trace
+     naming the flash kernel;
+   - `oc_training --debug_nans` and `--wandb_project p` at DEPTH layers
+     bit for bit with the run without them, and `--debug_nans` on a tree
+     with NaN samples ending in FloatingPointError (its own process), no
+     epoch checkpoint written.
+19. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-19. prints {"kernels": [...]} (each entry with phase 15's row at base's
+20. prints {"kernels": [...]} (each entry with phase 15's row at base's
    shapes under "base" and phase 17's at the per-rank shapes under "tp2",
    "dp2" or "fsdp2", "pp2" and "sp2"), then {"ok": true, "device":
    {...}} last.
@@ -377,7 +408,9 @@ def device_ms(fn, names, iters: int = 20, warmup: int = 3,
     whole_others) is timed as the mean of the kept events times the
     wrappers' launches a call: on the H100, in some calls every session
     lost one record (the LayerNorm backward at [1800, 1024] kept 19 of 20
-    events). The launches a call it returns are then the wrappers'."""
+    events). The launches a call it returns are then the wrappers'. A
+    library call (names ("",)) has no counters: a session after the first
+    one event short of whole multiples is timed the same way.""" 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -421,6 +454,18 @@ def device_ms(fn, names, iters: int = 20, warmup: int = 3,
                   "of those kept", file=sys.stderr, flush=True)
             return (us / own * (want / iters) / 1e3, want / iters,
                     (every + 1) / iters, f"{own}/{want}")
+        if (names == ("",) and attempt >= 2 and iters >= 20
+                and (every + 1) % iters == 0):
+            # a library call (every event named, no wrapper to count its
+            # launches): a session after the first one record short of
+            # whole multiples, as above, is timed the same way (on the
+            # H100 of one call every session of SDPA's kept 39 of 40)
+            print(f"[profile] timed the library call from session "
+                  f"{attempt}, which kept {every} of {every + 1} events, at "
+                  "the mean of those kept", file=sys.stderr, flush=True)
+            return (us / every * ((every + 1) / iters) / 1e3,
+                    (every + 1) / iters, (every + 1) / iters,
+                    f"{every}/{every + 1}")
     fail(f"profile: {PROFILE_TRIES} sessions for {names} all lost records")
 
 
@@ -5303,14 +5348,17 @@ def phase_profile(model, reference: np.ndarray, ckpt: str,
 # one communicator on one device)
 PAR_MESHES = {"dp2": dict(dp=2), "fsdp2": dict(dp=1, fsdp=2),
               "tp2": dict(dp=1, tp=2), "tp2sp": dict(dp=1, tp=2),
-              "pp2": dict(dp=1, pp=2)}
+              "pp2": dict(dp=1, pp=2), "pp2s4": dict(dp=1, pp=2)}
 PP_STAGES, PP_M = 2, 4  # pp=2 with 4 microbatches of 3 rows
+PP_S4 = 4  # pp2s4: 4 stages of 6 layers on the 2 ranks, two each
 #: each mode's XLSRConfig fields beside parallel_configs()'
 PAR_XLSR = {"tp2sp": dict(seq_parallel=True),
-            "pp2": dict(pp_stages=PP_STAGES, pp_microbatches=PP_M)}
+            "pp2": dict(pp_stages=PP_STAGES, pp_microbatches=PP_M),
+            "pp2s4": dict(pp_stages=PP_S4, pp_microbatches=PP_M)}
 #: the steps a mode takes (PAR_STEPS unless named): tp=2 with sequence
-#: parallelism is held to tp=2's encoder, its one step to the launches
-PAR_MODE_STEPS = {"tp2sp": 1}
+#: parallelism is held to tp=2's encoder, its one step to the launches;
+#: pp2s4 to the one process's step at pp_stages 4
+PAR_MODE_STEPS = {"tp2sp": 1, "pp2s4": 1}
 PAR_STEPS = 2
 PAR_LR = 1e-5
 # the rank processes' limit: they take about 120 s on an H100, and a
@@ -5349,12 +5397,14 @@ def _ckpt_flat(payload, names):
     return w, _flat(payload["optimizer"]["mu"][n] for n in names)
 
 
-def parallel_single(init, batches, workdir=None):
+def parallel_single(init, batches, workdir=None, xlsr=None):
     """The single-process eager steps from `init`: step 1 on batches[0],
     its state saved as a one-GPU checkpoint (`par_step1_0.pt` in
-    `workdir`, when given), then step 2 on batches[1]. Returns the steps
-    (loss, ms, launches), the parameter names, and the parameters and Adam
-    first moments after step 2, flat in parameter order."""
+    `workdir`, when given), then step 2 on batches[1] (if given).
+    `xlsr`: XLSRConfig fields beside parallel_configs()' (the pipeline's,
+    run in one process). Returns the steps (loss, ms, launches), the
+    parameter names, and the parameters and Adam first moments after the
+    last step, flat in parameter order."""
     import torch
 
     from occm_tpu_torch.models import AModel
@@ -5362,6 +5412,7 @@ def parallel_single(init, batches, workdir=None):
     from occm_tpu_torch.train.checkpoint import save_checkpoint
 
     acfg, xcfg, cfg = parallel_configs()
+    xcfg = dataclasses.replace(xcfg, **(xlsr or {}))
     with torch.device("cuda"):  # built on the card: no CPU init pass
         model = AModel(acfg, xcfg)
     model.load_state_dict(init)
@@ -5781,10 +5832,14 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
     try:
         ref_steps, names, w, mu = parallel_single(init, batches, workdir)
         _, _, w2, mu2 = parallel_single(init, batches)
+        # pp2s4's reference: the one process at pp_stages 4 (its 4
+        # microbatches through all 24 layers in turn), step 1
+        s4_steps = parallel_single(init, batches[:1],
+                                   xlsr=PAR_XLSR["pp2s4"])[0]
         enc_ref = encoder_reference(init, batches[0], workdir)
     finally:
         torch.use_deterministic_algorithms(False)
-    for st in ref_steps:
+    for st in ref_steps + s4_steps:
         add(st["launches"])
     spread = dict(w_max_abs_diff=float((w - w2).abs().max()),
                   mu_rel_l2=float((mu - mu2).norm() / mu.norm()))
@@ -5820,16 +5875,18 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
         want_h = XLSR_HEADS // 2 if tp else XLSR_HEADS
         want_f = XLSR_FFN // 2 if tp else XLSR_FFN
         rows = {"dp2": TRAIN_B // 2, "fsdp2": TRAIN_B // 2,
-                "pp2": TRAIN_B // PP_M}.get(mode, TRAIN_B)
+                "pp2": TRAIN_B // PP_M,
+                "pp2s4": TRAIN_B // PP_M}.get(mode, TRAIN_B)
         # the LayerNorms' rows: a microbatch under pp, a frame block (T
         # padded to a multiple of 2) under sp
         ln_rows = (TRAIN_B * (frames + 1) // 2 if mode == "tp2sp"
                    else rows * frames)
         want_launches = dict(per_step)
-        if mode == "pp2":
-            # each stage runs half the layers on PP_M microbatches
+        if mode in ("pp2", "pp2s4"):
+            # each of the 2 ranks runs half the layers (one stage of pp2,
+            # two of pp2s4) on PP_M microbatches
             want_launches = {k: (n if k == "fused_adam"
-                                 else n * PP_M // PP_STAGES)
+                                 else n * PP_M // 2)
                              for k, n in per_step.items()}
         for i, ref in enumerate(ref_steps[:len(recs[0]["steps"])]):
             cmp = recs[0]["steps"][i]["compare"]
@@ -5906,6 +5963,24 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
                 if not (enc["feats_vs_rel_l2"] <= tol
                         and enc["grad_vs_rel_l2"] <= tol):
                     failures.append(f"tp2sp encoder against tp2's: {enc}")
+        if mode == "pp2s4":
+            # against the one process at pp_stages 4: the same 4
+            # microbatches through the same layers, in one process
+            loss, s4 = recs[0]["steps"][0]["loss"], s4_steps[0]["loss"]
+            out["pp2s4_single_s4"] = dict(
+                loss=loss, single_s4_loss=s4, bit_equal=loss == s4,
+                single_s4_ms=s4_steps[0]["ms"])
+            print(f"[parallel] pp2s4 (pp=2, pp_stages {PP_S4}, M={PP_M}, "
+                  f"two stages a rank) step 1: loss {loss!r} vs the one "
+                  f"process at pp_stages {PP_S4} {s4!r} (bit for bit "
+                  f"{loss == s4}); step ms per rank "
+                  f"{[round(rec['steps'][0]['ms'], 1) for rec in recs]} "
+                  f"(one process {s4_steps[0]['ms']:.1f})", flush=True)
+            # the same kernels on the same microbatches, under
+            # deterministic algorithms on both sides, and exact hand-offs
+            if loss != s4:
+                failures.append(f"pp2s4 loss {loss!r} vs the one process "
+                                f"at pp_stages {PP_S4}: {s4!r}")
         if any(rec["backend"] != "gloo" for rec in recs):
             failures.append(f"{mode}: backend {recs[0]['backend']}")
         by = {k: [rec[k] for rec in recs] for k in ("bytes_before",
@@ -5932,12 +6007,13 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
         failures.append(f"fsdp=2 holds {out['fsdp_over_dp']} of dp=2's "
                         "bytes per rank")
     # a dp=2 rank holds the one process's state whole
-    out["pp_over_one"] = [{k: b[k] / dp_b[k] for k in dp_b}
-                          for b in out["pp2"]["bytes"]["bytes_after"]]
-    if not all(0.5 < v < 0.55 for b in out["pp_over_one"]
-               for v in b.values()):
-        failures.append(f"a pp=2 stage holds {out['pp_over_one']} of the "
-                        "one process's bytes")
+    for mode in ("pp2", "pp2s4"):
+        key = "pp_over_one" if mode == "pp2" else "pp2s4_over_one"
+        out[key] = [{k: b[k] / dp_b[k] for k in dp_b}
+                    for b in out[mode]["bytes"]["bytes_after"]]
+        if not all(0.5 < v < 0.55 for b in out[key] for v in b.values()):
+            failures.append(f"a {mode} rank holds {out[key]} of the one "
+                            "process's bytes")
     out["pp_bubble"] = (PP_STAGES - 1) / (PP_M + PP_STAGES - 1)
     out["sp_peak_over_tp2"] = [
         a[0] / b[0] for a, b in zip(out["tp2sp"]["peak_bytes"],
@@ -5949,7 +6025,11 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
           f"step-1 peak per rank tp2 "
           f"{[p[0] for p in out['tp2']['peak_bytes']]} B, tp2 + sp "
           f"{[p[0] for p in out['tp2sp']['peak_bytes']]} B "
-          f"({out['sp_peak_over_tp2']} of tp2's)", flush=True)
+          f"({out['sp_peak_over_tp2']} of tp2's); pp2s4: each rank holds "
+          f"{out['pp2s4_over_one']} of the one process's bytes "
+          f"({out['pp2s4']['bytes']['bytes_after']}), bubble (S - 1) / "
+          f"(M + S - 1) = {(PP_S4 - 1) / (PP_M + PP_S4 - 1):.3f}",
+          flush=True)
     out["ranks_wall_s"] = ranks_s
     out["single_spread"] = spread
     out["single_ms"] = [s["ms"] for s in ref_steps]
@@ -6320,6 +6400,617 @@ def phase_dp_scoring(workdir: str, fixture, ckpt=None):
     return out, counts
 
 
+# ------------------------------ phase 18: the rest of ROADMAP item 16
+
+EXTRA_SCORE_SECONDS = 6.0   # the layouts' scoring batch: 8 x 6 s
+PGD_SECONDS = 4.0           # PGD's batch: 8 x 4 s
+PGD_STEPS = 10
+FEATURE_SECONDS = 4.0       # the feature bank's utterances
+FEATURE_BATCH = 8           # 2 for the CWT and the synchrosqueezed CWT
+SVM_UTTERANCES = 32         # 4 batches of 8 x 4 s, two classes
+SVM_EPOCHS = 50             # the JAX package's default
+# the layouts against the default one, in fp32 (TF32 off): the JAX
+# suite's tolerances for the same comparisons at tiny width
+# (tests/test_xlsr_extras.py:107-109 fused_qkv, :231-234 the attention
+# layouts, :319-324 the positional conv), elementwise |a - b| <= atol +
+# rtol |b|, fused_qkv also by its relative L2
+LAYOUT_TOL = {"fused_qkv": (2e-2, 2e-4), "attention": (1e-4, 1e-5),
+              "pos_conv": (1e-4, 1e-5)}
+FUSED_REL_L2 = 2e-3
+# the feature bank on the card (fp32) against the CPU in fp64: the CPU
+# suite's tolerances against JAX (tests/test_torch_features.py): spectra,
+# mel, CWT within 1e-4 of the largest magnitude; the cepstra (log, DCT,
+# MVN) and CQCC within 2e-3; LPC / LPCC within 1e-3; the synchrosqueezed
+# CWT with at most 0.2 % of its entries in another bin (an fp32 rounding
+# at a bin edge) and its columns' sums within 1e-4 of the largest
+FEATURE_TOL = {"stft_mag": ("rel_max", 1e-4), "extract_mel": ("rel_max", 1e-4),
+               "extract_lfcc": ("abs", 2e-3), "extract_mfcc": ("abs", 2e-3),
+               "extract_bfcc": ("abs", 2e-3), "extract_cqcc": ("abs", 2e-3),
+               "extract_lpc": ("abs", 1e-3), "extract_lpcc": ("abs", 1e-3),
+               "extract_cwt": ("rel_max", 1e-4),
+               "extract_ssqcwt": ("moved", 2e-3)}
+# the SVM's fit on the card against the CPU's, on the same orders: the
+# hinge's margin test can flip on one rounding and send the two fits on
+# other paths, so the predictions are held, not the weights
+SVM_AGREE = 0.9
+
+
+def float_wav(path: str, x: np.ndarray, sr: int = SR) -> None:
+    """IEEE float32 mono WAV (format 3): it can hold a NaN."""
+    data = np.asarray(x, "<f4").tobytes()
+    hdr = b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE"
+    hdr += b"fmt " + struct.pack("<IHHIIHH", 16, 3, 1, sr, sr * 4, 4, 32)
+    hdr += b"data" + struct.pack("<I", len(data))
+    with open(path, "wb") as f:
+        f.write(hdr + data)
+
+
+def _close(a, b, rtol: float, atol: float):
+    """(passes, largest |a - b| - atol - rtol |b|, relative L2)."""
+    excess = float(((a - b).abs() - atol - rtol * b.abs()).max())
+    rel = float((a - b).norm() / b.norm())
+    return excess <= 0.0, excess, rel
+
+
+def layouts_scoring(model, xcfg) -> dict:
+    """One 8 x 6 s batch through the encoder in every layout the JAX
+    package has, each against its default layout (fused_qkv: the three
+    projections; the attention layouts: xla; the positional conv:
+    grouped): in fp32 (TF32 off) at the JAX suite's tolerances
+    (LAYOUT_TOL), and in bf16, the served dtype (fused_qkv with the flash
+    kernels, the rest on plain attention), within SCORE_RTOL of the
+    largest |feature| and timed (ms a batch, CUDA events)."""
+    import torch
+
+    enc = model.ssl_model.model
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(np.stack([synthetic_wave(rng, EXTRA_SCORE_SECONDS)
+                                   for _ in range(8)])).to("cuda")
+    cases = {  # name -> (kind, its fields, its default's fields)
+        "fused_qkv": ("fused_qkv", dict(fused_qkv=True), {}),
+        "packed": ("attention", dict(attention_impl="packed"), {}),
+        "packed8": ("attention", dict(attention_impl="packed8"), {}),
+        "pad128": ("attention", dict(attention_impl="pad128"), {}),
+        "xla_merged": ("attention", dict(attention_impl="xla_merged"), {}),
+        "pos_batched": ("pos_conv", dict(pos_conv_impl="batched"), {}),
+        "pos_s2d": ("pos_conv", dict(pos_conv_impl="s2d"), {}),
+    }
+    out, failures = {}, []
+
+    def features(fields, dtype):
+        set_xlsr_cfg(model, dataclasses.replace(xcfg, dtype=dtype, **fields))
+        with torch.no_grad():
+            return enc(x)
+
+    try:
+        for dtype in ("float32", "bfloat16"):
+            base = {}
+            for name, (kind, fields, default) in cases.items():
+                if dtype == "bfloat16" and kind == "fused_qkv":
+                    fields = dict(fields, attention_impl="flash")
+                    default = dict(default, attention_impl="flash")
+                key = str(sorted(default.items()))
+                if key not in base:
+                    base[key] = features(default, dtype)
+                got = features(fields, dtype)
+                want = base[key]
+                row = out.setdefault(name, {})
+                if not torch.isfinite(got).all():
+                    failures.append(f"{name} {dtype}: non-finite features")
+                    continue
+                if dtype == "float32":
+                    rtol, atol = LAYOUT_TOL[kind]
+                    ok, excess, rel = _close(got, want, rtol, atol)
+                    if kind == "fused_qkv":
+                        ok = ok and rel < FUSED_REL_L2
+                    row["fp32"] = dict(excess=excess, rel_l2=rel,
+                                       rtol=rtol, atol=atol)
+                    if not ok:
+                        failures.append(f"{name} fp32: {row['fp32']}")
+                else:
+                    err = float((got - want).abs().max())
+                    scale = float(want.abs().max())
+                    row["bf16"] = dict(max_abs=err, scale=scale,
+                                       rel_l2=float((got - want).norm()
+                                                    / want.norm()))
+                    if not err <= SCORE_RTOL * scale:
+                        failures.append(f"{name} bf16: {row['bf16']}")
+                    # in turns: default, layout, layout, default
+                    times = {"ms": [], "default_ms": []}
+                    for which in ("default_ms", "ms", "ms", "default_ms"):
+                        set_xlsr_cfg(model, dataclasses.replace(
+                            xcfg, dtype=dtype,
+                            **(fields if which == "ms" else default)))
+                        with torch.no_grad():
+                            times[which].append(cuda_ms(lambda: enc(x),
+                                                        iters=5, warmup=1))
+                    row.update({k: sum(v) / len(v)
+                                for k, v in times.items()})
+                print(f"[extras] layout {name} ({dtype}) against "
+                      f"{default or 'the defaults'}: {row}", flush=True)
+            base.clear()
+    finally:
+        set_xlsr_cfg(model, xcfg)
+    if failures:
+        fail("extras layouts scoring: " + "; ".join(failures))
+    return out
+
+
+def layouts_training() -> dict:
+    """One eager training step (12 x 6 s, AASIST's dropouts off, DEPTH
+    layers, bf16) in each layout against the default one from the same
+    weights: fused_qkv with the flash kernels against flash, the attention
+    layouts against xla, the positional conv's against grouped. A layout
+    that rounds its bf16 products otherwise moves the features by about
+    one bf16 rounding, and AASIST's top-k pools turn that into the
+    gradient of another routing (as phase 17's tp=2): the whole model's
+    loss is held within LOSS_RTOL and its gradient's relative L2 printed;
+    the XLSR encoder is held instead, its features and its parameter
+    gradient from the default layout's upstream gradient (dloss/dfeatures)
+    each within LOSS_RTOL (relative L2, phase 17's gate)."""
+    import torch
+
+    from occm_tpu_torch.config import AASISTConfig, XLSRConfig
+    from occm_tpu_torch.losses import group_one_class_loss
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.utils import random_init_
+
+    acfg = AASISTConfig(dropout=0.0, pool_dropout=0.0, head_dropout=0.0)
+    xcfg = at_depth(XLSRConfig())
+    model = random_init_(AModel(acfg, xcfg), seed=0).to("cuda").train()
+    enc_params = list(model.ssl_model.parameters())
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(np.stack([synthetic_wave(rng, TRAIN_CUT / SR)
+                                   for _ in range(TRAIN_B)])).to("cuda")
+    labels = torch.tensor([0] * 6 + [1] * 6).to(x.device)
+
+    def flat(params):
+        return torch.cat([p.grad.reshape(-1).float() for p in params
+                          if p.grad is not None])
+
+    def step(fields, upstream=None):
+        """(loss, the whole model's gradient, the features, dloss/dfeatures,
+        the encoder's gradient from `upstream` (else from dloss/dfeatures),
+        ms of the step)."""
+        set_xlsr_cfg(model, dataclasses.replace(xcfg, **fields))
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = model.ssl_model(x)
+        leaf = feats.detach().requires_grad_()
+        emb, logits = model.backend(leaf, None)
+        loss, _ = group_one_class_loss(emb, logits, labels, 0.1, 0.9,
+                                       TRAIN_B)
+        loss.backward()
+        feats.backward(leaf.grad)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        whole = flat(model.parameters())
+        enc = flat(enc_params)
+        if upstream is not None:
+            model.zero_grad(set_to_none=True)
+            feats = model.ssl_model(x)
+            feats.backward(upstream)
+            enc = flat(enc_params)
+        return (float(loss.detach()), whole, feats.detach(), leaf.grad,
+                enc, ms)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    cases = {
+        "fused_qkv": (dict(fused_qkv=True, attention_impl="flash"),
+                      dict(attention_impl="flash")),
+        "packed": (dict(attention_impl="packed"), {}),
+        "packed8": (dict(attention_impl="packed8"), {}),
+        "pad128": (dict(attention_impl="pad128"), {}),
+        "xla_merged": (dict(attention_impl="xla_merged"), {}),
+        "pos_batched": (dict(pos_conv_impl="batched"), {}),
+        "pos_s2d": (dict(pos_conv_impl="s2d"), {}),
+    }
+    out, failures, base = {}, [], {}
+    for name, (fields, default) in cases.items():
+        key = str(sorted(default.items()))
+        if key not in base:
+            step(default)  # a warm-up of the default path
+            base[key] = step(default)
+        loss0, whole0, f0, up0, enc0, ms0 = base[key]
+        step(fields, up0)
+        loss, whole, f, _, enc, ms = step(fields, up0)
+        out[name] = dict(loss=loss, default_loss=loss0,
+                         grad_rel_l2=rel(whole, whole0),
+                         encoder_feats_rel_l2=rel(f, f0),
+                         encoder_grad_rel_l2=rel(enc, enc0),
+                         ms=ms, default_ms=ms0)
+        print(f"[extras] train step {name} (DEPTH {DEPTH} layers, 12 x 6 s) "
+              f"against {default or 'the defaults'}: {out[name]}",
+              flush=True)
+        if not (math.isfinite(loss)
+                and abs(loss - loss0) <= LOSS_RTOL * abs(loss0)
+                and out[name]["encoder_feats_rel_l2"] <= LOSS_RTOL
+                and out[name]["encoder_grad_rel_l2"] <= LOSS_RTOL):
+            failures.append(f"{name}: {out[name]}")
+    del model, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        fail("extras layouts training: " + "; ".join(failures))
+    return out
+
+
+def extras_pgd(model, xcfg) -> dict:
+    """PGD_STEPS targeted PGD steps through the scorer's AModel in eval
+    mode (flash attention, ln_impl "pallas": each step's input gradient
+    runs the flash forward and backward and the LayerNorm backward
+    kernels) on 8 x 4 s, each toward the class the model does not pick,
+    from a seeded CUDA generator's start: x_adv within eps and [-1, 1],
+    the target's mean log-probability up, ms a step, each kernel's
+    launches a step exact."""
+    import torch
+    import torch.nn.functional as F
+
+    from occm_tpu_torch.attack import pgd_attack
+
+    pxcfg = dataclasses.replace(xcfg, attention_impl="flash",
+                                ln_impl="pallas")
+    set_xlsr_cfg(model, pxcfg)
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(np.stack([synthetic_wave(rng, PGD_SECONDS)
+                                   for _ in range(8)])).to("cuda")
+    eps = 8 / 255
+
+    def logits_fn(xx):
+        return model(xx)[1].float()
+
+    def target_logp(xx):
+        with torch.no_grad():
+            logp = F.log_softmax(logits_fn(xx), -1)
+        return float(logp.gather(1, target[:, None]).mean())
+
+    total = {}
+
+    def take():
+        """The launches since the last take, added to the total."""
+        got = read_counts()
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        reset_counts()
+        return got
+
+    try:
+        reset_counts()
+        with torch.no_grad():  # toward the class the model does not pick
+            target = logits_fn(x).argmin(-1)
+        before = target_logp(x)
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        pgd_attack(logits_fn, x, target, gen, eps=eps, steps=1)  # warm-up
+        take()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_adv = pgd_attack(logits_fn, x, target, gen, eps=eps,
+                           steps=PGD_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / PGD_STEPS
+        counts = take()
+        after = target_logp(x_adv)
+        take()
+    finally:
+        set_xlsr_cfg(model, xcfg)
+    layers = xcfg.encoder_layers
+    # the random start's forward is part of no step: each step is one
+    # forward and one backward of the model
+    want = {"flash_attn_fwd": PGD_STEPS * layers,
+            "flash_attn_bwd_dq": PGD_STEPS * layers,
+            "flash_attn_bwd_dkv": PGD_STEPS * layers,
+            "layernorm_bwd": PGD_STEPS * 2 * layers,
+            "flash_attn_bwd_dout_copies": 0}
+    dist = float((x_adv - x).abs().max())
+    out = dict(ms_per_step=ms, target_logp_before=before,
+               target_logp_after=after, max_abs_perturbation=dist,
+               eps=eps, launches={k: counts[k] for k in want})
+    print(f"[extras] PGD {PGD_STEPS} steps through AModel (eval, flash, "
+          f"ln_impl pallas) on 8 x {PGD_SECONDS:g} s: {ms:.1f} ms a step, "
+          f"target log-prob {before:.5f} -> {after:.5f}, max |x_adv - x| "
+          f"{dist:.6f} (eps {eps:.6f}), launches {out['launches']}",
+          flush=True)
+    if not (dist <= eps + 1e-6 and float(x_adv.abs().max()) <= 1.0
+            and after > before and out["launches"] == want):
+        fail(f"extras PGD: {out}, want launches {want}")
+    return dict(out, counts=total)
+
+
+def extras_features() -> dict:
+    """Every extractor of `audio.features` on the card (fp32, batched)
+    against the same extractor on the CPU in fp64 (FEATURE_TOL), with ms
+    per utterance on the card (CUDA events) and seconds on the CPU."""
+    import torch
+
+    from occm_tpu_torch.audio import features as Fe
+
+    rng = np.random.default_rng(21)
+    waves = np.stack([synthetic_wave(rng, FEATURE_SECONDS)
+                      for _ in range(FEATURE_BATCH)])
+    out, failures = {}, []
+    for name, (kind, tol) in FEATURE_TOL.items():
+        fn = getattr(Fe, name)
+        batch = 2 if name in ("extract_cwt", "extract_ssqcwt") else len(waves)
+        x = torch.from_numpy(waves[:batch])
+        t0 = time.perf_counter()
+        want = fn(x.double(), SR)
+        cpu_s = time.perf_counter() - t0
+        xc = x.to("cuda")
+        got = fn(xc, SR)
+        ms = cuda_ms(lambda: fn(xc, SR), iters=3, warmup=1) / batch
+        got, want = got.cpu(), want.to(got.dtype).cpu()
+        scale = float(want.abs().max())
+        if kind == "rel_max":
+            err = float((got - want).abs().max()) / scale
+        elif kind == "abs":
+            err = float((got - want).abs().max())
+        else:
+            cols = float((got.sum(-2) - want.sum(-2)).abs().max()) / float(
+                want.sum(-2).abs().max())
+            err = float(((got - want).abs() > 1e-4 * scale).float().mean())
+            if cols > 1e-4:
+                failures.append(f"{name}: columns' sums {cols}")
+        out[name] = dict(shape=list(got.shape), err=err, tol=tol,
+                         kind=kind, ms_per_utterance=ms, cpu_fp64_s=cpu_s,
+                         utterances=batch)
+        print(f"[extras] {name} on the card (fp32) vs the CPU (fp64), "
+              f"{batch} x {FEATURE_SECONDS:g} s: {out[name]}", flush=True)
+        if not (torch.isfinite(got).all() and err <= tol):
+            failures.append(f"{name}: {out[name]}")
+    if failures:
+        fail("extras features: " + "; ".join(failures))
+    return out
+
+
+def extras_svm(model) -> dict:
+    """The linear SVM on the scorer's embeddings (SVM_UTTERANCES of 4 s:
+    half tones, half tones under loud noise), fit on the card and on the
+    CPU on the same epoch orders: seconds of each, the share of equal
+    predictions (at least SVM_AGREE), the training accuracy."""
+    import torch
+
+    from occm_tpu_torch.models.linearsvc import SGD
+
+    rng = np.random.default_rng(22)
+    waves = [synthetic_wave(rng, 4.0) for _ in range(SVM_UTTERANCES)]
+    for w in waves[SVM_UTTERANCES // 2:]:
+        w += 0.3 * rng.standard_normal(w.shape[0]).astype(np.float32)
+    y = np.array([0] * (SVM_UTTERANCES // 2) + [1] * (SVM_UTTERANCES // 2))
+    embs = []
+    with torch.no_grad():
+        for i in range(0, SVM_UTTERANCES, 8):
+            xb = torch.from_numpy(np.stack(waves[i:i + 8])).to("cuda")
+            embs.append(model(xb, attention_impl="flash")[0].float().cpu())
+    X = torch.cat(embs).numpy()
+    gen = torch.Generator().manual_seed(0)
+    orders = [torch.randperm(len(y), generator=gen).numpy()
+              for _ in range(SVM_EPOCHS)]
+    fits = {}
+    for device in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits[device] = SGD(X, y, epochs=SVM_EPOCHS, device=device,
+                           orders=orders)
+        fits[device + "_s"] = time.perf_counter() - t0
+    pc, pp = fits["cuda"].predict(X), fits["cpu"].predict(X)
+    w_rel = float(np.linalg.norm(fits["cuda"]._w - fits["cpu"]._w)
+                  / np.linalg.norm(fits["cpu"]._w))
+    out = dict(utterances=len(y), dim=int(X.shape[1]), epochs=SVM_EPOCHS,
+               updates=len(y) * SVM_EPOCHS, cuda_s=fits["cuda_s"],
+               cpu_s=fits["cpu_s"], agree=float(np.mean(pc == pp)),
+               w_rel_l2=w_rel, accuracy=fits["cuda"].evaluate(X, y))
+    print(f"[extras] linear SVM on {len(y)} embeddings of dim "
+          f"{X.shape[1]}, {SVM_EPOCHS} epochs ({out['updates']} sequential "
+          f"updates): {out}", flush=True)
+    if not out["agree"] >= SVM_AGREE:
+        fail(f"extras SVM: the card's and the CPU's predictions: {out}")
+    return out
+
+
+def extras_profiling(model, workdir: str) -> dict:
+    """`utils.profiling.profile_trace` around one 8 x 6 s scoring batch
+    (flash): its trace file under the logdir names the flash kernel, one
+    event per layer (a session that lost records is taken again, up to 3
+    times)."""
+    import torch
+
+    from occm_tpu_torch.utils.profiling import StepTimer, profile_trace
+
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(np.stack([synthetic_wave(rng, 6.0)
+                                   for _ in range(8)])).to("cuda")
+    timer = StepTimer(warmup=0)
+    for attempt in range(3):
+        logdir = os.path.join(workdir, f"trace_{attempt}")
+        with torch.no_grad(), profile_trace(logdir), timer:
+            model(x, attention_impl="flash")[0].sum().item()
+        files = [f for f in os.listdir(logdir) if f.endswith(".json")]
+        with open(os.path.join(logdir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        flash = [e for e in events
+                 if "flash_attn_fwd_kernel" in str(e.get("name", ""))]
+        if len(flash) == model.ssl_model.model.cfg.encoder_layers:
+            break
+    out = dict(trace=files[0], trace_bytes=os.path.getsize(
+        os.path.join(logdir, files[0])), events=len(events),
+        flash_events=len(flash), attempts=attempt + 1,
+        profiled_batch_s=timer.times[-1])
+    print(f"[extras] profile_trace around one scoring batch: {out}",
+          flush=True)
+    if not flash:
+        fail(f"extras profiling: the trace names no flash kernel: {out}")
+    return out
+
+
+def debug_nans_child(spec: str) -> int:
+    """The --debug_nans run on NaN data (a process of its own): the CLI at
+    DEPTH layers with the argv in `spec` (JSON); its FloatingPointError
+    ends the process with a traceback."""
+    from occm_tpu_torch.cli import oc_training
+
+    with open(spec) as f:
+        argv = json.load(f)
+    with cli_at_depth():
+        oc_training.main(argv)
+    return 0
+
+
+def extras_cli(workdir: str, fixture) -> dict:
+    """oc_training at DEPTH layers on the fixture (6 steps, AASIST's
+    dropouts on, deterministic algorithms): --debug_nans and
+    --wandb_project p (wandb not importable) each bit for bit with the
+    run without them (losses and weights); then --debug_nans
+    --steps_per_dispatch CONTROL_K (the check after each CUDA graph chunk;
+    the eager check ran in the run above) on a copy of the tree with one
+    training utterance holding NaNs, in a process of its own: it must end
+    with FloatingPointError and write no epoch checkpoint."""
+    import importlib.util
+
+    import torch
+
+    from occm_tpu_torch.cli import oc_training
+
+    protocol, train_dir, voc_dir = fixture
+    root = os.path.join(workdir, "extras_cli")
+    os.makedirs(root)
+    base = ["--train_protocol_file", protocol, "--train_dataset_dir",
+            train_dir, "--vocoded_dir", voc_dir, "--cut", str(TRAIN_CUT),
+            "--num_epochs", "1", "--compactness_weight", "0.1",
+            "--descriptiveness_weight", "0.9"]
+    runs, counts = {}, {}
+    cwd = os.getcwd()
+    os.chdir(root)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    installed = importlib.util.find_spec("wandb") is not None
+    try:
+        for name, extra in (("plain", []), ("debug_nans", ["--debug_nans"]),
+                            ("wandb", ["--wandb_project", "p"])):
+            rec = StepRecorder()
+            t0 = time.perf_counter()
+            # the run "with no wandb installed": `import wandb` fails inside
+            # it, whether or not the machine has wandb (a wandb run would
+            # try to reach its server, and this machine has no network)
+            saved = sys.modules.get("wandb")
+            sys.modules["wandb"] = None
+            try:
+                with cli_at_depth():
+                    state = oc_training.main(
+                        base + extra + ["--checkpoint_dir",
+                                        os.path.join(root, "ck_" + name)],
+                        on_step=rec)
+            finally:
+                if saved is None:
+                    del sys.modules["wandb"]
+                else:
+                    sys.modules["wandb"] = saved
+            secs = time.perf_counter() - t0
+            for k, n in read_counts().items():
+                counts[k] = counts.get(k, 0) + n
+            reset_counts()
+            runs[name] = dict(losses=[st["loss"] for st in rec.steps],
+                              s=secs, w=_flat(p for _, p in
+                                              state.named_params()).cpu())
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        os.chdir(cwd)
+    out = {"wandb_installed": installed}
+    failures = []
+    for name in ("debug_nans", "wandb"):
+        same = (runs[name]["losses"] == runs["plain"]["losses"]
+                and torch.equal(runs[name]["w"], runs["plain"]["w"]))
+        out[name] = dict(bit_for_bit=same, s=runs[name]["s"],
+                         losses=runs[name]["losses"])
+        if not same or len(runs[name]["losses"]) != 6:
+            failures.append(f"{name}: {out[name]} vs the plain run's "
+                            f"{runs['plain']['losses']}")
+    out["plain"] = dict(s=runs["plain"]["s"], losses=runs["plain"]["losses"])
+    print(f"[extras] oc_training (DEPTH {DEPTH} layers, 6 steps) with "
+          f"--debug_nans and with --wandb_project p (wandb installed: "
+          f"{installed}; its import blocked in every run) against the plain "
+          f"run: {out}",
+          flush=True)
+
+    # ---- NaN data in a process of its own
+    nan_root = os.path.join(root, "nan_tree")
+    os.makedirs(nan_root)
+    nan_fixture = write_fixture(nan_root)
+    wave = synthetic_wave(np.random.default_rng(24), 6.5)
+    wave[1000:1010] = np.nan
+    float_wav(os.path.join(nan_fixture[1], "LA_T_b0003.wav"), wave)
+    ck = os.path.join(root, "ck_nan")
+    spec = os.path.join(root, "nan_argv.json")
+    with open(spec, "w") as f:
+        json.dump(["--train_protocol_file", nan_fixture[0],
+                   "--train_dataset_dir", nan_fixture[1], "--vocoded_dir",
+                   nan_fixture[2]] + base[6:]
+                  + ["--debug_nans", "--steps_per_dispatch", str(CONTROL_K),
+                     "--checkpoint_dir", ck], f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--debug-nans-child",
+         spec], capture_output=True, text=True, timeout=300, cwd=root)
+    tail = proc.stderr.strip().splitlines()[-1] if proc.stderr else ""
+    written = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+    out["nan_run"] = dict(rc=proc.returncode, last_line=tail,
+                          s=time.perf_counter() - t0, checkpoints=written)
+    print(f"[extras] oc_training --debug_nans --steps_per_dispatch "
+          f"{CONTROL_K} on a tree with NaN samples (own process; the check "
+          f"after each CUDA graph chunk): {out['nan_run']}", flush=True)
+    if (proc.returncode == 0 or not tail.startswith("FloatingPointError")
+            or "NaN in" not in tail or "aasist_vocoded_0.pt" in written):
+        failures.append(f"NaN run: {out['nan_run']}; stdout "
+                        f"{proc.stdout[-500:]!r}")
+    if failures:
+        fail("extras cli: " + "; ".join(failures))
+    return dict(out, counts=counts)
+
+
+def phase_extras(workdir: str, fixture, model) -> tuple:
+    """Phase 18: the rest of ROADMAP item 16 on the card (see the module
+    docstring). `model` is the seed model (full width, eval). Returns
+    (launches by kernel, the record)."""
+    import torch
+
+    t0 = time.perf_counter()
+    xcfg = model.ssl_model.model.cfg
+    out = {}
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    reset_counts()
+    out["layouts_scoring"] = layouts_scoring(model, xcfg)
+    add(read_counts())
+    reset_counts()
+    out["layouts_training"] = layouts_training()
+    add(read_counts())
+    reset_counts()
+    pgd = extras_pgd(model, xcfg)
+    add(pgd.pop("counts"))
+    out["pgd"] = pgd
+    out["features"] = extras_features()
+    reset_counts()
+    out["svm"] = extras_svm(model)
+    out["profiling"] = extras_profiling(model, workdir)
+    add(read_counts())
+    reset_counts()
+    cli = extras_cli(workdir, fixture)
+    add(cli.pop("counts"))
+    out["cli"] = cli
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[extras] phase 18: {out['wall_s']:.1f} s", flush=True)
+    return total, out
+
+
 def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
     """The {"kernels": [...]} entries. Times, errors and bounds are this
     run's, at the shape named in each entry: `ms` the wrapper's time per
@@ -6452,14 +7143,24 @@ def main(argv=None) -> int:
                          "ranks on the card, the NCCL world-size-1 graph, "
                          "data-parallel scoring and serving); prints no "
                          "kernels line")
+    ap.add_argument("--extras-only", action="store_true",
+                    help="run phases 1, 2 and 18 only (device, build, the "
+                         "other layouts, PGD, the feature bank, the linear "
+                         "SVM, profiling, --debug_nans, --wandb_project); "
+                         "prints no kernels line")
     ap.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD",
                                                           "PORT", "WORKDIR"),
                     help=argparse.SUPPRESS)  # phase 17's rank processes
+    ap.add_argument("--debug-nans-child", metavar="ARGV_JSON",
+                    help=argparse.SUPPRESS)  # phase 18's NaN run
     args = ap.parse_args(argv)
     if args.parallel_rank:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         rank, world, port, workdir = args.parallel_rank
         return parallel_rank(int(rank), int(world), int(port), workdir)
+    if args.debug_nans_child:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return debug_nans_child(args.debug_nans_child)
 
     t_run = time.perf_counter()
     smi = phase_device()
@@ -6469,7 +7170,7 @@ def main(argv=None) -> int:
     hgmma = phase_build()
     if (args.controls_only or args.rawboost_only or args.models_only
             or args.remat_only or args.native_only or args.base_only
-            or args.int8_only or args.parallel_only):
+            or args.int8_only or args.parallel_only or args.extras_only):
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -6497,6 +7198,11 @@ def main(argv=None) -> int:
                 del model
                 result = {"int8": dict(phase_int8(workdir, fixture, ckpt)[1],
                                        products=rows)}
+            elif args.extras_only:
+                model, _ = build_seed_model(workdir)
+                result = {"extras": phase_extras(workdir, fixture,
+                                                 model)[1]}
+                del model
             elif args.parallel_only:
                 rows = phase_parallel_kernels()
                 rows = dict(tp2=rows, **phase_pipeline_kernels(rows))
@@ -6547,6 +7253,9 @@ def main(argv=None) -> int:
                                                         artifacts)
             if args.profile:
                 phase_profile(model, reference, ckpt)
+            # phase 18 on the seed model, early: torch.profiler's sessions
+            # lose device events late in a full run (phase 15's note)
+            e_counts, extras = phase_extras(workdir, fixture, model)
             del model
             train_launches = phase_train(workdir, fixture, args.profile)
             print(f"[smoke] phases 4-7 ended at "
@@ -6570,6 +7279,10 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         launches["flash_attn_fwd"] += serve_launches + int8_launches
+        for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
+                     "ffn_fwd"):
+            launches[name] += e_counts.get(name, 0)
+        launches["flash_attn_bwd"] += e_counts.get("flash_attn_bwd_dq", 0)
         for counts in (score_launches, train_launches):
             for name, n in counts.items():
                 launches[name] += n
@@ -6596,13 +7309,14 @@ def main(argv=None) -> int:
         print(f"[base] {json.dumps(base, default=str)}", flush=True)
         print(f"[int8] {json.dumps(int8_out, default=str)}", flush=True)
         print(f"[parallel] {json.dumps(parallel, default=str)}", flush=True)
+        print(f"[extras] {json.dumps(extras, default=str)}", flush=True)
         # phase 17's path: the ranks', the NCCL run's and the scoring runs'
         for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
                      "ffn_fwd"):
             launches[name] += p_counts[name]
         launches["flash_attn_bwd"] += p_counts["flash_attn_bwd_dq"]
 
-    print(f"[smoke] phases 1-17 took {time.perf_counter() - t_run:.1f} s",
+    print(f"[smoke] phases 1-18 took {time.perf_counter() - t_run:.1f} s",
           flush=True)
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,

@@ -25,11 +25,15 @@ rank; `--device cpu`: Gloo): each rank loads its shard of the epoch and
 trains its shards of the model (`occm_tpu_torch.parallel`). `--pp N`
 sets both the mesh's pp and the model's pp_stages (the GPipe schedule
 over N stages of the XLSR layers, `--pp_microbatches` microbatches, 0
-meaning N; ignored without `--pp`, as in JAX); `--seq_parallel` runs the
-layers' residual path on 1/tp of the frames under `--tp`. Every
-flag whose code path is not ported yet raises
-NotImplementedError at a non-default value, naming the ROADMAP item that
-ports it.
+meaning N; ignored without `--pp`, as in JAX; `train()` also takes a
+model of pp_stages any multiple of the mesh's pp, each rank running its
+block of stages); `--seq_parallel` runs the
+layers' residual path on 1/tp of the frames under `--tp`.
+`--pos_conv_impl` and `--attention_impl` take every layout of the JAX
+package (`--attention_impl packed4`, say). `--debug_nans` stops at the
+first step with a NaN in its loss, gradients or updated parameters
+(FloatingPointError), before its checkpoint; `--wandb_project` logs the
+running averages to wandb as well, where wandb can start.
 
 Usage:
     python -m occm_tpu_torch.cli.oc_training \
@@ -106,8 +110,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--rawboost_algo", type=int, default=0, choices=range(9),
         help="RawBoost in every step: 0 disables; 1 LnL, 2 ISD, 3 SSI, "
              "4 (1+2+3), 5 (1+2), 6 (1+3), 7 (2+3), 8 (1||2)")
-    parser.add_argument("--wandb_project", type=str, default=None,
-                        help="not ported yet")
+    parser.add_argument(
+        "--wandb_project", type=str, default=None,
+        help="also log the running averages to this wandb project (without "
+             "wandb, or when its run cannot start, loss.txt and "
+             "metrics.jsonl only)")
     parser.add_argument("--xlsr_tiny", action="store_true",
                         help="tiny XLSR config (CPU smoke runs)")
     parser.add_argument(
@@ -131,13 +138,14 @@ def build_parser() -> argparse.ArgumentParser:
              "phase 13)")
     parser.add_argument("--pos_conv_impl", type=str, default="grouped",
                         choices=("grouped", "batched", "s2d"),
-                        help="only grouped is ported")
+                        help="the positional conv's layout (the same "
+                             "parameters and function)")
     parser.add_argument(
         "--attention_impl", type=str, default="auto",
         help='"auto" (default) resolves from --cut through '
              "occm_tpu_torch.classify.impl_select (the flash kernels from "
              '1 s up, where the model is one they take); or pin xla | '
-             "flash")
+             "flash | xla_merged | packed[N] | pad128")
     parser.add_argument(
         "--steps_per_dispatch", type=int, default=1,
         help="k optimizer steps per dispatch: on a card one CUDA graph "
@@ -157,8 +165,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="save a step checkpoint every N optimizer steps (and on "
              "SIGTERM); --resume continues bit-identically from it. 0 = "
              "per-epoch only")
-    parser.add_argument("--debug_nans", action="store_true",
-                        help="not ported yet")
+    parser.add_argument(
+        "--debug_nans", action="store_true",
+        help="raise FloatingPointError at the first step whose loss, "
+             "gradients or updated parameters hold a NaN, naming the "
+             "tensor, before that step's checkpoint (JAX's "
+             "jax_debug_nans)")
     parser.add_argument(
         "--grad_accum", type=int, default=1,
         help="accumulate gradients over N micro-batches (whole "
@@ -176,20 +188,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help='torch device: "cuda" (default) or "cpu"')
     return parser
-
-
-def _unported(args) -> None:
-    """Raise on a flag whose code path is not ported, naming its item of
-    ROADMAP queue A. (TrainConfig, MeshConfig and XLSRConfig raise on the
-    fields they carry.)"""
-    checks = [
-        ("--debug_nans", args.debug_nans, "remaining features"),
-    ]
-    for flag, set_, item in checks:
-        if set_:
-            raise NotImplementedError(
-                f"{flag} is not ported to occm_tpu_torch yet (ROADMAP queue "
-                f"A: {item})")
 
 
 def xlsr_config(args, cut: int, device):
@@ -294,7 +292,6 @@ def main(argv=None, on_step=None):
     """on_step(step, metrics): optional hook after every dispatch (used by
     chip_smoke.py to count kernel launches per step)."""
     args = build_parser().parse_args(argv)
-    _unported(args)
 
     from occm_tpu_torch.config import MeshConfig, RawBoostConfig, TrainConfig
 
@@ -366,7 +363,8 @@ def main(argv=None, on_step=None):
     print("Training starts...")
     return train(model, pipeline, cfg, checkpoint_fn=checkpoint_fn,
                  device=device, on_step=on_step, resume=args.resume,
-                 output_kind=OUTPUT_KIND_OF[args.model], mesh=mesh)
+                 output_kind=OUTPUT_KIND_OF[args.model], mesh=mesh,
+                 debug_nans=args.debug_nans)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,7 @@
 A copy of `occm_tpu.config`'s `RawBoostConfig`, `XLSRConfig`,
 `AASISTConfig`, `MeshConfig` and `TrainConfig`: the same fields, defaults,
 `tiny()` presets and validation, so a configuration means the same model
-and the same training run in both packages. Fields that select a code path
-the port does not implement yet raise `NotImplementedError` when set to a
-non-default value, rather than being silently ignored. The training fields
+and the same training run in both packages. The training fields
 of the models (dropout rates, layerdrop, remat, remat_policy, conv_remat,
 feature_grad_mult) act in train mode (`model.train()`); eval mode, which
 serving runs, applies no dropout.
@@ -68,6 +66,9 @@ class XLSRConfig:
     encoder_heads: int = 16
     conv_pos: int = 128
     conv_pos_groups: int = 16
+    # the positional conv's layout (ops/pos_conv.py): "grouped" (one
+    # grouped conv), "batched" (the groups as a batch), "s2d"
+    # (space-to-depth); the same parameters and function
     pos_conv_impl: str = "grouped"
     layer_norm_first: bool = True
     dropout: float = 0.0
@@ -78,7 +79,12 @@ class XLSRConfig:
     remat: bool = True
     dtype: str = "bfloat16"          # compute dtype of the matmuls and convs
     # "xla": plain torch attention (fp32 logits and softmax); "flash": the
-    # hand-written CUDA flash-attention kernels (ops/attention.py)
+    # hand-written CUDA flash-attention kernels (ops/attention.py); the
+    # JAX package's other layouts of the plain math: "packed[N]" (N heads
+    # block-diagonal in one product, N = 2 by default), "pad128" (T padded
+    # to a multiple of 128, the pad keys masked), "xla_merged" (B and H as
+    # one batch dim); "skip" (V passed through, NOT attention: timing
+    # attribution only, with allow_debug_impls)
     attention_impl: str = "xla"
     feature_grad_mult: float = 1.0
     norm_dtype: str = "float32"      # LayerNorm / softmax dtype
@@ -95,6 +101,8 @@ class XLSRConfig:
     # come back through the one cast (JAX's nn.map_variables mirror). The
     # extractor, positional conv and encoder LayerNorm are not mirrored.
     bf16_param_mirror: bool = False
+    # q, k and v as one [3d, d] product over the three projections'
+    # weights concatenated where they are used (the same parameters)
     fused_qkv: bool = False
     # "xla": fc1, GELU and fc2 as three calls; "pallas": ops/ffn.fused_ffn,
     # the hand-written CUDA fused FFN forward (the hidden activation stays on
@@ -157,16 +165,6 @@ class XLSRConfig:
             if value not in valid:
                 raise ValueError(
                     f"unknown {field} {value!r} ({' | '.join(valid)})")
-        unported = [
-            ("fused_qkv", self.fused_qkv),
-            ("attention_impl", impl not in ("xla", "flash")),
-            ("pos_conv_impl", self.pos_conv_impl != "grouped"),
-        ]
-        for field, set_ in unported:
-            if set_:
-                raise NotImplementedError(
-                    f"XLSRConfig.{field}={getattr(self, field)!r} is not "
-                    "ported to occm_tpu_torch yet")
         if (self.quant_int8 and self.layer_norm_first
                 and self.dtype == "bfloat16" and self.norm_dtype == "float32"
                 and self.ln_impl == "xla"):
@@ -244,8 +242,8 @@ class AASISTConfig:
 class MeshConfig:
     """Rank-mesh layout (`occm_tpu_torch.parallel.make_mesh`): dp (-1: what
     the other axes leave of the world), fsdp, tp and pp (the GPipe
-    pipeline's stages, one per rank of a pp group; the model's
-    `XLSRConfig.pp_stages` must equal it)."""
+    pipeline's ranks; pp must divide the model's `XLSRConfig.pp_stages`,
+    each rank running pp_stages / pp consecutive stages)."""
 
     dp: int = -1
     fsdp: int = 1
@@ -256,7 +254,9 @@ class MeshConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters, the JAX package's fields and defaults.
-    Not ported yet, and raising: wandb_project."""
+    wandb_project: a wandb run's project for the running averages (the
+    logger falls back to loss.txt and the jsonl stream alone when wandb
+    cannot be imported or started)."""
 
     model: str = "aasist"
     optimizer: str = "adam"        # "adam" (torch.optim.Adam) | "fused_adam"
@@ -307,8 +307,3 @@ class TrainConfig:
         if self.optimizer not in ("adam", "fused_adam"):
             raise ValueError(f"unknown optimizer {self.optimizer!r} "
                              "(adam | fused_adam)")
-        if self.wandb_project is not None:
-            raise NotImplementedError(
-                f"TrainConfig.wandb_project={self.wandb_project!r} is not "
-                "ported to occm_tpu_torch yet (ROADMAP queue A: remaining "
-                "features)")

@@ -12,7 +12,8 @@ layer's input.
     attn_out         the attention block's output after out_proj
     attn_out_inner   + the attention output before out_proj
     attn_probs       + the softmax probabilities (plain attention only)
-    attn_all         + q, k and v after their projections
+    attn_all         + q, k and v after their projections (under
+                     fused_qkv the one product that makes all three)
 
 The layer marks the op that makes each named tensor with `name(...)`, as
 JAX's `checkpoint_name` marks the value. `checkpoint_layer` runs a layer
@@ -78,7 +79,7 @@ NAMED = {
     "attn_out_inner": frozenset(_ATTN_NAMED),
     "attn_probs": frozenset(_ATTN_NAMED + ("attn_probs",)),
     "attn_all": frozenset(_ATTN_NAMED + ("attn_probs", "attn_q", "attn_k",
-                                         "attn_v")),
+                                         "attn_v", "attn_qkv")),
 }
 _aten = torch.ops.aten
 #: the ops whose outputs a name stands for (views and casts around them

@@ -30,6 +30,16 @@ are `Int8Linear`s ({weight_q int8, scale, bias}, `ops/int8.py`'s W8A8
 product), each returning its input's dtype as JAX's `Int8Dense` does; the
 int8 FFN is taken before `ffn_impl`.
 
+Attention layouts (`attention_impl`): "flash" runs the CUDA kernels;
+"xla", "xla_merged", "pad128" and "packed[N]" are the JAX package's
+layouts of the plain math (`_plain_attention`: the same logits, softmax
+dtype, dropout site and remat names, the products laid out differently);
+"skip" passes V through (timing attribution only). `fused_qkv` makes q,
+k and v in one product over the three weights concatenated where they
+are used, so the parameters and the state dict are the same either way.
+The positional conv runs in the layout `pos_conv_impl` names
+(`ops/pos_conv.py`: grouped, batched, s2d) on the same folded weight.
+
 Train mode (`model.train()`) applies every fairseq dropout site the JAX
 package has: attention probabilities (`attention_dropout`, plain attention
 only: the flash kernels never materialise them, so a non-zero rate raises
@@ -85,12 +95,14 @@ backward reduces).
 The GPipe pipeline (`pp_stages` S > 1, `pp_microbatches` M, 0 meaning
 S): in one process the stack runs the M microbatches of the batch in
 turn and concatenates them, the same function as the sequential stack
-(JAX's unsharded schedule). On a mesh with pp = S (`pp_group`), each
-rank's encoder runs its stage of the schedule's forward: its own block of
-layers on the microbatches, received from the stage before and sent to
-the one after; stage 0 runs the frontend, the last stage the head and
-returns the features. It leaves what the backward needs in `stage_pass`,
-which `train.loop` takes to run the microbatches' backward in reverse.
+(JAX's unsharded schedule). On a mesh whose pp = P divides S
+(`pp_group`), each rank's encoder runs its S / P consecutive stages of
+the schedule's forward (JAX's stage axis sharded over pp): their layers
+on the microbatches, tick by tick, received from the rank before, handed
+from stage to stage on the rank, and sent to the rank after; rank 0 runs
+the frontend, the last rank the head and returns the features. It
+leaves what the backward needs in `stage_pass`, which `train.loop` takes
+to run the microbatches' backward in reverse tick order.
 Dropout masks and layerdrop flags of every layer are drawn for the whole
 batch, in layer order, before the first layer runs (`draw_layers`), so
 the pipelined and the sequential stacks draw alike; a microbatch takes
@@ -122,7 +134,7 @@ from occm_tpu_torch.ops.attention import flash_attention
 from occm_tpu_torch.ops.ffn import fused_ffn
 from occm_tpu_torch.ops.int8 import int8_matmul
 from occm_tpu_torch.ops.layernorm import fast_layer_norm
-from occm_tpu_torch.ops.pos_conv import pos_conv_grouped
+from occm_tpu_torch.ops.pos_conv import POS_CONV_IMPLS
 from occm_tpu_torch.parallel.collectives import (
     copy_to, gather_frames, gather_rows, recv, reduce_from, scatter_frames,
     send, split_frames)
@@ -338,8 +350,9 @@ class ConvFeatureExtractor(nn.Module):
 
 
 class PosConv(nn.Module):
-    """Relative positional conv embedding: grouped conv (k=128, groups=16),
-    trained as one folded kernel `weight` [C, C/G, K] (fp32, cast to the
+    """Relative positional conv embedding: grouped conv (k=128, groups=16)
+    in the layout cfg.pos_conv_impl names (ops/pos_conv.py), trained as
+    one folded kernel `weight` [C, C/G, K] (fp32, cast to the
     compute dtype where it is used). Its state dict holds fairseq's
     `weight_g` / `weight_v` instead (see the module docstring)."""
 
@@ -372,10 +385,12 @@ class PosConv(nn.Module):
             state[prefix + "weight"] = fold_weight_norm(g, v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, T, C] -> [B, T + 1 - K % 2, C] (uncropped)."""
+        """[B, T, C] -> [B, T', C] (uncropped: T' = T + 1 - K % 2, or T
+        under "s2d"), in the layout of cfg.pos_conv_impl."""
         dt = _DTYPES[self.cfg.dtype]
-        out = pos_conv_grouped(x.transpose(1, 2).to(dt), self.weight.to(dt),
-                               self.cfg.conv_pos_groups)
+        conv = POS_CONV_IMPLS[self.cfg.pos_conv_impl]
+        out = conv(x.transpose(1, 2).to(dt), self.weight.to(dt),
+                   self.cfg.conv_pos_groups)
         return out.transpose(1, 2) + self.bias.to(dt)
 
 
@@ -406,6 +421,101 @@ def _int8_linear(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
     """Int8Linear `name` of the parameters p (read or mirrored) on x."""
     return int8_matmul(x, p[name + ".weight_q"], p[name + ".scale"],
                        p[name + ".bias"], x.dtype)
+
+
+def _softmax_probs(logits: torch.Tensor, dt, keep, rate) -> torch.Tensor:
+    """softmax(logits) named attn_probs (before the cast, as JAX names
+    it), cast to the compute dtype, with the attention dropout mask."""
+    with remat.name("attn_probs"):
+        probs = torch.softmax(logits, dim=-1)
+    return apply_keep(probs.to(dt), keep, rate)
+
+
+def _pv(probs: torch.Tensor, v: torch.Tensor, spec: str) -> torch.Tensor:
+    """P.V named attn_inner. JAX's einsum promotes: int8 projections
+    return their input's dtype, so under bf16 norms in an fp32 model v is
+    bf16."""
+    pdt = torch.promote_types(probs.dtype, v.dtype)
+    with remat.name("attn_inner"):
+        return torch.einsum(spec, probs.to(pdt), v.to(pdt))
+
+
+def _plain_attention(impl: str, q, k, v, keep, rate: float, dt, ndt,
+                     tp=None) -> torch.Tensor:
+    """The JAX package's plain attention layouts (`occm_tpu/models/
+    xlsr.py` SelfAttention): q (scaled), k, v [B, T, h, hd] (h: this
+    rank's heads) -> [B, T, h, hd]. Logits and softmax at ndt, the
+    probabilities cast to dt; keep: the [B, h, T, T] dropout mask, laid
+    out as each layout's probabilities are. "xla": the two products over
+    (B, H); "xla_merged": over one merged B*H dim; "pad128": T padded to a
+    multiple of 128 for the products, the pad keys masked at -1e30 and the
+    pad rows sliced off; "packed[N]": N heads at a time, q block-diagonal
+    [N T, N hd] against the N heads' k side by side, so one product makes
+    the N heads' logits (and P.V likewise)."""
+    B, T, h, hd = q.shape
+    if impl == "xla":
+        with remat.name("attn_logits"):
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ndt), k.to(ndt))
+        return _pv(_softmax_probs(logits, dt, keep, rate), v,
+                   "bhqk,bkhd->bqhd")
+    if impl == "xla_merged":
+        qm = q.transpose(1, 2).reshape(B * h, T, hd)
+        km = k.transpose(1, 2).reshape(B * h, T, hd)
+        vm = v.transpose(1, 2).reshape(B * h, T, hd)
+        with remat.name("attn_logits"):
+            logits = torch.einsum("zqd,zkd->zqk", qm.to(ndt), km.to(ndt))
+        keep = None if keep is None else keep.reshape(B * h, T, T)
+        out = _pv(_softmax_probs(logits, dt, keep, rate), vm,
+                  "zqk,zkd->zqd")
+        return out.reshape(B, h, T, hd).transpose(1, 2)
+    if impl == "pad128":
+        tp_ = -(-T // 128) * 128
+        pad = (0, 0, 0, 0, 0, tp_ - T)
+        with remat.name("attn_logits"):
+            logits = torch.einsum("bqhd,bkhd->bhqk",
+                                  F.pad(q, pad).to(ndt),
+                                  F.pad(k, pad).to(ndt))
+        logits = torch.where(torch.arange(tp_, device=logits.device) < T,
+                             logits, logits.new_full((), -1e30))
+        if keep is not None:
+            keep = F.pad(keep, (0, tp_ - T, 0, tp_ - T), value=True)
+        out = _pv(_softmax_probs(logits, dt, keep, rate), F.pad(v, pad),
+                  "bhqk,bkhd->bqhd")
+        return out[:, :T]
+    width = impl[len("packed"):]
+    if not impl.startswith("packed") or not (width == "" or width.isdigit()):
+        raise ValueError(
+            f"unknown attention_impl {impl!r} (xla | xla_merged | packed[N] "
+            "| pad128 | flash | skip)")
+    g = int(width or 2)
+    if g < 2 or h % g:
+        where = "" if tp is None else (
+            f" (this rank's {h} of the heads under tp={tp[1]})")
+        raise ValueError(
+            f"attention_impl={impl!r}: pack width {g} must be >=2 and "
+            f"divide num_heads={h}{where}")
+    P = h // g
+    eye = torch.eye(g, dtype=q.dtype, device=q.device)[:, None, :, None]
+
+    def heads(t):  # [B, T, h, hd] -> [B, P, g, T, hd]
+        return t.transpose(1, 2).reshape(B, P, g, T, hd)
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    kc = kh.transpose(2, 3).reshape(B, P, T, g * hd)
+    # block-diagonal through an outer product with I_g:
+    # [B, P, g, T, 1, hd] x [g, 1, g, 1] -> [B, P, gT, g hd]
+    qp = (qh[:, :, :, :, None, :] * eye).reshape(B, P, g * T, g * hd)
+    with remat.name("attn_logits"):
+        logits = torch.einsum("bpqd,bpkd->bpqk", qp.to(ndt), kc.to(ndt))
+    keep = None if keep is None else keep.reshape(B, P, g * T, T)
+    probs = _softmax_probs(logits, dt, keep, rate)
+    pc = (probs.reshape(B, P, g, T, T).transpose(2, 3)
+          .reshape(B, P, T, g * T))
+    vp = (vh[:, :, :, :, None, :] * eye.to(vh.dtype)).reshape(
+        B, P, g * T, g * hd)
+    out = _pv(pc, vp, "bpqk,bpkd->bpqd")
+    return (out.reshape(B, P, T, g, hd).transpose(1, 2)
+            .reshape(B, T, h, hd))
 
 
 class SelfAttention(nn.Module):
@@ -450,30 +560,29 @@ class SelfAttention(nn.Module):
                            f"attn_{name[0]}")
 
         # under tp the projections give this rank's H/tp heads
-        q = proj(x, "q_proj").reshape(B, T, -1, hd)
-        k = proj(x, "k_proj").reshape(B, T, -1, hd)
-        v = proj(x, "v_proj").reshape(B, T, -1, hd)
+        if cfg.fused_qkv and not cfg.quant_int8:
+            # one [3d, d] product over the three weights concatenated here
+            # (under tp the rank's shards of each), split into q, k, v
+            names = ("q_proj", "k_proj", "v_proj")
+            w = torch.cat([p[n + ".weight"] for n in names])
+            b = torch.cat([p[n + ".bias"] for n in names])
+            qkv = _linear(x, w, b, dt, tag="attn_qkv")
+            q, k, v = qkv.reshape(B, T, 3, -1, hd).unbind(2)
+        else:
+            q = proj(x, "q_proj").reshape(B, T, -1, hd)
+            k = proj(x, "k_proj").reshape(B, T, -1, hd)
+            v = proj(x, "v_proj").reshape(B, T, -1, hd)
         if impl == "flash":
             # the kernel's output is named through a copy (models/remat.py)
             out = remat.kernel_output(flash_attention(q, k, v).to(dt),
                                       "attn_inner")
-        elif impl == "xla":
-            q = q * (hd ** -0.5)
-            with remat.name("attn_logits"):
-                logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ndt),
-                                      k.to(ndt))
-            with remat.name("attn_probs"):
-                probs = torch.softmax(logits, dim=-1)
-            probs = apply_keep(probs.to(dt), keep, cfg.attention_dropout)
-            # JAX's einsum promotes: int8 projections return their input's
-            # dtype, so under bf16 norms in an fp32 model v is bf16
-            pdt = torch.promote_types(probs.dtype, v.dtype)
-            with remat.name("attn_inner"):
-                out = torch.einsum("bhqk,bkhd->bqhd", probs.to(pdt),
-                                   v.to(pdt))
+        elif impl == "skip":
+            # NOT attention: V passed through, for timing attribution only
+            # (XLSRConfig refuses it without allow_debug_impls)
+            out = v
         else:
-            raise NotImplementedError(
-                f"attention_impl={impl!r} is not ported (xla | flash)")
+            out = _plain_attention(impl, q * (hd ** -0.5), k, v, keep,
+                                   cfg.attention_dropout, dt, ndt, tp)
         out = out.reshape(B, T, -1)
         if tp is None:
             return proj(out, "out_proj")
@@ -535,8 +644,9 @@ class TransformerLayer(nn.Module):
         B, T, d = shape
         shapes = ((B, cfg.encoder_heads, T, T), (B, T, d),
                   (B, T, cfg.encoder_ffn_dim), (B, T, d))
-        rates = (cfg.attention_dropout, cfg.dropout, cfg.activation_dropout,
-                 cfg.dropout)
+        # "skip" has no probabilities to drop
+        rates = (0.0 if impl == "skip" else cfg.attention_dropout,
+                 cfg.dropout, cfg.activation_dropout, cfg.dropout)
         masks = [dropout_keep(s, p, gen, device) if p > 0.0
                  else None for s, p in zip(shapes, rates)]
         tp = tp_group()
@@ -642,15 +752,18 @@ class TransformerEncoder(nn.Module):
 
 @dataclasses.dataclass
 class StagePass:
-    """A pipeline stage's forward, kept for its backward: the pp group,
-    the global ranks of the stages before and after this one (None at the
-    ends), on stage 0 the stack's input as the frontend made it (`x0`) and
-    as the leaf its microbatches' backwards accumulate into (`whole`), and
-    per microbatch (its input, its output, on the last stage that output
-    as a leaf)."""
+    """A rank's pipeline stages' forward, kept for its backward: the pp
+    group, the global ranks of the pipeline's ranks before and after this
+    one (None at the ends), the rank's first and last stage, on the first
+    rank the stack's input as the frontend made it (`x0`) and as the leaf
+    its microbatches' backwards accumulate into (`whole`), and in tick
+    order per (stage, microbatch) run: (stage, microbatch, its input, its
+    output, on the pipeline's last stage that output as a leaf)."""
     group: object
     prev: Optional[int]
     next: Optional[int]
+    first: int
+    last: int
     x0: Optional[torch.Tensor]
     whole: Optional[torch.Tensor]
     parts: list
@@ -680,8 +793,9 @@ class XLSREncoder(nn.Module):
                 attention_impl: Optional[str] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Optional[torch.Tensor]:
-        """attention_impl overrides cfg.attention_impl ("xla" | "flash"),
-        so one set of weights serves buckets that pick different impls.
+        """attention_impl overrides cfg.attention_impl (any value it
+        takes), so one set of weights serves buckets that pick different
+        impls.
         generator: the generator of the dropout masks in train mode. On a
         mesh with pp > 1 the rank's pipeline stage (`stage_forward`): the
         features on the last stage, None on the others."""
@@ -707,24 +821,36 @@ class XLSREncoder(nn.Module):
     def stage_forward(self, x: torch.Tensor, impl: str,
                       gen: Optional[torch.Generator], pp
                       ) -> Optional[torch.Tensor]:
-        """Stage s of the GPipe schedule's forward over S stages (`pp`:
-        pp_group()'s (group, S, s)): layers [s L/S, (s + 1) L/S) on each
-        microbatch, received from stage s - 1 (stage 0 embeds the wave x;
-        later stages read only its shape) and sent on to stage s + 1, every
-        rank posting them in schedule order. The dropout generator comes
-        from stage s - 1 before this stage draws and goes on to stage s + 1
-        after, so each stage draws after the one before, as one process
-        draws. Returns the features on the last stage (its microbatches'
-        outputs gathered, as leaves whose gradients start the backward),
-        else None; leaves the backward's record in `stage_pass`."""
-        group, S, s = pp
+        """This rank's stages of the GPipe schedule's forward over S =
+        pp_stages stages (`pp`: pp_group()'s (group, P, r); P must divide
+        S): rank r runs stages [r S/P, (r + 1) S/P), stage s layers
+        [s L/S, (s + 1) L/S), over the M + S - 1 ticks of the schedule, at
+        tick t each of its stages s on microbatch t - s. The first stage of
+        the rank receives its microbatches from rank r - 1 (rank 0 embeds
+        the wave x; the others read only its shape), a stage hands its
+        output to the next one on the same rank locally (a leaf, so each
+        stage's backward runs on its own), and the rank's last stage sends
+        it on to rank r + 1, every rank posting them in schedule order.
+        The dropout generator comes from rank r - 1 before this rank draws
+        its layers' masks and goes on to rank r + 1 after, so each draws
+        after the one before, as one process draws. Returns the features
+        on the last rank (its microbatches' outputs gathered, as leaves
+        whose gradients start the backward), else None; leaves the
+        backward's record in `stage_pass`."""
+        group, P, r = pp
         cfg = self.cfg
+        S = cfg.pp_stages
+        if S % P:
+            raise ValueError(
+                f"a mesh with pp={P} runs pp_stages in blocks of S / pp "
+                f"per rank: pp={P} must divide pp_stages={S}")
         mesh = current_mesh()
         micro = self.microbatches(x.shape[0])
         per = cfg.encoder_layers // S
-        layers = range(s * per, (s + 1) * per)
-        prev = pp_peer(mesh, s - 1) if s > 0 else None
-        nxt = pp_peer(mesh, s + 1) if s < S - 1 else None
+        first, last = r * (S // P), (r + 1) * (S // P) - 1
+        layers = range(first * per, (last + 1) * per)
+        prev = pp_peer(mesh, r - 1) if r > 0 else None
+        nxt = pp_peer(mesh, r + 1) if r < P - 1 else None
         x0 = whole = None
         if prev is None:
             # the stack's input as a leaf: the microbatches' backwards
@@ -743,24 +869,38 @@ class XLSREncoder(nn.Module):
         if nxt is not None and gen is not None:
             send(gen.get_state(), nxt, group)
         mirror = self.mirror(layers)
-        parts = []
-        for rows in micro:
-            if whole is not None:
-                h = whole[rows]
-            else:
-                h = recv((rows.stop - rows.start,) + tuple(shape[1:]),
-                         _DTYPES[cfg.dtype], prev, x.device,
-                         group).requires_grad_()
-            y = self.run_layers(h, impl, draws, layers, mirror, rows)
-            out = None
-            if nxt is not None:
-                send(y, nxt, group)
-            else:
-                out = y.detach().requires_grad_()
-            parts.append((h, y, out))
-        self.stage_pass = StagePass(group, prev, nxt, x0, whole, parts)
+        parts, handed = [], {}
+        for t in range(len(micro) + S - 1):
+            for stage in range(first, last + 1):
+                m = t - stage
+                if not 0 <= m < len(micro):
+                    continue
+                rows = micro[m]
+                if stage > first:
+                    h = handed.pop(m)
+                elif whole is not None:
+                    h = whole[rows]
+                else:
+                    h = recv((rows.stop - rows.start,) + tuple(shape[1:]),
+                             _DTYPES[cfg.dtype], prev, x.device,
+                             group).requires_grad_()
+                y = self.run_layers(h, impl, draws,
+                                    range(stage * per, (stage + 1) * per),
+                                    mirror, rows)
+                out = None
+                if stage < last:
+                    handed[m] = y.detach().requires_grad_(y.requires_grad)
+                elif nxt is not None:
+                    send(y, nxt, group)
+                else:
+                    out = y.detach().requires_grad_()
+                parts.append((stage, m, h, y, out))
+        self.stage_pass = StagePass(group, prev, nxt, first, last, x0, whole,
+                                    parts)
         if nxt is None:
-            return self.head(torch.cat([out for _, _, out in parts]))
+            outs = {m: out for stage, m, _, _, out in parts
+                    if stage == last}
+            return self.head(torch.cat([outs[m] for m in range(len(micro))]))
         return None
 
     def frames(self, samples: int) -> int:

@@ -220,8 +220,8 @@ def tp_group():
 
 
 def pp_group():
-    """(group, size, stage) of the current mesh's pp axis when it is > 1,
-    else None."""
+    """(group, size, this rank's pp coordinate) of the current mesh's pp
+    axis when it is > 1, else None."""
     mesh = current_mesh()
     if mesh is None or mesh.shape["pp"] == 1:
         return None

@@ -17,12 +17,14 @@ reference naming that `models.state_dict_from_flax` produces):
   JAX's transformer leaves are stacked [L, ...], so which leaves pass the
   size threshold, and on which axis they shard, may differ from JAX; the
   arithmetic does not.
-- PP (`stage_of`): with pp > 1, stage s owns `encoder.layers.{l}` for l
-  in [s L/S, (s + 1) L/S), the port's form of JAX's P("pp", ...) on the
-  stacked [L, ...] axis; a rank keeps no tensor of another stage's
-  layers (an empty one stands in, parameter and moments alike). It
-  composes with the TP and fsdp rules, as JAX composes
-  ("pp", "fsdp", "tp").
+- PP (`stage_of`): with pp = P > 1, the rank at pp coordinate r owns
+  `encoder.layers.{l}` for l in [r L/P, (r + 1) L/P), the port's form of
+  JAX's P("pp", ...) on the stacked [L, ...] axis. With pp_stages S a
+  multiple of P these are the layers of the rank's S / P consecutive
+  stages of the schedule (JAX shards the [S, L/S, ...] stage view the
+  same way). A rank keeps no tensor of another rank's layers (an empty
+  one stands in, parameter and moments alike). It composes with the TP
+  and fsdp rules, as JAX composes ("pp", "fsdp", "tp").
 - everything else (conv stem, backends, norms, the row-parallel biases,
   BatchNorm statistics, step counts) is replicated. Under sequence
   parallelism the layer leaves that tp replicates (LayerNorms, the
@@ -73,8 +75,10 @@ FSDP_MIN_SIZE = 4096
 class Placement:
     """Where a leaf's shards lie: the dim sharded over tp and the one
     sharded over fsdp (None: not sharded over that axis), its full shape,
-    the pipeline stage that owns it (None: every stage holds it), and
-    whether its gradient is partial over tp (sequence parallelism)."""
+    the pp coordinate of the rank that owns it (`stage`: the rank whose
+    block of pipeline stages holds its layer; None: every rank holds it),
+    and whether its gradient is partial over tp (sequence
+    parallelism)."""
 
     tp_dim: Optional[int]
     fsdp_dim: Optional[int]
@@ -104,8 +108,9 @@ def _layer_index(name: str) -> Optional[int]:
 
 
 def stage_of(name: str, n_layers: int, pp: int) -> Optional[int]:
-    """The pipeline stage that owns the leaf `name` (contiguous blocks of
-    n_layers / pp layers), None for a leaf outside the layer stack."""
+    """The pp coordinate of the rank that owns the leaf `name` (contiguous
+    blocks of n_layers / pp layers: its block of pp_stages / pp pipeline
+    stages), None for a leaf outside the layer stack."""
     layer = _layer_index(name)
     if layer is None or pp == 1:
         return None

@@ -32,17 +32,17 @@ Semantics of the JAX package's loop (reference: oc_training.py:344-401):
   `checkpoint_every_steps` optimizer steps and on SIGTERM, and resume.
 
 On a mesh with pp > 1 (the GPipe pipeline over the XLSR layers), each
-rank runs its stage of the schedule: stage 0 RawBoost, then the encoder's
-stage forward (`XLSREncoder.stage_forward`: stage 0 the frontend and its
-layers on the M microbatches, each later stage its layers on the
-microbatches it receives from the one before, the last stage the encoder
-LayerNorm on the microbatches' outputs gathered into the rank's rows),
-the last stage the backend and the loss; then the backward (`_Stage`),
-the microbatches in reverse, each stage handing its inputs' gradients
-back. The dropout generator travels with the schedule (each stage draws
-after the one before, as one process draws), and the last stage's
-generator, BatchNorm statistics and metrics are broadcast to its
-pipeline at the end.
+rank runs its pp_stages / pp consecutive stages of the schedule: rank 0
+RawBoost, then the encoder's stage forward (`XLSREncoder.stage_forward`:
+rank 0 the frontend, every rank its stages' layers on the M microbatches
+tick by tick, a rank's first stage on what it receives from the rank
+before, the last stage's outputs gathered into the rank's rows under the
+encoder LayerNorm), the last rank the backend and the loss; then the
+backward (`_Stage`), in reverse tick order, each stage handing its
+inputs' gradients back. The dropout generator travels with the schedule
+(each rank draws after the one before, as one process draws), and the
+last rank's generator, BatchNorm statistics and metrics are broadcast
+to its pipeline at the end.
 
 PyTorch runs eagerly, so there is no jit or donated state; losses stay on
 the device between log points, and the host reads them only there (and
@@ -156,9 +156,50 @@ def _accum(cfg: TrainConfig, global_rows: int) -> int:
     return accum
 
 
+def first_nan(named) -> Optional[str]:
+    """The name of the first of `named` ((name, tensor or None) pairs) that
+    holds a NaN, else None: one host read for all of them."""
+    named = [(n, t) for n, t in named if t is not None and t.numel()]
+    if not named:
+        return None
+    flags = torch.stack([torch.isnan(t).any() for _, t in named]).cpu()
+    bad = [n for (n, _), f in zip(named, flags.tolist()) if f]
+    return bad[0] if bad else None
+
+
+def raise_on_nan(state: TrainState, named, what: str) -> None:
+    """--debug_nans (JAX's jax_debug_nans): raise FloatingPointError naming
+    the first tensor of `named` that holds a NaN. On a mesh every rank
+    joins one flag all-reduce, so a NaN in one rank's shard stops them
+    all at the same step."""
+    bad = first_nan(named)
+    mesh = state.mesh
+    if mesh is not None and mesh.groups:
+        dev = next(iter(state.model.parameters())).device
+        if not C.all_reduce_max_flag(bad is not None, mesh.group("world"),
+                                     _flag_device(mesh, dev)):
+            return
+        bad = bad or "a tensor of another rank"
+    if bad is not None:
+        raise FloatingPointError(
+            f"--debug_nans: NaN in {bad} ({what}, optimizer step "
+            f"{state.step})")
+
+
+def _grads_named(state: TrainState):
+    return [(f"the gradient of {n}", p.grad)
+            for n, p in state.named_params()]
+
+
+def _params_named(state: TrainState):
+    return [(f"the updated parameter {n}", p)
+            for n, p in state.named_params()]
+
+
 def train_step(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
                cfg: TrainConfig, weights: Optional[torch.Tensor] = None,
-               lr=None, replicated: bool = False) -> Dict[str, torch.Tensor]:
+               lr=None, replicated: bool = False,
+               debug_nans: bool = False) -> Dict[str, torch.Tensor]:
     """Forward in train mode, group one-class loss, backward, optimizer
     step. x [G*12, T] and labels [G*12] on the model's device; weights:
     an optional [G*12] 0/1 utterance mask, constant within each
@@ -188,20 +229,30 @@ def train_step(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
     (reduce-scattered to the shards) over the data axes before the
     optimizer, which updates only this rank's shards. Under grad_accum the
     rank's rows are its parts of each global micro-batch, in order
-    (`parallel.sharding.local_rows`)."""
+    (`parallel.sharding.local_rows`).
+
+    With `debug_nans` the step raises FloatingPointError, naming the
+    tensor, when its loss or a gradient holds a NaN (before the update)
+    or an updated parameter does (after it); the checks only read."""
     state.model.train()
     with _on_mesh(state, replicated):
         swaps = gather_fsdp_params(state) if state.mesh is not None else []
         metrics = _step_body(state, x, labels, cfg, weights)
         if state.mesh is not None:
             reduce_gradients(state, swaps, replicated)
+    if debug_nans:
+        raise_on_nan(state, [("the loss", metrics["loss"])]
+                     + _grads_named(state), "before the update")
     state.apply_gradients(lr)
+    if debug_nans:
+        raise_on_nan(state, _params_named(state), "after the update")
     return metrics
 
 
 def pipeline_encoder(model, pp: int):
-    """The XLSR encoder of `model` that a pipeline of `pp` stages splits:
-    a ValueError unless there is exactly one and its pp_stages is pp."""
+    """The XLSR encoder of `model` that a pipeline of `pp` ranks splits: a
+    ValueError unless there is exactly one and pp divides its pp_stages
+    (each rank then runs pp_stages / pp consecutive stages)."""
     from occm_tpu_torch.models.xlsr import XLSREncoder
 
     found = [m for m in model.modules() if isinstance(m, XLSREncoder)]
@@ -209,43 +260,49 @@ def pipeline_encoder(model, pp: int):
         raise ValueError(f"a pipeline splits one XLSR encoder; the model "
                          f"has {len(found)}")
     stages = found[0].cfg.pp_stages
-    if stages != pp:
+    if stages % pp:
         raise ValueError(
-            f"a mesh with pp={pp} trains a model of pp_stages={pp}, not "
-            f"{stages} (ROADMAP queue A item 16: pp_stages other than the "
-            "mesh's pp)")
+            f"a mesh with pp={pp} runs pp_stages in blocks of S / pp per "
+            f"rank: pp={pp} must divide pp_stages={stages}")
     return found[0]
 
 
 class _Stage:
-    """This rank's stage of the GPipe schedule over the XLSR layers on a
-    mesh with pp = S > 1. The encoder runs the stage's forward
-    (`XLSREncoder.stage_forward`, on the mesh's pp group); this runs its
-    backward and hands the last stage's generator, metrics and BatchNorm
+    """This rank's stages of the GPipe schedule over the XLSR layers on a
+    mesh with pp = P > 1. The encoder runs their forward
+    (`XLSREncoder.stage_forward`, on the mesh's pp group); this runs their
+    backward and hands the last rank's generator, metrics and BatchNorm
     statistics to the pipeline."""
 
     def __init__(self, state, device):
-        self.group, S, self.s = pp_group()
-        self.enc = pipeline_encoder(state.model, S)
-        self.last = self.s == S - 1
-        self.src = pp_peer(state.mesh, S - 1)
+        self.group, P, self.s = pp_group()
+        self.enc = pipeline_encoder(state.model, P)
+        self.last = self.s == P - 1
+        self.src = pp_peer(state.mesh, P - 1)
         self.device = device
 
     def backward(self) -> None:
-        """The microbatches of the encoder's last stage forward in reverse:
-        each one's backward through this stage's layers from its outputs'
-        gradient (the last stage's from the loss's backward, the others'
-        received), its inputs' gradient sent back; stage 0 then runs the
-        frontend's backward once."""
+        """The (stage, microbatch) runs of the encoder's last forward in
+        reverse tick order: each one's backward through its stage's layers
+        from its output's gradient (on the pipeline's last stage from the
+        loss's backward; from the next stage's input gradient, handed on
+        this rank or received from the next), its input's gradient handed
+        to the stage before on this rank or sent back to the previous
+        rank; rank 0 then runs the frontend's backward once."""
         p, self.enc.stage_pass = self.enc.stage_pass, None
-        for h, y, out in reversed(p.parts):
+        handed = {}
+        for stage, m, h, y, out in reversed(p.parts):
             if out is not None:
                 g = out.grad
+            elif stage < p.last:
+                g = handed.pop(m)
             else:
                 g = C.recv(tuple(y.shape), y.dtype, p.next, y.device,
                            p.group)
             torch.autograd.backward(y, g)
-            if p.prev is not None:
+            if stage > p.first:
+                handed[m] = h.grad
+            elif p.prev is not None:
                 C.send(h.grad, p.prev, p.group)
         if p.x0 is not None and p.x0.requires_grad:
             p.x0.backward(p.whole.grad)
@@ -357,6 +414,7 @@ def train(
     resume: bool = False,
     output_kind: str = "dual",
     mesh=None,
+    debug_nans: bool = False,
 ) -> TrainState:
     """Train `model` (an nn.Module whose output `output_kind` names, see
     `train.state.OUTPUT_KINDS`) on `pipeline.epoch(e)` batches of numpy
@@ -385,7 +443,17 @@ def train(
     on every rank. Only the primary rank writes loss.txt, metrics.jsonl
     and checkpoints (which gather the shards, so every rank calls
     checkpoint_fn). A CUDA graph of k steps captures NCCL's collectives;
-    Gloo's cannot be captured, so k > 1 on a card over Gloo raises."""
+    Gloo's cannot be captured, so k > 1 on a card over Gloo raises.
+
+    `debug_nans` (the CLI's --debug_nans, JAX's jax_debug_nans): the first
+    step whose loss, gradients or updated parameters hold a NaN raises
+    FloatingPointError naming the tensor, before anything of that step is
+    logged or checkpointed. An eager step checks inside `train_step`; a
+    CUDA graph's chunk after its replay (its steps' losses and the
+    parameters after it: a NaN gradient reaches them through the update).
+    The checks only read, so a finite run gives the same numbers. Without
+    it a NaN run goes on, as in JAX. The logger, unless given, is
+    loss.txt's, with wandb when cfg.wandb_project is set."""
     dev = resolve_device(device)
     if mesh is None:
         mesh = make_mesh(cfg.mesh)
@@ -401,7 +469,8 @@ def train(
         pipeline_encoder(model, pp)
     if not multihost.is_primary():
         logger = MetricsLogger(loss_txt=None, jsonl=None)
-    logger = logger or MetricsLogger(loss_txt=cfg.loss_txt)
+    logger = logger or MetricsLogger(loss_txt=cfg.loss_txt,
+                                     wandb_project=cfg.wandb_project)
     k = max(1, cfg.steps_per_dispatch)
     graphed = dev.type == "cuda" and k > 1
     if graphed and distributed and mesh.backend() == "gloo":
@@ -489,14 +558,22 @@ def train(
             return train_step(state, upload(x, torch.float32),
                               upload(labels, torch.long), cfg,
                               None if w is None else upload(w, torch.float32),
-                              replicated=rep)
+                              replicated=rep, debug_nans=debug_nans)
         parts = [local(x[i], labels[i]) for i in range(k)]
         rep = parts[0][3]
         if runner is not None:
-            return runner.run(np.stack([p[0] for p in parts]),
-                              np.stack([p[1] for p in parts]), rep)
+            metrics = runner.run(np.stack([p[0] for p in parts]),
+                                 np.stack([p[1] for p in parts]), rep)
+            if debug_nans:
+                first = state.step - k
+                raise_on_nan(state, [
+                    (f"the loss of step {first + i}", loss)
+                    for i, loss in enumerate(metrics["step_loss"])]
+                    + _params_named(state), "after a CUDA graph's chunk")
+            return metrics
         steps = [train_step(state, upload(xi, torch.float32),
-                            upload(li, torch.long), cfg, replicated=rep)
+                            upload(li, torch.long), cfg, replicated=rep,
+                            debug_nans=debug_nans)
                  for xi, li, _, _ in parts]  # on the CPU: k eager steps
         metrics = _stack_mean(steps)
         for key in ("loss", "closs", "dloss"):

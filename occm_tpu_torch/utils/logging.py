@@ -2,8 +2,12 @@
 
 - `loss.txt` running-average lines every `log_every` steps, format-exact
   with the reference (oc_training.py:391-395),
+- optional wandb logging with the reference's metric names
+  (oc_training.py:396): with `wandb_project` set, the logger imports
+  wandb and starts a run; any failure there (wandb absent, no login, no
+  network) leaves it logging to loss.txt and the jsonl stream only, as
+  the JAX package's does,
 - a JSONL stream of the same numbers (metrics.jsonl).
-wandb is not ported (TrainConfig.wandb_project raises).
 """
 
 from __future__ import annotations
@@ -15,14 +19,26 @@ from typing import Optional
 
 class MetricsLogger:
     def __init__(self, loss_txt: Optional[str] = "loss.txt",
-                 jsonl: Optional[str] = "metrics.jsonl"):
+                 jsonl: Optional[str] = "metrics.jsonl",
+                 wandb_project: Optional[str] = None,
+                 wandb_entity: Optional[str] = None):
         self.loss_txt = loss_txt
         self.jsonl = jsonl
+        self._wandb = None
+        if wandb_project:
+            try:
+                import wandb  # optional dependency
+
+                wandb.init(project=wandb_project, entity=wandb_entity)
+                self._wandb = wandb
+            except Exception:
+                self._wandb = None
 
     def log_running(self, epoch: int, i: int, running_loss: float,
                     running_closs: float, running_dloss: float) -> None:
         """Running-average line, format-exact with the reference (note the
-        trailing space before the newline)."""
+        trailing space before the newline), and the same averages to
+        wandb when a run is open."""
         denom = i + 1
         if self.loss_txt:
             with open(self.loss_txt, "a") as f:
@@ -32,6 +48,13 @@ class MetricsLogger:
                     f"closs = {running_closs / denom:.3f}, "
                     f"dloss = {running_dloss / denom:.3f} \n"
                 )
+        if self._wandb:
+            self._wandb.log({
+                "Epoch": epoch,
+                "Train Loss": running_loss / denom,
+                "Train Compactness Loss": running_closs / denom,
+                "Train Descriptiveness Loss": running_dloss / denom,
+            })
 
     def log_jsonl(self, **record) -> None:
         if not self.jsonl:

@@ -65,6 +65,10 @@ import test_torch_parallel_train as P  # noqa: E402
 L4 = dict(encoder_layers=4)
 PP = dict(L4, pp_stages=2, pp_microbatches=2)
 PP4 = dict(L4, pp_stages=2, pp_microbatches=4)
+#: four stages of one layer on a pp = 2 mesh: each rank runs two
+PP_S4 = dict(L4, pp_stages=4, pp_microbatches=4)
+#: the JAX package's other attention layouts under tp = 2 (2 heads a rank)
+TP_LAYOUTS = dict(L4, fused_qkv=True, attention_impl="packed")
 SP = dict(L4, seq_parallel=True)
 ADAM = dict(optimizer="adam")
 FWD_ATOL = 2e-5
@@ -292,13 +296,15 @@ def test_sequence_parallel_off_a_mesh_and_at_tp_1_changes_nothing():
 
 
 def test_train_refuses_what_the_pipeline_does_not_run(tmp_path):
-    """A mesh with pp > 1 trains a model whose pp_stages equals it, and
-    not as a CUDA graph of k steps (ROADMAP queue A item 16)."""
+    """A mesh with pp > 1 trains a model whose pp_stages pp divides (each
+    rank then runs pp_stages / pp stages: the rank case pp2s4 trains
+    pp_stages 4 on pp 2), and not as a CUDA graph of k steps (ROADMAP
+    queue A item 16)."""
     from occm_tpu_torch.train.loop import train
 
     mesh = make_mesh(MeshConfig(dp=1, pp=2), world_size=2, rank=0)
     for fields, train_kw, match in (
-            (L4, {}, "pp_stages=2, not 1"),
+            (L4, {}, "pp=2 must divide pp_stages=1"),
             (PP, dict(steps_per_dispatch=2), "item 16")):
         x, a, t = W.configs("jax", fields, **train_kw)
         with pytest.raises(ValueError, match=match):
@@ -326,7 +332,12 @@ STEPS = {
     "pp2tp2": ("pp2tp2", "dropout", PP, {}, "b", 1),
     "pp2fsdp2": ("pp2fsdp2", "kernels", PP, {}, "b", 1),
     "dp2tp2-sp": ("dp2tp2", "dropout", SP, {}, "b", 1),
+    "pp2s4": ("pp2", "jax", PP_S4, {}, "b", 1),
+    "tp2-layouts": ("tp2", "jax", TP_LAYOUTS, {}, "b", 1),
 }
+#: the cases whose ranks run train() (over an unsharded pipeline) rather
+#: than train_step
+TRAIN_API = ("pp2s4",)
 
 
 def _world(mesh):
@@ -352,9 +363,10 @@ def _single(init, kind, xlsr, train, batches, steps, state=None):
             "state": state}
 
 
-def _jax_pp_step(variables, x, labels):
+def _jax_pp_step(variables, x, labels, fields=PP):
     """JAX's make_train_step on a dp1 x pp2 mesh of two virtual devices
-    (the GPipe schedule of `_pp_stack`, the stacked layers stage-sharded)."""
+    (the GPipe schedule of `_pp_stack`, the stacked layers stage-sharded;
+    `fields` the pipeline's XLSRConfig fields)."""
     from occm_tpu.parallel import place_state_on_mesh as j_place
     from occm_tpu.parallel import shard_batch as j_shard_batch
     from occm_tpu.parallel import train_state_shardings as j_shardings
@@ -363,7 +375,7 @@ def _jax_pp_step(variables, x, labels):
     from occm_tpu.train.state import TrainState as JTrainState
 
     jx, ja, cfg = P._jax_configs()
-    jx = dataclasses.replace(jx, **PP)
+    jx = dataclasses.replace(jx, **fields)
     cfg = dataclasses.replace(cfg, mesh=JMeshConfig(dp=1, pp=2))
     model = JAModel(ja, xlsr_cfg=jx)
     mesh = j_make_mesh(cfg.mesh, devices=jax.devices()[:2])
@@ -381,7 +393,7 @@ def _jax_pp_step(variables, x, labels):
                                jnp.asarray(labels.astype(np.int32))), mesh)
         state, metrics = step(state, batch, jax.random.PRNGKey(1))
     snap = jax.tree_util.tree_map(np.asarray, state)
-    xcfg = W.configs("jax", PP)[0]
+    xcfg = W.configs("jax", fields)[0]
     from occm_tpu_torch.models.convert import optimizer_state_from_flax
 
     sd = state_dict_from_flax({"params": snap.params,
@@ -434,14 +446,18 @@ def runs(tmp_path_factory):
                     train=train, init=init, batch=files[batch], steps=steps,
                     **kw)
 
-    cases = [case(n, *spec) for n, spec in STEPS.items()]
+    cases = [case(n, *spec, train_api=n in TRAIN_API)
+             for n, spec in STEPS.items()]
     cases[0]["save_dir"] = ckpt_pp
     cases += [case("pp2-restore", "pp2", "jax", PP, ADAM, "b", 1,
                    restore_dir=ckpt_one),
               case("tp2-sp-remat", "tp2", "dropout", SP, {}, "b", 1,
                    remat_policies=True),
               case("tp2-sp-forward", "tp2", "jax", SP, {}, "b", 1,
-                   forward=True, rows=4)]
+                   forward=True, rows=4),
+              case("tp2-packed4", "tp2", "jax",
+                   dict(L4, attention_impl="packed4"), {}, "b", 1,
+                   forward=True, rows=2, expect_error=True)]
     two = [c for c in cases if int(np.prod(list(c["mesh"].values()))) == 2]
     four = [c for c in cases if c not in two]
     procs = P._launch(2, two, out) + P._launch(4, four, out)
@@ -455,6 +471,7 @@ def runs(tmp_path_factory):
     second = _single(init, "jax", PP, ADAM, batches["b"], 1,
                      state=_restored(init, ckpt_one, ADAM))
     jax_pp = _jax_pp_step(variables, x, labels)
+    jax_pp_s4 = _jax_pp_step(variables, x, labels, PP_S4)
     jax_sp = _jax_sp_forward(variables, x[:4])
     P._wait(procs)
     got = {c["name"]: torch.load(os.path.join(out, c["name"] + ".pt"),
@@ -463,7 +480,8 @@ def runs(tmp_path_factory):
               for name, (_, kind, xlsr, train, batch, steps)
               in STEPS.items()}
     return dict(got=got, refs=ref_of, second=second, jax_pp=jax_pp,
-                jax_sp=jax_sp, init=init, ckpt_pp=ckpt_pp)
+                jax_pp_s4=jax_pp_s4, jax_sp=jax_sp, init=init,
+                ckpt_pp=ckpt_pp)
 
 
 def _restored(init, directory, train=None):
@@ -485,12 +503,26 @@ def test_step_matches_the_one_process_step(runs, name):
     assert torch.equal(got["rng"], want["state"].generator.get_state())
 
 
-def test_pp2_step_matches_jax_on_a_dp1_pp2_mesh(runs):
-    got, want = runs["got"]["pp2-jax"], runs["jax_pp"]
+@pytest.mark.parametrize("name, key", [("pp2-jax", "jax_pp"),
+                                       ("pp2s4", "jax_pp_s4")])
+def test_pp2_step_matches_jax_on_a_dp1_pp2_mesh(runs, name, key):
+    """pp2 at S = 2, and at S = 4 through train() (each rank two stages
+    of one layer, JAX's [4, ...] stage buffer sharded two to a device):
+    the loss (the forward) and the parameters and Adam moments after the
+    step (the gradients) against JAX's step."""
+    got, want = runs["got"][name], runs[key]
     assert got["ranks"][0]["losses"][0] == pytest.approx(want["loss"],
                                                          rel=1e-4)
     P._assert_step(got["state_dict"], got["opt"]["mu"], want["state_dict"],
-                   want["mu"], "pp2 vs jax")
+                   want["mu"], f"{name} vs jax")
+
+
+def test_pack_width_that_does_not_divide_a_ranks_heads_raises(runs):
+    """tiny's 4 heads over tp = 2: packed4 does not divide a rank's 2, and
+    the ValueError names both numbers."""
+    for r in runs["got"]["tp2-packed4"]["ranks"]:
+        assert "pack width 4" in r["error"], r["error"]
+        assert "num_heads=2" in r["error"] and "tp=2" in r["error"]
 
 
 def test_each_stage_holds_only_its_layers(runs):

@@ -510,49 +510,103 @@ def _cli_args(protocol, train_dir, voc_dir, ckpt_dir, *extra):
             *extra]
 
 
+class _FirstStep(Exception):
+    """Ends a CLI run after its first step."""
+
+
+@pytest.fixture(scope="module")
+def cli_baseline(tmp_path_factory):
+    """One CLI epoch on the fixture tree with no extra flag: its step
+    losses, its step count, its final weights and its checkpoint."""
+    from occm_tpu_torch.cli import oc_training
+
+    root = tmp_path_factory.mktemp("cli_baseline")
+    files = write_fixture(root)
+    steps = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(root)
+        state = oc_training.main(
+            _cli_args(*files, str(root / "ck")),
+            on_step=lambda step, m: steps.append(float(m["loss"])))
+    return {"files": files, "losses": steps, "step": state.step,
+            "checkpoint": root / "ck" / "aasist_vocoded_0.pt",
+            "state_dict": {k: v.clone()
+                           for k, v in state.model.state_dict().items()}}
+
+
 def test_cli_trains_on_the_cpu_and_writes_a_servable_checkpoint(
-        tmp_path, monkeypatch):
+        tmp_path, monkeypatch, cli_baseline):
     from occm_tpu_torch.cli import oc_server, oc_training
 
-    protocol, train_dir, voc_dir = write_fixture(tmp_path)
     monkeypatch.chdir(tmp_path)
-    steps = []
-    state = oc_training.main(
-        _cli_args(protocol, train_dir, voc_dir, str(tmp_path / "ck")),
-        on_step=lambda step, m: steps.append(float(m["loss"])))
+    steps = cli_baseline["losses"]
     assert len(steps) == 6 and all(np.isfinite(steps))
-    assert state.step == 6
-    path = tmp_path / "ck" / "aasist_vocoded_0.pt"
+    assert cli_baseline["step"] == 6
+    path = cli_baseline["checkpoint"]
     assert path.is_file()
     model = oc_server.build_model(XLSRConfig.tiny(), str(path),
                                   allow_random_init=False, device="cpu")
-    for k, v in state.model.state_dict().items():
+    for k, v in cli_baseline["state_dict"].items():
         torch.testing.assert_close(model.state_dict()[k], v, rtol=0, atol=0)
     saved = torch.load(path, weights_only=True)
     assert saved["step"] == 6 and saved["optimizer"]["count"] == 6
     # a warm start from the checkpoint
     state2 = oc_training.main(
-        _cli_args(protocol, train_dir, voc_dir, str(tmp_path / "ck2"),
+        _cli_args(*cli_baseline["files"], str(tmp_path / "ck2"),
                   "--init_from", str(path), "--num_epochs", "0"))
-    for k, v in state.model.state_dict().items():
+    for k, v in cli_baseline["state_dict"].items():
         torch.testing.assert_close(state2.model.state_dict()[k], v, rtol=0,
                                    atol=0)
 
 
 @pytest.mark.parametrize("extra, error", [
     (["--fsdp", "2"], ValueError),
-    (["--debug_nans"], NotImplementedError),
-    (["--wandb_project", "p"], NotImplementedError),
-    (["--pos_conv_impl", "s2d"], NotImplementedError),
+    (["--debug_nans"], None),
+    (["--wandb_project", "p"], None),
+    (["--pos_conv_impl", "s2d"], None),
 ], ids=["fsdp", "debug_nans", "wandb_project", "pos_conv_impl"])
-def test_cli_unported_flags_raise(tmp_path, extra, error):
-    """--fsdp is ported (ROADMAP item 15a): fsdp = 2 in one process, with
-    no process group, does not cover its world of 1 and raises JAX's
-    ValueError; the others are still unported."""
+def test_cli_unported_flags_raise(tmp_path, monkeypatch, cli_baseline,
+                                  extra, error):
+    """--fsdp = 2 in one process, with no process group, does not cover
+    its world of 1 and raises JAX's ValueError. The other flags are
+    ported: on finite data --debug_nans and --wandb_project (with no wandb
+    to import, the JAX package's fallback to loss.txt) train the run
+    without them bit for bit; --pos_conv_impl s2d takes the first step
+    of that run up to the layout's reassociation of the conv's sums (loss
+    at rtol 1e-5; the run stops there: later steps drift further, as
+    AASIST's top-k pools may pick other nodes; the layout's own parity is
+    tests/test_torch_layouts.py's)."""
     from occm_tpu_torch.cli import oc_training
 
-    with pytest.raises(error):
-        oc_training.main(_cli_args("p.txt", "t", "v", str(tmp_path), *extra))
+    monkeypatch.chdir(tmp_path)
+    if error is not None:
+        with pytest.raises(error):
+            oc_training.main(_cli_args("p.txt", "t", "v", str(tmp_path),
+                                       *extra))
+        return
+    steps = []
+
+    def on_step(step, metrics):
+        steps.append(float(metrics["loss"]))
+        if extra[0] == "--pos_conv_impl":
+            raise _FirstStep
+
+    if extra[0] == "--pos_conv_impl":
+        with pytest.raises(_FirstStep):
+            oc_training.main(_cli_args(*cli_baseline["files"],
+                                       str(tmp_path / "ck"), *extra),
+                             on_step=on_step)
+        assert steps[0] == pytest.approx(cli_baseline["losses"][0],
+                                         rel=1e-5)
+        return
+    state = oc_training.main(
+        _cli_args(*cli_baseline["files"], str(tmp_path / "ck"), *extra),
+        on_step=on_step)
+    assert (tmp_path / "ck" / "aasist_vocoded_0.pt").is_file()
+    got = state.model.state_dict()
+    assert steps == cli_baseline["losses"]
+    for k, v in cli_baseline["state_dict"].items():
+        assert torch.equal(got[k], v), k
 
 
 @pytest.mark.parametrize("extra", [

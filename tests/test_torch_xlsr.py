@@ -25,6 +25,7 @@ from occm_tpu_torch.config import XLSRConfig
 from occm_tpu_torch.models import XLSREncoder, xlsr_state_dict_from_flax
 from occm_tpu_torch.ops import ffn
 from occm_tpu_torch.ops.pos_conv import pos_conv_grouped
+from test_torch_models import fabricated, perturbed
 
 CUT = 3200  # tiny conv stack: 3200 samples -> 159 frames
 ATOL, RTOL = 3e-5, 1e-4
@@ -65,8 +66,8 @@ def test_encoder_matches_flax(impl, layer_norm_first):
 
 def test_attention_impl_argument_overrides_config():
     """One set of weights serves buckets that pick different impls: the
-    forward's attention_impl wins over cfg.attention_impl, and both impls
-    agree in fp32."""
+    forward's attention_impl wins over cfg.attention_impl, and the impls
+    agree in fp32 (pad128 too, one of the JAX package's other layouts)."""
     cfg = XLSRConfig.tiny()
     torch.manual_seed(0)
     model = XLSREncoder(cfg).eval()
@@ -76,9 +77,9 @@ def test_attention_impl_argument_overrides_config():
     with torch.no_grad():
         a = model(x, attention_impl="xla")
         b = model(x, attention_impl="flash")
+        c = model(x, attention_impl="pad128")
     torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
-    with pytest.raises(NotImplementedError):
-        model(x, attention_impl="pad128")
+    torch.testing.assert_close(a, c, atol=ATOL, rtol=RTOL)
 
 
 def test_pos_conv_grouped_matches_jax():
@@ -105,9 +106,10 @@ def test_pos_conv_grouped_matches_jax():
     ("attention_impl", "packed8"),
 ])
 def test_unported_config_fields_raise(field, value):
-    """The fields still to port raise NotImplementedError; pp_stages and
-    seq_parallel are ported: they construct, and together they raise the
-    JAX package's ValueError."""
+    """Every field of the JAX config is ported. pp_stages and
+    seq_parallel construct, and together they raise the JAX package's
+    ValueError; each layout field gives the Flax encoder's features with
+    the same field (packed8 at 8 heads, which it must divide)."""
     if field in ("pp_stages", "seq_parallel"):
         assert getattr(dataclasses.replace(XLSRConfig(), **{field: value}),
                        field) == value
@@ -115,8 +117,23 @@ def test_unported_config_fields_raise(field, value):
             dataclasses.replace(XLSRConfig(), pp_stages=2,
                                 seq_parallel=True)
         return
-    with pytest.raises(NotImplementedError, match=field):
-        dataclasses.replace(XLSRConfig(), **{field: value})
+    fields = {field: value}
+    if value == "packed8":
+        fields["encoder_heads"] = 8
+    jcfg = dataclasses.replace(JXLSRConfig.tiny(), **fields)
+    cfg = dataclasses.replace(XLSRConfig.tiny(), **fields)
+    x = (np.random.default_rng(10).normal(size=(2, CUT)) * 0.1).astype(
+        np.float32)
+    variables = perturbed(fabricated(JXLSREncoder(
+        dataclasses.replace(jcfg, attention_impl="xla")), x), seed=4)
+    want = np.asarray(jax.jit(JXLSREncoder(jcfg).apply)(variables,
+                                                        jnp.asarray(x)))
+    model = XLSREncoder(cfg)
+    model.load_state_dict(
+        xlsr_state_dict_from_flax(variables["params"], cfg), strict=True)
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
 
 
 def test_config_matches_jax_defaults():

@@ -204,6 +204,24 @@ def _forward(case, mesh):
         return state.model.ssl_model.eval()(wave).tolist()
 
 
+def _train_api(case, model, t, mesh, data, losses):
+    """train() of `model` on the mesh over an unsharded pipeline of the
+    case's batches (every rank given the global batch, as the CLI's
+    pipeline on a mesh without data axes); returns the trained state and
+    its last step's metrics."""
+    from occm_tpu_torch.train.loop import train
+
+    labels = data["labels"]
+    batches = [(data["x"] if i == 0 else data[f"x{i}"], labels)
+               for i in range(case.get("steps", 1))]
+    metrics = []
+    new = train(model, _Pipeline(batches, 0, 1), t, num_epochs=1,
+                device="cpu", mesh=mesh,
+                on_step=lambda step, m: (losses.append(float(m["loss"])),
+                                         metrics.append(m)))
+    return new, metrics[-1]
+
+
 def run_case(case, rank, out_dir):
     import torch.distributed as dist
 
@@ -225,21 +243,33 @@ def run_case(case, rank, out_dir):
         result["remat"] = _remat_policies(case, mesh)
         state = None
     elif case.get("forward"):
-        result["feats"] = _forward(case, mesh)
+        try:
+            result["feats"] = _forward(case, mesh)
+        except ValueError as e:
+            if not case.get("expect_error"):
+                raise
+            result["error"] = str(e)
         state = None
     else:
         data = np.load(case["batch"])
         state, t = build_state(case["init"], case["kind"], case.get("xlsr"),
                                **case.get("train", {}))
-        place_state_on_mesh(state, mesh)
+        replicated = bool(case.get("replicated"))
+        result["all_losses"] = []
+        steps = case.get("steps", 1)
+        if case.get("train_api"):
+            # train() builds and places its own state from the model
+            state, m = _train_api(case, state.model, t, mesh, data,
+                                  result["all_losses"])
+            steps = 0
+        else:
+            place_state_on_mesh(state, mesh)
         if case.get("restore_dir"):
             # a one-process checkpoint into the placed state
             restore_checkpoint(state, case["restore_dir"], "aasist_vocoded",
                                0)
         result["bytes_before"] = held_bytes(state)
-        replicated = bool(case.get("replicated"))
-        result["all_losses"] = []
-        for i in range(case.get("steps", 1)):
+        for i in range(steps):
             x = torch.from_numpy(data["x"] if i == 0 else data[f"x{i}"])
             labels = torch.from_numpy(data["labels"]).long()
             if not replicated:

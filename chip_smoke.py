@@ -13,6 +13,7 @@
     python3 chip_smoke.py --int8-only     # phases 1, 2 and 16 only
     python3 chip_smoke.py --parallel-only # phases 1, 2 and 17 only
     python3 chip_smoke.py --extras-only   # phases 1, 2 and 18 only
+    python3 chip_smoke.py --orbax-only    # phases 1, 2 and 19 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -279,10 +280,33 @@ Phases (any failure ends the run with a non-zero exit and no last line):
      bit for bit with the run without them, and `--debug_nans` on a tree
      with NaN samples ending in FloatingPointError (its own process), no
      epoch checkpoint written.
-19. with --profile only: device time by kernel (torch.profiler) for full
+19. the JAX package's orbax checkpoints without orbax (`--orbax-only`:
+   phases 1, 2 and 19; in a full run right after phase 11), at full width
+   on phase 4's seed model with BatchNorm running statistics drawn from
+   seed 19 (torch's defaults would hide lost batch_stats): libzstd's
+   version; that .pt converted by `models.convert_backend.
+   convert_model_file` to an orbax directory (bytes, seconds);
+   `train.orbax.restore_tree` of it, every leaf equal to the converter's
+   tree bit for bit (seconds, MB/s); `export_model_file` back to a .pt
+   that loads strictly, every tensor the seed's but the positional conv's
+   weight-norm pair and the never-run bn1s; `oc_classifier --mode 2c2
+   --pretrained-sslaasist` on phase 4's eval set from the directory, from
+   its exported .pt (bit for bit) and from the seed .pt (printed), the
+   flash launches a batch exact; the encoder's outputs on 8 x 6 s from
+   the directory and the seed .pt (within SCORE_RTOL, relative L2);
+   `oc_server` from the same three, one 6 s request each (24 flash
+   launches; bit for bit with the export's); `oc_training --init_from`
+   the directory and its exported .pt for 2 eager steps each under
+   deterministic algorithms (losses within LOSS_RTOL, the flash launches
+   a step exact); `models.convert_xlsr.convert_checkpoint_file` of phase
+   11's fairseq .pt to a directory, grafted as --pretrained_xlsr grafts
+   it: every tensor equal to the .pt graft's bit for bit but the
+   positional conv, within ORBAX_FOLD_RTOL of the fp64 fold; the dropout
+   rates printed.
+20. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-20. prints {"kernels": [...]} (each entry with phase 15's row at base's
+21. prints {"kernels": [...]} (each entry with phase 15's row at base's
    shapes under "base" and phase 17's at the per-rank shapes under "tp2",
    "dp2" or "fsdp2", "pp2" and "sp2"), then {"ok": true, "device":
    {...}} last.
@@ -1579,13 +1603,43 @@ def check_response(name, status, payload):
         fail(f"{name}: prediction not in {{0, 1}}: {payload}")
 
 
+@contextlib.contextmanager
+def serving(argv, what: str = "oc_server"):
+    """`oc_server.main(argv)` on a thread, as a user starts it; yields its
+    started event (`.server.port`, `.service`) once it is up, then stops
+    and joins it. A server that does not start or stop fails the run."""
+    from occm_tpu_torch.cli import oc_server
+
+    started = threading.Event()
+    started.stop = threading.Event()
+    errors = []
+
+    def serve():
+        try:
+            oc_server.main(argv, started_event=started)
+        except BaseException as e:  # surfaced below, never swallowed
+            errors.append(e)
+            started.set()
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    if not started.wait(900) or errors:
+        fail(f"{what} did not start: {errors}")
+    try:
+        yield started
+    finally:
+        started.stop.set()
+        th.join(120)
+    if th.is_alive() or errors:
+        fail(f"{what} did not stop cleanly: {errors}")
+
+
 def phase_main_path(model, ckpt: str, artifacts_dir: str):
     """Serving: `oc_server` on the checkpoint, from the reference embedding
     and threshold that the scoring phase's `oc_classifier` wrote."""
     import torch
 
     from occm_tpu_torch.classify.impl_select import select_attention_impl
-    from occm_tpu_torch.cli import oc_server
     from occm_tpu_torch.config import XLSRConfig
     from occm_tpu_torch.ops import attention
     from occm_tpu_torch.serve import ScoringService, make_score_fn
@@ -1601,116 +1655,99 @@ def phase_main_path(model, ckpt: str, artifacts_dir: str):
 
     # --- the server, as a user starts it
     attention.LAUNCHES = 0
-    started = threading.Event()
-    started.stop = threading.Event()
-    errors = []
-
-    def serve():
-        try:
-            oc_server.main([
-                "--pretrained-sslaasist", ckpt,
-                "--artifacts_dir", artifacts_dir, "--host", "127.0.0.1",
-                "--port", "0", "--max_wait_ms", "100"], started_event=started)
-        except BaseException as e:  # surfaced below, never swallowed
-            errors.append(e)
-            started.set()
-
     t0 = time.perf_counter()
-    th = threading.Thread(target=serve, daemon=True)
-    th.start()
-    if not started.wait(900) or errors:
-        fail(f"server did not start: {errors}")
-    port = started.server.port
-    service = started.service
-    warm_launches = attention.LAUNCHES
-    print(f"[main] server up on port {port} in "
-          f"{time.perf_counter() - t0:.1f} s (load + warmup of "
-          f"{service.buckets}); warmup launches {warm_launches}", flush=True)
-    # one warmup batch per bucket; the flash buckets launch the kernel
-    warm_want = per_batch * sum(select_attention_impl(b) == "flash"
-                                for b in service.buckets)
-    if warm_launches != warm_want:
-        fail(f"warmup launched the kernel {warm_launches} times, want "
-             f"{warm_want}")
+    with serving(["--pretrained-sslaasist", ckpt, "--artifacts_dir",
+                  artifacts_dir, "--host", "127.0.0.1", "--port", "0",
+                  "--max_wait_ms", "100"], "server") as started:
+        port = started.server.port
+        service = started.service
+        warm_launches = attention.LAUNCHES
+        print(f"[main] server up on port {port} in "
+              f"{time.perf_counter() - t0:.1f} s (load + warmup of "
+              f"{service.buckets}); warmup launches {warm_launches}",
+              flush=True)
+        # one warmup batch per bucket; the flash buckets launch the kernel
+        warm_want = per_batch * sum(select_attention_impl(b) == "flash"
+                                    for b in service.buckets)
+        if warm_launches != warm_want:
+            fail(f"warmup launched the kernel {warm_launches} times, want "
+                 f"{warm_want}")
 
-    # count the device batches per bucket the batcher forms
-    batches = []
-    score = service.score
+        # count the device batches per bucket the batcher forms
+        batches = []
+        score = service.score
 
-    def counting_score(waves):
-        batches.append([service._bucket_for(len(w)) for w in waves])
-        return score(waves)
+        def counting_score(waves):
+            batches.append([service._bucket_for(len(w)) for w in waves])
+            return score(waves)
 
-    service.score = counting_score
+        service.score = counting_score
 
-    w4, w6, w12 = (synthetic_wave(rng, s) for s in (4.0, 6.0, 12.0))
-    requests = [
-        ("4s_wav", wav_bytes(w4), {}, 64600),
-        ("6s_pcm", w6.astype("<f4").tobytes(), {"X-Sample-Rate": "16000"},
-         96000),
-        ("12s_wav", wav_bytes(w12), {}, 192000),
-    ]
-    results = {}
-    for name, body, hdrs, bucket in requests:
-        before = attention.LAUNCHES
-        status, payload, ms = post(port, body, hdrs)
-        check_response(name, status, payload)
-        launched = attention.LAUNCHES - before
-        want = per_batch if select_attention_impl(bucket) == "flash" else 0
-        if launched != want:
-            fail(f"{name} (bucket {bucket}): kernel launched {launched} "
-                 f"times, want {want}")
-        results[name] = payload["score"]
-        print(f"[main] {name}: bucket {bucket}, score {payload['score']:.6f}"
-              f", prediction {payload['prediction']}, latency {ms:.1f} ms "
-              f"(max_wait 100 ms), kernel launches {launched}", flush=True)
+        w4, w6, w12 = (synthetic_wave(rng, s) for s in (4.0, 6.0, 12.0))
+        requests = [
+            ("4s_wav", wav_bytes(w4), {}, 64600),
+            ("6s_pcm", w6.astype("<f4").tobytes(), {"X-Sample-Rate": "16000"},
+             96000),
+            ("12s_wav", wav_bytes(w12), {}, 192000),
+        ]
+        results = {}
+        for name, body, hdrs, bucket in requests:
+            before = attention.LAUNCHES
+            status, payload, ms = post(port, body, hdrs)
+            check_response(name, status, payload)
+            launched = attention.LAUNCHES - before
+            want = per_batch if select_attention_impl(bucket) == "flash" else 0
+            if launched != want:
+                fail(f"{name} (bucket {bucket}): kernel launched {launched} "
+                     f"times, want {want}")
+            results[name] = payload["score"]
+            print(f"[main] {name}: bucket {bucket}, score "
+                  f"{payload['score']:.6f}, prediction "
+                  f"{payload['prediction']}, latency {ms:.1f} ms (max_wait "
+                  f"100 ms), kernel launches {launched}", flush=True)
 
-    # 8 concurrent 6 s requests: one full batch. Whether all 8 reach the
-    # batcher inside one max_wait window is up to the host's scheduler, so
-    # a round that splits them is reported and the round is sent again
-    # (at most 3 rounds); every round's launches are checked all the same.
-    waves8 = [synthetic_wave(rng, 6.0) for _ in range(8)]
-    for attempt in range(1, 4):
-        out8 = [None] * 8
-        go = threading.Barrier(8)
+        # 8 concurrent 6 s requests: one full batch. Whether all 8 reach the
+        # batcher inside one max_wait window is up to the host's scheduler, so
+        # a round that splits them is reported and the round is sent again
+        # (at most 3 rounds); every round's launches are checked all the same.
+        waves8 = [synthetic_wave(rng, 6.0) for _ in range(8)]
+        for attempt in range(1, 4):
+            out8 = [None] * 8
+            go = threading.Barrier(8)
 
-        def client(i):
-            go.wait()
-            out8[i] = post(port, waves8[i].astype("<f4").tobytes())
+            def client(i):
+                go.wait()
+                out8[i] = post(port, waves8[i].astype("<f4").tobytes())
 
-        n_batches0 = len(batches)
-        before = attention.LAUNCHES
-        t0 = time.perf_counter()
-        clients = [threading.Thread(target=client, args=(i,))
-                   for i in range(8)]
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join()
-        wall = time.perf_counter() - t0
-        for i, r in enumerate(out8):
-            if r is None:
-                fail(f"concurrent request {i} got no response")
-            check_response(f"6s_concurrent_{i}", r[0], r[1])
-        formed = batches[n_batches0:]
-        launched = attention.LAUNCHES - before
-        if launched != per_batch * len(formed):
-            fail(f"8 x 6 s: {len(formed)} batches but {launched} launches")
-        print(f"[main] 8 x 6 s concurrent, round {attempt}: batches "
-              f"{[len(b) for b in formed]}, wall {wall * 1e3:.1f} ms, "
-              f"{8 / wall:.3f} utt/s, latencies "
-              f"{[round(r[2], 1) for r in out8]} ms, kernel launches "
-              f"{launched}", flush=True)
-        if max(len(b) for b in formed) == 8:
-            break
-    else:
-        fail(f"no full batch of 8 formed in 3 rounds: {formed}")
+            n_batches0 = len(batches)
+            before = attention.LAUNCHES
+            t0 = time.perf_counter()
+            clients = [threading.Thread(target=client, args=(i,))
+                       for i in range(8)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join()
+            wall = time.perf_counter() - t0
+            for i, r in enumerate(out8):
+                if r is None:
+                    fail(f"concurrent request {i} got no response")
+                check_response(f"6s_concurrent_{i}", r[0], r[1])
+            formed = batches[n_batches0:]
+            launched = attention.LAUNCHES - before
+            if launched != per_batch * len(formed):
+                fail(f"8 x 6 s: {len(formed)} batches but {launched} launches")
+            print(f"[main] 8 x 6 s concurrent, round {attempt}: batches "
+                  f"{[len(b) for b in formed]}, wall {wall * 1e3:.1f} ms, "
+                  f"{8 / wall:.3f} utt/s, latencies "
+                  f"{[round(r[2], 1) for r in out8]} ms, kernel launches "
+                  f"{launched}", flush=True)
+            if max(len(b) for b in formed) == 8:
+                break
+        else:
+            fail(f"no full batch of 8 formed in 3 rounds: {formed}")
 
-    main_launches = attention.LAUNCHES
-    started.stop.set()
-    th.join(120)
-    if th.is_alive() or errors:
-        fail(f"server did not stop cleanly: {errors}")
+        main_launches = attention.LAUNCHES
 
     # flash (server) vs plain attention on the same waves and buckets
     plain = ScoringService(score_fn=make_score_fn(model, "xla"),
@@ -3258,7 +3295,8 @@ def phase_pretrained(workdir: str, fixture):
     .safetensors; each is grafted into XLSREncoder (timed, equal to the
     file bit for bit, the positional conv within FOLD_RTOL of the fp64
     fold), then trains through the CLI on the phase's tree, stopped by its
-    on_step hook after one step with a finite loss."""
+    on_step hook after one step with a finite loss. The fairseq file stays
+    for phase 19 (its path under "fairseq_pt")."""
     import torch
 
     from occm_tpu_torch.cli import oc_training
@@ -3332,7 +3370,9 @@ def phase_pretrained(workdir: str, fixture):
               f"the fp64 fold (bound {FOLD_RTOL:.2e}); CLI, one step: loss "
               f"{steps[0]:.6f}, {cli_s:.1f} s with model build and graft",
               flush=True)
-        os.remove(path)
+        if name != "fairseq .pt":  # phase 19 converts the fairseq file
+            os.remove(path)
+    out["fairseq_pt"] = paths["fairseq .pt"]
     losses = [out[name]["loss"] for name in paths]
     if losses[0] != losses[1]:
         fail(f"pretrained: the two files hold one encoder, but their first "
@@ -3357,6 +3397,435 @@ def phase_rawboost_all(workdir: str, fixture):
         counts[name] += after[name] - before[name]
     return counts, replayed, out
 
+
+
+# ----------------------------------------------------------------- phase 19
+
+# Bound of phase 19's grafted positional conv against the fp64 fold of the
+# fairseq file. The JAX package's converter (and the port's copy) folds the
+# weight norm with an fp32 norm that numpy sums over two non-contiguous
+# axes one term after another (n = C * C / G = 65 536 squares at XLS-R's
+# widths), and the bridge splits the directory's kernel again with such a
+# norm. Rounding errors of a long sum walk at random: their typical size is
+# sqrt(n) u = 1.53e-5 (u = 2^-24), and two readings on an H100's host were
+# 9.160e-6 and 9.311e-6. 1e-4 is 6.5 sqrt(n) u, 11x those readings, and
+# 20x below one bf16 rounding (2^-9 = 1.95e-3 relative), so a fold done in
+# bf16, or a wrong layout, scale or group (each O(1e-3) or more), fails it.
+ORBAX_FOLD_RTOL = 1e-4
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _serve_once(weights: str, artifacts_dir: str, wave: np.ndarray):
+    """oc_server on `weights` (bucket 96000 warmed up), one request with
+    the raw PCM of `wave`; returns (score, the flash launches it made,
+    seconds to start)."""
+    from occm_tpu_torch.ops import attention
+
+    t0 = time.perf_counter()
+    with serving(["--pretrained-sslaasist", weights, "--artifacts_dir",
+                  artifacts_dir, "--host", "127.0.0.1", "--port", "0",
+                  "--buckets", "96000"], f"orbax: server on {weights}") \
+            as started:
+        up_s = time.perf_counter() - t0
+        before = attention.LAUNCHES
+        status, payload, _ = post(started.server.port,
+                                  wave.astype("<f4").tobytes(),
+                                  {"X-Sample-Rate": "16000"})
+        launched = attention.LAUNCHES - before
+        check_response(f"orbax serve {weights}", status, payload)
+    return payload["score"], launched, up_s
+
+
+class _TwoSteps(Exception):
+    """Raised by phase 19's on_step hook to end a CLI run after 2 steps."""
+
+
+def phase_orbax(workdir: str, fixture, ckpt: str, fairseq_pt=None,
+                scoring=None):
+    """Phase 19: the JAX package's orbax checkpoints without orbax, at
+    full width on phase 4's seed model, its BatchNorms given running
+    statistics of their own (torch's defaults would hide lost
+    batch_stats). libzstd's version; that .pt converted by
+    `convert_backend.convert_model_file` to an orbax directory (bytes,
+    seconds); `restore_tree` of it, every leaf equal to the converter's
+    tree bit for bit (seconds, MB/s); `export_model_file` back to a .pt
+    that loads strictly, every tensor the seed's but the positional conv's
+    weight-norm pair and the never-run bn1s; `oc_classifier --mode 2c2`
+    from the directory, from its exported .pt (scores bit for bit) and
+    from the seed .pt (printed), flash launches a batch exact; the
+    encoder's outputs from the directory and the seed .pt on one batch
+    (within SCORE_RTOL); `oc_server` from the same three on one 6 s
+    request (the directory's score bit for bit with the export's);
+    `oc_training --init_from` the directory and its exported .pt for 2
+    eager steps each under deterministic algorithms (losses within
+    LOSS_RTOL, flash launches a step exact); `convert_xlsr` of phase 11's
+    fairseq .pt to a directory grafted by `--pretrained_xlsr`'s graft:
+    every tensor equal to the .pt graft's bit for bit but the positional
+    conv (within ORBAX_FOLD_RTOL of the fp64 fold). `scoring`: phase 4's
+    (root, eval_dir, eval list); without it (--orbax-only) the phase
+    writes the eval set. Returns the kernel wrappers' launches and the
+    measurements."""
+    import torch
+
+    from occm_tpu_torch.audio import pad_numpy
+    from occm_tpu_torch.cli import oc_classifier, oc_server, oc_training
+    from occm_tpu_torch.config import AASISTConfig, XLSRConfig
+    from occm_tpu_torch.io import zstd
+    from occm_tpu_torch.io.wav import load_audio
+    from occm_tpu_torch.models import AModel, load_reference_state_dict
+    from occm_tpu_torch.models.convert_backend import (
+        convert_model_file, convert_model_state_dict, export_model_file)
+    from occm_tpu_torch.models.convert_xlsr import (
+        convert_checkpoint_file, graft_pretrained_xlsr, read_checkpoint)
+    from occm_tpu_torch.models.xlsr import XLSREncoder
+    from occm_tpu_torch.ops import launch_counts
+    from occm_tpu_torch.train.orbax import restore_tree
+
+    t_phase = time.perf_counter()
+    xcfg = XLSRConfig()
+    layers = xcfg.encoder_layers
+    totals = dict.fromkeys(launch_counts(), 0)
+    out = {"libzstd": zstd.version()}
+    print(f"[orbax] {zstd.LIBRARY} {out['libzstd']} (ctypes)", flush=True)
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    # ---- the seed .pt with BatchNorm running statistics of its own
+    seed_sd = load_reference_state_dict(ckpt)
+    gen = torch.Generator().manual_seed(19)
+    stats = [k for k in seed_sd if k.endswith((".running_mean",
+                                                ".running_var"))]
+    for k in stats:
+        r = torch.rand(seed_sd[k].shape, generator=gen)
+        seed_sd[k] = (0.5 + r if k.endswith("var") else r - 0.5).to(
+            seed_sd[k].dtype)
+    ckpt = os.path.join(workdir, "orbax_seed.pt")
+    torch.save(seed_sd, ckpt)
+    print(f"[orbax] seed .pt: {len(stats)} BatchNorm running statistics "
+          f"drawn (means in [-0.5, 0.5), variances in [0.5, 1.5))",
+          flush=True)
+
+    # ---- write: the seed .pt through the converter into a directory
+    d = os.path.join(workdir, "orbax_amodel")
+    t0 = time.perf_counter()
+    kind = convert_model_file(ckpt, d, xlsr_cfg=xcfg)
+    out["write_s"] = time.perf_counter() - t0
+    out["dir_bytes"] = _dir_bytes(d)
+    if kind != "amodel":
+        fail(f"orbax: convert_model_file found a {kind}, not an amodel")
+    # ---- read: every leaf as the converter made it
+    t0 = time.perf_counter()
+    tree = restore_tree(d)
+    out["read_s"] = time.perf_counter() - t0
+    want = convert_model_state_dict(load_reference_state_dict(ckpt),
+                                    xlsr_cfg=xcfg)
+    want.pop("_kind")
+    got, wanted = dict(_leaves(tree)), dict(_leaves(want))
+    if set(got) != set(wanted):
+        fail(f"orbax: the directory's paths are not the converter's: "
+             f"{sorted(set(got) ^ set(wanted))[:4]}")
+    differ = [k for k, w in wanted.items()
+              if not (isinstance(got[k], np.ndarray)
+                      and got[k].dtype == np.asarray(w).dtype
+                      and got[k].shape == np.shape(w)
+                      and got[k].tobytes() == np.asarray(w).tobytes())]
+    if differ:
+        fail(f"orbax: {len(differ)} leaves read back differ from the "
+             f"converter's, e.g. {differ[:3]}")
+    out["array_bytes"] = sum(a.nbytes for a in got.values())
+    out["leaves"] = len(got)
+    out["read_MBps"] = out["array_bytes"] / 1e6 / out["read_s"]
+    out["write_MBps"] = out["array_bytes"] / 1e6 / out["write_s"]
+    del tree, want, got, wanted
+    print(f"[orbax] write: {ckpt} -> {d}, {out['leaves']} leaves, "
+          f"{out['dir_bytes']} bytes on disk ({out['array_bytes']} of "
+          f"arrays), {out['write_s']:.2f} s ({out['write_MBps']:.0f} MB/s "
+          f"of arrays, the .pt's load and the conversion included); read: "
+          f"restore_tree {out['read_s']:.2f} s ({out['read_MBps']:.0f} "
+          f"MB/s), every leaf equal to the converter's bit for bit",
+          flush=True)
+    # ---- export round trip
+    exported = os.path.join(workdir, "orbax_export.pt")
+    t0 = time.perf_counter()
+    export_model_file(d, exported, xlsr_cfg=xcfg)
+    out["export_s"] = time.perf_counter() - t0
+    sd = load_reference_state_dict(exported)
+    with torch.device("meta"):
+        meta = AModel(AASISTConfig(), xcfg)
+    meta.load_state_dict(sd, strict=True, assign=True)
+    pos = "ssl_model.model.encoder.pos_conv.0."
+    # the reference's never-run bn1 BatchNorms have no place in the JAX
+    # layout: the export writes them at torch's defaults
+    dead = [k for k in seed_sd if ".0.bn1." in k and k.startswith("encoder.")]
+    changed = [k for k, v in seed_sd.items() if not k.startswith(pos)
+               and k not in dead and not torch.equal(sd[k], v)]
+    if changed:
+        fail(f"orbax: the export differs from the seed .pt in "
+             f"{len(changed)} tensors, e.g. {changed[:3]}")
+    kept = sum(k not in dead for k in stats)
+    del meta, sd, seed_sd
+    print(f"[orbax] export: {out['export_s']:.2f} s, loads strictly into "
+          f"AModel; every tensor but the positional conv's weight-norm "
+          f"pair and the {len(dead)} of the never-run bn1 BatchNorms (at "
+          f"torch's defaults) equal to the seed .pt's, its {kept} running "
+          f"statistics of run BatchNorms included", flush=True)
+
+    # ---- score: oc_classifier 2c2 from the directory, its export and the
+    # seed .pt. The directory and its export hold the same tensors, so
+    # their scores must agree bit for bit; the seed differs from them only
+    # in the positional conv's refolded weight norm (ORBAX_FOLD_RTOL)
+    protocol, train_dir, voc_dir = fixture
+    if scoring is None:
+        root = os.path.join(workdir, "orbax_scoring")
+        os.makedirs(root)
+        eval_dir, paths = write_eval_set(root)
+        eval_list = paths["eval.txt"]
+    else:
+        root, eval_dir, eval_list = scoring
+    argv = ["--protocol_file", protocol, "--dataset_dir", train_dir,
+            "--eval_protocol_file", eval_list, "--eval_dataset_dir",
+            eval_dir, "--mode", "2c2"]
+    lens = [len(load_audio(os.path.join(eval_dir, f))[0])
+            for f in sorted(os.listdir(eval_dir))]
+    want_flash = layers * flash_batches(lens)
+    sources = (("dir", d), ("export", exported), ("pt", ckpt))
+    scores = {}
+    for name, weights in sources:
+        score_file = os.path.join(root, f"scores_orbax_{name}.txt")
+        reset_counts()
+        t0 = time.perf_counter()
+        oc_classifier.main(argv + ["--pretrained-sslaasist", weights,
+                                   "--score_file", score_file])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add(counts)
+        out[f"score_{name}_s"] = time.perf_counter() - t0
+        if counts["flash_attn_fwd"] != want_flash or counts["ffn_fwd"]:
+            fail(f"orbax: oc_classifier 2c2 from the {name} launched "
+                 f"{counts}, want flash_attn_fwd {want_flash}, ffn_fwd 0")
+        scores[name] = np.loadtxt(score_file)
+    a, e, b = scores["dir"], scores["export"], scores["pt"]
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    out["score"] = dict(n=int(a.size), export_bit_for_bit=bool(
+        np.array_equal(a, e)), seed_bit_for_bit=bool(np.array_equal(a, b)),
+        seed_rel_err_of_max=err, flash_launches=want_flash)
+    if a.shape != b.shape or not (np.isfinite(a).all()
+                                  and np.isfinite(b).all()):
+        fail(f"orbax: 2c2 scores from the directory {a}, from the seed "
+             f".pt {b}")
+    if not np.array_equal(a, e):
+        fail(f"orbax: 2c2 scores from the directory {a} are not its "
+             f"exported .pt's {e} bit for bit")
+    print(f"[orbax] score: oc_classifier --mode 2c2 from the directory, "
+          f"{a.size} utterances in {out['score_dir_s']:.1f} s (its export "
+          f"{out['score_export_s']:.1f} s, the seed .pt "
+          f"{out['score_pt_s']:.1f} s), flash launches {want_flash} "
+          f"({layers} a flash batch) on each; bit for bit with the export's "
+          f"scores; against the seed .pt's: bit for bit "
+          f"{out['score']['seed_bit_for_bit']}, max |diff| {err:.3e} of the "
+          f"largest score", flush=True)
+
+    # ---- the seed against the directory where the refold acts: the
+    # encoder. The refold moves the positional conv within ORBAX_FOLD_RTOL,
+    # which flips a few of its bf16 roundings; 24 bf16 layers carry that to
+    # ~1e-2 of the encoder's outputs (relative L2), as they carry the
+    # flash-vs-plain roundings SCORE_RTOL bounds, and the 2c2 scores,
+    # distances of the embeddings to the reference, moved 5.1e-2 of the
+    # largest on an H100: so the scores are printed above, and the encoder
+    # is held
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(np.stack([pad_numpy(synthetic_wave(rng, 6.0),
+                                             96000) for _ in range(8)])).to(
+        "cuda")
+    feats, embs = {}, {}
+    for name, weights in (("dir", d), ("pt", ckpt)):
+        model = oc_server.build_model(oc_server.xlsr_config(), weights,
+                                      False, "cuda")
+        with torch.inference_mode():
+            feats[name] = model.ssl_model(x, "flash")
+            embs[name] = model.backend(feats[name])[0].float()
+            feats[name] = feats[name].float()
+        del model
+        torch.cuda.empty_cache()
+
+    def rel_l2(p, q):
+        return float((p - q).norm() / q.norm())
+
+    enc = rel_l2(feats["dir"], feats["pt"])
+    emb = rel_l2(embs["dir"], embs["pt"])
+    out["encoder"] = dict(rel_l2=enc, embedding_rel_l2=emb, batch="8 x 6 s")
+    print(f"[orbax] encoder outputs, one batch of 8 x 6 s, the directory "
+          f"against the seed .pt (flash): relative L2 {enc:.3e} (bound "
+          f"{SCORE_RTOL}); AASIST's embedding {emb:.3e}", flush=True)
+    if not enc <= SCORE_RTOL:
+        fail(f"orbax: encoder outputs from the directory and the seed .pt "
+             f"differ by {enc} (relative L2) > {SCORE_RTOL}")
+    del feats, embs, x
+
+    # ---- serve: one 6 s request from each of the three
+    art = os.path.join(workdir, "orbax_artifacts")
+    os.makedirs(art)
+    ref = os.path.join(root, "reference_embedding.npy")
+    np.save(os.path.join(art, "reference_embedding.npy"),
+            np.load(ref) if os.path.exists(ref) else np.zeros(160,
+                                                             np.float32))
+    np.save(os.path.join(art, "threshold.npy"), np.float32(1.0))
+    wave = synthetic_wave(np.random.default_rng(19), 6.0)
+    served = {}
+    for name, weights in sources:
+        reset_counts()
+        score, launched, up_s = _serve_once(weights, art, wave)
+        add(read_counts())
+        if launched != layers:
+            fail(f"orbax: the 6 s request to the {name} server launched "
+                 f"the flash kernel {launched} times, want {layers}")
+        served[name] = dict(score=score, up_s=up_s)
+    got = {name: served[name]["score"] for name in served}
+    rel = abs(got["dir"] - got["pt"]) / max(abs(got["pt"]), 1e-30)
+    out["serve"] = dict(served, seed_rel_err=rel,
+                        seed_bit_for_bit=got["dir"] == got["pt"])
+    if got["dir"] != got["export"] or not math.isfinite(got["pt"]):
+        fail(f"orbax: the directory's server scored {got['dir']!r}, its "
+             f"exported .pt's {got['export']!r} (not bit for bit), the "
+             f"seed .pt's {got['pt']!r}")
+    print(f"[orbax] serve: oc_server from the directory up in "
+          f"{served['dir']['up_s']:.1f} s, 6 s request score "
+          f"{got['dir']:.6f} ({layers} flash launches), bit for bit with "
+          f"its export's server; the seed .pt server's {got['pt']:.6f}: "
+          f"bit for bit {out['serve']['seed_bit_for_bit']}, relative "
+          f"{rel:.3e}", flush=True)
+
+    # ---- train: --init_from the directory and its export (the same
+    # weights), 2 eager steps each under deterministic algorithms
+    trained = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, weights in (("dir", d), ("pt", exported)):
+            reset_counts()
+            rec = StepRecorder()
+
+            def two_steps(step, metrics):
+                rec(step, metrics)
+                if len(rec.steps) == 2:
+                    raise _TwoSteps
+
+            t0 = time.perf_counter()
+            try:
+                oc_training.main([
+                    "--train_protocol_file", protocol,
+                    "--train_dataset_dir", train_dir, "--vocoded_dir",
+                    voc_dir, "--model", "aasist", "--cut", str(TRAIN_CUT),
+                    "--num_epochs", "1", "--compactness_weight", "0.1",
+                    "--descriptiveness_weight", "0.9", "--checkpoint_dir",
+                    os.path.join(workdir, f"ck_orbax_{name}"),
+                    "--init_from", weights], on_step=two_steps)
+            except _TwoSteps:
+                pass
+            add(read_counts())
+            check_steps(f"orbax init_from {name}", rec, {
+                "flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
+                "flash_attn_bwd_dkv": layers,
+                "flash_attn_bwd_dout_copies": 0, "layernorm_bwd": 0,
+                "fused_adam": 0, "ffn_fwd": 0})
+            trained[name] = dict(losses=[st["loss"] for st in rec.steps],
+                                 cli_s=time.perf_counter() - t0,
+                                 launches=rec.steps[0]["launches"])
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    os.remove(exported)
+    os.remove(ckpt)
+    lo_d, lo_p = trained["dir"]["losses"], trained["pt"]["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(lo_d, lo_p))
+    out["train"] = dict(trained, rel_err=rel, bit_for_bit=lo_d == lo_p)
+    if len(lo_d) != 2 or rel > LOSS_RTOL:
+        fail(f"orbax: --init_from losses {lo_d} against the .pt's {lo_p} "
+             f"({rel} > {LOSS_RTOL})")
+    print(f"[orbax] train: --init_from the directory, 2 eager steps, "
+          f"losses {lo_d} against its exported .pt's {lo_p} (bit for bit "
+          f"{lo_d == lo_p}, relative {rel:.3e}, bound {LOSS_RTOL}); "
+          f"launches a step {trained['dir']['launches']}", flush=True)
+
+    # ---- graft: convert_xlsr of phase 11's fairseq .pt, then the graft
+    if fairseq_pt is None:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(1)
+            enc_sd = XLSREncoder(xcfg).state_dict()
+        fairseq_pt = os.path.join(workdir, "xlsr2_300m.pt")
+        write_fairseq_checkpoint(fairseq_pt, enc_sd)
+        del enc_sd
+    xd = os.path.join(workdir, "orbax_xlsr")
+    t0 = time.perf_counter()
+    rates = convert_checkpoint_file(fairseq_pt, xd, cfg=xcfg)
+    out["convert_xlsr_s"] = time.perf_counter() - t0
+    encoders = {}
+    for name, path in (("dir", xd), ("pt", fairseq_pt)):
+        with torch.device("meta"):  # no init: the graft writes every tensor
+            encoders[name] = XLSREncoder(xcfg).to_empty(device="cpu")
+        t0 = time.perf_counter()
+        graft_pretrained_xlsr(encoders[name], path)
+        out[f"graft_{name}_s"] = time.perf_counter() - t0
+    a, b = encoders["dir"].state_dict(), encoders["pt"].state_dict()
+    pos = "encoder.pos_conv.0."
+    differ = [k for k in b if not k.startswith(pos + "weight_")
+              and not torch.equal(a[k], b[k])]
+    if differ:
+        fail(f"orbax: {len(differ)} tensors grafted from the directory "
+             f"differ from the .pt graft's, e.g. {differ[:3]}")
+    raw = read_checkpoint(fairseq_pt)
+    v64 = raw[pos + "weight_v"].double()
+    fold = (raw[pos + "weight_g"].double() * v64
+            / v64.pow(2).sum(dim=(0, 1), keepdim=True).sqrt())
+    del raw
+
+    def rel_err(w, ref):
+        return float(((w - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+
+    w_dir = encoders["dir"].encoder.pos_conv[0].weight.detach().double()
+    w_pt = encoders["pt"].encoder.pos_conv[0].weight.detach().double()
+    bound = ORBAX_FOLD_RTOL
+    out["graft"] = dict(
+        rates=rates, pos_conv_rel_err_dir=rel_err(w_dir, fold),
+        pos_conv_rel_err_pt=rel_err(w_pt, fold),
+        pos_conv_dir_vs_pt=rel_err(w_dir, w_pt), bound=bound)
+    if out["graft"]["pos_conv_rel_err_dir"] > bound:
+        fail(f"orbax: the directory's grafted positional conv is "
+             f"{out['graft']['pos_conv_rel_err_dir']} from the fp64 fold "
+             f"> {bound}")
+    del encoders, a, b, w_dir, w_pt, fold, v64
+    os.remove(fairseq_pt)
+    print(f"[orbax] graft: convert_xlsr {out['convert_xlsr_s']:.2f} s "
+          f"(dropout rates {rates}); --pretrained_xlsr's graft from the "
+          f"directory {out['graft_dir_s']:.2f} s, from the .pt "
+          f"{out['graft_pt_s']:.2f} s; every tensor equal bit for bit but "
+          f"the positional conv: relative to the fp64 fold "
+          f"{out['graft']['pos_conv_rel_err_dir']:.3e} from the directory "
+          f"(bound {bound:.3e}), {out['graft']['pos_conv_rel_err_pt']:.3e} "
+          f"from the .pt; directory against .pt "
+          f"{out['graft']['pos_conv_dir_vs_pt']:.3e}", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(xd, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[orbax] phase 19 took {out['seconds']:.1f} s", flush=True)
+    return totals, out
 
 # ----------------------------------------------------------------- phase 12
 
@@ -4364,7 +4833,7 @@ def phase_native(workdir: str, fixture, ckpt: str):
 
     from occm_tpu_torch import serve_http
     from occm_tpu_torch.classify import scoring
-    from occm_tpu_torch.cli import oc_classifier, oc_server
+    from occm_tpu_torch.cli import oc_classifier
     from occm_tpu_torch.data import MetaBatchPipeline, PFDataset
     from occm_tpu_torch.io import native
     from occm_tpu_torch.io.wav import _read_python, write_wav
@@ -4541,60 +5010,43 @@ def phase_native(workdir: str, fixture, ckpt: str):
     np.save(os.path.join(art, "reference_embedding.npy"),
             np.random.default_rng(22).normal(size=160).astype(np.float32))
     np.save(os.path.join(art, "threshold.npy"), np.float32(1.0))
-    started = threading.Event()
-    started.stop = threading.Event()
-    errors = []
-
-    def serve():
-        try:
-            oc_server.main(["--pretrained-sslaasist", ckpt,
-                            "--artifacts_dir", art, "--host", "127.0.0.1",
-                            "--port", "0", "--buckets", "16000"],
-                           started_event=started)
-        except BaseException as e:  # surfaced below, never swallowed
-            errors.append(e)
-            started.set()
-
     spool = serve_http.SPOOL_THRESHOLD_BYTES
     serve_http.SPOOL_THRESHOLD_BYTES = NATIVE_SPOOL_BYTES
     data = open(body, "rb").read()
     if len(data) <= NATIVE_SPOOL_BYTES:
         fail(f"the {NATIVE_BODY_SECONDS} s body ({len(data)} B) would not "
              "spool")
-    th = threading.Thread(target=serve, daemon=True)
     reset_counts()
-    th.start()
-    serving = []
+    served = []
     try:
-        if not started.wait(900) or errors:
-            fail(f"server did not start: {errors}")
-        port = started.server.port
-        for lane in ("warm-up", "on", "off", "on"):
-            native.reset_counts()
-            if lane == "off":
-                with _LaneOff():
+        with serving(["--pretrained-sslaasist", ckpt, "--artifacts_dir", art,
+                      "--host", "127.0.0.1", "--port", "0", "--buckets",
+                      "16000"], "server") as started:
+            port = started.server.port
+            for lane in ("warm-up", "on", "off", "on"):
+                native.reset_counts()
+                if lane == "off":
+                    with _LaneOff():
+                        status, payload, ms = post(port, data)
+                else:
                     status, payload, ms = post(port, data)
-            else:
-                status, payload, ms = post(port, data)
-                if not native.CALLS.get("flac_read"):
-                    fail(f"oc_server: the spooled body did not stream "
-                         f"through FlacStream: {dict(native.CALLS)}")
-            check_response(f"{NATIVE_BODY_SECONDS} s FLAC", status, payload)
-            serving.append(dict(lane=lane, latency_ms=ms,
-                                score=payload["score"]))
-            print(f"[native] oc_server, {NATIVE_BODY_SECONDS} s FLAC body "
-                  f"({len(data)} B, spooled), decode lane {lane}: latency "
-                  f"{ms:.1f} ms, score {payload['score']:.6f}", flush=True)
+                    if not native.CALLS.get("flac_read"):
+                        fail(f"oc_server: the spooled body did not stream "
+                             f"through FlacStream: {dict(native.CALLS)}")
+                check_response(f"{NATIVE_BODY_SECONDS} s FLAC", status,
+                               payload)
+                served.append(dict(lane=lane, latency_ms=ms,
+                                   score=payload["score"]))
+                print(f"[native] oc_server, {NATIVE_BODY_SECONDS} s FLAC "
+                      f"body ({len(data)} B, spooled), decode lane {lane}: "
+                      f"latency {ms:.1f} ms, score {payload['score']:.6f}",
+                      flush=True)
     finally:
-        started.stop.set()
-        th.join(120)
         serve_http.SPOOL_THRESHOLD_BYTES = spool
-    if th.is_alive() or errors:
-        fail(f"server did not stop cleanly: {errors}")
     counts["flash_attn_fwd"] += read_counts()["flash_attn_fwd"]
-    if len({r["score"] for r in serving}) != 1:
-        fail(f"oc_server scores differ between the decode lanes: {serving}")
-    out["serving"] = serving
+    if len({r["score"] for r in served}) != 1:
+        fail(f"oc_server scores differ between the decode lanes: {served}")
+    out["serving"] = served
 
     # ---- a training epoch's input: native against per-item
     epochs = {}
@@ -5127,55 +5579,38 @@ def phase_int8(workdir: str, fixture, ckpt: str):
     np.save(os.path.join(art, "reference_embedding.npy"), reference)
     np.save(os.path.join(art, "threshold.npy"), np.float32(10.0))
     buckets = (16000, 64000, 96000, 192000)  # oc_classifier's bucket_step
-    started = threading.Event()
-    started.stop = threading.Event()
-    errors = []
-
-    def serve():
-        try:
-            oc_server.main([
-                "--pretrained-sslaasist", ckpt, "--artifacts_dir", art,
-                "--host", "127.0.0.1", "--port", "0", "--quant_int8",
-                "--fast_numerics", "--max_wait_ms", "5", "--buckets",
-                *map(str, buckets)], started_event=started)
-        except BaseException as e:  # surfaced below, never swallowed
-            errors.append(e)
-            started.set()
-
     reset_counts()
     int8.CALLS = 0
-    th = threading.Thread(target=serve, daemon=True)
-    th.start()
-    if not started.wait(900) or errors:
-        fail(f"int8 server did not start: {errors}")
-    warm = {"flash_attn_fwd": attention.LAUNCHES, "int8_matmul": int8.CALLS}
-    want_warm = {k: v * len(buckets) if k == "int8_matmul" else
-                 v * sum(select_attention_impl(b) == "flash"
-                         for b in buckets) for k, v in per_batch.items()}
-    if warm != want_warm:
-        fail(f"int8 server warmup counts {warm}, want {want_warm}")
-    waves = [synthetic_wave(rng, s) for s in (4.0, 6.0, 12.0)]
-    served = []
-    for w in waves:
-        before = (attention.LAUNCHES, int8.CALLS)
-        status, payload, ms = post(started.server.port,
-                                   w.astype("<f4").tobytes(),
-                                   {"X-Sample-Rate": "16000"})
-        check_response(f"int8 {len(w) / SR:.0f} s", status, payload)
-        got = {"flash_attn_fwd": attention.LAUNCHES - before[0],
-               "int8_matmul": int8.CALLS - before[1]}
-        if got != per_batch:
-            fail(f"int8 server request of {len(w)} samples: counts {got}, "
-                 f"want {per_batch}")
-        served.append(payload["score"])
-        print(f"[int8] oc_server --quant_int8 --fast_numerics: "
-              f"{len(w) / SR:.0f} s raw PCM, score {payload['score']:.6f}, "
-              f"latency {ms:.1f} ms, counts {got}", flush=True)
-    launches += attention.LAUNCHES
-    started.stop.set()
-    th.join(120)
-    if th.is_alive() or errors:
-        fail(f"int8 server did not stop cleanly: {errors}")
+    with serving(["--pretrained-sslaasist", ckpt, "--artifacts_dir", art,
+                  "--host", "127.0.0.1", "--port", "0", "--quant_int8",
+                  "--fast_numerics", "--max_wait_ms", "5", "--buckets",
+                  *map(str, buckets)], "int8 server") as started:
+        warm = {"flash_attn_fwd": attention.LAUNCHES,
+                "int8_matmul": int8.CALLS}
+        want_warm = {k: v * len(buckets) if k == "int8_matmul" else
+                     v * sum(select_attention_impl(b) == "flash"
+                             for b in buckets) for k, v in per_batch.items()}
+        if warm != want_warm:
+            fail(f"int8 server warmup counts {warm}, want {want_warm}")
+        waves = [synthetic_wave(rng, s) for s in (4.0, 6.0, 12.0)]
+        served = []
+        for w in waves:
+            before = (attention.LAUNCHES, int8.CALLS)
+            status, payload, ms = post(started.server.port,
+                                       w.astype("<f4").tobytes(),
+                                       {"X-Sample-Rate": "16000"})
+            check_response(f"int8 {len(w) / SR:.0f} s", status, payload)
+            got = {"flash_attn_fwd": attention.LAUNCHES - before[0],
+                   "int8_matmul": int8.CALLS - before[1]}
+            if got != per_batch:
+                fail(f"int8 server request of {len(w)} samples: counts "
+                     f"{got}, want {per_batch}")
+            served.append(payload["score"])
+            print(f"[int8] oc_server --quant_int8 --fast_numerics: "
+                  f"{len(w) / SR:.0f} s raw PCM, score "
+                  f"{payload['score']:.6f}, latency {ms:.1f} ms, counts "
+                  f"{got}", flush=True)
+        launches += attention.LAUNCHES
     # the classifier's int8 path on the same audio: BucketedEmbedder's
     # buckets (bucket_step 16000) are the server's, and each wave is alone
     # in its bucket, the row of a zero-padded batch of 8 on both sides, so
@@ -6308,7 +6743,7 @@ def phase_dp_scoring(workdir: str, fixture, ckpt=None):
     `--data_parallel 2` raises as JAX's make_dp_mesh does."""
     import torch
 
-    from occm_tpu_torch.cli import oc_classifier, oc_server
+    from occm_tpu_torch.cli import oc_classifier
 
     root = os.path.join(workdir, "dp_scoring")
     os.makedirs(root)
@@ -6356,37 +6791,18 @@ def phase_dp_scoring(workdir: str, fixture, ckpt=None):
     served = {}
     reset_counts()
     for tag, extra in (("plain", []), ("dp", ["--data_parallel", "-1"])):
-        started = threading.Event()
-        started.stop = threading.Event()
-        errors = []
-
-        def serve():
-            try:
-                oc_server.main([
-                    "--pretrained-sslaasist", ckpt, "--artifacts_dir", art,
-                    "--host", "127.0.0.1", "--port", "0", "--max_wait_ms",
-                    "5", "--buckets", "16000", "64000", "96000", "192000",
-                    *extra], started_event=started)
-            except BaseException as e:  # surfaced below, never swallowed
-                errors.append(e)
-                started.set()
-
-        th = threading.Thread(target=serve, daemon=True)
-        th.start()
-        if not started.wait(900) or errors:
-            fail(f"oc_server {extra} did not start: {errors}")
         scores = []
-        for w in waves:
-            status, payload, _ = post(started.server.port,
-                                      w.astype("<f4").tobytes(),
-                                      {"X-Sample-Rate": "16000"})
-            check_response(f"dp server {tag}", status, payload)
-            scores.append(payload["score"])
+        with serving(["--pretrained-sslaasist", ckpt, "--artifacts_dir", art,
+                      "--host", "127.0.0.1", "--port", "0", "--max_wait_ms",
+                      "5", "--buckets", "16000", "64000", "96000", "192000",
+                      *extra], f"oc_server {extra}") as started:
+            for w in waves:
+                status, payload, _ = post(started.server.port,
+                                          w.astype("<f4").tobytes(),
+                                          {"X-Sample-Rate": "16000"})
+                check_response(f"dp server {tag}", status, payload)
+                scores.append(payload["score"])
         served[tag] = scores
-        started.stop.set()
-        th.join(120)
-        if th.is_alive() or errors:
-            fail(f"oc_server {extra} did not stop cleanly: {errors}")
     counts["flash_attn_fwd"] += attention.LAUNCHES
     if served["dp"] != served["plain"]:
         fail(f"oc_server --data_parallel -1: scores {served['dp']} vs the "
@@ -7148,6 +7564,12 @@ def main(argv=None) -> int:
                          "other layouts, PGD, the feature bank, the linear "
                          "SVM, profiling, --debug_nans, --wandb_project); "
                          "prints no kernels line")
+    ap.add_argument("--orbax-only", action="store_true",
+                    help="run phases 1, 2 and 19 only (device, build, the "
+                         "JAX package's orbax checkpoints without orbax: "
+                         "write, read, export, and scoring, serving, "
+                         "training and the XLS-R graft from a directory); "
+                         "prints no kernels line")
     ap.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD",
                                                           "PORT", "WORKDIR"),
                     help=argparse.SUPPRESS)  # phase 17's rank processes
@@ -7170,7 +7592,8 @@ def main(argv=None) -> int:
     hgmma = phase_build()
     if (args.controls_only or args.rawboost_only or args.models_only
             or args.remat_only or args.native_only or args.base_only
-            or args.int8_only or args.parallel_only or args.extras_only):
+            or args.int8_only or args.parallel_only or args.extras_only
+            or args.orbax_only):
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -7198,6 +7621,10 @@ def main(argv=None) -> int:
                 del model
                 result = {"int8": dict(phase_int8(workdir, fixture, ckpt)[1],
                                        products=rows)}
+            elif args.orbax_only:
+                model, ckpt = build_seed_model(workdir)
+                del model
+                result = {"orbax": phase_orbax(workdir, fixture, ckpt)[1]}
             elif args.extras_only:
                 model, _ = build_seed_model(workdir)
                 result = {"extras": phase_extras(workdir, fixture,
@@ -7264,6 +7691,13 @@ def main(argv=None) -> int:
                 workdir, fixture)
             rb_counts, rb_replayed, rawboost = phase_rawboost_all(workdir,
                                                                   fixture)
+            # phase 19 right after phase 11, on its fairseq file and on
+            # phase 4's seed .pt and eval set
+            o_counts, orbax_out = phase_orbax(
+                workdir, fixture, ckpt,
+                fairseq_pt=rawboost["pretrained"].pop("fairseq_pt"),
+                scoring=(artifacts, os.path.join(artifacts, "eval"),
+                         os.path.join(artifacts, "eval.txt")))
             m_counts, m_replayed, models = phase_models(workdir, fixture)
             r_counts, r_replayed, remat = phase_remat(workdir, fixture)
             b_counts, b_replayed, base = phase_base(workdir, fixture,
@@ -7310,13 +7744,16 @@ def main(argv=None) -> int:
         print(f"[int8] {json.dumps(int8_out, default=str)}", flush=True)
         print(f"[parallel] {json.dumps(parallel, default=str)}", flush=True)
         print(f"[extras] {json.dumps(extras, default=str)}", flush=True)
+        print(f"[orbax] {json.dumps(orbax_out, default=str)}", flush=True)
         # phase 17's path: the ranks', the NCCL run's and the scoring runs'
-        for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
-                     "ffn_fwd"):
-            launches[name] += p_counts[name]
-        launches["flash_attn_bwd"] += p_counts["flash_attn_bwd_dq"]
+        # and phase 19's: scoring, serving and training from a directory
+        for counts in (p_counts, o_counts):
+            for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
+                         "ffn_fwd"):
+                launches[name] += counts[name]
+            launches["flash_attn_bwd"] += counts["flash_attn_bwd_dq"]
 
-    print(f"[smoke] phases 1-18 took {time.perf_counter() - t_run:.1f} s",
+    print(f"[smoke] phases 1-19 took {time.perf_counter() - t_run:.1f} s",
           flush=True)
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,

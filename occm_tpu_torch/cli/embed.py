@@ -5,9 +5,9 @@ Checkpoint + protocol in, one `.npz` out with the JAX CLI's keys: `utts`,
 `embeddings`, `logits` and `labels`. Labels follow the meta-batch dataset's
 convention bonafide=0 / spoof=1 (reference: oc_training.py:225); eval-mode
 (bare-utterance) protocols have no labels and get -1. The flags are the
-JAX CLI's, plus --device; --pretrained-sslaasist takes a torch state dict
-in the reference's naming; --data_parallel N embeds data-parallel over N
-local GPUs.
+JAX CLI's, plus --device; --pretrained-sslaasist takes an orbax directory
+of the JAX package or a torch state dict in the reference's naming;
+--data_parallel N embeds data-parallel over N local GPUs.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ def main(argv=None) -> None:
     parser.add_argument("--pretrained-sslaasist", type=str,
                         dest="pretrained_sslaasist",
                         default="aasist_vocoded_1.pt",
-                        help="torch state dict of the full AModel in the "
+                        help="the full AModel: an orbax directory of the "
+                             "JAX package, or a torch state dict in the "
                              "reference's naming")
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--bucket_step", type=int, default=16000)

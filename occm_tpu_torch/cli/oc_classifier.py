@@ -5,20 +5,22 @@ Phase 1 builds the bonafide reference embedding + threshold (cached as
 reference_embedding.npy / threshold.npy in the working directory, the
 artefacts `occm_tpu_torch.cli.oc_server` serves from); phase 2 scores the
 eval set with the selected mode (1c2 default, reference:
-oc_classifier.py:358). The flags are the JAX CLI's, plus --device;
---pretrained-sslaasist takes a torch state dict in the reference's naming
-(what `occm_tpu_torch.cli.oc_training` writes) in place of an orbax
-directory. Modes 1c2 and 2c2 run the full AModel. Modes 1c1 and 2c1 run
-SSLResNet34 (the separate extractor and SE-ResNet34 encoder), loaded from
---pretrained-ssl alone (a fused ssl_resnet34 .pt, as `oc_training --model
-ssl_resnet34` writes; --pretrained-sslaasist when --pretrained-ssl is
-unset), or from the reference's separate pair (reference:
-oc_classifier.py:340-342): --pretrained-ssl an ssl_vocoded .pt (the
-SSLModel, model.*) into the frontend and --pretrained-senet a
-senet34_vocoded .pt into the encoder, statistics included. --quant_int8
-scores with the W8A8 int8 transformer projections in every mode,
-quantised from the fp32 checkpoint at load time (on XLS-R it needs
---fast_numerics); --data_parallel N scores data-parallel over N local
+oc_classifier.py:358). The flags are the JAX CLI's, plus --device. Each
+weight flag takes a torch state dict in the reference's naming (what
+`occm_tpu_torch.cli.oc_training` writes) or an orbax directory of the JAX
+package (a trainer epoch directory or an `occm-convert-model` save, read
+without orbax by `occm_tpu_torch.train.orbax`), as the JAX CLI's do.
+Modes 1c2 and 2c2 run the full AModel from --pretrained-sslaasist. Modes
+1c1 and 2c1 run SSLResNet34 (the separate extractor and SE-ResNet34
+encoder), loaded from --pretrained-ssl alone (a fused ssl_resnet34
+checkpoint, as `oc_training --model ssl_resnet34` writes;
+--pretrained-sslaasist when --pretrained-ssl is unset), or from the
+reference's separate pair (reference: oc_classifier.py:340-342):
+--pretrained-ssl an ssl_vocoded checkpoint (the SSLModel, model.*) into the
+frontend and --pretrained-senet a senet34_vocoded one into the encoder,
+statistics included. --quant_int8 scores with the W8A8 int8 transformer
+projections in every mode, quantised from the fp32 checkpoint at load
+time (on XLS-R it needs --fast_numerics); --data_parallel N scores data-parallel over N local
 GPUs, with any of the other flags.
 
 Usage:
@@ -38,16 +40,18 @@ def build_parser() -> argparse.ArgumentParser:
         description="One-class classifier (PyTorch/CUDA)")
     parser.add_argument("--pretrained-sslaasist", type=str,
                         default="aasist_vocoded_1.pt",
-                        help="torch state dict of the full AModel in the "
-                             "reference's naming (oc_training's .pt)")
+                        help="the full AModel: a torch state dict in the "
+                             "reference's naming (oc_training's .pt) or an "
+                             "orbax directory of the JAX package")
     parser.add_argument("--pretrained-ssl", type=str, default=None,
-                        help="modes 1c1/2c1: a fused ssl_resnet34 .pt, or "
-                             "with --pretrained-senet an ssl_vocoded .pt "
-                             "(SSLModel, model.*) for the frontend")
+                        help="modes 1c1/2c1: a fused ssl_resnet34 .pt or "
+                             "orbax directory, or with --pretrained-senet "
+                             "an ssl_vocoded one (SSLModel, model.*) for "
+                             "the frontend")
     parser.add_argument("--pretrained-senet", type=str, default=None,
                         help="modes 1c1/2c1, with --pretrained-ssl: a "
-                             "senet34_vocoded .pt for the SE-ResNet34 "
-                             "encoder")
+                             "senet34_vocoded .pt or orbax directory for "
+                             "the SE-ResNet34 encoder")
     parser.add_argument(
         "--protocol_file", type=str,
         default="/datab/Dataset/ASVspoof/LA/ASVspoof_LA_cm_protocols/"
@@ -109,9 +113,10 @@ def build_parser() -> argparse.ArgumentParser:
 def build_ssl_resnet34(xlsr_cfg, ssl, senet, sslaasist,
                        allow_random_init: bool, device):
     """SSLResNet34 on `device` in eval mode for modes 1c1/2c1: from the
-    fused file `ssl or sslaasist`, or, when both `ssl` and `senet` are
-    given, from the separate pair (the SSLModel's state dict into
-    `frontend`, the SE-ResNet's into `resnet34`); every load is strict. A
+    fused checkpoint `ssl or sslaasist` (a .pt or an orbax directory), or,
+    when both `ssl` and `senet` are given, from the separate pair (the
+    SSLModel's state dict into `frontend`, the SE-ResNet's into
+    `resnet34`); every load is strict. A
     missing file fails before the model is built; with `allow_random_init`
     a file that cannot be loaded gives seeded random weights (seed 0).
     With xlsr_cfg.quant_int8 the fp32 weights are then quantised."""
@@ -119,23 +124,23 @@ def build_ssl_resnet34(xlsr_cfg, ssl, senet, sslaasist,
     import os
 
     from occm_tpu_torch.cli.oc_server import quantize_model_int8
-    from occm_tpu_torch.models import (
-        SSLResNet34, detect_model_kind, load_reference_state_dict)
+    from occm_tpu_torch.models import SSLResNet34, detect_model_kind
+    from occm_tpu_torch.models.convert_backend import state_dict_from_path
     from occm_tpu_torch.utils.init_template import random_init_
 
     pair = bool(ssl and senet)
     ckpt = ssl or sslaasist
     if not allow_random_init:
         for path in ([ssl, senet] if pair else [ckpt]):
-            if not os.path.isfile(path):
+            if not os.path.exists(path):
                 raise SystemExit(
                     f"ERROR: could not restore pretrained weights: "
                     f"checkpoint {path!r} does not exist.\n"
                     "Pass --allow_random_init to score with random weights "
                     "(testing only).")
 
-    def load(path, want):
-        state = load_reference_state_dict(path)
+    def load(path, want, into):
+        state = state_dict_from_path(path, model.xlsr_cfg, into=into)
         kind = detect_model_kind(state)
         if kind != want:
             raise ValueError(f"{path!r} holds a {kind} checkpoint, not "
@@ -146,10 +151,13 @@ def build_ssl_resnet34(xlsr_cfg, ssl, senet, sslaasist,
         xlsr_cfg=dataclasses.replace(xlsr_cfg, quant_int8=False))
     try:
         if pair:
-            model.frontend.load_state_dict(load(ssl, "ssl"), strict=True)
-            model.resnet34.load_state_dict(load(senet, "senet"), strict=True)
+            model.frontend.load_state_dict(
+                load(ssl, "ssl", model.frontend), strict=True)
+            model.resnet34.load_state_dict(
+                load(senet, "senet", model.resnet34), strict=True)
         else:
-            model.load_state_dict(load(ckpt, "ssl_resnet34"), strict=True)
+            model.load_state_dict(load(ckpt, "ssl_resnet34", model),
+                                  strict=True)
         print("Pretrained weights loaded")
     except (OSError, RuntimeError, KeyError, ValueError) as e:
         if not allow_random_init:

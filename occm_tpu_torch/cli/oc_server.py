@@ -2,11 +2,12 @@
 
 Serves the XLSR + AASIST one-class model over HTTP (POST /score with
 WAV/FLAC/raw-PCM bytes -> {"score", "prediction", "label"}) on one GPU. The
-flags are the JAX server's, plus --device; --pretrained-sslaasist takes a
-torch state dict in the reference's naming (for example the file
-`occm-export-model` writes) in place of an orbax directory. The reference
-embedding and threshold come from reference_embedding.npy / threshold.npy.
---quant_int8 serves the W8A8 int8 transformer projections
+flags are the JAX server's, plus --device; --pretrained-sslaasist takes an
+orbax directory of the JAX package, as the JAX server does (read without
+orbax by `occm_tpu_torch.train.orbax`), or a torch state dict in the
+reference's naming (for example the file `occm-export-model` writes). The
+reference embedding and threshold come from reference_embedding.npy /
+threshold.npy. --quant_int8 serves the W8A8 int8 transformer projections
 (`occm_tpu_torch.ops.int8`), quantised from the fp32 checkpoint at load
 time; on XLS-R it needs --fast_numerics (see `XLSRConfig.quant_int8`).
 
@@ -27,7 +28,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--pretrained-sslaasist", type=str,
                         default="aasist_vocoded_1.pt",
-                        help="torch state dict of the full AModel in the "
+                        help="the full AModel: an orbax directory of the "
+                             "JAX package, or a torch state dict in the "
                              "reference's naming (occm-export-model)")
     parser.add_argument("--artifacts_dir", type=str, default=".",
                         help="dir holding reference_embedding.npy + "
@@ -103,18 +105,20 @@ def quantize_model_int8(model, build):
 
 def build_model(xlsr_cfg, checkpoint: str, allow_random_init: bool,
                 device):
-    """AModel on `device` in eval mode, from a reference-named state dict,
-    or from seeded random weights (seed 0) when allowed and the checkpoint
+    """AModel on `device` in eval mode, from a reference-named state dict
+    or an orbax directory (`convert_backend.state_dict_from_path`), or
+    from seeded random weights (seed 0) when allowed and the checkpoint
     cannot be read; with xlsr_cfg.quant_int8 the fp32 weights are then
     quantised (`quantize_model_int8`)."""
     import dataclasses
     import os
 
     from occm_tpu_torch.config import AASISTConfig
-    from occm_tpu_torch.models import AModel, load_reference_state_dict
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.models.convert_backend import state_dict_from_path
     from occm_tpu_torch.utils.init_template import random_init_
 
-    if not allow_random_init and not os.path.isfile(checkpoint):
+    if not allow_random_init and not os.path.exists(checkpoint):
         raise SystemExit(
             f"ERROR: checkpoint {checkpoint!r} does not exist. Pass "
             "--allow_random_init to serve random weights (testing only)."
@@ -125,10 +129,11 @@ def build_model(xlsr_cfg, checkpoint: str, allow_random_init: bool,
 
     model = amodel(dataclasses.replace(xlsr_cfg, quant_int8=False))
     try:
-        model.load_state_dict(load_reference_state_dict(checkpoint),
-                              strict=True)
+        model.load_state_dict(
+            state_dict_from_path(checkpoint, model.xlsr_cfg, into=model),
+            strict=True)
         print("Pretrained weights loaded")
-    except (OSError, RuntimeError, KeyError) as e:
+    except (OSError, RuntimeError, KeyError, ValueError) as e:
         if not allow_random_init:
             raise SystemExit(
                 f"ERROR: could not load pretrained weights from "

@@ -10,9 +10,12 @@ reference's per-epoch checkpoints `<checkpoint_dir>/<model>_vocoded_<e>.pt`
 (a torch state dict in the reference naming, next to the optimizer
 state; `occm_tpu_torch.cli.oc_server --pretrained-sslaasist` loads an
 aasist one, `oc_classifier --pretrained-ssl` an ssl_resnet34 one).
-`--init_from` takes such a .pt file of the chosen model; `--pretrained_xlsr`
-a fairseq or HF wav2vec2 / XLS-R checkpoint (.pt, .bin, .safetensors),
-grafted into the SSL frontend (`ssl_model.model` of aasist,
+`--init_from` takes such a .pt file of the chosen model, or an orbax
+directory of the JAX package (a trainer epoch directory, an
+`occm-convert-model` save or a bare parameter tree, read without orbax by
+`occm_tpu_torch.train.orbax`); `--pretrained_xlsr` a fairseq or HF wav2vec2
+/ XLS-R checkpoint (.pt, .bin, .safetensors) or an `occm-convert-xlsr`
+directory, grafted into the SSL frontend (`ssl_model.model` of aasist,
 `frontend.model` of the others) of the model built from --seed (it wins
 over --init_from, as in the JAX package). `--rawboost_algo` 1-8 augments
 every step's batch on the device. `--grad_accum`, `--lr_schedule` (with
@@ -120,14 +123,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--pretrained_xlsr", type=str, default=None,
         help="graft a pretrained wav2vec2 / XLS-R encoder into the SSL "
-             "frontend: a fairseq checkpoint (xlsr2_300m.pt) or a "
-             "HuggingFace one (.pt / .bin / .safetensors); wins over "
-             "--init_from")
+             "frontend: a fairseq checkpoint (xlsr2_300m.pt), a "
+             "HuggingFace one (.pt / .bin / .safetensors), or an orbax "
+             "directory of occm-convert-xlsr; wins over --init_from")
     parser.add_argument(
         "--init_from", type=str, default=None,
         help="full-model warm start from a torch .pt state dict in the "
              "reference naming (a trainer checkpoint, aasist_vocoded_*.pt, "
-             "or occm-export-model output); the optimizer starts fresh")
+             "or occm-export-model output) or an orbax directory of the "
+             "JAX package (a trainer epoch directory, occm-convert-model "
+             "output, a bare parameter tree); the optimizer starts fresh")
     parser.add_argument(
         "--fast_numerics", action="store_true", default=False,
         help="the JAX package's fast config: bf16 norms, tanh GELU "
@@ -262,11 +267,11 @@ def build_model(xlsr_cfg, seed: int, init_from=None, pretrained_xlsr=None,
     the caller's stream is untouched); then either the SSL frontend from a
     pretrained wav2vec2 / XLS-R checkpoint (`pretrained_xlsr`, which wins,
     as in the JAX CLI), or every weight from a reference-named .pt file of
-    that model (`init_from`, loaded strictly). Returns the model; its
-    output kind is `make_model`'s."""
+    that model or an orbax directory of the JAX package (`init_from`, a
+    trainer epoch directory, a converter's save or a bare parameter tree,
+    its BatchNorm statistics where it has them; loaded strictly). Returns
+    the model; its output kind is `make_model`'s."""
     import torch
-
-    from occm_tpu_torch.models import load_reference_state_dict
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -278,12 +283,12 @@ def build_model(xlsr_cfg, seed: int, init_from=None, pretrained_xlsr=None,
         graft_pretrained_xlsr(getattr(model, scope).model, pretrained_xlsr)
         print(f"Grafted pretrained XLSR {pretrained_xlsr} into '{scope}'")
     elif init_from:
-        if not init_from.endswith(".pt"):
-            raise NotImplementedError(
-                "--init_from takes a torch .pt state dict; orbax "
-                "directories are not ported (ROADMAP queue A item 16)")
-        model.load_state_dict(load_reference_state_dict(init_from),
-                              strict=True)
+        from occm_tpu_torch.models.convert_backend import (
+            state_dict_from_path)
+
+        model.load_state_dict(
+            state_dict_from_path(init_from, xlsr_cfg, into=model),
+            strict=True)
         print(f"Warm start from {init_from}")
     return model
 

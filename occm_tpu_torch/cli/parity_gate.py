@@ -11,10 +11,11 @@ torch device; "cuda" by default). Stages, each printing a
 if any stage fails):
 
   convert — fairseq / HF checkpoint (torch pickle or .safetensors, format
-            auto-detected) through `models.convert_xlsr` into the port's
-            XLSREncoder, strictly; its state dict (fairseq naming) is
-            saved as <workdir>/xlsr_params.pt, which the trainer's
-            --pretrained_xlsr reads
+            auto-detected) through `models.convert_xlsr` into the JAX
+            package's parameter tree, saved as the orbax directory
+            <workdir>/xlsr_params (as the JAX gate saves it), which the
+            trainer's --pretrained_xlsr reads; the port's XLSREncoder
+            grafts it strictly
   verify  — the port's fp32 encoder on --device (TF32 off) against the
             independent torch-functional oracle `models.torch_oracle` on
             the CPU, on random audio (max|diff| <= --verify_tol)
@@ -179,7 +180,9 @@ def main(argv=None) -> int:
     from occm_tpu_torch.config import XLSRConfig
     from occm_tpu_torch.models import XLSREncoder
     from occm_tpu_torch.models.convert_xlsr import (
-        detect_format, encoder_state_dict, read_checkpoint)
+        convert_fairseq_state_dict, detect_format, encoder_state_dict,
+        graft_pretrained_xlsr, hf_to_fairseq_names, read_checkpoint)
+    from occm_tpu_torch.train.orbax import save_tree
     from occm_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -187,16 +190,17 @@ def main(argv=None) -> int:
     fp32_cfg = dataclasses.replace(cfg, dtype="float32", remat=False)
 
     # ---- convert -----------------------------------------------------
-    xlsr_params = os.path.abspath(os.path.join(args.workdir,
-                                               "xlsr_params.pt"))
+    xlsr_params = os.path.abspath(os.path.join(args.workdir, "xlsr_params"))
     try:
         raw = read_checkpoint(args.xlsr)
         fmt = detect_format(raw)
+        if fmt == "hf":
+            raw = hf_to_fairseq_names(raw, fp32_cfg)
+        save_tree(convert_fairseq_state_dict(raw, fp32_cfg), xlsr_params)
         sd = encoder_state_dict(raw, fp32_cfg)
         del raw
         encoder = XLSREncoder(fp32_cfg)
-        encoder.load_state_dict(sd, strict=True)
-        torch.save(encoder.state_dict(), xlsr_params)
+        graft_pretrained_xlsr(encoder, xlsr_params)
         n = sum(p.numel() for p in encoder.parameters())
         stage("convert", True,
               f"{fmt} checkpoint -> {xlsr_params} ({n:,} params)")

@@ -337,11 +337,33 @@ def test_bias_free_conv_layers_get_zero_biases(tmp_path):
 
 
 def test_orbax_directory_raises_naming_the_remedy(tmp_path):
-    (tmp_path / "xlsr_orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        graft_pretrained_xlsr(XLSREncoder(CFG), str(tmp_path / "xlsr_orbax"))
+    """An orbax directory of the JAX converter grafts (`train.orbax`, no
+    orbax): every tensor equals the .pt graft's, the positional conv
+    within the fold's rounding; the trainer's --pretrained_xlsr takes it.
+    A directory that holds no orbax checkpoint raises, naming what the
+    flag takes."""
+    from occm_tpu.models.convert_xlsr import convert_checkpoint_file
+
+    sd = _tiny_fairseq_sd(seed=4)
+    pt = tmp_path / "xlsr.pt"
+    torch.save({"model": sd}, pt)
+    convert_checkpoint_file(str(pt), str(tmp_path / "xlsr_orbax"), cfg=JCFG)
+    from_pt, from_dir = XLSREncoder(CFG), XLSREncoder(CFG)
+    graft_pretrained_xlsr(from_pt, str(pt))
+    assert graft_pretrained_xlsr(from_dir, str(tmp_path / "xlsr_orbax")) \
+        is None
+    want = from_pt.state_dict()
+    for k, v in from_dir.state_dict().items():
+        if POS + "weight_" in k:
+            torch.testing.assert_close(v, want[k], rtol=2e-6, atol=0)
+        else:
+            assert torch.equal(v, want[k]), k
     from occm_tpu_torch.cli import oc_training
 
-    with pytest.raises(NotImplementedError, match="raw checkpoint"):
-        oc_training.build_model(CFG, 0, pretrained_xlsr=str(
-            tmp_path / "xlsr_orbax"))
+    model = oc_training.build_model(CFG, 0, pretrained_xlsr=str(
+        tmp_path / "xlsr_orbax"))
+    for k, v in from_dir.state_dict().items():
+        assert torch.equal(model.ssl_model.model.state_dict()[k], v), k
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(ValueError, match="nor an orbax directory"):
+        graft_pretrained_xlsr(XLSREncoder(CFG), str(tmp_path / "empty"))

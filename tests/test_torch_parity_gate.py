@@ -153,29 +153,36 @@ def test_gate_end_to_end_passes_every_stage(gate_run):
     assert summary["eer_value"] < 0.3, summary
     assert 0.0 <= summary["eer_int8_value"] <= 1.0
     assert "fairseq checkpoint" in summary["stages"]["convert"]["detail"]
-    for name in ("xlsr_params.pt", f"aasist_vocoded_{EPOCHS - 1}.pt",
-                 "scores_fp32.txt",
+    assert os.path.isfile(workdir / "xlsr_params" / "_METADATA")
+    for name in (f"aasist_vocoded_{EPOCHS - 1}.pt", "scores_fp32.txt",
                  "scores_int8.txt", "dev_utts.txt"):
         assert os.path.isfile(workdir / name), name
 
 
 def test_gate_hands_the_trainer_a_strict_encoder_checkpoint(
         gate_run, fake_xlsr_pt):  # noqa: F811
-    """xlsr_params.pt is the converted encoder in fairseq naming, equal to
-    the fairseq checkpoint's tensors (the positional conv as its weight
-    norm pair) and strictly loadable by --pretrained_xlsr's graft."""
-    from occm_tpu_torch.models.convert_xlsr import (
-        encoder_state_dict, graft_pretrained_xlsr, read_checkpoint)
+    """xlsr_params is the orbax directory the JAX gate hands its trainer:
+    the JAX converter's parameter tree of the fairseq checkpoint, leaf for
+    leaf and bit for bit (orbax restores it), strictly loadable by
+    --pretrained_xlsr's graft."""
+    import jax
+    import orbax.checkpoint as ocp
+
+    from occm_tpu.models.convert_xlsr import (
+        convert_fairseq_state_dict, load_checkpoint_state_dict)
+    from occm_tpu_torch.models.convert_xlsr import graft_pretrained_xlsr
 
     _, _, workdir = gate_run
-    path = str(workdir / "xlsr_params.pt")
-    saved = read_checkpoint(path)
-    source = encoder_state_dict(read_checkpoint(fake_xlsr_pt),
-                                XLSRConfig.tiny())
-    assert set(saved) == set(source)
-    for k, v in source.items():
-        if "pos_conv.0.weight_" not in k:
-            assert torch.equal(saved[k], v.float()), k
+    path = str(workdir / "xlsr_params")
+    saved = ocp.StandardCheckpointer().restore(path)
+    want = convert_fairseq_state_dict(
+        load_checkpoint_state_dict(fake_xlsr_pt), JXLSRConfig.tiny())
+    assert (jax.tree_util.tree_structure(saved)
+            == jax.tree_util.tree_structure(want))
+    for a, b in zip(jax.tree_util.tree_leaves(saved),
+                    jax.tree_util.tree_leaves(want)):
+        a = np.asarray(a)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
     graft_pretrained_xlsr(XLSREncoder(XLSRConfig.tiny()), path)
 
 

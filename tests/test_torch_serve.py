@@ -223,7 +223,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 def test_port_imports_no_jax():
     """Importing every module of the port, and chip_smoke.py, loads no
-    jax, flax or occm_tpu module."""
+    jax, flax or occm_tpu module, and none of orbax's (orbax, tensorstore,
+    zstandard): the port reads and writes orbax directories itself."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import occm_tpu_torch\n"
@@ -232,7 +233,8 @@ def test_port_imports_no_jax():
         "for n in names + ['chip_smoke']:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'occm_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'occm_tpu', 'orbax',\n"
+        "              'tensorstore', 'zstandard'))\n"
         "assert len(names) > 20, names\n"
         "print('BAD', bad)\n"
     )

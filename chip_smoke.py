@@ -14,6 +14,7 @@
     python3 chip_smoke.py --parallel-only # phases 1, 2 and 17 only
     python3 chip_smoke.py --extras-only   # phases 1, 2 and 18 only
     python3 chip_smoke.py --orbax-only    # phases 1, 2 and 19 only
+    python3 chip_smoke.py --coverage-only # phases 1, 2 and 20 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -49,10 +50,12 @@ Phases (any failure ends the run with a non-zero exit and no last line):
      (past the earlier kernel's width limit) and M = 1000, D = 1000,
      F = 4000 (partial K and N tiles) (library: the port's ffn_impl="xla"
      sequence, F.linear, F.gelu, F.linear).
-4. the tiny model (XLSRConfig.tiny(): fp32, head dim 16, which the CUDA
-   attention kernels do not take) scored on the card under auto
-   attention: plain attention, no flash launch, agreement with the CPU,
-   and a pinned flash impl raises. Then scoring and evaluation at full
+4. the tiny model (XLSRConfig.tiny(): fp32, head dim 16, the generic
+   attention kernels' route) scored on the card under auto attention (the
+   measured policy, impl_select.AUTO_GENERIC_MIN_SAMPLES) and with a
+   pinned flash impl (the generic kernels), each in agreement with the
+   CPU; a tiny model with head dim 260, which no kernel takes: xla under
+   auto, a pinned flash raises. Then scoring and evaluation at full
    width (XLSR-300M + AASIST, random
    weights from seed 0, saved as a reference-named .pt):
    `occm_tpu_torch.cli.oc_classifier` in 1c2 and 2c2 mode on a synthetic
@@ -303,16 +306,43 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    it: every tensor equal to the .pt graft's bit for bit but the
    positional conv, within ORBAX_FOLD_RTOL of the fp64 fold; the dropout
    rates printed.
-20. with --profile only: device time by kernel (torch.profiler) for full
+20. queue B's coverage (`--coverage-only`: phases 1, 2, 20 and phase 4's
+   tiny checks): the generic attention kernels (csrc/flash_attn_generic.cu:
+   fp32 at D 64, B 8 (12 for the backward), H 16, T 201 / 299 / 599 /
+   1500; fp32 at the tiny model's D 16, H 4; bf16 at D 16 / 32 / 80 / 128,
+   T 299 / 1500) and the fp32 FFN kernel (csrc/ffn_fwd_f32.cu: M 2392 /
+   3588, D 1024, F 4096, erf and tanh; (1000, 1000, 4000)) against their
+   plain versions (COVERAGE_F32_RTOL_OF_MAX, FFN_F32_RTOL_OF_MAX; bf16 at
+   phase 3's bounds) with wrapper, device, plain, library (SDPA in the
+   same dtype; F.linear, F.gelu, F.linear) and bound times; each
+   attention row also views = [B*H, T, D] = a repeat bit for bit, two
+   device launches a backward call, and at T 299 contiguous gradients
+   through autograd (an expanded dO read in place). Then the fp32 model
+   at full width (AModel(AASISTConfig(), XLSRConfig(dtype="float32",
+   attention_impl="flash", ffn_impl="pallas")), seed 0): 8 x 6 s and
+   8 x 12 s scored (24 generic forward and 24 fp32 FFN launches a batch,
+   none of the wgmma kernels; distances against the same weights on xla
+   attention and the plain FFN within COVERAGE_MODEL_RTOL), one eager
+   12 x 6 s training step against the plain one (48 / 24 / 24 generic
+   launches, 48 fp32 FFN; loss, encoder features and gradient within
+   COVERAGE_MODEL_RTOL), utt/s at 2, 6 and 12 s in turns (xla, flash,
+   flash + the fp32 FFN: the measurement behind
+   AUTO_GENERIC_MIN_SAMPLES); and the tiny model through `oc_training
+   --xlsr_tiny --attention_impl flash` (2 steps, launches a step exact)
+   and `oc_classifier --mode 2c2` on the card and with --device cpu
+   (logits within TINY_RTOL_OF_MAX). In a full run its kernel checks
+   follow phase 3's and its paths phase 7.
+21. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-21. prints {"kernels": [...]} (each entry with phase 15's row at base's
-   shapes under "base" and phase 17's at the per-rank shapes under "tp2",
-   "dp2" or "fsdp2", "pp2" and "sp2"), then {"ok": true, "device":
-   {...}} last.
-A full run makes phase 15's, 16's and 17's kernel checks right after
-phase 3's, and phases 15 and 16's other parts before phase 14 (see
-main).
+22. prints {"kernels": [...]} (each entry of phases 3's kernels with
+   phase 15's row at base's shapes under "base" and phase 17's at the
+   per-rank shapes under "tp2", "dp2" or "fsdp2", "pp2" and "sp2"; phase
+   20's three entries with their shapes under "per_shape"), then
+   {"ok": true, "device": {...}} last.
+A full run makes phase 15's, 16's, 17's and 20's kernel checks right
+after phase 3's, and phases 15 and 16's other parts before phase 14
+(see main).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -468,7 +498,8 @@ def device_ms(fn, names, iters: int = 20, warmup: int = 3,
         print(f"[profile] session {attempt} of {PROFILE_TRIES} for {names} "
               f"lost records: {every} device events, {own} of them named, "
               f"over {iters} calls", file=sys.stderr, flush=True)
-        want = sum((after[c] - before[c]) * KERNEL_NAMES[c][1]
+        want = sum((after[c] - before[c])
+                   * {**KERNEL_NAMES, **COVERAGE_KERNEL_NAMES}[c][1]
                    for c in counters)
         if (counters and attempt >= 2 and iters >= 20 and want % iters == 0
                 and own == want - 1
@@ -1051,14 +1082,12 @@ def phase_fused_adam(xcfg=None, odd_leaves: bool = True, mesh=None):
         lp.grad = g_
     lib_opt = torch.optim.Adam(lib_params, lr=1e-5, fused=True)
     library_ms = cuda_ms(lib_opt.step, iters=5, warmup=1)
-    if mesh:
-        # over the shards, late in a full run, every profiler session of
-        # torch's fused Adam on the H100 recorded a count of device events
-        # that is not a whole multiple of its calls: take the session that
-        # kept the most, as for other plain PyTorch
-        lib_dev_ms = calls_device_ms(lib_opt.step, iters=5, warmup=1)[0]
-    else:
-        lib_dev_ms = library_device_ms(lib_opt.step, iters=5, warmup=1)
+    # every profiler session of torch's fused Adam on an H100 may record a
+    # count of device events that is not a whole multiple of its calls
+    # (over the shards late in a full run; over the whole model early in
+    # one, 144 of 145 in each of 8 sessions on one machine): take the
+    # session that kept the most, as for other plain PyTorch
+    lib_dev_ms = calls_device_ms(lib_opt.step, iters=5, warmup=1)[0]
     del lib_opt, lib_params
     nbytes = 28.0 * n
     bound_ms, bound_by = bytes_bound(nbytes, 10.0 * n)
@@ -1252,23 +1281,30 @@ def build_seed_model(workdir: str):
 
 
 # The tiny model on the card against itself on the CPU: both fp32 with TF32
-# off (phase 1), plain attention on both, so they differ only by the order
-# of fp32 sums through two layers and the backend (relative ~1e-6); 1e-3
-# of the largest |value| holds that and fails on a wrong route or layout.
+# off (phase 1), so they differ only by the order of fp32 sums through two
+# layers and the backend (relative ~1e-6), whether attention is the plain
+# einsum or the generic kernels against their plain version; 1e-3 of the
+# largest |value| holds that and fails on a wrong route or layout.
 TINY_RTOL_OF_MAX = 1e-3
 
 
 def phase_tiny_auto():
-    """The repaired fault: XLSRConfig.tiny() is fp32 with head dim 16,
-    which the CUDA flash kernels do not take. On the card, auto must pick
-    "xla" for it in every bucket: 4 waves of 1-2 s through
-    BucketedEmbedder and make_embed_fn_factory (what oc_classifier, embed
-    and oc_server run), in two buckets, score with no flash launch and
-    agree with the same model on the CPU; a pinned "flash" still raises."""
+    """XLSRConfig.tiny() is fp32 with head dim 16, which the generic
+    attention kernels take (csrc/flash_attn_generic.cu). On the card, 4
+    waves of 1-2 s through BucketedEmbedder and make_embed_fn_factory (what
+    oc_classifier, embed and oc_server run), in two buckets: under auto
+    each bucket runs what the measured policy picks for the generic route
+    (impl_select.AUTO_GENERIC_MIN_SAMPLES), and a pinned "flash" runs the
+    generic kernels (2 forward launches a batch, none of the wgmma kernel);
+    both agree with the same model on the CPU. The guard on a model that
+    no kernel takes stays: a tiny model with head dim 260 runs "xla" under
+    auto, and a pinned "flash" raises."""
     import torch
 
     from occm_tpu_torch.classify import (
         BucketedEmbedder, make_embed_fn_factory)
+    from occm_tpu_torch.classify.impl_select import (
+        AUTO_GENERIC_MIN_SAMPLES, select_attention_impl)
     from occm_tpu_torch.config import AASISTConfig, XLSRConfig
     from occm_tpu_torch.models import AModel
     from occm_tpu_torch.ops import attention
@@ -1276,44 +1312,72 @@ def phase_tiny_auto():
     from occm_tpu_torch.utils import random_init_
 
     xcfg = XLSRConfig.tiny()
+    layers = xcfg.encoder_layers
     model = random_init_(AModel(AASISTConfig.tiny(), xcfg), seed=0)
     rng = np.random.default_rng(3)
     waves = [synthetic_wave(rng, sec) for sec in (1.0, 1.5, 1.7, 2.0)]
+    buckets = (SR, 2 * SR)  # one wave in the first, three in the second
 
-    def embed(device):
+    def embed(device, impl):
         emb, logits = BucketedEmbedder(
-            embed_fn_factory=make_embed_fn_factory(model, "auto"),
+            embed_fn_factory=make_embed_fn_factory(model, impl),
             bucket_step=SR, batch_size=4, device=device).embed_all(waves)
         return emb, logits
 
-    want = embed("cpu")
-    model.to("cuda")
-    before = attention.LAUNCHES
-    got = embed("cuda")
-    if attention.LAUNCHES != before:
-        fail("tiny model under auto on the card launched the flash kernel")
-    for name, a, b in zip(("embeddings", "logits"), got, want):
-        err = float(np.abs(a - b).max())
-        scale = float(np.abs(b).max())
-        if not (a.shape == b.shape and np.isfinite(a).all()
-                and err <= TINY_RTOL_OF_MAX * scale):
-            fail(f"tiny model under auto on the card: {name} "
-                 f"{a.shape} max |cuda - cpu| = {err} > "
-                 f"{TINY_RTOL_OF_MAX} * {scale}")
+    out = {}
+    for impl in ("auto", "flash"):
+        want = embed("cpu", impl)
+        model.to("cuda")
+        reset_counts()
+        got = embed("cuda", impl)
+        counts = read_counts()
+        model.to("cpu")
+        picked = [select_attention_impl(b, min_samples=AUTO_GENERIC_MIN_SAMPLES)
+                  if impl == "auto" else "flash" for b in buckets]
+        n_flash = layers * picked.count("flash")
+        if (counts["flash_attn_generic_fwd"], counts["flash_attn_fwd"]) != (
+                n_flash, 0):
+            fail(f"tiny model, {impl} attention on the card: launches "
+                 f"{counts}, want {n_flash} generic forward launches "
+                 f"(buckets {buckets} -> {picked}) and no wgmma one")
+        for name, a, b in zip(("embeddings", "logits"), got, want):
+            err = float(np.abs(a - b).max())
+            scale = float(np.abs(b).max())
+            if not (a.shape == b.shape and np.isfinite(a).all()
+                    and err <= TINY_RTOL_OF_MAX * scale):
+                fail(f"tiny model, {impl} attention on the card: {name} "
+                     f"{a.shape} max |cuda - cpu| = {err} > "
+                     f"{TINY_RTOL_OF_MAX} * {scale}")
+        out[impl] = dict(picked=picked, generic_launches=n_flash,
+                         emb_max_abs_err=float(np.abs(got[0] - want[0]).max()))
+    # a head dim that no CUDA kernel takes: xla under auto, a pinned flash
+    # raises
+    wide = dataclasses.replace(xcfg, encoder_embed_dim=1040)  # D = 260
+    model = random_init_(AModel(AASISTConfig.tiny(), wide), seed=0).to("cuda")
+    x = torch.from_numpy(np.stack([w[:SR] for w in waves])).to("cuda")
+    reset_counts()
+    make_embed_fn_factory(model, "auto")(SR)(x)
+    make_embed_fn_factory(model, "auto")(40 * SR)(x)
+    if any(read_counts().values()):
+        fail(f"a head dim of 260 under auto launched a kernel: "
+             f"{read_counts()}")
     try:
-        make_score_fn(model, "flash")(
-            torch.from_numpy(np.stack([w[:SR] for w in waves])).to("cuda"))
+        make_score_fn(model, "flash")(x)
     except ValueError as e:
         pinned = str(e)
     else:
-        fail("tiny model with a pinned flash impl did not raise on the card")
-    print(f"[tiny] XLSRConfig.tiny() (fp32, head dim 16) on the card under "
-          f"auto: {len(waves)} waves of 1-2 s scored through xla attention "
-          f"(0 flash launches), embeddings {got[0].shape} within "
-          f"{TINY_RTOL_OF_MAX} of the largest |value| of the CPU's; pinned "
+        fail("head dim 260 with a pinned flash impl did not raise on the card")
+    print(f"[tiny] XLSRConfig.tiny() (fp32, head dim 16) on the card: "
+          f"{len(waves)} waves of 1-2 s in buckets {buckets}; auto picks "
+          f"{out['auto']['picked']} (AUTO_GENERIC_MIN_SAMPLES "
+          f"{AUTO_GENERIC_MIN_SAMPLES}), a pinned flash runs the generic "
+          f"kernels ({out['flash']['generic_launches']} launches); "
+          f"embeddings within {TINY_RTOL_OF_MAX} of the largest |value| of "
+          f"the CPU's both ways; head dim 260: xla under auto, a pinned "
           f"flash raises: {pinned}", flush=True)
     del model
     torch.cuda.empty_cache()
+    return out
 
 
 # Eval utterances of the scoring phase, seconds: with oc_classifier's
@@ -1819,9 +1883,13 @@ def reset_counts():
     attention.BWD_DQ_LAUNCHES = 0
     attention.BWD_DKV_LAUNCHES = 0
     attention.BWD_DOUT_COPIES = 0
+    attention.GENERIC_LAUNCHES = 0
+    attention.GENERIC_BWD_DQ_LAUNCHES = 0
+    attention.GENERIC_BWD_DKV_LAUNCHES = 0
     layernorm.LAUNCHES = 0
     fused_adam.LAUNCHES = 0
     ffn.LAUNCHES = 0
+    ffn.F32_LAUNCHES = 0
 
 
 def read_counts():
@@ -7427,6 +7495,642 @@ def phase_extras(workdir: str, fixture, model) -> tuple:
     return total, out
 
 
+# --------------------------------------------------------------- phase 20
+
+# The generic attention kernels and the fp32 FFN kernel (KERNEL_NAMES' form:
+# wrapper counter -> (device kernel name, device launches a call))
+COVERAGE_KERNEL_NAMES = {
+    "flash_attn_generic_fwd": ("flash_attn_generic_fwd_kernel", 1),
+    "flash_attn_generic_bwd_dq": ("flash_attn_generic_dq_kernel", 1),
+    "flash_attn_generic_bwd_dkv": ("flash_attn_generic_dkv_kernel", 1),
+    "ffn_fwd_f32": ("ffn_gemm_f32_kernel", 2)}
+# (dtype, D, H, Ts) of the generic attention checks: fp32 at XLS-R's head
+# dim and at the tiny model's (D 16, H 4), bf16 at head dims other than 64
+COVERAGE_ATTENTION = (("float32", 64, 16, KERNEL_TS),
+                      ("float32", 16, 4, (299,)),
+                      *(("bfloat16", d, 16, (299, 1500))
+                        for d in (16, 32, 80, 128)))
+# generic kernels vs their plain version on the same fp32 inputs: the plain
+# version repeats the kernels' arithmetic, so the two differ only by the
+# order of fp32 sums (each of up to T * D products, relative ~1e-7, read
+# 4e-7 on the H100); 1e-5 of the largest |value| holds that and fails on a
+# wrong tile, mask or scale (those move whole rows). bf16 keeps phase 3's
+# bounds (OUT_ATOL, LSE_ATOL, BWD_RTOL_OF_MAX): the plain version on the
+# same bf16 inputs rounds P from the final row max, the kernel from the
+# running one (one bf16 rounding of P, 2^-9 relative), and an output's
+# rounding may flip by one bf16 ulp.
+COVERAGE_F32_RTOL_OF_MAX = 1e-5
+# fp32 FFN kernel vs its plain version: fp32 sums of up to F = 4096
+# products in another order, ~sqrt(F) 2^-24 ~ 4e-6 of the terms' size
+# (read 3e-6 of the largest |y| on the H100); 1e-4 of the largest |y|
+# holds that and fails on a wrong tile or bias (O(1) moves of whole rows or
+# columns)
+FFN_F32_RTOL_OF_MAX = 1e-4
+FFN_F32_CASES = ((8 * 299, 1024, 4096, False), (8 * 299, 1024, 4096, True),
+                 (12 * 299, 1024, 4096, False),
+                 (12 * 299, 1024, 4096, True), (1000, 1000, 4000, False))
+# the fp32 model through the kernels vs the same weights through plain
+# attention and the plain FFN, both fp32 with TF32 off: summation order
+# only, ~1e-6 relative a layer through 24 layers and AASIST; 1e-3 relative
+# holds that and fails on any structural fault (a wrong mask, scale or
+# layout moves a distance by far more). The training step's loss and the
+# encoder's features and gradient (relative L2) are held to the same bound.
+COVERAGE_MODEL_RTOL = 1e-3
+COVERAGE_SECONDS = (2, 6, 12)
+
+
+def coverage_attention_bound(bh: int, t: int, d: int, dtype: str,
+                             backward: bool = False):
+    """Least time of one call on an H100: (bound_ms, bound_by, flops,
+    bytes). Forward: two products of 2 T^2 D flops a (b, h), q, k, v read
+    and out written once, lse written once; backward: five products, q, k,
+    v, o, dO read and dq, dk, dv written once, lse read once. fp32 at
+    67 TFLOP/s on the CUDA cores, bf16 at the tensor cores' 989."""
+    elt = 4 if dtype == "float32" else 2
+    peak = PEAK_FP32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+    flops = (10.0 if backward else 4.0) * bh * t * t * d
+    nbytes = (8.0 if backward else 4.0) * bh * t * d * elt + bh * t * 4
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def ffn_f32_bound(m: int, d: int, f: int):
+    """ffn_bound in fp32: 4 M D F flops at 67 TFLOP/s; x, W1, W2, b1, b2
+    read and y written once in fp32."""
+    flops = 4.0 * m * d * f
+    nbytes = 4.0 * (2 * m * d + 2 * d * f + f + d)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def _abs_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _rel_of_max(a, b) -> float:
+    return _abs_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+
+
+def coverage_attention_rows():
+    """The generic attention kernels against their plain versions on the
+    card at COVERAGE_ATTENTION's shapes: forward at B 8, backward at B 12
+    (TRAIN_B), each on [B, T, H, D] views of one projection output and on
+    [B*H, T, D] copies (bit for bit, and a repeat bit for bit), the
+    backward as two device launches a call and nothing else, and through
+    autograd (contiguous gradients, equal to the wrapper's; an expanded dO
+    read where it lies, no copy). Wrapper, device, plain, SDPA (same
+    dtype) and bound times. Returns (forward rows, backward rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from occm_tpu_torch.ops import attention
+    from occm_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_attention_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    fwd_rows, bwd_rows = [], []
+    for dtype, d, h, ts in COVERAGE_ATTENTION:
+        dt = getattr(torch, dtype)
+        for t in ts:
+            for backward in (False, True):
+                b = TRAIN_B if backward else B
+                qkv = torch.randn((b, t, 3, h, d), generator=gen,
+                                  device="cuda").to(dt)
+                q4, k4, v4 = qkv.unbind(2)
+
+                def flat(x):
+                    return x.permute(0, 2, 1, 3).reshape(
+                        b * h, t, d).contiguous()
+
+                q, k, v = flat(q4), flat(k4), flat(v4)
+                out4, lse4 = flash_attention_fwd(q4, k4, v4, t)
+                out, lse = flash_attention_fwd(q, k, v, t)
+                again = flash_attention_fwd(q4, k4, v4, t)
+                torch.cuda.synchronize()
+                label = f"{dtype} D={d} B={b} H={h} T={t}"
+                if not (out4.shape == q4.shape and out4.is_contiguous()
+                        and torch.equal(flat(out4), out)
+                        and torch.equal(lse4, lse)
+                        and torch.equal(again[0], out4)
+                        and torch.equal(again[1], lse4)):
+                    fail(f"generic forward {label}: views, [B*H, T, D] and "
+                         "a repeat do not agree bit for bit")
+                if not backward:
+                    ref_out, ref_lse = flash_attention_reference(q, k, v, t)
+                    abs_err = max(_abs_err(out, ref_out),
+                                  _abs_err(lse, ref_lse))
+                    if dtype == "float32":
+                        errs = {"out": _rel_of_max(out, ref_out),
+                                "lse": _rel_of_max(lse, ref_lse)}
+                        bad = max(errs.values()) > COVERAGE_F32_RTOL_OF_MAX
+                    else:
+                        errs = {"out": (out.float() - ref_out.float()).abs()
+                                .max().item(),
+                                "lse": (lse - ref_lse).abs().max().item()}
+                        bad = errs["out"] > OUT_ATOL or errs["lse"] > LSE_ATOL
+                    if bad or not all(map(math.isfinite, errs.values())):
+                        fail(f"generic forward {label} against its plain "
+                             f"version: {errs}")
+                    call = (lambda: flash_attention_fwd(q4, k4, v4, t))
+                    names = ("flash_attn_generic_fwd",)
+                    plain = (lambda: flash_attention_reference(q, k, v, t))
+                    q3, k3, v3 = (x.view(b, h, t, d) for x in (q, k, v))
+
+                    def library():
+                        with torch.no_grad():
+                            F.scaled_dot_product_attention(q3, k3, v3)
+                else:
+                    do4 = torch.randn((b, t, h, d), generator=gen,
+                                      device="cuda").to(dt)
+                    do = flat(do4)
+                    got4 = flash_attention_bwd(q4, k4, v4, out4, lse4, do4, t)
+                    rep = flash_attention_bwd(q4, k4, v4, out4, lse4, do4, t)
+                    got = flash_attention_bwd(q, k, v, out, lse, do, t)
+                    torch.cuda.synchronize()
+                    for name, a, r, c in zip(("dq", "dk", "dv"), got4, rep,
+                                             got):
+                        if not (a.shape == q4.shape and a.is_contiguous()
+                                and torch.equal(a, r)
+                                and torch.equal(flat(a), c)):
+                            fail(f"generic backward {label}: {name} of views,"
+                                 " [B*H, T, D] and a repeat do not agree "
+                                 "bit for bit, or is not contiguous")
+                    want = flash_attention_bwd_reference(q, k, v, out, lse,
+                                                         do, t)
+                    errs = {n: _rel_of_max(a, w) for n, a, w
+                            in zip(("dq", "dk", "dv"), got, want)}
+                    abs_err = max(_abs_err(a, w) for a, w in zip(got, want))
+                    rtol = (COVERAGE_F32_RTOL_OF_MAX if dtype == "float32"
+                            else BWD_RTOL_OF_MAX)
+                    if not all(math.isfinite(e) and e <= rtol
+                               for e in errs.values()):
+                        fail(f"generic backward {label} against its plain "
+                             f"version: {errs} (relative to the largest "
+                             f"|value|, bound {rtol})")
+                    if t == MAIN_PATH_TS[0]:
+                        coverage_autograd(q4, k4, v4, do4, got4, label)
+                    call = (lambda: flash_attention_bwd(
+                        q4, k4, v4, out4, lse4, do4, t))
+                    names = ("flash_attn_generic_d",)
+                    plain = (lambda: flash_attention_bwd_reference(
+                        q, k, v, out, lse, do, t))
+                    q3, k3, v3 = (x.view(b, h, t, d).detach()
+                                  .requires_grad_() for x in (q, k, v))
+                    do3 = do.view(b, h, t, d)
+
+                    def library():
+                        o3 = F.scaled_dot_product_attention(q3, k3, v3)
+                        torch.autograd.grad(o3, (q3, k3, v3), do3)
+
+                # fewer timed calls where one takes milliseconds (T 1500);
+                # the profiler's sessions keep device_ms' 20 calls, the
+                # count at which a session one record short is accepted
+                iters = 10 if t <= 600 else 4
+                ms = cuda_ms(call, iters=iters, warmup=2)
+                counters = (("flash_attn_generic_bwd_dq",
+                             "flash_attn_generic_bwd_dkv") if backward
+                            else ("flash_attn_generic_fwd",))
+                dev_ms, own, every, kept = device_ms(
+                    call, names, warmup=1, counters=counters)
+                if backward and (own, every) != (2, 2):
+                    fail(f"generic backward {label}: {every} device launches"
+                         f" a call ({own} of the kernels), want 2 (dq, "
+                         "dk/dv) and no other")
+                plain_ms = cuda_ms(plain, iters=2, warmup=1)
+                library_ms = cuda_ms(library, iters=iters, warmup=2)
+                if backward:
+                    with torch.no_grad():
+                        library_ms -= cuda_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q3, k3, v3), iters=5, warmup=2)
+                bound_ms, bound_by, flops, nbytes = coverage_attention_bound(
+                    b * h, t, d, dtype, backward)
+                # errors: fp32 relative to the largest |value|; bf16
+                # forward absolute, bf16 backward relative (as gated)
+                row = dict(dtype=dtype, D=d, B=b, H=h, T=t,
+                           max_abs_err=abs_err, errors=errs,
+                           ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, flops=flops, bytes=nbytes,
+                           **events_kept(kept))
+                (bwd_rows if backward else fwd_rows).append(row)
+                print(f"[coverage] flash_attn_generic_"
+                      f"{'bwd' if backward else 'fwd'} {label}: errors "
+                      f"{ {k: f'{e:.3e}' for k, e in errs.items()} }; views "
+                      f"= [B*H, T, D] = repeat bit for bit"
+                      f"{', 2 device launches a call' if backward else ''}; "
+                      f"wrapper {ms:.4f} ms, device {dev_ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, "
+                      f"{nbytes:.4g} B)", flush=True)
+                del qkv, q, k, v, out, lse, out4, lse4, again
+    torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def coverage_autograd(q4, k4, v4, do4, want, label):
+    """`flash_attention` through autograd on CUDA [B, T, H, D] views on the
+    generic route: one launch of each generic backward kernel and none of
+    the wgmma pair's, contiguous gradients equal bit for bit to the
+    backward wrapper's `want`; the expanded dO of `out.sum()` is read
+    where it lies (no copy) and gives the gradients of a contiguous dO of
+    ones."""
+    import torch
+
+    from occm_tpu_torch.ops import attention
+
+    q, k, v = (x.detach().requires_grad_() for x in (q4, k4, v4))
+    reset_counts()
+    grads = torch.autograd.grad(attention.flash_attention(q, k, v),
+                                (q, k, v), do4)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if (counts["flash_attn_generic_bwd_dq"],
+            counts["flash_attn_generic_bwd_dkv"],
+            counts["flash_attn_bwd_dq"], counts["flash_attn_bwd_dkv"],
+            counts["flash_attn_bwd_dout_copies"]) != (1, 1, 0, 0, 0):
+        fail(f"generic {label}: autograd launched {counts}, want one of "
+             "each generic backward kernel and no copy")
+    for name, g, w in zip(("q", "k", "v"), grads, want):
+        if not (g.is_contiguous() and torch.equal(g, w)):
+            fail(f"generic {label}: {name}'s gradient through autograd is "
+                 "not the backward kernels' contiguous one")
+    out = attention.flash_attention(q, k, v)
+    summed = torch.autograd.grad(out.sum(), (q, k, v), retain_graph=True)
+    ones = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    torch.cuda.synchronize()
+    if read_counts()["flash_attn_bwd_dout_copies"] != 0:
+        fail(f"generic {label}: an expanded dO was copied")
+    if not all(torch.equal(a, b) for a, b in zip(summed, ones)):
+        fail(f"generic {label}: the gradients of out.sum() are not those of "
+             "a contiguous dO of ones")
+    print(f"[coverage] flash_attention autograd {label}: the generic "
+          "kernels' contiguous gradients, an expanded dO read in place "
+          "with no copy", flush=True)
+
+
+def coverage_ffn_rows():
+    """ffn_fwd in fp32 (csrc/ffn_fwd_f32.cu) against ffn_reference at
+    FFN_F32_CASES: full width at M = 8 x 299 and 12 x 299 (erf and tanh
+    GELU) and the edge (1000, 1000, 4000), each timed beside its bound,
+    the plain version (the same fp32 products) and the library sequence
+    F.linear -> F.gelu -> F.linear in fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    from occm_tpu_torch.ops.ffn import ffn_fwd, ffn_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for m, d, f, approximate in FFN_F32_CASES:
+        fc1_w = 0.02 * torch.randn((f, d), generator=gen, device="cuda")
+        fc1_b = 0.02 * torch.randn((f,), generator=gen, device="cuda")
+        fc2_w = 0.02 * torch.randn((d, f), generator=gen, device="cuda")
+        fc2_b = 0.02 * torch.randn((d,), generator=gen, device="cuda")
+        x = torch.randn((m, d), generator=gen, device="cuda")
+        args = (x, fc1_w.t(), fc1_b, fc2_w.t(), fc2_b, approximate)
+        y = ffn_fwd(*args)
+        torch.cuda.synchronize()
+        ref = ffn_reference(*args)
+        err = _rel_of_max(y, ref)
+        if not (y.shape == (m, d) and y.dtype == torch.float32
+                and math.isfinite(err) and err <= FFN_F32_RTOL_OF_MAX):
+            fail(f"ffn_fwd fp32 M={m} D={d} F={f}: max |y - plain| = {err} "
+                 f"of the largest |y| > {FFN_F32_RTOL_OF_MAX}")
+        ms = cuda_ms(lambda: ffn_fwd(*args), iters=10)
+        dev_ms, _, _, kept = device_ms(lambda: ffn_fwd(*args),
+                                       ("ffn_gemm_f32_kernel",), warmup=1,
+                                       counters=("ffn_fwd_f32",))
+        plain_ms = cuda_ms(lambda: ffn_reference(*args), iters=5, warmup=1)
+        mode = "tanh" if approximate else "none"
+        library_ms = cuda_ms(lambda: F.linear(F.gelu(
+            F.linear(x, fc1_w, fc1_b), approximate=mode), fc2_w, fc2_b),
+            iters=5, warmup=1)
+        bound_ms, bound_by, flops, nbytes = ffn_f32_bound(m, d, f)
+        gelu = "tanh" if approximate else "erf"
+        rows.append(dict(M=m, D=d, F=f, gelu=gelu,
+                         max_abs_err=_abs_err(y, ref), rel_of_max=err, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, flops=flops, bytes=nbytes,
+                         **events_kept(kept)))
+        print(f"[coverage] ffn_fwd fp32 [{m}, {d}] x [{d}, {f}], {gelu}: "
+              f"max err {err:.3e} of the largest |y| (bound "
+              f"{FFN_F32_RTOL_OF_MAX}), wrapper {ms:.4f} ms, device "
+              f"{dev_ms:.4f} ms (fc1 + fc2), plain {plain_ms:.4f} ms, "
+              f"F.linear, F.gelu, F.linear {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, "
+              f"{nbytes:.4g} B)", flush=True)
+    return rows
+
+
+def phase_coverage_kernels():
+    """Phase 20's kernel checks (in a full run right after phase 3's, while
+    torch.profiler keeps every record): the generic attention kernels and
+    the fp32 FFN kernel against their plain versions."""
+    t0 = time.perf_counter()
+    fwd, bwd = coverage_attention_rows()
+    rows = {"fwd": fwd, "bwd": bwd, "ffn": coverage_ffn_rows()}
+    print(f"[coverage] phase 20's kernel checks: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def coverage_model(workdir: str) -> tuple:
+    """The fp32 model at full width through the generic attention kernels
+    and the fp32 FFN kernel: AModel(AASISTConfig(), XLSRConfig(dtype=
+    "float32", attention_impl="flash", ffn_impl="pallas")) from seed 0.
+    Scoring of 8 x 6 s and 8 x 12 s (24 generic forward and 24 fp32 FFN
+    launches a batch, no wgmma launch) against the same weights on xla
+    attention and the xla FFN (distances to the plain path's mean
+    embedding, COVERAGE_MODEL_RTOL); one eager 12 x 6 s training step
+    against the plain step (loss; the encoder held: its features and
+    gradient from the plain step's dloss/dfeatures); utt/s at 2, 6 and
+    12 s in turns: xla, flash (generic kernels) and flash with the fp32
+    FFN kernel (the measurement behind impl_select's
+    AUTO_GENERIC_MIN_SAMPLES). Returns (the counts of the path's run,
+    the results)."""
+    import torch
+
+    from occm_tpu_torch.classify.impl_select import AUTO_GENERIC_MIN_SAMPLES
+    from occm_tpu_torch.config import AASISTConfig, XLSRConfig
+    from occm_tpu_torch.losses import group_one_class_loss
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.serve import make_score_fn
+    from occm_tpu_torch.utils import random_init_
+
+    kcfg = XLSRConfig(dtype="float32", attention_impl="flash",
+                      ffn_impl="pallas")
+    pcfg = dataclasses.replace(kcfg, attention_impl="xla", ffn_impl="xla")
+    layers = kcfg.encoder_layers
+    acfg = AASISTConfig(dropout=0.0, pool_dropout=0.0, head_dropout=0.0)
+    t0 = time.perf_counter()
+    model = random_init_(AModel(acfg, kcfg), seed=0).to("cuda").eval()
+    print(f"[coverage] AModel(AASISTConfig(), XLSRConfig(dtype='float32', "
+          f"attention_impl='flash', ffn_impl='pallas')): "
+          f"{sum(p.numel() for p in model.parameters())} params, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(20)
+    out, total = {}, {}
+
+    def add(counts):
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+
+    # ---- scoring: kernels vs plain at 6 and 12 s
+    kernels = make_score_fn(model)
+
+    def run(cfg, x):
+        set_xlsr_cfg(model, cfg)
+        return kernels(x)
+
+    scoring = {}
+    for sec in (6, 12):
+        x = torch.from_numpy(np.stack([synthetic_wave(rng, sec)
+                                       for _ in range(8)])).to("cuda")
+        emb_p, _ = run(pcfg, x)
+        reset_counts()
+        emb_k, logits_k = run(kcfg, x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add(counts)
+        want = {"flash_attn_generic_fwd": layers, "ffn_fwd_f32": layers,
+                "flash_attn_fwd": 0, "ffn_fwd": 0}
+        if any(counts[k] != n for k, n in want.items()):
+            fail(f"fp32 scoring 8 x {sec} s: launches {counts}, want {want}")
+        ref = emb_p.mean(0, keepdim=True)
+        d_k = (emb_k - ref).norm(dim=1)
+        d_p = (emb_p - ref).norm(dim=1)
+        rel = float(((d_k - d_p).abs() / d_p).max())
+        feat_rel = float((emb_k - emb_p).norm() / emb_p.norm())
+        scoring[sec] = dict(distance_max_rel=rel, emb_rel_l2=feat_rel,
+                            launches=want)
+        print(f"[coverage] fp32 scoring 8 x {sec} s: {layers} generic "
+              f"forward and {layers} fp32 FFN launches, no wgmma; distances "
+              f"to the plain path's mean embedding max rel diff {rel:.3e}, "
+              f"embeddings rel L2 {feat_rel:.3e} (bound "
+              f"{COVERAGE_MODEL_RTOL})", flush=True)
+        if not (torch.isfinite(logits_k).all() and rel <= COVERAGE_MODEL_RTOL
+                and feat_rel <= COVERAGE_MODEL_RTOL):
+            fail(f"fp32 scoring 8 x {sec} s: kernels against plain "
+                 f"{scoring[sec]}")
+    out["scoring"] = scoring
+
+    # ---- one eager training step, kernels vs plain, the encoder held
+    model.train()
+    enc_params = list(model.ssl_model.parameters())
+    x = torch.from_numpy(np.stack([synthetic_wave(rng, TRAIN_CUT / SR)
+                                   for _ in range(TRAIN_B)])).to("cuda")
+    labels = torch.tensor([0] * 6 + [1] * 6).to(x.device)
+
+    def flat(params):
+        return torch.cat([p.grad.reshape(-1) for p in params
+                          if p.grad is not None])
+
+    def step(cfg, upstream=None):
+        set_xlsr_cfg(model, cfg)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        feats = model.ssl_model(x)
+        leaf = feats.detach().requires_grad_()
+        emb, logits = model.backend(leaf, None)
+        loss, _ = group_one_class_loss(emb, logits, labels, 0.1, 0.9,
+                                       TRAIN_B)
+        loss.backward()
+        feats.backward(leaf.grad if upstream is None else upstream)
+        torch.cuda.synchronize()
+        return (float(loss.detach()), feats.detach(), leaf.grad,
+                flat(enc_params), (time.perf_counter() - t1) * 1e3)
+
+    loss_p, f_p, up_p, enc_p, ms_p = step(pcfg)
+    reset_counts()
+    loss_k, f_k, _, enc_k, ms_k = step(kcfg, up_p)
+    counts = read_counts()
+    add(counts)
+    # remat (the default) runs every layer's forward again in the backward
+    fwd_per = layers * (2 if kcfg.remat else 1)
+    want = {"flash_attn_generic_fwd": fwd_per,
+            "flash_attn_generic_bwd_dq": layers,
+            "flash_attn_generic_bwd_dkv": layers, "ffn_fwd_f32": fwd_per,
+            "flash_attn_fwd": 0, "flash_attn_bwd_dq": 0, "ffn_fwd": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"fp32 training step: launches {counts}, want {want}")
+    train = dict(loss=loss_k, plain_loss=loss_p,
+                 feats_rel_l2=float((f_k - f_p).norm() / f_p.norm()),
+                 encoder_grad_rel_l2=float((enc_k - enc_p).norm()
+                                           / enc_p.norm()),
+                 ms=ms_k, plain_ms=ms_p, launches=want)
+    out["train"] = train
+    print(f"[coverage] fp32 training step 12 x 6 s (eager): {train}",
+          flush=True)
+    if not (math.isfinite(loss_k)
+            and abs(loss_k - loss_p) <= COVERAGE_MODEL_RTOL * abs(loss_p)
+            and train["feats_rel_l2"] <= COVERAGE_MODEL_RTOL
+            and train["encoder_grad_rel_l2"] <= COVERAGE_MODEL_RTOL):
+        fail(f"fp32 training step: kernels against plain {train}")
+    del enc_p, enc_k, f_p, f_k, up_p
+    model.eval()
+
+    # ---- utt/s in turns: xla, flash (generic), flash + the fp32 FFN kernel
+    fcfg = dataclasses.replace(kcfg, ffn_impl="xla")
+    speed = []
+    for sec in COVERAGE_SECONDS:
+        x = torch.from_numpy(np.stack([synthetic_wave(rng, sec)
+                                       for _ in range(8)])).to("cuda")
+        fns = {"xla": lambda x: run(pcfg, x), "flash": lambda x: run(fcfg, x),
+               "flash+ffn_pallas": lambda x: run(kcfg, x)}
+        row = dict(seconds=sec, **utt_per_s(fns, x))
+        speed.append(row)
+        print(f"[coverage] fp32 scoring utt/s, batch 8 x {sec} s, in turns: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in row.items()
+                          if isinstance(v, float)), flush=True)
+    wins = [r["seconds"] for r in speed if r["flash"] > r["xla"]]
+    first = wins[0] * SR if wins else None
+    out["speed"] = dict(rows=speed, flash_wins_at_s=wins,
+                        first_winning_bucket=first,
+                        AUTO_GENERIC_MIN_SAMPLES=AUTO_GENERIC_MIN_SAMPLES)
+    print(f"[coverage] generic flash beats xla in fp32 at {wins} s; first "
+          f"winning bucket {first} samples (AUTO_GENERIC_MIN_SAMPLES "
+          f"{AUTO_GENERIC_MIN_SAMPLES})", flush=True)
+    del model, kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, out
+
+
+def coverage_cli(workdir: str, fixture) -> tuple:
+    """XLSRConfig.tiny() through the CLIs with a pinned flash impl (the
+    generic kernels): `oc_training --xlsr_tiny --attention_impl flash` for
+    2 steps on the fixture (finite losses; the generic forward, dq and
+    dk/dv launches a step exact), and `oc_classifier --mode 2c2` on the
+    fixture's utterances with seeded random weights on the card and with
+    --device cpu: the generic forward launches a batch exact, the logits
+    within TINY_RTOL_OF_MAX of the largest |value|. Returns (counts,
+    results)."""
+    import torch
+
+    from occm_tpu_torch.cli import oc_classifier, oc_training
+    from occm_tpu_torch.config import XLSRConfig
+    from occm_tpu_torch.io.wav import load_audio
+
+    protocol, train_dir, voc_dir = fixture
+    xcfg = XLSRConfig.tiny()
+    layers = xcfg.encoder_layers
+    total, out = {}, {}
+    root = os.path.join(workdir, "coverage_cli")
+    os.makedirs(root)
+    cwd = os.getcwd()
+    os.chdir(root)  # loss.txt, metrics.jsonl and the artefacts land here
+    try:
+        reset_counts()
+        rec = StepRecorder()
+
+        def two_steps(step, metrics):
+            rec(step, metrics)
+            if len(rec.steps) == 2:
+                raise _TwoSteps
+
+        try:
+            oc_training.main([
+                "--train_protocol_file", protocol, "--train_dataset_dir",
+                train_dir, "--vocoded_dir", voc_dir, "--xlsr_tiny",
+                "--attention_impl", "flash", "--cut", str(TRAIN_CUT),
+                "--num_epochs", "1", "--compactness_weight", "0.1",
+                "--descriptiveness_weight", "0.9", "--checkpoint_dir",
+                os.path.join(root, "ckpt")], on_step=two_steps)
+        except _TwoSteps:
+            pass
+        fwd_per = layers * (2 if xcfg.remat else 1)
+        check_steps("coverage oc_training --xlsr_tiny --attention_impl flash",
+                    rec, {"flash_attn_generic_fwd": fwd_per,
+                          "flash_attn_generic_bwd_dq": layers,
+                          "flash_attn_generic_bwd_dkv": layers,
+                          "flash_attn_fwd": 0, "flash_attn_bwd_dq": 0})
+        counts = read_counts()
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+        out["train_losses"] = [st["loss"] for st in rec.steps]
+
+        # the fixture's utterances as a bare eval list
+        utts = [line.split()[1] for line in open(protocol).read().split("\n")
+                if line.strip()]
+        eval_list = os.path.join(root, "eval.txt")
+        with open(eval_list, "w") as f:
+            f.write("\n".join(utts) + "\n")
+        lengths = [len(load_audio(os.path.join(train_dir, u + ".wav"))[0])
+                   for u in utts]
+        buckets = {}
+        for n in lengths:
+            b = max(SR, -(-n // SR) * SR)
+            buckets[b] = buckets.get(b, 0) + 1
+        n_batches = sum(-(-c // 8) for c in buckets.values())
+        logits = {}
+        for device in ("cuda", "cpu"):
+            reset_counts()
+            score_file = os.path.join(root, f"scores_2c2_{device}.txt")
+            oc_classifier.main([
+                "--xlsr_tiny", "--allow_random_init", "--pretrained-sslaasist",
+                os.path.join(root, "no_such.pt"), "--attention_impl", "flash",
+                "--mode", "2c2", "--device", device, "--protocol_file",
+                protocol, "--dataset_dir", train_dir, "--eval_protocol_file",
+                eval_list, "--eval_dataset_dir", train_dir, "--score_file",
+                score_file])
+            counts = read_counts()
+            want = layers * n_batches if device == "cuda" else 0
+            if counts["flash_attn_generic_fwd"] != want or counts[
+                    "flash_attn_fwd"]:
+                fail(f"coverage oc_classifier 2c2 --xlsr_tiny on {device}: "
+                     f"launches {counts}, want {want} generic forward "
+                     f"launches ({n_batches} batches)")
+            for key, n in counts.items():
+                total[key] = total.get(key, 0) + n
+            logits[device] = np.loadtxt(score_file)
+    finally:
+        os.chdir(cwd)
+    a, b = logits["cuda"], logits["cpu"]
+    err = float(np.abs(a - b).max())
+    scale = float(np.abs(b).max())
+    out["classifier"] = dict(logits_max_abs_err=err, max_abs_logit=scale,
+                             batches=n_batches)
+    print(f"[coverage] oc_training --xlsr_tiny --attention_impl flash: 2 "
+          f"steps, losses {out['train_losses']}; oc_classifier 2c2 "
+          f"--xlsr_tiny --attention_impl flash: {len(a)} logits on the card "
+          f"against --device cpu max |diff| {err:.3e} (bound "
+          f"{TINY_RTOL_OF_MAX} * {scale:.3e}), {layers * n_batches} generic "
+          "launches", flush=True)
+    if not (a.shape == b.shape == (len(utts),) and np.isfinite(a).all()
+            and err <= TINY_RTOL_OF_MAX * scale):
+        fail(f"coverage oc_classifier 2c2: card and CPU logits disagree: "
+             f"{out['classifier']}")
+    torch.cuda.empty_cache()
+    return total, out
+
+
+def phase_coverage(workdir: str, fixture) -> tuple:
+    """Phase 20's paths after its kernel checks: the fp32 model at full
+    width (coverage_model) and the tiny model through the CLIs
+    (coverage_cli); phase 4's phase_tiny_auto holds the tiny model under
+    auto and pinned flash. The counts are set to 0 before each path and
+    read after it; every kernel of phase 20 must have launched. Returns
+    (the paths' summed counts, the results)."""
+    t0 = time.perf_counter()
+    m_counts, model_out = coverage_model(workdir)
+    c_counts, cli_out = coverage_cli(workdir, fixture)
+    counts = {k: m_counts.get(k, 0) + c_counts.get(k, 0)
+              for k in set(m_counts) | set(c_counts)}
+    for key in COVERAGE_KERNEL_NAMES:
+        if not counts.get(key):
+            fail(f"phase 20's paths never launched {key}: {counts}")
+    out = dict(model=model_out, cli=cli_out, wall_s=time.perf_counter() - t0)
+    print(f"[coverage] phase 20's paths: {out['wall_s']:.1f} s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return counts, out
+
+
 def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
     """The {"kernels": [...]} entries. Times, errors and bounds are this
     run's, at the shape named in each entry: `ms` the wrapper's time per
@@ -7492,6 +8196,57 @@ def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
          "library": "F.linear, F.gelu, F.linear (ffn_impl=\"xla\")",
          "sass_hgmma": {k: n for k, n in hgmma.items()
                         if "ffn_gemm_kernel" in k}, "per_M": ffn_rows},
+    ]
+
+
+def coverage_kernel_line(rows, launches):
+    """Phase 20's {"kernels": [...]} entries: the generic attention forward
+    and backward (their head row fp32 at XLS-R's shape, [B, T=299, H=16,
+    D=64]; every row under "per_shape") and the fp32 FFN (head row
+    [2392, 1024] x [1024, 4096], erf). `launches` come from phase 20's
+    paths, 0 with --kernels-only."""
+
+    def head(kind, **match):
+        return next(r for r in rows[kind]
+                    if all(r[k] == v for k, v in match.items()))
+
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    fwd = head("fwd", dtype="float32", D=64, T=MAIN_PATH_TS[0])
+    bwd = head("bwd", dtype="float32", D=64, T=MAIN_PATH_TS[0])
+    ffn = head("ffn", M=FFN_MAIN_M, gelu="erf")
+    replaced = "occm_tpu/ops/attention.py:"
+    return [
+        {"name": "flash_attn_generic_fwd", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/flash_attn_generic.cu",
+         "replaces": f"{replaced}45 (_fwd_kernel), {replaced}234 "
+                     "(_blocked_fwd_kernel), in fp32 and at head dims "
+                     "other than 64",
+         "launches": launches["flash_attn_generic_fwd"],
+         "shape": f"[B={B}, T={fwd['T']}, H={fwd['H']}, D=64] fp32 views",
+         **{k: fwd[k] for k in keys}, "library": "SDPA, same dtype",
+         "per_shape": rows["fwd"]},
+        {"name": "flash_attn_generic_bwd", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/flash_attn_generic.cu",
+         "replaces": f"{replaced}79 (_bwd_kernel), {replaced}350 "
+                     f"(_blocked_dq_kernel), {replaced}373 "
+                     "(_blocked_dkv_kernel), in fp32 and at head dims "
+                     "other than 64",
+         "launches": launches["flash_attn_generic_bwd_dq"],
+         "launches_dkv": launches["flash_attn_generic_bwd_dkv"],
+         "shape": f"[B={TRAIN_B}, T={bwd['T']}, H={bwd['H']}, D=64] fp32 "
+                  "views",
+         **{k: bwd[k] for k in keys},
+         "library": "SDPA forward + backward minus forward, same dtype",
+         "per_shape": rows["bwd"]},
+        {"name": "ffn_fwd_f32", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/ffn_fwd_f32.cu",
+         "replaces": "occm_tpu/ops/ffn.py:50 (_kernel), in fp32",
+         "launches": launches["ffn_fwd_f32"],
+         "shape": f"x [{FFN_MAIN_M}, 1024] x W1 [1024, 4096] fp32, erf GELU",
+         **{k: ffn[k] for k in keys},
+         "library": "F.linear, F.gelu, F.linear (fp32)",
+         "per_shape": rows["ffn"]},
     ]
 
 
@@ -7570,6 +8325,13 @@ def main(argv=None) -> int:
                          "write, read, export, and scoring, serving, "
                          "training and the XLS-R graft from a directory); "
                          "prints no kernels line")
+    ap.add_argument("--coverage-only", action="store_true",
+                    help="run phases 1, 2 and 20 only (device, build, the "
+                         "generic attention kernels and the fp32 FFN "
+                         "kernel: checks against their plain versions, the "
+                         "fp32 model at full width, the tiny model under "
+                         "auto, pinned flash and through the CLIs); prints "
+                         "no kernels line")
     ap.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD",
                                                           "PORT", "WORKDIR"),
                     help=argparse.SUPPRESS)  # phase 17's rank processes
@@ -7593,7 +8355,7 @@ def main(argv=None) -> int:
     if (args.controls_only or args.rawboost_only or args.models_only
             or args.remat_only or args.native_only or args.base_only
             or args.int8_only or args.parallel_only or args.extras_only
-            or args.orbax_only):
+            or args.orbax_only or args.coverage_only):
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -7621,6 +8383,12 @@ def main(argv=None) -> int:
                 del model
                 result = {"int8": dict(phase_int8(workdir, fixture, ckpt)[1],
                                        products=rows)}
+            elif args.coverage_only:
+                rows = phase_coverage_kernels()
+                tiny = phase_tiny_auto()
+                counts, cov = phase_coverage(workdir, fixture)
+                result = {"coverage": dict(cov, tiny=tiny, kernels=rows,
+                                           launches=counts)}
             elif args.orbax_only:
                 model, ckpt = build_seed_model(workdir)
                 del model
@@ -7648,6 +8416,8 @@ def main(argv=None) -> int:
     ln = phase_layernorm_bwd()
     adam = phase_fused_adam()
     ffn_rows = phase_ffn()
+    # phase 20's kernel checks: the generic attention and fp32 FFN kernels
+    cov_rows = phase_coverage_kernels()
     # phase 15's kernel checks here, beside phase 3's: late in a full run
     # (after phases 4-13's graphs and profiled CLI runs) torch.profiler on
     # the H100 came back with too few device events in every repeat of a
@@ -7664,6 +8434,7 @@ def main(argv=None) -> int:
         ("flash_attn_fwd", "flash_attn_bwd", "layernorm_bwd", "fused_adam",
          "ffn_fwd"), 0)
     graph_launches = dict.fromkeys(launches, 0)
+    cov_launches = dict.fromkeys(COVERAGE_KERNEL_NAMES, 0)
     if not args.kernels_only:
         from occm_tpu_torch.ops import _build
 
@@ -7687,6 +8458,11 @@ def main(argv=None) -> int:
             train_launches = phase_train(workdir, fixture, args.profile)
             print(f"[smoke] phases 4-7 ended at "
                   f"{time.perf_counter() - t_run:.1f} s", flush=True)
+            # phase 20's paths: the fp32 model at full width and the tiny
+            # model through the CLIs, on the generic and fp32 FFN kernels
+            c_counts, coverage = phase_coverage(workdir, fixture)
+            for name in cov_launches:
+                cov_launches[name] = c_counts[name]
             control_counts, replayed, controls = phase_train_controls(
                 workdir, fixture)
             rb_counts, rb_replayed, rawboost = phase_rawboost_all(workdir,
@@ -7745,6 +8521,7 @@ def main(argv=None) -> int:
         print(f"[parallel] {json.dumps(parallel, default=str)}", flush=True)
         print(f"[extras] {json.dumps(extras, default=str)}", flush=True)
         print(f"[orbax] {json.dumps(orbax_out, default=str)}", flush=True)
+        print(f"[coverage] {json.dumps(coverage, default=str)}", flush=True)
         # phase 17's path: the ranks', the NCCL run's and the scoring runs'
         # and phase 19's: scoring, serving and training from a directory
         for counts in (p_counts, o_counts):
@@ -7753,7 +8530,7 @@ def main(argv=None) -> int:
                 launches[name] += counts[name]
             launches["flash_attn_bwd"] += counts["flash_attn_bwd_dq"]
 
-    print(f"[smoke] phases 1-19 took {time.perf_counter() - t_run:.1f} s",
+    print(f"[smoke] phases 1-20 took {time.perf_counter() - t_run:.1f} s",
           flush=True)
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,
@@ -7772,6 +8549,7 @@ def main(argv=None) -> int:
             # tp=2 + sp (the LayerNorm on a frame block)
             for key, rows in pipe_rows.items():
                 entry[key] = rows[entry["name"]]
+    kernels += coverage_kernel_line(cov_rows, cov_launches)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,22 +2,26 @@
 `occm_tpu.classify.impl_select`, with the H100's thresholds).
 
 ``attention_impl="auto"`` resolves per serving bucket: the plain "xla"
-attention for short buckets, the flash kernel from AUTO_FLASH_MIN_SAMPLES
-up, under exact and fast numerics alike. The policy is a pure function of
-the bucket's sample length and of the model, so the scores for an
-utterance depend only on its bucket. On a CUDA device auto never picks a
-kernel that cannot take the model: the CUDA flash kernels take bf16 with
-head dim 64, so a model in another compute dtype or head dim
-(`XLSRConfig.tiny()`: fp32, D = 16) runs "xla" there
-(`flash_kernel_takes`). A pinned "flash" passes through and raises on
-such a model.
+attention for short buckets, the flash kernels from a measured bucket up.
+The policy is a pure function of the bucket's sample length and of the
+model, so the scores for an utterance depend only on its bucket. On a CUDA
+device the threshold depends on the kernels that take the model
+(`ops.attention.cuda_route`): the wgmma kernels (bf16, head dim 64) from
+AUTO_FLASH_MIN_SAMPLES up, under exact and fast numerics alike; the
+generic kernels (fp32, or bf16 at another head dim: `XLSRConfig.tiny()` is
+fp32 with D = 16) from AUTO_GENERIC_MIN_SAMPLES up, or never where it is
+None; a model that no kernel takes (D > 256) runs "xla"
+(`auto_flash_min_samples`). A pinned "flash" passes through, runs the
+generic kernels on such a model, and raises where no kernel takes it.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from occm_tpu_torch.ops.attention import cuda_kernel_takes
+from occm_tpu_torch.ops.attention import cuda_kernel_takes, cuda_route
 
 SR = 16000
 
@@ -41,30 +45,60 @@ SR = 16000
 #:                                       132.00, 131.97 vs 146.87, 148.50
 AUTO_FLASH_MIN_SAMPLES = 1 * SR
 
+#: Bucket sample-count at and above which "flash" replaces "xla" for a model
+#: that the generic kernels take (fp32, or bf16 at a head dim other than 64;
+#: csrc/flash_attn_generic.cu): the first bucket at which they won, from
+#: chip_smoke.py phase 20's scoring throughput of the full-width model in
+#: fp32 (XLSRConfig(dtype="float32"), batch 8, the plain FFN, flash against
+#: xla in turns) on an NVIDIA H100 80GB HBM3 at a 700 W power limit. They
+#: won in every bucket measured, from the first, in two runs (PERF.md has
+#: the table):
+#:   scoring, batch 8, utt/s (xla, flash):   2 s  226.97, 254.37; 274.81, 299.42
+#:                                           6 s  119.19, 122.26; 119.59, 122.66
+#:                                          12 s   62.26,  63.49;  62.27,  63.46
+#: Buckets below 2 s were not measured and keep "xla".
+AUTO_GENERIC_MIN_SAMPLES: Optional[int] = 2 * SR
+
 
 def select_attention_impl(bucket_samples: int,
                           base_impl: str = "auto",
-                          flash_takes_model: bool = True) -> str:
+                          min_samples: Optional[int] = AUTO_FLASH_MIN_SAMPLES
+                          ) -> str:
     """Resolve the attention impl for a bucket of `bucket_samples`.
 
     Any impl other than "auto" passes through unchanged. Auto resolves to
-    "xla" where the flash kernel cannot take the model (flash_takes_model
-    False, see `flash_kernel_takes`), else to "flash" from
-    AUTO_FLASH_MIN_SAMPLES up, whatever the numerics."""
+    "flash" from `min_samples` up (the model's threshold,
+    `auto_flash_min_samples`), else to "xla"; None: "xla" in every
+    bucket."""
     if base_impl != "auto":
         return base_impl
-    if not flash_takes_model:
+    if min_samples is None:
         return "xla"
-    return "flash" if bucket_samples >= AUTO_FLASH_MIN_SAMPLES else "xla"
+    return "flash" if bucket_samples >= min_samples else "xla"
+
+
+def _dtype_and_head_dim(xlsr_cfg):
+    return (getattr(torch, xlsr_cfg.dtype),
+            xlsr_cfg.encoder_embed_dim // xlsr_cfg.encoder_heads)
 
 
 def flash_kernel_takes(xlsr_cfg, device) -> bool:
     """Whether attention_impl="flash" runs a model of `xlsr_cfg` on
-    `device`: on a CUDA device only if the CUDA kernels take its compute
-    dtype and head dim (`ops.attention.cuda_kernel_takes`); on the CPU the
-    plain version takes any."""
+    `device`: on a CUDA device if a CUDA route takes its compute dtype and
+    head dim (`ops.attention.cuda_kernel_takes`); on the CPU the plain
+    version takes any."""
     if torch.device(device).type != "cuda":
         return True
-    return cuda_kernel_takes(getattr(torch, xlsr_cfg.dtype),
-                             xlsr_cfg.encoder_embed_dim
-                             // xlsr_cfg.encoder_heads)
+    return cuda_kernel_takes(*_dtype_and_head_dim(xlsr_cfg))
+
+
+def auto_flash_min_samples(xlsr_cfg, device) -> Optional[int]:
+    """The bucket sample-count from which auto picks "flash" for a model of
+    `xlsr_cfg` on `device` (None: never): AUTO_FLASH_MIN_SAMPLES on the CPU
+    (the plain version) and on the wgmma route, AUTO_GENERIC_MIN_SAMPLES on
+    the generic route, None where no CUDA route takes the model."""
+    if torch.device(device).type != "cuda":
+        return AUTO_FLASH_MIN_SAMPLES
+    return {"wgmma": AUTO_FLASH_MIN_SAMPLES,
+            "generic": AUTO_GENERIC_MIN_SAMPLES}.get(
+                cuda_route(*_dtype_and_head_dim(xlsr_cfg)))

@@ -41,7 +41,7 @@ import torch
 
 from occm_tpu_torch.audio import pad_numpy
 from occm_tpu_torch.classify.impl_select import (
-    flash_kernel_takes, select_attention_impl)
+    auto_flash_min_samples, select_attention_impl)
 from occm_tpu_torch.io.scorefiles import write_score_line_1c, write_score_line_2c
 from occm_tpu_torch.losses import pairwise_distance
 from occm_tpu_torch.parallel.replicas import (
@@ -62,8 +62,9 @@ def make_embed_fn_factory(model: torch.nn.Module, attention_impl: str = "auto",
                           mesh=None) -> Callable[[int], Callable]:
     """bucket_samples -> embed fn over one model: each bucket runs the
     attention impl that `select_attention_impl` picks for its length and
-    for the model where it lies (auto never picks a flash kernel that
-    cannot take it; a pinned impl passes through for every bucket).
+    for the model where it lies (auto follows the threshold of the kernels
+    that take the model, and never picks a flash kernel that cannot take
+    it; a pinned impl passes through for every bucket).
     With a data-parallel `mesh` the model is replicated on every mesh
     device once, and the factory gives one embed fn per device."""
     models = [model] if mesh is None else replicate(model, as_dp_mesh(mesh))
@@ -71,8 +72,8 @@ def make_embed_fn_factory(model: torch.nn.Module, attention_impl: str = "auto",
     def factory(bucket_samples: int):
         impl = select_attention_impl(
             bucket_samples, attention_impl,
-            flash_takes_model=flash_kernel_takes(model.xlsr_cfg,
-                                                 model_device(model)))
+            min_samples=auto_flash_min_samples(model.xlsr_cfg,
+                                               model_device(model)))
         fns = [make_score_fn(m, impl) for m in models]
         return fns[0] if mesh is None else fns
 

@@ -202,7 +202,7 @@ def xlsr_config(args, cut: int, device):
     --attention_impl resolves to for crops of `cut` samples of that model
     on `device`."""
     from occm_tpu_torch.classify.impl_select import (
-        flash_kernel_takes, select_attention_impl)
+        auto_flash_min_samples, select_attention_impl)
     from occm_tpu_torch.config import XLSRConfig
 
     xlsr_cfg = XLSRConfig.tiny() if args.xlsr_tiny else XLSRConfig()
@@ -227,7 +227,7 @@ def xlsr_config(args, cut: int, device):
         xlsr_cfg = dataclasses.replace(xlsr_cfg, seq_parallel=True)
     impl = select_attention_impl(
         cut, args.attention_impl,
-        flash_takes_model=flash_kernel_takes(xlsr_cfg, device))
+        min_samples=auto_flash_min_samples(xlsr_cfg, device))
     if impl != xlsr_cfg.attention_impl:
         xlsr_cfg = dataclasses.replace(xlsr_cfg, attention_impl=impl)
     return xlsr_cfg

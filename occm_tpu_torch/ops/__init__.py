@@ -34,7 +34,11 @@ def launch_counts() -> dict:
             "flash_attn_bwd_dkv": attention.BWD_DKV_LAUNCHES,
             "layernorm_bwd": layernorm.LAUNCHES,
             "fused_adam": fused_adam.LAUNCHES,
-            "ffn_fwd": ffn.LAUNCHES}
+            "ffn_fwd": ffn.LAUNCHES,
+            "flash_attn_generic_fwd": attention.GENERIC_LAUNCHES,
+            "flash_attn_generic_bwd_dq": attention.GENERIC_BWD_DQ_LAUNCHES,
+            "flash_attn_generic_bwd_dkv": attention.GENERIC_BWD_DKV_LAUNCHES,
+            "ffn_fwd_f32": ffn.F32_LAUNCHES}
 
 
 __all__ = [

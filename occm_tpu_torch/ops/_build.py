@@ -149,6 +149,20 @@ def load() -> ctypes.CDLL:
             lib.occm_fused_adam.restype = i
             lib.occm_ffn_gemm.argtypes = [p, p, p, p, i, i, i, i, p]
             lib.occm_ffn_gemm.restype = i
+            lib.occm_ffn_gemm_f32.argtypes = [p, p, p, p, i, i, i, i, p]
+            lib.occm_ffn_gemm_f32.restype = i
+            # the generic attention kernels: pointers, (dtype, b, h, T,
+            # t_valid, d), strides (sb, st, sh, sd) of each [b, T, h, d]
+            # input, scale, stream
+            lib.occm_flash_attn_generic_fwd.argtypes = [
+                *[p] * 5, *[i] * 6, *[ll] * 12, ctypes.c_float, p]
+            lib.occm_flash_attn_generic_fwd.restype = i
+            lib.occm_flash_attn_generic_bwd_dq.argtypes = [
+                *[p] * 8, *[i] * 6, *[ll] * 20, ctypes.c_float, p]
+            lib.occm_flash_attn_generic_bwd_dq.restype = i
+            lib.occm_flash_attn_generic_bwd_dkv.argtypes = [
+                *[p] * 8, *[i] * 6, *[ll] * 16, ctypes.c_float, p]
+            lib.occm_flash_attn_generic_bwd_dkv.restype = i
             _lib = lib
         return _lib
 

@@ -18,9 +18,16 @@ copies. They replace the three TPU backward kernels (`_bwd_kernel`,
 tensor the same Function runs `flash_attention_reference` and
 `flash_attention_bwd_reference`, the kernels' plain PyTorch versions: same
 masking, scale folding and dtype casts. A tensor on any other device
-raises; nothing falls back from a kernel to its plain version. The CUDA
-kernels take bf16 with head dim 64 (`cuda_kernel_takes`) and raise on
-anything else.
+raises; nothing falls back from a kernel to its plain version.
+
+Two CUDA routes (`cuda_route`): bf16 with head dim 64 takes the `wgmma`
+kernels above; bf16 or fp32 at any other head dim from 1 to 256, and fp32
+at 64, take the three kernels of `csrc/flash_attn_generic.cu` (forward, dq
+with δ, dk/dv: FFMA on the CUDA cores, true fp32), which replace the same
+five TPU kernels for what the wgmma pair does not take. The forward and the
+backward of one call take the same route, the backward fed by its own
+forward's lse. They read any strides in place, so no dO is copied for
+them. Whatever no route takes raises.
 
 For every T the port casts the unnormalised probabilities to bf16 before
 P·V and divides by the row sum afterwards, as the blocked TPU kernel does;
@@ -42,14 +49,35 @@ LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
 #: copies of a CUDA dO whose strides the backward's TMA maps cannot read
-#: (an expanded stride 0, say), made before the backward kernels
+#: (an expanded stride 0, say), made before the wgmma backward kernels
 BWD_DOUT_COPIES = 0
+#: launches of the generic route's kernels (csrc/flash_attn_generic.cu)
+GENERIC_LAUNCHES = 0
+GENERIC_BWD_DQ_LAUNCHES = 0
+GENERIC_BWD_DKV_LAUNCHES = 0
+
+#: head dims the generic kernels take (a padded bucket of 16 to 256)
+GENERIC_HEAD_DIMS = range(1, 257)
+#: the generic kernels' dtype codes
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def cuda_route(dtype: torch.dtype, head_dim: int):
+    """The CUDA kernels that take q, k, v of this dtype and head dim:
+    "wgmma" (bf16 with D = 64: csrc/flash_attn_fwd.cu, flash_attn_bwd.cu),
+    "generic" (bf16 or fp32 with 1 <= D <= 256 otherwise:
+    csrc/flash_attn_generic.cu), or None (raises on a CUDA tensor; on a CPU
+    tensor the plain version takes any)."""
+    if dtype == torch.bfloat16 and head_dim == 64:
+        return "wgmma"
+    if dtype in _DTYPE_CODE and head_dim in GENERIC_HEAD_DIMS:
+        return "generic"
+    return None
 
 
 def cuda_kernel_takes(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether the CUDA kernels take q, k, v of this dtype and head dim
-    (bf16 with D = 64 only; on a CPU tensor the plain version takes any)."""
-    return dtype == torch.bfloat16 and head_dim == 64
+    """Whether a CUDA route takes q, k, v of this dtype and head dim."""
+    return cuda_route(dtype, head_dim) is not None
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -98,6 +126,28 @@ def _tma_readable(x: torch.Tensor, four_d: bool) -> bool:
             and sb % 8 == st % 8 == sh % 8 == 0)
 
 
+def _strides4(x: torch.Tensor, four_d: bool):
+    """(data_ptr, sb, st, sh, sd) of a CUDA [B, T, H, D] tensor, or of
+    [BH, T, D] read as B = BH, H = 1, as the generic kernels take them (any
+    strides)."""
+    if four_d:
+        return (x.data_ptr(), *x.stride())
+    sb, st, sd = x.stride()
+    return x.data_ptr(), sb, st, x.shape[-1] * sd, sd
+
+
+def _route(dtypes, head_dim: int) -> str:
+    """The CUDA route of tensors of these dtypes, or ValueError."""
+    route = (cuda_route(dtypes[0], head_dim)
+             if len(set(dtypes)) == 1 else None)
+    if route is None:
+        raise ValueError(
+            "the CUDA kernels take bf16 or fp32 with a head dim from 1 to 256 "
+            f"(one dtype for every input), got {[str(d) for d in dtypes]} "
+            f"with head dim {head_dim}")
+    return route
+
+
 def _launch_args(x: torch.Tensor, four_d: bool):
     """(data_ptr, sb, st, sh) of a CUDA [B, T, H, D] tensor, or of [BH, T, D]
     read as B = BH, H = 1, as the kernels take them; raises ValueError for
@@ -115,9 +165,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The kernel's wrapper: q, k, v [BH, T, D] or [B, T, H, D] -> (out of
     the same shape, contiguous, in q's dtype, lse [BH, T] fp32).
 
-    CUDA tensors launch `occm_flash_attn_fwd` on the current stream (bf16,
-    D = 64; [B, T, H, D] is read through its strides, so the projections'
-    output needs no copy); CPU tensors take the plain version."""
+    CUDA tensors launch, on the current stream, `occm_flash_attn_fwd`
+    (bf16, D = 64) or `occm_flash_attn_generic_fwd` (bf16 or fp32 at any
+    other D from 1 to 256), as `cuda_route` says; [B, T, H, D] is read
+    through its strides, so the projections' output needs no copy. CPU
+    tensors take the plain version."""
     global LAUNCHES
     if not (q.device == k.device == v.device):
         raise ValueError(
@@ -141,11 +193,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
-    if not (q.dtype == k.dtype == v.dtype
-            and cuda_kernel_takes(q.dtype, D)):
-        raise ValueError(
-            f"the CUDA kernel takes bf16 with head dim 64, got {q.dtype}, "
-            f"{k.dtype}, {v.dtype} with head dim {D}")
+    route = _route((q.dtype, k.dtype, v.dtype), D)
+    if route == "generic":
+        return _generic_fwd(q, k, v, t_valid, four_d, B, H, T, D)
     qp, *qs = _launch_args(q, four_d)
     kp, *ks = _launch_args(k, four_d)
     vp, *vs = _launch_args(v, four_d)
@@ -162,6 +212,27 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"occm_flash_attn_fwd failed: error {err}")
     LAUNCHES += 1
+    return out, lse
+
+
+def _generic_fwd(q, k, v, t_valid, four_d, B, H, T, D):
+    """One launch of `occm_flash_attn_generic_fwd` on the current stream."""
+    global GENERIC_LAUNCHES
+    from occm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    (qp, *qs), (kp, *ks), (vp, *vs) = (_strides4(x, four_d)
+                                       for x in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    with _build.on_device(q.device):
+        err = lib.occm_flash_attn_generic_fwd(
+            qp, kp, vp, out.data_ptr(), lse.data_ptr(), _DTYPE_CODE[q.dtype],
+            B, H, T, t_valid, D, *qs, *ks, *vs, 1.0 / math.sqrt(D),
+            _build.raw_stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"occm_flash_attn_generic_fwd failed: error {err}")
+    GENERIC_LAUNCHES += 1
     return out, lse
 
 
@@ -223,7 +294,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `occm_flash_attn_bwd_dkv` (which reads it) on the current stream: bf16,
     D = 64, every input read through its strides ([B, T, H, D] views of the
     projections' output need no copy), two device launches and nothing
-    else. CPU tensors take the plain version."""
+    else. Any other dtype and D that `cuda_route` takes launch the generic
+    pair the same way (`occm_flash_attn_generic_bwd_dq`, then `_dkv`),
+    which reads any strides. CPU tensors take the plain version."""
     global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
     tensors = (q, k, v, o, do)
     if len({x.device for x in tensors + (lse,)}) != 1:
@@ -246,12 +319,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
-    if not all(x.dtype == q.dtype for x in tensors) or not cuda_kernel_takes(
-            q.dtype, D):
-        raise ValueError(f"the CUDA kernels take bf16 with head dim 64, got "
-                         f"{[x.dtype for x in tensors]} with head dim {D}")
+    route = _route([x.dtype for x in tensors], D)
     if not lse.is_contiguous():
         raise ValueError("the CUDA kernels take a contiguous lse")
+    if route == "generic":
+        return _generic_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D)
     (qp, *qs), (kp, *ks), (vp, *vs), (op, *os_), (dop, *dos) = (
         _launch_args(x, four_d) for x in tensors)
 
@@ -281,6 +353,40 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _generic_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D):
+    """`occm_flash_attn_generic_bwd_dq` then `_dkv` on the current stream."""
+    global GENERIC_BWD_DQ_LAUNCHES, GENERIC_BWD_DKV_LAUNCHES
+    from occm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    (qp, *qs), (kp, *ks), (vp, *vs), (op, *os_), (dop, *dos) = (
+        _strides4(x, four_d) for x in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    stream = _build.raw_stream(q.device)
+    scale = 1.0 / math.sqrt(D)
+    code = _DTYPE_CODE[q.dtype]
+    with _build.on_device(q.device):
+        err = lib.occm_flash_attn_generic_bwd_dq(
+            qp, kp, vp, op, dop, lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), code, B, H, T, t_valid, D, *qs, *ks, *vs, *os_,
+            *dos, scale, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"occm_flash_attn_generic_bwd_dq failed: error {err}")
+        GENERIC_BWD_DQ_LAUNCHES += 1
+        err = lib.occm_flash_attn_generic_bwd_dkv(
+            qp, kp, vp, dop, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), code, B, H, T, t_valid, D, *qs, *ks, *vs, *dos,
+            scale, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"occm_flash_attn_generic_bwd_dkv failed: error {err}")
+        GENERIC_BWD_DKV_LAUNCHES += 1
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     """[B, T, H, D] attention with the kernels on both passes. The forward
     reads q, k, v where they lie and saves them with out and lse; the
@@ -297,7 +403,11 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         global BWD_DOUT_COPIES
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.device.type == "cuda" and not _tma_readable(dout, True):
+        # the wgmma route's TMA maps need 16-byte strides; the generic
+        # route reads any dO where it lies
+        if (dout.device.type == "cuda"
+                and cuda_route(q.dtype, q.shape[-1]) == "wgmma"
+                and not _tma_readable(dout, True)):
             dout = dout.clone(memory_format=torch.contiguous_format)
             BWD_DOUT_COPIES += 1
         return flash_attention_bwd(q, k, v, out, lse, dout, q.shape[1])

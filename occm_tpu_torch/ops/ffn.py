@@ -6,7 +6,9 @@ keeps the JAX package's layout. It is a `torch.autograd.Function`: on a CUDA
 tensor its forward launches the hand-written Hopper kernel
 `csrc/ffn_fwd.cu` twice (fc1 + GELU into a bf16 [M, F] scratch that stays
 in L2, then fc2; `wgmma` fed by TMA), which replaces the TPU kernel
-`_kernel`; on a CPU tensor it runs
+`_kernel`; in fp32 it launches `csrc/ffn_fwd_f32.cu` twice the same way
+(a SIMT sgemm with the same epilogue, true fp32, any shape), which replaces
+the same TPU kernel where it runs in fp32; on a CPU tensor it runs
 `ffn_reference`, the kernel's plain PyTorch version. A tensor on any other
 device raises; nothing falls back from the kernel to the plain version. The kernel reads the weights as `nn.Linear` stores them
 (`fc1.weight` [F, D] = W1ᵀ, `fc2.weight` [D, F] = W2ᵀ), so the model passes
@@ -29,6 +31,8 @@ import torch.nn.functional as F
 #: calls of `ffn_fwd` that launched the kernel (two device launches each,
 #: fc1 and fc2) since the last reset; chip_smoke.py reads and resets it
 LAUNCHES = 0
+#: the same for the fp32 kernel (csrc/ffn_fwd_f32.cu)
+F32_LAUNCHES = 0
 
 #: the epilogue's activation, as `occm_ffn_gemm` takes it
 ACT_NONE, ACT_GELU_ERF, ACT_GELU_TANH = 0, 1, 2
@@ -98,6 +102,26 @@ def gemm_bias_act(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+def gemm_bias_act_f32(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+                      act: int) -> torch.Tensor:
+    """One launch of the kernel of csrc/ffn_fwd_f32.cu on the current
+    stream: act(a [M, K] b [N, K]^T + bias [N]) in fp32, in output tiles of
+    128 x 128. The caller checks the arguments: CUDA fp32, contiguous."""
+    from occm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    m, k = a.shape
+    n = b.shape[0]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    with _build.on_device(a.device):
+        err = lib.occm_ffn_gemm_f32(
+            a.data_ptr(), b.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n,
+            k, act, _build.raw_stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"occm_ffn_gemm_f32 failed: error {err}")
+    return out
+
+
 def ffn_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             w2: torch.Tensor, b2: torch.Tensor,
             approximate: bool) -> torch.Tensor:
@@ -107,18 +131,29 @@ def ffn_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     CUDA tensors make two device launches on the current stream: fc1 (+ b1,
     GELU, into a bf16 [M, F] scratch that stays in L2) and fc2 (+ b2), in
     output tiles of 128 x 256. It takes bf16, M >= 1 and D, F
-    multiples of 8 (TMA needs 16-byte row strides). CPU tensors take the
-    plain version."""
-    global LAUNCHES
+    multiples of 8 (TMA needs 16-byte row strides). fp32 x and weights
+    launch the fp32 kernel twice the same way (an fp32 [M, F] scratch,
+    tiles of 128 x 128, any M, D, F). Mixed dtypes raise. CPU tensors take
+    the plain version."""
+    global LAUNCHES, F32_LAUNCHES
     _check(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return ffn_reference(x, w1, b1, w2, b2, approximate)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn runs on cuda or cpu, not {x.device}")
-    if any(t.dtype != torch.bfloat16 for t in (x, w1, b1, w2, b2)):
+    dtypes = {t.dtype for t in (x, w1, b1, w2, b2)}
+    if dtypes == {torch.float32}:
+        act = ACT_GELU_TANH if approximate else ACT_GELU_ERF
+        h = gemm_bias_act_f32(x.contiguous(), w1.t().contiguous(),
+                              b1.contiguous(), act)
+        y = gemm_bias_act_f32(h, w2.t().contiguous(), b2.contiguous(),
+                              ACT_NONE)
+        F32_LAUNCHES += 1
+        return y
+    if dtypes != {torch.bfloat16}:
         raise ValueError(
-            "the CUDA kernel takes bf16 x and weights, got "
-            f"{[str(t.dtype) for t in (x, w1, b1, w2, b2)]}")
+            "the CUDA kernels take bf16 or fp32 x and weights of one dtype, "
+            f"got {[str(t.dtype) for t in (x, w1, b1, w2, b2)]}")
     m, d = x.shape
     f = w1.shape[1]
     if m < 1 or d % 8 or f % 8:

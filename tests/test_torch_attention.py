@@ -373,13 +373,19 @@ def test_backward_delta_is_the_fp32_rowsum_in_the_layout_of_lse():
     assert torch.equal(flat, delta)
 
 
-@pytest.mark.parametrize("dtype, head_dim, takes", [
-    (torch.bfloat16, 64, True), (torch.float32, 64, False),
-    (torch.bfloat16, 16, False), (torch.float32, 16, False),
-    (torch.float16, 64, False)])
+@pytest.mark.parametrize("dtype, head_dim, route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "generic"),
+    (torch.bfloat16, 16, "generic"), (torch.float32, 16, "generic"),
+    (torch.float16, 64, None), (torch.bfloat16, 1, "generic"),
+    (torch.float32, 256, "generic"), (torch.bfloat16, 257, None),
+    (torch.float32, 0, None)])
 def test_cuda_kernel_takes_only_bf16_with_head_dim_64(dtype, head_dim,
-                                                      takes):
-    assert attention.cuda_kernel_takes(dtype, head_dim) is takes
+                                                      route):
+    """The wgmma kernels take only bf16 with head dim 64; the generic
+    kernels take bf16 and fp32 at every other head dim from 1 to 256 (and
+    fp32 at 64); nothing takes fp16 or a head dim outside 1..256."""
+    assert attention.cuda_route(dtype, head_dim) == route
+    assert attention.cuda_kernel_takes(dtype, head_dim) is (route is not None)
 
 
 def test_backward_copies_only_a_dout_its_maps_cannot_read():
@@ -401,3 +407,170 @@ def test_backward_copies_only_a_dout_its_maps_cannot_read():
     for x, w in zip((q, k, v), want):
         assert x.grad.is_contiguous()
         torch.testing.assert_close(x.grad, w, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------- coverage:
+# fp32 and bf16 at head dims other than 64 (the generic CUDA kernels' route;
+# on the CPU their plain version) against the Pallas kernels in interpret
+# mode, which run their dots in q's dtype at any head dim. fp32 at the JAX
+# suite's tolerances (tests/test_attention.py: forward atol 2e-5, 3e-5 on
+# the blocked route; gradients atol 5e-4 / rtol 1e-3). bf16 within the
+# bounds of the kernels' bf16 checks: the whole-T TPU kernel normalises P
+# before its bf16 cast and the port after (one rounding of P, relative
+# 2^-9), and the bf16 outputs round once more (2^-8 relative, a flip of it
+# 2^-7 of the largest |value|): forward 2^-7 of the largest |out|;
+# gradients 2^-6 of the largest |value| of each (chip_smoke.py's
+# BWD_RTOL_OF_MAX: P and dS rounded to bf16 before their products, and the
+# whole-T TPU backward takes delta from its own fp32 P).
+COVERAGE_DIMS = (16, 32, 80, 128)
+BF16_OUT_RTOL_OF_MAX = 2.0 ** -7
+BF16_GRAD_RTOL_OF_MAX = 2.0 ** -6
+
+
+@pytest.mark.parametrize("T, B, H", [(201, 2, 2), (600, 1, 2)],
+                         ids=["whole_T", "blocked"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head_dim", COVERAGE_DIMS)
+def test_coverage_dtype_and_head_dim_match_pallas_kernels(head_dim, dtype,
+                                                          T, B, H):
+    """Forward and gradients of the port's flash attention at fp32 / bf16
+    and D in {16, 32, 80, 128} against jax.vjp of the Pallas kernels in
+    interpret mode, on the whole-T route (T <= 512) and the blocked one."""
+    import jax
+
+    q, k, v = _qkv((B, T, H, head_dim), seed=50 + head_dim)
+    g = np.random.default_rng(head_dim + T).normal(
+        size=(B, T, H, head_dim)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    want, vjp = jax.vjp(
+        lambda a, b, c: jax_attention.flash_attention(a, b, c,
+                                                      interpret=True),
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g).astype(jdt))
+
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_()
+                  for x in (q, k, v))
+    out = attention.flash_attention(tq, tk, tv)
+    grads = torch.autograd.grad(out, (tq, tk, tv),
+                                torch.from_numpy(g).to(tdt))
+    assert out.dtype == tdt and out.shape == (B, T, H, head_dim)
+
+    def f32(x):
+        return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+    got = [out.detach().float().numpy()] + [x.float().numpy() for x in grads]
+    ref = [f32(want)] + [f32(x) for x in want_grads]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        assert a.shape == b.shape, name
+        if dtype == "float32":
+            if name == "out":
+                atol = 2e-5 if T <= 512 else 3e-5
+                np.testing.assert_allclose(a, b, atol=atol, err_msg=name)
+            else:
+                np.testing.assert_allclose(a, b, atol=5e-4, rtol=1e-3,
+                                           err_msg=name)
+        else:
+            bound = (BF16_OUT_RTOL_OF_MAX if name == "out"
+                     else BF16_GRAD_RTOL_OF_MAX) * np.abs(b).max()
+            err = np.abs(a - b).max()
+            assert err <= bound, f"{name}: {err} > {bound}"
+
+
+@pytest.mark.parametrize("head_dim", [32, 80, 128])
+def test_folding_the_scale_before_the_bf16_cast_differs_from_scaling_logits(
+        head_dim):
+    """For D = 32, 80, 128 the scale 1/sqrt(D) is not a power of two, so
+    bf16(q * scale) is not bf16(q) * scale: the generic kernels fold the
+    scale into q before the cast, as the TPU kernels and the plain version
+    do, and scaling the fp32 logits (what the D = 64 wgmma kernels may do)
+    would give other bits. The plain version's logits are those of the
+    scale-folded bf16 q."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv((4, 96, head_dim), seed=60 + head_dim))
+    fold = attention.flash_attention_reference(q, k, v, 96)
+    logits = _plain_with_scale_on_logits(q, k, v, 96)
+    assert not torch.equal(fold[1], logits[1])
+    assert not torch.equal(fold[0], logits[0])
+    scale = 1.0 / math.sqrt(head_dim)
+    qs = (q.float() * scale).to(torch.bfloat16).float()
+    want = torch.logsumexp(qs @ k.float().transpose(1, 2), dim=-1)
+    torch.testing.assert_close(fold[1], want, rtol=1e-5, atol=1e-5)
+
+
+def _cuda_patched(monkeypatch):
+    """Every tensor reports cuda:0; the plain versions raise if reached and
+    the library's load raises Built: a wrapper that routes a CUDA tensor
+    to a kernel reaches the build, never the plain version."""
+    from occm_tpu_torch.ops import _build
+
+    class Built(Exception):
+        pass
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    def load():
+        raise Built
+
+    monkeypatch.setattr(attention, "flash_attention_reference", plain)
+    monkeypatch.setattr(attention, "flash_attention_bwd_reference", plain)
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    return Built
+
+
+@pytest.mark.parametrize("dtype, head_dim, reaches", [
+    (torch.float32, 64, "generic"), (torch.float32, 16, "generic"),
+    (torch.bfloat16, 80, "generic"), (torch.float32, 256, "generic"),
+    (torch.bfloat16, 64, "wgmma"), (torch.float32, 0, None),
+    (torch.float32, 257, None), (torch.float16, 64, None),
+    (torch.float16, 16, None)])
+def test_cuda_wrappers_route_or_refuse(monkeypatch, dtype, head_dim,
+                                       reaches):
+    """On a CUDA tensor the forward and backward wrappers take the route
+    `cuda_route` names and go on to the build (the generic route reads any
+    strides, so the views need no check), or raise ValueError for what no
+    route takes (D 0, D 257, fp16), before any build; a mixed-dtype call
+    raises. Checked with the device test patched, as this host has no
+    card."""
+    T = 8
+    q, k, v, o, do = (torch.zeros((2, T, 3, head_dim), dtype=dtype)
+                      for _ in range(5))
+    lse = torch.zeros((6, T))
+    seen = []
+    generic = {"fwd": attention._generic_fwd, "bwd": attention._generic_bwd}
+    monkeypatch.setattr(attention, "_generic_fwd",
+                        lambda *a: (seen.append("generic"), generic["fwd"](*a)))
+    monkeypatch.setattr(attention, "_generic_bwd",
+                        lambda *a: (seen.append("generic"), generic["bwd"](*a)))
+    Built = _cuda_patched(monkeypatch)
+    if reaches is None:
+        with pytest.raises(ValueError, match="from 1 to 256"):
+            attention.flash_attention_fwd(q, k, v, T)
+        with pytest.raises(ValueError, match="from 1 to 256"):
+            attention.flash_attention_bwd(q, k, v, o, lse, do, T)
+        return
+    with pytest.raises(Built):
+        attention.flash_attention_fwd(q, k, v, T)
+    with pytest.raises(Built):
+        attention.flash_attention_bwd(q, k, v, o, lse, do, T)
+    assert seen == (["generic"] * 2 if reaches == "generic" else [])
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    with pytest.raises(ValueError, match="one dtype"):
+        attention.flash_attention_fwd(q, k, v.to(other), T)
+
+
+def test_generic_launch_args_read_any_strides():
+    """The generic kernels get (ptr, sb, st, sh, sd) of any view: a fused
+    projection's strided views, [BH, T, D] as B = BH, H = 1, and an
+    expanded dO (all strides 0), which the wgmma route would copy."""
+    B, T, H, Dh = 2, 5, 3, 16
+    qkv = torch.zeros((B, T, 3, H, Dh))
+    assert attention._strides4(qkv[:, :, 0], True)[1:] == (
+        T * 3 * H * Dh, 3 * H * Dh, Dh, 1)
+    flat = torch.zeros((B * H, T, Dh))
+    assert attention._strides4(flat, False)[1:] == (T * Dh, Dh, Dh, 1)
+    expanded = torch.ones(()).expand(B, T, H, Dh)
+    assert attention._strides4(expanded, True)[1:] == (0, 0, 0, 0)

@@ -152,11 +152,14 @@ def test_bad_shapes_and_devices_raise():
 
 
 def test_cuda_path_rejects_what_the_kernel_does_not_take(monkeypatch):
-    """On a CUDA tensor the wrapper raises for fp32 and for row strides TMA
-    cannot take (D or F not a multiple of 8: 16-byte strides), before it
-    builds or launches anything; it never routes to the plain version.
-    Widths past the earlier kernel's D <= 1024 limit go on to the build.
-    Checked with the device test patched, as this host has no card."""
+    """On a CUDA tensor the wrapper routes bf16 to the wgmma kernel and
+    fp32 to the fp32 kernel (csrc/ffn_fwd_f32.cu, any shape), and raises
+    before it builds or launches anything for fp16, for mixed dtypes and,
+    in bf16, for row strides TMA cannot take (D or F not a multiple of 8:
+    16-byte strides); it never routes to the plain version. Widths past
+    the earlier kernel's D <= 1024 limit go on to the build, and so do
+    fp32 widths that are not multiples of 8. Checked with the device test
+    patched, as this host has no card."""
     from occm_tpu_torch.ops import _build
 
     x, w1, b1, w2, b2 = (torch.from_numpy(a) for a in _inputs(m=64))
@@ -166,6 +169,9 @@ def test_cuda_path_rejects_what_the_kernel_does_not_take(monkeypatch):
     odd_f = [bf[0], bf[1][:, :1020], bf[2][:1020], bf[3][:1020], bf[4]]
     wide = [torch.zeros(s, dtype=torch.bfloat16)
             for s in ((4, 1280), (1280, 64), (64,), (64, 1280), (1280,))]
+    f32_odd = [t.float() for t in odd_d]
+    half = [t.to(torch.float16) for t in (x2d, w1, b1, w2, b2)]
+    mixed = [x2d, *bf[1:]]
 
     def plain(*args):
         raise AssertionError("a CUDA tensor reached the plain version")
@@ -180,10 +186,35 @@ def test_cuda_path_rejects_what_the_kernel_does_not_take(monkeypatch):
     monkeypatch.setattr(_build, "load", load)
     monkeypatch.setattr(torch.Tensor, "device",
                         property(lambda self: torch.device("cuda", 0)))
-    with pytest.raises(ValueError, match="bf16"):
-        ffn_fwd(x2d, w1, b1, w2, b2, True)
+    for args in (half, mixed):
+        with pytest.raises(ValueError, match="bf16 or fp32"):
+            ffn_fwd(*args, True)
     for args in (odd_d, odd_f):
         with pytest.raises(ValueError, match="multiples of 8"):
             ffn_fwd(*args, True)
-    with pytest.raises(Built):
-        ffn_fwd(*wide, True)
+    for args in (wide, [x2d, w1, b1, w2, b2], f32_odd):
+        with pytest.raises(Built):
+            ffn_fwd(*args, True)
+
+
+@pytest.mark.parametrize("m, d, f", [(37, 96, 200), (1, 40, 72),
+                                     (130, 130, 129)])
+@pytest.mark.parametrize("approximate", [True, False], ids=["tanh", "erf"])
+def test_fp32_plain_version_at_ragged_shapes_matches_jax(m, d, f,
+                                                         approximate):
+    """The fp32 kernel takes any M, D, F, masking the ragged 128 x 128
+    tiles and 8-deep K steps; its plain version at such shapes against
+    the JAX package's fused_ffn (which takes its XLA route there, the
+    same function) at test_forward_matches_pallas_fp32's tolerance, and
+    no launch counted on the CPU."""
+    rng = np.random.default_rng(m + d + f)
+    args = [(rng.normal(size=s) * sd).astype(np.float32)
+            for s, sd in (((m, d), 1.0), ((d, f), 0.05), ((f,), 0.01),
+                          ((f, d), 0.05), ((d,), 0.01))]
+    want = np.asarray(jax_fused_ffn(*map(jnp.asarray, args),
+                                    approximate=approximate))
+    before = (ffn.LAUNCHES, ffn.F32_LAUNCHES)
+    got = ffn_fwd(*map(torch.from_numpy, args), approximate)
+    assert (ffn.LAUNCHES, ffn.F32_LAUNCHES) == before
+    assert got.shape == (m, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)

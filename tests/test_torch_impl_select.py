@@ -1,14 +1,16 @@
-"""attention_impl="auto" never picks a CUDA kernel that cannot take the
-model.
+"""attention_impl="auto" follows the threshold of the CUDA kernels that
+take the model, and never picks a flash kernel that cannot take it.
 
-The CUDA flash kernels take bf16 with head dim 64. On a CUDA device, auto
-resolves to "xla" for a model in another compute dtype or head dim
-(`XLSRConfig.tiny()` is fp32 with D = 16), at both places that know the
-model: the scorers' and the server's `make_embed_fn_factory`, and
-`oc_training`. On the CPU, where "flash" runs the plain version at any
-dtype, auto resolves as before, and a pinned impl always passes through.
-The device is monkeypatched: no card is needed, and no tensor is made on
-it.
+The wgmma kernels take bf16 with head dim 64 (flash from
+AUTO_FLASH_MIN_SAMPLES up); the generic kernels take fp32, and bf16 at any
+other head dim from 1 to 256 (`XLSRConfig.tiny()` is fp32 with D = 16), and
+auto picks them from the measured AUTO_GENERIC_MIN_SAMPLES up, or never
+where it is None; a model with D > 256 gets "xla". This holds at both
+places that know the model: the scorers' and the server's
+`make_embed_fn_factory`, and `oc_training`. On the CPU, where "flash" runs
+the plain version at any dtype, auto resolves as before, and a pinned impl
+always passes through. The device is monkeypatched: no card is needed, and
+no tensor is made on it.
 """
 
 import dataclasses
@@ -27,6 +29,15 @@ TINY = XLSRConfig.tiny()  # fp32, d 64, 4 heads: D = 16
 FULL = XLSRConfig()       # bf16, d 1024, 16 heads: D = 64
 FP32_D64 = dataclasses.replace(FULL, dtype="float32")
 BF16_D16 = dataclasses.replace(TINY, dtype="bfloat16")
+WIDE_HEAD = dataclasses.replace(TINY, encoder_embed_dim=1040,
+                                encoder_heads=4)  # D = 260 > 256
+
+
+def _generic_auto(seconds) -> str:
+    """What auto picks for a bucket of `seconds` on the generic route: the
+    measured threshold, or "xla" in every bucket where it is None."""
+    floor = impl_select.AUTO_GENERIC_MIN_SAMPLES
+    return "flash" if floor is not None and seconds * SR >= floor else "xla"
 
 
 def _factory_impl(monkeypatch, cfg, device, base_impl="auto",
@@ -42,12 +53,17 @@ def _factory_impl(monkeypatch, cfg, device, base_impl="auto",
     return factory(seconds * SR)
 
 
-@pytest.mark.parametrize("cfg", [TINY, FP32_D64, BF16_D16],
-                         ids=["tiny_fp32_d16", "fp32_d64", "bf16_d16"])
+@pytest.mark.parametrize("cfg", [TINY, FP32_D64, BF16_D16, WIDE_HEAD],
+                         ids=["tiny_fp32_d16", "fp32_d64", "bf16_d16",
+                              "fp32_d260"])
 @pytest.mark.parametrize("seconds", [1, 6, 12])
 def test_auto_picks_xla_for_a_cuda_model_the_kernel_cannot_take(
         monkeypatch, cfg, seconds):
-    assert _factory_impl(monkeypatch, cfg, "cuda", seconds=seconds) == "xla"
+    """The models the wgmma kernels do not take: the generic route's
+    models follow its measured threshold; a head dim no kernel takes gets
+    "xla" in every bucket."""
+    want = "xla" if cfg is WIDE_HEAD else _generic_auto(seconds)
+    assert _factory_impl(monkeypatch, cfg, "cuda", seconds=seconds) == want
 
 
 @pytest.mark.parametrize("seconds, want", [(0.5, "xla"), (1, "flash"),
@@ -68,28 +84,42 @@ def test_auto_on_the_cpu_resolves_as_before(monkeypatch, cfg):
 
 @pytest.mark.parametrize("pinned", ["flash", "xla"])
 def test_a_pinned_impl_passes_through_on_cuda(monkeypatch, pinned):
-    """A pinned "flash" on a model the kernel cannot take still reaches
-    the kernel's wrapper, which raises on the card: a selection of the
-    model's path, not a fallback on failure."""
+    """A pinned "flash" passes through on every model: the generic
+    kernels run the tiny one, and on a model no kernel takes the wrapper
+    raises on the card (a selection of the model's path, not a fallback on
+    failure)."""
     assert _factory_impl(monkeypatch, TINY, "cuda", pinned) == pinned
+    assert _factory_impl(monkeypatch, WIDE_HEAD, "cuda", pinned) == pinned
 
 
 @pytest.mark.parametrize("cfg, device, want", [
-    (TINY, "cuda", False), (FP32_D64, "cuda", False),
-    (BF16_D16, "cuda", False), (FULL, "cuda", True), (TINY, "cpu", True),
-    (FULL, "cpu", True)])
+    (TINY, "cuda", True), (FP32_D64, "cuda", True),
+    (BF16_D16, "cuda", True), (FULL, "cuda", True), (TINY, "cpu", True),
+    (FULL, "cpu", True), (WIDE_HEAD, "cuda", False),
+    (WIDE_HEAD, "cpu", True)])
 def test_flash_kernel_takes(cfg, device, want):
+    """A CUDA route takes every model but one with D > 256; the CPU's
+    plain version takes any. Auto's threshold follows the route."""
     assert impl_select.flash_kernel_takes(cfg, device) is want
+    floor = impl_select.auto_flash_min_samples(cfg, device)
+    if not want:
+        assert floor is None
+    elif device == "cpu" or cfg is FULL:
+        assert floor == impl_select.AUTO_FLASH_MIN_SAMPLES
+    else:
+        assert floor == impl_select.AUTO_GENERIC_MIN_SAMPLES
 
 
 @pytest.mark.parametrize("tiny, device, cut, want", [
-    (True, "cuda", 96000, "xla"),    # the fault: tiny fp32 D = 16 on a card
+    (True, "cuda", 96000, "generic"),  # tiny fp32 D = 16: the generic route
     (True, "cpu", 96000, "flash"),
     (False, "cuda", 96000, "flash"),
     (False, "cuda", 8000, "xla"),
 ])
 def test_training_cli_resolves_auto_for_its_model_and_device(tiny, device,
                                                              cut, want):
+    if want == "generic":
+        want = _generic_auto(cut / SR)
     argv = ["--train_protocol_file", "p", "--train_dataset_dir", "d",
             "--vocoded_dir", "v", "--cut", str(cut)]
     args = oc_training.build_parser().parse_args(

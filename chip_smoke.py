@@ -15,6 +15,7 @@
     python3 chip_smoke.py --extras-only   # phases 1, 2 and 18 only
     python3 chip_smoke.py --orbax-only    # phases 1, 2 and 19 only
     python3 chip_smoke.py --coverage-only # phases 1, 2 and 20 only
+    python3 chip_smoke.py --xlsr1b-only   # phases 1, 2 and 21 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -25,7 +26,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    `occm_tpu_torch.io.native`), prints ptxas's registers and spills, counts
    the HGMMA (wgmma) instructions of the FFN kernel and of the attention
    forward, backward dq and backward dk/dv kernels in the library's SASS
-   (cuobjdump -sass); fails if any of the four has none.
+   (cuobjdump -sass); fails if any of the four, or any instance of the
+   three attention kernels (round_up(D, 16) = 16 .. 128 and D 64's), has
+   none.
 3. kernels, each against its plain PyTorch version on the card on the same
    inputs, with the wrapper's time (CUDA events), the kernel's own device
    time (torch.profiler), and the plain, library and bound times:
@@ -87,7 +90,7 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    batches in the plain configuration (xla attention, LayerNorm and FFN,
    torch Adam). Checks each kernel's launches per step and the per-step
    losses within a stated bound; prints step times and peak memory.
-8. the training controls at full width and DEPTH (6) layers of XLS-R
+8. the training controls at full width and DEPTH (4) layers of XLS-R
    300M's 24, as in phases 10, 12 and 13 and their CLI runs (12 x 6 s,
    flash attention,
    ln_impl and ffn_impl "pallas", remat, AASIST dropouts zeroed unless
@@ -310,14 +313,18 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    tiny checks): the generic attention kernels (csrc/flash_attn_generic.cu:
    fp32 at D 64, B 8 (12 for the backward), H 16, T 201 / 299 / 599 /
    1500; fp32 at the tiny model's D 16, H 4; bf16 at D 16 / 32 / 80 / 128,
-   T 299 / 1500) and the fp32 FFN kernel (csrc/ffn_fwd_f32.cu: M 2392 /
-   3588, D 1024, F 4096, erf and tanh; (1000, 1000, 4000)) against their
+   T 299 / 1500, called directly since the wgmma route takes those, and
+   at D 136, T 299, through the wrappers) and the fp32 FFN kernel
+   (csrc/ffn_fwd_f32.cu: M 2392 / 3588, D 1024, F 4096, erf and tanh;
+   (1000, 1000, 4000)) against their
    plain versions (COVERAGE_F32_RTOL_OF_MAX, FFN_F32_RTOL_OF_MAX; bf16 at
    phase 3's bounds) with wrapper, device, plain, library (SDPA in the
-   same dtype; F.linear, F.gelu, F.linear) and bound times; each
+   same dtype; F.linear, F.gelu, F.linear: wrapper and device) and bound
+   times; each
    attention row also views = [B*H, T, D] = a repeat bit for bit, two
    device launches a backward call, and at T 299 contiguous gradients
-   through autograd (an expanded dO read in place). Then the fp32 model
+   through autograd where the generic route takes the shape (an expanded
+   dO read in place). Then the fp32 model
    at full width (AModel(AASISTConfig(), XLSRConfig(dtype="float32",
    attention_impl="flash", ffn_impl="pallas")), seed 0): 8 x 6 s and
    8 x 12 s scored (24 generic forward and 24 fp32 FFN launches a batch,
@@ -332,16 +339,42 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    and `oc_classifier --mode 2c2` on the card and with --device cpu
    (logits within TINY_RTOL_OF_MAX). In a full run its kernel checks
    follow phase 3's and its paths phase 7.
-21. with --profile only: device time by kernel (torch.profiler) for full
+21. bf16 attention at head dims other than 64 (`--xlsr1b-only`: phases 1,
+   2 and 21; in a full run its kernel checks follow phase 20's and its
+   path phase 20's paths): the wgmma kernels' instances for every
+   round_up(D, 16) at D 16, 32, 64, 80, 120 and 128, T 201 / 299 / 599 /
+   1500 (forward B 8, backward B 12, H 16), against their plain versions
+   (phase 3's bounds), against the generic kernels on the same inputs
+   (GENERIC_OUT_SLACK_OF_MAX, GENERIC_LSE_ATOL, GENERIC_BWD_RTOL_OF_MAX)
+   and, at
+   D 32, 80 and 128, through the scale-order gate (closer to the plain
+   version than the plain version with the scale on the fp32 logits);
+   views = [B*H, T, D] = a repeat bit for bit, two device launches a
+   backward call, autograd at T 299 (an expanded dO copied once); at
+   D != 64 and T 299 / 1500 wrapper, device, plain, SDPA (wrapper and
+   device), the generic kernel's ("was") and bound times. Then XLS-R 1B's
+   widths at full depth (AModel(AASISTConfig(), XLSRConfig(48 layers,
+   d 1280, FFN 5120, 16 heads of 80, out_dim 1280)), bf16, flash, fused
+   FFN, LayerNorm kernel, random weights from seed 0): 8 x 6 s and
+   8 x 12 s scored through BucketedEmbedder (48 D 80 forward and 48
+   ffn_fwd launches a batch, none of D 64's or the generic kernels;
+   distances, relative to the embeddings' norms, and embeddings within
+   XLSR1B_SCORE_RTOL of xla attention and the plain FFN), one eager
+   12 x 6 s training step against the plain one (loss,
+   encoder features and gradient within LOSS_RTOL; launches exact) and
+   one fused_adam step, utt/s at 1, 2, 6 and 12 s in turns (xla, flash,
+   flash + fused FFN: the measurement behind impl_select's threshold for
+   this route).
+22. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-22. prints {"kernels": [...]} (each entry of phases 3's kernels with
+23. prints {"kernels": [...]} (each entry of phases 3's kernels with
    phase 15's row at base's shapes under "base" and phase 17's at the
    per-rank shapes under "tp2", "dp2" or "fsdp2", "pp2" and "sp2"; phase
-   20's three entries with their shapes under "per_shape"), then
-   {"ok": true, "device": {...}} last.
-A full run makes phase 15's, 16's, 17's and 20's kernel checks right
-after phase 3's, and phases 15 and 16's other parts before phase 14
+   20's three entries and phase 21's two with their shapes under
+   "per_shape"), then {"ok": true, "device": {...}} last.
+A full run makes phase 15's, 16's, 17's, 20's and 21's kernel checks
+right after phase 3's, and phases 15 and 16's other parts before phase 14
 (see main).
 
 Imports nothing of JAX or of the JAX package.
@@ -439,15 +472,43 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 #: profiler sessions a device time may take (a session may lose records)
-PROFILE_TRIES = 8
+PROFILE_TRIES = 12
+#: the marker kernel each profiler session launches first (torch.cuda.
+#: _sleep's), and its length in clock cycles
+PROFILE_MARKER = "spin_kernel"
+PROFILE_MARKER_CYCLES = 1000
+
+
+def profiled_events(fn, iters: int):
+    """torch.profiler's CUDA events of `iters` calls of fn, in a session
+    that first launches a marker kernel (PROFILE_MARKER) and waits for it:
+    on one H100 every session lost its first device record (in each
+    session of the attention backward the dq kernel kept 19 of 20 events
+    and the dk/dv kernel all 20, whichever was timed), so the marker takes
+    that place. The marker's own events are left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+        torch.cuda.synchronize()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and PROFILE_MARKER not in e.name]
 
 
 def device_ms(fn, names, iters: int = 20, warmup: int = 3,
               whole_others: bool = True, counters=()):
     """Device time of fn's own kernels per call: torch.profiler's CUDA
-    events over `iters` calls, those whose name holds one of `names` summed
-    and divided by `iters`. Returns (ms, their launches per call, all
-    device launches per call, None or "kept/expected" named events).
+    events over `iters` calls (profiled_events), those whose name holds
+    one of `names` summed and divided by `iters`. Returns (ms, their
+    launches per call, all device launches per call, None or
+    "kept/expected" named events).
 
     fn launches the same kernels on every call, so a session whose event
     counts are not multiples of `iters` has lost records: on the H100 a
@@ -456,61 +517,66 @@ def device_ms(fn, names, iters: int = 20, warmup: int = 3,
     PROFILE_TRIES sessions in all. whole_others=False keeps a session whose
     named events alone are whole multiples (what is timed), whatever the
     count of fn's other launches. `counters`: the kernel wrappers' launch
-    counters of the named kernels (KERNEL_NAMES' keys). With them, and
-    iters >= 20, a session after the first that lost exactly one named
+    counters of the named kernels (KERNEL_NAMES' keys). With them a
+    session is kept only if its named events are the wrappers' launches
+    exactly (a session that lost all of one kernel's records is whole
+    multiples too: on the H100 one kept the dq kernel's 20 events and
+    none of the dk/dv kernel's). With them, and iters >= 20, a session
+    after the first that lost exactly one record is kept too: one named
     record (the wrappers' count less one; the other events whole, under
-    whole_others) is timed as the mean of the kept events times the
-    wrappers' launches a call: on the H100, in some calls every session
-    lost one record (the LayerNorm backward at [1800, 1024] kept 19 of 20
-    events). The launches a call it returns are then the wrappers'. A
-    library call (names ("",)) has no counters: a session after the first
-    one event short of whole multiples is timed the same way.""" 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    whole_others), timed as the mean of the kept events times the
+    wrappers' launches a call (on the H100, in some calls every session
+    lost one record: the LayerNorm backward at [1800, 1024] kept 19 of 20
+    events), or one of the other kernels' records (the named events the
+    wrappers' count exactly, timed as they are). The launches a call it
+    returns are then the wrappers' and one more other event. A library
+    call (names ("",)) has no counters: a session after the first one
+    event short of whole multiples is timed the same way."""
     from occm_tpu_torch.ops import launch_counts
 
     for _ in range(warmup):
         fn()
     for attempt in range(1, PROFILE_TRIES + 1):
-        torch.cuda.synchronize()
         before = launch_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+        events = profiled_events(fn, iters)
         after = launch_counts()
-        us, own, every = 0.0, 0, 0
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            every += 1
+        us, own, every = 0.0, 0, len(events)
+        for e in events:
             if any(n in e.name for n in names):
                 us += e.time_range.elapsed_us()
                 own += 1
-        if every and own % iters == 0 and (every % iters == 0
-                                           or not whole_others):
+        want = sum((after[c] - before[c])
+                   * {**KERNEL_NAMES, **COVERAGE_KERNEL_NAMES,
+                      **WIDE_KERNEL_NAMES}[c][1]
+                   for c in counters)
+        if (every and own % iters == 0 and (not counters or own == want)
+                and (every % iters == 0 or not whole_others)):
             if own == 0:
                 fail(f"profile: no device event named {names} "
                      f"({every / iters} device events a call)")
             return us / iters / 1e3, own / iters, every / iters, None
         print(f"[profile] session {attempt} of {PROFILE_TRIES} for {names} "
               f"lost records: {every} device events, {own} of them named, "
-              f"over {iters} calls", file=sys.stderr, flush=True)
-        want = sum((after[c] - before[c])
-                   * {**KERNEL_NAMES, **COVERAGE_KERNEL_NAMES}[c][1]
-                   for c in counters)
-        if (counters and attempt >= 2 and iters >= 20 and want % iters == 0
-                and own == want - 1
-                and ((every + 1) % iters == 0 or not whole_others)):
+              f"over {iters} calls"
+              + (f" (the wrappers launched {want})" if counters else ""),
+              file=sys.stderr, flush=True)
+        one_short = (attempt >= 2 and iters >= 20
+                     and (every + 1) % iters == 0)
+        if (counters and want and want % iters == 0 and own == want - 1
+                and (one_short or (attempt >= 2 and iters >= 20
+                                   and not whole_others))):
             print(f"[profile] timed {names} from session {attempt}, which "
                   f"kept {own} of the wrappers' {want} launches, at the mean "
                   "of those kept", file=sys.stderr, flush=True)
             return (us / own * (want / iters) / 1e3, want / iters,
                     (every + 1) / iters, f"{own}/{want}")
-        if (names == ("",) and attempt >= 2 and iters >= 20
-                and (every + 1) % iters == 0):
+        if counters and want and own == want and one_short:
+            print(f"[profile] timed {names} from session {attempt}, which "
+                  f"kept all {want} of the wrappers' launches and lost one "
+                  "other record", file=sys.stderr, flush=True)
+            return (us / iters / 1e3, want / iters, (every + 1) / iters,
+                    f"{every - own}/{every + 1 - own} others")
+        if names == ("",) and one_short:
             # a library call (every event named, no wrapper to count its
             # launches): a session after the first one record short of
             # whole multiples, as above, is timed the same way (on the
@@ -541,23 +607,13 @@ def calls_device_ms(fn, iters: int = 20, warmup: int = 3,
     kernel wrapper's, the count need not be a whole multiple of iters: on
     the H100, after phase 8, every session of RawBoost's 20 calls recorded
     one device event more than 20 times a call's."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn()
     best = (0, 0.0)
     for attempt in range(1, PROFILE_TRIES + 1):
         if attempt > sessions and best[0] > 0:
             break
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = profiled_events(fn, iters)
         best = max(best, (len(events), sum(e.time_range.elapsed_us()
                                            for e in events)))
     if best[0] == 0:
@@ -641,6 +697,19 @@ def phase_build():
                    "flash_attn_bwd_dq_kernel", "flash_attn_bwd_dkv_kernel"):
         if not any(kernel in f for f in hgmma):
             fail(f"the SASS of {kernel} holds no HGMMA: {hgmma}")
+    # and every instance of the attention kernels: <NP, fold> for
+    # NP = round_up(D, 16) from 16 to 128 (the scale folded into q), and
+    # <64, false> (D 64, the scale on the logits)
+    instances = [f"ILi{np_}ELb1E" for np_ in range(16, 129, 16)]
+    instances.append("ILi64ELb0E")
+    for kernel in ("flash_attn_fwd_kernel", "flash_attn_bwd_dq_kernel",
+                   "flash_attn_bwd_dkv_kernel"):
+        for tag in instances:
+            if not any(kernel + tag in f for f in hgmma):
+                fail(f"the SASS of {kernel}'s instance {tag} holds no "
+                     f"HGMMA: {sorted(hgmma)}")
+    print(f"[build] HGMMA in every instance of the three attention kernels "
+          f"({len(instances)} each)", flush=True)
     return hgmma
 
 
@@ -1882,6 +1951,9 @@ def reset_counts():
     attention.LAUNCHES = 0
     attention.BWD_DQ_LAUNCHES = 0
     attention.BWD_DKV_LAUNCHES = 0
+    attention.OTHER_D_LAUNCHES = 0
+    attention.OTHER_D_BWD_DQ_LAUNCHES = 0
+    attention.OTHER_D_BWD_DKV_LAUNCHES = 0
     attention.BWD_DOUT_COPIES = 0
     attention.GENERIC_LAUNCHES = 0
     attention.GENERIC_BWD_DQ_LAUNCHES = 0
@@ -2145,12 +2217,14 @@ KERNEL_NAMES = {"flash_attn_fwd": ("flash_attn_fwd_kernel", 1),
                 "fused_adam": ("fused_adam_kernel", 1),
                 "ffn_fwd": ("ffn_gemm_kernel", 2)}
 # the XLSR depth of phases 8, 10, 12 and 13: XLS-R 300M's widths (d 1024,
-# 16 heads, FFN 4096) at 6 of its 24 layers. What they hold (graphs
+# 16 heads, FFN 4096) at 4 of its 24 layers. What they hold (graphs
 # against eager, resume, grad_accum, RawBoost in the step, the other
 # models, the remat policies) is the same at any depth, and at 24 layers
 # these four phases took half of a run that must end within its time
-# limit. Phases 4-7, 11 and 14-17 keep all 24.
-DEPTH = 6
+# limit (at 6 layers a full run with phase 21 took 1131.8 s of its 1200
+# on an H100 whose host ran the other phases ~18 % slower than usual).
+# Phases 4-7, 11 and 14-17 keep all 24.
+DEPTH = 4
 
 
 def at_depth(xcfg):
@@ -2188,7 +2262,7 @@ def union_us(intervals) -> float:
     return total + (0.0 if cur_e is None else cur_e - cur_s)
 
 
-def profile_steps(fn, steps: int, label: str, want, tries: int = 3):
+def profile_steps(fn, steps: int, label: str, want, tries: int = 5):
     """torch.profiler around fn() (which runs `steps` optimizer steps,
     ending in a synchronize): per step the host window, the device busy
     time (the union of the device events' intervals: the time at least
@@ -2204,6 +2278,10 @@ def profile_steps(fn, steps: int, label: str, want, tries: int = 3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # the marker takes a lost first record's place (see
+            # profiled_events)
+            torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -2211,7 +2289,8 @@ def profile_steps(fn, steps: int, label: str, want, tries: int = 3):
         summed_us, spans = 0.0, []
         by_kernel = dict.fromkeys(KERNEL_NAMES, 0)
         for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or PROFILE_MARKER in e.name):
                 continue
             spans.append((e.time_range.start, e.time_range.end))
             summed_us += e.time_range.elapsed_us()
@@ -7505,11 +7584,15 @@ COVERAGE_KERNEL_NAMES = {
     "flash_attn_generic_bwd_dkv": ("flash_attn_generic_dkv_kernel", 1),
     "ffn_fwd_f32": ("ffn_gemm_f32_kernel", 2)}
 # (dtype, D, H, Ts) of the generic attention checks: fp32 at XLS-R's head
-# dim and at the tiny model's (D 16, H 4), bf16 at head dims other than 64
+# dim and at the tiny model's (D 16, H 4), bf16 at head dims other than 64:
+# at D 16, 32, 80 and 128, which the wgmma instances now take, called on
+# the generic kernels directly (the "was" of phase 21's rows); at D 136,
+# still the generic route's, through the wrappers and autograd
 COVERAGE_ATTENTION = (("float32", 64, 16, KERNEL_TS),
                       ("float32", 16, 4, (299,)),
                       *(("bfloat16", d, 16, (299, 1500))
-                        for d in (16, 32, 80, 128)))
+                        for d in (16, 32, 80, 128)),
+                      ("bfloat16", 136, 16, (299,)))
 # generic kernels vs their plain version on the same fp32 inputs: the plain
 # version repeats the kernels' arithmetic, so the two differ only by the
 # order of fp32 sums (each of up to T * D products, relative ~1e-7, read
@@ -7578,22 +7661,29 @@ def coverage_attention_rows():
     card at COVERAGE_ATTENTION's shapes: forward at B 8, backward at B 12
     (TRAIN_B), each on [B, T, H, D] views of one projection output and on
     [B*H, T, D] copies (bit for bit, and a repeat bit for bit), the
-    backward as two device launches a call and nothing else, and through
+    backward as two device launches a call and nothing else, and, where
+    `cuda_route` takes the shape to them, through the wrappers and
     autograd (contiguous gradients, equal to the wrapper's; an expanded dO
-    read where it lies, no copy). Wrapper, device, plain, SDPA (same
-    dtype) and bound times. Returns (forward rows, backward rows)."""
+    read where it lies, no copy); the shapes of the wgmma route are called
+    on the generic kernels directly (generic_attention_fwd, _bwd).
+    Wrapper, device, plain, SDPA (same dtype, wrapper and device) and
+    bound times. Returns (forward rows, backward rows)."""
     import torch
     import torch.nn.functional as F
 
     from occm_tpu_torch.ops import attention
     from occm_tpu_torch.ops.attention import (
-        flash_attention_bwd, flash_attention_bwd_reference,
-        flash_attention_fwd, flash_attention_reference)
+        flash_attention_bwd_reference, flash_attention_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(20)
     fwd_rows, bwd_rows = [], []
     for dtype, d, h, ts in COVERAGE_ATTENTION:
         dt = getattr(torch, dtype)
+        routed = attention.cuda_route(dt, d) == "generic"
+        flash_attention_fwd = (attention.flash_attention_fwd if routed
+                               else generic_attention_fwd)
+        flash_attention_bwd = (attention.flash_attention_bwd if routed
+                               else generic_attention_bwd)
         for t in ts:
             for backward in (False, True):
                 b = TRAIN_B if backward else B
@@ -7670,8 +7760,9 @@ def coverage_attention_rows():
                         fail(f"generic backward {label} against its plain "
                              f"version: {errs} (relative to the largest "
                              f"|value|, bound {rtol})")
-                    if t == MAIN_PATH_TS[0]:
-                        coverage_autograd(q4, k4, v4, do4, got4, label)
+                    if t == MAIN_PATH_TS[0] and routed:
+                        coverage_autograd(q4, k4, v4, do4, got4,
+                                          f"generic {label}")
                     call = (lambda: flash_attention_bwd(
                         q4, k4, v4, out4, lse4, do4, t))
                     names = ("flash_attn_generic_d",)
@@ -7701,11 +7792,13 @@ def coverage_attention_rows():
                          "dk/dv) and no other")
                 plain_ms = cuda_ms(plain, iters=2, warmup=1)
                 library_ms = cuda_ms(library, iters=iters, warmup=2)
+                library_dev = library_device_ms(library, warmup=1)
                 if backward:
                     with torch.no_grad():
-                        library_ms -= cuda_ms(
-                            lambda: F.scaled_dot_product_attention(
-                                q3, k3, v3), iters=5, warmup=2)
+                        fwd_only = (lambda: F.scaled_dot_product_attention(
+                            q3, k3, v3))
+                        library_ms -= cuda_ms(fwd_only, iters=5, warmup=2)
+                        library_dev -= library_device_ms(fwd_only, warmup=1)
                 bound_ms, bound_by, flops, nbytes = coverage_attention_bound(
                     b * h, t, d, dtype, backward)
                 # errors: fp32 relative to the largest |value|; bf16
@@ -7713,7 +7806,8 @@ def coverage_attention_rows():
                 row = dict(dtype=dtype, D=d, B=b, H=h, T=t,
                            max_abs_err=abs_err, errors=errs,
                            ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms,
+                           library_ms=library_ms,
+                           library_device_ms=library_dev, bound_ms=bound_ms,
                            bound_by=bound_by, flops=flops, bytes=nbytes,
                            **events_kept(kept))
                 (bwd_rows if backward else fwd_rows).append(row)
@@ -7723,53 +7817,62 @@ def coverage_attention_rows():
                       f"= [B*H, T, D] = repeat bit for bit"
                       f"{', 2 device launches a call' if backward else ''}; "
                       f"wrapper {ms:.4f} ms, device {dev_ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-                      f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, "
-                      f"{nbytes:.4g} B)", flush=True)
+                      f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (device "
+                      f"{library_dev:.4f}), bound {bound_ms:.4f} ms "
+                      f"({bound_by}; {flops:.4g} flop, {nbytes:.4g} B)",
+                      flush=True)
                 del qkv, q, k, v, out, lse, out4, lse4, again
     torch.cuda.empty_cache()
     return fwd_rows, bwd_rows
 
 
-def coverage_autograd(q4, k4, v4, do4, want, label):
-    """`flash_attention` through autograd on CUDA [B, T, H, D] views on the
-    generic route: one launch of each generic backward kernel and none of
-    the wgmma pair's, contiguous gradients equal bit for bit to the
-    backward wrapper's `want`; the expanded dO of `out.sum()` is read
-    where it lies (no copy) and gives the gradients of a contiguous dO of
-    ones."""
+def coverage_autograd(q4, k4, v4, do4, want, label,
+                      kernels=("flash_attn_generic_bwd_dq",
+                               "flash_attn_generic_bwd_dkv")):
+    """`flash_attention` through autograd on CUDA [B, T, H, D] views: one
+    launch of each backward kernel the route takes (`kernels`: the generic
+    pair, or a wgmma instance's counters) and none of any other attention
+    backward kernel, contiguous gradients equal bit for bit to the backward
+    wrapper's `want`; the expanded dO of `out.sum()` gives the gradients of
+    a contiguous dO of ones, read where it lies on the generic route and
+    copied once on the wgmma route (its TMA maps cannot read stride 0)."""
     import torch
 
     from occm_tpu_torch.ops import attention
 
+    backward = ("flash_attn_generic_bwd_dq", "flash_attn_generic_bwd_dkv",
+                "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                "flash_attn_bwd_other_d_dq", "flash_attn_bwd_other_d_dkv")
     q, k, v = (x.detach().requires_grad_() for x in (q4, k4, v4))
     reset_counts()
     grads = torch.autograd.grad(attention.flash_attention(q, k, v),
                                 (q, k, v), do4)
     torch.cuda.synchronize()
     counts = read_counts()
-    if (counts["flash_attn_generic_bwd_dq"],
-            counts["flash_attn_generic_bwd_dkv"],
-            counts["flash_attn_bwd_dq"], counts["flash_attn_bwd_dkv"],
-            counts["flash_attn_bwd_dout_copies"]) != (1, 1, 0, 0, 0):
-        fail(f"generic {label}: autograd launched {counts}, want one of "
-             "each generic backward kernel and no copy")
+    want_counts = {key: int(key in kernels) for key in backward}
+    if ({key: counts[key] for key in backward} != want_counts
+            or counts["flash_attn_bwd_dout_copies"]):
+        fail(f"{label}: autograd launched {counts}, want {want_counts} and "
+             "no copy")
     for name, g, w in zip(("q", "k", "v"), grads, want):
         if not (g.is_contiguous() and torch.equal(g, w)):
-            fail(f"generic {label}: {name}'s gradient through autograd is "
-                 "not the backward kernels' contiguous one")
+            fail(f"{label}: {name}'s gradient through autograd is not the "
+                 "backward kernels' contiguous one")
     out = attention.flash_attention(q, k, v)
     summed = torch.autograd.grad(out.sum(), (q, k, v), retain_graph=True)
     ones = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
     torch.cuda.synchronize()
-    if read_counts()["flash_attn_bwd_dout_copies"] != 0:
-        fail(f"generic {label}: an expanded dO was copied")
+    copies = int("flash_attn_generic_bwd_dq" not in kernels)
+    if read_counts()["flash_attn_bwd_dout_copies"] != copies:
+        fail(f"{label}: the expanded dO was copied "
+             f"{read_counts()['flash_attn_bwd_dout_copies']} times, want "
+             f"{copies}")
     if not all(torch.equal(a, b) for a, b in zip(summed, ones)):
-        fail(f"generic {label}: the gradients of out.sum() are not those of "
-             "a contiguous dO of ones")
-    print(f"[coverage] flash_attention autograd {label}: the generic "
-          "kernels' contiguous gradients, an expanded dO read in place "
-          "with no copy", flush=True)
+        fail(f"{label}: the gradients of out.sum() are not those of a "
+             "contiguous dO of ones")
+    print(f"[autograd] flash_attention {label}: the kernels' contiguous "
+          f"gradients ({', '.join(kernels)}), an expanded dO "
+          f"{'read in place' if not copies else 'copied once'}", flush=True)
 
 
 def coverage_ffn_rows():
@@ -7806,22 +7909,28 @@ def coverage_ffn_rows():
                                        counters=("ffn_fwd_f32",))
         plain_ms = cuda_ms(lambda: ffn_reference(*args), iters=5, warmup=1)
         mode = "tanh" if approximate else "none"
-        library_ms = cuda_ms(lambda: F.linear(F.gelu(
-            F.linear(x, fc1_w, fc1_b), approximate=mode), fc2_w, fc2_b),
-            iters=5, warmup=1)
+
+        def library():
+            return F.linear(F.gelu(F.linear(x, fc1_w, fc1_b),
+                                   approximate=mode), fc2_w, fc2_b)
+
+        library_ms = cuda_ms(library, iters=5, warmup=1)
+        library_dev = calls_device_ms(library, warmup=1)[0]
         bound_ms, bound_by, flops, nbytes = ffn_f32_bound(m, d, f)
         gelu = "tanh" if approximate else "erf"
         rows.append(dict(M=m, D=d, F=f, gelu=gelu,
                          max_abs_err=_abs_err(y, ref), rel_of_max=err, ms=ms,
                          device_ms=dev_ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms,
+                         library_ms=library_ms, library_device_ms=library_dev,
+                         bound_ms=bound_ms,
                          bound_by=bound_by, flops=flops, bytes=nbytes,
                          **events_kept(kept)))
         print(f"[coverage] ffn_fwd fp32 [{m}, {d}] x [{d}, {f}], {gelu}: "
               f"max err {err:.3e} of the largest |y| (bound "
               f"{FFN_F32_RTOL_OF_MAX}), wrapper {ms:.4f} ms, device "
               f"{dev_ms:.4f} ms (fc1 + fc2), plain {plain_ms:.4f} ms, "
-              f"F.linear, F.gelu, F.linear {library_ms:.4f} ms, bound "
+              f"F.linear, F.gelu, F.linear {library_ms:.4f} ms (device "
+              f"{library_dev:.4f}), bound "
               f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, "
               f"{nbytes:.4g} B)", flush=True)
     return rows
@@ -8131,6 +8240,640 @@ def phase_coverage(workdir: str, fixture) -> tuple:
     return counts, out
 
 
+# --------------------------------------------------------------- phase 21
+
+# The wgmma attention kernels' instances at head dims other than 64
+# (KERNEL_NAMES' form: wrapper counter -> (device kernel name, device
+# launches a call)); D 64's instances count under flash_attn_fwd,
+# flash_attn_bwd_dq and flash_attn_bwd_dkv
+WIDE_KERNEL_NAMES = {
+    "flash_attn_fwd_other_d": ("flash_attn_fwd_kernel", 1),
+    "flash_attn_bwd_other_d_dq": ("flash_attn_bwd_dq_kernel", 1),
+    "flash_attn_bwd_other_d_dkv": ("flash_attn_bwd_dkv_kernel", 1)}
+# head dims of phase 21's kernel checks (D 64: the instance of phase 3,
+# checked again beside the others), each at every T of KERNEL_TS; timed
+# (D != 64) at WIDE_TIMED_TS, the rows of PERF.md
+WIDE_DIMS = (16, 32, 64, 80, 120, 128)
+WIDE_TIMED_TS = (299, 1500)
+# head dims whose scale 1/sqrt(D) is not a power of two: the kernels fold
+# it into q before the bf16 cast (the JAX order), which the scale-order
+# gate tells apart from scaling the fp32 logits (the D 64 order)
+SCALE_GATE_DIMS = (32, 80, 128)
+# the wgmma instances against the generic kernels (csrc/flash_attn_generic
+# .cu) on the same inputs: the same roundings at the same places (the
+# scale folded into q, P and dS rounded to bf16 before their products,
+# fp32 sums), in another summation order. Each forward output may then
+# round to the neighbouring bf16 value (one ulp of its own magnitude), and
+# a bf16 P that rounds the other way moves an output by at most 2^-8 of
+# that key's weighted |v|, independent of the output's own size (an
+# output near 0 read 37 of its own ulps, 2.2e-4 of the largest |out|, at
+# D 16): one ulp of each output plus 2^-9 of the largest |out|. lse is
+# fp32 on both sides (read 1.9e-6 apart): 1e-5, a hundredth of the plain
+# bound. The gradients also pass through the cancellation of
+# dS = P (dP - delta), so each is held to one bf16 ulp of its largest
+# |value| (2^-7 of it), a quarter of the plain bound.
+GENERIC_OUT_SLACK_OF_MAX = 2.0 ** -9
+GENERIC_LSE_ATOL = 1e-5
+GENERIC_BWD_RTOL_OF_MAX = 2.0 ** -7
+# XLS-R 1B's published widths (fairseq xls_r_1b, HF facebook/wav2vec2-xls-r-
+# 1b): 48 layers, d 1280, FFN 5120, 16 heads of 80; AASIST's ssl_dim is
+# the encoder's width
+XLSR1B = dict(encoder_layers=48, encoder_embed_dim=1280,
+              encoder_ffn_dim=5120, encoder_heads=16, out_dim=1280)
+# flash attention and the fused FFN against xla attention and the plain
+# FFN through XLS-R 1B's 48 layers: SCORE_RTOL's argument (P and the FFN's
+# hidden activation rounded at other places, a relative 2^-9 a layer
+# carried by the residual stream) over twice the layers, whose drift grows
+# as their square root: 1.5 x SCORE_RTOL for the embeddings' relative L2
+# and for each distance's difference relative to its embedding's norm
+# (|d_k - d_p| <= |e_k - e_p|). Relative to the distance itself it is
+# ill-conditioned here: with random weights the 48 layers bring the eight
+# synthetic utterances' embeddings close to their mean (one 12 s distance
+# moved by 0.77 of itself while the embeddings moved 4.3e-3, relative L2),
+# so that ratio is printed, not held.
+XLSR1B_SCORE_RTOL = 1.5 * SCORE_RTOL
+XLSR1B_SECONDS = (1, 2, 6, 12)
+
+
+def _ulp_bf16(x):
+    """The bf16 ulp of each |x| (2^(e - 7) for |x| in [2^e, 2^(e+1)),
+    the smallest normal's below it)."""
+    import torch
+
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def generic_attention_fwd(q, k, v, t):
+    """The generic forward kernel on q, k, v whatever `cuda_route` picks
+    for them (csrc/flash_attn_generic.cu, the wgmma instances' "was")."""
+    from occm_tpu_torch.ops import attention
+
+    four_d = q.dim() == 4
+    B, T, H, D = q.shape if four_d else (q.shape[0], q.shape[1], 1,
+                                         q.shape[2])
+    return attention._generic_fwd(q, k, v, t, four_d, B, H, T, D)
+
+
+def generic_attention_bwd(q, k, v, o, lse, do, t):
+    """The generic backward pair whatever `cuda_route` picks."""
+    from occm_tpu_torch.ops import attention
+
+    four_d = q.dim() == 4
+    B, T, H, D = q.shape if four_d else (q.shape[0], q.shape[1], 1,
+                                         q.shape[2])
+    return attention._generic_bwd(q, k, v, o, lse, do, t, four_d, B, H, T,
+                                  D)
+
+
+def plain_scale_on_logits(q, k, v, t):
+    """flash_attention_reference with the scale on the fp32 logits of the
+    unscaled bf16 q (the D 64 kernels' order) instead of folded into q
+    before the bf16 cast (the TPU kernels' and the plain version's)."""
+    import torch
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    logits = logits.masked_fill(col >= t, -1e30)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return ((acc / l).to(q.dtype),
+            (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0])
+
+
+def plain_scale_on_logits_bwd(q, k, v, o, lse, do, t):
+    """flash_attention_bwd_reference on [BH, T, D] with P from the fp32
+    logits of the unscaled q times the scale (the D 64 kernels' order)."""
+    import torch
+
+    from occm_tpu_torch.ops.attention import flash_attention_bwd_delta
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dt = q.dtype
+    kf, vf, dof = k.float(), v.float(), do.float()
+    logits = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    logits = logits.masked_fill(col >= t, -1e30)
+    p = torch.exp(logits - lse[..., None])
+    delta = flash_attention_bwd_delta(o, do)[..., None]
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    p_lo, ds_lo = p.to(dt).float(), ds.to(dt).float()
+    dv = torch.matmul(p_lo.transpose(-1, -2), dof)
+    dq = torch.matmul(ds_lo, kf) * scale
+    dk = torch.matmul(ds_lo.transpose(-1, -2), q.float()) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def wide_attention_rows():
+    """The wgmma attention kernels at bf16 head dims WIDE_DIMS, T in
+    KERNEL_TS (forward at B 8, backward at B 12, H 16), on [B, T, H, D]
+    views of one projection output and on [B*H, T, D] copies: views, copies
+    and a repeat bit for bit, launches counted on the instance's counters
+    (OTHER_D_* off D 64), the backward two device launches a call and
+    nothing else, autograd at T 299 (coverage_autograd); each against its
+    plain version (phase 3's bounds), against the generic kernels on the same
+    inputs (GENERIC_*), and at SCALE_GATE_DIMS through the scale-order
+    gate: the kernel's distance from the plain version (out's relative L2
+    and lse's largest difference; each gradient's relative L2) below that
+    of the plain version with the scale on the fp32 logits. Timed at D !=
+    64 and T in WIDE_TIMED_TS: wrapper, device, plain, SDPA (wrapper and
+    device), the generic kernel's wrapper time ("was") and the bound.
+    Returns (forward rows, backward rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from occm_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_attention_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    fwd_rows, bwd_rows = [], []
+    for d in WIDE_DIMS:
+        other = d != 64
+        fwd_key = "flash_attn_fwd_other_d" if other else "flash_attn_fwd"
+        for t in KERNEL_TS:
+            for backward in (False, True):
+                b, h = (TRAIN_B if backward else B), H
+                qkv = torch.randn((b, t, 3, h, d), generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+                q4, k4, v4 = qkv.unbind(2)
+
+                def flat(x):
+                    return x.permute(0, 2, 1, 3).reshape(
+                        b * h, t, d).contiguous()
+
+                q, k, v = flat(q4), flat(k4), flat(v4)
+                reset_counts()
+                out4, lse4 = flash_attention_fwd(q4, k4, v4, t)
+                out, lse = flash_attention_fwd(q, k, v, t)
+                again = flash_attention_fwd(q4, k4, v4, t)
+                torch.cuda.synchronize()
+                label = f"bf16 D={d} B={b} H={h} T={t}"
+                if read_counts()[fwd_key] != 3:
+                    fail(f"wgmma forward {label}: launches {read_counts()}, "
+                         f"want 3 of {fwd_key}")
+                if not (out4.shape == q4.shape and out4.is_contiguous()
+                        and torch.equal(flat(out4), out)
+                        and torch.equal(lse4, lse)
+                        and torch.equal(again[0], out4)
+                        and torch.equal(again[1], lse4)):
+                    fail(f"wgmma forward {label}: views, [B*H, T, D] and a "
+                         "repeat do not agree bit for bit")
+                gate = None
+                if not backward:
+                    ref_out, ref_lse = flash_attention_reference(q, k, v, t)
+                    errs = {"out": _abs_err(out, ref_out),
+                            "lse": _abs_err(lse, ref_lse)}
+                    if not (errs["out"] <= OUT_ATOL
+                            and errs["lse"] <= LSE_ATOL
+                            and all(map(math.isfinite, errs.values()))):
+                        fail(f"wgmma forward {label} against its plain "
+                             f"version: {errs}")
+                    g_out, g_lse = generic_attention_fwd(q, k, v, t)
+                    a, g = out.float(), g_out.float()
+                    excess = float(((a - g).abs() - _ulp_bf16(
+                        torch.maximum(a.abs(), g.abs()))).max()
+                        / g.abs().max())
+                    vs_generic = {"out_excess_of_max": excess,
+                                  "out": _abs_err(a, g),
+                                  "lse": _abs_err(lse, g_lse)}
+                    if not (excess <= GENERIC_OUT_SLACK_OF_MAX
+                            and vs_generic["lse"] <= GENERIC_LSE_ATOL):
+                        fail(f"wgmma forward {label} against the generic "
+                             f"kernel: {vs_generic} (bounds one ulp + "
+                             f"{GENERIC_OUT_SLACK_OF_MAX} of the largest "
+                             f"|out|, {GENERIC_LSE_ATOL})")
+                    if d in SCALE_GATE_DIMS:
+                        v_out, v_lse = plain_scale_on_logits(q, k, v, t)
+                        gate = {"kernel": (_rel_l2(out, ref_out),
+                                           _abs_err(lse, ref_lse)),
+                                "logits_scaled": (_rel_l2(v_out, ref_out),
+                                                  _abs_err(v_lse, ref_lse))}
+                        if not all(a < b for a, b in zip(
+                                gate["kernel"], gate["logits_scaled"])):
+                            fail(f"wgmma forward {label}: scale-order gate "
+                                 f"(out rel L2, lse max): {gate}")
+                    call = (lambda: flash_attention_fwd(q4, k4, v4, t))
+                    generic = (lambda: generic_attention_fwd(q4, k4, v4, t))
+                    names = ("flash_attn_fwd_kernel",)
+                    counters = (fwd_key,)
+                    plain = (lambda: flash_attention_reference(q, k, v, t))
+                    q3, k3, v3 = (x.view(b, h, t, d) for x in (q, k, v))
+
+                    def library():
+                        with torch.no_grad():
+                            F.scaled_dot_product_attention(q3, k3, v3)
+                else:
+                    do4 = torch.randn((b, t, h, d), generator=gen,
+                                      device="cuda").to(torch.bfloat16)
+                    do = flat(do4)
+                    got4 = flash_attention_bwd(q4, k4, v4, out4, lse4, do4, t)
+                    rep = flash_attention_bwd(q4, k4, v4, out4, lse4, do4, t)
+                    got = flash_attention_bwd(q, k, v, out, lse, do, t)
+                    torch.cuda.synchronize()
+                    for name, a, r, c in zip(("dq", "dk", "dv"), got4, rep,
+                                             got):
+                        if not (a.shape == q4.shape and a.is_contiguous()
+                                and torch.equal(a, r)
+                                and torch.equal(flat(a), c)):
+                            fail(f"wgmma backward {label}: {name} of views, "
+                                 "[B*H, T, D] and a repeat do not agree bit "
+                                 "for bit, or is not contiguous")
+                    want = flash_attention_bwd_reference(q, k, v, out, lse,
+                                                         do, t)
+                    errs = {n: _rel_of_max(a, w) for n, a, w
+                            in zip(("dq", "dk", "dv"), got, want)}
+                    if not all(math.isfinite(e) and e <= BWD_RTOL_OF_MAX
+                               for e in errs.values()):
+                        fail(f"wgmma backward {label} against its plain "
+                             f"version: {errs} (relative to the largest "
+                             f"|value|, bound {BWD_RTOL_OF_MAX})")
+                    g_grads = generic_attention_bwd(q, k, v, out, lse, do, t)
+                    vs_generic = {n: _rel_of_max(a, w) for n, a, w
+                                  in zip(("dq", "dk", "dv"), got, g_grads)}
+                    if not all(e <= GENERIC_BWD_RTOL_OF_MAX
+                               for e in vs_generic.values()):
+                        fail(f"wgmma backward {label} against the generic "
+                             f"kernels: {vs_generic} (bound "
+                             f"{GENERIC_BWD_RTOL_OF_MAX})")
+                    if d in SCALE_GATE_DIMS:
+                        variant = plain_scale_on_logits_bwd(q, k, v, out,
+                                                            lse, do, t)
+                        gate = {"kernel": tuple(_rel_l2(a, w) for a, w
+                                                in zip(got, want)),
+                                "logits_scaled": tuple(
+                                    _rel_l2(a, w)
+                                    for a, w in zip(variant, want))}
+                        if not all(a < b for a, b in zip(
+                                gate["kernel"], gate["logits_scaled"])):
+                            fail(f"wgmma backward {label}: scale-order gate "
+                                 f"(dq, dk, dv rel L2): {gate}")
+                    counters = (("flash_attn_bwd_other_d_dq",
+                                 "flash_attn_bwd_other_d_dkv") if other
+                                else ("flash_attn_bwd_dq",
+                                      "flash_attn_bwd_dkv"))
+                    if t == MAIN_PATH_TS[0]:
+                        coverage_autograd(q4, k4, v4, do4, got4,
+                                          f"wgmma {label}", counters)
+                    call = (lambda: flash_attention_bwd(
+                        q4, k4, v4, out4, lse4, do4, t))
+                    generic = (lambda: generic_attention_bwd(
+                        q4, k4, v4, out4, lse4, do4, t))
+                    names = ("flash_attn_bwd_d",)
+                    plain = (lambda: flash_attention_bwd_reference(
+                        q, k, v, out, lse, do, t))
+                    q3, k3, v3 = (x.view(b, h, t, d).detach()
+                                  .requires_grad_() for x in (q, k, v))
+                    do3 = do.view(b, h, t, d)
+
+                    def library():
+                        o3 = F.scaled_dot_product_attention(q3, k3, v3)
+                        torch.autograd.grad(o3, (q3, k3, v3), do3)
+
+                row = dict(dtype="bfloat16", D=d, B=b, H=h, T=t,
+                           errors=errs, vs_generic=vs_generic,
+                           max_abs_err=max(
+                               _abs_err(a, w) for a, w in (
+                                   zip(got, want) if backward
+                                   else ((out, ref_out),))),
+                           **({"scale_order_gate": gate} if gate else {}))
+                timed = other and t in WIDE_TIMED_TS
+                if timed:
+                    iters = 10 if t <= 600 else 4
+                    row["ms"] = cuda_ms(call, iters=iters, warmup=2)
+                    dev_ms, own, every, kept = device_ms(
+                        call, names, warmup=1, counters=counters)
+                    if backward and (own, every) != (2, 2):
+                        fail(f"wgmma backward {label}: {every} device "
+                             f"launches a call ({own} of the kernels), want "
+                             "2 (dq, dk/dv) and no other")
+                    row["device_ms"] = dev_ms
+                    row.update(events_kept(kept))
+                    row["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
+                    row["was_ms"] = cuda_ms(generic, iters=iters, warmup=1)
+                    library_ms = cuda_ms(library, iters=iters, warmup=2)
+                    library_dev = library_device_ms(library, warmup=1)
+                    if backward:
+                        with torch.no_grad():
+                            fwd_only = (lambda: F.scaled_dot_product_attention(
+                                q3, k3, v3))
+                            library_ms -= cuda_ms(fwd_only, iters=5, warmup=2)
+                            library_dev -= library_device_ms(fwd_only,
+                                                             warmup=1)
+                    row["library_ms"] = library_ms
+                    row["library_device_ms"] = library_dev
+                    (row["bound_ms"], row["bound_by"], row["flops"],
+                     row["bytes"]) = coverage_attention_bound(
+                         b * h, t, d, "bfloat16", backward)
+                (bwd_rows if backward else fwd_rows).append(row)
+                kind = "bwd" if backward else "fwd"
+                times = (f"; wrapper {row['ms']:.4f} ms, device "
+                         f"{row['device_ms']:.4f} ms, plain "
+                         f"{row['plain_ms']:.4f} ms, sdpa "
+                         f"{row['library_ms']:.4f} ms (device "
+                         f"{row['library_device_ms']:.4f}), was (generic) "
+                         f"{row['was_ms']:.4f} ms, bound "
+                         f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                         if timed else "")
+                print(f"[wide] flash_attn_{kind} {label}: against plain "
+                      f"{ {k: f'{e:.3e}' for k, e in errs.items()} }, "
+                      f"against generic "
+                      f"{ {k: f'{e:.3e}' for k, e in vs_generic.items()} }"
+                      + (f", scale-order gate {gate}" if gate else "")
+                      + "; views = [B*H, T, D] = repeat bit for bit" + times,
+                      flush=True)
+                del qkv, q, k, v, out, lse, out4, lse4, again
+    torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def phase_wide_kernels():
+    """Phase 21's kernel checks (in a full run right after phase 20's):
+    the wgmma attention instances at bf16 head dims other than 64."""
+    t0 = time.perf_counter()
+    fwd, bwd = wide_attention_rows()
+    print(f"[wide] phase 21's kernel checks: {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def xlsr1b_model() -> tuple:
+    """XLS-R 1B's widths at full depth through the wgmma attention instance
+    for D 80: AModel(AASISTConfig(), XLSRConfig(**XLSR1B)) in bf16 with
+    attention_impl="flash", ffn_impl="pallas" and ln_impl="pallas", random
+    weights from seed 0 (PyTorch's initialisers, on the card), AASIST's
+    dropouts off. Scoring of 8 x 6 s and 8 x 12 s through BucketedEmbedder
+    (48 forward launches of the D 80 instance and 48 ffn_fwd a batch, no
+    D 64 or generic launch), the distances to the plain path's mean
+    embedding (their differences relative to the embeddings' norms) and
+    the embeddings within XLSR1B_SCORE_RTOL of the same weights on xla
+    attention and the plain FFN; one eager 12 x 6 s training step against
+    the plain one (loss within LOSS_RTOL; the encoder held: its features
+    and its gradient from the plain step's dloss/dfeatures within
+    LOSS_RTOL, relative L2), its launches exact (the D 80 forward twice a
+    layer under remat, dq and dk/dv once, layernorm_bwd twice, ffn_fwd
+    twice), then one fused_adam step over every leaf (a launch a
+    MAX_LEAVES leaves); utt/s
+    at XLSR1B_SECONDS in turns: xla, flash (the plain FFN) and flash with
+    the fused FFN (the measurement behind impl_select's threshold for the
+    wgmma route at head dims other than 64). Returns (the counts of the
+    path's run, the results)."""
+    import torch
+
+    from occm_tpu_torch.classify import (
+        BucketedEmbedder, make_embed_fn_factory)
+    from occm_tpu_torch.classify.impl_select import auto_flash_min_samples
+    from occm_tpu_torch.config import AASISTConfig, XLSRConfig
+    from occm_tpu_torch.losses import group_one_class_loss
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.ops.fused_adam import MAX_LEAVES, FusedAdam
+    from occm_tpu_torch.serve import make_score_fn
+
+    kcfg = XLSRConfig(**XLSR1B, attention_impl="flash", ffn_impl="pallas",
+                      ln_impl="pallas")
+    pcfg = dataclasses.replace(kcfg, attention_impl="xla", ffn_impl="xla",
+                               ln_impl="xla")
+    layers = kcfg.encoder_layers
+    acfg = AASISTConfig(dropout=0.0, pool_dropout=0.0, head_dropout=0.0)
+    t0 = time.perf_counter()
+    with torch.random.fork_rng(devices=[0]), torch.device(DEVICE):
+        torch.manual_seed(0)
+        model = AModel(acfg, kcfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"params": n_params, "encoder_params": sum(
+        p.numel() for p in model.ssl_model.parameters()),
+           "init_s": time.perf_counter() - t0}
+    print(f"[xlsr1b] AModel(AASISTConfig(), XLSRConfig({XLSR1B}, bf16, "
+          f"flash, ffn_impl and ln_impl 'pallas')): {n_params} params "
+          f"({out['encoder_params']} in the encoder), head dim "
+          f"{kcfg.encoder_embed_dim // kcfg.encoder_heads}, init "
+          f"{out['init_s']:.1f} s", flush=True)
+    rng = np.random.default_rng(21)
+    total = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+
+    # ---- scoring through BucketedEmbedder: kernels vs plain, 6 and 12 s
+    def embed(cfg, impl, waves):
+        set_xlsr_cfg(model, cfg)
+        return BucketedEmbedder(
+            embed_fn_factory=make_embed_fn_factory(model, impl),
+            bucket_step=SR, batch_size=8, device=DEVICE).embed_all(waves)
+
+    scoring = {}
+    for sec in (6, 12):
+        waves = [synthetic_wave(rng, sec) for _ in range(8)]
+        emb_p, _ = embed(pcfg, "xla", waves)
+        reset_counts()
+        emb_k, logits_k = embed(kcfg, "flash", waves)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add(counts)
+        want = {"flash_attn_fwd_other_d": layers, "ffn_fwd": layers,
+                "flash_attn_fwd": 0, "flash_attn_generic_fwd": 0}
+        if any(counts[k] != n for k, n in want.items()):
+            fail(f"XLS-R 1B scoring 8 x {sec} s: launches {counts}, want "
+                 f"{want}")
+        ref = emb_p.mean(0, keepdims=True)
+        d_k = np.linalg.norm(emb_k - ref, axis=1)
+        d_p = np.linalg.norm(emb_p - ref, axis=1)
+        norms = np.linalg.norm(emb_p, axis=1)
+        rel = float((np.abs(d_k - d_p) / norms).max())
+        emb_rel = float(np.linalg.norm(emb_k - emb_p) / np.linalg.norm(emb_p))
+        scoring[sec] = dict(
+            distance_max_diff_of_norm=rel, emb_rel_l2=emb_rel,
+            distance_max_rel=float((np.abs(d_k - d_p) / d_p).max()),
+            plain_distances_of_norm=(d_p / norms).tolist(), launches=want)
+        print(f"[xlsr1b] scoring 8 x {sec} s through BucketedEmbedder: "
+              f"{layers} D 80 forward and {layers} ffn_fwd launches, no D 64 "
+              f"or generic one; distances to the plain path's mean "
+              f"embedding: largest difference {rel:.3e} of the embedding's "
+              f"norm, embeddings rel L2 {emb_rel:.3e} (bound "
+              f"{XLSR1B_SCORE_RTOL}); the plain distances "
+              f"{(d_p / norms).min():.3e}-{(d_p / norms).max():.3e} of the "
+              f"norm, their largest relative difference "
+              f"{scoring[sec]['distance_max_rel']:.3e} (printed)",
+              flush=True)
+        if not (np.isfinite(logits_k).all() and rel <= XLSR1B_SCORE_RTOL
+                and emb_rel <= XLSR1B_SCORE_RTOL):
+            fail(f"XLS-R 1B scoring 8 x {sec} s: kernels against plain "
+                 f"{scoring[sec]}")
+    out["scoring"] = scoring
+
+    # ---- one eager training step, kernels vs plain, the encoder held
+    model.train()
+    params = list(model.parameters())
+    enc_params = list(model.ssl_model.parameters())
+    x = torch.from_numpy(np.stack([synthetic_wave(rng, TRAIN_CUT / SR)
+                                   for _ in range(TRAIN_B)])).to(DEVICE)
+    labels = torch.tensor([0] * 6 + [1] * 6).to(x.device)
+
+    def flat(ps):
+        return torch.cat([p.grad.reshape(-1).float() for p in ps
+                          if p.grad is not None])
+
+    def step(cfg, upstream=None):
+        set_xlsr_cfg(model, cfg)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        feats = model.ssl_model(x)
+        leaf = feats.detach().requires_grad_()
+        emb, logits = model.backend(leaf, None)
+        loss, _ = group_one_class_loss(emb, logits, labels, 0.1, 0.9,
+                                       TRAIN_B)
+        loss.backward()
+        feats.backward(leaf.grad if upstream is None else upstream)
+        torch.cuda.synchronize()
+        return (float(loss.detach()), feats.detach(), leaf.grad,
+                flat(enc_params), (time.perf_counter() - t1) * 1e3)
+
+    loss_p, f_p, up_p, enc_p, ms_p = step(pcfg)
+    reset_counts()
+    loss_k, f_k, _, enc_k, ms_k = step(kcfg, up_p)
+    opt = FusedAdam(1e-5).init([p.detach() for p in params])
+    opt.step([p.detach() for p in params], [p.grad for p in params])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    add(counts)
+    fwd_per = layers * (2 if kcfg.remat else 1)
+    # the Adam kernel takes MAX_LEAVES leaves a launch
+    adam_launches = -(-sum(p.grad is not None for p in params) // MAX_LEAVES)
+    want = {"flash_attn_fwd_other_d": fwd_per,
+            "flash_attn_bwd_other_d_dq": layers,
+            "flash_attn_bwd_other_d_dkv": layers,
+            "layernorm_bwd": 2 * layers, "ffn_fwd": fwd_per,
+            "fused_adam": adam_launches, "flash_attn_fwd": 0,
+            "flash_attn_bwd_dq": 0, "flash_attn_generic_fwd": 0,
+            "flash_attn_generic_bwd_dq": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"XLS-R 1B training step: launches {counts}, want {want}")
+    finite = all(bool(torch.isfinite(p).all()) for p in params)
+    train = dict(loss=loss_k, plain_loss=loss_p,
+                 feats_rel_l2=_rel_l2(f_k, f_p),
+                 encoder_grad_rel_l2=_rel_l2(enc_k, enc_p),
+                 ms=ms_k, plain_ms=ms_p, launches=want,
+                 params_finite_after_adam=finite)
+    out["train"] = train
+    print(f"[xlsr1b] training step 12 x 6 s (eager, all {layers} layers), "
+          f"then one fused_adam step: {train}", flush=True)
+    if not (math.isfinite(loss_k) and finite
+            and abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p)
+            and train["feats_rel_l2"] <= LOSS_RTOL
+            and train["encoder_grad_rel_l2"] <= LOSS_RTOL):
+        fail(f"XLS-R 1B training step: kernels against plain {train}")
+    del enc_p, enc_k, f_p, f_k, up_p, opt
+    model.zero_grad(set_to_none=True)
+    model.eval()
+
+    # ---- utt/s in turns: xla, flash, flash + the fused FFN
+    fcfg = dataclasses.replace(kcfg, ffn_impl="xla")
+
+    def run(cfg, impl):
+        score = make_score_fn(model, impl)
+
+        def fn(x):
+            set_xlsr_cfg(model, cfg)
+            return score(x)
+
+        return fn
+
+    fns = {"xla": run(pcfg, "xla"), "flash": run(fcfg, "flash"),
+           "flash+ffn_pallas": run(kcfg, "flash")}
+    speed = []
+    for sec in XLSR1B_SECONDS:
+        x = torch.from_numpy(np.stack([synthetic_wave(rng, sec)
+                                       for _ in range(8)])).to(DEVICE)
+        row = dict(seconds=sec, **utt_per_s(fns, x))
+        speed.append(row)
+        print(f"[xlsr1b] scoring utt/s, batch 8 x {sec} s, in turns: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in row.items()
+                          if isinstance(v, float)), flush=True)
+    wins = [r["seconds"] for r in speed if r["flash"] > r["xla"]]
+    out["speed"] = dict(rows=speed, flash_wins_at_s=wins,
+                        auto_min_samples=auto_flash_min_samples(kcfg, DEVICE))
+    print(f"[xlsr1b] flash (D 80 instance) beats xla at {wins} s; auto's "
+          f"threshold for the model: {out['speed']['auto_min_samples']} "
+          "samples", flush=True)
+    del model, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, out
+
+
+def phase_xlsr1b() -> tuple:
+    """Phase 21's path after its kernel checks: XLS-R 1B's widths
+    (xlsr1b_model). The counts are set to 0 before the path and read after
+    it; each kernel of the path must have launched. Returns (the path's
+    counts, the results)."""
+    t0 = time.perf_counter()
+    counts, out = xlsr1b_model()
+    for key in (*WIDE_KERNEL_NAMES, "ffn_fwd", "layernorm_bwd",
+                "fused_adam"):
+        if not counts.get(key):
+            fail(f"phase 21's path never launched {key}: {counts}")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[xlsr1b] phase 21's path: {out['wall_s']:.1f} s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return counts, out
+
+
+def wide_kernel_line(rows, launches):
+    """Phase 21's {"kernels": [...]} entries: the wgmma attention instances
+    at head dims other than 64, forward and backward, their head row at
+    XLS-R 1B's shape (D 80, T 299: [B=8, T=299, H=16, D=80] forward,
+    B 12 backward), every row under "per_shape". `launches` come from
+    phase 21's path, 0 with --kernels-only."""
+
+    def head(kind):
+        return next(r for r in rows[kind]
+                    if r["D"] == 80 and r["T"] == MAIN_PATH_TS[0])
+
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "was_ms")
+    fwd, bwd = head("fwd"), head("bwd")
+    replaced = "occm_tpu/ops/attention.py:"
+    return [
+        {"name": "flash_attn_fwd_other_d", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/flash_attn_fwd.cu",
+         "replaces": f"{replaced}45 (_fwd_kernel), {replaced}234 "
+                     "(_blocked_fwd_kernel), in bf16 at head dims other "
+                     "than 64",
+         "launches": launches["flash_attn_fwd_other_d"],
+         "shape": f"[B={B}, T={fwd['T']}, H={H}, D=80] bf16 views",
+         "max_abs_err": max(r["max_abs_err"] for r in rows["fwd"]),
+         **{k: fwd[k] for k in keys},
+         "library": "SDPA, bf16",
+         "was": "the generic kernel, csrc/flash_attn_generic.cu",
+         "per_shape": rows["fwd"]},
+        {"name": "flash_attn_bwd_other_d", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": f"{replaced}79 (_bwd_kernel), {replaced}350 "
+                     f"(_blocked_dq_kernel), {replaced}373 "
+                     "(_blocked_dkv_kernel), in bf16 at head dims other "
+                     "than 64",
+         "launches": launches["flash_attn_bwd_other_d_dq"],
+         "launches_dkv": launches["flash_attn_bwd_other_d_dkv"],
+         "shape": f"[B={TRAIN_B}, T={bwd['T']}, H={H}, D=80] bf16 views",
+         "max_abs_err": max(r["max_abs_err"] for r in rows["bwd"]),
+         **{k: bwd[k] for k in keys},
+         "library": "SDPA forward + backward minus forward, bf16",
+         "was": "the generic kernels, csrc/flash_attn_generic.cu",
+         "per_shape": rows["bwd"]},
+    ]
+
+
 def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
     """The {"kernels": [...]} entries. Times, errors and bounds are this
     run's, at the shape named in each entry: `ms` the wrapper's time per
@@ -8211,7 +8954,7 @@ def coverage_kernel_line(rows, launches):
                     if all(r[k] == v for k, v in match.items()))
 
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "library_device_ms")
     fwd = head("fwd", dtype="float32", D=64, T=MAIN_PATH_TS[0])
     bwd = head("bwd", dtype="float32", D=64, T=MAIN_PATH_TS[0])
     ffn = head("ffn", M=FFN_MAIN_M, gelu="erf")
@@ -8332,6 +9075,13 @@ def main(argv=None) -> int:
                          "fp32 model at full width, the tiny model under "
                          "auto, pinned flash and through the CLIs); prints "
                          "no kernels line")
+    ap.add_argument("--xlsr1b-only", action="store_true",
+                    help="run phases 1, 2 and 21 only (device, build, the "
+                         "wgmma attention kernels at bf16 head dims other "
+                         "than 64: checks against their plain versions and "
+                         "the generic kernels, XLS-R 1B's widths at full "
+                         "depth (D 80): scoring, a training step, utt/s); "
+                         "prints no kernels line")
     ap.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD",
                                                           "PORT", "WORKDIR"),
                     help=argparse.SUPPRESS)  # phase 17's rank processes
@@ -8355,7 +9105,7 @@ def main(argv=None) -> int:
     if (args.controls_only or args.rawboost_only or args.models_only
             or args.remat_only or args.native_only or args.base_only
             or args.int8_only or args.parallel_only or args.extras_only
-            or args.orbax_only or args.coverage_only):
+            or args.orbax_only or args.coverage_only or args.xlsr1b_only):
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -8389,6 +9139,11 @@ def main(argv=None) -> int:
                 counts, cov = phase_coverage(workdir, fixture)
                 result = {"coverage": dict(cov, tiny=tiny, kernels=rows,
                                            launches=counts)}
+            elif args.xlsr1b_only:
+                rows = phase_wide_kernels()
+                counts, wide = phase_xlsr1b()
+                result = {"xlsr1b": dict(wide, kernels=rows,
+                                         launches=counts)}
             elif args.orbax_only:
                 model, ckpt = build_seed_model(workdir)
                 del model
@@ -8418,6 +9173,8 @@ def main(argv=None) -> int:
     ffn_rows = phase_ffn()
     # phase 20's kernel checks: the generic attention and fp32 FFN kernels
     cov_rows = phase_coverage_kernels()
+    # phase 21's: the wgmma attention kernels at head dims other than 64
+    wide_rows = phase_wide_kernels()
     # phase 15's kernel checks here, beside phase 3's: late in a full run
     # (after phases 4-13's graphs and profiled CLI runs) torch.profiler on
     # the H100 came back with too few device events in every repeat of a
@@ -8435,6 +9192,7 @@ def main(argv=None) -> int:
          "ffn_fwd"), 0)
     graph_launches = dict.fromkeys(launches, 0)
     cov_launches = dict.fromkeys(COVERAGE_KERNEL_NAMES, 0)
+    wide_launches = dict.fromkeys(WIDE_KERNEL_NAMES, 0)
     if not args.kernels_only:
         from occm_tpu_torch.ops import _build
 
@@ -8463,6 +9221,10 @@ def main(argv=None) -> int:
             c_counts, coverage = phase_coverage(workdir, fixture)
             for name in cov_launches:
                 cov_launches[name] = c_counts[name]
+            # phase 21's path: XLS-R 1B's widths on the D 80 instance
+            w_counts, xlsr1b = phase_xlsr1b()
+            for name in wide_launches:
+                wide_launches[name] = w_counts[name]
             control_counts, replayed, controls = phase_train_controls(
                 workdir, fixture)
             rb_counts, rb_replayed, rawboost = phase_rawboost_all(workdir,
@@ -8522,15 +9284,18 @@ def main(argv=None) -> int:
         print(f"[extras] {json.dumps(extras, default=str)}", flush=True)
         print(f"[orbax] {json.dumps(orbax_out, default=str)}", flush=True)
         print(f"[coverage] {json.dumps(coverage, default=str)}", flush=True)
+        print(f"[xlsr1b] {json.dumps(xlsr1b, default=str)}", flush=True)
         # phase 17's path: the ranks', the NCCL run's and the scoring runs'
         # and phase 19's: scoring, serving and training from a directory
-        for counts in (p_counts, o_counts):
+        # and phase 21's: XLS-R 1B's step runs the FFN, LayerNorm and Adam
+        # kernels too
+        for counts in (p_counts, o_counts, w_counts):
             for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
                          "ffn_fwd"):
                 launches[name] += counts[name]
             launches["flash_attn_bwd"] += counts["flash_attn_bwd_dq"]
 
-    print(f"[smoke] phases 1-20 took {time.perf_counter() - t_run:.1f} s",
+    print(f"[smoke] phases 1-21 took {time.perf_counter() - t_run:.1f} s",
           flush=True)
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,
@@ -8550,6 +9315,7 @@ def main(argv=None) -> int:
             for key, rows in pipe_rows.items():
                 entry[key] = rows[entry["name"]]
     kernels += coverage_kernel_line(cov_rows, cov_launches)
+    kernels += wide_kernel_line(wide_rows, wide_launches)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

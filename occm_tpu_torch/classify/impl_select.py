@@ -6,10 +6,12 @@ attention for short buckets, the flash kernels from a measured bucket up.
 The policy is a pure function of the bucket's sample length and of the
 model, so the scores for an utterance depend only on its bucket. On a CUDA
 device the threshold depends on the kernels that take the model
-(`ops.attention.cuda_route`): the wgmma kernels (bf16, head dim 64) from
-AUTO_FLASH_MIN_SAMPLES up, under exact and fast numerics alike; the
-generic kernels (fp32, or bf16 at another head dim: `XLSRConfig.tiny()` is
-fp32 with D = 16) from AUTO_GENERIC_MIN_SAMPLES up, or never where it is
+(`ops.attention.cuda_route`): the wgmma kernels at head dim 64 (bf16) from
+AUTO_FLASH_MIN_SAMPLES up, under exact and fast numerics alike; their
+instances at the other head dims they take (bf16, multiples of 8 up to
+128: XLS-R 1B's D 80) from AUTO_WGMMA_OTHER_D_MIN_SAMPLES up; the generic
+kernels (fp32, or bf16 at any other head dim: `XLSRConfig.tiny()` is fp32
+with D = 16) from AUTO_GENERIC_MIN_SAMPLES up; never where a threshold is
 None; a model that no kernel takes (D > 256) runs "xla"
 (`auto_flash_min_samples`). A pinned "flash" passes through, runs the
 generic kernels on such a model, and raises where no kernel takes it.
@@ -46,18 +48,37 @@ SR = 16000
 AUTO_FLASH_MIN_SAMPLES = 1 * SR
 
 #: Bucket sample-count at and above which "flash" replaces "xla" for a model
-#: that the generic kernels take (fp32, or bf16 at a head dim other than 64;
-#: csrc/flash_attn_generic.cu): the first bucket at which they won, from
-#: chip_smoke.py phase 20's scoring throughput of the full-width model in
-#: fp32 (XLSRConfig(dtype="float32"), batch 8, the plain FFN, flash against
-#: xla in turns) on an NVIDIA H100 80GB HBM3 at a 700 W power limit. They
-#: won in every bucket measured, from the first, in two runs (PERF.md has
-#: the table):
+#: that the generic kernels take (fp32, or bf16 at a head dim the wgmma
+#: kernels do not take; csrc/flash_attn_generic.cu): the first bucket at
+#: which they won, from chip_smoke.py phase 20's scoring throughput of the
+#: full-width model in fp32 (XLSRConfig(dtype="float32"), batch 8, the
+#: plain FFN, flash against xla in turns) on an NVIDIA H100 80GB HBM3 at a
+#: 700 W power limit. They won in every bucket measured, from the first, in
+#: two runs:
 #:   scoring, batch 8, utt/s (xla, flash):   2 s  226.97, 254.37; 274.81, 299.42
 #:                                           6 s  119.19, 122.26; 119.59, 122.66
 #:                                          12 s   62.26,  63.49;  62.27,  63.46
 #: Buckets below 2 s were not measured and keep "xla".
 AUTO_GENERIC_MIN_SAMPLES: Optional[int] = 2 * SR
+
+#: Bucket sample-count at and above which "flash" replaces "xla" for a bf16
+#: model whose head dim the wgmma kernels take other than 64 (their
+#: instances for round_up(D, 16); csrc/flash_attn_fwd.cu): None, "xla" in
+#: every bucket. chip_smoke.py phase 21's scoring throughput of XLS-R 1B's
+#: widths (48 layers, d 1280, 16 heads of 80, bf16, random weights; batch
+#: 8, the plain FFN, flash against xla in turns) on an NVIDIA H100 80GB
+#: HBM3 at a 700 W power limit, three runs (PERF.md has the table); xla was
+#: ahead in 11 of the 12 readings, flash in one run at 12 s only:
+#:   scoring, batch 8, utt/s (xla, flash):
+#:     1 s  108.53,  94.46;  96.17, 88.06; 130.30, 120.48
+#:     2 s  128.64, 114.65;  76.81, 76.62;  89.36,  83.22
+#:     6 s  101.21,  99.58;  91.63, 78.71;  94.73,  86.88
+#:    12 s   72.99,  69.28;  76.29, 74.66;  78.20,  85.46
+#: A batch took 61-110 ms from 1 s to 12 s (12x the frames), so the eager
+#: forward was bound by the host there, not by the attention (the D 80
+#: kernel's device time is within 1.3x of SDPA's); at head dim 64 (XLS-R
+#: 300M) flash won from 1 s.
+AUTO_WGMMA_OTHER_D_MIN_SAMPLES: Optional[int] = None
 
 
 def select_attention_impl(bucket_samples: int,
@@ -95,10 +116,17 @@ def flash_kernel_takes(xlsr_cfg, device) -> bool:
 def auto_flash_min_samples(xlsr_cfg, device) -> Optional[int]:
     """The bucket sample-count from which auto picks "flash" for a model of
     `xlsr_cfg` on `device` (None: never): AUTO_FLASH_MIN_SAMPLES on the CPU
-    (the plain version) and on the wgmma route, AUTO_GENERIC_MIN_SAMPLES on
-    the generic route, None where no CUDA route takes the model."""
+    (the plain version) and on the wgmma route at head dim 64,
+    AUTO_WGMMA_OTHER_D_MIN_SAMPLES on the wgmma route at its other head
+    dims, AUTO_GENERIC_MIN_SAMPLES on the generic route, None where no CUDA
+    route takes the model."""
     if torch.device(device).type != "cuda":
         return AUTO_FLASH_MIN_SAMPLES
-    return {"wgmma": AUTO_FLASH_MIN_SAMPLES,
-            "generic": AUTO_GENERIC_MIN_SAMPLES}.get(
-                cuda_route(*_dtype_and_head_dim(xlsr_cfg)))
+    dtype, head_dim = _dtype_and_head_dim(xlsr_cfg)
+    route = cuda_route(dtype, head_dim)
+    if route == "wgmma":
+        return (AUTO_FLASH_MIN_SAMPLES if head_dim == 64
+                else AUTO_WGMMA_OTHER_D_MIN_SAMPLES)
+    if route == "generic":
+        return AUTO_GENERIC_MIN_SAMPLES
+    return None

@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): two kernels, wgmma fed by
-// TMA, no atomics.
+// TMA, no atomics, at every head dim D that is a multiple of 8 from 8 to
+// 128.
 //
 // Replaces three TPU Pallas kernels of occm_tpu/ops/attention.py:
 //   _bwd_kernel          (attention.py:79)   whole-T backward, T padded <= 512
@@ -7,34 +8,40 @@
 //   _blocked_dkv_kernel  (attention.py:373)  dk, dv over a q sweep
 // One pair covers every T, fed by the lse the forward kernel
 // (flash_attn_fwd.cu) writes. The arithmetic is the blocked TPU route's:
-//   - S = q k^T accumulated in fp32 from the unscaled bf16 q, the scale
-//     applied to the fp32 logits: for D = 64 it is 2^-3, so this gives the
-//     bits of the TPU route's folding of the scale into q before the bf16
-//     cast (flash_attn_fwd.cu's header has the argument);
-//   - P = exp(scale S - lse) in fp32 (base 2: one multiplier and exp2f),
+//   - S = q k^T accumulated in fp32 from bf16(q * scale), the scale folded
+//     into q in fp32 before the bf16 cast (attention.py:338). The instances
+//     at D != 64 fold it: the dq kernel on its q tile in shared memory, and
+//     it writes that tile to a [B, T, H, D] scratch tensor qs, which the
+//     dk/dv kernel loads beside the unscaled q. The D = 64 instance keeps
+//     the unscaled q and scales the fp32 logits, which gives the same bits
+//     because its scale is 2^-3 (flash_attn_fwd.cu's header);
+//   - P = exp(S - lse) in fp32 (base 2: one multiplier and exp2f),
 //     keys >= t_valid get P = 0;
 //   - dS = P * (dO v^T - delta), delta = rowsum(dO * O) in fp32;
 //   - P and dS cast to bf16 before their products, fp32 accumulation;
 //   - dq = scale * dS k and dk = scale * dS^T q (the unscaled q), dv = P^T dO.
 //
-// Layout: q, k, v, out and dO are [B, T, H, 64] bf16 with any strides for
+// Layout: q, k, v, out and dO are [B, T, H, D] bf16 with any strides for
 // B, T and H (16-byte multiples), read where they lie through 4-d TMA maps
-// (64 x 64 boxes of one (b, h)), as the forward reads q, k, v. dq, dk, dv
-// are written contiguous as [B, T, H, 64] by TMA stores, which clip rows
-// past T, so [B, T, H * 64] is a view of each. lse and delta are
-// [B * H, T] fp32. [BH, T, D] is the case B = BH, H = 1.
+// (64 x 64 boxes of one (b, h), one a panel: attention_sm90.cuh), as the
+// forward reads q, k, v. dq, dk, dv (and qs) are written contiguous as
+// [B, T, H, D] by TMA stores, which clip rows past T and columns past D, so
+// [B, T, H * D] is a view of each. lse and delta are [B * H, T] fp32.
+// [BH, T, D] is the case B = BH, H = 1.
 //
 // Both kernels: 160 threads, warp 4 the producer (TMA into a ring of
 // kStages stages, 128-byte swizzle, full/empty mbarriers; TMA zero-fills
-// rows past T), warps 0-3 one consumer warpgroup on wgmma m64n64k16, each
-// product straight from the TMA tiles, none transposed through shared
-// memory.
+// rows past T and columns past D), warps 0-3 one consumer warpgroup on
+// wgmma (NP = round_up(D, 16): products over D are NP / 16 k-steps of
+// m64n64k16, products whose N is D are m64nNPk16), each product straight
+// from the TMA tiles, none transposed through shared memory.
 //
 // dq kernel, grid (ceil(T / 64), H, B): 64 q rows, a loop over 64-key
 // tiles. The producer loads the q, dO and out tiles once and k, v per tile.
 // Before the loop the warpgroup computes delta of its 64 rows from the dO
 // and out tiles and writes it to the delta buffer (the dk/dv kernel, next
-// on the stream, reads it there). Per tile:
+// on the stream, reads it there); at D != 64 it folds the scale into the q
+// tile and stores that tile to qs. Per tile:
 //   S = q k^T, dP = dO v^T   both operands K-major, as stored; issued as two
 //                            groups, so exp(S) runs while dP is computed;
 //   dq += dS k               dS the register A operand (the S fragment,
@@ -42,12 +49,12 @@
 //                            transpose bit), as the forward feeds P and v.
 // dk/dv kernel, grid (ceil(T / 64), H, B): 64 keys, a loop over 64-row q
 // tiles. The producer loads the k and v tiles once, and per tile the q and
-// dO tiles by TMA while its 32 lanes copy the tile's lse (times log2 e;
-// +inf past T, so those rows get P = 0) and delta into the stage with
-// ordinary loads (TMA needs 16-byte aligned rows, and a [B * H, T] fp32
-// row of T = 299 is not). Per tile:
-//   S^T = k q^T, dP^T = v dO^T   all K-major;
-//   P^T = exp(scale S^T - lse[col]), dS^T = P^T * (dP^T - delta[col]);
+// dO tiles (and the qs tile at D != 64) by TMA while its 32 lanes copy the
+// tile's lse (times log2 e; +inf past T, so those rows get P = 0) and delta
+// into the stage with ordinary loads (TMA needs 16-byte aligned rows, and a
+// [B * H, T] fp32 row of T = 299 is not). Per tile:
+//   S^T = k qs^T, dP^T = v dO^T  all K-major (qs: q at D = 64);
+//   P^T = exp(S^T - lse[col]), dS^T = P^T * (dP^T - delta[col]);
 //   dv += P^T dO, dk += dS^T q   P^T and dS^T register A operands, dO and q
 //                                MN-major B operands.
 // Each block owns its rows of dq, or of dk and dv: no atomics, and a
@@ -55,11 +62,19 @@
 // products where one kernel with atomic dq would do 5): that keeps them
 // deterministic, and at the training shape the work is bound by bytes.
 //
+// Above D 64 a tile is two panels (16 KB): the dq kernel's 7 tiles and the
+// dk/dv kernel's 8 (q, qs and dO in each of two stages) leave room for one
+// block an SM, which then holds the dk and dv accumulators (2 x NP / 2
+// fp32 registers a thread) with up to 255 registers; ptxas's report of
+// registers and spills is in chip_smoke.py's build lines.
+//
 // What bounds it on an H100: at the training shape (B*H = 192, T = 299,
 // D = 64) the five products are 1.1e10 flop (11 us at the bf16 peak; the
 // two recomputed ones make 1.5e10) against 5.9e7 bytes of q, k, v, out, dO
 // read and dq, dk, dv written once (18 us); at T >= 599 the products bound
-// it. The measured times are in PERF.md.
+// it. Both grow with D. The qs scratch of the instances at D != 64 adds
+// one write and T / 64 reads of B*T*H*D bf16 through the L2. The measured
+// times are in PERF.md.
 
 #include <math.h>
 #include <stdint.h>
@@ -74,14 +89,28 @@ constexpr float kLog2e = 1.4426950408889634f;
 // dq kernel: q, dO, out tiles, then per stage a k and a v tile, + 1 KB to
 // align the tiles to the 128-byte swizzle's 1024-byte period, + mbarriers
 constexpr int kDqTiles = 3 + 2 * kStages;
-constexpr int kDqSmem = kDqTiles * kTileBytes + 1024 + (2 * kStages + 1) * 8;
-// dk/dv kernel: k, v tiles, per stage a q and a dO tile, per stage the
-// tile's lse * log2 e and delta (64 + 64 fp32), + mbarriers
-constexpr int kDkvTiles = 2 + 2 * kStages;
+template <int NP>
+constexpr int dq_smem() {
+  return kDqTiles * HeadDim<NP>::kTileBytes + 1024 + (2 * kStages + 1) * 8;
+}
+// dk/dv kernel: k, v tiles, per stage a q and a dO tile (and a qs tile
+// when the scale is folded), per stage the tile's lse * log2 e and delta
+// (64 + 64 fp32), + mbarriers
 constexpr int kStatFloats = 2 * kTileRows;
-constexpr int kDkvSmem = kDkvTiles * kTileBytes + 1024 +
-                         kStages * kStatFloats * 4 + (2 * kStages + 1) * 8;
+template <bool kFold>
+struct DkvStage {
+  static constexpr int kTiles = kFold ? 3 : 2;
+};
+template <int NP, bool kFold>
+constexpr int dkv_smem() {
+  return (2 + kStages * DkvStage<kFold>::kTiles) * HeadDim<NP>::kTileBytes +
+         1024 + kStages * kStatFloats * 4 + (2 * kStages + 1) * 8;
+}
 
+// kFold: the scale is folded into the q tile and the logits are not scaled
+// (tma_qs: where the folded tile is stored); otherwise (D = 64 only) the
+// fp32 logits are scaled and tma_qs is unused.
+template <int NP, bool kFold>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tma_q,
                          const __grid_constant__ CUtensorMap tma_k,
@@ -91,7 +120,10 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tma_q,
                          const __grid_constant__ CUtensorMap tma_dq,
                          const float* __restrict__ lse,
                          float* __restrict__ delta, int T, int t_valid,
-                         float scale, float scale_log2) {
+                         float scale, float scale_log2,
+                         const __grid_constant__ CUtensorMap tma_qs) {
+  using HD = HeadDim<NP>;
+  constexpr int kTileBytes = HD::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sq = smem;
@@ -122,17 +154,25 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tma_q,
     // k/v ring full
     if (threadIdx.x == 128) {
       mbar_expect_tx(head_full, 3 * kTileBytes);
-      tma_load_4d(sq, &tma_q, head_full, 0, h, q0, b);
-      tma_load_4d(sdo, &tma_do, head_full, 0, h, q0, b);
-      tma_load_4d(so, &tma_o, head_full, 0, h, q0, b);
+#pragma unroll
+      for (int p = 0; p < HD::kPanels; ++p) {
+        const int c0 = p * kPanelCols, off = p * kPanelBytes;
+        tma_load_4d(sq + off, &tma_q, head_full, c0, h, q0, b);
+        tma_load_4d(sdo + off, &tma_do, head_full, c0, h, q0, b);
+        tma_load_4d(so + off, &tma_o, head_full, c0, h, q0, b);
+      }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
         unsigned char* st = smem + (3 + 2 * s) * kTileBytes;
         mbar_expect_tx(&full[s], 2 * kTileBytes);
-        tma_load_4d(st, &tma_k, &full[s], 0, h, j * kTileRows, b);
-        tma_load_4d(st + kTileBytes, &tma_v, &full[s], 0, h, j * kTileRows,
-                    b);
+#pragma unroll
+        for (int p = 0; p < HD::kPanels; ++p) {
+          const int c0 = p * kPanelCols, off = p * kPanelBytes;
+          tma_load_4d(st + off, &tma_k, &full[s], c0, h, j * kTileRows, b);
+          tma_load_4d(st + kTileBytes + off, &tma_v, &full[s], c0, h,
+                      j * kTileRows, b);
+        }
       }
     }
     return;
@@ -150,17 +190,31 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tma_q,
     lse2[r] = row < T ? lse[row_base + row] * kLog2e : INFINITY;
   }
   mbar_wait(head_full, 0);
+  if constexpr (kFold) {
+    // bf16(q * scale) in place, then to qs for the dk/dv kernel
+    fold_scale<NP>(sq, scale, threadIdx.x, 128);
+    fence_proxy_async();
+    named_bar_sync(1, 128);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int p = 0; p < HD::kPanels; ++p)
+        tma_store_4d(&tma_qs, sq + p * kPanelBytes, p * kPanelCols, h, q0, b);
+      tma_store_commit();  // waited for with the dq store
+    }
+  }
 
   // ---- delta = rowsum(dO * out) in fp32: lanes 2i and 2i + 1 of a warp
-  // sum the two halves of its row 16 * warp + i; each thread then takes the
-  // deltas of its fragment rows from the lanes that hold them
+  // sum the two halves of its row 16 * warp + i (the columns past D are
+  // zero); each thread then takes the deltas of its fragment rows from the
+  // lanes that hold them
   float dl[2];
   {
     const int row = warp * 16 + (lane >> 1);
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int off = swizzled(row, ((lane & 1) * 4 + j) * 8);
+    for (int j = 0; j < 4 * HD::kPanels; ++j) {
+      const int off =
+          tile_offset(row, ((lane & 1) * 4 * HD::kPanels + j) * 8);
       const uint4 a = *reinterpret_cast<const uint4*>(sdo + off);
       const uint4 c = *reinterpret_cast<const uint4*>(so + off);
       const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -180,9 +234,9 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tma_q,
       dl[r] = __shfl_sync(0xffffffffu, sum, 2 * (lane >> 2) + 16 * r);
   }
 
-  float acc[32];
+  float acc[NP / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
   const uint64_t d_q = smem_desc(smem_u32(sq));
   const uint64_t d_do = smem_desc(smem_u32(sdo));
 
@@ -192,6 +246,7 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tma_q,
     mbar_wait(&full[s], (j / kStages) & 1);
     const uint32_t k_addr = smem_u32(smem + (3 + 2 * s) * kTileBytes);
     const uint64_t d_k = smem_desc(k_addr);
+    const uint64_t d_kt = smem_desc(k_addr, HD::kLbo);  // k MN-major
     const uint64_t d_v = smem_desc(k_addr + kTileBytes);
 
     // ---- S = q k^T and dP = dO v^T, fp32, two groups
@@ -202,17 +257,17 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tma_q,
     fence_acc(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)  // +32 bytes along D per k-step
-      wgmma_ss(sc, d_q + 2 * kk, d_k + 2 * kk);
+    for (int kk = 0; kk < HD::kKSteps; ++kk)  // +32 bytes along D per k-step
+      wgmma_ss(sc, d_q + kstep(kk), d_k + kstep(kk));
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss(dp, d_do + 2 * kk, d_v + 2 * kk);
+    for (int kk = 0; kk < HD::kKSteps; ++kk)
+      wgmma_ss(dp, d_do + kstep(kk), d_v + kstep(kk));
     wgmma_commit();
     wgmma_wait<1>();
     fence_acc(sc);
 
-    // ---- P = exp(scale S - lse), keys >= t_valid masked (last tile only)
+    // ---- P = exp(S - lse), keys >= t_valid masked (last tile only)
 #pragma unroll
     for (int i = 0; i < 32; ++i)
       sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse2[row_half(i)]));
@@ -233,7 +288,7 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tma_q,
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < kTileRows / 16; ++c)  // +16 keys = +2048 bytes
-      wgmma_rs(acc, da[c], d_k + 128 * c);
+      wgmma_rs<NP>(acc, da[c], d_kt + 128 * c);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc);
@@ -242,18 +297,21 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tma_q,
   }
 
   // ---- epilogue: dq * scale in bf16, staged in the out tile's shared
-  // memory (128-byte swizzle), one TMA store that clips rows past T
+  // memory (128-byte swizzle), one TMA store a panel that clips rows past T
   named_bar_sync(1, 128);  // every warp is done reading the out tile
-  stage_tile(so, acc, scale, warp, lane);
+  stage_tile<NP>(so, acc, scale, warp, lane);
   fence_proxy_async();
   named_bar_sync(1, 128);
   if (threadIdx.x == 0) {
-    tma_store_4d(&tma_dq, so, 0, h, q0, b);
+#pragma unroll
+    for (int p = 0; p < HD::kPanels; ++p)
+      tma_store_4d(&tma_dq, so + p * kPanelBytes, p * kPanelCols, h, q0, b);
     tma_store_flush();
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int NP, bool kFold>
+__global__ void __launch_bounds__(kThreads, HeadDim<NP>::kPanels == 1 ? 2 : 1)
 flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tma_q,
                           const __grid_constant__ CUtensorMap tma_k,
                           const __grid_constant__ CUtensorMap tma_v,
@@ -262,7 +320,12 @@ flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tma_q,
                           const __grid_constant__ CUtensorMap tma_dv,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta, int T, int t_valid,
-                          float scale, float scale_log2) {
+                          float scale, float scale_log2,
+                          const __grid_constant__ CUtensorMap tma_qs) {
+  using HD = HeadDim<NP>;
+  constexpr int kTileBytes = HD::kTileBytes;
+  constexpr int kStageTiles = DkvStage<kFold>::kTiles;
+  constexpr int kDkvTiles = 2 + kStages * kStageTiles;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sk = smem;  // k, then the dk tile
@@ -297,18 +360,29 @@ flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tma_q,
     const int lane = threadIdx.x - 128;
     if (lane == 0) {
       mbar_expect_tx(head_full, 2 * kTileBytes);
-      tma_load_4d(sk, &tma_k, head_full, 0, h, k0, b);
-      tma_load_4d(sv, &tma_v, head_full, 0, h, k0, b);
+#pragma unroll
+      for (int p = 0; p < HD::kPanels; ++p) {
+        const int c0 = p * kPanelCols, off = p * kPanelBytes;
+        tma_load_4d(sk + off, &tma_k, head_full, c0, h, k0, b);
+        tma_load_4d(sv + off, &tma_v, head_full, c0, h, k0, b);
+      }
     }
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % kStages;
       const int r0 = j * kTileRows;
       mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
       if (lane == 0) {
-        unsigned char* st = smem + (2 + 2 * s) * kTileBytes;
-        mbar_expect_tx(&full[s], 2 * kTileBytes);
-        tma_load_4d(st, &tma_q, &full[s], 0, h, r0, b);
-        tma_load_4d(st + kTileBytes, &tma_do, &full[s], 0, h, r0, b);
+        unsigned char* st = smem + (2 + kStageTiles * s) * kTileBytes;
+        mbar_expect_tx(&full[s], kStageTiles * kTileBytes);
+#pragma unroll
+        for (int p = 0; p < HD::kPanels; ++p) {
+          const int c0 = p * kPanelCols, off = p * kPanelBytes;
+          tma_load_4d(st + off, &tma_q, &full[s], c0, h, r0, b);
+          tma_load_4d(st + kTileBytes + off, &tma_do, &full[s], c0, h, r0, b);
+          if constexpr (kFold)
+            tma_load_4d(st + 2 * kTileBytes + off, &tma_qs, &full[s], c0, h,
+                        r0, b);
+        }
       }
       float* st_stat = stat + s * kStatFloats;
 #pragma unroll
@@ -331,9 +405,9 @@ flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tma_q,
   for (int r = 0; r < 2; ++r)
     key_ok[r] = k0 + warp * 16 + (lane >> 2) + 8 * r < t_valid;
   const bool all_keys_ok = key_ok[0] && key_ok[1];
-  float acc_k[32], acc_v[32];
+  float acc_k[NP / 2], acc_v[NP / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < NP / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
   mbar_wait(head_full, 0);
   const uint64_t d_k = smem_desc(smem_u32(sk));
   const uint64_t d_v = smem_desc(smem_u32(sv));
@@ -341,9 +415,14 @@ flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tma_q,
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % kStages;
     mbar_wait(&full[s], (j / kStages) & 1);
-    const uint32_t q_addr = smem_u32(smem + (2 + 2 * s) * kTileBytes);
-    const uint64_t d_q = smem_desc(q_addr);
+    const uint32_t q_addr =
+        smem_u32(smem + (2 + kStageTiles * s) * kTileBytes);
+    const uint64_t d_q = smem_desc(q_addr, HD::kLbo);  // q MN-major
     const uint64_t d_do = smem_desc(q_addr + kTileBytes);
+    const uint64_t d_dot = smem_desc(q_addr + kTileBytes, HD::kLbo);
+    // S^T's q: the folded qs tile, or q (scale on the logits)
+    const uint64_t d_qs =
+        smem_desc(kFold ? q_addr + 2 * kTileBytes : q_addr);
     const float* st_stat = stat + s * kStatFloats;
 
     // ---- S^T = k q^T and dP^T = v dO^T, fp32, two groups
@@ -354,17 +433,17 @@ flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tma_q,
     fence_acc(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss(sc, d_k + 2 * kk, d_q + 2 * kk);
+    for (int kk = 0; kk < HD::kKSteps; ++kk)
+      wgmma_ss(sc, d_k + kstep(kk), d_qs + kstep(kk));
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss(dp, d_v + 2 * kk, d_do + 2 * kk);
+    for (int kk = 0; kk < HD::kKSteps; ++kk)
+      wgmma_ss(dp, d_v + kstep(kk), d_do + kstep(kk));
     wgmma_commit();
     wgmma_wait<1>();
     fence_acc(sc);
 
-    // ---- P^T = exp(scale S^T - lse[col]); keys >= t_valid masked
+    // ---- P^T = exp(S^T - lse[col]); keys >= t_valid masked
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const float2 l =
@@ -399,10 +478,10 @@ flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tma_q,
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < kTileRows / 16; ++c)  // +16 q rows = +2048 bytes
-      wgmma_rs(acc_v, pa[c], d_do + 128 * c);
+      wgmma_rs<NP>(acc_v, pa[c], d_dot + 128 * c);
 #pragma unroll
     for (int c = 0; c < kTileRows / 16; ++c)
-      wgmma_rs(acc_k, da[c], d_q + 128 * c);
+      wgmma_rs<NP>(acc_k, da[c], d_q + 128 * c);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc_v);
@@ -412,28 +491,32 @@ flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tma_q,
   }
 
   // ---- epilogue: dk * scale and dv in bf16, staged in the k and v tiles'
-  // shared memory, two TMA stores that clip rows past T
+  // shared memory, TMA stores (one a panel) that clip rows past T
   named_bar_sync(1, 128);  // every warp's products are done reading k, v
-  stage_tile(sk, acc_k, scale, warp, lane);
-  stage_tile(sv, acc_v, 1.f, warp, lane);
+  stage_tile<NP>(sk, acc_k, scale, warp, lane);
+  stage_tile<NP>(sv, acc_v, 1.f, warp, lane);
   fence_proxy_async();
   named_bar_sync(1, 128);
   if (threadIdx.x == 0) {
-    tma_store_4d(&tma_dk, sk, 0, h, k0, b);
-    tma_store_4d(&tma_dv, sv, 0, h, k0, b);
+#pragma unroll
+    for (int p = 0; p < HD::kPanels; ++p) {
+      const int c0 = p * kPanelCols, off = p * kPanelBytes;
+      tma_store_4d(&tma_dk, sk + off, c0, h, k0, b);
+      tma_store_4d(&tma_dv, sv + off, c0, h, k0, b);
+    }
     tma_store_flush();
   }
 }
 
 bool bad_args(int b, int h, int T, int t_valid, int d) {
-  return d != kD || b <= 0 || b > 65535 || h <= 0 || h > 65535 || T <= 0 ||
-         t_valid <= 0 || t_valid > T;
+  return !head_dim_ok(d) || b <= 0 || b > 65535 || h <= 0 || h > 65535 ||
+         T <= 0 || t_valid <= 0 || t_valid > T;
 }
 
-// Maps of contiguous [b, T, h, 64] outputs.
-int encode_out(CUtensorMap* map, void* p, int b, int T, int h) {
-  return encode_bthd(map, p, b, T, h, (long long)T * h * kD, (long long)h * kD,
-                     kD);
+// Maps of contiguous [b, T, h, d] outputs.
+int encode_out(CUtensorMap* map, void* p, int b, int T, int h, int d) {
+  return encode_bthd(map, p, b, T, h, d, (long long)T * h * d,
+                     (long long)h * d, d);
 }
 
 template <typename Kernel>
@@ -446,82 +529,139 @@ int set_smem(Kernel kernel, int bytes, bool& done) {
   return 0;
 }
 
+// The logits' multiplier in base 2: scale * log2(e), or log2(e) alone
+// where the scale is folded into q.
 float log2_scale(float scale) {
   return (float)((double)scale * 1.4426950408889634);
 }
 
+struct DqArgs {
+  CUtensorMap q, k, v, o, dout, dq, qs;
+  const float* lse;
+  float* delta;
+  int b, h, T, t_valid;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int NP, bool kFold>
+int launch_dq(const DqArgs& a) {
+  constexpr int kSmem = dq_smem<NP>();
+  static bool smem_set = false;
+  const int err =
+      set_smem(flash_attn_bwd_dq_kernel<NP, kFold>, kSmem, smem_set);
+  if (err) return err;
+  const dim3 grid((a.T + kTileRows - 1) / kTileRows, a.h, a.b);
+  flash_attn_bwd_dq_kernel<NP, kFold><<<grid, kThreads, kSmem, a.stream>>>(
+      a.q, a.k, a.v, a.o, a.dout, a.dq, a.lse, a.delta, a.T, a.t_valid,
+      a.scale, log2_scale(kFold ? 1.f : a.scale), a.qs);
+  return (int)cudaGetLastError();
+}
+
+struct DkvArgs {
+  CUtensorMap q, k, v, dout, dk, dv, qs;
+  const float* lse;
+  const float* delta;
+  int b, h, T, t_valid;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int NP, bool kFold>
+int launch_dkv(const DkvArgs& a) {
+  constexpr int kSmem = dkv_smem<NP, kFold>();
+  static bool smem_set = false;
+  const int err =
+      set_smem(flash_attn_bwd_dkv_kernel<NP, kFold>, kSmem, smem_set);
+  if (err) return err;
+  const dim3 grid((a.T + kTileRows - 1) / kTileRows, a.h, a.b);
+  flash_attn_bwd_dkv_kernel<NP, kFold><<<grid, kThreads, kSmem, a.stream>>>(
+      a.q, a.k, a.v, a.dout, a.dk, a.dv, a.lse, a.delta, a.T, a.t_valid,
+      a.scale, log2_scale(kFold ? 1.f : a.scale), a.qs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// q, k, v, out, dout: [b, T, h, d] bf16, d = 64 contiguous, element strides
-// (sb, st, sh) each, multiples of 8, 16-byte aligned; lse: [b * h, T] fp32
-// from the forward; delta: [b * h, T] fp32, written; dq: [b, T, h, d] bf16
-// contiguous, written. Keys at index >= t_valid are masked. One launch on
-// `stream`. Returns 0, a cudaError_t, or -1 / -1000 - CUresult when a TMA
-// descriptor cannot be made.
+// q, k, v, out, dout: [b, T, h, d] bf16, d a multiple of 8 from 8 to 128
+// and contiguous, element strides (sb, st, sh) each, multiples of 8,
+// 16-byte aligned; lse: [b * h, T] fp32 from the forward; delta:
+// [b * h, T] fp32, written; dq: [b, T, h, d] bf16 contiguous, written; qs:
+// [b, T, h, d] bf16 contiguous, written with bf16(q * scale) where d != 64
+// (for occm_flash_attn_bwd_dkv), unused (may be null) where d = 64. Keys
+// at index >= t_valid are masked. One launch on `stream`. Returns 0, a
+// cudaError_t, or -1 / -1000 - CUresult when a TMA descriptor cannot be
+// made.
 extern "C" int occm_flash_attn_bwd_dq(
     const void* q, const void* k, const void* v, const void* out,
-    const void* dout, const void* lse, void* delta, void* dq, int b, int h,
-    int T, int t_valid, int d, long long q_sb, long long q_st, long long q_sh,
-    long long k_sb, long long k_st, long long k_sh, long long v_sb,
-    long long v_st, long long v_sh, long long o_sb, long long o_st,
-    long long o_sh, long long do_sb, long long do_st, long long do_sh,
-    float scale, void* stream) {
+    const void* dout, const void* lse, void* delta, void* dq, void* qs,
+    int b, int h, int T, int t_valid, int d, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh, long long o_sb,
+    long long o_st, long long o_sh, long long do_sb, long long do_st,
+    long long do_sh, float scale, void* stream) {
+  const bool fold = d != 64;
   if (bad_args(b, h, T, t_valid, d) || bad_strides(q, q_sb, q_st, q_sh) ||
       bad_strides(k, k_sb, k_st, k_sh) || bad_strides(v, v_sb, v_st, v_sh) ||
       bad_strides(out, o_sb, o_st, o_sh) ||
       bad_strides(dout, do_sb, do_st, do_sh) ||
-      (reinterpret_cast<uintptr_t>(dq) & 15))
+      (reinterpret_cast<uintptr_t>(dq) & 15) ||
+      (fold && (qs == nullptr || (reinterpret_cast<uintptr_t>(qs) & 15))))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap mq, mk, mv, mo, mdo, mdq;
-  int err = encode_bthd(&mq, q, b, T, h, q_sb, q_st, q_sh);
-  if (!err) err = encode_bthd(&mk, k, b, T, h, k_sb, k_st, k_sh);
-  if (!err) err = encode_bthd(&mv, v, b, T, h, v_sb, v_st, v_sh);
-  if (!err) err = encode_bthd(&mo, out, b, T, h, o_sb, o_st, o_sh);
-  if (!err) err = encode_bthd(&mdo, dout, b, T, h, do_sb, do_st, do_sh);
-  if (!err) err = encode_out(&mdq, dq, b, T, h);
+  DqArgs a = {};
+  int err = encode_bthd(&a.q, q, b, T, h, d, q_sb, q_st, q_sh);
+  if (!err) err = encode_bthd(&a.k, k, b, T, h, d, k_sb, k_st, k_sh);
+  if (!err) err = encode_bthd(&a.v, v, b, T, h, d, v_sb, v_st, v_sh);
+  if (!err) err = encode_bthd(&a.o, out, b, T, h, d, o_sb, o_st, o_sh);
+  if (!err) err = encode_bthd(&a.dout, dout, b, T, h, d, do_sb, do_st, do_sh);
+  if (!err) err = encode_out(&a.dq, dq, b, T, h, d);
+  if (!err && fold) err = encode_out(&a.qs, qs, b, T, h, d);
   if (err) return err;
-  static bool smem_set = false;
-  err = set_smem(flash_attn_bwd_dq_kernel, kDqSmem, smem_set);
-  if (err) return err;
-  const dim3 grid((T + kTileRows - 1) / kTileRows, h, b);
-  flash_attn_bwd_dq_kernel<<<grid, kThreads, kDqSmem, (cudaStream_t)stream>>>(
-      mq, mk, mv, mo, mdo, mdq, (const float*)lse, (float*)delta, T, t_valid,
-      scale, log2_scale(scale));
-  return (int)cudaGetLastError();
+  a.lse = (const float*)lse;
+  a.delta = (float*)delta;
+  a.b = b, a.h = h, a.T = T, a.t_valid = t_valid;
+  a.scale = scale;
+  a.stream = (cudaStream_t)stream;
+  if (!fold) return launch_dq<64, false>(a);
+  return for_head_dim(
+      d, [&](auto np) { return launch_dq<decltype(np)::value, true>(a); });
 }
 
 // q, k, v, dout as for occm_flash_attn_bwd_dq; lse and delta: [b * h, T]
-// fp32 (delta as occm_flash_attn_bwd_dq wrote it, earlier on `stream`);
+// fp32 (delta as occm_flash_attn_bwd_dq wrote it, earlier on `stream`); qs
+// as occm_flash_attn_bwd_dq wrote it where d != 64 (unused where d = 64);
 // dk, dv: [b, T, h, d] bf16 contiguous, written. One launch on `stream`;
 // returns as occm_flash_attn_bwd_dq does.
 extern "C" int occm_flash_attn_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int b, int h,
-    int T, int t_valid, int d, long long q_sb, long long q_st, long long q_sh,
-    long long k_sb, long long k_st, long long k_sh, long long v_sb,
-    long long v_st, long long v_sh, long long do_sb, long long do_st,
-    long long do_sh, float scale, void* stream) {
+    const void* lse, const void* delta, const void* qs, void* dk, void* dv,
+    int b, int h, int T, int t_valid, int d, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh, long long do_sb,
+    long long do_st, long long do_sh, float scale, void* stream) {
+  const bool fold = d != 64;
   if (bad_args(b, h, T, t_valid, d) || bad_strides(q, q_sb, q_st, q_sh) ||
       bad_strides(k, k_sb, k_st, k_sh) || bad_strides(v, v_sb, v_st, v_sh) ||
       bad_strides(dout, do_sb, do_st, do_sh) ||
       (reinterpret_cast<uintptr_t>(dk) & 15) ||
-      (reinterpret_cast<uintptr_t>(dv) & 15))
+      (reinterpret_cast<uintptr_t>(dv) & 15) ||
+      (fold && (qs == nullptr || (reinterpret_cast<uintptr_t>(qs) & 15))))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap mq, mk, mv, mdo, mdk, mdv;
-  int err = encode_bthd(&mq, q, b, T, h, q_sb, q_st, q_sh);
-  if (!err) err = encode_bthd(&mk, k, b, T, h, k_sb, k_st, k_sh);
-  if (!err) err = encode_bthd(&mv, v, b, T, h, v_sb, v_st, v_sh);
-  if (!err) err = encode_bthd(&mdo, dout, b, T, h, do_sb, do_st, do_sh);
-  if (!err) err = encode_out(&mdk, dk, b, T, h);
-  if (!err) err = encode_out(&mdv, dv, b, T, h);
+  DkvArgs a = {};
+  int err = encode_bthd(&a.q, q, b, T, h, d, q_sb, q_st, q_sh);
+  if (!err) err = encode_bthd(&a.k, k, b, T, h, d, k_sb, k_st, k_sh);
+  if (!err) err = encode_bthd(&a.v, v, b, T, h, d, v_sb, v_st, v_sh);
+  if (!err) err = encode_bthd(&a.dout, dout, b, T, h, d, do_sb, do_st, do_sh);
+  if (!err) err = encode_out(&a.dk, dk, b, T, h, d);
+  if (!err) err = encode_out(&a.dv, dv, b, T, h, d);
+  if (!err && fold) err = encode_out(&a.qs, const_cast<void*>(qs), b, T, h, d);
   if (err) return err;
-  static bool smem_set = false;
-  err = set_smem(flash_attn_bwd_dkv_kernel, kDkvSmem, smem_set);
-  if (err) return err;
-  const dim3 grid((T + kTileRows - 1) / kTileRows, h, b);
-  flash_attn_bwd_dkv_kernel<<<grid, kThreads, kDkvSmem,
-                              (cudaStream_t)stream>>>(
-      mq, mk, mv, mdo, mdk, mdv, (const float*)lse, (const float*)delta, T,
-      t_valid, scale, log2_scale(scale));
-  return (int)cudaGetLastError();
+  a.lse = (const float*)lse;
+  a.delta = (const float*)delta;
+  a.b = b, a.h = h, a.T = T, a.t_valid = t_valid;
+  a.scale = scale;
+  a.stream = (cudaStream_t)stream;
+  if (!fold) return launch_dkv<64, false>(a);
+  return for_head_dim(
+      d, [&](auto np) { return launch_dkv<decltype(np)::value, true>(a); });
 }

@@ -3,9 +3,12 @@
 // delta = rowsum(dO * O), then dk/dv), on the CUDA cores.
 //
 // Replaces, for what the wgmma kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu: bf16 with D = 64 only) do not take, the five TPU
-// Pallas kernels of occm_tpu/ops/attention.py, which run their dots in q's
-// dtype at any head dim D:
+// flash_attn_bwd.cu: bf16 at every D that is a multiple of 8 from 8 to
+// 128) do not take, the five TPU Pallas kernels of
+// occm_tpu/ops/attention.py, which run their dots in q's dtype at any head
+// dim D: fp32 at any D from 1 to 256, and bf16 at the other D up to 256
+// (ops/attention.py cuda_route). They are also the "was" beside the wgmma
+// instances at bf16 D != 64, which took their place there:
 //   _fwd_kernel          (attention.py:45)   whole-T forward
 //   _bwd_kernel          (attention.py:79)   whole-T backward
 //   _blocked_fwd_kernel  (attention.py:234)  online-softmax forward + lse
@@ -15,9 +18,10 @@
 // blocked TPU route's, and that of flash_attention_reference /
 // flash_attention_bwd_reference (ops/attention.py):
 //   - the scale folded into q in fp32, then rounded to q's dtype
-//     (attention.py:64, :253, :338). The D = 64 wgmma kernels may scale the
-//     fp32 logits instead only because 2^-3 is exact; at D = 32, 80 or 128
-//     in bf16 the two orders round differently;
+//     (attention.py:64, :253, :338), as the wgmma instances at D != 64 do.
+//     The D = 64 wgmma instance may scale the fp32 logits instead only
+//     because 2^-3 is exact; at D = 32, 80 or 128 in bf16 the two orders
+//     round differently;
 //   - logits and the online softmax in fp32; keys >= t_valid get no
 //     probability;
 //   - the unnormalised P rounded to v's dtype before P v, an fp32 sum,
@@ -65,11 +69,12 @@
 // work is bound by bytes or by the tensor cores' 989 TFLOP/s, which this
 // kernel does not use.
 // What its simple design leaves on the table: the tensor cores (3xTF32
-// wgmma for fp32, a bf16 wgmma instantiation for D in {32, 128}); the
-// padded dims of D = 80 (DP 128); the exp and shuffles of the online
-// softmax, which at D = 16 cost as much as the products; one or two blocks
-// an SM at DP >= 128 (shared memory); and the recomputed S and dP of the
-// backward. The measured times are in PERF.md.
+// wgmma for fp32; in bf16 the wgmma instances of flash_attn_fwd.cu and
+// flash_attn_bwd.cu now take every D that is a multiple of 8 up to 128,
+// 4-30x faster at D 16-128); the padded dims of D = 80 (DP 128); the exp
+// and shuffles of the online softmax, which at D = 16 cost as much as the
+// products; one or two blocks an SM at DP >= 128 (shared memory); and the
+// recomputed S and dP of the backward. The measured times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -103,6 +103,12 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       : "memory");
 }
 
+// Commits this thread's TMA stores issued since its last commit as one
+// bulk group, without waiting.
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
 // Commits this thread's TMA stores and waits until they are done.
 __device__ __forceinline__ void tma_store_flush() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -120,11 +126,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 // descriptor serves a K-major operand (a row holds 64 values along K; a
 // k16 step adds 32 bytes, +2 in the descriptor's 16-byte units) and an
 // MN-major one of 64 columns (a row holds 64 values along M or N; a k16
-// step is 16 rows, +2048 bytes). LBO is unused by both.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+// step is 16 rows, +2048 bytes). LBO (16-byte units) is unused by both; an
+// MN-major operand wider than 64 columns, stored as 64-column panels,
+// gives the panel stride there.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) | (static_cast<uint64_t>(64) << 32) |
-         (static_cast<uint64_t>(1) << 62);
+         (static_cast<uint64_t>(lbo) << 16) |
+         (static_cast<uint64_t>(64) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

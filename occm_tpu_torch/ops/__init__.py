@@ -32,6 +32,9 @@ def launch_counts() -> dict:
     return {"flash_attn_fwd": attention.LAUNCHES,
             "flash_attn_bwd_dq": attention.BWD_DQ_LAUNCHES,
             "flash_attn_bwd_dkv": attention.BWD_DKV_LAUNCHES,
+            "flash_attn_fwd_other_d": attention.OTHER_D_LAUNCHES,
+            "flash_attn_bwd_other_d_dq": attention.OTHER_D_BWD_DQ_LAUNCHES,
+            "flash_attn_bwd_other_d_dkv": attention.OTHER_D_BWD_DKV_LAUNCHES,
             "layernorm_bwd": layernorm.LAUNCHES,
             "fused_adam": fused_adam.LAUNCHES,
             "ffn_fwd": ffn.LAUNCHES,

@@ -133,10 +133,10 @@ def load() -> ctypes.CDLL:
             # pointers, (b, h, T, t_valid, d), strides (sb, st, sh) of
             # each [b, T, h, d] input, scale, stream
             lib.occm_flash_attn_bwd_dq.argtypes = [
-                *[p] * 8, *[i] * 5, *[ll] * 15, ctypes.c_float, p]
+                *[p] * 9, *[i] * 5, *[ll] * 15, ctypes.c_float, p]
             lib.occm_flash_attn_bwd_dq.restype = i
             lib.occm_flash_attn_bwd_dkv.argtypes = [
-                *[p] * 8, *[i] * 5, *[ll] * 12, ctypes.c_float, p]
+                *[p] * 9, *[i] * 5, *[ll] * 12, ctypes.c_float, p]
             lib.occm_flash_attn_bwd_dkv.restype = i
             lib.occm_layernorm_bwd_scratch_bytes.argtypes = [i, i, i]
             lib.occm_layernorm_bwd_scratch_bytes.restype = ll

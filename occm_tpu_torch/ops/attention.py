@@ -20,14 +20,23 @@ tensor the same Function runs `flash_attention_reference` and
 masking, scale folding and dtype casts. A tensor on any other device
 raises; nothing falls back from a kernel to its plain version.
 
-Two CUDA routes (`cuda_route`): bf16 with head dim 64 takes the `wgmma`
-kernels above; bf16 or fp32 at any other head dim from 1 to 256, and fp32
-at 64, take the three kernels of `csrc/flash_attn_generic.cu` (forward, dq
-with δ, dk/dv: FFMA on the CUDA cores, true fp32), which replace the same
-five TPU kernels for what the wgmma pair does not take. The forward and the
-backward of one call take the same route, the backward fed by its own
-forward's lse. They read any strides in place, so no dO is copied for
-them. Whatever no route takes raises.
+Two CUDA routes (`cuda_route`):
+- "wgmma": bf16 at every head dim D that is a multiple of 8 from 8 to 128
+  takes the kernels above, one template instance for each
+  round_up(D, 16). D = 64 is its own instance (it scales the fp32 logits,
+  exact for 2^-3); the others fold the scale into q before the bf16 cast,
+  as the TPU kernels do, and their backward keeps that folded q in a
+  [B, T, H, D] scratch tensor for the dk/dv kernel. Their launches count
+  apart (`OTHER_D_*`).
+- "generic": fp32 at any D from 1 to 256, and bf16 at any other D up to
+  256, take the three kernels of `csrc/flash_attn_generic.cu` (forward, dq
+  with δ, dk/dv: FFMA on the CUDA cores, true fp32), which replace the same
+  five TPU kernels for what the wgmma kernels do not take.
+The forward and the backward of one call take the same route, the
+backward fed by its own forward's lse. The generic kernels read any
+strides in place; on the wgmma route a [B, T, H, D] input whose strides
+the TMA maps cannot read raises, and the autograd Function copies such a
+dO (an expanded one) first. Whatever no route takes raises.
 
 For every T the port casts the unnormalised probabilities to bf16 before
 P·V and divides by the row sum afterwards, as the blocked TPU kernel does;
@@ -44,10 +53,15 @@ import math
 import torch
 
 #: launches of each kernel since the last reset (chip_smoke.py reads and
-#: resets them): the forward, and the backward's dq and dk/dv kernels
+#: resets them): the forward, and the backward's dq and dk/dv kernels, at
+#: head dim 64
 LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
+#: the same kernels' instances at the wgmma route's other head dims
+OTHER_D_LAUNCHES = 0
+OTHER_D_BWD_DQ_LAUNCHES = 0
+OTHER_D_BWD_DKV_LAUNCHES = 0
 #: copies of a CUDA dO whose strides the backward's TMA maps cannot read
 #: (an expanded stride 0, say), made before the wgmma backward kernels
 BWD_DOUT_COPIES = 0
@@ -56,6 +70,8 @@ GENERIC_LAUNCHES = 0
 GENERIC_BWD_DQ_LAUNCHES = 0
 GENERIC_BWD_DKV_LAUNCHES = 0
 
+#: head dims the wgmma kernels take in bf16: multiples of 8 from 8 to 128
+WGMMA_HEAD_DIMS = range(8, 129, 8)
 #: head dims the generic kernels take (a padded bucket of 16 to 256)
 GENERIC_HEAD_DIMS = range(1, 257)
 #: the generic kernels' dtype codes
@@ -64,11 +80,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def cuda_route(dtype: torch.dtype, head_dim: int):
     """The CUDA kernels that take q, k, v of this dtype and head dim:
-    "wgmma" (bf16 with D = 64: csrc/flash_attn_fwd.cu, flash_attn_bwd.cu),
-    "generic" (bf16 or fp32 with 1 <= D <= 256 otherwise:
+    "wgmma" (bf16 with D a multiple of 8 from 8 to 128:
+    csrc/flash_attn_fwd.cu, flash_attn_bwd.cu), "generic" (fp32 with
+    1 <= D <= 256, and bf16 at any other D up to 256:
     csrc/flash_attn_generic.cu), or None (raises on a CUDA tensor; on a CPU
     tensor the plain version takes any)."""
-    if dtype == torch.bfloat16 and head_dim == 64:
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     if dtype in _DTYPE_CODE and head_dim in GENERIC_HEAD_DIMS:
         return "generic"
@@ -166,11 +183,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the same shape, contiguous, in q's dtype, lse [BH, T] fp32).
 
     CUDA tensors launch, on the current stream, `occm_flash_attn_fwd`
-    (bf16, D = 64) or `occm_flash_attn_generic_fwd` (bf16 or fp32 at any
-    other D from 1 to 256), as `cuda_route` says; [B, T, H, D] is read
-    through its strides, so the projections' output needs no copy. CPU
-    tensors take the plain version."""
-    global LAUNCHES
+    (bf16, D a multiple of 8 from 8 to 128) or
+    `occm_flash_attn_generic_fwd` (fp32 at D from 1 to 256, bf16 at any
+    other D up to 256), as `cuda_route` says; [B, T, H, D] is read through
+    its strides, so the projections' output needs no copy. CPU tensors take
+    the plain version."""
+    global LAUNCHES, OTHER_D_LAUNCHES
     if not (q.device == k.device == v.device):
         raise ValueError(
             f"q, k, v on different devices: {q.device}, {k.device}, "
@@ -211,7 +229,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *qs, *ks, *vs, 1.0 / math.sqrt(D), _build.raw_stream(q.device))
     if err != 0:
         raise RuntimeError(f"occm_flash_attn_fwd failed: error {err}")
-    LAUNCHES += 1
+    if D == 64:
+        LAUNCHES += 1
+    else:
+        OTHER_D_LAUNCHES += 1
     return out, lse
 
 
@@ -292,12 +313,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     δ = rowsum(dO ⊙ O) in fp32, as the TPU wrapper does outside its
     kernels, and writes it to a [BH, T] buffer) and then
     `occm_flash_attn_bwd_dkv` (which reads it) on the current stream: bf16,
-    D = 64, every input read through its strides ([B, T, H, D] views of the
-    projections' output need no copy), two device launches and nothing
-    else. Any other dtype and D that `cuda_route` takes launch the generic
+    D a multiple of 8 from 8 to 128, every input read through its strides
+    ([B, T, H, D] views of the projections' output need no copy), two
+    device launches and nothing else. At D != 64 the dq kernel also writes
+    bf16(q * scale) to a [B, T, H, D] scratch tensor that the dk/dv kernel
+    reads. Any other dtype and D that `cuda_route` takes launch the generic
     pair the same way (`occm_flash_attn_generic_bwd_dq`, then `_dkv`),
     which reads any strides. CPU tensors take the plain version."""
     global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    global OTHER_D_BWD_DQ_LAUNCHES, OTHER_D_BWD_DKV_LAUNCHES
     tensors = (q, k, v, o, do)
     if len({x.device for x in tensors + (lse,)}) != 1:
         raise ValueError("flash attention backward: inputs on different "
@@ -333,23 +357,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    # the dq kernel's bf16(q * scale), which the dk/dv kernel reads (D = 64
+    # scales the logits instead)
+    q_scaled = (None if D == 64 else
+                torch.empty((B, T, H, D), dtype=q.dtype, device=q.device))
+    qs_ptr = None if q_scaled is None else q_scaled.data_ptr()
     stream = _build.raw_stream(q.device)
     scale = 1.0 / math.sqrt(D)
     with _build.on_device(q.device):
         err = lib.occm_flash_attn_bwd_dq(
             qp, kp, vp, op, dop, lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), B, H, T, t_valid, D, *qs, *ks, *vs, *os_, *dos,
-            scale, stream)
+            dq.data_ptr(), qs_ptr, B, H, T, t_valid, D, *qs, *ks, *vs, *os_,
+            *dos, scale, stream)
         if err != 0:
             raise RuntimeError(f"occm_flash_attn_bwd_dq failed: error {err}")
-        BWD_DQ_LAUNCHES += 1
+        if D == 64:
+            BWD_DQ_LAUNCHES += 1
+        else:
+            OTHER_D_BWD_DQ_LAUNCHES += 1
         err = lib.occm_flash_attn_bwd_dkv(
-            qp, kp, vp, dop, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, T, t_valid, D, *qs, *ks, *vs, *dos, scale,
-            stream)
+            qp, kp, vp, dop, lse.data_ptr(), delta.data_ptr(), qs_ptr,
+            dk.data_ptr(), dv.data_ptr(), B, H, T, t_valid, D, *qs, *ks, *vs,
+            *dos, scale, stream)
         if err != 0:
             raise RuntimeError(f"occm_flash_attn_bwd_dkv failed: error {err}")
-        BWD_DKV_LAUNCHES += 1
+        if D == 64:
+            BWD_DKV_LAUNCHES += 1
+        else:
+            OTHER_D_BWD_DKV_LAUNCHES += 1
     return dq, dk, dv
 
 

@@ -9,6 +9,7 @@ CUDA kernel itself is held against the same plain version on the card by
 chip_smoke.py.
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -375,17 +376,34 @@ def test_backward_delta_is_the_fp32_rowsum_in_the_layout_of_lse():
 
 @pytest.mark.parametrize("dtype, head_dim, route", [
     (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "generic"),
-    (torch.bfloat16, 16, "generic"), (torch.float32, 16, "generic"),
+    (torch.bfloat16, 16, "wgmma"), (torch.float32, 16, "generic"),
     (torch.float16, 64, None), (torch.bfloat16, 1, "generic"),
     (torch.float32, 256, "generic"), (torch.bfloat16, 257, None),
     (torch.float32, 0, None)])
 def test_cuda_kernel_takes_only_bf16_with_head_dim_64(dtype, head_dim,
                                                       route):
-    """The wgmma kernels take only bf16 with head dim 64; the generic
-    kernels take bf16 and fp32 at every other head dim from 1 to 256 (and
-    fp32 at 64); nothing takes fp16 or a head dim outside 1..256."""
+    """The wgmma kernels take only bf16, at head dims that are multiples
+    of 8 up to 128 (64 and 16 here); the generic kernels take fp32 at every
+    head dim from 1 to 256 and bf16 at the others; nothing takes fp16 or a
+    head dim outside 1..256."""
     assert attention.cuda_route(dtype, head_dim) == route
     assert attention.cuda_kernel_takes(dtype, head_dim) is (route is not None)
+
+
+@pytest.mark.parametrize("dtype, head_dim, route", [
+    *((torch.bfloat16, d, "wgmma")
+      for d in (8, 16, 24, 32, 48, 64, 80, 120, 128)),
+    *((torch.bfloat16, d, "generic") for d in (1, 7, 12, 136, 256)),
+    *((torch.float32, d, "generic")
+      for d in (1, 7, 8, 16, 64, 80, 120, 128, 136, 256)),
+    (torch.bfloat16, 257, None), (torch.float32, 257, None)])
+def test_cuda_route_table(dtype, head_dim, route):
+    """The wgmma kernels (csrc/flash_attn_fwd.cu, flash_attn_bwd.cu) take
+    bf16 at every head dim that is a multiple of 8 from 8 to 128, one
+    instance for each round_up(D, 16); the generic kernels keep fp32 at
+    every D from 1 to 256 and bf16 at the other D up to 256; D 257 has no
+    kernel."""
+    assert attention.cuda_route(dtype, head_dim) == route
 
 
 def test_backward_copies_only_a_dout_its_maps_cannot_read():
@@ -523,7 +541,7 @@ def _cuda_patched(monkeypatch):
 
 @pytest.mark.parametrize("dtype, head_dim, reaches", [
     (torch.float32, 64, "generic"), (torch.float32, 16, "generic"),
-    (torch.bfloat16, 80, "generic"), (torch.float32, 256, "generic"),
+    (torch.bfloat16, 80, "wgmma"), (torch.float32, 256, "generic"),
     (torch.bfloat16, 64, "wgmma"), (torch.float32, 0, None),
     (torch.float32, 257, None), (torch.float16, 64, None),
     (torch.float16, 16, None)])
@@ -574,3 +592,75 @@ def test_generic_launch_args_read_any_strides():
     assert attention._strides4(flat, False)[1:] == (T * Dh, Dh, Dh, 1)
     expanded = torch.ones(()).expand(B, T, H, Dh)
     assert attention._strides4(expanded, True)[1:] == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("head_dim", [64, 80])
+def test_wgmma_launch_args_read_views_in_place_and_copy_an_expanded_dout(
+        monkeypatch, head_dim):
+    """On the wgmma route (patched to a recording library, as this host has
+    no card) the forward and backward read strided [B, T, H, D] views of a
+    fused projection in place: each gets the view's pointer and (sb, st,
+    sh), the head dim and 1/sqrt(D). At D 80 the backward hands the dq
+    kernel a [B, T, H, D] scratch tensor for bf16(q * scale) and the dk/dv
+    kernel the same one, and counts apart from D 64 (OTHER_D_*); at D 64
+    there is none. Through autograd an expanded dO (of out.sum()) is copied
+    once, contiguous, and the copy's strides reach the kernels."""
+    from occm_tpu_torch.ops import _build
+
+    B, T, H = 2, 9, 3
+    calls = {}
+
+    class Lib:
+        def __getattr__(self, name):
+            def launch(*args):
+                calls[name] = args
+                return 0
+            return launch
+
+    cpu_empty = torch.empty
+    monkeypatch.setattr(_build, "load", Lib)
+    monkeypatch.setattr(_build, "raw_stream", lambda device: 7)
+    monkeypatch.setattr(_build, "on_device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **kw:
+                        cpu_empty(*a, **kw))
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    qkv = torch.zeros((B, T, 3, H, head_dim), dtype=torch.bfloat16)
+    q, k, v = (x.detach().requires_grad_() for x in qkv.unbind(2))
+    views = (T * 3 * H * head_dim, 3 * H * head_dim, head_dim)
+    assert q.stride()[:3] == views and not q.is_contiguous()
+    before = {n: getattr(attention, n) for n in (
+        "LAUNCHES", "OTHER_D_LAUNCHES", "BWD_DQ_LAUNCHES",
+        "OTHER_D_BWD_DQ_LAUNCHES", "BWD_DKV_LAUNCHES",
+        "OTHER_D_BWD_DKV_LAUNCHES", "BWD_DOUT_COPIES")}
+    out = attention.flash_attention(q, k, v)
+    fwd = calls["occm_flash_attn_fwd"]
+    assert fwd[:3] == tuple(x.data_ptr() for x in (q, k, v))
+    assert fwd[5:10] == (B, H, T, T, head_dim)
+    assert fwd[10:19] == views * 3
+    assert fwd[19] == 1.0 / math.sqrt(head_dim) and fwd[20] == 7
+    out.sum().backward()
+    dq_args, dkv_args = (calls["occm_flash_attn_bwd_dq"],
+                         calls["occm_flash_attn_bwd_dkv"])
+    contiguous = (T * H * head_dim, H * head_dim, head_dim)
+    # q, k, v and out (contiguous) read where they lie; dO a copy
+    assert dq_args[:3] == fwd[:3] and dq_args[9:14] == (B, H, T, T, head_dim)
+    assert dq_args[14:23] == views * 3
+    assert dq_args[23:29] == contiguous * 2
+    assert dkv_args[:3] == fwd[:3] and dkv_args[9:14] == dq_args[9:14]
+    assert dkv_args[14:26] == views * 3 + contiguous
+    assert dq_args[4] == dkv_args[3] and dq_args[4] != out.data_ptr()
+    scratch = dq_args[8]
+    assert dkv_args[6] == scratch
+    assert (scratch is None) == (head_dim == 64)
+    other = head_dim != 64
+    after = {n: getattr(attention, n) - b for n, b in before.items()}
+    assert after == {"LAUNCHES": int(not other), "OTHER_D_LAUNCHES": int(other),
+                     "BWD_DQ_LAUNCHES": int(not other),
+                     "OTHER_D_BWD_DQ_LAUNCHES": int(other),
+                     "BWD_DKV_LAUNCHES": int(not other),
+                     "OTHER_D_BWD_DKV_LAUNCHES": int(other),
+                     "BWD_DOUT_COPIES": 1}
+    for x in (q, k, v):
+        assert x.grad.shape == (B, T, H, head_dim) and x.grad.is_contiguous()

@@ -2,10 +2,13 @@
 take the model, and never picks a flash kernel that cannot take it.
 
 The wgmma kernels take bf16 with head dim 64 (flash from
-AUTO_FLASH_MIN_SAMPLES up); the generic kernels take fp32, and bf16 at any
-other head dim from 1 to 256 (`XLSRConfig.tiny()` is fp32 with D = 16), and
-auto picks them from the measured AUTO_GENERIC_MIN_SAMPLES up, or never
-where it is None; a model with D > 256 gets "xla". This holds at both
+AUTO_FLASH_MIN_SAMPLES up) and, in their other instances, bf16 at every
+head dim that is a multiple of 8 up to 128 (XLS-R 1B's 80; flash from the
+measured AUTO_WGMMA_OTHER_D_MIN_SAMPLES up, or never where it is None);
+the generic kernels take fp32, and bf16 at any other head dim up to 256
+(`XLSRConfig.tiny()` is fp32 with D = 16), and auto picks them from the
+measured AUTO_GENERIC_MIN_SAMPLES up, or never where it is None; a model
+with D > 256 gets "xla". This holds at both
 places that know the model: the scorers' and the server's
 `make_embed_fn_factory`, and `oc_training`. On the CPU, where "flash" runs
 the plain version at any dtype, auto resolves as before, and a pinned impl
@@ -29,15 +32,27 @@ TINY = XLSRConfig.tiny()  # fp32, d 64, 4 heads: D = 16
 FULL = XLSRConfig()       # bf16, d 1024, 16 heads: D = 64
 FP32_D64 = dataclasses.replace(FULL, dtype="float32")
 BF16_D16 = dataclasses.replace(TINY, dtype="bfloat16")
+BF16_D12 = dataclasses.replace(TINY, dtype="bfloat16", encoder_embed_dim=48)
+XLSR_1B = dataclasses.replace(FULL, encoder_layers=48, encoder_embed_dim=1280,
+                              encoder_ffn_dim=5120, out_dim=1280)  # D = 80
 WIDE_HEAD = dataclasses.replace(TINY, encoder_embed_dim=1040,
                                 encoder_heads=4)  # D = 260 > 256
 
 
-def _generic_auto(seconds) -> str:
-    """What auto picks for a bucket of `seconds` on the generic route: the
-    measured threshold, or "xla" in every bucket where it is None."""
-    floor = impl_select.AUTO_GENERIC_MIN_SAMPLES
+def _auto(floor, seconds) -> str:
+    """What auto picks for a bucket of `seconds` under a measured
+    threshold, or "xla" in every bucket where it is None."""
     return "flash" if floor is not None and seconds * SR >= floor else "xla"
+
+
+def _generic_auto(seconds) -> str:
+    """What auto picks for a bucket of `seconds` on the generic route."""
+    return _auto(impl_select.AUTO_GENERIC_MIN_SAMPLES, seconds)
+
+
+def _other_d_auto(seconds) -> str:
+    """What auto picks on the wgmma route at a head dim other than 64."""
+    return _auto(impl_select.AUTO_WGMMA_OTHER_D_MIN_SAMPLES, seconds)
 
 
 def _factory_impl(monkeypatch, cfg, device, base_impl="auto",
@@ -59,11 +74,29 @@ def _factory_impl(monkeypatch, cfg, device, base_impl="auto",
 @pytest.mark.parametrize("seconds", [1, 6, 12])
 def test_auto_picks_xla_for_a_cuda_model_the_kernel_cannot_take(
         monkeypatch, cfg, seconds):
-    """The models the wgmma kernels do not take: the generic route's
-    models follow its measured threshold; a head dim no kernel takes gets
-    "xla" in every bucket."""
-    want = "xla" if cfg is WIDE_HEAD else _generic_auto(seconds)
+    """The models the wgmma kernels' D 64 instance does not take: the
+    generic route's models follow its measured threshold, bf16 at the
+    wgmma route's other head dims (16 here) theirs; a head dim no kernel
+    takes gets "xla" in every bucket."""
+    want = {WIDE_HEAD: "xla",
+            BF16_D16: _other_d_auto(seconds)}.get(cfg, _generic_auto(seconds))
     assert _factory_impl(monkeypatch, cfg, "cuda", seconds=seconds) == want
+
+
+@pytest.mark.parametrize("cfg, want", [(XLSR_1B, "other_d"),
+                                       (BF16_D12, "generic")],
+                         ids=["xlsr_1b_d80", "bf16_d12"])
+@pytest.mark.parametrize("seconds", [1, 2, 6, 12])
+def test_auto_follows_the_route_of_a_bf16_head_dim(monkeypatch, cfg, want,
+                                                   seconds):
+    """bf16 at head dim 80 (XLS-R 1B) takes the wgmma route's instances at
+    head dims other than 64 and their measured threshold; bf16 at head dim
+    12, not a multiple of 8, stays on the generic route and its
+    threshold."""
+    expect = (_other_d_auto(seconds) if want == "other_d"
+              else _generic_auto(seconds))
+    assert _factory_impl(monkeypatch, cfg, "cuda",
+                         seconds=seconds) == expect
 
 
 @pytest.mark.parametrize("seconds, want", [(0.5, "xla"), (1, "flash"),
@@ -99,13 +132,16 @@ def test_a_pinned_impl_passes_through_on_cuda(monkeypatch, pinned):
     (WIDE_HEAD, "cpu", True)])
 def test_flash_kernel_takes(cfg, device, want):
     """A CUDA route takes every model but one with D > 256; the CPU's
-    plain version takes any. Auto's threshold follows the route."""
+    plain version takes any. Auto's threshold follows the route (and, on
+    the wgmma route, whether the head dim is 64)."""
     assert impl_select.flash_kernel_takes(cfg, device) is want
     floor = impl_select.auto_flash_min_samples(cfg, device)
     if not want:
         assert floor is None
     elif device == "cpu" or cfg is FULL:
         assert floor == impl_select.AUTO_FLASH_MIN_SAMPLES
+    elif cfg is BF16_D16:
+        assert floor == impl_select.AUTO_WGMMA_OTHER_D_MIN_SAMPLES
     else:
         assert floor == impl_select.AUTO_GENERIC_MIN_SAMPLES
 

@@ -24,11 +24,13 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 2. build: compiles occm_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
    per source in parallel, and the host IO library (native/*.cpp, g++,
    `occm_tpu_torch.io.native`), prints ptxas's registers and spills, counts
-   the HGMMA (wgmma) instructions of the FFN kernel and of the attention
-   forward, backward dq and backward dk/dv kernels in the library's SASS
-   (cuobjdump -sass); fails if any of the four, or any instance of the
-   three attention kernels (round_up(D, 16) = 16 .. 128 and D 64's), has
-   none.
+   the HGMMA (wgmma) instructions of the bf16 and 3xTF32 FFN kernels and
+   of the attention forward, backward dq and backward dk/dv kernels in the
+   library's SASS (cuobjdump -sass), and the HMMA (mma.sync) instructions
+   of the 3xTF32 attention backward; fails if any of the five, or any
+   instance of the three attention kernels (round_up(D, 16) = 16 .. 128
+   and D 64's), has no HGMMA, or an instance of the 3xTF32 dq or dk/dv
+   kernel (round_up(D, 16) = 16 .. 128) no HMMA.
 3. kernels, each against its plain PyTorch version on the card on the same
    inputs, with the wrapper's time (CUDA events), the kernel's own device
    time (torch.profiler), and the plain, library and bound times:
@@ -311,34 +313,42 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    rates printed.
 20. queue B's coverage (`--coverage-only`: phases 1, 2, 20 and phase 4's
    tiny checks): the generic attention kernels (csrc/flash_attn_generic.cu:
-   fp32 at D 64, B 8 (12 for the backward), H 16, T 201 / 299 / 599 /
-   1500; fp32 at the tiny model's D 16, H 4; bf16 at D 16 / 32 / 80 / 128,
-   T 299 / 1500, called directly since the wgmma route takes those, and
-   at D 136, T 299, through the wrappers) and the fp32 FFN kernel
-   (csrc/ffn_fwd_f32.cu: M 2392 / 3588, D 1024, F 4096, erf and tanh;
-   (1000, 1000, 4000)) against their
-   plain versions (COVERAGE_F32_RTOL_OF_MAX, FFN_F32_RTOL_OF_MAX; bf16 at
-   phase 3's bounds) with wrapper, device, plain, library (SDPA in the
-   same dtype; F.linear, F.gelu, F.linear: wrapper and device) and bound
-   times; each
-   attention row also views = [B*H, T, D] = a repeat bit for bit, two
-   device launches a backward call, and at T 299 contiguous gradients
-   through autograd where the generic route takes the shape (an expanded
-   dO read in place). Then the fp32 model
-   at full width (AModel(AASISTConfig(), XLSRConfig(dtype="float32",
+   fp32 forward at D 64, B 8, H 16, T 201 / 299 / 599 / 1500 and at the
+   tiny model's D 16, H 4; bf16 at D 16 / 32 / 80 / 128, T 299 / 1500,
+   called directly since the wgmma route takes those, and at D 136, T 299,
+   through the wrappers), the 3xTF32 attention backward
+   (csrc/flash_attn_bwd_3xtf32_dq.cu, _dkv.cu: fp32 at the same shapes,
+   B 12, through the wrappers, with the generic pair called directly on
+   the same inputs as its "was"), the fp32 FFN kernels
+   (csrc/ffn_fwd_3xtf32.cu: M 2392 / 3588, D 1024, F 4096, erf and tanh;
+   (1000, 1000, 4000); the SIMT
+   csrc/ffn_fwd_f32.cu on the same inputs as its "was", and through the
+   wrapper at D 1002, F 4002) against their plain versions
+   (COVERAGE_F32_RTOL_OF_MAX, FFN_F32_RTOL_OF_MAX; bf16 at phase 3's
+   bounds) with wrapper, device, plain, library (SDPA in the same dtype;
+   F.linear, F.gelu, F.linear: wrapper and device) and bound times (fp32
+   as 3xTF32 on the tensor cores, PEAK_TF32_FLOPS); each attention row
+   also views = [B*H, T, D] = a repeat bit for bit, two device launches a
+   backward call, and at T 299 contiguous gradients through autograd
+   where the generic forward's route takes the shape (an expanded dO read
+   in place); the fp32 backward at B 12, H 16, T 299 for every D that is
+   a multiple of 8 up to 128, 3xTF32 against the generic pair in turns
+   (the measurement behind attention.TF32_BWD_HEAD_DIMS). Then the fp32
+   model at full width (AModel(AASISTConfig(), XLSRConfig(dtype="float32",
    attention_impl="flash", ffn_impl="pallas")), seed 0): 8 x 6 s and
-   8 x 12 s scored (24 generic forward and 24 fp32 FFN launches a batch,
-   none of the wgmma kernels; distances against the same weights on xla
-   attention and the plain FFN within COVERAGE_MODEL_RTOL), one eager
-   12 x 6 s training step against the plain one (48 / 24 / 24 generic
-   launches, 48 fp32 FFN; loss, encoder features and gradient within
-   COVERAGE_MODEL_RTOL), utt/s at 2, 6 and 12 s in turns (xla, flash,
-   flash + the fp32 FFN: the measurement behind
+   8 x 12 s scored (24 generic forward and 24 3xTF32 FFN launches a batch,
+   none of the wgmma or SIMT FFN kernels; distances against the same
+   weights on xla attention and the plain FFN within COVERAGE_MODEL_RTOL),
+   one eager 12 x 6 s training step against the plain one (48 generic
+   forward, 24 + 24 3xTF32 backward and 48 3xTF32 FFN launches, no generic
+   backward; loss, encoder features and gradient within
+   COVERAGE_MODEL_RTOL; its wall ms), utt/s at 2, 6 and 12 s in turns
+   (xla, flash, flash + the 3xTF32 FFN: the measurement behind
    AUTO_GENERIC_MIN_SAMPLES); and the tiny model through `oc_training
-   --xlsr_tiny --attention_impl flash` (2 steps, launches a step exact)
-   and `oc_classifier --mode 2c2` on the card and with --device cpu
-   (logits within TINY_RTOL_OF_MAX). In a full run its kernel checks
-   follow phase 3's and its paths phase 7.
+   --xlsr_tiny --attention_impl flash` (2 steps, the generic forward and
+   3xTF32 backward launches a step exact) and `oc_classifier --mode 2c2`
+   on the card and with --device cpu (logits within TINY_RTOL_OF_MAX). In
+   a full run its kernel checks follow phase 3's and its paths phase 7.
 21. bf16 attention at head dims other than 64 (`--xlsr1b-only`: phases 1,
    2 and 21; in a full run its kernel checks follow phase 20's and its
    path phase 20's paths): the wgmma kernels' instances for every
@@ -408,6 +418,10 @@ MAIN_PATH_TS = (299, 599)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+# TF32 on the tensor cores (dense). fp32-accurate products take three of
+# them (3xTF32: hi hi + hi lo + lo hi), so the least time of fp32 work on
+# the card is 3 FLOPs / PEAK_TF32_FLOPS, below FLOPs / PEAK_FP32_FLOPS
+PEAK_TF32_FLOPS = 495e12
 TRAIN_B = 12  # utterances in one training step: one meta-batch
 
 # Kernel vs plain version: the plain version runs in fp32 on the same bf16
@@ -685,18 +699,31 @@ def phase_build():
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", _build.library_path()],
                           capture_output=True, text=True, check=True).stdout
-    hgmma, fn = {}, None
+    hgmma, hmma, fn = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
         elif fn and "HGMMA" in line:
             hgmma[fn] = hgmma.get(fn, 0) + 1
+        elif fn and "HMMA" in line:
+            hmma[fn] = hmma.get(fn, 0) + 1
     print(f"[build] HGMMA instructions in the library's SASS: {hgmma}",
           flush=True)
     for kernel in ("ffn_gemm_kernel", "flash_attn_fwd_kernel",
-                   "flash_attn_bwd_dq_kernel", "flash_attn_bwd_dkv_kernel"):
+                   "flash_attn_bwd_dq_kernel", "flash_attn_bwd_dkv_kernel",
+                   "ffn_gemm_3xtf32_kernel"):
         if not any(kernel in f for f in hgmma):
             fail(f"the SASS of {kernel} holds no HGMMA: {hgmma}")
+    # the 3xTF32 attention backward runs mma.sync (HMMA), in every
+    # instance NP = round_up(D, 16), 16 to 128
+    for kernel in ("flash_attn_3xtf32_dq_kernel",
+                   "flash_attn_3xtf32_dkv_kernel"):
+        for np_ in range(16, 129, 16):
+            if not any(f"{kernel}ILi{np_}E" in f for f in hmma):
+                fail(f"the SASS of {kernel}<{np_}> holds no HMMA: "
+                     f"{sorted(hmma)}")
+    print(f"[build] HMMA in every instance of the 3xTF32 attention "
+          f"backward: {sum(hmma.values())} instructions", flush=True)
     # and every instance of the attention kernels: <NP, fold> for
     # NP = round_up(D, 16) from 16 to 128 (the scale folded into q), and
     # <64, false> (D 64, the scale on the logits)
@@ -1958,10 +1985,13 @@ def reset_counts():
     attention.GENERIC_LAUNCHES = 0
     attention.GENERIC_BWD_DQ_LAUNCHES = 0
     attention.GENERIC_BWD_DKV_LAUNCHES = 0
+    attention.TF32_BWD_DQ_LAUNCHES = 0
+    attention.TF32_BWD_DKV_LAUNCHES = 0
     layernorm.LAUNCHES = 0
     fused_adam.LAUNCHES = 0
     ffn.LAUNCHES = 0
     ffn.F32_LAUNCHES = 0
+    ffn.TF32_LAUNCHES = 0
 
 
 def read_counts():
@@ -7576,13 +7606,23 @@ def phase_extras(workdir: str, fixture, model) -> tuple:
 
 # --------------------------------------------------------------- phase 20
 
-# The generic attention kernels and the fp32 FFN kernel (KERNEL_NAMES' form:
-# wrapper counter -> (device kernel name, device launches a call))
+# The generic attention kernels, the 3xTF32 attention backward and the fp32
+# FFN kernels (KERNEL_NAMES' form: wrapper counter -> (device kernel name,
+# device launches a call))
 COVERAGE_KERNEL_NAMES = {
     "flash_attn_generic_fwd": ("flash_attn_generic_fwd_kernel", 1),
     "flash_attn_generic_bwd_dq": ("flash_attn_generic_dq_kernel", 1),
     "flash_attn_generic_bwd_dkv": ("flash_attn_generic_dkv_kernel", 1),
-    "ffn_fwd_f32": ("ffn_gemm_f32_kernel", 2)}
+    "flash_attn_3xtf32_bwd_dq": ("flash_attn_3xtf32_dq_kernel", 1),
+    "flash_attn_3xtf32_bwd_dkv": ("flash_attn_3xtf32_dkv_kernel", 1),
+    "ffn_fwd_f32": ("ffn_gemm_f32_kernel", 2),
+    "ffn_fwd_3xtf32": ("ffn_gemm_3xtf32_kernel", 2)}
+# the ones phase 20's paths launch: the fp32 model's shapes (D 64, D 16;
+# D and F multiples of 4) go to the 3xTF32 kernels, so the generic
+# backward and the SIMT FFN, which keep every other fp32 shape, are held
+# in the kernel checks only
+COVERAGE_PATH_KERNELS = ("flash_attn_generic_fwd", "flash_attn_3xtf32_bwd_dq",
+                         "flash_attn_3xtf32_bwd_dkv", "ffn_fwd_3xtf32")
 # (dtype, D, H, Ts) of the generic attention checks: fp32 at XLS-R's head
 # dim and at the tiny model's (D 16, H 4), bf16 at head dims other than 64:
 # at D 16, 32, 80 and 128, which the wgmma instances now take, called on
@@ -7597,21 +7637,31 @@ COVERAGE_ATTENTION = (("float32", 64, 16, KERNEL_TS),
 # version repeats the kernels' arithmetic, so the two differ only by the
 # order of fp32 sums (each of up to T * D products, relative ~1e-7, read
 # 4e-7 on the H100); 1e-5 of the largest |value| holds that and fails on a
-# wrong tile, mask or scale (those move whole rows). bf16 keeps phase 3's
+# wrong tile, mask or scale (those move whole rows). The 3xTF32 backward
+# adds its split (the dropped lo lo term, below 2^-20 of each product) and
+# the tensor cores' accumulation, which it restarts each 64-row tile (read
+# up to 6.4e-6 on the H100 at T 1500); one TF32 product alone is off by
+# up to 2^-10 and fails the bound. bf16 keeps phase 3's
 # bounds (OUT_ATOL, LSE_ATOL, BWD_RTOL_OF_MAX): the plain version on the
 # same bf16 inputs rounds P from the final row max, the kernel from the
 # running one (one bf16 rounding of P, 2^-9 relative), and an output's
 # rounding may flip by one bf16 ulp.
 COVERAGE_F32_RTOL_OF_MAX = 1e-5
-# fp32 FFN kernel vs its plain version: fp32 sums of up to F = 4096
-# products in another order, ~sqrt(F) 2^-24 ~ 4e-6 of the terms' size
-# (read 3e-6 of the largest |y| on the H100); 1e-4 of the largest |y|
-# holds that and fails on a wrong tile or bias (O(1) moves of whole rows or
-# columns)
+# fp32 FFN kernels vs their plain version: the SIMT kernel's fp32 sums of
+# up to F = 4096 products in another order, ~sqrt(F) 2^-24 ~ 4e-6 of the
+# terms' size (read 3e-6 of the largest |y| on the H100); the 3xTF32
+# kernel adds its split (below 2^-20 of each product) and the tensor
+# cores' accumulation, which it restarts every K 256 (read up to 5.2e-6
+# on the H100; one accumulator over K 4096 read 4.7e-5); 1e-4 of the
+# largest |y| holds both and fails on a wrong tile or bias (O(1) moves of
+# whole rows or columns), and on one TF32 product (2^-10)
 FFN_F32_RTOL_OF_MAX = 1e-4
 FFN_F32_CASES = ((8 * 299, 1024, 4096, False), (8 * 299, 1024, 4096, True),
                  (12 * 299, 1024, 4096, False),
                  (12 * 299, 1024, 4096, True), (1000, 1000, 4000, False))
+# an fp32 FFN whose D and F are not multiples of 4: the wrapper keeps the
+# SIMT kernel there (TMA needs 16-byte row strides)
+FFN_F32_SIMT_CASE = (1000, 1002, 4002, False)
 # the fp32 model through the kernels vs the same weights through plain
 # attention and the plain FFN, both fp32 with TF32 off: summation order
 # only, ~1e-6 relative a layer through 24 layers and AASIST; 1e-3 relative
@@ -7627,23 +7677,27 @@ def coverage_attention_bound(bh: int, t: int, d: int, dtype: str,
     """Least time of one call on an H100: (bound_ms, bound_by, flops,
     bytes). Forward: two products of 2 T^2 D flops a (b, h), q, k, v read
     and out written once, lse written once; backward: five products, q, k,
-    v, o, dO read and dq, dk, dv written once, lse read once. fp32 at
-    67 TFLOP/s on the CUDA cores, bf16 at the tensor cores' 989."""
+    v, o, dO read and dq, dk, dv written once, lse read once. fp32 as
+    3xTF32 on the tensor cores (three TF32 products each, 495 TFLOP/s),
+    bf16 at the tensor cores' 989."""
     elt = 4 if dtype == "float32" else 2
-    peak = PEAK_FP32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
     flops = (10.0 if backward else 4.0) * bh * t * t * d
     nbytes = (8.0 if backward else 4.0) * bh * t * d * elt + bh * t * 4
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    t_ops = (3 * flops / PEAK_TF32_FLOPS if dtype == "float32"
+             else flops / PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
 def ffn_f32_bound(m: int, d: int, f: int):
-    """ffn_bound in fp32: 4 M D F flops at 67 TFLOP/s; x, W1, W2, b1, b2
-    read and y written once in fp32."""
+    """ffn_bound in fp32: 4 M D F flops as 3xTF32 (three TF32 products
+    each at 495 TFLOP/s); x, W1, W2, b1, b2 read and y written once in
+    fp32."""
     flops = 4.0 * m * d * f
     nbytes = 4.0 * (2 * m * d + 2 * d * f + f + d)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops = 3 * flops / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
@@ -7657,17 +7711,21 @@ def _rel_of_max(a, b) -> float:
 
 
 def coverage_attention_rows():
-    """The generic attention kernels against their plain versions on the
-    card at COVERAGE_ATTENTION's shapes: forward at B 8, backward at B 12
-    (TRAIN_B), each on [B, T, H, D] views of one projection output and on
-    [B*H, T, D] copies (bit for bit, and a repeat bit for bit), the
-    backward as two device launches a call and nothing else, and, where
-    `cuda_route` takes the shape to them, through the wrappers and
-    autograd (contiguous gradients, equal to the wrapper's; an expanded dO
-    read where it lies, no copy); the shapes of the wgmma route are called
-    on the generic kernels directly (generic_attention_fwd, _bwd).
-    Wrapper, device, plain, SDPA (same dtype, wrapper and device) and
-    bound times. Returns (forward rows, backward rows)."""
+    """The generic attention kernels and the 3xTF32 backward against their
+    plain versions on the card at COVERAGE_ATTENTION's shapes: forward at
+    B 8, backward at B 12 (TRAIN_B), each on [B, T, H, D] views of one
+    projection output and on [B*H, T, D] copies (bit for bit, and a repeat
+    bit for bit), the backward as two device launches a call and nothing
+    else, and, where the CUDA routes take the shape to these kernels,
+    through the wrappers and autograd (contiguous gradients, equal to the
+    wrapper's; an expanded dO read where it lies, no copy); the shapes of
+    the wgmma route are called on the generic kernels directly
+    (generic_attention_fwd, _bwd). The fp32 backward takes the 3xTF32 pair
+    (`cuda_bwd_route`); the generic pair, called directly on the same
+    inputs, is held to the same bound and timed beside it ("was", a row of
+    its own). Wrapper, device, plain, SDPA (same dtype, wrapper and device)
+    and bound times. Returns (forward rows, backward rows); a row's
+    "kernel" names its kernels line entry."""
     import torch
     import torch.nn.functional as F
 
@@ -7684,6 +7742,10 @@ def coverage_attention_rows():
                                else generic_attention_fwd)
         flash_attention_bwd = (attention.flash_attention_bwd if routed
                                else generic_attention_bwd)
+        # the kernel pair the backward wrapper launches here
+        bwd_kernel = ("flash_attn_3xtf32" if routed and attention.
+                      cuda_bwd_route(dt, d) == "3xtf32"
+                      else "flash_attn_generic")
         for t in ts:
             for backward in (False, True):
                 b = TRAIN_B if backward else B
@@ -7708,7 +7770,9 @@ def coverage_attention_rows():
                         and torch.equal(again[1], lse4)):
                     fail(f"generic forward {label}: views, [B*H, T, D] and "
                          "a repeat do not agree bit for bit")
+                was = None
                 if not backward:
+                    kernel = "flash_attn_generic_fwd"
                     ref_out, ref_lse = flash_attention_reference(q, k, v, t)
                     abs_err = max(_abs_err(out, ref_out),
                                   _abs_err(lse, ref_lse))
@@ -7726,6 +7790,7 @@ def coverage_attention_rows():
                              f"version: {errs}")
                     call = (lambda: flash_attention_fwd(q4, k4, v4, t))
                     names = ("flash_attn_generic_fwd",)
+                    counters = ("flash_attn_generic_fwd",)
                     plain = (lambda: flash_attention_reference(q, k, v, t))
                     q3, k3, v3 = (x.view(b, h, t, d) for x in (q, k, v))
 
@@ -7733,6 +7798,7 @@ def coverage_attention_rows():
                         with torch.no_grad():
                             F.scaled_dot_product_attention(q3, k3, v3)
                 else:
+                    kernel = f"{bwd_kernel}_bwd"
                     do4 = torch.randn((b, t, h, d), generator=gen,
                                       device="cuda").to(dt)
                     do = flat(do4)
@@ -7745,27 +7811,56 @@ def coverage_attention_rows():
                         if not (a.shape == q4.shape and a.is_contiguous()
                                 and torch.equal(a, r)
                                 and torch.equal(flat(a), c)):
-                            fail(f"generic backward {label}: {name} of views,"
+                            fail(f"{kernel} {label}: {name} of views,"
                                  " [B*H, T, D] and a repeat do not agree "
                                  "bit for bit, or is not contiguous")
                     want = flash_attention_bwd_reference(q, k, v, out, lse,
                                                          do, t)
-                    errs = {n: _rel_of_max(a, w) for n, a, w
-                            in zip(("dq", "dk", "dv"), got, want)}
-                    abs_err = max(_abs_err(a, w) for a, w in zip(got, want))
                     rtol = (COVERAGE_F32_RTOL_OF_MAX if dtype == "float32"
                             else BWD_RTOL_OF_MAX)
-                    if not all(math.isfinite(e) and e <= rtol
-                               for e in errs.values()):
-                        fail(f"generic backward {label} against its plain "
-                             f"version: {errs} (relative to the largest "
-                             f"|value|, bound {rtol})")
+
+                    def held(grads, who):
+                        errs = {n: _rel_of_max(a, w) for n, a, w
+                                in zip(("dq", "dk", "dv"), grads, want)}
+                        if not all(math.isfinite(e) and e <= rtol
+                                   for e in errs.values()):
+                            fail(f"{who} {label} against its plain version: "
+                                 f"{errs} (relative to the largest |value|, "
+                                 f"bound {rtol})")
+                        return errs, max(_abs_err(a, w)
+                                         for a, w in zip(grads, want))
+
+                    errs, abs_err = held(got, kernel)
                     if t == MAIN_PATH_TS[0] and routed:
-                        coverage_autograd(q4, k4, v4, do4, got4,
-                                          f"generic {label}")
+                        coverage_autograd(
+                            q4, k4, v4, do4, got4, f"{kernel} {label}",
+                            (f"{bwd_kernel}_bwd_dq", f"{bwd_kernel}_bwd_dkv"))
                     call = (lambda: flash_attention_bwd(
                         q4, k4, v4, out4, lse4, do4, t))
-                    names = ("flash_attn_generic_d",)
+                    names = (f"{bwd_kernel}_d",)
+                    counters = (f"{bwd_kernel}_bwd_dq",
+                                f"{bwd_kernel}_bwd_dkv")
+                    if bwd_kernel == "flash_attn_3xtf32":
+                        # the generic pair it took over from, on these inputs
+                        was_call = (lambda: generic_attention_bwd(
+                            q4, k4, v4, out4, lse4, do4, t))
+                        was_errs, was_abs = held(
+                            tuple(flat(g) for g in was_call()),
+                            "flash_attn_generic_bwd")
+                        was_dev, own, every, was_kept = device_ms(
+                            was_call, ("flash_attn_generic_d",), warmup=1,
+                            counters=("flash_attn_generic_bwd_dq",
+                                      "flash_attn_generic_bwd_dkv"))
+                        if (own, every) != (2, 2):
+                            fail(f"flash_attn_generic_bwd {label}: {every} "
+                                 f"device launches a call ({own} of the "
+                                 "kernels), want 2")
+                        was = dict(kernel="flash_attn_generic_bwd",
+                                   max_abs_err=was_abs, errors=was_errs,
+                                   ms=cuda_ms(was_call, iters=10 if t <= 600
+                                              else 4, warmup=2),
+                                   device_ms=was_dev,
+                                   **events_kept(was_kept))
                     plain = (lambda: flash_attention_bwd_reference(
                         q, k, v, out, lse, do, t))
                     q3, k3, v3 = (x.view(b, h, t, d).detach()
@@ -7781,15 +7876,12 @@ def coverage_attention_rows():
                 # count at which a session one record short is accepted
                 iters = 10 if t <= 600 else 4
                 ms = cuda_ms(call, iters=iters, warmup=2)
-                counters = (("flash_attn_generic_bwd_dq",
-                             "flash_attn_generic_bwd_dkv") if backward
-                            else ("flash_attn_generic_fwd",))
                 dev_ms, own, every, kept = device_ms(
                     call, names, warmup=1, counters=counters)
                 if backward and (own, every) != (2, 2):
-                    fail(f"generic backward {label}: {every} device launches"
-                         f" a call ({own} of the kernels), want 2 (dq, "
-                         "dk/dv) and no other")
+                    fail(f"{kernel} {label}: {every} device launches a call "
+                         f"({own} of the kernels), want 2 (dq, dk/dv) and "
+                         "no other")
                 plain_ms = cuda_ms(plain, iters=2, warmup=1)
                 library_ms = cuda_ms(library, iters=iters, warmup=2)
                 library_dev = library_device_ms(library, warmup=1)
@@ -7803,22 +7895,32 @@ def coverage_attention_rows():
                     b * h, t, d, dtype, backward)
                 # errors: fp32 relative to the largest |value|; bf16
                 # forward absolute, bf16 backward relative (as gated)
-                row = dict(dtype=dtype, D=d, B=b, H=h, T=t,
-                           max_abs_err=abs_err, errors=errs,
-                           ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                           library_ms=library_ms,
-                           library_device_ms=library_dev, bound_ms=bound_ms,
-                           bound_by=bound_by, flops=flops, bytes=nbytes,
+                shared = dict(dtype=dtype, D=d, B=b, H=h, T=t,
+                              plain_ms=plain_ms, library_ms=library_ms,
+                              library_device_ms=library_dev,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              flops=flops, bytes=nbytes)
+                row = dict(shared, kernel=kernel, max_abs_err=abs_err,
+                           errors=errs, ms=ms, device_ms=dev_ms,
                            **events_kept(kept))
-                (bwd_rows if backward else fwd_rows).append(row)
-                print(f"[coverage] flash_attn_generic_"
-                      f"{'bwd' if backward else 'fwd'} {label}: errors "
+                rows = bwd_rows if backward else fwd_rows
+                rows.append(row)
+                if was is not None:
+                    rows.append(dict(shared, **was))
+                    row["was_ms"], row["was_device_ms"] = (
+                        was["ms"], was["device_ms"])
+                print(f"[coverage] {kernel} {label}: errors "
                       f"{ {k: f'{e:.3e}' for k, e in errs.items()} }; views "
                       f"= [B*H, T, D] = repeat bit for bit"
                       f"{', 2 device launches a call' if backward else ''}; "
-                      f"wrapper {ms:.4f} ms, device {dev_ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (device "
-                      f"{library_dev:.4f}), bound {bound_ms:.4f} ms "
+                      f"wrapper {ms:.4f} ms, device {dev_ms:.4f} ms"
+                      + ("" if was is None else
+                         f" (was: the generic pair {was['ms']:.4f} ms, "
+                         f"device {was['device_ms']:.4f} ms, errors "
+                         + str({k: f"{e:.3e}"
+                                for k, e in was["errors"].items()}) + ")")
+                      + f", plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
+                      f"(device {library_dev:.4f}), bound {bound_ms:.4f} ms "
                       f"({bound_by}; {flops:.4g} flop, {nbytes:.4g} B)",
                       flush=True)
                 del qkv, q, k, v, out, lse, out4, lse4, again
@@ -7826,21 +7928,76 @@ def coverage_attention_rows():
     return fwd_rows, bwd_rows
 
 
+def coverage_route_sweep():
+    """The measurement behind attention.TF32_BWD_HEAD_DIMS: the fp32
+    backward at B 12, H 16, T 299 for every head dim that is a multiple of
+    8 from 8 to 128, through the wrapper (the 3xTF32 pair, held to
+    COVERAGE_F32_RTOL_OF_MAX against the plain version) and on the generic
+    pair called directly, wrapper ms (CUDA events) of each in turns.
+    Returns the rows."""
+    import torch
+
+    from occm_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = []
+    b, h, t = TRAIN_B, H, MAIN_PATH_TS[0]
+    for d in range(8, 129, 8):
+        qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
+        q4, k4, v4 = qkv.unbind(2)
+        out4, lse4 = attention.flash_attention_fwd(q4, k4, v4, t)
+        do4 = torch.randn((b, t, h, d), generator=gen, device="cuda")
+        reset_counts()
+        got = attention.flash_attention_bwd(q4, k4, v4, out4, lse4, do4, t)
+        counts = read_counts()
+        want = attention.flash_attention_bwd_reference(q4, k4, v4, out4,
+                                                       lse4, do4, t)
+        err = max(_rel_of_max(a, w) for a, w in zip(got, want))
+        routed = (counts["flash_attn_3xtf32_bwd_dq"],
+                  counts["flash_attn_generic_bwd_dq"]) == (1, 0)
+        if not (routed and math.isfinite(err)
+                and err <= COVERAGE_F32_RTOL_OF_MAX):
+            fail(f"fp32 backward D={d}: launches {counts}, error {err:.3e} "
+                 f"of the largest |value| (bound {COVERAGE_F32_RTOL_OF_MAX})")
+        new = (lambda: attention.flash_attention_bwd(q4, k4, v4, out4, lse4,
+                                                     do4, t))
+        old = (lambda: generic_attention_bwd(q4, k4, v4, out4, lse4, do4, t))
+        times = {"3xtf32": [], "generic": []}
+        for key, fn in (("3xtf32", new), ("generic", old), ("generic", old),
+                        ("3xtf32", new)):
+            times[key].append(cuda_ms(fn, iters=10, warmup=2))
+        row = dict(D=d, B=b, H=h, T=t, rel_of_max=err,
+                   ms=min(times["3xtf32"]), generic_ms=min(times["generic"]))
+        rows.append(row)
+        print(f"[coverage] fp32 backward D={d} B={b} H={h} T={t}: 3xTF32 "
+              f"{row['ms']:.4f} ms, generic {row['generic_ms']:.4f} ms "
+              f"(wrappers, in turns), error {err:.3e}", flush=True)
+        del qkv, out4, lse4, do4, got, want
+    slower = [r["D"] for r in rows if r["ms"] > r["generic_ms"]]
+    print(f"[coverage] the 3xTF32 backward is slower than the generic pair "
+          f"at D {slower} (attention.TF32_BWD_HEAD_DIMS routes "
+          f"{list(attention.TF32_BWD_HEAD_DIMS)} to it)", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def coverage_autograd(q4, k4, v4, do4, want, label,
                       kernels=("flash_attn_generic_bwd_dq",
                                "flash_attn_generic_bwd_dkv")):
     """`flash_attention` through autograd on CUDA [B, T, H, D] views: one
     launch of each backward kernel the route takes (`kernels`: the generic
-    pair, or a wgmma instance's counters) and none of any other attention
-    backward kernel, contiguous gradients equal bit for bit to the backward
-    wrapper's `want`; the expanded dO of `out.sum()` gives the gradients of
-    a contiguous dO of ones, read where it lies on the generic route and
-    copied once on the wgmma route (its TMA maps cannot read stride 0)."""
+    or 3xTF32 pair, or a wgmma instance's counters) and none of any other
+    attention backward kernel, contiguous gradients equal bit for bit to
+    the backward wrapper's `want`; the expanded dO of `out.sum()` gives the
+    gradients of a contiguous dO of ones, read where it lies on the generic
+    and 3xTF32 routes and copied once on the wgmma route (its TMA maps
+    cannot read stride 0)."""
     import torch
 
     from occm_tpu_torch.ops import attention
 
     backward = ("flash_attn_generic_bwd_dq", "flash_attn_generic_bwd_dkv",
+                "flash_attn_3xtf32_bwd_dq", "flash_attn_3xtf32_bwd_dkv",
                 "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
                 "flash_attn_bwd_other_d_dq", "flash_attn_bwd_other_d_dkv")
     q, k, v = (x.detach().requires_grad_() for x in (q4, k4, v4))
@@ -7862,7 +8019,9 @@ def coverage_autograd(q4, k4, v4, do4, want, label,
     summed = torch.autograd.grad(out.sum(), (q, k, v), retain_graph=True)
     ones = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
     torch.cuda.synchronize()
-    copies = int("flash_attn_generic_bwd_dq" not in kernels)
+    copies = int(not any(k.startswith(("flash_attn_generic",
+                                       "flash_attn_3xtf32"))
+                         for k in kernels))
     if read_counts()["flash_attn_bwd_dout_copies"] != copies:
         fail(f"{label}: the expanded dO was copied "
              f"{read_counts()['flash_attn_bwd_dout_copies']} times, want "
@@ -7876,37 +8035,78 @@ def coverage_autograd(q4, k4, v4, do4, want, label,
 
 
 def coverage_ffn_rows():
-    """ffn_fwd in fp32 (csrc/ffn_fwd_f32.cu) against ffn_reference at
-    FFN_F32_CASES: full width at M = 8 x 299 and 12 x 299 (erf and tanh
-    GELU) and the edge (1000, 1000, 4000), each timed beside its bound,
-    the plain version (the same fp32 products) and the library sequence
-    F.linear -> F.gelu -> F.linear in fp32."""
+    """ffn_fwd in fp32 against ffn_reference at FFN_F32_CASES: full width
+    at M = 8 x 299 and 12 x 299 (erf and tanh GELU) and the edge (1000,
+    1000, 4000), which the wrapper sends to the 3xTF32 kernel
+    (csrc/ffn_fwd_3xtf32.cu: D and F multiples of 4), each timed beside
+    its bound, the plain version (the same fp32 products), the library
+    sequence F.linear -> F.gelu -> F.linear in fp32 and the SIMT kernel
+    (csrc/ffn_fwd_f32.cu) on the same inputs ("was", a row of its own,
+    held to the same bound); and the SIMT kernel through the wrapper at
+    FFN_F32_SIMT_CASE, whose D and F it keeps."""
     import torch
     import torch.nn.functional as F
 
+    from occm_tpu_torch.ops import _build, ffn
     from occm_tpu_torch.ops.ffn import ffn_fwd, ffn_reference
 
+    lib = _build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(21)
     rows = []
-    for m, d, f, approximate in FFN_F32_CASES:
+    for m, d, f, approximate in (*FFN_F32_CASES, FFN_F32_SIMT_CASE):
         fc1_w = 0.02 * torch.randn((f, d), generator=gen, device="cuda")
         fc1_b = 0.02 * torch.randn((f,), generator=gen, device="cuda")
         fc2_w = 0.02 * torch.randn((d, f), generator=gen, device="cuda")
         fc2_b = 0.02 * torch.randn((d,), generator=gen, device="cuda")
         x = torch.randn((m, d), generator=gen, device="cuda")
         args = (x, fc1_w.t(), fc1_b, fc2_w.t(), fc2_b, approximate)
+        act = ffn.ACT_GELU_TANH if approximate else ffn.ACT_GELU_ERF
+        label = f"[{m}, {d}] x [{d}, {f}], {'tanh' if approximate else 'erf'}"
+        reset_counts()
         y = ffn_fwd(*args)
         torch.cuda.synchronize()
+        counts = read_counts()
+        simt_route = (m, d, f, approximate) == FFN_F32_SIMT_CASE
+        kernel = "ffn_fwd_f32" if simt_route else "ffn_fwd_3xtf32"
         ref = ffn_reference(*args)
-        err = _rel_of_max(y, ref)
-        if not (y.shape == (m, d) and y.dtype == torch.float32
-                and math.isfinite(err) and err <= FFN_F32_RTOL_OF_MAX):
-            fail(f"ffn_fwd fp32 M={m} D={d} F={f}: max |y - plain| = {err} "
-                 f"of the largest |y| > {FFN_F32_RTOL_OF_MAX}")
+
+        def held(out, who):
+            err = _rel_of_max(out, ref)
+            if not (out.shape == (m, d) and out.dtype == torch.float32
+                    and math.isfinite(err) and err <= FFN_F32_RTOL_OF_MAX):
+                fail(f"{who} fp32 {label}: max |y - plain| = {err} of the "
+                     f"largest |y| > {FFN_F32_RTOL_OF_MAX}")
+            return err
+
+        err = held(y, kernel)
+        launched = {k: counts[k] for k in ("ffn_fwd_f32", "ffn_fwd_3xtf32")}
+        if launched != {k: int(k == kernel) for k in launched}:
+            fail(f"ffn_fwd fp32 {label}: launches {launched}, want one call "
+                 f"of {kernel}")
+        if simt_route:
+            print(f"[coverage] ffn_fwd fp32 {label} through the wrapper: the "
+                  f"SIMT kernel (D, F not multiples of 4), max err "
+                  f"{err:.3e} of the largest |y| (bound "
+                  f"{FFN_F32_RTOL_OF_MAX})", flush=True)
+            continue
+
+        def simt():
+            h = ffn.gemm_bias_act("occm_ffn_gemm_f32", x, fc1_w, fc1_b, act)
+            return ffn.gemm_bias_act("occm_ffn_gemm_f32", h, fc2_w, fc2_b,
+                                     ffn.ACT_NONE)
+
+        was_err = held(simt(), "the SIMT kernel")
         ms = cuda_ms(lambda: ffn_fwd(*args), iters=10)
         dev_ms, _, _, kept = device_ms(lambda: ffn_fwd(*args),
-                                       ("ffn_gemm_f32_kernel",), warmup=1,
-                                       counters=("ffn_fwd_f32",))
+                                       ("ffn_gemm_3xtf32_kernel",), warmup=1,
+                                       counters=("ffn_fwd_3xtf32",))
+        was_ms = cuda_ms(simt, iters=10)
+        was_dev, own, _, was_kept = device_ms(simt, ("ffn_gemm_f32_kernel",),
+                                              warmup=1)
+        if own != 2:
+            fail(f"the SIMT kernel fp32 {label}: {own} launches a call, "
+                 "want 2")
         plain_ms = cuda_ms(lambda: ffn_reference(*args), iters=5, warmup=1)
         mode = "tanh" if approximate else "none"
 
@@ -7918,50 +8118,62 @@ def coverage_ffn_rows():
         library_dev = calls_device_ms(library, warmup=1)[0]
         bound_ms, bound_by, flops, nbytes = ffn_f32_bound(m, d, f)
         gelu = "tanh" if approximate else "erf"
-        rows.append(dict(M=m, D=d, F=f, gelu=gelu,
+        tiles = [lib.occm_ffn_gemm_3xtf32_tile_n(m, n, sms) for n in (f, d)]
+        shared = dict(M=m, D=d, F=f, gelu=gelu, plain_ms=plain_ms,
+                      library_ms=library_ms, library_device_ms=library_dev,
+                      bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                      bytes=nbytes)
+        rows.append(dict(shared, kernel="ffn_fwd_3xtf32",
                          max_abs_err=_abs_err(y, ref), rel_of_max=err, ms=ms,
-                         device_ms=dev_ms, plain_ms=plain_ms,
-                         library_ms=library_ms, library_device_ms=library_dev,
-                         bound_ms=bound_ms,
-                         bound_by=bound_by, flops=flops, bytes=nbytes,
+                         device_ms=dev_ms, was_ms=was_ms,
+                         was_device_ms=was_dev, tile_n=tiles,
                          **events_kept(kept)))
-        print(f"[coverage] ffn_fwd fp32 [{m}, {d}] x [{d}, {f}], {gelu}: "
-              f"max err {err:.3e} of the largest |y| (bound "
-              f"{FFN_F32_RTOL_OF_MAX}), wrapper {ms:.4f} ms, device "
-              f"{dev_ms:.4f} ms (fc1 + fc2), plain {plain_ms:.4f} ms, "
-              f"F.linear, F.gelu, F.linear {library_ms:.4f} ms (device "
-              f"{library_dev:.4f}), bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, "
+        rows.append(dict(shared, kernel="ffn_fwd_f32",
+                         max_abs_err=_abs_err(simt(), ref),
+                         rel_of_max=was_err, ms=was_ms, device_ms=was_dev,
+                         **events_kept(was_kept)))
+        print(f"[coverage] ffn_fwd fp32 {label}: 3xTF32 max err {err:.3e} of "
+              f"the largest |y| (bound {FFN_F32_RTOL_OF_MAX}), wrapper "
+              f"{ms:.4f} ms, device {dev_ms:.4f} ms (fc1 + fc2, tiles "
+              f"128 x {tiles[0]} / 128 x {tiles[1]}; was: the SIMT kernel "
+              f"{was_ms:.4f} ms, device {was_dev:.4f} ms, err "
+              f"{was_err:.3e}), plain {plain_ms:.4f} ms, F.linear, F.gelu, "
+              f"F.linear {library_ms:.4f} ms (device {library_dev:.4f}), "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, "
               f"{nbytes:.4g} B)", flush=True)
     return rows
 
 
 def phase_coverage_kernels():
     """Phase 20's kernel checks (in a full run right after phase 3's, while
-    torch.profiler keeps every record): the generic attention kernels and
-    the fp32 FFN kernel against their plain versions."""
+    torch.profiler keeps every record): the generic attention kernels, the
+    3xTF32 attention backward and the fp32 FFN kernels against their plain
+    versions, and the fp32 backward's route sweep."""
     t0 = time.perf_counter()
     fwd, bwd = coverage_attention_rows()
-    rows = {"fwd": fwd, "bwd": bwd, "ffn": coverage_ffn_rows()}
+    rows = {"fwd": fwd, "bwd": bwd, "ffn": coverage_ffn_rows(),
+            "bwd_route": coverage_route_sweep()}
     print(f"[coverage] phase 20's kernel checks: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return rows
 
 
 def coverage_model(workdir: str) -> tuple:
-    """The fp32 model at full width through the generic attention kernels
-    and the fp32 FFN kernel: AModel(AASISTConfig(), XLSRConfig(dtype=
-    "float32", attention_impl="flash", ffn_impl="pallas")) from seed 0.
-    Scoring of 8 x 6 s and 8 x 12 s (24 generic forward and 24 fp32 FFN
-    launches a batch, no wgmma launch) against the same weights on xla
+    """The fp32 model at full width through the generic attention forward,
+    the 3xTF32 attention backward and the 3xTF32 FFN kernel:
+    AModel(AASISTConfig(), XLSRConfig(dtype="float32",
+    attention_impl="flash", ffn_impl="pallas")) from seed 0. Scoring of
+    8 x 6 s and 8 x 12 s (24 generic forward and 24 3xTF32 FFN launches a
+    batch, no wgmma or SIMT FFN launch) against the same weights on xla
     attention and the xla FFN (distances to the plain path's mean
     embedding, COVERAGE_MODEL_RTOL); one eager 12 x 6 s training step
     against the plain step (loss; the encoder held: its features and
-    gradient from the plain step's dloss/dfeatures); utt/s at 2, 6 and
-    12 s in turns: xla, flash (generic kernels) and flash with the fp32
-    FFN kernel (the measurement behind impl_select's
-    AUTO_GENERIC_MIN_SAMPLES). Returns (the counts of the path's run,
-    the results)."""
+    gradient from the plain step's dloss/dfeatures; 48 generic forward,
+    24 + 24 3xTF32 backward, 48 3xTF32 FFN launches, no generic backward);
+    utt/s at 2, 6 and 12 s in turns: xla, flash (generic forward, 3xTF32
+    backward) and flash with the 3xTF32 FFN kernel (the measurement behind
+    impl_select's AUTO_GENERIC_MIN_SAMPLES). Returns (the counts of the
+    path's run, the results)."""
     import torch
 
     from occm_tpu_torch.classify.impl_select import AUTO_GENERIC_MIN_SAMPLES
@@ -8006,8 +8218,8 @@ def coverage_model(workdir: str) -> tuple:
         torch.cuda.synchronize()
         counts = read_counts()
         add(counts)
-        want = {"flash_attn_generic_fwd": layers, "ffn_fwd_f32": layers,
-                "flash_attn_fwd": 0, "ffn_fwd": 0}
+        want = {"flash_attn_generic_fwd": layers, "ffn_fwd_3xtf32": layers,
+                "ffn_fwd_f32": 0, "flash_attn_fwd": 0, "ffn_fwd": 0}
         if any(counts[k] != n for k, n in want.items()):
             fail(f"fp32 scoring 8 x {sec} s: launches {counts}, want {want}")
         ref = emb_p.mean(0, keepdim=True)
@@ -8018,7 +8230,8 @@ def coverage_model(workdir: str) -> tuple:
         scoring[sec] = dict(distance_max_rel=rel, emb_rel_l2=feat_rel,
                             launches=want)
         print(f"[coverage] fp32 scoring 8 x {sec} s: {layers} generic "
-              f"forward and {layers} fp32 FFN launches, no wgmma; distances "
+              f"forward and {layers} 3xTF32 FFN launches, no wgmma or SIMT "
+              f"FFN; distances "
               f"to the plain path's mean embedding max rel diff {rel:.3e}, "
               f"embeddings rel L2 {feat_rel:.3e} (bound "
               f"{COVERAGE_MODEL_RTOL})", flush=True)
@@ -8063,8 +8276,10 @@ def coverage_model(workdir: str) -> tuple:
     # remat (the default) runs every layer's forward again in the backward
     fwd_per = layers * (2 if kcfg.remat else 1)
     want = {"flash_attn_generic_fwd": fwd_per,
-            "flash_attn_generic_bwd_dq": layers,
-            "flash_attn_generic_bwd_dkv": layers, "ffn_fwd_f32": fwd_per,
+            "flash_attn_3xtf32_bwd_dq": layers,
+            "flash_attn_3xtf32_bwd_dkv": layers,
+            "flash_attn_generic_bwd_dq": 0, "flash_attn_generic_bwd_dkv": 0,
+            "ffn_fwd_3xtf32": fwd_per, "ffn_fwd_f32": 0,
             "flash_attn_fwd": 0, "flash_attn_bwd_dq": 0, "ffn_fwd": 0}
     if any(counts[k] != n for k, n in want.items()):
         fail(f"fp32 training step: launches {counts}, want {want}")
@@ -8084,7 +8299,8 @@ def coverage_model(workdir: str) -> tuple:
     del enc_p, enc_k, f_p, f_k, up_p
     model.eval()
 
-    # ---- utt/s in turns: xla, flash (generic), flash + the fp32 FFN kernel
+    # ---- utt/s in turns: xla, flash (generic forward, 3xTF32 backward),
+    # flash + the 3xTF32 FFN kernel
     fcfg = dataclasses.replace(kcfg, ffn_impl="xla")
     speed = []
     for sec in COVERAGE_SECONDS:
@@ -8113,9 +8329,10 @@ def coverage_model(workdir: str) -> tuple:
 
 def coverage_cli(workdir: str, fixture) -> tuple:
     """XLSRConfig.tiny() through the CLIs with a pinned flash impl (the
-    generic kernels): `oc_training --xlsr_tiny --attention_impl flash` for
-    2 steps on the fixture (finite losses; the generic forward, dq and
-    dk/dv launches a step exact), and `oc_classifier --mode 2c2` on the
+    generic forward, the 3xTF32 backward at its head dim 16):
+    `oc_training --xlsr_tiny --attention_impl flash` for 2 steps on the
+    fixture (finite losses; the generic forward and 3xTF32 dq and dk/dv
+    launches a step exact), and `oc_classifier --mode 2c2` on the
     fixture's utterances with seeded random weights on the card and with
     --device cpu: the generic forward launches a batch exact, the logits
     within TINY_RTOL_OF_MAX of the largest |value|. Returns (counts,
@@ -8156,8 +8373,9 @@ def coverage_cli(workdir: str, fixture) -> tuple:
         fwd_per = layers * (2 if xcfg.remat else 1)
         check_steps("coverage oc_training --xlsr_tiny --attention_impl flash",
                     rec, {"flash_attn_generic_fwd": fwd_per,
-                          "flash_attn_generic_bwd_dq": layers,
-                          "flash_attn_generic_bwd_dkv": layers,
+                          "flash_attn_3xtf32_bwd_dq": layers,
+                          "flash_attn_3xtf32_bwd_dkv": layers,
+                          "flash_attn_generic_bwd_dq": 0,
                           "flash_attn_fwd": 0, "flash_attn_bwd_dq": 0})
         counts = read_counts()
         for key, n in counts.items():
@@ -8224,14 +8442,14 @@ def phase_coverage(workdir: str, fixture) -> tuple:
     width (coverage_model) and the tiny model through the CLIs
     (coverage_cli); phase 4's phase_tiny_auto holds the tiny model under
     auto and pinned flash. The counts are set to 0 before each path and
-    read after it; every kernel of phase 20 must have launched. Returns
-    (the paths' summed counts, the results)."""
+    read after it; every kernel of COVERAGE_PATH_KERNELS must have
+    launched. Returns (the paths' summed counts, the results)."""
     t0 = time.perf_counter()
     m_counts, model_out = coverage_model(workdir)
     c_counts, cli_out = coverage_cli(workdir, fixture)
     counts = {k: m_counts.get(k, 0) + c_counts.get(k, 0)
               for k in set(m_counts) | set(c_counts)}
-    for key in COVERAGE_KERNEL_NAMES:
+    for key in COVERAGE_PATH_KERNELS:
         if not counts.get(key):
             fail(f"phase 20's paths never launched {key}: {counts}")
     out = dict(model=model_out, cli=cli_out, wall_s=time.perf_counter() - t0)
@@ -8944,21 +9162,35 @@ def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
 
 def coverage_kernel_line(rows, launches):
     """Phase 20's {"kernels": [...]} entries: the generic attention forward
-    and backward (their head row fp32 at XLS-R's shape, [B, T=299, H=16,
-    D=64]; every row under "per_shape") and the fp32 FFN (head row
-    [2392, 1024] x [1024, 4096], erf). `launches` come from phase 20's
-    paths, 0 with --kernels-only."""
+    and backward, the 3xTF32 attention backward (head rows fp32 at XLS-R's
+    shape, [B, T=299, H=16, D=64]; every row under "per_shape") and the
+    fp32 FFN kernels (head rows [2392, 1024] x [1024, 4096], erf). The
+    generic backward's and the SIMT FFN's head rows are their "was" rows,
+    timed on the same inputs as the 3xTF32 kernels that took over their
+    shapes. `launches` come from phase 20's paths, 0 with --kernels-only;
+    the generic backward and the SIMT FFN keep no shape of those paths."""
 
-    def head(kind, **match):
-        return next(r for r in rows[kind]
-                    if all(r[k] == v for k, v in match.items()))
+    def head(kind, kernel, **match):
+        return next(r for r in rows[kind] if r["kernel"] == kernel
+                    and all(r[k] == v for k, v in match.items()))
+
+    def per_shape(kind, kernel):
+        return [r for r in rows[kind] if r["kernel"] == kernel]
 
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms")
-    fwd = head("fwd", dtype="float32", D=64, T=MAIN_PATH_TS[0])
-    bwd = head("bwd", dtype="float32", D=64, T=MAIN_PATH_TS[0])
-    ffn = head("ffn", M=FFN_MAIN_M, gelu="erf")
+    main_t = dict(dtype="float32", D=64, T=MAIN_PATH_TS[0])
+    fwd = head("fwd", "flash_attn_generic_fwd", **main_t)
+    bwd = head("bwd", "flash_attn_generic_bwd", **main_t)
+    tf32_bwd = head("bwd", "flash_attn_3xtf32_bwd", **main_t)
+    ffn = head("ffn", "ffn_fwd_f32", M=FFN_MAIN_M, gelu="erf")
+    tf32_ffn = head("ffn", "ffn_fwd_3xtf32", M=FFN_MAIN_M, gelu="erf")
     replaced = "occm_tpu/ops/attention.py:"
+    bwd_shape = (f"[B={TRAIN_B}, T={MAIN_PATH_TS[0]}, H={H}, D=64] fp32 "
+                 "views")
+    ffn_shape = f"x [{FFN_MAIN_M}, 1024] x W1 [1024, 4096] fp32, erf GELU"
+    off_path = ("no shape of phase 20's paths: the 3xTF32 kernels take "
+                "every fp32 shape there; timed on the same inputs")
     return [
         {"name": "flash_attn_generic_fwd", "route": "cuda",
          "source": "occm_tpu_torch/csrc/flash_attn_generic.cu",
@@ -8968,28 +9200,51 @@ def coverage_kernel_line(rows, launches):
          "launches": launches["flash_attn_generic_fwd"],
          "shape": f"[B={B}, T={fwd['T']}, H={fwd['H']}, D=64] fp32 views",
          **{k: fwd[k] for k in keys}, "library": "SDPA, same dtype",
-         "per_shape": rows["fwd"]},
+         "per_shape": per_shape("fwd", "flash_attn_generic_fwd")},
         {"name": "flash_attn_generic_bwd", "route": "cuda",
          "source": "occm_tpu_torch/csrc/flash_attn_generic.cu",
          "replaces": f"{replaced}79 (_bwd_kernel), {replaced}350 "
                      f"(_blocked_dq_kernel), {replaced}373 "
-                     "(_blocked_dkv_kernel), in fp32 and at head dims "
-                     "other than 64",
+                     "(_blocked_dkv_kernel), in fp32 at head dims the "
+                     "3xTF32 pair does not take and in bf16 at head dims "
+                     "the wgmma pair does not take",
          "launches": launches["flash_attn_generic_bwd_dq"],
          "launches_dkv": launches["flash_attn_generic_bwd_dkv"],
-         "shape": f"[B={TRAIN_B}, T={bwd['T']}, H={bwd['H']}, D=64] fp32 "
-                  "views",
-         **{k: bwd[k] for k in keys},
+         "launches_note": off_path,
+         "shape": bwd_shape, **{k: bwd[k] for k in keys},
          "library": "SDPA forward + backward minus forward, same dtype",
-         "per_shape": rows["bwd"]},
+         "per_shape": per_shape("bwd", "flash_attn_generic_bwd")},
+        {"name": "flash_attn_3xtf32_bwd", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/flash_attn_bwd_3xtf32_dq.cu, "
+                   "occm_tpu_torch/csrc/flash_attn_bwd_3xtf32_dkv.cu",
+         "replaces": f"{replaced}79 (_bwd_kernel), {replaced}350 "
+                     f"(_blocked_dq_kernel), {replaced}373 "
+                     "(_blocked_dkv_kernel), in fp32",
+         "launches": launches["flash_attn_3xtf32_bwd_dq"],
+         "launches_dkv": launches["flash_attn_3xtf32_bwd_dkv"],
+         "shape": bwd_shape, **{k: tf32_bwd[k] for k in keys},
+         "was_ms": tf32_bwd["was_ms"],
+         "was_device_ms": tf32_bwd["was_device_ms"],
+         "library": "SDPA forward + backward minus forward, same dtype",
+         "per_shape": per_shape("bwd", "flash_attn_3xtf32_bwd"),
+         "route_sweep": rows["bwd_route"]},
         {"name": "ffn_fwd_f32", "route": "cuda",
          "source": "occm_tpu_torch/csrc/ffn_fwd_f32.cu",
-         "replaces": "occm_tpu/ops/ffn.py:50 (_kernel), in fp32",
-         "launches": launches["ffn_fwd_f32"],
-         "shape": f"x [{FFN_MAIN_M}, 1024] x W1 [1024, 4096] fp32, erf GELU",
-         **{k: ffn[k] for k in keys},
+         "replaces": "occm_tpu/ops/ffn.py:50 (_kernel), in fp32 at D or F "
+                     "not a multiple of 4",
+         "launches": launches["ffn_fwd_f32"], "launches_note": off_path,
+         "shape": ffn_shape, **{k: ffn[k] for k in keys},
          "library": "F.linear, F.gelu, F.linear (fp32)",
-         "per_shape": rows["ffn"]},
+         "per_shape": per_shape("ffn", "ffn_fwd_f32")},
+        {"name": "ffn_fwd_3xtf32", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/ffn_fwd_3xtf32.cu",
+         "replaces": "occm_tpu/ops/ffn.py:50 (_kernel), in fp32",
+         "launches": launches["ffn_fwd_3xtf32"],
+         "shape": ffn_shape, **{k: tf32_ffn[k] for k in keys},
+         "was_ms": tf32_ffn["was_ms"],
+         "was_device_ms": tf32_ffn["was_device_ms"],
+         "library": "F.linear, F.gelu, F.linear (fp32)",
+         "per_shape": per_shape("ffn", "ffn_fwd_3xtf32")},
     ]
 
 
@@ -9070,8 +9325,9 @@ def main(argv=None) -> int:
                          "prints no kernels line")
     ap.add_argument("--coverage-only", action="store_true",
                     help="run phases 1, 2 and 20 only (device, build, the "
-                         "generic attention kernels and the fp32 FFN "
-                         "kernel: checks against their plain versions, the "
+                         "generic attention kernels, the 3xTF32 attention "
+                         "backward and the fp32 FFN kernels: checks against "
+                         "their plain versions, the "
                          "fp32 model at full width, the tiny model under "
                          "auto, pinned flash and through the CLIs); prints "
                          "no kernels line")
@@ -9171,7 +9427,8 @@ def main(argv=None) -> int:
     ln = phase_layernorm_bwd()
     adam = phase_fused_adam()
     ffn_rows = phase_ffn()
-    # phase 20's kernel checks: the generic attention and fp32 FFN kernels
+    # phase 20's kernel checks: the generic attention, 3xTF32 backward and
+    # fp32 FFN kernels
     cov_rows = phase_coverage_kernels()
     # phase 21's: the wgmma attention kernels at head dims other than 64
     wide_rows = phase_wide_kernels()
@@ -9217,7 +9474,8 @@ def main(argv=None) -> int:
             print(f"[smoke] phases 4-7 ended at "
                   f"{time.perf_counter() - t_run:.1f} s", flush=True)
             # phase 20's paths: the fp32 model at full width and the tiny
-            # model through the CLIs, on the generic and fp32 FFN kernels
+            # model through the CLIs, on the generic forward and the 3xTF32
+            # backward and FFN kernels
             c_counts, coverage = phase_coverage(workdir, fixture)
             for name in cov_launches:
                 cov_launches[name] = c_counts[name]

@@ -3,7 +3,9 @@
 //
 // Replaces, in fp32, the TPU Pallas kernel `_kernel` of occm_tpu/ops/ffn.py:50,
 // which runs in fp32 whenever D % 128 == 0 and F % 512 == 0
-// (ffn.py:171-174); ffn_fwd.cu takes bf16 only. Same arithmetic as it and
+// (ffn.py:171-174), at the fp32 D and F that ffn_fwd_3xtf32.cu (the
+// tensor cores, 3xTF32: D and F multiples of 4, 1.9-2.3x faster at the
+// model's shapes) does not take; ffn_fwd.cu takes bf16 only. Same arithmetic as it and
 // as ffn_reference (ops/ffn.py) in fp32: x W1 + b1 with fp32 sums, GELU in
 // fp32 (exact erf, or the tanh form of jax.nn.gelu and
 // F.gelu(approximate="tanh")), then h W2 + b2 with fp32 sums. True fp32:
@@ -32,10 +34,10 @@
 // fc1 + fc2 are 4 M D F = 4.013e10 flops: 0.60 ms at the fp32 peak of
 // 67 TFLOP/s, against 0.015 ms for the 50 MB of x, W1, W2, the biases and y
 // at 3.35 TB/s.
-// What its simple design leaves on the table: the tensor cores (3xTF32
-// wgmma would give fp32 accuracy at up to a third of the 495 TFLOP/s TF32
-// rate); fc2's grid at D = 1024 (152 blocks of 128 x 128 for 132 SMs, two
-// blocks an SM: a partial wave); warp-tiled register blocking and deeper
+// What its simple design leaves on the table: the tensor cores (taken by
+// ffn_fwd_3xtf32.cu wherever TMA can read the rows); fc2's grid at
+// D = 1024 (152 blocks of 128 x 128 for 132 SMs, two blocks an SM: a
+// partial wave); warp-tiled register blocking and deeper
 // pipelines of a tuned sgemm; the h round trip through L2. The measured
 // times are in PERF.md.
 

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (ffn_fwd.cu, flash_attn_fwd.cu): shared-memory addresses, mbarriers, TMA
+// (ffn_fwd.cu, ffn_fwd_3xtf32.cu, the attention kernels): shared-memory addresses, mbarriers, TMA
 // loads and stores, wgmma shared-memory descriptors and fences, and
 // cuTensorMapEncodeTiled fetched through cudaGetDriverEntryPoint (so the
 // library does not link -lcuda). Everything has internal linkage:
@@ -185,13 +185,14 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dimensions (innermost first, `dims`; byte strides
-// of dimensions 1.. in `strides`) read or written in boxes of `box`, with
-// the 128-byte swizzle and zero fill past its edges; 0 on success, -1 when
-// libcuda has no encoder, -1000 - CUresult when it refuses the map.
-int encode_bf16(CUtensorMap* map, const void* ptr, int rank,
-                const cuuint64_t* dims, const cuuint64_t* strides,
-                const cuuint32_t* box) {
+// A tensor of `type` and `rank` dimensions (innermost first, `dims`; byte
+// strides of dimensions 1.. in `strides`) read or written in boxes of
+// `box`, with the 128-byte swizzle and zero fill past its edges; 0 on
+// success, -1 when libcuda has no encoder, -1000 - CUresult when it refuses
+// the map.
+int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+               int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+               const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -1;
   // cuTensorMapEncodeTiled needs a context current on the calling thread.
@@ -205,12 +206,20 @@ int encode_bf16(CUtensorMap* map, const void* ptr, int rank,
     bound = true;
   }
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), dims,
+                        strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -1000 - (int)r;
+}
+
+// encode_map of a bf16 tensor
+int encode_bf16(CUtensorMap* map, const void* ptr, int rank,
+                const cuuint64_t* dims, const cuuint64_t* strides,
+                const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims,
+                    strides, box);
 }
 
 }  // namespace

@@ -163,6 +163,19 @@ def load() -> ctypes.CDLL:
             lib.occm_flash_attn_generic_bwd_dkv.argtypes = [
                 *[p] * 8, *[i] * 6, *[ll] * 16, ctypes.c_float, p]
             lib.occm_flash_attn_generic_bwd_dkv.restype = i
+            # the 3xTF32 backward pair: pointers, (b, h, T, t_valid, d),
+            # strides (sb, st, sh, sd) of each [b, T, h, d] input, scale,
+            # stream
+            lib.occm_flash_attn_3xtf32_bwd_dq.argtypes = [
+                *[p] * 8, *[i] * 5, *[ll] * 20, ctypes.c_float, p]
+            lib.occm_flash_attn_3xtf32_bwd_dq.restype = i
+            lib.occm_flash_attn_3xtf32_bwd_dkv.argtypes = [
+                *[p] * 8, *[i] * 5, *[ll] * 16, ctypes.c_float, p]
+            lib.occm_flash_attn_3xtf32_bwd_dkv.restype = i
+            lib.occm_ffn_gemm_3xtf32.argtypes = [p, p, p, p, i, i, i, i, p]
+            lib.occm_ffn_gemm_3xtf32.restype = i
+            lib.occm_ffn_gemm_3xtf32_tile_n.argtypes = [i, i, i]
+            lib.occm_ffn_gemm_3xtf32_tile_n.restype = i
             _lib = lib
         return _lib
 

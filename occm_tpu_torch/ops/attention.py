@@ -32,11 +32,15 @@ Two CUDA routes (`cuda_route`):
   256, take the three kernels of `csrc/flash_attn_generic.cu` (forward, dq
   with δ, dk/dv: FFMA on the CUDA cores, true fp32), which replace the same
   five TPU kernels for what the wgmma kernels do not take.
-The forward and the backward of one call take the same route, the
-backward fed by its own forward's lse. The generic kernels read any
-strides in place; on the wgmma route a [B, T, H, D] input whose strides
-the TMA maps cannot read raises, and the autograd Function copies such a
-dO (an expanded one) first. Whatever no route takes raises.
+The backward has a third route (`cuda_bwd_route`): "3xtf32", fp32 at the
+head dims of `TF32_BWD_HEAD_DIMS`, takes the two kernels of
+`csrc/flash_attn_bwd_3xtf32_dq.cu` and `_dkv.cu` (dq with δ, then dk/dv:
+`mma.sync` on the tensor cores in 3xTF32, fp32 sums); any other fp32 D
+keeps the generic pair. Otherwise the backward of a call takes its forward's route; it is
+fed by its own forward's lse either way. The generic and 3xTF32 kernels
+read any strides in place; on the wgmma route a [B, T, H, D] input whose
+strides the TMA maps cannot read raises, and the autograd Function copies
+such a dO (an expanded one) first. Whatever no route takes raises.
 
 For every T the port casts the unnormalised probabilities to bf16 before
 P·V and divides by the row sum afterwards, as the blocked TPU kernel does;
@@ -69,11 +73,31 @@ BWD_DOUT_COPIES = 0
 GENERIC_LAUNCHES = 0
 GENERIC_BWD_DQ_LAUNCHES = 0
 GENERIC_BWD_DKV_LAUNCHES = 0
+#: launches of the 3xTF32 backward pair (csrc/flash_attn_bwd_3xtf32_*.cu)
+TF32_BWD_DQ_LAUNCHES = 0
+TF32_BWD_DKV_LAUNCHES = 0
 
 #: head dims the wgmma kernels take in bf16: multiples of 8 from 8 to 128
 WGMMA_HEAD_DIMS = range(8, 129, 8)
 #: head dims the generic kernels take (a padded bucket of 16 to 256)
 GENERIC_HEAD_DIMS = range(1, 257)
+#: head dims at which the fp32 backward takes the 3xTF32 pair: the
+#: multiples of 8 from 8 to 128 (the kernels' instances are round_up(D, 16)
+#: columns wide). The generic pair keeps every other fp32 D. chip_smoke.py
+#: phase 20's sweep (B 12, H 16, T 299, wrapper ms in turns, an NVIDIA H100
+#: 80GB HBM3 at a 700 W power limit) found the 3xTF32 pair ahead at every
+#: one of them, 3xTF32 against generic:
+#:   D   8  0.1648, 0.2885    D  72  0.9581, 1.8468
+#:   D  16  0.1752, 0.3087    D  80  0.9432, 1.8484
+#:   D  24  0.2771, 0.4879    D  88  1.0931, 1.8532
+#:   D  32  0.2776, 0.4846    D  96  1.0774, 1.8515
+#:   D  40  0.4114, 0.8821    D 104  1.4054, 1.8846
+#:   D  48  0.4180, 0.8909    D 112  1.4110, 1.8915
+#:   D  56  0.5208, 0.8940    D 120  1.6965, 1.9008
+#:   D  64  0.5145, 0.8764    D 128  1.5944, 1.8384
+#: and at the tiny model's D 16, B 12, H 4 on device time 0.0480 against
+#: 0.0873 ms.
+TF32_BWD_HEAD_DIMS = range(8, 129, 8)
 #: the generic kernels' dtype codes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -90,6 +114,16 @@ def cuda_route(dtype: torch.dtype, head_dim: int):
     if dtype in _DTYPE_CODE and head_dim in GENERIC_HEAD_DIMS:
         return "generic"
     return None
+
+
+def cuda_bwd_route(dtype: torch.dtype, head_dim: int):
+    """The CUDA backward kernels that take q, k, v of this dtype and head
+    dim: "3xtf32" (fp32 with D in TF32_BWD_HEAD_DIMS:
+    csrc/flash_attn_bwd_3xtf32_dq.cu, _dkv.cu), else the forward's
+    `cuda_route`."""
+    if dtype == torch.float32 and head_dim in TF32_BWD_HEAD_DIMS:
+        return "3xtf32"
+    return cuda_route(dtype, head_dim)
 
 
 def cuda_kernel_takes(dtype: torch.dtype, head_dim: int) -> bool:
@@ -153,9 +187,11 @@ def _strides4(x: torch.Tensor, four_d: bool):
     return x.data_ptr(), sb, st, x.shape[-1] * sd, sd
 
 
-def _route(dtypes, head_dim: int) -> str:
-    """The CUDA route of tensors of these dtypes, or ValueError."""
-    route = (cuda_route(dtypes[0], head_dim)
+def _route(dtypes, head_dim: int, backward: bool = False) -> str:
+    """The CUDA route (`cuda_route`, or `cuda_bwd_route` for the backward)
+    of tensors of these dtypes, or ValueError."""
+    table = cuda_bwd_route if backward else cuda_route
+    route = (table(dtypes[0], head_dim)
              if len(set(dtypes)) == 1 else None)
     if route is None:
         raise ValueError(
@@ -317,9 +353,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ([B, T, H, D] views of the projections' output need no copy), two
     device launches and nothing else. At D != 64 the dq kernel also writes
     bf16(q * scale) to a [B, T, H, D] scratch tensor that the dk/dv kernel
-    reads. Any other dtype and D that `cuda_route` takes launch the generic
-    pair the same way (`occm_flash_attn_generic_bwd_dq`, then `_dkv`),
-    which reads any strides. CPU tensors take the plain version."""
+    reads. fp32 at TF32_BWD_HEAD_DIMS launches the 3xTF32 pair the same
+    way (`occm_flash_attn_3xtf32_bwd_dq`, then `_dkv`), and any other dtype
+    and D that `cuda_bwd_route` takes the generic pair
+    (`occm_flash_attn_generic_bwd_dq`, then `_dkv`); both read any strides.
+    CPU tensors take the plain version."""
     global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
     global OTHER_D_BWD_DQ_LAUNCHES, OTHER_D_BWD_DKV_LAUNCHES
     tensors = (q, k, v, o, do)
@@ -343,11 +381,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
-    route = _route([x.dtype for x in tensors], D)
+    route = _route([x.dtype for x in tensors], D, backward=True)
     if not lse.is_contiguous():
         raise ValueError("the CUDA kernels take a contiguous lse")
     if route == "generic":
         return _generic_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D)
+    if route == "3xtf32":
+        return _tf32_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D)
     (qp, *qs), (kp, *ks), (vp, *vs), (op, *os_), (dop, *dos) = (
         _launch_args(x, four_d) for x in tensors)
 
@@ -422,6 +462,39 @@ def _generic_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D):
     return dq, dk, dv
 
 
+def _tf32_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D):
+    """`occm_flash_attn_3xtf32_bwd_dq` then `_dkv` on the current stream."""
+    global TF32_BWD_DQ_LAUNCHES, TF32_BWD_DKV_LAUNCHES
+    from occm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    (qp, *qs), (kp, *ks), (vp, *vs), (op, *os_), (dop, *dos) = (
+        _strides4(x, four_d) for x in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    stream = _build.raw_stream(q.device)
+    scale = 1.0 / math.sqrt(D)
+    with _build.on_device(q.device):
+        err = lib.occm_flash_attn_3xtf32_bwd_dq(
+            qp, kp, vp, op, dop, lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), B, H, T, t_valid, D, *qs, *ks, *vs, *os_, *dos,
+            scale, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"occm_flash_attn_3xtf32_bwd_dq failed: error {err}")
+        TF32_BWD_DQ_LAUNCHES += 1
+        err = lib.occm_flash_attn_3xtf32_bwd_dkv(
+            qp, kp, vp, dop, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, T, t_valid, D, *qs, *ks, *vs, *dos, scale,
+            stream)
+        if err != 0:
+            raise RuntimeError(
+                f"occm_flash_attn_3xtf32_bwd_dkv failed: error {err}")
+        TF32_BWD_DKV_LAUNCHES += 1
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     """[B, T, H, D] attention with the kernels on both passes. The forward
     reads q, k, v where they lie and saves them with out and lse; the
@@ -438,8 +511,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         global BWD_DOUT_COPIES
         q, k, v, out, lse = ctx.saved_tensors
-        # the wgmma route's TMA maps need 16-byte strides; the generic
-        # route reads any dO where it lies
+        # the wgmma route's TMA maps need 16-byte strides; the generic and
+        # 3xTF32 routes read any dO where they lie
         if (dout.device.type == "cuda"
                 and cuda_route(q.dtype, q.shape[-1]) == "wgmma"
                 and not _tma_readable(dout, True)):

@@ -6,9 +6,12 @@ keeps the JAX package's layout. It is a `torch.autograd.Function`: on a CUDA
 tensor its forward launches the hand-written Hopper kernel
 `csrc/ffn_fwd.cu` twice (fc1 + GELU into a bf16 [M, F] scratch that stays
 in L2, then fc2; `wgmma` fed by TMA), which replaces the TPU kernel
-`_kernel`; in fp32 it launches `csrc/ffn_fwd_f32.cu` twice the same way
-(a SIMT sgemm with the same epilogue, true fp32, any shape), which replaces
-the same TPU kernel where it runs in fp32; on a CPU tensor it runs
+`_kernel`; in fp32 it launches `csrc/ffn_fwd_3xtf32.cu` twice the same way
+(`wgmma` fed by TMA in 3xTF32: each product three TF32 products into fp32
+sums, D and F multiples of 4), or, at any other fp32 D and F,
+`csrc/ffn_fwd_f32.cu` (a SIMT sgemm with the same epilogue, true fp32),
+which replace the same TPU kernel where it runs in fp32; on a CPU tensor
+it runs
 `ffn_reference`, the kernel's plain PyTorch version. A tensor on any other
 device raises; nothing falls back from the kernel to the plain version. The kernel reads the weights as `nn.Linear` stores them
 (`fc1.weight` [F, D] = W1ᵀ, `fc2.weight` [D, F] = W2ᵀ), so the model passes
@@ -31,8 +34,10 @@ import torch.nn.functional as F
 #: calls of `ffn_fwd` that launched the kernel (two device launches each,
 #: fc1 and fc2) since the last reset; chip_smoke.py reads and resets it
 LAUNCHES = 0
-#: the same for the fp32 kernel (csrc/ffn_fwd_f32.cu)
+#: the same for the fp32 kernels: the SIMT sgemm (csrc/ffn_fwd_f32.cu) and
+#: the 3xTF32 tensor-core GEMM (csrc/ffn_fwd_3xtf32.cu)
 F32_LAUNCHES = 0
+TF32_LAUNCHES = 0
 
 #: the epilogue's activation, as `occm_ffn_gemm` takes it
 ACT_NONE, ACT_GELU_ERF, ACT_GELU_TANH = 0, 1, 2
@@ -79,34 +84,16 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def gemm_bias_act(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
-                  act: int) -> torch.Tensor:
-    """One launch of the kernel of csrc/ffn_fwd.cu on the current stream:
-    act(a [M, K] b [N, K]^T + bias [N]) in bf16, in output tiles of
-    128 x 256. The caller checks the arguments: CUDA bf16, contiguous,
-    16-byte aligned, N and K multiples of 8."""
-    from occm_tpu_torch.ops import _build
-
-    lib = _build.load()
-    m, k = a.shape
-    n = b.shape[0]
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    with torch.cuda.device(a.device):
-        err = lib.occm_ffn_gemm(
-            a.data_ptr(), b.data_ptr(), bias.data_ptr(), out.data_ptr(), m,
-            n, k, act, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"occm_ffn_gemm failed: error {err} (a "
-                           "cudaError_t, or -1000 - CUresult of a TMA "
-                           "descriptor)")
-    return out
-
-
-def gemm_bias_act_f32(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
-                      act: int) -> torch.Tensor:
-    """One launch of the kernel of csrc/ffn_fwd_f32.cu on the current
-    stream: act(a [M, K] b [N, K]^T + bias [N]) in fp32, in output tiles of
-    128 x 128. The caller checks the arguments: CUDA fp32, contiguous."""
+def gemm_bias_act(entry: str, a: torch.Tensor, b: torch.Tensor,
+                  bias: torch.Tensor, act: int) -> torch.Tensor:
+    """One launch of a kernel of the library on the current stream:
+    act(a [M, K] b [N, K]^T + bias [N]) in a's dtype. `entry`:
+    "occm_ffn_gemm" (csrc/ffn_fwd.cu, bf16, tiles of 128 x 256; N and K
+    multiples of 8), "occm_ffn_gemm_3xtf32" (csrc/ffn_fwd_3xtf32.cu, fp32
+    on the tensor cores, tiles of 128 x 192 or 128; N and K multiples of
+    4) or "occm_ffn_gemm_f32" (csrc/ffn_fwd_f32.cu, the SIMT fp32 kernel,
+    tiles of 128 x 128, any shape). The caller checks the arguments: CUDA,
+    contiguous, and for the TMA kernels 16-byte aligned."""
     from occm_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -114,11 +101,12 @@ def gemm_bias_act_f32(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
     n = b.shape[0]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     with _build.on_device(a.device):
-        err = lib.occm_ffn_gemm_f32(
-            a.data_ptr(), b.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n,
-            k, act, _build.raw_stream(a.device))
+        err = getattr(lib, entry)(
+            a.data_ptr(), b.data_ptr(), bias.data_ptr(), out.data_ptr(), m,
+            n, k, act, _build.raw_stream(a.device))
     if err != 0:
-        raise RuntimeError(f"occm_ffn_gemm_f32 failed: error {err}")
+        raise RuntimeError(f"{entry} failed: error {err} (a cudaError_t, "
+                           "or -1000 - CUresult of a TMA descriptor)")
     return out
 
 
@@ -132,10 +120,11 @@ def ffn_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     GELU, into a bf16 [M, F] scratch that stays in L2) and fc2 (+ b2), in
     output tiles of 128 x 256. It takes bf16, M >= 1 and D, F
     multiples of 8 (TMA needs 16-byte row strides). fp32 x and weights
-    launch the fp32 kernel twice the same way (an fp32 [M, F] scratch,
-    tiles of 128 x 128, any M, D, F). Mixed dtypes raise. CPU tensors take
-    the plain version."""
-    global LAUNCHES, F32_LAUNCHES
+    launch the 3xTF32 kernel twice the same way (an fp32 [M, F] scratch,
+    tiles of 128 x 192 or 128) where D and F are multiples of 4, else the
+    SIMT kernel (tiles of 128 x 128, any M, D, F). Mixed dtypes raise. CPU
+    tensors take the plain version."""
+    global LAUNCHES, F32_LAUNCHES, TF32_LAUNCHES
     _check(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return ffn_reference(x, w1, b1, w2, b2, approximate)
@@ -143,12 +132,17 @@ def ffn_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"fused_ffn runs on cuda or cpu, not {x.device}")
     dtypes = {t.dtype for t in (x, w1, b1, w2, b2)}
     if dtypes == {torch.float32}:
-        act = ACT_GELU_TANH if approximate else ACT_GELU_ERF
-        h = gemm_bias_act_f32(x.contiguous(), w1.t().contiguous(),
-                              b1.contiguous(), act)
-        y = gemm_bias_act_f32(h, w2.t().contiguous(), b2.contiguous(),
-                              ACT_NONE)
-        F32_LAUNCHES += 1
+        # TMA reads rows of 16-byte multiples: D and F multiples of 4
+        tensor_cores = x.shape[1] % 4 == 0 and w1.shape[1] % 4 == 0
+        entry = "occm_ffn_gemm_3xtf32" if tensor_cores else "occm_ffn_gemm_f32"
+        w1t, w2t = _aligned(w1.t()), _aligned(w2.t())  # the nn.Linear weights
+        h = gemm_bias_act(entry, _aligned(x), w1t, b1.contiguous(),
+                          ACT_GELU_TANH if approximate else ACT_GELU_ERF)
+        y = gemm_bias_act(entry, h, w2t, b2.contiguous(), ACT_NONE)
+        if tensor_cores:
+            TF32_LAUNCHES += 1
+        else:
+            F32_LAUNCHES += 1
         return y
     if dtypes != {torch.bfloat16}:
         raise ValueError(
@@ -161,9 +155,9 @@ def ffn_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          f"8 (16-byte row strides); got M={m}, D={d}, F={f}")
     x = _aligned(x)
     w1t, w2t = _aligned(w1.t()), _aligned(w2.t())  # fc1.weight, fc2.weight
-    h = gemm_bias_act(x, w1t, _aligned(b1),
+    h = gemm_bias_act("occm_ffn_gemm", x, w1t, _aligned(b1),
                       ACT_GELU_TANH if approximate else ACT_GELU_ERF)
-    y = gemm_bias_act(h, w2t, _aligned(b2), ACT_NONE)
+    y = gemm_bias_act("occm_ffn_gemm", h, w2t, _aligned(b2), ACT_NONE)
     LAUNCHES += 1
     return y
 

@@ -547,22 +547,28 @@ def _cuda_patched(monkeypatch):
     (torch.float16, 16, None)])
 def test_cuda_wrappers_route_or_refuse(monkeypatch, dtype, head_dim,
                                        reaches):
-    """On a CUDA tensor the forward and backward wrappers take the route
-    `cuda_route` names and go on to the build (the generic route reads any
-    strides, so the views need no check), or raise ValueError for what no
-    route takes (D 0, D 257, fp16), before any build; a mixed-dtype call
-    raises. Checked with the device test patched, as this host has no
-    card."""
+    """On a CUDA tensor the forward wrapper takes the route `cuda_route`
+    names and the backward wrapper the one `cuda_bwd_route` names (fp32 at
+    D 64 and 16: the 3xTF32 pair), and both go on to the build (the generic
+    and 3xTF32 routes read any strides, so the views need no check), or
+    raise ValueError for what no route takes (D 0, D 257, fp16), before any
+    build; a mixed-dtype call raises. Checked with the device test patched,
+    as this host has no card."""
     T = 8
     q, k, v, o, do = (torch.zeros((2, T, 3, head_dim), dtype=dtype)
                       for _ in range(5))
     lse = torch.zeros((6, T))
     seen = []
-    generic = {"fwd": attention._generic_fwd, "bwd": attention._generic_bwd}
+    generic = {"fwd": attention._generic_fwd, "bwd": attention._generic_bwd,
+               "3xtf32": attention._tf32_bwd}
     monkeypatch.setattr(attention, "_generic_fwd",
                         lambda *a: (seen.append("generic"), generic["fwd"](*a)))
     monkeypatch.setattr(attention, "_generic_bwd",
                         lambda *a: (seen.append("generic"), generic["bwd"](*a)))
+    monkeypatch.setattr(attention, "_tf32_bwd",
+                        lambda *a: (seen.append("3xtf32"), generic["3xtf32"](*a)))
+    bwd_reaches = "3xtf32" if (dtype, head_dim) in (
+        (torch.float32, 64), (torch.float32, 16)) else reaches
     Built = _cuda_patched(monkeypatch)
     if reaches is None:
         with pytest.raises(ValueError, match="from 1 to 256"):
@@ -574,7 +580,8 @@ def test_cuda_wrappers_route_or_refuse(monkeypatch, dtype, head_dim,
         attention.flash_attention_fwd(q, k, v, T)
     with pytest.raises(Built):
         attention.flash_attention_bwd(q, k, v, o, lse, do, T)
-    assert seen == (["generic"] * 2 if reaches == "generic" else [])
+    assert seen == [r for r in (reaches, bwd_reaches)
+                    if r in ("generic", "3xtf32")]
     other = torch.bfloat16 if dtype == torch.float32 else torch.float32
     with pytest.raises(ValueError, match="one dtype"):
         attention.flash_attention_fwd(q, k, v.to(other), T)

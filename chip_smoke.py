@@ -29,8 +29,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    library's SASS (cuobjdump -sass), and the HMMA (mma.sync) instructions
    of the 3xTF32 attention backward; fails if any of the five, or any
    instance of the three attention kernels (round_up(D, 16) = 16 .. 128
-   and D 64's), has no HGMMA, or an instance of the 3xTF32 dq or dk/dv
-   kernel (round_up(D, 16) = 16 .. 128) no HMMA.
+   and D 64's) or of the 3xTF32 attention forward (16 .. 128), has no
+   HGMMA, or an instance of the 3xTF32 dq or dk/dv kernel
+   (round_up(D, 16) = 16 .. 128) no HMMA.
 3. kernels, each against its plain PyTorch version on the card on the same
    inputs, with the wrapper's time (CUDA events), the kernel's own device
    time (torch.profiler), and the plain, library and bound times:
@@ -55,10 +56,10 @@ Phases (any failure ends the run with a non-zero exit and no last line):
      (past the earlier kernel's width limit) and M = 1000, D = 1000,
      F = 4000 (partial K and N tiles) (library: the port's ffn_impl="xla"
      sequence, F.linear, F.gelu, F.linear).
-4. the tiny model (XLSRConfig.tiny(): fp32, head dim 16, the generic
-   attention kernels' route) scored on the card under auto attention (the
-   measured policy, impl_select.AUTO_GENERIC_MIN_SAMPLES) and with a
-   pinned flash impl (the generic kernels), each in agreement with the
+4. the tiny model (XLSRConfig.tiny(): fp32, head dim 16, the 3xTF32
+   forward's route) scored on the card under auto attention (the
+   measured policy, impl_select.AUTO_TF32_MIN_SAMPLES) and with a
+   pinned flash impl (the 3xTF32 forward), each in agreement with the
    CPU; a tiny model with head dim 260, which no kernel takes: xla under
    auto, a pinned flash raises. Then scoring and evaluation at full
    width (XLSR-300M + AASIST, random
@@ -312,11 +313,14 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    positional conv, within ORBAX_FOLD_RTOL of the fp64 fold; the dropout
    rates printed.
 20. queue B's coverage (`--coverage-only`: phases 1, 2, 20 and phase 4's
-   tiny checks): the generic attention kernels (csrc/flash_attn_generic.cu:
-   fp32 forward at D 64, B 8, H 16, T 201 / 299 / 599 / 1500 and at the
-   tiny model's D 16, H 4; bf16 at D 16 / 32 / 80 / 128, T 299 / 1500,
-   called directly since the wgmma route takes those, and at D 136, T 299,
-   through the wrappers), the 3xTF32 attention backward
+   tiny checks): the 3xTF32 attention forward
+   (csrc/flash_attn_fwd_3xtf32.cu: fp32 at D 64, B 8, H 16, T 201 / 299 /
+   599 / 1500, at the training step's B 12, T 299 and at the tiny model's
+   D 16, H 4, through the wrappers, with the generic forward called
+   directly on the same inputs as its "was"), the generic attention
+   kernels (csrc/flash_attn_generic.cu: bf16 at D 16 / 32 / 80 / 128,
+   T 299 / 1500, called directly since the wgmma route takes those, and
+   at D 136, T 299, through the wrappers), the 3xTF32 attention backward
    (csrc/flash_attn_bwd_3xtf32_dq.cu, _dkv.cu: fp32 at the same shapes,
    B 12, through the wrappers, with the generic pair called directly on
    the same inputs as its "was"), the fp32 FFN kernels
@@ -330,23 +334,27 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    as 3xTF32 on the tensor cores, PEAK_TF32_FLOPS); each attention row
    also views = [B*H, T, D] = a repeat bit for bit, two device launches a
    backward call, and at T 299 contiguous gradients through autograd
-   where the generic forward's route takes the shape (an expanded dO read
-   in place); the fp32 backward at B 12, H 16, T 299 for every D that is
-   a multiple of 8 up to 128, 3xTF32 against the generic pair in turns
-   (the measurement behind attention.TF32_BWD_HEAD_DIMS). Then the fp32
-   model at full width (AModel(AASISTConfig(), XLSRConfig(dtype="float32",
+   where the CUDA routes take the shape (an expanded dO read in place);
+   the fp32 forward at B 8, T 299 for every D that is a multiple of 8 up
+   to 128 (H 16) and at the tiny model's D 16, H 4, 3xTF32 against the
+   generic kernel in turns (the measurement behind
+   attention.TF32_FWD_HEAD_DIMS); the fp32 backward at B 12, H 16, T 299
+   for every D that is a multiple of 8 up to 128, 3xTF32 against the
+   generic pair in turns (the measurement behind
+   attention.TF32_BWD_HEAD_DIMS). Then the fp32 model at full width
+   (AModel(AASISTConfig(), XLSRConfig(dtype="float32",
    attention_impl="flash", ffn_impl="pallas")), seed 0): 8 x 6 s and
-   8 x 12 s scored (24 generic forward and 24 3xTF32 FFN launches a batch,
-   none of the wgmma or SIMT FFN kernels; distances against the same
-   weights on xla attention and the plain FFN within COVERAGE_MODEL_RTOL),
-   one eager 12 x 6 s training step against the plain one (48 generic
-   forward, 24 + 24 3xTF32 backward and 48 3xTF32 FFN launches, no generic
-   backward; loss, encoder features and gradient within
-   COVERAGE_MODEL_RTOL; its wall ms), utt/s at 2, 6 and 12 s in turns
-   (xla, flash, flash + the 3xTF32 FFN: the measurement behind
-   AUTO_GENERIC_MIN_SAMPLES); and the tiny model through `oc_training
-   --xlsr_tiny --attention_impl flash` (2 steps, the generic forward and
-   3xTF32 backward launches a step exact) and `oc_classifier --mode 2c2`
+   8 x 12 s scored (24 3xTF32 forward and 24 3xTF32 FFN launches a batch,
+   none of the generic forward, wgmma or SIMT FFN kernels; distances
+   against the same weights on xla attention and the plain FFN within
+   COVERAGE_MODEL_RTOL), one eager 12 x 6 s training step against the
+   plain one (48 3xTF32 forward, 24 + 24 3xTF32 backward and 48 3xTF32
+   FFN launches, no generic kernel; loss, encoder features and gradient
+   within COVERAGE_MODEL_RTOL; its wall ms), utt/s at 1, 2, 6 and 12 s in
+   turns (xla, flash, flash + the 3xTF32 FFN: the measurement behind
+   AUTO_TF32_MIN_SAMPLES); and the tiny model through `oc_training
+   --xlsr_tiny --attention_impl flash` (2 steps, the forward and 3xTF32
+   backward launches a step exact) and `oc_classifier --mode 2c2`
    on the card and with --device cpu (logits within TINY_RTOL_OF_MAX). In
    a full run its kernel checks follow phase 3's and its paths phase 7.
 21. bf16 attention at head dims other than 64 (`--xlsr1b-only`: phases 1,
@@ -381,7 +389,7 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 23. prints {"kernels": [...]} (each entry of phases 3's kernels with
    phase 15's row at base's shapes under "base" and phase 17's at the
    per-rank shapes under "tp2", "dp2" or "fsdp2", "pp2" and "sp2"; phase
-   20's three entries and phase 21's two with their shapes under
+   20's six entries and phase 21's two with their shapes under
    "per_shape"), then {"ok": true, "device": {...}} last.
 A full run makes phase 15's, 16's, 17's, 20's and 21's kernel checks
 right after phase 3's, and phases 15 and 16's other parts before phase 14
@@ -724,6 +732,15 @@ def phase_build():
                      f"{sorted(hmma)}")
     print(f"[build] HMMA in every instance of the 3xTF32 attention "
           f"backward: {sum(hmma.values())} instructions", flush=True)
+    # the 3xTF32 attention forward runs wgmma (HGMMA) in every instance
+    # NP = round_up(D, 16), 16 to 128
+    for np_ in range(16, 129, 16):
+        if not any(f"flash_attn_fwd_3xtf32_kernelILi{np_}E" in f
+                   for f in hgmma):
+            fail(f"the SASS of flash_attn_fwd_3xtf32_kernel<{np_}> holds no "
+                 f"HGMMA: {sorted(hgmma)}")
+    print("[build] HGMMA in every instance of the 3xTF32 attention forward",
+          flush=True)
     # and every instance of the attention kernels: <NP, fold> for
     # NP = round_up(D, 16) from 16 to 128 (the scale folded into q), and
     # <64, false> (D 64, the scale on the logits)
@@ -1378,37 +1395,42 @@ def build_seed_model(workdir: str):
 
 # The tiny model on the card against itself on the CPU: both fp32 with TF32
 # off (phase 1), so they differ only by the order of fp32 sums through two
-# layers and the backend (relative ~1e-6), whether attention is the plain
-# einsum or the generic kernels against their plain version; 1e-3 of the
-# largest |value| holds that and fails on a wrong route or layout.
+# layers and the backend (relative ~1e-6; the 3xTF32 kernels' split adds
+# ~1e-6 of each product), whether attention is the plain einsum or the
+# kernels against their plain version; 1e-3 of the largest |value| holds
+# that and fails on a wrong route or layout.
 TINY_RTOL_OF_MAX = 1e-3
 
 
 def phase_tiny_auto():
-    """XLSRConfig.tiny() is fp32 with head dim 16, which the generic
-    attention kernels take (csrc/flash_attn_generic.cu). On the card, 4
+    """XLSRConfig.tiny() is fp32 with head dim 16, whose forward
+    `cuda_route` gives the 3xTF32 kernel (csrc/flash_attn_fwd_3xtf32.cu; the
+    generic one at a head dim outside TF32_FWD_HEAD_DIMS). On the card, 4
     waves of 1-2 s through BucketedEmbedder and make_embed_fn_factory (what
     oc_classifier, embed and oc_server run), in two buckets: under auto
-    each bucket runs what the measured policy picks for the generic route
-    (impl_select.AUTO_GENERIC_MIN_SAMPLES), and a pinned "flash" runs the
-    generic kernels (2 forward launches a batch, none of the wgmma kernel);
-    both agree with the same model on the CPU. The guard on a model that
-    no kernel takes stays: a tiny model with head dim 260 runs "xla" under
+    each bucket runs what the measured policy picks for that route
+    (impl_select.auto_flash_min_samples), and a pinned "flash" runs the
+    route's forward (2 launches a batch, none of the other forwards); both
+    agree with the same model on the CPU. The guard on a model that no
+    kernel takes stays: a tiny model with head dim 260 runs "xla" under
     auto, and a pinned "flash" raises."""
     import torch
 
     from occm_tpu_torch.classify import (
         BucketedEmbedder, make_embed_fn_factory)
     from occm_tpu_torch.classify.impl_select import (
-        AUTO_GENERIC_MIN_SAMPLES, select_attention_impl)
+        auto_flash_min_samples, select_attention_impl)
     from occm_tpu_torch.config import AASISTConfig, XLSRConfig
     from occm_tpu_torch.models import AModel
-    from occm_tpu_torch.ops import attention
     from occm_tpu_torch.serve import make_score_fn
     from occm_tpu_torch.utils import random_init_
 
     xcfg = XLSRConfig.tiny()
     layers = xcfg.encoder_layers
+    fwd = fwd_counter(xcfg.dtype, xcfg.encoder_embed_dim // xcfg.encoder_heads)
+    others = {"flash_attn_3xtf32_fwd", "flash_attn_generic_fwd",
+              "flash_attn_fwd", "flash_attn_fwd_other_d"} - {fwd}
+    floor = auto_flash_min_samples(xcfg, "cuda")
     model = random_init_(AModel(AASISTConfig.tiny(), xcfg), seed=0)
     rng = np.random.default_rng(3)
     waves = [synthetic_wave(rng, sec) for sec in (1.0, 1.5, 1.7, 2.0)]
@@ -1428,14 +1450,13 @@ def phase_tiny_auto():
         got = embed("cuda", impl)
         counts = read_counts()
         model.to("cpu")
-        picked = [select_attention_impl(b, min_samples=AUTO_GENERIC_MIN_SAMPLES)
+        picked = [select_attention_impl(b, min_samples=floor)
                   if impl == "auto" else "flash" for b in buckets]
         n_flash = layers * picked.count("flash")
-        if (counts["flash_attn_generic_fwd"], counts["flash_attn_fwd"]) != (
-                n_flash, 0):
+        if counts[fwd] != n_flash or any(counts[k] for k in others):
             fail(f"tiny model, {impl} attention on the card: launches "
-                 f"{counts}, want {n_flash} generic forward launches "
-                 f"(buckets {buckets} -> {picked}) and no wgmma one")
+                 f"{counts}, want {n_flash} {fwd} launches "
+                 f"(buckets {buckets} -> {picked}) and no other forward")
         for name, a, b in zip(("embeddings", "logits"), got, want):
             err = float(np.abs(a - b).max())
             scale = float(np.abs(b).max())
@@ -1444,7 +1465,7 @@ def phase_tiny_auto():
                 fail(f"tiny model, {impl} attention on the card: {name} "
                      f"{a.shape} max |cuda - cpu| = {err} > "
                      f"{TINY_RTOL_OF_MAX} * {scale}")
-        out[impl] = dict(picked=picked, generic_launches=n_flash,
+        out[impl] = dict(picked=picked, forward=fwd, launches=n_flash,
                          emb_max_abs_err=float(np.abs(got[0] - want[0]).max()))
     # a head dim that no CUDA kernel takes: xla under auto, a pinned flash
     # raises
@@ -1465,9 +1486,8 @@ def phase_tiny_auto():
         fail("head dim 260 with a pinned flash impl did not raise on the card")
     print(f"[tiny] XLSRConfig.tiny() (fp32, head dim 16) on the card: "
           f"{len(waves)} waves of 1-2 s in buckets {buckets}; auto picks "
-          f"{out['auto']['picked']} (AUTO_GENERIC_MIN_SAMPLES "
-          f"{AUTO_GENERIC_MIN_SAMPLES}), a pinned flash runs the generic "
-          f"kernels ({out['flash']['generic_launches']} launches); "
+          f"{out['auto']['picked']} (threshold {floor} samples), a pinned "
+          f"flash runs {fwd} ({out['flash']['launches']} launches); "
           f"embeddings within {TINY_RTOL_OF_MAX} of the largest |value| of "
           f"the CPU's both ways; head dim 260: xla under auto, a pinned "
           f"flash raises: {pinned}", flush=True)
@@ -1985,6 +2005,7 @@ def reset_counts():
     attention.GENERIC_LAUNCHES = 0
     attention.GENERIC_BWD_DQ_LAUNCHES = 0
     attention.GENERIC_BWD_DKV_LAUNCHES = 0
+    attention.TF32_FWD_LAUNCHES = 0
     attention.TF32_BWD_DQ_LAUNCHES = 0
     attention.TF32_BWD_DKV_LAUNCHES = 0
     layernorm.LAUNCHES = 0
@@ -7606,10 +7627,11 @@ def phase_extras(workdir: str, fixture, model) -> tuple:
 
 # --------------------------------------------------------------- phase 20
 
-# The generic attention kernels, the 3xTF32 attention backward and the fp32
-# FFN kernels (KERNEL_NAMES' form: wrapper counter -> (device kernel name,
-# device launches a call))
+# The generic attention kernels, the 3xTF32 attention forward and backward
+# and the fp32 FFN kernels (KERNEL_NAMES' form: wrapper counter -> (device
+# kernel name, device launches a call))
 COVERAGE_KERNEL_NAMES = {
+    "flash_attn_3xtf32_fwd": ("flash_attn_fwd_3xtf32_kernel", 1),
     "flash_attn_generic_fwd": ("flash_attn_generic_fwd_kernel", 1),
     "flash_attn_generic_bwd_dq": ("flash_attn_generic_dq_kernel", 1),
     "flash_attn_generic_bwd_dkv": ("flash_attn_generic_dkv_kernel", 1),
@@ -7619,9 +7641,9 @@ COVERAGE_KERNEL_NAMES = {
     "ffn_fwd_3xtf32": ("ffn_gemm_3xtf32_kernel", 2)}
 # the ones phase 20's paths launch: the fp32 model's shapes (D 64, D 16;
 # D and F multiples of 4) go to the 3xTF32 kernels, so the generic
-# backward and the SIMT FFN, which keep every other fp32 shape, are held
-# in the kernel checks only
-COVERAGE_PATH_KERNELS = ("flash_attn_generic_fwd", "flash_attn_3xtf32_bwd_dq",
+# attention kernels and the SIMT FFN, which keep every other fp32 shape,
+# are held in the kernel checks only
+COVERAGE_PATH_KERNELS = ("flash_attn_3xtf32_fwd", "flash_attn_3xtf32_bwd_dq",
                          "flash_attn_3xtf32_bwd_dkv", "ffn_fwd_3xtf32")
 # (dtype, D, H, Ts) of the generic attention checks: fp32 at XLS-R's head
 # dim and at the tiny model's (D 16, H 4), bf16 at head dims other than 64:
@@ -7669,7 +7691,7 @@ FFN_F32_SIMT_CASE = (1000, 1002, 4002, False)
 # layout moves a distance by far more). The training step's loss and the
 # encoder's features and gradient (relative L2) are held to the same bound.
 COVERAGE_MODEL_RTOL = 1e-3
-COVERAGE_SECONDS = (2, 6, 12)
+COVERAGE_SECONDS = (1, 2, 6, 12)
 
 
 def coverage_attention_bound(bh: int, t: int, d: int, dtype: str,
@@ -7711,21 +7733,23 @@ def _rel_of_max(a, b) -> float:
 
 
 def coverage_attention_rows():
-    """The generic attention kernels and the 3xTF32 backward against their
-    plain versions on the card at COVERAGE_ATTENTION's shapes: forward at
-    B 8, backward at B 12 (TRAIN_B), each on [B, T, H, D] views of one
-    projection output and on [B*H, T, D] copies (bit for bit, and a repeat
-    bit for bit), the backward as two device launches a call and nothing
-    else, and, where the CUDA routes take the shape to these kernels,
-    through the wrappers and autograd (contiguous gradients, equal to the
-    wrapper's; an expanded dO read where it lies, no copy); the shapes of
-    the wgmma route are called on the generic kernels directly
-    (generic_attention_fwd, _bwd). The fp32 backward takes the 3xTF32 pair
-    (`cuda_bwd_route`); the generic pair, called directly on the same
-    inputs, is held to the same bound and timed beside it ("was", a row of
-    its own). Wrapper, device, plain, SDPA (same dtype, wrapper and device)
-    and bound times. Returns (forward rows, backward rows); a row's
-    "kernel" names its kernels line entry."""
+    """The generic attention kernels and the 3xTF32 forward and backward
+    against their plain versions on the card at COVERAGE_ATTENTION's
+    shapes: forward at B 8 (and at fp32 D 64, T 299 also at the training
+    step's B 12), backward at B 12 (TRAIN_B), each on [B, T, H, D] views
+    of one projection output and on [B*H, T, D] copies (bit for bit, and a
+    repeat bit for bit), the backward as two device launches a call and
+    nothing else, and, where the CUDA routes take the shape to these
+    kernels, through the wrappers and autograd (contiguous gradients,
+    equal to the wrapper's; an expanded dO read where it lies, no copy);
+    the shapes of the wgmma route are called on the generic kernels
+    directly (generic_attention_fwd, _bwd). The fp32 forward takes the
+    3xTF32 kernel (`cuda_route`) and the fp32 backward the 3xTF32 pair
+    (`cuda_bwd_route`); the generic kernels, called directly on the same
+    inputs, are held to the same bound and timed beside them ("was", a
+    row of its own). Wrapper, device, plain, SDPA (same dtype, wrapper and
+    device) and bound times. Returns (forward rows, backward rows); a
+    row's "kernel" names its kernels line entry."""
     import torch
     import torch.nn.functional as F
 
@@ -7737,7 +7761,12 @@ def coverage_attention_rows():
     fwd_rows, bwd_rows = [], []
     for dtype, d, h, ts in COVERAGE_ATTENTION:
         dt = getattr(torch, dtype)
-        routed = attention.cuda_route(dt, d) == "generic"
+        route = attention.cuda_route(dt, d)
+        routed = route in ("generic", "3xtf32")
+        # the forward kernel the wrapper launches here (or, on the wgmma
+        # route's shapes, the generic one called directly)
+        fwd_kernel = ("flash_attn_3xtf32_fwd" if route == "3xtf32"
+                      else "flash_attn_generic_fwd")
         flash_attention_fwd = (attention.flash_attention_fwd if routed
                                else generic_attention_fwd)
         flash_attention_bwd = (attention.flash_attention_bwd if routed
@@ -7747,8 +7776,10 @@ def coverage_attention_rows():
                       cuda_bwd_route(dt, d) == "3xtf32"
                       else "flash_attn_generic")
         for t in ts:
-            for backward in (False, True):
-                b = TRAIN_B if backward else B
+            passes = [(False, B), (True, TRAIN_B)]
+            if route == "3xtf32" and d == 64 and t == MAIN_PATH_TS[0]:
+                passes.insert(1, (False, TRAIN_B))  # the training step's
+            for backward, b in passes:
                 qkv = torch.randn((b, t, 3, h, d), generator=gen,
                                   device="cuda").to(dt)
                 q4, k4, v4 = qkv.unbind(2)
@@ -7768,29 +7799,53 @@ def coverage_attention_rows():
                         and torch.equal(lse4, lse)
                         and torch.equal(again[0], out4)
                         and torch.equal(again[1], lse4)):
-                    fail(f"generic forward {label}: views, [B*H, T, D] and "
+                    fail(f"{fwd_kernel} {label}: views, [B*H, T, D] and "
                          "a repeat do not agree bit for bit")
                 was = None
                 if not backward:
-                    kernel = "flash_attn_generic_fwd"
+                    kernel = fwd_kernel
                     ref_out, ref_lse = flash_attention_reference(q, k, v, t)
-                    abs_err = max(_abs_err(out, ref_out),
-                                  _abs_err(lse, ref_lse))
-                    if dtype == "float32":
-                        errs = {"out": _rel_of_max(out, ref_out),
-                                "lse": _rel_of_max(lse, ref_lse)}
-                        bad = max(errs.values()) > COVERAGE_F32_RTOL_OF_MAX
-                    else:
-                        errs = {"out": (out.float() - ref_out.float()).abs()
-                                .max().item(),
-                                "lse": (lse - ref_lse).abs().max().item()}
-                        bad = errs["out"] > OUT_ATOL or errs["lse"] > LSE_ATOL
-                    if bad or not all(map(math.isfinite, errs.values())):
-                        fail(f"generic forward {label} against its plain "
-                             f"version: {errs}")
+
+                    def fwd_errs(o, l, who):
+                        if dtype == "float32":
+                            errs = {"out": _rel_of_max(o, ref_out),
+                                    "lse": _rel_of_max(l, ref_lse)}
+                            bad = max(errs.values()) > COVERAGE_F32_RTOL_OF_MAX
+                        else:
+                            errs = {"out": (o.float() - ref_out.float()).abs()
+                                    .max().item(),
+                                    "lse": (l - ref_lse).abs().max().item()}
+                            bad = (errs["out"] > OUT_ATOL
+                                   or errs["lse"] > LSE_ATOL)
+                        if bad or not all(map(math.isfinite, errs.values())):
+                            fail(f"{who} {label} against its plain version: "
+                                 f"{errs}")
+                        return errs, max(_abs_err(o, ref_out),
+                                         _abs_err(l, ref_lse))
+
+                    errs, abs_err = fwd_errs(out, lse, kernel)
                     call = (lambda: flash_attention_fwd(q4, k4, v4, t))
-                    names = ("flash_attn_generic_fwd",)
-                    counters = ("flash_attn_generic_fwd",)
+                    names = (("flash_attn_fwd_3xtf32",)
+                             if kernel == "flash_attn_3xtf32_fwd"
+                             else ("flash_attn_generic_fwd",))
+                    counters = (kernel,)
+                    if kernel == "flash_attn_3xtf32_fwd":
+                        # the generic forward it took over from, on these
+                        # inputs
+                        was_call = (lambda: generic_attention_fwd(
+                            q4, k4, v4, t))
+                        w_out, w_lse = was_call()
+                        was_errs, was_abs = fwd_errs(
+                            flat(w_out), w_lse, "flash_attn_generic_fwd")
+                        was_dev, _, _, was_kept = device_ms(
+                            was_call, ("flash_attn_generic_fwd",), warmup=1,
+                            counters=("flash_attn_generic_fwd",))
+                        was = dict(kernel="flash_attn_generic_fwd",
+                                   max_abs_err=was_abs, errors=was_errs,
+                                   ms=cuda_ms(was_call, iters=10 if t <= 600
+                                              else 4, warmup=2),
+                                   device_ms=was_dev,
+                                   **events_kept(was_kept))
                     plain = (lambda: flash_attention_reference(q, k, v, t))
                     q3, k3, v3 = (x.view(b, h, t, d) for x in (q, k, v))
 
@@ -7915,7 +7970,7 @@ def coverage_attention_rows():
                       f"{', 2 device launches a call' if backward else ''}; "
                       f"wrapper {ms:.4f} ms, device {dev_ms:.4f} ms"
                       + ("" if was is None else
-                         f" (was: the generic pair {was['ms']:.4f} ms, "
+                         f" (was: {was['kernel']} {was['ms']:.4f} ms, "
                          f"device {was['device_ms']:.4f} ms, errors "
                          + str({k: f"{e:.3e}"
                                 for k, e in was["errors"].items()}) + ")")
@@ -7977,6 +8032,87 @@ def coverage_route_sweep():
     print(f"[coverage] the 3xTF32 backward is slower than the generic pair "
           f"at D {slower} (attention.TF32_BWD_HEAD_DIMS routes "
           f"{list(attention.TF32_BWD_HEAD_DIMS)} to it)", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# (D, H) of the forward's route sweep: every head dim that is a multiple of
+# 8 up to 128 at XLS-R's 16 heads, and the tiny model's D 16 at its 4
+COVERAGE_FWD_SWEEP = (*((d, H) for d in range(8, 129, 8)), (16, 4))
+
+
+def tf32_attention_fwd(q, k, v, t):
+    """The 3xTF32 forward kernel on q, k, v whatever `cuda_route` picks
+    for them (csrc/flash_attn_fwd_3xtf32.cu)."""
+    from occm_tpu_torch.ops import attention
+
+    four_d = q.dim() == 4
+    B, T, H, D = q.shape if four_d else (q.shape[0], q.shape[1], 1,
+                                         q.shape[2])
+    return attention._tf32_fwd(q, k, v, t, four_d, B, H, T, D)
+
+
+def coverage_fwd_route_sweep():
+    """The measurement behind attention.TF32_FWD_HEAD_DIMS: the fp32
+    forward at B 8, T 299 and COVERAGE_FWD_SWEEP's (D, H), the 3xTF32
+    kernel and the generic one each called directly (both held to
+    COVERAGE_F32_RTOL_OF_MAX against the plain version), wrapper ms (CUDA
+    events) of each in turns and device ms (torch.profiler), and the route
+    the wrapper takes there. Returns the rows."""
+    import torch
+
+    from occm_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = []
+    b, t = B, MAIN_PATH_TS[0]
+    for d, h in COVERAGE_FWD_SWEEP:
+        qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
+        q4, k4, v4 = qkv.unbind(2)
+        flat = [x.permute(0, 2, 1, 3).reshape(b * h, t, d)
+                for x in (q4, k4, v4)]
+        ref_out, ref_lse = attention.flash_attention_reference(*flat, t)
+        ref_out = ref_out.view(b, h, t, d).permute(0, 2, 1, 3)
+        new = (lambda: tf32_attention_fwd(q4, k4, v4, t))
+        old = (lambda: generic_attention_fwd(q4, k4, v4, t))
+        errs = {}
+        for key, fn in (("3xtf32", new), ("generic", old)):
+            out, lse = fn()
+            errs[key] = max(_rel_of_max(out, ref_out),
+                            _rel_of_max(lse, ref_lse))
+        if not all(math.isfinite(e) and e <= COVERAGE_F32_RTOL_OF_MAX
+                   for e in errs.values()):
+            fail(f"fp32 forward D={d} H={h}: errors {errs} of the largest "
+                 f"|value| (bound {COVERAGE_F32_RTOL_OF_MAX})")
+        times = {"3xtf32": [], "generic": []}
+        for key, fn in (("3xtf32", new), ("generic", old), ("generic", old),
+                        ("3xtf32", new)):
+            times[key].append(cuda_ms(fn, iters=10, warmup=2))
+        dev = {key: device_ms(fn, (name,), warmup=1, counters=(counter,))[0]
+               for key, fn, name, counter in (
+                   ("3xtf32", new, "flash_attn_fwd_3xtf32",
+                    "flash_attn_3xtf32_fwd"),
+                   ("generic", old, "flash_attn_generic_fwd",
+                    "flash_attn_generic_fwd"))}
+        row = dict(D=d, B=b, H=h, T=t, rel_of_max=errs["3xtf32"],
+                   generic_rel_of_max=errs["generic"],
+                   ms=min(times["3xtf32"]), generic_ms=min(times["generic"]),
+                   device_ms=dev["3xtf32"], generic_device_ms=dev["generic"],
+                   route=attention.cuda_route(torch.float32, d))
+        rows.append(row)
+        print(f"[coverage] fp32 forward D={d} B={b} H={h} T={t}: 3xTF32 "
+              f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), generic "
+              f"{row['generic_ms']:.4f} ms (device "
+              f"{row['generic_device_ms']:.4f}) (in turns), errors "
+              f"{errs['3xtf32']:.3e} / {errs['generic']:.3e}; the wrapper's "
+              f"route {row['route']}", flush=True)
+        del qkv, ref_out, ref_lse, flat
+    for key in ("ms", "device_ms"):
+        slower = [(r["D"], r["H"]) for r in rows
+                  if r[key] > r[f"generic_{key}"]]
+        print(f"[coverage] the 3xTF32 forward's {key} is above the generic "
+              f"one's at (D, H) {slower} (attention.TF32_FWD_HEAD_DIMS routes "
+              f"{list(attention.TF32_FWD_HEAD_DIMS)} to it)", flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -8147,36 +8283,51 @@ def coverage_ffn_rows():
 def phase_coverage_kernels():
     """Phase 20's kernel checks (in a full run right after phase 3's, while
     torch.profiler keeps every record): the generic attention kernels, the
-    3xTF32 attention backward and the fp32 FFN kernels against their plain
-    versions, and the fp32 backward's route sweep."""
+    3xTF32 attention forward and backward and the fp32 FFN kernels against
+    their plain versions, and the fp32 forward's and backward's route
+    sweeps."""
     t0 = time.perf_counter()
     fwd, bwd = coverage_attention_rows()
     rows = {"fwd": fwd, "bwd": bwd, "ffn": coverage_ffn_rows(),
+            "fwd_route": coverage_fwd_route_sweep(),
             "bwd_route": coverage_route_sweep()}
     print(f"[coverage] phase 20's kernel checks: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return rows
 
 
-def coverage_model(workdir: str) -> tuple:
-    """The fp32 model at full width through the generic attention forward,
-    the 3xTF32 attention backward and the 3xTF32 FFN kernel:
-    AModel(AASISTConfig(), XLSRConfig(dtype="float32",
-    attention_impl="flash", ffn_impl="pallas")) from seed 0. Scoring of
-    8 x 6 s and 8 x 12 s (24 generic forward and 24 3xTF32 FFN launches a
-    batch, no wgmma or SIMT FFN launch) against the same weights on xla
-    attention and the xla FFN (distances to the plain path's mean
-    embedding, COVERAGE_MODEL_RTOL); one eager 12 x 6 s training step
-    against the plain step (loss; the encoder held: its features and
-    gradient from the plain step's dloss/dfeatures; 48 generic forward,
-    24 + 24 3xTF32 backward, 48 3xTF32 FFN launches, no generic backward);
-    utt/s at 2, 6 and 12 s in turns: xla, flash (generic forward, 3xTF32
-    backward) and flash with the 3xTF32 FFN kernel (the measurement behind
-    impl_select's AUTO_GENERIC_MIN_SAMPLES). Returns (the counts of the
-    path's run, the results)."""
+def fwd_counter(dtype, head_dim: int) -> str:
+    """The launch counter (launch_counts' key) of the forward kernel that
+    `cuda_route` gives q, k, v of this dtype and head dim."""
     import torch
 
-    from occm_tpu_torch.classify.impl_select import AUTO_GENERIC_MIN_SAMPLES
+    from occm_tpu_torch.ops import attention
+
+    return {"3xtf32": "flash_attn_3xtf32_fwd", "generic":
+            "flash_attn_generic_fwd"}.get(
+                attention.cuda_route(getattr(torch, dtype), head_dim),
+                "flash_attn_fwd")
+
+
+def coverage_model(workdir: str) -> tuple:
+    """The fp32 model at full width through the 3xTF32 attention forward
+    and backward and the 3xTF32 FFN kernel: AModel(AASISTConfig(),
+    XLSRConfig(dtype="float32", attention_impl="flash",
+    ffn_impl="pallas")) from seed 0. Scoring of 8 x 6 s and 8 x 12 s (24
+    3xTF32 forward and 24 3xTF32 FFN launches a batch, no generic forward,
+    wgmma or SIMT FFN launch) against the same weights on xla attention
+    and the xla FFN (distances to the plain path's mean embedding,
+    COVERAGE_MODEL_RTOL); one eager 12 x 6 s training step against the
+    plain step (loss; the encoder held: its features and gradient from the
+    plain step's dloss/dfeatures; 48 3xTF32 forward, 24 + 24 3xTF32
+    backward, 48 3xTF32 FFN launches, no generic kernel); utt/s at 1, 2, 6
+    and 12 s in turns: xla, flash (3xTF32 forward and backward) and flash
+    with the 3xTF32 FFN kernel (the measurement behind impl_select's
+    AUTO_TF32_MIN_SAMPLES). Returns (the counts of the path's run, the
+    results)."""
+    import torch
+
+    from occm_tpu_torch.classify.impl_select import AUTO_TF32_MIN_SAMPLES
     from occm_tpu_torch.config import AASISTConfig, XLSRConfig
     from occm_tpu_torch.losses import group_one_class_loss
     from occm_tpu_torch.models import AModel
@@ -8187,6 +8338,10 @@ def coverage_model(workdir: str) -> tuple:
                       ffn_impl="pallas")
     pcfg = dataclasses.replace(kcfg, attention_impl="xla", ffn_impl="xla")
     layers = kcfg.encoder_layers
+    fwd = fwd_counter(kcfg.dtype,
+                      kcfg.encoder_embed_dim // kcfg.encoder_heads)
+    other_fwd = ({"flash_attn_3xtf32_fwd", "flash_attn_generic_fwd"}
+                 - {fwd}).pop()
     acfg = AASISTConfig(dropout=0.0, pool_dropout=0.0, head_dropout=0.0)
     t0 = time.perf_counter()
     model = random_init_(AModel(acfg, kcfg), seed=0).to("cuda").eval()
@@ -8218,7 +8373,7 @@ def coverage_model(workdir: str) -> tuple:
         torch.cuda.synchronize()
         counts = read_counts()
         add(counts)
-        want = {"flash_attn_generic_fwd": layers, "ffn_fwd_3xtf32": layers,
+        want = {fwd: layers, other_fwd: 0, "ffn_fwd_3xtf32": layers,
                 "ffn_fwd_f32": 0, "flash_attn_fwd": 0, "ffn_fwd": 0}
         if any(counts[k] != n for k, n in want.items()):
             fail(f"fp32 scoring 8 x {sec} s: launches {counts}, want {want}")
@@ -8229,8 +8384,8 @@ def coverage_model(workdir: str) -> tuple:
         feat_rel = float((emb_k - emb_p).norm() / emb_p.norm())
         scoring[sec] = dict(distance_max_rel=rel, emb_rel_l2=feat_rel,
                             launches=want)
-        print(f"[coverage] fp32 scoring 8 x {sec} s: {layers} generic "
-              f"forward and {layers} 3xTF32 FFN launches, no wgmma or SIMT "
+        print(f"[coverage] fp32 scoring 8 x {sec} s: {layers} {fwd} and "
+              f"{layers} 3xTF32 FFN launches, no {other_fwd}, wgmma or SIMT "
               f"FFN; distances "
               f"to the plain path's mean embedding max rel diff {rel:.3e}, "
               f"embeddings rel L2 {feat_rel:.3e} (bound "
@@ -8275,7 +8430,7 @@ def coverage_model(workdir: str) -> tuple:
     add(counts)
     # remat (the default) runs every layer's forward again in the backward
     fwd_per = layers * (2 if kcfg.remat else 1)
-    want = {"flash_attn_generic_fwd": fwd_per,
+    want = {fwd: fwd_per, other_fwd: 0,
             "flash_attn_3xtf32_bwd_dq": layers,
             "flash_attn_3xtf32_bwd_dkv": layers,
             "flash_attn_generic_bwd_dq": 0, "flash_attn_generic_bwd_dkv": 0,
@@ -8299,8 +8454,8 @@ def coverage_model(workdir: str) -> tuple:
     del enc_p, enc_k, f_p, f_k, up_p
     model.eval()
 
-    # ---- utt/s in turns: xla, flash (generic forward, 3xTF32 backward),
-    # flash + the 3xTF32 FFN kernel
+    # ---- utt/s in turns: xla, flash (3xTF32 forward and backward), flash +
+    # the 3xTF32 FFN kernel
     fcfg = dataclasses.replace(kcfg, ffn_impl="xla")
     speed = []
     for sec in COVERAGE_SECONDS:
@@ -8317,10 +8472,10 @@ def coverage_model(workdir: str) -> tuple:
     first = wins[0] * SR if wins else None
     out["speed"] = dict(rows=speed, flash_wins_at_s=wins,
                         first_winning_bucket=first,
-                        AUTO_GENERIC_MIN_SAMPLES=AUTO_GENERIC_MIN_SAMPLES)
-    print(f"[coverage] generic flash beats xla in fp32 at {wins} s; first "
-          f"winning bucket {first} samples (AUTO_GENERIC_MIN_SAMPLES "
-          f"{AUTO_GENERIC_MIN_SAMPLES})", flush=True)
+                        AUTO_TF32_MIN_SAMPLES=AUTO_TF32_MIN_SAMPLES)
+    print(f"[coverage] fp32 flash ({fwd}) beats xla at {wins} s; first "
+          f"winning bucket {first} samples (AUTO_TF32_MIN_SAMPLES "
+          f"{AUTO_TF32_MIN_SAMPLES})", flush=True)
     del model, kernels
     gc.collect()
     torch.cuda.empty_cache()
@@ -8329,14 +8484,13 @@ def coverage_model(workdir: str) -> tuple:
 
 def coverage_cli(workdir: str, fixture) -> tuple:
     """XLSRConfig.tiny() through the CLIs with a pinned flash impl (the
-    generic forward, the 3xTF32 backward at its head dim 16):
+    forward `cuda_route` gives its head dim 16, the 3xTF32 backward):
     `oc_training --xlsr_tiny --attention_impl flash` for 2 steps on the
-    fixture (finite losses; the generic forward and 3xTF32 dq and dk/dv
-    launches a step exact), and `oc_classifier --mode 2c2` on the
-    fixture's utterances with seeded random weights on the card and with
-    --device cpu: the generic forward launches a batch exact, the logits
-    within TINY_RTOL_OF_MAX of the largest |value|. Returns (counts,
-    results)."""
+    fixture (finite losses; the forward and 3xTF32 dq and dk/dv launches a
+    step exact), and `oc_classifier --mode 2c2` on the fixture's
+    utterances with seeded random weights on the card and with --device
+    cpu: the forward launches a batch exact, the logits within
+    TINY_RTOL_OF_MAX of the largest |value|. Returns (counts, results)."""
     import torch
 
     from occm_tpu_torch.cli import oc_classifier, oc_training
@@ -8346,6 +8500,9 @@ def coverage_cli(workdir: str, fixture) -> tuple:
     protocol, train_dir, voc_dir = fixture
     xcfg = XLSRConfig.tiny()
     layers = xcfg.encoder_layers
+    fwd = fwd_counter(xcfg.dtype, xcfg.encoder_embed_dim // xcfg.encoder_heads)
+    other_fwd = ({"flash_attn_3xtf32_fwd", "flash_attn_generic_fwd"}
+                 - {fwd}).pop()
     total, out = {}, {}
     root = os.path.join(workdir, "coverage_cli")
     os.makedirs(root)
@@ -8372,7 +8529,7 @@ def coverage_cli(workdir: str, fixture) -> tuple:
             pass
         fwd_per = layers * (2 if xcfg.remat else 1)
         check_steps("coverage oc_training --xlsr_tiny --attention_impl flash",
-                    rec, {"flash_attn_generic_fwd": fwd_per,
+                    rec, {fwd: fwd_per, other_fwd: 0,
                           "flash_attn_3xtf32_bwd_dq": layers,
                           "flash_attn_3xtf32_bwd_dkv": layers,
                           "flash_attn_generic_bwd_dq": 0,
@@ -8408,11 +8565,11 @@ def coverage_cli(workdir: str, fixture) -> tuple:
                 score_file])
             counts = read_counts()
             want = layers * n_batches if device == "cuda" else 0
-            if counts["flash_attn_generic_fwd"] != want or counts[
-                    "flash_attn_fwd"]:
+            if (counts[fwd], counts[other_fwd], counts["flash_attn_fwd"]) != (
+                    want, 0, 0):
                 fail(f"coverage oc_classifier 2c2 --xlsr_tiny on {device}: "
-                     f"launches {counts}, want {want} generic forward "
-                     f"launches ({n_batches} batches)")
+                     f"launches {counts}, want {want} {fwd} launches "
+                     f"({n_batches} batches) and no other forward")
             for key, n in counts.items():
                 total[key] = total.get(key, 0) + n
             logits[device] = np.loadtxt(score_file)
@@ -8427,7 +8584,7 @@ def coverage_cli(workdir: str, fixture) -> tuple:
           f"steps, losses {out['train_losses']}; oc_classifier 2c2 "
           f"--xlsr_tiny --attention_impl flash: {len(a)} logits on the card "
           f"against --device cpu max |diff| {err:.3e} (bound "
-          f"{TINY_RTOL_OF_MAX} * {scale:.3e}), {layers * n_batches} generic "
+          f"{TINY_RTOL_OF_MAX} * {scale:.3e}), {layers * n_batches} {fwd} "
           "launches", flush=True)
     if not (a.shape == b.shape == (len(utts),) and np.isfinite(a).all()
             and err <= TINY_RTOL_OF_MAX * scale):
@@ -9162,13 +9319,14 @@ def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
 
 def coverage_kernel_line(rows, launches):
     """Phase 20's {"kernels": [...]} entries: the generic attention forward
-    and backward, the 3xTF32 attention backward (head rows fp32 at XLS-R's
-    shape, [B, T=299, H=16, D=64]; every row under "per_shape") and the
-    fp32 FFN kernels (head rows [2392, 1024] x [1024, 4096], erf). The
-    generic backward's and the SIMT FFN's head rows are their "was" rows,
-    timed on the same inputs as the 3xTF32 kernels that took over their
-    shapes. `launches` come from phase 20's paths, 0 with --kernels-only;
-    the generic backward and the SIMT FFN keep no shape of those paths."""
+    and backward, the 3xTF32 attention forward and backward (head rows
+    fp32 at XLS-R's shape, [B, T=299, H=16, D=64]; every row under
+    "per_shape"; the route sweeps under "route_sweep") and the fp32 FFN
+    kernels (head rows [2392, 1024] x [1024, 4096], erf). The generic
+    kernels' and the SIMT FFN's head rows are their "was" rows, timed on
+    the same inputs as the 3xTF32 kernels that took over their shapes.
+    `launches` come from phase 20's paths, 0 with --kernels-only; a kernel
+    that keeps no shape of those paths says so in "launches_note"."""
 
     def head(kind, kernel, **match):
         return next(r for r in rows[kind] if r["kernel"] == kernel
@@ -9180,7 +9338,8 @@ def coverage_kernel_line(rows, launches):
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms")
     main_t = dict(dtype="float32", D=64, T=MAIN_PATH_TS[0])
-    fwd = head("fwd", "flash_attn_generic_fwd", **main_t)
+    fwd = head("fwd", "flash_attn_generic_fwd", B=B, **main_t)
+    tf32_fwd = head("fwd", "flash_attn_3xtf32_fwd", B=B, **main_t)
     bwd = head("bwd", "flash_attn_generic_bwd", **main_t)
     tf32_bwd = head("bwd", "flash_attn_3xtf32_bwd", **main_t)
     ffn = head("ffn", "ffn_fwd_f32", M=FFN_MAIN_M, gelu="erf")
@@ -9191,16 +9350,33 @@ def coverage_kernel_line(rows, launches):
     ffn_shape = f"x [{FFN_MAIN_M}, 1024] x W1 [1024, 4096] fp32, erf GELU"
     off_path = ("no shape of phase 20's paths: the 3xTF32 kernels take "
                 "every fp32 shape there; timed on the same inputs")
+    fwd_shape = f"[B={B}, T={MAIN_PATH_TS[0]}, H={H}, D=64] fp32 views"
+    generic_fwd = {
+        "name": "flash_attn_generic_fwd", "route": "cuda",
+        "source": "occm_tpu_torch/csrc/flash_attn_generic.cu",
+        "replaces": f"{replaced}45 (_fwd_kernel), {replaced}234 "
+                    "(_blocked_fwd_kernel), in fp32 at head dims the 3xTF32 "
+                    "forward does not take and in bf16 at head dims the "
+                    "wgmma kernels do not take",
+        "launches": launches["flash_attn_generic_fwd"],
+        "shape": fwd_shape, **{k: fwd[k] for k in keys},
+        "library": "SDPA, same dtype",
+        "per_shape": per_shape("fwd", "flash_attn_generic_fwd")}
+    if not launches["flash_attn_generic_fwd"]:
+        generic_fwd["launches_note"] = off_path
     return [
-        {"name": "flash_attn_generic_fwd", "route": "cuda",
-         "source": "occm_tpu_torch/csrc/flash_attn_generic.cu",
+        generic_fwd,
+        {"name": "flash_attn_3xtf32_fwd", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/flash_attn_fwd_3xtf32.cu",
          "replaces": f"{replaced}45 (_fwd_kernel), {replaced}234 "
-                     "(_blocked_fwd_kernel), in fp32 and at head dims "
-                     "other than 64",
-         "launches": launches["flash_attn_generic_fwd"],
-         "shape": f"[B={B}, T={fwd['T']}, H={fwd['H']}, D=64] fp32 views",
-         **{k: fwd[k] for k in keys}, "library": "SDPA, same dtype",
-         "per_shape": per_shape("fwd", "flash_attn_generic_fwd")},
+                     "(_blocked_fwd_kernel), in fp32",
+         "launches": launches["flash_attn_3xtf32_fwd"],
+         "shape": fwd_shape, **{k: tf32_fwd[k] for k in keys},
+         "was_ms": tf32_fwd["was_ms"],
+         "was_device_ms": tf32_fwd["was_device_ms"],
+         "library": "SDPA, same dtype",
+         "per_shape": per_shape("fwd", "flash_attn_3xtf32_fwd"),
+         "route_sweep": rows["fwd_route"]},
         {"name": "flash_attn_generic_bwd", "route": "cuda",
          "source": "occm_tpu_torch/csrc/flash_attn_generic.cu",
          "replaces": f"{replaced}79 (_bwd_kernel), {replaced}350 "
@@ -9326,7 +9502,8 @@ def main(argv=None) -> int:
     ap.add_argument("--coverage-only", action="store_true",
                     help="run phases 1, 2 and 20 only (device, build, the "
                          "generic attention kernels, the 3xTF32 attention "
-                         "backward and the fp32 FFN kernels: checks against "
+                         "forward and backward and the fp32 FFN kernels: "
+                         "checks against "
                          "their plain versions, the "
                          "fp32 model at full width, the tiny model under "
                          "auto, pinned flash and through the CLIs); prints "
@@ -9427,7 +9604,7 @@ def main(argv=None) -> int:
     ln = phase_layernorm_bwd()
     adam = phase_fused_adam()
     ffn_rows = phase_ffn()
-    # phase 20's kernel checks: the generic attention, 3xTF32 backward and
+    # phase 20's kernel checks: the generic attention, 3xTF32 attention and
     # fp32 FFN kernels
     cov_rows = phase_coverage_kernels()
     # phase 21's: the wgmma attention kernels at head dims other than 64
@@ -9474,8 +9651,8 @@ def main(argv=None) -> int:
             print(f"[smoke] phases 4-7 ended at "
                   f"{time.perf_counter() - t_run:.1f} s", flush=True)
             # phase 20's paths: the fp32 model at full width and the tiny
-            # model through the CLIs, on the generic forward and the 3xTF32
-            # backward and FFN kernels
+            # model through the CLIs, on the 3xTF32 attention and FFN
+            # kernels
             c_counts, coverage = phase_coverage(workdir, fixture)
             for name in cov_launches:
                 cov_launches[name] = c_counts[name]

@@ -9,9 +9,12 @@ device the threshold depends on the kernels that take the model
 (`ops.attention.cuda_route`): the wgmma kernels at head dim 64 (bf16) from
 AUTO_FLASH_MIN_SAMPLES up, under exact and fast numerics alike; their
 instances at the other head dims they take (bf16, multiples of 8 up to
-128: XLS-R 1B's D 80) from AUTO_WGMMA_OTHER_D_MIN_SAMPLES up; the generic
-kernels (fp32, or bf16 at any other head dim: `XLSRConfig.tiny()` is fp32
-with D = 16) from AUTO_GENERIC_MIN_SAMPLES up; never where a threshold is
+128: XLS-R 1B's D 80) from AUTO_WGMMA_OTHER_D_MIN_SAMPLES up; the 3xTF32
+forward (fp32 at the head dims of `ops.attention.TF32_FWD_HEAD_DIMS`:
+`XLSRConfig(dtype="float32")`'s D 64, `XLSRConfig.tiny()`'s D 16) from
+AUTO_TF32_MIN_SAMPLES up; the generic kernels (fp32 at any other head dim,
+or bf16 at one the wgmma kernels do not take) from
+AUTO_GENERIC_MIN_SAMPLES up; never where a threshold is
 None; a model that no kernel takes (D > 256) runs "xla"
 (`auto_flash_min_samples`). A pinned "flash" passes through, runs the
 generic kernels on such a model, and raises where no kernel takes it.
@@ -80,6 +83,27 @@ AUTO_GENERIC_MIN_SAMPLES: Optional[int] = 2 * SR
 #: 300M) flash won from 1 s.
 AUTO_WGMMA_OTHER_D_MIN_SAMPLES: Optional[int] = None
 
+#: Bucket sample-count at and above which "flash" replaces "xla" for an fp32
+#: model whose head dim the 3xTF32 forward takes (csrc/flash_attn_fwd_3xtf32.cu
+#: with the 3xTF32 backward; ops.attention.TF32_FWD_HEAD_DIMS): the first
+#: bucket at which it won in every run, from chip_smoke.py phase 20's
+#: scoring throughput of the full-width model in fp32
+#: (XLSRConfig(dtype="float32"), batch 8, in turns) on an NVIDIA H100 80GB
+#: HBM3 at a 700 W power limit, four runs ("+ffn": the 3xTF32 FFN kernel
+#: as well). Flash won at 2, 6 and 12 s in all four and at 1 s in three
+#: (a 1 s batch takes ~30-40 ms, most of it the host's):
+#:   scoring, batch 8, utt/s (xla, flash, flash +ffn), runs 1; 2; 3; 4:
+#:      1 s  235.45, 315.33, 325.99;  250.76, 263.90, 257.43;
+#:           201.73, 192.18, 145.15;  269.64, 341.35, 336.99
+#:      2 s  276.23, 309.20, 340.73;  233.23, 236.82, 217.85;
+#:           188.43, 205.49, 198.72;  222.16, 246.95, 237.78
+#:      6 s  119.29, 126.09, 157.63;  118.97, 126.21, 157.88;
+#:           119.73, 127.04, 158.57;  119.90, 126.55, 158.96
+#:     12 s   62.26,  67.39,  81.62;   62.19,  67.78,  82.14;
+#:            62.30,  67.88,  82.22;   62.26,  67.91,  82.27
+#: Buckets below 2 s keep "xla".
+AUTO_TF32_MIN_SAMPLES: Optional[int] = 2 * SR
+
 
 def select_attention_impl(bucket_samples: int,
                           base_impl: str = "auto",
@@ -118,7 +142,8 @@ def auto_flash_min_samples(xlsr_cfg, device) -> Optional[int]:
     `xlsr_cfg` on `device` (None: never): AUTO_FLASH_MIN_SAMPLES on the CPU
     (the plain version) and on the wgmma route at head dim 64,
     AUTO_WGMMA_OTHER_D_MIN_SAMPLES on the wgmma route at its other head
-    dims, AUTO_GENERIC_MIN_SAMPLES on the generic route, None where no CUDA
+    dims, AUTO_TF32_MIN_SAMPLES on the 3xTF32 route,
+    AUTO_GENERIC_MIN_SAMPLES on the generic route, None where no CUDA
     route takes the model."""
     if torch.device(device).type != "cuda":
         return AUTO_FLASH_MIN_SAMPLES
@@ -127,6 +152,8 @@ def auto_flash_min_samples(xlsr_cfg, device) -> Optional[int]:
     if route == "wgmma":
         return (AUTO_FLASH_MIN_SAMPLES if head_dim == 64
                 else AUTO_WGMMA_OTHER_D_MIN_SAMPLES)
+    if route == "3xtf32":
+        return AUTO_TF32_MIN_SAMPLES
     if route == "generic":
         return AUTO_GENERIC_MIN_SAMPLES
     return None

@@ -4,15 +4,15 @@
 //
 // Replaces, for what the wgmma kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu: bf16 at every D that is a multiple of 8 from 8 to
-// 128) and the 3xTF32 backward (flash_attn_bwd_3xtf32_*.cu: fp32 at every D
-// that is a multiple of 8 from 8 to 128) do not take, the five TPU Pallas
-// kernels of occm_tpu/ops/attention.py, which run their dots in q's dtype
-// at any head dim D: the forward in fp32 at any D from 1 to 256, the
-// backward in fp32 at the other D up to 256, and both in bf16 at the D
-// the wgmma kernels do not take, up to 256 (ops/attention.py cuda_route,
-// cuda_bwd_route). They are also the "was" beside the wgmma instances at
-// bf16 D != 64 and beside the 3xTF32 backward, which took their place
-// there:
+// 128) and the 3xTF32 kernels (flash_attn_fwd_3xtf32.cu and
+// flash_attn_bwd_3xtf32_*.cu: fp32 at the head dims of their tables, every
+// multiple of 8 from 8 to 128) do not take, the five TPU Pallas kernels of
+// occm_tpu/ops/attention.py, which run their dots in q's dtype at any head
+// dim D: forward and backward in fp32 at the other D up to 256, and in
+// bf16 at the D the wgmma kernels do not take, up to 256
+// (ops/attention.py cuda_route, cuda_bwd_route). They are also the "was"
+// beside the wgmma instances at bf16 D != 64 and beside the 3xTF32
+// kernels, which took their place there:
 //   _fwd_kernel          (attention.py:45)   whole-T forward
 //   _bwd_kernel          (attention.py:79)   whole-T backward
 //   _blocked_fwd_kernel  (attention.py:234)  online-softmax forward + lse
@@ -72,11 +72,12 @@
 // backward's five products 7.3e9 flops at B 12: 0.11 ms. In bf16 the same
 // work is bound by bytes or by the tensor cores' 989 TFLOP/s, which this
 // kernel does not use.
-// What its simple design leaves on the table: the tensor cores (3xTF32
-// for the fp32 forward; the fp32 backward's 3xTF32 pair is 1.1-2.1x
-// faster at D 8-128 and T 299; in bf16 the wgmma instances of
-// flash_attn_fwd.cu and flash_attn_bwd.cu now take every D that is a
-// multiple of 8 up to 128, 4-30x faster at D 16-128); the padded dims of D = 80 (DP 128); the exp
+// What its simple design leaves on the table: the tensor cores (in fp32
+// the 3xTF32 forward is 1.7-3.0x faster on the device at D 8-128 and
+// T 299, the 3xTF32 backward pair 1.1-2.1x; in bf16 the wgmma instances of
+// flash_attn_fwd.cu and flash_attn_bwd.cu take every D that is a
+// multiple of 8 up to 128, 4-30x faster at D 16-128: all of them took
+// this kernel's place there); the padded dims of D = 80 (DP 128); the exp
 // and shuffles of the online softmax, which at D = 16 cost as much as the
 // products; one or two blocks an SM at DP >= 128 (shared memory); and the
 // recomputed S and dP of the backward. The measured times are in PERF.md.

@@ -5,8 +5,11 @@
 // mantissa, about three decimal digits. Each fp32 operand x is split into
 // x = hi + lo: hi is x with its 13 low mantissa bits cleared, a TF32 value
 // exactly, and lo = x - hi, exact in fp32 and below 2^-10 |x|; the tensor
-// cores read lo's leading 11 bits, which leaves at most 2^-20 |x| of x out
-// (whether they truncate or round the rest). Then
+// cores read lo's leading 11 bits, which leaves at most 2^-20 |x| of x out.
+// They truncate the bits they drop: on an H100 mma.sync m16n8k8 and wgmma
+// m64n8k8 both read 1 + m 2^-14 (m = 0..63, either sign) as 1 + m 2^-14
+// truncated to TF32, ties and all (probe_3xtf32.py), so x's raw fp32 bits
+// read as its hi (flash_attn_fwd_3xtf32.cu writes only the lo tiles). Then
 //   a b = a_hi b_hi + a_hi b_lo + a_lo b_hi + a_lo b_lo,
 // and the kernels issue the first three terms. The dropped a_lo b_lo is
 // below 2^-20 |a b|, where one TF32 product alone is off by up to

@@ -41,6 +41,7 @@ def launch_counts() -> dict:
             "flash_attn_generic_fwd": attention.GENERIC_LAUNCHES,
             "flash_attn_generic_bwd_dq": attention.GENERIC_BWD_DQ_LAUNCHES,
             "flash_attn_generic_bwd_dkv": attention.GENERIC_BWD_DKV_LAUNCHES,
+            "flash_attn_3xtf32_fwd": attention.TF32_FWD_LAUNCHES,
             "flash_attn_3xtf32_bwd_dq": attention.TF32_BWD_DQ_LAUNCHES,
             "flash_attn_3xtf32_bwd_dkv": attention.TF32_BWD_DKV_LAUNCHES,
             "ffn_fwd_f32": ffn.F32_LAUNCHES,

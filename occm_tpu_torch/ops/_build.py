@@ -130,6 +130,9 @@ def load() -> ctypes.CDLL:
                 p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll,
                 ll, ctypes.c_float, p]
             lib.occm_flash_attn_fwd.restype = i
+            lib.occm_flash_attn_3xtf32_fwd.argtypes = (
+                lib.occm_flash_attn_fwd.argtypes)
+            lib.occm_flash_attn_3xtf32_fwd.restype = i
             # pointers, (b, h, T, t_valid, d), strides (sb, st, sh) of
             # each [b, T, h, d] input, scale, stream
             lib.occm_flash_attn_bwd_dq.argtypes = [

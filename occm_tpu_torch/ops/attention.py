@@ -20,7 +20,7 @@ tensor the same Function runs `flash_attention_reference` and
 masking, scale folding and dtype casts. A tensor on any other device
 raises; nothing falls back from a kernel to its plain version.
 
-Two CUDA routes (`cuda_route`):
+Three CUDA routes (`cuda_route`):
 - "wgmma": bf16 at every head dim D that is a multiple of 8 from 8 to 128
   takes the kernels above, one template instance for each
   round_up(D, 16). D = 64 is its own instance (it scales the fp32 logits,
@@ -28,19 +28,26 @@ Two CUDA routes (`cuda_route`):
   as the TPU kernels do, and their backward keeps that folded q in a
   [B, T, H, D] scratch tensor for the dk/dv kernel. Their launches count
   apart (`OTHER_D_*`).
-- "generic": fp32 at any D from 1 to 256, and bf16 at any other D up to
-  256, take the three kernels of `csrc/flash_attn_generic.cu` (forward, dq
-  with δ, dk/dv: FFMA on the CUDA cores, true fp32), which replace the same
-  five TPU kernels for what the wgmma kernels do not take.
-The backward has a third route (`cuda_bwd_route`): "3xtf32", fp32 at the
+- "3xtf32": fp32 at the head dims of `TF32_FWD_HEAD_DIMS` takes, for the
+  forward, `csrc/flash_attn_fwd_3xtf32.cu` (`wgmma` fed by TMA on the
+  tensor cores in 3xTF32, fp32 sums), which replaces the two TPU forward
+  kernels in fp32.
+- "generic": fp32 at any other D from 1 to 256, and bf16 at any other D
+  up to 256, take the three kernels of `csrc/flash_attn_generic.cu`
+  (forward, dq with δ, dk/dv: FFMA on the CUDA cores, true fp32), which
+  replace the same five TPU kernels for what the other kernels do not
+  take.
+The backward has its own table (`cuda_bwd_route`): "3xtf32", fp32 at the
 head dims of `TF32_BWD_HEAD_DIMS`, takes the two kernels of
 `csrc/flash_attn_bwd_3xtf32_dq.cu` and `_dkv.cu` (dq with δ, then dk/dv:
 `mma.sync` on the tensor cores in 3xTF32, fp32 sums); any other fp32 D
-keeps the generic pair. Otherwise the backward of a call takes its forward's route; it is
-fed by its own forward's lse either way. The generic and 3xTF32 kernels
-read any strides in place; on the wgmma route a [B, T, H, D] input whose
-strides the TMA maps cannot read raises, and the autograd Function copies
-such a dO (an expanded one) first. Whatever no route takes raises.
+keeps the generic pair, and bf16 takes its forward's route. The backward
+is fed by its own forward's lse whichever kernel made it. The generic
+kernels and the 3xTF32 backward read any strides in place; on the wgmma
+route and the 3xTF32 forward a [B, T, H, D] input whose strides the TMA
+maps cannot read raises (the autograd Function copies such a dO, an
+expanded one, for the wgmma backward first). Whatever no route takes
+raises.
 
 For every T the port casts the unnormalised probabilities to bf16 before
 P·V and divides by the row sum afterwards, as the blocked TPU kernel does;
@@ -73,6 +80,8 @@ BWD_DOUT_COPIES = 0
 GENERIC_LAUNCHES = 0
 GENERIC_BWD_DQ_LAUNCHES = 0
 GENERIC_BWD_DKV_LAUNCHES = 0
+#: launches of the 3xTF32 forward (csrc/flash_attn_fwd_3xtf32.cu)
+TF32_FWD_LAUNCHES = 0
 #: launches of the 3xTF32 backward pair (csrc/flash_attn_bwd_3xtf32_*.cu)
 TF32_BWD_DQ_LAUNCHES = 0
 TF32_BWD_DKV_LAUNCHES = 0
@@ -98,19 +107,43 @@ GENERIC_HEAD_DIMS = range(1, 257)
 #: and at the tiny model's D 16, B 12, H 4 on device time 0.0480 against
 #: 0.0873 ms.
 TF32_BWD_HEAD_DIMS = range(8, 129, 8)
+#: head dims at which the fp32 forward takes the 3xTF32 kernel
+#: (csrc/flash_attn_fwd_3xtf32.cu, one instance for each round_up(D, 16)):
+#: the multiples of 8 from 8 to 128. The generic forward keeps every other
+#: fp32 D. chip_smoke.py phase 20's sweep (B 8, T 299, wrapper ms in turns
+#: and device ms, an NVIDIA H100 80GB HBM3 at a 700 W power limit) found
+#: the 3xTF32 kernel ahead on the device at every one of them, device ms
+#: 3xTF32 against generic at H 16:
+#:   D   8  0.0294, 0.0550    D  72  0.1200, 0.2897
+#:   D  16  0.0296, 0.0542    D  80  0.1233, 0.2909
+#:   D  24  0.0385, 0.0832    D  88  0.1305, 0.2913
+#:   D  32  0.0388, 0.0771    D  96  0.1283, 0.2907
+#:   D  40  0.0502, 0.1510    D 104  0.1481, 0.2900
+#:   D  48  0.0508, 0.1505    D 112  0.1481, 0.2902
+#:   D  56  0.0630, 0.1681    D 120  0.1672, 0.2930
+#:   D  64  0.0632, 0.1445    D 128  0.1625, 0.2827
+#: and at the tiny model's D 16, H 4: 0.0104 against 0.0235 (its wrapper
+#: ms, 0.0350 against 0.0298, are the host's launch cost of either kernel,
+#: three TMA maps for this one). The wrapper ms were ahead at every H 16
+#: row too (D 16: 0.0554 against 0.0586).
+TF32_FWD_HEAD_DIMS = range(8, 129, 8)
 #: the generic kernels' dtype codes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def cuda_route(dtype: torch.dtype, head_dim: int):
-    """The CUDA kernels that take q, k, v of this dtype and head dim:
-    "wgmma" (bf16 with D a multiple of 8 from 8 to 128:
-    csrc/flash_attn_fwd.cu, flash_attn_bwd.cu), "generic" (fp32 with
-    1 <= D <= 256, and bf16 at any other D up to 256:
-    csrc/flash_attn_generic.cu), or None (raises on a CUDA tensor; on a CPU
-    tensor the plain version takes any)."""
+    """The CUDA forward kernel that takes q, k, v of this dtype and head
+    dim: "wgmma" (bf16 with D a multiple of 8 from 8 to 128:
+    csrc/flash_attn_fwd.cu, and flash_attn_bwd.cu for the backward),
+    "3xtf32" (fp32 with D in TF32_FWD_HEAD_DIMS:
+    csrc/flash_attn_fwd_3xtf32.cu), "generic" (fp32 at any other D from 1
+    to 256, and bf16 at any other D up to 256: csrc/flash_attn_generic.cu),
+    or None (raises on a CUDA tensor; on a CPU tensor the plain version
+    takes any)."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
+    if dtype == torch.float32 and head_dim in TF32_FWD_HEAD_DIMS:
+        return "3xtf32"
     if dtype in _DTYPE_CODE and head_dim in GENERIC_HEAD_DIMS:
         return "generic"
     return None
@@ -119,11 +152,13 @@ def cuda_route(dtype: torch.dtype, head_dim: int):
 def cuda_bwd_route(dtype: torch.dtype, head_dim: int):
     """The CUDA backward kernels that take q, k, v of this dtype and head
     dim: "3xtf32" (fp32 with D in TF32_BWD_HEAD_DIMS:
-    csrc/flash_attn_bwd_3xtf32_dq.cu, _dkv.cu), else the forward's
+    csrc/flash_attn_bwd_3xtf32_dq.cu, _dkv.cu), "generic" at any other fp32
+    D from 1 to 256 (whichever kernel ran the forward), else the forward's
     `cuda_route`."""
     if dtype == torch.float32 and head_dim in TF32_BWD_HEAD_DIMS:
         return "3xtf32"
-    return cuda_route(dtype, head_dim)
+    route = cuda_route(dtype, head_dim)
+    return "generic" if route == "3xtf32" else route
 
 
 def cuda_kernel_takes(dtype: torch.dtype, head_dim: int) -> bool:
@@ -170,11 +205,12 @@ def _strides(x: torch.Tensor, four_d: bool):
 
 def _tma_readable(x: torch.Tensor, four_d: bool) -> bool:
     """Whether the kernels' TMA maps read x where it lies: the head dim
-    contiguous, 16-byte aligned, the other strides positive multiples of 8
-    elements."""
+    contiguous, 16-byte aligned, the other strides positive multiples of
+    16 bytes (8 bf16 or 4 fp32 elements)."""
     sb, st, sh, sd = _strides(x, four_d)
+    grid = 16 // x.element_size()
     return (sd == 1 and x.data_ptr() % 16 == 0 and min(sb, st, sh) > 0
-            and sb % 8 == st % 8 == sh % 8 == 0)
+            and sb % grid == st % grid == sh % grid == 0)
 
 
 def _strides4(x: torch.Tensor, four_d: bool):
@@ -209,7 +245,7 @@ def _launch_args(x: torch.Tensor, four_d: bool):
         raise ValueError(
             "the CUDA kernels take tensors with the head dim contiguous, "
             "16-byte aligned, and the other strides positive multiples of "
-            f"8 elements; got strides {tuple(x.stride())}")
+            f"16 bytes; got strides {tuple(x.stride())}")
     return (x.data_ptr(), *_strides(x, four_d)[:3])
 
 
@@ -219,11 +255,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the same shape, contiguous, in q's dtype, lse [BH, T] fp32).
 
     CUDA tensors launch, on the current stream, `occm_flash_attn_fwd`
-    (bf16, D a multiple of 8 from 8 to 128) or
-    `occm_flash_attn_generic_fwd` (fp32 at D from 1 to 256, bf16 at any
-    other D up to 256), as `cuda_route` says; [B, T, H, D] is read through
-    its strides, so the projections' output needs no copy. CPU tensors take
-    the plain version."""
+    (bf16, D a multiple of 8 from 8 to 128), `occm_flash_attn_3xtf32_fwd`
+    (fp32 at TF32_FWD_HEAD_DIMS) or `occm_flash_attn_generic_fwd` (fp32 at
+    any other D from 1 to 256, bf16 at any other D up to 256), as
+    `cuda_route` says; [B, T, H, D] is read through its strides, so the
+    projections' output needs no copy. CPU tensors take the plain
+    version."""
     global LAUNCHES, OTHER_D_LAUNCHES
     if not (q.device == k.device == v.device):
         raise ValueError(
@@ -250,6 +287,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route = _route((q.dtype, k.dtype, v.dtype), D)
     if route == "generic":
         return _generic_fwd(q, k, v, t_valid, four_d, B, H, T, D)
+    if route == "3xtf32":
+        return _tf32_fwd(q, k, v, t_valid, four_d, B, H, T, D)
+    out, lse = _tma_fwd("occm_flash_attn_fwd", q, k, v, t_valid, four_d, B,
+                        H, T, D)
+    if D == 64:
+        LAUNCHES += 1
+    else:
+        OTHER_D_LAUNCHES += 1
+    return out, lse
+
+
+def _tma_fwd(entry, q, k, v, t_valid, four_d, B, H, T, D):
+    """One launch of a TMA forward kernel's entry point (`entry`:
+    `occm_flash_attn_fwd` or `occm_flash_attn_3xtf32_fwd`, which take the
+    same arguments) on the current stream; raises ValueError for strides
+    their maps cannot read."""
     qp, *qs = _launch_args(q, four_d)
     kp, *ks = _launch_args(k, four_d)
     vp, *vs = _launch_args(v, four_d)
@@ -260,15 +313,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     with _build.on_device(q.device):
-        err = lib.occm_flash_attn_fwd(
+        err = getattr(lib, entry)(
             qp, kp, vp, out.data_ptr(), lse.data_ptr(), B, H, T, t_valid, D,
             *qs, *ks, *vs, 1.0 / math.sqrt(D), _build.raw_stream(q.device))
     if err != 0:
-        raise RuntimeError(f"occm_flash_attn_fwd failed: error {err}")
-    if D == 64:
-        LAUNCHES += 1
-    else:
-        OTHER_D_LAUNCHES += 1
+        raise RuntimeError(f"{entry} failed: error {err}")
+    return out, lse
+
+
+def _tf32_fwd(q, k, v, t_valid, four_d, B, H, T, D):
+    """One launch of `occm_flash_attn_3xtf32_fwd` on the current stream."""
+    global TF32_FWD_LAUNCHES
+    out, lse = _tma_fwd("occm_flash_attn_3xtf32_fwd", q, k, v, t_valid,
+                        four_d, B, H, T, D)
+    TF32_FWD_LAUNCHES += 1
     return out, lse
 
 

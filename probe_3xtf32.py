@@ -1,13 +1,25 @@
 """What bounds the 3xTF32 kernels on the card.
 
-Builds variants of the attention backward
-(`occm_tpu_torch/csrc/flash_attn_bwd_3xtf32_dq.cu`, `_dkv.cu` and their
-`attention_3xtf32.cuh`) and of `occm_tpu_torch/csrc/ffn_fwd_3xtf32.cu`,
-each with one edit of its sources in a temporary directory, and times
-them (CUDA events) against the unedited sources on the same inputs:
+Builds variants of the attention forward
+(`occm_tpu_torch/csrc/flash_attn_fwd_3xtf32.cu`), of the attention
+backward (`occm_tpu_torch/csrc/flash_attn_bwd_3xtf32_dq.cu`, `_dkv.cu`
+and their `attention_3xtf32.cuh`) and of
+`occm_tpu_torch/csrc/ffn_fwd_3xtf32.cu`, each with one edit of its sources
+in a temporary directory, and times them (CUDA events) against the
+unedited sources on the same inputs:
 
+- whether the tensor cores truncate or round the 13 mantissa bits of an
+  fp32 operand that TF32 drops: x = 1 + m 2^-14 (m = 0..63, and -x) times
+  1.0 through mma.sync m16n8k8 and wgmma m64n8k8 (both operands in shared
+  memory), each product's result held against x truncated, rounded to
+  nearest even and rounded to nearest with ties away;
 - the mma.sync m16n8k8 TF32 rate alone: blocks of 4, 8 and 16 warps, each
   warp issuing eight independent chains of the kernels' `mma_tf32`;
+- the attention forward at B 8, H 16, T 299 and 1500, D 64 (and the tiny
+  model's D 16, H 4, and D 128): as built; with one product a k-step (hi
+  hi only, in S and in P v: what the two small terms cost); without the
+  split pass (the splitting warps wait for each stage and signal it,
+  writing nothing);
 - the attention backward's dq and dk/dv kernels at B 12, H 16, T 299 and
   1500, D 64 (and the tiny model's D 16, H 4, and D 128): as built; with
   one product a k-step (hi hi only: what the two small terms and their
@@ -19,7 +31,7 @@ them (CUDA events) against the unedited sources on the same inputs:
   and signal it, writing nothing); both.
 
 Run on a machine with a CUDA card and nvcc, from the repository's root:
-`python3 probe_3xtf32.py` (about 6 minutes, most of it nvcc). It prints
+`python3 probe_3xtf32.py` (about 7 minutes, most of it nvcc). It prints
 the card's name and power limit first; a variant's error is against the
 unedited kernel (an edited one computes something else on purpose).
 """
@@ -54,6 +66,89 @@ extern "C" int run_bench(void* out, int blocks, int threads, int iters) {
   return (int)cudaGetLastError();
 }
 '''
+
+ROUNDING_PROBE = r'''
+#include <stdint.h>
+#include "sm90.cuh"
+#include "tf32.cuh"
+// x[m] at A(m, 0), 1.0 at B(0, 0), every other element 0: D(m, 0) is the
+// tensor cores' reading of x[m]. One warp of mma.sync m16n8k8 (16 rows).
+__global__ void mma_sync_read(const float* x, float* out) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const uint32_t a[4] = {t == 0 ? __float_as_uint(x[g]) : 0u,
+                         t == 0 ? __float_as_uint(x[g + 8]) : 0u, 0u, 0u};
+  const uint32_t b0 = (t == 0 && g == 0) ? __float_as_uint(1.f) : 0u;
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(d, a, b0, 0u);
+  if (t == 0) out[g] = d[0], out[g + 8] = d[2];
+}
+// One warpgroup of wgmma m64n8k8, A [64 x 8] and B [8 x 8] K-major in
+// shared memory in the 128-byte swizzle (64 rows).
+__global__ void wgmma_read(const float* x, float* out) {
+  __shared__ __align__(1024) unsigned char buf[9 * 1024];
+  unsigned char* a = buf;
+  unsigned char* b = buf + 8192;
+  for (int i = threadIdx.x; i < 9 * 256; i += 128)
+    reinterpret_cast<float*>(buf)[i] = 0.f;
+  __syncthreads();
+  if (threadIdx.x < 64)  // row m's first 16-byte chunk sits at chunk m % 8
+    *reinterpret_cast<float*>(a + threadIdx.x * 128 +
+                              ((threadIdx.x & 7) << 4)) = x[threadIdx.x];
+  if (threadIdx.x == 0) *reinterpret_cast<float*>(b) = 1.f;
+  fence_proxy_async();
+  __syncthreads();
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  fence_acc(d);
+  wgmma_fence();
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(smem_desc(smem_u32(a))), "l"(smem_desc(smem_u32(b))), "r"(1));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(d);
+  const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  if ((threadIdx.x & 3) == 0) out[row] = d[0], out[row + 8] = d[2];
+}
+extern "C" int run_reads(const void* x, void* out_mma, void* out_wgmma) {
+  mma_sync_read<<<1, 32>>>((const float*)x, (float*)out_mma);
+  wgmma_read<<<1, 128>>>((const float*)x, (float*)out_wgmma);
+  return (int)cudaGetLastError();
+}
+'''
+
+FWD = "flash_attn_fwd_3xtf32.cu"
+FWD_ONE_PRODUCT = [
+    (FWD, "        wgmma_ss_tf32(ss, dql + kstep(kk), dkh + kstep(kk));\n"
+          "        wgmma_ss_tf32(ss, dqh + kstep(kk), dkl + kstep(kk));\n", ""),
+    (FWD, "    wgmma_rs_tf32<N>(small, p_lo[c], dh);\n"
+          "    wgmma_rs_tf32<N>(small, p_hi[c], dl);\n", "")]
+FWD_NO_SPLIT = [
+    (FWD, """        split_tile<false>(reinterpret_cast<float4*>(st),
+                          reinterpret_cast<float4*>(st + G::kKLo), kTB / 16,
+                          1.f, sid, kSplitters);
+        split_v<NP>(st + G::kV, st + G::kVtHi, st + G::kVtLo, sid);
+""", "")]
+
+
+def tf32_readings(x):
+    """x (fp32, numpy) read as TF32 three ways: truncated, rounded to
+    nearest even, rounded to nearest with ties away from zero."""
+    import numpy as np
+
+    bits = x.view(np.uint32).astype(np.int64)
+    low = bits & 0x1FFF
+    trunc = bits & ~0x1FFF
+    up = trunc + 0x2000
+    even = np.where((low > 0x1000) | ((low == 0x1000) & (trunc & 0x2000 > 0)),
+                    up, trunc)
+    away = np.where(low >= 0x1000, up, trunc)
+    return {name: v.astype(np.uint32).view(np.float32)
+            for name, v in (("truncated", trunc), ("nearest even", even),
+                            ("nearest, ties away", away))}
+
 
 ATTN = "attention_3xtf32.cuh"
 ATTN_SOURCES = ["flash_attn_bwd_3xtf32_dq.cu", "flash_attn_bwd_3xtf32_dkv.cu"]
@@ -136,6 +231,34 @@ def main() -> int:
         return start.elapsed_time(end) / iters
 
     try:
+        # ---- how the tensor cores read the bits TF32 drops
+        import numpy as np
+
+        lib = build("rounding", ["rounding.cu"],
+                    extra=("rounding.cu", ROUNDING_PROBE))
+        lib.run_reads.argtypes = [p, p, p]
+        for sign in (1.0, -1.0):
+            x = (sign * (1.0 + np.arange(64) * 2.0 ** -14)).astype(
+                np.float32)
+            xs = torch.from_numpy(x).cuda()
+            got = {"mma.sync m16n8k8": torch.zeros(16, device="cuda"),
+                   "wgmma m64n8k8": torch.zeros(64, device="cuda")}
+            if lib.run_reads(xs.data_ptr(), got["mma.sync m16n8k8"]
+                             .data_ptr(), got["wgmma m64n8k8"].data_ptr()):
+                raise RuntimeError("the rounding probe's launch failed")
+            torch.cuda.synchronize()
+            rules = tf32_readings(x)
+            for inst, out in got.items():
+                out = out.cpu().numpy()
+                n = len(out)
+                match = [name for name, want in rules.items()
+                         if np.array_equal(out, want[:n])]
+                print(f"[probe] {inst} TF32 reads 1 + m 2^-14 "
+                      f"(m = 0..{n - 1}, sign {sign:+.0f}) as: "
+                      f"{match or 'none of the three rules'}; "
+                      f"m = 8, 24: {out[8]!r}, "
+                      f"{out[24] if n > 24 else '-'}", flush=True)
+
         # ---- the mma.sync TF32 rate
         lib = build("mma", ["bench.cu"], extra=("bench.cu", MMA_BENCH))
         lib.run_bench.argtypes = [p, i, i, i]
@@ -148,8 +271,46 @@ def main() -> int:
             print(f"[probe] mma.sync m16n8k8 TF32, 528 blocks of {warps} "
                   f"warps: {2 * macs / t / 1e9:.1f} TFLOP/s", flush=True)
 
-        # ---- the attention backward
+        # ---- the attention forward
         gen = torch.Generator(device="cuda").manual_seed(0)
+        fwd_cases = []
+        for b, h, t, d in ((8, 16, 299, 64), (8, 16, 1500, 64),
+                           (8, 4, 299, 16), (8, 16, 299, 128)):
+            qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
+            fwd_cases.append((b, h, t, d, *qkv.unbind(2)))
+        want = {}
+        for name, edits in (("as built", []),
+                            ("one product", FWD_ONE_PRODUCT),
+                            ("no split pass", FWD_NO_SPLIT)):
+            lib = build("fwd_" + name.replace(" ", "_"), [FWD], edits)
+            lib.occm_flash_attn_3xtf32_fwd.argtypes = [
+                *[p] * 5, *[i] * 5, *[ll] * 9, ctypes.c_float, p]
+            for b, h, t, d, q, k, v in fwd_cases:
+                out = torch.empty((b, t, h, d), device="cuda")
+                lse = torch.empty((b * h, t), device="cuda")
+                stream = torch.cuda.current_stream().cuda_stream
+
+                def fwd():
+                    return lib.occm_flash_attn_3xtf32_fwd(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), lse.data_ptr(), b, h, t, t, d,
+                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                        1.0 / math.sqrt(d), stream)
+
+                if fwd():
+                    raise RuntimeError(f"forward {name}: a launch failed")
+                torch.cuda.synchronize()
+                ref = want.setdefault((t, d, h), out.clone())
+                err = ((out - ref).abs().max() / ref.abs().max()).item()
+                t_ms = ms(fwd, 5 if t > 600 else 20)
+                print(f"[probe] attention forward, {name}: B {b}, H {h}, "
+                      f"T {t}, D {d}: {t_ms:.4f} ms, "
+                      f"{3 * 4 * b * h * t * t * d / t_ms / 1e9:.1f} "
+                      "TFLOP/s of the three TF32 products; max error "
+                      f"against the unedited kernel {err:.2e} of the "
+                      "largest |value|", flush=True)
+
+        # ---- the attention backward
         cases = []
         for b, h, t, d in ((12, 16, 299, 64), (12, 16, 1500, 64),
                            (12, 4, 299, 16), (12, 16, 299, 128)):

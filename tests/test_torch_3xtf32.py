@@ -1,23 +1,29 @@
 """The port's fp32 tensor-core kernels on the CPU: the 3xTF32 attention
-backward (csrc/flash_attn_bwd_3xtf32_dq.cu, _dkv.cu) and fused FFN
+forward (csrc/flash_attn_fwd_3xtf32.cu) and backward
+(csrc/flash_attn_bwd_3xtf32_dq.cu, _dkv.cu) and fused FFN
 (csrc/ffn_fwd_3xtf32.cu).
 
 The kernels run only on the card (chip_smoke.py phase 20 holds them
-against their plain versions there). Here: the backward's route table, the
-launch arguments and counters of both wrappers through a recording
-library, and a plain fp32 emulation of the 3xTF32 split showing that the
+against their plain versions there). Here: the route tables, the launch
+arguments and counters of the wrappers through a recording library (and
+the strides the forward's TMA maps refuse), the auto threshold of the
+3xTF32 route, and a plain fp32 emulation of the 3xTF32 split showing that
+the
 design meets the card's gates (COVERAGE_F32_RTOL_OF_MAX = 1e-5 for the
 attention backward, FFN_F32_RTOL_OF_MAX = 1e-4 for the FFN) at the
 model's shapes, where one TF32 product alone does not.
 """
 
 import contextlib
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from occm_tpu_torch.classify import impl_select
+from occm_tpu_torch.config import XLSRConfig
 from occm_tpu_torch.ops import _build, attention, ffn
 
 #: chip_smoke.py's bounds, relative to the largest |value| of the plain
@@ -48,11 +54,37 @@ def one_torch_thread():
 def test_backward_route_table(dtype, head_dim, route):
     """The backward takes the 3xTF32 pair in fp32 at every head dim that is
     a multiple of 8 from 8 to 128, the generic pair at the other fp32 D up
-    to 256, and the forward's route otherwise; the fp32 forward stays on
-    the generic kernel at every D."""
+    to 256 (whichever kernel ran the forward), and the forward's route
+    otherwise; the fp32 forward takes the 3xTF32 kernel at the head dims of
+    its own table and the generic kernel at the others."""
     assert attention.cuda_bwd_route(dtype, head_dim) == route
     if dtype == torch.float32 and route is not None:
-        assert attention.cuda_route(dtype, head_dim) == "generic"
+        assert attention.cuda_route(dtype, head_dim) == (
+            "3xtf32" if head_dim in attention.TF32_FWD_HEAD_DIMS
+            else "generic")
+
+
+@pytest.mark.parametrize("dtype, head_dim", [
+    *((torch.float32, d) for d in (1, 7, 8, 12, 16, 20, 24, 64, 80, 120,
+                                   128, 136, 256)),
+    *((torch.bfloat16, d) for d in (8, 12, 64, 136)),
+    (torch.float32, 257), (torch.float16, 64)])
+def test_forward_route_table(dtype, head_dim):
+    """The fp32 forward takes the 3xTF32 kernel exactly at the head dims of
+    TF32_FWD_HEAD_DIMS, which are multiples of 8 from 8 to 128 (its
+    instances are round_up(D, 16) columns wide), and the generic kernel at
+    every other D up to 256; bf16 keeps the wgmma and generic routes; D 257
+    and fp16 have no kernel."""
+    assert set(attention.TF32_FWD_HEAD_DIMS) <= set(range(8, 129, 8))
+    route = attention.cuda_route(dtype, head_dim)
+    if dtype == torch.float32 and head_dim in attention.TF32_FWD_HEAD_DIMS:
+        assert route == "3xtf32"
+    elif dtype == torch.bfloat16 and head_dim % 8 == 0 and head_dim <= 128:
+        assert route == "wgmma"
+    elif dtype in (torch.float32, torch.bfloat16) and head_dim <= 256:
+        assert route == "generic"
+    else:
+        assert route is None
 
 
 # ------------------------------------------------- a recording library
@@ -85,7 +117,7 @@ def _recording_card(monkeypatch):
 
 def _counts():
     return {n: getattr(attention, n) for n in (
-        "GENERIC_LAUNCHES", "GENERIC_BWD_DQ_LAUNCHES",
+        "TF32_FWD_LAUNCHES", "GENERIC_LAUNCHES", "GENERIC_BWD_DQ_LAUNCHES",
         "GENERIC_BWD_DKV_LAUNCHES", "TF32_BWD_DQ_LAUNCHES",
         "TF32_BWD_DKV_LAUNCHES", "BWD_DOUT_COPIES")}
 
@@ -94,12 +126,12 @@ def _counts():
 def test_3xtf32_backward_reads_views_and_an_expanded_dout_in_place(
         monkeypatch, head_dim):
     """fp32 attention through autograd on strided [B, T, H, D] views of a
-    fused projection: the generic forward, then the 3xTF32 pair, dq (with
+    fused projection: the 3xTF32 forward, then the 3xTF32 pair, dq (with
     the δ buffer) then dk/dv, each given the views' pointers and their
     (sb, st, sh, sd), (B, H, T, t_valid, D), 1/sqrt(D) and the stream;
     the expanded dO of out.sum() reaches both kernels where it lies
-    (strides 0, no copy); one launch counted on each of the pair's
-    counters and none on the generic pair's."""
+    (strides 0, no copy); one launch counted on each of the three 3xTF32
+    counters and none on the generic kernels'."""
     B, T, H = 2, 9, 3
     with _recording_card(monkeypatch) as calls:
         qkv = torch.zeros((B, T, 3, H, head_dim))
@@ -108,7 +140,7 @@ def test_3xtf32_backward_reads_views_and_an_expanded_dout_in_place(
         out = attention.flash_attention(q, k, v)
         out.sum().backward()
     names = [name for name, _ in calls]
-    assert names == ["occm_flash_attn_generic_fwd",
+    assert names == ["occm_flash_attn_3xtf32_fwd",
                      "occm_flash_attn_3xtf32_bwd_dq",
                      "occm_flash_attn_3xtf32_bwd_dkv"]
     fwd, dq, dkv = (args for _, args in calls)
@@ -131,7 +163,8 @@ def test_3xtf32_backward_reads_views_and_an_expanded_dout_in_place(
     assert dkv[29] == scale and dkv[30] == 7
     assert dq[7] not in (dkv[6], dkv[7])
     after = {n: c - before[n] for n, c in _counts().items()}
-    assert after == {"GENERIC_LAUNCHES": 1, "GENERIC_BWD_DQ_LAUNCHES": 0,
+    assert after == {"TF32_FWD_LAUNCHES": 1, "GENERIC_LAUNCHES": 0,
+                     "GENERIC_BWD_DQ_LAUNCHES": 0,
                      "GENERIC_BWD_DKV_LAUNCHES": 0, "TF32_BWD_DQ_LAUNCHES": 1,
                      "TF32_BWD_DKV_LAUNCHES": 1, "BWD_DOUT_COPIES": 0}
     for x in (q, k, v):
@@ -151,6 +184,93 @@ def test_3xtf32_backward_reads_bh_t_d_as_one_head(monkeypatch):
     assert dq[13:33] == (T * Dh, Dh, Dh, 1) * 5
     assert dkv[13:29] == (T * Dh, Dh, Dh, 1) * 4
     assert all(g.shape == (BH, T, Dh) for g in grads)
+
+
+@pytest.mark.parametrize("head_dim", [16, 64])
+def test_3xtf32_forward_reads_projection_views_in_place(monkeypatch,
+                                                        head_dim):
+    """The forward wrapper on fp32 [B, T, H, D] views of a fused projection
+    launches `occm_flash_attn_3xtf32_fwd` and nothing else: the views'
+    pointers and (sb, st, sh), a fresh contiguous out and a [B·H, T] lse,
+    (B, H, T, t_valid, D), 1/sqrt(D) and the stream; one launch on
+    TF32_FWD_LAUNCHES, none on the generic forward's."""
+    B, T, H = 2, 9, 3
+    with _recording_card(monkeypatch) as calls:
+        qkv = torch.zeros((B, T, 3, H, head_dim))
+        q, k, v = qkv.unbind(2)
+        before = _counts()
+        out, lse = attention.flash_attention_fwd(q, k, v, 7)
+    (name, args), = calls
+    assert name == "occm_flash_attn_3xtf32_fwd"
+    assert args[:3] == tuple(x.data_ptr() for x in (q, k, v))
+    assert args[3:5] == (out.data_ptr(), lse.data_ptr())
+    assert args[5:10] == (B, H, T, 7, head_dim)
+    assert args[10:19] == (T * 3 * H * head_dim, 3 * H * head_dim,
+                           head_dim) * 3
+    assert args[19] == 1.0 / math.sqrt(head_dim) and args[20] == 7
+    assert out.shape == (B, T, H, head_dim) and out.is_contiguous()
+    assert lse.shape == (B * H, T) and lse.dtype == torch.float32
+    after = {n: c - before[n] for n, c in _counts().items()}
+    assert after["TF32_FWD_LAUNCHES"] == 1
+    assert after["GENERIC_LAUNCHES"] == 0
+
+
+def test_3xtf32_forward_reads_bh_t_d_as_one_head(monkeypatch):
+    """[B·H, T, D] fp32 reaches the 3xTF32 forward as B = B·H, H = 1 with
+    the head stride given as D."""
+    BH, T, Dh = 6, 5, 24
+    with _recording_card(monkeypatch) as calls:
+        q, k, v = (torch.zeros((BH, T, Dh)) for _ in range(3))
+        out, lse = attention.flash_attention_fwd(q, k, v, 4)
+    (name, args), = calls
+    assert name == "occm_flash_attn_3xtf32_fwd"
+    assert args[5:10] == (BH, 1, T, 4, Dh)
+    assert args[10:19] == (T * Dh, Dh, Dh) * 3
+    assert out.shape == (BH, T, Dh) and lse.shape == (BH, T)
+
+
+def test_3xtf32_forward_refuses_strides_its_maps_cannot_read(monkeypatch):
+    """fp32 strides that are multiples of 4 elements (16 bytes) are read in
+    place, though bf16's rule of 8 would refuse them; a stride off the
+    16-byte grid, a base off it, or a head dim that is not contiguous
+    raises ValueError before any launch, with no fallback to the generic
+    kernel or the plain version."""
+    B, T, H, Dh = 2, 5, 3, 16
+    with _recording_card(monkeypatch) as calls:
+        padded = torch.zeros((B, T, H, Dh + 4))[..., :Dh]
+        attention.flash_attention_fwd(padded, padded, padded, T)
+        assert [name for name, _ in calls] == ["occm_flash_attn_3xtf32_fwd"]
+        assert calls[0][1][10:13] == (T * H * (Dh + 4), H * (Dh + 4),
+                                      Dh + 4)
+        wide = torch.zeros((B, T, H, Dh + 2))[..., :Dh]
+        shifted = torch.zeros(B * T * H * Dh + 2)[2:].view(B, T, H, Dh)
+        strided = torch.zeros((B, T, H, 2 * Dh))[..., ::2]
+        before = _counts()
+        for bad in (wide, shifted, strided):
+            with pytest.raises(ValueError, match="16-byte"):
+                attention.flash_attention_fwd(bad, bad, bad, T)
+        assert len(calls) == 1 and _counts() == before
+
+
+@pytest.mark.parametrize("cfg, route", [
+    (XLSRConfig(dtype="float32"), "3xtf32"),          # D 64
+    (XLSRConfig.tiny(), "3xtf32"),                    # D 16
+    (dataclasses.replace(XLSRConfig.tiny(), encoder_embed_dim=48),
+     "generic"),                                      # D 12
+    (XLSRConfig(), "wgmma")])
+def test_auto_threshold_follows_the_3xtf32_forward(cfg, route):
+    """On a CUDA device auto's threshold for an fp32 model whose head dim
+    the 3xTF32 forward takes is AUTO_TF32_MIN_SAMPLES; an fp32 head dim it
+    does not take (12) keeps AUTO_GENERIC_MIN_SAMPLES, bf16 at D 64
+    AUTO_FLASH_MIN_SAMPLES."""
+    d = cfg.encoder_embed_dim // cfg.encoder_heads
+    assert attention.cuda_route(getattr(torch, cfg.dtype), d) == route
+    want = {"3xtf32": impl_select.AUTO_TF32_MIN_SAMPLES,
+            "generic": impl_select.AUTO_GENERIC_MIN_SAMPLES,
+            "wgmma": impl_select.AUTO_FLASH_MIN_SAMPLES}[route]
+    assert impl_select.auto_flash_min_samples(cfg, "cuda") == want
+    assert impl_select.auto_flash_min_samples(cfg, "cpu") == (
+        impl_select.AUTO_FLASH_MIN_SAMPLES)
 
 
 @pytest.mark.parametrize("d, f, kernel", [

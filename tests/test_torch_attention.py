@@ -375,17 +375,18 @@ def test_backward_delta_is_the_fp32_rowsum_in_the_layout_of_lse():
 
 
 @pytest.mark.parametrize("dtype, head_dim, route", [
-    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "generic"),
-    (torch.bfloat16, 16, "wgmma"), (torch.float32, 16, "generic"),
+    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "3xtf32"),
+    (torch.bfloat16, 16, "wgmma"), (torch.float32, 16, "3xtf32"),
     (torch.float16, 64, None), (torch.bfloat16, 1, "generic"),
     (torch.float32, 256, "generic"), (torch.bfloat16, 257, None),
     (torch.float32, 0, None)])
 def test_cuda_kernel_takes_only_bf16_with_head_dim_64(dtype, head_dim,
                                                       route):
     """The wgmma kernels take only bf16, at head dims that are multiples
-    of 8 up to 128 (64 and 16 here); the generic kernels take fp32 at every
-    head dim from 1 to 256 and bf16 at the others; nothing takes fp16 or a
-    head dim outside 1..256."""
+    of 8 up to 128 (64 and 16 here); the 3xTF32 forward takes fp32 at the
+    head dims of its table (64 and 16 here), the generic kernels fp32 at
+    every other head dim from 1 to 256 and bf16 at the others; nothing
+    takes fp16 or a head dim outside 1..256."""
     assert attention.cuda_route(dtype, head_dim) == route
     assert attention.cuda_kernel_takes(dtype, head_dim) is (route is not None)
 
@@ -394,14 +395,16 @@ def test_cuda_kernel_takes_only_bf16_with_head_dim_64(dtype, head_dim,
     *((torch.bfloat16, d, "wgmma")
       for d in (8, 16, 24, 32, 48, 64, 80, 120, 128)),
     *((torch.bfloat16, d, "generic") for d in (1, 7, 12, 136, 256)),
-    *((torch.float32, d, "generic")
-      for d in (1, 7, 8, 16, 64, 80, 120, 128, 136, 256)),
+    *((torch.float32, d, "generic") for d in (1, 7, 136, 256)),
+    *((torch.float32, d, "3xtf32") for d in (8, 16, 64, 80, 120, 128)),
     (torch.bfloat16, 257, None), (torch.float32, 257, None)])
 def test_cuda_route_table(dtype, head_dim, route):
     """The wgmma kernels (csrc/flash_attn_fwd.cu, flash_attn_bwd.cu) take
     bf16 at every head dim that is a multiple of 8 from 8 to 128, one
-    instance for each round_up(D, 16); the generic kernels keep fp32 at
-    every D from 1 to 256 and bf16 at the other D up to 256; D 257 has no
+    instance for each round_up(D, 16); the 3xTF32 forward
+    (csrc/flash_attn_fwd_3xtf32.cu) takes fp32 at the head dims of
+    TF32_FWD_HEAD_DIMS; the generic kernels keep fp32 at every other D
+    from 1 to 256 and bf16 at the other D up to 256; D 257 has no
     kernel."""
     assert attention.cuda_route(dtype, head_dim) == route
 
@@ -540,7 +543,7 @@ def _cuda_patched(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype, head_dim, reaches", [
-    (torch.float32, 64, "generic"), (torch.float32, 16, "generic"),
+    (torch.float32, 64, "3xtf32"), (torch.float32, 16, "3xtf32"),
     (torch.bfloat16, 80, "wgmma"), (torch.float32, 256, "generic"),
     (torch.bfloat16, 64, "wgmma"), (torch.float32, 0, None),
     (torch.float32, 257, None), (torch.float16, 64, None),
@@ -548,9 +551,11 @@ def _cuda_patched(monkeypatch):
 def test_cuda_wrappers_route_or_refuse(monkeypatch, dtype, head_dim,
                                        reaches):
     """On a CUDA tensor the forward wrapper takes the route `cuda_route`
-    names and the backward wrapper the one `cuda_bwd_route` names (fp32 at
-    D 64 and 16: the 3xTF32 pair), and both go on to the build (the generic
-    and 3xTF32 routes read any strides, so the views need no check), or
+    names (fp32 at D 64 and 16: the 3xTF32 forward, whose TMA maps read
+    these contiguous tensors) and the backward wrapper the one
+    `cuda_bwd_route` names (fp32 at D 64 and 16: the 3xTF32 pair), and
+    both go on to the build (the generic kernels and the 3xTF32 backward
+    read any strides, so the views need no check), or
     raise ValueError for what no route takes (D 0, D 257, fp16), before any
     build; a mixed-dtype call raises. Checked with the device test patched,
     as this host has no card."""
@@ -580,8 +585,9 @@ def test_cuda_wrappers_route_or_refuse(monkeypatch, dtype, head_dim,
         attention.flash_attention_fwd(q, k, v, T)
     with pytest.raises(Built):
         attention.flash_attention_bwd(q, k, v, o, lse, do, T)
-    assert seen == [r for r in (reaches, bwd_reaches)
-                    if r in ("generic", "3xtf32")]
+    # the wgmma and 3xTF32 forwards go to the build from the wrapper itself
+    assert seen == ([reaches] if reaches == "generic" else []) + (
+        [bwd_reaches] if bwd_reaches in ("generic", "3xtf32") else [])
     other = torch.bfloat16 if dtype == torch.float32 else torch.float32
     with pytest.raises(ValueError, match="one dtype"):
         attention.flash_attention_fwd(q, k, v.to(other), T)

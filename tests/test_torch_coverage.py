@@ -58,7 +58,7 @@ def test_fp32_encoder_with_flash_and_pallas_ffn_matches_flax(heads):
     jcfg = dataclasses.replace(JXLSRConfig.tiny(), **fields)
     cfg = dataclasses.replace(XLSRConfig.tiny(), **fields)
     assert cfg.encoder_embed_dim // heads == {4: 64, 16: 16}[heads]
-    assert attention.cuda_route(torch.float32, 256 // heads) == "generic"
+    assert attention.cuda_route(torch.float32, 256 // heads) == "3xtf32"
     x = (np.random.default_rng(heads).normal(size=(2, CUT)) * 0.1).astype(
         np.float32)
     variables = perturbed(fabricated(JXLSREncoder(jcfg), x), heads)
@@ -74,12 +74,13 @@ def test_fp32_encoder_with_flash_and_pallas_ffn_matches_flax(heads):
     model = XLSREncoder(cfg).eval()
     model.load_state_dict(xlsr_state_dict_from_flax(variables["params"], cfg),
                           strict=True)
-    before = (ffn.LAUNCHES, ffn.F32_LAUNCHES, attention.GENERIC_LAUNCHES)
+    before = (ffn.LAUNCHES, ffn.F32_LAUNCHES, attention.GENERIC_LAUNCHES,
+              attention.TF32_FWD_LAUNCHES)
     y = model(torch.from_numpy(x))
     (y ** 2).sum().backward()
     # the CPU runs the plain versions: no kernel launched
-    assert (ffn.LAUNCHES, ffn.F32_LAUNCHES,
-            attention.GENERIC_LAUNCHES) == before
+    assert (ffn.LAUNCHES, ffn.F32_LAUNCHES, attention.GENERIC_LAUNCHES,
+            attention.TF32_FWD_LAUNCHES) == before
     assert y.dtype == torch.float32 and y.shape == (2, 159, 256)
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
                                rtol=FWD_RTOL, atol=FWD_ATOL)

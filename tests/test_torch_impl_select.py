@@ -5,10 +5,13 @@ The wgmma kernels take bf16 with head dim 64 (flash from
 AUTO_FLASH_MIN_SAMPLES up) and, in their other instances, bf16 at every
 head dim that is a multiple of 8 up to 128 (XLS-R 1B's 80; flash from the
 measured AUTO_WGMMA_OTHER_D_MIN_SAMPLES up, or never where it is None);
-the generic kernels take fp32, and bf16 at any other head dim up to 256
-(`XLSRConfig.tiny()` is fp32 with D = 16), and auto picks them from the
-measured AUTO_GENERIC_MIN_SAMPLES up, or never where it is None; a model
-with D > 256 gets "xla". This holds at both
+the 3xTF32 forward takes fp32 at the head dims of its table
+(`XLSRConfig.tiny()` is fp32 with D = 16, `XLSRConfig(dtype="float32")`
+D = 64), and auto picks it from the measured AUTO_TF32_MIN_SAMPLES up; the
+generic kernels take fp32 at the other head dims, and bf16 at any other
+head dim up to 256, and auto picks them from the measured
+AUTO_GENERIC_MIN_SAMPLES up, or never where it is None; a model with
+D > 256 gets "xla". This holds at both
 places that know the model: the scorers' and the server's
 `make_embed_fn_factory`, and `oc_training`. On the CPU, where "flash" runs
 the plain version at any dtype, auto resolves as before, and a pinned impl
@@ -50,6 +53,11 @@ def _generic_auto(seconds) -> str:
     return _auto(impl_select.AUTO_GENERIC_MIN_SAMPLES, seconds)
 
 
+def _tf32_auto(seconds) -> str:
+    """What auto picks for a bucket of `seconds` on the 3xTF32 route."""
+    return _auto(impl_select.AUTO_TF32_MIN_SAMPLES, seconds)
+
+
 def _other_d_auto(seconds) -> str:
     """What auto picks on the wgmma route at a head dim other than 64."""
     return _auto(impl_select.AUTO_WGMMA_OTHER_D_MIN_SAMPLES, seconds)
@@ -75,11 +83,11 @@ def _factory_impl(monkeypatch, cfg, device, base_impl="auto",
 def test_auto_picks_xla_for_a_cuda_model_the_kernel_cannot_take(
         monkeypatch, cfg, seconds):
     """The models the wgmma kernels' D 64 instance does not take: the
-    generic route's models follow its measured threshold, bf16 at the
-    wgmma route's other head dims (16 here) theirs; a head dim no kernel
-    takes gets "xla" in every bucket."""
+    3xTF32 route's fp32 models (D 16 and 64) follow its measured
+    threshold, bf16 at the wgmma route's other head dims (16 here) theirs;
+    a head dim no kernel takes gets "xla" in every bucket."""
     want = {WIDE_HEAD: "xla",
-            BF16_D16: _other_d_auto(seconds)}.get(cfg, _generic_auto(seconds))
+            BF16_D16: _other_d_auto(seconds)}.get(cfg, _tf32_auto(seconds))
     assert _factory_impl(monkeypatch, cfg, "cuda", seconds=seconds) == want
 
 
@@ -143,19 +151,19 @@ def test_flash_kernel_takes(cfg, device, want):
     elif cfg is BF16_D16:
         assert floor == impl_select.AUTO_WGMMA_OTHER_D_MIN_SAMPLES
     else:
-        assert floor == impl_select.AUTO_GENERIC_MIN_SAMPLES
+        assert floor == impl_select.AUTO_TF32_MIN_SAMPLES
 
 
 @pytest.mark.parametrize("tiny, device, cut, want", [
-    (True, "cuda", 96000, "generic"),  # tiny fp32 D = 16: the generic route
+    (True, "cuda", 96000, "3xtf32"),  # tiny fp32 D = 16: the 3xTF32 route
     (True, "cpu", 96000, "flash"),
     (False, "cuda", 96000, "flash"),
     (False, "cuda", 8000, "xla"),
 ])
 def test_training_cli_resolves_auto_for_its_model_and_device(tiny, device,
                                                              cut, want):
-    if want == "generic":
-        want = _generic_auto(cut / SR)
+    if want == "3xtf32":
+        want = _tf32_auto(cut / SR)
     argv = ["--train_protocol_file", "p", "--train_dataset_dir", "d",
             "--vocoded_dir", "v", "--cut", str(cut)]
     args = oc_training.build_parser().parse_args(

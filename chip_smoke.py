@@ -16,6 +16,7 @@
     python3 chip_smoke.py --orbax-only    # phases 1, 2 and 19 only
     python3 chip_smoke.py --coverage-only # phases 1, 2 and 20 only
     python3 chip_smoke.py --xlsr1b-only   # phases 1, 2 and 21 only
+    python3 chip_smoke.py --wide-head-only  # phases 1, 2 and 22 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -28,9 +29,10 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    of the attention forward, backward dq and backward dk/dv kernels in the
    library's SASS (cuobjdump -sass), and the HMMA (mma.sync) instructions
    of the 3xTF32 attention backward; fails if any of the five, or any
-   instance of the three attention kernels (round_up(D, 16) = 16 .. 128
-   and D 64's) or of the 3xTF32 attention forward (16 .. 128), has no
-   HGMMA, or an instance of the 3xTF32 dq or dk/dv kernel
+   instance of the three attention kernels (round_up(D, 16) = 16 .. 256
+   and D 64's and D 256's; above 128 the dk/dv kernel is the wide one) or
+   of the 3xTF32 attention forward (16 .. 128), has no HGMMA, or an
+   instance of the 3xTF32 dq or dk/dv kernel
    (round_up(D, 16) = 16 .. 128) no HMMA.
 3. kernels, each against its plain PyTorch version on the card on the same
    inputs, with the wrapper's time (CUDA events), the kernel's own device
@@ -225,9 +227,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    no weights read); `parity_gate --xlsr_tiny` on a tiny fairseq .pt and
    an LA-layout tree it writes, every stage PASS and rc 0.
 17. the multi-GPU paths (`occm_tpu_torch.parallel`) on the one card, at
-   full width (AModel(AASISTConfig(), XLSRConfig()), random weights from
-   seed 0, every kernel, fused_adam, AASIST dropouts on, deterministic
-   algorithms): dp=2, fsdp=2 and tp=2 over two rank processes sharing
+   full width and PAR_DEPTH (12) of the 24 layers (AModel(AASISTConfig(),
+   XLSRConfig(encoder_layers=12)), random weights from seed 0, every
+   kernel, fused_adam, AASIST dropouts on, deterministic algorithms): dp=2, fsdp=2 and tp=2 over two rank processes sharing
    cuda:0 over Gloo (NCCL refuses two ranks on one device), step 1 on
    their rows of a global 12 x 6 s batch and step 2 from the single
    process's state after step 1 (its one-GPU checkpoint restored into
@@ -245,7 +247,7 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    "dp2" and "fsdp2" rows). The GPipe pipeline pp=2 with 4 microbatches
    (step 1 and step 2 from the restored one-GPU checkpoint, held as dp
    is; per-layer launches the single process's x M / S, fused_adam once,
-   at a microbatch's shapes; each stage's held bytes about 0.52 of the
+   at a microbatch's shapes; each stage's held bytes 0.5-0.55 of the
    one process's; the bubble) and tp=2 with seq_parallel (one step; its
    encoder held to the single process's and to tp=2's; launches tp=2's,
    the LayerNorm backward on a frame block; step-1 peak memory beside
@@ -253,14 +255,14 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    --pp_microbatches 4` over two ranks sharing cuda:0 (Gloo), whose
    one-GPU checkpoint one process loads with strict=True (NCCL's
    point-to-point path needs two cards and is not run here). pp2s4:
-   pp=2 with pp_stages 4 (each rank two consecutive stages of 6 layers,
+   pp=2 with pp_stages 4 (each rank two consecutive stages of 3 layers,
    the M + S - 1 tick schedule, hand-offs between a rank's own stages
    local), M = 4, one step, its loss equal bit for bit to the one
    process's at pp_stages 4 (both under deterministic algorithms), and
    the checks of pp2 against the one process without the pipeline
    (loss and gradient within LOSS_RTOL, launches, shapes, held bytes,
    Adam's reach).
-   `oc_training --dp 1` in a torchrun
+   `oc_training --dp 1` (at PAR_DEPTH layers) in a torchrun
    environment of world size 1 (NCCL), --steps_per_dispatch 3 with the
    collectives captured in the CUDA graph, bit for bit with 1;
    `oc_classifier --mode 2c2` and `oc_server` with --data_parallel -1
@@ -320,7 +322,7 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    directly on the same inputs as its "was"), the generic attention
    kernels (csrc/flash_attn_generic.cu: bf16 at D 16 / 32 / 80 / 128,
    T 299 / 1500, called directly since the wgmma route takes those, and
-   at D 136, T 299, through the wrappers), the 3xTF32 attention backward
+   at D 132, T 299, through the wrappers), the 3xTF32 attention backward
    (csrc/flash_attn_bwd_3xtf32_dq.cu, _dkv.cu: fp32 at the same shapes,
    B 12, through the wrappers, with the generic pair called directly on
    the same inputs as its "was"), the fp32 FFN kernels
@@ -383,17 +385,36 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    one fused_adam step, utt/s at 1, 2, 6 and 12 s in turns (xla, flash,
    flash + fused FFN: the measurement behind impl_select's threshold for
    this route).
-22. with --profile only: device time by kernel (torch.profiler) for full
+22. bf16 attention at head dims 136-256 (`--wide-head-only`: phases 1, 2
+   and 22; in a full run its kernel checks follow phase 21's and its path
+   phase 21's path): the wgmma instances above D 128 (the forward with two
+   consumer warpgroups, the wide dk/dv kernel) at D 136, 192 and 256,
+   T 201 / 299 / 599 / 1500 (forward B 8, backward B 12, H 16), as phase
+   21 checks its head dims: against their plain versions (phase 3's
+   bounds), against the generic kernels on the same inputs, through the
+   scale-order gate at D 136 and 192, and at D 256 (whose instance scales
+   the logits) the folded instance bit for bit; views = [B*H, T, D] = a
+   repeat bit for bit, two device launches a backward call, autograd at
+   T 299; at T 299 / 1500 wrapper, device, plain, SDPA, the generic
+   kernel's ("was") and bound times. Then XLS-R 300M's widths with 4 heads
+   of 256 (AModel(AASISTConfig(), XLSRConfig(encoder_heads=4)), bf16,
+   flash, fused FFN, LayerNorm kernel, random weights from seed 0), as
+   phase 21's model: 8 x 6 s and 8 x 12 s scored (24 D 256 forward
+   launches a batch, none of D 64's or the generic kernels; within
+   SCORE_RTOL of xla attention and the plain FFN), one eager 12 x 6 s
+   training step against the plain one with launches exact and one
+   fused_adam step, utt/s at 1, 2, 6 and 12 s in turns.
+23. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-23. prints {"kernels": [...]} (each entry of phases 3's kernels with
+24. prints {"kernels": [...]} (each entry of phases 3's kernels with
    phase 15's row at base's shapes under "base" and phase 17's at the
    per-rank shapes under "tp2", "dp2" or "fsdp2", "pp2" and "sp2"; phase
-   20's six entries and phase 21's two with their shapes under
-   "per_shape"), then {"ok": true, "device": {...}} last.
-A full run makes phase 15's, 16's, 17's, 20's and 21's kernel checks
-right after phase 3's, and phases 15 and 16's other parts before phase 14
-(see main).
+   20's six entries and phase 21's and 22's two each with their shapes
+   under "per_shape"), then {"ok": true, "device": {...}} last.
+A full run makes phase 15's, 16's, 17's, 20's, 21's and 22's kernel
+checks right after phase 3's, and phases 15 and 16's other parts before
+phase 14 (see main).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -698,7 +719,9 @@ def phase_build():
     _build.load()
     print(f"[build] {_build.library_path()} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f}"
-          " s)", flush=True)
+          " s; each source's nvcc, s: "
+          f"{ {k: round(v, 1) for k, v in _build.source_seconds.items()} })",
+          flush=True)
     for line in _build.build_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling" in line:
             print(f"[build]   {line.strip()}", flush=True)
@@ -742,16 +765,21 @@ def phase_build():
     print("[build] HGMMA in every instance of the 3xTF32 attention forward",
           flush=True)
     # and every instance of the attention kernels: <NP, fold> for
-    # NP = round_up(D, 16) from 16 to 128 (the scale folded into q), and
-    # <64, false> (D 64, the scale on the logits)
-    instances = [f"ILi{np_}ELb1E" for np_ in range(16, 129, 16)]
-    instances.append("ILi64ELb0E")
+    # NP = round_up(D, 16) from 16 to 256 (the scale folded into q), and
+    # <64, false> and <256, false> (D 64 and 256, the scale on the
+    # logits); the dk/dv kernel above NP 128 is flash_attn_bwd_dkv_wide_
+    # kernel
+    instances = [(np_, 1) for np_ in range(16, 257, 16)] + [(64, 0),
+                                                             (256, 0)]
     for kernel in ("flash_attn_fwd_kernel", "flash_attn_bwd_dq_kernel",
                    "flash_attn_bwd_dkv_kernel"):
-        for tag in instances:
-            if not any(kernel + tag in f for f in hgmma):
-                fail(f"the SASS of {kernel}'s instance {tag} holds no "
-                     f"HGMMA: {sorted(hgmma)}")
+        for np_, fold in instances:
+            name = (kernel.replace("_kernel", "_wide_kernel")
+                    if kernel == "flash_attn_bwd_dkv_kernel" and np_ > 128
+                    else kernel)
+            tag = f"{name}ILi{np_}ELb{fold}E"
+            if not any(tag in f for f in hgmma):
+                fail(f"the SASS of {tag} holds no HGMMA: {sorted(hgmma)}")
     print(f"[build] HGMMA in every instance of the three attention kernels "
           f"({len(instances)} each)", flush=True)
     return hgmma
@@ -2274,24 +2302,37 @@ KERNEL_NAMES = {"flash_attn_fwd": ("flash_attn_fwd_kernel", 1),
 # these four phases took half of a run that must end within its time
 # limit (at 6 layers a full run with phase 21 took 1131.8 s of its 1200
 # on an H100 whose host ran the other phases ~18 % slower than usual).
-# Phases 4-7, 11 and 14-17 keep all 24.
+# Phases 4-7, 11 and 14-16 keep all 24; phase 17 runs PAR_DEPTH.
 DEPTH = 4
+# the XLSR depth of phase 17's meshes, its one-process references, its
+# `oc_training --pp 2` and its NCCL world-size-1 graph: 12 of the 24
+# layers. What they hold (each mesh against the one process, launches,
+# shapes, a graph against eager steps) is the same at any depth, while
+# the state the two ranks build, gather, restore and reduce through the
+# host halves with it: at 24 layers phase 17 took 203 and 253 s of full
+# runs that ended at 1057.8 and 1203.5 s (an H100 whose host ran phases
+# 8-19 15-30 % slower). 12 keeps a pp=2 rank near half the state (about
+# 0.54, the frontend on stage 0; the gate is 0.5-0.55) and divides into
+# pp_stages 4.
+PAR_DEPTH = 12
 
 
-def at_depth(xcfg):
-    """xcfg with DEPTH encoder layers."""
-    return dataclasses.replace(xcfg, encoder_layers=DEPTH)
+def at_depth(xcfg, depth: int = DEPTH):
+    """xcfg with `depth` encoder layers."""
+    return dataclasses.replace(xcfg, encoder_layers=depth)
 
 
 @contextlib.contextmanager
-def cli_at_depth():
+def cli_at_depth(depth: int = DEPTH):
     """Inside the block, oc_training, oc_classifier and oc_server build
-    the XLSRConfig their flags give, at DEPTH encoder layers."""
+    the XLSRConfig their flags give, at `depth` encoder layers."""
     from occm_tpu_torch.cli import oc_server, oc_training
 
     train_cfg, serve_cfg = oc_training.xlsr_config, oc_server.xlsr_config
-    oc_training.xlsr_config = lambda *a, **k: at_depth(train_cfg(*a, **k))
-    oc_server.xlsr_config = lambda *a, **k: at_depth(serve_cfg(*a, **k))
+    oc_training.xlsr_config = lambda *a, **k: at_depth(train_cfg(*a, **k),
+                                                       depth)
+    oc_server.xlsr_config = lambda *a, **k: at_depth(serve_cfg(*a, **k),
+                                                     depth)
     try:
         yield
     finally:
@@ -5983,7 +6024,7 @@ PAR_MESHES = {"dp2": dict(dp=2), "fsdp2": dict(dp=1, fsdp=2),
               "tp2": dict(dp=1, tp=2), "tp2sp": dict(dp=1, tp=2),
               "pp2": dict(dp=1, pp=2), "pp2s4": dict(dp=1, pp=2)}
 PP_STAGES, PP_M = 2, 4  # pp=2 with 4 microbatches of 3 rows
-PP_S4 = 4  # pp2s4: 4 stages of 6 layers on the 2 ranks, two each
+PP_S4 = 4  # pp2s4: 4 stages of 3 layers on the 2 ranks, two each
 #: each mode's XLSRConfig fields beside parallel_configs()'
 PAR_XLSR = {"tp2sp": dict(seq_parallel=True),
             "pp2": dict(pp_stages=PP_STAGES, pp_microbatches=PP_M),
@@ -6001,14 +6042,15 @@ XLSR_HEADS, XLSR_FFN = 16, 4096  # XLSRConfig()'s; tp=2 halves both
 
 
 def parallel_configs():
-    """Phase 17's model and training configs: full width, every kernel
-    (flash attention, the fused FFN, the LayerNorm backward, fused_adam),
-    AASIST's dropouts on (their masks are drawn for the global batch)."""
+    """Phase 17's model and training configs: full width at PAR_DEPTH
+    layers, every kernel (flash attention, the fused FFN, the LayerNorm
+    backward, fused_adam), AASIST's dropouts on (their masks are drawn for
+    the global batch)."""
     from occm_tpu_torch.config import (
         AASISTConfig, RawBoostConfig, TrainConfig, XLSRConfig)
 
-    xcfg = XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
-                      attention_impl="flash")
+    xcfg = at_depth(XLSRConfig(ln_impl="pallas", ffn_impl="pallas",
+                               attention_impl="flash"), PAR_DEPTH)
     cfg = TrainConfig(optimizer="fused_adam", lr=PAR_LR, cut=TRAIN_CUT,
                       compactness_weight=0.1, descriptiveness_weight=0.9,
                       rawboost=RawBoostConfig(algo=0))
@@ -6466,7 +6508,7 @@ def phase_parallel(workdir: str, fixture, ckpt=None):
         ref_steps, names, w, mu = parallel_single(init, batches, workdir)
         _, _, w2, mu2 = parallel_single(init, batches)
         # pp2s4's reference: the one process at pp_stages 4 (its 4
-        # microbatches through all 24 layers in turn), step 1
+        # microbatches through all PAR_DEPTH layers in turn), step 1
         s4_steps = parallel_single(init, batches[:1],
                                    xlsr=PAR_XLSR["pp2s4"])[0]
         enc_ref = encoder_reference(init, batches[0], workdir)
@@ -6745,7 +6787,8 @@ def pp_cli_rank(rank: int, world: int, port: int, workdir: str) -> None:
     reset_counts()
     t0 = time.perf_counter()
     rec = StepRecorder()
-    state = oc_training.main(argv, on_step=rec)
+    with cli_at_depth(PAR_DEPTH):  # the meshes' model
+        state = oc_training.main(argv, on_step=rec)
     with open(os.path.join(workdir, f"pp_cli_rank{rank}.json"), "w") as f:
         json.dump(dict(steps=rec.steps, step=state.step,
                        backend=str(dist.get_backend()),
@@ -6810,7 +6853,7 @@ def phase_pp_cli(workdir: str, ckpt_dir: str, per_step):
     size = os.path.getsize(path)
     t0 = time.perf_counter()
     with torch.device("cuda"):
-        model = AModel(AASISTConfig(), XLSRConfig())
+        model = AModel(AASISTConfig(), at_depth(XLSRConfig(), PAR_DEPTH))
     model.load_state_dict(load_reference_state_dict(path), strict=True)
     load_s = time.perf_counter() - t0
     del model
@@ -6878,9 +6921,10 @@ def phase_nccl_graph(workdir: str, fixture):
             reset_counts()
             rec = StepRecorder()
             t0 = time.perf_counter()
-            state = oc_training.main(argv + ["--checkpoint_dir", d,
-                                             "--steps_per_dispatch", str(k)],
-                                     on_step=rec)
+            with cli_at_depth(PAR_DEPTH):
+                state = oc_training.main(
+                    argv + ["--checkpoint_dir", d, "--steps_per_dispatch",
+                            str(k)], on_step=rec)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = read_counts()
@@ -7648,13 +7692,14 @@ COVERAGE_PATH_KERNELS = ("flash_attn_3xtf32_fwd", "flash_attn_3xtf32_bwd_dq",
 # (dtype, D, H, Ts) of the generic attention checks: fp32 at XLS-R's head
 # dim and at the tiny model's (D 16, H 4), bf16 at head dims other than 64:
 # at D 16, 32, 80 and 128, which the wgmma instances now take, called on
-# the generic kernels directly (the "was" of phase 21's rows); at D 136,
-# still the generic route's, through the wrappers and autograd
+# the generic kernels directly (the "was" of phase 21's rows); at D 132,
+# not a multiple of 8 and so still the generic route's in bf16 (D 136 was
+# until the wgmma instances reached 256), through the wrappers and autograd
 COVERAGE_ATTENTION = (("float32", 64, 16, KERNEL_TS),
                       ("float32", 16, 4, (299,)),
                       *(("bfloat16", d, 16, (299, 1500))
                         for d in (16, 32, 80, 128)),
-                      ("bfloat16", 136, 16, (299,)))
+                      ("bfloat16", 132, 16, (299,)))
 # generic kernels vs their plain version on the same fp32 inputs: the plain
 # version repeats the kernels' arithmetic, so the two differ only by the
 # order of fp32 sums (each of up to T * D products, relative ~1e-7, read
@@ -8747,32 +8792,41 @@ def _rel_l2(a, b) -> float:
                  / b.float().norm().clamp_min(1e-30))
 
 
-def wide_attention_rows():
-    """The wgmma attention kernels at bf16 head dims WIDE_DIMS, T in
-    KERNEL_TS (forward at B 8, backward at B 12, H 16), on [B, T, H, D]
-    views of one projection output and on [B*H, T, D] copies: views, copies
+def wide_attention_rows(dims=WIDE_DIMS, gate_dims=SCALE_GATE_DIMS,
+                        tag="wide"):
+    """The wgmma attention kernels at bf16 head dims `dims` (phase 21:
+    WIDE_DIMS; phase 22: WIDE_HEAD_DIMS), T in KERNEL_TS (forward at B 8,
+    backward at B 12, H 16), on [B, T, H, D] views of one projection
+    output and on [B*H, T, D] copies: views, copies
     and a repeat bit for bit, launches counted on the instance's counters
     (OTHER_D_* off D 64), the backward two device launches a call and
     nothing else, autograd at T 299 (coverage_autograd); each against its
     plain version (phase 3's bounds), against the generic kernels on the same
-    inputs (GENERIC_*), and at SCALE_GATE_DIMS through the scale-order
+    inputs (GENERIC_*), and at `gate_dims` through the scale-order
     gate: the kernel's distance from the plain version (out's relative L2
     and lse's largest difference; each gradient's relative L2) below that
-    of the plain version with the scale on the fp32 logits. Timed at D !=
-    64 and T in WIDE_TIMED_TS: wrapper, device, plain, SDPA (wrapper and
-    device), the generic kernel's wrapper time ("was") and the bound.
-    Returns (forward rows, backward rows)."""
+    of the plain version with the scale on the fp32 logits. At the head
+    dims whose instances scale the logits (LOGITS_SCALE_HEAD_DIMS: 64, 256;
+    the gate cannot tell the two orders apart there) the folded instance
+    of the same round_up(D, 16), called directly, gives the route's out,
+    lse and gradients bit for bit. Timed at D != 64 and T in
+    WIDE_TIMED_TS: wrapper, device, plain, SDPA (wrapper and device), the
+    generic kernel's wrapper time ("was") and the bound. Returns (forward
+    rows, backward rows)."""
     import torch
     import torch.nn.functional as F
 
+    from occm_tpu_torch.ops import attention
     from occm_tpu_torch.ops.attention import (
-        flash_attention_bwd, flash_attention_bwd_reference,
-        flash_attention_fwd, flash_attention_reference)
+        LOGITS_SCALE_HEAD_DIMS, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_attention_fwd,
+        flash_attention_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(21)
     fwd_rows, bwd_rows = [], []
-    for d in WIDE_DIMS:
+    for d in dims:
         other = d != 64
+        exact = d in LOGITS_SCALE_HEAD_DIMS
         fwd_key = "flash_attn_fwd_other_d" if other else "flash_attn_fwd"
         for t in KERNEL_TS:
             for backward in (False, True):
@@ -8826,7 +8880,17 @@ def wide_attention_rows():
                              f"kernel: {vs_generic} (bounds one ulp + "
                              f"{GENERIC_OUT_SLACK_OF_MAX} of the largest "
                              f"|out|, {GENERIC_LSE_ATOL})")
-                    if d in SCALE_GATE_DIMS:
+                    if exact:
+                        f_out, f_lse = attention._tma_fwd(
+                            "occm_flash_attn_fwd", q4, k4, v4, t, True, b,
+                            h, t, d, 1)
+                        if not (torch.equal(f_out, out4)
+                                and torch.equal(f_lse, lse4)):
+                            fail(f"wgmma forward {label}: the folded "
+                                 "instance does not give the bits of the "
+                                 "one that scales the logits")
+                        gate = {"folded_instance_bit_for_bit": True}
+                    if d in gate_dims:
                         v_out, v_lse = plain_scale_on_logits(q, k, v, t)
                         gate = {"kernel": (_rel_l2(out, ref_out),
                                            _abs_err(lse, ref_lse)),
@@ -8879,7 +8943,17 @@ def wide_attention_rows():
                         fail(f"wgmma backward {label} against the generic "
                              f"kernels: {vs_generic} (bound "
                              f"{GENERIC_BWD_RTOL_OF_MAX})")
-                    if d in SCALE_GATE_DIMS:
+                    if exact:
+                        folded = attention._wgmma_bwd(
+                            q4, k4, v4, out4, lse4, do4, t, True, b, h, t, d,
+                            1)
+                        if not all(torch.equal(a, w)
+                                   for a, w in zip(folded, got4)):
+                            fail(f"wgmma backward {label}: the folded "
+                                 "instance does not give the bits of the "
+                                 "one that scales the logits")
+                        gate = {"folded_instance_bit_for_bit": True}
+                    if d in gate_dims:
                         variant = plain_scale_on_logits_bwd(q, k, v, out,
                                                             lse, do, t)
                         gate = {"kernel": tuple(_rel_l2(a, w) for a, w
@@ -8958,7 +9032,7 @@ def wide_attention_rows():
                          f"{row['was_ms']:.4f} ms, bound "
                          f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
                          if timed else "")
-                print(f"[wide] flash_attn_{kind} {label}: against plain "
+                print(f"[{tag}] flash_attn_{kind} {label}: against plain "
                       f"{ {k: f'{e:.3e}' for k, e in errs.items()} }, "
                       f"against generic "
                       f"{ {k: f'{e:.3e}' for k, e in vs_generic.items()} }"
@@ -8980,20 +9054,23 @@ def phase_wide_kernels():
     return {"fwd": fwd, "bwd": bwd}
 
 
-def xlsr1b_model() -> tuple:
-    """XLS-R 1B's widths at full depth through the wgmma attention instance
-    for D 80: AModel(AASISTConfig(), XLSRConfig(**XLSR1B)) in bf16 with
+def model_at_widths(widths=XLSR1B, tag="xlsr1b",
+                    score_rtol=XLSR1B_SCORE_RTOL, seed=21) -> tuple:
+    """A model at published widths (phase 21: XLS-R 1B's, at full depth;
+    phase 22: XLS-R 300M's with 4 heads of 256) through the wgmma
+    attention instance of its head dim (D 80; D 256):
+    AModel(AASISTConfig(), XLSRConfig(**widths)) in bf16 with
     attention_impl="flash", ffn_impl="pallas" and ln_impl="pallas", random
     weights from seed 0 (PyTorch's initialisers, on the card), AASIST's
     dropouts off. Scoring of 8 x 6 s and 8 x 12 s through BucketedEmbedder
-    (48 forward launches of the D 80 instance and 48 ffn_fwd a batch, no
+    (a forward launch of the instance and an ffn_fwd a layer and batch, no
     D 64 or generic launch), the distances to the plain path's mean
     embedding (their differences relative to the embeddings' norms) and
-    the embeddings within XLSR1B_SCORE_RTOL of the same weights on xla
+    the embeddings within `score_rtol` of the same weights on xla
     attention and the plain FFN; one eager 12 x 6 s training step against
     the plain one (loss within LOSS_RTOL; the encoder held: its features
     and its gradient from the plain step's dloss/dfeatures within
-    LOSS_RTOL, relative L2), its launches exact (the D 80 forward twice a
+    LOSS_RTOL, relative L2), its launches exact (the forward twice a
     layer under remat, dq and dk/dv once, layernorm_bwd twice, ffn_fwd
     twice), then one fused_adam step over every leaf (a launch a
     MAX_LEAVES leaves); utt/s
@@ -9012,8 +9089,9 @@ def xlsr1b_model() -> tuple:
     from occm_tpu_torch.ops.fused_adam import MAX_LEAVES, FusedAdam
     from occm_tpu_torch.serve import make_score_fn
 
-    kcfg = XLSRConfig(**XLSR1B, attention_impl="flash", ffn_impl="pallas",
+    kcfg = XLSRConfig(**widths, attention_impl="flash", ffn_impl="pallas",
                       ln_impl="pallas")
+    head_dim = kcfg.encoder_embed_dim // kcfg.encoder_heads
     pcfg = dataclasses.replace(kcfg, attention_impl="xla", ffn_impl="xla",
                                ln_impl="xla")
     layers = kcfg.encoder_layers
@@ -9027,12 +9105,11 @@ def xlsr1b_model() -> tuple:
     out = {"params": n_params, "encoder_params": sum(
         p.numel() for p in model.ssl_model.parameters()),
            "init_s": time.perf_counter() - t0}
-    print(f"[xlsr1b] AModel(AASISTConfig(), XLSRConfig({XLSR1B}, bf16, "
+    print(f"[{tag}] AModel(AASISTConfig(), XLSRConfig({widths}, bf16, "
           f"flash, ffn_impl and ln_impl 'pallas')): {n_params} params "
-          f"({out['encoder_params']} in the encoder), head dim "
-          f"{kcfg.encoder_embed_dim // kcfg.encoder_heads}, init "
-          f"{out['init_s']:.1f} s", flush=True)
-    rng = np.random.default_rng(21)
+          f"({out['encoder_params']} in the encoder), head dim {head_dim}, "
+          f"init {out['init_s']:.1f} s", flush=True)
+    rng = np.random.default_rng(seed)
     total = {}
 
     def add(counts):
@@ -9058,7 +9135,7 @@ def xlsr1b_model() -> tuple:
         want = {"flash_attn_fwd_other_d": layers, "ffn_fwd": layers,
                 "flash_attn_fwd": 0, "flash_attn_generic_fwd": 0}
         if any(counts[k] != n for k, n in want.items()):
-            fail(f"XLS-R 1B scoring 8 x {sec} s: launches {counts}, want "
+            fail(f"{tag} scoring 8 x {sec} s: launches {counts}, want "
                  f"{want}")
         ref = emb_p.mean(0, keepdims=True)
         d_k = np.linalg.norm(emb_k - ref, axis=1)
@@ -9070,19 +9147,19 @@ def xlsr1b_model() -> tuple:
             distance_max_diff_of_norm=rel, emb_rel_l2=emb_rel,
             distance_max_rel=float((np.abs(d_k - d_p) / d_p).max()),
             plain_distances_of_norm=(d_p / norms).tolist(), launches=want)
-        print(f"[xlsr1b] scoring 8 x {sec} s through BucketedEmbedder: "
-              f"{layers} D 80 forward and {layers} ffn_fwd launches, no D 64 "
-              f"or generic one; distances to the plain path's mean "
+        print(f"[{tag}] scoring 8 x {sec} s through BucketedEmbedder: "
+              f"{layers} D {head_dim} forward and {layers} ffn_fwd launches, "
+              f"no D 64 or generic one; distances to the plain path's mean "
               f"embedding: largest difference {rel:.3e} of the embedding's "
               f"norm, embeddings rel L2 {emb_rel:.3e} (bound "
-              f"{XLSR1B_SCORE_RTOL}); the plain distances "
+              f"{score_rtol}); the plain distances "
               f"{(d_p / norms).min():.3e}-{(d_p / norms).max():.3e} of the "
               f"norm, their largest relative difference "
               f"{scoring[sec]['distance_max_rel']:.3e} (printed)",
               flush=True)
-        if not (np.isfinite(logits_k).all() and rel <= XLSR1B_SCORE_RTOL
-                and emb_rel <= XLSR1B_SCORE_RTOL):
-            fail(f"XLS-R 1B scoring 8 x {sec} s: kernels against plain "
+        if not (np.isfinite(logits_k).all() and rel <= score_rtol
+                and emb_rel <= score_rtol):
+            fail(f"{tag} scoring 8 x {sec} s: kernels against plain "
                  f"{scoring[sec]}")
     out["scoring"] = scoring
 
@@ -9133,7 +9210,7 @@ def xlsr1b_model() -> tuple:
             "flash_attn_bwd_dq": 0, "flash_attn_generic_fwd": 0,
             "flash_attn_generic_bwd_dq": 0}
     if any(counts[k] != n for k, n in want.items()):
-        fail(f"XLS-R 1B training step: launches {counts}, want {want}")
+        fail(f"{tag} training step: launches {counts}, want {want}")
     finite = all(bool(torch.isfinite(p).all()) for p in params)
     train = dict(loss=loss_k, plain_loss=loss_p,
                  feats_rel_l2=_rel_l2(f_k, f_p),
@@ -9141,13 +9218,13 @@ def xlsr1b_model() -> tuple:
                  ms=ms_k, plain_ms=ms_p, launches=want,
                  params_finite_after_adam=finite)
     out["train"] = train
-    print(f"[xlsr1b] training step 12 x 6 s (eager, all {layers} layers), "
+    print(f"[{tag}] training step 12 x 6 s (eager, all {layers} layers), "
           f"then one fused_adam step: {train}", flush=True)
     if not (math.isfinite(loss_k) and finite
             and abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p)
             and train["feats_rel_l2"] <= LOSS_RTOL
             and train["encoder_grad_rel_l2"] <= LOSS_RTOL):
-        fail(f"XLS-R 1B training step: kernels against plain {train}")
+        fail(f"{tag} training step: kernels against plain {train}")
     del enc_p, enc_k, f_p, f_k, up_p, opt
     model.zero_grad(set_to_none=True)
     model.eval()
@@ -9172,15 +9249,15 @@ def xlsr1b_model() -> tuple:
                                        for _ in range(8)])).to(DEVICE)
         row = dict(seconds=sec, **utt_per_s(fns, x))
         speed.append(row)
-        print(f"[xlsr1b] scoring utt/s, batch 8 x {sec} s, in turns: "
+        print(f"[{tag}] scoring utt/s, batch 8 x {sec} s, in turns: "
               + ", ".join(f"{k} {v:.2f}" for k, v in row.items()
                           if isinstance(v, float)), flush=True)
     wins = [r["seconds"] for r in speed if r["flash"] > r["xla"]]
     out["speed"] = dict(rows=speed, flash_wins_at_s=wins,
                         auto_min_samples=auto_flash_min_samples(kcfg, DEVICE))
-    print(f"[xlsr1b] flash (D 80 instance) beats xla at {wins} s; auto's "
-          f"threshold for the model: {out['speed']['auto_min_samples']} "
-          "samples", flush=True)
+    print(f"[{tag}] flash (D {head_dim} instance) beats xla at {wins} s; "
+          f"auto's threshold for the model: "
+          f"{out['speed']['auto_min_samples']} samples", flush=True)
     del model, fns
     gc.collect()
     torch.cuda.empty_cache()
@@ -9189,11 +9266,11 @@ def xlsr1b_model() -> tuple:
 
 def phase_xlsr1b() -> tuple:
     """Phase 21's path after its kernel checks: XLS-R 1B's widths
-    (xlsr1b_model). The counts are set to 0 before the path and read after
-    it; each kernel of the path must have launched. Returns (the path's
-    counts, the results)."""
+    (model_at_widths). The counts are set to 0 before the path and read
+    after it; each kernel of the path must have launched. Returns (the
+    path's counts, the results)."""
     t0 = time.perf_counter()
-    counts, out = xlsr1b_model()
+    counts, out = model_at_widths()
     for key in (*WIDE_KERNEL_NAMES, "ffn_fwd", "layernorm_bwd",
                 "fused_adam"):
         if not counts.get(key):
@@ -9241,6 +9318,98 @@ def wide_kernel_line(rows, launches):
          "launches": launches["flash_attn_bwd_other_d_dq"],
          "launches_dkv": launches["flash_attn_bwd_other_d_dkv"],
          "shape": f"[B={TRAIN_B}, T={bwd['T']}, H={H}, D=80] bf16 views",
+         "max_abs_err": max(r["max_abs_err"] for r in rows["bwd"]),
+         **{k: bwd[k] for k in keys},
+         "library": "SDPA forward + backward minus forward, bf16",
+         "was": "the generic kernels, csrc/flash_attn_generic.cu",
+         "per_shape": rows["bwd"]},
+    ]
+
+
+# --------------------------------------------------------------- phase 22
+
+# bf16 head dims above 128 of phase 22's kernel checks, each at every T of
+# KERNEL_TS and timed at WIDE_TIMED_TS: round_up(D, 16) 144 and 192 fold
+# the scale into q (through the scale-order gate), D 256 scales the logits
+# (its scale 2^-4 is exact: the folded instance <256> gives its bits). The
+# wide dk/dv kernel and the two-warpgroup forward run at all three.
+WIDE_HEAD_DIMS = (136, 192, 256)
+WIDE_HEAD_GATE_DIMS = (136, 192)
+# XLS-R 300M's published widths (XLSRConfig(): 24 layers, d 1024, FFN
+# 4096, fairseq xlsr_53 / xls_r_300m) with 4 heads of 256 in place of its
+# 16 of 64: the wide instances at the 300M model's width and depth, held
+# to SCORE_RTOL (SCORE_RTOL's argument is that of 24 layers)
+XLSR300M_D256 = dict(encoder_heads=4)
+
+
+def phase_wide_head_kernels():
+    """Phase 22's kernel checks (in a full run right after phase 21's): the
+    wgmma attention instances at bf16 head dims 136, 192 and 256
+    (wide_attention_rows at WIDE_HEAD_DIMS)."""
+    t0 = time.perf_counter()
+    fwd, bwd = wide_attention_rows(WIDE_HEAD_DIMS, WIDE_HEAD_GATE_DIMS,
+                                   tag="wide-head")
+    print(f"[wide-head] phase 22's kernel checks: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def phase_wide_head() -> tuple:
+    """Phase 22's path after its kernel checks: XLS-R 300M's widths with 4
+    heads of 256 (model_at_widths at XLSR300M_D256, SCORE_RTOL). The counts
+    are set to 0 before the path and read after it; each kernel of the path
+    must have launched, and none of D 64's or the generic route's
+    (model_at_widths's launch gates). Returns (the path's counts, the
+    results)."""
+    t0 = time.perf_counter()
+    counts, out = model_at_widths(XLSR300M_D256, "wide-head", SCORE_RTOL,
+                                  22)
+    for key in (*WIDE_KERNEL_NAMES, "ffn_fwd", "layernorm_bwd",
+                "fused_adam"):
+        if not counts.get(key):
+            fail(f"phase 22's path never launched {key}: {counts}")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[wide-head] phase 22's path: {out['wall_s']:.1f} s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return counts, out
+
+
+def wide_head_kernel_line(rows, launches):
+    """Phase 22's {"kernels": [...]} entries: the wgmma attention instances
+    at bf16 head dims 136-256, forward and backward, their head row at
+    D 256, T 299 ([B=8, T=299, H=16, D=256] forward, B 12 backward), every
+    row under "per_shape". `launches` come from phase 22's path (the
+    OTHER_D_* counters, which phase 21's entries read from phase 21's
+    path), 0 with --kernels-only."""
+
+    def head(kind):
+        return next(r for r in rows[kind]
+                    if r["D"] == 256 and r["T"] == MAIN_PATH_TS[0])
+
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "was_ms")
+    fwd, bwd = head("fwd"), head("bwd")
+    replaced = "occm_tpu/ops/attention.py:"
+    return [
+        {"name": "flash_attn_fwd_wide_head", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/flash_attn_fwd.cu",
+         "replaces": f"{replaced}45 (_fwd_kernel), {replaced}234 "
+                     "(_blocked_fwd_kernel), in bf16 at head dims 136-256",
+         "launches": launches["flash_attn_fwd_other_d"],
+         "shape": f"[B={B}, T={fwd['T']}, H={H}, D=256] bf16 views",
+         "max_abs_err": max(r["max_abs_err"] for r in rows["fwd"]),
+         **{k: fwd[k] for k in keys},
+         "library": "SDPA, bf16",
+         "was": "the generic kernel, csrc/flash_attn_generic.cu",
+         "per_shape": rows["fwd"]},
+        {"name": "flash_attn_bwd_wide_head", "route": "cuda",
+         "source": "occm_tpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": f"{replaced}79 (_bwd_kernel), {replaced}350 "
+                     f"(_blocked_dq_kernel), {replaced}373 "
+                     "(_blocked_dkv_kernel), in bf16 at head dims 136-256",
+         "launches": launches["flash_attn_bwd_other_d_dq"],
+         "launches_dkv": launches["flash_attn_bwd_other_d_dkv"],
+         "shape": f"[B={TRAIN_B}, T={bwd['T']}, H={H}, D=256] bf16 views",
          "max_abs_err": max(r["max_abs_err"] for r in rows["bwd"]),
          **{k: bwd[k] for k in keys},
          "library": "SDPA forward + backward minus forward, bf16",
@@ -9515,6 +9684,13 @@ def main(argv=None) -> int:
                          "the generic kernels, XLS-R 1B's widths at full "
                          "depth (D 80): scoring, a training step, utt/s); "
                          "prints no kernels line")
+    ap.add_argument("--wide-head-only", action="store_true",
+                    help="run phases 1, 2 and 22 only (device, build, the "
+                         "wgmma attention kernels at bf16 head dims 136, "
+                         "192 and 256: checks against their plain versions "
+                         "and the generic kernels, XLS-R 300M's widths "
+                         "with 4 heads of 256: scoring, a training step, "
+                         "utt/s); prints no kernels line")
     ap.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD",
                                                           "PORT", "WORKDIR"),
                     help=argparse.SUPPRESS)  # phase 17's rank processes
@@ -9538,7 +9714,8 @@ def main(argv=None) -> int:
     if (args.controls_only or args.rawboost_only or args.models_only
             or args.remat_only or args.native_only or args.base_only
             or args.int8_only or args.parallel_only or args.extras_only
-            or args.orbax_only or args.coverage_only or args.xlsr1b_only):
+            or args.orbax_only or args.coverage_only or args.xlsr1b_only
+            or args.wide_head_only):
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -9577,6 +9754,11 @@ def main(argv=None) -> int:
                 counts, wide = phase_xlsr1b()
                 result = {"xlsr1b": dict(wide, kernels=rows,
                                          launches=counts)}
+            elif args.wide_head_only:
+                rows = phase_wide_head_kernels()
+                counts, wide = phase_wide_head()
+                result = {"wide_head": dict(wide, kernels=rows,
+                                            launches=counts)}
             elif args.orbax_only:
                 model, ckpt = build_seed_model(workdir)
                 del model
@@ -9609,6 +9791,8 @@ def main(argv=None) -> int:
     cov_rows = phase_coverage_kernels()
     # phase 21's: the wgmma attention kernels at head dims other than 64
     wide_rows = phase_wide_kernels()
+    # phase 22's: the same kernels at bf16 head dims 136-256
+    wide_head_rows = phase_wide_head_kernels()
     # phase 15's kernel checks here, beside phase 3's: late in a full run
     # (after phases 4-13's graphs and profiled CLI runs) torch.profiler on
     # the H100 came back with too few device events in every repeat of a
@@ -9627,6 +9811,7 @@ def main(argv=None) -> int:
     graph_launches = dict.fromkeys(launches, 0)
     cov_launches = dict.fromkeys(COVERAGE_KERNEL_NAMES, 0)
     wide_launches = dict.fromkeys(WIDE_KERNEL_NAMES, 0)
+    wide_head_launches = dict.fromkeys(WIDE_KERNEL_NAMES, 0)
     if not args.kernels_only:
         from occm_tpu_torch.ops import _build
 
@@ -9660,6 +9845,10 @@ def main(argv=None) -> int:
             w_counts, xlsr1b = phase_xlsr1b()
             for name in wide_launches:
                 wide_launches[name] = w_counts[name]
+            # phase 22's path: XLS-R 300M's widths on the D 256 instances
+            h_counts, wide_head = phase_wide_head()
+            for name in wide_head_launches:
+                wide_head_launches[name] = h_counts[name]
             control_counts, replayed, controls = phase_train_controls(
                 workdir, fixture)
             rb_counts, rb_replayed, rawboost = phase_rawboost_all(workdir,
@@ -9720,17 +9909,19 @@ def main(argv=None) -> int:
         print(f"[orbax] {json.dumps(orbax_out, default=str)}", flush=True)
         print(f"[coverage] {json.dumps(coverage, default=str)}", flush=True)
         print(f"[xlsr1b] {json.dumps(xlsr1b, default=str)}", flush=True)
+        print(f"[wide-head] {json.dumps(wide_head, default=str)}",
+              flush=True)
         # phase 17's path: the ranks', the NCCL run's and the scoring runs'
         # and phase 19's: scoring, serving and training from a directory
-        # and phase 21's: XLS-R 1B's step runs the FFN, LayerNorm and Adam
-        # kernels too
-        for counts in (p_counts, o_counts, w_counts):
+        # and phase 21's and 22's: their steps run the FFN, LayerNorm and
+        # Adam kernels too
+        for counts in (p_counts, o_counts, w_counts, h_counts):
             for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
                          "ffn_fwd"):
                 launches[name] += counts[name]
             launches["flash_attn_bwd"] += counts["flash_attn_bwd_dq"]
 
-    print(f"[smoke] phases 1-21 took {time.perf_counter() - t_run:.1f} s",
+    print(f"[smoke] phases 1-22 took {time.perf_counter() - t_run:.1f} s",
           flush=True)
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,
@@ -9751,6 +9942,7 @@ def main(argv=None) -> int:
                 entry[key] = rows[entry["name"]]
     kernels += coverage_kernel_line(cov_rows, cov_launches)
     kernels += wide_kernel_line(wide_rows, wide_launches)
+    kernels += wide_head_kernel_line(wide_head_rows, wide_head_launches)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

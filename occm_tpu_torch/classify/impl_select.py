@@ -9,7 +9,7 @@ device the threshold depends on the kernels that take the model
 (`ops.attention.cuda_route`): the wgmma kernels at head dim 64 (bf16) from
 AUTO_FLASH_MIN_SAMPLES up, under exact and fast numerics alike; their
 instances at the other head dims they take (bf16, multiples of 8 up to
-128: XLS-R 1B's D 80) from AUTO_WGMMA_OTHER_D_MIN_SAMPLES up; the 3xTF32
+256: XLS-R 1B's D 80) from AUTO_WGMMA_OTHER_D_MIN_SAMPLES up; the 3xTF32
 forward (fp32 at the head dims of `ops.attention.TF32_FWD_HEAD_DIMS`:
 `XLSRConfig(dtype="float32")`'s D 64, `XLSRConfig.tiny()`'s D 16) from
 AUTO_TF32_MIN_SAMPLES up; the generic kernels (fp32 at any other head dim,
@@ -80,7 +80,13 @@ AUTO_GENERIC_MIN_SAMPLES: Optional[int] = 2 * SR
 #: A batch took 61-110 ms from 1 s to 12 s (12x the frames), so the eager
 #: forward was bound by the host there, not by the attention (the D 80
 #: kernel's device time is within 1.3x of SDPA's); at head dim 64 (XLS-R
-#: 300M) flash won from 1 s.
+#: 300M) flash won from 1 s. The instances above D 128 (phase 22: XLS-R
+#: 300M's widths with 4 heads of 256, the same measurement, two runs) led
+#: in no bucket in both runs, so the threshold holds for them too:
+#:     1 s  145.97, 141.45; 199.50, 196.79
+#:     2 s  167.23, 139.74; 217.77, 200.55
+#:     6 s  172.37, 146.26; 208.22, 191.95
+#:    12 s  157.24, 160.63; 203.10, 191.28
 AUTO_WGMMA_OTHER_D_MIN_SAMPLES: Optional[int] = None
 
 #: Bucket sample-count at and above which "flash" replaces "xla" for an fp32

@@ -7,14 +7,22 @@
 //
 // Head dims: the kernels are templates over NP = round_up(D, 16), the
 // columns their products run over, for every D that is a multiple of 8
-// from 8 to 128. A tile holds ceil(NP / 64) panels of 64 rows x 64 columns
+// from 8 to 256. A tile holds ceil(NP / 64) panels of 64 rows x 64 columns
 // (8 KB each, one 128-byte swizzle span a row); TMA zero-fills the columns
 // D..64 * panels - 1 of each tile, so they add nothing to a product. A
 // product over D (q k^T, dO v^T) is NP / 16 k-steps, four to a panel; a
 // product whose N is D (P v, dS k, P^T dO, dS^T q) is one wgmma m64nNPk16
 // a k-step with its MN-major B operand spanning the panels through the
 // descriptor's leading byte offset (the panel stride), as FlashAttention-3
-// spans D 128. D = 64 is one panel and m64n64k16 throughout.
+// spans D 128, or above NP 128 two of them (wgmma_rs_np: the first two
+// panels at N 128, the rest at N NP - 128). D = 64 is one panel and
+// m64n64k16 throughout.
+//
+// The scale 1/sqrt(D): the instances <NP, true> fold it into q in fp32
+// before the bf16 cast, as the TPU kernels do; <64, false> and <256, false>
+// keep the unscaled q and scale the fp32 logits, which gives the same bits
+// where the scale is a power of two (2^-3, 2^-4), and saves the backward
+// its folded-q scratch tensor (for_instance).
 
 #pragma once
 
@@ -29,10 +37,10 @@ constexpr int kPanelCols = 64;  // bf16 columns of a 128-byte swizzle panel
 constexpr int kPanelBytes = kTileRows * kPanelCols * 2;  // 8 KB
 
 // The tile geometry of head dims padded to NP columns (NP a multiple of 16,
-// 16..128).
+// 16..256).
 template <int NP>
 struct HeadDim {
-  static_assert(NP % 16 == 0 && NP >= 16 && NP <= 128, "NP: 16..128 by 16");
+  static_assert(NP % 16 == 0 && NP >= 16 && NP <= 256, "NP: 16..256 by 16");
   static constexpr int kPanels = (NP + kPanelCols - 1) / kPanelCols;
   static constexpr int kTileBytes = kPanels * kPanelBytes;
   static constexpr int kKSteps = NP / 16;  // k16 steps of a product over D
@@ -248,6 +256,22 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x NP] += A[64 x 16] B[16 x NP] as wgmma_rs, for NP = 16..256 by 16:
+// one wgmma up to N 128; above it two, the first 128 columns (panels 0-1,
+// registers 0-63) and the other NP - 128 (from panel 2 on, registers 64..),
+// which together are the fragment of m64nNPk16. Both read the same A.
+template <int NP>
+__device__ __forceinline__ void wgmma_rs_np(float (&d)[NP / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (NP <= 128) {
+    wgmma_rs<NP>(d, a, db);
+  } else {
+    wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(&d[0]), a, db);
+    wgmma_rs<NP - 128>(*reinterpret_cast<float(*)[NP / 2 - 64]>(&d[64]), a,
+                       db + 2 * kPanelBytes / 16);
+  }
+}
 
 // The accumulator fragment of wgmma m64nNk16 (fp32): register i of a thread
 // holds row warp * 16 + lane / 4 + 8 * row_half(i), column col(i).
@@ -356,26 +380,63 @@ inline bool bad_strides(const void* p, long long sb, long long st,
          sh <= 0 || (sb | st | sh) & 7;
 }
 
-// Whether the wgmma kernels take head dim d: a multiple of 8 from 8 to 128.
-inline bool head_dim_ok(int d) { return d >= 8 && d <= 128 && d % 8 == 0; }
+// Whether the wgmma kernels take head dim d: a multiple of 8 from 8 to
+// max_d (256 for bf16, 128 for the 3xTF32 forward).
+inline bool head_dim_ok(int d, int max_d = 256) {
+  return d >= 8 && d <= max_d && d % 8 == 0;
+}
 
 template <int NP>
 using Np = std::integral_constant<int, NP>;
 
+// f(Np<NP>{}) where NP <= kMaxNP, else cudaErrorInvalidValue (never
+// reached past head_dim_ok), so that no instance above kMaxNP is compiled.
+template <int NP, int kMaxNP, typename F>
+int instance_upto(F& f) {
+  if constexpr (NP <= kMaxNP)
+    return f(Np<NP>{});
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
 // f(Np<round_up(d, 16)>{}): the instance of a head dim that head_dim_ok
-// takes.
-template <typename F>
+// takes, compiled for NP up to kMaxNP.
+template <int kMaxNP = 256, typename F>
 int for_head_dim(int d, F f) {
   switch ((d + 15) / 16 * 16) {
-    case 16: return f(Np<16>{});
-    case 32: return f(Np<32>{});
-    case 48: return f(Np<48>{});
-    case 64: return f(Np<64>{});
-    case 80: return f(Np<80>{});
-    case 96: return f(Np<96>{});
-    case 112: return f(Np<112>{});
-    default: return f(Np<128>{});
+    case 16: return instance_upto<16, kMaxNP>(f);
+    case 32: return instance_upto<32, kMaxNP>(f);
+    case 48: return instance_upto<48, kMaxNP>(f);
+    case 64: return instance_upto<64, kMaxNP>(f);
+    case 80: return instance_upto<80, kMaxNP>(f);
+    case 96: return instance_upto<96, kMaxNP>(f);
+    case 112: return instance_upto<112, kMaxNP>(f);
+    case 128: return instance_upto<128, kMaxNP>(f);
+    case 144: return instance_upto<144, kMaxNP>(f);
+    case 160: return instance_upto<160, kMaxNP>(f);
+    case 176: return instance_upto<176, kMaxNP>(f);
+    case 192: return instance_upto<192, kMaxNP>(f);
+    case 208: return instance_upto<208, kMaxNP>(f);
+    case 224: return instance_upto<224, kMaxNP>(f);
+    case 240: return instance_upto<240, kMaxNP>(f);
+    case 256: return instance_upto<256, kMaxNP>(f);
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Whether head dim d takes the instance that scales the fp32 logits
+// (fold = false): d 64 and 256, whose scales 2^-3 and 2^-4 give the folded
+// q's bits.
+inline bool logits_instance(int d) { return d == 64 || d == 256; }
+
+// f(Np<NP>{}, std::bool_constant<fold>{}): the instance of head dim d, the
+// scale folded into q (fold) or on the logits (where logits_instance(d)).
+template <typename F>
+int for_instance(int d, bool fold, F f) {
+  if (!fold)
+    return d == 64 ? f(Np<64>{}, std::false_type{})
+                   : f(Np<256>{}, std::false_type{});
+  return for_head_dim(d, [&](auto np) { return f(np, std::true_type{}); });
 }
 
 // The shared memory of a launch rounded up to the 128-byte swizzle's

@@ -1,6 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 in, fp32 softmax,
 // wgmma fed by TMA, at every head dim D that is a multiple of 8 from 8 to
-// 128.
+// 256.
 //
 // Replaces two TPU Pallas kernels of occm_tpu/ops/attention.py, which compute
 // the same function and differ only in how they fit the TPU's VMEM:
@@ -11,10 +11,11 @@
 //   - q k^T accumulated in fp32 on the tensor cores from bf16(q * scale):
 //     the TPU kernels (attention.py:64, :253) and the plain version fold
 //     the scale into q in fp32 and round to bf16 before the product. The
-//     instances at D != 64 do the same on the q tile in shared memory
-//     (fold_scale). The D = 64 instance keeps the unscaled q and scales the
-//     fp32 logits: its scale is 2^-3, so bf16(q * 2^-3) = bf16(q) * 2^-3
-//     exactly and the logits are the same bits;
+//     instances at D other than 64 and 256 do the same on the q tile in
+//     shared memory (fold_scale). The D = 64 and D = 256 instances keep the
+//     unscaled q and scale the fp32 logits: their scales are 2^-3 and 2^-4,
+//     so bf16(q * 2^-3) = bf16(q) * 2^-3 exactly and the logits are the
+//     same bits;
 //   - an online softmax in fp32 over kv tiles of 64 keys, in base 2: the
 //     logits' scale and log2(e) are one multiplier and the exponent is
 //     exp2f;
@@ -26,29 +27,39 @@
 // Layout: q, k, v are [B, T, H, D] with any strides for B, T and H (16-byte
 // multiples) and D contiguous: the projections' output, read where they
 // leave it through 4-d TMA maps of (D, H, T, B) with (64, 1, 64, 1) boxes,
-// one box a 64-column panel (attention_sm90.cuh: D > 64 is two panels, the
+// one box a 64-column panel (attention_sm90.cuh: ceil(D / 64) panels, the
 // columns past D zero-filled). out is written contiguous as [B, T, H, D],
 // so [B, T, H * D] is a view of it; lse is [B * H, T] fp32. The [BH, T, D]
 // layout is the case B = BH, H = 1.
 //
-// Block: 64 q rows of one (b, h), 160 threads. Warp 4 is the producer: one
-// thread loads the q tile once and the k and v tiles (64 keys x D) into a
-// ring of kStages stages by TMA, 128-byte swizzle, with full/empty
-// mbarriers; TMA zero-fills rows past T. Warps 0-3 are one consumer
-// warpgroup (NP = round_up(D, 16)):
+// Block: 64 q rows of one (b, h), 160 threads (up to D 128). Warp 4 is the
+// producer: one thread loads the q tile once and the k and v tiles (64
+// keys x D) into a ring of kStages stages by TMA, 128-byte swizzle, with
+// full/empty mbarriers; TMA zero-fills rows past T. Warps 0-3 are one
+// consumer warpgroup (NP = round_up(D, 16)):
 //   S = q k^T  is NP / 16 wgmma m64n64k16 with q and k as K-major operands,
 //              as they are stored;
 //   P v        is 4 wgmma m64nNPk16 with P from registers (the S accumulator
 //              fragment rounded to bf16 is the A fragment, as in
 //              FlashAttention-3) and v as an MN-major B operand (the
 //              transpose bit), so v is never transposed through shared
-//              memory.
+//              memory; above NP 128 each is two, of N 128 and NP - 128.
 // The key mask runs only on a tile that reaches t_valid. Several blocks
-// share an SM (about 42 KB of shared memory each at D <= 64, 82 KB above,
-// registers capped for three, or two above D 64), so one block's softmax
-// overlaps another's wgmma. The epilogue stages bf16 out through the q
-// tile's shared memory in TMA's swizzle and writes it with one TMA store a
-// panel, which clips rows past T and columns past D.
+// share an SM (about 42 KB of shared memory each at D <= 64, 82 KB at
+// D <= 128, registers capped for three, or two above D 64), so one block's
+// softmax overlaps another's wgmma. Above D 128 the tiles are three panels
+// (24 KB) or four (32 KB), one block fills the SM, and a block is two
+// consumer warpgroups of 64 q rows each (128 rows, 384 threads: FwdBlock)
+// that share the k/v ring (144 or 192 KB with both q tiles), so that one
+// warpgroup's softmax overlaps the other's wgmma and each k/v tile is
+// loaded once for 128 rows; each holds the NP / 2 fp32 of its O
+// accumulator in up to 240 registers a thread. On an H100 80GB HBM3 at
+// 700 W that took the forward at B 8, H 16, T 1500 from 0.75 to 0.47 ms at
+// D 136 and from 0.75 to 0.54 ms at D 256 against one warpgroup a block
+// (probe_wide_head.py, CUDA events; PERF.md).
+// The epilogue stages bf16 out through each warpgroup's q tile's shared
+// memory in TMA's swizzle and writes it with one TMA store a panel, which
+// clips rows past T and columns past D.
 //
 // What bounds it on an H100: at the serving shapes (B*H = 128, T = 299 or
 // 599, D = 64) the work is 4*BH*T*T*D flops (2.9 and 11.8 GFLOP) against
@@ -68,26 +79,40 @@
 
 namespace {
 
-constexpr int kBM = kTileRows;  // q rows per block: one consumer warpgroup
 constexpr int kBN = kTileRows;  // keys per kv tile
 constexpr int kStages = 2;      // k/v ring depth
-constexpr int kThreads = 160;   // warpgroup 0 computes, warp 4 loads
 constexpr float kMasked = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
+// consumer warpgroups of a block above D 128 (one below): each takes 64 q
+// rows against the one k/v ring
+constexpr int kWideGroups = 2;
 
-// q tile, then per stage a k and a v tile, + 1 KB to align the tiles to the
-// 128-byte swizzle's 1024-byte period, + the mbarriers
+// The block of the instance for NP: kGroups consumer warpgroups of 64 q
+// rows. One group: 160 threads, warp 4 the producer. Two: 384 threads,
+// warpgroup 2 the producer's (warp 8 loads, warps 9-11 idle), there for the
+// registers: warp w runs on the register-file slice w % 4, so a block of 9
+// warps would get 168 registers a thread; with three warpgroups the
+// producer's gives its registers up (setmaxnreg) and the consumers take
+// 240, as FlashAttention-3 does.
 template <int NP>
-constexpr int fwd_smem() {
-  return (1 + 2 * kStages) * HeadDim<NP>::kTileBytes + 1024 +
-         (2 * kStages + 1) * 8;
-}
+struct FwdBlock {
+  static constexpr int kGroups = HeadDim<NP>::kPanels > 2 ? kWideGroups : 1;
+  static constexpr int kThreads = kGroups == 1 ? 160 : 384;
+  static constexpr int kRows = kGroups * kTileRows;
+  // the q tiles, then per stage a k and a v tile, + 1 KB to align the
+  // tiles to the 128-byte swizzle's 1024-byte period, + the mbarriers
+  static constexpr int kSmem =
+      (kGroups + 2 * kStages) * HeadDim<NP>::kTileBytes + 1024 +
+      (2 * kStages + 1) * 8;
+  static constexpr int kMinBlocks =
+      HeadDim<NP>::kPanels == 1 ? 3 : HeadDim<NP>::kPanels == 2 ? 2 : 1;
+};
 
-// grid (ceil(T / 64), H, B). kFold: the scale is folded into the q tile
-// (bf16(q * scale)) and the logits are not scaled; otherwise (D = 64 only)
-// the fp32 logits are scaled.
+// grid (ceil(T / (64 * kGroups)), H, B). kFold: the scale is folded into
+// the q tile (bf16(q * scale)) and the logits are not scaled; otherwise
+// (D 64 and 256 only) the fp32 logits are scaled.
 template <int NP, bool kFold>
-__global__ void __launch_bounds__(kThreads, HeadDim<NP>::kPanels == 1 ? 3 : 2)
+__global__ void __launch_bounds__(FwdBlock<NP>::kThreads,
+                                  FwdBlock<NP>::kMinBlocks)
 flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
                       const __grid_constant__ CUtensorMap tma_k,
                       const __grid_constant__ CUtensorMap tma_v,
@@ -96,15 +121,16 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
                       float scale, float scale_log2) {
   using HD = HeadDim<NP>;
   constexpr int kTileBytes = HD::kTileBytes;
+  constexpr int kGroups = FwdBlock<NP>::kGroups;
+  constexpr int kConsumers = 128 * kGroups;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  unsigned char* sq = smem;  // the q tile, then the epilogue's out tile
   uint64_t* full =
-      reinterpret_cast<uint64_t*>(smem + (1 + 2 * kStages) * kTileBytes);
+      reinterpret_cast<uint64_t*>(smem + (kGroups + 2 * kStages) * kTileBytes);
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
 
-  const int q0 = blockIdx.x * kBM;
+  const int q0 = blockIdx.x * FwdBlock<NP>::kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int n_tiles = (t_valid + kBN - 1) / kBN;
@@ -112,25 +138,29 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+      mbar_init(&empty[s], 4 * kGroups);  // lane 0 of each consumer warp
     }
     mbar_init(q_full, 1);
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (threadIdx.x >= 128) {
+  if (threadIdx.x >= kConsumers) {
+    if constexpr (kGroups > 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     // ---- producer: one thread keeps the ring full
-    if (threadIdx.x == 128) {
-      mbar_expect_tx(q_full, kTileBytes);
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(q_full, kGroups * kTileBytes);
 #pragma unroll
-      for (int p = 0; p < HD::kPanels; ++p)
-        tma_load_4d(sq + p * kPanelBytes, &tma_q, q_full, p * kPanelCols, h,
-                    q0, b);
+      for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+        for (int p = 0; p < HD::kPanels; ++p)
+          tma_load_4d(smem + g * kTileBytes + p * kPanelBytes, &tma_q,
+                      q_full, p * kPanelCols, h, q0 + g * kTileRows, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-        unsigned char* st = smem + (1 + 2 * s) * kTileBytes;
+        unsigned char* st = smem + (kGroups + 2 * s) * kTileBytes;
         mbar_expect_tx(&full[s], 2 * kTileBytes);
 #pragma unroll
         for (int p = 0; p < HD::kPanels; ++p) {
@@ -144,8 +174,15 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
     return;
   }
 
-  // ---- consumer warpgroup: 16 q rows per warp
-  const int warp = threadIdx.x >> 5;
+  // ---- consumer warpgroup g: 64 q rows, 16 per warp
+  if constexpr (kGroups > 1)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int g = kGroups == 1 ? 0 : threadIdx.x >> 7;
+  const int gtid = kGroups == 1 ? threadIdx.x : threadIdx.x & 127;
+  const int bar = 1 + g;  // the group's named barrier
+  const int row0 = q0 + g * kTileRows;
+  unsigned char* sq = smem + g * kTileBytes;  // q, then the out tile
+  const int warp = gtid >> 5;
   const int lane = threadIdx.x & 31;
   float o[NP / 2];
 #pragma unroll
@@ -157,16 +194,17 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
   const uint64_t dq = smem_desc(smem_u32(sq));
   mbar_wait(q_full, 0);
   if constexpr (kFold) {
-    fold_scale<NP>(sq, scale, threadIdx.x, 128);
+    fold_scale<NP>(sq, scale, gtid, 128);
     fence_proxy_async();
-    named_bar_sync(1, 128);
+    named_bar_sync(bar, 128);
   }
 
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % kStages;
     const int kv0 = j * kBN;
     mbar_wait(&full[s], (j / kStages) & 1);
-    const uint32_t k_addr = smem_u32(smem + (1 + 2 * s) * kTileBytes);
+    const uint32_t k_addr =
+        smem_u32(smem + (kGroups + 2 * s) * kTileBytes);
     const uint64_t dk = smem_desc(k_addr);
     const uint64_t dv = smem_desc(k_addr + kTileBytes, HD::kLbo);
 
@@ -219,7 +257,7 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < kBN / 16; ++c)  // +16 keys = +2048 bytes per k-step
-      wgmma_rs<NP>(o, pa[c], dv + 128 * c);
+      wgmma_rs_np<NP>(o, pa[c], dv + 128 * c);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(o);
@@ -234,7 +272,7 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  named_bar_sync(1, 128);  // every warp's products are done reading q
+  named_bar_sync(bar, 128);  // every warp's products are done reading q
   if constexpr (NP > kPanelCols) {
 #pragma unroll
     for (int i = 0; i < NP / 2; i += 2) {
@@ -253,17 +291,17 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
     }
   }
   fence_proxy_async();
-  named_bar_sync(1, 128);
-  if (threadIdx.x == 0) {
+  named_bar_sync(bar, 128);
+  if (gtid == 0) {
 #pragma unroll
     for (int p = 0; p < HD::kPanels; ++p)
-      tma_store_4d(&tma_o, sq + p * kPanelBytes, p * kPanelCols, h, q0, b);
+      tma_store_4d(&tma_o, sq + p * kPanelBytes, p * kPanelCols, h, row0, b);
     tma_store_flush();
   }
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+      const int row = row0 + warp * 16 + (lane >> 2) + 8 * r;
       if (row < T)
         lse[((size_t)b * gridDim.y + h) * T + row] =
             (kFold ? m_run[r] : m_run[r] * scale) +
@@ -277,12 +315,12 @@ template <int NP, bool kFold>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk,
            const CUtensorMap& mv, const CUtensorMap& mo, float* lse, int b,
            int h, int T, int t_valid, float scale, cudaStream_t stream) {
-  constexpr int kSmem = fwd_smem<NP>();
+  using Block = FwdBlock<NP>;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_attn_fwd_kernel<NP, kFold>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Block::kSmem);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
@@ -290,21 +328,23 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk,
   // where the scale is folded into q
   const float scale_log2 =
       (float)((double)(kFold ? 1.f : scale) * 1.4426950408889634);
-  const dim3 grid((T + kBM - 1) / kBM, h, b);
-  flash_attn_fwd_kernel<NP, kFold><<<grid, kThreads, kSmem, stream>>>(
-      mq, mk, mv, mo, lse, T, t_valid, scale, scale_log2);
+  const dim3 grid((T + Block::kRows - 1) / Block::kRows, h, b);
+  flash_attn_fwd_kernel<NP, kFold>
+      <<<grid, Block::kThreads, Block::kSmem, stream>>>(
+          mq, mk, mv, mo, lse, T, t_valid, scale, scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v: [b, T, h, d] bf16, d a multiple of 8 from 8 to 128 and
+// q, k, v: [b, T, h, d] bf16, d a multiple of 8 from 8 to 256 and
 // contiguous, element strides (sb, st, sh) each, multiples of 8, 16-byte
 // aligned; out: [b, T, h, d] bf16 contiguous; lse: [b * h, T] fp32. Keys at
 // index >= t_valid are masked. One launch on `stream` of the instance for
-// round_up(d, 16) (d = 64: the instance that scales the logits). Returns
-// 0, a cudaError_t, or -1 / -1000 - CUresult when a TMA descriptor cannot
-// be made.
+// round_up(d, 16): fold != 0 folds the scale into q, fold = 0 (taken at
+// d 64 and 256 only, where the bits are the same) scales the logits.
+// Returns 0, a cudaError_t, or -1 / -1000 - CUresult when a TMA descriptor
+// cannot be made.
 extern "C" int occm_flash_attn_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int b, int h, int T,
                                    int t_valid, int d, long long q_sb,
@@ -312,8 +352,9 @@ extern "C" int occm_flash_attn_fwd(const void* q, const void* k, const void* v,
                                    long long k_sb, long long k_st,
                                    long long k_sh, long long v_sb,
                                    long long v_st, long long v_sh, float scale,
-                                   void* stream) {
-  if (!head_dim_ok(d) || b <= 0 || b > 65535 || h <= 0 || h > 65535 ||
+                                   void* stream, int fold) {
+  if (!head_dim_ok(d) || (!fold && !logits_instance(d)) || b <= 0 ||
+      b > 65535 || h <= 0 || h > 65535 ||
       T <= 0 || t_valid <= 0 || t_valid > T ||
       bad_strides(q, q_sb, q_st, q_sh) || bad_strides(k, k_sb, k_st, k_sh) ||
       bad_strides(v, v_sb, v_st, v_sh) ||
@@ -328,11 +369,8 @@ extern "C" int occm_flash_attn_fwd(const void* q, const void* k, const void* v,
                       (long long)h * d, d);
   if (err) return err;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64)
-    return launch<64, false>(mq, mk, mv, mo, (float*)lse, b, h, T, t_valid,
-                             scale, s);
-  return for_head_dim(d, [&](auto np) {
-    return launch<decltype(np)::value, true>(mq, mk, mv, mo, (float*)lse, b,
-                                             h, T, t_valid, scale, s);
+  return for_instance(d, fold, [&](auto np, auto folded) {
+    return launch<decltype(np)::value, decltype(folded)::value>(
+        mq, mk, mv, mo, (float*)lse, b, h, T, t_valid, scale, s);
   });
 }

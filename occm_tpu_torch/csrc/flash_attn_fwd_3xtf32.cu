@@ -611,7 +611,7 @@ extern "C" int occm_flash_attn_3xtf32_fwd(
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh, float scale,
     void* stream) {
-  if (!head_dim_ok(d) || b <= 0 || b > 65535 || h <= 0 || h > 65535 ||
+  if (!head_dim_ok(d, 128) || b <= 0 || b > 65535 || h <= 0 || h > 65535 ||
       T <= 0 || t_valid <= 0 || t_valid > T ||
       bad_f32_strides(q, q_sb, q_st, q_sh) ||
       bad_f32_strides(k, k_sb, k_st, k_sh) ||
@@ -623,7 +623,7 @@ extern "C" int occm_flash_attn_3xtf32_fwd(
   if (!err) err = encode_bthd_f32(&mk, k, b, T, h, d, k_sb, k_st, k_sh);
   if (!err) err = encode_bthd_f32(&mv, v, b, T, h, d, v_sb, v_st, v_sh);
   if (err) return err;
-  return for_head_dim(d, [&](auto np) {
+  return for_head_dim<128>(d, [&](auto np) {
     return launch<decltype(np)::value>(mq, mk, mv, (float*)out, (float*)lse,
                                        b, h, T, t_valid, d, scale,
                                        (cudaStream_t)stream);

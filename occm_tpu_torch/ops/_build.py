@@ -37,6 +37,9 @@ _lock = threading.Lock()
 _lib = None
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
+#: seconds each source's nvcc took in the last build, by file name ({}
+#: when the library was already built)
+source_seconds = {}
 #: ptxas's report (registers, shared memory, spills per kernel) of the last
 #: build, "" when the library was already built
 build_log = ""
@@ -73,11 +76,12 @@ def library_path() -> str:
 def build() -> str:
     """Compile the kernels if the current sources are not built yet;
     returns the library path."""
-    global build_seconds, build_log
+    global build_seconds, build_log, source_seconds
     path = library_path()
     if os.path.exists(path):
         build_seconds = 0.0
         build_log = ""
+        source_seconds = {}
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -90,9 +94,20 @@ def build() -> str:
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    # one thread a process, so that each source's time is its own
+    done = {}
+
+    def wait(cmd, proc):
+        done[cmd[-1]] = (*proc.communicate(), time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=p) for p in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed, logs = [], []
     for cmd, proc in procs:
-        out, err = proc.communicate()
+        out, err, _ = done[cmd[-1]]
         logs.append(err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
@@ -112,6 +127,8 @@ def build() -> str:
     os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
     build_log = "".join(logs)
+    source_seconds = {os.path.basename(src): sec
+                      for src, (_, _, sec) in done.items()}
     return path
 
 
@@ -126,20 +143,20 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             ll = ctypes.c_longlong
-            lib.occm_flash_attn_fwd.argtypes = [
-                p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll,
-                ll, ctypes.c_float, p]
-            lib.occm_flash_attn_fwd.restype = i
-            lib.occm_flash_attn_3xtf32_fwd.argtypes = (
-                lib.occm_flash_attn_fwd.argtypes)
-            lib.occm_flash_attn_3xtf32_fwd.restype = i
             # pointers, (b, h, T, t_valid, d), strides (sb, st, sh) of
-            # each [b, T, h, d] input, scale, stream
+            # each [b, T, h, d] input, scale, stream (and, for the bf16
+            # wgmma kernels, fold: the scale folded into q or on the logits)
+            fwd = [p, p, p, p, p, i, i, i, i, i, *[ll] * 9, ctypes.c_float,
+                   p]
+            lib.occm_flash_attn_fwd.argtypes = [*fwd, i]
+            lib.occm_flash_attn_fwd.restype = i
+            lib.occm_flash_attn_3xtf32_fwd.argtypes = fwd
+            lib.occm_flash_attn_3xtf32_fwd.restype = i
             lib.occm_flash_attn_bwd_dq.argtypes = [
-                *[p] * 9, *[i] * 5, *[ll] * 15, ctypes.c_float, p]
+                *[p] * 9, *[i] * 5, *[ll] * 15, ctypes.c_float, p, i]
             lib.occm_flash_attn_bwd_dq.restype = i
             lib.occm_flash_attn_bwd_dkv.argtypes = [
-                *[p] * 9, *[i] * 5, *[ll] * 12, ctypes.c_float, p]
+                *[p] * 9, *[i] * 5, *[ll] * 12, ctypes.c_float, p, i]
             lib.occm_flash_attn_bwd_dkv.restype = i
             lib.occm_layernorm_bwd_scratch_bytes.argtypes = [i, i, i]
             lib.occm_layernorm_bwd_scratch_bytes.restype = ll

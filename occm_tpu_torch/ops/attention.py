@@ -21,19 +21,22 @@ masking, scale folding and dtype casts. A tensor on any other device
 raises; nothing falls back from a kernel to its plain version.
 
 Three CUDA routes (`cuda_route`):
-- "wgmma": bf16 at every head dim D that is a multiple of 8 from 8 to 128
+- "wgmma": bf16 at every head dim D that is a multiple of 8 from 8 to 256
   takes the kernels above, one template instance for each
-  round_up(D, 16). D = 64 is its own instance (it scales the fp32 logits,
-  exact for 2^-3); the others fold the scale into q before the bf16 cast,
-  as the TPU kernels do, and their backward keeps that folded q in a
-  [B, T, H, D] scratch tensor for the dk/dv kernel. Their launches count
-  apart (`OTHER_D_*`).
+  round_up(D, 16) (above 128 the dk/dv kernel is a wider one: two
+  consumer warpgroups, one for dv and one for dk). D = 64 and D = 256 are
+  instances of their own (`LOGITS_SCALE_HEAD_DIMS`: they scale the fp32
+  logits, exact for 2^-3 and 2^-4); the others fold the scale into q
+  before the bf16 cast, as the TPU kernels do, and their backward keeps
+  that folded q in a [B, T, H, D] scratch tensor for the dk/dv kernel.
+  Launches off D 64 count apart (`OTHER_D_*`).
 - "3xtf32": fp32 at the head dims of `TF32_FWD_HEAD_DIMS` takes, for the
   forward, `csrc/flash_attn_fwd_3xtf32.cu` (`wgmma` fed by TMA on the
   tensor cores in 3xTF32, fp32 sums), which replaces the two TPU forward
   kernels in fp32.
-- "generic": fp32 at any other D from 1 to 256, and bf16 at any other D
-  up to 256, take the three kernels of `csrc/flash_attn_generic.cu`
+- "generic": fp32 at any other D from 1 to 256, and bf16 at a D up to 256
+  that is not a multiple of 8, take the three kernels of
+  `csrc/flash_attn_generic.cu`
   (forward, dq with δ, dk/dv: FFMA on the CUDA cores, true fp32), which
   replace the same five TPU kernels for what the other kernels do not
   take.
@@ -86,8 +89,13 @@ TF32_FWD_LAUNCHES = 0
 TF32_BWD_DQ_LAUNCHES = 0
 TF32_BWD_DKV_LAUNCHES = 0
 
-#: head dims the wgmma kernels take in bf16: multiples of 8 from 8 to 128
-WGMMA_HEAD_DIMS = range(8, 129, 8)
+#: head dims the wgmma kernels take in bf16: multiples of 8 from 8 to 256
+WGMMA_HEAD_DIMS = range(8, 257, 8)
+#: head dims whose wgmma instances scale the fp32 logits rather than fold
+#: the scale into q: 1/sqrt(D) is 2^-3 and 2^-4, so bf16(q * scale) is
+#: bf16(q) * scale and both orders give the same bits; their backward needs
+#: no folded-q scratch tensor
+LOGITS_SCALE_HEAD_DIMS = (64, 256)
 #: head dims the generic kernels take (a padded bucket of 16 to 256)
 GENERIC_HEAD_DIMS = range(1, 257)
 #: head dims at which the fp32 backward takes the 3xTF32 pair: the
@@ -133,13 +141,21 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def cuda_route(dtype: torch.dtype, head_dim: int):
     """The CUDA forward kernel that takes q, k, v of this dtype and head
-    dim: "wgmma" (bf16 with D a multiple of 8 from 8 to 128:
+    dim: "wgmma" (bf16 with D a multiple of 8 from 8 to 256:
     csrc/flash_attn_fwd.cu, and flash_attn_bwd.cu for the backward),
     "3xtf32" (fp32 with D in TF32_FWD_HEAD_DIMS:
     csrc/flash_attn_fwd_3xtf32.cu), "generic" (fp32 at any other D from 1
-    to 256, and bf16 at any other D up to 256: csrc/flash_attn_generic.cu),
-    or None (raises on a CUDA tensor; on a CPU tensor the plain version
-    takes any)."""
+    to 256, and bf16 at a D up to 256 that is not a multiple of 8, whose
+    rows TMA cannot read: csrc/flash_attn_generic.cu), or None (raises on
+    a CUDA tensor; on a CPU tensor the plain version takes any).
+
+    Nothing takes D above 256 on the card: the wgmma dq kernel's seven
+    64-row tiles already fill 225 of an SM's 227 KB of shared memory at
+    D 256, its accumulator and the wider dk/dv kernel's hold 128 fp32
+    registers a thread there, and one wgmma's N ends at 256, so a wider
+    head needs a kernel of another shape (key tiles split along D), and
+    the generic kernels' largest bucket is 256 columns. The TPU kernels
+    take any D; no configuration of the repo has a head dim above 256."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     if dtype == torch.float32 and head_dim in TF32_FWD_HEAD_DIMS:
@@ -255,7 +271,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the same shape, contiguous, in q's dtype, lse [BH, T] fp32).
 
     CUDA tensors launch, on the current stream, `occm_flash_attn_fwd`
-    (bf16, D a multiple of 8 from 8 to 128), `occm_flash_attn_3xtf32_fwd`
+    (bf16, D a multiple of 8 from 8 to 256), `occm_flash_attn_3xtf32_fwd`
     (fp32 at TF32_FWD_HEAD_DIMS) or `occm_flash_attn_generic_fwd` (fp32 at
     any other D from 1 to 256, bf16 at any other D up to 256), as
     `cuda_route` says; [B, T, H, D] is read through its strides, so the
@@ -290,7 +306,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route == "3xtf32":
         return _tf32_fwd(q, k, v, t_valid, four_d, B, H, T, D)
     out, lse = _tma_fwd("occm_flash_attn_fwd", q, k, v, t_valid, four_d, B,
-                        H, T, D)
+                        H, T, D, int(D not in LOGITS_SCALE_HEAD_DIMS))
     if D == 64:
         LAUNCHES += 1
     else:
@@ -298,11 +314,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def _tma_fwd(entry, q, k, v, t_valid, four_d, B, H, T, D):
+def _tma_fwd(entry, q, k, v, t_valid, four_d, B, H, T, D, *fold):
     """One launch of a TMA forward kernel's entry point (`entry`:
     `occm_flash_attn_fwd` or `occm_flash_attn_3xtf32_fwd`, which take the
-    same arguments) on the current stream; raises ValueError for strides
-    their maps cannot read."""
+    same arguments, the first one more: `fold`, 1 to fold the scale into
+    q, 0 to scale the logits) on the current stream; raises ValueError for
+    strides their maps cannot read."""
     qp, *qs = _launch_args(q, four_d)
     kp, *ks = _launch_args(k, four_d)
     vp, *vs = _launch_args(v, four_d)
@@ -315,7 +332,8 @@ def _tma_fwd(entry, q, k, v, t_valid, four_d, B, H, T, D):
     with _build.on_device(q.device):
         err = getattr(lib, entry)(
             qp, kp, vp, out.data_ptr(), lse.data_ptr(), B, H, T, t_valid, D,
-            *qs, *ks, *vs, 1.0 / math.sqrt(D), _build.raw_stream(q.device))
+            *qs, *ks, *vs, 1.0 / math.sqrt(D), _build.raw_stream(q.device),
+            *fold)
     if err != 0:
         raise RuntimeError(f"{entry} failed: error {err}")
     return out, lse
@@ -407,17 +425,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     δ = rowsum(dO ⊙ O) in fp32, as the TPU wrapper does outside its
     kernels, and writes it to a [BH, T] buffer) and then
     `occm_flash_attn_bwd_dkv` (which reads it) on the current stream: bf16,
-    D a multiple of 8 from 8 to 128, every input read through its strides
+    D a multiple of 8 from 8 to 256, every input read through its strides
     ([B, T, H, D] views of the projections' output need no copy), two
-    device launches and nothing else. At D != 64 the dq kernel also writes
-    bf16(q * scale) to a [B, T, H, D] scratch tensor that the dk/dv kernel
-    reads. fp32 at TF32_BWD_HEAD_DIMS launches the 3xTF32 pair the same
-    way (`occm_flash_attn_3xtf32_bwd_dq`, then `_dkv`), and any other dtype
-    and D that `cuda_bwd_route` takes the generic pair
-    (`occm_flash_attn_generic_bwd_dq`, then `_dkv`); both read any strides.
-    CPU tensors take the plain version."""
-    global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
-    global OTHER_D_BWD_DQ_LAUNCHES, OTHER_D_BWD_DKV_LAUNCHES
+    device launches and nothing else. At D other than 64 and 256 the dq
+    kernel also writes bf16(q * scale) to a [B, T, H, D] scratch tensor
+    that the dk/dv kernel reads. fp32 at TF32_BWD_HEAD_DIMS launches the
+    3xTF32 pair the same way (`occm_flash_attn_3xtf32_bwd_dq`, then
+    `_dkv`), and any other dtype and D that `cuda_bwd_route` takes the
+    generic pair (`occm_flash_attn_generic_bwd_dq`, then `_dkv`); both read
+    any strides. CPU tensors take the plain version."""
     tensors = (q, k, v, o, do)
     if len({x.device for x in tensors + (lse,)}) != 1:
         raise ValueError("flash attention backward: inputs on different "
@@ -446,8 +462,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _generic_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D)
     if route == "3xtf32":
         return _tf32_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D)
+    return _wgmma_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D,
+                      int(D not in LOGITS_SCALE_HEAD_DIMS))
+
+
+def _wgmma_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D, fold):
+    """`occm_flash_attn_bwd_dq` then `_dkv` on the current stream, the scale
+    folded into q (fold 1: the dq kernel writes bf16(q * scale) to a
+    [B, T, H, D] scratch tensor that the dk/dv kernel reads) or on the fp32
+    logits (fold 0, at LOGITS_SCALE_HEAD_DIMS only, where both give the
+    same bits); raises ValueError for strides their maps cannot read."""
+    global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    global OTHER_D_BWD_DQ_LAUNCHES, OTHER_D_BWD_DKV_LAUNCHES
     (qp, *qs), (kp, *ks), (vp, *vs), (op, *os_), (dop, *dos) = (
-        _launch_args(x, four_d) for x in tensors)
+        _launch_args(x, four_d) for x in (q, k, v, o, do))
 
     from occm_tpu_torch.ops import _build
 
@@ -455,10 +483,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    # the dq kernel's bf16(q * scale), which the dk/dv kernel reads (D = 64
-    # scales the logits instead)
-    q_scaled = (None if D == 64 else
-                torch.empty((B, T, H, D), dtype=q.dtype, device=q.device))
+    q_scaled = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+                if fold else None)
     qs_ptr = None if q_scaled is None else q_scaled.data_ptr()
     stream = _build.raw_stream(q.device)
     scale = 1.0 / math.sqrt(D)
@@ -466,7 +492,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.occm_flash_attn_bwd_dq(
             qp, kp, vp, op, dop, lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), qs_ptr, B, H, T, t_valid, D, *qs, *ks, *vs, *os_,
-            *dos, scale, stream)
+            *dos, scale, stream, fold)
         if err != 0:
             raise RuntimeError(f"occm_flash_attn_bwd_dq failed: error {err}")
         if D == 64:
@@ -476,7 +502,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.occm_flash_attn_bwd_dkv(
             qp, kp, vp, dop, lse.data_ptr(), delta.data_ptr(), qs_ptr,
             dk.data_ptr(), dv.data_ptr(), B, H, T, t_valid, D, *qs, *ks, *vs,
-            *dos, scale, stream)
+            *dos, scale, stream, fold)
         if err != 0:
             raise RuntimeError(f"occm_flash_attn_bwd_dkv failed: error {err}")
         if D == 64:

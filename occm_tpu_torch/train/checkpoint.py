@@ -93,6 +93,20 @@ def latest_epoch(directory: str, prefix: str) -> Optional[int]:
     return _latest(directory, re.compile(re.escape(prefix) + r"_(\d+)\.pt$"))
 
 
+def jax_checkpoint_dirs(directory: str, prefix: str):
+    """The JAX package's checkpoints of `prefix` in `directory`: its
+    `<prefix>_<epoch>` and `<prefix>_step_<n>` orbax directories, sorted
+    (train(resume=True) does not continue from them)."""
+    from occm_tpu_torch.train.orbax import is_orbax_dir
+
+    if not os.path.isdir(directory):
+        return []
+    pattern = re.compile(re.escape(prefix) + r"_(step_)?\d+$")
+    return sorted(name for name in os.listdir(directory)
+                  if pattern.match(name)
+                  and is_orbax_dir(os.path.join(directory, name)))
+
+
 def _step_re(prefix: str) -> "re.Pattern":
     return re.compile(re.escape(prefix) + r"_step_(\d+)\.pt$")
 

@@ -483,10 +483,23 @@ def train(
     start_epoch, progress = 0, None
     if resume:
         from occm_tpu_torch.train.checkpoint import (
-            latest_epoch, latest_step_checkpoint, restore_checkpoint,
-            restore_step_checkpoint)
+            jax_checkpoint_dirs, latest_epoch, latest_step_checkpoint,
+            restore_checkpoint, restore_step_checkpoint)
 
         last = latest_epoch(cfg.checkpoint_dir, cfg.checkpoint_prefix)
+        if (last is None
+                and latest_step_checkpoint(cfg.checkpoint_dir,
+                                           cfg.checkpoint_prefix) is None):
+            jax_dirs = jax_checkpoint_dirs(cfg.checkpoint_dir,
+                                           cfg.checkpoint_prefix)
+            if jax_dirs:
+                raise ValueError(
+                    f"resume: {cfg.checkpoint_dir} holds the JAX package's "
+                    f"checkpoints {jax_dirs} and no .pt of prefix "
+                    f"{cfg.checkpoint_prefix!r}; the port does not continue "
+                    "a JAX run's optimizer state and epoch. Start from its "
+                    "weights with --init_from <directory> (a fresh optimizer "
+                    "and epoch 0) instead of --resume")
         if last is not None:
             restore_checkpoint(state, cfg.checkpoint_dir,
                                cfg.checkpoint_prefix, last)

@@ -47,8 +47,8 @@ def one_torch_thread():
 @pytest.mark.parametrize("dtype, head_dim, route", [
     *((torch.float32, d, "3xtf32") for d in (8, 16, 24, 64, 80, 120, 128)),
     *((torch.float32, d, "generic") for d in (1, 7, 12, 20, 136, 256)),
-    *((torch.bfloat16, d, "wgmma") for d in (8, 64, 80, 128)),
-    *((torch.bfloat16, d, "generic") for d in (12, 136)),
+    *((torch.bfloat16, d, "wgmma") for d in (8, 64, 80, 128, 136, 256)),
+    *((torch.bfloat16, d, "generic") for d in (12, 252)),
     (torch.float32, 257, None), (torch.bfloat16, 257, None),
     (torch.float16, 64, None)])
 def test_backward_route_table(dtype, head_dim, route):
@@ -67,19 +67,19 @@ def test_backward_route_table(dtype, head_dim, route):
 @pytest.mark.parametrize("dtype, head_dim", [
     *((torch.float32, d) for d in (1, 7, 8, 12, 16, 20, 24, 64, 80, 120,
                                    128, 136, 256)),
-    *((torch.bfloat16, d) for d in (8, 12, 64, 136)),
+    *((torch.bfloat16, d) for d in (8, 12, 64, 136, 252, 256)),
     (torch.float32, 257), (torch.float16, 64)])
 def test_forward_route_table(dtype, head_dim):
     """The fp32 forward takes the 3xTF32 kernel exactly at the head dims of
     TF32_FWD_HEAD_DIMS, which are multiples of 8 from 8 to 128 (its
     instances are round_up(D, 16) columns wide), and the generic kernel at
-    every other D up to 256; bf16 keeps the wgmma and generic routes; D 257
-    and fp16 have no kernel."""
+    every other D up to 256; bf16 keeps the wgmma route (multiples of 8 up
+    to 256) and the generic one; D 257 and fp16 have no kernel."""
     assert set(attention.TF32_FWD_HEAD_DIMS) <= set(range(8, 129, 8))
     route = attention.cuda_route(dtype, head_dim)
     if dtype == torch.float32 and head_dim in attention.TF32_FWD_HEAD_DIMS:
         assert route == "3xtf32"
-    elif dtype == torch.bfloat16 and head_dim % 8 == 0 and head_dim <= 128:
+    elif dtype == torch.bfloat16 and head_dim % 8 == 0 and head_dim <= 256:
         assert route == "wgmma"
     elif dtype in (torch.float32, torch.bfloat16) and head_dim <= 256:
         assert route == "generic"

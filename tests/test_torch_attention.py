@@ -378,12 +378,12 @@ def test_backward_delta_is_the_fp32_rowsum_in_the_layout_of_lse():
     (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "3xtf32"),
     (torch.bfloat16, 16, "wgmma"), (torch.float32, 16, "3xtf32"),
     (torch.float16, 64, None), (torch.bfloat16, 1, "generic"),
-    (torch.float32, 256, "generic"), (torch.bfloat16, 257, None),
-    (torch.float32, 0, None)])
+    (torch.float32, 256, "generic"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 257, None), (torch.float32, 0, None)])
 def test_cuda_kernel_takes_only_bf16_with_head_dim_64(dtype, head_dim,
                                                       route):
     """The wgmma kernels take only bf16, at head dims that are multiples
-    of 8 up to 128 (64 and 16 here); the 3xTF32 forward takes fp32 at the
+    of 8 up to 256 (64, 16 and 256 here); the 3xTF32 forward takes fp32 at the
     head dims of its table (64 and 16 here), the generic kernels fp32 at
     every other head dim from 1 to 256 and bf16 at the others; nothing
     takes fp16 or a head dim outside 1..256."""
@@ -393,20 +393,24 @@ def test_cuda_kernel_takes_only_bf16_with_head_dim_64(dtype, head_dim,
 
 @pytest.mark.parametrize("dtype, head_dim, route", [
     *((torch.bfloat16, d, "wgmma")
-      for d in (8, 16, 24, 32, 48, 64, 80, 120, 128)),
-    *((torch.bfloat16, d, "generic") for d in (1, 7, 12, 136, 256)),
+      for d in (8, 16, 24, 32, 48, 64, 80, 120, 128, 136, 192, 200, 248,
+                256)),
+    *((torch.bfloat16, d, "generic") for d in (1, 7, 12, 252)),
     *((torch.float32, d, "generic") for d in (1, 7, 136, 256)),
     *((torch.float32, d, "3xtf32") for d in (8, 16, 64, 80, 120, 128)),
-    (torch.bfloat16, 257, None), (torch.float32, 257, None)])
+    (torch.bfloat16, 257, None), (torch.float32, 257, None),
+    (torch.bfloat16, 264, None)])
 def test_cuda_route_table(dtype, head_dim, route):
     """The wgmma kernels (csrc/flash_attn_fwd.cu, flash_attn_bwd.cu) take
-    bf16 at every head dim that is a multiple of 8 from 8 to 128, one
+    bf16 at every head dim that is a multiple of 8 from 8 to 256, one
     instance for each round_up(D, 16); the 3xTF32 forward
     (csrc/flash_attn_fwd_3xtf32.cu) takes fp32 at the head dims of
     TF32_FWD_HEAD_DIMS; the generic kernels keep fp32 at every other D
-    from 1 to 256 and bf16 at the other D up to 256; D 257 has no
-    kernel."""
+    from 1 to 256 and bf16 at a D up to 256 that is not a multiple of 8;
+    above 256 (a multiple of 8 or not) nothing takes it."""
     assert attention.cuda_route(dtype, head_dim) == route
+    if dtype == torch.bfloat16:
+        assert (head_dim in attention.WGMMA_HEAD_DIMS) is (route == "wgmma")
 
 
 def test_backward_copies_only_a_dout_its_maps_cannot_read():
@@ -443,7 +447,7 @@ def test_backward_copies_only_a_dout_its_maps_cannot_read():
 # gradients 2^-6 of the largest |value| of each (chip_smoke.py's
 # BWD_RTOL_OF_MAX: P and dS rounded to bf16 before their products, and the
 # whole-T TPU backward takes delta from its own fp32 P).
-COVERAGE_DIMS = (16, 32, 80, 128)
+COVERAGE_DIMS = (16, 32, 80, 128, 136, 192, 256)
 BF16_OUT_RTOL_OF_MAX = 2.0 ** -7
 BF16_GRAD_RTOL_OF_MAX = 2.0 ** -6
 
@@ -545,7 +549,8 @@ def _cuda_patched(monkeypatch):
 @pytest.mark.parametrize("dtype, head_dim, reaches", [
     (torch.float32, 64, "3xtf32"), (torch.float32, 16, "3xtf32"),
     (torch.bfloat16, 80, "wgmma"), (torch.float32, 256, "generic"),
-    (torch.bfloat16, 64, "wgmma"), (torch.float32, 0, None),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 136, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 0, None),
     (torch.float32, 257, None), (torch.float16, 64, None),
     (torch.float16, 16, None)])
 def test_cuda_wrappers_route_or_refuse(monkeypatch, dtype, head_dim,
@@ -607,16 +612,18 @@ def test_generic_launch_args_read_any_strides():
     assert attention._strides4(expanded, True)[1:] == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("head_dim", [64, 80])
+@pytest.mark.parametrize("head_dim", [64, 80, 136, 256])
 def test_wgmma_launch_args_read_views_in_place_and_copy_an_expanded_dout(
         monkeypatch, head_dim):
     """On the wgmma route (patched to a recording library, as this host has
     no card) the forward and backward read strided [B, T, H, D] views of a
     fused projection in place: each gets the view's pointer and (sb, st,
-    sh), the head dim and 1/sqrt(D). At D 80 the backward hands the dq
-    kernel a [B, T, H, D] scratch tensor for bf16(q * scale) and the dk/dv
-    kernel the same one, and counts apart from D 64 (OTHER_D_*); at D 64
-    there is none. Through autograd an expanded dO (of out.sum()) is copied
+    sh), the head dim, 1/sqrt(D) and whether to fold it into q. At D 80 and
+    136 the scale is folded: the backward hands the dq kernel a
+    [B, T, H, D] scratch tensor for bf16(q * scale) and the dk/dv kernel
+    the same one; at D 64 and 256 (scales 2^-3 and 2^-4) the logits are
+    scaled and there is none. Off D 64 the launches count apart
+    (OTHER_D_*). Through autograd an expanded dO (of out.sum()) is copied
     once, contiguous, and the copy's strides reach the kernels."""
     from occm_tpu_torch.ops import _build
 
@@ -652,7 +659,9 @@ def test_wgmma_launch_args_read_views_in_place_and_copy_an_expanded_dout(
     assert fwd[:3] == tuple(x.data_ptr() for x in (q, k, v))
     assert fwd[5:10] == (B, H, T, T, head_dim)
     assert fwd[10:19] == views * 3
+    fold = int(head_dim not in (64, 256))
     assert fwd[19] == 1.0 / math.sqrt(head_dim) and fwd[20] == 7
+    assert fwd[21:] == (fold,)
     out.sum().backward()
     dq_args, dkv_args = (calls["occm_flash_attn_bwd_dq"],
                          calls["occm_flash_attn_bwd_dkv"])
@@ -666,7 +675,8 @@ def test_wgmma_launch_args_read_views_in_place_and_copy_an_expanded_dout(
     assert dq_args[4] == dkv_args[3] and dq_args[4] != out.data_ptr()
     scratch = dq_args[8]
     assert dkv_args[6] == scratch
-    assert (scratch is None) == (head_dim == 64)
+    assert (scratch is None) == (not fold)
+    assert dq_args[29:] == dkv_args[26:] == (fwd[19], 7, fold)
     other = head_dim != 64
     after = {n: getattr(attention, n) - b for n, b in before.items()}
     assert after == {"LAUNCHES": int(not other), "OTHER_D_LAUNCHES": int(other),

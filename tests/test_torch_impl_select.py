@@ -3,8 +3,9 @@ take the model, and never picks a flash kernel that cannot take it.
 
 The wgmma kernels take bf16 with head dim 64 (flash from
 AUTO_FLASH_MIN_SAMPLES up) and, in their other instances, bf16 at every
-head dim that is a multiple of 8 up to 128 (XLS-R 1B's 80; flash from the
-measured AUTO_WGMMA_OTHER_D_MIN_SAMPLES up, or never where it is None);
+head dim that is a multiple of 8 up to 256 (XLS-R 1B's 80, XLS-R 300M's
+widths with 4 heads of 256; flash from the measured
+AUTO_WGMMA_OTHER_D_MIN_SAMPLES up, or never where it is None);
 the 3xTF32 forward takes fp32 at the head dims of its table
 (`XLSRConfig.tiny()` is fp32 with D = 16, `XLSRConfig(dtype="float32")`
 D = 64), and auto picks it from the measured AUTO_TF32_MIN_SAMPLES up; the
@@ -38,6 +39,7 @@ BF16_D16 = dataclasses.replace(TINY, dtype="bfloat16")
 BF16_D12 = dataclasses.replace(TINY, dtype="bfloat16", encoder_embed_dim=48)
 XLSR_1B = dataclasses.replace(FULL, encoder_layers=48, encoder_embed_dim=1280,
                               encoder_ffn_dim=5120, out_dim=1280)  # D = 80
+XLSR_300M_D256 = dataclasses.replace(FULL, encoder_heads=4)  # D = 256
 WIDE_HEAD = dataclasses.replace(TINY, encoder_embed_dim=1040,
                                 encoder_heads=4)  # D = 260 > 256
 
@@ -92,15 +94,16 @@ def test_auto_picks_xla_for_a_cuda_model_the_kernel_cannot_take(
 
 
 @pytest.mark.parametrize("cfg, want", [(XLSR_1B, "other_d"),
+                                       (XLSR_300M_D256, "other_d"),
                                        (BF16_D12, "generic")],
-                         ids=["xlsr_1b_d80", "bf16_d12"])
+                         ids=["xlsr_1b_d80", "xlsr_300m_d256", "bf16_d12"])
 @pytest.mark.parametrize("seconds", [1, 2, 6, 12])
 def test_auto_follows_the_route_of_a_bf16_head_dim(monkeypatch, cfg, want,
                                                    seconds):
-    """bf16 at head dim 80 (XLS-R 1B) takes the wgmma route's instances at
-    head dims other than 64 and their measured threshold; bf16 at head dim
-    12, not a multiple of 8, stays on the generic route and its
-    threshold."""
+    """bf16 at head dim 80 (XLS-R 1B) and 256 (XLS-R 300M's widths with 4
+    heads) takes the wgmma route's instances at head dims other than 64
+    and their measured threshold; bf16 at head dim 12, not a multiple of
+    8, stays on the generic route and its threshold."""
     expect = (_other_d_auto(seconds) if want == "other_d"
               else _generic_auto(seconds))
     assert _factory_impl(monkeypatch, cfg, "cuda",

@@ -17,6 +17,7 @@
     python3 chip_smoke.py --coverage-only # phases 1, 2 and 20 only
     python3 chip_smoke.py --xlsr1b-only   # phases 1, 2 and 21 only
     python3 chip_smoke.py --wide-head-only  # phases 1, 2 and 22 only
+    python3 chip_smoke.py --jax-resume-only # phases 1, 2 and 23 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -404,10 +405,37 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    SCORE_RTOL of xla attention and the plain FFN), one eager 12 x 6 s
    training step against the plain one with launches exact and one
    fused_adam step, utt/s at 1, 2, 6 and 12 s in turns.
-23. with --profile only: device time by kernel (torch.profiler) for full
+23. `oc_training --resume` continuing a run of the JAX package
+   (`--jax-resume-only`: phases 1, 2 and 23; in a full run right after
+   phase 22's path) from orbax directories that `write_jax_checkpoint`
+   writes in the layout of `occm_tpu.train.checkpoint` (parameters and
+   BatchNorm statistics through `convert_backend.convert_model_state_dict`,
+   the moments through the same mapping, opt_state in optax adam's or
+   FusedAdamState's form, a step directory's progress; every array a
+   "jax.Array" leaf; tests/test_torch_resume_jax.py holds the writer
+   against the JAX package's saver): (a) XLS-R 300M + AASIST at full width
+   and depth (seed 0, 2 eager steps under torch Adam) as the epoch
+   directory `aasist_vocoded_0/` (~3.8 GB), resumed under the default
+   --optimizer adam; (b) the same widths at DEPTH layers under fused_adam
+   as the step directory `aasist_vocoded_step_2/` after 2 of epoch 0's
+   dispatches, resumed under --optimizer fused_adam (the consumed
+   dispatches replayed). Each resume trains 2 steps under deterministic
+   algorithms; the gates: the state restored, read on the card before the
+   first step, equal bit for bit to the state written (parameters,
+   BatchNorm running statistics, mu, nu, step, count) and the generator
+   seeded by `train.checkpoint.resume_seed`; the first batch trained the
+   pipeline's next one; each step's launches exact (phase 6's, and one
+   fused_adam launch a step in (b); no generic, 3xTF32 or other-D kernel);
+   finite losses, equal bit for bit on a second resume (in (a) sent
+   SIGTERM after its steps, so the port saves its step .pt beside the
+   directory) and on a .pt resume of the restored state and generator;
+   the directory's files, sizes and manifest hashes unchanged, and the
+   next resume taking the port's .pt. Write, read and ready seconds and
+   MB/s are printed.
+24. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-24. prints {"kernels": [...]} (each entry of phases 3's kernels with
+25. prints {"kernels": [...]} (each entry of phases 3's kernels with
    phase 15's row at base's shapes under "base" and phase 17's at the
    per-rank shapes under "tp2", "dp2" or "fsdp2", "pp2" and "sp2"; phase
    20's six entries and phase 21's and 22's two each with their shapes
@@ -9418,6 +9446,432 @@ def wide_head_kernel_line(rows, launches):
     ]
 
 
+# --------------------------------------------------------------- phase 23
+
+# the steps each of phase 23's resumed CLI runs trains
+JAX_RESUME_STEPS = 2
+# the prefix of the CLI's checkpoints (--model aasist)
+JAX_RESUME_PREFIX = "aasist_vocoded"
+# the integer keys of a step checkpoint's progress (the rest are the
+# running loss sums)
+PROGRESS_INTS = ("epoch", "dispatches", "opt_steps")
+POS_CONV = "ssl_model.model.encoder.pos_conv.0.weight"
+
+
+def jax_trainer_tree(state, xlsr_cfg, progress=None) -> dict:
+    """The tree that the JAX package's `save_checkpoint` (with `progress`,
+    its `save_step_checkpoint`) writes for an AModel's TrainState, made from
+    the port's `state` without JAX: the parameters and BatchNorm statistics
+    through `convert_backend.convert_model_state_dict`, Adam's moments
+    through the same mapping (each moment in its parameter's place; zeros
+    where torch Adam holds none), the positional conv's kernel and its
+    moments as the port trains them, transposed (not the weight-norm pair
+    refolded); opt_state in optax adam's form, [{count, mu, nu}, None]
+    (under an lr schedule [{count, mu, nu}, {count}]), or FusedAdamState's,
+    {count, mu, nu}; the step, the count and the progress as the int32 /
+    float32 arrays JAX saves. tests/test_torch_resume_jax.py holds it
+    against the JAX package's own saver."""
+    import torch
+
+    from occm_tpu_torch.models.convert_backend import (
+        convert_model_state_dict)
+    from occm_tpu_torch.models.xlsr import weight_norm_g
+    from occm_tpu_torch.ops.fused_adam import FusedAdam
+
+    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    named = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+
+    def variables(values):
+        """{"params", "batch_stats"} with `values` in the parameters'
+        places."""
+        tensors = dict(sd)
+        for n, v in values.items():
+            if n == POS_CONV:
+                tensors[n + "_g"], tensors[n + "_v"] = weight_norm_g(v), v
+            else:
+                tensors[n] = v
+        out = convert_model_state_dict(tensors, kind="amodel",
+                                       xlsr_cfg=xlsr_cfg)
+        out.pop("_kind")
+        out["params"]["ssl_model"]["pos_conv"]["kernel"] = \
+            np.ascontiguousarray(values[POS_CONV].numpy().transpose(2, 1, 0))
+        return out
+
+    opt = state.optimizer_state()
+    moments = {key: variables({
+        n: opt[key][n].detach().cpu() if n in opt[key]
+        else torch.zeros_like(p) for n, p in named.items()})["params"]
+        for key in ("mu", "nu")}
+    count = np.int32(opt["count"])
+    adam = {"count": count, "mu": moments["mu"], "nu": moments["nu"]}
+    if isinstance(state.optimizer, FusedAdam):
+        opt_state = adam
+    elif state.schedule is None:
+        opt_state = [adam, None]
+    else:
+        opt_state = [adam, {"count": count}]
+    tree = dict(variables(named), opt_state=opt_state,
+                step=np.int32(state.step))
+    if progress is not None:
+        tree["progress"] = {
+            k: (np.int32 if k in PROGRESS_INTS else np.float32)(v)
+            for k, v in progress.items()}
+    return tree
+
+
+def write_jax_checkpoint(state, directory: str, prefix: str, xlsr_cfg,
+                         epoch: int = 0, progress=None) -> str:
+    """`jax_trainer_tree` written where and as the JAX package writes it:
+    `<prefix>_<epoch>/`, or with `progress` `<prefix>_step_<opt_steps>/`,
+    every array a "jax.Array" leaf. Returns the directory."""
+    from occm_tpu_torch.train.orbax import save_tree
+
+    name = (f"{prefix}_{epoch}" if progress is None
+            else f"{prefix}_step_{int(progress['opt_steps'])}")
+    return save_tree(jax_trainer_tree(state, xlsr_cfg, progress),
+                     os.path.join(directory, name), array_type="jax.Array")
+
+
+def dir_fingerprint(path: str) -> dict:
+    """{file: size} of a directory, and the sha256 of each of its
+    manifests (OCDBT's manifest.ocdbt files and orbax's metadata)."""
+    import hashlib
+
+    files, hashes = {}, {}
+    for d, _, names in os.walk(path):
+        for name in names:
+            full = os.path.join(d, name)
+            rel = os.path.relpath(full, path)
+            files[rel] = os.path.getsize(full)
+            if name.startswith(("manifest", "_METADATA",
+                                "_CHECKPOINT_METADATA")):
+                with open(full, "rb") as f:
+                    hashes[rel] = hashlib.sha256(f.read()).hexdigest()
+    return {"files": files, "manifest_sha256": hashes}
+
+
+def state_snapshot(state) -> dict:
+    """The state's parameters, BatchNorm running statistics, Adam moments,
+    step (host and device), the optimizer's count and the generator's
+    state, copied to the CPU."""
+    model = state.model
+    opt = state.optimizer_state()
+
+    def cpu(tensors):
+        return {n: t.detach().cpu().clone() for n, t in tensors}
+
+    return {"params": cpu(model.named_parameters()),
+            "stats": cpu((n, b) for n, b in model.named_buffers()
+                         if n.endswith(("running_mean", "running_var"))),
+            "mu": cpu(opt["mu"].items()), "nu": cpu(opt["nu"].items()),
+            "step": state.step, "step_t": int(state.step_t),
+            "count": int(opt["count"]), "rng": state.generator.get_state()}
+
+
+def same_state(got: dict, want: dict, what: str) -> int:
+    """Every tensor of two snapshots equal bit for bit, and the counts;
+    returns the number of tensors compared."""
+    import torch
+
+    n = 0
+    for group in ("params", "stats", "mu", "nu"):
+        if set(got[group]) != set(want[group]):
+            fail(f"{what}: {group} name other tensors: "
+                 f"{sorted(set(got[group]) ^ set(want[group]))[:4]}")
+        differ = [k for k in want[group]
+                  if got[group][k].dtype != want[group][k].dtype
+                  or not torch.equal(got[group][k], want[group][k])]
+        if differ:
+            fail(f"{what}: {group} differ from the state written in "
+                 f"{len(differ)} tensors, e.g. {differ[:3]}")
+        n += len(want[group])
+    for key in ("step", "step_t", "count"):
+        if got[key] != want[key]:
+            fail(f"{what}: {key} {got[key]}, the state written "
+                 f"{want[key]}")
+    return n
+
+
+def phase_jax_resume(workdir: str, fixture) -> tuple:
+    """Phase 23: `oc_training --resume` continuing a run of the JAX package
+    from its orbax directories, written here by `write_jax_checkpoint` in
+    the layout of `occm_tpu.train.checkpoint` (no JAX on the card).
+    (a) XLS-R 300M + AASIST at full width and depth, seed 0, 2 eager steps
+    under torch Adam (its moments non-zero), written as the epoch directory
+    `<prefix>_0/` in optax adam's form, then resumed under the default
+    --optimizer adam for 2 steps of epoch 1; (b) the same widths at DEPTH
+    layers under fused_adam, written after 2 of epoch 0's dispatches as the
+    step directory `<prefix>_step_2/` with its progress, resumed under
+    --optimizer fused_adam (the 2 consumed dispatches replayed, not
+    trained). Each, under deterministic algorithms: the state the resume
+    restores, read on the card before its first step, equal bit for bit to
+    the state written (parameters, BatchNorm statistics, mu, nu, step,
+    count) and its generator seeded by `train.checkpoint.resume_seed`; the
+    first batch trained the pipeline's next one; every step's launches
+    exact (phase 6's, plus one fused_adam launch a step in (b); no generic,
+    3xTF32 or other-D kernel); finite losses; a second resume equal bit for
+    bit (in (a) sent SIGTERM after its steps, so the port saves its own
+    step .pt beside the directory); a .pt resume of the restored state
+    (generator included) equal bit for bit; the JAX directory's files,
+    sizes and manifests unchanged, and the next resume choosing the port's
+    .pt. Prints the write, read and ready seconds and MB/s. Returns the
+    kernel wrappers' launches and the measurements."""
+    import signal
+
+    import torch
+
+    from occm_tpu_torch.cli import oc_training
+    from occm_tpu_torch.config import AASISTConfig, TrainConfig, XLSRConfig
+    from occm_tpu_torch.data import MetaBatchPipeline, PFDataset
+    from occm_tpu_torch.models import AModel
+    from occm_tpu_torch.ops import launch_counts
+    from occm_tpu_torch.train import checkpoint, loop, orbax, train
+    from occm_tpu_torch.utils.logging import MetricsLogger
+
+    t_phase = time.perf_counter()
+    protocol, train_dir, voc_dir = fixture
+    prefix = JAX_RESUME_PREFIX
+    totals = dict.fromkeys(launch_counts(), 0)
+    out = {}
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    dataset = PFDataset(protocol, dataset_dir=train_dir, vocoded_dir=voc_dir,
+                        cut=TRAIN_CUT, seed=0)
+    pipeline = MetaBatchPipeline(dataset, seed=0)  # the CLI's, --seed 0
+
+    captured, first_x = {}, []
+    restore_jax = checkpoint.restore_jax_checkpoint
+    read_tree, step_fn = orbax.restore_tree, loop.train_step
+
+    def timed_read(path, subtree=None):
+        t0 = time.perf_counter()
+        tree = read_tree(path, subtree)
+        if subtree is None:
+            captured["read_s"] = time.perf_counter() - t0
+        return tree
+
+    def restore_and_read(state, path, cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        progress = restore_jax(state, path, cfg)
+        torch.cuda.synchronize()
+        captured["ready_s"] = time.perf_counter() - t0
+        captured["state"] = state_snapshot(state)
+        if captured.get("pt_path"):
+            # the same state as the port's own checkpoint, its generator
+            # seeded as the JAX resume seeded it
+            payload = checkpoint._payload(state)
+            if progress is not None:
+                payload["progress"] = progress
+            os.makedirs(os.path.dirname(captured["pt_path"]), exist_ok=True)
+            torch.save(payload, captured["pt_path"])
+        return progress
+
+    def first_batch(state, x, *args, **kwargs):
+        if not first_x:
+            first_x.append(x.detach().cpu())
+        return step_fn(state, x, *args, **kwargs)
+
+    def seeded_rng(step):
+        return torch.Generator(device=DEVICE).manual_seed(
+            checkpoint.resume_seed(0, step)).get_state()
+
+    def resume(ckpt_dir, flags, label, layers, fused, sigterm=False,
+               pt_path=None):
+        """One `oc_training --resume` run of JAX_RESUME_STEPS steps (with
+        `pt_path`, the restored state saved there as a .pt); the counts
+        set to 0 just before it and read just after."""
+        captured.clear()
+        captured["pt_path"] = pt_path
+        first_x.clear()
+        reset_counts()
+        rec = StepRecorder()
+
+        def hook(step, metrics):
+            rec(step, metrics)
+            if len(rec.steps) == JAX_RESUME_STEPS:
+                if not sigterm:
+                    raise _TwoSteps
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        argv = ["--train_protocol_file", protocol, "--train_dataset_dir",
+                train_dir, "--vocoded_dir", voc_dir, "--model", "aasist",
+                "--cut", str(TRAIN_CUT), "--compactness_weight", "0.1",
+                "--descriptiveness_weight", "0.9", "--checkpoint_dir",
+                ckpt_dir, "--resume", *flags]
+        if sigterm:
+            argv += ["--checkpoint_every_steps", "1000"]
+        t0 = time.perf_counter()
+        try:
+            oc_training.main(argv, on_step=hook)
+        except _TwoSteps:
+            pass
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        add(counts)
+        want = dict.fromkeys(counts, 0)
+        want.update({"flash_attn_fwd": 2 * layers,
+                     "flash_attn_bwd_dq": layers,
+                     "flash_attn_bwd_dkv": layers,
+                     "fused_adam": 1 if fused else 0})
+        check_steps(f"jax-resume {label}", rec, want)
+        if len(rec.steps) != JAX_RESUME_STEPS:
+            fail(f"jax-resume {label}: {len(rec.steps)} steps")
+        for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                     "flash_attn_bwd_dkv") + (("fused_adam",) if fused
+                                              else ()):
+            if not counts[name]:
+                fail(f"jax-resume {label}: {name} never launched")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(losses=[st["loss"] for st in rec.steps], wall_s=wall,
+                    step_ms=[st["ms"] for st in rec.steps],
+                    launches=rec.steps[0]["launches"],
+                    first_x=first_x[0] if first_x else None,
+                    read_s=captured.get("read_s"),
+                    ready_s=captured.get("ready_s"),
+                    state=captured.get("state"))
+
+    def case(label, xcfg, optimizer, progress_after, num_epochs, flags,
+             sigterm):
+        """Train 2 steps from seed 0, write the JAX directory, resume it
+        twice and its restored state once as a .pt."""
+        layers = xcfg.encoder_layers
+        fused = optimizer == "fused_adam"
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = AModel(AASISTConfig(), xcfg)
+        cfg = TrainConfig(cut=TRAIN_CUT, compactness_weight=0.1,
+                          descriptiveness_weight=0.9, optimizer=optimizer)
+        losses = []
+        reset_counts()
+        state = train(model, ListPipeline(list(pipeline.epoch(0))[:2]), cfg,
+                      logger=MetricsLogger(None, None), num_epochs=1,
+                      device=DEVICE, on_step=lambda s, m: losses.append(
+                          {k: float(m[k]) for k in ("loss", "closs",
+                                                    "dloss")}))
+        add(read_counts())
+        written = state_snapshot(state)
+        progress = None
+        if progress_after:
+            progress = {"epoch": 0, "dispatches": 2, "opt_steps": 2,
+                        **{f"running_{k}": sum(m[k] for m in losses)
+                           for k in ("loss", "closs", "dloss")}}
+        ckpt_dir = os.path.join(workdir, f"jax_resume_{label}")
+        os.makedirs(ckpt_dir)
+        t0 = time.perf_counter()
+        path = write_jax_checkpoint(state, ckpt_dir, prefix, xcfg,
+                                    progress=progress)
+        write_s = time.perf_counter() - t0
+        del state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        nbytes = _dir_bytes(path)
+        before = dir_fingerprint(path)
+        res = {"dir": os.path.basename(path), "bytes": nbytes,
+               "write_s": write_s, "write_MBps": nbytes / 1e6 / write_s}
+        print(f"[jax-resume] {label}: wrote {res['dir']} ({nbytes / 1e9:.3f} "
+              f"GB) in {write_s:.2f} s ({res['write_MBps']:.0f} MB/s); "
+              f"pre-write losses {[m['loss'] for m in losses]}", flush=True)
+
+        if progress is None:
+            want_x = list(pipeline.epoch(1))[0][0]
+        else:
+            want_x = list(pipeline.epoch(0))[progress["dispatches"]][0]
+        pt_dir = ckpt_dir + "_pt"
+        pt_path = (checkpoint.checkpoint_path(pt_dir, prefix, 0)
+                   if progress is None else
+                   checkpoint.step_checkpoint_path(pt_dir, prefix, 2))
+        runs = {}
+        for run, ck, pt in (("first", ckpt_dir, False),
+                            ("second", ckpt_dir, False),
+                            ("pt", pt_dir, True)):
+            runs[run] = r = resume(ck, flags + ["--num_epochs",
+                                                str(num_epochs)],
+                                   f"{label} {run}", layers, fused,
+                                   sigterm=sigterm and run == "second",
+                                   pt_path=pt_path if run == "first"
+                                   else None)
+            if not pt:
+                if r["state"] is None:
+                    fail(f"jax-resume {label} {run}: the JAX directory was "
+                         "not restored")
+                n = same_state(r["state"], written, f"jax-resume {label}")
+                if not torch.equal(r["state"]["rng"],
+                                   seeded_rng(written["step"])):
+                    fail(f"jax-resume {label}: the generator is not seeded "
+                         "by resume_seed")
+            if r["first_x"] is None or r["first_x"].numpy().tobytes() != \
+                    np.asarray(want_x, np.float32).tobytes():
+                fail(f"jax-resume {label} {run}: the first batch trained is "
+                     "not the pipeline's next one")
+            if run == "first":
+                res.update(read_s=r["read_s"], ready_s=r["ready_s"],
+                           read_MBps=nbytes / 1e6 / r["read_s"],
+                           tensors_bit_for_bit=n)
+            r["state"] = r["first_x"] = None
+        first = runs["first"]["losses"]
+        for run in ("second", "pt"):
+            if runs[run]["losses"] != first:
+                fail(f"jax-resume {label}: the {run} resume's losses "
+                     f"{runs[run]['losses']} differ from the first's {first}")
+        after = dir_fingerprint(path)
+        if after != before:
+            fail(f"jax-resume {label}: {path} changed under the port's runs")
+        listing = sorted(os.listdir(ckpt_dir))
+        epoch_ckpt, step_ckpt = checkpoint.find_resume(ckpt_dir, prefix)
+        nxt = step_ckpt or epoch_ckpt
+        if sigterm:
+            if listing != sorted([res["dir"], f"{prefix}_step_2.pt"]) or \
+                    nxt.jax:
+                fail(f"jax-resume {label}: after the SIGTERM save the "
+                     f"directory holds {listing}, and the next resume takes "
+                     f"{nxt}")
+        res.update(losses=first, pre_write_losses=[m["loss"] for m in losses],
+                   listing=listing, next_resume=os.path.basename(nxt.path),
+                   dir_unchanged=True,
+                   runs={k: {x: v[x] for x in ("wall_s", "step_ms",
+                                               "launches")}
+                         for k, v in runs.items()})
+        print(f"[jax-resume] {label}: {res['dir']} to a state ready to step "
+              f"in {res['ready_s']:.2f} s (read {res['read_s']:.2f} s, "
+              f"{res['read_MBps']:.0f} MB/s), {n} tensors bit for bit; "
+              f"losses {first} (second and .pt resumes bit for bit); CLI "
+              f"runs {[round(v['wall_s'], 1) for v in runs.values()]} s; "
+              f"{path} unchanged beside {listing}; the next resume takes "
+              f"{res['next_resume']}", flush=True)
+        shutil.rmtree(ckpt_dir)
+        shutil.rmtree(pt_dir)
+        return res
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cwd = os.getcwd()
+    os.chdir(workdir)  # loss.txt and metrics.jsonl land here
+    for module, name, fn in ((checkpoint, "restore_jax_checkpoint",
+                              restore_and_read),
+                             (orbax, "restore_tree", timed_read),
+                             (loop, "train_step", first_batch)):
+        setattr(module, name, fn)
+    try:
+        out["a"] = case("a", XLSRConfig(attention_impl="flash"), "adam",
+                        False, 2, [], sigterm=True)
+        with cli_at_depth(DEPTH):
+            out["b"] = case("b", at_depth(XLSRConfig(attention_impl="flash")),
+                            "fused_adam", True, 1,
+                            ["--optimizer", "fused_adam"], sigterm=False)
+    finally:
+        checkpoint.restore_jax_checkpoint = restore_jax
+        orbax.restore_tree, loop.train_step = read_tree, step_fn
+        os.chdir(cwd)
+        torch.use_deterministic_algorithms(False)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[jax-resume] phase 23: {out['phase_s']:.1f} s", flush=True)
+    return totals, out
+
+
 def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
     """The {"kernels": [...]} entries. Times, errors and bounds are this
     run's, at the shape named in each entry: `ms` the wrapper's time per
@@ -9691,6 +10145,11 @@ def main(argv=None) -> int:
                          "and the generic kernels, XLS-R 300M's widths "
                          "with 4 heads of 256: scoring, a training step, "
                          "utt/s); prints no kernels line")
+    ap.add_argument("--jax-resume-only", action="store_true",
+                    help="run phases 1, 2 and 23 only (device, build, "
+                         "oc_training --resume from the JAX package's epoch "
+                         "and step orbax directories at full width); prints "
+                         "no kernels line")
     ap.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD",
                                                           "PORT", "WORKDIR"),
                     help=argparse.SUPPRESS)  # phase 17's rank processes
@@ -9715,7 +10174,7 @@ def main(argv=None) -> int:
             or args.remat_only or args.native_only or args.base_only
             or args.int8_only or args.parallel_only or args.extras_only
             or args.orbax_only or args.coverage_only or args.xlsr1b_only
-            or args.wide_head_only):
+            or args.wide_head_only or args.jax_resume_only):
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -9759,6 +10218,9 @@ def main(argv=None) -> int:
                 counts, wide = phase_wide_head()
                 result = {"wide_head": dict(wide, kernels=rows,
                                             launches=counts)}
+            elif args.jax_resume_only:
+                counts, jax_resume = phase_jax_resume(workdir, fixture)
+                result = {"jax_resume": dict(jax_resume, launches=counts)}
             elif args.orbax_only:
                 model, ckpt = build_seed_model(workdir)
                 del model
@@ -9849,6 +10311,9 @@ def main(argv=None) -> int:
             h_counts, wide_head = phase_wide_head()
             for name in wide_head_launches:
                 wide_head_launches[name] = h_counts[name]
+            # phase 23: oc_training --resume from the JAX package's
+            # directories
+            j_counts, jax_resume = phase_jax_resume(workdir, fixture)
             control_counts, replayed, controls = phase_train_controls(
                 workdir, fixture)
             rb_counts, rb_replayed, rawboost = phase_rawboost_all(workdir,
@@ -9911,17 +10376,19 @@ def main(argv=None) -> int:
         print(f"[xlsr1b] {json.dumps(xlsr1b, default=str)}", flush=True)
         print(f"[wide-head] {json.dumps(wide_head, default=str)}",
               flush=True)
+        print(f"[jax-resume] {json.dumps(jax_resume, default=str)}",
+              flush=True)
         # phase 17's path: the ranks', the NCCL run's and the scoring runs'
         # and phase 19's: scoring, serving and training from a directory
         # and phase 21's and 22's: their steps run the FFN, LayerNorm and
-        # Adam kernels too
-        for counts in (p_counts, o_counts, w_counts, h_counts):
+        # Adam kernels too; and phase 23's resumed runs
+        for counts in (p_counts, o_counts, w_counts, h_counts, j_counts):
             for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
                          "ffn_fwd"):
                 launches[name] += counts[name]
             launches["flash_attn_bwd"] += counts["flash_attn_bwd_dq"]
 
-    print(f"[smoke] phases 1-22 took {time.perf_counter() - t_run:.1f} s",
+    print(f"[smoke] phases 1-23 took {time.perf_counter() - t_run:.1f} s",
           flush=True)
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,

@@ -20,9 +20,14 @@ directory, grafted into the SSL frontend (`ssl_model.model` of aasist,
 over --init_from, as in the JAX package). `--rawboost_algo` 1-8 augments
 every step's batch on the device. `--grad_accum`, `--lr_schedule` (with
 `--warmup_steps`, `--decay_steps`, `--lr_end_ratio`),
-`--steps_per_dispatch` (one CUDA graph per chunk on a card),
-`--checkpoint_every_steps` (and the SIGTERM save) and `--resume` act as in
-the JAX package. `--dp`, `--fsdp`, `--tp` and `--pp` lay the ranks of a
+`--optimizer` (adam, or the fused_adam kernel; TrainConfig's field, which
+the JAX CLI leaves at adam), `--steps_per_dispatch` (one CUDA graph per
+chunk on a card), `--checkpoint_every_steps` (and the SIGTERM save) and
+`--resume` act as in the JAX package; `--resume` also continues a JAX
+run from its epoch or step orbax directories in --checkpoint_dir
+(`train.checkpoint`), and the .pt files the port writes beside them win
+on the next --resume. `--dp`, `--fsdp`, `--tp` and `--pp` lay the ranks
+of a
 `torchrun --nproc_per_node N` launch out as a mesh (NCCL, one GPU per
 rank; `--device cpu`: Gloo): each rank loads its shard of the epoch and
 trains its shards of the model (`occm_tpu_torch.parallel`). `--pp N`
@@ -164,7 +169,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--resume", action="store_true",
         help="resume from the latest checkpoint of --checkpoint_dir (an "
              "epoch, or a newer step checkpoint, whose epoch is replayed "
-             "up to it)")
+             "up to it): the port's <model>_vocoded_<e>.pt / _step_<n>.pt "
+             "or the JAX package's orbax directories <model>_vocoded_<e>/ "
+             "/ _step_<n>/ (parameters, BatchNorm statistics, Adam's "
+             "moments, step and progress; the newest wins, a .pt on a "
+             "tie). A JAX run's dropout stream is not carried over: the "
+             "generator is seeded from --seed and the step. A directory of "
+             "weights only, or of another --optimizer / --lr_schedule, "
+             "raises")
     parser.add_argument(
         "--checkpoint_every_steps", type=int, default=0,
         help="save a step checkpoint every N optimizer steps (and on "
@@ -187,6 +199,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="lr schedule over optimizer steps (constant = the reference's "
              "fixed lr; cosine / linear: warmup over --warmup_steps, then "
              "decay over --decay_steps to lr * --lr_end_ratio; adam only)")
+    parser.add_argument(
+        "--optimizer", type=str, default="adam",
+        choices=["adam", "fused_adam"],
+        help="adam (torch.optim.Adam, the JAX package's optax adam) or "
+             "fused_adam (the single-pass CUDA kernel; a constant lr only), "
+             "TrainConfig.optimizer")
     parser.add_argument("--warmup_steps", type=int, default=0)
     parser.add_argument("--decay_steps", type=int, default=0)
     parser.add_argument("--lr_end_ratio", type=float, default=0.0)
@@ -318,6 +336,7 @@ def main(argv=None, on_step=None):
         checkpoint_every_steps=args.checkpoint_every_steps,
         grad_accum=args.grad_accum,
         lr_schedule=args.lr_schedule,
+        optimizer=args.optimizer,
         warmup_steps=args.warmup_steps,
         decay_steps=args.decay_steps,
         lr_end_ratio=args.lr_end_ratio,

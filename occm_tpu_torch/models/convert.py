@@ -363,21 +363,90 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
             for k, v in state.items()}
 
 
+#: the JAX package's optimizer states (`occm_tpu.train.loop.make_optimizer`)
+#: by the name `flax_optimizer_form` gives them
+FLAX_OPTIMIZER_FORMS = {
+    "fused_adam": "FusedAdamState {count, mu, nu} (--optimizer fused_adam)",
+    "adam": "optax adam with a constant lr [{count, mu, nu}, None] "
+            "(--optimizer adam --lr_schedule constant)",
+    "adam_schedule": "optax adam under an lr schedule [{count, mu, nu}, "
+                     "{count}] (--optimizer adam --lr_schedule cosine or "
+                     "linear)"}
+
+
+def _adam_fields(x) -> Optional[tuple]:
+    """(count, mu, nu) of a ScaleByAdamState / FusedAdamState, or of the
+    dict orbax restores one as without a template; else None."""
+    if isinstance(x, Mapping):
+        if set(x) == {"count", "mu", "nu"}:
+            return x["count"], x["mu"], x["nu"]
+        return None
+    if all(hasattr(x, a) for a in ("count", "mu", "nu")):
+        return x.count, x.mu, x.nu
+    return None
+
+
+def flax_optimizer_form(opt_state) -> tuple:
+    """(form, (count, mu, nu), schedule count or None) of a JAX optimizer
+    state, in any of the forms below; form is a key of
+    FLAX_OPTIMIZER_FORMS. Raises ValueError for anything else.
+
+    - "fused_adam": `FusedAdam`'s FusedAdamState(count, mu, nu), restored
+      untemplated as {count, mu, nu};
+    - "adam": `optax.adam(lr)`'s (ScaleByAdamState, EmptyState), restored
+      as [{count, mu, nu}, None];
+    - "adam_schedule": `optax.adam(schedule)`'s (ScaleByAdamState,
+      ScaleByScheduleState), restored as [{count, mu, nu}, {count}].
+    """
+    adam = _adam_fields(opt_state)
+    if adam is not None:
+        return "fused_adam", adam, None
+    if isinstance(opt_state, (list, tuple)) and len(opt_state) == 2:
+        adam = _adam_fields(opt_state[0])
+        tail = opt_state[1]
+        if adam is not None:
+            if tail is None or (isinstance(tail, tuple) and not tail):
+                return "adam", adam, None  # orbax's None, optax's EmptyState
+            if isinstance(tail, Mapping) and set(tail) == {"count"}:
+                return "adam_schedule", adam, int(np.asarray(tail["count"]))
+            if hasattr(tail, "count") and len(tail) == 1:
+                return "adam_schedule", adam, int(np.asarray(tail.count))
+    raise ValueError(
+        "not an optimizer state of the JAX package (one of: "
+        + "; ".join(FLAX_OPTIMIZER_FORMS.values())
+        + f"); got {_shape_of(opt_state)}")
+
+
+def _shape_of(tree) -> str:
+    """A short description of a tree's containers, for errors."""
+    if isinstance(tree, Mapping):
+        return "{" + ", ".join(sorted(map(str, tree))) + "}"
+    if isinstance(tree, (list, tuple)):
+        return "[" + ", ".join(_shape_of(x) for x in tree) + "]"
+    return type(tree).__name__
+
+
 def optimizer_state_from_flax(opt_state, xlsr_cfg: Optional[XLSRConfig] = None
                               ) -> Dict:
     """A JAX optimizer state of any model `state_dict_from_flax` takes ->
     {"count": int, "mu": {name: tensor}, "nu": {name: tensor}} in the
-    port's parameter names, with the parameters' transposes.
+    port's parameter names, with the parameters' transposes: the form
+    `TrainState.load_optimizer_state` takes under either optimizer
+    (torch.optim.Adam, capturable on a card, and FusedAdam).
 
-    opt_state: the JAX package's `FusedAdamState` (count, mu, nu), or
-    optax adam's state, whose first element is a `ScaleByAdamState` (with
-    a constant lr or a schedule: the schedule's own count is the same
-    step count); its mu and nu are parameter-shaped trees of numpy arrays.
-    Both packages train the positional conv's folded kernel w, so w's
-    moments go to `encoder.pos_conv.0.weight`."""
-    adam = opt_state if hasattr(opt_state, "mu") else opt_state[0]
-    out: Dict = {"count": int(np.asarray(adam.count))}
-    for key, tree in (("mu", adam.mu), ("nu", adam.nu)):
+    opt_state: any form of `flax_optimizer_form`, as the JAX objects or as
+    `train.orbax.restore_tree` gives them; mu and nu are parameter-shaped
+    trees of numpy arrays. Under a schedule, the schedule's own count must
+    be Adam's (ValueError otherwise). Both packages train the positional
+    conv's folded kernel w, so w's moments go to
+    `encoder.pos_conv.0.weight`."""
+    _, (count, mu, nu), sched_count = flax_optimizer_form(opt_state)
+    count = int(np.asarray(count))
+    if sched_count is not None and sched_count != count:
+        raise ValueError(f"the lr schedule's count {sched_count} is not "
+                         f"Adam's count {count}")
+    out: Dict = {"count": count}
+    for key, tree in (("mu", mu), ("nu", nu)):
         arrays = arrays_from_flax({"params": tree}, xlsr_cfg,
                                   params_only=True)
         for name in [n for n in arrays

@@ -29,7 +29,9 @@ Semantics of the JAX package's loop (reference: oc_training.py:344-401):
 - loss.txt running averages whenever the optimizer-step count crosses a
   multiple of `log_every`, per-epoch checkpoints through
   `checkpoint_fn(state, epoch)`, step checkpoints every
-  `checkpoint_every_steps` optimizer steps and on SIGTERM, and resume.
+  `checkpoint_every_steps` optimizer steps and on SIGTERM, and resume
+  from the port's `.pt` checkpoints or the JAX package's orbax
+  directories (`train.checkpoint`).
 
 On a mesh with pp > 1 (the GPipe pipeline over the XLSR layers), each
 rank runs its pp_stages / pp consecutive stages of the schedule: rank 0
@@ -49,7 +51,9 @@ the device between log points, and the host reads them only there (and
 when an `on_step` hook asks). RawBoost's draws and then the dropout masks
 come from the state's generator on the model's device, seeded from
 cfg.seed; its state is part of every checkpoint, so a resumed run draws
-the augmentation and the masks the uninterrupted run would have drawn.
+the augmentation and the masks the uninterrupted run would have drawn. A
+run continued from a JAX directory seeds it from cfg.seed and the step
+instead (a JAX PRNG key has no torch counterpart).
 """
 
 from __future__ import annotations
@@ -425,11 +429,22 @@ def train(
     metrics), when given, after every dispatch (one optimizer step, or a
     chunk of k: metrics as device scalars, a chunk's means, with its
     steps' values under "step_loss", "step_closs", "step_dloss" and
-    "step_lr"). resume=True restores the newest epoch checkpoint
-    `<checkpoint_prefix>_<e>.pt` of cfg.checkpoint_dir, then a newer step
-    checkpoint, whose epoch is replayed: its consumed dispatches are read
-    from the pipeline and skipped without being uploaded. Returns the final
-    TrainState (after a SIGTERM, the state it saved).
+    "step_lr"). resume=True continues from cfg.checkpoint_dir's newest
+    checkpoint of cfg.checkpoint_prefix (`train.checkpoint.find_resume`,
+    the JAX package's rule): an epoch checkpoint, the port's
+    `<prefix>_<e>.pt` or the JAX package's orbax directory `<prefix>_<e>/`
+    (training goes on at epoch e + 1), or a newer step checkpoint,
+    `<prefix>_step_<n>.pt` or `<prefix>_step_<n>/`, whose epoch is
+    replayed: its consumed dispatches are read from the pipeline and
+    skipped without being uploaded, and its running loss sums carry on
+    into loss.txt. A JAX directory gives the parameters, BatchNorm
+    statistics, Adam's moments and count and the step (strictly: what is
+    not this model's or this optimizer's raises ValueError before any
+    step); its dropout / RawBoost generator is seeded from cfg.seed and
+    the step (`train.checkpoint.resume_seed`), so the continued losses are
+    not the JAX run's. The "resume" and "resume_step" events go to the
+    logger's jsonl as in JAX. Returns the final TrainState (after a
+    SIGTERM, the state it saved).
 
     Multi-GPU (`mesh`, else `parallel.make_mesh(cfg.mesh)` over the process
     group's ranks; `device` is this rank's): after the resume the state is
@@ -482,41 +497,22 @@ def train(
 
     start_epoch, progress = 0, None
     if resume:
-        from occm_tpu_torch.train.checkpoint import (
-            jax_checkpoint_dirs, latest_epoch, latest_step_checkpoint,
-            restore_checkpoint, restore_step_checkpoint)
+        from occm_tpu_torch.train.checkpoint import find_resume, restore
 
-        last = latest_epoch(cfg.checkpoint_dir, cfg.checkpoint_prefix)
-        if (last is None
-                and latest_step_checkpoint(cfg.checkpoint_dir,
-                                           cfg.checkpoint_prefix) is None):
-            jax_dirs = jax_checkpoint_dirs(cfg.checkpoint_dir,
-                                           cfg.checkpoint_prefix)
-            if jax_dirs:
-                raise ValueError(
-                    f"resume: {cfg.checkpoint_dir} holds the JAX package's "
-                    f"checkpoints {jax_dirs} and no .pt of prefix "
-                    f"{cfg.checkpoint_prefix!r}; the port does not continue "
-                    "a JAX run's optimizer state and epoch. Start from its "
-                    "weights with --init_from <directory> (a fresh optimizer "
-                    "and epoch 0) instead of --resume")
-        if last is not None:
-            restore_checkpoint(state, cfg.checkpoint_dir,
-                               cfg.checkpoint_prefix, last)
-            start_epoch = last + 1
+        epoch_ckpt, step_ckpt = find_resume(cfg.checkpoint_dir,
+                                            cfg.checkpoint_prefix)
+        if epoch_ckpt is not None:
+            if step_ckpt is None:  # else the step checkpoint replaces it
+                restore(state, epoch_ckpt, cfg)
+            start_epoch = epoch_ckpt.number + 1
             logger.log_jsonl(event="resume", epoch=start_epoch)
         # a step checkpoint not older than the last epoch checkpoint wins:
         # its epoch is replayed up to it
-        s_opt = latest_step_checkpoint(cfg.checkpoint_dir,
-                                       cfg.checkpoint_prefix)
-        if s_opt is not None:
-            progress = restore_step_checkpoint(
-                state, cfg.checkpoint_dir, cfg.checkpoint_prefix, s_opt,
-                min_epoch=start_epoch)
-            if progress is not None:
-                start_epoch = int(progress["epoch"])
-                logger.log_jsonl(event="resume_step", epoch=start_epoch,
-                                 opt_steps=int(progress["opt_steps"]))
+        if step_ckpt is not None:
+            progress = restore(state, step_ckpt, cfg)
+            start_epoch = int(progress["epoch"])
+            logger.log_jsonl(event="resume_step", epoch=start_epoch,
+                             opt_steps=int(progress["opt_steps"]))
 
     if distributed:
         place_state_on_mesh(state, mesh)

@@ -36,7 +36,7 @@ import shutil
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -144,15 +144,31 @@ def _run(fn, jobs, sizes) -> None:
             list(pool.map(fn, big))
 
 
-def restore_tree(path: str):
+def top_level_keys(path: str) -> List[str]:
+    """The top-level keys of the orbax checkpoint at `path`, from its
+    `_METADATA` alone (no array is read)."""
+    meta = _metadata(os.path.abspath(path))
+    return sorted({str(item["key_metadata"][0]["key"])
+                   for item in meta["tree_metadata"].values()
+                   if item["key_metadata"]})
+
+
+def restore_tree(path: str, subtree: Optional[str] = None):
     """The tree of the orbax checkpoint at `path`, as orbax restores it
-    without a template (see the module docstring)."""
+    without a template (see the module docstring). With `subtree`, only
+    the tree under that top-level key (say "progress"), reading no other
+    array; {} when there is none."""
     path = os.path.abspath(path)
     meta = _metadata(path)
     store = OcdbtStore(path)
     entries, arrays = [], []
     for name, item in meta["tree_metadata"].items():
         keys = item["key_metadata"]
+        if subtree is not None:
+            if not keys or str(keys[0]["key"]) != subtree:
+                continue
+            if len(keys) == 1:
+                raise ValueError(f"{path}: {subtree} is a leaf")
         vtype = item.get("value_metadata", {}).get("value_type")
         if vtype in EMPTY:
             entries.append((keys, EMPTY[vtype]()))
@@ -177,7 +193,8 @@ def restore_tree(path: str):
     jobs = [(i, param, vtype, zarr.read_meta(store, param))
             for i, param, vtype in arrays]
     _run(load, jobs, [zarr.nbytes(job[3]) for job in jobs])
-    return _build(entries, path)
+    tree = _build(entries, path)
+    return tree.get(subtree, {}) if subtree is not None else tree
 
 
 def _flatten(tree, prefix=()):
@@ -215,13 +232,18 @@ def _value_type(leaf) -> str:
     raise TypeError(f"leaf of type {type(leaf).__name__} is not written")
 
 
-def save_tree(tree, path: str) -> str:
+def save_tree(tree, path: str, array_type: str = "np.ndarray") -> str:
     """Write `tree` (nested dicts with string keys, lists and tuples; leaves
     numpy arrays or scalars, CPU or CUDA tensors, Python numbers, None) as
     an orbax checkpoint at `path`: the directory is written under a
     temporary name and renamed into place, replacing an old one (as the
-    JAX package's saves do, with orbax's force=True). Returns the absolute
-    path."""
+    JAX package's saves do, with orbax's force=True). Array leaves are
+    recorded as `array_type`: "np.ndarray" (a tree of numpy arrays saved
+    by orbax) or "jax.Array" (of device arrays, as every leaf of the JAX
+    package's trainer checkpoints is; orbax then records its
+    `write_shape` too). Returns the absolute path."""
+    if array_type not in ARRAY_TYPES:
+        raise ValueError(f"array_type {array_type!r} (one of {ARRAY_TYPES})")
     path = os.path.abspath(path)
     started = time.time_ns()
     tmp = f"{path}.orbax-checkpoint-tmp-{os.getpid()}"
@@ -232,10 +254,16 @@ def save_tree(tree, path: str) -> str:
         if not keys:
             raise ValueError("the tree's root must be a dict or a sequence")
         vtype = _value_type(leaf)
+        value_meta = {"value_type": vtype, "skip_deserialize": vtype in EMPTY}
+        if vtype == "np.ndarray" and array_type == "jax.Array":
+            value_meta = {"value_type": array_type,
+                          "skip_deserialize": False,
+                          "write_shape": [int(n) for n in (
+                              leaf.shape if isinstance(leaf, torch.Tensor)
+                              else np.shape(leaf))]}
         tree_meta[str(tuple(k for k, _ in keys))] = {
             "key_metadata": [{"key": k, "key_type": t} for k, t in keys],
-            "value_metadata": {"value_type": vtype,
-                               "skip_deserialize": vtype in EMPTY}}
+            "value_metadata": value_meta}
         if vtype not in EMPTY:
             arrays.append((".".join(k for k, _ in keys), leaf))
 

@@ -150,9 +150,25 @@ class TrainState:
     @torch.no_grad()
     def load_optimizer_state(self, opt_state: Dict) -> None:
         """Set the step count and the moments named in `opt_state`; every
-        other parameter keeps zero moments."""
+        other parameter keeps zero moments. Every name of mu and nu must be
+        a parameter of the model at its shape, and mu and nu must name the
+        same parameters (ValueError otherwise)."""
         count = int(opt_state["count"])
         named = self.named_params()
+        shapes = {n: tuple(p.shape) for n, p in named}
+        mu, nu = opt_state["mu"], opt_state["nu"]
+        if set(mu) != set(nu):
+            raise ValueError("mu and nu name other parameters: "
+                             f"{sorted(set(mu) ^ set(nu))[:4]}")
+        for n in sorted(mu):
+            if n not in shapes:
+                raise ValueError(f"the moments of {n!r}: the model has no "
+                                 "such parameter")
+            for key, m in (("mu", mu[n]), ("nu", nu[n])):
+                if tuple(m.shape) != shapes[n]:
+                    raise ValueError(f"{key} of {n!r} has shape "
+                                     f"{tuple(m.shape)}, the parameter "
+                                     f"{shapes[n]}")
         if isinstance(self.optimizer, FusedAdam):
             opt = self.optimizer
             opt.count = count

@@ -1,13 +1,16 @@
-"""train(resume=True) beside the JAX package's checkpoints.
+"""train(resume=True) beside orbax directories that are not the JAX
+package's trainer checkpoints.
 
 The JAX package writes its epoch and step checkpoints as orbax directories
-`<prefix>_<epoch>` and `<prefix>_step_<n>` (occm_tpu/train/checkpoint.py);
-the port's resume reads only its own `.pt` files. Where the checkpoint
-directory holds the prefix's JAX directories and no `.pt` of the prefix,
-train(resume=True) raises a ValueError that names --init_from (which
-starts from such a directory's weights) instead of training from fresh
-weights beside them. The directories are written with the port's own
-orbax writer (`train/orbax.py` `save_tree`).
+`<prefix>_<epoch>` and `<prefix>_step_<n>` (occm_tpu/train/checkpoint.py),
+from which the port's resume continues (tests/test_torch_resume_jax.py). A
+directory of the prefix's name that holds weights only (here a
+{"params", "step"} tree, no optimizer state) cannot be continued:
+train(resume=True) raises a ValueError that names the directory, the
+missing opt_state and --init_from (which starts from such a directory's
+weights) instead of training from fresh weights beside it. The
+directories are written with the port's own orbax writer (`train/orbax.py`
+`save_tree`).
 """
 
 import dataclasses
@@ -68,15 +71,17 @@ def _train(directory):
     [f"{PREFIX}_0"], [f"{PREFIX}_step_3"], [f"{PREFIX}_1", f"{PREFIX}_0"]],
     ids=["epoch", "step", "two_epochs"])
 def test_resume_beside_a_jax_checkpoint_names_init_from(tmp_path, names):
-    """The prefix's JAX epoch or step directories and no .pt of it: resume
-    raises before any step, naming --init_from and the directories."""
+    """The prefix's epoch or step directories of weights only and no .pt of
+    it: resume raises before any step, naming the newest directory, its
+    missing opt_state and --init_from."""
     for name in names:
         _jax_dir(tmp_path, name)
     assert jax_checkpoint_dirs(str(tmp_path), PREFIX) == sorted(names)
     with pytest.raises(ValueError, match="--init_from") as err:
         _train(tmp_path)
-    for name in names:
-        assert name in str(err.value)
+    newest = str(tmp_path / names[0])
+    assert f"{newest} holds weights only" in str(err.value)
+    assert "no 'opt_state'" in str(err.value)
 
 
 def test_resume_ignores_other_directories_and_prefixes(tmp_path):

@@ -18,6 +18,7 @@
     python3 chip_smoke.py --xlsr1b-only   # phases 1, 2 and 21 only
     python3 chip_smoke.py --wide-head-only  # phases 1, 2 and 22 only
     python3 chip_smoke.py --jax-resume-only # phases 1, 2 and 23 only
+    python3 chip_smoke.py --over-256-only   # phases 1, 2 and 24 only
 
 Phases (any failure ends the run with a non-zero exit and no last line):
 
@@ -34,7 +35,8 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    and D 64's and D 256's; above 128 the dk/dv kernel is the wide one) or
    of the 3xTF32 attention forward (16 .. 128), has no HGMMA, or an
    instance of the 3xTF32 dq or dk/dv kernel
-   (round_up(D, 16) = 16 .. 128) no HMMA.
+   (round_up(D, 16) = 16 .. 128) no HMMA, or an instance of the three
+   panel kernels above D 256 (panel widths 192, 256) no HGMMA.
 3. kernels, each against its plain PyTorch version on the card on the same
    inputs, with the wrapper's time (CUDA events), the kernel's own device
    time (torch.profiler), and the plain, library and bound times:
@@ -63,8 +65,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    forward's route) scored on the card under auto attention (the
    measured policy, impl_select.AUTO_TF32_MIN_SAMPLES) and with a
    pinned flash impl (the 3xTF32 forward), each in agreement with the
-   CPU; a tiny model with head dim 260, which no kernel takes: xla under
-   auto, a pinned flash raises. Then scoring and evaluation at full
+   CPU; a tiny model with head dim 260: xla under auto (no launch), a
+   pinned flash on the generic forward's panels (a launch a layer), in
+   agreement with the CPU. Then scoring and evaluation at full
    width (XLSR-300M + AASIST, random
    weights from seed 0, saved as a reference-named .pt):
    `occm_tpu_torch.cli.oc_classifier` in 1c2 and 2c2 mode on a synthetic
@@ -432,15 +435,39 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    the directory's files, sizes and manifest hashes unchanged, and the
    next resume taking the port's .pt. Write, read and ready seconds and
    MB/s are printed.
-24. with --profile only: device time by kernel (torch.profiler) for full
+24. attention above head dim 256 (`--over-256-only`: phases 1, 2 and 24;
+   in a full run its kernel checks follow phase 22's and its path phase
+   22's path): the panel kernels (csrc/flash_attn_panel.cu; bf16 at
+   D 264, 320, 512 with H 16 and at D 1024 with H 1) and the generic
+   kernels' panels (fp32 at D 264 and 512, bf16 at D 260), T 201 / 299 /
+   599 / 1500 (forward B 8, backward B 12): against their plain versions
+   (bf16 at phase 3's bounds, fp32 at phase 20's), the panel kernels also
+   against the generic kernels on the same inputs; views = [B*H, T, D] =
+   a repeat bit for bit, one device launch a forward call and two a
+   backward call, autograd at T 299; at T 299 / 1500 wrapper, device,
+   plain, SDPA (and the backend it ran), the generic kernels' ("was") and
+   bound times. Then XLS-R 300M's widths with 2 heads of 512
+   (AModel(AASISTConfig(), XLSRConfig(encoder_heads=2)), bf16, flash,
+   fused FFN, LayerNorm kernel, random weights from seed 0), as phase
+   22's model: 8 x 6 s and 8 x 12 s scored (24 panel forward launches a
+   batch, none of D 64's, the other head dims' or the generic kernels;
+   within SCORE_RTOL of xla attention and the plain FFN), one eager
+   12 x 6 s training step against the plain one with launches exact and
+   one fused_adam step, utt/s at 1, 2, 6 and 12 s in turns (the
+   measurement behind impl_select.AUTO_OVER_256_MIN_SAMPLES); and the same
+   widths in fp32 at DEPTH layers on the generic kernels' panels, as
+   phase 20's fp32 model: scoring 8 x 6 s and 8 x 12 s and an eager
+   training step against the plain path (COVERAGE_MODEL_RTOL).
+25. with --profile only: device time by kernel (torch.profiler) for full
    batches of 8 in the two flash buckets, for a 6 s batch with
    ffn_impl="pallas", and for one full training step (12 x 6 s).
-25. prints {"kernels": [...]} (each entry of phases 3's kernels with
+26. prints {"kernels": [...]} (each entry of phases 3's kernels with
    phase 15's row at base's shapes under "base" and phase 17's at the
    per-rank shapes under "tp2", "dp2" or "fsdp2", "pp2" and "sp2"; phase
-   20's six entries and phase 21's and 22's two each with their shapes
-   under "per_shape"), then {"ok": true, "device": {...}} last.
-A full run makes phase 15's, 16's, 17's, 20's, 21's and 22's kernel
+   20's six entries and phase 21's, 22's and 24's two, two and four with
+   their shapes under "per_shape"), then {"ok": true, "device": {...}}
+   last.
+A full run makes phase 15's, 16's, 17's, 20's, 21's, 22's and 24's kernel
 checks right after phase 3's, and phases 15 and 16's other parts before
 phase 14 (see main).
 
@@ -618,7 +645,7 @@ def device_ms(fn, names, iters: int = 20, warmup: int = 3,
                 own += 1
         want = sum((after[c] - before[c])
                    * {**KERNEL_NAMES, **COVERAGE_KERNEL_NAMES,
-                      **WIDE_KERNEL_NAMES}[c][1]
+                      **WIDE_KERNEL_NAMES, **OVER_256_KERNEL_NAMES}[c][1]
                    for c in counters)
         if (every and own % iters == 0 and (not counters or own == want)
                 and (every % iters == 0 or not whole_others)):
@@ -810,6 +837,15 @@ def phase_build():
                 fail(f"the SASS of {tag} holds no HGMMA: {sorted(hgmma)}")
     print(f"[build] HGMMA in every instance of the three attention kernels "
           f"({len(instances)} each)", flush=True)
+    # and the panel kernels above D 256 (csrc/flash_attn_panel.cu), in both
+    # panel widths
+    for kernel in OVER_256_KERNEL_NAMES.values():
+        for pw in PANEL_WIDTHS:
+            tag = f"{kernel[0]}ILi{pw}E"
+            if not any(tag in f for f in hgmma):
+                fail(f"the SASS of {tag} holds no HGMMA: {sorted(hgmma)}")
+    print(f"[build] HGMMA in every instance of the three panel kernels "
+          f"(PW {PANEL_WIDTHS})", flush=True)
     return hgmma
 
 
@@ -1467,9 +1503,11 @@ def phase_tiny_auto():
     each bucket runs what the measured policy picks for that route
     (impl_select.auto_flash_min_samples), and a pinned "flash" runs the
     route's forward (2 launches a batch, none of the other forwards); both
-    agree with the same model on the CPU. The guard on a model that no
-    kernel takes stays: a tiny model with head dim 260 runs "xla" under
-    auto, and a pinned "flash" raises."""
+    agree with the same model on the CPU. Above head dim 256 auto keeps
+    "xla" (AUTO_OVER_256_MIN_SAMPLES is None until measured): a tiny model
+    with head dim 260 launches nothing under auto, and a pinned "flash"
+    runs the generic forward's panels (a launch a layer, no other
+    forward), within TINY_RTOL_OF_MAX of the same model on the CPU."""
     import torch
 
     from occm_tpu_torch.classify import (
@@ -1485,7 +1523,8 @@ def phase_tiny_auto():
     layers = xcfg.encoder_layers
     fwd = fwd_counter(xcfg.dtype, xcfg.encoder_embed_dim // xcfg.encoder_heads)
     others = {"flash_attn_3xtf32_fwd", "flash_attn_generic_fwd",
-              "flash_attn_fwd", "flash_attn_fwd_other_d"} - {fwd}
+              "flash_attn_fwd", "flash_attn_fwd_other_d",
+              "flash_attn_fwd_panel"} - {fwd}
     floor = auto_flash_min_samples(xcfg, "cuda")
     model = random_init_(AModel(AASISTConfig.tiny(), xcfg), seed=0)
     rng = np.random.default_rng(3)
@@ -1523,30 +1562,45 @@ def phase_tiny_auto():
                      f"{TINY_RTOL_OF_MAX} * {scale}")
         out[impl] = dict(picked=picked, forward=fwd, launches=n_flash,
                          emb_max_abs_err=float(np.abs(got[0] - want[0]).max()))
-    # a head dim that no CUDA kernel takes: xla under auto, a pinned flash
-    # raises
+    # a head dim above 256: xla under auto, a pinned flash runs the
+    # generic forward's panels
     wide = dataclasses.replace(xcfg, encoder_embed_dim=1040)  # D = 260
-    model = random_init_(AModel(AASISTConfig.tiny(), wide), seed=0).to("cuda")
-    x = torch.from_numpy(np.stack([w[:SR] for w in waves])).to("cuda")
+    model = random_init_(AModel(AASISTConfig.tiny(), wide), seed=0)
+    x = torch.from_numpy(np.stack([w[:SR] for w in waves]))
+    want = make_score_fn(model, "flash")(x)
+    model.to("cuda")
+    x = x.to("cuda")
     reset_counts()
     make_embed_fn_factory(model, "auto")(SR)(x)
     make_embed_fn_factory(model, "auto")(40 * SR)(x)
     if any(read_counts().values()):
         fail(f"a head dim of 260 under auto launched a kernel: "
              f"{read_counts()}")
-    try:
-        make_score_fn(model, "flash")(x)
-    except ValueError as e:
-        pinned = str(e)
-    else:
-        fail("head dim 260 with a pinned flash impl did not raise on the card")
+    got = make_score_fn(model, "flash")(x)
+    counts = read_counts()
+    wide_fwd = fwd_counter(wide.dtype, 260)
+    if counts[wide_fwd] != layers or any(counts[k] for k in others | {fwd}
+                                         if k != wide_fwd):
+        fail(f"head dim 260 with a pinned flash impl: launches {counts}, "
+             f"want {layers} {wide_fwd} launches and no other forward")
+    for name, a, b in zip(("embeddings", "logits"), got, want):
+        a = a.cpu()
+        err = float((a - b).abs().max())
+        if not (a.shape == b.shape and bool(torch.isfinite(a).all())
+                and err <= TINY_RTOL_OF_MAX * float(b.abs().max())):
+            fail(f"head dim 260, pinned flash on the card: {name} max "
+                 f"|cuda - cpu| = {err}")
+    out["d260_pinned_flash"] = dict(forward=wide_fwd, launches=layers,
+                                    emb_max_abs_err=float(
+                                        (got[0].cpu() - want[0]).abs().max()))
     print(f"[tiny] XLSRConfig.tiny() (fp32, head dim 16) on the card: "
           f"{len(waves)} waves of 1-2 s in buckets {buckets}; auto picks "
           f"{out['auto']['picked']} (threshold {floor} samples), a pinned "
           f"flash runs {fwd} ({out['flash']['launches']} launches); "
           f"embeddings within {TINY_RTOL_OF_MAX} of the largest |value| of "
-          f"the CPU's both ways; head dim 260: xla under auto, a pinned "
-          f"flash raises: {pinned}", flush=True)
+          f"the CPU's both ways; head dim 260: xla under auto (no launch), "
+          f"a pinned flash runs {wide_fwd} ({layers} launches), within "
+          f"{TINY_RTOL_OF_MAX} of the CPU's", flush=True)
     del model
     torch.cuda.empty_cache()
     return out
@@ -2064,6 +2118,9 @@ def reset_counts():
     attention.TF32_FWD_LAUNCHES = 0
     attention.TF32_BWD_DQ_LAUNCHES = 0
     attention.TF32_BWD_DKV_LAUNCHES = 0
+    attention.PANEL_LAUNCHES = 0
+    attention.PANEL_BWD_DQ_LAUNCHES = 0
+    attention.PANEL_BWD_DKV_LAUNCHES = 0
     layernorm.LAUNCHES = 0
     fused_adam.LAUNCHES = 0
     ffn.LAUNCHES = 0
@@ -8208,7 +8265,8 @@ def coverage_autograd(q4, k4, v4, do4, want, label,
     backward = ("flash_attn_generic_bwd_dq", "flash_attn_generic_bwd_dkv",
                 "flash_attn_3xtf32_bwd_dq", "flash_attn_3xtf32_bwd_dkv",
                 "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
-                "flash_attn_bwd_other_d_dq", "flash_attn_bwd_other_d_dkv")
+                "flash_attn_bwd_other_d_dq", "flash_attn_bwd_other_d_dkv",
+                "flash_attn_bwd_panel_dq", "flash_attn_bwd_panel_dkv")
     q, k, v = (x.detach().requires_grad_() for x in (q4, k4, v4))
     reset_counts()
     grads = torch.autograd.grad(attention.flash_attention(q, k, v),
@@ -8371,18 +8429,24 @@ def phase_coverage_kernels():
 
 def fwd_counter(dtype, head_dim: int) -> str:
     """The launch counter (launch_counts' key) of the forward kernel that
-    `cuda_route` gives q, k, v of this dtype and head dim."""
+    `cuda_route` gives q, k, v of this dtype and head dim (on the wgmma
+    route: D 64's instance, another head dim's up to 256, or the panel
+    kernel above)."""
     import torch
 
     from occm_tpu_torch.ops import attention
 
-    return {"3xtf32": "flash_attn_3xtf32_fwd", "generic":
-            "flash_attn_generic_fwd"}.get(
-                attention.cuda_route(getattr(torch, dtype), head_dim),
-                "flash_attn_fwd")
+    route = attention.cuda_route(getattr(torch, dtype), head_dim)
+    if route == "wgmma":
+        return ("flash_attn_fwd" if head_dim == 64
+                else "flash_attn_fwd_other_d" if head_dim <= 256
+                else "flash_attn_fwd_panel")
+    return {"3xtf32": "flash_attn_3xtf32_fwd",
+            "generic": "flash_attn_generic_fwd"}[route]
 
 
-def coverage_model(workdir: str) -> tuple:
+def coverage_model(workdir: str, fields=None, tag: str = "coverage",
+                   speed: bool = True) -> tuple:
     """The fp32 model at full width through the 3xTF32 attention forward
     and backward and the 3xTF32 FFN kernel: AModel(AASISTConfig(),
     XLSRConfig(dtype="float32", attention_impl="flash",
@@ -8396,8 +8460,11 @@ def coverage_model(workdir: str) -> tuple:
     backward, 48 3xTF32 FFN launches, no generic kernel); utt/s at 1, 2, 6
     and 12 s in turns: xla, flash (3xTF32 forward and backward) and flash
     with the 3xTF32 FFN kernel (the measurement behind impl_select's
-    AUTO_TF32_MIN_SAMPLES). Returns (the counts of the path's run, the
-    results)."""
+    AUTO_TF32_MIN_SAMPLES). `fields`: other XLSRConfig fields (phase 24:
+    2 heads of 512 at DEPTH layers, whose attention takes the generic
+    kernels' panels, forward and backward; the launch gates follow
+    `cuda_route` and `cuda_bwd_route`), `speed` False leaves out the
+    utt/s. Returns (the counts of the path's run, the results)."""
     import torch
 
     from occm_tpu_torch.classify.impl_select import AUTO_TF32_MIN_SAMPLES
@@ -8407,19 +8474,24 @@ def coverage_model(workdir: str) -> tuple:
     from occm_tpu_torch.serve import make_score_fn
     from occm_tpu_torch.utils import random_init_
 
+    from occm_tpu_torch.ops.attention import cuda_bwd_route
+
     kcfg = XLSRConfig(dtype="float32", attention_impl="flash",
-                      ffn_impl="pallas")
+                      ffn_impl="pallas", **(fields or {}))
     pcfg = dataclasses.replace(kcfg, attention_impl="xla", ffn_impl="xla")
     layers = kcfg.encoder_layers
     fwd = fwd_counter(kcfg.dtype,
                       kcfg.encoder_embed_dim // kcfg.encoder_heads)
     other_fwd = ({"flash_attn_3xtf32_fwd", "flash_attn_generic_fwd"}
                  - {fwd}).pop()
+    bwd = cuda_bwd_route(torch.float32,
+                         kcfg.encoder_embed_dim // kcfg.encoder_heads)
+    other_bwd = ({"3xtf32", "generic"} - {bwd}).pop()
     acfg = AASISTConfig(dropout=0.0, pool_dropout=0.0, head_dropout=0.0)
     t0 = time.perf_counter()
     model = random_init_(AModel(acfg, kcfg), seed=0).to("cuda").eval()
-    print(f"[coverage] AModel(AASISTConfig(), XLSRConfig(dtype='float32', "
-          f"attention_impl='flash', ffn_impl='pallas')): "
+    print(f"[{tag}] AModel(AASISTConfig(), XLSRConfig(dtype='float32', "
+          f"attention_impl='flash', ffn_impl='pallas', {fields or ''})): "
           f"{sum(p.numel() for p in model.parameters())} params, init "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(20)
@@ -8457,7 +8529,7 @@ def coverage_model(workdir: str) -> tuple:
         feat_rel = float((emb_k - emb_p).norm() / emb_p.norm())
         scoring[sec] = dict(distance_max_rel=rel, emb_rel_l2=feat_rel,
                             launches=want)
-        print(f"[coverage] fp32 scoring 8 x {sec} s: {layers} {fwd} and "
+        print(f"[{tag}] fp32 scoring 8 x {sec} s: {layers} {fwd} and "
               f"{layers} 3xTF32 FFN launches, no {other_fwd}, wgmma or SIMT "
               f"FFN; distances "
               f"to the plain path's mean embedding max rel diff {rel:.3e}, "
@@ -8504,9 +8576,10 @@ def coverage_model(workdir: str) -> tuple:
     # remat (the default) runs every layer's forward again in the backward
     fwd_per = layers * (2 if kcfg.remat else 1)
     want = {fwd: fwd_per, other_fwd: 0,
-            "flash_attn_3xtf32_bwd_dq": layers,
-            "flash_attn_3xtf32_bwd_dkv": layers,
-            "flash_attn_generic_bwd_dq": 0, "flash_attn_generic_bwd_dkv": 0,
+            f"flash_attn_{bwd}_bwd_dq": layers,
+            f"flash_attn_{bwd}_bwd_dkv": layers,
+            f"flash_attn_{other_bwd}_bwd_dq": 0,
+            f"flash_attn_{other_bwd}_bwd_dkv": 0,
             "ffn_fwd_3xtf32": fwd_per, "ffn_fwd_f32": 0,
             "flash_attn_fwd": 0, "flash_attn_bwd_dq": 0, "ffn_fwd": 0}
     if any(counts[k] != n for k, n in want.items()):
@@ -8517,7 +8590,7 @@ def coverage_model(workdir: str) -> tuple:
                                            / enc_p.norm()),
                  ms=ms_k, plain_ms=ms_p, launches=want)
     out["train"] = train
-    print(f"[coverage] fp32 training step 12 x 6 s (eager): {train}",
+    print(f"[{tag}] fp32 training step 12 x 6 s (eager): {train}",
           flush=True)
     if not (math.isfinite(loss_k)
             and abs(loss_k - loss_p) <= COVERAGE_MODEL_RTOL * abs(loss_p)
@@ -8526,6 +8599,11 @@ def coverage_model(workdir: str) -> tuple:
         fail(f"fp32 training step: kernels against plain {train}")
     del enc_p, enc_k, f_p, f_k, up_p
     model.eval()
+    if not speed:
+        del model, kernels
+        gc.collect()
+        torch.cuda.empty_cache()
+        return total, out
 
     # ---- utt/s in turns: xla, flash (3xTF32 forward and backward), flash +
     # the 3xTF32 FFN kernel
@@ -9085,8 +9163,10 @@ def phase_wide_kernels():
 def model_at_widths(widths=XLSR1B, tag="xlsr1b",
                     score_rtol=XLSR1B_SCORE_RTOL, seed=21) -> tuple:
     """A model at published widths (phase 21: XLS-R 1B's, at full depth;
-    phase 22: XLS-R 300M's with 4 heads of 256) through the wgmma
-    attention instance of its head dim (D 80; D 256):
+    phase 22: XLS-R 300M's with 4 heads of 256; phase 24: with 2 heads of
+    512) through the wgmma route's kernels at its head dim (the instances
+    of D 80 and D 256, counted on OTHER_D_*; the panel kernels of D 512,
+    counted on PANEL_*, none of the other family launched):
     AModel(AASISTConfig(), XLSRConfig(**widths)) in bf16 with
     attention_impl="flash", ffn_impl="pallas" and ln_impl="pallas", random
     weights from seed 0 (PyTorch's initialisers, on the card), AASIST's
@@ -9120,6 +9200,13 @@ def model_at_widths(widths=XLSR1B, tag="xlsr1b",
     kcfg = XLSRConfig(**widths, attention_impl="flash", ffn_impl="pallas",
                       ln_impl="pallas")
     head_dim = kcfg.encoder_embed_dim // kcfg.encoder_heads
+    # the wgmma route's counters at this head dim, and the other family's
+    fwd_key = fwd_counter(kcfg.dtype, head_dim)
+    family = ("panel" if fwd_key == "flash_attn_fwd_panel" else "other_d")
+    dq_key, dkv_key = (f"flash_attn_bwd_{family}_dq",
+                       f"flash_attn_bwd_{family}_dkv")
+    not_family = ("other_d" if family == "panel" else "panel")
+    not_fwd = f"flash_attn_fwd_{not_family}"
     pcfg = dataclasses.replace(kcfg, attention_impl="xla", ffn_impl="xla",
                                ln_impl="xla")
     layers = kcfg.encoder_layers
@@ -9160,7 +9247,7 @@ def model_at_widths(widths=XLSR1B, tag="xlsr1b",
         torch.cuda.synchronize()
         counts = read_counts()
         add(counts)
-        want = {"flash_attn_fwd_other_d": layers, "ffn_fwd": layers,
+        want = {fwd_key: layers, "ffn_fwd": layers, not_fwd: 0,
                 "flash_attn_fwd": 0, "flash_attn_generic_fwd": 0}
         if any(counts[k] != n for k, n in want.items()):
             fail(f"{tag} scoring 8 x {sec} s: launches {counts}, want "
@@ -9230,13 +9317,12 @@ def model_at_widths(widths=XLSR1B, tag="xlsr1b",
     fwd_per = layers * (2 if kcfg.remat else 1)
     # the Adam kernel takes MAX_LEAVES leaves a launch
     adam_launches = -(-sum(p.grad is not None for p in params) // MAX_LEAVES)
-    want = {"flash_attn_fwd_other_d": fwd_per,
-            "flash_attn_bwd_other_d_dq": layers,
-            "flash_attn_bwd_other_d_dkv": layers,
+    want = {fwd_key: fwd_per, dq_key: layers, dkv_key: layers,
             "layernorm_bwd": 2 * layers, "ffn_fwd": fwd_per,
             "fused_adam": adam_launches, "flash_attn_fwd": 0,
             "flash_attn_bwd_dq": 0, "flash_attn_generic_fwd": 0,
-            "flash_attn_generic_bwd_dq": 0}
+            "flash_attn_generic_bwd_dq": 0, not_fwd: 0,
+            f"flash_attn_bwd_{not_family}_dq": 0}
     if any(counts[k] != n for k, n in want.items()):
         fail(f"{tag} training step: launches {counts}, want {want}")
     finite = all(bool(torch.isfinite(p).all()) for p in params)
@@ -9872,6 +9958,414 @@ def phase_jax_resume(workdir: str, fixture) -> tuple:
     return totals, out
 
 
+# --------------------------------------------------------------- phase 24
+
+# The wgmma route's panel kernels above head dim 256 (csrc/flash_attn_
+# panel.cu; KERNEL_NAMES' form: wrapper counter -> (device kernel name,
+# device launches a call)); the generic kernels above 256 count on the
+# generic counters of COVERAGE_KERNEL_NAMES
+OVER_256_KERNEL_NAMES = {
+    "flash_attn_fwd_panel": ("flash_attn_fwd_panel_kernel", 1),
+    "flash_attn_bwd_panel_dq": ("flash_attn_bwd_dq_panel_kernel", 1),
+    "flash_attn_bwd_panel_dkv": ("flash_attn_bwd_dkv_panel_kernel", 1)}
+# the panel widths (PW) the panel kernels are built at
+PANEL_WIDTHS = (192, 256)
+# the device kernels of the generic route above head dim 256
+GENERIC_WIDE_NAMES = {"fwd": ("flash_attn_generic_fwd_wide_kernel",),
+                      "bwd": ("flash_attn_generic_dq_wide_kernel",
+                              "flash_attn_generic_dkv_wide_kernel")}
+# (dtype, D, H) of phase 24's kernel checks, each at every T of KERNEL_TS
+# (forward B 8, backward B 12) and timed at OVER_256_TIMED_TS: bf16 at
+# D 264 and 320 (two panels of 192 columns), 512 (two of 256) and 1024
+# (four of 256, one head: XLS-R 300M's width in a single head) on the
+# panel kernels; bf16 at D 260 (not a multiple of 8) and fp32 at D 264
+# and 512 on the generic kernels' panels of 256
+OVER_256_ROWS = (("bfloat16", 264, H), ("bfloat16", 320, H),
+                 ("bfloat16", 512, H), ("bfloat16", 1024, 1),
+                 ("bfloat16", 260, H), ("float32", 264, H),
+                 ("float32", 512, H))
+OVER_256_TIMED_TS = (299, 1500)
+# XLS-R 300M's published widths (XLSRConfig(): 24 layers, d 1024, FFN
+# 4096) with 2 heads of 512: the panel kernels at the 300M model's width
+# and depth, held to SCORE_RTOL as phase 22's 4 heads of 256
+XLSR300M_D512 = dict(encoder_heads=2)
+# the fp32 model of phase 24: the same widths at DEPTH layers, on the
+# generic kernels' panels
+OVER_256_FP32 = dict(encoder_heads=2, encoder_layers=DEPTH)
+
+
+def sdpa_backend(fn) -> dict:
+    """The backend SDPA ran for fn (its flash backend takes head dims up
+    to 256), named from the device kernels of one profiled call: "cudnn",
+    "flash", "efficient" (the memory-efficient fmha kernels) or "math"
+    (GEMMs and a softmax); with those kernels' names."""
+    names = sorted({e.name for e in profiled_events(fn, 1)})
+    text = " ".join(names).lower()
+    backend = ("not recorded" if not names else "cudnn" if "cudnn" in text
+               else "flash" if "flash" in text
+               else "efficient" if "fmha" in text or "efficient" in text
+               else "math")
+    return {"library_backend": backend,
+            "library_kernels": [n[:96] for n in names]}
+
+
+def over_256_attention_rows():
+    """Phase 24's kernel checks: attention above head dim 256 at
+    OVER_256_ROWS' (dtype, D, H), T in KERNEL_TS (forward at B 8, backward
+    at B 12), on [B, T, H, D] views of one projection output and on
+    [B*H, T, D] copies: views, copies and a repeat bit for bit, three
+    launches of the route's counter (PANEL_* on the wgmma route, GENERIC_*
+    otherwise) and none of any other attention kernel; each against its
+    plain version (bf16 at phase 3's bounds, fp32 at
+    COVERAGE_F32_RTOL_OF_MAX), the panel kernels also against the generic
+    kernels on the same inputs (GENERIC_*); autograd at T 299
+    (coverage_autograd). Timed at OVER_256_TIMED_TS: wrapper, device (one
+    device launch a forward call, two a backward call and nothing else),
+    plain, SDPA (wrapper and device, with the backend it ran), the generic
+    kernels' wrapper time beside the panel kernels' ("was") and the bound.
+    Returns (forward rows, backward rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from occm_tpu_torch.ops.attention import (
+        cuda_route, flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_attention_reference)
+
+    attn_fwd = ("flash_attn_fwd", "flash_attn_fwd_other_d",
+                "flash_attn_fwd_panel", "flash_attn_generic_fwd",
+                "flash_attn_3xtf32_fwd")
+    attn_bwd = tuple(f"flash_attn_bwd{fam}_{part}" for fam in (
+        "", "_other_d", "_panel") for part in ("dq", "dkv")) + tuple(
+            f"flash_attn_{fam}_bwd_{part}" for fam in ("generic", "3xtf32")
+            for part in ("dq", "dkv"))
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    fwd_rows, bwd_rows = [], []
+    for dtype, d, h in OVER_256_ROWS:
+        tdt = getattr(torch, dtype)
+        panel = cuda_route(tdt, d) == "wgmma"
+        fp32 = dtype == "float32"
+        if panel:
+            fwd_key = "flash_attn_fwd_panel"
+            bwd_keys = ("flash_attn_bwd_panel_dq", "flash_attn_bwd_panel_dkv")
+            names = {"fwd": (OVER_256_KERNEL_NAMES[fwd_key][0],),
+                     "bwd": tuple(OVER_256_KERNEL_NAMES[k][0]
+                                  for k in bwd_keys)}
+        else:
+            fwd_key = "flash_attn_generic_fwd"
+            bwd_keys = ("flash_attn_generic_bwd_dq",
+                        "flash_attn_generic_bwd_dkv")
+            names = GENERIC_WIDE_NAMES
+        route = "wgmma (panels)" if panel else "generic (panels)"
+        for t in KERNEL_TS:
+            for backward in (False, True):
+                b = TRAIN_B if backward else B
+                qkv = torch.randn((b, t, 3, h, d), generator=gen,
+                                  device="cuda").to(tdt)
+                q4, k4, v4 = qkv.unbind(2)
+
+                def flat(x):
+                    return x.permute(0, 2, 1, 3).reshape(
+                        b * h, t, d).contiguous()
+
+                q, k, v = flat(q4), flat(k4), flat(v4)
+                reset_counts()
+                out4, lse4 = flash_attention_fwd(q4, k4, v4, t)
+                out, lse = flash_attention_fwd(q, k, v, t)
+                again = flash_attention_fwd(q4, k4, v4, t)
+                torch.cuda.synchronize()
+                label = f"{dtype} D={d} B={b} H={h} T={t}"
+                counts = read_counts()
+                want = {key: 3 * (key == fwd_key) for key in attn_fwd}
+                if {key: counts[key] for key in attn_fwd} != want:
+                    fail(f"forward {label}: launches {counts}, want {want}")
+                if not (out4.shape == q4.shape and out4.is_contiguous()
+                        and torch.equal(flat(out4), out)
+                        and torch.equal(lse4, lse)
+                        and torch.equal(again[0], out4)
+                        and torch.equal(again[1], lse4)):
+                    fail(f"forward {label}: views, [B*H, T, D] and a "
+                         "repeat do not agree bit for bit")
+                vs_generic = None
+                if not backward:
+                    ref_out, ref_lse = flash_attention_reference(q, k, v, t)
+                    if fp32:
+                        errs = {"out": _rel_of_max(out, ref_out),
+                                "lse": _rel_of_max(lse, ref_lse)}
+                        bounds = {"out": COVERAGE_F32_RTOL_OF_MAX,
+                                  "lse": COVERAGE_F32_RTOL_OF_MAX}
+                    else:
+                        errs = {"out": _abs_err(out, ref_out),
+                                "lse": _abs_err(lse, ref_lse)}
+                        bounds = {"out": OUT_ATOL, "lse": LSE_ATOL}
+                    if not all(math.isfinite(e) and e <= bounds[n]
+                               for n, e in errs.items()):
+                        fail(f"forward {label} against its plain version: "
+                             f"{errs} (bounds {bounds})")
+                    if panel:
+                        g_out, g_lse = generic_attention_fwd(q, k, v, t)
+                        a, g = out.float(), g_out.float()
+                        excess = float(((a - g).abs() - _ulp_bf16(
+                            torch.maximum(a.abs(), g.abs()))).max()
+                            / g.abs().max())
+                        vs_generic = {"out_excess_of_max": excess,
+                                      "out": _abs_err(a, g),
+                                      "lse": _abs_err(lse, g_lse)}
+                        if not (excess <= GENERIC_OUT_SLACK_OF_MAX
+                                and vs_generic["lse"] <= GENERIC_LSE_ATOL):
+                            fail(f"panel forward {label} against the "
+                                 f"generic kernel: {vs_generic} (bounds "
+                                 f"one ulp + {GENERIC_OUT_SLACK_OF_MAX} of "
+                                 f"the largest |out|, {GENERIC_LSE_ATOL})")
+                    max_abs = _abs_err(out, ref_out)
+                    call = (lambda: flash_attention_fwd(q4, k4, v4, t))
+                    generic = (lambda: generic_attention_fwd(q4, k4, v4, t))
+                    plain = (lambda: flash_attention_reference(q, k, v, t))
+                    counters = (fwd_key,)
+                    q3, k3, v3 = (x.view(b, h, t, d) for x in (q, k, v))
+
+                    def library():
+                        with torch.no_grad():
+                            F.scaled_dot_product_attention(q3, k3, v3)
+                else:
+                    do4 = torch.randn((b, t, h, d), generator=gen,
+                                      device="cuda").to(tdt)
+                    do = flat(do4)
+                    reset_counts()
+                    got4 = flash_attention_bwd(q4, k4, v4, out4, lse4, do4, t)
+                    rep = flash_attention_bwd(q4, k4, v4, out4, lse4, do4, t)
+                    got = flash_attention_bwd(q, k, v, out, lse, do, t)
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                    want = {key: 3 * (key in bwd_keys) for key in attn_bwd}
+                    if {key: counts[key] for key in attn_bwd} != want:
+                        fail(f"backward {label}: launches {counts}, want "
+                             f"{want}")
+                    for name, a, r, c in zip(("dq", "dk", "dv"), got4, rep,
+                                             got):
+                        if not (a.shape == q4.shape and a.is_contiguous()
+                                and torch.equal(a, r)
+                                and torch.equal(flat(a), c)):
+                            fail(f"backward {label}: {name} of views, "
+                                 "[B*H, T, D] and a repeat do not agree bit "
+                                 "for bit, or is not contiguous")
+                    ref = flash_attention_bwd_reference(q, k, v, out, lse,
+                                                        do, t)
+                    errs = {n: _rel_of_max(a, w) for n, a, w
+                            in zip(("dq", "dk", "dv"), got, ref)}
+                    bound = COVERAGE_F32_RTOL_OF_MAX if fp32 else (
+                        BWD_RTOL_OF_MAX)
+                    if not all(math.isfinite(e) and e <= bound
+                               for e in errs.values()):
+                        fail(f"backward {label} against its plain version: "
+                             f"{errs} (relative to the largest |value|, "
+                             f"bound {bound})")
+                    if panel:
+                        g_grads = generic_attention_bwd(q, k, v, out, lse,
+                                                        do, t)
+                        vs_generic = {n: _rel_of_max(a, w) for n, a, w
+                                      in zip(("dq", "dk", "dv"), got,
+                                             g_grads)}
+                        if not all(e <= GENERIC_BWD_RTOL_OF_MAX
+                                   for e in vs_generic.values()):
+                            fail(f"panel backward {label} against the "
+                                 f"generic kernels: {vs_generic} (bound "
+                                 f"{GENERIC_BWD_RTOL_OF_MAX})")
+                    if t == MAIN_PATH_TS[0]:
+                        coverage_autograd(q4, k4, v4, do4, got4, label,
+                                          bwd_keys)
+                    max_abs = max(_abs_err(a, w) for a, w in zip(got, ref))
+                    call = (lambda: flash_attention_bwd(
+                        q4, k4, v4, out4, lse4, do4, t))
+                    generic = (lambda: generic_attention_bwd(
+                        q4, k4, v4, out4, lse4, do4, t))
+                    plain = (lambda: flash_attention_bwd_reference(
+                        q, k, v, out, lse, do, t))
+                    counters = bwd_keys
+                    q3, k3, v3 = (x.view(b, h, t, d).detach()
+                                  .requires_grad_() for x in (q, k, v))
+                    do3 = do.view(b, h, t, d)
+
+                    def library():
+                        o3 = F.scaled_dot_product_attention(q3, k3, v3)
+                        torch.autograd.grad(o3, (q3, k3, v3), do3)
+
+                row = dict(dtype=dtype, D=d, B=b, H=h, T=t, route=route,
+                           panels=-(-d // 256), errors=errs,
+                           max_abs_err=max_abs,
+                           **({"vs_generic": vs_generic} if vs_generic
+                              else {}))
+                timed = t in OVER_256_TIMED_TS
+                if timed:
+                    iters = 10 if t <= 600 else 4
+                    row["ms"] = cuda_ms(call, iters=iters, warmup=2)
+                    dev_iters = 20 if row["ms"] * 20 <= 2000 else 5
+                    dev_ms, own, every, kept = device_ms(
+                        call, names["bwd" if backward else "fwd"],
+                        iters=dev_iters, warmup=1, counters=counters)
+                    launches = 2 if backward else 1
+                    if (own, every) != (launches, launches):
+                        fail(f"{label}: {every} device launches a call "
+                             f"({own} of the kernels), want {launches} and "
+                             "no other")
+                    row["device_ms"] = dev_ms
+                    row.update(events_kept(kept))
+                    row["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
+                    if panel:
+                        row["was_ms"] = cuda_ms(generic, iters=iters,
+                                                warmup=1)
+                    row.update(sdpa_backend(library))
+                    library_ms = cuda_ms(library, iters=iters, warmup=2)
+                    library_dev = library_device_ms(library, iters=dev_iters,
+                                                    warmup=1)
+                    if backward:
+                        with torch.no_grad():
+                            fwd_only = (lambda: F.scaled_dot_product_attention(
+                                q3, k3, v3))
+                            library_ms -= cuda_ms(fwd_only, iters=iters,
+                                                  warmup=2)
+                            library_dev -= library_device_ms(
+                                fwd_only, iters=dev_iters, warmup=1)
+                    row["library_ms"] = library_ms
+                    row["library_device_ms"] = library_dev
+                    (row["bound_ms"], row["bound_by"], row["flops"],
+                     row["bytes"]) = coverage_attention_bound(
+                         b * h, t, d, dtype, backward)
+                (bwd_rows if backward else fwd_rows).append(row)
+                kind = "bwd" if backward else "fwd"
+                times = (f"; wrapper {row['ms']:.4f} ms, device "
+                         f"{row['device_ms']:.4f} ms, plain "
+                         f"{row['plain_ms']:.4f} ms, sdpa "
+                         f"{row['library_ms']:.4f} ms (device "
+                         f"{row['library_device_ms']:.4f}, backend "
+                         f"{row['library_backend']})"
+                         + (f", was (generic) {row['was_ms']:.4f} ms"
+                            if panel else "")
+                         + f", bound {row['bound_ms']:.4f} ms "
+                         f"({row['bound_by']})" if timed else "")
+                print(f"[over-256] flash_attn_{kind} {route} {label}: "
+                      f"against plain "
+                      f"{ {k: f'{e:.3e}' for k, e in errs.items()} }"
+                      + (f", against generic "
+                         f"{ {k: f'{e:.3e}' for k, e in vs_generic.items()} }"
+                         if vs_generic else "")
+                      + "; views = [B*H, T, D] = repeat bit for bit" + times,
+                      flush=True)
+                del qkv, q, k, v, out, lse, out4, lse4, again
+    torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def phase_over_256_kernels():
+    """Phase 24's kernel checks (in a full run right after phase 22's):
+    attention above head dim 256 (over_256_attention_rows)."""
+    t0 = time.perf_counter()
+    fwd, bwd = over_256_attention_rows()
+    print(f"[over-256] phase 24's kernel checks: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def phase_over_256() -> tuple:
+    """Phase 24's path after its kernel checks: XLS-R 300M's widths with 2
+    heads of 512 in bf16 on the panel kernels (model_at_widths at
+    XLSR300M_D512, SCORE_RTOL: no generic launch), then the same widths in
+    fp32 at DEPTH layers on the generic kernels' panels (coverage_model at
+    OVER_256_FP32: scoring and a training step through autograd against
+    the plain path). The counts are set to 0 before each check and read
+    after it; each kernel of the path must have launched. Returns (the
+    path's counts, the results)."""
+    t0 = time.perf_counter()
+    counts, out = model_at_widths(XLSR300M_D512, "over-256", SCORE_RTOL, 24)
+    out["bf16_s"] = time.perf_counter() - t0
+    f_counts, out["fp32_model"] = coverage_model(None, OVER_256_FP32,
+                                                 "over-256", speed=False)
+    for key in (*OVER_256_KERNEL_NAMES, "ffn_fwd", "layernorm_bwd",
+                "fused_adam"):
+        if not counts.get(key):
+            fail(f"phase 24's bf16 path never launched {key}: {counts}")
+    for key in ("flash_attn_generic_fwd", "flash_attn_generic_bwd_dq",
+                "flash_attn_generic_bwd_dkv"):
+        if not f_counts.get(key):
+            fail(f"phase 24's fp32 path never launched {key}: {f_counts}")
+    total = {key: counts.get(key, 0) + f_counts.get(key, 0)
+             for key in {*counts, *f_counts}}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[over-256] phase 24's path: {out['wall_s']:.1f} s (bf16 "
+          f"{out['bf16_s']:.1f} s), launches "
+          f"{ {k: v for k, v in total.items() if v} }", flush=True)
+    return total, out
+
+
+def over_256_kernel_line(rows, launches):
+    """Phase 24's {"kernels": [...]} entries: the panel kernels (bf16 at
+    head dims above 256 that are multiples of 8) and the generic kernels
+    above 256 (fp32, and bf16 off the multiples of 8), forward and
+    backward, their head rows at D 512, T 299 ([B=8, T=299, H=16, D=512]
+    forward, B 12 backward; bf16 for the panel kernels, fp32 for the
+    generic ones), every row of the route under "per_shape". `launches`
+    come from phase 24's path (the bf16 model's PANEL_*, the fp32 model's
+    GENERIC_*), 0 with --kernels-only."""
+
+    def head(kind, dtype):
+        return next(r for r in rows[kind] if r["dtype"] == dtype
+                    and r["D"] == 512 and r["T"] == MAIN_PATH_TS[0])
+
+    def of(kind, panel):
+        return [r for r in rows[kind] if r["route"].startswith("wgmma")
+                is panel]
+
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "library_backend")
+    replaced = "occm_tpu/ops/attention.py:"
+    fwd_replaces = (f"{replaced}45 (_fwd_kernel), {replaced}234 "
+                    "(_blocked_fwd_kernel)")
+    bwd_replaces = (f"{replaced}79 (_bwd_kernel), {replaced}350 "
+                    f"(_blocked_dq_kernel), {replaced}373 "
+                    "(_blocked_dkv_kernel)")
+    entries = []
+    for panel, dtype in ((True, "bfloat16"), (False, "float32")):
+        fwd, bwd = head("fwd", dtype), head("bwd", dtype)
+        which = ("in bf16 at head dims above 256 that are multiples of 8"
+                 if panel else "in fp32, and in bf16 off the multiples of "
+                 "8, at head dims above 256")
+        source = ("occm_tpu_torch/csrc/flash_attn_panel.cu" if panel
+                  else "occm_tpu_torch/csrc/flash_attn_generic.cu")
+        fwd_key = ("flash_attn_fwd_panel" if panel
+                   else "flash_attn_generic_fwd")
+        dq_key, dkv_key = (("flash_attn_bwd_panel_dq",
+                            "flash_attn_bwd_panel_dkv") if panel
+                           else ("flash_attn_generic_bwd_dq",
+                                 "flash_attn_generic_bwd_dkv"))
+        dt = "bf16" if panel else "fp32"
+        extra = ({"was": "the generic kernels' panels, "
+                         "csrc/flash_attn_generic.cu"} if panel else {})
+        entries += [
+            {"name": ("flash_attn_fwd_panel" if panel
+                      else "flash_attn_generic_fwd_over_256"),
+             "route": "cuda", "source": source,
+             "replaces": f"{fwd_replaces}, {which}",
+             "launches": launches[fwd_key],
+             "shape": f"[B={B}, T={fwd['T']}, H={H}, D=512] {dt} views",
+             "max_abs_err": max(r["max_abs_err"] for r in of("fwd", panel)),
+             **{k: fwd[k] for k in keys},
+             **({"was_ms": fwd["was_ms"]} if panel else {}),
+             "library": f"SDPA, {dt}", **extra,
+             "per_shape": of("fwd", panel)},
+            {"name": ("flash_attn_bwd_panel" if panel
+                      else "flash_attn_generic_bwd_over_256"),
+             "route": "cuda", "source": source,
+             "replaces": f"{bwd_replaces}, {which}",
+             "launches": launches[dq_key], "launches_dkv": launches[dkv_key],
+             "shape": f"[B={TRAIN_B}, T={bwd['T']}, H={H}, D=512] {dt} views",
+             "max_abs_err": max(r["max_abs_err"] for r in of("bwd", panel)),
+             **{k: bwd[k] for k in keys},
+             **({"was_ms": bwd["was_ms"]} if panel else {}),
+             "library": f"SDPA forward + backward minus forward, {dt}",
+             **extra, "per_shape": of("bwd", panel)},
+        ]
+    return entries
+
+
 def kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma, launches):
     """The {"kernels": [...]} entries. Times, errors and bounds are this
     run's, at the shape named in each entry: `ms` the wrapper's time per
@@ -10150,6 +10644,13 @@ def main(argv=None) -> int:
                          "oc_training --resume from the JAX package's epoch "
                          "and step orbax directories at full width); prints "
                          "no kernels line")
+    ap.add_argument("--over-256-only", action="store_true",
+                    help="run phases 1, 2 and 24 only (device, build, "
+                         "attention above head dim 256: the panel kernels "
+                         "and the generic kernels' panels against their "
+                         "plain versions, XLS-R 300M's widths with 2 heads "
+                         "of 512: scoring, a training step, utt/s, and an "
+                         "fp32 model at D 512); prints no kernels line")
     ap.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD",
                                                           "PORT", "WORKDIR"),
                     help=argparse.SUPPRESS)  # phase 17's rank processes
@@ -10174,7 +10675,8 @@ def main(argv=None) -> int:
             or args.remat_only or args.native_only or args.base_only
             or args.int8_only or args.parallel_only or args.extras_only
             or args.orbax_only or args.coverage_only or args.xlsr1b_only
-            or args.wide_head_only or args.jax_resume_only):
+            or args.wide_head_only or args.jax_resume_only
+            or args.over_256_only):
         from occm_tpu_torch.ops import _build
 
         workdir = tempfile.mkdtemp(prefix="smoke_", dir=_build.BUILD_DIR)
@@ -10218,6 +10720,11 @@ def main(argv=None) -> int:
                 counts, wide = phase_wide_head()
                 result = {"wide_head": dict(wide, kernels=rows,
                                             launches=counts)}
+            elif args.over_256_only:
+                rows = phase_over_256_kernels()
+                counts, over = phase_over_256()
+                result = {"over_256": dict(over, kernels=rows,
+                                           launches=counts)}
             elif args.jax_resume_only:
                 counts, jax_resume = phase_jax_resume(workdir, fixture)
                 result = {"jax_resume": dict(jax_resume, launches=counts)}
@@ -10255,6 +10762,8 @@ def main(argv=None) -> int:
     wide_rows = phase_wide_kernels()
     # phase 22's: the same kernels at bf16 head dims 136-256
     wide_head_rows = phase_wide_head_kernels()
+    # phase 24's: attention above head dim 256
+    over_rows = phase_over_256_kernels()
     # phase 15's kernel checks here, beside phase 3's: late in a full run
     # (after phases 4-13's graphs and profiled CLI runs) torch.profiler on
     # the H100 came back with too few device events in every repeat of a
@@ -10274,6 +10783,9 @@ def main(argv=None) -> int:
     cov_launches = dict.fromkeys(COVERAGE_KERNEL_NAMES, 0)
     wide_launches = dict.fromkeys(WIDE_KERNEL_NAMES, 0)
     wide_head_launches = dict.fromkeys(WIDE_KERNEL_NAMES, 0)
+    over_launches = dict.fromkeys(
+        (*OVER_256_KERNEL_NAMES, "flash_attn_generic_fwd",
+         "flash_attn_generic_bwd_dq", "flash_attn_generic_bwd_dkv"), 0)
     if not args.kernels_only:
         from occm_tpu_torch.ops import _build
 
@@ -10311,6 +10823,11 @@ def main(argv=None) -> int:
             h_counts, wide_head = phase_wide_head()
             for name in wide_head_launches:
                 wide_head_launches[name] = h_counts[name]
+            # phase 24's path: XLS-R 300M's widths with 2 heads of 512 on
+            # the panel kernels, and in fp32 on the generic kernels' panels
+            v_counts, over_256 = phase_over_256()
+            for name in over_launches:
+                over_launches[name] = v_counts.get(name, 0)
             # phase 23: oc_training --resume from the JAX package's
             # directories
             j_counts, jax_resume = phase_jax_resume(workdir, fixture)
@@ -10378,17 +10895,20 @@ def main(argv=None) -> int:
               flush=True)
         print(f"[jax-resume] {json.dumps(jax_resume, default=str)}",
               flush=True)
+        print(f"[over-256] {json.dumps(over_256, default=str)}", flush=True)
         # phase 17's path: the ranks', the NCCL run's and the scoring runs'
         # and phase 19's: scoring, serving and training from a directory
         # and phase 21's and 22's: their steps run the FFN, LayerNorm and
-        # Adam kernels too; and phase 23's resumed runs
-        for counts in (p_counts, o_counts, w_counts, h_counts, j_counts):
+        # Adam kernels too; and phase 23's resumed runs, and phase 24's
+        # path
+        for counts in (p_counts, o_counts, w_counts, h_counts, j_counts,
+                       v_counts):
             for name in ("flash_attn_fwd", "layernorm_bwd", "fused_adam",
                          "ffn_fwd"):
-                launches[name] += counts[name]
-            launches["flash_attn_bwd"] += counts["flash_attn_bwd_dq"]
+                launches[name] += counts.get(name, 0)
+            launches["flash_attn_bwd"] += counts.get("flash_attn_bwd_dq", 0)
 
-    print(f"[smoke] phases 1-23 took {time.perf_counter() - t_run:.1f} s",
+    print(f"[smoke] phases 1-24 took {time.perf_counter() - t_run:.1f} s",
           flush=True)
     print(smi)
     kernels = kernel_line(fwd_rows, bwd_rows, ln, adam, ffn_rows, hgmma,
@@ -10410,6 +10930,7 @@ def main(argv=None) -> int:
     kernels += coverage_kernel_line(cov_rows, cov_launches)
     kernels += wide_kernel_line(wide_rows, wide_launches)
     kernels += wide_head_kernel_line(wide_head_rows, wide_head_launches)
+    kernels += over_256_kernel_line(over_rows, over_launches)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

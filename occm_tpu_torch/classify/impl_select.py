@@ -8,16 +8,18 @@ model, so the scores for an utterance depend only on its bucket. On a CUDA
 device the threshold depends on the kernels that take the model
 (`ops.attention.cuda_route`): the wgmma kernels at head dim 64 (bf16) from
 AUTO_FLASH_MIN_SAMPLES up, under exact and fast numerics alike; their
-instances at the other head dims they take (bf16, multiples of 8 up to
-256: XLS-R 1B's D 80) from AUTO_WGMMA_OTHER_D_MIN_SAMPLES up; the 3xTF32
+instances at the other head dims they take up to 256 (bf16, multiples of
+8: XLS-R 1B's D 80) from AUTO_WGMMA_OTHER_D_MIN_SAMPLES up; the 3xTF32
 forward (fp32 at the head dims of `ops.attention.TF32_FWD_HEAD_DIMS`:
 `XLSRConfig(dtype="float32")`'s D 64, `XLSRConfig.tiny()`'s D 16) from
-AUTO_TF32_MIN_SAMPLES up; the generic kernels (fp32 at any other head dim,
-or bf16 at one the wgmma kernels do not take) from
-AUTO_GENERIC_MIN_SAMPLES up; never where a threshold is
-None; a model that no kernel takes (D > 256) runs "xla"
-(`auto_flash_min_samples`). A pinned "flash" passes through, runs the
-generic kernels on such a model, and raises where no kernel takes it.
+AUTO_TF32_MIN_SAMPLES up; the generic kernels (fp32 at any other head dim
+up to 256, or bf16 at one the wgmma kernels do not take) from
+AUTO_GENERIC_MIN_SAMPLES up; any route's kernels above head dim 256 (the
+panel kernels in bf16, the generic ones' panels otherwise) from
+AUTO_OVER_256_MIN_SAMPLES up; never where a threshold is None
+(`auto_flash_min_samples`). Every head dim has a kernel in bf16 and fp32;
+a pinned "flash" passes through and runs the route's kernels, and raises
+only on a dtype no kernel takes.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from typing import Optional
 
 import torch
 
-from occm_tpu_torch.ops.attention import cuda_kernel_takes, cuda_route
+from occm_tpu_torch.ops.attention import (
+    WGMMA_MAX_SINGLE_PANEL, cuda_kernel_takes, cuda_route)
 
 SR = 16000
 
@@ -110,6 +113,23 @@ AUTO_WGMMA_OTHER_D_MIN_SAMPLES: Optional[int] = None
 #: Buckets below 2 s keep "xla".
 AUTO_TF32_MIN_SAMPLES: Optional[int] = 2 * SR
 
+#: Bucket sample-count at and above which "flash" replaces "xla" for a model
+#: whose head dim is above 256, on any route (bf16 at a multiple of 8: the
+#: panel kernels of csrc/flash_attn_panel.cu; otherwise the generic
+#: kernels' panels): None, "xla" in every bucket. AUTO_GENERIC_MIN_SAMPLES
+#: was measured at head dim 16 and 64 and is not carried over.
+#: chip_smoke.py phase 24 times XLS-R 300M's widths with 2 heads of 512
+#: (bf16, batch 8, the plain FFN, xla against flash in turns); utt/s on an
+#: NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+#:     bucket   xla      flash
+#:      1 s   201.27   185.99
+#:      2 s   226.67   215.06
+#:      6 s   144.61   156.95
+#:     12 s   165.20   139.09
+#: Flash is ahead at 6 s only (the scoring is host-bound), so no bucket
+#: from which it stays ahead: None.
+AUTO_OVER_256_MIN_SAMPLES: Optional[int] = None
+
 
 def select_attention_impl(bucket_samples: int,
                           base_impl: str = "auto",
@@ -148,13 +168,16 @@ def auto_flash_min_samples(xlsr_cfg, device) -> Optional[int]:
     `xlsr_cfg` on `device` (None: never): AUTO_FLASH_MIN_SAMPLES on the CPU
     (the plain version) and on the wgmma route at head dim 64,
     AUTO_WGMMA_OTHER_D_MIN_SAMPLES on the wgmma route at its other head
-    dims, AUTO_TF32_MIN_SAMPLES on the 3xTF32 route,
-    AUTO_GENERIC_MIN_SAMPLES on the generic route, None where no CUDA
-    route takes the model."""
+    dims up to 256, AUTO_TF32_MIN_SAMPLES on the 3xTF32 route,
+    AUTO_GENERIC_MIN_SAMPLES on the generic route up to 256,
+    AUTO_OVER_256_MIN_SAMPLES above head dim 256 on any route, None where
+    no CUDA route takes the model."""
     if torch.device(device).type != "cuda":
         return AUTO_FLASH_MIN_SAMPLES
     dtype, head_dim = _dtype_and_head_dim(xlsr_cfg)
     route = cuda_route(dtype, head_dim)
+    if route is not None and head_dim > WGMMA_MAX_SINGLE_PANEL:
+        return AUTO_OVER_256_MIN_SAMPLES
     if route == "wgmma":
         return (AUTO_FLASH_MIN_SAMPLES if head_dim == 64
                 else AUTO_WGMMA_OTHER_D_MIN_SAMPLES)

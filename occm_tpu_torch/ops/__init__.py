@@ -33,6 +33,9 @@ def launch_counts() -> dict:
             "flash_attn_bwd_dq": attention.BWD_DQ_LAUNCHES,
             "flash_attn_bwd_dkv": attention.BWD_DKV_LAUNCHES,
             "flash_attn_fwd_other_d": attention.OTHER_D_LAUNCHES,
+            "flash_attn_fwd_panel": attention.PANEL_LAUNCHES,
+            "flash_attn_bwd_panel_dq": attention.PANEL_BWD_DQ_LAUNCHES,
+            "flash_attn_bwd_panel_dkv": attention.PANEL_BWD_DKV_LAUNCHES,
             "flash_attn_bwd_other_d_dq": attention.OTHER_D_BWD_DQ_LAUNCHES,
             "flash_attn_bwd_other_d_dkv": attention.OTHER_D_BWD_DKV_LAUNCHES,
             "layernorm_bwd": layernorm.LAUNCHES,

@@ -192,6 +192,16 @@ def load() -> ctypes.CDLL:
             lib.occm_flash_attn_3xtf32_bwd_dkv.argtypes = [
                 *[p] * 8, *[i] * 5, *[ll] * 16, ctypes.c_float, p]
             lib.occm_flash_attn_3xtf32_bwd_dkv.restype = i
+            # the bf16 panel kernels above head dim 256: as the wgmma pair,
+            # without fold (the scale is always folded into q)
+            lib.occm_flash_attn_panel_fwd.argtypes = fwd
+            lib.occm_flash_attn_panel_fwd.restype = i
+            lib.occm_flash_attn_panel_bwd_dq.argtypes = [
+                *[p] * 8, *[i] * 5, *[ll] * 15, ctypes.c_float, p]
+            lib.occm_flash_attn_panel_bwd_dq.restype = i
+            lib.occm_flash_attn_panel_bwd_dkv.argtypes = [
+                *[p] * 8, *[i] * 5, *[ll] * 12, ctypes.c_float, p]
+            lib.occm_flash_attn_panel_bwd_dkv.restype = i
             lib.occm_ffn_gemm_3xtf32.argtypes = [p, p, p, p, i, i, i, i, p]
             lib.occm_ffn_gemm_3xtf32.restype = i
             lib.occm_ffn_gemm_3xtf32_tile_n.argtypes = [i, i, i]

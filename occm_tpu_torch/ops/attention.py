@@ -20,7 +20,8 @@ tensor the same Function runs `flash_attention_reference` and
 masking, scale folding and dtype casts. A tensor on any other device
 raises; nothing falls back from a kernel to its plain version.
 
-Three CUDA routes (`cuda_route`):
+Three CUDA routes (`cuda_route`), which between them take bf16 and fp32
+at every head dim D >= 1, as the TPU kernels do:
 - "wgmma": bf16 at every head dim D that is a multiple of 8 from 8 to 256
   takes the kernels above, one template instance for each
   round_up(D, 16) (above 128 the dk/dv kernel is a wider one: two
@@ -29,15 +30,20 @@ Three CUDA routes (`cuda_route`):
   logits, exact for 2^-3 and 2^-4); the others fold the scale into q
   before the bf16 cast, as the TPU kernels do, and their backward keeps
   that folded q in a [B, T, H, D] scratch tensor for the dk/dv kernel.
-  Launches off D 64 count apart (`OTHER_D_*`).
+  Launches off D 64 count apart (`OTHER_D_*`). Above 256
+  (`WGMMA_MAX_SINGLE_PANEL`) the route takes the three kernels of
+  `csrc/flash_attn_panel.cu`, which split the output along D into panels
+  of 192 or 256 columns, a block each, and stream q k^T (and dO v^T) over
+  the whole D in 64-column steps; they fold the scale into each streamed
+  q panel and need no scratch tensor. Their launches count on `PANEL_*`.
 - "3xtf32": fp32 at the head dims of `TF32_FWD_HEAD_DIMS` takes, for the
   forward, `csrc/flash_attn_fwd_3xtf32.cu` (`wgmma` fed by TMA on the
   tensor cores in 3xTF32, fp32 sums), which replaces the two TPU forward
   kernels in fp32.
-- "generic": fp32 at any other D from 1 to 256, and bf16 at a D up to 256
-  that is not a multiple of 8, take the three kernels of
-  `csrc/flash_attn_generic.cu`
-  (forward, dq with δ, dk/dv: FFMA on the CUDA cores, true fp32), which
+- "generic": fp32 at any other D, and bf16 at a D that is not a
+  multiple of 8, take the three kernels of `csrc/flash_attn_generic.cu`
+  (forward, dq with δ, dk/dv: FFMA on the CUDA cores, true fp32; above
+  D 256 the output split into panels of 256 columns, a block each), which
   replace the same five TPU kernels for what the other kernels do not
   take.
 The backward has its own table (`cuda_bwd_route`): "3xtf32", fp32 at the
@@ -88,16 +94,41 @@ TF32_FWD_LAUNCHES = 0
 #: launches of the 3xTF32 backward pair (csrc/flash_attn_bwd_3xtf32_*.cu)
 TF32_BWD_DQ_LAUNCHES = 0
 TF32_BWD_DKV_LAUNCHES = 0
+#: launches of the wgmma route's panel kernels above head dim 256
+#: (csrc/flash_attn_panel.cu): the forward, and the backward's dq and dk/dv
+PANEL_LAUNCHES = 0
+PANEL_BWD_DQ_LAUNCHES = 0
+PANEL_BWD_DKV_LAUNCHES = 0
 
-#: head dims the wgmma kernels take in bf16: multiples of 8 from 8 to 256
-WGMMA_HEAD_DIMS = range(8, 257, 8)
+
+class HeadDims:
+    """The head dims from `first` up in steps of `step`, with no end:
+    `d in HeadDims(8, 8)` for every multiple of 8."""
+
+    def __init__(self, first: int, step: int = 1):
+        self.first, self.step = first, step
+
+    def __contains__(self, d) -> bool:
+        return d >= self.first and (d - self.first) % self.step == 0
+
+    def __repr__(self) -> str:
+        return f"HeadDims({self.first}, {self.step})"
+
+
+#: head dims the wgmma route takes in bf16: every multiple of 8
+WGMMA_HEAD_DIMS = HeadDims(8, 8)
+#: the largest head dim of the single-panel wgmma kernels
+#: (csrc/flash_attn_fwd.cu, flash_attn_bwd.cu); above it the panel kernels
+#: (csrc/flash_attn_panel.cu) take the wgmma route's head dims
+WGMMA_MAX_SINGLE_PANEL = 256
 #: head dims whose wgmma instances scale the fp32 logits rather than fold
 #: the scale into q: 1/sqrt(D) is 2^-3 and 2^-4, so bf16(q * scale) is
 #: bf16(q) * scale and both orders give the same bits; their backward needs
 #: no folded-q scratch tensor
 LOGITS_SCALE_HEAD_DIMS = (64, 256)
-#: head dims the generic kernels take (a padded bucket of 16 to 256)
-GENERIC_HEAD_DIMS = range(1, 257)
+#: head dims the generic kernels take: every D >= 1 (a padded bucket of
+#: 16 to 256 columns, above 256 panels of 256)
+GENERIC_HEAD_DIMS = HeadDims(1)
 #: head dims at which the fp32 backward takes the 3xTF32 pair: the
 #: multiples of 8 from 8 to 128 (the kernels' instances are round_up(D, 16)
 #: columns wide). The generic pair keeps every other fp32 D. chip_smoke.py
@@ -141,21 +172,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def cuda_route(dtype: torch.dtype, head_dim: int):
     """The CUDA forward kernel that takes q, k, v of this dtype and head
-    dim: "wgmma" (bf16 with D a multiple of 8 from 8 to 256:
-    csrc/flash_attn_fwd.cu, and flash_attn_bwd.cu for the backward),
-    "3xtf32" (fp32 with D in TF32_FWD_HEAD_DIMS:
-    csrc/flash_attn_fwd_3xtf32.cu), "generic" (fp32 at any other D from 1
-    to 256, and bf16 at a D up to 256 that is not a multiple of 8, whose
-    rows TMA cannot read: csrc/flash_attn_generic.cu), or None (raises on
-    a CUDA tensor; on a CPU tensor the plain version takes any).
+    dim: "wgmma" (bf16 with D a multiple of 8: csrc/flash_attn_fwd.cu up
+    to 256 and csrc/flash_attn_panel.cu above, and flash_attn_bwd.cu or
+    the panel file's pair for the backward), "3xtf32" (fp32 with D in
+    TF32_FWD_HEAD_DIMS: csrc/flash_attn_fwd_3xtf32.cu), "generic" (fp32 at
+    any other D >= 1, and bf16 at a D that is not a multiple of 8, whose
+    rows TMA cannot read: csrc/flash_attn_generic.cu), or None (another
+    dtype, or D < 1: raises on a CUDA tensor; on a CPU tensor the plain
+    version takes any).
 
-    Nothing takes D above 256 on the card: the wgmma dq kernel's seven
-    64-row tiles already fill 225 of an SM's 227 KB of shared memory at
-    D 256, its accumulator and the wider dk/dv kernel's hold 128 fp32
-    registers a thread there, and one wgmma's N ends at 256, so a wider
-    head needs a kernel of another shape (key tiles split along D), and
-    the generic kernels' largest bucket is 256 columns. The TPU kernels
-    take any D; no configuration of the repo has a head dim above 256."""
+    Above D 256 the wgmma kernels of csrc/flash_attn_fwd.cu and
+    flash_attn_bwd.cu do not fit (the dq kernel's seven 64-row tiles fill
+    225 of an SM's 227 KB at D 256, their accumulators hold 128 fp32
+    registers a thread there, and one wgmma's N ends at 256), so the panel
+    kernels split the output along D into panels of at most 256 columns,
+    one a block, and stream q k^T (and dO v^T) over the whole D; the
+    generic kernels do the same with panels of 256 columns. Each panel's
+    block recomputes S (and dP): PERF.md has the factor and the times."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     if dtype == torch.float32 and head_dim in TF32_FWD_HEAD_DIMS:
@@ -169,7 +202,7 @@ def cuda_bwd_route(dtype: torch.dtype, head_dim: int):
     """The CUDA backward kernels that take q, k, v of this dtype and head
     dim: "3xtf32" (fp32 with D in TF32_BWD_HEAD_DIMS:
     csrc/flash_attn_bwd_3xtf32_dq.cu, _dkv.cu), "generic" at any other fp32
-    D from 1 to 256 (whichever kernel ran the forward), else the forward's
+    D >= 1 (whichever kernel ran the forward), else the forward's
     `cuda_route`."""
     if dtype == torch.float32 and head_dim in TF32_BWD_HEAD_DIMS:
         return "3xtf32"
@@ -247,7 +280,7 @@ def _route(dtypes, head_dim: int, backward: bool = False) -> str:
              if len(set(dtypes)) == 1 else None)
     if route is None:
         raise ValueError(
-            "the CUDA kernels take bf16 or fp32 with a head dim from 1 to 256 "
+            "the CUDA kernels take bf16 or fp32 with a head dim of 1 or more "
             f"(one dtype for every input), got {[str(d) for d in dtypes]} "
             f"with head dim {head_dim}")
     return route
@@ -271,13 +304,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the same shape, contiguous, in q's dtype, lse [BH, T] fp32).
 
     CUDA tensors launch, on the current stream, `occm_flash_attn_fwd`
-    (bf16, D a multiple of 8 from 8 to 256), `occm_flash_attn_3xtf32_fwd`
+    (bf16, D a multiple of 8 from 8 to 256), `occm_flash_attn_panel_fwd`
+    (bf16, D a multiple of 8 above 256), `occm_flash_attn_3xtf32_fwd`
     (fp32 at TF32_FWD_HEAD_DIMS) or `occm_flash_attn_generic_fwd` (fp32 at
-    any other D from 1 to 256, bf16 at any other D up to 256), as
-    `cuda_route` says; [B, T, H, D] is read through its strides, so the
-    projections' output needs no copy. CPU tensors take the plain
-    version."""
-    global LAUNCHES, OTHER_D_LAUNCHES
+    any other D, bf16 at any other D), as `cuda_route` says; [B, T, H, D]
+    is read through its strides, so the projections' output needs no copy.
+    CPU tensors take the plain version."""
+    global LAUNCHES, OTHER_D_LAUNCHES, PANEL_LAUNCHES
     if not (q.device == k.device == v.device):
         raise ValueError(
             f"q, k, v on different devices: {q.device}, {k.device}, "
@@ -305,6 +338,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _generic_fwd(q, k, v, t_valid, four_d, B, H, T, D)
     if route == "3xtf32":
         return _tf32_fwd(q, k, v, t_valid, four_d, B, H, T, D)
+    if D > WGMMA_MAX_SINGLE_PANEL:
+        out, lse = _tma_fwd("occm_flash_attn_panel_fwd", q, k, v, t_valid,
+                            four_d, B, H, T, D)
+        PANEL_LAUNCHES += 1
+        return out, lse
     out, lse = _tma_fwd("occm_flash_attn_fwd", q, k, v, t_valid, four_d, B,
                         H, T, D, int(D not in LOGITS_SCALE_HEAD_DIMS))
     if D == 64:
@@ -316,10 +354,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _tma_fwd(entry, q, k, v, t_valid, four_d, B, H, T, D, *fold):
     """One launch of a TMA forward kernel's entry point (`entry`:
-    `occm_flash_attn_fwd` or `occm_flash_attn_3xtf32_fwd`, which take the
-    same arguments, the first one more: `fold`, 1 to fold the scale into
-    q, 0 to scale the logits) on the current stream; raises ValueError for
-    strides their maps cannot read."""
+    `occm_flash_attn_fwd`, `occm_flash_attn_panel_fwd` or
+    `occm_flash_attn_3xtf32_fwd`, which take the same arguments, the first
+    one more: `fold`, 1 to fold the scale into q, 0 to scale the logits)
+    on the current stream; raises ValueError for strides their maps cannot
+    read."""
     qp, *qs = _launch_args(q, four_d)
     kp, *ks = _launch_args(k, four_d)
     vp, *vs = _launch_args(v, four_d)
@@ -429,7 +468,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ([B, T, H, D] views of the projections' output need no copy), two
     device launches and nothing else. At D other than 64 and 256 the dq
     kernel also writes bf16(q * scale) to a [B, T, H, D] scratch tensor
-    that the dk/dv kernel reads. fp32 at TF32_BWD_HEAD_DIMS launches the
+    that the dk/dv kernel reads. Above D 256 the pair is
+    `occm_flash_attn_panel_bwd_dq` and `_dkv`, which need no scratch (each
+    folds the scale into the q panels it streams). fp32 at
+    TF32_BWD_HEAD_DIMS launches the
     3xTF32 pair the same way (`occm_flash_attn_3xtf32_bwd_dq`, then
     `_dkv`), and any other dtype and D that `cuda_bwd_route` takes the
     generic pair (`occm_flash_attn_generic_bwd_dq`, then `_dkv`); both read
@@ -462,6 +504,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _generic_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D)
     if route == "3xtf32":
         return _tf32_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D)
+    if D > WGMMA_MAX_SINGLE_PANEL:
+        return _panel_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D)
     return _wgmma_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D,
                       int(D not in LOGITS_SCALE_HEAD_DIMS))
 
@@ -509,6 +553,41 @@ def _wgmma_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D, fold):
             BWD_DKV_LAUNCHES += 1
         else:
             OTHER_D_BWD_DKV_LAUNCHES += 1
+    return dq, dk, dv
+
+
+def _panel_bwd(q, k, v, o, lse, do, t_valid, four_d, B, H, T, D):
+    """`occm_flash_attn_panel_bwd_dq` then `_dkv` on the current stream;
+    raises ValueError for strides their maps cannot read."""
+    global PANEL_BWD_DQ_LAUNCHES, PANEL_BWD_DKV_LAUNCHES
+    (qp, *qs), (kp, *ks), (vp, *vs), (op, *os_), (dop, *dos) = (
+        _launch_args(x, four_d) for x in (q, k, v, o, do))
+
+    from occm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    stream = _build.raw_stream(q.device)
+    scale = 1.0 / math.sqrt(D)
+    with _build.on_device(q.device):
+        err = lib.occm_flash_attn_panel_bwd_dq(
+            qp, kp, vp, op, dop, lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), B, H, T, t_valid, D, *qs, *ks, *vs, *os_, *dos,
+            scale, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"occm_flash_attn_panel_bwd_dq failed: error {err}")
+        PANEL_BWD_DQ_LAUNCHES += 1
+        err = lib.occm_flash_attn_panel_bwd_dkv(
+            qp, kp, vp, dop, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, T, t_valid, D, *qs, *ks, *vs, *dos, scale,
+            stream)
+        if err != 0:
+            raise RuntimeError(
+                f"occm_flash_attn_panel_bwd_dkv failed: error {err}")
+        PANEL_BWD_DKV_LAUNCHES += 1
     return dq, dk, dv
 
 

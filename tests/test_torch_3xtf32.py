@@ -49,14 +49,14 @@ def one_torch_thread():
     *((torch.float32, d, "generic") for d in (1, 7, 12, 20, 136, 256)),
     *((torch.bfloat16, d, "wgmma") for d in (8, 64, 80, 128, 136, 256)),
     *((torch.bfloat16, d, "generic") for d in (12, 252)),
-    (torch.float32, 257, None), (torch.bfloat16, 257, None),
+    (torch.float32, 257, "generic"), (torch.bfloat16, 257, "generic"),
     (torch.float16, 64, None)])
 def test_backward_route_table(dtype, head_dim, route):
     """The backward takes the 3xTF32 pair in fp32 at every head dim that is
-    a multiple of 8 from 8 to 128, the generic pair at the other fp32 D up
-    to 256 (whichever kernel ran the forward), and the forward's route
-    otherwise; the fp32 forward takes the 3xTF32 kernel at the head dims of
-    its own table and the generic kernel at the others."""
+    a multiple of 8 from 8 to 128, the generic pair at every other fp32 D
+    (whichever kernel ran the forward; above 256 too), and the forward's
+    route otherwise; the fp32 forward takes the 3xTF32 kernel at the head
+    dims of its own table and the generic kernel at the others."""
     assert attention.cuda_bwd_route(dtype, head_dim) == route
     if dtype == torch.float32 and route is not None:
         assert attention.cuda_route(dtype, head_dim) == (
@@ -73,15 +73,15 @@ def test_forward_route_table(dtype, head_dim):
     """The fp32 forward takes the 3xTF32 kernel exactly at the head dims of
     TF32_FWD_HEAD_DIMS, which are multiples of 8 from 8 to 128 (its
     instances are round_up(D, 16) columns wide), and the generic kernel at
-    every other D up to 256; bf16 keeps the wgmma route (multiples of 8 up
-    to 256) and the generic one; D 257 and fp16 have no kernel."""
+    every other D (257 too); bf16 keeps the wgmma route (multiples of 8)
+    and the generic one; fp16 has no kernel."""
     assert set(attention.TF32_FWD_HEAD_DIMS) <= set(range(8, 129, 8))
     route = attention.cuda_route(dtype, head_dim)
     if dtype == torch.float32 and head_dim in attention.TF32_FWD_HEAD_DIMS:
         assert route == "3xtf32"
-    elif dtype == torch.bfloat16 and head_dim % 8 == 0 and head_dim <= 256:
+    elif dtype == torch.bfloat16 and head_dim % 8 == 0:
         assert route == "wgmma"
-    elif dtype in (torch.float32, torch.bfloat16) and head_dim <= 256:
+    elif dtype in (torch.float32, torch.bfloat16):
         assert route == "generic"
     else:
         assert route is None

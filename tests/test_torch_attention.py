@@ -379,14 +379,14 @@ def test_backward_delta_is_the_fp32_rowsum_in_the_layout_of_lse():
     (torch.bfloat16, 16, "wgmma"), (torch.float32, 16, "3xtf32"),
     (torch.float16, 64, None), (torch.bfloat16, 1, "generic"),
     (torch.float32, 256, "generic"), (torch.bfloat16, 256, "wgmma"),
-    (torch.bfloat16, 257, None), (torch.float32, 0, None)])
+    (torch.bfloat16, 257, "generic"), (torch.float32, 0, None)])
 def test_cuda_kernel_takes_only_bf16_with_head_dim_64(dtype, head_dim,
                                                       route):
     """The wgmma kernels take only bf16, at head dims that are multiples
-    of 8 up to 256 (64, 16 and 256 here); the 3xTF32 forward takes fp32 at the
+    of 8 (64, 16 and 256 here); the 3xTF32 forward takes fp32 at the
     head dims of its table (64 and 16 here), the generic kernels fp32 at
-    every other head dim from 1 to 256 and bf16 at the others; nothing
-    takes fp16 or a head dim outside 1..256."""
+    every other head dim from 1 up and bf16 at the others (257 here);
+    nothing takes fp16 or a head dim below 1."""
     assert attention.cuda_route(dtype, head_dim) == route
     assert attention.cuda_kernel_takes(dtype, head_dim) is (route is not None)
 
@@ -398,16 +398,17 @@ def test_cuda_kernel_takes_only_bf16_with_head_dim_64(dtype, head_dim,
     *((torch.bfloat16, d, "generic") for d in (1, 7, 12, 252)),
     *((torch.float32, d, "generic") for d in (1, 7, 136, 256)),
     *((torch.float32, d, "3xtf32") for d in (8, 16, 64, 80, 120, 128)),
-    (torch.bfloat16, 257, None), (torch.float32, 257, None),
-    (torch.bfloat16, 264, None)])
+    (torch.bfloat16, 257, "generic"), (torch.float32, 257, "generic"),
+    (torch.bfloat16, 264, "wgmma")])
 def test_cuda_route_table(dtype, head_dim, route):
     """The wgmma kernels (csrc/flash_attn_fwd.cu, flash_attn_bwd.cu) take
     bf16 at every head dim that is a multiple of 8 from 8 to 256, one
-    instance for each round_up(D, 16); the 3xTF32 forward
-    (csrc/flash_attn_fwd_3xtf32.cu) takes fp32 at the head dims of
-    TF32_FWD_HEAD_DIMS; the generic kernels keep fp32 at every other D
-    from 1 to 256 and bf16 at a D up to 256 that is not a multiple of 8;
-    above 256 (a multiple of 8 or not) nothing takes it."""
+    instance for each round_up(D, 16), and the panel kernels
+    (csrc/flash_attn_panel.cu) the multiples of 8 above (264 here), on the
+    same route; the 3xTF32 forward (csrc/flash_attn_fwd_3xtf32.cu) takes
+    fp32 at the head dims of TF32_FWD_HEAD_DIMS; the generic kernels keep
+    fp32 at every other D and bf16 at a D that is not a multiple of 8,
+    above 256 too (257 here)."""
     assert attention.cuda_route(dtype, head_dim) == route
     if dtype == torch.bfloat16:
         assert (head_dim in attention.WGMMA_HEAD_DIMS) is (route == "wgmma")
@@ -551,7 +552,7 @@ def _cuda_patched(monkeypatch):
     (torch.bfloat16, 80, "wgmma"), (torch.float32, 256, "generic"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 136, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 0, None),
-    (torch.float32, 257, None), (torch.float16, 64, None),
+    (torch.float32, 257, "generic"), (torch.float16, 64, None),
     (torch.float16, 16, None)])
 def test_cuda_wrappers_route_or_refuse(monkeypatch, dtype, head_dim,
                                        reaches):
@@ -560,10 +561,10 @@ def test_cuda_wrappers_route_or_refuse(monkeypatch, dtype, head_dim,
     these contiguous tensors) and the backward wrapper the one
     `cuda_bwd_route` names (fp32 at D 64 and 16: the 3xTF32 pair), and
     both go on to the build (the generic kernels and the 3xTF32 backward
-    read any strides, so the views need no check), or
-    raise ValueError for what no route takes (D 0, D 257, fp16), before any
-    build; a mixed-dtype call raises. Checked with the device test patched,
-    as this host has no card."""
+    read any strides, so the views need no check; fp32 at D 257 takes the
+    generic kernels' panels), or raise ValueError for what no route takes
+    (D 0, fp16), before any build; a mixed-dtype call raises. Checked with
+    the device test patched, as this host has no card."""
     T = 8
     q, k, v, o, do = (torch.zeros((2, T, 3, head_dim), dtype=dtype)
                       for _ in range(5))
@@ -581,9 +582,9 @@ def test_cuda_wrappers_route_or_refuse(monkeypatch, dtype, head_dim,
         (torch.float32, 64), (torch.float32, 16)) else reaches
     Built = _cuda_patched(monkeypatch)
     if reaches is None:
-        with pytest.raises(ValueError, match="from 1 to 256"):
+        with pytest.raises(ValueError, match="of 1 or more"):
             attention.flash_attention_fwd(q, k, v, T)
-        with pytest.raises(ValueError, match="from 1 to 256"):
+        with pytest.raises(ValueError, match="of 1 or more"):
             attention.flash_attention_bwd(q, k, v, o, lse, do, T)
         return
     with pytest.raises(Built):

@@ -10,9 +10,11 @@ the 3xTF32 forward takes fp32 at the head dims of its table
 (`XLSRConfig.tiny()` is fp32 with D = 16, `XLSRConfig(dtype="float32")`
 D = 64), and auto picks it from the measured AUTO_TF32_MIN_SAMPLES up; the
 generic kernels take fp32 at the other head dims, and bf16 at any other
-head dim up to 256, and auto picks them from the measured
+head dim, and auto picks them from the measured
 AUTO_GENERIC_MIN_SAMPLES up, or never where it is None; a model with
-D > 256 gets "xla". This holds at both
+D > 256, which the panel kernels (bf16 at a multiple of 8) or the generic
+kernels' panels take, gets "xla" in every bucket until its own threshold
+AUTO_OVER_256_MIN_SAMPLES is measured. This holds at both
 places that know the model: the scorers' and the server's
 `make_embed_fn_factory`, and `oc_training`. On the CPU, where "flash" runs
 the plain version at any dtype, auto resolves as before, and a pinned impl
@@ -87,7 +89,8 @@ def test_auto_picks_xla_for_a_cuda_model_the_kernel_cannot_take(
     """The models the wgmma kernels' D 64 instance does not take: the
     3xTF32 route's fp32 models (D 16 and 64) follow its measured
     threshold, bf16 at the wgmma route's other head dims (16 here) theirs;
-    a head dim no kernel takes gets "xla" in every bucket."""
+    a head dim above 256 gets "xla" in every bucket
+    (AUTO_OVER_256_MIN_SAMPLES is None until measured)."""
     want = {WIDE_HEAD: "xla",
             BF16_D16: _other_d_auto(seconds)}.get(cfg, _tf32_auto(seconds))
     assert _factory_impl(monkeypatch, cfg, "cuda", seconds=seconds) == want
@@ -129,9 +132,8 @@ def test_auto_on_the_cpu_resolves_as_before(monkeypatch, cfg):
 @pytest.mark.parametrize("pinned", ["flash", "xla"])
 def test_a_pinned_impl_passes_through_on_cuda(monkeypatch, pinned):
     """A pinned "flash" passes through on every model: the generic
-    kernels run the tiny one, and on a model no kernel takes the wrapper
-    raises on the card (a selection of the model's path, not a fallback on
-    failure)."""
+    kernels run the tiny one, and their panels the one with head dim 260
+    (a selection of the model's path, not a fallback on failure)."""
     assert _factory_impl(monkeypatch, TINY, "cuda", pinned) == pinned
     assert _factory_impl(monkeypatch, WIDE_HEAD, "cuda", pinned) == pinned
 
@@ -139,16 +141,20 @@ def test_a_pinned_impl_passes_through_on_cuda(monkeypatch, pinned):
 @pytest.mark.parametrize("cfg, device, want", [
     (TINY, "cuda", True), (FP32_D64, "cuda", True),
     (BF16_D16, "cuda", True), (FULL, "cuda", True), (TINY, "cpu", True),
-    (FULL, "cpu", True), (WIDE_HEAD, "cuda", False),
+    (FULL, "cpu", True), (WIDE_HEAD, "cuda", True),
     (WIDE_HEAD, "cpu", True)])
 def test_flash_kernel_takes(cfg, device, want):
-    """A CUDA route takes every model but one with D > 256; the CPU's
-    plain version takes any. Auto's threshold follows the route (and, on
-    the wgmma route, whether the head dim is 64)."""
+    """A CUDA route takes every model, D > 256 included (fp32 D 260: the
+    generic kernels' panels); the CPU's plain version takes any. Auto's
+    threshold follows the route (and, on the wgmma route, whether the head
+    dim is 64); above head dim 256 it is AUTO_OVER_256_MIN_SAMPLES, None
+    until measured, so auto keeps "xla" there."""
     assert impl_select.flash_kernel_takes(cfg, device) is want
     floor = impl_select.auto_flash_min_samples(cfg, device)
     if not want:
         assert floor is None
+    elif cfg is WIDE_HEAD and device == "cuda":
+        assert floor is impl_select.AUTO_OVER_256_MIN_SAMPLES is None
     elif device == "cpu" or cfg is FULL:
         assert floor == impl_select.AUTO_FLASH_MIN_SAMPLES
     elif cfg is BF16_D16:
